@@ -1,0 +1,50 @@
+"""mfcc_tpu_torch — the PyTorch/CUDA port of the mfcc_tpu front-end.
+
+A package of its own beside `mfcc_tpu/` (the JAX reference, which it never
+imports): the same module names, PyTorch idiom, and hand-written CUDA
+kernels for Hopper in place of the Pallas TPU kernels. Entry points run on
+the card ("cuda") unless the caller passes device="cpu", which runs the
+plain torch chain.
+
+Layers:
+    config       frozen FrontendConfig + named configs (a copy of the JAX one)
+    ops          constants (float64 host matrices, `to_torch`) and the chain
+    kernels      CUDA front-end kernel, its wrapper and plain version
+    pipeline     host batching into flat int16/float rows
+"""
+
+from mfcc_tpu_torch.config import (FrontendConfig, config_with_overrides,
+                                   named_config, NAMED_CONFIGS)
+
+__version__ = "0.1.0"
+
+
+def extract(samples, config="classic13", device="cuda"):
+    """One utterance's samples (int16 or float array/tensor at
+    cfg.sample_rate) → float32 [F_valid, feat_dim] features on `device`.
+
+    Wav paths and bytes need the io port (ROADMAP queue 1 item 10) and
+    raise NotImplementedError."""
+    import numpy as np
+    import torch
+
+    from mfcc_tpu_torch.ops import chain
+
+    if isinstance(samples, (str, bytes)) or hasattr(samples, "__fspath__"):
+        raise NotImplementedError(
+            "wav input needs the io port (ROADMAP queue 1 item 10); pass the "
+            "decoded samples"
+        )
+    cfg = named_config(config) if isinstance(config, str) else config
+    x = samples if isinstance(samples, torch.Tensor) else torch.as_tensor(np.asarray(samples))
+    if x.dtype != torch.int16:
+        x = x.to(chain.compute_dtype(cfg))
+    n = int(x.shape[0])
+    feat, _ = chain.extract_batch(x[None, :], [n], cfg, device=device)
+    return feat[0, : cfg.num_frames(n)]
+
+
+__all__ = [
+    "FrontendConfig", "config_with_overrides", "named_config",
+    "NAMED_CONFIGS", "extract", "__version__",
+]

@@ -1,0 +1,253 @@
+// Fused MFCC front-end for Hopper (sm_90a): audio rows -> [log-mel | energy].
+//
+// Replaces mfcc_tpu/kernels/frontend.py::_make_radix4_kernel (:905), slab
+// mode with its default branches, launched from _fused_logmel_energy (:1295)
+// through pl.pallas_call (:1552). Plain version and wrapper:
+// mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
+// logmel_prefix).
+//
+// Per utterance b and frame f < F:
+//   x[t]   = float(audio[b, t]) * scale              (int16 or float32 rows)
+//   y[t]   = x[t] - c * x[t-1], x[-1] = 0; then y[t] = 0 for t >= lengths[b]
+//   X[k]   = rfft(y[f*S : f*S+L] * window, n=512)    (zero past T and past L)
+//   P[k]   = |X[k]|^2 * pscale                       (k < 257)
+//   out[b, f, m] = ln(where(mel_m <= 0, eps, mel_m)), mel_m = sum_k P[k] mel[k, m]
+//   out[b, f, M] = where(E <= 0, eps, E),             E = sum_k P[k] (unlogged)
+//
+// Bound at the main path (classic13_deltas, batch 64 x 10 s, int16 rows,
+// T = 160,080, F = 999, M = 26; H100 SXM peaks):
+//   bytes: 20.49 MB int16 in + 6.90 MB out = 27.4 MB -> 8.2 us at 3.35 TB/s.
+//   operations, the function's minimum (not this kernel's form): 0.4 k window
+//     + 6.66 k for a split-radix 256-point complex FFT (4N log2 N - 6N + 8)
+//     + 1.78 k real split (its 1/2 scalings fold into pscale) + 0.77 k |X|^2
+//     + 0.92 k mel (the 459 nonzero weights) + 0.26 k energy + 53 clamp/ln
+//     = 10,839 FLOP per frame x 56,836 frames that hold samples, plus 2 per
+//     sample of pre-emphasis = 0.634 GFLOP -> 9.47 us at 67 TFLOP/s fp32.
+//     The operations set the bound; chip_smoke.py computes it from each
+//     run's inputs. This kernel's radix-2 form does ~14.8 k per frame.
+//   A dense [257, 27] projection would add ~13 kFLOP per frame, and a direct
+//   DFT ~400 kFLOP per frame (~0.39 ms at this batch).
+//
+// Design. One block per (utterance, tile of 32 frames), 8 warps:
+//   1. The tile's sample span, 31*160+400 = 5,360 samples, is staged once in
+//      shared memory as fp32 after convert, pre-emphasis and zeroing. Each
+//      input byte is read about once (the 240-sample overlap between tiles
+//      and the x[t-1] re-read are served by L1/L2); pre-emphasis reads the
+//      previous tile's last sample from global memory, so only t = 0 sees
+//      x[-1] = 0. Zeroing follows pre-emphasis, so y[length] = 0, and it
+//      does not rely on the padding being zero.
+//   2. Each warp takes one frame at a time: the windowed frame is packed as
+//      256 complex points (even samples real, odd imaginary) in bit-reversed
+//      order, and an in-place radix-2 FFT runs in shared memory with
+//      __syncwarp between stages. Twiddles come from a host table computed
+//      in float64 (no in-kernel sincosf). Every sum is fp32 FMA: no TF32,
+//      no bf16 (1-pass reduced precision breaks the 1e-4 log-mel gate,
+//      docs/KERNEL.md section 3).
+//   3. The real split gives X[k] and X[256-k] from Z[k] and Z[256-k]; |X|^2
+//      goes to a per-warp shared row of 257 powers.
+//   4. Lane m sums filter m over its nonzero band [mel_lo[m], mel_hi[m])
+//      (exact: the skipped weights are zero), takes the clamp and ln; the
+//      energy (the all-ones column of the TPU kernel) is a warp sum of all
+//      257 powers. Nothing but the [F, M+1] prefix reaches device memory.
+// It is far from the bound: the shared-memory radix-2 FFT is latency-bound
+// (one frame per warp, a __syncwarp per stage). Register-resident radix-8/16
+// FFTs with several frames per warp are the next step.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kNfft = 512;
+constexpr int kHalf = kNfft / 2;      // complex FFT size
+constexpr int kLog2Half = 8;
+constexpr int kBins = kNfft / 2 + 1;  // 257
+constexpr int kTile = 32;             // frames per block
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPowStride = 260;       // per-warp power row, padded to 16 B
+
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// Dynamic shared memory layout, in floats (every offset 16-byte aligned).
+struct Layout {
+  int span, win, mel, tw, buf, pw, total;
+};
+
+__host__ __device__ inline Layout layout(int S, int L, int M) {
+  Layout l;
+  l.span = (kTile - 1) * S + L;
+  l.win = align4(l.span);
+  l.mel = l.win + kNfft;
+  l.tw = l.mel + align4(kBins * M);
+  l.buf = l.tw + 2 * kHalf;
+  l.pw = l.buf + 2 * kHalf * kWarps;
+  l.total = l.pw + kPowStride * kWarps;
+  return l;
+}
+
+__device__ inline float to_f32(int16_t v) { return static_cast<float>(v); }
+__device__ inline float to_f32(float v) { return v; }
+
+__device__ inline float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename Sample>
+__global__ void __launch_bounds__(kThreads)
+logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+              float* __restrict__ out, const float* __restrict__ window,
+              const float* __restrict__ mel, const int* __restrict__ mel_lo,
+              const int* __restrict__ mel_hi, const float2* __restrict__ twiddle,
+              int T, int F, int L, int S, int M, float scale, float preemph,
+              float eps, float pscale) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout lay = layout(S, L, M);
+  float* sig = smem;
+  float* win = smem + lay.win;
+  float* melw = smem + lay.mel;
+  float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
+
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * kTile;
+  const long long t0 = static_cast<long long>(f0) * S;
+  const int len = min(lengths[b], T);
+  const Sample* row = audio + static_cast<size_t>(b) * T;
+
+  // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
+  for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+    const long long t = t0 + i;
+    float y = 0.f;
+    if (t < len) {
+      const float x = to_f32(row[t]) * scale;
+      const float xp = t > 0 ? to_f32(row[t - 1]) * scale : 0.f;
+      y = x - preemph * xp;
+    }
+    sig[i] = y;
+  }
+  for (int i = threadIdx.x; i < kNfft; i += kThreads) win[i] = i < L ? window[i] : 0.f;
+  for (int i = threadIdx.x; i < kBins * M; i += kThreads) melw[i] = mel[i];
+  for (int i = threadIdx.x; i < kHalf; i += kThreads) tw[i] = twiddle[i];
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float2* z = reinterpret_cast<float2*>(smem + lay.buf) + warp * kHalf;
+  float* p = smem + lay.pw + warp * kPowStride;
+
+  for (int fl = warp; fl < kTile; fl += kWarps) {
+    const int f = f0 + fl;
+    if (f >= F) break;  // warp-uniform
+    const float* fr = sig + fl * S;
+
+    // 2. windowed frame as 256 complex points, bit-reversed for the DIT FFT
+    for (int n = lane; n < kHalf; n += 32) {
+      const int a = 2 * n;
+      const float re = a < L ? fr[a] * win[a] : 0.f;
+      const float im = a + 1 < L ? fr[a + 1] * win[a + 1] : 0.f;
+      z[__brev(n) >> (32 - kLog2Half)] = make_float2(re, im);
+    }
+    __syncwarp();
+    for (int lg = 0; lg < kLog2Half; ++lg) {
+      const int half = 1 << lg;
+      for (int j = lane; j < kHalf / 2; j += 32) {
+        const int pos = j & (half - 1);
+        const int i0 = ((j >> lg) << (lg + 1)) + pos;
+        const int i1 = i0 + half;
+        // e^{-2 pi i pos / (2 half)} = table entry pos * 512 / (2 half)
+        const float2 w = tw[pos << (kLog2Half - lg)];
+        const float2 u = z[i0];
+        const float2 v = z[i1];
+        const float vr = v.x * w.x - v.y * w.y;
+        const float vi = v.x * w.y + v.y * w.x;
+        z[i0] = make_float2(u.x + vr, u.y + vi);
+        z[i1] = make_float2(u.x - vr, u.y - vi);
+      }
+      __syncwarp();
+    }
+
+    // 3. real split: Xe = (Z[k] + conj Z[256-k]) / 2, Xo = (Z[k] - conj Z[256-k]) / 2i,
+    //    X[k] = Xe + W^k Xo and X[256-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / 512}
+    for (int k = lane; k <= kHalf / 2; k += 32) {
+      const float2 a = z[k];
+      const float2 c = z[(kHalf - k) & (kHalf - 1)];
+      const float er = 0.5f * (a.x + c.x);
+      const float ei = 0.5f * (a.y - c.y);
+      const float orr = 0.5f * (a.y + c.y);
+      const float oi = -0.5f * (a.x - c.x);
+      const float2 w = tw[k];
+      const float wr = orr * w.x - oi * w.y;
+      const float wi = orr * w.y + oi * w.x;
+      const float xr = er + wr, xi = ei + wi;
+      p[k] = (xr * xr + xi * xi) * pscale;
+      if (k != kHalf / 2) {
+        const float yr = er - wr, yi = ei - wi;
+        p[kHalf - k] = (yr * yr + yi * yi) * pscale;
+      }
+    }
+    __syncwarp();
+
+    // 4. mel projection over each filter's nonzero band, energy, clamp, ln
+    float* o = out + (static_cast<size_t>(b) * F + f) * (M + 1);
+    for (int m = lane; m < M; m += 32) {
+      float acc = 0.f;
+      const int hi = mel_hi[m];
+      for (int k = mel_lo[m]; k < hi; ++k) acc += p[k] * melw[k * M + m];
+      o[m] = logf(acc <= 0.f ? eps : acc);
+    }
+    float e = 0.f;
+    for (int k = lane; k < kBins; k += 32) e += p[k];
+    e = warp_sum(e);
+    if (lane == 0) o[M] = e <= 0.f ? eps : e;
+    __syncwarp();  // z and p are rewritten by the warp's next frame
+  }
+}
+
+template <typename Sample>
+cudaError_t launch(const void* audio, const int* lengths, float* out,
+                   const float* window, const float* mel, const int* mel_lo,
+                   const int* mel_hi, const float* twiddle, int B, int T, int F,
+                   int L, int S, int M, float scale, float preemph, float eps,
+                   float pscale, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(layout(S, L, M).total) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      logmel_kernel<Sample>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((F + kTile - 1) / kTile, B);
+  logmel_kernel<Sample><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const Sample*>(audio), lengths, out, window, mel, mel_lo, mel_hi,
+      reinterpret_cast<const float2*>(twiddle), T, F, L, S, M, scale, preemph,
+      eps, pscale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the front-end on `stream`; returns cudaGetLastError() (0 = launched).
+// audio [B, T] int16 (audio_is_int16 != 0) or float32; lengths [B] int32;
+// out [B, F, M+1] float32; window [>= L] float32; mel [257, M] float32;
+// mel_lo / mel_hi [M] int32; twiddle [256, 2] float32. L <= 512.
+int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
+                         float* out, const float* window, const float* mel,
+                         const int* mel_lo, const int* mel_hi, const float* twiddle,
+                         int B, int T, int F, int L, int S, int M, float scale,
+                         float preemph, float eps, float pscale, void* stream) {
+  if (L < 1 || L > kNfft || S < 1 || M < 1 || B < 1 || F < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (audio_is_int16) {
+    return launch<int16_t>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle,
+                           B, T, F, L, S, M, scale, preemph, eps, pscale, s);
+  }
+  return launch<float>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle, B,
+                       T, F, L, S, M, scale, preemph, eps, pscale, s);
+}
+
+const char* mfcc_frontend_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

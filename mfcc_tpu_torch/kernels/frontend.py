@@ -1,0 +1,162 @@
+"""The fused front-end on Hopper: audio rows → [log-mel | energy] prefix.
+
+Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode,
+default branches) and the `_stage_dict` prefix it feeds. One CUDA kernel
+(`csrc/frontend.cu`, whose header states its design and bound) does, per
+utterance and frame: int16/fp32 convert × input_scale, signal pre-emphasis
+with x[-1] = 0, zeroing at t >= length, window, 512-point real FFT, |X|²,
+mel projection, `ln` clamp, and the clamped (unlogged) energy on lane M.
+Output [B, F, n_mels+1] float32 with F = cfg.num_frames(T).
+
+`logmel_prefix` is the wrapper: on a CUDA tensor it launches the kernel or
+raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
+PyTorch version built from the chain's stages. `launches` counts kernel
+launches (set it to 0 to start a count).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from mfcc_tpu_torch.config import FrontendConfig
+from mfcc_tpu_torch.kernels import _build
+from mfcc_tpu_torch.ops import chain
+
+NFFT = 512  # the kernel's FFT size (unsupported_reason refuses others)
+MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
+
+launches = 0
+
+
+def logmel_prefix_reference(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """The kernel's plain version: [log-mel | clamped energy] from
+    chain.logmel_stages (torch.fft.rfft + mel matmul), on any device."""
+    st = chain.logmel_stages(audio, lengths, cfg, consts)
+    return torch.cat([st["logmel"], st["energy"][..., None]], dim=-1)
+
+
+def fft_twiddles() -> np.ndarray:
+    """[256, 2] float32 table of e^{-2πik/512} (cos, -sin), computed in
+    float64: the 256-point FFT's twiddles are its even entries, the real
+    split's are all of them."""
+    ang = 2.0 * np.pi * np.arange(NFFT // 2, dtype=np.float64) / NFFT
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def mel_bands(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-column [lo, hi) bounds of the nonzero rows of mel [n_bins, M]
+    (lo = hi = 0 for an all-zero column): the kernel sums only inside them,
+    which is exact since the weights it skips are zero."""
+    nz = mel != 0
+    k = torch.arange(mel.shape[0], device=mel.device)[:, None]
+    hi = torch.where(nz, k + 1, 0).amax(dim=0)
+    lo = torch.where(nz, k, mel.shape[0]).amin(dim=0)
+    lo = torch.where(hi > 0, lo, 0)
+    return lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+
+
+def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
+    mel = consts["mel"].to(device=device, dtype=torch.float32).contiguous()
+    lo, hi = mel_bands(mel)
+    return {
+        "window": consts["window"].to(device=device, dtype=torch.float32).contiguous(),
+        "mel": mel,
+        "mel_lo": lo,
+        "mel_hi": hi,
+        "twiddle": torch.as_tensor(fft_twiddles(), device=device),
+    }
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables(cfg: FrontendConfig, device: torch.device):
+    return _tables(chain.device_constants(cfg, device, torch.float32), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("frontend")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.mfcc_frontend_logmel.argtypes = [
+        p, i, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
+        i, i, i, i, i, i,  # B, T, F, L, S, M
+        f, f, f, f,  # scale, preemph, eps, pscale
+        p,  # stream
+    ]
+    lib.mfcc_frontend_logmel.restype = ctypes.c_int
+    lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
+    lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def logmel_prefix(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """audio [B, T] int16 or float32 + lengths [B] int32 → [B, F, M+1]
+    float32 (lanes [0:M] log-mel, lane M the clamped energy).
+
+    CUDA tensors launch the kernel (contiguous, on one device, else it
+    raises); CPU tensors get the plain version. `consts` overrides the
+    window and mel matrix (a chain-constants dict)."""
+    global launches
+    if audio.device.type == "cpu":
+        return logmel_prefix_reference(audio, lengths, cfg, consts)
+    if audio.device.type != "cuda":
+        raise ValueError(f"the front-end kernel runs on CUDA, got {audio.device}")
+    chain.check_supported(cfg)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"the kernel computes in float32, not {cfg.dtype}")
+    if audio.dim() != 2 or audio.dtype not in (torch.int16, torch.float32):
+        raise ValueError(
+            f"audio must be [B, T] int16 or float32, got {audio.dtype} "
+            f"{tuple(audio.shape)}"
+        )
+    B, T = audio.shape
+    if (
+        lengths.device != audio.device
+        or lengths.dtype != torch.int32
+        or lengths.shape != (B,)
+    ):
+        raise ValueError(
+            f"lengths must be int32 [{B}] on {audio.device}, got "
+            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
+        )
+    if not (audio.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("audio and lengths must be contiguous")
+    if B > MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
+    F, M = cfg.num_frames(T), cfg.n_mels
+    out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
+    if B == 0:
+        return out
+    k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
+    lib = _lib()
+    with torch.cuda.device(audio.device):
+        rc = lib.mfcc_frontend_logmel(
+            audio.data_ptr(), int(audio.dtype == torch.int16),
+            lengths.data_ptr(), out.data_ptr(), k["window"].data_ptr(),
+            k["mel"].data_ptr(), k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(),
+            k["twiddle"].data_ptr(),
+            B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M,
+            cfg.input_scale, cfg.preemph, cfg.log_eps,
+            1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            "front-end kernel launch failed: "
+            f"{lib.mfcc_frontend_error_string(rc).decode()} (cudaError {rc})"
+        )
+    launches += 1
+    return out

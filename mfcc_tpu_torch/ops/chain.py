@@ -1,0 +1,340 @@
+"""The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for the
+classic13 family (standard "pad" framing, signal pre-emphasis, power-spectrum
+energy, natural log).
+
+Batch layout is `audio[B, T]` + `lengths[B]`, as in the JAX package: frames
+are derived with a static frame count `F = cfg.num_frames(T)` and a
+per-utterance valid frame count, so padding never changes the numbers on
+valid frames. Pre-emphasis runs on the raw signal and is then re-zeroed
+beyond each utterance's length.
+
+`extract_batch` runs on the card by default. There the front-end (framing
+through log-mel and energy) is one hand-written CUDA kernel
+(`mfcc_tpu_torch/kernels/frontend.py`), and its [log-mel | energy] prefix
+feeds `features_from_logmel`'s prefix path. With `device="cpu"` it runs the
+plain chain of this module (`logmel_stages`, the kernel's plain version).
+A config outside the slice raises on both devices, naming the kernel branch
+it still needs.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from mfcc_tpu_torch.config import FrontendConfig
+from mfcc_tpu_torch.ops import constants as C
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def compute_dtype(cfg: FrontendConfig) -> torch.dtype:
+    try:
+        return _DTYPES[cfg.dtype]
+    except KeyError:
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the torch chain computes in {sorted(_DTYPES)}"
+        ) from None
+
+
+@functools.lru_cache(maxsize=64)
+def device_constants(
+    cfg: FrontendConfig, device: torch.device, dtype: torch.dtype
+) -> dict[str, torch.Tensor]:
+    """Chain constants cast once from host float64 to `dtype` on `device`."""
+    return C.to_torch(C.chain_constants(cfg), device, dtype)
+
+
+def unsupported_reason(cfg: FrontendConfig) -> str | None:
+    """None when this slice of the port implements `cfg`; otherwise the
+    kernel branch it still needs, with its ROADMAP queue-2 item."""
+    if cfg.input_sample_rate and cfg.input_sample_rate != cfg.sample_rate:
+        return "in-kernel fused resample (ROADMAP queue 2 item 7)"
+    if cfg.dither > 0.0:
+        return "in-kernel dither (ROADMAP queue 2 item 6)"
+    if (
+        cfg.remove_dc_offset
+        or cfg.preemph_mode != "signal"
+        or cfg.energy_source != "pspec"
+    ):
+        return "frame-first conditioning (ROADMAP queue 2 item 3)"
+    if cfg.features in ("plp", "spectrogram"):
+        return "PLP epilogue and multi-tile output (ROADMAP queue 2 item 4)"
+    if cfg.features == "ssc":
+        return "SSC branch (ROADMAP queue 2 item 5)"
+    if (
+        cfg.frame_tail != "pad"
+        or cfg.drop_last_frame
+        or cfg.logmel_norm != "none"
+        or cfg.log_kind == "log10_floor"
+    ):
+        return (
+            "centered framing, log10_floor epilogue and whisper "
+            "normalization (ROADMAP queue 2 item 2)"
+        )
+    if cfg.n_fft != 512:
+        return "DFT at n_fft != 512 (ROADMAP queue 2 items 2 and 9)"
+    if cfg.log_kind != "ln":
+        return f"{cfg.log_kind} epilogue (ROADMAP queue 2 item 1, left open)"
+    return None
+
+
+def check_supported(cfg: FrontendConfig) -> None:
+    reason = unsupported_reason(cfg)
+    if reason:
+        raise NotImplementedError(
+            f"config {cfg.config_hash()} needs the {reason}, which the "
+            "port does not have yet"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Stages — all operate on [B, T] / [B, F, X]
+# ---------------------------------------------------------------------------
+
+
+def num_valid_frames(lengths: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """Per-utterance valid frame count under "pad" framing, 1 +
+    ceil(max(0, n - L) / S); length 0 counts 0 frames (a zero-length row is
+    batch padding)."""
+    L, S = cfg.frame_length, cfg.frame_step
+    a = torch.clamp(lengths - L, min=0)
+    n = 1 + (a + S - 1) // S
+    return torch.where(lengths > 0, n, torch.zeros_like(n))
+
+
+def frame_mask(n_valid: torch.Tensor, num_frames: int, dtype) -> torch.Tensor:
+    t = torch.arange(num_frames, device=n_valid.device)
+    return (t[None, :] < n_valid[:, None]).to(dtype)
+
+
+def preemphasis(x: torch.Tensor, coeff: float) -> torch.Tensor:
+    """y[0] = x[0]; y[t] = x[t] - coeff * x[t-1], along the last axis."""
+    if coeff == 0.0:
+        return x
+    return torch.cat([x[..., :1], x[..., 1:] - coeff * x[..., :-1]], dim=-1)
+
+
+def zero_beyond(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Zero samples at t >= length."""
+    t = torch.arange(x.shape[-1], device=x.device)
+    return x * (t[None, :] < lengths[:, None]).to(x.dtype)
+
+
+def frame_signal(x: torch.Tensor, num_frames: int, cfg: FrontendConfig) -> torch.Tensor:
+    """frames[..., f, n] = x[..., f*S + n] as a strided view; x must hold
+    (num_frames-1)*S + L samples."""
+    return x.unfold(-1, cfg.frame_length, cfg.frame_step)[..., :num_frames, :]
+
+
+def power_spectrum(windowed: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """rfft with n=n_fft (pads/truncates), |X|^2 (optionally / NFFT)."""
+    spec = torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1)
+    p = spec.real**2 + spec.imag**2
+    if cfg.power_scale_nfft:
+        p = p / cfg.n_fft
+    return p
+
+
+def apply_log(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """ln(where(x <= 0, eps, x)) — the "ln" log kind, the one this slice
+    has (unsupported_reason refuses the others)."""
+    return torch.log(torch.where(x <= 0, cfg.log_eps, x))
+
+
+def _tail_replicated(feat: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Copy row n_valid-1 into every row t >= n_valid."""
+    idx = torch.clamp(n_valid - 1, min=0).long()
+    idx = idx[:, None, None].expand(feat.shape[0], 1, feat.shape[-1])
+    last = torch.gather(feat, -2, idx)  # [B, 1, D]
+    t = torch.arange(feat.shape[-2], device=feat.device)
+    keep = t[None, :, None] < n_valid[:, None, None]
+    return torch.where(keep, feat, last)
+
+
+def delta(feat: torch.Tensor, n_valid: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """Regression delta with edge replication at the *valid* boundary:
+    once the tail beyond n_valid holds the last valid row, the clipped
+    indices c[min(t+i, n_valid-1)] / c[max(t-i, 0)] are static shifts with
+    edge replication at the array bounds."""
+    N = cfg.delta_window
+    F = feat.shape[-2]
+    denom = 2.0 * sum(i * i for i in range(1, N + 1))
+    x = _tail_replicated(feat, n_valid)
+    out = torch.zeros_like(x)
+    for i in range(1, N + 1):
+        k = min(i, F)  # utterances shorter than the window replicate fully
+        plus = torch.cat([x[..., k:, :]] + [x[..., -1:, :]] * k, dim=-2)
+        minus = torch.cat([x[..., :1, :]] * k + [x[..., : F - k, :]], dim=-2)
+        out = out + i * (plus - minus)
+    return out / denom
+
+
+def cmvn_utterance(
+    feat: torch.Tensor, mask: torch.Tensor, cfg: FrontendConfig
+) -> torch.Tensor:
+    """Masked per-utterance mean/variance norm over valid frames."""
+    m = mask[..., None].to(feat.dtype)
+    n = torch.clamp(m.sum(dim=-2, keepdim=True), min=1.0)
+    mu = (feat * m).sum(dim=-2, keepdim=True) / n
+    out = feat - mu
+    if cfg.cmvn_var_norm:
+        var = ((feat - mu) ** 2 * m).sum(dim=-2, keepdim=True) / n
+        out = out / torch.sqrt(var + cfg.cmvn_eps)
+    return out * m  # keep pad frames exactly zero
+
+
+# ---------------------------------------------------------------------------
+# Full batched chain
+# ---------------------------------------------------------------------------
+
+
+def logmel_stages(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> dict[str, torch.Tensor]:
+    """Pre-emphasis through log-mel on a padded batch, audio [B, T] (int16
+    or float) and lengths [B]; every intermediate plus the frame mask. The
+    plain version of the CUDA front-end kernel."""
+    check_supported(cfg)
+    dtype = compute_dtype(cfg)
+    k = consts if consts is not None else device_constants(cfg, audio.device, dtype)
+    audio = audio.to(dtype)
+    if cfg.input_scale != 1.0:
+        audio = audio * cfg.input_scale
+    F = cfg.num_frames(audio.shape[-1])
+    y = zero_beyond(preemphasis(audio, cfg.preemph), lengths)
+    span = (F - 1) * cfg.frame_step + cfg.frame_length
+    if span > y.shape[-1]:
+        y = torch.nn.functional.pad(y, (0, span - y.shape[-1]))
+    frames = frame_signal(y, F, cfg)  # [B, F, L]
+    windowed = frames * k["window"]
+    pspec = power_spectrum(windowed, cfg)  # [B, F, n_bins]
+    energy = pspec.sum(dim=-1)
+    energy = torch.where(energy <= 0, cfg.log_eps, energy)
+    melspec = torch.matmul(pspec, k["mel"])
+    n_valid = num_valid_frames(lengths, cfg)
+    return {
+        "frames": frames,
+        "windowed": windowed,
+        "pspec": pspec,
+        "energy": energy,
+        "melspec": melspec,
+        "logmel": apply_log(melspec, cfg),
+        "n_valid": n_valid,
+        "frame_mask": frame_mask(n_valid, F, dtype),
+    }
+
+
+def features_from_logmel(
+    stages: dict[str, torch.Tensor],
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Cepstra, lifter, energy, deltas and per-utterance CMVN (global CMVN
+    is corpus-level and not applied here). Returns [B, F, feat_dim] with
+    pad frames zeroed.
+
+    When the stage dict carries "prefix" (the kernel's [log-mel | clamped
+    energy] output, [B, F, n_mels+1]) the cepstral epilogue is ONE
+    augmented DCT·lifter·c0 matmul on it; otherwise it starts from the
+    plain chain's "logmel" and "energy" stages."""
+    n_valid = stages["n_valid"]
+    mask = stages["frame_mask"]
+    M = cfg.n_mels
+    if "prefix" in stages:
+        x = stages["prefix"]
+        if cfg.features == "logmel":
+            base = x[..., :M]
+        else:
+            k = consts if consts is not None else device_constants(cfg, x.device, x.dtype)
+            if cfg.append_energy:
+                e = x[..., M:]
+                log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
+                if cfg.energy_floor > 0.0:
+                    log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+                x = torch.cat([x[..., :M], log_e], dim=-1)
+            base = torch.matmul(x, k["dct_aug"])
+    elif cfg.features == "logmel":
+        base = stages["logmel"]
+    else:
+        logmel, energy = stages["logmel"], stages["energy"]
+        k = consts if consts is not None else device_constants(cfg, logmel.device, logmel.dtype)
+        base = torch.matmul(logmel, k["dct"]) * k["lifter"]
+        if cfg.append_energy:
+            log_e = torch.log(energy)
+            if cfg.energy_floor > 0.0:
+                log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+            base = torch.cat([log_e[..., None], base[..., 1:]], dim=-1)
+
+    parts = [base]
+    if cfg.deltas >= 1:
+        d = delta(base, n_valid, cfg)
+        parts.append(d)
+        if cfg.deltas >= 2:
+            parts.append(delta(d, n_valid, cfg))
+    feat = torch.cat(parts, dim=-1) if len(parts) > 1 else base
+
+    if cfg.cmvn == "utterance":
+        return cmvn_utterance(feat, mask, cfg)
+    return feat * mask[..., None]
+
+
+def extract_batch(
+    audio,
+    lengths,
+    cfg: FrontendConfig,
+    device="cuda",
+    consts: dict[str, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Padded audio [B, T] (int16 or float; numpy or torch) + lengths [B] →
+    (features [B, F, feat_dim], frame_mask [B, F]) on `device`, with
+    F = cfg.num_frames(T).
+
+    On "cuda" the front-end is the CUDA kernel; "cpu" runs the plain chain.
+    Global CMVN (cfg.cmvn == "global") is a corpus-level operation: features
+    come back un-normalized in that mode. `consts` overrides the chain
+    constants (a `constants.to_torch` dict on `device`)."""
+    check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: extract_batch runs on the card by default; pass "
+            "device='cpu' for the plain chain"
+        )
+    audio = torch.as_tensor(audio, device=device)
+    lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
+    if audio.dim() != 2 or lengths.shape != audio.shape[:1]:
+        raise ValueError(
+            f"expected audio [B, T] and lengths [B], got {tuple(audio.shape)} "
+            f"and {tuple(lengths.shape)}"
+        )
+    if device.type != "cuda":
+        stages = logmel_stages(audio, lengths, cfg, consts)
+        return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
+
+    from mfcc_tpu_torch.kernels import frontend
+
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"dtype={cfg.dtype!r}: the CUDA front-end computes in float32; "
+            "pass device='cpu' for the plain chain"
+        )
+    # the DCT matmul must stay full fp32: TF32 keeps ~3 decimal digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if audio.dtype != torch.int16:
+        audio = audio.to(torch.float32)
+    # consts=None lets the wrapper use its per-(cfg, device) cached tables
+    prefix = frontend.logmel_prefix(audio.contiguous(), lengths, cfg, consts=consts)
+    k = consts if consts is not None else device_constants(cfg, device, torch.float32)
+    n_valid = num_valid_frames(lengths, cfg)
+    stages = {
+        "prefix": prefix,
+        "n_valid": n_valid,
+        "frame_mask": frame_mask(n_valid, prefix.shape[1], torch.float32),
+    }
+    return features_from_logmel(stages, cfg, k), stages["frame_mask"]

@@ -1,0 +1,330 @@
+"""The port's chain, batching and entry points ≡ the JAX package's.
+
+The same numpy inputs go through both packages:
+  - port `extract_batch(device="cpu")` on int16 rows vs JAX
+    `extract_batch(backend="pallas")` on the int16 slab feed (as bench.py
+    drives it): the port's F frames agree within the lifted-cepstra gate
+    (atol 5e-4, rtol 1e-5, `mfcc_tpu_torch.testing`) and the JAX frames
+    past F (slab capacity) are zero;
+  - the frozen float64 goldens and the float64 oracle (1e-10 in float64);
+  - the jnp chain, masking invariance and the host batching helpers.
+A subprocess proves the port loads no jax and no mfcc_tpu module.
+"""
+
+import concurrent.futures
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import mfcc_tpu
+import mfcc_tpu_torch
+from mfcc_tpu import pipeline as jpipeline
+from mfcc_tpu.config import NAMED_CONFIGS as J_CONFIGS
+from mfcc_tpu.ops import chain as jchain
+from mfcc_tpu.ops import constants as jconstants
+from mfcc_tpu.ops import reference_numpy
+from mfcc_tpu.testing.golden import golden_signals, load_golden
+from mfcc_tpu_torch.config import NAMED_CONFIGS as T_CONFIGS
+from mfcc_tpu_torch.kernels import frontend
+from mfcc_tpu_torch.ops import chain as tchain
+from mfcc_tpu_torch.ops import constants as tconstants
+from mfcc_tpu_torch.pipeline import batch as tbatch
+from mfcc_tpu_torch.testing import assert_features_close
+from tests.test_jnp_chain import assert_logmel_close
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CONFIGS = ["classic13", "classic13_deltas"]
+SIGNALS = ("noise", "speechish", "short", "tone_offbin")
+SERVED = ("classic13", "classic13_deltas", "classic13_deltas_gcmvn")
+
+
+def _pcm(names=SIGNALS, scale=3000.0):
+    sigs = golden_signals()
+    return [np.round(sigs[n] * scale) for n in names]
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+def test_extract_batch_matches_pallas_on_int16_slab_feed(config_name):
+    jcfg, tcfg = J_CONFIGS[config_name], T_CONFIGS[config_name]
+    utts = _pcm()
+    blen = max(u.shape[0] for u in utts)
+    jb = jpipeline.pad_batch(
+        utts, jcfg, bucket_len=blen, layout=jpipeline.device_layout(jcfg, blen)
+    )
+    jfeat, jmask = jchain.extract_batch(
+        jnp.asarray(jb.audio.astype(np.int16)), jnp.asarray(jb.lengths), jcfg,
+        backend="pallas",
+    )
+    jfeat, jmask = np.asarray(jfeat), np.asarray(jmask)
+    tb = tbatch.pad_batch(utts, tcfg, bucket_len=blen, dtype="int16")
+    feat, mask = tchain.extract_batch(tb.audio, tb.lengths, tcfg, device="cpu")
+    F = tcfg.num_frames(tb.audio.shape[1])
+    assert feat.shape == (len(utts), F, tcfg.feat_dim) and feat.dtype == torch.float32
+    assert jfeat.shape[1] > F  # the slab feed returns capacity frames
+    assert_features_close(feat.numpy(), jfeat[:, :F])
+    np.testing.assert_array_equal(jfeat[:, F:], 0.0)
+    np.testing.assert_array_equal(mask.numpy(), jmask[:, :F])
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+@pytest.mark.parametrize("signal_name", sorted(golden_signals()))
+def test_golden_parity(config_name, signal_name):
+    g = load_golden(config_name, signal_name)
+    feat = mfcc_tpu_torch.extract(g["signal"], T_CONFIGS[config_name], device="cpu")
+    assert_features_close(feat.numpy(), g["features"])
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+def test_float64_exact_vs_oracle(config_name):
+    """In float64 the port matches the float64 oracle to ~1e-10: every
+    convention is exact and the fp32 residual is pure roundoff."""
+    cfg = T_CONFIGS[config_name].replace(dtype="float64")
+    sigs = golden_signals()
+    for name in ("chirp", "noise", "speechish"):
+        want = reference_numpy.extract_stages(sigs[name], J_CONFIGS[config_name])
+        feat = mfcc_tpu_torch.extract(sigs[name], cfg, device="cpu")
+        assert feat.dtype == torch.float64
+        np.testing.assert_allclose(feat.numpy(), want["features"], atol=1e-10, rtol=1e-10)
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+def test_masking_invariance(config_name):
+    """An utterance inside a padded batch gives the same bytes on its valid
+    frames as alone at the same T, and exact zeros on pad frames."""
+    cfg = T_CONFIGS[config_name]
+    utts = _pcm(("noise", "short", "speechish", "tone_offbin"))
+    b = tbatch.pad_batch(utts, cfg, dtype="int16")
+    feat, mask = tchain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    for i, u in enumerate(utts):
+        fv = cfg.num_frames(u.shape[0])
+        alone = np.zeros((1, b.audio.shape[1]), np.int16)
+        alone[0, : u.shape[0]] = u
+        feat_s, _ = tchain.extract_batch(alone, [u.shape[0]], cfg, device="cpu")
+        np.testing.assert_array_equal(feat[i, :fv].numpy(), feat_s[0, :fv].numpy())
+        assert bool(mask[i, :fv].all()) and not bool(mask[i, fv:].any())
+        np.testing.assert_array_equal(feat[i, fv:].numpy(), 0.0)
+
+
+def _jnp_batch(tcfg, jcfg, names=SIGNALS):
+    b = tbatch.pad_batch(_pcm(names), tcfg)
+    jf, jm = jchain.extract_batch(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg)
+    return b, np.asarray(jf), np.asarray(jm)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{}, {"deltas": 2}, {"energy_floor": 1e4},
+     {"append_energy": False, "lifter": 0}],
+    ids=["classic13", "deltas", "energy_floor", "no_energy"],
+)
+def test_matches_jnp_chain(overrides):
+    tcfg = T_CONFIGS["classic13"].replace(**overrides)
+    b, jfeat, jmask = _jnp_batch(tcfg, J_CONFIGS["classic13"].replace(**overrides))
+    feat, mask = tchain.extract_batch(b.audio, b.lengths, tcfg, device="cpu")
+    assert_features_close(feat.numpy(), jfeat)
+    np.testing.assert_array_equal(mask.numpy(), jmask)
+
+
+def test_cmvn_utterance_matches_jnp():
+    """Per-utterance CMVN: mean 0 / variance 1 over valid frames only, and
+    the jnp chain's numbers. (The pure tone is left out: some of its
+    cepstra have near-zero variance, and dividing by it amplifies fp32
+    roundoff past any fixed gate in both packages.)"""
+    over = {"cmvn": "utterance", "deltas": 2}
+    tcfg = T_CONFIGS["classic13"].replace(**over)
+    names = ("noise", "speechish", "short")
+    b, jfeat, _ = _jnp_batch(tcfg, J_CONFIGS["classic13"].replace(**over), names)
+    feat, mask = tchain.extract_batch(b.audio, b.lengths, tcfg, device="cpu")
+    assert_features_close(feat.numpy(), jfeat)
+    for i in range(2):  # "short" has one frame: zero variance
+        valid = feat[i][mask[i] > 0].double().numpy()
+        np.testing.assert_allclose(valid.mean(axis=0), 0.0, atol=1e-4)
+        np.testing.assert_allclose(valid.var(axis=0), 1.0, atol=1e-2)
+
+
+def test_logmel_features_match_jnp():
+    over = {"features": "logmel", "deltas": 1}
+    tcfg = T_CONFIGS["classic13"].replace(**over)
+    b, jfeat, _ = _jnp_batch(tcfg, J_CONFIGS["classic13"].replace(**over))
+    feat, _ = tchain.extract_batch(b.audio, b.lengths, tcfg, device="cpu")
+    M = tcfg.n_mels
+    valid = b.lengths > 0
+    assert_logmel_close(feat.numpy()[valid, :, :M], jfeat[valid, :, :M], tcfg)
+    np.testing.assert_allclose(feat.numpy()[..., M:], jfeat[..., M:], atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{}, {"deltas": 2}, {"cmvn": "utterance"}, {"energy_floor": 1e4},
+     {"features": "logmel"}],
+    ids=["classic13", "deltas", "utt_cmvn", "energy_floor", "logmel"],
+)
+def test_prefix_path_equals_stage_path(overrides):
+    """features_from_logmel's prefix path (the kernel's [log-mel | energy]
+    output, one augmented DCT matmul) ≡ its stage path."""
+    cfg = T_CONFIGS["classic13"].replace(**overrides)
+    b = tbatch.pad_batch(_pcm(), cfg, dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)
+    stages = tchain.logmel_stages(audio, lengths, cfg)
+    prefix = frontend.logmel_prefix(audio, lengths, cfg)
+    via_prefix = tchain.features_from_logmel(
+        {"prefix": prefix, "n_valid": stages["n_valid"],
+         "frame_mask": stages["frame_mask"]}, cfg,
+    )
+    assert_features_close(via_prefix.numpy(), tchain.features_from_logmel(stages, cfg).numpy())
+
+
+def test_gcmvn_features_come_back_unnormalized():
+    b = tbatch.pad_batch(_pcm(), T_CONFIGS["classic13_deltas"], dtype="int16")
+    plain, _ = tchain.extract_batch(b.audio, b.lengths, T_CONFIGS["classic13_deltas"], device="cpu")
+    g, _ = tchain.extract_batch(b.audio, b.lengths, T_CONFIGS["classic13_deltas_gcmvn"], device="cpu")
+    assert torch.equal(plain, g)
+
+
+def test_carry_over_of_jax_constants():
+    """The JAX package's numpy constants, carried over with to_torch, give
+    the port the same features as its own copy of them."""
+    cfg = T_CONFIGS["classic13_deltas"]
+    host = jconstants.chain_constants(J_CONFIGS["classic13_deltas"])
+    consts = tconstants.to_torch(host, "cpu", torch.float32)
+    b = tbatch.pad_batch(_pcm(), cfg, dtype="int16")
+    own, _ = tchain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    carried, _ = tchain.extract_batch(b.audio, b.lengths, cfg, device="cpu", consts=consts)
+    assert torch.equal(own, carried)
+
+
+@pytest.mark.parametrize("name", sorted(set(T_CONFIGS) - set(SERVED)))
+def test_configs_outside_the_slice_raise(name):
+    cfg = T_CONFIGS[name]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg, device="cpu")
+
+
+def test_default_device_is_the_card():
+    """extract_batch runs on "cuda" unless told otherwise: with no card it
+    raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    cfg = T_CONFIGS["classic13_deltas"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mfcc_tpu_torch.extract(np.zeros(16000, np.int16), cfg)
+
+
+def test_extract_entry_point_matches_jax():
+    sig = golden_signals()["speechish"]
+    want = np.asarray(mfcc_tpu.extract(sig, "classic13_deltas"))
+    got = mfcc_tpu_torch.extract(sig, "classic13_deltas", device="cpu")
+    assert got.shape == want.shape
+    assert_features_close(got.numpy(), want)
+    pcm = np.round(sig * 3000)
+    assert torch.equal(
+        mfcc_tpu_torch.extract(pcm.astype(np.int16), "classic13", device="cpu"),
+        mfcc_tpu_torch.extract(pcm, "classic13", device="cpu"),
+    )
+    with pytest.raises(NotImplementedError, match="io port"):
+        mfcc_tpu_torch.extract(str(REPO / "demo.wav"), "classic13", device="cpu")
+
+
+def test_num_valid_frames_matches_jax():
+    cfg = T_CONFIGS["classic13"]
+    lens = [0, 1, 399, 400, 401, 560, 561, 16000, 40123]
+    got = tchain.num_valid_frames(torch.tensor(lens), cfg).numpy()
+    want = np.asarray(jchain.num_valid_frames(jnp.asarray(lens), J_CONFIGS["classic13"]))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("F", [1, 2, 9])
+def test_delta_matches_jax(F):
+    """Δ with tail replication at n_valid, including utterances shorter than
+    the regression window."""
+    g = np.random.default_rng(F)
+    feat = g.standard_normal((4, F, 5)).astype(np.float32)
+    n_valid = np.array([F, max(F - 1, 0), 1, 0], np.int32)
+    got = tchain.delta(torch.as_tensor(feat), torch.as_tensor(n_valid), T_CONFIGS["classic13"])
+    want = jchain.delta(jnp.asarray(feat), jnp.asarray(n_valid), J_CONFIGS["classic13"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+def test_bucket_helpers_match_jax():
+    cfg = T_CONFIGS["classic13"]
+    jcfg = J_CONFIGS["classic13"]
+    for n in (0, 123, 400, 16000, 160000, 160001):
+        assert tbatch.required_samples(n, cfg) == jpipeline.required_samples(n, jcfg)
+    for max_s, nb in ((10.0, 4), (0.3, 4), (30.0, 6), (2.0, 1)):
+        buckets = tbatch.make_buckets(max_s, cfg, nb)
+        assert buckets == jpipeline.make_buckets(max_s, jcfg, nb)
+        for n in (1, 8000, 40000, 10**7):
+            assert tbatch.bucket_for(n, buckets) == jpipeline.bucket_for(n, buckets)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_pad_batch_matches_jax_flat_feed(dtype):
+    cfg = T_CONFIGS["classic13_deltas"]
+    utts = _pcm()
+    want = jpipeline.pad_batch(
+        utts, J_CONFIGS["classic13_deltas"], bucket_len=48000, pad_batch_to=6,
+        ids=list("abcd"),
+    )
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        got = tbatch.pad_batch(
+            utts, cfg, bucket_len=48000, pad_batch_to=6, ids=list("abcd"),
+            copy_pool=pool, dtype=dtype,
+        )
+    assert got.audio.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got.audio, want.audio.astype(dtype))
+    np.testing.assert_array_equal(got.lengths, want.lengths)
+    assert got.ids == want.ids
+    assert got.pad_occupancy == pytest.approx(want.pad_occupancy)
+
+
+def test_pad_batch_errors_and_release():
+    cfg = T_CONFIGS["classic13"]
+    with pytest.raises(ValueError, match="empty"):
+        tbatch.pad_batch([], cfg)
+    with pytest.raises(ValueError, match="exceed bucket"):
+        tbatch.pad_batch([np.ones(500)], cfg, bucket_len=400)
+    with pytest.raises(ValueError, match="ids"):
+        tbatch.pad_batch([np.ones(500)], cfg, ids=["a", "b"])
+    released = []
+    b = tbatch.pad_batch([np.ones(500)], cfg)
+    b.on_release = released.append
+    b.release()
+    b.release()
+    assert released == [b]
+
+
+def test_port_imports_no_jax_and_no_mfcc_tpu():
+    """`import mfcc_tpu_torch` and the CPU main path, in a fresh process
+    (this one has jax loaded by conftest), leave jax and every mfcc_tpu
+    module out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import mfcc_tpu_torch\n"
+        "from mfcc_tpu_torch.kernels import frontend\n"
+        "from mfcc_tpu_torch.ops import chain\n"
+        "from mfcc_tpu_torch.pipeline import pad_batch\n"
+        "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
+        "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
+        "feat, mask = chain.extract_batch(b.audio, b.lengths, cfg, device='cpu')\n"
+        "assert tuple(feat.shape) == (1, 30, 39), feat.shape\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
+        "print(repr(bad))\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"

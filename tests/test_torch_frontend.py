@@ -1,0 +1,272 @@
+"""The port's front-end (`mfcc_tpu_torch/kernels/frontend.py`) ≡ the JAX
+package's fused Pallas front-end ≡ its jnp twin.
+
+On the CPU the wrapper runs its plain version, `logmel_prefix_reference`;
+it is held against `fused_logmel_stages(..., interpret=True)["prefix_fp"]`
+and `chain.logmel_stages` at the gates of
+tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin (both fp32, only
+roundoff order differs): log-mel within 2e-5 on loud bins (within 40 dB of
+the row max), linear-domain 1e-5 of the row max elsewhere, energy rtol 1e-5.
+
+The CUDA kernel cannot run here. `_emulate_kernel` mirrors its loop
+structure in numpy — 32-frame tiles staged with pre-emphasis across tile
+starts, bit-reversed radix-2 FFT on the host twiddle table, the real split,
+band-limited mel sums and the warp-summed energy — so the index algebra is
+tested on the CPU. tests/test_torch_gpu.py holds the kernel itself to the
+plain version on a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mfcc_tpu.config import NAMED_CONFIGS as J_CONFIGS
+from mfcc_tpu.kernels import fused_logmel_stages
+from mfcc_tpu.ops import chain as jchain
+from mfcc_tpu.pipeline import pad_batch as j_pad_batch
+from mfcc_tpu.testing.golden import golden_signals
+from mfcc_tpu_torch.config import NAMED_CONFIGS as T_CONFIGS
+from mfcc_tpu_torch.kernels import frontend
+from mfcc_tpu_torch.ops import constants as tconstants
+from mfcc_tpu_torch.testing import assert_prefix_close
+
+CONFIGS = ["classic13", "classic13_deltas"]
+SIGNALS = ("noise", "speechish", "short", "tone_offbin")
+BOUNDARY_LENGTHS = [0, 1, 399, 400, 401, 32 * 160 - 1, 32 * 160, 32 * 160 + 1]
+
+
+def _batch(config_name, names=SIGNALS):
+    sigs = golden_signals()
+    chosen = [sigs[n] for n in names]
+    cfg = J_CONFIGS[config_name]
+    b = j_pad_batch(chosen, cfg, bucket_len=max(s.shape[0] for s in chosen))
+    return b.audio, b.lengths
+
+
+def _reference(audio, lengths, cfg):
+    return frontend.logmel_prefix_reference(
+        torch.as_tensor(audio), torch.as_tensor(lengths), cfg
+    ).numpy()
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+def test_reference_matches_pallas_prefix(config_name):
+    audio, lengths = _batch(config_name)
+    cfg = T_CONFIGS[config_name]
+    F = cfg.num_frames(audio.shape[1])
+    fused = fused_logmel_stages(
+        jnp.asarray(audio), jnp.asarray(lengths), J_CONFIGS[config_name],
+        interpret=True,
+    )
+    want = np.asarray(fused["prefix_fp"])[:, :F]
+    got = _reference(audio, lengths, cfg)
+    assert got.shape == (len(SIGNALS), F, cfg.n_mels + 1)
+    assert_prefix_close(got, want, cfg.n_mels)
+
+
+@pytest.mark.parametrize("config_name", CONFIGS)
+def test_reference_matches_jnp_stages(config_name):
+    audio, lengths = _batch(config_name)
+    cfg = T_CONFIGS[config_name]
+    twin = jchain.logmel_stages(
+        jnp.asarray(audio), jnp.asarray(lengths), J_CONFIGS[config_name]
+    )
+    want = np.concatenate(
+        [np.asarray(twin["logmel"]), np.asarray(twin["energy"])[..., None]], -1
+    )
+    assert_prefix_close(_reference(audio, lengths, cfg), want, cfg.n_mels)
+
+
+@pytest.mark.parametrize("preemph", [0.0, 0.97])
+def test_dirty_tail_zeroed(preemph):
+    """Garbage past each length must not reach the output: zeroing follows
+    pre-emphasis, so y[length] is 0 too, and nothing relies on zero
+    padding (test_pallas_kernels.py::test_dirty_tail_zeroed_without_preemph
+    is the model)."""
+    cfg = T_CONFIGS["classic13"].replace(preemph=preemph)
+    g = np.random.default_rng(3)
+    T, n = 24000, 17000
+    audio = g.standard_normal((1, T)).astype(np.float32)  # dirty tail
+    clean = audio.copy()
+    clean[0, n:] = 0.0
+    lengths = np.array([n], np.int32)
+    got = _reference(audio, lengths, cfg)
+    np.testing.assert_array_equal(got, _reference(clean, lengths, cfg))
+    twin = jchain.logmel_stages(
+        jnp.asarray(clean), jnp.asarray(lengths),
+        J_CONFIGS["classic13"].replace(preemph=preemph),
+    )
+    want = np.concatenate(
+        [np.asarray(twin["logmel"]), np.asarray(twin["energy"])[..., None]], -1
+    )
+    assert_prefix_close(got, want, cfg.n_mels)
+
+
+def test_int16_rows_equal_float_rows_bitwise():
+    cfg = T_CONFIGS["classic13_deltas"]
+    g = np.random.default_rng(5)
+    audio = (g.standard_normal((3, 9000)) * 3000).astype(np.int16)
+    lengths = np.array([9000, 5000, 0], np.int32)
+    np.testing.assert_array_equal(
+        _reference(audio, lengths, cfg),
+        _reference(audio.astype(np.float32), lengths, cfg),
+    )
+
+
+def test_boundary_lengths_match_jnp():
+    """Lengths at the frame edges and around the kernel's 32-frame tile
+    (5,120 samples); a length-0 row is the clamp constant everywhere."""
+    cfg = T_CONFIGS["classic13"]
+    g = np.random.default_rng(7)
+    audio = (g.standard_normal((len(BOUNDARY_LENGTHS), 6000)) * 3000).astype(np.float32)
+    lengths = np.array(BOUNDARY_LENGTHS, np.int32)
+    for i, n in enumerate(BOUNDARY_LENGTHS):
+        audio[i, n:] = 0.0
+    got = _reference(audio, lengths, cfg)
+    twin = jchain.logmel_stages(
+        jnp.asarray(audio), jnp.asarray(lengths), J_CONFIGS["classic13"]
+    )
+    want = np.concatenate(
+        [np.asarray(twin["logmel"]), np.asarray(twin["energy"])[..., None]], -1
+    )
+    assert_prefix_close(got, want, cfg.n_mels)
+    eps = np.float32(cfg.log_eps)
+    np.testing.assert_allclose(got[0, :, : cfg.n_mels], np.log(eps), rtol=1e-6)
+    np.testing.assert_array_equal(got[0, :, cfg.n_mels], eps)
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    cfg = T_CONFIGS["classic13_deltas"]
+    audio, lengths = _batch("classic13_deltas")
+    before = frontend.launches
+    got = frontend.logmel_prefix(
+        torch.as_tensor(audio), torch.as_tensor(lengths), cfg
+    )
+    assert frontend.launches == before  # no kernel launched on the CPU
+    np.testing.assert_array_equal(got.numpy(), _reference(audio, lengths, cfg))
+
+
+def test_wrapper_raises_off_cpu_and_cuda():
+    """A tensor on neither the CPU nor a card must raise, not fall back."""
+    cfg = T_CONFIGS["classic13"]
+    audio = torch.empty((2, 1000), dtype=torch.int16, device="meta")
+    lengths = torch.empty((2,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        frontend.logmel_prefix(audio, lengths, cfg)
+
+
+def test_wrapper_refuses_configs_outside_the_slice():
+    audio = torch.zeros((1, 1000))
+    lengths = torch.tensor([1000], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="conditioning"):
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["kaldi_mfcc"])
+
+
+def test_fft_twiddles_table():
+    tw = frontend.fft_twiddles()
+    assert tw.shape == (256, 2) and tw.dtype == np.float32
+    want = np.exp(-2j * np.pi * np.arange(256) / 512)
+    np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
+    np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+
+
+def test_mel_bands_cover_every_weight():
+    mel = torch.as_tensor(tconstants.chain_constants(T_CONFIGS["classic13"])["mel"])
+    mel = torch.cat([mel, torch.zeros(mel.shape[0], 1, dtype=mel.dtype)], dim=1)
+    lo, hi = frontend.mel_bands(mel)
+    k = torch.arange(mel.shape[0])[:, None]
+    inside = (k >= lo.long()) & (k < hi.long())
+    assert not bool(((mel != 0) & ~inside).any())
+    assert (int(lo[-1]), int(hi[-1])) == (0, 0)  # all-zero column: empty band
+    nz = (mel[:, 0] != 0).nonzero()
+    assert int(lo[0]) == int(nz.min()) and int(hi[0]) == int(nz.max()) + 1
+
+
+# ---------------------------------------------------------------------------
+# numpy mirror of csrc/frontend.cu
+# ---------------------------------------------------------------------------
+
+TILE = 32
+
+
+def _emulate_kernel(audio, lengths, cfg, dtype):
+    """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`."""
+    ctype = np.complex64 if dtype == np.float32 else np.complex128
+    k = tconstants.chain_constants(cfg)
+    win, mel = k["window"].astype(dtype), k["mel"].astype(dtype)
+    lo, hi = (t.numpy() for t in frontend.mel_bands(torch.as_tensor(mel)))
+    if dtype == np.float32:
+        tw = frontend.fft_twiddles().astype(dtype)
+        w = (tw[:, 0] + 1j * tw[:, 1]).astype(ctype)
+    else:
+        w = np.exp(-2j * np.pi * np.arange(256) / 512)
+    B, T = audio.shape
+    S, L, M = cfg.frame_step, min(cfg.frame_length, 512), cfg.n_mels
+    F = cfg.num_frames(T)
+    span = (TILE - 1) * S + L
+    pscale = dtype(1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
+    rev = np.array([int(f"{n:08b}"[::-1], 2) for n in range(256)])
+    out = np.empty((B, F, M + 1), dtype)
+    x_all = audio.astype(dtype) * dtype(cfg.input_scale)
+    for b in range(B):
+        n = min(int(lengths[b]), T)
+        for f0 in range(0, F, TILE):
+            t = f0 * S + np.arange(span)
+            ok = t < n
+            x = np.where(ok, x_all[b, np.minimum(t, T - 1)], 0)
+            xp = np.where(ok & (t > 0), x_all[b, np.clip(t - 1, 0, T - 1)], 0)
+            sig = np.where(ok, x - dtype(cfg.preemph) * xp, 0).astype(dtype)
+            nf = min(TILE, F - f0)
+            fr = np.zeros((nf, 512), dtype)
+            fr[:, :L] = sig[(np.arange(nf) * S)[:, None] + np.arange(L)] * win[:L]
+            z = np.empty((nf, 256), ctype)
+            z[:, rev] = fr[:, 0::2] + 1j * fr[:, 1::2]
+            j = np.arange(128)
+            for lg in range(8):
+                half = 1 << lg
+                pos = j & (half - 1)
+                i0 = ((j >> lg) << (lg + 1)) + pos
+                v = z[:, i0 + half] * w[pos << (8 - lg)]
+                u = z[:, i0].copy()
+                z[:, i0], z[:, i0 + half] = u + v, u - v
+            kk = np.arange(129)
+            a, c = z[:, kk], np.conj(z[:, (256 - kk) & 255])
+            xe, xo = (a + c) / 2, (a - c) / 2j
+            X, Y = xe + w[kk] * xo, xe - w[kk] * xo
+            P = np.empty((nf, 257), dtype)
+            P[:, kk] = np.abs(X) ** 2 * pscale
+            P[:, 256 - kk[:-1]] = np.abs(Y[:, :-1]) ** 2 * pscale
+            for m in range(M):
+                acc = P[:, lo[m] : hi[m]] @ mel[lo[m] : hi[m], m]
+                out[b, f0 : f0 + nf, m] = np.log(np.where(acc <= 0, dtype(cfg.log_eps), acc))
+            e = P.sum(axis=-1)
+            out[b, f0 : f0 + nf, M] = np.where(e <= 0, dtype(cfg.log_eps), e)
+    return out
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [{}, {"win_len_s": 0.040}, {"preemph": 0.0, "window": "hann_periodic"}],
+    ids=["classic13", "frame_longer_than_nfft", "no_preemph_hann"],
+)
+def test_kernel_algebra_exact_in_float64(overrides):
+    """In float64 the kernel's FFT, split, band sums and tiles reproduce the
+    plain version to ~1e-10 (log of quiet bins): the algorithm is exact, only
+    float64 roundoff remains.
+    A 640-sample frame is truncated to n_fft = 512, as rfft(n=512) does."""
+    cfg = T_CONFIGS["classic13"].replace(dtype="float64", **overrides)
+    audio, lengths = _batch("classic13", ("noise", "short", "tone_offbin"))
+    audio = audio[:, :12000].astype(np.float64)
+    lengths = np.minimum(lengths, 11000)
+    got = _emulate_kernel(audio, lengths, cfg, np.float64)
+    want = _reference(audio, lengths, cfg)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+def test_kernel_algebra_float32_within_gates():
+    cfg = T_CONFIGS["classic13_deltas"]
+    audio, lengths = _batch("classic13_deltas")
+    got = _emulate_kernel(audio, lengths, cfg, np.float32)
+    assert_prefix_close(got, _reference(audio, lengths, cfg), cfg.n_mels)
