@@ -5,26 +5,38 @@
 
 Phases, in order; any failure exits non-zero:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
-  2. build the main path's kernel from the checkout's source (nvcc) and
-     print ptxas usage;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (classic13_deltas, batch 64 x 10 s int16 PCM, lengths
-     n - 571*i): the test_kernel_matches_jnp_twin gates, int16 rows ≡ the
-     same rows in float32 bitwise, boundary lengths, and garbage past each
-     length leaving the output unchanged;
-  4. the main path, `mfcc_tpu_torch.ops.chain.extract_batch` on the card,
-     with every launch count set to 0 just before and read just after;
-     features [64, 999, 39], finite, pad frames exactly 0, within 5e-4 of the
-     same call on the CPU and of the float64 plain chain on four rows;
-  5. times with CUDA events after warm-up (median of launches with the 50 MB
-     L2 flushed before each), each beside the card's name and power limit;
-     `bound_ms` is computed from this run's inputs against the H100 SXM
-     peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores); a
-     torch.profiler pass over five steps gives device kernels per step,
-     device busy time and the step's idle share. The operation count is the
-     function's minimum, not this kernel's form: a split-radix 256-point
-     complex FFT, the real split with its 1/2 scalings folded into the
-     power scale, and the mel sums over the filters' nonzero weights.
+  2. build every kernel source from the checkout (one nvcc each, all started
+     together) and print ptxas usage;
+  3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
+     n - 571*i): the front-end kernel against its plain version (the
+     test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
+     boundary lengths, garbage past each length leaving the output
+     unchanged); then `chain.extract_batch` with every launch count set to
+     0 just before and read just after: features [64, 999, 39], finite, pad
+     frames exactly 0, within 5e-4 of the CPU chain and of the float64
+     chain on four rows; times;
+  4. path mfcc39_48k (b64 x 10 s int16 PCM at 48 kHz, lengths
+     480,000 - 1,713*i): the fused resample of the front-end kernel against
+     its plain version (prefix gates, int16 ≡ float32 bitwise, dirty tails,
+     boundary input lengths at the 16 kHz frame and first-tile edges); then
+     `extract_batch`, counted (fused resample 1, the others 0): [64, 999, 39]
+     within 8e-4 of the CPU chain and of the float64 chain; times;
+  5. path resample_batch (the same rows as float32 [64, 480,080], 48 kHz ->
+     16 kHz): the polyphase kernel, counted, within 1e-5 of each row's max
+     |x| of its plain version and of scipy float64 on four rows; refusals
+     (float64, a tap table over budget, a config the port lacks); times;
+  6. path mfcc39_44k at b16 x 10 s: the fused resample against its plain
+     version, `extract_batch` counted and within 8e-4 of the CPU chain.
+Times are CUDA events after warm-up (median of launches with the 64 MiB
+flush buffer zeroed before each, beyond the 50 MB L2), each beside the
+card's name and power limit. `bound_ms` is computed from each run's inputs
+against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
+cores) at the function's minimum: a split-radix 256-point complex FFT, the
+real split with its 1/2 scalings folded into the power scale, the mel sums
+over the filters' nonzero weights, and the resample's taps (the 61
+symmetric taps of 48 kHz -> 16 kHz folded: 91 FLOP per output). A
+torch.profiler pass over five steps of each extract_batch path gives device
+kernels per step, device busy time and the step's idle share.
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Without a card it exits 2 and prints neither.
 Imports nothing of JAX or of the JAX package.
@@ -32,6 +44,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import math
 import subprocess
@@ -40,16 +53,33 @@ import time
 
 import numpy as np
 
-CONFIG = "classic13_deltas"
 B, SECONDS = 64, 10
+B_44K = 16
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 BOUNDARY_LENGTHS = [0, 1, 399, 400, 401, 32 * 160 - 1, 32 * 160, 32 * 160 + 1]
-KERNEL = {
-    "name": "frontend_logmel",
-    "route": "cuda",
-    "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
-    "replaces": "mfcc_tpu/kernels/frontend.py:905",
+# at 48 kHz one 16 kHz frame is 1,200 input samples; 16,080 ends the first 32-frame tile
+RS_BOUNDARY_LENGTHS = [0, 1, 2, 3, 1199, 1200, 1201, 16079, 16080, 16081]
+SOURCES = ("frontend", "resample")
+KERNELS = {
+    "frontend": {
+        "name": "frontend_logmel",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "fused": {
+        "name": "frontend_logmel_resample",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:493",
+    },
+    "resample": {
+        "name": "polyphase_resample",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
+        "replaces": "mfcc_tpu/kernels/resample.py:79",
+    },
 }
 
 
@@ -87,6 +117,124 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
+def host_ms(torch, fn, reps: int = 7) -> float:
+    """Median host-clock time of fn() through a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_step(torch, fn, kernel_substr: str, steps: int = 5):
+    """(device kernels per step, device busy ms per step, ms of the kernels
+    whose name holds kernel_substr per step) over `steps` calls of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    # device-side events only: a CPU op's self device time repeats its kernels'
+    on_device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.self_device_time_total for e in on_device) / 1e3 / steps
+    ours = sum(e.self_device_time_total for e in on_device
+               if kernel_substr in e.name) / 1e3 / steps
+    return len(on_device) / steps, busy, ours
+
+
+class Counters:
+    """The wrappers' launch counts, zeroed and read around one path."""
+
+    def __init__(self, frontend, rs_kernel):
+        self.frontend, self.rs_kernel = frontend, rs_kernel
+
+    def zero(self) -> None:
+        self.frontend.launches = 0
+        self.frontend.resample_launches = 0
+        self.rs_kernel.launches = 0
+
+    def read(self) -> dict[str, int]:
+        return {
+            "frontend": self.frontend.launches,
+            "fused": self.frontend.resample_launches,
+            "resample": self.rs_kernel.launches,
+        }
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
+    print(f"  bound: {nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us; {ops / 1e9:.3f} GFLOP "
+          f"-> {t_ops * 1e3:.2f} us; bound {max(t_bytes, t_ops) * 1e3:.2f} us by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}")
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
+    """FLOP of the front-end's minimum for rows holding lens16
+    samples at 16 kHz: pre-emphasis per sample, and per frame that holds
+    samples the window, a split-radix 256-point FFT, the real split, |X|^2,
+    mel over the nonzero weights, energy, clamps and logs."""
+    M = cfg.n_mels
+    frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens16))
+    mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
+    nnz = int((mel != 0).sum())
+    Lk, N2 = min(cfg.frame_length, frontend.NFFT), frontend.NFFT // 2
+    per_frame = (
+        Lk  # window
+        + 4 * N2 * int(math.log2(N2)) - 6 * N2 + 8  # 256-point complex FFT, split radix
+        + 14 * (N2 // 2 - 1) + 2  # real split; its 1/2 scalings fold into pscale
+        + 3 * (N2 - 1) + 2  # |X|^2 (bins 0 and 256 are real)
+        + 2 * nnz  # mel over the nonzero weights (pscale folds into them)
+        + N2 + 1  # energy: sum of 257 powers, times pscale
+        + 2 * M + 1  # clamps and logs
+    )
+    print(f"  front-end: {frames} frames x {per_frame} FLOP + 2 per sample of pre-emphasis")
+    return 2 * int(np.sum(lens16)) + frames * per_frame
+
+
+def resample_ops(R, up: int, down: int, lens_out) -> int:
+    """FLOP of the polyphase FIR's minimum for outputs [0, n) of each row:
+    2*n_p - 1 for the n_p nonzero taps of the output's phase, or with the
+    symmetric taps of up = 1 folded, ceil(n/2) products and n - 1 sums."""
+    d = R.polyphase_design(up, down)
+    nz = (d["table"] != 0).sum(axis=1)
+    if d["up"] == 1:
+        return int(np.sum(lens_out)) * int((nz[0] + 1) // 2 + nz[0] - 1)
+    per_phase = 2 * nz - 1
+    total = 0
+    for n in lens_out:
+        p = (np.arange(int(n), dtype=np.int64) * d["down"] + d["half_len"]) % d["up"]
+        total += int(per_phase[p].sum())
+    return total
+
+
+def make_batch(pad_batch, cfg, rows: int, n: int, step: int, seed: int):
+    g = np.random.default_rng(seed)
+    utts = [(g.standard_normal(n - step * i) * 3000).astype(np.int16) for i in range(rows)]
+    return pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+
+
+def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float) -> None:
+    F = feat.shape[1]
+    check(tuple(feat.shape) == (batch.audio.shape[0], F, cfg.feat_dim), f"features {tuple(feat.shape)}")
+    check(feat.device.type == "cuda" and bool(torch.isfinite(feat).all()), "finite, on the card")
+    check(bool((feat[mask == 0] == 0).all()) and int((mask == 0).sum()) > 0,
+          f"pad frames exactly 0 ({int((mask == 0).sum())} of {mask.numel()})")
+    cpu_feat, cpu_mask = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
+    err_cpu = float((feat.cpu() - cpu_feat).abs().max())
+    print(f"  max |card - cpu| = {err_cpu:.3e}")
+    check(err_cpu <= atol and torch.equal(mask.cpu(), cpu_mask), f"card within {atol} of the CPU chain")
+    f64, _ = chain.extract_batch(batch.audio[:4], batch.lengths[:4],
+                                 cfg.replace(dtype="float64"), device="cpu")
+    err64 = float((feat[:4].double().cpu() - f64).abs().max())
+    print(f"  max |card - float64 chain| (rows 0-3) = {err64:.3e}")
+    check(err64 <= atol, f"card within {atol} of the float64 plain chain")
+
+
 def main() -> int:
     import torch
 
@@ -96,11 +244,15 @@ def main() -> int:
         return 2
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import _build, frontend
+    from mfcc_tpu_torch.kernels import resample as rs_kernel
     from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import resample as R
     from mfcc_tpu_torch.pipeline import pad_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    counters = Counters(frontend, rs_kernel)
+    results = {}
 
     # 1. the card
     print("== 1. card")
@@ -116,29 +268,28 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     tag = f"[{card}]"
 
-    # 2. build the kernel
+    # 2. build every kernel source, in parallel
     print("== 2. build")
     t0 = time.perf_counter()
-    path, log = _build.build("frontend")
-    print(f"built {path.name} in {time.perf_counter() - t0:.1f} s: "
-          f"nvcc {' '.join(_build.NVCC_FLAGS)}")
-    for line in log.splitlines():
-        if "ptxas" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        builds = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
+    print(f"built {', '.join(p.name for p, _ in builds.values())} in "
+          f"{time.perf_counter() - t0:.1f} s: nvcc {' '.join(_build.NVCC_FLAGS)}")
+    for _, log in builds.values():
+        for line in log.splitlines():
+            if "ptxas" in line or "spill" in line:
+                print(f"    {line.strip()}")
 
-    # the main path's input: int16 noise x3000, lengths n - 571*i
-    cfg = named_config(CONFIG)
+    # 3. classic13_deltas: the front-end kernel
+    cfg = named_config("classic13_deltas")
     n = cfg.sample_rate * SECONDS
-    g = np.random.default_rng(0)
-    utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(B)]
-    batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=0)
     T = batch.audio.shape[1]
     F, M = cfg.num_frames(T), cfg.n_mels
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths = torch.as_tensor(batch.lengths, device="cuda")
 
-    # 3. kernel vs plain version on the card
-    print(f"== 3. kernel vs plain version, {CONFIG} b{B} x {SECONDS} s int16 [{B}, {T}]")
+    print(f"== 3. path classic13_deltas b{B} x {SECONDS} s int16 [{B}, {T}]")
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
     check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
@@ -164,32 +315,16 @@ def main() -> int:
     check(bool((b_got[0, :, M] == eps.cuda()).all())
           and bool(torch.allclose(b_got[0, :, :M].cpu(), torch.log(eps), rtol=1e-6)),
           "length-0 row is the clamp constant")
-    max_abs_err = errs["logmel_max_abs"]
 
-    # 4. the main path, counted
-    print(f"== 4. main path: chain.extract_batch({CONFIG}) on the card")
-    frontend.launches = 0
+    counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = frontend.launches
-    check(launches > 0, f"front-end kernel launched on the main path ({launches})")
-    check(tuple(feat.shape) == (B, F, cfg.feat_dim), f"features {tuple(feat.shape)}")
-    check(feat.device.type == "cuda" and bool(torch.isfinite(feat).all()), "finite, on the card")
-    check(bool((feat[mask == 0] == 0).all()) and int((mask == 0).sum()) > 0,
-          f"pad frames exactly 0 ({int((mask == 0).sum())} of {B * F})")
-    cpu_feat, cpu_mask = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
-    err_cpu = float((feat.cpu() - cpu_feat).abs().max())
-    print(f"  max |card - cpu| = {err_cpu:.3e}")
-    check(err_cpu <= testing.FEATURE_ATOL and torch.equal(mask.cpu(), cpu_mask),
-          f"card within {testing.FEATURE_ATOL} of the CPU chain")
-    f64, _ = chain.extract_batch(batch.audio[:4], batch.lengths[:4],
-                                 cfg.replace(dtype="float64"), device="cpu")
-    err64 = float((feat[:4].double().cpu() - f64).abs().max())
-    print(f"  max |card - float64 chain| (rows 0-3) = {err64:.3e}")
-    check(err64 <= testing.FEATURE_ATOL, f"card within {testing.FEATURE_ATOL} of the float64 plain chain")
+    launches = counters.read()
+    check(launches == {"frontend": 1, "fused": 0, "resample": 0},
+          f"main path launched the front-end kernel once and nothing else {launches}")
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.FEATURE_ATOL)
 
-    # 5. times
-    print(f"== 5. times {tag}")
+    print(f"  times {tag}")
     kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
     plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
     st = chain.logmel_stages(audio, lengths, cfg)
@@ -198,71 +333,201 @@ def main() -> int:
     del st
     rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
     e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
-    host = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        chain.extract_batch(batch.audio, batch.lengths, cfg)
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
-    host_ms = float(np.median(host))
-    # where a device-resident step's time goes: kernels per step, device busy
-    from torch.profiler import ProfilerActivity, profile
-
-    steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            chain.extract_batch(audio, lengths, cfg)
-        torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats its kernels'
-    on_device = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / steps
-    ours_ms = sum(e.self_device_time_total for e in on_device
-                  if "logmel_kernel" in e.name) / 1e3 / steps
+    fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
+    per_step, busy_ms, ours_ms = profile_step(
+        torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
     check(ours_ms > 0, "the profiler sees the front-end kernel on the card")
-
-    # bound from this run's inputs: the samples and frames that need work
     lens = np.minimum(batch.lengths.astype(np.int64), T)
-    samples = int(lens.sum())
-    frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens))
-    mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
-    nnz = int((mel != 0).sum())
-    Lk, N2 = min(cfg.frame_length, frontend.NFFT), frontend.NFFT // 2
-    per_frame = (
-        Lk  # window
-        + 4 * N2 * int(math.log2(N2)) - 6 * N2 + 8  # 256-point complex FFT, split radix
-        + 14 * (N2 // 2 - 1) + 2  # real split; its 1/2 scalings fold into pscale
-        + 3 * (N2 - 1) + 2  # |X|^2 (bins 0 and 256 are real)
-        + 2 * nnz  # mel over the nonzero weights (pscale folds into them)
-        + N2 + 1  # energy: sum of 257 powers, times pscale
-        + 2 * M + 1  # clamps and logs
-    )
-    ops = 2 * samples + frames * per_frame  # + pre-emphasis
-    nbytes = samples * 2 + B * 4 + B * F * (M + 1) * 4 + (Lk + 257 * M + 2 * M + 512) * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"  bound: {nbytes / 1e6:.2f} MB -> {t_bytes * 1e3:.2f} us; {ops / 1e9:.3f} GFLOP "
-          f"({frames} frames x {per_frame} + pre-emphasis) -> {t_ops * 1e3:.2f} us; "
-          f"bound {bound_ms * 1e3:.2f} us by {bound_by}")
+    ops = frontend_ops(cfg, chain, frontend, torch, lens, F)
+    Lk = min(cfg.frame_length, frontend.NFFT)
+    nbytes = int(lens.sum()) * 2 + B * 4 + B * F * (M + 1) * 4 + (Lk + 257 * M + 2 * M + 512) * 4
+    bound_ms, bound_by = bound(nbytes, ops)
     print(f"  frontend kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
     print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
     print(f"  torch.fft.rfft on [{B * F}, {cfg.n_fft}] pre-framed (DFT only): {rfft_ms:.4f} ms {tag}")
     print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
           f"{B * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {host_ms:.3f} ms = "
-          f"{B * SECONDS / (host_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  profiled step: {len(on_device) / steps:.0f} device kernels, device busy "
-          f"{busy_ms:.4f} ms (front-end kernel {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
+    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
+          f"{B * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
+    print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
+          f"(front-end kernel {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
           f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
-
-    result = dict(KERNEL)
-    result.update(
-        launches=launches, max_abs_err=max_abs_err, ms=kernel_ms,
+    results["frontend"] = dict(
+        launches=launches["frontend"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
     )
+    del audio, lengths, dirty, garbage, framed, feat, mask
+
+    # 4. mfcc39_48k: the fused resample
+    cfg = named_config("mfcc39_48k")
+    sr_in = cfg.input_sample_rate
+    n = sr_in * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 1713, seed=2)
+    T = batch.audio.shape[1]
+    T16 = R.output_length(T, sr_in, cfg.sample_rate)
+    F, M = cfg.num_frames(T16), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+
+    print(f"== 4. path mfcc39_48k b{B} x {SECONDS} s int16 [{B}, {T}] -> {T16} samples at 16 kHz")
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    errs = check_prefix(testing, got, plain, M, "main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    t = torch.arange(T, device="cuda")[None, :]
+    garbage = torch.randint(-32768, 32767, audio.shape, dtype=torch.int16,
+                            device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    dirty = torch.where(t < lengths[:, None], audio, garbage)
+    check(torch.equal(got, frontend.logmel_prefix(dirty, lengths, cfg)),
+          "garbage past each input length leaves the output unchanged (main batch)")
+    bl = torch.tensor(RS_BOUNDARY_LENGTHS, dtype=torch.int32, device="cuda")
+    b_dirty = audio[: len(RS_BOUNDARY_LENGTHS), :48000].contiguous()
+    b_clean = torch.where(t[:, :48000] < bl[:, None], b_dirty, 0)
+    b_got = frontend.logmel_prefix(b_dirty, bl, cfg)
+    check(torch.equal(b_got, frontend.logmel_prefix(b_clean, bl, cfg)),
+          f"boundary input lengths {RS_BOUNDARY_LENGTHS}: dirty tails == clean")
+    check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), M,
+                 "boundary input lengths")
+    del plain, dirty, garbage
+
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches == {"frontend": 0, "fused": 1, "resample": 0},
+          f"main path launched the fused resample once and nothing else {launches}")
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
+    del feat, mask
+
+    print(f"  times {tag}")
+    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
+    d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
+    taps = torch.as_tensor(np.ascontiguousarray(d["table"][0, ::-1]), dtype=torch.float32,
+                           device="cuda")[None, None]
+    xpad = torch.nn.functional.pad(audio.float(), (d["half_len"], d["half_len"]))[:, None]
+    conv = torch.nn.functional.conv1d(xpad, taps, stride=d["down"])[:, 0]
+    ref16 = R.resample_reference(audio.float(), sr_in, cfg.sample_rate)
+    print(f"  conv1d yardstick vs the plain resample: max |diff| {float((conv - ref16).abs().max()):.3e} "
+          f"(of max |x| {float(audio.abs().max()):.0f})")
+    conv_ms = cuda_ms(torch, lambda: torch.nn.functional.conv1d(xpad, taps, stride=d["down"]))
+    st = chain.logmel_stages(ref16, R.output_lengths(lengths, sr_in, cfg.sample_rate), cfg)
+    framed = torch.nn.functional.pad(st["windowed"].reshape(B * F, -1), (0, cfg.n_fft - cfg.frame_length))
+    framed = framed.contiguous()
+    del st, conv, ref16
+    rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
+    e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
+    fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
+    per_step, busy_ms, ours_ms = profile_step(
+        torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
+    check(ours_ms > 0, "the profiler sees the fused resample on the card")
+    lens_in = np.minimum(batch.lengths.astype(np.int64), T)
+    lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
+    fe_ops = frontend_ops(cfg, chain, frontend, torch, lens16, F)
+    rs_ops = resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), lens16)
+    print(f"  resample: {int(lens16.sum())} output samples with signal, {rs_ops / lens16.sum():.0f} FLOP each")
+    Lk = min(cfg.frame_length, frontend.NFFT)
+    nbytes = (int(lens_in.sum()) * 2 + B * 4 + B * F * (M + 1) * 4
+              + (Lk + 257 * M + 2 * M + 512 + d["up"] * d["K"]) * 4)
+    bound_ms, bound_by = bound(nbytes, fe_ops + rs_ops)
+    print(f"  fused resample kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version (float64 two-dot resample + torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  library, resample and DFT only: conv1d stride {d['down']} on [{B}, {T}] {conv_ms:.4f} ms "
+          f"+ torch.fft.rfft on [{B * F}, {cfg.n_fft}] {rfft_ms:.4f} ms = {conv_ms + rfft_ms:.4f} ms {tag}")
+    print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
+          f"{B * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
+    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
+          f"{B * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
+    print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
+          f"(fused resample kernel {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
+          f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
+    results["fused"] = dict(
+        launches=launches["fused"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms + rfft_ms,
+    )
+    del framed
+
+    # 5. resample_batch: the polyphase kernel
+    x = audio.float()
+    n_out = R.output_length(T, sr_in, cfg.sample_rate)
+    print(f"== 5. path resample_batch float32 [{B}, {T}] {sr_in} -> {cfg.sample_rate} Hz")
+    counters.zero()
+    y = R.resample_batch(x, sr_in, cfg.sample_rate)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches == {"frontend": 0, "fused": 0, "resample": 1},
+          f"resample_batch launched the polyphase kernel once and nothing else {launches}")
+    check(tuple(y.shape) == (B, n_out) and bool(torch.isfinite(y).all()), f"output {tuple(y.shape)}, finite")
+    rs_err = testing.resample_error(y, rs_kernel.resample_reference(x, sr_in, cfg.sample_rate), x)
+    print(f"  kernel vs plain: max |diff| / row max |x| = {rs_err:.3e}")
+    check(rs_err < testing.RESAMPLE_KERNEL_REL_ROWMAX,
+          f"within {testing.RESAMPLE_KERNEL_REL_ROWMAX} of the plain version")
+    x4 = batch.audio[:4].astype(np.float64)
+    want = np.stack([R.resample_numpy(r, sr_in, cfg.sample_rate) for r in x4])
+    sp_err = testing.resample_error(y[:4], want, x4)
+    print(f"  kernel vs scipy float64 (rows 0-3): {sp_err:.3e}")
+    check(sp_err < testing.RESAMPLE_KERNEL_REL_ROWMAX,
+          f"within {testing.RESAMPLE_KERNEL_REL_ROWMAX} of scipy resample_poly")
+    max_abs_err = float((y - rs_kernel.resample_reference(x, sr_in, cfg.sample_rate)).abs().max())
+    for what, fn, exc in (
+        ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
+        ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
+        ("a config the port lacks (kaldi_mfcc)",
+         lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
+                                     named_config("kaldi_mfcc")), NotImplementedError),
+    ):
+        try:
+            fn()
+            raised = ""
+        except exc as e:
+            raised = str(e)
+        check(bool(raised), f"{what} raises {exc.__name__}: {raised[:90]}")
+
+    print(f"  times {tag}")
+    kernel_ms = cuda_ms(torch, lambda: R.resample_batch(x, sr_in, cfg.sample_rate))
+    plain_ms = cuda_ms(torch, lambda: rs_kernel.resample_reference(x, sr_in, cfg.sample_rate), reps=10)
+    conv_ms = cuda_ms(torch, lambda: torch.nn.functional.conv1d(xpad, taps, stride=d["down"]))
+    nbytes = B * T * 4 + B * n_out * 4 + d["up"] * d["K"] * 4
+    bound_ms, bound_by = bound(nbytes, resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), [n_out] * B))
+    print(f"  polyphase kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version (float64 two-dot on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  library: conv1d stride {d['down']} on the zero-padded rows: {conv_ms:.4f} ms {tag}")
+    results["resample"] = dict(
+        launches=launches["resample"], max_abs_err=max_abs_err, ms=kernel_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms,
+    )
+    del x, y, xpad, audio, lengths
+
+    # 6. mfcc39_44k at a smaller depth
+    cfg = named_config("mfcc39_44k")
+    sr_in = cfg.input_sample_rate
+    batch = make_batch(pad_batch, cfg, B_44K, sr_in * SECONDS, 1573, seed=4)
+    T = batch.audio.shape[1]
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    print(f"== 6. path mfcc39_44k b{B_44K} x {SECONDS} s int16 [{B_44K}, {T}]")
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
+                 "main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.read()
+    check(launches == {"frontend": 0, "fused": 1, "resample": 0},
+          f"main path launched the fused resample once and nothing else {launches}")
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
+    k44_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    e44_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
+    print(f"  fused resample kernel at 44.1 kHz: {k44_ms:.4f} ms; extract_batch {e44_ms:.4f} ms/step = "
+          f"{B_44K * SECONDS / (e44_ms / 1e3):.0f} audio-s/s {tag}")
+
     print(card)
-    print(json.dumps({"kernels": [result]}))
+    print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

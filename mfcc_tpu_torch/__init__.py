@@ -8,8 +8,9 @@ plain torch chain.
 
 Layers:
     config       frozen FrontendConfig + named configs (a copy of the JAX one)
-    ops          constants (float64 host matrices, `to_torch`) and the chain
-    kernels      CUDA front-end kernel, its wrapper and plain version
+    ops          constants (float64 host matrices, `to_torch`), the polyphase
+                 resampler and the chain
+    kernels      CUDA front-end and resample kernels, wrappers, plain versions
     pipeline     host batching into flat int16/float rows
 """
 
@@ -21,13 +22,11 @@ __version__ = "0.1.0"
 
 def extract(samples, config="classic13", device="cuda"):
     """One utterance's samples (int16 or float array/tensor at
-    cfg.sample_rate) → float32 [F_valid, feat_dim] features on `device`.
+    cfg.input_sample_rate when it is set, else cfg.sample_rate) → [F_valid,
+    feat_dim] features on `device` (`chain.extract_single`).
 
     Wav paths and bytes need the io port (ROADMAP queue 1 item 10) and
     raise NotImplementedError."""
-    import numpy as np
-    import torch
-
     from mfcc_tpu_torch.ops import chain
 
     if isinstance(samples, (str, bytes)) or hasattr(samples, "__fspath__"):
@@ -36,12 +35,7 @@ def extract(samples, config="classic13", device="cuda"):
             "decoded samples"
         )
     cfg = named_config(config) if isinstance(config, str) else config
-    x = samples if isinstance(samples, torch.Tensor) else torch.as_tensor(np.asarray(samples))
-    if x.dtype != torch.int16:
-        x = x.to(chain.compute_dtype(cfg))
-    n = int(x.shape[0])
-    feat, _ = chain.extract_batch(x[None, :], [n], cfg, device=device)
-    return feat[0, : cfg.num_frames(n)]
+    return chain.extract_single(samples, cfg, device=device)
 
 
 __all__ = [

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
 `build/<name>_<hash>.so` at the root of the checkout, at first use; the hash
-covers the source and the flags, so an edited source rebuilds. Bindings
+covers the source, the shared headers `csrc/*.cuh` and the flags, so an
+edited source or header rebuilds. Bindings
 pass pointers as `ctypes.c_void_p` and the stream from
 `torch.cuda.current_stream().cuda_stream`. A build failure raises.
 """
@@ -41,7 +42,8 @@ def build(name: str) -> tuple[pathlib.Path, str]:
     library's path and the compiler's output (ptxas register, shared-memory
     and spill lines)."""
     src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     lib = BUILD_DIR / f"{name}_{hashlib.sha256(key).hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():

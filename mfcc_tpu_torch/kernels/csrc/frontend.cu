@@ -52,9 +52,33 @@
 // It is far from the bound: the shared-memory radix-2 FFT is latency-bound
 // (one frame per warp, a __syncwarp per stage). Register-resident radix-8/16
 // FFTs with several frames per warp are the next step.
+//
+// Fused resample (kResample; entry mfcc_frontend_logmel_resample). Replaces
+// the in-kernel resample of mfcc_tpu/kernels/frontend.py::_gather_frames
+// (:493-529, two fp32 dots over blocked sr_in rows). The rows are at sr_in
+// (T and lengths[b] in input samples); x above is the sr_in signal
+// resampled by the polyphase FIR of polyphase.cuh (scipy resample_poly,
+// zero padding), with input_scale folded into the taps:
+//   x[t]   = sum_i tab[p(t), i] * in[q(t) - i],  in[u] = 0 unless 0 <= u < lengths[b]
+//   y[t]   = x[t] - c * x[t-1] with x[-1] = 0; then y[t] = 0 for
+//            t >= ceil(lengths[b] * up / down)
+// Staging becomes: the tile's input window (span*down/up + K samples) and
+// the [up][K] tap table into shared memory, then x[t0-1 .. t0+span) by the
+// FIR (only t < the output length), then pre-emphasis and zeroing into the
+// signal row, which reuses the input window's memory. The resampled signal
+// never reaches device memory. Shared memory at 44.1 kHz (up = 160,
+// K = 56): 14,830-sample window + 35.8 KB table + the 21.5 KB x row on top
+// of the 55.5 KB above = 172 KB, one block per SM.
+// Bound at mfcc39_48k (batch 64 x 10 s int16, lengths 480,000 - 1,713*i):
+//   bytes: 54.5 MB int16 in + 6.9 MB out -> ~18 us;
+//   operations: 91 FLOP per output sample that holds signal (61 symmetric
+//   taps folded) x ~9.1 M = 0.83 GFLOP, plus the front-end's 0.63 GFLOP
+//   -> ~22 us: operations bound it (chip_smoke.py computes it per run).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "polyphase.cuh"
 
 namespace {
 
@@ -70,20 +94,29 @@ constexpr int kPowStride = 260;       // per-warp power row, padded to 16 B
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 // Dynamic shared memory layout, in floats (every offset 16-byte aligned).
+// in_len and taps are the fused resample's input window and tap table (0
+// without it); the signal row at offset 0 holds the input window first.
+// kernels/frontend.py smem_bytes mirrors it.
 struct Layout {
-  int span, win, mel, tw, buf, pw, total;
+  int span, win, mel, tw, buf, pw, xs, tab, total;
 };
 
-__host__ __device__ inline Layout layout(int S, int L, int M) {
+__host__ __device__ inline Layout layout(int S, int L, int M, int in_len, int taps) {
   Layout l;
   l.span = (kTile - 1) * S + L;
-  l.win = align4(l.span);
+  l.win = align4(l.span > in_len ? l.span : in_len);
   l.mel = l.win + kNfft;
   l.tw = l.mel + align4(kBins * M);
   l.buf = l.tw + 2 * kHalf;
   l.pw = l.buf + 2 * kHalf * kWarps;
-  l.total = l.pw + kPowStride * kWarps;
+  l.xs = l.pw + kPowStride * kWarps;
+  l.tab = l.xs + (in_len > 0 ? align4(l.span + 1) : 0);
+  l.total = l.tab + align4(taps);
   return l;
+}
+
+__host__ __device__ inline int resample_window(int S, int L, const Polyphase& pp) {
+  return pp_input_span((kTile - 1) * S + L + 1, pp);  // x[t0-1 .. t0+span)
 }
 
 __device__ inline float to_f32(int16_t v) { return static_cast<float>(v); }
@@ -94,16 +127,17 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-template <typename Sample>
+template <typename Sample, bool kResample>
 __global__ void __launch_bounds__(kThreads)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               float* __restrict__ out, const float* __restrict__ window,
               const float* __restrict__ mel, const int* __restrict__ mel_lo,
               const int* __restrict__ mel_hi, const float2* __restrict__ twiddle,
-              int T, int F, int L, int S, int M, float scale, float preemph,
-              float eps, float pscale) {
+              const float* __restrict__ taps, int T, int F, int L, int S, int M,
+              float scale, float preemph, float eps, float pscale, Polyphase pp) {
   extern __shared__ __align__(16) float smem[];
-  const Layout lay = layout(S, L, M);
+  const Layout lay = kResample ? layout(S, L, M, resample_window(S, L, pp), pp.up * pp.K)
+                               : layout(S, L, M, 0, 0);
   float* sig = smem;
   float* win = smem + lay.win;
   float* melw = smem + lay.mel;
@@ -112,23 +146,51 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * kTile;
   const long long t0 = static_cast<long long>(f0) * S;
-  const int len = min(lengths[b], T);
   const Sample* row = audio + static_cast<size_t>(b) * T;
 
-  // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
-  for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-    const long long t = t0 + i;
-    float y = 0.f;
-    if (t < len) {
-      const float x = to_f32(row[t]) * scale;
-      const float xp = t > 0 ? to_f32(row[t - 1]) * scale : 0.f;
-      y = x - preemph * xp;
-    }
-    sig[i] = y;
-  }
   for (int i = threadIdx.x; i < kNfft; i += kThreads) win[i] = i < L ? window[i] : 0.f;
   for (int i = threadIdx.x; i < kBins * M; i += kThreads) melw[i] = mel[i];
   for (int i = threadIdx.x; i < kHalf; i += kThreads) tw[i] = twiddle[i];
+
+  if constexpr (kResample) {
+    // 1r. the input window and the taps; x[t0-1 .. t0+span) by the FIR
+    //     (x[-1] = 0, and 0 past the output length); then pre-emphasis and
+    //     zeroing into the signal row, over the input window
+    const int len_in = max(0, min(lengths[b], T));
+    const long long len = pp_output_length(len_in, pp);
+    const long long lo = pp_first_input(t0 - 1, pp);
+    const int in_len = resample_window(S, L, pp);
+    float* in = sig;
+    float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
+    float* tab = smem + lay.tab;
+    for (int i = threadIdx.x; i < in_len; i += kThreads) {
+      const long long u = lo + i;
+      in[i] = (u >= 0 && u < len_in) ? to_f32(row[u]) : 0.f;
+    }
+    for (int i = threadIdx.x; i < pp.up * pp.K; i += kThreads) tab[i] = taps[i];
+    __syncthreads();
+    for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
+      const long long t = t0 - 1 + i;
+      xs[i] = (t >= 0 && t < len) ? pp_output(t, lo, in, tab, pp) : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+      sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
+    }
+  } else {
+    // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
+    const int len = min(lengths[b], T);
+    for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+      const long long t = t0 + i;
+      float y = 0.f;
+      if (t < len) {
+        const float x = to_f32(row[t]) * scale;
+        const float xp = t > 0 ? to_f32(row[t - 1]) * scale : 0.f;
+        y = x - preemph * xp;
+      }
+      sig[i] = y;
+    }
+  }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -204,22 +266,25 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   }
 }
 
-template <typename Sample>
+template <typename Sample, bool kResample>
 cudaError_t launch(const void* audio, const int* lengths, float* out,
                    const float* window, const float* mel, const int* mel_lo,
-                   const int* mel_hi, const float* twiddle, int B, int T, int F,
-                   int L, int S, int M, float scale, float preemph, float eps,
-                   float pscale, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(layout(S, L, M).total) * sizeof(float);
+                   const int* mel_hi, const float* twiddle, const float* taps,
+                   int B, int T, int F, int L, int S, int M, float scale,
+                   float preemph, float eps, float pscale, Polyphase pp,
+                   cudaStream_t stream) {
+  const Layout lay = kResample ? layout(S, L, M, resample_window(S, L, pp), pp.up * pp.K)
+                               : layout(S, L, M, 0, 0);
+  const size_t bytes = static_cast<size_t>(lay.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel<Sample>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      logmel_kernel<Sample, kResample>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((F + kTile - 1) / kTile, B);
-  logmel_kernel<Sample><<<grid, kThreads, bytes, stream>>>(
+  logmel_kernel<Sample, kResample><<<grid, kThreads, bytes, stream>>>(
       static_cast<const Sample*>(audio), lengths, out, window, mel, mel_lo, mel_hi,
-      reinterpret_cast<const float2*>(twiddle), T, F, L, S, M, scale, preemph,
-      eps, pscale);
+      reinterpret_cast<const float2*>(twiddle), taps, T, F, L, S, M, scale, preemph,
+      eps, pscale, pp);
   return cudaGetLastError();
 }
 
@@ -238,12 +303,41 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                          float preemph, float eps, float pscale, void* stream) {
   if (L < 1 || L > kNfft || S < 1 || M < 1 || B < 1 || F < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Polyphase none{1, 1, 0, 0};
   if (audio_is_int16) {
-    return launch<int16_t>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle,
-                           B, T, F, L, S, M, scale, preemph, eps, pscale, s);
+    return launch<int16_t, false>(audio, lengths, out, window, mel, mel_lo, mel_hi,
+                                  twiddle, nullptr, B, T, F, L, S, M, scale, preemph,
+                                  eps, pscale, none, s);
   }
-  return launch<float>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle, B,
-                       T, F, L, S, M, scale, preemph, eps, pscale, s);
+  return launch<float, false>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle,
+                              nullptr, B, T, F, L, S, M, scale, preemph, eps, pscale,
+                              none, s);
+}
+
+// The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
+// taps [up, K] float32 (input_scale folded in); F frames of the resampled
+// signal, ceil(T * up / down) samples long.
+int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
+                                  const int* lengths, float* out, const float* window,
+                                  const float* mel, const int* mel_lo,
+                                  const int* mel_hi, const float* twiddle,
+                                  const float* taps, int B, int T, int F, int L,
+                                  int S, int M, int up, int down, int half_len, int K,
+                                  float preemph, float eps, float pscale,
+                                  void* stream) {
+  if (L < 1 || L > kNfft || S < 1 || M < 1 || B < 1 || F < 1 || up < 1 || down < 1 ||
+      K < 1 || half_len < 10 * down) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Polyphase pp{up, down, half_len, K};
+  if (audio_is_int16) {
+    return launch<int16_t, true>(audio, lengths, out, window, mel, mel_lo, mel_hi,
+                                 twiddle, taps, B, T, F, L, S, M, 1.f, preemph, eps,
+                                 pscale, pp, s);
+  }
+  return launch<float, true>(audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle,
+                             taps, B, T, F, L, S, M, 1.f, preemph, eps, pscale, pp, s);
 }
 
 const char* mfcc_frontend_error_string(int err) {

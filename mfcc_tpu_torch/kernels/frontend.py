@@ -8,10 +8,18 @@ with x[-1] = 0, zeroing at t >= length, window, 512-point real FFT, |X|²,
 mel projection, `ln` clamp, and the clamped (unlogged) energy on lane M.
 Output [B, F, n_mels+1] float32 with F = cfg.num_frames(T).
 
+Resampling configs (input_sample_rate != sample_rate) take rows at the
+input rate, with lengths in input samples, through the kernel's second
+form: the fused resample (port of `_gather_frames` :493-529), which
+computes each staged 16 kHz sample from the input rows by the polyphase FIR
+of `csrc/polyphase.cuh`. F = cfg.num_frames(output_length(T)) then.
+
 `logmel_prefix` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
-PyTorch version built from the chain's stages. `launches` counts kernel
-launches (set it to 0 to start a count).
+PyTorch version built from the chain's stages (after `chain.resample_input`
+for resampling configs). `launches` counts launches of the plain front-end,
+`resample_launches` those of the fused resample (set them to 0 to start a
+count).
 """
 
 from __future__ import annotations
@@ -24,12 +32,18 @@ import torch
 
 from mfcc_tpu_torch.config import FrontendConfig
 from mfcc_tpu_torch.kernels import _build
+from mfcc_tpu_torch.kernels import resample as rs_kernel
 from mfcc_tpu_torch.ops import chain
+from mfcc_tpu_torch.ops import resample as R
 
 NFFT = 512  # the kernel's FFT size (unsupported_reason refuses others)
 MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
+TILE = 32  # frames per block (csrc/frontend.cu kTile)
+WARPS = 8
+POW_STRIDE = 260
 
 launches = 0
+resample_launches = 0
 
 
 def logmel_prefix_reference(
@@ -39,7 +53,10 @@ def logmel_prefix_reference(
     consts: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """The kernel's plain version: [log-mel | clamped energy] from
-    chain.logmel_stages (torch.fft.rfft + mel matmul), on any device."""
+    chain.logmel_stages (torch.fft.rfft + mel matmul), on any device; for
+    resampling configs after chain.resample_input (the plain resample)."""
+    if chain.resamples(cfg):
+        audio, lengths = chain.resample_input(audio, lengths, cfg)
     st = chain.logmel_stages(audio, lengths, cfg, consts)
     return torch.cat([st["logmel"], st["energy"][..., None]], dim=-1)
 
@@ -81,6 +98,25 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
     return _tables(chain.device_constants(cfg, device, torch.float32), device)
 
 
+def smem_bytes(cfg: FrontendConfig) -> int:
+    """Shared memory per block for cfg (csrc/frontend.cu layout): the
+    signal row (or the fused resample's input window, whichever is longer),
+    window, mel matrix, twiddles, per-warp FFT and power rows, and for the
+    fused resample its resampled row and tap table."""
+    def a4(n):
+        return (n + 3) & ~3
+
+    span = (TILE - 1) * cfg.frame_step + min(cfg.frame_length, NFFT)
+    in_len = taps = xs = 0
+    if chain.resamples(cfg):
+        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+        in_len = rs_kernel.input_span(span + 1, d)
+        taps, xs = d["up"] * d["K"], a4(span + 1)
+    n = (a4(max(span, in_len)) + NFFT + a4(257 * cfg.n_mels) + NFFT
+         + NFFT * WARPS + POW_STRIDE * WARPS + xs + a4(taps))
+    return 4 * n
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontend")
@@ -92,6 +128,14 @@ def _lib() -> ctypes.CDLL:
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
+    lib.mfcc_frontend_logmel_resample.argtypes = [
+        p, i, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
+        i, i, i, i, i, i,  # B, T, F, L, S, M
+        i, i, i, i,  # up, down, half_len, K
+        f, f, f,  # preemph, eps, pscale
+        p,  # stream
+    ]
+    lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
     return lib
@@ -104,12 +148,14 @@ def logmel_prefix(
     consts: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """audio [B, T] int16 or float32 + lengths [B] int32 → [B, F, M+1]
-    float32 (lanes [0:M] log-mel, lane M the clamped energy).
+    float32 (lanes [0:M] log-mel, lane M the clamped energy). For
+    resampling configs T and lengths count input samples and F frames of
+    the resampled signal.
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
     window and mel matrix (a chain-constants dict)."""
-    global launches
+    global launches, resample_launches
     if audio.device.type == "cpu":
         return logmel_prefix_reference(audio, lengths, cfg, consts)
     if audio.device.type != "cuda":
@@ -136,27 +182,45 @@ def logmel_prefix(
         raise ValueError("audio and lengths must be contiguous")
     if B > MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
-    F, M = cfg.num_frames(T), cfg.n_mels
+    resampling = chain.resamples(cfg)
+    if resampling:
+        sr_in = cfg.input_sample_rate
+        rs_kernel.check_budget(smem_bytes(cfg), f"the fused {sr_in} -> {cfg.sample_rate} Hz resample")
+        F = cfg.num_frames(R.output_length(T, sr_in, cfg.sample_rate))
+    else:
+        F = cfg.num_frames(T)
+    M = cfg.n_mels
     out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
     if B == 0:
         return out
     k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
     lib = _lib()
+    head = (
+        audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
+        out.data_ptr(), k["window"].data_ptr(), k["mel"].data_ptr(),
+        k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), k["twiddle"].data_ptr(),
+    )
+    dims = (B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M)
+    tail = (cfg.preemph, cfg.log_eps, 1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
     with torch.cuda.device(audio.device):
-        rc = lib.mfcc_frontend_logmel(
-            audio.data_ptr(), int(audio.dtype == torch.int16),
-            lengths.data_ptr(), out.data_ptr(), k["window"].data_ptr(),
-            k["mel"].data_ptr(), k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(),
-            k["twiddle"].data_ptr(),
-            B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M,
-            cfg.input_scale, cfg.preemph, cfg.log_eps,
-            1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if resampling:
+            up, down = R.ratio(sr_in, cfg.sample_rate)
+            d = R.polyphase_design(up, down)
+            taps = rs_kernel.device_table(up, down, cfg.input_scale, audio.device)
+            rc = lib.mfcc_frontend_logmel_resample(
+                *head, taps.data_ptr(), *dims,
+                d["up"], d["down"], d["half_len"], d["K"], *tail, stream,
+            )
+        else:
+            rc = lib.mfcc_frontend_logmel(*head, *dims, cfg.input_scale, *tail, stream)
     if rc != 0:
         raise RuntimeError(
             "front-end kernel launch failed: "
             f"{lib.mfcc_frontend_error_string(rc).decode()} (cudaError {rc})"
         )
-    launches += 1
+    if resampling:
+        resample_launches += 1
+    else:
+        launches += 1
     return out

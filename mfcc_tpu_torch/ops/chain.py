@@ -1,6 +1,7 @@
 """The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for the
 classic13 family (standard "pad" framing, signal pre-emphasis, power-spectrum
-energy, natural log).
+energy, natural log), at 16 kHz or resampled from another input rate
+(mfcc39_48k, mfcc39_44k).
 
 Batch layout is `audio[B, T]` + `lengths[B]`, as in the JAX package: frames
 are derived with a static frame count `F = cfg.num_frames(T)` and a
@@ -11,10 +12,11 @@ beyond each utterance's length.
 `extract_batch` runs on the card by default. There the front-end (framing
 through log-mel and energy) is one hand-written CUDA kernel
 (`mfcc_tpu_torch/kernels/frontend.py`), and its [log-mel | energy] prefix
-feeds `features_from_logmel`'s prefix path. With `device="cpu"` it runs the
-plain chain of this module (`logmel_stages`, the kernel's plain version).
-A config outside the slice raises on both devices, naming the kernel branch
-it still needs.
+feeds `features_from_logmel`'s prefix path; for resampling configs the
+same kernel resamples the input rows as it stages them. With `device="cpu"`
+it runs the plain chain of this module (`resample_input`, then
+`logmel_stages`: the kernel's plain version). A config outside the slice
+raises on both devices, naming the kernel branch it still needs.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from mfcc_tpu_torch.config import FrontendConfig
 from mfcc_tpu_torch.ops import constants as C
+from mfcc_tpu_torch.ops import resample
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -47,11 +51,14 @@ def device_constants(
     return C.to_torch(C.chain_constants(cfg), device, dtype)
 
 
+def resamples(cfg: FrontendConfig) -> bool:
+    """True when cfg's input rate differs from its feature rate."""
+    return bool(cfg.input_sample_rate and cfg.input_sample_rate != cfg.sample_rate)
+
+
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when this slice of the port implements `cfg`; otherwise the
     kernel branch it still needs, with its ROADMAP queue-2 item."""
-    if cfg.input_sample_rate and cfg.input_sample_rate != cfg.sample_rate:
-        return "in-kernel fused resample (ROADMAP queue 2 item 7)"
     if cfg.dither > 0.0:
         return "in-kernel dither (ROADMAP queue 2 item 6)"
     if (
@@ -186,6 +193,21 @@ def cmvn_utterance(
     return out * m  # keep pad frames exactly zero
 
 
+def resample_input(
+    audio: torch.Tensor, lengths: torch.Tensor, cfg: FrontendConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows [B, T_in] at cfg.input_sample_rate + lengths in input samples →
+    (rows [B, output_length(T_in)] at cfg.sample_rate in the compute dtype,
+    lengths in output samples), by the plain resample. Input past each
+    length is zeroed first, so the result never depends on the padding."""
+    sr_in, sr = cfg.input_sample_rate, cfg.sample_rate
+    x = zero_beyond(audio.to(compute_dtype(cfg)), lengths)
+    return (
+        resample.resample_reference(x, sr_in, sr),
+        resample.output_lengths(lengths, sr_in, sr),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Full batched chain
 # ---------------------------------------------------------------------------
@@ -293,7 +315,8 @@ def extract_batch(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Padded audio [B, T] (int16 or float; numpy or torch) + lengths [B] →
     (features [B, F, feat_dim], frame_mask [B, F]) on `device`, with
-    F = cfg.num_frames(T).
+    F = cfg.num_frames(T). For resampling configs audio and lengths are at
+    cfg.input_sample_rate and F = cfg.num_frames(output_length(T)).
 
     On "cuda" the front-end is the CUDA kernel; "cpu" runs the plain chain.
     Global CMVN (cfg.cmvn == "global") is a corpus-level operation: features
@@ -308,12 +331,19 @@ def extract_batch(
         )
     audio = torch.as_tensor(audio, device=device)
     lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
+    if audio.dim() == 3:
+        raise ValueError(
+            f"3-D audio {tuple(audio.shape)}: the port takes flat rows [B, T] "
+            "(the JAX package's slab and blocked feeds are TPU layouts)"
+        )
     if audio.dim() != 2 or lengths.shape != audio.shape[:1]:
         raise ValueError(
             f"expected audio [B, T] and lengths [B], got {tuple(audio.shape)} "
             f"and {tuple(lengths.shape)}"
         )
     if device.type != "cuda":
+        if resamples(cfg):
+            audio, lengths = resample_input(audio, lengths, cfg)
         stages = logmel_stages(audio, lengths, cfg, consts)
         return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
 
@@ -331,6 +361,8 @@ def extract_batch(
     # consts=None lets the wrapper use its per-(cfg, device) cached tables
     prefix = frontend.logmel_prefix(audio.contiguous(), lengths, cfg, consts=consts)
     k = consts if consts is not None else device_constants(cfg, device, torch.float32)
+    if resamples(cfg):
+        lengths = resample.output_lengths(lengths, cfg.input_sample_rate, cfg.sample_rate)
     n_valid = num_valid_frames(lengths, cfg)
     stages = {
         "prefix": prefix,
@@ -338,3 +370,48 @@ def extract_batch(
         "frame_mask": frame_mask(n_valid, prefix.shape[1], torch.float32),
     }
     return features_from_logmel(stages, cfg, k), stages["frame_mask"]
+
+
+# ---------------------------------------------------------------------------
+# Single-utterance convenience (golden tests, one-shot extraction)
+# ---------------------------------------------------------------------------
+
+
+def _single(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+
+
+def valid_length(n: int, cfg: FrontendConfig) -> int:
+    """Samples at cfg.sample_rate that n input samples give."""
+    if resamples(cfg):
+        return resample.output_length(n, cfg.input_sample_rate, cfg.sample_rate)
+    return n
+
+
+def extract_single(x, cfg: FrontendConfig, device="cuda") -> torch.Tensor:
+    """One utterance (int16 or float, at cfg.input_sample_rate when it is
+    set) → [F_valid, feat_dim] features on `device` (the oracle layout).
+    int16 samples reach the kernel as int16; other types are cast to the
+    compute dtype."""
+    x = _single(x)
+    if x.dtype != torch.int16:
+        x = x.to(compute_dtype(cfg))
+    n = int(x.shape[0])
+    feat, _ = extract_batch(x[None, :], [n], cfg, device=device)
+    return feat[0, : cfg.num_frames(valid_length(n, cfg))]
+
+
+def logmel_single(x, cfg: FrontendConfig, device="cuda") -> dict[str, torch.Tensor]:
+    """One utterance → every stage of the plain chain, trimmed to its valid
+    frames. x is at cfg.input_sample_rate when it is set, and is resampled
+    first by `resample.resample_batch` (the polyphase kernel on the card)."""
+    x = _single(x).to(device=device, dtype=compute_dtype(cfg))
+    if resamples(cfg):
+        x = resample.resample_batch(x, cfg.input_sample_rate, cfg.sample_rate)
+    n = int(x.shape[0])
+    lengths = torch.tensor([n], dtype=torch.int32, device=x.device)
+    stages = logmel_stages(x[None, :], lengths, cfg)
+    f_valid = cfg.num_frames(n)
+    return {
+        k: v[0, :f_valid] if v.dim() >= 2 else v[0] for k, v in stages.items()
+    }

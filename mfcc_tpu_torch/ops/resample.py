@@ -1,0 +1,224 @@
+"""Polyphase resampler — the port of `mfcc_tpu/ops/resample.py`, the twin of
+scipy.signal.resample_poly (padtype='constant', the default):
+
+    g = gcd(up, down); up, down //= g
+    h = firwin(2*half_len+1, 1/max_rate, window=('kaiser', 5.0)) * up,
+        half_len = 10*max_rate
+    h <- [zeros(n_pre_pad), h], n_pre_pad = down - half_len % down
+    y = upfirdn(h, x, up, down)[n_pre_remove : n_pre_remove + n_out],
+        n_pre_remove = (half_len + n_pre_pad) // down,
+        n_out = ceil(n_in * up / down)
+
+Taps are designed on the host in float64 by the same scipy call as the JAX
+package and the oracle, so they are bit-identical. `resample_batch` is the
+entry point: on a CUDA float32 tensor it launches the polyphase kernel
+(`mfcc_tpu_torch/kernels/resample.py`), on a CPU tensor it runs
+`resample_reference`, the reference's two-dot banded-matmul form in torch.
+
+The kernels read the taps phase by phase (`polyphase_design`): with the
+n_pre_pad leading zeros dropped, output j is
+
+    y[j] = sum_{i<K} table[p, i] * x[q - i],  a = j*down + half_len,
+                                              p = a % up, q = a // up
+
+since (j + n_pre_remove)*down - n_pre_pad = j*down + half_len exactly.
+
+Not ported: the TPU's blocked host layouts (`BlockedLayout`,
+`resample_blocked`, `slab_design`), which exist for VMEM (the port takes
+flat rows), and `StreamingResampler` (the streaming slice).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+
+def ratio(sr_in: int, sr_out: int) -> tuple[int, int]:
+    """(up, down) reduced by their gcd: up from sr_out, down from sr_in."""
+    g = math.gcd(sr_out, sr_in)
+    return sr_out // g, sr_in // g
+
+
+@functools.lru_cache(maxsize=32)
+def _design(up: int, down: int) -> dict:
+    """Host-side tap design + index algebra, cached per reduced ratio."""
+    import scipy.signal
+
+    g = math.gcd(up, down)
+    up, down = up // g, down // g
+    max_rate = max(up, down)
+    half_len = 10 * max_rate
+    h = scipy.signal.firwin(
+        2 * half_len + 1, 1.0 / max_rate, window=("kaiser", 5.0)
+    ).astype(np.float64) * up
+    n_pre_pad = down - half_len % down
+    n_pre_remove = (half_len + n_pre_pad) // down
+    h = np.concatenate([np.zeros(n_pre_pad), h])
+    return {
+        "up": up,
+        "down": down,
+        "taps": h,  # float64; cast at use
+        "n_pre_remove": n_pre_remove,
+        "half_len": half_len,
+    }
+
+
+@functools.lru_cache(maxsize=32)
+def polyphase_design(up: int, down: int) -> dict:
+    """The kernels' tap table (`csrc/polyphase.cuh`): float64 [up, K],
+    table[p, i] = h[p + up*i] for the filter without its leading zeros,
+    zero past its end; K = ceil((2*half_len + 1) / up). Read-only."""
+    d = _design(up, down)
+    up, half_len = d["up"], d["half_len"]
+    h = d["taps"][d["taps"].shape[0] - (2 * half_len + 1):]
+    K = -(-h.shape[0] // up)
+    flat = np.zeros(up * K, dtype=np.float64)
+    flat[: h.shape[0]] = h
+    table = np.ascontiguousarray(flat.reshape(K, up).T)
+    table.setflags(write=False)
+    return {"up": up, "down": d["down"], "half_len": half_len, "K": K,
+            "table": table}
+
+
+def output_length(n_in: int, sr_in: int, sr_out: int) -> int:
+    """ceil(n_in * up / down) after gcd reduction — scipy's n_out."""
+    up, down = ratio(sr_in, sr_out)
+    n = n_in * up
+    return n // down + bool(n % down)
+
+
+def output_lengths(lengths: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
+    """Per-utterance output_length on a tensor, in its dtype.
+
+    Computed as q*up + ceil(r*up/down) with q, r = divmod(n, down): exact
+    and overflow-safe in int32 — `lengths * up` directly would wrap for high
+    ratios (44.1 kHz → 16 kHz reduces to up=160: utterances over ~13.4 M
+    samples)."""
+    up, down = ratio(sr_in, sr_out)
+    q = torch.div(lengths, down, rounding_mode="floor")
+    ru = (lengths - q * down) * up  # < down*up: no overflow
+    ceil_ru = torch.div(ru + (down - 1), down, rounding_mode="floor")
+    return (q * up + ceil_ru).to(lengths.dtype)
+
+
+def _block_J(up: int) -> int:
+    """Outputs per block of the two-dot form: the smallest multiple of `up`
+    >= 128, so every block shares one polyphase alignment (J % up == 0)."""
+    return -(-128 // up) * up
+
+
+@functools.lru_cache(maxsize=16)
+def _stream_design(up: int, down: int, J: int):
+    """Block-invariant polyphase apply for J outputs (J % up == 0): the
+    read-only float64 [J, W] matrix plus the window algebra."""
+    d = _design(up, down)  # gcd-reduced already; reuses the tap cache
+    npr = d["n_pre_remove"]
+    h = d["taps"]
+    lh = h.shape[0]
+    # output j is upfirdn index (j + npr): it reads zero-stuffed input at
+    # m = (j+npr)*down - k for k in [0, lh), i.e. x[m/up] where up | m.
+    # Window origin = lowest x index output 0 can touch (may be negative
+    # at stream start -> zero-filled).
+    origin = math.ceil((npr * down - (lh - 1)) / up)
+    hi = ((J - 1 + npr) * down) // up
+    W = hi - origin + 1
+    M = np.zeros((J, W), dtype=np.float64)
+    for j in range(J):
+        mh = (j + npr) * down
+        k0 = mh % up  # smallest k with up | (mh - k)
+        for k in range(k0, min(lh, mh - origin * up + 1), up):
+            M[j, (mh - k) // up - origin] += h[k]
+    M.setflags(write=False)
+    step = J * down // up  # input samples per block
+    return M, origin, W, step
+
+
+@functools.lru_cache(maxsize=16)
+def _block_matrix(up: int, down: int, dtype: torch.dtype, device: torch.device):
+    M, _, _, _ = _stream_design(up, down, _block_J(up))
+    return torch.tensor(M.T, dtype=dtype, device=device)
+
+
+def _resample_flat(x: torch.Tensor, up: int, down: int, n_out: int) -> torch.Tensor:
+    """Banded-matmul apply: [B, n_in] float -> [B, >= n_out] (whole
+    J-blocks; callers trim). gcd-reduced up/down.
+
+    Two dots + one shifted add, as in the reference:
+
+        slab = x_padded.reshape(B, n_blk+1, step)
+        y    = slab[:, :n_blk] @ M1  +  (slab[:, :, :E] @ M2)[:, 1:]
+
+    with M1 = M.T[:step] (main taps) and M2 = M.T[step:W] (the E-sample
+    halo each block reads from the next row). A design whose halo is wider
+    than a block (extreme upsampling) gathers its windows instead."""
+    J = _block_J(up)
+    _, origin, W, step = _stream_design(up, down, J)
+    Mt = _block_matrix(up, down, x.dtype, x.device)
+    B, n_in = x.shape
+    n_blk = -(-n_out // J)
+    # block b reads input [origin + b*step, origin + b*step + W); shift by
+    # pad_lo so all indices are >= 0, zero-fill outside (= scipy constant)
+    pad_lo = max(0, -origin)
+    o = origin + pad_lo
+    E = W - step
+    need = o + (n_blk - 1) * step + max(2 * step, W)
+    pad_hi = max(0, need - (n_in + pad_lo))
+    x = torch.nn.functional.pad(x, (pad_lo, pad_hi))
+    if 0 < E <= step:
+        slab = x[:, o : o + (n_blk + 1) * step].reshape(B, n_blk + 1, step)
+        y = slab[:, :n_blk] @ Mt[:step] + (slab[:, :, :E] @ Mt[step:W])[:, 1:]
+    else:
+        idx = o + step * torch.arange(n_blk, device=x.device)[:, None]
+        win = x[:, idx + torch.arange(W, device=x.device)]  # [B, n_blk, W]
+        y = win @ Mt
+    return y.reshape(B, n_blk * J)
+
+
+def resample_reference(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
+    """The plain version: [..., T] float -> [..., output_length(T)] by the
+    two-dot form, on any device, returned in the input's dtype.
+
+    The dots accumulate in float64 and round once. In float32 the two-dot
+    sums leave mfcc39_44k features up to 1.2e-3 from the float64 goldens
+    on the pathological golden signals (dc, tone_offbin), over the
+    family's 8e-4 gate (the JAX package measures its own CPU floor there at
+    1.32e-3, docs/ACCURACY.md); rounded once they stay within it. It also
+    makes each row's result independent of the batch around it, which a
+    float32 BLAS reduction is not."""
+    if not audio.dtype.is_floating_point:
+        raise ValueError(f"resampling takes float audio, got {audio.dtype}")
+    if sr_in == sr_out:
+        return audio
+    up, down = ratio(sr_in, sr_out)
+    n_in = audio.shape[-1]
+    n_out = output_length(n_in, sr_in, sr_out)
+    lead = audio.shape[:-1]
+    if n_in == 0:
+        return audio.new_zeros(lead + (0,))
+    y = _resample_flat(audio.reshape(-1, n_in).double(), up, down, n_out)
+    return y[:, :n_out].reshape(lead + (n_out,)).to(audio.dtype)
+
+
+def resample_batch(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
+    """Resample [..., T] along the last axis, sr_in -> sr_out.
+
+    A CUDA float32 tensor goes through the polyphase kernel (other CUDA
+    dtypes raise); a CPU tensor through `resample_reference`. Zero padding
+    beyond each utterance's length behaves exactly like scipy's 'constant'
+    edge mode, so a padded batch resamples to the same values as each
+    utterance alone (valid output range per row: output_lengths(lengths))."""
+    from mfcc_tpu_torch.kernels import resample as K
+
+    return K.polyphase_resample(audio, sr_in, sr_out)
+
+
+def resample_numpy(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Float64 oracle — delegates to scipy (the ground truth)."""
+    import scipy.signal
+
+    up, down = ratio(sr_in, sr_out)
+    return scipy.signal.resample_poly(x, up, down)

@@ -7,6 +7,19 @@ tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin — log-mel within
 row max on every bin, energy within 1e-5 relative. Features: lifted cepstra
 within 5e-4 absolute plus 1e-5 relative (the ×12 lifter amplifies fp32
 roundoff; docs/ACCURACY.md).
+
+Resampling (ops/resample.py, kernels/resample.py):
+  - float64 vs scipy resample_poly and vs the JAX package under x64: 1e-12
+    (only roundoff of the same taps remains);
+  - float32 vs scipy at unit-normal scale: 1e-5 (tests/test_resample.py);
+  - the polyphase kernel vs its plain version: 1e-5 of the row's max |x|
+    (both fp32; only the order of the ~60-tap sums differs).
+The fused resample of the front-end kernel is held to the prefix gates
+above. Resampled features (mfcc39_48k, mfcc39_44k) vs the goldens, the JAX
+package and across devices: atol 8e-4, rtol 2e-5, the JAX package's
+re-scoped gate for this family (fp32 resample sums move its CPU floor from
+4.1e-4 to 6.8e-4; tests/test_resample.py::test_mfcc39_48k_end_to_end,
+docs/ACCURACY.md). The float64 chain vs the JAX package under x64: 1e-10.
 """
 
 from __future__ import annotations
@@ -19,6 +32,12 @@ LINEAR_REL_ROWMAX = 1e-5
 ENERGY_RTOL = 1e-5
 FEATURE_ATOL = 5e-4
 FEATURE_RTOL = 1e-5
+FEATURE_F64_ATOL = 1e-10
+RESAMPLE_F64_ATOL = 1e-12
+RESAMPLE_F32_ATOL = 1e-5
+RESAMPLE_KERNEL_REL_ROWMAX = 1e-5
+RESAMPLED_FEATURE_ATOL = 8e-4
+RESAMPLED_FEATURE_RTOL = 2e-5
 
 
 def _f64(x) -> np.ndarray:
@@ -64,4 +83,19 @@ def assert_prefix_close(got, want, n_mels: int) -> None:
 def assert_features_close(got, want) -> None:
     np.testing.assert_allclose(
         _f64(got), _f64(want), atol=FEATURE_ATOL, rtol=FEATURE_RTOL
+    )
+
+
+def resample_error(got, want, x) -> float:
+    """max |got - want| over each row, relative to the row's max |x| (the
+    resampler's input); the kernel-vs-plain measure."""
+    got, want, x = _f64(got), _f64(want), _f64(x)
+    rowmax = np.abs(x).reshape(-1, x.shape[-1]).max(axis=-1) + 1e-300
+    err = np.abs(got - want).reshape(-1, got.shape[-1]).max(axis=-1, initial=0.0)
+    return float((err / rowmax).max(initial=0.0))
+
+
+def assert_resampled_features_close(got, want) -> None:
+    np.testing.assert_allclose(
+        _f64(got), _f64(want), atol=RESAMPLED_FEATURE_ATOL, rtol=RESAMPLED_FEATURE_RTOL
     )
