@@ -26,15 +26,40 @@ Phases, in order; any failure exits non-zero:
      |x| of its plain version and of scipy float64 on four rows; refusals
      (float64, a tap table over budget, a config the port lacks); times;
   6. path mfcc39_44k at b16 x 10 s: the fused resample against its plain
-     version, `extract_batch` counted and within 8e-4 of the CPU chain.
+     version, `extract_batch` counted and within 8e-4 of the CPU chain;
+     mfcc39_48k with dither 0.5 at b16: the fused form's dither against its
+     plain version, int16 ≡ float32 and two runs bitwise;
+  7. path kaldi_mfcc with dither 1.0 (Kaldi's default; b64 x 10 s int16,
+     lengths 160,000 - 571*i, "drop" framing, 998 frames): the dither and
+     conditioning branches against their plain version (ln_floor epilogue),
+     int16 ≡ float32, dirty tails ≡ clean, two runs of one seed bitwise
+     equal, another seed different, one utterance at two rows bitwise equal
+     on its valid frames, rows shorter than a frame giving 0 frames without
+     a launch; `extract_batch` counted (front-end 1 with its dither and
+     conditioning branches, the others 0), [64, 998, 13] within 5e-4 of the
+     CPU chain and of the float64 chain on four rows; times, beside the
+     kernel without dither and without conditioning on the same rows; then
+     kaldi_mfcc without dither and kaldi_fbank at b16, counted, within 5e-4
+     and 1e-4 of the CPU chain;
+  8. path logmel80 (BASELINE config #3, b256 x 10 s int16): the ln_stab
+     epilogue against its plain version, `extract_batch` counted,
+     [256, 999, 80] within the two-regime log-mel gate (1e-4 on bins within
+     40 dB of the row max, 1e-5 of the row max in the linear domain) of the
+     CPU chain and of the float64 chain on four rows; times; the db
+     epilogue against its plain version at b16.
 Times are CUDA events after warm-up (median of launches with the 64 MiB
 flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
 cores) at the function's minimum: a split-radix 256-point complex FFT, the
 real split with its 1/2 scalings folded into the power scale, the mel sums
-over the filters' nonzero weights, and the resample's taps (the 61
-symmetric taps of 48 kHz -> 16 kHz folded: 91 FLOP per output). A
+over the filters' nonzero weights, the conditioning's passes over each
+frame, the dither's 30 float operations per sample that holds signal (its
+25 integer hash operations counted at the fp32 rate, which no int32 rate of
+the card exceeds, so the bound stays a lower bound; ln and sqrt one each),
+and the resample's taps (the 61 symmetric taps of 48 kHz -> 16 kHz folded:
+91 FLOP per output). No PyTorch call computes the contract noise or the
+conditioning, so those two entries have no library time. A
 torch.profiler pass over five steps of each extract_batch path gives device
 kernels per step, device busy time and the step's idle share.
 The line before the last is {"kernels": [...]}; the last is
@@ -54,7 +79,8 @@ import time
 import numpy as np
 
 B, SECONDS = 64, 10
-B_44K = 16
+B_SMALL = 16  # depth of the secondary paths (mfcc39_44k, dithered 48 kHz, kaldi_fbank, db)
+B_LOGMEL80 = 256  # logmel80 is BASELINE config #3, "batch-256"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 BOUNDARY_LENGTHS = [0, 1, 399, 400, 401, 32 * 160 - 1, 32 * 160, 32 * 160 + 1]
@@ -80,7 +106,24 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
         "replaces": "mfcc_tpu/kernels/resample.py:79",
     },
+    "conditioning": {
+        "name": "frontend_logmel_conditioning",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:620",
+    },
+    "dither": {
+        "name": "frontend_logmel_dither",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:537",
+    },
 }
+# dither: float operations per sample that holds signal (uniforms 4, ln,
+# -2x, sqrt, cos(2 pi u) 20, r cos, sigma n, the add) and integer ones (two
+# fmix32 16, row key 2, t / S and t % S, lane add, the two 16-bit halves
+# and their conversions 4), both counted at the fp32 rate
+DITHER_FLOPS, DITHER_INT_OPS = 30, 25
 
 
 class SmokeFailure(Exception):
@@ -93,8 +136,8 @@ def check(ok: bool, what: str) -> None:
     print(f"  ok: {what}")
 
 
-def check_prefix(testing, got, want, n_mels: int, what: str) -> dict[str, float]:
-    errs = testing.prefix_errors(got, want, n_mels)
+def check_prefix(testing, got, want, cfg, what: str) -> dict[str, float]:
+    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind)
     print(f"  {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     failures = testing.prefix_failures(errs)
     check(not failures, f"{what}: within the kernel-vs-plain gates {failures or ''}")
@@ -131,19 +174,33 @@ def host_ms(torch, fn, reps: int = 7) -> float:
 
 def profile_step(torch, fn, kernel_substr: str, steps: int = 5):
     """(device kernels per step, device busy ms per step, ms of the kernels
-    whose name holds kernel_substr per step) over `steps` calls of fn."""
-    from torch.profiler import ProfilerActivity, profile
+    whose name holds kernel_substr per step) over `steps` calls of fn,
+    traced after two warm-up calls inside the same session (a session's
+    first launches can be missed while tracing starts: one run saw 4 of 5
+    front-end records). A trace that still lost some of those kernels'
+    records is taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    # device-side events only: a CPU op's self device time repeats its kernels'
-    on_device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
+            for _ in range(2 + steps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        # device-side events only (a CPU op's self device time repeats its
+        # kernels'), without the ProfilerStep ranges mirrored on the device
+        on_device = [e for e in prof.events() if e.device_type.name == "CUDA"
+                     and not e.name.startswith("ProfilerStep")]
+        ours = [e for e in on_device if kernel_substr in e.name]
+        if len(ours) == steps:
+            break
+        print(f"  profiler: {len(ours)} of {steps} {kernel_substr} records, tracing again")
+    check(len(ours) == steps, f"the profiler traced {len(ours)} of {steps} {kernel_substr} launches")
     busy = sum(e.self_device_time_total for e in on_device) / 1e3 / steps
-    ours = sum(e.self_device_time_total for e in on_device
-               if kernel_substr in e.name) / 1e3 / steps
-    return len(on_device) / steps, busy, ours
+    ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / steps
+    return len(on_device) / steps, busy, ours_ms
 
 
 class Counters:
@@ -155,6 +212,8 @@ class Counters:
     def zero(self) -> None:
         self.frontend.launches = 0
         self.frontend.resample_launches = 0
+        self.frontend.dither_launches = 0
+        self.frontend.conditioning_launches = 0
         self.rs_kernel.launches = 0
 
     def read(self) -> dict[str, int]:
@@ -162,7 +221,16 @@ class Counters:
             "frontend": self.frontend.launches,
             "fused": self.frontend.resample_launches,
             "resample": self.rs_kernel.launches,
+            "conditioning": self.frontend.conditioning_launches,
+            "dither": self.frontend.dither_launches,
         }
+
+    def expect(self, what: str, **want: int) -> dict[str, int]:
+        """Checks the counts read after a path: `want` names the kernels
+        launched, every other count must be 0."""
+        got = self.read()
+        check(got == {k: want.get(k, 0) for k in got}, f"{what} launched {want} and nothing else: {got}")
+        return got
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -174,26 +242,38 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
-    """FLOP of the front-end's minimum for rows holding lens16
-    samples at 16 kHz: pre-emphasis per sample, and per frame that holds
-    samples the window, a split-radix 256-point FFT, the real split, |X|^2,
-    mel over the nonzero weights, energy, clamps and logs."""
+    """Operations of the front-end's minimum for rows holding lens16 samples
+    at 16 kHz: per sample, signal pre-emphasis and the dither (when cfg has
+    them); per frame that holds samples, the conditioning (when cfg has it),
+    the window, a split-radix 256-point FFT, the real split, |X|^2, mel over
+    the nonzero weights, the energy, clamps and logs."""
     M = cfg.n_mels
     frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens16))
     mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
     nnz = int((mel != 0).sum())
     Lk, N2 = min(cfg.frame_length, frontend.NFFT), frontend.NFFT // 2
+    conditioning = (
+        2 * Lk * cfg.remove_dc_offset  # the mean and the centering
+        + 2 * Lk * (cfg.energy_source != "pspec")  # raw or windowed frame energy
+        + (2 * Lk - 1) * (cfg.preemph_mode == "frame" and cfg.preemph != 0.0)
+    )
     per_frame = (
-        Lk  # window
+        conditioning
+        + Lk  # window
         + 4 * N2 * int(math.log2(N2)) - 6 * N2 + 8  # 256-point complex FFT, split radix
         + 14 * (N2 // 2 - 1) + 2  # real split; its 1/2 scalings fold into pscale
         + 3 * (N2 - 1) + 2  # |X|^2 (bins 0 and 256 are real)
         + 2 * nnz  # mel over the nonzero weights (pscale folds into them)
-        + N2 + 1  # energy: sum of 257 powers, times pscale
+        + (N2 + 1) * (cfg.energy_source == "pspec")  # sum of 257 powers, times pscale
         + 2 * M + 1  # clamps and logs
     )
-    print(f"  front-end: {frames} frames x {per_frame} FLOP + 2 per sample of pre-emphasis")
-    return 2 * int(np.sum(lens16)) + frames * per_frame
+    per_sample = (
+        2 * (cfg.preemph_mode == "signal" and cfg.preemph != 0.0)
+        + (DITHER_FLOPS + DITHER_INT_OPS) * (cfg.dither > 0.0)
+    )
+    print(f"  front-end: {frames} frames x {per_frame} operations ({conditioning} of "
+          f"conditioning) + {per_sample} per sample of pre-emphasis and dither")
+    return per_sample * int(np.sum(lens16)) + frames * per_frame
 
 
 def resample_ops(R, up: int, down: int, lens_out) -> int:
@@ -212,27 +292,78 @@ def resample_ops(R, up: int, down: int, lens_out) -> int:
     return total
 
 
+def dirty_rows(torch, audio, lengths, seed: int):
+    """audio with int16-range garbage in place of every sample past each length."""
+    t = torch.arange(audio.shape[1], device=audio.device)[None, :]
+    garbage = torch.randint(-32768, 32767, audio.shape, dtype=torch.int16, device=audio.device,
+                            generator=torch.Generator(audio.device).manual_seed(seed))
+    return torch.where(t < lengths[:, None], audio, garbage.to(audio.dtype))
+
+
 def make_batch(pad_batch, cfg, rows: int, n: int, step: int, seed: int):
     g = np.random.default_rng(seed)
     utts = [(g.standard_normal(n - step * i) * 3000).astype(np.int16) for i in range(rows)]
     return pad_batch(utts, cfg, bucket_len=n, dtype="int16")
 
 
-def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float) -> None:
+def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | None,
+                   f64_rows: int = 4) -> None:
+    """Features of the card against the CPU chain and, on the first f64_rows
+    rows, the float64 chain: max |diff| <= atol, or with atol None (log-mel
+    features) the two-regime log-mel gate of `testing`."""
     F = feat.shape[1]
     check(tuple(feat.shape) == (batch.audio.shape[0], F, cfg.feat_dim), f"features {tuple(feat.shape)}")
     check(feat.device.type == "cuda" and bool(torch.isfinite(feat).all()), "finite, on the card")
     check(bool((feat[mask == 0] == 0).all()) and int((mask == 0).sum()) > 0,
           f"pad frames exactly 0 ({int((mask == 0).sum())} of {mask.numel()})")
+
+    def gate(got, want, what):
+        if atol is None:
+            errs = testing.logmel_errors(got, want, cfg.log_kind)
+            print(f"  card vs {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+            fails = testing.logmel_failures(errs)
+            check(not fails, f"card within the two-regime log-mel gate of the {what} {fails or ''}")
+        else:
+            err = float((got.double().cpu() - want.double()).abs().max())
+            print(f"  max |card - {what}| = {err:.3e}")
+            check(err <= atol, f"card within {atol} of the {what}")
+
     cpu_feat, cpu_mask = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
-    err_cpu = float((feat.cpu() - cpu_feat).abs().max())
-    print(f"  max |card - cpu| = {err_cpu:.3e}")
-    check(err_cpu <= atol and torch.equal(mask.cpu(), cpu_mask), f"card within {atol} of the CPU chain")
-    f64, _ = chain.extract_batch(batch.audio[:4], batch.lengths[:4],
+    check(torch.equal(mask.cpu(), cpu_mask), "frame mask equal to the CPU chain's")
+    gate(feat.cpu(), cpu_feat, "CPU chain")
+    del cpu_feat
+    f64, _ = chain.extract_batch(batch.audio[:f64_rows], batch.lengths[:f64_rows],
                                  cfg.replace(dtype="float64"), device="cpu")
-    err64 = float((feat[:4].double().cpu() - f64).abs().max())
-    print(f"  max |card - float64 chain| (rows 0-3) = {err64:.3e}")
-    check(err64 <= atol, f"card within {atol} of the float64 plain chain")
+    gate(feat[:f64_rows].cpu(), f64, f"float64 chain (rows 0-{f64_rows - 1})")
+
+
+def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str) -> tuple[float, float]:
+    """extract_batch step on device-resident rows (CUDA events) and host-fed
+    (numpy rows in, host clock), and a profiled step. Returns (step ms, ms
+    of the front-end kernel in the profiled step)."""
+    rows = audio.shape[0]
+    e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
+    fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
+    per_step, busy_ms, ours_ms = profile_step(
+        torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
+    check(ours_ms > 0, f"the profiler sees the {what} on the card")
+    print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
+          f"{rows * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
+    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
+          f"{rows * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
+    print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
+          f"({what} {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
+          f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
+    return e2e_ms, ours_ms
+
+
+def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2, taps: int = 0) -> int:
+    """Bytes the front-end must move: each input sample that holds signal,
+    the lengths, the [B, F, M+1] prefix and the window, mel, band and
+    twiddle tables (and a resample's taps), each once."""
+    M, Lk = cfg.n_mels, min(cfg.frame_length, frontend.NFFT)
+    return (int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4
+            + (Lk + 257 * M + 2 * M + 512 + taps) * 4)
 
 
 def main() -> int:
@@ -294,22 +425,19 @@ def main() -> int:
     torch.cuda.synchronize()
     check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
     plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
-    errs = check_prefix(testing, got, plain, M, "main batch")
+    errs = check_prefix(testing, got, plain, cfg, "main batch")
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
           "int16 rows == the same rows in float32, bitwise")
-    t = torch.arange(T, device="cuda")[None, :]
-    garbage = torch.randint(-32768, 32767, audio.shape, dtype=torch.int16,
-                            device="cuda", generator=torch.Generator("cuda").manual_seed(1))
-    dirty = torch.where(t < lengths[:, None], audio, garbage)
-    check(torch.equal(got, frontend.logmel_prefix(dirty, lengths, cfg)),
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 1), lengths, cfg)),
           "garbage past each length leaves the output unchanged (main batch)")
+    t = torch.arange(T, device="cuda")[None, :]
     bl = torch.tensor(BOUNDARY_LENGTHS, dtype=torch.int32, device="cuda")
     b_dirty = audio[: len(BOUNDARY_LENGTHS), :16000].contiguous()
     b_clean = torch.where(t[:, :16000] < bl[:, None], b_dirty, 0)
     b_got = frontend.logmel_prefix(b_dirty, bl, cfg)
     check(torch.equal(b_got, frontend.logmel_prefix(b_clean, bl, cfg)),
           f"boundary lengths {BOUNDARY_LENGTHS}: dirty tails == clean")
-    check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), M,
+    check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), cfg,
                  "boundary lengths")
     eps = torch.tensor(cfg.log_eps, dtype=torch.float32)
     check(bool((b_got[0, :, M] == eps.cuda()).all())
@@ -319,9 +447,7 @@ def main() -> int:
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.read()
-    check(launches == {"frontend": 1, "fused": 0, "resample": 0},
-          f"main path launched the front-end kernel once and nothing else {launches}")
+    launches = counters.expect("main path", frontend=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.FEATURE_ATOL)
 
     print(f"  times {tag}")
@@ -332,31 +458,18 @@ def main() -> int:
     framed = framed.contiguous()
     del st
     rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
-    e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
-    fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
-    per_step, busy_ms, ours_ms = profile_step(
-        torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
-    check(ours_ms > 0, "the profiler sees the front-end kernel on the card")
     lens = np.minimum(batch.lengths.astype(np.int64), T)
-    ops = frontend_ops(cfg, chain, frontend, torch, lens, F)
-    Lk = min(cfg.frame_length, frontend.NFFT)
-    nbytes = int(lens.sum()) * 2 + B * 4 + B * F * (M + 1) * 4 + (Lk + 257 * M + 2 * M + 512) * 4
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens, F))
     print(f"  frontend kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
     print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
     print(f"  torch.fft.rfft on [{B * F}, {cfg.n_fft}] pre-framed (DFT only): {rfft_ms:.4f} ms {tag}")
-    print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
-          f"{B * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
-          f"{B * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
-          f"(front-end kernel {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
-          f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
     results["frontend"] = dict(
         launches=launches["frontend"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
     )
-    del audio, lengths, dirty, garbage, framed, feat, mask
+    del audio, lengths, framed, feat, mask
 
     # 4. mfcc39_48k: the fused resample
     cfg = named_config("mfcc39_48k")
@@ -374,31 +487,26 @@ def main() -> int:
     torch.cuda.synchronize()
     check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
     plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
-    errs = check_prefix(testing, got, plain, M, "main batch")
+    errs = check_prefix(testing, got, plain, cfg, "main batch")
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
           "int16 rows == the same rows in float32, bitwise")
-    t = torch.arange(T, device="cuda")[None, :]
-    garbage = torch.randint(-32768, 32767, audio.shape, dtype=torch.int16,
-                            device="cuda", generator=torch.Generator("cuda").manual_seed(3))
-    dirty = torch.where(t < lengths[:, None], audio, garbage)
-    check(torch.equal(got, frontend.logmel_prefix(dirty, lengths, cfg)),
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 3), lengths, cfg)),
           "garbage past each input length leaves the output unchanged (main batch)")
+    t = torch.arange(T, device="cuda")[None, :]
     bl = torch.tensor(RS_BOUNDARY_LENGTHS, dtype=torch.int32, device="cuda")
     b_dirty = audio[: len(RS_BOUNDARY_LENGTHS), :48000].contiguous()
     b_clean = torch.where(t[:, :48000] < bl[:, None], b_dirty, 0)
     b_got = frontend.logmel_prefix(b_dirty, bl, cfg)
     check(torch.equal(b_got, frontend.logmel_prefix(b_clean, bl, cfg)),
           f"boundary input lengths {RS_BOUNDARY_LENGTHS}: dirty tails == clean")
-    check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), M,
+    check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), cfg,
                  "boundary input lengths")
-    del plain, dirty, garbage
+    del plain
 
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.read()
-    check(launches == {"frontend": 0, "fused": 1, "resample": 0},
-          f"main path launched the fused resample once and nothing else {launches}")
+    launches = counters.expect("main path", fused=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
     del feat, mask
 
@@ -419,31 +527,18 @@ def main() -> int:
     framed = framed.contiguous()
     del st, conv, ref16
     rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
-    e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
-    fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
-    per_step, busy_ms, ours_ms = profile_step(
-        torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
-    check(ours_ms > 0, "the profiler sees the fused resample on the card")
     lens_in = np.minimum(batch.lengths.astype(np.int64), T)
     lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
     fe_ops = frontend_ops(cfg, chain, frontend, torch, lens16, F)
     rs_ops = resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), lens16)
     print(f"  resample: {int(lens16.sum())} output samples with signal, {rs_ops / lens16.sum():.0f} FLOP each")
-    Lk = min(cfg.frame_length, frontend.NFFT)
-    nbytes = (int(lens_in.sum()) * 2 + B * 4 + B * F * (M + 1) * 4
-              + (Lk + 257 * M + 2 * M + 512 + d["up"] * d["K"]) * 4)
-    bound_ms, bound_by = bound(nbytes, fe_ops + rs_ops)
+    bound_ms, bound_by = bound(
+        frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]), fe_ops + rs_ops)
     print(f"  fused resample kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
     print(f"  plain version (float64 two-dot resample + torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
     print(f"  library, resample and DFT only: conv1d stride {d['down']} on [{B}, {T}] {conv_ms:.4f} ms "
           f"+ torch.fft.rfft on [{B * F}, {cfg.n_fft}] {rfft_ms:.4f} ms = {conv_ms + rfft_ms:.4f} ms {tag}")
-    print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
-          f"{B * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
-          f"{B * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
-    print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
-          f"(fused resample kernel {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
-          f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
+    step_times(torch, chain, batch, audio, lengths, cfg, "fused resample kernel", tag)
     results["fused"] = dict(
         launches=launches["fused"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms + rfft_ms,
@@ -457,9 +552,7 @@ def main() -> int:
     counters.zero()
     y = R.resample_batch(x, sr_in, cfg.sample_rate)
     torch.cuda.synchronize()
-    launches = counters.read()
-    check(launches == {"frontend": 0, "fused": 0, "resample": 1},
-          f"resample_batch launched the polyphase kernel once and nothing else {launches}")
+    launches = counters.expect("resample_batch", resample=1)
     check(tuple(y.shape) == (B, n_out) and bool(torch.isfinite(y).all()), f"output {tuple(y.shape)}, finite")
     rs_err = testing.resample_error(y, rs_kernel.resample_reference(x, sr_in, cfg.sample_rate), x)
     print(f"  kernel vs plain: max |diff| / row max |x| = {rs_err:.3e}")
@@ -475,9 +568,13 @@ def main() -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
-        ("a config the port lacks (kaldi_mfcc)",
+        ("a config the port lacks (ssc26)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("kaldi_mfcc")), NotImplementedError),
+                                     named_config("ssc26")), NotImplementedError),
+        ("conditioning of frames over 512 samples",
+         lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
+                                     named_config("kaldi_mfcc").replace(win_len_s=0.040)),
+         NotImplementedError),
     ):
         try:
             fn()
@@ -501,30 +598,198 @@ def main() -> int:
     )
     del x, y, xpad, audio, lengths
 
-    # 6. mfcc39_44k at a smaller depth
+    # 6. mfcc39_44k at a smaller depth; the fused form's dither
     cfg = named_config("mfcc39_44k")
     sr_in = cfg.input_sample_rate
-    batch = make_batch(pad_batch, cfg, B_44K, sr_in * SECONDS, 1573, seed=4)
+    batch = make_batch(pad_batch, cfg, B_SMALL, sr_in * SECONDS, 1573, seed=4)
     T = batch.audio.shape[1]
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths = torch.as_tensor(batch.lengths, device="cuda")
-    print(f"== 6. path mfcc39_44k b{B_44K} x {SECONDS} s int16 [{B_44K}, {T}]")
+    print(f"== 6. path mfcc39_44k b{B_SMALL} x {SECONDS} s int16 [{B_SMALL}, {T}]")
     got = frontend.logmel_prefix(audio, lengths, cfg)
-    check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
-                 "main batch")
+    check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "main batch")
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
           "int16 rows == the same rows in float32, bitwise")
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.read()
-    check(launches == {"frontend": 0, "fused": 1, "resample": 0},
-          f"main path launched the fused resample once and nothing else {launches}")
+    counters.expect("main path", fused=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
     k44_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
     e44_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
     print(f"  fused resample kernel at 44.1 kHz: {k44_ms:.4f} ms; extract_batch {e44_ms:.4f} ms/step = "
-          f"{B_44K * SECONDS / (e44_ms / 1e3):.0f} audio-s/s {tag}")
+          f"{B_SMALL * SECONDS / (e44_ms / 1e3):.0f} audio-s/s {tag}")
+
+    cfg = named_config("mfcc39_48k").replace(dither=0.5)
+    batch = make_batch(pad_batch, cfg, B_SMALL, cfg.input_sample_rate * SECONDS, 1713, seed=5)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    print(f"   mfcc39_48k with dither 0.5, b{B_SMALL} x {SECONDS} s int16 {list(audio.shape)}")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    counters.expect("the dithered fused form", fused=1, dither=1)
+    check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+          and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+          "int16 rows == float32 rows, and two runs equal, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 6), lengths, cfg)),
+          "garbage past each input length leaves the output unchanged")
+    undithered = frontend.logmel_prefix(audio, lengths, cfg.replace(dither=0.0))
+    check(not torch.equal(got, undithered), "the dither changes the output")
+    kd_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    k0_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(dither=0.0)))
+    print(f"  fused resample kernel at 48 kHz b{B_SMALL}: {kd_ms:.4f} ms with dither 0.5, "
+          f"{k0_ms:.4f} ms without {tag}")
+    del audio, lengths, feat, mask
+
+    # 7. kaldi_mfcc with Kaldi's default dither: conditioning and dither
+    cfg = named_config("kaldi_mfcc").replace(dither=1.0)
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=7)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    print(f"== 7. path kaldi_mfcc dither {cfg.dither} b{B} x {SECONDS} s int16 [{B}, {T}], {F} frames")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, conditioning=1, dither=1)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    errs_d = check_prefix(testing, got, plain, cfg, "dither and conditioning, main batch")
+    del plain
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)), "two runs of one seed equal, bitwise")
+    check(not torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg.replace(dither_seed=1))),
+          "another seed gives another draw")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 8), lengths, cfg)),
+          "garbage past each length leaves the output unchanged")
+    twin, twin_len = audio.clone(), lengths.clone()
+    twin[B - 1], twin_len[B - 1] = audio[0], lengths[0]
+    nv = int(chain.num_valid_frames(lengths[:1], cfg)[0])
+    two = frontend.logmel_prefix(twin, twin_len, cfg)
+    check(torch.equal(two[0, :nv], two[B - 1, :nv]) and torch.equal(two[0], got[0]),
+          f"one utterance at rows 0 and {B - 1}: its {nv} valid frames equal, bitwise")
+    del twin, two
+    short = torch.tensor([0, 1, cfg.frame_length - 1], dtype=torch.int32, device="cuda")
+    counters.zero()
+    none = frontend.logmel_prefix(audio[:3, : cfg.frame_length - 1].contiguous(), short, cfg)
+    check(tuple(none.shape) == (3, 0, M + 1) and counters.read()["frontend"] == 0,
+          f"rows shorter than a frame: prefix {tuple(none.shape)}, no launch")
+    cfg0 = cfg.replace(dither=0.0)
+    plain0 = frontend.logmel_prefix_reference(audio, lengths, cfg0)
+    errs_c = check_prefix(testing, frontend.logmel_prefix(audio, lengths, cfg0), plain0, cfg0,
+                          "conditioning without dither, main batch")
+    del plain0
+    for source in ("windowed_frame", "pspec"):
+        c = cfg.replace(energy_source=source)
+        check_prefix(testing, frontend.logmel_prefix(audio[:B_SMALL], lengths[:B_SMALL], c),
+                     frontend.logmel_prefix_reference(audio[:B_SMALL], lengths[:B_SMALL], c), c,
+                     f"energy_source {source}, b{B_SMALL}")
+
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1, conditioning=1, dither=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.KALDI_MFCC_ATOL)
+    del feat, mask
+
+    print(f"  times {tag}")
+    plain_cfg = cfg.replace(remove_dc_offset=False, preemph_mode="signal", energy_source="pspec")
+    kd_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    kc_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg0))
+    kn_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, plain_cfg.replace(dither=0.0)))
+    pd_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
+    pc_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg0), reps=10)
+    lens = np.minimum(batch.lengths.astype(np.int64), T)
+    nbytes = frontend_bytes(cfg, frontend, lens, B, F)
+    bc_ms, bc_by = bound(nbytes, frontend_ops(cfg0, chain, frontend, torch, lens, F))
+    bd_ms, bd_by = bound(nbytes, frontend_ops(cfg, chain, frontend, torch, lens, F))
+    print(f"  kernel with conditioning and dither 1.0: {kd_ms:.4f} ms ({bd_ms / kd_ms * 100:.1f}% of bound) {tag}")
+    print(f"  kernel with conditioning, no dither: {kc_ms:.4f} ms ({bc_ms / kc_ms * 100:.1f}% of bound) {tag}")
+    print(f"  kernel without either (signal pre-emphasis, pspec energy, ln_floor): {kn_ms:.4f} ms {tag}")
+    print(f"  dither adds {kd_ms - kc_ms:.4f} ms, conditioning {kc_ms - kn_ms:.4f} ms {tag}")
+    print(f"  plain version with dither: {pd_ms:.4f} ms, without: {pc_ms:.4f} ms {tag}")
+    print("  library: none (no PyTorch call computes the contract noise or the conditioning)")
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
+    results["conditioning"] = dict(
+        launches=launches["conditioning"], max_abs_err=errs_c["logmel_max_abs"], ms=kc_ms,
+        plain_ms=pc_ms, bound_ms=bc_ms, bound_by=bc_by, library_ms=None,
+    )
+    results["dither"] = dict(
+        launches=launches["dither"], max_abs_err=errs_d["logmel_max_abs"], ms=kd_ms,
+        plain_ms=pd_ms, bound_ms=bd_ms, bound_by=bd_by, library_ms=None,
+    )
+    del audio, lengths
+
+    for name, seed in (("kaldi_mfcc", 9), ("kaldi_fbank", 10)):
+        cfg = named_config(name)
+        batch = make_batch(pad_batch, cfg, B_SMALL, n, 571, seed=seed)
+        print(f"   {name} (no dither), b{B_SMALL} x {SECONDS} s int16 {list(batch.audio.shape)}")
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        check_prefix(testing, frontend.logmel_prefix(audio, lengths, cfg),
+                     frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "kernel vs plain")
+        counters.zero()
+        feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+        torch.cuda.synchronize()
+        counters.expect("extract_batch", frontend=1, conditioning=1)
+        check_features(torch, chain, testing, batch, cfg, feat, mask, testing.kaldi_feature_atol(cfg))
+        del audio, lengths, feat, mask
+
+    # 8. logmel80 at batch 256: the ln_stab epilogue
+    cfg = named_config("logmel80")
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B_LOGMEL80, n, 571, seed=11)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    print(f"== 8. path logmel80 b{B_LOGMEL80} x {SECONDS} s int16 [{B_LOGMEL80}, {T}], "
+          f"{frontend.smem_bytes(cfg)} B of shared memory a block")
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    check(tuple(got.shape) == (B_LOGMEL80, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    # at 255,744 frames the fp32 plain version is itself ~2e-5 from float64
+    # on bins 40 dB below their row's max (the loud-bin gate's edge), so the
+    # kernel is held to the plain version computed in float64
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    errs32 = testing.prefix_errors(got, plain, M, cfg.log_kind)
+    print("  kernel vs the fp32 plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in errs32.items()))
+    plain64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
+    errs = check_prefix(testing, got, plain64, cfg, "ln_stab, main batch, vs the float64 plain version")
+    errs64 = testing.prefix_errors(plain, plain64, M, cfg.log_kind)
+    print("  the fp32 plain version vs float64: " + ", ".join(f"{k}={v:.3e}" for k, v in errs64.items()))
+    del plain, plain64
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 12), lengths, cfg)),
+          "garbage past each length leaves the output unchanged")
+    del got
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, None)
+    del feat, mask
+    cdb = cfg.replace(log_kind="db")
+    check_prefix(testing, frontend.logmel_prefix(audio[:B_SMALL], lengths[:B_SMALL], cdb),
+                 frontend.logmel_prefix_reference(audio[:B_SMALL], lengths[:B_SMALL], cdb), cdb,
+                 f"db epilogue, b{B_SMALL}")
+
+    print(f"  times {tag}")
+    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=5)
+    lens = np.minimum(batch.lengths.astype(np.int64), T)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B_LOGMEL80, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens, F))
+    print(f"  frontend kernel, ln_stab, M = {M}: {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
+    del audio, lengths
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -8,8 +8,8 @@ plain torch chain.
 
 Layers:
     config       frozen FrontendConfig + named configs (a copy of the JAX one)
-    ops          constants (float64 host matrices, `to_torch`), the polyphase
-                 resampler and the chain
+    ops          constants (float64 host matrices, `to_torch`), the dither
+                 noise contract, the polyphase resampler and the chain
     kernels      CUDA front-end and resample kernels, wrappers, plain versions
     pipeline     host batching into flat int16/float rows
 """

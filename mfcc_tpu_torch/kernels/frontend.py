@@ -1,12 +1,16 @@
 """The fused front-end on Hopper: audio rows → [log-mel | energy] prefix.
 
-Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode,
-default branches) and the `_stage_dict` prefix it feeds. One CUDA kernel
-(`csrc/frontend.cu`, whose header states its design and bound) does, per
-utterance and frame: int16/fp32 convert × input_scale, signal pre-emphasis
-with x[-1] = 0, zeroing at t >= length, window, 512-point real FFT, |X|²,
-mel projection, `ln` clamp, and the clamped (unlogged) energy on lane M.
-Output [B, F, n_mels+1] float32 with F = cfg.num_frames(T).
+Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode) and
+the `_stage_dict` prefix it feeds. One CUDA kernel (`csrc/frontend.cu`,
+whose header states its design and bound) does, per utterance and frame:
+int16/fp32 convert × input_scale, the dither contract (`ops/dither.py`)
+when cfg.dither > 0, signal pre-emphasis with x[-1] = 0, zeroing at
+t >= length, Kaldi frame-first conditioning when the config asks for it
+(DC removal, raw-frame energy, frame pre-emphasis, windowed-frame energy),
+window, 512-point real FFT, |X|², mel projection, the log kind (ln,
+ln_stab, db, ln_floor), and the clamped (unlogged) energy on lane M.
+Output [B, F, n_mels+1] float32 with F = cfg.num_frames(T) ("pad" or
+"drop" framing; F = 0 returns an empty prefix without a launch).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, through the kernel's second
@@ -18,8 +22,9 @@ of `csrc/polyphase.cuh`. F = cfg.num_frames(output_length(T)) then.
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
 PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
-`resample_launches` those of the fused resample (set them to 0 to start a
-count).
+`resample_launches` those of the fused resample; `dither_launches` and
+`conditioning_launches` count the launches (of either form) that take the
+dither or the conditioning branch. Set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from mfcc_tpu_torch.config import FrontendConfig
 from mfcc_tpu_torch.kernels import _build
 from mfcc_tpu_torch.kernels import resample as rs_kernel
-from mfcc_tpu_torch.ops import chain
+from mfcc_tpu_torch.ops import chain, dither
 from mfcc_tpu_torch.ops import resample as R
 
 NFFT = 512  # the kernel's FFT size (unsupported_reason refuses others)
@@ -41,9 +46,12 @@ MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
 TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
 POW_STRIDE = 260
+ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
 
 launches = 0
 resample_launches = 0
+dither_launches = 0
+conditioning_launches = 0
 
 
 def logmel_prefix_reference(
@@ -101,17 +109,19 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
 def smem_bytes(cfg: FrontendConfig) -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout): the
     signal row (or the fused resample's input window, whichever is longer),
-    window, mel matrix, twiddles, per-warp FFT and power rows, and for the
-    fused resample its resampled row and tap table."""
+    window, mel matrix, twiddles, per-warp FFT and power rows, the staged
+    x row of the fused resample and of dither, and the resample's tap
+    table."""
     def a4(n):
         return (n + 3) & ~3
 
     span = (TILE - 1) * cfg.frame_step + min(cfg.frame_length, NFFT)
-    in_len = taps = xs = 0
+    in_len = taps = 0
+    xs = a4(span + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
     if chain.resamples(cfg):
         d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
         in_len = rs_kernel.input_span(span + 1, d)
-        taps, xs = d["up"] * d["K"], a4(span + 1)
+        taps = d["up"] * d["K"]
     n = (a4(max(span, in_len)) + NFFT + a4(257 * cfg.n_mels) + NFFT
          + NFFT * WARPS + POW_STRIDE * WARPS + xs + a4(taps))
     return 4 * n
@@ -120,12 +130,18 @@ def smem_bytes(cfg: FrontendConfig) -> int:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontend")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    branches = [
+        f, u,  # dither, premixed seed
+        i, i, f, f, i,  # conditioning, remove_dc, frame_preemph, frame_keep0, energy_source
+        i,  # log_kind
+        p,  # stream
+    ]
     lib.mfcc_frontend_logmel.argtypes = [
         p, i, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
         i, i, i, i, i, i,  # B, T, F, L, S, M
         f, f, f, f,  # scale, preemph, eps, pscale
-        p,  # stream
+        *branches,
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
@@ -133,7 +149,7 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i, i, i,  # B, T, F, L, S, M
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
-        p,  # stream
+        *branches,
     ]
     lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
@@ -155,7 +171,7 @@ def logmel_prefix(
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
     window and mel matrix (a chain-constants dict)."""
-    global launches, resample_launches
+    global launches, resample_launches, dither_launches, conditioning_launches
     if audio.device.type == "cpu":
         return logmel_prefix_reference(audio, lengths, cfg, consts)
     if audio.device.type != "cuda":
@@ -191,7 +207,7 @@ def logmel_prefix(
         F = cfg.num_frames(T)
     M = cfg.n_mels
     out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
-    if B == 0:
+    if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return out
     k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
     lib = _lib()
@@ -201,7 +217,19 @@ def logmel_prefix(
         k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), k["twiddle"].data_ptr(),
     )
     dims = (B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M)
-    tail = (cfg.preemph, cfg.log_eps, 1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
+    frame_mode = cfg.preemph_mode == "frame"
+    tail = (
+        0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
+        cfg.log_eps,
+        1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0,
+    )
+    c = cfg.preemph if frame_mode else 0.0
+    conditioning = chain.needs_conditioning(cfg)
+    branches = (
+        cfg.dither, dither._fmix32_int(cfg.dither_seed),
+        int(conditioning), int(cfg.remove_dc_offset), c, 1.0 - c,
+        ENERGY_SOURCES.index(cfg.energy_source), chain.LOG_KINDS.index(cfg.log_kind),
+    )
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         if resampling:
@@ -210,10 +238,12 @@ def logmel_prefix(
             taps = rs_kernel.device_table(up, down, cfg.input_scale, audio.device)
             rc = lib.mfcc_frontend_logmel_resample(
                 *head, taps.data_ptr(), *dims,
-                d["up"], d["down"], d["half_len"], d["K"], *tail, stream,
+                d["up"], d["down"], d["half_len"], d["K"], *tail, *branches, stream,
             )
         else:
-            rc = lib.mfcc_frontend_logmel(*head, *dims, cfg.input_scale, *tail, stream)
+            rc = lib.mfcc_frontend_logmel(
+                *head, *dims, cfg.input_scale, *tail, *branches, stream
+            )
     if rc != 0:
         raise RuntimeError(
             "front-end kernel launch failed: "
@@ -223,4 +253,6 @@ def logmel_prefix(
         resample_launches += 1
     else:
         launches += 1
+    dither_launches += int(cfg.dither > 0.0)
+    conditioning_launches += int(conditioning)
     return out

@@ -1,16 +1,20 @@
 """The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for the
 classic13 family (standard "pad" framing, signal pre-emphasis, power-spectrum
-energy, natural log), at 16 kHz or resampled from another input rate
+energy), logmel80 (the `ln_stab` log), and the Kaldi feature-window family
+(kaldi_mfcc, kaldi_fbank: "drop" framing, frame-first conditioning, `ln_floor`),
+with or without dither, at 16 kHz or resampled from another input rate
 (mfcc39_48k, mfcc39_44k).
 
 Batch layout is `audio[B, T]` + `lengths[B]`, as in the JAX package: frames
 are derived with a static frame count `F = cfg.num_frames(T)` and a
 per-utterance valid frame count, so padding never changes the numbers on
-valid frames. Pre-emphasis runs on the raw signal and is then re-zeroed
-beyond each utterance's length.
+valid frames. Signal-level steps (dither, then pre-emphasis in "signal"
+mode) run on the raw signal, which is then zeroed beyond each utterance's
+length; frame-level conditioning (DC removal, raw-frame energy, frame
+pre-emphasis, windowed-frame energy) follows framing, in Kaldi's order.
 
-`extract_batch` runs on the card by default. There the front-end (framing
-through log-mel and energy) is one hand-written CUDA kernel
+`extract_batch` runs on the card by default. There the front-end (dither
+and framing through log-mel and energy) is one hand-written CUDA kernel
 (`mfcc_tpu_torch/kernels/frontend.py`), and its [log-mel | energy] prefix
 feeds `features_from_logmel`'s prefix path; for resampling configs the
 same kernel resamples the input rows as it stages them. With `device="cpu"`
@@ -29,7 +33,7 @@ import torch
 
 from mfcc_tpu_torch.config import FrontendConfig
 from mfcc_tpu_torch.ops import constants as C
-from mfcc_tpu_torch.ops import resample
+from mfcc_tpu_torch.ops import dither, resample
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -56,26 +60,32 @@ def resamples(cfg: FrontendConfig) -> bool:
     return bool(cfg.input_sample_rate and cfg.input_sample_rate != cfg.sample_rate)
 
 
+LOG_KINDS = ("ln", "ln_stab", "db", "ln_floor")  # the kernel's epilogue branches
+
+
+def needs_conditioning(cfg: FrontendConfig) -> bool:
+    """True when cfg asks for frame-first conditioning (Kaldi's
+    feature-window order): per-frame DC removal, per-frame pre-emphasis,
+    or a time-domain frame energy."""
+    return (
+        cfg.remove_dc_offset
+        or cfg.preemph_mode == "frame"
+        or cfg.energy_source != "pspec"
+    )
+
+
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when this slice of the port implements `cfg`; otherwise the
     kernel branch it still needs, with its ROADMAP queue-2 item."""
-    if cfg.dither > 0.0:
-        return "in-kernel dither (ROADMAP queue 2 item 6)"
-    if (
-        cfg.remove_dc_offset
-        or cfg.preemph_mode != "signal"
-        or cfg.energy_source != "pspec"
-    ):
-        return "frame-first conditioning (ROADMAP queue 2 item 3)"
     if cfg.features in ("plp", "spectrogram"):
         return "PLP epilogue and multi-tile output (ROADMAP queue 2 item 4)"
     if cfg.features == "ssc":
         return "SSC branch (ROADMAP queue 2 item 5)"
     if (
-        cfg.frame_tail != "pad"
+        cfg.frame_tail not in ("pad", "drop")
         or cfg.drop_last_frame
         or cfg.logmel_norm != "none"
-        or cfg.log_kind == "log10_floor"
+        or cfg.log_kind not in LOG_KINDS
     ):
         return (
             "centered framing, log10_floor epilogue and whisper "
@@ -83,8 +93,11 @@ def unsupported_reason(cfg: FrontendConfig) -> str | None:
         )
     if cfg.n_fft != 512:
         return "DFT at n_fft != 512 (ROADMAP queue 2 items 2 and 9)"
-    if cfg.log_kind != "ln":
-        return f"{cfg.log_kind} epilogue (ROADMAP queue 2 item 1, left open)"
+    if needs_conditioning(cfg) and cfg.frame_length > 512:
+        return (
+            "frame-first conditioning of frames longer than 512 samples "
+            "(ROADMAP queue 2 item 3, left open)"
+        )
     return None
 
 
@@ -103,12 +116,15 @@ def check_supported(cfg: FrontendConfig) -> None:
 
 
 def num_valid_frames(lengths: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """Per-utterance valid frame count under "pad" framing, 1 +
-    ceil(max(0, n - L) / S); length 0 counts 0 frames (a zero-length row is
-    batch padding)."""
+    """Per-utterance valid frame count: 1 + ceil(max(0, n - L) / S) under
+    "pad" framing, 1 + (n - L) // S for n >= L (else 0) under "drop";
+    length 0 counts 0 frames (a zero-length row is batch padding)."""
     L, S = cfg.frame_length, cfg.frame_step
-    a = torch.clamp(lengths - L, min=0)
-    n = 1 + (a + S - 1) // S
+    if cfg.frame_tail == "pad":
+        a = torch.clamp(lengths - L, min=0)
+        n = 1 + (a + S - 1) // S
+    else:
+        n = torch.where(lengths >= L, 1 + (lengths - L) // S, 0)
     return torch.where(lengths > 0, n, torch.zeros_like(n))
 
 
@@ -138,6 +154,8 @@ def frame_signal(x: torch.Tensor, num_frames: int, cfg: FrontendConfig) -> torch
 
 def power_spectrum(windowed: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """rfft with n=n_fft (pads/truncates), |X|^2 (optionally / NFFT)."""
+    if windowed.numel() == 0:  # no frames ("drop" framing of a short batch)
+        return windowed.new_zeros(windowed.shape[:-1] + (cfg.n_bins,))
     spec = torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1)
     p = spec.real**2 + spec.imag**2
     if cfg.power_scale_nfft:
@@ -146,9 +164,31 @@ def power_spectrum(windowed: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
 
 
 def apply_log(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """ln(where(x <= 0, eps, x)) — the "ln" log kind, the one this slice
-    has (unsupported_reason refuses the others)."""
-    return torch.log(torch.where(x <= 0, cfg.log_eps, x))
+    """The log kinds of the kernel's epilogue: "ln" ln(where(x <= 0, eps,
+    x)), "ln_stab" ln(x + 1e-6), "db" 10·log10 of the "ln" clamp, and
+    "ln_floor" ln(max(x, eps)) (Kaldi's ApplyFloor then log, which floors
+    tiny positives too)."""
+    eps = cfg.log_eps
+    if cfg.log_kind == "ln":
+        return torch.log(torch.where(x <= 0, eps, x))
+    if cfg.log_kind == "ln_stab":
+        return torch.log(x + 1e-6)
+    if cfg.log_kind == "db":
+        return 10.0 * torch.log10(torch.where(x <= 0, eps, x))
+    if cfg.log_kind == "ln_floor":
+        return torch.log(torch.clamp(x, min=eps))
+    raise NotImplementedError(f"log_kind={cfg.log_kind!r}")
+
+
+def preemphasis_frames(frames: torch.Tensor, coeff: float) -> torch.Tensor:
+    """Per-frame pre-emphasis (Kaldi ProcessWindow): along each frame,
+    w[n] -= coeff * w[n-1] for n >= 1 and w[0] *= (1 - coeff)."""
+    if coeff == 0.0:
+        return frames
+    return torch.cat(
+        [frames[..., :1] * (1.0 - coeff), frames[..., 1:] - coeff * frames[..., :-1]],
+        dim=-1,
+    )
 
 
 def _tail_replicated(feat: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
@@ -169,7 +209,7 @@ def delta(feat: torch.Tensor, n_valid: torch.Tensor, cfg: FrontendConfig) -> tor
     N = cfg.delta_window
     F = feat.shape[-2]
     denom = 2.0 * sum(i * i for i in range(1, N + 1))
-    x = _tail_replicated(feat, n_valid)
+    x = _tail_replicated(feat, n_valid) if F else feat  # F = 0: "drop" framing of a short batch
     out = torch.zeros_like(x)
     for i in range(1, N + 1):
         k = min(i, F)  # utterances shorter than the window replicate fully
@@ -219,9 +259,10 @@ def logmel_stages(
     cfg: FrontendConfig,
     consts: dict[str, torch.Tensor] | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Pre-emphasis through log-mel on a padded batch, audio [B, T] (int16
-    or float) and lengths [B]; every intermediate plus the frame mask. The
-    plain version of the CUDA front-end kernel."""
+    """Dither and pre-emphasis through log-mel on a padded batch, audio
+    [B, T] (int16 or float) and lengths [B]; every intermediate plus the
+    frame mask, and "dither_noise" (the [B, T] unit noise) when cfg dithers.
+    The plain version of the CUDA front-end kernel."""
     check_supported(cfg)
     dtype = compute_dtype(cfg)
     k = consts if consts is not None else device_constants(cfg, audio.device, dtype)
@@ -229,18 +270,35 @@ def logmel_stages(
     if cfg.input_scale != 1.0:
         audio = audio * cfg.input_scale
     F = cfg.num_frames(audio.shape[-1])
-    y = zero_beyond(preemphasis(audio, cfg.preemph), lengths)
-    span = (F - 1) * cfg.frame_step + cfg.frame_length
+    dither_noise = None
+    if cfg.dither > 0.0:
+        # the signal-level contract noise, before pre-emphasis in both modes
+        audio, dither_noise = dither.add_signal_dither(audio, cfg)
+    if cfg.preemph_mode == "signal":
+        y = zero_beyond(preemphasis(audio, cfg.preemph), lengths)
+    else:  # frame-first conditioning (Kaldi order): frame the raw signal
+        y = zero_beyond(audio, lengths)
+    span = max(F - 1, 0) * cfg.frame_step + cfg.frame_length
     if span > y.shape[-1]:
         y = torch.nn.functional.pad(y, (0, span - y.shape[-1]))
     frames = frame_signal(y, F, cfg)  # [B, F, L]
+    eps = cfg.log_eps
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if cfg.energy_source == "raw_frame":  # before pre-emphasis and window (Kaldi)
+        energy = torch.clamp((frames * frames).sum(dim=-1), min=eps)
+    if cfg.preemph_mode == "frame":
+        frames = preemphasis_frames(frames, cfg.preemph)
     windowed = frames * k["window"]
     pspec = power_spectrum(windowed, cfg)  # [B, F, n_bins]
-    energy = pspec.sum(dim=-1)
-    energy = torch.where(energy <= 0, cfg.log_eps, energy)
+    if cfg.energy_source == "pspec":
+        energy = pspec.sum(dim=-1)
+        energy = torch.where(energy <= 0, eps, energy)
+    elif cfg.energy_source == "windowed_frame":
+        energy = torch.clamp((windowed * windowed).sum(dim=-1), min=eps)
     melspec = torch.matmul(pspec, k["mel"])
     n_valid = num_valid_frames(lengths, cfg)
-    return {
+    out = {
         "frames": frames,
         "windowed": windowed,
         "pspec": pspec,
@@ -250,6 +308,9 @@ def logmel_stages(
         "n_valid": n_valid,
         "frame_mask": frame_mask(n_valid, F, dtype),
     }
+    if dither_noise is not None:
+        out["dither_noise"] = dither_noise  # for replay through the oracle
+    return out
 
 
 def features_from_logmel(

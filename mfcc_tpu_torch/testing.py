@@ -6,7 +6,20 @@ tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin — log-mel within
 2e-5 on loud bins (within 40 dB of the row max), linear-domain 1e-5 of the
 row max on every bin, energy within 1e-5 relative. Features: lifted cepstra
 within 5e-4 absolute plus 1e-5 relative (the ×12 lifter amplifies fp32
-roundoff; docs/ACCURACY.md).
+roundoff; docs/ACCURACY.md). Each log-mel lane is taken to a natural log
+before the gates (`log_kind`: "db" is x·ln10/10; "ln", "ln_stab" and
+"ln_floor" are natural logs already), so the gates mean the same for every
+epilogue of the kernel.
+
+Kaldi family (kaldi_mfcc, kaldi_fbank; docs/ACCURACY.md finding 5): the
+`ln_floor` log of quiet bins near the float32-eps floor is fp32-order noise
+that no fp32 implementation controls, so features are gated on
+well-conditioned signals only, at 5e-4 (mfcc cepstra) or 1e-4 (fbank
+log-mel), rtol 1e-5 (tests/test_kaldi_conventions.py::test_kaldi_fp32_gate),
+and quiet bins take the two-regime log-mel gate of
+tests/test_jnp_chain.py::assert_logmel_close: 1e-4 on bins within 40 dB of
+the row max, linear-domain 1e-5 of the row max below that. logmel80's
+`ln_stab` features take the same two-regime gate (finding 4).
 
 Resampling (ops/resample.py, kernels/resample.py):
   - float64 vs scipy resample_poly and vs the JAX package under x64: 1e-12
@@ -38,6 +51,12 @@ RESAMPLE_F32_ATOL = 1e-5
 RESAMPLE_KERNEL_REL_ROWMAX = 1e-5
 RESAMPLED_FEATURE_ATOL = 8e-4
 RESAMPLED_FEATURE_RTOL = 2e-5
+KALDI_MFCC_ATOL = 5e-4
+KALDI_FBANK_ATOL = 1e-4
+KALDI_RTOL = 1e-5
+LOGMEL_ATOL = 1e-4  # two-regime log-mel gate: loud bins ...
+LOUD_DB = 40.0  # ... within 40 dB of the row max
+QUIET_REL_ROWMAX = 1e-5  # ... and every bin in the linear domain
 
 
 def _f64(x) -> np.ndarray:
@@ -46,10 +65,22 @@ def _f64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
 
 
-def prefix_errors(got, want, n_mels: int) -> dict[str, float]:
-    """Measured errors of a [..., n_mels+1] prefix against a reference."""
+def natural_log(x, log_kind: str) -> np.ndarray:
+    """Log-mel lanes of the kernel's `log_kind` as natural logs."""
+    x = _f64(x)
+    if log_kind == "db":
+        return x * (np.log(10.0) / 10.0)
+    if log_kind in ("ln", "ln_stab", "ln_floor"):
+        return x
+    raise ValueError(f"no prefix gate for log_kind={log_kind!r}")
+
+
+def prefix_errors(got, want, n_mels: int, log_kind: str = "ln") -> dict[str, float]:
+    """Measured errors of a [..., n_mels+1] prefix against a reference, the
+    log-mel lanes taken to natural logs first."""
     got, want = _f64(got), _f64(want)
-    lm_g, lm_w = got[..., :n_mels], want[..., :n_mels]
+    lm_g = natural_log(got[..., :n_mels], log_kind)
+    lm_w = natural_log(want[..., :n_mels], log_kind)
     lin_g, lin_w = np.exp(lm_g), np.exp(lm_w)
     rowmax = lin_w.max(axis=-1, keepdims=True) + 1e-300
     loud = lin_w > rowmax * LOUD_REL
@@ -74,10 +105,48 @@ def prefix_failures(errs: dict[str, float]) -> list[str]:
     return [f"{k} {errs[k]:.3e} >= {gate}" for k, gate in gates if not errs[k] < gate]
 
 
-def assert_prefix_close(got, want, n_mels: int) -> None:
-    failures = prefix_failures(prefix_errors(got, want, n_mels))
+def assert_prefix_close(got, want, n_mels: int, log_kind: str = "ln") -> None:
+    failures = prefix_failures(prefix_errors(got, want, n_mels, log_kind))
     if failures:
         raise AssertionError("prefix outside the gates: " + "; ".join(failures))
+
+
+def logmel_errors(got, want, log_kind: str = "ln") -> dict[str, float]:
+    """Measured errors of log-mel features [..., M] under the two-regime
+    gate: the loud-bin log error and the linear error relative to the row
+    max, both after taking the lanes to natural logs."""
+    lm_g, lm_w = natural_log(got, log_kind), natural_log(want, log_kind)
+    lin_g, lin_w = np.exp(lm_g), np.exp(lm_w)
+    rowmax = lin_w.max(axis=-1, keepdims=True, initial=0.0) + 1e-300
+    loud = lin_w > rowmax * 10 ** (-LOUD_DB / 10.0)
+    return {
+        "logmel_loud_max_abs": float((np.abs(lm_g - lm_w) * loud).max(initial=0.0)),
+        "linear_rel_rowmax": float((np.abs(lin_g - lin_w) / rowmax).max(initial=0.0)),
+    }
+
+
+def logmel_failures(errs: dict[str, float]) -> list[str]:
+    gates = (("logmel_loud_max_abs", LOGMEL_ATOL), ("linear_rel_rowmax", QUIET_REL_ROWMAX))
+    return [f"{k} {errs[k]:.3e} > {gate}" for k, gate in gates if not errs[k] <= gate]
+
+
+def assert_logmel_close(got, want, log_kind: str = "ln") -> None:
+    """The two-regime log-mel gate (logmel80, kaldi_fbank quiet bins)."""
+    failures = logmel_failures(logmel_errors(got, want, log_kind))
+    if failures:
+        raise AssertionError("log-mel outside the gates: " + "; ".join(failures))
+
+
+def kaldi_feature_atol(cfg) -> float:
+    """The Kaldi family's feature gate: 5e-4 for cepstra, 1e-4 for fbank."""
+    return KALDI_FBANK_ATOL if cfg.features == "logmel" else KALDI_MFCC_ATOL
+
+
+def assert_kaldi_features_close(got, want, cfg) -> None:
+    """Kaldi features on a well-conditioned signal (finding 5)."""
+    np.testing.assert_allclose(
+        _f64(got), _f64(want), atol=kaldi_feature_atol(cfg), rtol=KALDI_RTOL
+    )
 
 
 def assert_features_close(got, want) -> None:

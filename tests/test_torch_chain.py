@@ -43,7 +43,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = ["classic13", "classic13_deltas"]
 SIGNALS = ("noise", "speechish", "short", "tone_offbin")
 SERVED = ("classic13", "classic13_deltas", "classic13_deltas_gcmvn",
-          "mfcc39_48k", "mfcc39_44k")
+          "mfcc39_48k", "mfcc39_44k", "logmel80", "kaldi_mfcc", "kaldi_fbank")
 
 
 def _pcm(names=SIGNALS, scale=3000.0):
@@ -313,7 +313,7 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "import torch\n"
         "import mfcc_tpu_torch\n"
         "from mfcc_tpu_torch.kernels import frontend, resample\n"
-        "from mfcc_tpu_torch.ops import chain, resample as rs\n"
+        "from mfcc_tpu_torch.ops import chain, dither, resample as rs\n"
         "from mfcc_tpu_torch.pipeline import pad_batch\n"
         "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
         "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
@@ -325,7 +325,13 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "assert tuple(feat.shape) == (1, 30, 39), feat.shape\n"
         "y = rs.resample_batch(torch.ones((1, 4410)), 44100, 16000)\n"
         "assert tuple(y.shape) == (1, 1600), y.shape\n"
+        "cfg = mfcc_tpu_torch.named_config('kaldi_mfcc').replace(dither=1.0)\n"
+        "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
+        "feat, mask = chain.extract_batch(b.audio, b.lengths, cfg, device='cpu')\n"
+        "assert tuple(feat.shape) == (1, 29, 13), feat.shape\n"
+        "assert dither.signal_noise(0, 10, 160).shape == (10,)\n"
         "assert resample.launches == 0 and frontend.resample_launches == 0\n"
+        "assert frontend.dither_launches == 0 and frontend.conditioning_launches == 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"

@@ -29,7 +29,9 @@ from mfcc_tpu.pipeline import pad_batch as j_pad_batch
 from mfcc_tpu.testing.golden import golden_signals
 from mfcc_tpu_torch.config import NAMED_CONFIGS as T_CONFIGS
 from mfcc_tpu_torch.kernels import frontend
+from mfcc_tpu_torch.ops import chain as tchain
 from mfcc_tpu_torch.ops import constants as tconstants
+from mfcc_tpu_torch.ops import dither as tdither
 from mfcc_tpu_torch.testing import assert_prefix_close
 
 CONFIGS = ["classic13", "classic13_deltas"]
@@ -160,8 +162,8 @@ def test_wrapper_raises_off_cpu_and_cuda():
 def test_wrapper_refuses_configs_outside_the_slice():
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="conditioning"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["kaldi_mfcc"])
+    with pytest.raises(NotImplementedError, match="SSC"):
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["ssc26"])
 
 
 def test_fft_twiddles_table():
@@ -192,7 +194,14 @@ TILE = 32
 
 
 def _emulate_kernel(audio, lengths, cfg, dtype):
-    """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`."""
+    """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
+    staged row (x plus the contract noise at t < length when cfg dithers,
+    signal pre-emphasis from x[t-1], zeroing at t >= length), the per-frame
+    conditioning of the pack loop (mean over the L samples, the raw energy
+    as a second pass, frame pre-emphasis from fr[a] and fr[a-1], the
+    windowed energy of the packed values), the bit-reversed radix-2 FFT on
+    the host twiddle table, the real split, band-limited mel sums, the log
+    kind and the energy lane."""
     ctype = np.complex64 if dtype == np.float32 else np.complex128
     k = tconstants.chain_constants(cfg)
     win, mel = k["window"].astype(dtype), k["mel"].astype(dtype)
@@ -207,9 +216,17 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     F = cfg.num_frames(T)
     span = (TILE - 1) * S + L
     pscale = dtype(1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
+    eps = dtype(cfg.log_eps)
+    frame_mode = cfg.preemph_mode == "frame"
+    c_sig = dtype(0.0 if frame_mode else cfg.preemph)
+    c = dtype(cfg.preemph if frame_mode else 0.0)
+    keep0 = dtype(np.float32(1.0 - float(c)))  # rounded on the host, passed as a float
     rev = np.array([int(f"{n:08b}"[::-1], 2) for n in range(256)])
     out = np.empty((B, F, M + 1), dtype)
     x_all = audio.astype(dtype) * dtype(cfg.input_scale)
+    if cfg.dither > 0.0:
+        noise = tdither.signal_noise(cfg.dither_seed, T, S).numpy().astype(dtype)
+        x_all = x_all + dtype(cfg.dither) * noise
     for b in range(B):
         n = min(int(lengths[b]), T)
         for f0 in range(0, F, TILE):
@@ -217,10 +234,18 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
             ok = t < n
             x = np.where(ok, x_all[b, np.minimum(t, T - 1)], 0)
             xp = np.where(ok & (t > 0), x_all[b, np.clip(t - 1, 0, T - 1)], 0)
-            sig = np.where(ok, x - dtype(cfg.preemph) * xp, 0).astype(dtype)
+            sig = np.where(ok, x - c_sig * xp, 0).astype(dtype)
             nf = min(TILE, F - f0)
+            f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
+            if tchain.needs_conditioning(cfg):
+                mu = f.sum(axis=-1, keepdims=True) / dtype(L) if cfg.remove_dc_offset else dtype(0)
+                d = (f - mu).astype(dtype)
+                e_raw = (d * d).sum(axis=-1)
+                g = np.concatenate([d[:, :1] * keep0, d[:, 1:] - c * d[:, :-1]], axis=-1)
+                f = g
             fr = np.zeros((nf, 512), dtype)
-            fr[:, :L] = sig[(np.arange(nf) * S)[:, None] + np.arange(L)] * win[:L]
+            fr[:, :L] = f * win[:L]
+            e_win = (fr * fr).sum(axis=-1)
             z = np.empty((nf, 256), ctype)
             z[:, rev] = fr[:, 0::2] + 1j * fr[:, 1::2]
             j = np.arange(128)
@@ -232,18 +257,33 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
                 u = z[:, i0].copy()
                 z[:, i0], z[:, i0 + half] = u + v, u - v
             kk = np.arange(129)
-            a, c = z[:, kk], np.conj(z[:, (256 - kk) & 255])
-            xe, xo = (a + c) / 2, (a - c) / 2j
+            a, cc = z[:, kk], np.conj(z[:, (256 - kk) & 255])
+            xe, xo = (a + cc) / 2, (a - cc) / 2j
             X, Y = xe + w[kk] * xo, xe - w[kk] * xo
             P = np.empty((nf, 257), dtype)
             P[:, kk] = np.abs(X) ** 2 * pscale
             P[:, 256 - kk[:-1]] = np.abs(Y[:, :-1]) ** 2 * pscale
             for m in range(M):
                 acc = P[:, lo[m] : hi[m]] @ mel[lo[m] : hi[m], m]
-                out[b, f0 : f0 + nf, m] = np.log(np.where(acc <= 0, dtype(cfg.log_eps), acc))
-            e = P.sum(axis=-1)
-            out[b, f0 : f0 + nf, M] = np.where(e <= 0, dtype(cfg.log_eps), e)
+                out[b, f0 : f0 + nf, m] = _log_lane(acc, cfg.log_kind, eps, dtype)
+            if cfg.energy_source == "raw_frame":
+                out[b, f0 : f0 + nf, M] = np.maximum(e_raw, eps)
+            elif cfg.energy_source == "windowed_frame":
+                out[b, f0 : f0 + nf, M] = np.maximum(e_win, eps)
+            else:
+                e = P.sum(axis=-1)
+                out[b, f0 : f0 + nf, M] = np.where(e <= 0, eps, e)
     return out
+
+
+def _log_lane(acc, kind, eps, dtype):
+    if kind == "ln_stab":
+        return np.log(acc + dtype(1e-6))
+    if kind == "db":
+        return dtype(10) * np.log10(np.where(acc <= 0, eps, acc))
+    if kind == "ln_floor":
+        return np.log(np.maximum(acc, eps))
+    return np.log(np.where(acc <= 0, eps, acc))
 
 
 @pytest.mark.parametrize(
@@ -270,3 +310,49 @@ def test_kernel_algebra_float32_within_gates():
     audio, lengths = _batch("classic13_deltas")
     got = _emulate_kernel(audio, lengths, cfg, np.float32)
     assert_prefix_close(got, _reference(audio, lengths, cfg), cfg.n_mels)
+
+
+BRANCHES = [
+    ("kaldi_mfcc", {"dither": 1.0}),
+    ("kaldi_mfcc", {}),
+    ("kaldi_fbank", {}),
+    ("kaldi_mfcc", {"energy_source": "windowed_frame", "remove_dc_offset": False}),
+    ("logmel80", {}),
+    ("logmel80", {"log_kind": "db"}),
+    ("classic13", {"dither": 0.5}),
+]
+BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_no_dc",
+              "logmel80_ln_stab", "logmel80_db", "classic13_dither"]
+
+
+@pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
+def test_kernel_branches_exact_in_float64(name, overrides):
+    """The dither staging, the conditioning of the pack loop and each log
+    kind reproduce the plain version to ~1e-9 in float64."""
+    cfg = T_CONFIGS[name].replace(dtype="float64", **overrides)
+    audio, lengths = _batch("classic13", ("noise", "short", "tone_offbin"))
+    audio = audio[:, :12000].astype(np.float64) * 3000
+    lengths = np.minimum(lengths, 11000)
+    got = _emulate_kernel(audio, lengths, cfg, np.float64)
+    want = _reference(audio, lengths, cfg)
+    assert got.shape == want.shape == (3, cfg.num_frames(12000), cfg.n_mels + 1)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
+def test_kernel_branches_float32_within_gates(name, overrides):
+    cfg = T_CONFIGS[name].replace(**overrides)
+    audio, lengths = _batch("classic13_deltas")
+    pcm = np.round(audio * 3000).astype(np.int16)
+    got = _emulate_kernel(pcm, lengths, cfg, np.float32)
+    want = _reference(pcm, lengths, cfg)
+    valid = lengths >= cfg.frame_length  # rows with a frame under either framing
+    assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind)
+
+
+def test_emulated_kernel_drop_framing_of_a_short_batch():
+    cfg = T_CONFIGS["kaldi_mfcc"]
+    audio = np.zeros((2, 300), np.float32)
+    got = _emulate_kernel(audio, np.array([300, 5]), cfg, np.float32)
+    assert got.shape == (2, 0, cfg.n_mels + 1)
+    assert _reference(audio, np.array([300, 5], np.int32), cfg).shape == got.shape

@@ -1,5 +1,6 @@
-"""The CUDA kernels on a card ≡ their plain versions: the front-end kernel,
-its fused resample, and the polyphase resampler.
+"""The CUDA kernels on a card ≡ their plain versions: the front-end kernel
+(with its dither, conditioning and log-kind branches), its fused resample,
+and the polyphase resampler.
 
 Every test here is marked `gpu` and skips without a CUDA card (the kernel has
 no CPU mode). The module imports no jax, so it also runs where only the
@@ -10,7 +11,9 @@ a machine run it as
 
 Gates: `mfcc_tpu_torch.testing` (those of
 tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin for the prefix,
-1e-5 of the row's max |x| for the resampler, 8e-4 for resampled features).
+each log kind taken to natural log; 1e-5 of the row's max |x| for the
+resampler; 8e-4 for resampled features; 5e-4 / 1e-4 for Kaldi mfcc / fbank
+features).
 """
 
 import numpy as np
@@ -86,8 +89,8 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio, lengths.long(), cfg)
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
-    with pytest.raises(NotImplementedError, match="conditioning"):
-        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["kaldi_fbank"])
+    with pytest.raises(NotImplementedError, match="SSC"):
+        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["ssc26"])
 
 
 def test_extract_batch_on_card_matches_cpu():
@@ -175,3 +178,110 @@ def test_extract_batch_resampled_on_card_matches_cpu():
     cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
     testing.assert_resampled_features_close(feat, cpu)
     assert torch.equal(mask.cpu(), cpu_mask)
+
+
+BRANCHES = [
+    ("kaldi_mfcc", {"dither": 1.0}),
+    ("kaldi_mfcc", {}),
+    ("kaldi_fbank", {}),
+    ("kaldi_mfcc", {"energy_source": "windowed_frame", "dither": 1.0}),
+    ("logmel80", {}),
+    ("logmel80", {"log_kind": "db"}),
+    ("classic13_deltas", {"dither": 0.5}),
+    ("mfcc39_48k", {"dither": 0.5}),
+    ("kaldi_mfcc", {"input_sample_rate": 48000, "dither": 1.0}),
+]
+BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_dither",
+              "logmel80_ln_stab", "logmel80_db", "classic13_deltas_dither", "mfcc39_48k_dither",
+              "kaldi_mfcc_48k_dither"]
+
+
+@pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
+def test_kernel_branches_match_reference(name, overrides):
+    """Each dither, conditioning and log-kind branch ≡ its plain version;
+    int16 ≡ float32 rows, dirty tails ≡ clean and two runs, bitwise."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    sr = cfg.input_sample_rate or cfg.sample_rate
+    sigs = golden_signals(sr)
+    b = pad_batch([np.round(sigs[n] * 3000) for n in SIGNALS], cfg, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    before = (frontend.launches + frontend.resample_launches, frontend.dither_launches,
+              frontend.conditioning_launches)
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.launches + frontend.resample_launches, frontend.dither_launches,
+            frontend.conditioning_launches) == (
+        before[0] + 1, before[1] + (cfg.dither > 0), before[2] + chain.needs_conditioning(cfg))
+    assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
+                        cfg.log_kind)
+    t = torch.arange(audio.shape[1], device=dev)[None]
+    dirty = torch.where(t < lengths[:, None], audio, 12345)
+    assert torch.equal(got, frontend.logmel_prefix(dirty, lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+
+
+def test_dithered_utterance_at_two_rows():
+    dev = _card()
+    cfg = NAMED_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
+    g = np.random.default_rng(19)
+    u = (g.standard_normal(12000) * 300).astype(np.float32)
+    b = pad_batch([u, g.standard_normal(16000) * 300, u], cfg)
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    nv = cfg.num_frames(12000)
+    assert torch.equal(got[0, :nv], got[2, :nv])
+    other = frontend.logmel_prefix(audio, lengths, cfg.replace(dither_seed=1))
+    assert not torch.equal(got[0, :nv], other[0, :nv])
+
+
+def test_drop_framing_of_a_short_batch_launches_nothing():
+    dev = _card()
+    cfg = NAMED_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
+    audio = torch.zeros((3, 399), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([399, 1, 0], dtype=torch.int32, device=dev)
+    before = (frontend.launches, frontend.dither_launches, frontend.conditioning_launches)
+    out = frontend.logmel_prefix(audio, lengths, cfg)
+    assert tuple(out.shape) == (3, 0, cfg.n_mels + 1) and out.device.type == "cuda"
+    assert (frontend.launches, frontend.dither_launches, frontend.conditioning_launches) == before
+    feat, mask = chain.extract_batch(audio, lengths, cfg)
+    assert tuple(feat.shape) == (3, 0, cfg.feat_dim) and tuple(mask.shape) == (3, 0)
+
+
+def test_conditioning_of_frames_over_512_samples_raises():
+    dev = _card()
+    cfg = NAMED_CONFIGS["kaldi_mfcc"].replace(win_len_s=0.040)
+    audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="longer than 512"):
+        frontend.logmel_prefix(audio, lengths, cfg)
+    with pytest.raises(NotImplementedError, match="longer than 512"):
+        chain.extract_batch(audio, lengths, cfg)
+
+
+@pytest.mark.parametrize("config_name", ["kaldi_mfcc", "kaldi_fbank", "logmel80"])
+def test_extract_batch_kaldi_and_logmel80_on_card_match_cpu(config_name):
+    """Kaldi features are gated on well-conditioned signals only: the
+    chirp's quiet bins sit at the fp32 floor of any two implementations
+    (docs/ACCURACY.md finding 5). logmel80 takes the two-regime gate, which
+    covers quiet bins, so it keeps the chirp."""
+    _card()
+    cfg = NAMED_CONFIGS[config_name]
+    if config_name == "kaldi_mfcc":
+        cfg = cfg.replace(dither=1.0)
+    names = ("noise", "speechish", "short") + (("chirp",) if config_name == "logmel80" else ())
+    sigs = golden_signals()
+    b = pad_batch([np.round(sigs[n] * 3000) for n in names], cfg, dtype="int16")
+    before = frontend.launches
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    assert feat.device.type == "cuda" and frontend.launches == before + 1
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+    if cfg.features == "logmel" and cfg.log_kind == "ln_stab":
+        testing.assert_logmel_close(feat.cpu()[valid], cpu[valid], cfg.log_kind)
+    else:
+        testing.assert_kaldi_features_close(feat.cpu()[valid], cpu[valid], cfg)
