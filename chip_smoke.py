@@ -46,14 +46,26 @@ Phases, in order; any failure exits non-zero:
      [256, 999, 80] within the two-regime log-mel gate (1e-4 on bins within
      40 dB of the row max, 1e-5 of the row max in the linear domain) of the
      CPU chain and of the float64 chain on four rows; times; the db
-     epilogue against its plain version at b16.
+     epilogue against its plain version at b16;
+  9-11. paths kaldi_plp, kaldi_spectrogram and ssc26 (b64 x 10 s int16,
+     lengths 160,000 - 571*i): the kernel's plp, spectrogram and ssc
+     feature kinds against their plain version under the family's prefix
+     gate (PLP's raw mel lanes linear, 1e-5 of the row max; the log power
+     bins two-regime, 1e-4 within 40 dB of the row max; centroids rtol 1e-4,
+     atol 5e-3), int16 ≡ float32 and dirty tails ≡ clean bitwise; then
+     `extract_batch` counted (front-end 1 with that branch, conditioning 1
+     for the Kaldi configs, the others 0), its features within the family's
+     gate of the CPU chain and of the float64 chain on four rows
+     (`testing.FAMILY_GATES`); times.
 Times are CUDA events after warm-up (median of launches with the 64 MiB
 flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
 cores) at the function's minimum: a split-radix 256-point complex FFT, the
 real split with its 1/2 scalings folded into the power scale, the mel sums
-over the filters' nonzero weights, the conditioning's passes over each
+over the filters' nonzero weights (none for a spectrogram; for SSC the
+per-bin clamps, two sums per weight and a division per filter, and no
+energy), the logs (none for PLP), the conditioning's passes over each
 frame, the dither's 30 float operations per sample that holds signal (its
 25 integer hash operations counted at the fp32 rate, which no int32 rate of
 the card exceeds, so the bound stays a lower bound; ln and sqrt one each),
@@ -118,7 +130,26 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:537",
     },
+    "plp": {
+        "name": "frontend_plp",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:682",
+    },
+    "spectrogram": {
+        "name": "frontend_spectrogram",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:308",
+    },
+    "ssc": {
+        "name": "frontend_ssc",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:965",
+    },
 }
+FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # dither: float operations per sample that holds signal (uniforms 4, ln,
 # -2x, sqrt, cos(2 pi u) 20, r cos, sigma n, the add) and integer ones (two
 # fmix32 16, row key 2, t / S and t % S, lane add, the two 16-bit halves
@@ -137,7 +168,7 @@ def check(ok: bool, what: str) -> None:
 
 
 def check_prefix(testing, got, want, cfg, what: str) -> dict[str, float]:
-    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind)
+    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind, cfg.features)
     print(f"  {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     failures = testing.prefix_failures(errs)
     check(not failures, f"{what}: within the kernel-vs-plain gates {failures or ''}")
@@ -214,6 +245,9 @@ class Counters:
         self.frontend.resample_launches = 0
         self.frontend.dither_launches = 0
         self.frontend.conditioning_launches = 0
+        self.frontend.plp_launches = 0
+        self.frontend.spectrogram_launches = 0
+        self.frontend.ssc_launches = 0
         self.rs_kernel.launches = 0
 
     def read(self) -> dict[str, int]:
@@ -223,6 +257,9 @@ class Counters:
             "resample": self.rs_kernel.launches,
             "conditioning": self.frontend.conditioning_launches,
             "dither": self.frontend.dither_launches,
+            "plp": self.frontend.plp_launches,
+            "spectrogram": self.frontend.spectrogram_launches,
+            "ssc": self.frontend.ssc_launches,
         }
 
     def expect(self, what: str, **want: int) -> dict[str, int]:
@@ -245,12 +282,23 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     """Operations of the front-end's minimum for rows holding lens16 samples
     at 16 kHz: per sample, signal pre-emphasis and the dither (when cfg has
     them); per frame that holds samples, the conditioning (when cfg has it),
-    the window, a split-radix 256-point FFT, the real split, |X|^2, mel over
-    the nonzero weights, the energy, clamps and logs."""
+    the window, a split-radix 256-point FFT, the real split, |X|^2, then by
+    feature kind: mel over the nonzero weights with a clamp and log per
+    filter (mfcc, logmel) or without (plp), a clamp and log per bin
+    (spectrogram), or SSC's clamp per bin that a filter weighs, two sums
+    per weight and a division per filter; the energy and its clamp (not for
+    SSC)."""
     M = cfg.n_mels
     frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens16))
     mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
     nnz = int((mel != 0).sum())
+    kind = frontend.feature_kind(cfg)
+    projection = {
+        "logmel": 2 * nnz + 2 * M,
+        "plp": 2 * nnz,
+        "spectrogram": 2 * M,
+        "ssc": int((mel != 0).any(dim=1).sum()) + 4 * nnz + M,
+    }[kind]
     Lk, N2 = min(cfg.frame_length, frontend.NFFT), frontend.NFFT // 2
     conditioning = (
         2 * Lk * cfg.remove_dc_offset  # the mean and the centering
@@ -263,9 +311,8 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
         + 4 * N2 * int(math.log2(N2)) - 6 * N2 + 8  # 256-point complex FFT, split radix
         + 14 * (N2 // 2 - 1) + 2  # real split; its 1/2 scalings fold into pscale
         + 3 * (N2 - 1) + 2  # |X|^2 (bins 0 and 256 are real)
-        + 2 * nnz  # mel over the nonzero weights (pscale folds into them)
-        + (N2 + 1) * (cfg.energy_source == "pspec")  # sum of 257 powers, times pscale
-        + 2 * M + 1  # clamps and logs
+        + projection  # pscale folds into the weights
+        + ((N2 + 1) * (cfg.energy_source == "pspec") + 1) * (kind != "ssc")  # energy, clamp
     )
     per_sample = (
         2 * (cfg.preemph_mode == "signal" and cfg.preemph != 0.0)
@@ -309,8 +356,9 @@ def make_batch(pad_batch, cfg, rows: int, n: int, step: int, seed: int):
 def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | None,
                    f64_rows: int = 4) -> None:
     """Features of the card against the CPU chain and, on the first f64_rows
-    rows, the float64 chain: max |diff| <= atol, or with atol None (log-mel
-    features) the two-regime log-mel gate of `testing`."""
+    rows, the float64 chain: max |diff| <= atol, or with atol None the
+    family's gate of `testing`: the two-regime log-mel gate for log-mel
+    features, FAMILY_GATES' (atol, rtol) for PLP, spectrogram and SSC."""
     F = feat.shape[1]
     check(tuple(feat.shape) == (batch.audio.shape[0], F, cfg.feat_dim), f"features {tuple(feat.shape)}")
     check(feat.device.type == "cuda" and bool(torch.isfinite(feat).all()), "finite, on the card")
@@ -318,7 +366,14 @@ def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | 
           f"pad frames exactly 0 ({int((mask == 0).sum())} of {mask.numel()})")
 
     def gate(got, want, what):
-        if atol is None:
+        if atol is None and cfg.features in testing.FAMILY_GATES:
+            against = "float64" if "float64" in what else "fp32"
+            errs = testing.family_feature_errors(got, want, cfg.features, against)
+            print(f"  card vs {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+            fails = testing.family_feature_failures(errs, cfg.features, against)
+            check(not fails, f"card within the {cfg.features} family's {against} gate of the {what} "
+                             f"{fails or ''}")
+        elif atol is None:
             errs = testing.logmel_errors(got, want, cfg.log_kind)
             print(f"  card vs {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
             fails = testing.logmel_failures(errs)
@@ -359,11 +414,76 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str) ->
 
 def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2, taps: int = 0) -> int:
     """Bytes the front-end must move: each input sample that holds signal,
-    the lengths, the [B, F, M+1] prefix and the window, mel, band and
-    twiddle tables (and a resample's taps), each once."""
+    the lengths, the [B, F, M+1] prefix and the window, the [257, M]
+    matrices it reads (mel; none for a spectrogram; mel and melf for SSC),
+    band and twiddle tables (and a resample's taps), each once."""
     M, Lk = cfg.n_mels, min(cfg.frame_length, frontend.NFFT)
     return (int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4
-            + (Lk + 257 * M + 2 * M + 512 + taps) * 4)
+            + (Lk + frontend.mel_matrices(cfg) * 257 * M + 2 * M + 512 + taps) * 4)
+
+
+def family_path(torch, counters, name: str, seed: int, phase: int, tag: str) -> tuple[str, dict]:
+    """One PLP, spectrogram or SSC path at b64 x 10 s: the feature kind's
+    branch against its plain version, bitwise invariances, extract_batch
+    counted and gated, times. Returns (kind, its KERNELS line numbers)."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    cfg = named_config(name)
+    kind = frontend.feature_kind(cfg)
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=seed)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    branches = {kind: 1, **({"conditioning": 1} if chain.needs_conditioning(cfg) else {})}
+    print(f"== {phase}. path {name} b{B} x {SECONDS} s int16 [{B}, {T}], {F} frames, {kind} kind, "
+          f"{frontend.smem_bytes(cfg)} B of shared memory a block")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, **branches)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    errs = check_prefix(testing, got, plain, cfg, f"{kind} branch, main batch")
+    del plain
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, seed), lengths, cfg)),
+          "garbage past each length leaves the output unchanged")
+    del got
+
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1, **branches)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, None)
+    del feat, mask
+
+    print(f"  times {tag}")
+    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
+    st = chain.logmel_stages(audio, lengths, cfg)
+    framed = torch.nn.functional.pad(st["windowed"].reshape(B * F, -1),
+                                     (0, cfg.n_fft - cfg.frame_length)).contiguous()
+    del st
+    rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
+    del framed
+    lens = np.minimum(batch.lengths.astype(np.int64), T)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens, F))
+    print(f"  frontend kernel, {kind} kind: {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  torch.fft.rfft on [{B * F}, {cfg.n_fft}] pre-framed (DFT only): {rfft_ms:.4f} ms {tag}")
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
+    return kind, dict(
+        launches=launches[kind], max_abs_err=errs["max_abs"], ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
+    )
 
 
 def main() -> int:
@@ -466,7 +586,7 @@ def main() -> int:
     print(f"  torch.fft.rfft on [{B * F}, {cfg.n_fft}] pre-framed (DFT only): {rfft_ms:.4f} ms {tag}")
     step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
     results["frontend"] = dict(
-        launches=launches["frontend"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
+        launches=launches["frontend"], max_abs_err=errs["max_abs"], ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
     )
     del audio, lengths, framed, feat, mask
@@ -540,7 +660,7 @@ def main() -> int:
           f"+ torch.fft.rfft on [{B * F}, {cfg.n_fft}] {rfft_ms:.4f} ms = {conv_ms + rfft_ms:.4f} ms {tag}")
     step_times(torch, chain, batch, audio, lengths, cfg, "fused resample kernel", tag)
     results["fused"] = dict(
-        launches=launches["fused"], max_abs_err=errs["logmel_max_abs"], ms=kernel_ms,
+        launches=launches["fused"], max_abs_err=errs["max_abs"], ms=kernel_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms + rfft_ms,
     )
     del framed
@@ -568,9 +688,9 @@ def main() -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
-        ("a config the port lacks (ssc26)",
+        ("a config the port lacks (whisper80)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("ssc26")), NotImplementedError),
+                                     named_config("whisper80")), NotImplementedError),
         ("conditioning of frames over 512 samples",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
                                      named_config("kaldi_mfcc").replace(win_len_s=0.040)),
@@ -715,11 +835,11 @@ def main() -> int:
     print("  library: none (no PyTorch call computes the contract noise or the conditioning)")
     step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
     results["conditioning"] = dict(
-        launches=launches["conditioning"], max_abs_err=errs_c["logmel_max_abs"], ms=kc_ms,
+        launches=launches["conditioning"], max_abs_err=errs_c["max_abs"], ms=kc_ms,
         plain_ms=pc_ms, bound_ms=bc_ms, bound_by=bc_by, library_ms=None,
     )
     results["dither"] = dict(
-        launches=launches["dither"], max_abs_err=errs_d["logmel_max_abs"], ms=kd_ms,
+        launches=launches["dither"], max_abs_err=errs_d["max_abs"], ms=kd_ms,
         plain_ms=pd_ms, bound_ms=bd_ms, bound_by=bd_by, library_ms=None,
     )
     del audio, lengths
@@ -790,6 +910,11 @@ def main() -> int:
     print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
     step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
     del audio, lengths
+
+    # 9-11. kaldi_plp, kaldi_spectrogram, ssc26: the feature kinds
+    for phase, (name, seed) in enumerate(FAMILY_PATHS, start=9):
+        feature_kind, numbers = family_path(torch, counters, name, seed, phase, tag)
+        results[feature_kind] = numbers
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -2,8 +2,9 @@
 //
 // Replaces mfcc_tpu/kernels/frontend.py::_make_radix4_kernel (:905), slab
 // mode, launched from _fused_logmel_energy (:1295) through pl.pallas_call
-// (:1552), with its dither, frame-first conditioning and ln / ln_stab / db /
-// ln_floor epilogue branches. Plain version and wrapper:
+// (:1552), with its dither, frame-first conditioning, ln / ln_stab / db /
+// ln_floor epilogue branches and its PLP, spectrogram and SSC feature
+// kinds. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
 //
@@ -124,6 +125,29 @@
 // bound from its run's inputs. The kernel stays latency-bound as above: on
 // an H100 SXM at 700 W the dither adds ~18 % to kaldi_mfcc's kernel time
 // and the conditioning ~2 %.
+//
+// Feature kinds (feature_kind, a warp-uniform switch in step 4 of both
+// forms; _make_epilogue :660-712):
+//   logmel (mfcc and logmel configs): the log kind of the band sum, above.
+//   plp (the PLP branch, :682-692): o[m] = the band sum, unlogged; lane M
+//     the energy. ops/chain.py plp_base does the rest in tensor code.
+//   spectrogram (the multi-tile output, :308-311): the identity projection,
+//     o[m] = log kind of P[m] for m < M = 257, lane M the energy. No matrix
+//     is staged (257 x 257 floats are 264 KB, over the 227 KB a block may
+//     have; 50 KB in all at kaldi_spectrogram), and the lane loop covers the
+//     258 output lanes in 9 warp passes.
+//   ssc (:965-975 and epilogue_ssc :673-677): per bin q[k] = P[k] <= 0 ?
+//     eps : P[k], then o[m] = sum q[k] melf[k, m] / sum q[k] mel[k, m] over
+//     the band (IEEE division), with melf[k, m] = f_k mel[k, m] rounded once
+//     from float64 on the host; o[M] = 0. P is indexed by bin here, so the
+//     TPU kernel's per-lane clamp of eps / lanes_per_bin (a workaround for
+//     its scrambled radix-4 lane order) is not needed. Both [257, M]
+//     matrices are staged: 53 KB at M = 26, 104 KB in all.
+// Bounds at b64 x 10 s int16 (chip_smoke.py computes them per run):
+// kaldi_spectrogram is bound by bytes (20.5 MB in + 65.9 MB of
+// [64, 998, 258] out: ~26 us); kaldi_plp (~11 us, kaldi_mfcc's operations
+// less the logs) and ssc26 (~10 us: the clamps, two sums per weight and the
+// divisions instead of the logs and the energy) by operations.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,8 +168,17 @@ constexpr int kPowStride = 260;       // per-warp power row, padded to 16 B
 // energy_source and log_kind codes (kernels/frontend.py ENERGY_SOURCES, LOG_KINDS)
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3 };
+// feature_kind codes (kernels/frontend.py FEATURE_KINDS)
+enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// Staged [257, M] matrices, in floats: mel (none for the spectrogram's
+// identity), then melf for ssc.
+__host__ __device__ inline int mel_floats(int feature_kind, int M) {
+  const int one = align4(kBins * M);
+  return feature_kind == kSpectrogram ? 0 : feature_kind == kSsc ? 2 * one : one;
+}
 
 // Dynamic shared memory layout, in floats (every offset 16-byte aligned).
 // in_len and taps are the fused resample's input window and tap table (0
@@ -156,13 +189,13 @@ struct Layout {
   int span, win, mel, tw, buf, pw, xs, tab, total;
 };
 
-__host__ __device__ inline Layout layout(int S, int L, int M, int in_len, int taps,
+__host__ __device__ inline Layout layout(int S, int L, int mels, int in_len, int taps,
                                          bool xs) {
   Layout l;
   l.span = (kTile - 1) * S + L;
   l.win = align4(l.span > in_len ? l.span : in_len);
   l.mel = l.win + kNfft;
-  l.tw = l.mel + align4(kBins * M);
+  l.tw = l.mel + mels;
   l.buf = l.tw + 2 * kHalf;
   l.pw = l.buf + 2 * kHalf * kWarps;
   l.xs = l.pw + kPowStride * kWarps;
@@ -185,6 +218,7 @@ struct Params {
   // conditioning (kCond); frame_keep0 = 1 - frame_preemph, rounded on the host
   int remove_dc, energy_source, log_kind;
   float frame_preemph, frame_keep0;
+  int feature_kind;
 };
 
 __device__ inline float to_f32(int16_t v) { return static_cast<float>(v); }
@@ -250,17 +284,21 @@ template <typename Sample, bool kResample, bool kDither, bool kCond>
 __global__ void __launch_bounds__(kThreads)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               float* __restrict__ out, const float* __restrict__ window,
-              const float* __restrict__ mel, const int* __restrict__ mel_lo,
-              const int* __restrict__ mel_hi, const float2* __restrict__ twiddle,
-              const float* __restrict__ taps, Params p, Polyphase pp) {
+              const float* __restrict__ mel, const float* __restrict__ melf,
+              const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
+              const float2* __restrict__ twiddle, const float* __restrict__ taps, Params p,
+              Polyphase pp) {
   extern __shared__ __align__(16) float smem[];
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
+  const int kind = p.feature_kind;
   const float preemph = p.preemph;
-  const Layout lay = kResample ? layout(S, L, M, resample_window(S, L, pp), pp.up * pp.K, true)
-                               : layout(S, L, M, 0, 0, kDither);
+  const int mels = mel_floats(kind, M);
+  const Layout lay = kResample ? layout(S, L, mels, resample_window(S, L, pp), pp.up * pp.K, true)
+                               : layout(S, L, mels, 0, 0, kDither);
   float* sig = smem;
   float* win = smem + lay.win;
   float* melw = smem + lay.mel;
+  float* melfw = melw + align4(kBins * M);  // ssc only
   float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
 
   const int b = blockIdx.y;
@@ -269,7 +307,12 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const Sample* row = audio + static_cast<size_t>(b) * T;
 
   for (int i = threadIdx.x; i < kNfft; i += kThreads) win[i] = i < L ? window[i] : 0.f;
-  for (int i = threadIdx.x; i < kBins * M; i += kThreads) melw[i] = mel[i];
+  if (kind != kSpectrogram) {
+    for (int i = threadIdx.x; i < kBins * M; i += kThreads) melw[i] = mel[i];
+  }
+  if (kind == kSsc) {
+    for (int i = threadIdx.x; i < kBins * M; i += kThreads) melfw[i] = melf[i];
+  }
   for (int i = threadIdx.x; i < kHalf; i += kThreads) tw[i] = twiddle[i];
 
   if constexpr (kResample) {
@@ -425,16 +468,34 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     }
     __syncwarp();
 
-    // 4. mel projection over each filter's nonzero band, the log kind,
-    //    and the energy lane
+    // 4. per output lane, by feature kind: the mel projection over each
+    //    filter's nonzero band, then the log kind (logmel) or nothing
+    //    (plp); the log kind of power bin m (spectrogram); the centroid of
+    //    the clamped powers (ssc). Then the energy lane (0 for ssc).
     float* o = out + (static_cast<size_t>(b) * F + f) * (M + 1);
     for (int m = lane; m < M; m += 32) {
-      float acc = 0.f;
+      if (kind == kSpectrogram) {
+        o[m] = log_lane(pw[m], p);
+        continue;
+      }
       const int hi = mel_hi[m];
+      if (kind == kSsc) {
+        float num = 0.f, den = 0.f;
+        for (int k = mel_lo[m]; k < hi; ++k) {
+          const float q = pw[k] <= 0.f ? p.eps : pw[k];
+          num += q * melfw[k * M + m];
+          den += q * melw[k * M + m];
+        }
+        o[m] = __fdiv_rn(num, den);
+        continue;
+      }
+      float acc = 0.f;
       for (int k = mel_lo[m]; k < hi; ++k) acc += pw[k] * melw[k * M + m];
-      o[m] = log_lane(acc, p);
+      o[m] = kind == kPlp ? acc : log_lane(acc, p);
     }
-    if (kCond && p.energy_source != kPspec) {
+    if (kind == kSsc) {
+      if (lane == 0) o[M] = 0.f;
+    } else if (kCond && p.energy_source != kPspec) {
       if (lane == 0) o[M] = fmaxf(e_frame, p.eps);
     } else {
       float e = 0.f;
@@ -450,7 +511,7 @@ struct Args {
   const void* audio;
   const int* lengths;
   float* out;
-  const float *window, *mel;
+  const float *window, *mel, *melf;
   const int *mel_lo, *mel_hi;
   const float *twiddle, *taps;
   int B;
@@ -462,9 +523,10 @@ struct Args {
 template <typename Sample, bool kResample, bool kDither, bool kCond>
 cudaError_t launch(const Args& a) {
   const Params& p = a.p;
+  const int mels = mel_floats(p.feature_kind, p.M);
   const Layout lay =
-      kResample ? layout(p.S, p.L, p.M, resample_window(p.S, p.L, a.pp), a.pp.up * a.pp.K, true)
-                : layout(p.S, p.L, p.M, 0, 0, kDither);
+      kResample ? layout(p.S, p.L, mels, resample_window(p.S, p.L, a.pp), a.pp.up * a.pp.K, true)
+                : layout(p.S, p.L, mels, 0, 0, kDither);
   const size_t bytes = static_cast<size_t>(lay.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       logmel_kernel<Sample, kResample, kDither, kCond>,
@@ -472,8 +534,8 @@ cudaError_t launch(const Args& a) {
   if (err != cudaSuccess) return err;
   const dim3 grid((p.F + kTile - 1) / kTile, a.B);
   logmel_kernel<Sample, kResample, kDither, kCond><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel, a.mel_lo,
-      a.mel_hi, reinterpret_cast<const float2*>(a.twiddle), a.taps, p, a.pp);
+      static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel, a.melf,
+      a.mel_lo, a.mel_hi, reinterpret_cast<const float2*>(a.twiddle), a.taps, p, a.pp);
   return cudaGetLastError();
 }
 
@@ -497,10 +559,12 @@ cudaError_t dispatch(const Args& a, bool is_int16, bool dither, bool cond) {
               : launch<float, kResample, false, false>(a);
 }
 
-bool bad_params(const Params& p, int B) {
+bool bad_params(const Params& p, int B, const float* melf) {
   return p.L < 1 || p.L > kNfft || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
-         p.log_kind < kLn || p.log_kind > kLnFloor;
+         p.log_kind < kLn || p.log_kind > kLnFloor || p.feature_kind < kLogmel ||
+         p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != kBins) ||
+         (p.feature_kind == kSsc && melf == nullptr);
 }
 
 }  // namespace
@@ -510,24 +574,27 @@ extern "C" {
 // Launches the front-end on `stream`; returns cudaGetLastError() (0 = launched).
 // audio [B, T] int16 (audio_is_int16 != 0) or float32; lengths [B] int32;
 // out [B, F, M+1] float32; window [>= L] float32; mel [257, M] float32;
-// mel_lo / mel_hi [M] int32; twiddle [256, 2] float32. L <= 512.
+// melf [257, M] float32 (ssc; may be null otherwise); mel_lo / mel_hi [M]
+// int32; twiddle [256, 2] float32. L <= 512.
 // dither > 0 adds the contract noise (dither_seed = fmix32(cfg.dither_seed));
 // conditioning != 0 takes the frame-first branch (remove_dc, frame_preemph
 // and frame_keep0 = 1 - frame_preemph, energy_source 0 pspec / 1 raw_frame /
-// 2 windowed_frame); log_kind 0 ln / 1 ln_stab / 2 db / 3 ln_floor.
+// 2 windowed_frame); log_kind 0 ln / 1 ln_stab / 2 db / 3 ln_floor;
+// feature_kind 0 logmel / 1 plp / 2 spectrogram (M = 257) / 3 ssc.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, const float* window, const float* mel,
-                         const int* mel_lo, const int* mel_hi, const float* twiddle,
-                         int B, int T, int F, int L, int S, int M, float scale,
-                         float preemph, float eps, float pscale, float dither,
+                         const float* melf, const int* mel_lo, const int* mel_hi,
+                         const float* twiddle, int B, int T, int F, int L, int S, int M,
+                         float scale, float preemph, float eps, float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
-                         int log_kind, void* stream) {
+                         int log_kind, int feature_kind, void* stream) {
   const Params p{T, F, L, S, M, scale, preemph, eps, pscale, dither, dither_seed,
-                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0};
-  if (bad_params(p, B)) return cudaErrorInvalidValue;
-  const Args a{audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle, nullptr, B, p,
-               Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
+                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
+                 feature_kind};
+  if (bad_params(p, B, melf)) return cudaErrorInvalidValue;
+  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, nullptr, B,
+               p, Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
   return dispatch<false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }
 
@@ -536,20 +603,22 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
 // signal, ceil(T * up / down) samples long. Dither keys on 16 kHz positions.
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   const int* lengths, float* out, const float* window,
-                                  const float* mel, const int* mel_lo,
+                                  const float* mel, const float* melf, const int* mel_lo,
                                   const int* mel_hi, const float* twiddle,
                                   const float* taps, int B, int T, int F, int L,
                                   int S, int M, int up, int down, int half_len, int K,
                                   float preemph, float eps, float pscale, float dither,
                                   unsigned dither_seed, int conditioning, int remove_dc,
                                   float frame_preemph, float frame_keep0,
-                                  int energy_source, int log_kind, void* stream) {
+                                  int energy_source, int log_kind, int feature_kind,
+                                  void* stream) {
   const Params p{T, F, L, S, M, 1.f, preemph, eps, pscale, dither, dither_seed,
-                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0};
-  if (bad_params(p, B) || up < 1 || down < 1 || K < 1 || half_len < 10 * down) {
+                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
+                 feature_kind};
+  if (bad_params(p, B, melf) || up < 1 || down < 1 || K < 1 || half_len < 10 * down) {
     return cudaErrorInvalidValue;
   }
-  const Args a{audio, lengths, out, window, mel, mel_lo, mel_hi, twiddle, taps, B, p,
+  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, taps, B, p,
                Polyphase{up, down, half_len, K}, static_cast<cudaStream_t>(stream)};
   return dispatch<true>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }

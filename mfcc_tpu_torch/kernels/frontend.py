@@ -7,10 +7,15 @@ int16/fp32 convert × input_scale, the dither contract (`ops/dither.py`)
 when cfg.dither > 0, signal pre-emphasis with x[-1] = 0, zeroing at
 t >= length, Kaldi frame-first conditioning when the config asks for it
 (DC removal, raw-frame energy, frame pre-emphasis, windowed-frame energy),
-window, 512-point real FFT, |X|², mel projection, the log kind (ln,
-ln_stab, db, ln_floor), and the clamped (unlogged) energy on lane M.
-Output [B, F, n_mels+1] float32 with F = cfg.num_frames(T) ("pad" or
-"drop" framing; F = 0 returns an empty prefix without a launch).
+window, 512-point real FFT, |X|², then by feature kind (`FEATURE_KINDS`):
+the mel projection and the log kind (ln, ln_stab, db, ln_floor) for mfcc and
+logmel configs, the raw mel energies for PLP, the log kind of each power
+bin for a spectrogram (the identity projection, no matrix), or the SSC
+centroids of the per-bin clamped power; lane M holds the clamped (unlogged)
+energy (0 for SSC). Output [B, F, n_mels+1] float32 with F =
+cfg.num_frames(T) ("pad" or "drop" framing; F = 0 returns an empty prefix
+without a launch). A config whose shared-memory layout exceeds the block's
+227 KB raises before the launch.
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, through the kernel's second
@@ -22,9 +27,10 @@ of `csrc/polyphase.cuh`. F = cfg.num_frames(output_length(T)) then.
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
 PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
-`resample_launches` those of the fused resample; `dither_launches` and
-`conditioning_launches` count the launches (of either form) that take the
-dither or the conditioning branch. Set them to 0 to start a count.
+`resample_launches` those of the fused resample; `dither_launches`,
+`conditioning_launches`, `plp_launches`, `spectrogram_launches` and
+`ssc_launches` count the launches (of either form) that take that branch.
+Set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -47,11 +53,28 @@ TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
 POW_STRIDE = 260
 ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
+FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
 
 launches = 0
 resample_launches = 0
 dither_launches = 0
 conditioning_launches = 0
+plp_launches = 0
+spectrogram_launches = 0
+ssc_launches = 0
+
+
+def feature_kind(cfg: FrontendConfig) -> str:
+    """The kernel's feature kind for cfg: mfcc configs share the logmel
+    epilogue (the DCT follows in tensor code)."""
+    return "logmel" if cfg.features == "mfcc" else cfg.features
+
+
+def mel_matrices(cfg: FrontendConfig) -> int:
+    """How many [257, M] matrices the kernel stages and reads for cfg
+    (csrc/frontend.cu mel_floats): mel; none for the spectrogram's identity
+    projection; mel and melf for SSC."""
+    return {"spectrogram": 0, "ssc": 2}.get(feature_kind(cfg), 1)
 
 
 def logmel_prefix_reference(
@@ -60,13 +83,21 @@ def logmel_prefix_reference(
     cfg: FrontendConfig,
     consts: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """The kernel's plain version: [log-mel | clamped energy] from
-    chain.logmel_stages (torch.fft.rfft + mel matmul), on any device; for
-    resampling configs after chain.resample_input (the plain resample)."""
+    """The kernel's plain version from chain.logmel_stages (torch.fft.rfft
+    + mel matmul), on any device; for resampling configs after
+    chain.resample_input (the plain resample). Lane for lane the Pallas
+    kernel's prefix: [log-mel | clamped energy]; [melspec | energy] for
+    PLP; [log pspec | energy] for a spectrogram (its log-mel, mel being the
+    identity); [centroids | 0] for SSC."""
     if chain.resamples(cfg):
         audio, lengths = chain.resample_input(audio, lengths, cfg)
     st = chain.logmel_stages(audio, lengths, cfg, consts)
-    return torch.cat([st["logmel"], st["energy"][..., None]], dim=-1)
+    kind = feature_kind(cfg)
+    if kind == "ssc":
+        c = chain.ssc_centroids(st["pspec"], cfg, consts)
+        return torch.cat([c, torch.zeros_like(c[..., :1])], dim=-1)
+    lanes = st["melspec"] if kind == "plp" else st["logmel"]
+    return torch.cat([lanes, st["energy"][..., None]], dim=-1)
 
 
 def fft_twiddles() -> np.ndarray:
@@ -90,11 +121,15 @@ def mel_bands(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
+    """The kernel's float32 tables on `device`; "melf" (SSC's freq-weighted
+    mel, f_k·mel[k, m]) is formed in float64 and rounded once."""
     mel = consts["mel"].to(device=device, dtype=torch.float32).contiguous()
     lo, hi = mel_bands(mel)
+    melf = consts["freqs"].double()[:, None] * consts["mel"].double()
     return {
         "window": consts["window"].to(device=device, dtype=torch.float32).contiguous(),
         "mel": mel,
+        "melf": melf.to(device=device, dtype=torch.float32).contiguous(),
         "mel_lo": lo,
         "mel_hi": hi,
         "twiddle": torch.as_tensor(fft_twiddles(), device=device),
@@ -103,15 +138,15 @@ def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(cfg: FrontendConfig, device: torch.device):
-    return _tables(chain.device_constants(cfg, device, torch.float32), device)
+    return _tables(chain.device_constants(cfg, torch.device("cpu"), torch.float64), device)
 
 
 def smem_bytes(cfg: FrontendConfig) -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout): the
     signal row (or the fused resample's input window, whichever is longer),
-    window, mel matrix, twiddles, per-warp FFT and power rows, the staged
-    x row of the fused resample and of dither, and the resample's tap
-    table."""
+    window, the [257, M] matrices (mel; none for a spectrogram; mel and
+    melf for SSC), twiddles, per-warp FFT and power rows, the staged x row
+    of the fused resample and of dither, and the resample's tap table."""
     def a4(n):
         return (n + 3) & ~3
 
@@ -122,7 +157,7 @@ def smem_bytes(cfg: FrontendConfig) -> int:
         d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
         in_len = rs_kernel.input_span(span + 1, d)
         taps = d["up"] * d["K"]
-    n = (a4(max(span, in_len)) + NFFT + a4(257 * cfg.n_mels) + NFFT
+    n = (a4(max(span, in_len)) + NFFT + mel_matrices(cfg) * a4(257 * cfg.n_mels) + NFFT
          + NFFT * WARPS + POW_STRIDE * WARPS + xs + a4(taps))
     return 4 * n
 
@@ -134,18 +169,18 @@ def _lib() -> ctypes.CDLL:
     branches = [
         f, u,  # dither, premixed seed
         i, i, f, f, i,  # conditioning, remove_dc, frame_preemph, frame_keep0, energy_source
-        i,  # log_kind
+        i, i,  # log_kind, feature_kind
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.argtypes = [
-        p, i, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
+        p, i, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
         i, i, i, i, i, i,  # B, T, F, L, S, M
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
-        p, i, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
+        p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
         i, i, i, i, i, i,  # B, T, F, L, S, M
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
@@ -164,14 +199,15 @@ def logmel_prefix(
     consts: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """audio [B, T] int16 or float32 + lengths [B] int32 → [B, F, M+1]
-    float32 (lanes [0:M] log-mel, lane M the clamped energy). For
-    resampling configs T and lengths count input samples and F frames of
-    the resampled signal.
+    float32 (lanes [0:M] log-mel, lane M the clamped energy; other feature
+    kinds as in `logmel_prefix_reference`). For resampling configs T and
+    lengths count input samples and F frames of the resampled signal.
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
     window and mel matrix (a chain-constants dict)."""
     global launches, resample_launches, dither_launches, conditioning_launches
+    global plp_launches, spectrogram_launches, ssc_launches
     if audio.device.type == "cpu":
         return logmel_prefix_reference(audio, lengths, cfg, consts)
     if audio.device.type != "cuda":
@@ -199,9 +235,10 @@ def logmel_prefix(
     if B > MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
     resampling = chain.resamples(cfg)
+    kind = feature_kind(cfg)
+    rs_kernel.check_budget(smem_bytes(cfg), f"the front-end kernel for config {cfg.config_hash()}")
     if resampling:
         sr_in = cfg.input_sample_rate
-        rs_kernel.check_budget(smem_bytes(cfg), f"the fused {sr_in} -> {cfg.sample_rate} Hz resample")
         F = cfg.num_frames(R.output_length(T, sr_in, cfg.sample_rate))
     else:
         F = cfg.num_frames(T)
@@ -213,7 +250,7 @@ def logmel_prefix(
     lib = _lib()
     head = (
         audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
-        out.data_ptr(), k["window"].data_ptr(), k["mel"].data_ptr(),
+        out.data_ptr(), k["window"].data_ptr(), k["mel"].data_ptr(), k["melf"].data_ptr(),
         k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), k["twiddle"].data_ptr(),
     )
     dims = (B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M)
@@ -229,6 +266,7 @@ def logmel_prefix(
         cfg.dither, dither._fmix32_int(cfg.dither_seed),
         int(conditioning), int(cfg.remove_dc_offset), c, 1.0 - c,
         ENERGY_SOURCES.index(cfg.energy_source), chain.LOG_KINDS.index(cfg.log_kind),
+        FEATURE_KINDS.index(kind),
     )
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -255,4 +293,7 @@ def logmel_prefix(
         launches += 1
     dither_launches += int(cfg.dither > 0.0)
     conditioning_launches += int(conditioning)
+    plp_launches += int(kind == "plp")
+    spectrogram_launches += int(kind == "spectrogram")
+    ssc_launches += int(kind == "ssc")
     return out

@@ -1,9 +1,12 @@
 """The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for the
 classic13 family (standard "pad" framing, signal pre-emphasis, power-spectrum
-energy), logmel80 (the `ln_stab` log), and the Kaldi feature-window family
-(kaldi_mfcc, kaldi_fbank: "drop" framing, frame-first conditioning, `ln_floor`),
+energy), logmel80 (the `ln_stab` log), the Kaldi feature-window family
+(kaldi_mfcc, kaldi_fbank, kaldi_plp, kaldi_spectrogram: "drop" framing,
+frame-first conditioning, `ln_floor`) and spectral subband centroids (ssc26),
 with or without dither, at 16 kHz or resampled from another input rate
-(mfcc39_48k, mfcc39_44k).
+(mfcc39_48k, mfcc39_44k). PLP (`plp_base`: equal loudness, cube-root
+compression, autocorrelation, Levinson-Durbin, LPC cepstra) is tensor code
+on both devices, after the front-end's raw mel lanes.
 
 Batch layout is `audio[B, T]` + `lengths[B]`, as in the JAX package: frames
 are derived with a static frame count `F = cfg.num_frames(T)` and a
@@ -16,7 +19,9 @@ pre-emphasis, windowed-frame energy) follows framing, in Kaldi's order.
 `extract_batch` runs on the card by default. There the front-end (dither
 and framing through log-mel and energy) is one hand-written CUDA kernel
 (`mfcc_tpu_torch/kernels/frontend.py`), and its [log-mel | energy] prefix
-feeds `features_from_logmel`'s prefix path; for resampling configs the
+feeds `features_from_logmel`'s prefix path (lanes [0, M) are the log-mel, the raw
+mel energies for PLP, the log power spectrum for a spectrogram or the
+centroids for SSC); for resampling configs the
 same kernel resamples the input rows as it stages them. With `device="cpu"`
 it runs the plain chain of this module (`resample_input`, then
 `logmel_stages`: the kernel's plain version). A config outside the slice
@@ -77,10 +82,6 @@ def needs_conditioning(cfg: FrontendConfig) -> bool:
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when this slice of the port implements `cfg`; otherwise the
     kernel branch it still needs, with its ROADMAP queue-2 item."""
-    if cfg.features in ("plp", "spectrogram"):
-        return "PLP epilogue and multi-tile output (ROADMAP queue 2 item 4)"
-    if cfg.features == "ssc":
-        return "SSC branch (ROADMAP queue 2 item 5)"
     if (
         cfg.frame_tail not in ("pad", "drop")
         or cfg.drop_last_frame
@@ -233,6 +234,75 @@ def cmvn_utterance(
     return out * m  # keep pad frames exactly zero
 
 
+# ---------------------------------------------------------------------------
+# PLP and SSC (frame-local, any leading batch dims)
+# ---------------------------------------------------------------------------
+
+
+def durbin(r: torch.Tensor, lpc_order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Levinson-Durbin: autocorrelations r [..., P+1] → (a [..., P],
+    residual energy E [...]). One tensor op per order step: the inner sums
+    are a dot with the flipped slice of r, the update a flip of a. Guarded
+    division makes all-zero rows (padding frames) give a = 0, E = 0."""
+    a = r[..., :0]
+    e = r[..., 0]
+    for i in range(lpc_order):
+        acc = r[..., i + 1] - (a * r[..., 1 : i + 1].flip(-1)).sum(-1)
+        k = torch.where(e != 0, acc / torch.where(e == 0, 1.0, e), 0.0)
+        a = torch.cat([a - k[..., None] * a.flip(-1), k[..., None]], dim=-1)
+        e = e * (1.0 - k * k)
+    return a, e
+
+
+def lpc_to_cepstrum(a: torch.Tensor) -> torch.Tensor:
+    """c_n = a_n + Σ_{k<n} (k/n)·c_k·a_{n-k} (cepstra of 1/A(z)), one dot
+    per n."""
+    c = a[..., :0]
+    for n in range(1, a.shape[-1] + 1):
+        w = torch.arange(1, n, dtype=a.dtype, device=a.device) / n
+        acc = a[..., n - 1] + (w * c * a[..., : n - 1].flip(-1)).sum(-1)
+        c = torch.cat([c, acc[..., None]], dim=-1)
+    return c
+
+
+def plp_base(
+    melspec: torch.Tensor,
+    energy: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """PLP cepstra from raw mel energies [..., M] and the clamped frame
+    energy [...] (Kaldi compute-plp-feats order): equal loudness, the
+    compress_factor power law, first/last-bin duplication, IDFT to
+    autocorrelation, Levinson-Durbin, LPC cepstra; c0 = ln of the residual
+    energy, lifter, then c0 ← ln(frame energy) when cfg appends it."""
+    k = consts if consts is not None else device_constants(cfg, melspec.device, melspec.dtype)
+    mel = torch.clamp(melspec, min=0.0) * k["equal_loudness"]
+    mel = mel ** cfg.compress_factor
+    dup = torch.cat([mel[..., :1], mel, mel[..., -1:]], dim=-1)
+    r = torch.matmul(dup, k["idft"].T)
+    a, e = durbin(r, cfg.lpc_order)
+    c = lpc_to_cepstrum(a)
+    c0 = torch.log(torch.clamp(e, min=cfg.log_eps))
+    base = torch.cat([c0[..., None], c[..., : cfg.n_ceps - 1]], dim=-1) * k["lifter"]
+    if cfg.append_energy:
+        log_e = torch.log(energy)
+        if cfg.energy_floor > 0.0:
+            log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+        base = torch.cat([log_e[..., None], base[..., 1:]], dim=-1)
+    return base
+
+
+def ssc_centroids(
+    pspec: torch.Tensor, cfg: FrontendConfig, consts: dict[str, torch.Tensor] | None = None
+) -> torch.Tensor:
+    """Spectral subband centroids [..., M]: the power clamped per bin,
+    where(p <= 0, eps, p), then Σ p·f·mel / Σ p·mel per filter."""
+    k = consts if consts is not None else device_constants(cfg, pspec.device, pspec.dtype)
+    p = torch.where(pspec <= 0, cfg.log_eps, pspec)
+    return torch.matmul(p * k["freqs"], k["mel"]) / torch.matmul(p, k["mel"])
+
+
 def resample_input(
     audio: torch.Tensor, lengths: torch.Tensor, cfg: FrontendConfig
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -322,17 +392,28 @@ def features_from_logmel(
     is corpus-level and not applied here). Returns [B, F, feat_dim] with
     pad frames zeroed.
 
-    When the stage dict carries "prefix" (the kernel's [log-mel | clamped
-    energy] output, [B, F, n_mels+1]) the cepstral epilogue is ONE
-    augmented DCT·lifter·c0 matmul on it; otherwise it starts from the
-    plain chain's "logmel" and "energy" stages."""
+    When the stage dict carries "prefix" (the kernel's [B, F, n_mels+1]
+    output: [log-mel | clamped energy]; [raw mel | energy] for PLP, [log
+    pspec | energy] for a spectrogram, [centroids | 0] for SSC) the mfcc
+    epilogue is ONE augmented DCT·lifter·c0 matmul on it; otherwise it
+    starts from the plain chain's stages."""
     n_valid = stages["n_valid"]
     mask = stages["frame_mask"]
     M = cfg.n_mels
     if "prefix" in stages:
         x = stages["prefix"]
-        if cfg.features == "logmel":
+        if cfg.features in ("logmel", "ssc"):
             base = x[..., :M]
+        elif cfg.features == "plp":
+            base = plp_base(x[..., :M], x[..., M], cfg, consts)
+        elif cfg.features == "spectrogram":
+            base = x[..., :M]
+            if cfg.append_energy:
+                e = x[..., M:]
+                log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
+                if cfg.energy_floor > 0.0:
+                    log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+                base = torch.cat([log_e, base[..., 1:]], dim=-1)
         else:
             k = consts if consts is not None else device_constants(cfg, x.device, x.dtype)
             if cfg.append_energy:
@@ -344,6 +425,17 @@ def features_from_logmel(
             base = torch.matmul(x, k["dct_aug"])
     elif cfg.features == "logmel":
         base = stages["logmel"]
+    elif cfg.features == "spectrogram":  # logmel is the log pspec (mel == identity)
+        base = stages["logmel"]
+        if cfg.append_energy:
+            log_e = torch.log(stages["energy"])
+            if cfg.energy_floor > 0.0:
+                log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+            base = torch.cat([log_e[..., None], base[..., 1:]], dim=-1)
+    elif cfg.features == "plp":
+        base = plp_base(stages["melspec"], stages["energy"], cfg, consts)
+    elif cfg.features == "ssc":
+        base = ssc_centroids(stages["pspec"], cfg, consts)
     else:
         logmel, energy = stages["logmel"], stages["energy"]
         k = consts if consts is not None else device_constants(cfg, logmel.device, logmel.dtype)

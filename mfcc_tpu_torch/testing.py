@@ -33,6 +33,29 @@ package and across devices: atol 8e-4, rtol 2e-5, the JAX package's
 re-scoped gate for this family (fp32 resample sums move its CPU floor from
 4.1e-4 to 6.8e-4; tests/test_resample.py::test_mfcc39_48k_end_to_end,
 docs/ACCURACY.md). The float64 chain vs the JAX package under x64: 1e-10.
+
+The PLP, spectrogram and SSC families (`features`), gated as the JAX
+package's tests gate them:
+  - prefix: PLP's raw mel lanes in the linear domain, 1e-5 of the row max,
+    lane M as energy; the spectrogram's log power lanes (`ln_floor`) under
+    the two-regime gate, 1e-4 on bins within 40 dB of the row max and 1e-5
+    of the row max in the linear domain (a single bin has no filter's sum
+    to average its fp32 roundoff: the plain version and the Pallas kernel
+    differ by 2.8e-5 on loud bins of the golden signals); SSC centroids (Hz)
+    within rtol 1e-4, atol 5e-3 (tests/test_ssc.py, kernel vs twin), lane M
+    (0) as energy;
+  - kaldi_plp features: rtol 1e-4, atol 2e-4 between fp32 chains, 2e-3 /
+    1e-3 on the goldens, whose tones leave Durbin ill-conditioned
+    (tests/test_plp.py); fp32 vs the float64 oracle 5e-4 / 1e-4;
+  - kaldi_spectrogram features: lane 0 (the log frame energy) 2e-3 / 2e-3
+    between fp32 chains (kernel vs twin), 2e-4 / 1e-3 against the float64
+    oracle; the log power lanes under the two-regime gate, since a bin
+    1e-10 below its row's max is fp32 noise in any implementation (the CPU
+    fp32 chain is 4.0e-3 from float64 on one such bin of 4.1 M, white noise
+    at b16 × 10 s); the goldens, all lanes at 2e-4 / 1e-3
+    (tests/test_spectrogram.py);
+  - ssc26 features: rtol 1e-4, atol 5e-3 between fp32 chains; rtol 2e-5,
+    atol 2e-2 against the float64 oracle and the goldens.
 """
 
 from __future__ import annotations
@@ -57,6 +80,16 @@ KALDI_RTOL = 1e-5
 LOGMEL_ATOL = 1e-4  # two-regime log-mel gate: loud bins ...
 LOUD_DB = 40.0  # ... within 40 dB of the row max
 QUIET_REL_ROWMAX = 1e-5  # ... and every bin in the linear domain
+SSC_ATOL, SSC_RTOL = 5e-3, 1e-4  # centroids (Hz), fp32 vs fp32
+SSC_ORACLE_ATOL, SSC_ORACLE_RTOL = 2e-2, 2e-5  # centroids vs float64 and the goldens
+# features: (atol, rtol) between fp32 chains, against the goldens, and fp32
+# against float64 (mfcc_tpu_torch/testing.py docstring)
+FAMILY_GATES = {
+    "plp": {"fp32": (2e-4, 1e-4), "golden": (2e-3, 1e-3), "float64": (5e-4, 1e-4)},
+    "spectrogram": {"fp32": (2e-3, 2e-3), "golden": (2e-4, 1e-3), "float64": (2e-4, 1e-3)},
+    "ssc": {"fp32": (SSC_ATOL, SSC_RTOL), "golden": (SSC_ORACLE_ATOL, SSC_ORACLE_RTOL),
+            "float64": (SSC_ORACLE_ATOL, SSC_ORACLE_RTOL)},
+}
 
 
 def _f64(x) -> np.ndarray:
@@ -75,38 +108,63 @@ def natural_log(x, log_kind: str) -> np.ndarray:
     raise ValueError(f"no prefix gate for log_kind={log_kind!r}")
 
 
-def prefix_errors(got, want, n_mels: int, log_kind: str = "ln") -> dict[str, float]:
-    """Measured errors of a [..., n_mels+1] prefix against a reference, the
-    log-mel lanes taken to natural logs first."""
+def prefix_errors(
+    got, want, n_mels: int, log_kind: str = "ln", features: str = "logmel"
+) -> dict[str, float]:
+    """Measured errors of a [..., n_mels+1] prefix against a reference, by
+    feature family: log lanes (mfcc, logmel, spectrogram) taken to natural
+    logs first, PLP's raw mel lanes in the linear domain, SSC centroids in
+    Hz. "max_abs" is the largest |got - want| over lanes [0, n_mels), in
+    natural-log units for the log families."""
     got, want = _f64(got), _f64(want)
-    lm_g = natural_log(got[..., :n_mels], log_kind)
-    lm_w = natural_log(want[..., :n_mels], log_kind)
-    lin_g, lin_w = np.exp(lm_g), np.exp(lm_w)
-    rowmax = lin_w.max(axis=-1, keepdims=True) + 1e-300
-    loud = lin_w > rowmax * LOUD_REL
     e_g, e_w = got[..., n_mels], want[..., n_mels]
-    return {
-        "logmel_max_abs": float(np.abs(lm_g - lm_w).max()),
-        "logmel_loud_max_abs": float((np.abs(lm_g - lm_w) * loud).max()),
-        "linear_rel_rowmax": float((np.abs(lin_g - lin_w) / rowmax).max()),
-        "energy_max_rel": float(
-            (np.abs(e_g - e_w) / np.maximum(np.abs(e_w), 1e-12)).max()
-        ),
+    energy = float((np.abs(e_g - e_w) / np.maximum(np.abs(e_w), 1e-12)).max(initial=0.0))
+    g, w = got[..., :n_mels], want[..., :n_mels]
+    if features == "ssc":
+        d = np.abs(g - w)
+        return {
+            "max_abs": float(d.max(initial=0.0)),
+            "centroid_excess": float((d - SSC_RTOL * np.abs(w)).max(initial=0.0)),
+            "energy_max_rel": energy,
+        }
+    if features == "plp":
+        lin_g, lin_w = g, w
+        lanes_g, lanes_w = g, w
+    else:
+        lanes_g, lanes_w = natural_log(g, log_kind), natural_log(w, log_kind)
+        lin_g, lin_w = np.exp(lanes_g), np.exp(lanes_w)
+    rowmax = np.abs(lin_w).max(axis=-1, keepdims=True, initial=0.0) + 1e-300
+    errs = {
+        "max_abs": float(np.abs(lanes_g - lanes_w).max(initial=0.0)),
+        "linear_rel_rowmax": float((np.abs(lin_g - lin_w) / rowmax).max(initial=0.0)),
+        "energy_max_rel": energy,
     }
+    if features != "plp":
+        loud = lin_w > rowmax * LOUD_REL
+        key = "log_pspec_loud_max_abs" if features == "spectrogram" else "logmel_loud_max_abs"
+        errs[key] = float((np.abs(lanes_g - lanes_w) * loud).max(initial=0.0))
+    return errs
+
+
+PREFIX_GATES = {
+    "logmel_loud_max_abs": LOGMEL_LOUD_ATOL,
+    "log_pspec_loud_max_abs": LOGMEL_ATOL,
+    "linear_rel_rowmax": LINEAR_REL_ROWMAX,
+    "energy_max_rel": ENERGY_RTOL,
+    "centroid_excess": SSC_ATOL,
+}
 
 
 def prefix_failures(errs: dict[str, float]) -> list[str]:
     """The gates `errs` (from prefix_errors) breaks; empty when it passes."""
-    gates = (
-        ("logmel_loud_max_abs", LOGMEL_LOUD_ATOL),
-        ("linear_rel_rowmax", LINEAR_REL_ROWMAX),
-        ("energy_max_rel", ENERGY_RTOL),
-    )
-    return [f"{k} {errs[k]:.3e} >= {gate}" for k, gate in gates if not errs[k] < gate]
+    return [f"{k} {errs[k]:.3e} >= {gate}" for k, gate in PREFIX_GATES.items()
+            if k in errs and not errs[k] < gate]
 
 
-def assert_prefix_close(got, want, n_mels: int, log_kind: str = "ln") -> None:
-    failures = prefix_failures(prefix_errors(got, want, n_mels, log_kind))
+def assert_prefix_close(
+    got, want, n_mels: int, log_kind: str = "ln", features: str = "logmel"
+) -> None:
+    failures = prefix_failures(prefix_errors(got, want, n_mels, log_kind, features))
     if failures:
         raise AssertionError("prefix outside the gates: " + "; ".join(failures))
 
@@ -162,6 +220,39 @@ def resample_error(got, want, x) -> float:
     rowmax = np.abs(x).reshape(-1, x.shape[-1]).max(axis=-1) + 1e-300
     err = np.abs(got - want).reshape(-1, got.shape[-1]).max(axis=-1, initial=0.0)
     return float((err / rowmax).max(initial=0.0))
+
+
+def family_feature_errors(got, want, features: str, against: str = "fp32") -> dict[str, float]:
+    """Measured errors of PLP, spectrogram or SSC features against a
+    reference (`against` one of "fp32", "golden", "float64"):
+    "excess" = max(|got - want| - rtol·|want|), to hold to FAMILY_GATES'
+    atol; for a spectrogram outside the goldens, lane 0 only, its log power
+    lanes under the two-regime log-mel gate."""
+    _, rtol = FAMILY_GATES[features][against]
+    g, w = _f64(got), _f64(want)
+    errs = {}
+    if features == "spectrogram" and against != "golden":
+        errs = logmel_errors(g[..., 1:], w[..., 1:], "ln_floor")
+        g, w = g[..., :1], w[..., :1]
+    d = np.abs(g - w)
+    errs["max_abs"] = float(d.max(initial=0.0))
+    errs["excess"] = float((d - rtol * np.abs(w)).max(initial=0.0))
+    return errs
+
+
+def family_feature_failures(errs: dict[str, float], features: str, against: str = "fp32") -> list[str]:
+    atol, rtol = FAMILY_GATES[features][against]
+    fails = [] if errs["excess"] <= atol else [
+        f"max(|diff| - {rtol}|want|) {errs['excess']:.3e} > {atol}"]
+    return fails + (logmel_failures(errs) if "logmel_loud_max_abs" in errs else [])
+
+
+def assert_family_features_close(got, want, features: str, against: str = "fp32") -> None:
+    """PLP, spectrogram or SSC features within the family's gate."""
+    failures = family_feature_failures(family_feature_errors(got, want, features, against),
+                                       features, against)
+    if failures:
+        raise AssertionError(f"{features} features outside the gates: " + "; ".join(failures))
 
 
 def assert_resampled_features_close(got, want) -> None:

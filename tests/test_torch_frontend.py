@@ -11,8 +11,9 @@ the row max), linear-domain 1e-5 of the row max elsewhere, energy rtol 1e-5.
 The CUDA kernel cannot run here. `_emulate_kernel` mirrors its loop
 structure in numpy — 32-frame tiles staged with pre-emphasis across tile
 starts, bit-reversed radix-2 FFT on the host twiddle table, the real split,
-band-limited mel sums and the warp-summed energy — so the index algebra is
-tested on the CPU. tests/test_torch_gpu.py holds the kernel itself to the
+band-limited mel sums, each feature kind's epilogue (log, raw PLP lanes,
+the spectrogram's identity projection, SSC's clamped centroids) and the
+warp-summed energy — so the index algebra is tested on the CPU. tests/test_torch_gpu.py holds the kernel itself to the
 plain version on a card.
 """
 
@@ -162,8 +163,8 @@ def test_wrapper_raises_off_cpu_and_cuda():
 def test_wrapper_refuses_configs_outside_the_slice():
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="SSC"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["ssc26"])
+    with pytest.raises(NotImplementedError, match="centered framing"):
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["whisper80"])
 
 
 def test_fft_twiddles_table():
@@ -200,11 +201,16 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     conditioning of the pack loop (mean over the L samples, the raw energy
     as a second pass, frame pre-emphasis from fr[a] and fr[a-1], the
     windowed energy of the packed values), the bit-reversed radix-2 FFT on
-    the host twiddle table, the real split, band-limited mel sums, the log
-    kind and the energy lane."""
+    the host twiddle table, the real split, then by feature kind the
+    band-limited mel sums and the log kind (logmel) or nothing (plp), the
+    log kind of each power bin (spectrogram), or the centroids of the
+    per-bin clamped power over the band (ssc, lane M = 0), and the energy
+    lane."""
     ctype = np.complex64 if dtype == np.float32 else np.complex128
     k = tconstants.chain_constants(cfg)
+    kind = frontend.feature_kind(cfg)
     win, mel = k["window"].astype(dtype), k["mel"].astype(dtype)
+    melf = (k["freqs"][:, None] * k["mel"]).astype(dtype)  # rounded once, as _tables does
     lo, hi = (t.numpy() for t in frontend.mel_bands(torch.as_tensor(mel)))
     if dtype == np.float32:
         tw = frontend.fft_twiddles().astype(dtype)
@@ -264,9 +270,19 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
             P[:, kk] = np.abs(X) ** 2 * pscale
             P[:, 256 - kk[:-1]] = np.abs(Y[:, :-1]) ** 2 * pscale
             for m in range(M):
-                acc = P[:, lo[m] : hi[m]] @ mel[lo[m] : hi[m], m]
-                out[b, f0 : f0 + nf, m] = _log_lane(acc, cfg.log_kind, eps, dtype)
-            if cfg.energy_source == "raw_frame":
+                band = slice(lo[m], hi[m])
+                if kind == "spectrogram":
+                    lane = _log_lane(P[:, m], cfg.log_kind, eps, dtype)
+                elif kind == "ssc":
+                    q = np.where(P[:, band] <= 0, eps, P[:, band])
+                    lane = (q @ melf[band, m]) / (q @ mel[band, m])
+                else:
+                    acc = P[:, band] @ mel[band, m]
+                    lane = acc if kind == "plp" else _log_lane(acc, cfg.log_kind, eps, dtype)
+                out[b, f0 : f0 + nf, m] = lane
+            if kind == "ssc":
+                out[b, f0 : f0 + nf, M] = 0
+            elif cfg.energy_source == "raw_frame":
                 out[b, f0 : f0 + nf, M] = np.maximum(e_raw, eps)
             elif cfg.energy_source == "windowed_frame":
                 out[b, f0 : f0 + nf, M] = np.maximum(e_win, eps)
@@ -320,15 +336,20 @@ BRANCHES = [
     ("logmel80", {}),
     ("logmel80", {"log_kind": "db"}),
     ("classic13", {"dither": 0.5}),
+    ("kaldi_plp", {}),
+    ("kaldi_spectrogram", {}),
+    ("ssc26", {}),
+    ("ssc26", {"dither": 0.5, "remove_dc_offset": True}),
 ]
 BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_no_dc",
-              "logmel80_ln_stab", "logmel80_db", "classic13_dither"]
+              "logmel80_ln_stab", "logmel80_db", "classic13_dither", "kaldi_plp",
+              "kaldi_spectrogram", "ssc26", "ssc26_dither_dc"]
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
 def test_kernel_branches_exact_in_float64(name, overrides):
-    """The dither staging, the conditioning of the pack loop and each log
-    kind reproduce the plain version to ~1e-9 in float64."""
+    """The dither staging, the conditioning of the pack loop, each log kind
+    and each feature kind reproduce the plain version to ~1e-9 in float64."""
     cfg = T_CONFIGS[name].replace(dtype="float64", **overrides)
     audio, lengths = _batch("classic13", ("noise", "short", "tone_offbin"))
     audio = audio[:, :12000].astype(np.float64) * 3000
@@ -336,6 +357,15 @@ def test_kernel_branches_exact_in_float64(name, overrides):
     got = _emulate_kernel(audio, lengths, cfg, np.float64)
     want = _reference(audio, lengths, cfg)
     assert got.shape == want.shape == (3, cfg.num_frames(12000), cfg.n_mels + 1)
+    if cfg.features == "spectrogram":
+        # one log per bin, with no filter sum: float64 FFT roundoff is ~1e-16
+        # of the row's power, which a bin 1e-7 below the row max reads as
+        # ~1e-9 in its log; so the lanes are held in the linear domain
+        M = cfg.n_mels
+        lin_g, lin_w = np.exp(got[..., :M]), np.exp(want[..., :M])
+        rowmax = lin_w.max(axis=-1, keepdims=True)
+        np.testing.assert_allclose(lin_g / rowmax, lin_w / rowmax, rtol=1e-9, atol=1e-12)
+        got, want = got[..., M], want[..., M]
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
 
 
@@ -347,7 +377,7 @@ def test_kernel_branches_float32_within_gates(name, overrides):
     got = _emulate_kernel(pcm, lengths, cfg, np.float32)
     want = _reference(pcm, lengths, cfg)
     valid = lengths >= cfg.frame_length  # rows with a frame under either framing
-    assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind)
+    assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind, cfg.features)
 
 
 def test_emulated_kernel_drop_framing_of_a_short_batch():

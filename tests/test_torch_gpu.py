@@ -1,6 +1,6 @@
 """The CUDA kernels on a card ≡ their plain versions: the front-end kernel
-(with its dither, conditioning and log-kind branches), its fused resample,
-and the polyphase resampler.
+(with its dither, conditioning, log-kind and feature-kind branches), its
+fused resample, and the polyphase resampler.
 
 Every test here is marked `gpu` and skips without a CUDA card (the kernel has
 no CPU mode). The module imports no jax, so it also runs where only the
@@ -13,6 +13,7 @@ Gates: `mfcc_tpu_torch.testing` (those of
 tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin for the prefix,
 each log kind taken to natural log; 1e-5 of the row's max |x| for the
 resampler; 8e-4 for resampled features; 5e-4 / 1e-4 for Kaldi mfcc / fbank
+features; the family gates of PLP, spectrogram and SSC prefixes and
 features).
 """
 
@@ -89,8 +90,8 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio, lengths.long(), cfg)
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
-    with pytest.raises(NotImplementedError, match="SSC"):
-        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["ssc26"])
+    with pytest.raises(NotImplementedError, match="centered framing"):
+        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["whisper80"])
 
 
 def test_extract_batch_on_card_matches_cpu():
@@ -190,16 +191,29 @@ BRANCHES = [
     ("classic13_deltas", {"dither": 0.5}),
     ("mfcc39_48k", {"dither": 0.5}),
     ("kaldi_mfcc", {"input_sample_rate": 48000, "dither": 1.0}),
+    ("kaldi_plp", {}),
+    ("kaldi_spectrogram", {}),
+    ("ssc26", {}),
+    ("ssc26", {"input_sample_rate": 48000}),
+    ("kaldi_plp", {"dither": 1.0}),
 ]
 BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_dither",
               "logmel80_ln_stab", "logmel80_db", "classic13_deltas_dither", "mfcc39_48k_dither",
-              "kaldi_mfcc_48k_dither"]
+              "kaldi_mfcc_48k_dither", "kaldi_plp", "kaldi_spectrogram", "ssc26", "ssc26_48k",
+              "kaldi_plp_dither"]
+
+
+def _branch_counts():
+    return (frontend.launches + frontend.resample_launches, frontend.dither_launches,
+            frontend.conditioning_launches, frontend.plp_launches,
+            frontend.spectrogram_launches, frontend.ssc_launches)
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
 def test_kernel_branches_match_reference(name, overrides):
-    """Each dither, conditioning and log-kind branch ≡ its plain version;
-    int16 ≡ float32 rows, dirty tails ≡ clean and two runs, bitwise."""
+    """Each dither, conditioning, log-kind and feature-kind branch ≡ its
+    plain version; int16 ≡ float32 rows, dirty tails ≡ clean and two runs,
+    bitwise."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
     sr = cfg.input_sample_rate or cfg.sample_rate
@@ -207,15 +221,16 @@ def test_kernel_branches_match_reference(name, overrides):
     b = pad_batch([np.round(sigs[n] * 3000) for n in SIGNALS], cfg, dtype="int16")
     audio = torch.as_tensor(b.audio, device=dev)
     lengths = torch.as_tensor(b.lengths, device=dev)
-    before = (frontend.launches + frontend.resample_launches, frontend.dither_launches,
-              frontend.conditioning_launches)
+    before = _branch_counts()
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
-    assert (frontend.launches + frontend.resample_launches, frontend.dither_launches,
-            frontend.conditioning_launches) == (
-        before[0] + 1, before[1] + (cfg.dither > 0), before[2] + chain.needs_conditioning(cfg))
+    kind = frontend.feature_kind(cfg)
+    assert _branch_counts() == (
+        before[0] + 1, before[1] + (cfg.dither > 0), before[2] + chain.needs_conditioning(cfg),
+        before[3] + (kind == "plp"), before[4] + (kind == "spectrogram"),
+        before[5] + (kind == "ssc"))
     assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
-                        cfg.log_kind)
+                        cfg.log_kind, cfg.features)
     t = torch.arange(audio.shape[1], device=dev)[None]
     dirty = torch.where(t < lengths[:, None], audio, 12345)
     assert torch.equal(got, frontend.logmel_prefix(dirty, lengths, cfg))
@@ -285,3 +300,54 @@ def test_extract_batch_kaldi_and_logmel80_on_card_match_cpu(config_name):
         testing.assert_logmel_close(feat.cpu()[valid], cpu[valid], cfg.log_kind)
     else:
         testing.assert_kaldi_features_close(feat.cpu()[valid], cpu[valid], cfg)
+
+
+def test_spectrogram_stages_no_matrix():
+    """kaldi_spectrogram's identity projection stages no [257, 257] matrix
+    (264 KB, over the block's 227 KB): its launch takes ~50 KB and runs."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["kaldi_spectrogram"]
+    assert 257 * 257 * 4 > rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg) < 64 * 1024
+    audio = torch.zeros((2, 16000), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([16000, 9000], dtype=torch.int32, device=dev)
+    out = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (2, cfg.num_frames(16000), 258)
+    eps = torch.tensor(cfg.log_eps, dtype=torch.float32)
+    assert torch.allclose(out[..., :257].cpu(), torch.log(eps), rtol=1e-6)
+    assert bool((out[..., 257].cpu() == eps).all())
+
+
+@pytest.mark.parametrize("config_name", ["kaldi_plp", "kaldi_spectrogram", "ssc26"])
+def test_extract_batch_families_on_card_match_cpu(config_name):
+    """PLP, spectrogram and SSC features on the card ≡ the CPU chain within
+    the family's fp32 gate, one front-end launch with the family's branch."""
+    _card()
+    cfg = NAMED_CONFIGS[config_name]
+    names = ("noise", "speechish", "short")
+    sigs = golden_signals()
+    b = pad_batch([np.round(sigs[n] * 3000) for n in names], cfg, dtype="int16")
+    counter = f"{cfg.features}_launches"
+    before = (frontend.launches, getattr(frontend, counter))
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    assert feat.device.type == "cuda"
+    assert (frontend.launches, getattr(frontend, counter)) == (before[0] + 1, before[1] + 1)
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+    testing.assert_family_features_close(feat.cpu()[valid], cpu[valid], cfg.features)
+
+
+def test_layout_over_the_block_budget_raises():
+    """A config whose staged matrices overflow the block's 227 KB raises
+    before the launch (230 mel filters: a 236 KB matrix)."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13"].replace(n_mels=230)
+    assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
+    audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
+    before = frontend.launches
+    with pytest.raises(ValueError, match="232,448 bytes"):
+        frontend.logmel_prefix(audio, lengths, cfg)
+    assert frontend.launches == before
