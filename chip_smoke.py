@@ -56,13 +56,38 @@ Phases, in order; any failure exits non-zero:
      `extract_batch` counted (front-end 1 with that branch, conditioning 1
      for the Kaldi configs, the others 0), its features within the family's
      gate of the CPU chain and of the float64 chain on four rows
-     (`testing.FAMILY_GATES`); times.
+     (`testing.FAMILY_GATES`); times;
+  12. path whisper80 (b64 x 30 s int16 [64, 480,000], every row Whisper's
+     padded chunk, 3,000 frames): the centered staging, the Stockham
+     400-point FFT and the log10_floor epilogue against the float64 plain
+     version (prefix gates, log10 lanes read as natural logs), int16 ≡
+     float32; `extract_batch` counted (front-end 1 with its centered and
+     mixed-radix branches), [64, 3000, 80] within 5e-5 of the CPU chain and
+     1e-5 of the float64 chain on four rows (the whisper gates); times;
+  13. whisper80 ragged at b16 (lengths 480,000 - 1,713*i, and 801, 401, 250
+     and 90 samples, which wrap the reflection more than once);
+  14. centered framing with dither: kaldi_mfcc "center" with conditioning
+     and dither 1.0, classic13_deltas "center" with dither and signal
+     pre-emphasis (at the source index, across the reflection seams), b16;
+  15. the direct DFT (classic13 at n_fft 404), b16, timed;
+  16. a radix-3 Stockham size (classic13 at n_fft 480), b16;
+  17. frames longer than n_fft (kaldi_mfcc with 40 ms frames at n_fft 512,
+     with raw and windowed energy), b16;
+  18. rows over the reference's 8 MiB slab bound (its view mode):
+     classic13_deltas at b2 x 140 s, timed.
+  Phases 13-18 each hold the kernel to its plain version (whisper80 and the
+  n_fft 404 and 480 sizes: the float64 plain version), check int16 ≡
+  float32, two runs and dirty tails ≡ clean bitwise, and count
+  `extract_batch` with its features within the config's gate of the CPU
+  chain and the float64 chain.
 Times are CUDA events after warm-up (median of launches with the 64 MiB
 flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
-cores) at the function's minimum: a split-radix 256-point complex FFT, the
-real split with its 1/2 scalings folded into the power scale, the mel sums
+cores) at the function's minimum: an n_fft/2-point complex FFT counted by
+the split-radix formula (whatever form the kernel takes: radix-2, Stockham
+or the direct DFT), the real split with its 1/2 scalings folded into the
+power scale, the mel sums
 over the filters' nonzero weights (none for a spectrogram; for SSC the
 per-bin clamps, two sums per weight and a division per filter, and no
 energy), the logs (none for PLP), the conditioning's passes over each
@@ -93,6 +118,9 @@ import numpy as np
 B, SECONDS = 64, 10
 B_SMALL = 16  # depth of the secondary paths (mfcc39_44k, dithered 48 kHz, kaldi_fbank, db)
 B_LOGMEL80 = 256  # logmel80 is BASELINE config #3, "batch-256"
+WHISPER_SECONDS = 30  # Whisper's padded chunk
+WHISPER_SHORT = [801, 401, 250, 90]  # rows of the ragged whisper80 batch that wrap
+LONG_SECONDS = 140  # 2.24 M samples a row, over the reference's 8 MiB slab (~131 s)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
 BOUNDARY_LENGTHS = [0, 1, 399, 400, 401, 32 * 160 - 1, 32 * 160, 32 * 160 + 1]
@@ -148,6 +176,24 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:965",
     },
+    "whisper": {
+        "name": "frontend_whisper80_mixed_radix_centered",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "direct": {
+        "name": "frontend_direct_dft",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:807",
+    },
+    "long_rows": {
+        "name": "frontend_rows_over_the_slab_bound",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:571",
+    },
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # dither: float operations per sample that holds signal (uniforms 4, ln,
@@ -167,8 +213,8 @@ def check(ok: bool, what: str) -> None:
     print(f"  ok: {what}")
 
 
-def check_prefix(testing, got, want, cfg, what: str) -> dict[str, float]:
-    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind, cfg.features)
+def check_prefix(testing, got, want, cfg, what: str, narrow=None) -> dict[str, float]:
+    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
     print(f"  {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
     failures = testing.prefix_failures(errs)
     check(not failures, f"{what}: within the kernel-vs-plain gates {failures or ''}")
@@ -248,6 +294,9 @@ class Counters:
         self.frontend.plp_launches = 0
         self.frontend.spectrogram_launches = 0
         self.frontend.ssc_launches = 0
+        self.frontend.centered_launches = 0
+        self.frontend.mixed_radix_launches = 0
+        self.frontend.direct_dft_launches = 0
         self.rs_kernel.launches = 0
 
     def read(self) -> dict[str, int]:
@@ -260,6 +309,9 @@ class Counters:
             "plp": self.frontend.plp_launches,
             "spectrogram": self.frontend.spectrogram_launches,
             "ssc": self.frontend.ssc_launches,
+            "centered": self.frontend.centered_launches,
+            "mixed": self.frontend.mixed_radix_launches,
+            "direct": self.frontend.direct_dft_launches,
         }
 
     def expect(self, what: str, **want: int) -> dict[str, int]:
@@ -281,15 +333,23 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     """Operations of the front-end's minimum for rows holding lens16 samples
     at 16 kHz: per sample, signal pre-emphasis and the dither (when cfg has
-    them); per frame that holds samples, the conditioning (when cfg has it),
-    the window, a split-radix 256-point FFT, the real split, |X|^2, then by
-    feature kind: mel over the nonzero weights with a clamp and log per
-    filter (mfcc, logmel) or without (plp), a clamp and log per bin
-    (spectrogram), or SSC's clamp per bin that a filter weighs, two sums
-    per weight and a division per filter; the energy and its clamp (not for
-    SSC)."""
-    M = cfg.n_mels
-    frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens16))
+    them); per frame that holds samples (every frame of a non-empty row
+    under centered framing), the conditioning over its L samples (when cfg
+    has it), the window over the min(L, n_fft) it transforms, an
+    n_fft/2-point complex FFT counted by the split-radix formula
+    4H log2 H - 6H + 8 at H = n_fft/2 (the least count known for a power of
+    two, and below any known count for other sizes: the bound counts the
+    function, not the kernel's radix-2, Stockham or direct form), the real
+    split, |X|^2, then by feature kind: mel over the nonzero weights with a
+    clamp and log per filter (mfcc, logmel) or without (plp), a clamp and log
+    per bin (spectrogram), or SSC's clamp per bin that a filter weighs, two
+    sums per weight and a division per filter; the energy and its clamp (not
+    for SSC)."""
+    M, N, L = cfg.n_mels, cfg.n_fft, cfg.frame_length
+    if chain.centered(cfg):
+        frames = F * int(np.count_nonzero(np.asarray(lens16) > 0))
+    else:
+        frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens16))
     mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
     nnz = int((mel != 0).sum())
     kind = frontend.feature_kind(cfg)
@@ -299,20 +359,21 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
         "spectrogram": 2 * M,
         "ssc": int((mel != 0).any(dim=1).sum()) + 4 * nnz + M,
     }[kind]
-    Lk, N2 = min(cfg.frame_length, frontend.NFFT), frontend.NFFT // 2
+    Lk, H, bins = min(L, N), N / 2, cfg.n_bins
+    real_bins = 2 - N % 2  # DC, and Nyquist for even n_fft
     conditioning = (
-        2 * Lk * cfg.remove_dc_offset  # the mean and the centering
-        + 2 * Lk * (cfg.energy_source != "pspec")  # raw or windowed frame energy
-        + (2 * Lk - 1) * (cfg.preemph_mode == "frame" and cfg.preemph != 0.0)
+        2 * L * cfg.remove_dc_offset  # the mean and the centering
+        + 2 * L * (cfg.energy_source != "pspec")  # raw or windowed frame energy
+        + (2 * L - 1) * (cfg.preemph_mode == "frame" and cfg.preemph != 0.0)
     )
-    per_frame = (
+    per_frame = int(
         conditioning
         + Lk  # window
-        + 4 * N2 * int(math.log2(N2)) - 6 * N2 + 8  # 256-point complex FFT, split radix
-        + 14 * (N2 // 2 - 1) + 2  # real split; its 1/2 scalings fold into pscale
-        + 3 * (N2 - 1) + 2  # |X|^2 (bins 0 and 256 are real)
+        + 4 * H * math.log2(H) - 6 * H + 8  # n_fft/2-point complex FFT, split radix
+        + 14 * (N // 4 - 1) + 2  # real split; its 1/2 scalings fold into pscale
+        + 3 * (bins - real_bins) + real_bins  # |X|^2
         + projection  # pscale folds into the weights
-        + ((N2 + 1) * (cfg.energy_source == "pspec") + 1) * (kind != "ssc")  # energy, clamp
+        + (bins * (cfg.energy_source == "pspec") + 1) * (kind != "ssc")  # energy, clamp
     )
     per_sample = (
         2 * (cfg.preemph_mode == "signal" and cfg.preemph != 0.0)
@@ -354,11 +415,12 @@ def make_batch(pad_batch, cfg, rows: int, n: int, step: int, seed: int):
 
 
 def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | None,
-                   f64_rows: int = 4) -> None:
+                   f64_rows: int = 4, atol64: float | None = None) -> None:
     """Features of the card against the CPU chain and, on the first f64_rows
-    rows, the float64 chain: max |diff| <= atol, or with atol None the
-    family's gate of `testing`: the two-regime log-mel gate for log-mel
-    features, FAMILY_GATES' (atol, rtol) for PLP, spectrogram and SSC."""
+    rows, the float64 chain: max |diff| <= atol (atol64 against float64 when
+    given), or with atol None the family's gate of `testing`: the two-regime
+    log-mel gate for log-mel features, FAMILY_GATES' (atol, rtol) for PLP,
+    spectrogram and SSC."""
     F = feat.shape[1]
     check(tuple(feat.shape) == (batch.audio.shape[0], F, cfg.feat_dim), f"features {tuple(feat.shape)}")
     check(feat.device.type == "cuda" and bool(torch.isfinite(feat).all()), "finite, on the card")
@@ -379,9 +441,10 @@ def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | 
             fails = testing.logmel_failures(errs)
             check(not fails, f"card within the two-regime log-mel gate of the {what} {fails or ''}")
         else:
+            gate_atol = atol64 if atol64 is not None and "float64" in what else atol
             err = float((got.double().cpu() - want.double()).abs().max())
             print(f"  max |card - {what}| = {err:.3e}")
-            check(err <= atol, f"card within {atol} of the {what}")
+            check(err <= gate_atol, f"card within {gate_atol} of the {what}")
 
     cpu_feat, cpu_mask = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
     check(torch.equal(mask.cpu(), cpu_mask), "frame mask equal to the CPU chain's")
@@ -392,10 +455,12 @@ def check_features(torch, chain, testing, batch, cfg, feat, mask, atol: float | 
     gate(feat[:f64_rows].cpu(), f64, f"float64 chain (rows 0-{f64_rows - 1})")
 
 
-def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str) -> tuple[float, float]:
+def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
+               seconds: float = SECONDS) -> tuple[float, float]:
     """extract_batch step on device-resident rows (CUDA events) and host-fed
-    (numpy rows in, host clock), and a profiled step. Returns (step ms, ms
-    of the front-end kernel in the profiled step)."""
+    (numpy rows in, host clock), and a profiled step; a row holds `seconds`
+    of audio. Returns (step ms, ms of the front-end kernel in the profiled
+    step)."""
     rows = audio.shape[0]
     e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
     fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
@@ -403,9 +468,9 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str) ->
         torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
     check(ours_ms > 0, f"the profiler sees the {what} on the card")
     print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
-          f"{rows * SECONDS / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
+          f"{rows * seconds / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
     print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
-          f"{rows * SECONDS / (fed_ms / 1e3):.0f} audio-s/s {tag}")
+          f"{rows * seconds / (fed_ms / 1e3):.0f} audio-s/s {tag}")
     print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
           f"({what} {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
           f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
@@ -414,12 +479,13 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str) ->
 
 def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2, taps: int = 0) -> int:
     """Bytes the front-end must move: each input sample that holds signal,
-    the lengths, the [B, F, M+1] prefix and the window, the [257, M]
+    the lengths, the [B, F, M+1] prefix and the window, the [n_bins, M]
     matrices it reads (mel; none for a spectrogram; mel and melf for SSC),
     band and twiddle tables (and a resample's taps), each once."""
-    M, Lk = cfg.n_mels, min(cfg.frame_length, frontend.NFFT)
-    return (int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4
-            + (Lk + frontend.mel_matrices(cfg) * 257 * M + 2 * M + 512 + taps) * 4)
+    M = cfg.n_mels
+    tables = (cfg.frame_length + frontend.mel_matrices(cfg) * cfg.n_bins * M + 2 * M
+              + 2 * frontend.twiddle_count(cfg.n_fft) + taps)
+    return int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4 + tables * 4
 
 
 def family_path(torch, counters, name: str, seed: int, phase: int, tag: str) -> tuple[str, dict]:
@@ -484,6 +550,252 @@ def family_path(torch, counters, name: str, seed: int, phase: int, tag: str) -> 
         launches=launches[kind], max_abs_err=errs["max_abs"], ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
     )
+
+
+def kernel_times(torch, chain, frontend, cfg, audio, lengths, F: int,
+                 plain_reps: int = 10) -> tuple[float, float, float]:
+    """(kernel ms, plain version ms, torch.fft.rfft(n=n_fft) ms on the
+    pre-framed windowed frames [B*F, L]: the DFT only) at cfg's shapes."""
+    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg),
+                       reps=plain_reps)
+    st = chain.logmel_stages(audio, lengths, cfg)
+    framed = st["windowed"].reshape(audio.shape[0] * F, -1).contiguous()
+    del st
+    rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
+    return kernel_ms, plain_ms, rfft_ms
+
+
+def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str) -> dict[str, float]:
+    """The kernel against the plain version computed in float64 (the gate:
+    at these sizes the fp32 plain version is itself ~2e-5 from float64 on
+    loud bins of narrow filters), with the fp32 plain version's errors
+    printed beside. whisper80's narrow lanes (filters of at most two
+    weights) take the per-bin gate (`testing.narrow_lanes`)."""
+    narrow = None
+    if cfg.logmel_norm == "whisper":
+        from mfcc_tpu_torch.ops import constants
+
+        narrow = testing.narrow_lanes(constants.chain_constants(cfg)["mel"])
+        print(f"  {int(narrow.sum())} of {cfg.n_mels} lanes narrow (at most "
+              f"{testing.NARROW_WEIGHTS} weights): the per-bin gate")
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    errs32 = testing.prefix_errors(got, plain, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
+    del plain
+    print(f"  {what}, kernel vs the fp32 plain version: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs32.items()))
+    plain64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
+    return check_prefix(testing, got, plain64, cfg, f"{what}, vs the float64 plain version",
+                        narrow)
+
+
+def pcm_batch(pad_batch, cfg, lengths, bucket: int, seed: int):
+    g = np.random.default_rng(seed)
+    utts = [(g.standard_normal(n) * 3000).astype(np.int16) for n in lengths]
+    return pad_batch(utts, cfg, bucket_len=bucket, dtype="int16")
+
+
+def whisper_gate(testing, got, want, atol: float, what: str) -> None:
+    """whisper80 features (rtol 0) within atol, the two-regime errors printed."""
+    err = float((got.double().cpu() - want.double()).abs().max())
+    errs = testing.whisper_feature_errors(got.cpu(), want)
+    print(f"  max |card - {what}| = {err:.3e}; two-regime: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    check(err <= atol, f"card within {atol} of the {what}")
+
+
+def whisper_path(torch, counters, tag: str) -> dict:
+    """whisper80 at b64 x 30 s int16 [64, 480,000], every row Whisper's
+    padded 30 s chunk (its last frame reads past the end and reflects): the
+    kernel's centered staging, Stockham 400-point FFT and log10_floor against
+    the float64 plain version; extract_batch counted, [64, 3000, 80] within
+    5e-5 of the CPU chain and 1e-5 of the float64 chain; times."""
+    import types
+
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+
+    cfg = named_config("whisper80")
+    n = cfg.sample_rate * WHISPER_SECONDS
+    pcm = (np.random.default_rng(16).standard_normal((B, n)) * 3000).astype(np.int16)
+    lens = np.full(B, n, np.int32)
+    F, M = cfg.num_frames(n), cfg.n_mels
+    audio = torch.as_tensor(pcm, device="cuda")
+    lengths = torch.as_tensor(lens, device="cuda")
+    print(f"== 12. path whisper80 b{B} x {WHISPER_SECONDS} s int16 [{B}, {n}], {F} frames, n_fft "
+          f"{cfg.n_fft} ({frontend.dft_form(cfg.n_fft)}, radices {frontend.radices(cfg.n_fft)}), "
+          f"{frontend.smem_bytes(cfg)} B of shared memory a block")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, centered=1, mixed=1)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "log10_floor, main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    del got
+
+    counters.zero()
+    feat, mask = chain.extract_batch(pcm, lens, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1, centered=1, mixed=1)
+    check(tuple(feat.shape) == (B, F, M) and feat.device.type == "cuda"
+          and bool(torch.isfinite(feat).all()), f"features {tuple(feat.shape)}, finite, on the card")
+    cpu_feat, cpu_mask = chain.extract_batch(pcm, lens, cfg, device="cpu")
+    check(torch.equal(mask.cpu(), cpu_mask) and bool((cpu_mask == 1).all()),
+          "frame mask equal to the CPU chain's, every frame valid")
+    whisper_gate(testing, feat, cpu_feat, testing.WHISPER_ATOL, "CPU chain")
+    del cpu_feat
+    f64, _ = chain.extract_batch(pcm[:4], lens[:4], cfg.replace(dtype="float64"), device="cpu")
+    whisper_gate(testing, feat[:4], f64, testing.WHISPER_ORACLE_ATOL, "float64 chain (rows 0-3)")
+    del feat, mask, f64
+
+    print(f"  times {tag}")
+    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F, 5)
+    lens64 = lens.astype(np.int64)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens64, F))
+    print(f"  frontend kernel, whisper80 (centered, Stockham 400, log10_floor): {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version (torch gather + rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  torch.fft.rfft(n={cfg.n_fft}) on [{B * F}, {cfg.frame_length}] pre-framed "
+          f"(DFT only): {rfft_ms:.4f} ms {tag}")
+    step_times(torch, chain, types.SimpleNamespace(audio=pcm, lengths=lens), audio, lengths, cfg,
+               "front-end kernel", tag, seconds=WHISPER_SECONDS)
+    return dict(launches=launches["mixed"], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+
+
+def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int, what: str,
+               atol: float, atol64: float | None = None, prefix64: bool = False):
+    """One config at a small batch: the kernel counted against its plain
+    version (or the float64 plain version), int16 == float32, two runs and
+    dirty tails == clean, bitwise; extract_batch counted, features within
+    atol of the CPU chain (atol64 of the float64 chain). Returns (batch,
+    rows on the card, the prefix gate's errors, the main path's counts)."""
+    from mfcc_tpu_torch import testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    batch = pcm_batch(pad_batch, cfg, lengths, bucket, seed)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths_d = torch.as_tensor(batch.lengths, device="cuda")
+    F = cfg.num_frames(batch.audio.shape[1])
+    form = frontend.dft_form(cfg.n_fft)
+    branches = {k: 1 for k, on in (
+        ("centered", chain.centered(cfg)), ("mixed", form == "mixed"), ("direct", form == "direct"),
+        ("dither", cfg.dither > 0.0), ("conditioning", chain.needs_conditioning(cfg))) if on}
+    print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
+          f"{frontend.smem_bytes(cfg)} B of shared memory a block")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths_d, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, **branches)
+    if prefix64:
+        errs = check_prefix64(testing, frontend, got, audio, lengths_d, cfg, what)
+    else:
+        errs = check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths_d, cfg),
+                            cfg, what)
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths_d, cfg))
+          and torch.equal(got, frontend.logmel_prefix(audio, lengths_d, cfg)),
+          "int16 rows == float32 rows, and two runs equal, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths_d, seed),
+                                                  lengths_d, cfg)),
+          "garbage past each length leaves the output unchanged")
+    del got
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("extract_batch", frontend=1, **branches)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, atol, atol64=atol64)
+    return batch, audio, lengths_d, errs, launches
+
+
+def new_form_paths(torch, counters, tag: str, results: dict) -> None:
+    """Phases 13-18: whisper80 ragged, centered framing with conditioning
+    and dither, the direct DFT (n_fft 404, timed), a radix-3 Stockham size
+    (n_fft 480), frames longer than n_fft, and rows over the reference's
+    8 MiB slab bound (timed)."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+
+    n16 = 16000 * SECONDS
+    n30 = 16000 * WHISPER_SECONDS
+    ragged = [n30 - 1713 * i for i in range(B_SMALL - len(WHISPER_SHORT))] + WHISPER_SHORT
+    print(f"== 13. path whisper80, ragged b{B_SMALL} x 30 s (lengths 480,000 - 1,713 i and "
+          f"{WHISPER_SHORT})")
+    small_path(torch, counters, named_config("whisper80"), ragged, n30, 18, "whisper80 ragged",
+               testing.WHISPER_ATOL, testing.WHISPER_ORACLE_ATOL, prefix64=True)
+
+    print("== 14. centered framing with conditioning and dither")
+    lens = [n16 - 571 * i for i in range(B_SMALL - 2)] + [250, 90]
+    cfg = named_config("kaldi_mfcc").replace(frame_tail="center", dither=1.0)
+    small_path(torch, counters, cfg, lens, n16, 19, "kaldi_mfcc center, dither 1.0",
+               testing.KALDI_MFCC_ATOL)
+    cfg = named_config("classic13_deltas").replace(frame_tail="center", dither=1.0)
+    small_path(torch, counters, cfg, lens, n16, 20,
+               "classic13_deltas center, dither 1.0 (signal pre-emphasis at the source index)",
+               testing.FEATURE_ATOL)
+
+    print(f"== 15. the direct DFT: classic13 n_fft 404 b{B_SMALL} x {SECONDS} s")
+    cfg = named_config("classic13").replace(n_fft=404)
+    lens = [n16 - 571 * i for i in range(B_SMALL)]
+    batch, audio, lengths, errs, launches = small_path(
+        torch, counters, cfg, lens, n16, 21, "classic13 n_fft 404", testing.FEATURE_ATOL,
+        prefix64=True)
+    F = cfg.num_frames(batch.audio.shape[1])
+    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+    lens64 = batch.lengths.astype(np.int64)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B_SMALL, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens64, F))
+    print(f"  frontend kernel, direct DFT at n_fft 404: {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version: {plain_ms:.4f} ms; torch.fft.rfft(n=404) on [{B_SMALL * F}, "
+          f"{cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms {tag}")
+    results["direct"] = dict(launches=launches["direct"], max_abs_err=errs["max_abs"],
+                             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=rfft_ms)
+    r2_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=512)))
+    print(f"  the same rows at n_fft 512 (radix-2): {r2_ms:.4f} ms {tag}")
+    del audio, lengths
+
+    print(f"== 16. a radix-3 Stockham size: classic13 n_fft 480 (240 = 4*4*3*5) b{B_SMALL}")
+    cfg = named_config("classic13").replace(n_fft=480)
+    _, audio, lengths, _, _ = small_path(torch, counters, cfg, lens, n16, 22,
+                                         "classic13 n_fft 480", testing.FEATURE_ATOL, prefix64=True)
+    print(f"  frontend kernel at n_fft 480: "
+          f"{cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg)):.4f} ms {tag}")
+    del audio, lengths
+
+    print(f"== 17. frames longer than n_fft: kaldi_mfcc 40 ms frames at n_fft 512 b{B_SMALL}")
+    cfg = named_config("kaldi_mfcc").replace(win_len_s=0.040, n_fft=512)
+    small_path(torch, counters, cfg, lens, n16, 23, "kaldi_mfcc L 640", testing.KALDI_MFCC_ATOL)
+    cfg = cfg.replace(energy_source="windowed_frame", dither=1.0)
+    small_path(torch, counters, cfg, lens, n16, 24, "kaldi_mfcc L 640, windowed energy, dither",
+               testing.KALDI_MFCC_ATOL)
+
+    n = 16000 * LONG_SECONDS
+    print(f"== 18. rows over the reference's 8 MiB slab bound: classic13_deltas b2 x "
+          f"{LONG_SECONDS} s ({n:,} samples a row)")
+    cfg = named_config("classic13_deltas")
+    batch, audio, lengths, errs, launches = small_path(
+        torch, counters, cfg, [n, n - 16001], n, 25, "classic13_deltas 140 s",
+        testing.FEATURE_ATOL)
+    F = cfg.num_frames(batch.audio.shape[1])
+    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+    lens64 = batch.lengths.astype(np.int64)
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, 2, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens64, F))
+    print(f"  frontend kernel, b2 x {LONG_SECONDS} s: {kernel_ms:.4f} ms "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  plain version: {plain_ms:.4f} ms; torch.fft.rfft on [{2 * F}, 512] (DFT only): "
+          f"{rfft_ms:.4f} ms {tag}")
+    results["long_rows"] = dict(launches=launches["frontend"], max_abs_err=errs["max_abs"],
+                                ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, library_ms=rfft_ms)
 
 
 def main() -> int:
@@ -688,12 +1000,13 @@ def main() -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
-        ("a config the port lacks (whisper80)",
+        ("a front-end layout over the block's shared memory (n_fft 2048)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("whisper80")), NotImplementedError),
-        ("conditioning of frames over 512 samples",
+                                     named_config("classic13").replace(n_fft=2048)),
+         NotImplementedError),
+        ("centered framing of resampled rows (whisper80 at 48 kHz)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("kaldi_mfcc").replace(win_len_s=0.040)),
+                                     named_config("whisper80").replace(input_sample_rate=48000)),
          NotImplementedError),
     ):
         try:
@@ -915,6 +1228,11 @@ def main() -> int:
     for phase, (name, seed) in enumerate(FAMILY_PATHS, start=9):
         feature_kind, numbers = family_path(torch, counters, name, seed, phase, tag)
         results[feature_kind] = numbers
+
+    # 12-18. whisper80, centered framing, the direct and mixed-radix DFTs,
+    # long frames and long rows
+    results["whisper"] = whisper_path(torch, counters, tag)
+    new_form_paths(torch, counters, tag, results)
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

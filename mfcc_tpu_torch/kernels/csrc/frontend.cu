@@ -2,20 +2,25 @@
 //
 // Replaces mfcc_tpu/kernels/frontend.py::_make_radix4_kernel (:905), slab
 // mode, launched from _fused_logmel_energy (:1295) through pl.pallas_call
-// (:1552), with its dither, frame-first conditioning, ln / ln_stab / db /
-// ln_floor epilogue branches and its PLP, spectrogram and SSC feature
-// kinds. Plain version and wrapper:
+// (:1552), at N2 = 128 and at whisper80's N2 = 100 with the host reflect
+// extension _reflect_extend (:1572-1640) and the log10_floor epilogue
+// (:701); _make_kernel (:807-897) with kernel_constants (:160-241), the
+// direct DFT of the fp32 dft_passes route, for the sizes radix-4 cannot
+// tile; and the dither, frame-first conditioning, log-kind and PLP,
+// spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
 //
-// Per utterance b and frame f < F (default branches):
+// Per utterance b and frame f < F (default branches; N = n_fft):
 //   x[t]   = float(audio[b, t]) * scale              (int16 or float32 rows)
 //   y[t]   = x[t] - c * x[t-1], x[-1] = 0; then y[t] = 0 for t >= lengths[b]
-//   X[k]   = rfft(y[f*S : f*S+L] * window, n=512)    (zero past T and past L)
-//   P[k]   = |X[k]|^2 * pscale                       (k < 257)
+//   X[k]   = rfft(y[f*S + o : f*S + o + L] * window, n=N)  (zero past T, and
+//            past N for frames longer than N; o = 0 unless centered)
+//   P[k]   = |X[k]|^2 * pscale                       (k < N/2 + 1)
 //   out[b, f, m] = ln(where(mel_m <= 0, eps, mel_m)), mel_m = sum_k P[k] mel[k, m]
 //   out[b, f, M] = where(E <= 0, eps, E),             E = sum_k P[k] (unlogged)
-// The dither, conditioning and log-kind branches are described below.
+// The dither, conditioning, framing, DFT and log-kind branches are
+// described below.
 //
 // Bound at the main path (classic13_deltas, batch 64 x 10 s, int16 rows,
 // T = 160,080, F = 999, M = 26; H100 SXM peaks):
@@ -28,33 +33,72 @@
 //     sample of pre-emphasis = 0.634 GFLOP -> 9.47 us at 67 TFLOP/s fp32.
 //     The operations set the bound; chip_smoke.py computes it from each
 //     run's inputs. This kernel's radix-2 form does ~14.8 k per frame.
-//   A dense [257, 27] projection would add ~13 kFLOP per frame, and a direct
-//   DFT ~400 kFLOP per frame (~0.39 ms at this batch).
 //
 // Design. One block per (utterance, tile of 32 frames), 8 warps:
-//   1. The tile's sample span, 31*160+400 = 5,360 samples, is staged once in
-//      shared memory as fp32 after convert, pre-emphasis and zeroing. Each
-//      input byte is read about once (the 240-sample overlap between tiles
-//      and the x[t-1] re-read are served by L1/L2); pre-emphasis reads the
-//      previous tile's last sample from global memory, so only t = 0 sees
-//      x[-1] = 0. Zeroing follows pre-emphasis, so y[length] = 0, and it
-//      does not rely on the padding being zero.
-//   2. Each warp takes one frame at a time: the windowed frame is packed as
-//      256 complex points (even samples real, odd imaginary) in bit-reversed
-//      order, and an in-place radix-2 FFT runs in shared memory with
-//      __syncwarp between stages. Twiddles come from a host table computed
-//      in float64 (no in-kernel sincosf). Every sum is fp32 FMA: no TF32,
-//      no bf16 (1-pass reduced precision breaks the 1e-4 log-mel gate,
-//      docs/KERNEL.md section 3).
-//   3. The real split gives X[k] and X[256-k] from Z[k] and Z[256-k]; |X|^2
-//      goes to a per-warp shared row of 257 powers.
+//   1. The tile's sample span, 31*S + L samples (5,360 at S = 160, L = 400),
+//      is staged once in shared memory as fp32 after convert, pre-emphasis
+//      and zeroing. Each input byte is read about once (the overlap
+//      between tiles and the x[t-1] re-read are served by L1/L2);
+//      pre-emphasis reads the previous tile's last sample from global
+//      memory, so only t = 0 sees x[-1] = 0. Zeroing follows pre-emphasis,
+//      so y[length] = 0, and it does not rely on the padding being zero.
+//   2. Each warp takes one frame at a time and packs its first min(L, N)
+//      windowed samples (rfft's truncation) into the warp's DFT row.
+//   3. The DFT, by a warp-uniform switch on the form the host picked from N
+//      (no template flag: the build keeps 16 instantiations):
+//      (a) N a power of two: N/2 complex points (even samples real, odd
+//          imaginary) in bit-reversed order, an in-place radix-2 DIT FFT
+//          with __syncwarp between stages;
+//      (b) N even, N/2 = a product of 2, 3, 4 and 5 (whisper80: 200 =
+//          4*2*5*5): the same packing in natural order, then a Stockham
+//          (autosort) FFT that ping-pongs between the warp's two rows of N/2
+//          float2 (1.6 KB each at N = 400), so no mixed-radix digit reversal
+//          is needed; radix-3 and radix-5 butterflies use float64 constants
+//          rounded once, and stage twiddles e^{-2 pi i j/(N/2)} are the even
+//          entries of the table of e^{-2 pi i k/N}, k < N/2 (negated past
+//          its end);
+//      (c) every other N, odd ones included (N = 404: N/2 = 2*101): a direct
+//          DFT, lane k summing X[k] = sum_n v[n] e^{-2 pi i ((k n) mod N)/N}
+//          with the exact integer index into a table of all N entries; it
+//          costs O(N * bins) a frame and is meant for the sizes nothing
+//          else takes, not for speed.
+//      Every table is computed on the host in float64 (no in-kernel
+//      sincosf); every sum is fp32 FMA: no TF32, no bf16 (1-pass reduced
+//      precision breaks the 1e-4 log-mel gate, docs/KERNEL.md section 3).
+//      For (a) and (b) the real split gives X[k] and X[N/2-k] from Z[k] and
+//      Z[N/2-k] (k <= N/4, once at 2k = N/2); |X|^2 goes to a per-warp row
+//      of N/2 + 1 powers, indexed by bin in all three forms (for (b) it is
+//      the FFT's free ping-pong row), so the feature kinds are unchanged.
 //   4. Lane m sums filter m over its nonzero band [mel_lo[m], mel_hi[m])
-//      (exact: the skipped weights are zero), takes the clamp and ln; the
+//      (exact: the skipped weights are zero), takes the clamp and log; the
 //      energy (the all-ones column of the TPU kernel) is a warp sum of all
-//      257 powers. Nothing but the [F, M+1] prefix reaches device memory.
-// It is far from the bound: the shared-memory radix-2 FFT is latency-bound
-// (one frame per warp, a __syncwarp per stage). Register-resident radix-8/16
+//      the powers. Nothing but the [F, M+1] prefix reaches device memory.
+// It is far from the bound: the shared-memory FFT is latency-bound (one
+// frame per warp, a __syncwarp per stage). Register-resident radix-8/16
 // FFTs with several frames per warp are the next step.
+//
+// Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
+// its host twin, which write a reflect-extended float32 slab). Frame f
+// starts at f*S + o, o = S/2 - L/2 ("center", Kaldi snip_edges=false) or
+// -(L/2) ("center_reflect", torch.stft center=True); no extension pass
+// and no host rows: the staged position t = f0*S + o + i maps to the
+// source index r = reflect(t, max(len, 1)) (ops/chain.py reflect_index,
+// any number of wraps), and the kernel reads row[r] as int16 or float32.
+// The reference pre-emphasizes, dithers and zeroes the flat signal before
+// it reflects, so the staged value is y[r] = x[r] - c x[r-1] at the SOURCE
+// index (x[-1] = 0, the noise keyed on r, y = 0 for a length-0 row), not
+// the difference of two staged neighbours, which differ at the seams.
+// Frame-first conditioning works on the staged frame and needs nothing new.
+//
+// Bound at whisper80 (batch 64 x 30 s int16, all lengths 480,000, T =
+// 480,240, F = 3,000, M = 80, N = 400): bytes 61.4 MB in + 62.2 MB of
+// [64, 3000, 81] out = 123.6 MB -> ~37 us; operations ~8.6 k a frame at the
+// function's minimum (a 200-point complex FFT counted by the split-radix
+// formula, the real split, |X|^2, 80 Slaney filters over their nonzero
+// weights, 80 log10 and the energy) x 192,000 frames ~ 1.65 GFLOP -> ~25
+// us: bytes bound it, a little. chip_smoke.py computes both from each
+// run's inputs. Shared memory: 114,560 B (64 KB of [201, 80] mel), two
+// blocks an SM.
 //
 // Fused resample (kResample; entry mfcc_frontend_logmel_resample). Replaces
 // the in-kernel resample of mfcc_tpu/kernels/frontend.py::_gather_frames
@@ -71,7 +115,7 @@
 // signal row, which reuses the input window's memory. The resampled signal
 // never reaches device memory. Shared memory at 44.1 kHz (up = 160,
 // K = 56): 14,830-sample window + 35.8 KB table + the 21.5 KB x row on top
-// of the 55.5 KB above = 172 KB, one block per SM.
+// of the 55.5 KB above = 172 KB, one block per SM. No centered framing.
 // Bound at mfcc39_48k (batch 64 x 10 s int16, lengths 480,000 - 1,713*i):
 //   bytes: 54.5 MB int16 in + 6.9 MB out -> ~18 us;
 //   operations: 91 FLOP per output sample that holds signal (61 symmetric
@@ -80,7 +124,7 @@
 //
 // Dither (kDither; replaces _gather_frames' slab dither, frontend.py
 // :537-546, and the hash of mfcc_tpu/ops/dither.py::dither_field :113-136).
-// Every staged sample 0 <= t < length (at 16 kHz: output positions in the
+// Every source sample 0 <= t < length (at 16 kHz: output positions in the
 // fused form, masked at the output length) becomes
 //   x[t] + sigma * noise(t),  noise(t) = BoxMuller16(fmix32(fmix32(
 //       (t / S) * GOLDEN ^ seed') + t % S)),  seed' = fmix32(seed) (host)
@@ -90,7 +134,8 @@
 // an FMA and they stay bit-equal to the numpy contract; only logf and sqrtf
 // may differ by ulps. The plain form stages x[t0-1 .. t0+span) once,
 // dithered, in a shared row (as the fused form's resampled row), and
-// pre-emphasizes from there, so the hash runs once per staged sample.
+// pre-emphasizes from there, so the hash runs once per staged sample;
+// centered framing hashes x[r] (and x[r-1] when c != 0) per staged sample.
 // Cost per sample that holds signal: 30 float operations (uniforms 4, ln,
 // -2x, sqrt, cos 20, r cos, sigma n, the add) and 25 integer ones (two
 // fmix32, the row key, t / S and t % S, the 16-bit halves and their
@@ -100,19 +145,23 @@
 // _win_energy_np :244-251, and the staging without pre-emphasis of
 // _gather_preemph :1643-1651): the staged signal is x zeroed at t >= length
 // (the host passes preemph = 0 in "frame" mode), and per frame, in the
-// warp that transforms it, over the frame's L <= 512 samples f[n]:
+// warp that transforms it, over ALL of the frame's L samples f[n] (L may
+// exceed N: the span stages all L, as the TPU kernel widens its chunk
+// window, frontend.py:303-307, and only the first N are transformed):
 //   mu   = sum f / L (remove_dc; else 0), a warp sum;
 //   E    = sum (f - mu)^2 (raw_frame; a second pass over shared memory,
 //          not sum f^2 - L mu^2, which cancels);
 //   g[0] = (f0 - mu)(1 - c), g[n] = (fn - mu) - c (fn-1 - mu) (c = 0
 //          outside "frame" mode), folded into the pack loop, which reads
 //          fr[a] and fr[a-1] from the staged row (no extra shared memory);
-//   E    = sum (w g)^2 (windowed_frame), from the packed values;
+//   E    = sum (w g)^2 (windowed_frame), from the packed values and a pass
+//          over the samples past N;
 // and lane M holds max(E, eps) for the two frame energies.
 //
 // Epilogue log kinds (_make_epilogue :693-702), a warp-uniform switch:
 //   ln: ln(where(m <= 0, eps, m)); ln_stab: ln(m + 1e-6);
-//   db: 10 log10(where(m <= 0, eps, m)); ln_floor: ln(max(m, eps)).
+//   db: 10 log10(where(m <= 0, eps, m)); ln_floor: ln(max(m, eps));
+//   log10_floor: log10f(max(m, eps)) (CUDA's log10f, not ln times 1/ln 10).
 // logmel80 (M = 80): the [257][80] mel matrix takes 82 KB of shared memory,
 // 132 KB in all, so one block fits an SM.
 //
@@ -132,10 +181,10 @@
 //   plp (the PLP branch, :682-692): o[m] = the band sum, unlogged; lane M
 //     the energy. ops/chain.py plp_base does the rest in tensor code.
 //   spectrogram (the multi-tile output, :308-311): the identity projection,
-//     o[m] = log kind of P[m] for m < M = 257, lane M the energy. No matrix
-//     is staged (257 x 257 floats are 264 KB, over the 227 KB a block may
-//     have; 50 KB in all at kaldi_spectrogram), and the lane loop covers the
-//     258 output lanes in 9 warp passes.
+//     o[m] = log kind of P[m] for m < M = N/2 + 1, lane M the energy. No
+//     matrix is staged (257 x 257 floats are 264 KB, over the 227 KB a
+//     block may have; 50 KB in all at kaldi_spectrogram), and the lane loop
+//     covers the 258 output lanes in 9 warp passes.
 //   ssc (:965-975 and epilogue_ssc :673-677): per bin q[k] = P[k] <= 0 ?
 //     eps : P[k], then o[m] = sum q[k] melf[k, m] / sum q[k] mel[k, m] over
 //     the band (IEEE division), with melf[k, m] = f_k mel[k, m] rounded once
@@ -156,61 +205,29 @@
 
 namespace {
 
-constexpr int kNfft = 512;
-constexpr int kHalf = kNfft / 2;      // complex FFT size
-constexpr int kLog2Half = 8;
-constexpr int kBins = kNfft / 2 + 1;  // 257
-constexpr int kTile = 32;             // frames per block
+constexpr int kTile = 32;  // frames per block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPowStride = 260;       // per-warp power row, padded to 16 B
+constexpr int kMaxStages = 16;  // Stockham stages, 3 bits each in Params::radices
 
-// energy_source and log_kind codes (kernels/frontend.py ENERGY_SOURCES, LOG_KINDS)
+// energy_source, log_kind, feature_kind, DFT form and reflection codes
+// (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
+// kernels/frontend.py FEATURE_KINDS, DFT_FORMS, CENTER_CODES)
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
-enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3 };
-// feature_kind codes (kernels/frontend.py FEATURE_KINDS)
+enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
+enum { kRadix2 = 0, kMixed = 1, kDirect = 2 };
+enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
-
-// Staged [257, M] matrices, in floats: mel (none for the spectrogram's
-// identity), then melf for ssc.
-__host__ __device__ inline int mel_floats(int feature_kind, int M) {
-  const int one = align4(kBins * M);
-  return feature_kind == kSpectrogram ? 0 : feature_kind == kSsc ? 2 * one : one;
-}
-
-// Dynamic shared memory layout, in floats (every offset 16-byte aligned).
-// in_len and taps are the fused resample's input window and tap table (0
-// without it); the signal row at offset 0 holds the input window first. xs
-// is the staged x[t0-1 .. t0+span) row of the fused resample and of dither.
-// kernels/frontend.py smem_bytes mirrors it.
-struct Layout {
-  int span, win, mel, tw, buf, pw, xs, tab, total;
-};
-
-__host__ __device__ inline Layout layout(int S, int L, int mels, int in_len, int taps,
-                                         bool xs) {
-  Layout l;
-  l.span = (kTile - 1) * S + L;
-  l.win = align4(l.span > in_len ? l.span : in_len);
-  l.mel = l.win + kNfft;
-  l.tw = l.mel + mels;
-  l.buf = l.tw + 2 * kHalf;
-  l.pw = l.buf + 2 * kHalf * kWarps;
-  l.xs = l.pw + kPowStride * kWarps;
-  l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
-  l.total = l.tab + align4(taps);
-  return l;
-}
-
-__host__ __device__ inline int resample_window(int S, int L, const Polyphase& pp) {
-  return pp_input_span((kTile - 1) * S + L + 1, pp);  // x[t0-1 .. t0+span)
-}
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Per-config scalars of one launch.
 struct Params {
   int T, F, L, S, M;
+  // DFT size and form; frame 0's first sample (0, S/2 - L/2 or -(L/2)) and
+  // the reflection kind of centered framing
+  int n_fft, form, offset, center;
   float scale, preemph, eps, pscale;
   // dither (kDither): sigma and the host-premixed seed fmix32(seed)
   float dither;
@@ -219,7 +236,54 @@ struct Params {
   int remove_dc, energy_source, log_kind;
   float frame_preemph, frame_keep0;
   int feature_kind;
+  // the DFT plan, derived on the host (plan()): half = n_fft / 2,
+  // bins = n_fft / 2 + 1, log2 of half (radix-2), and the Stockham radices
+  // of the mixed form, stage s in bits [3s, 3s + 3)
+  int half, bins, log2half, nstages;
+  unsigned long long radices;
 };
+
+// Staged [bins, M] matrices, in floats: mel (none for the spectrogram's
+// identity), then melf for ssc.
+__host__ __device__ inline int mel_floats(const Params& p) {
+  const int one = align4(p.bins * p.M);
+  return p.feature_kind == kSpectrogram ? 0 : p.feature_kind == kSsc ? 2 * one : one;
+}
+
+// e^{-2 pi i k / n_fft} for k < half (the two FFT forms) or k < n_fft (direct)
+__host__ __device__ inline int twiddle_count(const Params& p) {
+  return p.form == kDirect ? p.n_fft : p.half;
+}
+
+// Dynamic shared memory layout, in floats (every offset 16-byte aligned):
+// the signal row at 0 (the fused resample's input window first, in_len
+// floats), then the window, the matrices, the twiddles, the per-warp DFT
+// rows (mixed form: two ping-pong rows of half float2, the free one of
+// which then holds the powers) and power rows, the staged x[t0-1 ..
+// t0+span) row of the fused resample and of dither, and the resample's tap
+// table (taps = 0 without it). kernels/frontend.py smem_bytes mirrors it.
+struct Layout {
+  int span, win, mel, tw, buf, per_warp, pw, xs, tab, total;
+};
+
+__host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, bool xs) {
+  Layout l;
+  l.span = (kTile - 1) * p.S + p.L;
+  l.win = align4(imax(l.span, in_len));
+  l.mel = l.win + align4(imax(p.L, p.n_fft));
+  l.tw = l.mel + mel_floats(p);
+  l.buf = l.tw + align4(2 * twiddle_count(p));
+  l.per_warp = align4(p.form == kMixed ? 2 * p.n_fft : p.n_fft);
+  l.pw = l.buf + l.per_warp * kWarps;
+  l.xs = l.pw + (p.form == kMixed ? 0 : align4(p.bins) * kWarps);
+  l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
+  l.total = l.tab + align4(taps);
+  return l;
+}
+
+__host__ __device__ inline int resample_window(const Params& p, const Polyphase& pp) {
+  return pp_input_span((kTile - 1) * p.S + p.L + 1, pp);  // x[t0-1 .. t0+span)
+}
 
 __device__ inline float to_f32(int16_t v) { return static_cast<float>(v); }
 __device__ inline float to_f32(float v) { return v; }
@@ -271,12 +335,194 @@ __device__ inline float dithered(float x, uint32_t t, const Params& p) {
   return __fadd_rn(x, __fmul_rn(p.dither, n));
 }
 
+// The source sample x[t] (0 <= t < length): converted, scaled, and under
+// kDither plus the contract noise keyed on t.
+template <bool kDither, typename Sample>
+__device__ inline float source(const Sample* row, long long t, const Params& p) {
+  const float x = to_f32(row[t]) * p.scale;
+  if constexpr (kDither) return dithered(x, static_cast<uint32_t>(t), p);
+  return x;
+}
+
+// ops/chain.py reflect_index: t -> [0, n), n >= 1. "center" repeats the
+// edge sample (period 2n), "center_reflect" does not (period 2(n-1), 1 at
+// n = 1). Indices inside the row map to themselves without a division.
+__device__ inline long long reflect(long long t, long long n, int kind) {
+  if (t >= 0 && t < n) return t;
+  const long long per = kind == kCenter ? 2 * n : (n > 1 ? 2 * n - 2 : 1);
+  long long m = t % per;
+  if (m < 0) m += per;
+  if (m < n) return m;
+  return kind == kCenter ? 2 * n - 1 - m : 2 * n - 2 - m;
+}
+
 __device__ inline float log_lane(float m, const Params& p) {
   switch (p.log_kind) {
     case kLnStab: return logf(m + 1e-6f);
     case kDb: return 10.f * log10f(m <= 0.f ? p.eps : m);
     case kLnFloor: return logf(fmaxf(m, p.eps));
+    case kLog10Floor: return log10f(fmaxf(m, p.eps));
     default: return logf(m <= 0.f ? p.eps : m);
+  }
+}
+
+__device__ inline float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+
+// R-point forward DFTs, X[q] = sum_r v[r] e^{-2 pi i r q / R}, in place.
+// Constants are float64 values rounded once to float32 (no sincosf).
+template <int R>
+__device__ inline void dft_small(float2 (&v)[R]);
+
+template <>
+__device__ inline void dft_small<2>(float2 (&v)[2]) {
+  const float2 a = v[0], b = v[1];
+  v[0] = make_float2(a.x + b.x, a.y + b.y);
+  v[1] = make_float2(a.x - b.x, a.y - b.y);
+}
+
+template <>
+__device__ inline void dft_small<3>(float2 (&v)[3]) {
+  const float s = 0x1.bb67aep-1f;  // sin(2 pi / 3)
+  const float2 t1 = make_float2(v[1].x + v[2].x, v[1].y + v[2].y);
+  const float2 t2 = make_float2(v[1].x - v[2].x, v[1].y - v[2].y);
+  const float2 a = make_float2(v[0].x - 0.5f * t1.x, v[0].y - 0.5f * t1.y);
+  v[0] = make_float2(v[0].x + t1.x, v[0].y + t1.y);
+  v[1] = make_float2(a.x + s * t2.y, a.y - s * t2.x);  // a - i s t2
+  v[2] = make_float2(a.x - s * t2.y, a.y + s * t2.x);  // a + i s t2
+}
+
+template <>
+__device__ inline void dft_small<4>(float2 (&v)[4]) {
+  const float2 a0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 a1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 b0 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 b1 = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+  v[0] = make_float2(a0.x + b0.x, a0.y + b0.y);
+  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+  v[2] = make_float2(a0.x - b0.x, a0.y - b0.y);
+  v[3] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
+}
+
+template <>
+__device__ inline void dft_small<5>(float2 (&v)[5]) {
+  const float c1 = 0x1.3c6ef4p-2f;   // cos(2 pi / 5)
+  const float c2 = -0x1.9e377ap-1f;  // cos(4 pi / 5)
+  const float s1 = 0x1.e6f0e2p-1f;   // sin(2 pi / 5)
+  const float s2 = 0x1.2cf230p-1f;   // sin(4 pi / 5)
+  const float2 t1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
+  const float2 t2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
+  const float2 t3 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
+  const float2 t4 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 a1 = make_float2(v[0].x + c1 * t1.x + c2 * t2.x, v[0].y + c1 * t1.y + c2 * t2.y);
+  const float2 a2 = make_float2(v[0].x + c2 * t1.x + c1 * t2.x, v[0].y + c2 * t1.y + c1 * t2.y);
+  const float2 b1 = make_float2(s1 * t3.x + s2 * t4.x, s1 * t3.y + s2 * t4.y);
+  const float2 b2 = make_float2(s2 * t3.x - s1 * t4.x, s2 * t3.y - s1 * t4.y);
+  v[0] = make_float2(v[0].x + t1.x + t2.x, v[0].y + t1.y + t2.y);
+  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+  v[4] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
+  v[2] = make_float2(a2.x + b2.y, a2.y - b2.x);  // a2 - i b2
+  v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
+}
+
+// One Stockham (autosort) stage of radix R over an H-point complex row,
+// after ns = the product of the earlier radices: butterfly j reads
+// src[j + r H/R], twists input r by e^{-2 pi i r k / (ns R)} (k = j mod ns),
+// and writes dst[(j - k) R + k + r ns]. The output of the last stage is in
+// natural order, so no digit reversal is needed. The twiddle e^{-2 pi i m /
+// n_fft}, m < n_fft, comes from the table of its first half (m >= half:
+// the negated entry m - half).
+template <int R>
+__device__ inline void stockham_stage(const float2* __restrict__ src, float2* __restrict__ dst,
+                                      int H, int ns, const float2* __restrict__ tw, int lane) {
+  const int hr = H / R;
+  const int step = 2 * (H / (ns * R));  // n_fft / (ns R)
+  for (int j = lane; j < hr; j += 32) {
+    const int k = j % ns;
+    float2 v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = src[j + r * hr];
+    if (k != 0) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        const int m = r * k * step;
+        const float2 w = m < H ? tw[m] : make_float2(-tw[m - H].x, -tw[m - H].y);
+        v[r] = cmul(v[r], w);
+      }
+    }
+    dft_small<R>(v);
+    const int d = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[d + r * ns] = v[r];
+  }
+}
+
+// The mixed-radix FFT of the warp's row a (row b is scratch); returns the
+// row that holds the result.
+__device__ inline const float2* stockham(float2* a, float2* b, const Params& p,
+                                         const float2* tw, int lane) {
+  float2* src = a;
+  float2* dst = b;
+  int ns = 1;
+  for (int s = 0; s < p.nstages; ++s) {
+    const int r = static_cast<int>((p.radices >> (3 * s)) & 7u);
+    switch (r) {  // warp-uniform
+      case 2: stockham_stage<2>(src, dst, p.half, ns, tw, lane); break;
+      case 3: stockham_stage<3>(src, dst, p.half, ns, tw, lane); break;
+      case 4: stockham_stage<4>(src, dst, p.half, ns, tw, lane); break;
+      default: stockham_stage<5>(src, dst, p.half, ns, tw, lane); break;
+    }
+    __syncwarp();
+    float2* t = src;
+    src = dst;
+    dst = t;
+    ns *= r;
+  }
+  return src;
+}
+
+// Real split of the half-size complex FFT Z of z[n] = y[2n] + i y[2n+1]:
+// Xe = (Z[k] + conj Z[H-k]) / 2, Xo = (Z[k] - conj Z[H-k]) / 2i,
+// X[k] = Xe + W^k Xo and X[H-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / n_fft},
+// for k <= H/2; |X|^2 * pscale into pw[k] and pw[H-k] (once when 2k = H).
+__device__ inline void real_split(const float2* Z, float* pw, const float2* tw, int H,
+                                  float pscale, int lane) {
+  for (int k = lane; k <= H / 2; k += 32) {
+    const float2 a = Z[k];
+    const float2 c = Z[k == 0 ? 0 : H - k];
+    const float er = 0.5f * (a.x + c.x);
+    const float ei = 0.5f * (a.y - c.y);
+    const float orr = 0.5f * (a.y + c.y);
+    const float oi = -0.5f * (a.x - c.x);
+    const float2 w = tw[k];
+    const float wr = orr * w.x - oi * w.y;
+    const float wi = orr * w.y + oi * w.x;
+    const float xr = er + wr, xi = ei + wi;
+    pw[k] = (xr * xr + xi * xi) * pscale;
+    if (2 * k != H) {
+      const float yr = er - wr, yi = ei - wi;
+      pw[H - k] = (yr * yr + yi * yi) * pscale;
+    }
+  }
+}
+
+// The direct DFT of v[0 .. Lk): lane bins k, X[k] = sum_n v[n] W^{(k n) mod
+// n_fft} with the exact integer index into the whole-circle table.
+__device__ inline void direct_dft(const float* v, float* pw, const float2* tw, const Params& p,
+                                  int Lk, int lane) {
+  const int N = p.n_fft;
+  for (int k = lane; k < p.bins; k += 32) {
+    float re = 0.f, im = 0.f;
+    int m = 0;  // (k n) mod N
+    for (int n = 0; n < Lk; ++n) {
+      const float2 w = tw[m];
+      re += v[n] * w.x;
+      im += v[n] * w.y;
+      m += k;
+      if (m >= N) m -= N;
+    }
+    pw[k] = (re * re + im * im) * p.pscale;
   }
 }
 
@@ -292,13 +538,12 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
   const float preemph = p.preemph;
-  const int mels = mel_floats(kind, M);
-  const Layout lay = kResample ? layout(S, L, mels, resample_window(S, L, pp), pp.up * pp.K, true)
-                               : layout(S, L, mels, 0, 0, kDither);
+  const Layout lay = kResample ? layout(p, resample_window(p, pp), pp.up * pp.K, true)
+                               : layout(p, 0, 0, kDither);
   float* sig = smem;
   float* win = smem + lay.win;
   float* melw = smem + lay.mel;
-  float* melfw = melw + align4(kBins * M);  // ssc only
+  float* melfw = melw + align4(p.bins * M);  // ssc only
   float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
 
   const int b = blockIdx.y;
@@ -306,14 +551,15 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const long long t0 = static_cast<long long>(f0) * S;
   const Sample* row = audio + static_cast<size_t>(b) * T;
 
-  for (int i = threadIdx.x; i < kNfft; i += kThreads) win[i] = i < L ? window[i] : 0.f;
+  const int wlen = imax(L, p.n_fft);
+  for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
   if (kind != kSpectrogram) {
-    for (int i = threadIdx.x; i < kBins * M; i += kThreads) melw[i] = mel[i];
+    for (int i = threadIdx.x; i < p.bins * M; i += kThreads) melw[i] = mel[i];
   }
   if (kind == kSsc) {
-    for (int i = threadIdx.x; i < kBins * M; i += kThreads) melfw[i] = melf[i];
+    for (int i = threadIdx.x; i < p.bins * M; i += kThreads) melfw[i] = melf[i];
   }
-  for (int i = threadIdx.x; i < kHalf; i += kThreads) tw[i] = twiddle[i];
+  for (int i = threadIdx.x; i < twiddle_count(p); i += kThreads) tw[i] = twiddle[i];
 
   if constexpr (kResample) {
     // 1r. the input window and the taps; x[t0-1 .. t0+span) by the FIR
@@ -323,7 +569,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     const int len_in = max(0, min(lengths[b], T));
     const long long len = pp_output_length(len_in, pp);
     const long long lo = pp_first_input(t0 - 1, pp);
-    const int in_len = resample_window(S, L, pp);
+    const int in_len = resample_window(p, pp);
     float* in = sig;
     float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
     float* tab = smem + lay.tab;
@@ -346,125 +592,153 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     for (int i = threadIdx.x; i < lay.span; i += kThreads) {
       sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
     }
-  } else if constexpr (kDither) {
-    // 1d. x[t0-1 .. t0+span) converted and dithered (0 outside [0, length))
-    //     into the xs row, then pre-emphasis and zeroing from there
-    const int len = min(lengths[b], T);
-    float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
-    for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
-      const long long t = t0 - 1 + i;
-      xs[i] = (t >= 0 && t < len)
-                  ? dithered(to_f32(row[t]) * p.scale, static_cast<uint32_t>(t), p)
-                  : 0.f;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-      sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
-    }
   } else {
-    // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
-    const int len = min(lengths[b], T);
-    for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-      const long long t = t0 + i;
-      float y = 0.f;
-      if (t < len) {
-        const float x = to_f32(row[t]) * p.scale;
-        const float xp = t > 0 ? to_f32(row[t - 1]) * p.scale : 0.f;
-        y = x - preemph * xp;
+    const int len = max(0, min(lengths[b], T));
+    if (p.center != kNoCenter) {
+      // 1c. centered framing: staged position t = t0 + offset + i reads the
+      //     source index r = reflect(t, max(len, 1)) and stages
+      //     y[r] = x[r] - c x[r-1] (x[-1] = 0; dithered x keyed on r under
+      //     kDither), 0 when r >= len: pre-emphasis and noise at the source
+      //     index, as the signal is pre-emphasized before it is reflected
+      const long long n = len > 0 ? len : 1;
+      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+        const long long r = reflect(t0 + p.offset + i, n, p.center);
+        float y = 0.f;
+        if (r < len) {
+          y = source<kDither>(row, r, p);
+          if (preemph != 0.f) y -= preemph * (r > 0 ? source<kDither>(row, r - 1, p) : 0.f);
+        }
+        sig[i] = y;
       }
-      sig[i] = y;
+    } else if constexpr (kDither) {
+      // 1d. x[t0-1 .. t0+span) converted and dithered (0 outside [0, length))
+      //     into the xs row, then pre-emphasis and zeroing from there
+      float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
+      for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
+        const long long t = t0 - 1 + i;
+        xs[i] = (t >= 0 && t < len) ? source<true>(row, t, p) : 0.f;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+        sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
+      }
+    } else {
+      // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
+      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+        const long long t = t0 + i;
+        float y = 0.f;
+        if (t < len) {
+          const float x = source<false>(row, t, p);
+          const float xp = t > 0 ? source<false>(row, t - 1, p) : 0.f;
+          y = x - preemph * xp;
+        }
+        sig[i] = y;
+      }
     }
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  float2* z = reinterpret_cast<float2*>(smem + lay.buf) + warp * kHalf;
-  float* pw = smem + lay.pw + warp * kPowStride;
+  const int H = p.half;
+  const int Lk = min(L, p.n_fft);  // rfft(n=n_fft) truncates longer frames
+  float* wb = smem + lay.buf + warp * lay.per_warp;  // the warp's DFT rows
+  float2* z = reinterpret_cast<float2*>(wb);
+  float* pw_row = smem + lay.pw + warp * align4(p.bins);  // radix-2 and direct forms
 
   for (int fl = warp; fl < kTile; fl += kWarps) {
     const int f = f0 + fl;
     if (f >= F) break;  // warp-uniform
     const float* fr = sig + fl * S;
 
-    // 2. windowed frame as 256 complex points, bit-reversed for the DIT FFT
-    float e_frame = 0.f;  // kCond: the raw or windowed frame energy
+    // 2. the windowed frame g[a] w[a], a < L; under kCond the conditioning
+    //    over the frame's L samples: mean, raw energy of the centered frame,
+    //    then frame pre-emphasis folded into the pack, and the windowed
+    //    energy of all L samples (those past n_fft too)
+    float mu = 0.f, e = 0.f, e_frame = 0.f;
     if constexpr (kCond) {
-      // 2c. conditioning over the frame's L samples: mean, raw energy of
-      //     the centered frame, then frame pre-emphasis folded into the
-      //     pack, and the windowed energy of what is packed
-      float mu = 0.f;
       if (p.remove_dc) {
         float s = 0.f;
         for (int a = lane; a < L; a += 32) s += fr[a];
         mu = warp_sum(s) / static_cast<float>(L);
       }
-      float e = 0.f;
       if (p.energy_source == kRawFrame) {
         for (int a = lane; a < L; a += 32) {
           const float d = fr[a] - mu;
           e += d * d;
         }
       }
-      const float c = p.frame_preemph;
-      for (int n = lane; n < kHalf; n += 32) {
-        const int a = 2 * n;
-        float g0 = 0.f, g1 = 0.f;
-        if (a < L) {
-          const float d = fr[a] - mu;
-          g0 = a == 0 ? d * p.frame_keep0 : d - c * (fr[a - 1] - mu);
-          if (a + 1 < L) g1 = (fr[a + 1] - mu) - c * d;
-        }
-        const float re = g0 * win[a], im = g1 * win[a + 1];
-        if (p.energy_source == kWindowedFrame) e += re * re + im * im;
-        z[__brev(n) >> (32 - kLog2Half)] = make_float2(re, im);
+    }
+    auto sample = [&](int a) -> float {
+      if constexpr (kCond) {
+        const float d = fr[a] - mu;
+        const float g = a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (fr[a - 1] - mu);
+        return g * win[a];
+      } else {
+        return fr[a] * win[a];
       }
-      if (p.energy_source != kPspec) e_frame = warp_sum(e);
+    };
+    const bool wsum = kCond && p.energy_source == kWindowedFrame;
+
+    // 2p. the pack: the first Lk samples as half complex points (even samples
+    //    real, odd imaginary), bit-reversed for the radix-2 DIT FFT, in
+    //    natural order for the Stockham FFT; as reals for the direct DFT
+    if (p.form == kDirect) {
+#pragma unroll 1
+      for (int a = lane; a < Lk; a += 32) {
+        const float v = sample(a);
+        if (wsum) e += v * v;
+        wb[a] = v;
+      }
     } else {
-      for (int n = lane; n < kHalf; n += 32) {
+#pragma unroll 1
+      for (int n = lane; n < H; n += 32) {
         const int a = 2 * n;
-        const float re = a < L ? fr[a] * win[a] : 0.f;
-        const float im = a + 1 < L ? fr[a + 1] * win[a + 1] : 0.f;
-        z[__brev(n) >> (32 - kLog2Half)] = make_float2(re, im);
+        const float re = a < Lk ? sample(a) : 0.f;
+        const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
+        if (wsum) e += re * re + im * im;
+        const int at = p.form == kMixed ? n : p.log2half ? __brev(n) >> (32 - p.log2half) : 0;
+        z[at] = make_float2(re, im);
       }
+    }
+    if (wsum) {
+      for (int a = Lk + lane; a < L; a += 32) {
+        const float v = sample(a);
+        e += v * v;
+      }
+    }
+    if constexpr (kCond) {
+      if (p.energy_source != kPspec) e_frame = warp_sum(e);
     }
     __syncwarp();
-    for (int lg = 0; lg < kLog2Half; ++lg) {
-      const int half = 1 << lg;
-      for (int j = lane; j < kHalf / 2; j += 32) {
-        const int pos = j & (half - 1);
-        const int i0 = ((j >> lg) << (lg + 1)) + pos;
-        const int i1 = i0 + half;
-        // e^{-2 pi i pos / (2 half)} = table entry pos * 512 / (2 half)
-        const float2 w = tw[pos << (kLog2Half - lg)];
-        const float2 u = z[i0];
-        const float2 v = z[i1];
-        const float vr = v.x * w.x - v.y * w.y;
-        const float vi = v.x * w.y + v.y * w.x;
-        z[i0] = make_float2(u.x + vr, u.y + vi);
-        z[i1] = make_float2(u.x - vr, u.y - vi);
-      }
-      __syncwarp();
-    }
 
-    // 3. real split: Xe = (Z[k] + conj Z[256-k]) / 2, Xo = (Z[k] - conj Z[256-k]) / 2i,
-    //    X[k] = Xe + W^k Xo and X[256-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / 512}
-    for (int k = lane; k <= kHalf / 2; k += 32) {
-      const float2 a = z[k];
-      const float2 c = z[(kHalf - k) & (kHalf - 1)];
-      const float er = 0.5f * (a.x + c.x);
-      const float ei = 0.5f * (a.y - c.y);
-      const float orr = 0.5f * (a.y + c.y);
-      const float oi = -0.5f * (a.x - c.x);
-      const float2 w = tw[k];
-      const float wr = orr * w.x - oi * w.y;
-      const float wi = orr * w.y + oi * w.x;
-      const float xr = er + wr, xi = ei + wi;
-      pw[k] = (xr * xr + xi * xi) * p.pscale;
-      if (k != kHalf / 2) {
-        const float yr = er - wr, yi = ei - wi;
-        pw[kHalf - k] = (yr * yr + yi * yi) * p.pscale;
+    // 3. the DFT into the power row pw[k], k < bins, by form (warp-uniform)
+    float* pw = pw_row;
+    if (p.form == kRadix2) {
+      for (int lg = 0; lg < p.log2half; ++lg) {
+        const int half = 1 << lg;
+        for (int j = lane; j < H / 2; j += 32) {
+          const int pos = j & (half - 1);
+          const int i0 = ((j >> lg) << (lg + 1)) + pos;
+          const int i1 = i0 + half;
+          // e^{-2 pi i pos / (2 half)} = table entry pos * n_fft / (2 half)
+          const float2 w = tw[pos << (p.log2half - lg)];
+          const float2 u = z[i0];
+          const float2 v = z[i1];
+          const float vr = v.x * w.x - v.y * w.y;
+          const float vi = v.x * w.y + v.y * w.x;
+          z[i0] = make_float2(u.x + vr, u.y + vi);
+          z[i1] = make_float2(u.x - vr, u.y - vi);
+        }
+        __syncwarp();
       }
+      real_split(z, pw, tw, H, p.pscale, lane);
+    } else if (p.form == kMixed) {
+      const float2* Z = stockham(z, z + H, p, tw, lane);
+      pw = reinterpret_cast<float*>(Z == z ? z + H : z);  // the free row
+      real_split(Z, pw, tw, H, p.pscale, lane);
+    } else {
+      direct_dft(wb, pw, tw, p, Lk, lane);
     }
     __syncwarp();
 
@@ -498,12 +772,12 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     } else if (kCond && p.energy_source != kPspec) {
       if (lane == 0) o[M] = fmaxf(e_frame, p.eps);
     } else {
-      float e = 0.f;
-      for (int k = lane; k < kBins; k += 32) e += pw[k];
-      e = warp_sum(e);
-      if (lane == 0) o[M] = e <= 0.f ? p.eps : e;
+      float es = 0.f;
+      for (int k = lane; k < p.bins; k += 32) es += pw[k];
+      es = warp_sum(es);
+      if (lane == 0) o[M] = es <= 0.f ? p.eps : es;
     }
-    __syncwarp();  // z and pw are rewritten by the warp's next frame
+    __syncwarp();  // the DFT and power rows are rewritten by the warp's next frame
   }
 }
 
@@ -523,10 +797,8 @@ struct Args {
 template <typename Sample, bool kResample, bool kDither, bool kCond>
 cudaError_t launch(const Args& a) {
   const Params& p = a.p;
-  const int mels = mel_floats(p.feature_kind, p.M);
-  const Layout lay =
-      kResample ? layout(p.S, p.L, mels, resample_window(p.S, p.L, a.pp), a.pp.up * a.pp.K, true)
-                : layout(p.S, p.L, mels, 0, 0, kDither);
+  const Layout lay = kResample ? layout(p, resample_window(p, a.pp), a.pp.up * a.pp.K, true)
+                               : layout(p, 0, 0, kDither);
   const size_t bytes = static_cast<size_t>(lay.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       logmel_kernel<Sample, kResample, kDither, kCond>,
@@ -559,12 +831,47 @@ cudaError_t dispatch(const Args& a, bool is_int16, bool dither, bool cond) {
               : launch<float, kResample, false, false>(a);
 }
 
-bool bad_params(const Params& p, int B, const float* melf) {
-  return p.L < 1 || p.L > kNfft || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 ||
+// The DFT plan of p.n_fft (kernels/frontend.py dft_form and radices): a
+// power of two takes radix-2; an even n_fft whose half factors into 4s,
+// then 2, 3 and 5, the Stockham form; every other size the direct DFT.
+// False when the wrapper's form disagrees, or for n_fft < 2.
+bool plan(Params& p) {
+  const int N = p.n_fft;
+  if (N < 2) return false;
+  p.half = N / 2;
+  p.bins = N / 2 + 1;
+  p.log2half = p.nstages = 0;
+  p.radices = 0;
+  int form = kDirect;
+  if ((N & (N - 1)) == 0) {
+    form = kRadix2;
+    while ((1 << p.log2half) < p.half) ++p.log2half;
+  } else if (N % 2 == 0) {
+    int h = p.half;
+    const int order[4] = {4, 2, 3, 5};
+    for (int r : order) {
+      while (h % r == 0 && (r != 2 || h % 4 != 0) && p.nstages < kMaxStages) {
+        p.radices |= static_cast<unsigned long long>(r) << (3 * p.nstages++);
+        h /= r;
+      }
+    }
+    if (h == 1) {
+      form = kMixed;
+    } else {
+      p.nstages = 0;
+      p.radices = 0;
+    }
+  }
+  return form == p.form;
+}
+
+bool bad_params(Params& p, int B, const float* melf) {
+  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p) ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
-         p.log_kind < kLn || p.log_kind > kLnFloor || p.feature_kind < kLogmel ||
-         p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != kBins) ||
-         (p.feature_kind == kSsc && melf == nullptr);
+         p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
+         p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
+         (p.feature_kind == kSsc && melf == nullptr) || p.center < kNoCenter ||
+         p.center > kCenterReflect;
 }
 
 }  // namespace
@@ -573,25 +880,29 @@ extern "C" {
 
 // Launches the front-end on `stream`; returns cudaGetLastError() (0 = launched).
 // audio [B, T] int16 (audio_is_int16 != 0) or float32; lengths [B] int32;
-// out [B, F, M+1] float32; window [>= L] float32; mel [257, M] float32;
-// melf [257, M] float32 (ssc; may be null otherwise); mel_lo / mel_hi [M]
-// int32; twiddle [256, 2] float32. L <= 512.
+// out [B, F, M+1] float32; window [L] float32; mel [n_fft/2+1, M] float32;
+// melf [n_fft/2+1, M] float32 (ssc; may be null otherwise); mel_lo / mel_hi
+// [M] int32; twiddle [n_fft/2 (dft_form 0 radix-2, 1 mixed) or n_fft
+// (2 direct), 2] float32 of e^{-2 pi i k / n_fft}. frame_offset is frame 0's
+// first sample and center 0 none / 1 "center" / 2 "center_reflect".
 // dither > 0 adds the contract noise (dither_seed = fmix32(cfg.dither_seed));
 // conditioning != 0 takes the frame-first branch (remove_dc, frame_preemph
 // and frame_keep0 = 1 - frame_preemph, energy_source 0 pspec / 1 raw_frame /
-// 2 windowed_frame); log_kind 0 ln / 1 ln_stab / 2 db / 3 ln_floor;
-// feature_kind 0 logmel / 1 plp / 2 spectrogram (M = 257) / 3 ssc.
+// 2 windowed_frame); log_kind 0 ln / 1 ln_stab / 2 db / 3 ln_floor /
+// 4 log10_floor; feature_kind 0 logmel / 1 plp / 2 spectrogram
+// (M = n_fft/2+1) / 3 ssc.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, const float* window, const float* mel,
                          const float* melf, const int* mel_lo, const int* mel_hi,
                          const float* twiddle, int B, int T, int F, int L, int S, int M,
-                         float scale, float preemph, float eps, float pscale, float dither,
+                         int n_fft, int dft_form, int frame_offset, int center, float scale,
+                         float preemph, float eps, float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
                          int log_kind, int feature_kind, void* stream) {
-  const Params p{T, F, L, S, M, scale, preemph, eps, pscale, dither, dither_seed,
-                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
-                 feature_kind};
+  Params p{T, F, L, S, M, n_fft, dft_form, frame_offset, center, scale, preemph, eps, pscale,
+           dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
+           frame_keep0, feature_kind};
   if (bad_params(p, B, melf)) return cudaErrorInvalidValue;
   const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, nullptr, B,
                p, Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
@@ -601,20 +912,21 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
 // taps [up, K] float32 (input_scale folded in); F frames of the resampled
 // signal, ceil(T * up / down) samples long. Dither keys on 16 kHz positions.
+// No centered framing.
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   const int* lengths, float* out, const float* window,
                                   const float* mel, const float* melf, const int* mel_lo,
                                   const int* mel_hi, const float* twiddle,
                                   const float* taps, int B, int T, int F, int L,
-                                  int S, int M, int up, int down, int half_len, int K,
-                                  float preemph, float eps, float pscale, float dither,
-                                  unsigned dither_seed, int conditioning, int remove_dc,
-                                  float frame_preemph, float frame_keep0,
-                                  int energy_source, int log_kind, int feature_kind,
-                                  void* stream) {
-  const Params p{T, F, L, S, M, 1.f, preemph, eps, pscale, dither, dither_seed,
-                 remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
-                 feature_kind};
+                                  int S, int M, int n_fft, int dft_form, int up, int down,
+                                  int half_len, int K, float preemph, float eps,
+                                  float pscale, float dither, unsigned dither_seed,
+                                  int conditioning, int remove_dc, float frame_preemph,
+                                  float frame_keep0, int energy_source, int log_kind,
+                                  int feature_kind, void* stream) {
+  Params p{T, F, L, S, M, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale, dither,
+           dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
+           feature_kind};
   if (bad_params(p, B, melf) || up < 1 || down < 1 || K < 1 || half_len < 10 * down) {
     return cudaErrorInvalidValue;
   }

@@ -1,21 +1,25 @@
 """The fused front-end on Hopper: audio rows → [log-mel | energy] prefix.
 
-Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode) and
-the `_stage_dict` prefix it feeds. One CUDA kernel (`csrc/frontend.cu`,
-whose header states its design and bound) does, per utterance and frame:
-int16/fp32 convert × input_scale, the dither contract (`ops/dither.py`)
-when cfg.dither > 0, signal pre-emphasis with x[-1] = 0, zeroing at
-t >= length, Kaldi frame-first conditioning when the config asks for it
-(DC removal, raw-frame energy, frame pre-emphasis, windowed-frame energy),
-window, 512-point real FFT, |X|², then by feature kind (`FEATURE_KINDS`):
-the mel projection and the log kind (ln, ln_stab, db, ln_floor) for mfcc and
-logmel configs, the raw mel energies for PLP, the log kind of each power
-bin for a spectrogram (the identity projection, no matrix), or the SSC
-centroids of the per-bin clamped power; lane M holds the clamped (unlogged)
-energy (0 for SSC). Output [B, F, n_mels+1] float32 with F =
-cfg.num_frames(T) ("pad" or "drop" framing; F = 0 returns an empty prefix
-without a launch). A config whose shared-memory layout exceeds the block's
-227 KB raises before the launch.
+Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode, at
+any N2), of `_make_kernel` (the direct DFT) and of the `_stage_dict` prefix
+they feed. One CUDA kernel (`csrc/frontend.cu`, whose header states its
+design and bound) does, per utterance and frame: int16/fp32 convert ×
+input_scale, the dither contract (`ops/dither.py`) when cfg.dither > 0,
+signal pre-emphasis with x[-1] = 0, zeroing at t >= length, framing
+("pad", "drop", or centered with edge reflection at each row's length),
+Kaldi frame-first conditioning when the config asks for it (DC removal,
+raw-frame energy, frame pre-emphasis, windowed-frame energy), window, a
+real DFT of n_fft points (`dft_form`: radix-2 for powers of two, a
+Stockham mixed-radix FFT for even n_fft whose half factors into 2, 3, 4
+and 5, a direct DFT otherwise), |X|², then by feature kind
+(`FEATURE_KINDS`): the mel projection and the log kind (ln, ln_stab, db,
+ln_floor, log10_floor) for mfcc and logmel configs, the raw mel energies
+for PLP, the log kind of each power bin for a spectrogram (the identity
+projection, no matrix), or the SSC centroids of the per-bin clamped power;
+lane M holds the clamped (unlogged) energy (0 for SSC). Output
+[B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
+empty prefix without a launch). A config whose shared-memory layout
+exceeds the block's 227 KB is refused (`layout_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, through the kernel's second
@@ -28,9 +32,10 @@ raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
 PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
 `resample_launches` those of the fused resample; `dither_launches`,
-`conditioning_launches`, `plp_launches`, `spectrogram_launches` and
-`ssc_launches` count the launches (of either form) that take that branch.
-Set them to 0 to start a count.
+`conditioning_launches`, `plp_launches`, `spectrogram_launches`,
+`ssc_launches`, `centered_launches`, `mixed_radix_launches` and
+`direct_dft_launches` count the launches (of either form) that take that
+branch. Set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -47,13 +52,13 @@ from mfcc_tpu_torch.kernels import resample as rs_kernel
 from mfcc_tpu_torch.ops import chain, dither
 from mfcc_tpu_torch.ops import resample as R
 
-NFFT = 512  # the kernel's FFT size (unsupported_reason refuses others)
 MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
 TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
-POW_STRIDE = 260
 ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
+DFT_FORMS = ("radix2", "mixed", "direct")  # csrc/frontend.cu codes
+CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 
 launches = 0
 resample_launches = 0
@@ -62,6 +67,9 @@ conditioning_launches = 0
 plp_launches = 0
 spectrogram_launches = 0
 ssc_launches = 0
+centered_launches = 0
+mixed_radix_launches = 0
+direct_dft_launches = 0
 
 
 def feature_kind(cfg: FrontendConfig) -> str:
@@ -71,7 +79,7 @@ def feature_kind(cfg: FrontendConfig) -> str:
 
 
 def mel_matrices(cfg: FrontendConfig) -> int:
-    """How many [257, M] matrices the kernel stages and reads for cfg
+    """How many [n_bins, M] matrices the kernel stages and reads for cfg
     (csrc/frontend.cu mel_floats): mel; none for the spectrogram's identity
     projection; mel and melf for SSC."""
     return {"spectrogram": 0, "ssc": 2}.get(feature_kind(cfg), 1)
@@ -100,11 +108,40 @@ def logmel_prefix_reference(
     return torch.cat([lanes, st["energy"][..., None]], dim=-1)
 
 
-def fft_twiddles() -> np.ndarray:
-    """[256, 2] float32 table of e^{-2πik/512} (cos, -sin), computed in
-    float64: the 256-point FFT's twiddles are its even entries, the real
-    split's are all of them."""
-    ang = 2.0 * np.pi * np.arange(NFFT // 2, dtype=np.float64) / NFFT
+def radices(n_fft: int) -> tuple[int, ...] | None:
+    """The Stockham stages of the mixed-radix form: n_fft/2 factored into
+    4s first, then 2, 3 and 5 (200 = 4·2·5·5, 240 = 4·4·3·5); None when
+    n_fft is odd or its half has another prime factor."""
+    if n_fft % 2:
+        return None
+    h, out = n_fft // 2, []
+    for r in (4, 2, 3, 5):
+        while h % r == 0 and (r != 2 or h % 4):
+            out.append(r)
+            h //= r
+    return tuple(out) if h == 1 else None
+
+
+def dft_form(n_fft: int) -> str:
+    """The kernel's DFT for n_fft: "radix2" (a power of two), "mixed" (a
+    Stockham FFT of n_fft/2 points in radices 2-5) or "direct" (every other
+    size, odd ones included)."""
+    if n_fft >= 2 and n_fft & (n_fft - 1) == 0:
+        return "radix2"
+    return "mixed" if radices(n_fft) else "direct"
+
+
+def twiddle_count(n_fft: int) -> int:
+    """Entries of the kernel's twiddle table: n_fft/2 for the two FFT forms
+    (the real split reads them all, the complex stages the even ones), the
+    whole circle for the direct DFT, which indexes it by (k·n) mod n_fft."""
+    return n_fft if dft_form(n_fft) == "direct" else n_fft // 2
+
+
+def fft_twiddles(n_fft: int) -> np.ndarray:
+    """[twiddle_count(n_fft), 2] float32 table of e^{-2πik/n_fft} (cos,
+    -sin), computed in float64."""
+    ang = 2.0 * np.pi * np.arange(twiddle_count(n_fft), dtype=np.float64) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
 
 
@@ -132,7 +169,6 @@ def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
         "melf": melf.to(device=device, dtype=torch.float32).contiguous(),
         "mel_lo": lo,
         "mel_hi": hi,
-        "twiddle": torch.as_tensor(fft_twiddles(), device=device),
     }
 
 
@@ -141,25 +177,49 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
     return _tables(chain.device_constants(cfg, torch.device("cpu"), torch.float64), device)
 
 
+@functools.lru_cache(maxsize=16)
+def _device_twiddles(n_fft: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(fft_twiddles(n_fft), device=device)
+
+
 def smem_bytes(cfg: FrontendConfig) -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout): the
     signal row (or the fused resample's input window, whichever is longer),
-    window, the [257, M] matrices (mel; none for a spectrogram; mel and
-    melf for SSC), twiddles, per-warp FFT and power rows, the staged x row
-    of the fused resample and of dither, and the resample's tap table."""
+    window, the [n_bins, M] matrices (mel; none for a spectrogram; mel and
+    melf for SSC), twiddles, per-warp DFT buffers (two ping-pong rows for the
+    mixed-radix form, whose free row then holds the powers) and power rows,
+    the staged x row of the fused resample and of dither, and the
+    resample's tap table."""
     def a4(n):
         return (n + 3) & ~3
 
-    span = (TILE - 1) * cfg.frame_step + min(cfg.frame_length, NFFT)
+    N, form = cfg.n_fft, dft_form(cfg.n_fft)
+    span = (TILE - 1) * cfg.frame_step + cfg.frame_length
     in_len = taps = 0
     xs = a4(span + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
     if chain.resamples(cfg):
         d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
         in_len = rs_kernel.input_span(span + 1, d)
         taps = d["up"] * d["K"]
-    n = (a4(max(span, in_len)) + NFFT + mel_matrices(cfg) * a4(257 * cfg.n_mels) + NFFT
-         + NFFT * WARPS + POW_STRIDE * WARPS + xs + a4(taps))
+    per_warp = a4(2 * N if form == "mixed" else N)
+    powers = 0 if form == "mixed" else a4(cfg.n_bins) * WARPS
+    n = (a4(max(span, in_len)) + a4(max(cfg.frame_length, N))
+         + mel_matrices(cfg) * a4(cfg.n_bins * cfg.n_mels) + a4(2 * twiddle_count(N))
+         + per_warp * WARPS + powers + xs + a4(taps))
     return 4 * n
+
+
+def layout_reason(cfg: FrontendConfig) -> str | None:
+    """Why cfg's kernel layout cannot launch (over the block's shared
+    memory), or None."""
+    n = smem_bytes(cfg)
+    if n <= rs_kernel.SMEM_BUDGET_BYTES:
+        return None
+    return (
+        f"front-end kernel layout of {n:,} bytes of shared memory a block "
+        f"(n_fft={cfg.n_fft}, frame length {cfg.frame_length}, "
+        f"{cfg.n_mels} filters), over the block's {rs_kernel.SMEM_BUDGET_BYTES:,}"
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,6 +235,7 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_frontend_logmel.argtypes = [
         p, i, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
         i, i, i, i, i, i,  # B, T, F, L, S, M
+        i, i, i, i,  # n_fft, dft_form, frame_offset, center
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
     ]
@@ -182,6 +243,7 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_frontend_logmel_resample.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
         i, i, i, i, i, i,  # B, T, F, L, S, M
+        i, i,  # n_fft, dft_form
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
         *branches,
@@ -208,6 +270,7 @@ def logmel_prefix(
     window and mel matrix (a chain-constants dict)."""
     global launches, resample_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
+    global centered_launches, mixed_radix_launches, direct_dft_launches
     if audio.device.type == "cpu":
         return logmel_prefix_reference(audio, lengths, cfg, consts)
     if audio.device.type != "cuda":
@@ -236,7 +299,7 @@ def logmel_prefix(
         raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
     resampling = chain.resamples(cfg)
     kind = feature_kind(cfg)
-    rs_kernel.check_budget(smem_bytes(cfg), f"the front-end kernel for config {cfg.config_hash()}")
+    form = dft_form(cfg.n_fft)
     if resampling:
         sr_in = cfg.input_sample_rate
         F = cfg.num_frames(R.output_length(T, sr_in, cfg.sample_rate))
@@ -247,13 +310,14 @@ def logmel_prefix(
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return out
     k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
+    twiddle = _device_twiddles(cfg.n_fft, audio.device)
     lib = _lib()
     head = (
         audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
         out.data_ptr(), k["window"].data_ptr(), k["mel"].data_ptr(), k["melf"].data_ptr(),
-        k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), k["twiddle"].data_ptr(),
+        k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), twiddle.data_ptr(),
     )
-    dims = (B, T, F, min(cfg.frame_length, NFFT), cfg.frame_step, M)
+    dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, cfg.n_fft, DFT_FORMS.index(form))
     frame_mode = cfg.preemph_mode == "frame"
     tail = (
         0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
@@ -280,7 +344,8 @@ def logmel_prefix(
             )
         else:
             rc = lib.mfcc_frontend_logmel(
-                *head, *dims, cfg.input_scale, *tail, *branches, stream
+                *head, *dims, chain.frame_offset(cfg), CENTER_CODES.get(cfg.frame_tail, 0),
+                cfg.input_scale, *tail, *branches, stream,
             )
     if rc != 0:
         raise RuntimeError(
@@ -296,4 +361,7 @@ def logmel_prefix(
     plp_launches += int(kind == "plp")
     spectrogram_launches += int(kind == "spectrogram")
     ssc_launches += int(kind == "ssc")
+    centered_launches += int(chain.centered(cfg))
+    mixed_radix_launches += int(form == "mixed")
+    direct_dft_launches += int(form == "direct")
     return out

@@ -1,18 +1,21 @@
-"""The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for the
-classic13 family (standard "pad" framing, signal pre-emphasis, power-spectrum
-energy), logmel80 (the `ln_stab` log), the Kaldi feature-window family
-(kaldi_mfcc, kaldi_fbank, kaldi_plp, kaldi_spectrogram: "drop" framing,
-frame-first conditioning, `ln_floor`) and spectral subband centroids (ssc26),
-with or without dither, at 16 kHz or resampled from another input rate
-(mfcc39_48k, mfcc39_44k). PLP (`plp_base`: equal loudness, cube-root
-compression, autocorrelation, Levinson-Durbin, LPC cepstra) is tensor code
-on both devices, after the front-end's raw mel lanes.
+"""The torch feature chain — the port of `mfcc_tpu/ops/chain.py` for every
+named config: the classic13 family (standard "pad" framing, signal
+pre-emphasis, power-spectrum energy), logmel80 (the `ln_stab` log), the
+Kaldi feature-window family (kaldi_mfcc, kaldi_fbank, kaldi_plp,
+kaldi_spectrogram: "drop" framing, frame-first conditioning, `ln_floor`),
+spectral subband centroids (ssc26) and whisper80 (centered framing with edge
+reflection, a 400-point FFT, `log10_floor`, `drop_last_frame` and the
+Whisper norm), with or without dither, at 16 kHz or resampled from another
+input rate (mfcc39_48k, mfcc39_44k). PLP (`plp_base`: equal loudness,
+cube-root compression, autocorrelation, Levinson-Durbin, LPC cepstra) is
+tensor code on both devices, after the front-end's raw mel lanes.
 
 Batch layout is `audio[B, T]` + `lengths[B]`, as in the JAX package: frames
 are derived with a static frame count `F = cfg.num_frames(T)` and a
 per-utterance valid frame count, so padding never changes the numbers on
 valid frames. Signal-level steps (dither, then pre-emphasis in "signal"
 mode) run on the raw signal, which is then zeroed beyond each utterance's
+length; centered framing reflects that signal at each utterance's own
 length; frame-level conditioning (DC removal, raw-frame energy, frame
 pre-emphasis, windowed-frame energy) follows framing, in Kaldi's order.
 
@@ -24,8 +27,8 @@ mel energies for PLP, the log power spectrum for a spectrogram or the
 centroids for SSC); for resampling configs the
 same kernel resamples the input rows as it stages them. With `device="cpu"`
 it runs the plain chain of this module (`resample_input`, then
-`logmel_stages`: the kernel's plain version). A config outside the slice
-raises on both devices, naming the kernel branch it still needs.
+`logmel_stages`: the kernel's plain version). A config outside the port
+raises on both devices, naming what it still needs.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ def resamples(cfg: FrontendConfig) -> bool:
     return bool(cfg.input_sample_rate and cfg.input_sample_rate != cfg.sample_rate)
 
 
-LOG_KINDS = ("ln", "ln_stab", "db", "ln_floor")  # the kernel's epilogue branches
+LOG_KINDS = ("ln", "ln_stab", "db", "ln_floor", "log10_floor")  # the kernel's epilogue branches
+CENTER_KINDS = ("center", "center_reflect")  # frame_tail modes with edge reflection
 
 
 def needs_conditioning(cfg: FrontendConfig) -> bool:
@@ -79,26 +83,26 @@ def needs_conditioning(cfg: FrontendConfig) -> bool:
     )
 
 
+def centered(cfg: FrontendConfig) -> bool:
+    """True when cfg frames centered windows with edge reflection."""
+    return cfg.frame_tail in CENTER_KINDS
+
+
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
-    """None when this slice of the port implements `cfg`; otherwise the
-    kernel branch it still needs, with its ROADMAP queue-2 item."""
-    if (
-        cfg.frame_tail not in ("pad", "drop")
-        or cfg.drop_last_frame
-        or cfg.logmel_norm != "none"
-        or cfg.log_kind not in LOG_KINDS
-    ):
+    """None when the port implements `cfg`; otherwise what it still needs,
+    with its ROADMAP queue-2 item: centered framing of resampled rows, or a
+    front-end kernel layout over the block's shared memory (an n_fft,
+    frame length or filter count too large for one block)."""
+    if resamples(cfg) and centered(cfg):
         return (
-            "centered framing, log10_floor epilogue and whisper "
-            "normalization (ROADMAP queue 2 item 2)"
+            "centered framing of resampled rows (the fused resample stages "
+            "no reflection; ROADMAP queue 2 item 13)"
         )
-    if cfg.n_fft != 512:
-        return "DFT at n_fft != 512 (ROADMAP queue 2 items 2 and 9)"
-    if needs_conditioning(cfg) and cfg.frame_length > 512:
-        return (
-            "frame-first conditioning of frames longer than 512 samples "
-            "(ROADMAP queue 2 item 3, left open)"
-        )
+    from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
+
+    reason = frontend.layout_reason(cfg)
+    if reason:
+        return f"{reason} (ROADMAP queue 2 item 14)"
     return None
 
 
@@ -118,14 +122,22 @@ def check_supported(cfg: FrontendConfig) -> None:
 
 def num_valid_frames(lengths: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """Per-utterance valid frame count: 1 + ceil(max(0, n - L) / S) under
-    "pad" framing, 1 + (n - L) // S for n >= L (else 0) under "drop";
-    length 0 counts 0 frames (a zero-length row is batch padding)."""
+    "pad" framing, 1 + (n - L) // S for n >= L (else 0) under "drop",
+    (n + S//2) // S under "center", 1 + (n + 2(L//2) - L) // S under
+    "center_reflect"; one fewer with drop_last_frame; length 0 counts 0
+    frames (a zero-length row is batch padding)."""
     L, S = cfg.frame_length, cfg.frame_step
     if cfg.frame_tail == "pad":
         a = torch.clamp(lengths - L, min=0)
         n = 1 + (a + S - 1) // S
+    elif cfg.frame_tail == "center":
+        n = (lengths + S // 2) // S
+    elif cfg.frame_tail == "center_reflect":
+        n = 1 + (lengths + 2 * (L // 2) - L) // S
     else:
         n = torch.where(lengths >= L, 1 + (lengths - L) // S, 0)
+    if cfg.drop_last_frame:
+        n = torch.clamp(n - 1, min=0)
     return torch.where(lengths > 0, n, torch.zeros_like(n))
 
 
@@ -153,6 +165,46 @@ def frame_signal(x: torch.Tensor, num_frames: int, cfg: FrontendConfig) -> torch
     return x.unfold(-1, cfg.frame_length, cfg.frame_step)[..., :num_frames, :]
 
 
+def frame_offset(cfg: FrontendConfig) -> int:
+    """Start of frame 0 relative to sample 0: S//2 - L//2 ("center", Kaldi
+    snip_edges=false), -(L//2) ("center_reflect", torch.stft center=True),
+    0 otherwise."""
+    L, S = cfg.frame_length, cfg.frame_step
+    if cfg.frame_tail == "center":
+        return S // 2 - L // 2
+    if cfg.frame_tail == "center_reflect":
+        return -(L // 2)
+    return 0
+
+
+def reflect_index(idx: torch.Tensor, n: torch.Tensor, kind: str) -> torch.Tensor:
+    """Edge-reflection index map into [0, n); n broadcasts against idx and
+    is >= 1. "center" (Kaldi snip_edges=false) repeats the edge sample
+    (index -1 -> 0): period 2n. "center_reflect" (torch.stft center=True,
+    pad_mode="reflect") does not (index -1 -> 1): period 2(n-1), clamped to
+    1 when n = 1."""
+    if kind == "center":
+        m = torch.remainder(idx, 2 * n)
+        return torch.where(m < n, m, 2 * n - 1 - m)
+    m = torch.remainder(idx, torch.clamp(2 * n - 2, min=1))
+    return torch.where(m < n, m, 2 * n - 2 - m)
+
+
+def frame_signal_centered(
+    x: torch.Tensor, num_frames: int, lengths: torch.Tensor, cfg: FrontendConfig
+) -> torch.Tensor:
+    """Centered frames [B, F, L] with per-utterance edge reflection: frame f
+    covers f*S + frame_offset(cfg) + [0, L), each index mapped by
+    reflect_index at the row's own length (at least 1)."""
+    L, S = cfg.frame_length, cfg.frame_step
+    t = torch.arange(L, device=x.device)[None, :] + S * torch.arange(
+        num_frames, device=x.device)[:, None] + frame_offset(cfg)  # [F, L]
+    n = torch.clamp(lengths.to(torch.int64), min=1)[:, None, None]
+    r = reflect_index(t[None], n, cfg.frame_tail)  # [B, F, L]
+    B = x.shape[0]
+    return torch.gather(x, 1, r.reshape(B, -1)).reshape(B, num_frames, L)
+
+
 def power_spectrum(windowed: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """rfft with n=n_fft (pads/truncates), |X|^2 (optionally / NFFT)."""
     if windowed.numel() == 0:  # no frames ("drop" framing of a short batch)
@@ -168,7 +220,8 @@ def apply_log(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     """The log kinds of the kernel's epilogue: "ln" ln(where(x <= 0, eps,
     x)), "ln_stab" ln(x + 1e-6), "db" 10·log10 of the "ln" clamp, and
     "ln_floor" ln(max(x, eps)) (Kaldi's ApplyFloor then log, which floors
-    tiny positives too)."""
+    tiny positives too) and "log10_floor" log10(max(x, eps)) (librosa,
+    Whisper)."""
     eps = cfg.log_eps
     if cfg.log_kind == "ln":
         return torch.log(torch.where(x <= 0, eps, x))
@@ -178,6 +231,8 @@ def apply_log(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
         return 10.0 * torch.log10(torch.where(x <= 0, eps, x))
     if cfg.log_kind == "ln_floor":
         return torch.log(torch.clamp(x, min=eps))
+    if cfg.log_kind == "log10_floor":
+        return torch.log10(torch.clamp(x, min=eps))
     raise NotImplementedError(f"log_kind={cfg.log_kind!r}")
 
 
@@ -348,10 +403,13 @@ def logmel_stages(
         y = zero_beyond(preemphasis(audio, cfg.preemph), lengths)
     else:  # frame-first conditioning (Kaldi order): frame the raw signal
         y = zero_beyond(audio, lengths)
-    span = max(F - 1, 0) * cfg.frame_step + cfg.frame_length
-    if span > y.shape[-1]:
-        y = torch.nn.functional.pad(y, (0, span - y.shape[-1]))
-    frames = frame_signal(y, F, cfg)  # [B, F, L]
+    if centered(cfg):
+        frames = frame_signal_centered(y, F, lengths, cfg)  # [B, F, L]
+    else:
+        span = max(F - 1, 0) * cfg.frame_step + cfg.frame_length
+        if span > y.shape[-1]:
+            y = torch.nn.functional.pad(y, (0, span - y.shape[-1]))
+        frames = frame_signal(y, F, cfg)  # [B, F, L]
     eps = cfg.log_eps
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
@@ -383,14 +441,26 @@ def logmel_stages(
     return out
 
 
+def logmel_norm(base: torch.Tensor, mask: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """cfg.logmel_norm on log-mel features [B, F, M]: "whisper" clamps each
+    utterance at its max over VALID frames (mask [B, F]) less 8 log10
+    units, then (x + 4) / 4; an all-pad row's max is -1e30, harmless under
+    the clamp. "none" returns base, as does a batch with no frames."""
+    if cfg.logmel_norm != "whisper" or base.shape[-2] == 0:
+        return base
+    valid = mask[..., None] > 0
+    mx = torch.where(valid, base, -1e30).amax(dim=(-2, -1), keepdim=True)
+    return (torch.maximum(base, mx - 8.0) + 4.0) / 4.0
+
+
 def features_from_logmel(
     stages: dict[str, torch.Tensor],
     cfg: FrontendConfig,
     consts: dict[str, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Cepstra, lifter, energy, deltas and per-utterance CMVN (global CMVN
-    is corpus-level and not applied here). Returns [B, F, feat_dim] with
-    pad frames zeroed.
+    """Cepstra, lifter, energy, the Whisper norm of log-mel features,
+    deltas and per-utterance CMVN (global CMVN is corpus-level and not
+    applied here). Returns [B, F, feat_dim] with pad frames zeroed.
 
     When the stage dict carries "prefix" (the kernel's [B, F, n_mels+1]
     output: [log-mel | clamped energy]; [raw mel | energy] for PLP, [log
@@ -402,7 +472,9 @@ def features_from_logmel(
     M = cfg.n_mels
     if "prefix" in stages:
         x = stages["prefix"]
-        if cfg.features in ("logmel", "ssc"):
+        if cfg.features == "logmel":
+            base = logmel_norm(x[..., :M], mask, cfg)
+        elif cfg.features == "ssc":
             base = x[..., :M]
         elif cfg.features == "plp":
             base = plp_base(x[..., :M], x[..., M], cfg, consts)
@@ -424,7 +496,7 @@ def features_from_logmel(
                 x = torch.cat([x[..., :M], log_e], dim=-1)
             base = torch.matmul(x, k["dct_aug"])
     elif cfg.features == "logmel":
-        base = stages["logmel"]
+        base = logmel_norm(stages["logmel"], mask, cfg)
     elif cfg.features == "spectrogram":  # logmel is the log pspec (mel == identity)
         base = stages["logmel"]
         if cfg.append_energy:

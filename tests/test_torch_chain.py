@@ -42,13 +42,12 @@ from tests.test_jnp_chain import assert_logmel_close
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = ["classic13", "classic13_deltas"]
 SIGNALS = ("noise", "speechish", "short", "tone_offbin")
-SERVED = ("classic13", "classic13_deltas", "classic13_deltas_gcmvn",
-          "mfcc39_48k", "mfcc39_44k", "logmel80", "kaldi_mfcc", "kaldi_fbank",
-          "kaldi_plp", "kaldi_spectrogram", "ssc26")
-# configs outside the slice: the named ones the port does not serve, and the
-# served PLP, spectrogram and SSC families with centered framing
-OUTSIDE = {name: {} for name in set(T_CONFIGS) - set(SERVED)}
-OUTSIDE.update({name: {"frame_tail": "center"} for name in ("kaldi_plp", "kaldi_spectrogram", "ssc26")})
+# configs outside the port: every named config runs, so these are named
+# configs with what the port still refuses, centered framing of resampled
+# rows (whisper80 fed 48 kHz, the families centered at 48 kHz)
+OUTSIDE = {"whisper80": {"input_sample_rate": 48000}}
+OUTSIDE.update({name: {"frame_tail": "center", "input_sample_rate": 48000}
+                for name in ("kaldi_plp", "kaldi_spectrogram", "ssc26")})
 
 
 def _pcm(names=SIGNALS, scale=3000.0):
@@ -336,7 +335,12 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "assert tuple(feat.shape) == (1, 29, 13), feat.shape\n"
         "assert dither.signal_noise(0, 10, 160).shape == (10,)\n"
         "assert resample.launches == 0 and frontend.resample_launches == 0\n"
+        "cfg = mfcc_tpu_torch.named_config('whisper80')\n"
+        "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
+        "feat, mask = chain.extract_batch(b.audio, b.lengths, cfg, device='cpu')\n"
+        "assert tuple(feat.shape) == (1, 32, 80), feat.shape\n"
         "assert frontend.dither_launches == 0 and frontend.conditioning_launches == 0\n"
+        "assert frontend.centered_launches == 0 and frontend.mixed_radix_launches == 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"

@@ -161,18 +161,47 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
+    """A layout over the block's shared memory (n_fft = 2048: ~237 KB) and
+    centered framing of resampled rows raise on every device."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="centered framing"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["whisper80"])
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=2048))
+    with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
+        frontend.logmel_prefix(
+            audio, lengths, T_CONFIGS["whisper80"].replace(input_sample_rate=48000))
 
 
 def test_fft_twiddles_table():
-    tw = frontend.fft_twiddles()
+    tw = frontend.fft_twiddles(512)
     assert tw.shape == (256, 2) and tw.dtype == np.float32
     want = np.exp(-2j * np.pi * np.arange(256) / 512)
     np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
     np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+
+
+@pytest.mark.parametrize("n_fft,form,count", [(400, "mixed", 200), (480, "mixed", 240),
+                                              (404, "direct", 404), (405, "direct", 405),
+                                              (1024, "radix2", 512)])
+def test_dft_forms_and_twiddle_tables(n_fft, form, count):
+    """The form each n_fft takes, its radices, and its float64-built table:
+    half the circle for the FFT forms, all of it for the direct DFT."""
+    assert frontend.dft_form(n_fft) == form
+    if form == "mixed":
+        r = frontend.radices(n_fft)
+        assert np.prod(r) == n_fft // 2 and set(r) <= {2, 3, 4, 5}
+    tw = frontend.fft_twiddles(n_fft)
+    assert tw.shape == (count, 2) == (frontend.twiddle_count(n_fft), 2)
+    want = np.exp(-2j * np.pi * np.arange(count) / n_fft)
+    np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], want.astype(np.complex64))
+
+
+def test_radix_plans():
+    assert frontend.radices(400) == (4, 2, 5, 5)
+    assert frontend.radices(480) == (4, 4, 3, 5)
+    assert frontend.radices(404) is None and frontend.radices(401) is None
+    assert frontend.dft_form(512) == "radix2" and frontend.dft_form(2) == "radix2"
+    assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 114560  # two blocks an SM
 
 
 def test_mel_bands_cover_every_weight():
@@ -194,14 +223,51 @@ def test_mel_bands_cover_every_weight():
 TILE = 32
 
 
+def _reflect(t, n, kind):
+    """chain.reflect_index in numpy (n >= 1)."""
+    if kind == "center":
+        m = np.mod(t, 2 * n)
+        return np.where(m < n, m, 2 * n - 1 - m)
+    m = np.mod(t, max(2 * n - 2, 1))
+    return np.where(m < n, m, 2 * n - 2 - m)
+
+
+def _stockham(z, radices, w, H):
+    """The kernel's Stockham stages on rows z [nf, H]: butterfly j reads
+    src[j + r H/R], twists input r by table entry r·k·n_fft/(ns·R) (k = j mod
+    ns; past the half table, the negated entry), takes the R-point DFT and
+    writes dst[(j - k) R + k + q ns]."""
+    src, ns = z, 1
+    for R in radices:
+        hr, step = H // R, 2 * (H // (ns * R))
+        j = np.arange(hr)
+        k = j % ns
+        v = np.stack([src[:, j + r * hr] for r in range(R)])  # [R, nf, hr]
+        for r in range(1, R):
+            m = r * k * step
+            v[r] = v[r] * np.where(m < H, w[np.minimum(m, H - 1)], -w[np.maximum(m - H, 0)])
+        q = np.arange(R)
+        dft = np.exp(-2j * np.pi * np.outer(q, q) / R).astype(z.dtype)
+        out = np.einsum("qr,rfj->qfj", dft, v)
+        dst = np.empty_like(src)
+        d = (j - k) * R + k
+        for qq in range(R):
+            dst[:, d + qq * ns] = out[qq]
+        src, ns = dst, ns * R
+    return src
+
+
 def _emulate_kernel(audio, lengths, cfg, dtype):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
     staged row (x plus the contract noise at t < length when cfg dithers,
-    signal pre-emphasis from x[t-1], zeroing at t >= length), the per-frame
-    conditioning of the pack loop (mean over the L samples, the raw energy
-    as a second pass, frame pre-emphasis from fr[a] and fr[a-1], the
-    windowed energy of the packed values), the bit-reversed radix-2 FFT on
-    the host twiddle table, the real split, then by feature kind the
+    signal pre-emphasis from x[t-1], zeroing at t >= length; for centered
+    framing each staged position reads the reflected source index r and
+    stages x[r] - c·x[r-1]), the per-frame conditioning of the pack loop over
+    all L samples (mean, the raw energy as a second pass, frame pre-emphasis
+    from fr[a] and fr[a-1], the windowed energy), the first min(L, n_fft)
+    samples packed and transformed by the kernel's DFT form (bit-reversed
+    radix-2 or Stockham mixed-radix on the half table, then the real split;
+    or the direct DFT on the whole-circle table), then by feature kind the
     band-limited mel sums and the log kind (logmel) or nothing (plp), the
     log kind of each power bin (spectrogram), or the centroids of the
     per-bin clamped power over the band (ssc, lane M = 0), and the energy
@@ -212,13 +278,16 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     win, mel = k["window"].astype(dtype), k["mel"].astype(dtype)
     melf = (k["freqs"][:, None] * k["mel"]).astype(dtype)  # rounded once, as _tables does
     lo, hi = (t.numpy() for t in frontend.mel_bands(torch.as_tensor(mel)))
+    N, form = cfg.n_fft, frontend.dft_form(cfg.n_fft)
+    H, nb = N // 2, cfg.n_bins
     if dtype == np.float32:
-        tw = frontend.fft_twiddles().astype(dtype)
+        tw = frontend.fft_twiddles(N).astype(dtype)
         w = (tw[:, 0] + 1j * tw[:, 1]).astype(ctype)
     else:
-        w = np.exp(-2j * np.pi * np.arange(256) / 512)
+        w = np.exp(-2j * np.pi * np.arange(frontend.twiddle_count(N)) / N)
     B, T = audio.shape
-    S, L, M = cfg.frame_step, min(cfg.frame_length, 512), cfg.n_mels
+    S, L, M = cfg.frame_step, cfg.frame_length, cfg.n_mels
+    Lk = min(L, N)
     F = cfg.num_frames(T)
     span = (TILE - 1) * S + L
     pscale = dtype(1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
@@ -227,7 +296,8 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     c_sig = dtype(0.0 if frame_mode else cfg.preemph)
     c = dtype(cfg.preemph if frame_mode else 0.0)
     keep0 = dtype(np.float32(1.0 - float(c)))  # rounded on the host, passed as a float
-    rev = np.array([int(f"{n:08b}"[::-1], 2) for n in range(256)])
+    lg2 = H.bit_length() - 1
+    rev = np.array([int(f"{n:0{lg2}b}"[::-1], 2) if lg2 else 0 for n in range(H)])
     out = np.empty((B, F, M + 1), dtype)
     x_all = audio.astype(dtype) * dtype(cfg.input_scale)
     if cfg.dither > 0.0:
@@ -236,10 +306,17 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     for b in range(B):
         n = min(int(lengths[b]), T)
         for f0 in range(0, F, TILE):
-            t = f0 * S + np.arange(span)
-            ok = t < n
-            x = np.where(ok, x_all[b, np.minimum(t, T - 1)], 0)
-            xp = np.where(ok & (t > 0), x_all[b, np.clip(t - 1, 0, T - 1)], 0)
+            if tchain.centered(cfg):
+                r = _reflect(f0 * S + tchain.frame_offset(cfg) + np.arange(span), max(n, 1),
+                             cfg.frame_tail)
+                ok = r < n
+                x = np.where(ok, x_all[b, np.minimum(r, T - 1)], 0)
+                xp = np.where(ok & (r > 0), x_all[b, np.clip(r - 1, 0, T - 1)], 0)
+            else:
+                t = f0 * S + np.arange(span)
+                ok = t < n
+                x = np.where(ok, x_all[b, np.minimum(t, T - 1)], 0)
+                xp = np.where(ok & (t > 0), x_all[b, np.clip(t - 1, 0, T - 1)], 0)
             sig = np.where(ok, x - c_sig * xp, 0).astype(dtype)
             nf = min(TILE, F - f0)
             f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
@@ -249,26 +326,38 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
                 e_raw = (d * d).sum(axis=-1)
                 g = np.concatenate([d[:, :1] * keep0, d[:, 1:] - c * d[:, :-1]], axis=-1)
                 f = g
-            fr = np.zeros((nf, 512), dtype)
-            fr[:, :L] = f * win[:L]
-            e_win = (fr * fr).sum(axis=-1)
-            z = np.empty((nf, 256), ctype)
-            z[:, rev] = fr[:, 0::2] + 1j * fr[:, 1::2]
-            j = np.arange(128)
-            for lg in range(8):
-                half = 1 << lg
-                pos = j & (half - 1)
-                i0 = ((j >> lg) << (lg + 1)) + pos
-                v = z[:, i0 + half] * w[pos << (8 - lg)]
-                u = z[:, i0].copy()
-                z[:, i0], z[:, i0 + half] = u + v, u - v
-            kk = np.arange(129)
-            a, cc = z[:, kk], np.conj(z[:, (256 - kk) & 255])
-            xe, xo = (a + cc) / 2, (a - cc) / 2j
-            X, Y = xe + w[kk] * xo, xe - w[kk] * xo
-            P = np.empty((nf, 257), dtype)
-            P[:, kk] = np.abs(X) ** 2 * pscale
-            P[:, 256 - kk[:-1]] = np.abs(Y[:, :-1]) ** 2 * pscale
+            wf = f * win
+            e_win = (wf * wf).sum(axis=-1)  # all L samples, past n_fft too
+            fr = np.zeros((nf, 2 * H + 2), dtype)
+            fr[:, :Lk] = wf[:, :Lk]
+            if form == "direct":
+                idx = np.outer(np.arange(nb), np.arange(Lk)) % N
+                X = (fr[:, None, :Lk] * w[idx][None]).sum(axis=-1)
+                P = (np.abs(X) ** 2 * pscale).astype(dtype)
+            else:
+                z = (fr[:, 0 : 2 * H : 2] + 1j * fr[:, 1 : 2 * H : 2]).astype(ctype)
+                if form == "radix2":
+                    zz = np.empty_like(z)
+                    zz[:, rev] = z
+                    z = zz
+                    j = np.arange(H // 2)
+                    for lg in range(lg2):
+                        half = 1 << lg
+                        pos = j & (half - 1)
+                        i0 = ((j >> lg) << (lg + 1)) + pos
+                        v = z[:, i0 + half] * w[pos << (lg2 - lg)]
+                        u = z[:, i0].copy()
+                        z[:, i0], z[:, i0 + half] = u + v, u - v
+                else:
+                    z = _stockham(z, frontend.radices(N), w, H)
+                kk = np.arange(H // 2 + 1)
+                a, cc = z[:, kk], np.conj(z[:, np.where(kk == 0, 0, H - kk)])
+                xe, xo = (a + cc) / 2, (a - cc) / 2j
+                X, Y = xe + w[kk] * xo, xe - w[kk] * xo
+                P = np.empty((nf, nb), dtype)
+                P[:, kk] = np.abs(X) ** 2 * pscale
+                mirror = 2 * kk != H
+                P[:, H - kk[mirror]] = np.abs(Y[:, mirror]) ** 2 * pscale
             for m in range(M):
                 band = slice(lo[m], hi[m])
                 if kind == "spectrogram":
@@ -299,6 +388,8 @@ def _log_lane(acc, kind, eps, dtype):
         return dtype(10) * np.log10(np.where(acc <= 0, eps, acc))
     if kind == "ln_floor":
         return np.log(np.maximum(acc, eps))
+    if kind == "log10_floor":
+        return np.log10(np.maximum(acc, eps))
     return np.log(np.where(acc <= 0, eps, acc))
 
 
@@ -340,10 +431,23 @@ BRANCHES = [
     ("kaldi_spectrogram", {}),
     ("ssc26", {}),
     ("ssc26", {"dither": 0.5, "remove_dc_offset": True}),
+    ("whisper80", {}),
+    ("whisper80", {"dither": 0.5}),
+    ("classic13", {"frame_tail": "center", "dither": 1.0}),
+    ("kaldi_mfcc", {"frame_tail": "center", "dither": 1.0}),
+    ("classic13", {"frame_tail": "center_reflect"}),
+    ("classic13", {"n_fft": 404}),
+    ("classic13", {"n_fft": 480}),
+    ("kaldi_fbank", {"n_fft": 405}),
+    ("kaldi_mfcc", {"win_len_s": 0.040, "energy_source": "windowed_frame"}),
+    ("kaldi_spectrogram", {"n_fft": 400, "n_mels": 201}),
 ]
 BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_no_dc",
               "logmel80_ln_stab", "logmel80_db", "classic13_dither", "kaldi_plp",
-              "kaldi_spectrogram", "ssc26", "ssc26_dither_dc"]
+              "kaldi_spectrogram", "ssc26", "ssc26_dither_dc", "whisper80", "whisper80_dither",
+              "center_preemph_dither", "kaldi_center_dither", "center_reflect_preemph",
+              "direct_dft_404", "mixed_radix_480", "direct_dft_odd_405",
+              "frame_longer_than_nfft_windowed_energy", "spectrogram_400"]
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)

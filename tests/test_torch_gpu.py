@@ -90,8 +90,10 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio, lengths.long(), cfg)
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
-    with pytest.raises(NotImplementedError, match="centered framing"):
-        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["whisper80"])
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=2048))
+    with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
+        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["whisper80"].replace(input_sample_rate=48000))
 
 
 def test_extract_batch_on_card_matches_cpu():
@@ -266,15 +268,26 @@ def test_drop_framing_of_a_short_batch_launches_nothing():
     assert tuple(feat.shape) == (3, 0, cfg.feat_dim) and tuple(mask.shape) == (3, 0)
 
 
-def test_conditioning_of_frames_over_512_samples_raises():
+def test_conditioning_of_frames_longer_than_nfft():
+    """kaldi_mfcc with 40 ms frames (L = 640 > n_fft = 512): all L samples
+    conditioned, the first 512 transformed, as rfft(n=512) truncates."""
     dev = _card()
-    cfg = NAMED_CONFIGS["kaldi_mfcc"].replace(win_len_s=0.040)
-    audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
-    lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="longer than 512"):
-        frontend.logmel_prefix(audio, lengths, cfg)
-    with pytest.raises(NotImplementedError, match="longer than 512"):
-        chain.extract_batch(audio, lengths, cfg)
+    cfg = NAMED_CONFIGS["kaldi_mfcc"].replace(win_len_s=0.040, n_fft=512)
+    assert chain.unsupported_reason(cfg) is None
+    b = _pcm_batch(cfg)
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    for c in (cfg, cfg.replace(energy_source="windowed_frame", dither=1.0)):
+        got = frontend.logmel_prefix(audio, lengths, c)
+        assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, c), c.n_mels,
+                            c.log_kind)
+    before = frontend.conditioning_launches
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    assert frontend.conditioning_launches == before + 1
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+    testing.assert_kaldi_features_close(feat.cpu()[valid], cpu[valid], cfg)
 
 
 @pytest.mark.parametrize("config_name", ["kaldi_mfcc", "kaldi_fbank", "logmel80"])
@@ -341,13 +354,107 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 def test_layout_over_the_block_budget_raises():
     """A config whose staged matrices overflow the block's 227 KB raises
-    before the launch (230 mel filters: a 236 KB matrix)."""
+    before the launch (230 mel filters: a 236 KB matrix), as does an
+    n_fft = 2048 layout at 26 filters (~237 KB)."""
     dev = _card()
     cfg = NAMED_CONFIGS["classic13"].replace(n_mels=230)
     assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg.replace(n_mels=26, n_fft=2048)) > rs_kernel.SMEM_BUDGET_BYTES
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
-    with pytest.raises(ValueError, match="232,448 bytes"):
+    with pytest.raises(NotImplementedError, match="232,448"):
         frontend.logmel_prefix(audio, lengths, cfg)
     assert frontend.launches == before
+
+
+def _counts():
+    return (frontend.launches, frontend.centered_launches, frontend.mixed_radix_launches,
+            frontend.direct_dft_launches, frontend.dither_launches)
+
+
+def test_whisper80_at_30_s_matches_reference():
+    """whisper80 at b4 × 30 s int16 (Whisper's padded chunk, lengths
+    480,000 and shorter, multi-wrap rows): one launch with the centered and
+    mixed-radix branches; the prefix within the gates of the float64 plain
+    version (its narrow filters' lanes under the per-bin gate), features
+    within 5e-5 of the CPU chain and the mask equal."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["whisper80"]
+    g = np.random.default_rng(23)
+    utts = [g.standard_normal(n) * 3000 for n in (480000, 480000 - 1713, 801, 90)]
+    b = pad_batch(utts, cfg, bucket_len=480000, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    before = _counts()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4])
+    assert got.shape == (4, cfg.num_frames(b.audio.shape[1]), 81)
+    want = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
+    narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, narrow=narrow)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    testing.assert_whisper_features_close(feat, cpu)
+
+
+CENTERED = [
+    ("kaldi_mfcc", {"frame_tail": "center", "dither": 1.0}),
+    ("classic13", {"frame_tail": "center", "dither": 1.0}),
+    ("classic13", {"frame_tail": "center_reflect"}),
+    ("classic13", {"n_fft": 404}),
+    ("classic13", {"n_fft": 480}),
+    ("whisper80", {"dither": 0.5}),
+]
+CENTERED_IDS = ["kaldi_center_dither", "center_preemph_dither", "center_reflect_preemph",
+                "direct_dft_404", "mixed_radix_480", "whisper80_dither"]
+
+
+@pytest.mark.parametrize("name,overrides", CENTERED, ids=CENTERED_IDS)
+def test_centered_and_dft_forms_match_reference(name, overrides):
+    """Centered staging in both modes (source-index pre-emphasis and noise),
+    the direct DFT and a radix-3 Stockham size against the plain version,
+    rows down to 90 samples (multi-wrap); int16 ≡ float32, two runs equal."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    g = np.random.default_rng(29)
+    utts = [g.standard_normal(n) * 3000 for n in (16000, 12345, 801, 401, 250, 90)]
+    b = pad_batch(utts, cfg, bucket_len=16000, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    form = frontend.dft_form(cfg.n_fft)
+    before = _counts()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + chain.centered(cfg),
+                         before[2] + (form == "mixed"), before[3] + (form == "direct"),
+                         before[4] + (cfg.dither > 0))
+    narrow = None
+    if cfg.logmel_norm == "whisper":
+        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
+    assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
+                        cfg.log_kind, narrow=narrow)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+
+
+def test_rows_over_the_reference_slab_bound():
+    """classic13_deltas at b2 × 140 s (2.24 M samples a row, over the 8 MiB
+    slab that sends the TPU kernel to its view mode): the prefix within the
+    gates of the plain version, features within 5e-4 of the CPU chain."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13_deltas"]
+    g = np.random.default_rng(31)
+    n = 140 * 16000
+    b = pad_batch([g.standard_normal(n) * 3000, g.standard_normal(n - 16001) * 3000], cfg,
+                  dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels)
+    feat, _ = chain.extract_batch(b.audio, b.lengths, cfg)
+    cpu, _ = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert_features_close(feat, cpu)

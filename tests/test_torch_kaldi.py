@@ -197,8 +197,9 @@ def test_reference_matches_pallas_prefix(name, over):
 
 
 def test_prefix_gate_reads_db_lanes_as_natural_log():
-    """A db lane differs from ln by 10/ln 10; the gates convert it first, so
-    the same relative error reads the same under both kinds."""
+    """A db lane differs from ln by 10/ln 10, a log10_floor lane by 1/ln 10;
+    the gates convert them first, so the same relative error reads the same
+    under every kind, and an unknown kind raises."""
     g = np.random.default_rng(2)
     lin = np.exp(g.uniform(0, 20, size=(3, 5, 4)))
     want = np.concatenate([np.log(lin), lin.sum(-1, keepdims=True)], -1)
@@ -212,8 +213,13 @@ def test_prefix_gate_reads_db_lanes_as_natural_log():
     testing.assert_prefix_close(db_got, db, 4, "db")
     with pytest.raises(AssertionError, match="logmel_loud_max_abs"):
         testing.assert_prefix_close(db_got, db, 4)  # read as ln: 4.3x the error, over the gate
-    with pytest.raises(ValueError, match="log10_floor"):
-        testing.prefix_errors(got, want, 4, "log10_floor")
+    lg = want.copy()
+    lg[..., :4] = np.log10(lin)
+    lg_got = lg.copy()
+    lg_got[..., :4] += 8e-6 / np.log(10)
+    testing.assert_prefix_close(lg_got, lg, 4, "log10_floor")
+    with pytest.raises(ValueError, match="log_kind='log2'"):
+        testing.prefix_errors(got, want, 4, "log2")
 
 
 def test_log_kinds_match_jax():
@@ -223,7 +229,7 @@ def test_log_kinds_match_jax():
         jcfg = J_CONFIGS["classic13"].replace(log_kind=kind)
         got = tchain.apply_log(torch.as_tensor(x), tcfg).numpy()
         np.testing.assert_allclose(got, np.asarray(jchain.apply_log(jnp.asarray(x), jcfg)), rtol=1e-6)
-    assert tuple(tchain.LOG_KINDS) == ("ln", "ln_stab", "db", "ln_floor")
+    assert tuple(tchain.LOG_KINDS) == ("ln", "ln_stab", "db", "ln_floor", "log10_floor")
 
 
 def test_preemphasis_frames_matches_jax():
@@ -285,11 +291,18 @@ def test_pad_batch_under_drop_matches_jax(name):
 
 @pytest.mark.parametrize(
     "over,match",
-    [(dict(win_len_s=0.040), "longer than 512"), (dict(frame_tail="center"), "queue 2 item 2"),
-     (dict(log_kind="log10_floor"), "queue 2 item 2"), (dict(drop_last_frame=True), "queue 2 item 2")],
+    [(dict(win_len_s=3.0), "shared memory"),
+     (dict(frame_tail="center", input_sample_rate=48000), "centered framing of resampled rows"),
+     (dict(log_kind="log10_floor", n_fft=4096), "shared memory"),
+     (dict(drop_last_frame=True, frame_tail="center_reflect", input_sample_rate=44100),
+      "centered framing of resampled rows")],
     ids=["long_frame_conditioning", "centered", "log10_floor", "drop_last_frame"],
 )
 def test_outside_the_slice_raises_on_cpu(over, match):
+    """Conditioning of long frames, centered framing, log10_floor and
+    drop_last_frame are in the port; each still raises where it meets what
+    is not: a 3 s frame or n_fft = 4096 over the kernel's shared memory,
+    centered framing of resampled rows."""
     cfg = T_CONFIGS["kaldi_mfcc"].replace(**over)
     with pytest.raises(NotImplementedError, match=match):
         tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg, device="cpu")

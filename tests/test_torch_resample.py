@@ -261,7 +261,7 @@ def _emulate_fused_staging(audio, lengths, cfg, dtype):
     B, T = audio.shape
     T_out = R.output_length(T, cfg.input_sample_rate, cfg.sample_rate)
     F, S = cfg.num_frames(T_out), cfg.frame_step
-    span = (frontend.TILE - 1) * S + min(cfg.frame_length, frontend.NFFT)
+    span = (frontend.TILE - 1) * S + cfg.frame_length
     n_win = K.input_span(span + 1, d)
     c = dtype(cfg.preemph)
     n_tiles = -(-F // frontend.TILE)
