@@ -12,14 +12,19 @@ Phases, in order; any failure exits non-zero:
      test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
      boundary lengths, garbage past each length leaving the output
      unchanged); then `chain.extract_batch` with every launch count set to
-     0 just before and read just after: features [64, 999, 39], finite, pad
+     0 just before and read just after (the front-end kernel and the
+     feature-tail kernel once each): features [64, 999, 39], finite, pad
      frames exactly 0, within 5e-4 of the CPU chain and of the float64
-     chain on four rows; times;
+     chain on four rows; the tail kernel on the front-end's own prefix
+     against its plain version (max(2e-4, 2e-5 max|f|)), masks equal, pad
+     rows 0, and extract_batch's features bitwise the tail's; times (the
+     tail kernel and the torch epilogue in turns, the epilogue's device
+     kernels and time);
   4. path mfcc39_48k (b64 x 10 s int16 PCM at 48 kHz, lengths
      480,000 - 1,713*i): the fused resample of the front-end kernel against
      its plain version (prefix gates, int16 ≡ float32 bitwise, dirty tails,
      boundary input lengths at the 16 kHz frame and first-tile edges); then
-     `extract_batch`, counted (fused resample 1, the others 0): [64, 999, 39]
+     `extract_batch`, counted (fused resample 1, tail 1, the others 0): [64, 999, 39]
      within 8e-4 of the CPU chain and of the float64 chain; times;
   5. path resample_batch (the same rows as float32 [64, 480,080], 48 kHz ->
      16 kHz): the polyphase kernel, counted, within 1e-5 of each row's max
@@ -74,12 +79,24 @@ Phases, in order; any failure exits non-zero:
   17. frames longer than n_fft (kaldi_mfcc with 40 ms frames at n_fft 512,
      with raw and windowed energy), b16;
   18. rows over the reference's 8 MiB slab bound (its view mode):
-     classic13_deltas at b2 x 140 s, timed.
+     classic13_deltas at b2 x 140 s, timed;
+  19. the feature tail's branches at b16 through
+     `fused_logmel_stages(feature_tail=True)`, counted, each against its
+     plain version on the same prefix: utterance CMVN with and without
+     variance normalization, one delta order, no energy, Kaldi's energy
+     floor; rows at n_valid 0, 1, 2 and the tile edges 31-33 and 64, a zero
+     row and a 100 Hz tone (near-constant CMVN columns are held before the
+     division, `testing.cmvn_column_scale`);
+  20. the bf16x3 form: classic13 b64 x 10 s through
+     `fused_logmel_stages(dft_passes="bf16x3")`, counted, against its plain
+     version and the float64 plain version (loud bins 1e-3), timed beside
+     the radix-2 form in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16.
   Phases 13-18 each hold the kernel to its plain version (whisper80 and the
   n_fft 404 and 480 sizes: the float64 plain version), check int16 ≡
   float32, two runs and dirty tails ≡ clean bitwise, and count
   `extract_batch` with its features within the config's gate of the CPU
-  chain and the float64 chain.
+  chain and the float64 chain. Every mfcc path's extract_batch (phases 3,
+  4, 6, 7 and 14-18) launches the feature tail once.
 Times are CUDA events after warm-up (median of launches with the 64 MiB
 flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
@@ -95,8 +112,12 @@ frame, the dither's 30 float operations per sample that holds signal (its
 25 integer hash operations counted at the fp32 rate, which no int32 rate of
 the card exceeds, so the bound stays a lower bound; ln and sqrt one each),
 and the resample's taps (the 61 symmetric taps of 48 kHz -> 16 kHz folded:
-91 FLOP per output). No PyTorch call computes the contract noise or the
-conditioning, so those two entries have no library time. A
+91 FLOP per output); the bf16x3 form is held to the same function's
+bound (its matrix among the bytes), its three tensor passes printed beside
+at the bf16 peak; the feature tail's bound counts its prefix and features
+and its per-frame products and delta sums (`tail_bound`). No PyTorch call
+computes the contract noise, the conditioning or the cepstral tail, so
+those entries have no library time. A
 torch.profiler pass over five steps of each extract_batch path gives device
 kernels per step, device busy time and the step's idle share.
 The line before the last is {"kernels": [...]}; the last is
@@ -123,10 +144,21 @@ WHISPER_SHORT = [801, 401, 250, 90]  # rows of the ragged whisper80 batch that w
 LONG_SECONDS = 140  # 2.24 M samples a row, over the reference's 8 MiB slab (~131 s)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32, outside the tensor cores
+PEAK_BF16_FLOPS = 989.4e12  # H100 SXM dense bf16 on the tensor cores
 BOUNDARY_LENGTHS = [0, 1, 399, 400, 401, 32 * 160 - 1, 32 * 160, 32 * 160 + 1]
 # at 48 kHz one 16 kHz frame is 1,200 input samples; 16,080 ends the first 32-frame tile
 RS_BOUNDARY_LENGTHS = [0, 1, 2, 3, 1199, 1200, 1201, 16079, 16080, 16081]
-SOURCES = ("frontend", "resample")
+# the tail's rows: "pad" framing gives n_valid 0, 1, 1, 1, 2, 31, 32, 33 and 64
+# frames (the tile edges) at these lengths
+TAIL_LENGTHS = [0, 1, 399, 400, 401, 5200, 5360, 5361, 10480]
+TAIL_CASES = (
+    ("classic13_deltas", {"cmvn": "utterance"}),
+    ("classic13_deltas", {"cmvn": "utterance", "cmvn_var_norm": False}),
+    ("classic13", {"deltas": 1}),
+    ("classic13", {"append_energy": False}),
+    ("kaldi_mfcc", {"energy_floor": 1e-3}),
+)
+SOURCES = ("frontend", "resample", "tail")
 KERNELS = {
     "frontend": {
         "name": "frontend_logmel",
@@ -194,6 +226,18 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:571",
     },
+    "feature_tail": {
+        "name": "feature_tail",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/tail.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:714",
+    },
+    "bf16x3": {
+        "name": "frontend_bf16x3_dft",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:857",
+    },
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # dither: float operations per sample that holds signal (uniforms 4, ln,
@@ -249,13 +293,14 @@ def host_ms(torch, fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def profile_step(torch, fn, kernel_substr: str, steps: int = 5):
+def profile_step(torch, fn, kernel_substr: str | None, steps: int = 5):
     """(device kernels per step, device busy ms per step, ms of the kernels
-    whose name holds kernel_substr per step) over `steps` calls of fn,
-    traced after two warm-up calls inside the same session (a session's
-    first launches can be missed while tracing starts: one run saw 4 of 5
-    front-end records). A trace that still lost some of those kernels'
-    records is taken again, up to three times."""
+    whose name holds kernel_substr per step, ms of the feature-tail kernels
+    per step) over `steps` calls of fn, traced after two warm-up calls
+    inside the same session (a session's first launches can be missed while
+    tracing starts: one run saw 4 of 5 front-end records). A trace that
+    still lost some of those kernels' records is taken again, up to three
+    times; kernel_substr None takes the first trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
@@ -270,21 +315,27 @@ def profile_step(torch, fn, kernel_substr: str, steps: int = 5):
         # kernels'), without the ProfilerStep ranges mirrored on the device
         on_device = [e for e in prof.events() if e.device_type.name == "CUDA"
                      and not e.name.startswith("ProfilerStep")]
+        if kernel_substr is None:
+            ours = []
+            break
         ours = [e for e in on_device if kernel_substr in e.name]
         if len(ours) == steps:
             break
         print(f"  profiler: {len(ours)} of {steps} {kernel_substr} records, tracing again")
-    check(len(ours) == steps, f"the profiler traced {len(ours)} of {steps} {kernel_substr} launches")
+    if kernel_substr is not None:
+        check(len(ours) == steps, f"the profiler traced {len(ours)} of {steps} {kernel_substr} launches")
     busy = sum(e.self_device_time_total for e in on_device) / 1e3 / steps
     ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / steps
-    return len(on_device) / steps, busy, ours_ms
+    tail_ms = sum(e.self_device_time_total for e in on_device
+                  if "tail_kernel" in e.name or "cmvn_kernel" in e.name) / 1e3 / steps
+    return len(on_device) / steps, busy, ours_ms, tail_ms
 
 
 class Counters:
     """The wrappers' launch counts, zeroed and read around one path."""
 
-    def __init__(self, frontend, rs_kernel):
-        self.frontend, self.rs_kernel = frontend, rs_kernel
+    def __init__(self, frontend, rs_kernel, tail):
+        self.frontend, self.rs_kernel, self.tail = frontend, rs_kernel, tail
 
     def zero(self) -> None:
         self.frontend.launches = 0
@@ -297,7 +348,10 @@ class Counters:
         self.frontend.centered_launches = 0
         self.frontend.mixed_radix_launches = 0
         self.frontend.direct_dft_launches = 0
+        self.frontend.bf16x3_launches = 0
         self.rs_kernel.launches = 0
+        self.tail.tail_launches = 0
+        self.tail.tail_cmvn_launches = 0
 
     def read(self) -> dict[str, int]:
         return {
@@ -312,6 +366,9 @@ class Counters:
             "centered": self.frontend.centered_launches,
             "mixed": self.frontend.mixed_radix_launches,
             "direct": self.frontend.direct_dft_launches,
+            "bf16x3": self.frontend.bf16x3_launches,
+            "tail": self.tail.tail_launches,
+            "tail_cmvn": self.tail.tail_cmvn_launches,
         }
 
     def expect(self, what: str, **want: int) -> dict[str, int]:
@@ -464,7 +521,7 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
     rows = audio.shape[0]
     e2e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
     fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
-    per_step, busy_ms, ours_ms = profile_step(
+    per_step, busy_ms, ours_ms, tail_ms = profile_step(
         torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
     check(ours_ms > 0, f"the profiler sees the {what} on the card")
     print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
@@ -472,7 +529,8 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
     print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
           f"{rows * seconds / (fed_ms / 1e3):.0f} audio-s/s {tag}")
     print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
-          f"({what} {ours_ms:.4f} ms, the rest {busy_ms - ours_ms:.4f} ms); "
+          f"({what} {ours_ms:.4f} ms, feature tail {tail_ms:.4f} ms, the rest "
+          f"{busy_ms - ours_ms - tail_ms:.4f} ms); "
           f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
     return e2e_ms, ours_ms
 
@@ -708,7 +766,8 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("extract_batch", frontend=1, **branches)
+    launches = counters.expect("extract_batch", frontend=1, **branches,
+                               **({"tail": 1} if cfg.features == "mfcc" else {}))
     check_features(torch, chain, testing, batch, cfg, feat, mask, atol, atol64=atol64)
     return batch, audio, lengths_d, errs, launches
 
@@ -798,6 +857,203 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
                                 bound_by=bound_by, library_ms=rfft_ms)
 
 
+def tail_bound(cfg, B: int, F: int, frames: int) -> tuple[float, str]:
+    """The feature tail's bound: it reads the [B, F, n_mels+1] prefix, the
+    valid frame counts and dct_aug and writes [B, F, feat_dim], each once;
+    per valid frame it does the energy lane's log, clamp and floor (3), the
+    [n_mels+1] x [n_ceps] product (2 M1 C) and per delta order C (3N + 1)
+    (N differences, products and sums, one division); CMVN adds per valid
+    value a sum, a centring, a square, a sum and the division (5 D)."""
+    M1, C, N, D = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window, cfg.feat_dim
+    nbytes = 4 * (B * F * M1 + B + M1 * C + B * F * D)
+    per_frame = 3 + 2 * M1 * C + cfg.deltas * C * (3 * N + 1)
+    if cfg.cmvn == "utterance":
+        per_frame += 5 * D
+    print(f"  feature tail: {frames} valid frames x {per_frame} operations")
+    return bound(nbytes, frames * per_frame)
+
+
+def main_path_tail(torch, chain, testing, tail, cfg, prefix, lengths, feat, mask, launches,
+                   tag: str) -> dict:
+    """Phase 3's feature tail: the kernel on the front-end kernel's own
+    b64 x 10 s prefix against its plain version (the torch epilogue), masks
+    equal, pad rows exactly 0, extract_batch's features bitwise those of the
+    kernel on that prefix; the kernel and the epilogue timed in turns, and the
+    device times of both from the profiler. The kernel's `ms` is its device
+    time with L2 flushed before each launch: CUDA events around a launch of
+    ~0.03 ms also hold the host's time in the Python wrapper, whose launch
+    the card waits for."""
+    nv = chain.num_valid_frames(lengths, cfg).to(torch.int32)
+    got = tail.feature_tail(prefix, nv, cfg)
+    torch.cuda.synchronize()
+    want = tail.feature_tail_reference(prefix, nv, cfg)
+    errs = testing.tail_errors(got, want)
+    print("  feature tail vs its plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    check(not testing.tail_failures(errs), "feature tail within max(2e-4, 2e-5 max|f|) of the plain version")
+    check(torch.equal(chain.frame_mask(nv, prefix.shape[1], torch.float32), mask),
+          "the tail's mask is extract_batch's")
+    check(bool((got[mask == 0] == 0).all()), "the tail's pad rows exactly 0")
+    check(torch.equal(got, feat), "extract_batch's features == the tail kernel's on the same prefix, bitwise")
+    print(f"  times {tag}")
+    runs = []
+    for _ in range(2):  # in turns: kernel, epilogue, kernel, epilogue
+        runs.append((cuda_ms(torch, lambda: tail.feature_tail(prefix, nv, cfg)),
+                     cuda_ms(torch, lambda: tail.feature_tail_reference(prefix, nv, cfg), reps=10)))
+    event_ms = float(np.mean([k for k, _ in runs]))
+    plain_ms = float(np.mean([p for _, p in runs]))
+    kernels, busy, _, _ = profile_step(torch, lambda: tail.feature_tail_reference(prefix, nv, cfg), None)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    _, _, kernel_ms, _ = profile_step(
+        torch, lambda: (flush.zero_(), tail.feature_tail(prefix, nv, cfg)), "tail_kernel")
+    B, F = prefix.shape[:2]
+    bound_ms, bound_by = tail_bound(cfg, B, F, int(nv.sum()))
+    print(f"  feature-tail kernel: {kernel_ms:.4f} ms of device time, L2 flushed "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound); CUDA events {event_ms:.4f} ms "
+          f"({runs[0][0]:.4f}, {runs[1][0]:.4f}) {tag}")
+    print(f"  plain version (the torch epilogue): {plain_ms:.4f} ms ({runs[0][1]:.4f}, "
+          f"{runs[1][1]:.4f}); its device time {busy:.4f} ms in {kernels:.0f} kernels {tag}")
+    print("  library: none (no single PyTorch call computes the cepstral tail)")
+    return dict(launches=launches["tail"], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def tail_paths(torch, counters, tag: str) -> None:
+    """Phase 19: the feature tail's branches at b16 through
+    fused_logmel_stages(feature_tail=True), counted, each against its plain
+    version on the same prefix: utterance CMVN with and without variance
+    normalization, one delta order, no energy, the Kaldi energy floor; rows
+    at n_valid 0, 1, 2 and the tile edges, a zero row and a 100 Hz tone
+    (period = hop, near-constant frames)."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend, tail
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    n = 16000 * SECONDS
+    g = np.random.default_rng(26)
+    extra = B_SMALL - len(TAIL_LENGTHS) - 2
+    utts = [g.standard_normal(x) * 3000 for x in TAIL_LENGTHS + [n - 571 * i for i in range(extra)]]
+    utts += [np.zeros(n), 3000 * np.sin(2 * np.pi * 100 * np.arange(n) / 16000)]
+    print(f"== 19. the feature tail's branches, b{B_SMALL} x {SECONDS} s (lengths {TAIL_LENGTHS}, "
+          f"full rows, a zero row, a 100 Hz tone)")
+    for name, over in TAIL_CASES:
+        cfg = named_config(name).replace(**over)
+        batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        counters.zero()
+        st = frontend.fused_logmel_stages(audio, lengths, cfg, feature_tail=True)
+        torch.cuda.synchronize()
+        counters.expect(f"{name} {over}", frontend=1, tail=1,
+                        **({"tail_cmvn": 1} if cfg.cmvn == "utterance" else {}),
+                        **({"conditioning": 1} if chain.needs_conditioning(cfg) else {}))
+        got, nv = st["features_fused"], st["n_valid"]
+        prefix = frontend.logmel_prefix(audio, lengths, cfg)
+        want = tail.feature_tail_reference(prefix, nv, cfg)
+        scale = None
+        if cfg.cmvn == "utterance" and cfg.cmvn_var_norm:
+            pre = tail.feature_tail_reference(prefix, nv, cfg.replace(cmvn="off"))
+            scale = testing.cmvn_column_scale(pre, nv, cfg.cmvn_eps)
+            print(f"   {int((scale < 1).sum())} of {scale.size} utterance columns have sd < 1: held "
+                  "before the division")
+        errs = testing.tail_errors(got, want, scale)
+        print(f"   {name} {over}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        check(not testing.tail_failures(errs), f"{name} {over}: the tail within its gate of the plain version")
+        cpu_nv = chain.num_valid_frames(torch.as_tensor(batch.lengths), cfg)
+        check(torch.equal(st["frame_mask"].cpu(), chain.frame_mask(cpu_nv, got.shape[1], torch.float32)),
+              "masks equal to the CPU chain's")
+        check(bool((got[st["frame_mask"] == 0] == 0).all()), "pad rows exactly 0")
+
+
+def bf16x3_path(torch, counters, tag: str) -> dict:
+    """Phase 20: the bf16x3 form, classic13 b64 x 10 s through
+    fused_logmel_stages(dft_passes="bf16x3"), counted: against its plain
+    version (loud bins 1e-3, the other prefix gates) and the float64 plain
+    version (loud bins 1e-3); timed beside the radix-2 form on the same rows,
+    in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    cfg = named_config("classic13")
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=0)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    kp, nbp = frontend.bf16_dims(cfg)
+    print(f"== 20. the bf16x3 form: classic13 b{B} x {SECONDS} s int16 [{B}, {T}], matrix "
+          f"[{kp}, {2 * nbp}] bf16 x 2, {frontend.smem_bytes(cfg, 'bf16x3')} B of shared memory a block")
+    counters.zero()
+    st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="bf16x3")
+    torch.cuda.synchronize()
+    launches = counters.expect("fused_logmel_stages(dft_passes='bf16x3')", frontend=1, bf16x3=1)
+    got = st["prefix"]
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    plain = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+    errs = testing.prefix_errors(got, plain, M)
+    print("  kernel vs its plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    fails = testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL)
+    check(not fails, f"bf16x3 kernel within its gates of the plain version {fails or ''}")
+    del plain
+    f64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
+    e64 = testing.prefix_errors(got, f64, M)
+    print("  kernel vs the float64 plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in e64.items()))
+    check(e64["logmel_loud_max_abs"] < testing.BF16X3_LOUD_ATOL, "loud bins within 1e-3 of float64")
+    del f64
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3")),
+          "int16 rows == the same rows in float32, bitwise")
+
+    print(f"  times {tag}")
+    runs = []
+    for _ in range(2):  # in turns: bf16x3, radix-2, bf16x3, radix-2
+        runs.append((cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")),
+                     cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))))
+    kernel_ms = float(np.mean([k for k, _ in runs]))
+    r2_ms = float(np.mean([r for _, r in runs]))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg,
+                                                                       dft_passes="bf16x3"), reps=10)
+    st = chain.logmel_stages(audio, lengths, cfg)
+    framed = torch.nn.functional.pad(st["windowed"].reshape(B * F, -1), (0, cfg.n_fft - cfg.frame_length))
+    framed = framed.contiguous()
+    del st
+    rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
+    del framed
+    lens = np.minimum(batch.lengths.astype(np.int64), T)
+    frames = int(sum(min(F, math.ceil(x / cfg.frame_step)) for x in lens))
+    matrix_bytes = 2 * kp * 2 * nbp * 2
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B, F) + matrix_bytes,
+                               frontend_ops(cfg, chain, frontend, torch, lens, F))
+    tensor_ms = 3 * 2 * kp * 2 * cfg.n_bins * frames / PEAK_BF16_FLOPS * 1e3
+    print(f"  bf16x3 kernel: {kernel_ms:.4f} ms ({runs[0][0]:.4f}, {runs[1][0]:.4f}; "
+          f"{bound_ms / kernel_ms * 100:.1f}% of the function's bound) {tag}")
+    print(f"  radix-2 form on the same rows: {r2_ms:.4f} ms ({runs[0][1]:.4f}, {runs[1][1]:.4f}); "
+          f"bf16x3 / radix-2 = {kernel_ms / r2_ms:.2f} {tag}")
+    print(f"  the three bf16 passes alone: 3 x 2 x {kp} x {2 * cfg.n_bins} FLOP x {frames} frames "
+          f"-> {tensor_ms:.4f} ms at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s bf16")
+    print(f"  plain version (three fp32 matmuls of bf16 parts): {plain_ms:.4f} ms; torch.fft.rfft on "
+          f"[{B * F}, {cfg.n_fft}] (DFT only): {rfft_ms:.4f} ms {tag}")
+    del audio, lengths
+
+    cfg = named_config("kaldi_mfcc").replace(dither=1.0, n_fft=404)
+    batch = make_batch(pad_batch, cfg, B_SMALL, n, 571, seed=27)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+    torch.cuda.synchronize()
+    counters.expect("kaldi_mfcc n_fft 404 bf16x3", frontend=1, bf16x3=1, conditioning=1, dither=1)
+    e = testing.prefix_errors(got, frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3"),
+                              cfg.n_mels, cfg.log_kind)
+    print(f"   kaldi_mfcc dither 1.0, n_fft 404, b{B_SMALL}: " + ", ".join(f"{k}={v:.3e}" for k, v in e.items()))
+    fails = testing.prefix_failures(e, testing.BF16X3_LOUD_ATOL)
+    check(not fails, f"bf16x3 with conditioning and dither within its gates {fails or ''}")
+    return dict(launches=launches["bf16x3"], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+
+
 def main() -> int:
     import torch
 
@@ -806,7 +1062,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from mfcc_tpu_torch import named_config, testing
-    from mfcc_tpu_torch.kernels import _build, frontend
+    from mfcc_tpu_torch.kernels import _build, frontend, tail
     from mfcc_tpu_torch.kernels import resample as rs_kernel
     from mfcc_tpu_torch.ops import chain
     from mfcc_tpu_torch.ops import resample as R
@@ -814,7 +1070,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = Counters(frontend, rs_kernel)
+    counters = Counters(frontend, rs_kernel, tail)
     results = {}
 
     # 1. the card
@@ -879,8 +1135,10 @@ def main() -> int:
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("main path", frontend=1)
+    launches = counters.expect("main path", frontend=1, tail=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.FEATURE_ATOL)
+    results["feature_tail"] = main_path_tail(torch, chain, testing, tail, cfg, got, lengths, feat,
+                                             mask, launches, tag)
 
     print(f"  times {tag}")
     kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
@@ -938,7 +1196,7 @@ def main() -> int:
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("main path", fused=1)
+    launches = counters.expect("main path", fused=1, tail=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
     del feat, mask
 
@@ -1046,7 +1304,7 @@ def main() -> int:
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    counters.expect("main path", fused=1)
+    counters.expect("main path", fused=1, tail=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
     k44_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
     e44_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
@@ -1125,7 +1383,7 @@ def main() -> int:
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("main path", frontend=1, conditioning=1, dither=1)
+    launches = counters.expect("main path", frontend=1, conditioning=1, dither=1, tail=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.KALDI_MFCC_ATOL)
     del feat, mask
 
@@ -1168,7 +1426,8 @@ def main() -> int:
         counters.zero()
         feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
         torch.cuda.synchronize()
-        counters.expect("extract_batch", frontend=1, conditioning=1)
+        counters.expect("extract_batch", frontend=1, conditioning=1,
+                        **({"tail": 1} if cfg.features == "mfcc" else {}))
         check_features(torch, chain, testing, batch, cfg, feat, mask, testing.kaldi_feature_atol(cfg))
         del audio, lengths, feat, mask
 
@@ -1233,6 +1492,10 @@ def main() -> int:
     # long frames and long rows
     results["whisper"] = whisper_path(torch, counters, tag)
     new_form_paths(torch, counters, tag, results)
+
+    # 19-20. the feature tail's branches; the bf16x3 form
+    tail_paths(torch, counters, tag)
+    results["bf16x3"] = bf16x3_path(torch, counters, tag)
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -10,7 +10,8 @@ Layers:
     config       frozen FrontendConfig + named configs (a copy of the JAX one)
     ops          constants (float64 host matrices, `to_torch`), the dither
                  noise contract, the polyphase resampler and the chain
-    kernels      CUDA front-end and resample kernels, wrappers, plain versions
+    kernels      CUDA front-end, feature-tail and resample kernels, wrappers,
+                 plain versions
     pipeline     host batching into flat int16/float rows
 """
 
@@ -25,13 +26,13 @@ def extract(samples, config="classic13", device="cuda"):
     cfg.input_sample_rate when it is set, else cfg.sample_rate) → [F_valid,
     feat_dim] features on `device` (`chain.extract_single`).
 
-    Wav paths and bytes need the io port (ROADMAP queue 1 item 10) and
+    Wav paths and bytes need the io port (ROADMAP queue 1 item 4) and
     raise NotImplementedError."""
     from mfcc_tpu_torch.ops import chain
 
     if isinstance(samples, (str, bytes)) or hasattr(samples, "__fspath__"):
         raise NotImplementedError(
-            "wav input needs the io port (ROADMAP queue 1 item 10); pass the "
+            "wav input needs the io port (ROADMAP queue 1 item 4); pass the "
             "decoded samples"
         )
     cfg = named_config(config) if isinstance(config, str) else config

@@ -6,7 +6,8 @@
 // extension _reflect_extend (:1572-1640) and the log10_floor epilogue
 // (:701); _make_kernel (:807-897) with kernel_constants (:160-241), the
 // direct DFT of the fp32 dft_passes route, for the sizes radix-4 cannot
-// tile; and the dither, frame-first conditioning, log-kind and PLP,
+// tile, also at any n_fft for the fp32 route; the bf16x3 route on the
+// tensor cores; and the dither, frame-first conditioning, log-kind and PLP,
 // spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
@@ -197,8 +198,34 @@
 // [64, 998, 258] out: ~26 us); kaldi_plp (~11 us, kaldi_mfcc's operations
 // less the logs) and ssc26 (~10 us: the clamps, two sums per weight and the
 // divisions instead of the logs and the energy) by operations.
+//
+// The bf16x3 form (dft_form 3, kBf16x3; replaces the dft_passes="bf16x3"
+// route of _make_kernel, :857-867, with the window-folded matrix of
+// kernel_constants :160-241). An opt-in of its own accuracy class (~1e-4 on
+// loud log-mel bins, as the reference's), chosen by the wrapper's dft_passes
+// and not by n_fft; no config and no default path takes it. After staging and
+// the per-frame conditioning, the tile's 32 frames go to shared memory as
+// bf16 hi = rn(g) and lo = rn(g - hi) of the conditioned, unwindowed samples
+// (the window rides the matrix), [32][kp] each (51 KB at L = 400), zero past
+// min(L, n_fft). The matrix (hi and lo, [kp][2 nbp] bf16, 0.87 MB at n_fft
+// 512, built on the host from constants.folded_dft) stays in device memory
+// and L2. Each warp takes (16 frames, 16 bins): wmma bf16 m16n16k16 with fp32
+// accumulation sums ah Wh + al Wh + ah Wl for the cosine block and the sine
+// block of the same bins, so |X|^2 forms element-wise in registers and one
+// store writes the tile's power rows [32][nbp]; the al Wl term (~2^-16
+// relative) is dropped, as in the reference. Then step 4 as in every form.
+// It takes the plain form's framing, dither, conditioning and feature-kind
+// branches; the fused-resample form has no bf16x3 instantiation.
+// Bound: the bytes and the function's minimum of the other forms (9.47 us at
+// classic13 b64 x 10 s, by operations). The three passes alone are 3 x 2 x
+// 400 x 514 = 1.23 MFLOP a frame: 0.0709 ms of bf16 tensor work at 989 TFLOP/s
+// for 56,836 frames, 7.5x that minimum, so on Hopper the matrix DFT is no
+// throughput route (the TPU's MXU made it one). Shared memory at classic13:
+// 136,384 B, one block an SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 #include "polyphase.cuh"
@@ -216,11 +243,13 @@ constexpr int kMaxStages = 16;  // Stockham stages, 3 bits each in Params::radic
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
-enum { kRadix2 = 0, kMixed = 1, kDirect = 2 };
+enum { kRadix2 = 0, kMixed = 1, kDirect = 2, kBf16x3 = 3 };
 enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline int align8(int n) { return (n + 7) & ~7; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // Per-config scalars of one launch.
 struct Params {
@@ -238,9 +267,11 @@ struct Params {
   int feature_kind;
   // the DFT plan, derived on the host (plan()): half = n_fft / 2,
   // bins = n_fft / 2 + 1, log2 of half (radix-2), and the Stockham radices
-  // of the mixed form, stage s in bits [3s, 3s + 3)
+  // of the mixed form, stage s in bits [3s, 3s + 3); for the bf16x3 form
+  // the matrix depth kp = min(L, n_fft) and bins nbp, each rounded up to 16
   int half, bins, log2half, nstages;
   unsigned long long radices;
+  int kp, nbp;
 };
 
 // Staged [bins, M] matrices, in floats: mel (none for the spectrogram's
@@ -250,9 +281,10 @@ __host__ __device__ inline int mel_floats(const Params& p) {
   return p.feature_kind == kSpectrogram ? 0 : p.feature_kind == kSsc ? 2 * one : one;
 }
 
-// e^{-2 pi i k / n_fft} for k < half (the two FFT forms) or k < n_fft (direct)
+// e^{-2 pi i k / n_fft} for k < half (the two FFT forms) or k < n_fft
+// (direct); none for bf16x3, whose matrix holds the DFT
 __host__ __device__ inline int twiddle_count(const Params& p) {
-  return p.form == kDirect ? p.n_fft : p.half;
+  return p.form == kDirect ? p.n_fft : p.form == kBf16x3 ? 0 : p.half;
 }
 
 // Dynamic shared memory layout, in floats (every offset 16-byte aligned):
@@ -261,9 +293,12 @@ __host__ __device__ inline int twiddle_count(const Params& p) {
 // rows (mixed form: two ping-pong rows of half float2, the free one of
 // which then holds the powers) and power rows, the staged x[t0-1 ..
 // t0+span) row of the fused resample and of dither, and the resample's tap
-// table (taps = 0 without it). kernels/frontend.py smem_bytes mirrors it.
+// table (taps = 0 without it). The bf16x3 form has no twiddles and no
+// per-warp rows: at a 32-byte boundary the tile's frames as bf16 hi and lo
+// [kTile][kp] each, then the powers [kTile][nbp] and the frame energies
+// [kTile]. kernels/frontend.py smem_bytes mirrors it.
 struct Layout {
-  int span, win, mel, tw, buf, per_warp, pw, xs, tab, total;
+  int span, win, mel, tw, buf, per_warp, pw, ef, xs, tab, total;
 };
 
 __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, bool xs) {
@@ -273,9 +308,17 @@ __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, 
   l.mel = l.win + align4(imax(p.L, p.n_fft));
   l.tw = l.mel + mel_floats(p);
   l.buf = l.tw + align4(2 * twiddle_count(p));
-  l.per_warp = align4(p.form == kMixed ? 2 * p.n_fft : p.n_fft);
-  l.pw = l.buf + l.per_warp * kWarps;
-  l.xs = l.pw + (p.form == kMixed ? 0 : align4(p.bins) * kWarps);
+  if (p.form == kBf16x3) {
+    l.buf = align8(l.buf);
+    l.per_warp = 0;
+    l.pw = l.buf + kTile * p.kp;  // two bf16 rows of kp a frame = kp floats
+    l.ef = l.pw + kTile * p.nbp;
+    l.xs = l.ef + kTile;
+  } else {
+    l.per_warp = align4(p.form == kMixed ? 2 * p.n_fft : p.n_fft);
+    l.pw = l.buf + l.per_warp * kWarps;
+    l.ef = l.xs = l.pw + (p.form == kMixed ? 0 : align4(p.bins) * kWarps);
+  }
   l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
   l.total = l.tab + align4(taps);
   return l;
@@ -526,15 +569,110 @@ __device__ inline void direct_dft(const float* v, float* pw, const float2* tw, c
   }
 }
 
-template <typename Sample, bool kResample, bool kDither, bool kCond>
+// 4. One frame's output row o from its power row pw (pw[k], k < bins), per
+//    output lane, by feature kind: the mel projection over each filter's
+//    nonzero band, then the log kind (logmel) or nothing (plp); the log kind
+//    of power bin m (spectrogram); the centroid of the clamped powers (ssc).
+//    Then the energy lane: the conditioning's frame energy e_frame, the sum of
+//    the powers, or 0 for ssc.
+template <bool kCond>
+__device__ inline void write_frame(float* o, const float* pw, float e_frame,
+                                   const float* melw, const float* melfw,
+                                   const int* __restrict__ mel_lo,
+                                   const int* __restrict__ mel_hi, const Params& p, int lane) {
+  const int M = p.M, kind = p.feature_kind;
+  for (int m = lane; m < M; m += 32) {
+    if (kind == kSpectrogram) {
+      o[m] = log_lane(pw[m], p);
+      continue;
+    }
+    const int hi = mel_hi[m];
+    if (kind == kSsc) {
+      float num = 0.f, den = 0.f;
+      for (int k = mel_lo[m]; k < hi; ++k) {
+        const float q = pw[k] <= 0.f ? p.eps : pw[k];
+        num += q * melfw[k * M + m];
+        den += q * melw[k * M + m];
+      }
+      o[m] = __fdiv_rn(num, den);
+      continue;
+    }
+    float acc = 0.f;
+    for (int k = mel_lo[m]; k < hi; ++k) acc += pw[k] * melw[k * M + m];
+    o[m] = kind == kPlp ? acc : log_lane(acc, p);
+  }
+  if (kind == kSsc) {
+    if (lane == 0) o[M] = 0.f;
+  } else if (kCond && p.energy_source != kPspec) {
+    if (lane == 0) o[M] = fmaxf(e_frame, p.eps);
+  } else {
+    float es = 0.f;
+    for (int k = lane; k < p.bins; k += 32) es += pw[k];
+    es = warp_sum(es);
+    if (lane == 0) o[M] = es <= 0.f ? p.eps : es;
+  }
+}
+
+// 3b. The bf16x3 DFT of the tile (kBf16x3): X = ah Wh + al Wh + ah Wl on the
+//     tensor cores (wmma bf16 m16n16k16, fp32 accumulation), frames [kTile,
+//     kp] as bf16 hi a and lo al in shared memory, the window-folded, scaled
+//     matrix W [kp, 2 nbp] (hi Wh, lo Wl) in device memory, L2-resident,
+//     its column block 2j the cosines and 2j + 1 the sines of bins
+//     [16j, 16j + 16). A warp takes a (16-frame, 16-bin) tile: both
+//     accumulators share one fragment layout, so |X|^2 = re^2 + im^2 forms
+//     element-wise in registers before one store into the power rows.
+__device__ inline void bf16x3_dft(const __nv_bfloat16* ahi, const __nv_bfloat16* alo,
+                                  const __nv_bfloat16* __restrict__ whi,
+                                  const __nv_bfloat16* __restrict__ wlo, float* pw,
+                                  const Params& p, int warp) {
+  namespace wmma = nvcuda::wmma;
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+  const int ldw = 2 * p.nbp;
+  const int blocks = p.nbp / 16;
+  for (int item = warp; item < (kTile / 16) * blocks; item += kWarps) {
+    const int rt = item % (kTile / 16), j = item / (kTile / 16);
+    const __nv_bfloat16* ah_row = ahi + rt * 16 * p.kp;
+    const __nv_bfloat16* al_row = alo + rt * 16 * p.kp;
+    FragC re, im;
+    wmma::fill_fragment(re, 0.f);
+    wmma::fill_fragment(im, 0.f);
+#pragma unroll 1
+    for (int k = 0; k < p.kp; k += 16) {
+      FragA ah, al;
+      FragB ch, cl, sh, sl;
+      const size_t off = static_cast<size_t>(k) * ldw + 32 * j;
+      wmma::load_matrix_sync(ah, ah_row + k, p.kp);
+      wmma::load_matrix_sync(al, al_row + k, p.kp);
+      wmma::load_matrix_sync(ch, whi + off, ldw);
+      wmma::load_matrix_sync(sh, whi + off + 16, ldw);
+      wmma::load_matrix_sync(cl, wlo + off, ldw);
+      wmma::load_matrix_sync(sl, wlo + off + 16, ldw);
+      wmma::mma_sync(re, ah, ch, re);
+      wmma::mma_sync(re, al, ch, re);
+      wmma::mma_sync(re, ah, cl, re);
+      wmma::mma_sync(im, ah, sh, im);
+      wmma::mma_sync(im, al, sh, im);
+      wmma::mma_sync(im, ah, sl, im);
+    }
+    for (int t = 0; t < re.num_elements; ++t) {
+      re.x[t] = __fadd_rn(__fmul_rn(re.x[t], re.x[t]), __fmul_rn(im.x[t], im.x[t]));
+    }
+    wmma::store_matrix_sync(pw + rt * 16 * p.nbp + 16 * j, re, p.nbp, wmma::mem_row_major);
+  }
+}
+
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               float* __restrict__ out, const float* __restrict__ window,
               const float* __restrict__ mel, const float* __restrict__ melf,
               const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
-              const float2* __restrict__ twiddle, const float* __restrict__ taps, Params p,
-              Polyphase pp) {
-  extern __shared__ __align__(16) float smem[];
+              const float2* __restrict__ twiddle, const __nv_bfloat16* __restrict__ dft_hi,
+              const __nv_bfloat16* __restrict__ dft_lo, const float* __restrict__ taps,
+              Params p, Polyphase pp) {
+  extern __shared__ __align__(128) float smem[];
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
   const float preemph = p.preemph;
@@ -642,20 +780,14 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int lane = threadIdx.x & 31;
   const int H = p.half;
   const int Lk = min(L, p.n_fft);  // rfft(n=n_fft) truncates longer frames
-  float* wb = smem + lay.buf + warp * lay.per_warp;  // the warp's DFT rows
-  float2* z = reinterpret_cast<float2*>(wb);
-  float* pw_row = smem + lay.pw + warp * align4(p.bins);  // radix-2 and direct forms
 
-  for (int fl = warp; fl < kTile; fl += kWarps) {
-    const int f = f0 + fl;
-    if (f >= F) break;  // warp-uniform
-    const float* fr = sig + fl * S;
-
-    // 2. the windowed frame g[a] w[a], a < L; under kCond the conditioning
-    //    over the frame's L samples: mean, raw energy of the centered frame,
-    //    then frame pre-emphasis folded into the pack, and the windowed
-    //    energy of all L samples (those past n_fft too)
-    float mu = 0.f, e = 0.f, e_frame = 0.f;
+  // 2. per frame, the conditioning over the frame's L samples under kCond:
+  //    mean and raw energy of the centered frame (frame_stats); cond(a) is
+  //    the conditioned sample g[a] (frame pre-emphasis folded in), sample(a)
+  //    the windowed one
+  auto frame_stats = [&](const float* fr, float& mu, float& e) {
+    mu = 0.f;
+    e = 0.f;
     if constexpr (kCond) {
       if (p.remove_dc) {
         float s = 0.f;
@@ -669,16 +801,87 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         }
       }
     }
-    auto sample = [&](int a) -> float {
-      if constexpr (kCond) {
-        const float d = fr[a] - mu;
-        const float g = a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (fr[a - 1] - mu);
-        return g * win[a];
-      } else {
-        return fr[a] * win[a];
+  };
+  auto cond = [&](const float* fr, float mu, int a) -> float {
+    if constexpr (kCond) {
+      const float d = fr[a] - mu;
+      return a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (fr[a - 1] - mu);
+    } else {
+      return fr[a];
+    }
+  };
+  const bool wsum = kCond && p.energy_source == kWindowedFrame;
+
+  if constexpr (kBf16) {
+    // 2b. every frame of the tile (zeros past F) as bf16 hi and lo, the
+    //     conditioned samples unwindowed (the matrix carries the window),
+    //     zero past Lk; the frame energies into ef
+    __nv_bfloat16* ahi = reinterpret_cast<__nv_bfloat16*>(smem + lay.buf);
+    __nv_bfloat16* alo = ahi + kTile * p.kp;
+    float* pw_tile = smem + lay.pw;
+    float* ef = smem + lay.ef;
+    for (int fl = warp; fl < kTile; fl += kWarps) {
+      __nv_bfloat16* ah = ahi + fl * p.kp;
+      __nv_bfloat16* al = alo + fl * p.kp;
+      if (f0 + fl >= F) {
+        for (int a = lane; a < p.kp; a += 32) ah[a] = al[a] = __float2bfloat16_rn(0.f);
+        continue;  // warp-uniform
       }
-    };
-    const bool wsum = kCond && p.energy_source == kWindowedFrame;
+      const float* fr = sig + fl * S;
+      float mu, e;
+      frame_stats(fr, mu, e);
+#pragma unroll 1
+      for (int a = lane; a < p.kp; a += 32) {
+        const float g = a < Lk ? cond(fr, mu, a) : 0.f;
+        if (wsum && a < Lk) {
+          const float v = g * win[a];
+          e += v * v;
+        }
+        const __nv_bfloat16 h = __float2bfloat16_rn(g);
+        ah[a] = h;
+        al[a] = __float2bfloat16_rn(g - __bfloat162float(h));
+      }
+      if (wsum) {
+        for (int a = Lk + lane; a < L; a += 32) {
+          const float v = cond(fr, mu, a) * win[a];
+          e += v * v;
+        }
+      }
+      if constexpr (kCond) {
+        if (p.energy_source != kPspec) e = warp_sum(e);
+      }
+      if (lane == 0) ef[fl] = e;
+    }
+    __syncthreads();
+    // 3b. the tile's DFT on the tensor cores into the power rows
+    bf16x3_dft(ahi, alo, dft_hi, dft_lo, pw_tile, p, warp);
+    __syncthreads();
+    // 4. each frame's output row (the powers carry the matrix's scale)
+    for (int fl = warp; fl < kTile; fl += kWarps) {
+      const int f = f0 + fl;
+      if (f >= F) break;  // warp-uniform
+      write_frame<kCond>(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw_tile + fl * p.nbp,
+                         ef[fl], melw, melfw, mel_lo, mel_hi, p, lane);
+    }
+    return;
+  }
+
+  float* wb = smem + lay.buf + warp * lay.per_warp;  // the warp's DFT rows
+  float2* z = reinterpret_cast<float2*>(wb);
+  float* pw_row = smem + lay.pw + warp * align4(p.bins);  // radix-2 and direct forms
+
+  for (int fl = warp; fl < kTile; fl += kWarps) {
+    const int f = f0 + fl;
+    if (f >= F) break;  // warp-uniform
+    const float* fr = sig + fl * S;
+
+    // 2. the windowed frame g[a] w[a], a < L; under kCond the conditioning
+    //    over the frame's L samples: mean, raw energy of the centered frame,
+    //    then frame pre-emphasis folded into the pack, and the windowed
+    //    energy of all L samples (those past n_fft too)
+    float mu, e, e_frame = 0.f;
+    frame_stats(fr, mu, e);
+    auto sample = [&](int a) -> float { return cond(fr, mu, a) * win[a]; };
 
     // 2p. the pack: the first Lk samples as half complex points (even samples
     //    real, odd imaginary), bit-reversed for the radix-2 DIT FFT, in
@@ -742,41 +945,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     }
     __syncwarp();
 
-    // 4. per output lane, by feature kind: the mel projection over each
-    //    filter's nonzero band, then the log kind (logmel) or nothing
-    //    (plp); the log kind of power bin m (spectrogram); the centroid of
-    //    the clamped powers (ssc). Then the energy lane (0 for ssc).
-    float* o = out + (static_cast<size_t>(b) * F + f) * (M + 1);
-    for (int m = lane; m < M; m += 32) {
-      if (kind == kSpectrogram) {
-        o[m] = log_lane(pw[m], p);
-        continue;
-      }
-      const int hi = mel_hi[m];
-      if (kind == kSsc) {
-        float num = 0.f, den = 0.f;
-        for (int k = mel_lo[m]; k < hi; ++k) {
-          const float q = pw[k] <= 0.f ? p.eps : pw[k];
-          num += q * melfw[k * M + m];
-          den += q * melw[k * M + m];
-        }
-        o[m] = __fdiv_rn(num, den);
-        continue;
-      }
-      float acc = 0.f;
-      for (int k = mel_lo[m]; k < hi; ++k) acc += pw[k] * melw[k * M + m];
-      o[m] = kind == kPlp ? acc : log_lane(acc, p);
-    }
-    if (kind == kSsc) {
-      if (lane == 0) o[M] = 0.f;
-    } else if (kCond && p.energy_source != kPspec) {
-      if (lane == 0) o[M] = fmaxf(e_frame, p.eps);
-    } else {
-      float es = 0.f;
-      for (int k = lane; k < p.bins; k += 32) es += pw[k];
-      es = warp_sum(es);
-      if (lane == 0) o[M] = es <= 0.f ? p.eps : es;
-    }
+    write_frame<kCond>(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, e_frame, melw,
+                       melfw, mel_lo, mel_hi, p, lane);
     __syncwarp();  // the DFT and power rows are rewritten by the warp's next frame
   }
 }
@@ -787,54 +957,59 @@ struct Args {
   float* out;
   const float *window, *mel, *melf;
   const int *mel_lo, *mel_hi;
-  const float *twiddle, *taps;
+  const float* twiddle;
+  const void *dft_hi, *dft_lo;
+  const float* taps;
   int B;
   Params p;
   Polyphase pp;
   cudaStream_t stream;
 };
 
-template <typename Sample, bool kResample, bool kDither, bool kCond>
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
 cudaError_t launch(const Args& a) {
   const Params& p = a.p;
   const Layout lay = kResample ? layout(p, resample_window(p, a.pp), a.pp.up * a.pp.K, true)
                                : layout(p, 0, 0, kDither);
   const size_t bytes = static_cast<size_t>(lay.total) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel<Sample, kResample, kDither, kCond>,
+      logmel_kernel<Sample, kResample, kDither, kCond, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.F + kTile - 1) / kTile, a.B);
-  logmel_kernel<Sample, kResample, kDither, kCond><<<grid, kThreads, bytes, a.stream>>>(
+  logmel_kernel<Sample, kResample, kDither, kCond, kBf16><<<grid, kThreads, bytes, a.stream>>>(
       static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel, a.melf,
-      a.mel_lo, a.mel_hi, reinterpret_cast<const float2*>(a.twiddle), a.taps, p, a.pp);
+      a.mel_lo, a.mel_hi, reinterpret_cast<const float2*>(a.twiddle),
+      static_cast<const __nv_bfloat16*>(a.dft_hi), static_cast<const __nv_bfloat16*>(a.dft_lo),
+      a.taps, p, a.pp);
   return cudaGetLastError();
 }
 
 // Picks the instantiation for the sample type and the dither and
-// conditioning branches.
-template <bool kResample>
+// conditioning branches (the bf16x3 form: the plain form only).
+template <bool kResample, bool kBf16>
 cudaError_t dispatch(const Args& a, bool is_int16, bool dither, bool cond) {
   if (is_int16) {
     if (dither) {
-      return cond ? launch<int16_t, kResample, true, true>(a)
-                  : launch<int16_t, kResample, true, false>(a);
+      return cond ? launch<int16_t, kResample, true, true, kBf16>(a)
+                  : launch<int16_t, kResample, true, false, kBf16>(a);
     }
-    return cond ? launch<int16_t, kResample, false, true>(a)
-                : launch<int16_t, kResample, false, false>(a);
+    return cond ? launch<int16_t, kResample, false, true, kBf16>(a)
+                : launch<int16_t, kResample, false, false, kBf16>(a);
   }
   if (dither) {
-    return cond ? launch<float, kResample, true, true>(a)
-                : launch<float, kResample, true, false>(a);
+    return cond ? launch<float, kResample, true, true, kBf16>(a)
+                : launch<float, kResample, true, false, kBf16>(a);
   }
-  return cond ? launch<float, kResample, false, true>(a)
-              : launch<float, kResample, false, false>(a);
+  return cond ? launch<float, kResample, false, true, kBf16>(a)
+              : launch<float, kResample, false, false, kBf16>(a);
 }
 
-// The DFT plan of p.n_fft (kernels/frontend.py dft_form and radices): a
-// power of two takes radix-2; an even n_fft whose half factors into 4s,
-// then 2, 3 and 5, the Stockham form; every other size the direct DFT.
-// False when the wrapper's form disagrees, or for n_fft < 2.
+// The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
+// kernel_form): the FFT forms only where they apply (a power of two takes
+// radix-2; an even n_fft whose half factors into 4s, then 2, 3 and 5, the
+// Stockham form), the direct DFT and bf16x3 at any n_fft. False when the
+// wrapper's FFT form disagrees, or for n_fft < 2.
 bool plan(Params& p) {
   const int N = p.n_fft;
   if (N < 2) return false;
@@ -842,6 +1017,13 @@ bool plan(Params& p) {
   p.bins = N / 2 + 1;
   p.log2half = p.nstages = 0;
   p.radices = 0;
+  p.kp = p.nbp = 0;
+  if (p.form == kDirect) return true;
+  if (p.form == kBf16x3) {
+    p.kp = (imin(p.L, N) + 15) / 16 * 16;
+    p.nbp = (p.bins + 15) / 16 * 16;
+    return true;
+  }
   int form = kDirect;
   if ((N & (N - 1)) == 0) {
     form = kRadix2;
@@ -883,36 +1065,43 @@ extern "C" {
 // out [B, F, M+1] float32; window [L] float32; mel [n_fft/2+1, M] float32;
 // melf [n_fft/2+1, M] float32 (ssc; may be null otherwise); mel_lo / mel_hi
 // [M] int32; twiddle [n_fft/2 (dft_form 0 radix-2, 1 mixed) or n_fft
-// (2 direct), 2] float32 of e^{-2 pi i k / n_fft}. frame_offset is frame 0's
-// first sample and center 0 none / 1 "center" / 2 "center_reflect".
-// dither > 0 adds the contract noise (dither_seed = fmix32(cfg.dither_seed));
-// conditioning != 0 takes the frame-first branch (remove_dc, frame_preemph
-// and frame_keep0 = 1 - frame_preemph, energy_source 0 pspec / 1 raw_frame /
-// 2 windowed_frame); log_kind 0 ln / 1 ln_stab / 2 db / 3 ln_floor /
-// 4 log10_floor; feature_kind 0 logmel / 1 plp / 2 spectrogram
-// (M = n_fft/2+1) / 3 ssc.
+// (2 direct), 2] float32 of e^{-2 pi i k / n_fft} (null for 3 bf16x3);
+// dft_hi / dft_lo [kp, 2 nbp] bf16 (dft_form 3 only, else null): the
+// window-folded, scaled DFT's hi and lo parts, rows past min(L, n_fft) and
+// bins past n_fft/2 zero, column block 2j the cosines and 2j + 1 the sines
+// of bins [16j, 16j + 16) (pscale is then unused: the matrix carries it).
+// frame_offset is frame 0's first sample and center 0 none / 1 "center" /
+// 2 "center_reflect". dither > 0 adds the contract noise (dither_seed =
+// fmix32(cfg.dither_seed)); conditioning != 0 takes the frame-first branch
+// (remove_dc, frame_preemph and frame_keep0 = 1 - frame_preemph,
+// energy_source 0 pspec / 1 raw_frame / 2 windowed_frame); log_kind 0 ln /
+// 1 ln_stab / 2 db / 3 ln_floor / 4 log10_floor; feature_kind 0 logmel /
+// 1 plp / 2 spectrogram (M = n_fft/2+1) / 3 ssc.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, const float* window, const float* mel,
                          const float* melf, const int* mel_lo, const int* mel_hi,
-                         const float* twiddle, int B, int T, int F, int L, int S, int M,
-                         int n_fft, int dft_form, int frame_offset, int center, float scale,
-                         float preemph, float eps, float pscale, float dither,
-                         unsigned dither_seed, int conditioning, int remove_dc,
-                         float frame_preemph, float frame_keep0, int energy_source,
-                         int log_kind, int feature_kind, void* stream) {
+                         const float* twiddle, const void* dft_hi, const void* dft_lo, int B,
+                         int T, int F, int L, int S, int M, int n_fft, int dft_form,
+                         int frame_offset, int center, float scale, float preemph, float eps,
+                         float pscale, float dither, unsigned dither_seed, int conditioning,
+                         int remove_dc, float frame_preemph, float frame_keep0,
+                         int energy_source, int log_kind, int feature_kind, void* stream) {
   Params p{T, F, L, S, M, n_fft, dft_form, frame_offset, center, scale, preemph, eps, pscale,
            dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind};
   if (bad_params(p, B, melf)) return cudaErrorInvalidValue;
-  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, nullptr, B,
-               p, Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+  const bool tensor = dft_form == kBf16x3;
+  if (tensor && (dft_hi == nullptr || dft_lo == nullptr)) return cudaErrorInvalidValue;
+  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, dft_hi, dft_lo,
+               nullptr, B, p, Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
+  return tensor ? dispatch<false, true>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0)
+                : dispatch<false, false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }
 
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
 // taps [up, K] float32 (input_scale folded in); F frames of the resampled
 // signal, ceil(T * up / down) samples long. Dither keys on 16 kHz positions.
-// No centered framing.
+// No centered framing and no bf16x3 form.
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   const int* lengths, float* out, const float* window,
                                   const float* mel, const float* melf, const int* mel_lo,
@@ -927,12 +1116,13 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
   Params p{T, F, L, S, M, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale, dither,
            dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
            feature_kind};
-  if (bad_params(p, B, melf) || up < 1 || down < 1 || K < 1 || half_len < 10 * down) {
+  if (bad_params(p, B, melf) || dft_form == kBf16x3 || up < 1 || down < 1 || K < 1 ||
+      half_len < 10 * down) {
     return cudaErrorInvalidValue;
   }
-  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, taps, B, p,
-               Polyphase{up, down, half_len, K}, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, nullptr, nullptr,
+               taps, B, p, Polyphase{up, down, half_len, K}, static_cast<cudaStream_t>(stream)};
+  return dispatch<true, false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }
 
 const char* mfcc_frontend_error_string(int err) {

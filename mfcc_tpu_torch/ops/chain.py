@@ -19,20 +19,25 @@ length; centered framing reflects that signal at each utterance's own
 length; frame-level conditioning (DC removal, raw-frame energy, frame
 pre-emphasis, windowed-frame energy) follows framing, in Kaldi's order.
 
-`extract_batch` runs on the card by default. There the front-end (dither
+`extract_batch` runs on the card by default, through
+`kernels/frontend.py::fused_logmel_stages`. There the front-end (dither
 and framing through log-mel and energy) is one hand-written CUDA kernel
-(`mfcc_tpu_torch/kernels/frontend.py`), and its [log-mel | energy] prefix
-feeds `features_from_logmel`'s prefix path (lanes [0, M) are the log-mel, the raw
-mel energies for PLP, the log power spectrum for a spectrogram or the
-centroids for SSC); for resampling configs the
-same kernel resamples the input rows as it stages them. With `device="cpu"`
-it runs the plain chain of this module (`resample_input`, then
-`logmel_stages`: the kernel's plain version). A config outside the port
-raises on both devices, naming what it still needs.
+(`mfcc_tpu_torch/kernels/frontend.py`); for resampling configs the same
+kernel resamples the input rows as it stages them. For mfcc configs a second
+kernel (`kernels/tail.py`) turns its [log-mel | energy] prefix into the
+finished features (DCT, Δ/ΔΔ, mask, utterance CMVN); the other families feed
+the prefix to `features_from_logmel`'s prefix path (lanes [0, M) are the
+log-mel, the raw mel energies for PLP, the log power spectrum for a
+spectrogram or the centroids for SSC). With `device="cpu"` it runs the
+plain chain of this module (`resample_input`, then `logmel_stages`: the
+kernels' plain versions). A config outside the port raises on both devices,
+naming what it still needs. Torch matmuls run in full fp32
+(`full_fp32_matmul`), which leaves the caller's TF32 setting as it was.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 
@@ -69,6 +74,7 @@ def resamples(cfg: FrontendConfig) -> bool:
 
 
 LOG_KINDS = ("ln", "ln_stab", "db", "ln_floor", "log10_floor")  # the kernel's epilogue branches
+DFT_PASSES = ("radix4", "bf16x3", "fp32")  # the reference's dft_passes routes
 CENTER_KINDS = ("center", "center_reflect")  # frame_tail modes with edge reflection
 
 
@@ -81,6 +87,20 @@ def needs_conditioning(cfg: FrontendConfig) -> bool:
         or cfg.preemph_mode == "frame"
         or cfg.energy_source != "pspec"
     )
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Runs the block's torch matmuls in full fp32: the process-wide float32
+    matmul precision (which sets `torch.backends.cuda.matmul.allow_tf32`) is
+    set to "highest" and restored on exit, so the caller's setting survives.
+    TF32 keeps ~3 decimal digits, too few for the 5e-4 cepstra gate."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def centered(cfg: FrontendConfig) -> bool:
@@ -96,13 +116,13 @@ def unsupported_reason(cfg: FrontendConfig) -> str | None:
     if resamples(cfg) and centered(cfg):
         return (
             "centered framing of resampled rows (the fused resample stages "
-            "no reflection; ROADMAP queue 2 item 13)"
+            "no reflection; ROADMAP queue 2 item 3)"
         )
     from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
 
     reason = frontend.layout_reason(cfg)
     if reason:
-        return f"{reason} (ROADMAP queue 2 item 14)"
+        return f"{reason} (ROADMAP queue 2 item 4)"
     return None
 
 
@@ -335,7 +355,8 @@ def plp_base(
     mel = torch.clamp(melspec, min=0.0) * k["equal_loudness"]
     mel = mel ** cfg.compress_factor
     dup = torch.cat([mel[..., :1], mel, mel[..., -1:]], dim=-1)
-    r = torch.matmul(dup, k["idft"].T)
+    with full_fp32_matmul():
+        r = torch.matmul(dup, k["idft"].T)
     a, e = durbin(r, cfg.lpc_order)
     c = lpc_to_cepstrum(a)
     c0 = torch.log(torch.clamp(e, min=cfg.log_eps))
@@ -355,7 +376,8 @@ def ssc_centroids(
     where(p <= 0, eps, p), then Σ p·f·mel / Σ p·mel per filter."""
     k = consts if consts is not None else device_constants(cfg, pspec.device, pspec.dtype)
     p = torch.where(pspec <= 0, cfg.log_eps, pspec)
-    return torch.matmul(p * k["freqs"], k["mel"]) / torch.matmul(p, k["mel"])
+    with full_fp32_matmul():
+        return torch.matmul(p * k["freqs"], k["mel"]) / torch.matmul(p, k["mel"])
 
 
 def resample_input(
@@ -378,17 +400,42 @@ def resample_input(
 # ---------------------------------------------------------------------------
 
 
+def bf16x3_power(frames: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
+    """The power spectrum [..., n_bins] of the conditioned, unwindowed
+    frames [..., L] by the bf16x3 route (port of `mfcc_tpu/kernels/
+    frontend.py` :857-867): the frames' first min(L, n_fft) samples split
+    into bf16 hi and lo, then hi·Wh + lo·Wh + hi·Wl against the hi/lo split
+    of the window-folded, scaled DFT (`constants.folded_dft`), in fp32 (the
+    products of bf16 values are exact; only the order of the sums differs
+    from the kernel's tensor cores), and re² + im²."""
+    k = C.folded_dft(cfg)
+    x = frames[..., : k["dft"].shape[0]].to(torch.float32)
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    wh = torch.as_tensor(k["dft_hi"], device=x.device)
+    wl = torch.as_tensor(k["dft_lo"], device=x.device)
+    with full_fp32_matmul():
+        reim = torch.matmul(hi, wh) + torch.matmul(lo, wh) + torch.matmul(hi, wl)
+    re, im = reim[..., : cfg.n_bins], reim[..., cfg.n_bins :]
+    return re * re + im * im
+
+
 def logmel_stages(
     audio: torch.Tensor,
     lengths: torch.Tensor,
     cfg: FrontendConfig,
     consts: dict[str, torch.Tensor] | None = None,
+    dft_passes: str = "radix4",
 ) -> dict[str, torch.Tensor]:
     """Dither and pre-emphasis through log-mel on a padded batch, audio
     [B, T] (int16 or float) and lengths [B]; every intermediate plus the
     frame mask, and "dither_noise" (the [B, T] unit noise) when cfg dithers.
-    The plain version of the CUDA front-end kernel."""
+    The plain version of the CUDA front-end kernel. `dft_passes="bf16x3"`
+    takes the power spectrum by `bf16x3_power` (float32 only); the other
+    routes compute the same DFT, by torch.fft.rfft."""
     check_supported(cfg)
+    if dft_passes not in DFT_PASSES:
+        raise ValueError(f"dft_passes={dft_passes!r} not in {DFT_PASSES}")
     dtype = compute_dtype(cfg)
     k = consts if consts is not None else device_constants(cfg, audio.device, dtype)
     audio = audio.to(dtype)
@@ -418,13 +465,19 @@ def logmel_stages(
     if cfg.preemph_mode == "frame":
         frames = preemphasis_frames(frames, cfg.preemph)
     windowed = frames * k["window"]
-    pspec = power_spectrum(windowed, cfg)  # [B, F, n_bins]
+    if dft_passes == "bf16x3":
+        if dtype != torch.float32:
+            raise NotImplementedError(f"the bf16x3 route computes in float32, not {cfg.dtype}")
+        pspec = bf16x3_power(frames, cfg)  # the window rides the matrix
+    else:
+        pspec = power_spectrum(windowed, cfg)  # [B, F, n_bins]
     if cfg.energy_source == "pspec":
         energy = pspec.sum(dim=-1)
         energy = torch.where(energy <= 0, eps, energy)
     elif cfg.energy_source == "windowed_frame":
         energy = torch.clamp((windowed * windowed).sum(dim=-1), min=eps)
-    melspec = torch.matmul(pspec, k["mel"])
+    with full_fp32_matmul():
+        melspec = torch.matmul(pspec, k["mel"])
     n_valid = num_valid_frames(lengths, cfg)
     out = {
         "frames": frames,
@@ -462,11 +515,15 @@ def features_from_logmel(
     deltas and per-utterance CMVN (global CMVN is corpus-level and not
     applied here). Returns [B, F, feat_dim] with pad frames zeroed.
 
-    When the stage dict carries "prefix" (the kernel's [B, F, n_mels+1]
+    When the stage dict carries "features_fused" (the feature-tail
+    kernel's finished features, `kernels/tail.py`) it returns them as they
+    are. When it carries "prefix" (the kernel's [B, F, n_mels+1]
     output: [log-mel | clamped energy]; [raw mel | energy] for PLP, [log
     pspec | energy] for a spectrogram, [centroids | 0] for SSC) the mfcc
     epilogue is ONE augmented DCT·lifter·c0 matmul on it; otherwise it
     starts from the plain chain's stages."""
+    if "features_fused" in stages:
+        return stages["features_fused"]
     n_valid = stages["n_valid"]
     mask = stages["frame_mask"]
     M = cfg.n_mels
@@ -494,7 +551,8 @@ def features_from_logmel(
                 if cfg.energy_floor > 0.0:
                     log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
                 x = torch.cat([x[..., :M], log_e], dim=-1)
-            base = torch.matmul(x, k["dct_aug"])
+            with full_fp32_matmul():
+                base = torch.matmul(x, k["dct_aug"])
     elif cfg.features == "logmel":
         base = logmel_norm(stages["logmel"], mask, cfg)
     elif cfg.features == "spectrogram":  # logmel is the log pspec (mel == identity)
@@ -511,7 +569,8 @@ def features_from_logmel(
     else:
         logmel, energy = stages["logmel"], stages["energy"]
         k = consts if consts is not None else device_constants(cfg, logmel.device, logmel.dtype)
-        base = torch.matmul(logmel, k["dct"]) * k["lifter"]
+        with full_fp32_matmul():
+            base = torch.matmul(logmel, k["dct"]) * k["lifter"]
         if cfg.append_energy:
             log_e = torch.log(energy)
             if cfg.energy_floor > 0.0:
@@ -543,8 +602,10 @@ def extract_batch(
     F = cfg.num_frames(T). For resampling configs audio and lengths are at
     cfg.input_sample_rate and F = cfg.num_frames(output_length(T)).
 
-    On "cuda" the front-end is the CUDA kernel; "cpu" runs the plain chain.
-    Global CMVN (cfg.cmvn == "global") is a corpus-level operation: features
+    On "cuda" the front-end is the CUDA kernel, and for mfcc configs the
+    cepstral tail (DCT, Δ/ΔΔ, mask, utterance CMVN) is the feature-tail
+    kernel (`kernels/tail.py`); the other families finish in torch. "cpu"
+    runs the plain chain. Global CMVN (cfg.cmvn == "global") is a corpus-level operation: features
     come back un-normalized in that mode. `consts` overrides the chain
     constants (a `constants.to_torch` dict on `device`)."""
     check_supported(cfg)
@@ -572,28 +633,17 @@ def extract_batch(
         stages = logmel_stages(audio, lengths, cfg, consts)
         return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
 
-    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.kernels import frontend, tail
 
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype={cfg.dtype!r}: the CUDA front-end computes in float32; "
             "pass device='cpu' for the plain chain"
         )
-    # the DCT matmul must stay full fp32: TF32 keeps ~3 decimal digits
-    torch.backends.cuda.matmul.allow_tf32 = False
-    if audio.dtype != torch.int16:
-        audio = audio.to(torch.float32)
-    # consts=None lets the wrapper use its per-(cfg, device) cached tables
-    prefix = frontend.logmel_prefix(audio.contiguous(), lengths, cfg, consts=consts)
+    # consts=None lets the wrappers use their per-(cfg, device) cached tables
+    stages = frontend.fused_logmel_stages(
+        audio, lengths, cfg, feature_tail=tail.tail_reason(cfg) is None, consts=consts)
     k = consts if consts is not None else device_constants(cfg, device, torch.float32)
-    if resamples(cfg):
-        lengths = resample.output_lengths(lengths, cfg.input_sample_rate, cfg.sample_rate)
-    n_valid = num_valid_frames(lengths, cfg)
-    stages = {
-        "prefix": prefix,
-        "n_valid": n_valid,
-        "frame_mask": frame_mask(n_valid, prefix.shape[1], torch.float32),
-    }
     return features_from_logmel(stages, cfg, k), stages["frame_mask"]
 
 

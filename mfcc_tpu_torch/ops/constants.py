@@ -386,6 +386,38 @@ def dct_augmented(cfg: FrontendConfig) -> np.ndarray:
     return aug
 
 
+def bf16_split(a32: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """bf16 hi/lo split of a float32 array, each part returned as the
+    float32 array of its bf16 values: hi = bf16(a) and lo = bf16(a - hi),
+    both rounded to nearest even (the port of
+    `mfcc_tpu/kernels/frontend.py::_bf16_split_np`)."""
+    a = torch.from_numpy(np.ascontiguousarray(a32, dtype=np.float32))
+    hi = a.to(torch.bfloat16).float()
+    lo = (a - hi).to(torch.bfloat16).float()
+    return hi.numpy(), lo.numpy()
+
+
+@functools.lru_cache(maxsize=32)
+def folded_dft(cfg: FrontendConfig) -> dict[str, np.ndarray]:
+    """The window-folded, scaled real DFT of the bf16x3 route (the DFT part
+    of `mfcc_tpu/kernels/frontend.py::kernel_constants`): "dft" [Le, 2·n_bins]
+    float32 with Le = min(frame_length, n_fft) (rfft truncates longer
+    frames), columns [0, n_bins) w[n]·cos(2πnk/N)·s and [n_bins, 2·n_bins)
+    w[n]·sin(-2πnk/N)·s, s = 1/√N when the power is scaled by 1/N, folded in
+    float64 and rounded once; "dft_hi" / "dft_lo" its `bf16_split`."""
+    Le = min(cfg.frame_length, cfg.n_fft)
+    w = window_vector(cfg.window, cfg.frame_length)[:Le]
+    n = np.arange(Le, dtype=np.float64)[:, None]
+    k = np.arange(cfg.n_bins, dtype=np.float64)[None, :]
+    ang = -2.0 * np.pi * n * k / cfg.n_fft
+    scale = (1.0 / np.sqrt(cfg.n_fft)) if cfg.power_scale_nfft else 1.0
+    dft = np.concatenate(
+        [w[:, None] * np.cos(ang) * scale, w[:, None] * np.sin(ang) * scale], axis=1
+    ).astype(np.float32)
+    hi, lo = bf16_split(dft)
+    return {"dft": dft, "dft_hi": hi, "dft_lo": lo}
+
+
 @functools.lru_cache(maxsize=32)
 def chain_constants(cfg: FrontendConfig) -> dict[str, np.ndarray]:
     """All per-config constants, float64, cached by config hash."""

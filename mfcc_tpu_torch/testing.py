@@ -66,6 +66,25 @@ package's tests gate them:
   - ssc26 features: rtol 1e-4, atol 5e-3 between fp32 chains; rtol 2e-5,
     atol 2e-2 against the float64 oracle and the goldens.
 
+The feature tail (kernels/tail.py) against its plain version:
+max(2e-4, 2e-5·max|f|) absolute (tests/test_pallas_kernels.py::
+test_fused_tail_matches_twin), masks equal, pad rows exactly 0. Utterance
+CMVN with variance normalization divides each column by sd = √(var + eps)
+(eps 1e-8): in a column that is constant or nearly so over an utterance (a
+zero row, a tone whose period divides the hop) the fp32 rounding of the mean,
+which differs between the kernel's and torch's order of sums, is amplified by
+up to 1/√eps = 1e4. There the difference is multiplied by min(1, sd) of the
+plain version's column (`cmvn_column_scale`) before the same gate: it is held
+in the units of the features before the division.
+
+The bf16x3 DFT route (three bf16 products, an opt-in of its own accuracy
+class): its kernel against its plain version and both against float64 on
+loud log-mel bins, 1e-3 (BF16X3_LOUD_ATOL; the reference's class,
+tests/test_pallas_kernels.py::test_bf16x3_path_runs_and_is_close): a sample
+that the two compute an ulp apart (a conditioned or dithered frame) can
+round to another bf16 hi, so the two sums differ at the route's 2^-16 class
+and not at fp32's; the linear-domain and energy gates stay as above.
+
 whisper80 (tests/test_librosa_whisper.py): features are (log10 + 4) / 4
 after the max-8 clamp, so 1e-5 is ~4e-5 log10 units. fp32 against the
 float64 oracle on short signals: 1e-5 (:150-168); fp32 against fp32 (the
@@ -107,6 +126,8 @@ SSC_ATOL, SSC_RTOL = 5e-3, 1e-4  # centroids (Hz), fp32 vs fp32
 SSC_ORACLE_ATOL, SSC_ORACLE_RTOL = 2e-2, 2e-5  # centroids vs float64 and the goldens
 WHISPER_ORACLE_ATOL = 1e-5  # whisper80 features, fp32 vs float64
 WHISPER_ATOL = 5e-5  # whisper80 features, fp32 vs fp32 and vs the goldens
+TAIL_ATOL, TAIL_REL = 2e-4, 2e-5  # the feature tail vs its plain version: max(atol, rel·max|f|)
+BF16X3_LOUD_ATOL = 1e-3  # the bf16x3 route's loud log-mel bins
 # features: (atol, rtol) between fp32 chains, against the goldens, and fp32
 # against float64 (mfcc_tpu_torch/testing.py docstring)
 FAMILY_GATES = {
@@ -195,9 +216,14 @@ PREFIX_GATES = {
 }
 
 
-def prefix_failures(errs: dict[str, float]) -> list[str]:
-    """The gates `errs` (from prefix_errors) breaks; empty when it passes."""
-    return [f"{k} {errs[k]:.3e} >= {gate}" for k, gate in PREFIX_GATES.items()
+def prefix_failures(errs: dict[str, float], loud_atol: float | None = None) -> list[str]:
+    """The gates `errs` (from prefix_errors) breaks; empty when it passes.
+    `loud_atol` replaces the loud log-mel gate (BF16X3_LOUD_ATOL for the
+    bf16x3 route)."""
+    gates = dict(PREFIX_GATES)
+    if loud_atol is not None:
+        gates["logmel_loud_max_abs"] = loud_atol
+    return [f"{k} {errs[k]:.3e} >= {gate}" for k, gate in gates.items()
             if k in errs and not errs[k] < gate]
 
 
@@ -327,3 +353,35 @@ def assert_resampled_features_close(got, want) -> None:
     np.testing.assert_allclose(
         _f64(got), _f64(want), atol=RESAMPLED_FEATURE_ATOL, rtol=RESAMPLED_FEATURE_RTOL
     )
+
+
+def cmvn_column_scale(pre, n_valid, eps: float) -> np.ndarray:
+    """[B, 1, D] min(1, √(var + eps)) of each column over each utterance's
+    valid rows of the features before CMVN, pre [B, F, D] (the divisor of
+    variance normalization, capped at 1)."""
+    pre = _f64(pre)
+    nv = np.asarray(_f64(n_valid), dtype=np.int64)
+    m = (np.arange(pre.shape[1])[None, :] < nv[:, None])[..., None]
+    n = np.maximum(m.sum(axis=1, keepdims=True), 1)
+    mu = (pre * m).sum(axis=1, keepdims=True) / n
+    var = (((pre - mu) ** 2) * m).sum(axis=1, keepdims=True) / n
+    return np.minimum(1.0, np.sqrt(var + eps))
+
+
+def tail_errors(got, want, scale=None) -> dict[str, float]:
+    """The feature tail's errors: "max_abs" |got - want|, "held" the same
+    after multiplying by `scale` (cmvn_column_scale, or 1), and "gate"
+    max(TAIL_ATOL, TAIL_REL·max|want|)."""
+    g, w = _f64(got), _f64(want)
+    d = np.abs(g - w)
+    held = d if scale is None else d * np.asarray(scale)
+    return {
+        "max_abs": float(d.max(initial=0.0)),
+        "held": float(held.max(initial=0.0)),
+        "gate": max(TAIL_ATOL, TAIL_REL * float(np.abs(w).max(initial=0.0))),
+    }
+
+
+def tail_failures(errs: dict[str, float]) -> list[str]:
+    return [] if errs["held"] <= errs["gate"] else [
+        f"tail difference {errs['held']:.3e} > {errs['gate']:.3e}"]

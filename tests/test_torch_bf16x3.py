@@ -1,0 +1,209 @@
+"""The port's bf16x3 DFT route ≡ the JAX package's `dft_passes="bf16x3"`.
+
+The route computes the DFT as three bf16 products, hi·Wh + lo·Wh + hi·Wl,
+against the hi/lo split of the window-folded, scaled DFT matrix. On the CPU
+the front-end wrapper takes its plain version (`chain.bf16x3_power` inside
+`logmel_stages`), so these tests hold:
+  - the port's matrix and split (`constants.folded_dft`, `bf16_split`)
+    against `kernel_constants` / `_bf16_split_np`, bitwise, and the kernel's
+    interleaved [kp, 2·nbp] layout (`frontend.bf16_matrix`) against them;
+  - a numpy mirror of the kernel's tile product (frames split to bf16 with
+    round to nearest even, the interleaved matrices, |X|² from each
+    cosine/sine block pair) against `chain.bf16x3_power`: 1e-6 of the row's
+    max power (the products are exact; only the order of the fp32 sums
+    differs);
+  - the plain bf16x3 prefix against the JAX package's
+    `fused_logmel_stages(dft_passes="bf16x3", interpret=True)` on loud bins
+    (within 40 dB of the row max): 2e-4 in natural-log units. Measured on
+    the golden signals: 4.4e-5 to 7.0e-5 over these configs; the reference
+    splits its frames by round-half-up, the port by round to nearest even,
+    and its mel projection is itself a bf16x3 product, so the two routes
+    differ at their own error class;
+  - both within 1e-3 of the jnp twin on loud bins, the reference's class
+    (tests/test_pallas_kernels.py::test_bf16x3_path_runs_and_is_close;
+    measured 1.8e-4 to 3.9e-4), and the port's within 1e-3 of the float64
+    chain;
+  - `dft_passes` validation and routing, and the fused-resample form's
+    refusal.
+"""
+
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from mfcc_tpu.config import NAMED_CONFIGS as J_CONFIGS
+from mfcc_tpu.kernels import frontend as jfrontend
+from mfcc_tpu.ops import chain as jchain
+from mfcc_tpu.testing.golden import golden_signals
+from mfcc_tpu_torch import testing
+from mfcc_tpu_torch.config import NAMED_CONFIGS as T_CONFIGS
+from mfcc_tpu_torch.kernels import frontend
+from mfcc_tpu_torch.ops import chain as tchain
+from mfcc_tpu_torch.ops import constants as tconstants
+from mfcc_tpu_torch.pipeline import pad_batch
+
+PORT_VS_REFERENCE_LOUD = 2e-4
+CLASS_LOUD = 1e-3  # the reference's bf16x3 gate
+
+MATRIX_CASES = {
+    "classic13": ("classic13", {}),
+    "kaldi_mfcc": ("kaldi_mfcc", {}),
+    "logmel80": ("logmel80", {}),
+    "whisper80": ("whisper80", {}),
+    "n_fft_404": ("classic13", {"n_fft": 404}),
+    "frames_over_n_fft": ("kaldi_mfcc", {"win_len_s": 0.040, "n_fft": 512}),
+    "unscaled_power": ("classic13", {"power_scale_nfft": False}),
+}
+PREFIX_CASES = {
+    "classic13": ("classic13", {}),
+    "kaldi_mfcc": ("kaldi_mfcc", {}),
+    "kaldi_mfcc_dither": ("kaldi_mfcc", {"dither": 1.0}),
+    "logmel80": ("logmel80", {}),
+    "kaldi_fbank": ("kaldi_fbank", {}),
+    "n_fft_404": ("classic13", {"n_fft": 404}),
+}
+
+
+def _configs(table, case):
+    name, over = table[case]
+    return T_CONFIGS[name].replace(**over), J_CONFIGS[name].replace(**over)
+
+
+def _loud_max_abs(got, want, log_kind):
+    g, w = testing.natural_log(got, log_kind), testing.natural_log(want, log_kind)
+    lin = np.exp(w)
+    loud = lin > lin.max(axis=-1, keepdims=True) * 10 ** (-testing.LOUD_DB / 10)
+    return float((np.abs(g - w) * loud).max())
+
+
+@pytest.mark.parametrize("case", sorted(MATRIX_CASES))
+def test_matrix_and_split_match_kernel_constants_bitwise(case):
+    tcfg, jcfg = _configs(MATRIX_CASES, case)
+    ours = tconstants.folded_dft(tcfg)
+    theirs = jfrontend.kernel_constants(jcfg)
+    le, nb = min(tcfg.frame_length, tcfg.n_fft), tcfg.n_bins
+    assert ours["dft"].shape == (le, 2 * nb)
+    for mine, ref in (("dft", "dft"), ("dft_hi", "dft_h"), ("dft_lo", "dft_l")):
+        want = np.asarray(theirs[ref]).astype(np.float32)
+        np.testing.assert_array_equal(ours[mine], want[:le, : 2 * nb])
+        assert not want[le:].any() and not want[:, 2 * nb:].any()  # the rest of the TPU layout is 0
+    hi, lo = (m.float().numpy() for m in frontend.bf16_matrix(tcfg))
+    kp, nbp = frontend.bf16_dims(tcfg)
+    assert hi.shape == (kp, 2 * nbp) and kp % 16 == 0 and nbp % 16 == 0
+    for m, part in ((hi, ours["dft_hi"]), (lo, ours["dft_lo"])):
+        blocks = m.reshape(kp, nbp // 16, 2, 16)
+        cos = blocks[:, :, 0].reshape(kp, nbp)
+        sin = blocks[:, :, 1].reshape(kp, nbp)
+        np.testing.assert_array_equal(cos[:le, :nb], part[:, :nb])
+        np.testing.assert_array_equal(sin[:le, :nb], part[:, nb:])
+        assert not cos[le:].any() and not cos[:, nb:].any() and not sin[:, nb:].any()
+
+
+def test_split_matches_the_reference_bitwise():
+    g = np.random.default_rng(0)
+    a = np.concatenate([
+        g.standard_normal(4096) * 10.0 ** g.integers(-30, 30, 4096),
+        [0.0, -0.0, 1.0, 1.00390625, 1.001953125, 1.005859375, 3e38, -3e38, 1e-40],
+    ]).astype(np.float32)
+    hi, lo = tconstants.bf16_split(a)
+    h, l = jfrontend._bf16_split_np(a)
+    np.testing.assert_array_equal(hi, h.astype(np.float32))
+    np.testing.assert_array_equal(lo, l.astype(np.float32))
+    assert hi.dtype == np.float32 and (hi.astype(ml_dtypes.bfloat16).astype(np.float32) == hi).all()
+
+
+def _emulate_tile_power(frames, cfg):
+    """The kernel's bf16x3 DFT in numpy: each frame's first min(L, n_fft)
+    samples, zero to kp, as bf16 hi = rn(g) and lo = rn(g - hi); the
+    interleaved matrices; re and im of each 16-bin block from its cosine and
+    sine column blocks (ah·Wh + al·Wh + ah·Wl, fp32 sums); re² + im²."""
+    kp, nbp = frontend.bf16_dims(cfg)
+    hi_m, lo_m = (m.float().numpy() for m in frontend.bf16_matrix(cfg))
+    x = np.zeros(frames.shape[:-1] + (kp,), np.float32)
+    le = min(cfg.frame_length, cfg.n_fft)
+    x[..., :le] = frames[..., :le]
+    ah = x.astype(ml_dtypes.bfloat16).astype(np.float32)
+    al = (x - ah).astype(ml_dtypes.bfloat16).astype(np.float32)
+    y = ah @ hi_m + al @ hi_m + ah @ lo_m  # [..., 2·nbp]
+    blocks = y.reshape(y.shape[:-1] + (nbp // 16, 2, 16))
+    re = blocks[..., 0, :].reshape(y.shape[:-1] + (nbp,))
+    im = blocks[..., 1, :].reshape(y.shape[:-1] + (nbp,))
+    return (re * re + im * im)[..., : cfg.n_bins]
+
+
+@pytest.mark.parametrize("case", ["classic13", "n_fft_404", "frames_over_n_fft", "whisper80"])
+def test_kernel_mirror_matches_plain_power(case):
+    cfg, _ = _configs(MATRIX_CASES, case)
+    g = np.random.default_rng(3)
+    frames = (g.standard_normal((3, 7, cfg.frame_length)) * 3000).astype(np.float32)
+    want = tchain.bf16x3_power(torch.as_tensor(frames), cfg).numpy()
+    got = _emulate_tile_power(frames, cfg)
+    rowmax = want.max(axis=-1, keepdims=True)
+    assert float((np.abs(got - want) / rowmax).max()) < 1e-6
+
+
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_plain_bf16x3_matches_reference_route(case):
+    tcfg, jcfg = _configs(PREFIX_CASES, case)
+    sigs = golden_signals()
+    b = pad_batch([sigs[n] for n in ("noise", "speechish", "short", "tone_offbin")], tcfg)
+    audio, lengths = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)
+    st = frontend.fused_logmel_stages(audio, lengths, tcfg, dft_passes="bf16x3")
+    got = st["prefix"][..., : tcfg.n_mels].double().numpy()
+    js = jfrontend.fused_logmel_stages(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg,
+                                       interpret=True, dft_passes="bf16x3")
+    ref = np.asarray(js["logmel"], np.float64)
+    twin = np.asarray(jchain.logmel_stages(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg)["logmel"],
+                      np.float64)
+    f64 = frontend.logmel_prefix_reference(audio, lengths, tcfg.replace(dtype="float64"))
+    k = tcfg.log_kind
+    np.testing.assert_array_equal(st["frame_mask"].numpy(), np.asarray(js["frame_mask"]))
+    assert _loud_max_abs(got, ref, k) < PORT_VS_REFERENCE_LOUD
+    assert _loud_max_abs(got, twin, k) < CLASS_LOUD
+    assert _loud_max_abs(ref, twin, k) < CLASS_LOUD
+    assert _loud_max_abs(got, f64[..., : tcfg.n_mels].numpy(), k) < CLASS_LOUD
+    np.testing.assert_allclose(st["prefix"][..., tcfg.n_mels].numpy(), np.asarray(js["energy"]),
+                               rtol=1e-4, atol=1e-12)
+
+
+def test_dft_passes_validation_and_routing():
+    cfg = T_CONFIGS["classic13"]
+    x, n = torch.zeros((1, 1600)), torch.tensor([1600])
+    with pytest.raises(ValueError, match=r"dft_passes='bf16' not in \('radix4', 'bf16x3', 'fp32'\)"):
+        frontend.fused_logmel_stages(x, n, cfg, dft_passes="bf16")
+    with pytest.raises(ValueError, match="not in"):
+        frontend.logmel_prefix(x, n.int(), cfg, dft_passes="HIGHEST")
+    assert frontend.resolve_dft_passes(cfg) == "radix4"
+    assert frontend.resolve_dft_passes(cfg.replace(n_fft=404)) == "fp32"
+    assert frontend.resolve_dft_passes(cfg.replace(n_fft=404), "bf16x3") == "bf16x3"
+    assert frontend.kernel_form(cfg) == "radix2"
+    assert frontend.kernel_form(T_CONFIGS["whisper80"]) == "mixed"
+    assert frontend.kernel_form(cfg, "fp32") == "direct"
+    assert frontend.kernel_form(cfg, "bf16x3") == "bf16x3"
+    assert frontend.twiddle_count(512, "direct") == 512 and frontend.twiddle_count(512, "bf16x3") == 0
+    # the bf16x3 layout: no twiddles or per-warp rows; the tile's frames, powers
+    # and energies (136,384 B at classic13, one block an SM)
+    assert frontend.smem_bytes(cfg, "bf16x3") == 136384
+    assert frontend.layout_reason(cfg, "bf16x3") is None
+    assert "232,448" in frontend.layout_reason(cfg.replace(n_fft=2048), "bf16x3")
+    with pytest.raises(ValueError, match="not in"):
+        tchain.logmel_stages(x, n, cfg, dft_passes="bf16x6")
+
+
+@pytest.mark.parametrize("name", ["mfcc39_48k", "mfcc39_44k"])
+def test_fused_resample_form_refuses_bf16x3(name):
+    cfg = T_CONFIGS[name]
+    x = torch.zeros((1, 4800), dtype=torch.int16)
+    with pytest.raises(NotImplementedError, match="fused-resample form"):
+        frontend.fused_logmel_stages(x, torch.tensor([4800]), cfg, dft_passes="bf16x3")
+    with pytest.raises(NotImplementedError, match="bf16x3"):
+        frontend.logmel_prefix(x, torch.tensor([4800], dtype=torch.int32), cfg, dft_passes="bf16x3")
+
+
+def test_bf16x3_in_float64_raises():
+    cfg = T_CONFIGS["classic13"].replace(dtype="float64")
+    with pytest.raises(NotImplementedError, match="float32"):
+        tchain.logmel_stages(torch.zeros((1, 1600)), torch.tensor([1600]), cfg, dft_passes="bf16x3")

@@ -316,7 +316,7 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "import numpy as np\n"
         "import torch\n"
         "import mfcc_tpu_torch\n"
-        "from mfcc_tpu_torch.kernels import frontend, resample\n"
+        "from mfcc_tpu_torch.kernels import frontend, resample, tail\n"
         "from mfcc_tpu_torch.ops import chain, dither, resample as rs\n"
         "from mfcc_tpu_torch.pipeline import pad_batch\n"
         "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
@@ -341,6 +341,12 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "assert tuple(feat.shape) == (1, 32, 80), feat.shape\n"
         "assert frontend.dither_launches == 0 and frontend.conditioning_launches == 0\n"
         "assert frontend.centered_launches == 0 and frontend.mixed_radix_launches == 0\n"
+        "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
+        "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
+        "x, n = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)\n"
+        "st = frontend.fused_logmel_stages(x, n, cfg, feature_tail=True, dft_passes='bf16x3')\n"
+        "assert tuple(st['features_fused'].shape) == (1, 30, 39), st['features_fused'].shape\n"
+        "assert tail.tail_launches == 0 and frontend.bf16x3_launches == 0\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"

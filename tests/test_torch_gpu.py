@@ -1,6 +1,7 @@
 """The CUDA kernels on a card ≡ their plain versions: the front-end kernel
-(with its dither, conditioning, log-kind and feature-kind branches), its
-fused resample, and the polyphase resampler.
+(with its dither, conditioning, log-kind and feature-kind branches and its
+bf16x3 form), its fused resample, the feature tail, and the polyphase
+resampler; `extract_batch` keeps the caller's TF32 setting.
 
 Every test here is marked `gpu` and skips without a CUDA card (the kernel has
 no CPU mode). The module imports no jax, so it also runs where only the
@@ -14,7 +15,8 @@ tests/test_pallas_kernels.py::test_kernel_matches_jnp_twin for the prefix,
 each log kind taken to natural log; 1e-5 of the row's max |x| for the
 resampler; 8e-4 for resampled features; 5e-4 / 1e-4 for Kaldi mfcc / fbank
 features; the family gates of PLP, spectrogram and SSC prefixes and
-features).
+features; the feature tail's max(2e-4, 2e-5·max|f|) with near-constant CMVN
+columns held before the division; the bf16x3 route's 1e-3 on loud bins).
 """
 
 import numpy as np
@@ -26,6 +28,7 @@ from mfcc_tpu_torch import testing
 from mfcc_tpu_torch.config import NAMED_CONFIGS
 from mfcc_tpu_torch.kernels import frontend
 from mfcc_tpu_torch.kernels import resample as rs_kernel
+from mfcc_tpu_torch.kernels import tail
 from mfcc_tpu_torch.ops import chain
 from mfcc_tpu_torch.ops import resample
 from mfcc_tpu_torch.pipeline import pad_batch
@@ -100,9 +103,10 @@ def test_extract_batch_on_card_matches_cpu():
     _card()
     cfg = NAMED_CONFIGS["classic13_deltas"]
     b = _pcm_batch(cfg)
-    before = frontend.launches
+    before = (frontend.launches, tail.tail_launches)
     feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
-    assert feat.device.type == "cuda" and frontend.launches == before + 1
+    assert feat.device.type == "cuda"
+    assert (frontend.launches, tail.tail_launches) == (before[0] + 1, before[1] + 1)
     cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
     assert_features_close(feat, cpu)
     assert torch.equal(mask.cpu(), cpu_mask)
@@ -458,3 +462,151 @@ def test_rows_over_the_reference_slab_bound():
     feat, _ = chain.extract_batch(b.audio, b.lengths, cfg)
     cpu, _ = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
     assert_features_close(feat, cpu)
+
+
+# one 16 kHz frame hop is 160 samples: n_valid = 31, 32, 33 and 64 frames at
+# 5,200, 5,360, 5,361 and 10,480 samples ("pad" framing), the tile edges
+TAIL_LENGTHS = [0, 1, 399, 400, 401, 5200, 5360, 5361, 10480, 16000]
+TAIL_CASES = [
+    ("classic13_deltas", {}),
+    ("classic13_deltas", {"cmvn": "utterance"}),
+    ("classic13_deltas", {"cmvn": "utterance", "cmvn_var_norm": False}),
+    ("classic13", {"deltas": 1}),
+    ("classic13", {"append_energy": False}),
+    ("kaldi_mfcc", {"energy_floor": 1e-3}),
+    ("kaldi_mfcc", {"deltas": 2, "cmvn": "utterance", "dither": 1.0}),
+]
+TAIL_IDS = ["deltas2", "deltas2_cmvn", "deltas2_cmvn_mean", "deltas1", "no_energy", "kaldi_floor",
+            "kaldi_deltas_cmvn_dither"]
+
+
+def _tail_rows(cfg):
+    """Random rows at the tile-edge lengths, a zero row, and a 100 Hz tone
+    (its period is the hop, so its frames are near-constant), int16."""
+    g = np.random.default_rng(37)
+    utts = [g.standard_normal(n) * 3000 for n in TAIL_LENGTHS]
+    utts += [np.zeros(16000), 3000 * np.sin(2 * np.pi * 100 * np.arange(16000) / 16000)]
+    return pad_batch(utts, cfg, bucket_len=16000, dtype="int16")
+
+
+@pytest.mark.parametrize("name,overrides", TAIL_CASES, ids=TAIL_IDS)
+def test_feature_tail_matches_reference(name, overrides):
+    """The tail kernel ≡ its plain version on the front-end's own prefix:
+    tile-edge n_valid, n_valid 0 and 1, a zero row and a near-constant row;
+    masks equal, pad rows exactly 0; one tail launch (and one CMVN launch)."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    b = _tail_rows(cfg)
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    st = frontend.fused_logmel_stages(audio, lengths, cfg)
+    prefix, nv = st["prefix"], st["n_valid"]
+    before = (tail.tail_launches, tail.tail_cmvn_launches)
+    got = tail.feature_tail(prefix, nv, cfg)
+    torch.cuda.synchronize()
+    assert (tail.tail_launches, tail.tail_cmvn_launches) == (
+        before[0] + 1, before[1] + (cfg.cmvn == "utterance"))
+    want = tail.feature_tail_reference(prefix, nv, cfg)
+    scale = None
+    if cfg.cmvn == "utterance" and cfg.cmvn_var_norm:
+        pre = tail.feature_tail_reference(prefix, nv, cfg.replace(cmvn="off"))
+        scale = testing.cmvn_column_scale(pre, nv, cfg.cmvn_eps)
+    errs = testing.tail_errors(got, want, scale)
+    assert not testing.tail_failures(errs), errs
+    pad = st["frame_mask"] == 0
+    assert bool((got[pad] == 0).all()) and int(pad.sum()) > 0
+
+
+@pytest.mark.parametrize("config_name", ["classic13", "classic13_deltas", "classic13_deltas_gcmvn",
+                                         "mfcc39_48k", "mfcc39_44k", "kaldi_mfcc"])
+def test_extract_batch_launches_the_tail(config_name):
+    """extract_batch for each mfcc named config: one front-end launch (plain
+    or fused resample) and one tail launch; features within the config's
+    gate of the CPU chain, masks equal."""
+    _card()
+    cfg = NAMED_CONFIGS[config_name]
+    sigs = golden_signals(cfg.input_sample_rate or cfg.sample_rate)
+    b = pad_batch([np.round(sigs[n] * 3000) for n in ("noise", "speechish", "short")], cfg,
+                  dtype="int16")
+    before = (frontend.launches + frontend.resample_launches, tail.tail_launches)
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.launches + frontend.resample_launches, tail.tail_launches) == (
+        before[0] + 1, before[1] + 1)
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    assert bool((feat[mask == 0] == 0).all())
+    if chain.resamples(cfg):
+        testing.assert_resampled_features_close(feat, cpu)
+    elif cfg.frame_tail == "drop":
+        valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+        testing.assert_kaldi_features_close(feat.cpu()[valid], cpu[valid], cfg)
+    else:
+        assert_features_close(feat, cpu)
+
+
+BF16X3 = [
+    ("classic13", {}),
+    ("kaldi_mfcc", {"dither": 1.0, "n_fft": 404}),
+    ("whisper80", {}),
+    ("kaldi_plp", {}),
+    ("ssc26", {}),
+    ("kaldi_mfcc", {"win_len_s": 0.040, "n_fft": 512, "energy_source": "windowed_frame"}),
+]
+BF16X3_IDS = ["classic13", "kaldi_404_dither", "whisper80", "kaldi_plp", "ssc26", "frames_over_n_fft"]
+
+
+@pytest.mark.parametrize("name,overrides", BF16X3, ids=BF16X3_IDS)
+def test_bf16x3_matches_reference(name, overrides):
+    """The bf16x3 form ≡ its plain version (loud log-mel bins within 1e-3,
+    the other prefix gates as for every form); classic13's loud bins within
+    1e-3 of the float64 plain version; one launch, counted."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    g = np.random.default_rng(41)
+    utts = [g.standard_normal(n) * 3000 for n in (16000, 12345, 801, 401, 90)]
+    b = pad_batch(utts, cfg, bucket_len=16000, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    before = (frontend.launches, frontend.bf16x3_launches)
+    got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+    torch.cuda.synchronize()
+    assert (frontend.launches, frontend.bf16x3_launches) == (before[0] + 1, before[1] + 1)
+    want = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind, cfg.features)
+    assert not testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL), errs
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3"))
+    if name == "classic13":
+        f64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
+        errs = testing.prefix_errors(got, f64, cfg.n_mels)
+        assert errs["logmel_loud_max_abs"] < testing.BF16X3_LOUD_ATOL, errs
+
+
+def test_bf16x3_refused_in_the_fused_resample_form():
+    dev = _card()
+    audio = torch.zeros((1, 4800), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([4800], dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="fused-resample form"):
+        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["mfcc39_48k"], dft_passes="bf16x3")
+
+
+def test_extract_batch_keeps_the_callers_tf32_flag():
+    """A caller's TF32 setting survives extract_batch (the port sets full
+    fp32 only around its own matmuls), and kaldi_plp's features, whose PLP
+    IDFT is a torch matmul, stay within the family gate of the CPU chain."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sigs = golden_signals()
+        for name in ("classic13_deltas", "kaldi_plp"):
+            cfg = NAMED_CONFIGS[name]
+            b = pad_batch([np.round(sigs[n] * 3000) for n in ("noise", "speechish", "short")], cfg,
+                          dtype="int16")
+            feat, _ = chain.extract_batch(b.audio, b.lengths, cfg)
+            torch.cuda.synchronize()
+            assert torch.backends.cuda.matmul.allow_tf32 is True
+        cpu, _ = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+        valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+        testing.assert_family_features_close(feat.cpu()[valid], cpu[valid], cfg.features)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
