@@ -114,8 +114,9 @@ the card exceeds, so the bound stays a lower bound; ln and sqrt one each),
 and the resample's taps (the 61 symmetric taps of 48 kHz -> 16 kHz folded:
 91 FLOP per output); the bf16x3 form is held to the same function's
 bound (its matrix among the bytes), its three tensor passes printed beside
-at the bf16 peak; the feature tail's bound counts its prefix and features
-and its per-frame products and delta sums (`tail_bound`). No PyTorch call
+at the bf16 peak; the feature tail's bound counts the prefix rows of valid
+frames, all of its features and its per-frame products and delta sums
+(`tail_bound`). No PyTorch call
 computes the contract noise, the conditioning or the cepstral tail, so
 those entries have no library time. A
 torch.profiler pass over five steps of each extract_batch path gives device
@@ -858,14 +859,16 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
 
 
 def tail_bound(cfg, B: int, F: int, frames: int) -> tuple[float, str]:
-    """The feature tail's bound: it reads the [B, F, n_mels+1] prefix, the
-    valid frame counts and dct_aug and writes [B, F, feat_dim], each once;
-    per valid frame it does the energy lane's log, clamp and floor (3), the
-    [n_mels+1] x [n_ceps] product (2 M1 C) and per delta order C (3N + 1)
-    (N differences, products and sums, one division); CMVN adds per valid
-    value a sum, a centring, a square, a sum and the division (5 D)."""
+    """The feature tail's bound: it reads the prefix rows of the `frames`
+    valid frames (rows past an utterance's n_valid are never read), the
+    valid frame counts and dct_aug, and writes all of [B, F, feat_dim] (pad
+    rows are zeroed), each once; per valid frame it does the energy lane's
+    log, clamp and floor (3), the [n_mels+1] x [n_ceps] product (2 M1 C) and
+    per delta order C (3N + 1) (N differences, products and sums, one
+    division); CMVN adds per valid value a sum, a centring, a square, a sum
+    and the division (5 D)."""
     M1, C, N, D = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window, cfg.feat_dim
-    nbytes = 4 * (B * F * M1 + B + M1 * C + B * F * D)
+    nbytes = 4 * (frames * M1 + B + M1 * C + B * F * D)
     per_frame = 3 + 2 * M1 * C + cfg.deltas * C * (3 * N + 1)
     if cfg.cmvn == "utterance":
         per_frame += 5 * D

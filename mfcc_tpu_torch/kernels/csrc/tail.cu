@@ -26,10 +26,12 @@
 // (chain.cmvn_utterance; without cmvn_var_norm only the mean).
 //
 // Bound at the main path (classic13_deltas, b64 x 10 s, F = 999, M1 = 27,
-// C = 13, 39 output lanes; H100 SXM peaks): it reads 6.91 MB of prefix and
-// writes 9.97 MB of features, 16.88 MB -> 5.04 us at 3.35 TB/s; its ~0.9 k
-// FLOP a frame (2 M1 C for the matmul, 2 C (3N + 1) for the two delta
-// orders) give 0.86 us at 67 TFLOP/s fp32. The bytes set the bound;
+// C = 13, 39 output lanes, 56,741 valid frames; H100 SXM peaks): it reads
+// the 6.13 MB of prefix rows of valid frames (it never reads a row past
+// n_valid) and writes 9.97 MB of features (pad rows zeroed), 16.10 MB ->
+// 4.81 us at 3.35 TB/s; its 887 FLOP a valid frame (2 M1 C for the matmul,
+// 2 C (3N + 1) for the two delta orders, 3 for the energy lane) give
+// 0.75 us at 67 TFLOP/s fp32. The bytes set the bound;
 // chip_smoke.py computes it from each run's inputs.
 //
 // Design. One block per (utterance, tile of 32 frames), 256 threads, the

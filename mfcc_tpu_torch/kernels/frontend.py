@@ -470,10 +470,11 @@ def fused_logmel_stages(
     float32) + lengths [B] → {"prefix" | "features_fused", "n_valid",
     "frame_mask", "num_frames"}, on audio's device. "prefix" is
     `logmel_prefix` by the `dft_passes` route; with feature_tail=True and an
-    mfcc config (`tail.tail_reason`) the feature-tail kernel finishes the
-    features ("features_fused", which `chain.features_from_logmel` returns
-    as they are) at any frame count. Other families keep the prefix, as the
-    reference's ineligible configs do. For resampling configs lengths count
+    mfcc config the feature-tail kernel finishes the features
+    ("features_fused", which `chain.features_from_logmel` returns as they
+    are) at any frame count, or raises on the card (`tail.feature_tail`).
+    Other families keep the prefix, as the reference's ineligible configs
+    do. For resampling configs lengths count
     input samples; n_valid counts frames at cfg.sample_rate."""
     from mfcc_tpu_torch.kernels import tail
 
@@ -496,7 +497,7 @@ def fused_logmel_stages(
         "frame_mask": chain.frame_mask(n_valid, F, torch.float32),
         "num_frames": F,
     }
-    if feature_tail and tail.tail_reason(cfg) is None:
+    if feature_tail and cfg.features == "mfcc":
         stages["features_fused"] = tail.feature_tail(prefix, n_valid, cfg, consts)
     else:
         stages["prefix"] = prefix

@@ -52,12 +52,10 @@ def smem_bytes(cfg: FrontendConfig) -> int:
     return 4 * (M1 * C + R * M1 + R * C + RD * C)
 
 
-def tail_reason(cfg: FrontendConfig) -> str | None:
-    """None when the feature-tail kernel computes cfg's features; otherwise
-    why not (port of `fused_tail_reason`, without its 128-lane limits, which
-    are a TPU layout)."""
-    if cfg.features != "mfcc":
-        return "the feature tail is the mfcc cepstral epilogue only"
+def layout_reason(cfg: FrontendConfig) -> str | None:
+    """None when one tail block's layout (`smem_bytes`) fits the block's
+    shared memory; otherwise its size. `chain.unsupported_reason` refuses
+    such mfcc configs on both devices."""
     n = smem_bytes(cfg)
     if n > rs_kernel.SMEM_BUDGET_BYTES:
         return (
@@ -65,6 +63,15 @@ def tail_reason(cfg: FrontendConfig) -> str | None:
             f"the block's {rs_kernel.SMEM_BUDGET_BYTES:,}"
         )
     return None
+
+
+def tail_reason(cfg: FrontendConfig) -> str | None:
+    """None when the feature-tail kernel computes cfg's features; otherwise
+    why not (port of `fused_tail_reason`, without its 128-lane limits, which
+    are a TPU layout)."""
+    if cfg.features != "mfcc":
+        return "the feature tail is the mfcc cepstral epilogue only"
+    return layout_reason(cfg)
 
 
 def feature_tail_reference(

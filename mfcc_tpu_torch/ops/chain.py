@@ -31,13 +31,12 @@ log-mel, the raw mel energies for PLP, the log power spectrum for a
 spectrogram or the centroids for SSC). With `device="cpu"` it runs the
 plain chain of this module (`resample_input`, then `logmel_stages`: the
 kernels' plain versions). A config outside the port raises on both devices,
-naming what it still needs. Torch matmuls run in full fp32
-(`full_fp32_matmul`), which leaves the caller's TF32 setting as it was.
+naming what it still needs. Torch matmuls on the card run in full fp32
+(`matmul_fp32`), which leaves the caller's TF32 setting as it was.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
@@ -89,18 +88,17 @@ def needs_conditioning(cfg: FrontendConfig) -> bool:
     )
 
 
-@contextlib.contextmanager
-def full_fp32_matmul():
-    """Runs the block's torch matmuls in full fp32: the process-wide float32
-    matmul precision (which sets `torch.backends.cuda.matmul.allow_tf32`) is
-    set to "highest" and restored on exit, so the caller's setting survives.
-    TF32 keeps ~3 decimal digits, too few for the 5e-4 cepstra gate."""
-    saved = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(saved)
+def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for the chain's products, at full fp32 accuracy on the card
+    whatever the caller's TF32 setting: a CUDA float32 product is computed
+    in float64 and rounded back, so neither TF32 nor the process-wide float32
+    matmul precision applies and no global state is read or written (a
+    training thread beside an extracting one keeps its setting). TF32 keeps
+    ~3 decimal digits, too few for the 5e-4 cepstra gate. Other products
+    are plain matmuls."""
+    if a.is_cuda and a.dtype == torch.float32:
+        return torch.matmul(a.double(), b.double()).float()
+    return torch.matmul(a, b)
 
 
 def centered(cfg: FrontendConfig) -> bool:
@@ -111,16 +109,19 @@ def centered(cfg: FrontendConfig) -> bool:
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when the port implements `cfg`; otherwise what it still needs,
     with its ROADMAP queue-2 item: centered framing of resampled rows, or a
-    front-end kernel layout over the block's shared memory (an n_fft,
-    frame length or filter count too large for one block)."""
+    kernel layout over the block's shared memory (an n_fft, frame length or
+    filter count too large for one front-end block; for mfcc configs, cepstra
+    and a delta window too large for one feature-tail block)."""
     if resamples(cfg) and centered(cfg):
         return (
             "centered framing of resampled rows (the fused resample stages "
             "no reflection; ROADMAP queue 2 item 3)"
         )
-    from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
+    from mfcc_tpu_torch.kernels import frontend, tail  # the kernels' layout mirrors
 
     reason = frontend.layout_reason(cfg)
+    if reason is None and cfg.features == "mfcc":
+        reason = tail.layout_reason(cfg)
     if reason:
         return f"{reason} (ROADMAP queue 2 item 4)"
     return None
@@ -355,8 +356,7 @@ def plp_base(
     mel = torch.clamp(melspec, min=0.0) * k["equal_loudness"]
     mel = mel ** cfg.compress_factor
     dup = torch.cat([mel[..., :1], mel, mel[..., -1:]], dim=-1)
-    with full_fp32_matmul():
-        r = torch.matmul(dup, k["idft"].T)
+    r = matmul_fp32(dup, k["idft"].T)
     a, e = durbin(r, cfg.lpc_order)
     c = lpc_to_cepstrum(a)
     c0 = torch.log(torch.clamp(e, min=cfg.log_eps))
@@ -376,8 +376,7 @@ def ssc_centroids(
     where(p <= 0, eps, p), then Σ p·f·mel / Σ p·mel per filter."""
     k = consts if consts is not None else device_constants(cfg, pspec.device, pspec.dtype)
     p = torch.where(pspec <= 0, cfg.log_eps, pspec)
-    with full_fp32_matmul():
-        return torch.matmul(p * k["freqs"], k["mel"]) / torch.matmul(p, k["mel"])
+    return matmul_fp32(p * k["freqs"], k["mel"]) / matmul_fp32(p, k["mel"])
 
 
 def resample_input(
@@ -414,8 +413,7 @@ def bf16x3_power(frames: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
     lo = (x - hi).to(torch.bfloat16).float()
     wh = torch.as_tensor(k["dft_hi"], device=x.device)
     wl = torch.as_tensor(k["dft_lo"], device=x.device)
-    with full_fp32_matmul():
-        reim = torch.matmul(hi, wh) + torch.matmul(lo, wh) + torch.matmul(hi, wl)
+    reim = matmul_fp32(hi, wh) + matmul_fp32(lo, wh) + matmul_fp32(hi, wl)
     re, im = reim[..., : cfg.n_bins], reim[..., cfg.n_bins :]
     return re * re + im * im
 
@@ -476,8 +474,7 @@ def logmel_stages(
         energy = torch.where(energy <= 0, eps, energy)
     elif cfg.energy_source == "windowed_frame":
         energy = torch.clamp((windowed * windowed).sum(dim=-1), min=eps)
-    with full_fp32_matmul():
-        melspec = torch.matmul(pspec, k["mel"])
+    melspec = matmul_fp32(pspec, k["mel"])
     n_valid = num_valid_frames(lengths, cfg)
     out = {
         "frames": frames,
@@ -551,8 +548,7 @@ def features_from_logmel(
                 if cfg.energy_floor > 0.0:
                     log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
                 x = torch.cat([x[..., :M], log_e], dim=-1)
-            with full_fp32_matmul():
-                base = torch.matmul(x, k["dct_aug"])
+            base = matmul_fp32(x, k["dct_aug"])
     elif cfg.features == "logmel":
         base = logmel_norm(stages["logmel"], mask, cfg)
     elif cfg.features == "spectrogram":  # logmel is the log pspec (mel == identity)
@@ -569,8 +565,7 @@ def features_from_logmel(
     else:
         logmel, energy = stages["logmel"], stages["energy"]
         k = consts if consts is not None else device_constants(cfg, logmel.device, logmel.dtype)
-        with full_fp32_matmul():
-            base = torch.matmul(logmel, k["dct"]) * k["lifter"]
+        base = matmul_fp32(logmel, k["dct"]) * k["lifter"]
         if cfg.append_energy:
             log_e = torch.log(energy)
             if cfg.energy_floor > 0.0:
@@ -633,7 +628,7 @@ def extract_batch(
         stages = logmel_stages(audio, lengths, cfg, consts)
         return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
 
-    from mfcc_tpu_torch.kernels import frontend, tail
+    from mfcc_tpu_torch.kernels import frontend
 
     if cfg.dtype != "float32":
         raise NotImplementedError(
@@ -641,8 +636,7 @@ def extract_batch(
             "pass device='cpu' for the plain chain"
         )
     # consts=None lets the wrappers use their per-(cfg, device) cached tables
-    stages = frontend.fused_logmel_stages(
-        audio, lengths, cfg, feature_tail=tail.tail_reason(cfg) is None, consts=consts)
+    stages = frontend.fused_logmel_stages(audio, lengths, cfg, feature_tail=True, consts=consts)
     k = consts if consts is not None else device_constants(cfg, device, torch.float32)
     return features_from_logmel(stages, cfg, k), stages["frame_mask"]
 

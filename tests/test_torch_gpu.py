@@ -590,10 +590,28 @@ def test_bf16x3_refused_in_the_fused_resample_form():
         frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["mfcc39_48k"], dft_passes="bf16x3")
 
 
+def test_a_tail_layout_over_the_block_raises_on_the_card():
+    """An mfcc config whose tail block is over the block's shared memory
+    raises on the card, from extract_batch and from the tail's wrapper, and
+    launches nothing: no plain version finishes it."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
+    audio = torch.zeros((2, 16000), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([16000, 8000], device=dev)
+    before = (frontend.launches, tail.tail_launches)
+    with pytest.raises(NotImplementedError, match="feature-tail layout"):
+        chain.extract_batch(audio, lengths, cfg)
+    with pytest.raises(NotImplementedError, match="feature-tail layout"):
+        tail.feature_tail(torch.zeros((2, 99, 171), device=dev),
+                          torch.tensor([99, 49], dtype=torch.int32, device=dev), cfg)
+    assert (frontend.launches, tail.tail_launches) == before
+
+
 def test_extract_batch_keeps_the_callers_tf32_flag():
-    """A caller's TF32 setting survives extract_batch (the port sets full
-    fp32 only around its own matmuls), and kaldi_plp's features, whose PLP
-    IDFT is a torch matmul, stay within the family gate of the CPU chain."""
+    """A caller's TF32 setting survives extract_batch (the port's matmuls run
+    in float64 on the card and read or write no global flag), and kaldi_plp's
+    features, whose PLP IDFT is a torch matmul, stay within the family gate
+    of the CPU chain."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -610,3 +628,48 @@ def test_extract_batch_keeps_the_callers_tf32_flag():
         testing.assert_family_features_close(feat.cpu()[valid], cpu[valid], cfg.features)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_the_tf32_flag_survives_concurrent_calls():
+    """Four threads run extract_batch for kaldi_plp and ssc26 (their
+    epilogues hold torch matmuls: the PLP IDFT; the SSC centroids on the plain
+    stages) while the caller's TF32 flag is True: it reads True in every
+    thread after every call and after all of them, and each thread's features
+    stay within the family gate of the CPU chain."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = _card()
+    sigs = golden_signals()
+    jobs = []
+    for name in ("kaldi_plp", "ssc26"):
+        cfg = NAMED_CONFIGS[name]
+        b = pad_batch([np.round(sigs[n] * 3000) for n in ("noise", "speechish", "short")], cfg,
+                      dtype="int16")
+        cpu, _ = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+        jobs.append((cfg, b, cpu))
+
+    def run(job):
+        cfg, b, _ = job
+        flags = []
+        for _ in range(5):
+            if cfg.features == "ssc":
+                audio = torch.as_tensor(b.audio, device=dev)
+                lengths = torch.as_tensor(b.lengths, device=dev)
+                feat = chain.features_from_logmel(chain.logmel_stages(audio, lengths, cfg), cfg)
+            else:
+                feat, _ = chain.extract_batch(b.audio, b.lengths, cfg)
+            torch.cuda.synchronize()
+            flags.append(torch.backends.cuda.matmul.allow_tf32)
+        return feat.cpu(), flags
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            results = list(pool.map(run, jobs * 2))
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for (cfg, b, cpu), (feat, flags) in zip(jobs * 2, results):
+        assert all(f is True for f in flags), flags
+        valid = torch.as_tensor(b.lengths) >= cfg.frame_length
+        testing.assert_family_features_close(feat[valid], cpu[valid], cfg.features)

@@ -16,7 +16,8 @@ On the CPU the wrapper takes its plain version (the prefix branch of
   - rows longer than the reference's largest frame block (15 s), where the
     reference's tail refuses, against the JAX jnp chain at the 5e-4 cepstra
     gate;
-  - `tail_reason` against `fused_tail_reason` on every named config.
+  - `tail_reason` against `fused_tail_reason` on every named config, and a
+    tail layout over the block refused on the CPU as on the card.
 """
 
 import numpy as np
@@ -231,6 +232,23 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                                      cfg.replace(dtype="float64"))
     assert "mfcc" in tail.tail_reason(T_CONFIGS["kaldi_plp"])
     assert "shared memory" in tail.tail_reason(cfg.replace(n_mels=200, n_ceps=200, delta_window=40))
+
+
+def test_a_tail_layout_over_the_block_is_refused_on_both_devices():
+    """An mfcc config whose tail block needs more shared memory than a block
+    has (170 cepstra, delta window 8) is refused by `check_supported`, so the
+    CPU chain refuses it as the card does; its front-end layout fits. The
+    other families never take the tail, so its layout does not refuse them."""
+    cfg = T_CONFIGS["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
+    assert frontend.layout_reason(cfg) is None
+    assert "shared memory" in tail.layout_reason(cfg)
+    assert "feature-tail layout" in tchain.unsupported_reason(cfg)
+    x, n = torch.zeros((1, 800)), torch.tensor([800])
+    with pytest.raises(NotImplementedError, match="feature-tail layout"):
+        tchain.extract_batch(x, n, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="feature-tail layout"):
+        frontend.fused_logmel_stages(x, n, cfg, feature_tail=True)
+    assert tchain.unsupported_reason(cfg.replace(features="logmel")) is None
 
 
 def test_extract_batch_cpu_is_the_plain_chain():
