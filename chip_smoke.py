@@ -6,7 +6,10 @@
 Phases, in order; any failure exits non-zero:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build every kernel source from the checkout (one nvcc each, all started
-     together) and print ptxas usage;
+     together) and print ptxas usage; then, from the card, the registers,
+     local (spilled) bytes and blocks an SM of each FFT-form instantiation
+     of the front-end kernel (no spills; classic13, logmel80 and whisper80
+     at three blocks an SM or more);
   3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
      n - 571*i): the front-end kernel against its plain version (the
      test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
@@ -47,7 +50,8 @@ Phases, in order; any failure exits non-zero:
      kaldi_mfcc without dither and kaldi_fbank at b16, counted, within 5e-4
      and 1e-4 of the CPU chain;
   8. path logmel80 (BASELINE config #3, b256 x 10 s int16): the ln_stab
-     epilogue against its plain version, `extract_batch` counted,
+     epilogue against its plain version, `extract_batch` counted, timed
+     beside torch.fft.rfft on the same frames,
      [256, 999, 80] within the two-regime log-mel gate (1e-4 on bins within
      40 dB of the row max, 1e-5 of the row max in the linear domain) of the
      CPU chain and of the float64 chain on four rows; times; the db
@@ -67,7 +71,7 @@ Phases, in order; any failure exits non-zero:
      400-point FFT and the log10_floor epilogue against the float64 plain
      version (prefix gates, log10 lanes read as natural logs), int16 ≡
      float32; `extract_batch` counted (front-end 1 with its centered and
-     mixed-radix branches), [64, 3000, 80] within 5e-5 of the CPU chain and
+     Stockham form), [64, 3000, 80] within 5e-5 of the CPU chain and
      1e-5 of the float64 chain on four rows (the whisper gates); times;
   13. whisper80 ragged at b16 (lengths 480,000 - 1,713*i, and 801, 401, 250
      and 90 samples, which wrap the reflection more than once);
@@ -90,7 +94,10 @@ Phases, in order; any failure exits non-zero:
   20. the bf16x3 form: classic13 b64 x 10 s through
      `fused_logmel_stages(dft_passes="bf16x3")`, counted, against its plain
      version and the float64 plain version (loud bins 1e-3), timed beside
-     the radix-2 form in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16.
+     the Stockham form in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16;
+  21. n_fft 2048 (classic13, 26 filters), b16: the Stockham form at 1,024
+     points (8*8*8*2) against the float64 plain version, counted, its
+     features within 5e-4 of the CPU chain.
   Phases 13-18 each hold the kernel to its plain version (whisper80 and the
   n_fft 404 and 480 sizes: the float64 plain version), check int16 ≡
   float32, two runs and dirty tails ≡ clean bitwise, and count
@@ -102,8 +109,8 @@ flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
 cores) at the function's minimum: an n_fft/2-point complex FFT counted by
-the split-radix formula (whatever form the kernel takes: radix-2, Stockham
-or the direct DFT), the real split with its 1/2 scalings folded into the
+the split-radix formula (whatever form the kernel takes: Stockham or the
+direct DFT), the real split with its 1/2 scalings folded into the
 power scale, the mel sums
 over the filters' nonzero weights (none for a spectrogram; for SSC the
 per-bin clamps, two sums per weight and a division per filter, and no
@@ -347,7 +354,6 @@ class Counters:
         self.frontend.spectrogram_launches = 0
         self.frontend.ssc_launches = 0
         self.frontend.centered_launches = 0
-        self.frontend.mixed_radix_launches = 0
         self.frontend.direct_dft_launches = 0
         self.frontend.bf16x3_launches = 0
         self.rs_kernel.launches = 0
@@ -365,7 +371,6 @@ class Counters:
             "spectrogram": self.frontend.spectrogram_launches,
             "ssc": self.frontend.ssc_launches,
             "centered": self.frontend.centered_launches,
-            "mixed": self.frontend.mixed_radix_launches,
             "direct": self.frontend.direct_dft_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
@@ -397,7 +402,7 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     n_fft/2-point complex FFT counted by the split-radix formula
     4H log2 H - 6H + 8 at H = n_fft/2 (the least count known for a power of
     two, and below any known count for other sizes: the bound counts the
-    function, not the kernel's radix-2, Stockham or direct form), the real
+    function, not the kernel's Stockham or direct form), the real
     split, |X|^2, then by feature kind: mel over the nonzero weights with a
     clamp and log per filter (mfcc, logmel) or without (plp), a clamp and log
     per bin (spectrogram), or SSC's clamp per bin that a filter weighs, two
@@ -538,12 +543,15 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
 
 def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2, taps: int = 0) -> int:
     """Bytes the front-end must move: each input sample that holds signal,
-    the lengths, the [B, F, M+1] prefix and the window, the [n_bins, M]
-    matrices it reads (mel; none for a spectrogram; mel and melf for SSC),
-    band and twiddle tables (and a resample's taps), each once."""
-    M = cfg.n_mels
-    tables = (cfg.frame_length + frontend.mel_matrices(cfg) * cfg.n_bins * M + 2 * M
-              + 2 * frontend.twiddle_count(cfg.n_fft) + taps)
+    the lengths, the [B, F, M+1] prefix and the window, the packed mel
+    weights it reads (mel; none for a spectrogram; mel and melf for SSC)
+    with their offsets and band starts, the twiddle and stage tables (and a
+    resample's taps), each once."""
+    M, N, tables = cfg.n_mels, cfg.n_fft, frontend.mel_matrices(cfg)
+    form = frontend.dft_form(N)
+    tables = (cfg.frame_length + tables * frontend.packed_count(cfg) + (2 * M + 1) * (tables > 0)
+              + 2 * frontend.twiddle_count(N)
+              + (len(frontend.stage_bases(N)) if form == "stockham" else 0) + taps)
     return int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4 + tables * 4
 
 
@@ -688,7 +696,7 @@ def whisper_path(torch, counters, tag: str) -> dict:
     counters.zero()
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
-    counters.expect("the kernel", frontend=1, centered=1, mixed=1)
+    counters.expect("the kernel", frontend=1, centered=1)
     check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
     errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "log10_floor, main batch")
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
@@ -698,7 +706,7 @@ def whisper_path(torch, counters, tag: str) -> dict:
     counters.zero()
     feat, mask = chain.extract_batch(pcm, lens, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("main path", frontend=1, centered=1, mixed=1)
+    launches = counters.expect("main path", frontend=1, centered=1)
     check(tuple(feat.shape) == (B, F, M) and feat.device.type == "cuda"
           and bool(torch.isfinite(feat).all()), f"features {tuple(feat.shape)}, finite, on the card")
     cpu_feat, cpu_mask = chain.extract_batch(pcm, lens, cfg, device="cpu")
@@ -722,7 +730,7 @@ def whisper_path(torch, counters, tag: str) -> dict:
           f"(DFT only): {rfft_ms:.4f} ms {tag}")
     step_times(torch, chain, types.SimpleNamespace(audio=pcm, lengths=lens), audio, lengths, cfg,
                "front-end kernel", tag, seconds=WHISPER_SECONDS)
-    return dict(launches=launches["mixed"], max_abs_err=errs["max_abs"], ms=kernel_ms,
+    return dict(launches=launches["centered"], max_abs_err=errs["max_abs"], ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
 
 
@@ -744,7 +752,7 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     F = cfg.num_frames(batch.audio.shape[1])
     form = frontend.dft_form(cfg.n_fft)
     branches = {k: 1 for k, on in (
-        ("centered", chain.centered(cfg)), ("mixed", form == "mixed"), ("direct", form == "direct"),
+        ("centered", chain.centered(cfg)), ("direct", form == "direct"),
         ("dither", cfg.dither > 0.0), ("conditioning", chain.needs_conditioning(cfg))) if on}
     print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
           f"{frontend.smem_bytes(cfg)} B of shared memory a block")
@@ -819,10 +827,10 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
                              ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=rfft_ms)
     r2_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=512)))
-    print(f"  the same rows at n_fft 512 (radix-2): {r2_ms:.4f} ms {tag}")
+    print(f"  the same rows at n_fft 512 (Stockham 8*8*4): {r2_ms:.4f} ms {tag}")
     del audio, lengths
 
-    print(f"== 16. a radix-3 Stockham size: classic13 n_fft 480 (240 = 4*4*3*5) b{B_SMALL}")
+    print(f"== 16. a radix-3 Stockham size: classic13 n_fft 480 (240 = 8*2*3*5) b{B_SMALL}")
     cfg = named_config("classic13").replace(n_fft=480)
     _, audio, lengths, _, _ = small_path(torch, counters, cfg, lens, n16, 22,
                                          "classic13 n_fft 480", testing.FEATURE_ATOL, prefix64=True)
@@ -972,7 +980,7 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
     """Phase 20: the bf16x3 form, classic13 b64 x 10 s through
     fused_logmel_stages(dft_passes="bf16x3"), counted: against its plain
     version (loud bins 1e-3, the other prefix gates) and the float64 plain
-    version (loud bins 1e-3); timed beside the radix-2 form on the same rows,
+    version (loud bins 1e-3); timed beside the Stockham form on the same rows,
     in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16."""
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
@@ -1011,7 +1019,7 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
 
     print(f"  times {tag}")
     runs = []
-    for _ in range(2):  # in turns: bf16x3, radix-2, bf16x3, radix-2
+    for _ in range(2):  # in turns: bf16x3, Stockham, bf16x3, Stockham
         runs.append((cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")),
                      cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))))
     kernel_ms = float(np.mean([k for k, _ in runs]))
@@ -1032,8 +1040,8 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
     tensor_ms = 3 * 2 * kp * 2 * cfg.n_bins * frames / PEAK_BF16_FLOPS * 1e3
     print(f"  bf16x3 kernel: {kernel_ms:.4f} ms ({runs[0][0]:.4f}, {runs[1][0]:.4f}; "
           f"{bound_ms / kernel_ms * 100:.1f}% of the function's bound) {tag}")
-    print(f"  radix-2 form on the same rows: {r2_ms:.4f} ms ({runs[0][1]:.4f}, {runs[1][1]:.4f}); "
-          f"bf16x3 / radix-2 = {kernel_ms / r2_ms:.2f} {tag}")
+    print(f"  Stockham form on the same rows: {r2_ms:.4f} ms ({runs[0][1]:.4f}, {runs[1][1]:.4f}); "
+          f"bf16x3 / Stockham = {kernel_ms / r2_ms:.2f} {tag}")
     print(f"  the three bf16 passes alone: 3 x 2 x {kp} x {2 * cfg.n_bins} FLOP x {frames} frames "
           f"-> {tensor_ms:.4f} ms at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s bf16")
     print(f"  plain version (three fp32 matmuls of bf16 parts): {plain_ms:.4f} ms; torch.fft.rfft on "
@@ -1055,6 +1063,57 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
     check(not fails, f"bf16x3 with conditioning and dither within its gates {fails or ''}")
     return dict(launches=launches["bf16x3"], max_abs_err=errs["max_abs"], ms=kernel_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+
+
+def large_fft_path(torch, counters, tag: str) -> None:
+    """Phase 21: classic13 at n_fft 2048 (26 filters; its dense mel matrix
+    was over the block's shared memory, its 1,915 packed weights are not),
+    b16: the Stockham form at 1,024 points against the float64 plain
+    version, the bitwise invariances, extract_batch counted and within 5e-4
+    of the CPU chain and the float64 chain; timed."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+
+    cfg = named_config("classic13").replace(n_fft=2048)
+    n16 = 16000 * SECONDS
+    print(f"== 21. n_fft 2048: classic13 b{B_SMALL} x {SECONDS} s, radices "
+          f"{frontend.radices(cfg.n_fft)}, {frontend.packed_count(cfg)} packed weights")
+    lens = [n16 - 571 * i for i in range(B_SMALL)]
+    _, audio, lengths, _, _ = small_path(torch, counters, cfg, lens, n16, 28, "classic13 n_fft 2048",
+                                         testing.FEATURE_ATOL, prefix64=True)
+    print(f"  frontend kernel at n_fft 2048, b{B_SMALL}: "
+          f"{cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg)):.4f} ms {tag}")
+
+
+def occupancy(frontend, named_config) -> None:
+    """Phase 2's view of the front-end's FFT-form instantiations from the
+    card (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+    registers, local (spilled) bytes and blocks an SM of each of the 16
+    (int16 or float32 rows, plain or fused resample, dither, conditioning)
+    at the shared memory of a config that takes it; then the named configs'
+    blocks an SM. Fails on a spill, or under three blocks an SM for
+    classic13, logmel80 or whisper80 (the design's target)."""
+    print("  FFT-form instantiations (rows, resample, dither, conditioning): registers, "
+          "local bytes, blocks an SM at that config's shared memory")
+    for int16 in (True, False):
+        for resample in (False, True):
+            for dith in (False, True):
+                for cond in (False, True):
+                    cfg = named_config("kaldi_mfcc" if cond else "classic13")
+                    cfg = cfg.replace(dither=1.0 if dith else 0.0,
+                                      input_sample_rate=48000 if resample else None)
+                    info = frontend.kernel_info(cfg, int16)
+                    print(f"    {'int16' if int16 else 'float32'}, resample {int(resample)}, "
+                          f"dither {int(dith)}, conditioning {int(cond)}: {info}")
+                    check(info["local_bytes"] == 0, "no spills")
+    for name in ("classic13_deltas", "logmel80", "whisper80", "ssc26", "kaldi_plp",
+                 "kaldi_spectrogram", "kaldi_mfcc", "mfcc39_48k", "mfcc39_44k"):
+        cfg = named_config(name)
+        info = frontend.kernel_info(cfg)
+        print(f"    {name}: {info['smem_bytes']} B of shared memory a block, "
+              f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
+        if name in ("classic13_deltas", "logmel80", "whisper80"):
+            check(info["blocks_per_sm"] >= 3, f"{name}: three blocks an SM or more")
 
 
 def main() -> int:
@@ -1101,6 +1160,7 @@ def main() -> int:
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    occupancy(frontend, named_config)
 
     # 3. classic13_deltas: the front-end kernel
     cfg = named_config("classic13_deltas")
@@ -1261,9 +1321,9 @@ def main() -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
-        ("a front-end layout over the block's shared memory (n_fft 2048)",
+        ("a front-end layout over the block's shared memory (n_fft 4096)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("classic13").replace(n_fft=2048)),
+                                     named_config("classic13").replace(n_fft=4096)),
          NotImplementedError),
         ("centered framing of resampled rows (whisper80 at 48 kHz)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
@@ -1475,14 +1535,15 @@ def main() -> int:
                  f"db epilogue, b{B_SMALL}")
 
     print(f"  times {tag}")
-    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
-    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=5)
+    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F, 5)
     lens = np.minimum(batch.lengths.astype(np.int64), T)
     bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B_LOGMEL80, F),
                                frontend_ops(cfg, chain, frontend, torch, lens, F))
     print(f"  frontend kernel, ln_stab, M = {M}: {kernel_ms:.4f} ms "
           f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
     print(f"  plain version (torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  torch.fft.rfft(n={cfg.n_fft}) on [{B_LOGMEL80 * F}, {cfg.frame_length}] pre-framed "
+          f"(DFT only): {rfft_ms:.4f} ms {tag}")
     step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
     del audio, lengths
 
@@ -1491,7 +1552,7 @@ def main() -> int:
         feature_kind, numbers = family_path(torch, counters, name, seed, phase, tag)
         results[feature_kind] = numbers
 
-    # 12-18. whisper80, centered framing, the direct and mixed-radix DFTs,
+    # 12-18. whisper80, centered framing, the direct DFT and other Stockham sizes,
     # long frames and long rows
     results["whisper"] = whisper_path(torch, counters, tag)
     new_form_paths(torch, counters, tag, results)
@@ -1499,6 +1560,7 @@ def main() -> int:
     # 19-20. the feature tail's branches; the bf16x3 form
     tail_paths(torch, counters, tag)
     results["bf16x3"] = bf16x3_path(torch, counters, tag)
+    large_fft_path(torch, counters, tag)
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -26,57 +26,103 @@
 // Bound at the main path (classic13_deltas, batch 64 x 10 s, int16 rows,
 // T = 160,080, F = 999, M = 26; H100 SXM peaks):
 //   bytes: 20.49 MB int16 in + 6.90 MB out = 27.4 MB -> 8.2 us at 3.35 TB/s.
-//   operations, the function's minimum (not this kernel's form): 0.4 k window
-//     + 6.66 k for a split-radix 256-point complex FFT (4N log2 N - 6N + 8)
-//     + 1.78 k real split (its 1/2 scalings fold into pscale) + 0.77 k |X|^2
-//     + 0.92 k mel (the 459 nonzero weights) + 0.26 k energy + 53 clamp/ln
-//     = 10,839 FLOP per frame x 56,836 frames that hold samples, plus 2 per
-//     sample of pre-emphasis = 0.634 GFLOP -> 9.47 us at 67 TFLOP/s fp32.
-//     The operations set the bound; chip_smoke.py computes it from each
-//     run's inputs. This kernel's radix-2 form does ~14.8 k per frame.
+//   operations, the function's minimum: 0.4 k window + 6.66 k for a
+//     split-radix 256-point complex FFT (4N log2 N - 6N + 8) + 1.78 k real
+//     split (its 1/2 scalings fold into pscale) + 0.77 k |X|^2 + 0.92 k mel
+//     (the 459 nonzero weights) + 0.26 k energy + 53 clamp/ln = 10,839 FLOP
+//     per frame x 56,836 frames that hold samples, plus 2 per sample of
+//     pre-emphasis = 0.634 GFLOP -> 9.47 us at 67 TFLOP/s fp32. The
+//     operations set the bound; chip_smoke.py computes it from each run's
+//     inputs.
+// Neither bytes nor operations bind this kernel on Hopper. A frame is
+// about a thousand warp instructions of shared-memory passes, index
+// arithmetic and butterflies, run as a chain of dependent passes (load ->
+// butterfly -> store -> __syncwarp, once per FFT stage), so it is bound by
+// instruction issue and shared-memory throughput per SM, and by the passes'
+// latency where too few warps are resident. The design cuts each: three
+// FFT passes at 256 points where radix 2 took eight, three blocks (24
+// warps) an SM, the projection spread evenly over the lanes with its logs
+// off the divergent loop, no DFT for frames of zeros, and the staging
+// loads issued in batches. PERF.md section 6 gives the measured breakdown
+// (staging, DFT and split, projection).
 //
 // Design. One block per (utterance, tile of 32 frames), 8 warps:
 //   1. The tile's sample span, 31*S + L samples (5,360 at S = 160, L = 400),
 //      is staged once in shared memory as fp32 after convert, pre-emphasis
-//      and zeroing. Each input byte is read about once (the overlap
+//      and zeroing, each thread issuing the loads of kStageBatch samples
+//      before it uses any, so their latencies overlap. Each input byte is
+//      read about once (the overlap
 //      between tiles and the x[t-1] re-read are served by L1/L2);
 //      pre-emphasis reads the previous tile's last sample from global
 //      memory, so only t = 0 sees x[-1] = 0. Zeroing follows pre-emphasis,
 //      so y[length] = 0, and it does not rely on the padding being zero.
-//   2. Each warp takes one frame at a time and packs its first min(L, N)
-//      windowed samples (rfft's truncation) into the warp's DFT row.
+//      Under non-centered framing a tile that starts at or past its row's
+//      length stages nothing (all its frames are zero frames, step 2z).
+//   2. Each warp takes one frame at a time.
+//   2z. A frame that starts at or past its row's length (non-centered
+//      framing, both forms) holds only zeros by construction, so it takes
+//      no DFT: its power row is set to 0, exactly what the DFT of its zero
+//      samples gives, and the conditioning's mean and energy are 0. Step 4
+//      runs on that row. (11 % of the main path's frames.)
 //   3. The DFT, by a warp-uniform switch on the form the host picked from N
-//      (no template flag: the build keeps 16 instantiations):
-//      (a) N a power of two: N/2 complex points (even samples real, odd
-//          imaginary) in bit-reversed order, an in-place radix-2 DIT FFT
-//          with __syncwarp between stages;
-//      (b) N even, N/2 = a product of 2, 3, 4 and 5 (whisper80: 200 =
-//          4*2*5*5): the same packing in natural order, then a Stockham
-//          (autosort) FFT that ping-pongs between the warp's two rows of N/2
-//          float2 (1.6 KB each at N = 400), so no mixed-radix digit reversal
-//          is needed; radix-3 and radix-5 butterflies use float64 constants
-//          rounded once, and stage twiddles e^{-2 pi i j/(N/2)} are the even
-//          entries of the table of e^{-2 pi i k/N}, k < N/2 (negated past
-//          its end);
-//      (c) every other N, odd ones included (N = 404: N/2 = 2*101): a direct
+//      (no template flag):
+//      (a) the Stockham (autosort) FFT, for every even N whose half H = N/2
+//          factors into 8s, one 4 or 2, 3s and 5s (256 = 8*8*4: three
+//          passes; whisper80's 200 = 8*5*5; 240 = 8*2*3*5): the frame is
+//          H complex points z[n] = y[2n] + i y[2n+1]. Stage s of radix R
+//          after ns points: butterfly j < H/R reads its R inputs
+//          j + r H/R, twists input r by e^{-2 pi i r k/(ns R)}, k = j mod
+//          ns, takes the R-point DFT in registers (radix 8 as two radix-4
+//          DFTs and the W8 twists) and writes (j - k) R + k + r ns. The
+//          last stage leaves natural order: no digit reversal, no __brev.
+//          Stage 0 reads its inputs straight from the staged signal, the
+//          window (and the conditioning) applied on the way, so the frame
+//          is never packed; each later stage reads the row the one before
+//          wrote, ping-ponging between the warp's two rows. The twists and
+//          each butterfly's output base (j - k) R + k come from host tables
+//          per stage (float64 rounded once), so no butterfly takes a
+//          remainder or a sincosf. Rows are padded by one float2 after
+//          every 8 (index i at i + i/8): stage 0's stride-8 stores, 8-way
+//          bank conflicts in a plain row, spread over 16 banks.
+//      (b) every other N, odd ones included (N = 404: H = 2*101): a direct
 //          DFT, lane k summing X[k] = sum_n v[n] e^{-2 pi i ((k n) mod N)/N}
 //          with the exact integer index into a table of all N entries; it
 //          costs O(N * bins) a frame and is meant for the sizes nothing
 //          else takes, not for speed.
-//      Every table is computed on the host in float64 (no in-kernel
-//      sincosf); every sum is fp32 FMA: no TF32, no bf16 (1-pass reduced
-//      precision breaks the 1e-4 log-mel gate, docs/KERNEL.md section 3).
-//      For (a) and (b) the real split gives X[k] and X[N/2-k] from Z[k] and
-//      Z[N/2-k] (k <= N/4, once at 2k = N/2); |X|^2 goes to a per-warp row
-//      of N/2 + 1 powers, indexed by bin in all three forms (for (b) it is
-//      the FFT's free ping-pong row), so the feature kinds are unchanged.
-//   4. Lane m sums filter m over its nonzero band [mel_lo[m], mel_hi[m])
-//      (exact: the skipped weights are zero), takes the clamp and log; the
-//      energy (the all-ones column of the TPU kernel) is a warp sum of all
-//      the powers. Nothing but the [F, M+1] prefix reaches device memory.
-// It is far from the bound: the shared-memory FFT is latency-bound (one
-// frame per warp, a __syncwarp per stage). Register-resident radix-8/16
-// FFTs with several frames per warp are the next step.
+//      Every table is computed on the host in float64; every sum is fp32
+//      FMA: no TF32, no bf16 (1-pass reduced precision breaks the 1e-4
+//      log-mel gate, docs/KERNEL.md section 3). For (a) the real split gives
+//      X[k] and X[H-k] from Z[k] and Z[H-k] (k <= H/2) into the warp's free
+//      row, summing the powers on the way (the pspec energy); (b) writes
+//      its power row directly. Rows are indexed by bin in every form.
+//   4. The projection over packed mel bands: the host packs each filter's
+//      nonzero band [lo, hi) filter after filter (459 weights at
+//      classic13, 1.8 KB, where the dense [257, 26] matrix took 26.7 KB),
+//      with per-filter offsets and, per weight, one word holding its bin,
+//      its filter and whether it is the filter's last. The packed weights
+//      are cut evenly over the warp's lanes, c = ceil(nnz/32) rounded up to
+//      odd (15 at classic13; an odd stride puts the lanes' first weights in
+//      32 banks): lane l sums [l c, l c + c) one weight at a time, storing
+//      the sum of every filter that ends in its chunk to the warp's sum row
+//      and posting the partial of the one that goes on; a filter that began
+//      in an earlier lane a is summed by the lane it ends in, as part[a] +
+//      ... + part[l-1] + its own sum, in that order, so two runs are
+//      bitwise equal. The loop's only branch stores a sum; the clamp and log
+//      (or nothing for plp, or the SSC ratio) follow lane-parallel over the
+//      sum row, with lane M's energy. Nothing but the [F, M+1] prefix
+//      reaches device memory.
+//
+// Shared memory (floats, every offset 16-byte aligned; kernels/frontend.py
+// smem_bytes mirrors it): the signal row (the fused resample's input
+// window first when longer), the window, the packed weights (mel; melf
+// after it for ssc), the filters' offsets [M+1] and the weights' bin-filter
+// words, the twiddles (the split's N/4 + 1 entries, then each later stage's
+// (H/R)(R - 1) twists), the stages' output bases, then per warp its two
+// rows and its projection scratch (32 lane partials and M sums; twice for
+// ssc; none for a spectrogram), then the dither's and fused resample's x
+// row and the resample's taps. classic13 takes 71,200 B, logmel80 73,184,
+// whisper80 62,832, ssc26 74,832: three blocks an SM (24 warps) for each.
+// __launch_bounds__(256, 3) caps the FFT forms at 80 registers a thread.
 //
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
@@ -89,7 +135,7 @@
 // it reflects, so the staged value is y[r] = x[r] - c x[r-1] at the SOURCE
 // index (x[-1] = 0, the noise keyed on r, y = 0 for a length-0 row), not
 // the difference of two staged neighbours, which differ at the seams.
-// Frame-first conditioning works on the staged frame and needs nothing new.
+// Reflected frames hold samples, so centered framing skips no frame.
 //
 // Bound at whisper80 (batch 64 x 30 s int16, all lengths 480,000, T =
 // 480,240, F = 3,000, M = 80, N = 400): bytes 61.4 MB in + 62.2 MB of
@@ -98,8 +144,7 @@
 // formula, the real split, |X|^2, 80 Slaney filters over their nonzero
 // weights, 80 log10 and the energy) x 192,000 frames ~ 1.65 GFLOP -> ~25
 // us: bytes bound it, a little. chip_smoke.py computes both from each
-// run's inputs. Shared memory: 114,560 B (64 KB of [201, 80] mel), two
-// blocks an SM.
+// run's inputs.
 //
 // Fused resample (kResample; entry mfcc_frontend_logmel_resample). Replaces
 // the in-kernel resample of mfcc_tpu/kernels/frontend.py::_gather_frames
@@ -114,9 +159,9 @@
 // the [up][K] tap table into shared memory, then x[t0-1 .. t0+span) by the
 // FIR (only t < the output length), then pre-emphasis and zeroing into the
 // signal row, which reuses the input window's memory. The resampled signal
-// never reaches device memory. Shared memory at 44.1 kHz (up = 160,
-// K = 56): 14,830-sample window + 35.8 KB table + the 21.5 KB x row on top
-// of the 55.5 KB above = 172 KB, one block per SM. No centered framing.
+// never reaches device memory. Frames past the output length take step 2z.
+// Shared memory at 44.1 kHz (up = 160, K = 56): 166,384 B, one block an SM.
+// No centered framing.
 // Bound at mfcc39_48k (batch 64 x 10 s int16, lengths 480,000 - 1,713*i):
 //   bytes: 54.5 MB int16 in + 6.9 MB out -> ~18 us;
 //   operations: 91 FLOP per output sample that holds signal (61 symmetric
@@ -153,18 +198,16 @@
 //   E    = sum (f - mu)^2 (raw_frame; a second pass over shared memory,
 //          not sum f^2 - L mu^2, which cancels);
 //   g[0] = (f0 - mu)(1 - c), g[n] = (fn - mu) - c (fn-1 - mu) (c = 0
-//          outside "frame" mode), folded into the pack loop, which reads
-//          fr[a] and fr[a-1] from the staged row (no extra shared memory);
-//   E    = sum (w g)^2 (windowed_frame), from the packed values and a pass
-//          over the samples past N;
+//          outside "frame" mode), folded into the DFT's first loads, which
+//          read fr[a] and fr[a-1] from the staged row;
+//   E    = sum (w g)^2 (windowed_frame), from those loads and a pass over
+//          the samples past N;
 // and lane M holds max(E, eps) for the two frame energies.
 //
 // Epilogue log kinds (_make_epilogue :693-702), a warp-uniform switch:
 //   ln: ln(where(m <= 0, eps, m)); ln_stab: ln(m + 1e-6);
 //   db: 10 log10(where(m <= 0, eps, m)); ln_floor: ln(max(m, eps));
 //   log10_floor: log10f(max(m, eps)) (CUDA's log10f, not ln times 1/ln 10).
-// logmel80 (M = 80): the [257][80] mel matrix takes 82 KB of shared memory,
-// 132 KB in all, so one block fits an SM.
 //
 // Bound of the new branches at kaldi_mfcc b64 x 10 s (F = 998, M = 23):
 // conditioning adds 6L - 1 = 2,399 operations per frame (mean, centering,
@@ -172,34 +215,30 @@
 // operations per sample that holds signal (the integer ones counted at the
 // fp32 rate), +0.50 G -> 18.5 us. Both stay bound by operations; logmel80 at
 // b256 is bound by its 83 MB of output (38 us). chip_smoke.py computes every
-// bound from its run's inputs. The kernel stays latency-bound as above: on
-// an H100 SXM at 700 W the dither adds ~18 % to kaldi_mfcc's kernel time
-// and the conditioning ~2 %.
+// bound from its run's inputs.
 //
-// Feature kinds (feature_kind, a warp-uniform switch in step 4 of both
-// forms; _make_epilogue :660-712):
+// Feature kinds (feature_kind, a warp-uniform switch in step 4 of every
+// form; _make_epilogue :660-712):
 //   logmel (mfcc and logmel configs): the log kind of the band sum, above.
 //   plp (the PLP branch, :682-692): o[m] = the band sum, unlogged; lane M
 //     the energy. ops/chain.py plp_base does the rest in tensor code.
 //   spectrogram (the multi-tile output, :308-311): the identity projection,
-//     o[m] = log kind of P[m] for m < M = N/2 + 1, lane M the energy. No
-//     matrix is staged (257 x 257 floats are 264 KB, over the 227 KB a
-//     block may have; 50 KB in all at kaldi_spectrogram), and the lane loop
-//     covers the 258 output lanes in 9 warp passes.
+//     o[m] = log kind of P[m] for m < M = N/2 + 1, lane M the energy, lane
+//     m taking bins m, m + 32, ... No table is staged.
 //   ssc (:965-975 and epilogue_ssc :673-677): per bin q[k] = P[k] <= 0 ?
 //     eps : P[k], then o[m] = sum q[k] melf[k, m] / sum q[k] mel[k, m] over
 //     the band (IEEE division), with melf[k, m] = f_k mel[k, m] rounded once
-//     from float64 on the host; o[M] = 0. P is indexed by bin here, so the
-//     TPU kernel's per-lane clamp of eps / lanes_per_bin (a workaround for
-//     its scrambled radix-4 lane order) is not needed. Both [257, M]
-//     matrices are staged: 53 KB at M = 26, 104 KB in all.
+//     from float64 on the host and packed as mel is; both sums ride the same
+//     lane split; o[M] = 0. P is indexed by bin here, so the TPU kernel's
+//     per-lane clamp of eps / lanes_per_bin (a workaround for its scrambled
+//     radix-4 lane order) is not needed.
 // Bounds at b64 x 10 s int16 (chip_smoke.py computes them per run):
 // kaldi_spectrogram is bound by bytes (20.5 MB in + 65.9 MB of
 // [64, 998, 258] out: ~26 us); kaldi_plp (~11 us, kaldi_mfcc's operations
 // less the logs) and ssc26 (~10 us: the clamps, two sums per weight and the
 // divisions instead of the logs and the energy) by operations.
 //
-// The bf16x3 form (dft_form 3, kBf16x3; replaces the dft_passes="bf16x3"
+// The bf16x3 form (dft_form 2, kBf16x3; replaces the dft_passes="bf16x3"
 // route of _make_kernel, :857-867, with the window-folded matrix of
 // kernel_constants :160-241). An opt-in of its own accuracy class (~1e-4 on
 // loud log-mel bins, as the reference's), chosen by the wrapper's dft_passes
@@ -215,13 +254,14 @@
 // store writes the tile's power rows [32][nbp]; the al Wl term (~2^-16
 // relative) is dropped, as in the reference. Then step 4 as in every form.
 // It takes the plain form's framing, dither, conditioning and feature-kind
-// branches; the fused-resample form has no bf16x3 instantiation.
+// branches (it stages every tile and transforms every frame); the
+// fused-resample form has no bf16x3 instantiation.
 // Bound: the bytes and the function's minimum of the other forms (9.47 us at
 // classic13 b64 x 10 s, by operations). The three passes alone are 3 x 2 x
 // 400 x 514 = 1.23 MFLOP a frame: 0.0709 ms of bf16 tensor work at 989 TFLOP/s
 // for 56,836 frames, 7.5x that minimum, so on Hopper the matrix DFT is no
 // throughput route (the TPU's MXU made it one). Shared memory at classic13:
-// 136,384 B, one block an SM.
+// 115,360 B, two blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -235,7 +275,10 @@ namespace {
 constexpr int kTile = 32;  // frames per block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxStages = 16;  // Stockham stages, 3 bits each in Params::radices
+constexpr int kFftBlocks = 3;   // blocks an SM the FFT forms are built for
+constexpr int kStageBatch = 8;  // samples a thread loads at once while staging
+constexpr int kProjBatch = 4;   // packed weights a lane loads at once in the projection
+constexpr int kMaxStages = 16;  // Stockham stages, 4 bits each in Params::radices
 
 // energy_source, log_kind, feature_kind, DFT form and reflection codes
 // (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
@@ -243,7 +286,7 @@ constexpr int kMaxStages = 16;  // Stockham stages, 3 bits each in Params::radic
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
-enum { kRadix2 = 0, kMixed = 1, kDirect = 2, kBf16x3 = 3 };
+enum { kStockham = 0, kDirect = 1, kBf16x3 = 2 };
 enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
@@ -254,6 +297,8 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 // Per-config scalars of one launch.
 struct Params {
   int T, F, L, S, M;
+  // packed mel weights (kernels/frontend.py mel_packed)
+  int nnz;
   // DFT size and form; frame 0's first sample (0, S/2 - L/2 or -(L/2)) and
   // the reflection kind of centered framing
   int n_fft, form, offset, center;
@@ -265,59 +310,59 @@ struct Params {
   int remove_dc, energy_source, log_kind;
   float frame_preemph, frame_keep0;
   int feature_kind;
-  // the DFT plan, derived on the host (plan()): half = n_fft / 2,
-  // bins = n_fft / 2 + 1, log2 of half (radix-2), and the Stockham radices
-  // of the mixed form, stage s in bits [3s, 3s + 3); for the bf16x3 form
-  // the matrix depth kp = min(L, n_fft) and bins nbp, each rounded up to 16
-  int half, bins, log2half, nstages;
+  // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
+  // the Stockham radices, stage s in bits [4s, 4s + 4); the twiddle and
+  // output-base table lengths; the projection's weights a lane; for the
+  // bf16x3 form the matrix depth kp = min(L, n_fft) and bins nbp, each
+  // rounded up to 16
+  int half, bins, nstages;
   unsigned long long radices;
-  int kp, nbp;
+  int ntw, nbases, chunk, kp, nbp;
 };
 
-// Staged [bins, M] matrices, in floats: mel (none for the spectrogram's
-// identity), then melf for ssc.
-__host__ __device__ inline int mel_floats(const Params& p) {
-  const int one = align4(p.bins * p.M);
-  return p.feature_kind == kSpectrogram ? 0 : p.feature_kind == kSsc ? 2 * one : one;
+// Packed weight tables staged for the feature kind: mel; none for the
+// spectrogram's identity; mel and melf for ssc.
+__host__ __device__ inline int weight_tables(const Params& p) {
+  return p.feature_kind == kSpectrogram ? 0 : p.feature_kind == kSsc ? 2 : 1;
 }
 
-// e^{-2 pi i k / n_fft} for k < half (the two FFT forms) or k < n_fft
-// (direct); none for bf16x3, whose matrix holds the DFT
-__host__ __device__ inline int twiddle_count(const Params& p) {
-  return p.form == kDirect ? p.n_fft : p.form == kBf16x3 ? 0 : p.half;
-}
-
-// Dynamic shared memory layout, in floats (every offset 16-byte aligned):
-// the signal row at 0 (the fused resample's input window first, in_len
-// floats), then the window, the matrices, the twiddles, the per-warp DFT
-// rows (mixed form: two ping-pong rows of half float2, the free one of
-// which then holds the powers) and power rows, the staged x[t0-1 ..
-// t0+span) row of the fused resample and of dither, and the resample's tap
-// table (taps = 0 without it). The bf16x3 form has no twiddles and no
-// per-warp rows: at a 32-byte boundary the tile's frames as bf16 hi and lo
-// [kTile][kp] each, then the powers [kTile][nbp] and the frame energies
-// [kTile]. kernels/frontend.py smem_bytes mirrors it.
+// Dynamic shared memory layout, in floats (every offset 16-byte aligned;
+// the header states it, kernels/frontend.py smem_bytes mirrors it). part is
+// warp 0's projection scratch (32 lane partials and the M filter sums, for
+// each weight table), pstride the step to the next warp's.
 struct Layout {
-  int span, win, mel, tw, buf, per_warp, pw, ef, xs, tab, total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, pw, ef, xs, tab,
+      total;
 };
 
 __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, bool xs) {
   Layout l;
+  const int tables = weight_tables(p);
+  const int parts = align4(tables * (32 + p.M));
   l.span = (kTile - 1) * p.S + p.L;
   l.win = align4(imax(l.span, in_len));
-  l.mel = l.win + align4(imax(p.L, p.n_fft));
-  l.tw = l.mel + mel_floats(p);
-  l.buf = l.tw + align4(2 * twiddle_count(p));
+  l.melw = l.win + align4(imax(p.L, p.n_fft));
+  l.melf = l.melw + align4(p.nnz);  // ssc only
+  l.moff = l.melw + tables * align4(p.nnz);
+  l.meta = l.moff + (tables ? align4(p.M + 1) : 0);
+  l.tw = l.meta + (tables ? align4(p.nnz) : 0);
+  l.bases = l.tw + align4(2 * p.ntw);
+  l.buf = l.bases + align4(p.nbases);
   if (p.form == kBf16x3) {
     l.buf = align8(l.buf);
-    l.per_warp = 0;
+    l.row = 0;
     l.pw = l.buf + kTile * p.kp;  // two bf16 rows of kp a frame = kp floats
     l.ef = l.pw + kTile * p.nbp;
-    l.xs = l.ef + kTile;
+    l.part = l.ef + kTile;
+    l.pstride = parts;
+    l.xs = l.part + kWarps * parts;
   } else {
-    l.per_warp = align4(p.form == kMixed ? 2 * p.n_fft : p.n_fft);
-    l.pw = l.buf + l.per_warp * kWarps;
-    l.ef = l.xs = l.pw + (p.form == kMixed ? 0 : align4(p.bins) * kWarps);
+    l.row = p.form == kStockham ? align4(2 * (p.half + (p.half >> 3) + 1))
+                                : align4(imax(p.n_fft, p.bins));
+    l.part = l.buf + 2 * l.row;
+    l.pstride = 2 * l.row + parts;
+    l.pw = l.ef = 0;
+    l.xs = l.buf + kWarps * l.pstride;
   }
   l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
   l.total = l.tab + align4(taps);
@@ -413,6 +458,13 @@ __device__ inline float2 cmul(float2 a, float2 w) {
   return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
+__device__ inline float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+// A Stockham row's index i lives at i + i/8: one float2 of padding after
+// every 8, so stride-8 stores spread over the banks.
+__device__ inline int pad(int i) { return i + (i >> 3); }
+
 // R-point forward DFTs, X[q] = sum_r v[r] e^{-2 pi i r q / R}, in place.
 // Constants are float64 values rounded once to float32 (no sincosf).
 template <int R>
@@ -421,30 +473,30 @@ __device__ inline void dft_small(float2 (&v)[R]);
 template <>
 __device__ inline void dft_small<2>(float2 (&v)[2]) {
   const float2 a = v[0], b = v[1];
-  v[0] = make_float2(a.x + b.x, a.y + b.y);
-  v[1] = make_float2(a.x - b.x, a.y - b.y);
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
 }
 
 template <>
 __device__ inline void dft_small<3>(float2 (&v)[3]) {
   const float s = 0x1.bb67aep-1f;  // sin(2 pi / 3)
-  const float2 t1 = make_float2(v[1].x + v[2].x, v[1].y + v[2].y);
-  const float2 t2 = make_float2(v[1].x - v[2].x, v[1].y - v[2].y);
+  const float2 t1 = cadd(v[1], v[2]);
+  const float2 t2 = csub(v[1], v[2]);
   const float2 a = make_float2(v[0].x - 0.5f * t1.x, v[0].y - 0.5f * t1.y);
-  v[0] = make_float2(v[0].x + t1.x, v[0].y + t1.y);
+  v[0] = cadd(v[0], t1);
   v[1] = make_float2(a.x + s * t2.y, a.y - s * t2.x);  // a - i s t2
   v[2] = make_float2(a.x - s * t2.y, a.y + s * t2.x);  // a + i s t2
 }
 
 template <>
 __device__ inline void dft_small<4>(float2 (&v)[4]) {
-  const float2 a0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-  const float2 a1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-  const float2 b0 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-  const float2 b1 = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
-  v[0] = make_float2(a0.x + b0.x, a0.y + b0.y);
+  const float2 a0 = cadd(v[0], v[2]);
+  const float2 a1 = csub(v[0], v[2]);
+  const float2 b0 = cadd(v[1], v[3]);
+  const float2 b1 = csub(v[1], v[3]);
+  v[0] = cadd(a0, b0);
   v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
-  v[2] = make_float2(a0.x - b0.x, a0.y - b0.y);
+  v[2] = csub(a0, b0);
   v[3] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
 }
 
@@ -454,10 +506,10 @@ __device__ inline void dft_small<5>(float2 (&v)[5]) {
   const float c2 = -0x1.9e377ap-1f;  // cos(4 pi / 5)
   const float s1 = 0x1.e6f0e2p-1f;   // sin(2 pi / 5)
   const float s2 = 0x1.2cf230p-1f;   // sin(4 pi / 5)
-  const float2 t1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
-  const float2 t2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
-  const float2 t3 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
-  const float2 t4 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 t1 = cadd(v[1], v[4]);
+  const float2 t2 = cadd(v[2], v[3]);
+  const float2 t3 = csub(v[1], v[4]);
+  const float2 t4 = csub(v[2], v[3]);
   const float2 a1 = make_float2(v[0].x + c1 * t1.x + c2 * t2.x, v[0].y + c1 * t1.y + c2 * t2.y);
   const float2 a2 = make_float2(v[0].x + c2 * t1.x + c1 * t2.x, v[0].y + c2 * t1.y + c1 * t2.y);
   const float2 b1 = make_float2(s1 * t3.x + s2 * t4.x, s1 * t3.y + s2 * t4.y);
@@ -469,71 +521,114 @@ __device__ inline void dft_small<5>(float2 (&v)[5]) {
   v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
 }
 
-// One Stockham (autosort) stage of radix R over an H-point complex row,
-// after ns = the product of the earlier radices: butterfly j reads
-// src[j + r H/R], twists input r by e^{-2 pi i r k / (ns R)} (k = j mod ns),
-// and writes dst[(j - k) R + k + r ns]. The output of the last stage is in
-// natural order, so no digit reversal is needed. The twiddle e^{-2 pi i m /
-// n_fft}, m < n_fft, comes from the table of its first half (m >= half:
-// the negated entry m - half).
-template <int R>
-__device__ inline void stockham_stage(const float2* __restrict__ src, float2* __restrict__ dst,
-                                      int H, int ns, const float2* __restrict__ tw, int lane) {
+// Radix 8 as two radix-4 DFTs of the even and odd inputs, then
+// X[q] = E[q] + W8^q O[q] and X[q + 4] = E[q] - W8^q O[q], W8 = e^{-i pi/4}.
+template <>
+__device__ inline void dft_small<8>(float2 (&v)[8]) {
+  const float h = 0x1.6a09e6p-1f;  // sqrt(2) / 2
+  float2 e[4] = {v[0], v[2], v[4], v[6]};
+  float2 o[4] = {v[1], v[3], v[5], v[7]};
+  dft_small<4>(e);
+  dft_small<4>(o);
+  const float2 t1 = make_float2(h * (o[1].x + o[1].y), h * (o[1].y - o[1].x));   // (1 - i) h o1
+  const float2 t2 = make_float2(o[2].y, -o[2].x);                                // -i o2
+  const float2 t3 = make_float2(h * (o[3].y - o[3].x), -h * (o[3].x + o[3].y));  // -(1 + i) h o3
+  v[0] = cadd(e[0], o[0]);
+  v[4] = csub(e[0], o[0]);
+  v[1] = cadd(e[1], t1);
+  v[5] = csub(e[1], t1);
+  v[2] = cadd(e[2], t2);
+  v[6] = csub(e[2], t2);
+  v[3] = cadd(e[3], t3);
+  v[7] = csub(e[3], t3);
+}
+
+// One Stockham stage of radix R over H points after ns = the product of the
+// earlier radices: butterfly j < H/R loads inputs j + r H/R (stage 0 by
+// first(n), from the staged signal; later stages from the padded row src), twists
+// input r by tw[j (R-1) + r - 1] = e^{-2 pi i r k/(ns R)}, k = j mod ns (none
+// at ns = 1: every twist is 1), and stores output r at base[j] + r ns =
+// (j - k) R + k + r ns into the padded row dst.
+template <int R, bool kFirst, typename First>
+__device__ inline void stockham_stage(First first, const float2* __restrict__ src,
+                                      float2* __restrict__ dst, int H, int ns,
+                                      const float2* __restrict__ tw,
+                                      const int* __restrict__ base, int lane) {
   const int hr = H / R;
-  const int step = 2 * (H / (ns * R));  // n_fft / (ns R)
   for (int j = lane; j < hr; j += 32) {
-    const int k = j % ns;
     float2 v[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = src[j + r * hr];
-    if (k != 0) {
-#pragma unroll
-      for (int r = 1; r < R; ++r) {
-        const int m = r * k * step;
-        const float2 w = m < H ? tw[m] : make_float2(-tw[m - H].x, -tw[m - H].y);
-        v[r] = cmul(v[r], w);
+    for (int r = 0; r < R; ++r) {
+      if constexpr (kFirst) {
+        v[r] = first(j + r * hr);
+      } else {
+        v[r] = src[pad(j + r * hr)];
       }
     }
-    dft_small<R>(v);
-    const int d = (j - k) * R + k;
+    if (ns > 1) {
+      const float2* w = tw + j * (R - 1);
 #pragma unroll
-    for (int r = 0; r < R; ++r) dst[d + r * ns] = v[r];
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], w[r - 1]);
+    }
+    dft_small<R>(v);
+    const int d = base[j];
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[pad(d + r * ns)] = v[r];
   }
 }
 
-// The mixed-radix FFT of the warp's row a (row b is scratch); returns the
-// row that holds the result.
-__device__ inline const float2* stockham(float2* a, float2* b, const Params& p,
-                                         const float2* tw, int lane) {
-  float2* src = a;
-  float2* dst = b;
+template <bool kFirst, typename First>
+__device__ inline void stage_of_radix(int R, First first, const float2* src, float2* dst, int H,
+                                      int ns, const float2* tw, const int* base, int lane) {
+  switch (R) {  // warp-uniform
+    case 8: stockham_stage<8, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+    case 4: stockham_stage<4, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+    case 2: stockham_stage<2, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+    case 3: stockham_stage<3, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+    default: stockham_stage<5, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+  }
+}
+
+// 3a. The Stockham FFT of the frame's H = n_fft/2 complex points: stage 0
+//     loads point n by first(n) (from the staged signal), each later stage
+//     the row the one before stored, ping-ponging between the warp's rows a
+//     and b. tw holds the stage twists (after the split's entries), base
+//     the output bases, stage after stage. Returns the row holding Z.
+template <typename First>
+__device__ inline const float2* stockham(First first, float2* a, float2* b, const Params& p,
+                                         const float2* tw, const int* base, int lane) {
+  float2* dst = a;
+  const float2* src = b;
   int ns = 1;
   for (int s = 0; s < p.nstages; ++s) {
-    const int r = static_cast<int>((p.radices >> (3 * s)) & 7u);
-    switch (r) {  // warp-uniform
-      case 2: stockham_stage<2>(src, dst, p.half, ns, tw, lane); break;
-      case 3: stockham_stage<3>(src, dst, p.half, ns, tw, lane); break;
-      case 4: stockham_stage<4>(src, dst, p.half, ns, tw, lane); break;
-      default: stockham_stage<5>(src, dst, p.half, ns, tw, lane); break;
+    const int R = static_cast<int>((p.radices >> (4 * s)) & 15u);
+    if (s == 0) {
+      stage_of_radix<true>(R, first, nullptr, dst, p.half, 1, tw, base, lane);
+    } else {
+      stage_of_radix<false>(R, first, src, dst, p.half, ns, tw, base, lane);
+      tw += (p.half / R) * (R - 1);
     }
+    base += p.half / R;
     __syncwarp();
-    float2* t = src;
     src = dst;
-    dst = t;
-    ns *= r;
+    dst = dst == a ? b : a;
+    ns *= R;
   }
   return src;
 }
 
-// Real split of the half-size complex FFT Z of z[n] = y[2n] + i y[2n+1]:
+// Real split of the half-size complex FFT Z (a padded row) of
+// z[n] = y[2n] + i y[2n+1]:
 // Xe = (Z[k] + conj Z[H-k]) / 2, Xo = (Z[k] - conj Z[H-k]) / 2i,
 // X[k] = Xe + W^k Xo and X[H-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / n_fft},
 // for k <= H/2; |X|^2 * pscale into pw[k] and pw[H-k] (once when 2k = H).
-__device__ inline void real_split(const float2* Z, float* pw, const float2* tw, int H,
-                                  float pscale, int lane) {
+// Returns the warp sum of the powers (the pspec energy).
+__device__ inline float real_split(const float2* __restrict__ Z, float* __restrict__ pw,
+                                   const float2* __restrict__ tw, int H, float pscale, int lane) {
+  float es = 0.f;
   for (int k = lane; k <= H / 2; k += 32) {
-    const float2 a = Z[k];
-    const float2 c = Z[k == 0 ? 0 : H - k];
+    const float2 a = Z[pad(k)];
+    const float2 c = Z[pad(k == 0 ? 0 : H - k)];
     const float er = 0.5f * (a.x + c.x);
     const float ei = 0.5f * (a.y - c.y);
     const float orr = 0.5f * (a.y + c.y);
@@ -542,16 +637,29 @@ __device__ inline void real_split(const float2* Z, float* pw, const float2* tw, 
     const float wr = orr * w.x - oi * w.y;
     const float wi = orr * w.y + oi * w.x;
     const float xr = er + wr, xi = ei + wi;
-    pw[k] = (xr * xr + xi * xi) * pscale;
+    const float px = (xr * xr + xi * xi) * pscale;
+    pw[k] = px;
+    es += px;
     if (2 * k != H) {
       const float yr = er - wr, yi = ei - wi;
-      pw[H - k] = (yr * yr + yi * yi) * pscale;
+      const float py = (yr * yr + yi * yi) * pscale;
+      pw[H - k] = py;
+      es += py;
     }
   }
+  return warp_sum(es);
 }
 
-// The direct DFT of v[0 .. Lk): lane bins k, X[k] = sum_n v[n] W^{(k n) mod
-// n_fft} with the exact integer index into the whole-circle table.
+// The warp sum of a power row (the pspec energy of the direct and bf16x3
+// forms).
+__device__ inline float power_sum(const float* pw, int bins, int lane) {
+  float es = 0.f;
+  for (int k = lane; k < bins; k += 32) es += pw[k];
+  return warp_sum(es);
+}
+
+// 3b. The direct DFT of v[0 .. Lk): lane bins k, X[k] = sum_n v[n] W^{(k n)
+//     mod n_fft} with the exact integer index into the whole-circle table.
 __device__ inline void direct_dft(const float* v, float* pw, const float2* tw, const Params& p,
                                   int Lk, int lane) {
   const int N = p.n_fft;
@@ -569,51 +677,101 @@ __device__ inline void direct_dft(const float* v, float* pw, const float2* tw, c
   }
 }
 
-// 4. One frame's output row o from its power row pw (pw[k], k < bins), per
-//    output lane, by feature kind: the mel projection over each filter's
-//    nonzero band, then the log kind (logmel) or nothing (plp); the log kind
-//    of power bin m (spectrogram); the centroid of the clamped powers (ssc).
-//    Then the energy lane: the conditioning's frame energy e_frame, the sum of
-//    the powers, or 0 for ssc.
-template <bool kCond>
-__device__ inline void write_frame(float* o, const float* pw, float e_frame,
-                                   const float* melw, const float* melfw,
-                                   const int* __restrict__ mel_lo,
-                                   const int* __restrict__ mel_hi, const Params& p, int lane) {
+// Shared-memory views of the packed mel bands: filter m's weights are
+// w[off[m] .. off[m+1]) (wf: melf, ssc); meta[i] = k | m << 16, with the
+// sign bit set on a filter's last weight, gives weight i's bin k and filter
+// m (kernels/frontend.py mel_packed, packed_meta).
+struct Bands {
+  const float* w;
+  const float* wf;
+  const int* off;
+  const int* meta;
+};
+
+// 4. One frame's output row o from its power row pw (pw[k], k < bins), by
+//    feature kind: the projection over the packed bands, then the log kind
+//    (logmel), nothing (plp) or the centroid (ssc, over the clamped
+//    powers); the log kind of power bin m (spectrogram). Lane l sums the
+//    packed weights [l c, l c + c) in order, c = p.chunk: a filter that
+//    ends in the lane's chunk has its sum stored to sum[m] there, the
+//    partial of the one that goes on is posted to part[l], and a filter
+//    that began in an earlier lane `from` (-1: the chunk starts a filter)
+//    is summed by the lane it ends in as part[from] + ... + part[l-1] + its
+//    own sum. Then lane m takes the log kind (or the ratio) of sum[m], m,
+//    m + 32, ..., off the divergent loop, and lane M `energy`. scratch
+//    holds part [32] and sum [M] (for ssc then the melf ones).
+__device__ inline void write_frame(float* o, const float* pw, float energy, const Bands& bd,
+                                   float* scratch, int from, const Params& p, int lane) {
   const int M = p.M, kind = p.feature_kind;
-  for (int m = lane; m < M; m += 32) {
-    if (kind == kSpectrogram) {
-      o[m] = log_lane(pw[m], p);
-      continue;
-    }
-    const int hi = mel_hi[m];
-    if (kind == kSsc) {
-      float num = 0.f, den = 0.f;
-      for (int k = mel_lo[m]; k < hi; ++k) {
-        const float q = pw[k] <= 0.f ? p.eps : pw[k];
-        num += q * melfw[k * M + m];
-        den += q * melw[k * M + m];
-      }
-      o[m] = __fdiv_rn(num, den);
-      continue;
-    }
-    float acc = 0.f;
-    for (int k = mel_lo[m]; k < hi; ++k) acc += pw[k] * melw[k * M + m];
-    o[m] = kind == kPlp ? acc : log_lane(acc, p);
-  }
-  if (kind == kSsc) {
-    if (lane == 0) o[M] = 0.f;
-  } else if (kCond && p.energy_source != kPspec) {
-    if (lane == 0) o[M] = fmaxf(e_frame, p.eps);
+  if (kind == kSpectrogram) {
+    for (int m = lane; m < M; m += 32) o[m] = log_lane(pw[m], p);
   } else {
-    float es = 0.f;
-    for (int k = lane; k < p.bins; k += 32) es += pw[k];
-    es = warp_sum(es);
-    if (lane == 0) o[M] = es <= 0.f ? p.eps : es;
+    const bool ssc = kind == kSsc;
+    float* part = scratch;
+    float* sum = scratch + 32;
+    float* partf = sum + M;  // ssc only
+    float* sumf = partf + 32;
+    const int i0 = lane * p.chunk, i1 = imin(i0 + p.chunk, p.nnz);
+    float acc = 0.f, accf = 0.f, hacc = 0.f, haccf = 0.f;
+    int held = -1;  // the filter begun in lane `from` that ends in this one
+    bool head = from >= 0;
+    for (int i = i0; i < i1; i += kProjBatch) {
+      // a batch's loads first: the sums' stores below would order them
+      int e[kProjBatch];
+      float q[kProjBatch], w[kProjBatch], wf[kProjBatch];
+#pragma unroll
+      for (int u = 0; u < kProjBatch; ++u) {
+        const bool in = i + u < i1;
+        e[u] = in ? bd.meta[i + u] : 0;
+        w[u] = in ? bd.w[i + u] : 0.f;
+        wf[u] = in && ssc ? bd.wf[i + u] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kProjBatch; ++u) q[u] = pw[e[u] & 0xFFFF];
+#pragma unroll
+      for (int u = 0; u < kProjBatch; ++u) {
+        if (i + u >= i1) break;
+        if (ssc) {
+          q[u] = q[u] <= 0.f ? p.eps : q[u];
+          accf += q[u] * wf[u];
+        }
+        acc += q[u] * w[u];
+        if (e[u] < 0) {  // the last weight of filter m
+          const int m = (e[u] >> 16) & 0x7FFF;
+          if (head) {
+            hacc = acc;
+            haccf = accf;
+            held = m;
+            head = false;
+          } else {
+            sum[m] = acc;
+            if (ssc) sumf[m] = accf;
+          }
+          acc = accf = 0.f;
+        }
+      }
+    }
+    part[lane] = acc;
+    if (ssc) partf[lane] = accf;
+    __syncwarp();
+    if (held >= 0) {
+      float s = part[from], sf = ssc ? partf[from] : 0.f;
+      for (int l = from + 1; l < lane; ++l) {
+        s += part[l];
+        if (ssc) sf += partf[l];
+      }
+      sum[held] = s + hacc;
+      if (ssc) sumf[held] = sf + haccf;
+    }
+    __syncwarp();
+    for (int m = lane; m < M; m += 32) {
+      o[m] = ssc ? __fdiv_rn(sumf[m], sum[m]) : kind == kPlp ? sum[m] : log_lane(sum[m], p);
+    }
   }
+  if (lane == 0) o[M] = energy;
 }
 
-// 3b. The bf16x3 DFT of the tile (kBf16x3): X = ah Wh + al Wh + ah Wl on the
+// 3c. The bf16x3 DFT of the tile (kBf16x3): X = ah Wh + al Wh + ah Wl on the
 //     tensor cores (wmma bf16 m16n16k16, fp32 accumulation), frames [kTile,
 //     kp] as bf16 hi a and lo al in shared memory, the window-folded, scaled
 //     matrix W [kp, 2 nbp] (hi Wh, lo Wl) in device memory, L2-resident,
@@ -664,14 +822,14 @@ __device__ inline void bf16x3_dft(const __nv_bfloat16* ahi, const __nv_bfloat16*
 }
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kFftBlocks)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               float* __restrict__ out, const float* __restrict__ window,
-              const float* __restrict__ mel, const float* __restrict__ melf,
-              const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
-              const float2* __restrict__ twiddle, const __nv_bfloat16* __restrict__ dft_hi,
-              const __nv_bfloat16* __restrict__ dft_lo, const float* __restrict__ taps,
-              Params p, Polyphase pp) {
+              const float* __restrict__ mel_w, const float* __restrict__ melf_w,
+              const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
+              const float2* __restrict__ twiddle, const int* __restrict__ bases,
+              const __nv_bfloat16* __restrict__ dft_hi, const __nv_bfloat16* __restrict__ dft_lo,
+              const float* __restrict__ taps, Params p, Polyphase pp) {
   extern __shared__ __align__(128) float smem[];
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
@@ -680,9 +838,11 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
                                : layout(p, 0, 0, kDither);
   float* sig = smem;
   float* win = smem + lay.win;
-  float* melw = smem + lay.mel;
-  float* melfw = melw + align4(p.bins * M);  // ssc only
+  int* moff = reinterpret_cast<int*>(smem + lay.moff);
+  int* meta = reinterpret_cast<int*>(smem + lay.meta);
+  const Bands bd{smem + lay.melw, smem + lay.melf, moff, meta};
   float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
+  int* sb = reinterpret_cast<int*>(smem + lay.bases);
 
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * kTile;
@@ -692,63 +852,86 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int wlen = imax(L, p.n_fft);
   for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
   if (kind != kSpectrogram) {
-    for (int i = threadIdx.x; i < p.bins * M; i += kThreads) melw[i] = mel[i];
+    float* w = smem + lay.melw;
+    float* wf = smem + lay.melf;
+    for (int i = threadIdx.x; i < p.nnz; i += kThreads) {
+      w[i] = mel_w[i];
+      meta[i] = mel_meta[i];
+      if (kind == kSsc) wf[i] = melf_w[i];
+    }
+    for (int i = threadIdx.x; i <= M; i += kThreads) moff[i] = mel_off[i];
   }
-  if (kind == kSsc) {
-    for (int i = threadIdx.x; i < p.bins * M; i += kThreads) melfw[i] = melf[i];
-  }
-  for (int i = threadIdx.x; i < twiddle_count(p); i += kThreads) tw[i] = twiddle[i];
+  for (int i = threadIdx.x; i < p.ntw; i += kThreads) tw[i] = twiddle[i];
+  for (int i = threadIdx.x; i < p.nbases; i += kThreads) sb[i] = bases[i];
+
+  // the row's length at the frame rate's sample rate (the output length of
+  // the fused resample): under non-centered framing a frame that starts at
+  // or past it holds only zeros (step 2z), and so does every frame of a tile
+  // that starts there, which then stages nothing
+  const int len_in = max(0, min(lengths[b], T));
+  const long long len = kResample ? pp_output_length(len_in, pp) : len_in;
+  const bool framed = p.center == kNoCenter;
+  const bool stage = kBf16 || !framed || t0 < len;
 
   if constexpr (kResample) {
     // 1r. the input window and the taps; x[t0-1 .. t0+span) by the FIR
     //     (x[-1] = 0, and 0 past the output length), dithered at output
     //     positions under kDither; then pre-emphasis and zeroing into the
     //     signal row, over the input window
-    const int len_in = max(0, min(lengths[b], T));
-    const long long len = pp_output_length(len_in, pp);
-    const long long lo = pp_first_input(t0 - 1, pp);
-    const int in_len = resample_window(p, pp);
-    float* in = sig;
-    float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
-    float* tab = smem + lay.tab;
-    for (int i = threadIdx.x; i < in_len; i += kThreads) {
-      const long long u = lo + i;
-      in[i] = (u >= 0 && u < len_in) ? to_f32(row[u]) : 0.f;
-    }
-    for (int i = threadIdx.x; i < pp.up * pp.K; i += kThreads) tab[i] = taps[i];
-    __syncthreads();
-    for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
-      const long long t = t0 - 1 + i;
-      float x = 0.f;
-      if (t >= 0 && t < len) {
-        x = pp_output(t, lo, in, tab, pp);
-        if constexpr (kDither) x = dithered(x, static_cast<uint32_t>(t), p);
+    if (stage) {
+      const long long lo = pp_first_input(t0 - 1, pp);
+      const int in_len = resample_window(p, pp);
+      float* in = sig;
+      float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
+      float* tab = smem + lay.tab;
+      for (int i = threadIdx.x; i < in_len; i += kThreads) {
+        const long long u = lo + i;
+        in[i] = (u >= 0 && u < len_in) ? to_f32(row[u]) : 0.f;
       }
-      xs[i] = x;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-      sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
-    }
-  } else {
-    const int len = max(0, min(lengths[b], T));
-    if (p.center != kNoCenter) {
-      // 1c. centered framing: staged position t = t0 + offset + i reads the
-      //     source index r = reflect(t, max(len, 1)) and stages
-      //     y[r] = x[r] - c x[r-1] (x[-1] = 0; dithered x keyed on r under
-      //     kDither), 0 when r >= len: pre-emphasis and noise at the source
-      //     index, as the signal is pre-emphasized before it is reflected
-      const long long n = len > 0 ? len : 1;
-      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-        const long long r = reflect(t0 + p.offset + i, n, p.center);
-        float y = 0.f;
-        if (r < len) {
-          y = source<kDither>(row, r, p);
-          if (preemph != 0.f) y -= preemph * (r > 0 ? source<kDither>(row, r - 1, p) : 0.f);
+      for (int i = threadIdx.x; i < pp.up * pp.K; i += kThreads) tab[i] = taps[i];
+      __syncthreads();
+      for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
+        const long long t = t0 - 1 + i;
+        float x = 0.f;
+        if (t >= 0 && t < len) {
+          x = pp_output(t, lo, in, tab, pp);
+          if constexpr (kDither) x = dithered(x, static_cast<uint32_t>(t), p);
         }
-        sig[i] = y;
+        xs[i] = x;
       }
-    } else if constexpr (kDither) {
+      __syncthreads();
+      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
+        sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
+      }
+    }
+  } else if (!framed) {
+    // 1c. centered framing: staged position t = t0 + offset + i reads the
+    //     source index r = reflect(t, max(len, 1)) and stages
+    //     y[r] = x[r] - c x[r-1] (x[-1] = 0; dithered x keyed on r under
+    //     kDither), 0 when r >= len: pre-emphasis and noise at the source
+    //     index, as the signal is pre-emphasized before it is reflected
+    const long long n = len > 0 ? len : 1;
+    for (int i0 = threadIdx.x; i0 < lay.span; i0 += kThreads * kStageBatch) {
+      long long r[kStageBatch];
+      float x[kStageBatch], xp[kStageBatch];
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        r[u] = reflect(t0 + p.offset + i0 + u * kThreads, n, p.center);
+      }
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {  // the indices first, so the loads issue together
+        const bool in = i0 + u * kThreads < lay.span && r[u] < len;
+        x[u] = in ? source<kDither>(row, r[u], p) : 0.f;
+        xp[u] = in && preemph != 0.f && r[u] > 0 ? source<kDither>(row, r[u] - 1, p) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kStageBatch; ++u) {
+        const int i = i0 + u * kThreads;
+        if (i < lay.span) sig[i] = preemph != 0.f ? x[u] - preemph * xp[u] : x[u];
+      }
+    }
+  } else if (stage) {
+    if constexpr (kDither) {
       // 1d. x[t0-1 .. t0+span) converted and dithered (0 outside [0, length))
       //     into the xs row, then pre-emphasis and zeroing from there
       float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
@@ -762,15 +945,20 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       }
     } else {
       // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
-      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-        const long long t = t0 + i;
-        float y = 0.f;
-        if (t < len) {
-          const float x = source<false>(row, t, p);
-          const float xp = t > 0 ? source<false>(row, t - 1, p) : 0.f;
-          y = x - preemph * xp;
+      for (int i0 = threadIdx.x; i0 < lay.span; i0 += kThreads * kStageBatch) {
+        float x[kStageBatch], xp[kStageBatch];
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const long long t = t0 + i0 + u * kThreads;
+          const bool in = i0 + u * kThreads < lay.span && t < len;
+          x[u] = in ? source<false>(row, t, p) : 0.f;
+          xp[u] = in && t > 0 ? source<false>(row, t - 1, p) : 0.f;
         }
-        sig[i] = y;
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < lay.span) sig[i] = x[u] - preemph * xp[u];
+        }
       }
     }
   }
@@ -778,8 +966,20 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int H = p.half;
   const int Lk = min(L, p.n_fft);  // rfft(n=n_fft) truncates longer frames
+  float* part = smem + lay.part + warp * lay.pstride;
+  // step 4: the lane where the filter this lane's chunk starts inside began
+  // (-1 when the chunk starts a filter, or lies past the table)
+  int from = -1;
+  if (kind != kSpectrogram && lane * p.chunk < p.nnz) {
+    const int m = (meta[lane * p.chunk] >> 16) & 0x7FFF;
+    if (moff[m] < lane * p.chunk) from = moff[m] / p.chunk;
+  }
+  auto energy_lane = [&](float es, float e_frame) -> float {
+    if (kind == kSsc) return 0.f;
+    if (kCond && p.energy_source != kPspec) return fmaxf(e_frame, p.eps);
+    return es <= 0.f ? p.eps : es;
+  };
 
   // 2. per frame, the conditioning over the frame's L samples under kCond:
   //    mean and raw energy of the centered frame (frame_stats); cond(a) is
@@ -853,101 +1053,88 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       if (lane == 0) ef[fl] = e;
     }
     __syncthreads();
-    // 3b. the tile's DFT on the tensor cores into the power rows
+    // 3c. the tile's DFT on the tensor cores into the power rows
     bf16x3_dft(ahi, alo, dft_hi, dft_lo, pw_tile, p, warp);
     __syncthreads();
     // 4. each frame's output row (the powers carry the matrix's scale)
     for (int fl = warp; fl < kTile; fl += kWarps) {
       const int f = f0 + fl;
       if (f >= F) break;  // warp-uniform
-      write_frame<kCond>(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw_tile + fl * p.nbp,
-                         ef[fl], melw, melfw, mel_lo, mel_hi, p, lane);
+      const float* pw = pw_tile + fl * p.nbp;
+      const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
+      write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
+                  p, lane);
+      __syncwarp();  // part is rewritten by the warp's next frame
     }
     return;
   }
 
-  float* wb = smem + lay.buf + warp * lay.per_warp;  // the warp's DFT rows
-  float2* z = reinterpret_cast<float2*>(wb);
-  float* pw_row = smem + lay.pw + warp * align4(p.bins);  // radix-2 and direct forms
+  float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
+  float2* ra = reinterpret_cast<float2*>(rows);
+  float2* rb = reinterpret_cast<float2*>(rows + lay.row);
 
   for (int fl = warp; fl < kTile; fl += kWarps) {
     const int f = f0 + fl;
     if (f >= F) break;  // warp-uniform
-    const float* fr = sig + fl * S;
-
-    // 2. the windowed frame g[a] w[a], a < L; under kCond the conditioning
-    //    over the frame's L samples: mean, raw energy of the centered frame,
-    //    then frame pre-emphasis folded into the pack, and the windowed
-    //    energy of all L samples (those past n_fft too)
-    float mu, e, e_frame = 0.f;
-    frame_stats(fr, mu, e);
-    auto sample = [&](int a) -> float { return cond(fr, mu, a) * win[a]; };
-
-    // 2p. the pack: the first Lk samples as half complex points (even samples
-    //    real, odd imaginary), bit-reversed for the radix-2 DIT FFT, in
-    //    natural order for the Stockham FFT; as reals for the direct DFT
-    if (p.form == kDirect) {
-#pragma unroll 1
-      for (int a = lane; a < Lk; a += 32) {
-        const float v = sample(a);
-        if (wsum) e += v * v;
-        wb[a] = v;
-      }
+    float* pw;
+    float es, e_frame = 0.f;
+    if (framed && static_cast<long long>(f) * S >= len) {
+      // 2z. a frame wholly past its row's length: zero samples, zero powers
+      pw = rows;
+      for (int k = lane; k < p.bins; k += 32) pw[k] = 0.f;
+      es = 0.f;
     } else {
+      const float* fr = sig + fl * S;
+      // 2. under kCond the conditioning over the frame's L samples: mean,
+      //    raw energy of the centered frame, then frame pre-emphasis folded
+      //    into the DFT's loads, and the windowed energy of all L samples
+      //    (those past n_fft too)
+      float mu, e;
+      frame_stats(fr, mu, e);
+      auto sample = [&](int a) -> float { return cond(fr, mu, a) * win[a]; };
+      if (p.form == kDirect) {
+        // 3b. the first Lk windowed samples into row a, the powers into row b
+        float* v = rows;
 #pragma unroll 1
-      for (int n = lane; n < H; n += 32) {
-        const int a = 2 * n;
-        const float re = a < Lk ? sample(a) : 0.f;
-        const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
-        if (wsum) e += re * re + im * im;
-        const int at = p.form == kMixed ? n : p.log2half ? __brev(n) >> (32 - p.log2half) : 0;
-        z[at] = make_float2(re, im);
-      }
-    }
-    if (wsum) {
-      for (int a = Lk + lane; a < L; a += 32) {
-        const float v = sample(a);
-        e += v * v;
-      }
-    }
-    if constexpr (kCond) {
-      if (p.energy_source != kPspec) e_frame = warp_sum(e);
-    }
-    __syncwarp();
-
-    // 3. the DFT into the power row pw[k], k < bins, by form (warp-uniform)
-    float* pw = pw_row;
-    if (p.form == kRadix2) {
-      for (int lg = 0; lg < p.log2half; ++lg) {
-        const int half = 1 << lg;
-        for (int j = lane; j < H / 2; j += 32) {
-          const int pos = j & (half - 1);
-          const int i0 = ((j >> lg) << (lg + 1)) + pos;
-          const int i1 = i0 + half;
-          // e^{-2 pi i pos / (2 half)} = table entry pos * n_fft / (2 half)
-          const float2 w = tw[pos << (p.log2half - lg)];
-          const float2 u = z[i0];
-          const float2 v = z[i1];
-          const float vr = v.x * w.x - v.y * w.y;
-          const float vi = v.x * w.y + v.y * w.x;
-          z[i0] = make_float2(u.x + vr, u.y + vi);
-          z[i1] = make_float2(u.x - vr, u.y - vi);
+        for (int a = lane; a < Lk; a += 32) {
+          const float x = sample(a);
+          if (wsum) e += x * x;
+          v[a] = x;
         }
         __syncwarp();
+        pw = rows + lay.row;
+        direct_dft(v, pw, tw, p, Lk, lane);
+        __syncwarp();
+        es = power_sum(pw, p.bins, lane);
+      } else {
+        // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
+        //     windowed (0 past Lk) from the staged frame; then the real
+        //     split into the free row
+        auto point = [&](int n) -> float2 {
+          const int a = 2 * n;
+          const float re = a < Lk ? sample(a) : 0.f;
+          const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
+          if (wsum) e += re * re + im * im;
+          return make_float2(re, im);
+        };
+        const float2* Z = stockham(point, ra, rb, p, tw + p.half / 2 + 1, sb, lane);
+        pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
+        es = real_split(Z, pw, tw, p.half, p.pscale, lane);
       }
-      real_split(z, pw, tw, H, p.pscale, lane);
-    } else if (p.form == kMixed) {
-      const float2* Z = stockham(z, z + H, p, tw, lane);
-      pw = reinterpret_cast<float*>(Z == z ? z + H : z);  // the free row
-      real_split(Z, pw, tw, H, p.pscale, lane);
-    } else {
-      direct_dft(wb, pw, tw, p, Lk, lane);
+      if (wsum) {
+        for (int a = Lk + lane; a < L; a += 32) {
+          const float x = sample(a);
+          e += x * x;
+        }
+      }
+      if constexpr (kCond) {
+        if (p.energy_source != kPspec) e_frame = warp_sum(e);
+      }
     }
     __syncwarp();
-
-    write_frame<kCond>(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, e_frame, melw,
-                       melfw, mel_lo, mel_hi, p, lane);
-    __syncwarp();  // the DFT and power rows are rewritten by the warp's next frame
+    write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
+                bd, part, from, p, lane);
+    __syncwarp();  // the rows and partials are rewritten by the warp's next frame
   }
 }
 
@@ -955,9 +1142,10 @@ struct Args {
   const void* audio;
   const int* lengths;
   float* out;
-  const float *window, *mel, *melf;
-  const int *mel_lo, *mel_hi;
+  const float *window, *mel_w, *melf_w;
+  const int *mel_off, *mel_meta;
   const float* twiddle;
+  const int* bases;
   const void *dft_hi, *dft_lo;
   const float* taps;
   int B;
@@ -967,92 +1155,128 @@ struct Args {
 };
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
-cudaError_t launch(const Args& a) {
-  const Params& p = a.p;
-  const Layout lay = kResample ? layout(p, resample_window(p, a.pp), a.pp.up * a.pp.K, true)
+size_t smem_of(const Params& p, const Polyphase& pp) {
+  const Layout lay = kResample ? layout(p, resample_window(p, pp), pp.up * pp.K, true)
                                : layout(p, 0, 0, kDither);
-  const size_t bytes = static_cast<size_t>(lay.total) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel<Sample, kResample, kDither, kCond, kBf16>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.F + kTile - 1) / kTile, a.B);
-  logmel_kernel<Sample, kResample, kDither, kCond, kBf16><<<grid, kThreads, bytes, a.stream>>>(
-      static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel, a.melf,
-      a.mel_lo, a.mel_hi, reinterpret_cast<const float2*>(a.twiddle),
-      static_cast<const __nv_bfloat16*>(a.dft_hi), static_cast<const __nv_bfloat16*>(a.dft_lo),
-      a.taps, p, a.pp);
-  return cudaGetLastError();
+  return static_cast<size_t>(lay.total) * sizeof(float);
 }
+
+// The launch of one instantiation.
+struct Launch {
+  const Args& a;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
+  cudaError_t run() const {
+    const Params& p = a.p;
+    const size_t bytes = smem_of<Sample, kResample, kDither, kCond, kBf16>(p, a.pp);
+    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.F + kTile - 1) / kTile, a.B);
+    kernel<<<grid, kThreads, bytes, a.stream>>>(
+        static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel_w, a.melf_w,
+        a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
+        static_cast<const __nv_bfloat16*>(a.dft_hi), static_cast<const __nv_bfloat16*>(a.dft_lo),
+        a.taps, p, a.pp);
+    return cudaGetLastError();
+  }
+};
+
+// The card's view of one instantiation at `smem` bytes: registers and local
+// (spilled) bytes a thread, and the blocks an SM holds.
+struct Info {
+  int smem;
+  int* out;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
+  cudaError_t run() const {
+    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16>;
+    cudaFuncAttributes attr = {};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, kThreads, smem);
+    }
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    return err;
+  }
+};
 
 // Picks the instantiation for the sample type and the dither and
 // conditioning branches (the bf16x3 form: the plain form only).
-template <bool kResample, bool kBf16>
-cudaError_t dispatch(const Args& a, bool is_int16, bool dither, bool cond) {
+template <bool kResample, bool kBf16, typename Fn>
+cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
   if (is_int16) {
     if (dither) {
-      return cond ? launch<int16_t, kResample, true, true, kBf16>(a)
-                  : launch<int16_t, kResample, true, false, kBf16>(a);
+      return cond ? fn.template run<int16_t, kResample, true, true, kBf16>()
+                  : fn.template run<int16_t, kResample, true, false, kBf16>();
     }
-    return cond ? launch<int16_t, kResample, false, true, kBf16>(a)
-                : launch<int16_t, kResample, false, false, kBf16>(a);
+    return cond ? fn.template run<int16_t, kResample, false, true, kBf16>()
+                : fn.template run<int16_t, kResample, false, false, kBf16>();
   }
   if (dither) {
-    return cond ? launch<float, kResample, true, true, kBf16>(a)
-                : launch<float, kResample, true, false, kBf16>(a);
+    return cond ? fn.template run<float, kResample, true, true, kBf16>()
+                : fn.template run<float, kResample, true, false, kBf16>();
   }
-  return cond ? launch<float, kResample, false, true, kBf16>(a)
-              : launch<float, kResample, false, false, kBf16>(a);
+  return cond ? fn.template run<float, kResample, false, true, kBf16>()
+              : fn.template run<float, kResample, false, false, kBf16>();
 }
 
 // The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
-// kernel_form): the FFT forms only where they apply (a power of two takes
-// radix-2; an even n_fft whose half factors into 4s, then 2, 3 and 5, the
-// Stockham form), the direct DFT and bf16x3 at any n_fft. False when the
-// wrapper's FFT form disagrees, or for n_fft < 2.
+// kernel_form), as kernels/frontend.py radices and fft_twiddles lay it out:
+// the Stockham form only where it applies (an even n_fft >= 4 whose half
+// factors into 8s, one 4 or 2, 3s and 5s), the direct DFT and bf16x3 at any
+// n_fft; the projection's chunk. False when the wrapper's form disagrees,
+// or for n_fft < 2.
 bool plan(Params& p) {
   const int N = p.n_fft;
   if (N < 2) return false;
   p.half = N / 2;
   p.bins = N / 2 + 1;
-  p.log2half = p.nstages = 0;
+  p.nstages = 0;
   p.radices = 0;
-  p.kp = p.nbp = 0;
-  if (p.form == kDirect) return true;
+  p.ntw = p.nbases = p.kp = p.nbp = 0;
+  p.chunk = ((p.nnz + 31) / 32) | 1;
+  if (p.form == kDirect) {
+    p.ntw = N;
+    return true;
+  }
   if (p.form == kBf16x3) {
     p.kp = (imin(p.L, N) + 15) / 16 * 16;
     p.nbp = (p.bins + 15) / 16 * 16;
     return true;
   }
-  int form = kDirect;
-  if ((N & (N - 1)) == 0) {
-    form = kRadix2;
-    while ((1 << p.log2half) < p.half) ++p.log2half;
-  } else if (N % 2 == 0) {
-    int h = p.half;
-    const int order[4] = {4, 2, 3, 5};
-    for (int r : order) {
-      while (h % r == 0 && (r != 2 || h % 4 != 0) && p.nstages < kMaxStages) {
-        p.radices |= static_cast<unsigned long long>(r) << (3 * p.nstages++);
-        h /= r;
-      }
-    }
-    if (h == 1) {
-      form = kMixed;
-    } else {
-      p.nstages = 0;
-      p.radices = 0;
-    }
+  if (p.form != kStockham || N % 2 != 0 || N < 4) return false;
+  int h = p.half;
+  p.ntw = p.half / 2 + 1;
+  auto add = [&](int r) {
+    const int hr = p.half / r;
+    if (p.nstages > 0) p.ntw += hr * (r - 1);
+    p.nbases += hr;
+    p.radices |= static_cast<unsigned long long>(r) << (4 * p.nstages++);
+    h /= r;
+  };
+  while (h % 8 == 0 && p.nstages < kMaxStages) add(8);
+  if (h % 4 == 0) {
+    add(4);
+  } else if (h % 2 == 0) {
+    add(2);
   }
-  return form == p.form;
+  while (h % 3 == 0 && p.nstages < kMaxStages) add(3);
+  while (h % 5 == 0 && p.nstages < kMaxStages) add(5);
+  return h == 1;
 }
 
-bool bad_params(Params& p, int B, const float* melf) {
+bool bad_params(Params& p, int B, const float* melf_w, const int* bases) {
   return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p) ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
-         (p.feature_kind == kSsc && melf == nullptr) || p.center < kNoCenter ||
+         (p.feature_kind != kSpectrogram && p.nnz < p.M) ||
+         (p.feature_kind == kSsc && melf_w == nullptr) ||
+         (p.form == kStockham && bases == nullptr) || p.center < kNoCenter ||
          p.center > kCenterReflect;
 }
 
@@ -1062,11 +1286,16 @@ extern "C" {
 
 // Launches the front-end on `stream`; returns cudaGetLastError() (0 = launched).
 // audio [B, T] int16 (audio_is_int16 != 0) or float32; lengths [B] int32;
-// out [B, F, M+1] float32; window [L] float32; mel [n_fft/2+1, M] float32;
-// melf [n_fft/2+1, M] float32 (ssc; may be null otherwise); mel_lo / mel_hi
-// [M] int32; twiddle [n_fft/2 (dft_form 0 radix-2, 1 mixed) or n_fft
-// (2 direct), 2] float32 of e^{-2 pi i k / n_fft} (null for 3 bf16x3);
-// dft_hi / dft_lo [kp, 2 nbp] bf16 (dft_form 3 only, else null): the
+// out [B, F, M+1] float32; window [L] float32; the packed mel bands
+// (kernels/frontend.py mel_packed; none read for a spectrogram): mel_w
+// [n_packed] float32, melf_w [n_packed] float32 (ssc; may be null
+// otherwise), mel_off [M+1] and mel_meta [n_packed] int32 (bin | filter
+// << 16, the sign bit on each filter's last weight), every filter owning
+// at least one weight; twiddle [n, 2] float32 and bases int32 as
+// kernels/frontend.py fft_twiddles and stage_bases lay them out for
+// dft_form 0 (Stockham), twiddle [n_fft, 2] of e^{-2 pi i k / n_fft} for
+// 1 (direct), neither for 2 (bf16x3; bases may be null but for 0);
+// dft_hi / dft_lo [kp, 2 nbp] bf16 (dft_form 2 only, else null): the
 // window-folded, scaled DFT's hi and lo parts, rows past min(L, n_fft) and
 // bins past n_fft/2 zero, column block 2j the cosines and 2j + 1 the sines
 // of bins [16j, 16j + 16) (pscale is then unused: the matrix carries it).
@@ -1078,24 +1307,27 @@ extern "C" {
 // 1 ln_stab / 2 db / 3 ln_floor / 4 log10_floor; feature_kind 0 logmel /
 // 1 plp / 2 spectrogram (M = n_fft/2+1) / 3 ssc.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
-                         float* out, const float* window, const float* mel,
-                         const float* melf, const int* mel_lo, const int* mel_hi,
-                         const float* twiddle, const void* dft_hi, const void* dft_lo, int B,
-                         int T, int F, int L, int S, int M, int n_fft, int dft_form,
-                         int frame_offset, int center, float scale, float preemph, float eps,
-                         float pscale, float dither, unsigned dither_seed, int conditioning,
-                         int remove_dc, float frame_preemph, float frame_keep0,
-                         int energy_source, int log_kind, int feature_kind, void* stream) {
-  Params p{T, F, L, S, M, n_fft, dft_form, frame_offset, center, scale, preemph, eps, pscale,
-           dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
+                         float* out, const float* window, const float* mel_w,
+                         const float* melf_w, const int* mel_off, const int* mel_meta,
+                         const float* twiddle, const int* bases, const void* dft_hi,
+                         const void* dft_lo, int B, int T, int F, int L, int S, int M,
+                         int n_packed, int n_fft, int dft_form, int frame_offset, int center,
+                         float scale, float preemph, float eps, float pscale, float dither,
+                         unsigned dither_seed, int conditioning, int remove_dc,
+                         float frame_preemph, float frame_keep0, int energy_source,
+                         int log_kind, int feature_kind, void* stream) {
+  Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
+           pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind};
-  if (bad_params(p, B, melf)) return cudaErrorInvalidValue;
+  if (bad_params(p, B, melf_w, bases)) return cudaErrorInvalidValue;
   const bool tensor = dft_form == kBf16x3;
   if (tensor && (dft_hi == nullptr || dft_lo == nullptr)) return cudaErrorInvalidValue;
-  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, dft_hi, dft_lo,
-               nullptr, B, p, Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
-  return tensor ? dispatch<false, true>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0)
-                : dispatch<false, false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+  const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
+               dft_hi, dft_lo, nullptr, B, p, Polyphase{1, 1, 0, 0},
+               static_cast<cudaStream_t>(stream)};
+  const Launch fn{a};
+  const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
+  return tensor ? dispatch<false, true>(fn, i16, dth, cnd) : dispatch<false, false>(fn, i16, dth, cnd);
 }
 
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
@@ -1104,25 +1336,37 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
 // No centered framing and no bf16x3 form.
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   const int* lengths, float* out, const float* window,
-                                  const float* mel, const float* melf, const int* mel_lo,
-                                  const int* mel_hi, const float* twiddle,
-                                  const float* taps, int B, int T, int F, int L,
-                                  int S, int M, int n_fft, int dft_form, int up, int down,
-                                  int half_len, int K, float preemph, float eps,
-                                  float pscale, float dither, unsigned dither_seed,
-                                  int conditioning, int remove_dc, float frame_preemph,
-                                  float frame_keep0, int energy_source, int log_kind,
-                                  int feature_kind, void* stream) {
-  Params p{T, F, L, S, M, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale, dither,
-           dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
+                                  const float* mel_w, const float* melf_w, const int* mel_off,
+                                  const int* mel_meta, const float* twiddle, const int* bases,
+                                  const float* taps, int B, int T, int F, int L, int S, int M,
+                                  int n_packed, int n_fft, int dft_form, int up, int down,
+                                  int half_len, int K, float preemph, float eps, float pscale,
+                                  float dither, unsigned dither_seed, int conditioning,
+                                  int remove_dc, float frame_preemph, float frame_keep0,
+                                  int energy_source, int log_kind, int feature_kind,
+                                  void* stream) {
+  Params p{T, F, L, S, M, n_packed, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale,
+           dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
            feature_kind};
-  if (bad_params(p, B, melf) || dft_form == kBf16x3 || up < 1 || down < 1 || K < 1 ||
+  if (bad_params(p, B, melf_w, bases) || dft_form == kBf16x3 || up < 1 || down < 1 || K < 1 ||
       half_len < 10 * down) {
     return cudaErrorInvalidValue;
   }
-  const Args a{audio, lengths, out, window, mel, melf, mel_lo, mel_hi, twiddle, nullptr, nullptr,
-               taps, B, p, Polyphase{up, down, half_len, K}, static_cast<cudaStream_t>(stream)};
-  return dispatch<true, false>(a, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+  const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
+               nullptr, nullptr, taps, B, p, Polyphase{up, down, half_len, K},
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true, false>(Launch{a}, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+}
+
+// Registers, local (spilled) bytes a thread and blocks an SM of the
+// instantiation for (int16 rows, fused resample, dither, conditioning,
+// bf16x3) at smem_bytes of dynamic shared memory, into out[0..3).
+int mfcc_frontend_kernel_info(int audio_is_int16, int resample, int dither, int conditioning,
+                              int bf16x3, int smem_bytes, int* out) {
+  const Info fn{smem_bytes, out};
+  const bool i16 = audio_is_int16 != 0, dth = dither != 0, cnd = conditioning != 0;
+  if (bf16x3) return resample ? cudaErrorInvalidValue : dispatch<false, true>(fn, i16, dth, cnd);
+  return resample ? dispatch<true, false>(fn, i16, dth, cnd) : dispatch<false, false>(fn, i16, dth, cnd);
 }
 
 const char* mfcc_frontend_error_string(int err) {

@@ -9,11 +9,12 @@ signal pre-emphasis with x[-1] = 0, zeroing at t >= length, framing
 ("pad", "drop", or centered with edge reflection at each row's length),
 Kaldi frame-first conditioning when the config asks for it (DC removal,
 raw-frame energy, frame pre-emphasis, windowed-frame energy), window, a
-real DFT of n_fft points (`dft_form`: radix-2 for powers of two, a
-Stockham mixed-radix FFT for even n_fft whose half factors into 2, 3, 4
-and 5, a direct DFT otherwise), |X|², then by feature kind
-(`FEATURE_KINDS`): the mel projection and the log kind (ln, ln_stab, db,
-ln_floor, log10_floor) for mfcc and logmel configs, the raw mel energies
+real DFT of n_fft points (`dft_form`: a Stockham FFT of n_fft/2 complex
+points in radices 8, 4, 2, 3 and 5 for every even n_fft whose half factors
+so, powers of two included; a direct DFT otherwise), |X|², then by feature
+kind (`FEATURE_KINDS`): the mel projection over the packed bands
+(`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
+for mfcc and logmel configs, the raw mel energies
 for PLP, the log kind of each power bin for a spectrogram (the identity
 projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
@@ -41,9 +42,9 @@ PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
 `resample_launches` those of the fused resample; `dither_launches`,
 `conditioning_launches`, `plp_launches`, `spectrogram_launches`,
-`ssc_launches`, `centered_launches`, `mixed_radix_launches`,
-`direct_dft_launches` and `bf16x3_launches` count the launches (of either
-form) that take that branch. Set them to 0 to start a count.
+`ssc_launches`, `centered_launches`, `direct_dft_launches` and
+`bf16x3_launches` count the launches (of either form) that take that
+branch. Set them to 0 to start a count.
 
 `fused_logmel_stages` is the port of the reference's entry of the same
 name: the prefix by a `dft_passes` route, and with `feature_tail=True` the
@@ -70,7 +71,7 @@ TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
 ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
-DFT_FORMS = ("radix2", "mixed", "direct", "bf16x3")  # csrc/frontend.cu codes
+DFT_FORMS = ("stockham", "direct", "bf16x3")  # csrc/frontend.cu codes
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 
 launches = 0
@@ -81,7 +82,6 @@ plp_launches = 0
 spectrogram_launches = 0
 ssc_launches = 0
 centered_launches = 0
-mixed_radix_launches = 0
 direct_dft_launches = 0
 bf16x3_launches = 0
 
@@ -93,9 +93,9 @@ def feature_kind(cfg: FrontendConfig) -> str:
 
 
 def mel_matrices(cfg: FrontendConfig) -> int:
-    """How many [n_bins, M] matrices the kernel stages and reads for cfg
-    (csrc/frontend.cu mel_floats): mel; none for the spectrogram's identity
-    projection; mel and melf for SSC."""
+    """How many packed weight tables the kernel stages and reads for cfg:
+    mel; none for the spectrogram's identity projection; mel and melf for
+    SSC."""
     return {"spectrogram": 0, "ssc": 2}.get(feature_kind(cfg), 1)
 
 
@@ -125,32 +125,39 @@ def logmel_prefix_reference(
 
 
 def radices(n_fft: int) -> tuple[int, ...] | None:
-    """The Stockham stages of the mixed-radix form: n_fft/2 factored into
-    4s first, then 2, 3 and 5 (200 = 4·2·5·5, 240 = 4·4·3·5); None when
-    n_fft is odd or its half has another prime factor."""
-    if n_fft % 2:
+    """The Stockham stages of n_fft/2 points: 8s first, then one 4 or 2 for
+    the rest of its power of two, then 3s and 5s (256 = 8·8·4, 200 = 8·5·5,
+    240 = 8·2·3·5); None when n_fft is odd or under 4, or its half has
+    another prime factor."""
+    if n_fft % 2 or n_fft < 4:
         return None
     h, out = n_fft // 2, []
-    for r in (4, 2, 3, 5):
-        while h % r == 0 and (r != 2 or h % 4):
+    while h % 8 == 0:
+        out.append(8)
+        h //= 8
+    for r in (4, 2):
+        if h % r == 0:
+            out.append(r)
+            h //= r
+            break
+    for r in (3, 5):
+        while h % r == 0:
             out.append(r)
             h //= r
     return tuple(out) if h == 1 else None
 
 
 def dft_form(n_fft: int) -> str:
-    """The kernel's DFT for n_fft: "radix2" (a power of two), "mixed" (a
-    Stockham FFT of n_fft/2 points in radices 2-5) or "direct" (every other
-    size, odd ones included)."""
-    if n_fft >= 2 and n_fft & (n_fft - 1) == 0:
-        return "radix2"
-    return "mixed" if radices(n_fft) else "direct"
+    """The kernel's DFT for n_fft: "stockham" (an FFT of n_fft/2 complex
+    points in radices 8, 4, 2, 3 and 5, powers of two included) or "direct"
+    (every other size, odd ones included)."""
+    return "direct" if radices(n_fft) is None else "stockham"
 
 
 def resolve_dft_passes(cfg: FrontendConfig, dft_passes: str = "radix4") -> str:
     """The dft_passes route actually taken (port of the reference's
-    `resolve_dft_passes`): "radix4", the port's FFT forms, becomes "fp32",
-    the direct DFT, for an n_fft that neither FFT form takes."""
+    `resolve_dft_passes`): "radix4", the port's FFT form, becomes "fp32",
+    the direct DFT, for an n_fft that the Stockham form does not take."""
     if dft_passes not in chain.DFT_PASSES:
         raise ValueError(f"dft_passes={dft_passes!r} not in {chain.DFT_PASSES}")
     if dft_passes == "radix4" and dft_form(cfg.n_fft) == "direct":
@@ -166,20 +173,54 @@ def kernel_form(cfg: FrontendConfig, dft_passes: str = "radix4") -> str:
     return {"radix4": dft_form(cfg.n_fft), "fp32": "direct", "bf16x3": "bf16x3"}[route]
 
 
+def _stages(n_fft: int):
+    """(radix R, points ns before the stage, butterflies H/R) of each
+    Stockham stage of n_fft."""
+    ns, out = 1, []
+    for R in radices(n_fft):
+        out.append((R, ns, n_fft // 2 // R))
+        ns *= R
+    return out
+
+
 def twiddle_count(n_fft: int, form: str | None = None) -> int:
     """Entries of the kernel's twiddle table for a DFT form (dft_form(n_fft)
-    by default): n_fft/2 for the two FFT forms (the real split reads them
-    all, the complex stages the even ones), the whole circle for the direct
-    DFT, which indexes it by (k·n) mod n_fft, none for bf16x3."""
+    by default): for the Stockham form the real split's n_fft/4 + 1, then
+    (R - 1) twists for each butterfly of every stage after the first (whose
+    twists are all 1); the whole circle for the direct DFT, which indexes it
+    by (k·n) mod n_fft; none for bf16x3."""
     form = form or dft_form(n_fft)
-    return {"direct": n_fft, "bf16x3": 0}.get(form, n_fft // 2)
+    if form != "stockham":
+        return {"direct": n_fft, "bf16x3": 0}[form]
+    return n_fft // 4 + 1 + sum(hr * (R - 1) for R, ns, hr in _stages(n_fft)[1:])
 
 
 def fft_twiddles(n_fft: int, form: str | None = None) -> np.ndarray:
-    """[twiddle_count(n_fft, form), 2] float32 table of e^{-2πik/n_fft}
-    (cos, -sin), computed in float64."""
-    ang = 2.0 * np.pi * np.arange(twiddle_count(n_fft, form), dtype=np.float64) / n_fft
+    """[twiddle_count(n_fft, form), 2] float32 table (cos, -sin), each
+    entry computed in float64 and rounded once. Direct DFT: e^{-2πik/n_fft},
+    k < n_fft. Stockham: e^{-2πik/n_fft} for k <= n_fft/4 (the real split),
+    then per stage s >= 1 of radix R after ns points, at j·(R-1) + r - 1 for
+    butterfly j < H/R and input 1 <= r < R, the twist e^{-2πi·r·k/(ns·R)},
+    k = j mod ns, so the kernel takes no remainder."""
+    form = form or dft_form(n_fft)
+    if form != "stockham":
+        ang = 2.0 * np.pi * np.arange(twiddle_count(n_fft, form), dtype=np.float64) / n_fft
+    else:
+        parts = [2.0 * np.pi * np.arange(n_fft // 4 + 1, dtype=np.float64) / n_fft]
+        for R, ns, hr in _stages(n_fft)[1:]:
+            rk = (np.arange(hr)[:, None] % ns) * np.arange(1, R)[None, :]
+            parts.append((2.0 * np.pi * (rk % (ns * R)) / (ns * R)).ravel())
+        ang = np.concatenate(parts)
     return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def stage_bases(n_fft: int) -> np.ndarray:
+    """int32 table of the Stockham stages' output bases, stage after stage:
+    butterfly j < H/R of a stage after ns points writes its R outputs at
+    (j - k)·R + k + r·ns, k = j mod ns; the table holds (j - k)·R + k."""
+    out = [(np.arange(hr) - np.arange(hr) % ns) * R + np.arange(hr) % ns
+           for R, ns, hr in _stages(n_fft)]
+    return np.concatenate(out).astype(np.int32)
 
 
 def bf16_dims(cfg: FrontendConfig) -> tuple[int, int]:
@@ -217,18 +258,57 @@ def mel_bands(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
 
 
-def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
-    """The kernel's float32 tables on `device`; "melf" (SSC's freq-weighted
-    mel, f_k·mel[k, m]) is formed in float64 and rounded once."""
-    mel = consts["mel"].to(device=device, dtype=torch.float32).contiguous()
+def mel_packed(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The nonzero bands of mel [n_bins, M], packed filter after filter:
+    (off [M+1] int32, index [n_packed] int64). Filter m's weights are its
+    band [lo, hi) of `mel_bands`, at packed positions off[m] <= i <
+    off[m+1]; an all-zero column keeps one zero weight at bin 0, so every
+    filter owns at least one entry. `index` is each entry's flat position in
+    mel (bin·M + m), for gathering mel and melf."""
     lo, hi = mel_bands(mel)
-    melf = consts["freqs"].double()[:, None] * consts["mel"].double()
+    width = torch.clamp(hi - lo, min=1).long()
+    off = torch.zeros(mel.shape[1] + 1, dtype=torch.int64)
+    off[1:] = torch.cumsum(width, 0)
+    m = torch.repeat_interleave(torch.arange(mel.shape[1]), width)
+    k = lo.long()[m] + torch.arange(int(off[-1])) - off[m]
+    return off.to(torch.int32), k * mel.shape[1] + m
+
+
+def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int) -> torch.Tensor:
+    """int32 [n_packed] per packed weight (csrc/frontend.cu Bands::meta): its
+    bin | its filter << 16, the sign bit set on each filter's last weight,
+    so the projection finds a weight's bin and the end of its filter with
+    one load."""
+    if M >= 1 << 15 or int(index.max()) // M >= 1 << 16:
+        raise ValueError(f"{M} filters or {int(index.max()) // M + 1} bins: over the packed "
+                         "table's 15-bit filter and 16-bit bin fields")
+    meta = (index // M) | (index % M) << 16
+    last = torch.zeros_like(meta, dtype=torch.bool)
+    last[off[1:].long() - 1] = True
+    return torch.where(last, meta - (1 << 31), meta).to(torch.int32)
+
+
+def chunk(n_packed: int) -> int:
+    """Packed weights a lane sums in the balanced projection: n_packed over
+    the warp's 32 lanes, rounded up to an odd count, so that the lanes' first
+    weights fall in 32 distinct shared-memory banks."""
+    return -(-n_packed // 32) | 1
+
+
+def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
+    """The kernel's tables on `device`: the float32 window and the packed
+    mel bands (`mel_packed`: the weights "mel_w", SSC's "melf_w" = f_k·mel[k,
+    m] formed in float64 and rounded once, the offsets "mel_off" and
+    `packed_meta` "mel_meta")."""
+    mel = consts["mel"].to(device="cpu", dtype=torch.float32)
+    off, index = mel_packed(mel)
+    melf = consts["freqs"].double().cpu()[:, None] * consts["mel"].double().cpu()
     return {
         "window": consts["window"].to(device=device, dtype=torch.float32).contiguous(),
-        "mel": mel,
-        "melf": melf.to(device=device, dtype=torch.float32).contiguous(),
-        "mel_lo": lo,
-        "mel_hi": hi,
+        "mel_w": mel.reshape(-1)[index].to(device).contiguous(),
+        "melf_w": melf.reshape(-1)[index].to(device=device, dtype=torch.float32).contiguous(),
+        "mel_off": off.to(device),
+        "mel_meta": packed_meta(off, index, mel.shape[1]).to(device),
     }
 
 
@@ -238,8 +318,10 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_twiddles(n_fft: int, form: str, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(fft_twiddles(n_fft, form), device=device)
+def _device_fft_tables(n_fft: int, form: str, device: torch.device):
+    bases = stage_bases(n_fft) if form == "stockham" else np.zeros(0, np.int32)
+    return (torch.as_tensor(fft_twiddles(n_fft, form), device=device),
+            torch.as_tensor(bases, device=device))
 
 
 @functools.lru_cache(maxsize=16)
@@ -247,19 +329,39 @@ def _device_bf16_matrix(cfg: FrontendConfig, device: torch.device):
     return tuple(m.to(device).contiguous() for m in bf16_matrix(cfg))
 
 
+def packed_count(cfg: FrontendConfig) -> int:
+    """Entries of cfg's packed mel table (`mel_packed`)."""
+    return int(_device_tables(cfg, torch.device("cpu"))["mel_off"][-1])
+
+
+def row_floats(n_fft: int, form: str) -> int:
+    """Floats of each of a warp's two rows: for the Stockham form H + H/8 + 1
+    float2, the stages' rows with a float2 of padding after every 8 (H =
+    n_fft/2), whose free row then takes the n_fft/2 + 1 powers; for the
+    direct DFT the packed frame and the powers."""
+    if form == "stockham":
+        h = n_fft // 2
+        return (2 * (h + h // 8 + 1) + 3) & ~3
+    return (max(n_fft, n_fft // 2 + 1) + 3) & ~3
+
+
+@functools.lru_cache(maxsize=64)
 def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4") -> int:
-    """Shared memory per block for cfg (csrc/frontend.cu layout): the
+    """Shared memory per block for cfg (csrc/frontend.cu layout), cached:
+    every launch checks it (`layout_reason`). The
     signal row (or the fused resample's input window, whichever is longer),
-    window, the [n_bins, M] matrices (mel; none for a spectrogram; mel and
-    melf for SSC), twiddles, per-warp DFT buffers (two ping-pong rows for the
-    mixed-radix form, whose free row then holds the powers) and power rows,
-    or for bf16x3 at a 32-byte boundary the tile's frames as bf16 hi and lo,
-    its power rows and frame energies; the staged x row of the fused
-    resample and of dither, and the resample's tap table."""
+    window, the packed mel bands (weights, and for SSC the melf weights;
+    the filter offsets and `packed_meta`; none for a spectrogram), twiddles
+    and the Stockham stages' output bases, then per warp two rows
+    (`row_floats`) and the projection's scratch (32 lane partials and M
+    filter sums, twice for SSC, none for a spectrogram), or for bf16x3 at a
+    32-byte boundary the tile's frames as bf16 hi and lo, its power rows and
+    frame energies and then the per-warp scratch; the staged x row of the
+    fused resample and of dither, and the resample's tap table."""
     def a4(n):
         return (n + 3) & ~3
 
-    N, form = cfg.n_fft, kernel_form(cfg, dft_passes)
+    N, form, M = cfg.n_fft, kernel_form(cfg, dft_passes), cfg.n_mels
     span = (TILE - 1) * cfg.frame_step + cfg.frame_length
     in_len = taps = 0
     xs = a4(span + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
@@ -267,14 +369,17 @@ def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4") -> int:
         d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
         in_len = rs_kernel.input_span(span + 1, d)
         taps = d["up"] * d["K"]
+    tables = mel_matrices(cfg)
     n = (a4(max(span, in_len)) + a4(max(cfg.frame_length, N))
-         + mel_matrices(cfg) * a4(cfg.n_bins * cfg.n_mels) + a4(2 * twiddle_count(N, form)))
+         + (tables + bool(tables)) * a4(packed_count(cfg)) + (a4(M + 1) if tables else 0)
+         + a4(2 * twiddle_count(N, form))
+         + a4(len(stage_bases(N)) if form == "stockham" else 0))
+    part = a4(tables * (32 + M))
     if form == "bf16x3":
         kp, nbp = bf16_dims(cfg)
-        n = ((n + 7) & ~7) + TILE * kp + TILE * nbp + TILE
+        n = ((n + 7) & ~7) + TILE * kp + TILE * nbp + TILE + WARPS * part
     else:
-        per_warp = a4(2 * N if form == "mixed" else N)
-        n += per_warp * WARPS + (0 if form == "mixed" else a4(cfg.n_bins) * WARPS)
+        n += WARPS * (2 * row_floats(N, form) + part)
     return 4 * (n + xs + a4(taps))
 
 
@@ -302,26 +407,44 @@ def _lib() -> ctypes.CDLL:
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.argtypes = [
-        p, i, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
+        p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
         p, p,  # dft_hi, dft_lo (bf16x3)
-        i, i, i, i, i, i,  # B, T, F, L, S, M
+        i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
         i, i, i, i,  # n_fft, dft_form, frame_offset, center
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
-        i, i, i, i, i, i,  # B, T, F, L, S, M
+        p, i, p, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
+        i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
         i, i,  # n_fft, dft_form
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
         *branches,
     ]
     lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
+    lib.mfcc_frontend_kernel_info.argtypes = [i, i, i, i, i, i, p]
+    lib.mfcc_frontend_kernel_info.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radix4") -> dict:
+    """The card's view of cfg's kernel instantiation (needs a card):
+    registers a thread, local (spilled) bytes a thread, and the blocks an SM
+    holds at cfg's shared memory (`smem_bytes`), from cudaFuncGetAttributes
+    and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    out = (ctypes.c_int * 3)()
+    smem = smem_bytes(cfg, dft_passes)
+    rc = _lib().mfcc_frontend_kernel_info(
+        int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
+        int(chain.needs_conditioning(cfg)), int(kernel_form(cfg, dft_passes) == "bf16x3"), smem, out)
+    if rc != 0:
+        raise RuntimeError(f"front-end kernel info failed: "
+                           f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem}
 
 
 def logmel_prefix(
@@ -345,7 +468,7 @@ def logmel_prefix(
     window and mel matrix (a chain-constants dict)."""
     global launches, resample_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
-    global centered_launches, mixed_radix_launches, direct_dft_launches, bf16x3_launches
+    global centered_launches, direct_dft_launches, bf16x3_launches
     form = kernel_form(cfg, dft_passes)
     if form == "bf16x3" and chain.resamples(cfg):
         raise NotImplementedError(
@@ -394,17 +517,18 @@ def logmel_prefix(
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return out
     k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
-    twiddle = _device_twiddles(cfg.n_fft, form, audio.device)
+    twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device)
     lib = _lib()
     head = (
         audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
-        out.data_ptr(), k["window"].data_ptr(), k["mel"].data_ptr(), k["melf"].data_ptr(),
-        k["mel_lo"].data_ptr(), k["mel_hi"].data_ptr(), twiddle.data_ptr(),
+        out.data_ptr(), k["window"].data_ptr(), k["mel_w"].data_ptr(), k["melf_w"].data_ptr(),
+        k["mel_off"].data_ptr(), k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
     )
     dft_hi = dft_lo = None
     if form == "bf16x3":
         dft_hi, dft_lo = (m.data_ptr() for m in _device_bf16_matrix(cfg, audio.device))
-    dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, cfg.n_fft, DFT_FORMS.index(form))
+    dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, k["mel_w"].numel(), cfg.n_fft,
+            DFT_FORMS.index(form))
     frame_mode = cfg.preemph_mode == "frame"
     tail = (
         0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
@@ -450,7 +574,6 @@ def logmel_prefix(
     spectrogram_launches += int(kind == "spectrogram")
     ssc_launches += int(kind == "ssc")
     centered_launches += int(chain.centered(cfg))
-    mixed_radix_launches += int(form == "mixed")
     direct_dft_launches += int(form == "direct")
     bf16x3_launches += int(form == "bf16x3")
     return out

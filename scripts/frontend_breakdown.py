@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Where the front-end kernel's time goes, on one CUDA card.
+
+    python3 scripts/frontend_breakdown.py [--root DIR]
+
+Builds the front-end kernel of the checkout at DIR (default: this one;
+any checkout of `mfcc_tpu_torch` with csrc/frontend.cu, e.g. an older
+commit unpacked by `git archive`) three times from its own source: whole
+(P0), cut after staging (P1: each frame writes a few staged samples), and
+cut before the projection (P2: each frame writes its first power bins, so
+staging, the DFT and the split still run). Times each with the profiler's
+device time of the kernel, L2 flushed before every launch, in turns
+(P1, P2, P0, P0, P2, P1), at classic13_deltas b64 x 10 s, logmel80 b256 x
+10 s and whisper80 b64 x 30 s int16, and prints the registers (ptxas) and
+the blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+int16 plain instantiation, and the opcode counts of that instantiation's
+SASS (cuobjdump, static counts), beside the card's name and power limit. The
+differences P1, P2 - P1 and P0 - P2 are staging, DFT and split, and the
+projection with its epilogue. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import concurrent.futures
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+STAGED = "  __syncthreads();\n\n  const int warp = threadIdx.x >> 5;"
+CUT_STAGED = """  __syncthreads();
+#if CUT == 1
+  for (int fl = threadIdx.x >> 5; fl < kTile && f0 + fl < F; fl += kWarps) {
+    const int ln = threadIdx.x & 31;
+    if (ln <= M) out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + ln] = sig[fl * S + ln];
+  }
+  return;
+#endif
+
+  const int warp = threadIdx.x >> 5;"""
+# the FFT form's call of the projection, in every version of the source
+PROJECTION = re.compile(
+    r"    write_frame(?:<kCond>)?\(out \+ \(static_cast<size_t>\(b\) \* F \+ f\) \* \(M \+ 1\), pw,"
+    r"[^;]*;")
+CUT_PROJECTION = """#if CUT == 2
+    if (lane <= M) out[(static_cast<size_t>(b) * F + f) * (M + 1) + lane] = pw[lane];
+#else
+{call}
+#endif"""
+OCCUPANCY = """
+extern "C" int frontend_breakdown_blocks(int smem) {
+  auto k = logmel_kernel<int16_t, false, false, false, false>;
+  int n = -1;
+  if (cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, 256, smem) != cudaSuccess) return -1;
+  return n;
+}
+"""
+PATHS = (("classic13_deltas", 64, 10), ("logmel80", 256, 10), ("whisper80", 64, 30))
+
+
+def variants(src: str) -> dict[int, str]:
+    """The source with both cut points, once per CUT value."""
+    assert src.count(STAGED) == 1, "staging anchor not found"
+    src, n = PROJECTION.subn(lambda m: CUT_PROJECTION.format(call=m.group(0)), src)
+    assert n >= 1, "projection anchor not found"
+    src = src.replace(STAGED, CUT_STAGED) + OCCUPANCY
+    return {cut: f"#define CUT {cut}\n" + src for cut in (0, 1, 2)}
+
+
+def build(nvcc: str, flags, csrc: pathlib.Path, out: pathlib.Path, cut: int, text: str):
+    cu = out.with_suffix(".cu")
+    cu.write_text(text)
+    res = subprocess.run([nvcc, *flags, "-I", str(csrc), "-o", str(out), str(cu)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(f"nvcc failed on cut {cut}:\n{res.stdout}{res.stderr}")
+    log = res.stdout + res.stderr
+    regs = re.search(r"logmel_kernelIsLb0ELb0ELb0ELb0E.*?Used (\d+) registers", log, re.S)
+    return out, int(regs.group(1)) if regs else -1
+
+
+def sass_counts(so: pathlib.Path, nvcc: str) -> str:
+    """Static SASS opcode counts of the int16 plain instantiation in `so`."""
+    tool = pathlib.Path(nvcc).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
+    for fn in re.split(r"\n\s*Function : ", dump):
+        if "logmel_kernelIsLb0ELb0ELb0ELb0E" in fn.split("\n", 1)[0]:
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)
+            top = sorted({o: ops.count(o) for o in set(ops)}.items(), key=lambda kv: -kv[1])[:12]
+            return f"{len(ops)} instructions: " + ", ".join(f"{o} {n}" for o, n in top)
+    return "not found"
+
+
+def device_ms(torch, fn, sessions: int = 3) -> float:
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.self_device_time_total for e in prof.events()
+              if e.device_type.name == "CUDA" and "logmel_kernel" in e.name]
+        if len(ev) == 5:  # a session that lost records is left out
+            times.append(np.mean(ev) / 1e3)
+    return float(np.median(times)) if times else float("nan")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
+    root = pathlib.Path(ap.parse_args().root).resolve()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("frontend_breakdown: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(root))
+    from mfcc_tpu_torch import named_config
+    from mfcc_tpu_torch.kernels import _build, frontend
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    csrc = root / "mfcc_tpu_torch" / "kernels" / "csrc"
+    texts = variants((csrc / "frontend.cu").read_text())
+    whole = frontend._lib()  # the checkout's own build and binding
+    with tempfile.TemporaryDirectory() as tmp:
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            built = dict(zip(texts, pool.map(
+                lambda c: build(_build.nvcc(), _build.NVCC_FLAGS, csrc,
+                                pathlib.Path(tmp) / f"cut{c}.so", c, texts[c]), texts)))
+        libs = {}
+        for cut, (path, _) in built.items():
+            lib = ctypes.CDLL(str(path))
+            for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample",
+                         "mfcc_frontend_error_string"):
+                getattr(lib, name).argtypes = getattr(whole, name).argtypes
+                getattr(lib, name).restype = getattr(whole, name).restype
+            lib.frontend_breakdown_blocks.argtypes = [ctypes.c_int]
+            libs[cut] = lib
+        print(f"{root}: registers (int16 plain instantiation) P0 {built[0][1]}, P1 {built[1][1]}, "
+              f"P2 {built[2][1]} [{card}]")
+        print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
+        for name, B, secs in PATHS:
+            cfg = named_config(name)
+            n = cfg.sample_rate * secs
+            g = np.random.default_rng(0)
+            if name == "whisper80":
+                pcm = (g.standard_normal((B, n)) * 3000).astype(np.int16)
+                audio = torch.as_tensor(pcm, device="cuda")
+                lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
+            else:
+                utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(B)]
+                batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+                audio = torch.as_tensor(batch.audio, device="cuda")
+                lengths = torch.as_tensor(batch.lengths, device="cuda")
+            smem = frontend.smem_bytes(cfg)
+            ms = {0: [], 1: [], 2: []}
+            for cut in (1, 2, 0, 0, 2, 1):
+                frontend._lib = lambda cut=cut: libs[cut]
+                ms[cut].append(device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg)))
+            frontend._lib = lambda: whole
+            p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
+            print(f"  {name} b{B} x {secs} s: P1 staging {p1:.4f} ms, P2 +DFT and split {p2:.4f}, "
+                  f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); staging {p1:.4f}, "
+                  f"DFT and split {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
+                  f"{libs[0].frontend_breakdown_blocks(smem)} blocks an SM [{card}]")
+            del audio, lengths
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

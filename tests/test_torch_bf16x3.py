@@ -179,16 +179,17 @@ def test_dft_passes_validation_and_routing():
     assert frontend.resolve_dft_passes(cfg) == "radix4"
     assert frontend.resolve_dft_passes(cfg.replace(n_fft=404)) == "fp32"
     assert frontend.resolve_dft_passes(cfg.replace(n_fft=404), "bf16x3") == "bf16x3"
-    assert frontend.kernel_form(cfg) == "radix2"
-    assert frontend.kernel_form(T_CONFIGS["whisper80"]) == "mixed"
+    assert frontend.kernel_form(cfg) == "stockham"
+    assert frontend.kernel_form(T_CONFIGS["whisper80"]) == "stockham"
     assert frontend.kernel_form(cfg, "fp32") == "direct"
     assert frontend.kernel_form(cfg, "bf16x3") == "bf16x3"
     assert frontend.twiddle_count(512, "direct") == 512 and frontend.twiddle_count(512, "bf16x3") == 0
     # the bf16x3 layout: no twiddles or per-warp rows; the tile's frames, powers
-    # and energies (136,384 B at classic13, one block an SM)
-    assert frontend.smem_bytes(cfg, "bf16x3") == 136384
+    # and energies, the projection's scratch (115,360 B at classic13, two
+    # blocks an SM); n_fft 4096's power rows alone are over the block
+    assert frontend.smem_bytes(cfg, "bf16x3") == 115360
     assert frontend.layout_reason(cfg, "bf16x3") is None
-    assert "232,448" in frontend.layout_reason(cfg.replace(n_fft=2048), "bf16x3")
+    assert "232,448" in frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3")
     with pytest.raises(ValueError, match="not in"):
         tchain.logmel_stages(x, n, cfg, dft_passes="bf16x6")
 

@@ -340,7 +340,7 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "feat, mask = chain.extract_batch(b.audio, b.lengths, cfg, device='cpu')\n"
         "assert tuple(feat.shape) == (1, 32, 80), feat.shape\n"
         "assert frontend.dither_launches == 0 and frontend.conditioning_launches == 0\n"
-        "assert frontend.centered_launches == 0 and frontend.mixed_radix_launches == 0\n"
+        "assert frontend.centered_launches == 0 and frontend.direct_dft_launches == 0\n"
         "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
         "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
         "x, n = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)\n"

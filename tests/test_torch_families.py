@@ -318,20 +318,28 @@ def test_spectrogram_feature_gate_reads_bins_two_regime():
 
 def test_kernel_tables_and_layout():
     """The wrapper's feature-kind codes are the kernel's; SSC's melf is
-    f_k·mel[k, m] rounded once from float64; the shared-memory layout stages
-    no matrix for the spectrogram and two for SSC."""
+    f_k·mel[k, m] rounded once from float64, packed as mel is; the
+    shared-memory layout stages no weights for the spectrogram and two
+    packed tables for SSC."""
     enum = re.search(r"enum \{ (kLogmel = 0.*?) \};", SRC.read_text()).group(1)
     codes = [name for name, _ in re.findall(r"k(\w+) = (\d)", enum)]
     assert [c.lower() for c in codes] == list(frontend.FEATURE_KINDS)
     cfg = T_CONFIGS["ssc26"]
     k = frontend._device_tables(cfg, torch.device("cpu"))
     host = jconstants.chain_constants(J_CONFIGS["ssc26"])
-    np.testing.assert_array_equal(k["melf"].numpy(),
-                                  (host["freqs"][:, None] * host["mel"]).astype(np.float32))
-    np.testing.assert_array_equal(k["mel"].numpy(), host["mel"].astype(np.float32))
+    _, index = frontend.mel_packed(torch.as_tensor(host["mel"].astype(np.float32)))
+    np.testing.assert_array_equal(
+        k["melf_w"].numpy(), (host["freqs"][:, None] * host["mel"]).astype(np.float32).reshape(-1)[index])
+    np.testing.assert_array_equal(k["mel_w"].numpy(), host["mel"].astype(np.float32).reshape(-1)[index])
     span = 31 * 160 + 400  # the 32-frame tile's samples
-    rest = span + 512 + 512 + 512 * 8 + 260 * 8  # signal, window, twiddles, FFT and power rows
-    assert frontend.smem_bytes(T_CONFIGS["kaldi_spectrogram"]) == 4 * rest == 50240
-    assert frontend.smem_bytes(T_CONFIGS["kaldi_plp"]) == 4 * (rest + 5912)
-    assert frontend.smem_bytes(cfg) == 4 * (rest + 2 * 6684)
+    # signal, window, twiddles (the split's 129 and the stages' 224 + 192
+    # float2), the stages' 128 output bases, two padded rows a warp
+    rest = span + 512 + 1092 + 128 + 2 * 580 * 8
+    assert frontend.smem_bytes(T_CONFIGS["kaldi_spectrogram"]) == 4 * rest == 65488
+    # 480 packed weights and their bin-filter words, the offsets of 23
+    # filters, a warp's 32 lane partials and 23 filter sums
+    assert frontend.smem_bytes(T_CONFIGS["kaldi_plp"]) == 4 * (rest + 2 * 480 + 24 + 56 * 8)
+    # mel and melf packed (459 weights each) and their words, 26 filters,
+    # both scratches
+    assert frontend.smem_bytes(cfg) == 4 * (rest + 3 * 460 + 28 + 116 * 8)
     assert frontend.feature_kind(T_CONFIGS["classic13"]) == "logmel"

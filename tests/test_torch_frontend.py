@@ -10,11 +10,13 @@ the row max), linear-domain 1e-5 of the row max elsewhere, energy rtol 1e-5.
 
 The CUDA kernel cannot run here. `_emulate_kernel` mirrors its loop
 structure in numpy — 32-frame tiles staged with pre-emphasis across tile
-starts, bit-reversed radix-2 FFT on the host twiddle table, the real split,
-band-limited mel sums, each feature kind's epilogue (log, raw PLP lanes,
-the spectrogram's identity projection, SSC's clamped centroids) and the
-warp-summed energy — so the index algebra is tested on the CPU. tests/test_torch_gpu.py holds the kernel itself to the
-plain version on a card.
+starts, no DFT for frames past a row's length, the radix-8 Stockham stages
+on the host's twiddle and output-base tables, the real split, the
+balanced lane-split projection over the packed mel bands in its summation
+order, each feature kind's epilogue (log, raw PLP lanes, the spectrogram's
+identity projection, SSC's clamped centroids) and the energy — so the
+index algebra is tested on the CPU. tests/test_torch_gpu.py holds the
+kernel itself to the plain version on a card.
 """
 
 import numpy as np
@@ -161,50 +163,81 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory (n_fft = 2048: ~237 KB) and
+    """A layout over the block's shared memory (n_fft = 4096: ~404 KB) and
     centered framing of resampled rows raise on every device."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=2048))
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=4096))
     with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
         frontend.logmel_prefix(
             audio, lengths, T_CONFIGS["whisper80"].replace(input_sample_rate=48000))
 
 
+def _twiddles64(n_fft):
+    """frontend.fft_twiddles' Stockham table in complex128: the real split's
+    e^{-2πik/n_fft}, k <= n_fft/4, then each later stage's twists
+    e^{-2πi·r·(j mod ns)/(ns·R)} at j·(R-1) + r - 1."""
+    parts = [np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft)]
+    ns = 1
+    for s, R in enumerate(frontend.radices(n_fft)):
+        j = np.arange(n_fft // 2 // R)
+        if s:
+            parts.append(np.exp(-2j * np.pi * np.outer(j % ns, np.arange(1, R)) / (ns * R)).ravel())
+        ns *= R
+    return np.concatenate(parts)
+
+
 def test_fft_twiddles_table():
+    """n_fft 512 (8·8·4): the split's 129 entries, then 32 butterflies × 7
+    twists of stage 1 and 64 × 3 of stage 2, each rounded once from float64;
+    the stages' output bases (j - k)·R + k."""
     tw = frontend.fft_twiddles(512)
-    assert tw.shape == (256, 2) and tw.dtype == np.float32
-    want = np.exp(-2j * np.pi * np.arange(256) / 512)
-    np.testing.assert_array_equal(tw[:, 0], want.real.astype(np.float32))
-    np.testing.assert_array_equal(tw[:, 1], want.imag.astype(np.float32))
+    assert tw.shape == (129 + 32 * 7 + 64 * 3, 2) and tw.dtype == np.float32
+    np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], _twiddles64(512).astype(np.complex64))
+    np.testing.assert_array_equal(tw[:129, 0], np.cos(2 * np.pi * np.arange(129) / 512).astype(np.float32))
+    bases = frontend.stage_bases(512)
+    j = np.arange(64)
+    np.testing.assert_array_equal(bases, np.concatenate([8 * np.arange(32), (np.arange(32) // 8) * 64
+                                                         + np.arange(32) % 8, j]))
 
 
-@pytest.mark.parametrize("n_fft,form,count", [(400, "mixed", 200), (480, "mixed", 240),
+@pytest.mark.parametrize("n_fft,form,count", [(400, "stockham", 421), (480, "stockham", 593),
                                               (404, "direct", 404), (405, "direct", 405),
-                                              (1024, "radix2", 512)])
+                                              (1024, "stockham", 1153)])
 def test_dft_forms_and_twiddle_tables(n_fft, form, count):
     """The form each n_fft takes, its radices, and its float64-built table:
-    half the circle for the FFT forms, all of it for the direct DFT."""
+    the split's quarter circle and the stages' twists for the Stockham
+    form, the whole circle for the direct DFT."""
     assert frontend.dft_form(n_fft) == form
-    if form == "mixed":
-        r = frontend.radices(n_fft)
-        assert np.prod(r) == n_fft // 2 and set(r) <= {2, 3, 4, 5}
     tw = frontend.fft_twiddles(n_fft)
     assert tw.shape == (count, 2) == (frontend.twiddle_count(n_fft), 2)
-    want = np.exp(-2j * np.pi * np.arange(count) / n_fft)
+    if form == "stockham":
+        r = frontend.radices(n_fft)
+        assert np.prod(r) == n_fft // 2 and set(r) <= {2, 3, 4, 5, 8}
+        want = _twiddles64(n_fft)
+        assert len(frontend.stage_bases(n_fft)) == sum(n_fft // 2 // R for R in r)
+    else:
+        want = np.exp(-2j * np.pi * np.arange(count) / n_fft)
     np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], want.astype(np.complex64))
 
 
 def test_radix_plans():
-    assert frontend.radices(400) == (4, 2, 5, 5)
-    assert frontend.radices(480) == (4, 4, 3, 5)
+    """8s first, then one 4 or 2, then 3s and 5s; powers of two take the
+    Stockham form too (three passes at 256 points)."""
+    assert frontend.radices(400) == (8, 5, 5)
+    assert frontend.radices(480) == (8, 2, 3, 5)
+    assert frontend.radices(512) == (8, 8, 4) and frontend.radices(2048) == (8, 8, 8, 2)
     assert frontend.radices(404) is None and frontend.radices(401) is None
-    assert frontend.dft_form(512) == "radix2" and frontend.dft_form(2) == "radix2"
-    assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 114560  # two blocks an SM
+    assert frontend.dft_form(512) == "stockham" and frontend.dft_form(2) == "direct"
+    assert "radix2" not in frontend.DFT_FORMS
+    assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 62832  # three blocks an SM
 
 
 def test_mel_bands_cover_every_weight():
+    """The bands hold every nonzero weight; the packed table holds each of
+    them exactly once (scattered back it is the dense matrix), an all-zero
+    column one zero weight at bin 0."""
     mel = torch.as_tensor(tconstants.chain_constants(T_CONFIGS["classic13"])["mel"])
     mel = torch.cat([mel, torch.zeros(mel.shape[0], 1, dtype=mel.dtype)], dim=1)
     lo, hi = frontend.mel_bands(mel)
@@ -214,6 +247,41 @@ def test_mel_bands_cover_every_weight():
     assert (int(lo[-1]), int(hi[-1])) == (0, 0)  # all-zero column: empty band
     nz = (mel[:, 0] != 0).nonzero()
     assert int(lo[0]) == int(nz.min()) and int(hi[0]) == int(nz.max()) + 1
+    off, index = frontend.mel_packed(mel)
+    assert int(off[-1]) == index.numel() == int((hi - lo).sum()) + 1
+    assert torch.equal(index[off[:-1].long()] // mel.shape[1], lo.long())  # each band's start
+    assert index.unique().numel() == index.numel()  # each entry once
+    dense = torch.zeros(mel.numel(), dtype=mel.dtype)
+    dense[index] = mel.reshape(-1)[index]
+    assert torch.equal(dense.reshape(mel.shape), mel)
+    assert int(off[-1] - off[-2]) == 1 and int(index[-1]) == mel.shape[1] - 1  # bin 0, last column
+    meta = frontend.packed_meta(off, index, mel.shape[1]).long()
+    assert torch.equal(meta & 0xFFFF, index // mel.shape[1])  # each weight's bin
+    assert torch.equal((meta >> 16) & 0x7FFF, index % mel.shape[1])  # and filter
+    assert torch.equal((meta < 0).nonzero()[:, 0], off[1:].long() - 1)  # each filter's last
+
+
+def test_layouts_meet_the_occupancy_goal():
+    """Three blocks of 256 threads an SM: the SM's 233,472 B of shared
+    memory over 3, less the 1 KB each block reserves, is 76,800 B; the
+    packed bands bring classic13, logmel80 and whisper80 under it."""
+    for name in ("classic13", "classic13_deltas", "logmel80", "whisper80"):
+        assert frontend.smem_bytes(T_CONFIGS[name]) <= 233472 // 3 - 1024, name
+    assert frontend.smem_bytes(T_CONFIGS["classic13"]) == 71200
+    assert frontend.chunk(459) == 15 and frontend.chunk(470) == 15 and frontend.chunk(448) == 15
+
+
+def test_n_fft_2048_matches_jnp_stages():
+    """n_fft 2048 at 26 filters fits the block now (its 1,915 packed
+    weights, where the dense matrix took 104 KB): the plain version ≡ the
+    JAX package's jnp chain."""
+    cfg = T_CONFIGS["classic13"].replace(n_fft=2048)
+    assert frontend.layout_reason(cfg) is None and frontend.packed_count(cfg) == 1915
+    audio, lengths = _batch("classic13")
+    twin = jchain.logmel_stages(jnp.asarray(audio), jnp.asarray(lengths),
+                                J_CONFIGS["classic13"].replace(n_fft=2048))
+    want = np.concatenate([np.asarray(twin["logmel"]), np.asarray(twin["energy"])[..., None]], -1)
+    assert_prefix_close(_reference(audio, lengths, cfg), want, cfg.n_mels)
 
 
 # ---------------------------------------------------------------------------
@@ -232,29 +300,74 @@ def _reflect(t, n, kind):
     return np.where(m < n, m, 2 * n - 2 - m)
 
 
-def _stockham(z, radices, w, H):
-    """The kernel's Stockham stages on rows z [nf, H]: butterfly j reads
-    src[j + r H/R], twists input r by table entry r·k·n_fft/(ns·R) (k = j mod
-    ns; past the half table, the negated entry), takes the R-point DFT and
-    writes dst[(j - k) R + k + q ns]."""
-    src, ns = z, 1
-    for R in radices:
-        hr, step = H // R, 2 * (H // (ns * R))
+def _stockham(z, n_fft, w):
+    """The kernel's Stockham stages on rows z [nf, H] with the twiddle
+    table w (`frontend.fft_twiddles` order): stage s of radix R after ns
+    points, butterfly j < H/R reads src[j + r·H/R], twists input r by
+    w[after the split and the earlier stages + j·(R-1) + r - 1] (stage 0:
+    none), takes the R-point DFT and writes dst[base[j] + q·ns] with the
+    host's output bases (`frontend.stage_bases`)."""
+    H = n_fft // 2
+    bases = frontend.stage_bases(n_fft)
+    src, ns, tw, b0 = z, 1, n_fft // 4 + 1, 0
+    for s, R in enumerate(frontend.radices(n_fft)):
+        hr = H // R
         j = np.arange(hr)
-        k = j % ns
         v = np.stack([src[:, j + r * hr] for r in range(R)])  # [R, nf, hr]
-        for r in range(1, R):
-            m = r * k * step
-            v[r] = v[r] * np.where(m < H, w[np.minimum(m, H - 1)], -w[np.maximum(m - H, 0)])
+        if s:
+            t = w[tw : tw + hr * (R - 1)].reshape(hr, R - 1)
+            v[1:] = v[1:] * t.T[:, None, :]
+            tw += hr * (R - 1)
         q = np.arange(R)
         dft = np.exp(-2j * np.pi * np.outer(q, q) / R).astype(z.dtype)
         out = np.einsum("qr,rfj->qfj", dft, v)
         dst = np.empty_like(src)
-        d = (j - k) * R + k
+        d = bases[b0 : b0 + hr]
+        b0 += hr
         for qq in range(R):
             dst[:, d + qq * ns] = out[qq]
         src, ns = dst, ns * R
     return src
+
+
+def _project(P, w, wf, off, kbin, eps, ssc):
+    """The kernel's balanced projection on power rows P [nf, bins]: lane l
+    sums packed weights [l·c, l·c + c) in order (c = frontend.chunk), a
+    filter that ends in the lane is finished there, the partial of one that
+    goes on is posted, and a filter begun in lane a < l is finished as
+    part[a] + ... + part[l-1] + the lane's own sum. Returns the mel sums
+    [nf, M] (for ssc the melf sums too)."""
+    nnz, M = int(off[-1]), len(off) - 1
+    c = frontend.chunk(nnz)
+    filt = np.repeat(np.arange(M), np.diff(off))
+    nf = P.shape[0]
+    z = np.zeros(nf, P.dtype)
+    sums, sumsf = np.zeros((nf, M), P.dtype), np.zeros((nf, M), P.dtype)
+    part, partf, held = {}, {}, {}
+    for lane in range(32):
+        i0, i1 = lane * c, min(lane * c + c, nnz)
+        acc, accf = z.copy(), z.copy()
+        for i in range(i0, i1):
+            m = filt[i]
+            q = P[:, kbin[i]]
+            if ssc:
+                q = np.where(q <= 0, eps, q)
+                accf = accf + q * wf[i]
+            acc = acc + q * w[i]
+            if i + 1 == off[m + 1]:
+                if off[m] < i0:
+                    held[lane] = (m, acc, accf)
+                else:
+                    sums[:, m], sumsf[:, m] = acc, accf
+                acc, accf = z.copy(), z.copy()
+        part[lane], partf[lane] = acc, accf
+    for lane, (m, h, hf) in held.items():
+        a = off[m] // c
+        t, tf = part[a], partf[a]
+        for l in range(a + 1, lane):
+            t, tf = t + part[l], tf + partf[l]
+        sums[:, m], sumsf[:, m] = t + h, tf + hf
+    return sums, sumsf
 
 
 def _emulate_kernel(audio, lengths, cfg, dtype):
@@ -262,29 +375,33 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     staged row (x plus the contract noise at t < length when cfg dithers,
     signal pre-emphasis from x[t-1], zeroing at t >= length; for centered
     framing each staged position reads the reflected source index r and
-    stages x[r] - c·x[r-1]), the per-frame conditioning of the pack loop over
-    all L samples (mean, the raw energy as a second pass, frame pre-emphasis
-    from fr[a] and fr[a-1], the windowed energy), the first min(L, n_fft)
-    samples packed and transformed by the kernel's DFT form (bit-reversed
-    radix-2 or Stockham mixed-radix on the half table, then the real split;
-    or the direct DFT on the whole-circle table), then by feature kind the
-    band-limited mel sums and the log kind (logmel) or nothing (plp), the
-    log kind of each power bin (spectrogram), or the centroids of the
-    per-bin clamped power over the band (ssc, lane M = 0), and the energy
-    lane."""
+    stages x[r] - c·x[r-1]), the per-frame conditioning over all L samples
+    (mean, the raw energy as a second pass, frame pre-emphasis from fr[a]
+    and fr[a-1], the windowed energy), a frame that starts at or past its
+    row's length (non-centered framing) taking no DFT: zero powers and zero
+    frame energies; the others' first min(L, n_fft) samples transformed by
+    the kernel's DFT form (the Stockham stages on the host tables, then the
+    real split; or the direct DFT on the whole-circle table), then by
+    feature kind the balanced projection over the packed bands (`_project`)
+    and the log kind (logmel) or nothing (plp), the log kind of each power
+    bin (spectrogram), or the centroids of the per-bin clamped power (ssc,
+    lane M = 0), and the energy lane."""
     ctype = np.complex64 if dtype == np.float32 else np.complex128
     k = tconstants.chain_constants(cfg)
     kind = frontend.feature_kind(cfg)
     win, mel = k["window"].astype(dtype), k["mel"].astype(dtype)
     melf = (k["freqs"][:, None] * k["mel"]).astype(dtype)  # rounded once, as _tables does
-    lo, hi = (t.numpy() for t in frontend.mel_bands(torch.as_tensor(mel)))
+    off, index = (t.numpy() for t in frontend.mel_packed(torch.as_tensor(mel)))
+    w_mel, w_melf = mel.reshape(-1)[index], melf.reshape(-1)[index]
     N, form = cfg.n_fft, frontend.dft_form(cfg.n_fft)
     H, nb = N // 2, cfg.n_bins
+    if form == "direct":
+        w = np.exp(-2j * np.pi * np.arange(N) / N)
+    else:
+        w = _twiddles64(N)
     if dtype == np.float32:
         tw = frontend.fft_twiddles(N).astype(dtype)
         w = (tw[:, 0] + 1j * tw[:, 1]).astype(ctype)
-    else:
-        w = np.exp(-2j * np.pi * np.arange(frontend.twiddle_count(N)) / N)
     B, T = audio.shape
     S, L, M = cfg.frame_step, cfg.frame_length, cfg.n_mels
     Lk = min(L, N)
@@ -296,8 +413,6 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     c_sig = dtype(0.0 if frame_mode else cfg.preemph)
     c = dtype(cfg.preemph if frame_mode else 0.0)
     keep0 = dtype(np.float32(1.0 - float(c)))  # rounded on the host, passed as a float
-    lg2 = H.bit_length() - 1
-    rev = np.array([int(f"{n:0{lg2}b}"[::-1], 2) if lg2 else 0 for n in range(H)])
     out = np.empty((B, F, M + 1), dtype)
     x_all = audio.astype(dtype) * dtype(cfg.input_scale)
     if cfg.dither > 0.0:
@@ -320,6 +435,9 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
             sig = np.where(ok, x - c_sig * xp, 0).astype(dtype)
             nf = min(TILE, F - f0)
             f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
+            # frames wholly past the row's length take no DFT (step 2z)
+            zero = np.zeros(nf, bool) if tchain.centered(cfg) else (f0 + np.arange(nf)) * S >= n
+            e_raw = np.zeros(nf, dtype)
             if tchain.needs_conditioning(cfg):
                 mu = f.sum(axis=-1, keepdims=True) / dtype(L) if cfg.remove_dc_offset else dtype(0)
                 d = (f - mu).astype(dtype)
@@ -336,20 +454,7 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
                 P = (np.abs(X) ** 2 * pscale).astype(dtype)
             else:
                 z = (fr[:, 0 : 2 * H : 2] + 1j * fr[:, 1 : 2 * H : 2]).astype(ctype)
-                if form == "radix2":
-                    zz = np.empty_like(z)
-                    zz[:, rev] = z
-                    z = zz
-                    j = np.arange(H // 2)
-                    for lg in range(lg2):
-                        half = 1 << lg
-                        pos = j & (half - 1)
-                        i0 = ((j >> lg) << (lg + 1)) + pos
-                        v = z[:, i0 + half] * w[pos << (lg2 - lg)]
-                        u = z[:, i0].copy()
-                        z[:, i0], z[:, i0 + half] = u + v, u - v
-                else:
-                    z = _stockham(z, frontend.radices(N), w, H)
+                z = _stockham(z, N, w)
                 kk = np.arange(H // 2 + 1)
                 a, cc = z[:, kk], np.conj(z[:, np.where(kk == 0, 0, H - kk)])
                 xe, xo = (a + cc) / 2, (a - cc) / 2j
@@ -358,17 +463,18 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
                 P[:, kk] = np.abs(X) ** 2 * pscale
                 mirror = 2 * kk != H
                 P[:, H - kk[mirror]] = np.abs(Y[:, mirror]) ** 2 * pscale
-            for m in range(M):
-                band = slice(lo[m], hi[m])
-                if kind == "spectrogram":
-                    lane = _log_lane(P[:, m], cfg.log_kind, eps, dtype)
-                elif kind == "ssc":
-                    q = np.where(P[:, band] <= 0, eps, P[:, band])
-                    lane = (q @ melf[band, m]) / (q @ mel[band, m])
+            P[zero], e_raw[zero], e_win[zero] = 0, 0, 0
+            if kind == "spectrogram":
+                lanes = _log_lane(P[:, :M], cfg.log_kind, eps, dtype)
+            else:
+                sums, sumsf = _project(P, w_mel, w_melf, off, index // M, eps, kind == "ssc")
+                if kind == "ssc":
+                    lanes = sumsf / sums
+                elif kind == "plp":
+                    lanes = sums
                 else:
-                    acc = P[:, band] @ mel[band, m]
-                    lane = acc if kind == "plp" else _log_lane(acc, cfg.log_kind, eps, dtype)
-                out[b, f0 : f0 + nf, m] = lane
+                    lanes = _log_lane(sums, cfg.log_kind, eps, dtype)
+            out[b, f0 : f0 + nf, :M] = lanes
             if kind == "ssc":
                 out[b, f0 : f0 + nf, M] = 0
             elif cfg.energy_source == "raw_frame":
@@ -441,13 +547,14 @@ BRANCHES = [
     ("kaldi_fbank", {"n_fft": 405}),
     ("kaldi_mfcc", {"win_len_s": 0.040, "energy_source": "windowed_frame"}),
     ("kaldi_spectrogram", {"n_fft": 400, "n_mels": 201}),
+    ("classic13", {"n_fft": 2048}),
 ]
 BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_no_dc",
               "logmel80_ln_stab", "logmel80_db", "classic13_dither", "kaldi_plp",
               "kaldi_spectrogram", "ssc26", "ssc26_dither_dc", "whisper80", "whisper80_dither",
               "center_preemph_dither", "kaldi_center_dither", "center_reflect_preemph",
               "direct_dft_404", "mixed_radix_480", "direct_dft_odd_405",
-              "frame_longer_than_nfft_windowed_energy", "spectrogram_400"]
+              "frame_longer_than_nfft_windowed_energy", "spectrogram_400", "stockham_2048"]
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
@@ -490,3 +597,24 @@ def test_emulated_kernel_drop_framing_of_a_short_batch():
     got = _emulate_kernel(audio, np.array([300, 5]), cfg, np.float32)
     assert got.shape == (2, 0, cfg.n_mels + 1)
     assert _reference(audio, np.array([300, 5], np.int32), cfg).shape == got.shape
+
+
+def test_breakdown_cut_points_apply_to_the_kernel_source():
+    """scripts/frontend_breakdown.py cuts the kernel after staging and
+    before the FFT form's projection: both anchors are in csrc/frontend.cu,
+    and each cut is compiled in by its own CUT value."""
+    import importlib.util
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("frontend_breakdown",
+                                                  root / "scripts" / "frontend_breakdown.py")
+    fb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fb)
+    src = (root / "mfcc_tpu_torch" / "kernels" / "csrc" / "frontend.cu").read_text()
+    texts = fb.variants(src)
+    assert sorted(texts) == [0, 1, 2]
+    for cut, text in texts.items():
+        assert text.startswith(f"#define CUT {cut}\n")
+        assert "#if CUT == 1" in text and "#if CUT == 2" in text
+        assert "frontend_breakdown_blocks" in text

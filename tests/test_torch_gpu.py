@@ -94,7 +94,7 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=2048))
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096))
     with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
         frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["whisper80"].replace(input_sample_rate=48000))
 
@@ -357,13 +357,14 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 
 def test_layout_over_the_block_budget_raises():
-    """A config whose staged matrices overflow the block's 227 KB raises
-    before the launch (230 mel filters: a 236 KB matrix), as does an
-    n_fft = 2048 layout at 26 filters (~237 KB)."""
+    """A config whose layout overflows the block's 227 KB raises before the
+    launch (n_fft = 4096: ~404 KB, its two rows a warp alone 149 KB); n_fft
+    2048 at 26 filters, over it while the mel matrix was staged dense,
+    fits with the packed bands."""
     dev = _card()
-    cfg = NAMED_CONFIGS["classic13"].replace(n_mels=230)
+    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=4096)
     assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
-    assert frontend.smem_bytes(cfg.replace(n_mels=26, n_fft=2048)) > rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg.replace(n_fft=2048)) <= rs_kernel.SMEM_BUDGET_BYTES
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
@@ -373,14 +374,14 @@ def test_layout_over_the_block_budget_raises():
 
 
 def _counts():
-    return (frontend.launches, frontend.centered_launches, frontend.mixed_radix_launches,
-            frontend.direct_dft_launches, frontend.dither_launches)
+    return (frontend.launches, frontend.centered_launches, frontend.direct_dft_launches,
+            frontend.dither_launches)
 
 
 def test_whisper80_at_30_s_matches_reference():
     """whisper80 at b4 × 30 s int16 (Whisper's padded chunk, lengths
-    480,000 and shorter, multi-wrap rows): one launch with the centered and
-    mixed-radix branches; the prefix within the gates of the float64 plain
+    480,000 and shorter, multi-wrap rows): one launch with the centered
+    branch (the Stockham form at 200 = 8·5·5 points); the prefix within the gates of the float64 plain
     version (its narrow filters' lanes under the per-bin gate), features
     within 5e-5 of the CPU chain and the mask equal."""
     dev = _card()
@@ -393,7 +394,7 @@ def test_whisper80_at_30_s_matches_reference():
     before = _counts()
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
-    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 1, before[3], before[4])
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
     assert got.shape == (4, cfg.num_frames(b.audio.shape[1]), 81)
     want = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
     narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
@@ -412,15 +413,17 @@ CENTERED = [
     ("classic13", {"n_fft": 404}),
     ("classic13", {"n_fft": 480}),
     ("whisper80", {"dither": 0.5}),
+    ("classic13", {"n_fft": 2048}),
 ]
 CENTERED_IDS = ["kaldi_center_dither", "center_preemph_dither", "center_reflect_preemph",
-                "direct_dft_404", "mixed_radix_480", "whisper80_dither"]
+                "direct_dft_404", "mixed_radix_480", "whisper80_dither", "stockham_2048"]
 
 
 @pytest.mark.parametrize("name,overrides", CENTERED, ids=CENTERED_IDS)
 def test_centered_and_dft_forms_match_reference(name, overrides):
     """Centered staging in both modes (source-index pre-emphasis and noise),
-    the direct DFT and a radix-3 Stockham size against the plain version,
+    the direct DFT, a radix-3 Stockham size and n_fft 2048 (1,024 =
+    8·8·8·2 points, 1,915 packed weights) against the plain version,
     rows down to 90 samples (multi-wrap); int16 ≡ float32, two runs equal."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
@@ -434,8 +437,7 @@ def test_centered_and_dft_forms_match_reference(name, overrides):
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + chain.centered(cfg),
-                         before[2] + (form == "mixed"), before[3] + (form == "direct"),
-                         before[4] + (cfg.dither > 0))
+                         before[2] + (form == "direct"), before[3] + (cfg.dither > 0))
     narrow = None
     if cfg.logmel_norm == "whisper":
         narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
