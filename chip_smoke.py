@@ -6,10 +6,12 @@
 Phases, in order; any failure exits non-zero:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build every kernel source from the checkout (one nvcc each, all started
-     together) and print ptxas usage; then, from the card, the registers,
-     local (spilled) bytes and blocks an SM of each FFT-form instantiation
-     of the front-end kernel (no spills; classic13, logmel80 and whisper80
-     at three blocks an SM or more);
+     together, with phase 20's three breakdown cuts of the front-end) and
+     print ptxas usage; then, from the card, the registers, local (spilled)
+     bytes and blocks an SM of each FFT-form instantiation of the front-end
+     kernel (no spills; classic13, logmel80 and whisper80 at three blocks an
+     SM or more; the Bluestein form at n_fft 404 at two) and of each bf16x3
+     instantiation (no spills);
   3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
      n - 571*i): the front-end kernel against its plain version (the
      test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
@@ -78,12 +80,18 @@ Phases, in order; any failure exits non-zero:
   14. centered framing with dither: kaldi_mfcc "center" with conditioning
      and dither 1.0, classic13_deltas "center" with dither and signal
      pre-emphasis (at the source index, across the reflection seams), b16;
-  15. the direct DFT (classic13 at n_fft 404), b16, timed;
+  15. the Bluestein FFT: classic13 at n_fft 404 (P = 512) and 551 (odd, P =
+     960), b16, through extract_batch and through
+     fused_logmel_stages(dft_passes="fp32"), each counted (Bluestein 1,
+     direct 0), against the float64 plain version, the n_fft 404 features' error
+     against the CPU chain printed; timed beside rfft(n=...) and the bound;
+     then n_fft 1102, a size whose Bluestein block does not fit, through the
+     direct DFT, counted and timed;
   16. a radix-3 Stockham size (classic13 at n_fft 480), b16;
   17. frames longer than n_fft (kaldi_mfcc with 40 ms frames at n_fft 512,
      with raw and windowed energy), b16;
   18. rows over the reference's 8 MiB slab bound (its view mode):
-     classic13_deltas at b2 x 140 s, timed;
+     classic13_deltas at b2 x 140 s, timed (profiler device time);
   19. the feature tail's branches at b16 through
      `fused_logmel_stages(feature_tail=True)`, counted, each against its
      plain version on the same prefix: utterance CMVN with and without
@@ -91,15 +99,20 @@ Phases, in order; any failure exits non-zero:
      floor; rows at n_valid 0, 1, 2 and the tile edges 31-33 and 64, a zero
      row and a 100 Hz tone (near-constant CMVN columns are held before the
      division, `testing.cmvn_column_scale`);
-  20. the bf16x3 form: classic13 b64 x 10 s through
-     `fused_logmel_stages(dft_passes="bf16x3")`, counted, against its plain
-     version and the float64 plain version (loud bins 1e-3), timed beside
-     the Stockham form in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16;
+  20. the bf16x3 form (wgmma over a ring of bulk-copied matrix stages):
+     classic13 b64 x 10 s through `fused_logmel_stages(dft_passes="bf16x3")`,
+     counted, against its plain version and the float64 plain version (loud
+     bins 1e-3), its SASS checked for HGMMA and bulk copies, timed beside
+     the Stockham form in turns, with a staging / product / projection
+     breakdown from scripts/frontend_breakdown.py's cuts (profiler device
+     time); kaldi_mfcc with dither 1.0 at n_fft 404, b16;
   21. n_fft 2048 (classic13, 26 filters), b16: the Stockham form at 1,024
      points (8*8*8*2) against the float64 plain version, counted, its
      features within 5e-4 of the CPU chain.
   Phases 13-18 each hold the kernel to its plain version (whisper80 and the
-  n_fft 404 and 480 sizes: the float64 plain version), check int16 ≡
+  n_fft 404, 551, 1102 and 480 sizes: the float64 plain version, computed
+  on the CPU: the card's float64 rfft at odd sizes such as 551 is not
+  right), check int16 ≡
   float32, two runs and dirty tails ≡ clean bitwise, and count
   `extract_batch` with its features within the config's gate of the CPU
   chain and the float64 chain. Every mfcc path's extract_batch (phases 3,
@@ -110,7 +123,7 @@ card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
 cores) at the function's minimum: an n_fft/2-point complex FFT counted by
 the split-radix formula (whatever form the kernel takes: Stockham or the
-direct DFT), the real split with its 1/2 scalings folded into the
+Bluestein or direct DFT), the real split with its 1/2 scalings folded into the
 power scale, the mel sums
 over the filters' nonzero weights (none for a spectrogram; for SSC the
 per-bin clamps, two sums per weight and a division per filter, and no
@@ -228,6 +241,12 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:807",
     },
+    "bluestein": {
+        "name": "frontend_bluestein_dft",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:807",
+    },
     "long_rows": {
         "name": "frontend_rows_over_the_slab_bound",
         "route": "cuda",
@@ -301,14 +320,13 @@ def host_ms(torch, fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def profile_step(torch, fn, kernel_substr: str | None, steps: int = 5):
-    """(device kernels per step, device busy ms per step, ms of the kernels
-    whose name holds kernel_substr per step, ms of the feature-tail kernels
-    per step) over `steps` calls of fn, traced after two warm-up calls
-    inside the same session (a session's first launches can be missed while
-    tracing starts: one run saw 4 of 5 front-end records). A trace that
-    still lost some of those kernels' records is taken again, up to three
-    times; kernel_substr None takes the first trace."""
+def trace(torch, fn, kernel_substr: str | None, steps: int = 5):
+    """(device events, the events whose name holds kernel_substr) of
+    `steps` calls of fn, traced after two warm-up calls inside the same
+    session (a session's first launches can be missed while tracing starts:
+    one run saw 4 of 5 front-end records). A trace that still lost some of
+    those kernels' records is taken again, up to three times; kernel_substr
+    None takes the first trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
@@ -330,13 +348,45 @@ def profile_step(torch, fn, kernel_substr: str | None, steps: int = 5):
         if len(ours) == steps:
             break
         print(f"  profiler: {len(ours)} of {steps} {kernel_substr} records, tracing again")
-    if kernel_substr is not None:
-        check(len(ours) == steps, f"the profiler traced {len(ours)} of {steps} {kernel_substr} launches")
+    return on_device, ours
+
+
+def profile_step(torch, fn, kernel_substr: str | None, steps: int = 5):
+    """(device kernels per step, device busy ms per step, ms of the kernels
+    whose name holds kernel_substr per step, ms of the feature-tail kernels
+    per step) over `steps` calls of fn (`trace`). The kernels' ms is None
+    when their records stay incomplete: the profiler has lost every record
+    of the feature tail in three traces in a row where other runs of the
+    same code saw all; that is no fault of the port, and the caller says
+    what it measures instead."""
+    on_device, ours = trace(torch, fn, kernel_substr, steps)
     busy = sum(e.self_device_time_total for e in on_device) / 1e3 / steps
     ours_ms = sum(e.self_device_time_total for e in ours) / 1e3 / steps
+    if kernel_substr is not None and len(ours) != steps:
+        print(f"  (the profiler traced {len(ours)} of {steps} {kernel_substr} launches in three "
+              "traces: their device time is not measured here)")
+        ours_ms = None
     tail_ms = sum(e.self_device_time_total for e in on_device
                   if "tail_kernel" in e.name or "cmvn_kernel" in e.name) / 1e3 / steps
     return len(on_device) / steps, busy, ours_ms, tail_ms
+
+
+def device_ms(torch, fn, kernel_substr: str | None = None, steps: int = 5) -> float:
+    """Device time per call of fn's kernels whose name holds kernel_substr
+    (with None, every kernel of fn), the 64 MiB flush buffer zeroed before
+    each call (`trace`). CUDA events around one launch of a kernel of ~0.1
+    ms also hold the host's time in the wrapper: at b16 they read n_fft 512
+    at 0.2225 ms on one host. Where the profiler lost records in all three
+    traces: CUDA events (said so)."""
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    on_device, ours = trace(torch, lambda: (flush.zero_(), fn()), kernel_substr, steps)
+    if kernel_substr is None:
+        ours = [e for e in on_device if "Fill" not in e.name and "Memset" not in e.name]
+    elif len(ours) != steps:
+        print("  (the profiler lost records in three traces: CUDA events, the wrapper's host "
+              "time included)")
+        return cuda_ms(torch, fn)
+    return sum(e.self_device_time_total for e in ours) / 1e3 / steps
 
 
 class Counters:
@@ -355,6 +405,7 @@ class Counters:
         self.frontend.ssc_launches = 0
         self.frontend.centered_launches = 0
         self.frontend.direct_dft_launches = 0
+        self.frontend.bluestein_launches = 0
         self.frontend.bf16x3_launches = 0
         self.rs_kernel.launches = 0
         self.tail.tail_launches = 0
@@ -372,6 +423,7 @@ class Counters:
             "ssc": self.frontend.ssc_launches,
             "centered": self.frontend.centered_launches,
             "direct": self.frontend.direct_dft_launches,
+            "bluestein": self.frontend.bluestein_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
@@ -529,14 +581,14 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
     fed_ms = host_ms(torch, lambda: chain.extract_batch(batch.audio, batch.lengths, cfg))
     per_step, busy_ms, ours_ms, tail_ms = profile_step(
         torch, lambda: chain.extract_batch(audio, lengths, cfg), "logmel_kernel")
-    check(ours_ms > 0, f"the profiler sees the {what} on the card")
+    shown = float("nan") if ours_ms is None else ours_ms
     print(f"  extract_batch, inputs on the card: {e2e_ms:.4f} ms/step = "
           f"{rows * seconds / (e2e_ms / 1e3):.0f} audio-s/s {tag}")
     print(f"  extract_batch, host int16 numpy in (H2D included, host clock): {fed_ms:.3f} ms = "
           f"{rows * seconds / (fed_ms / 1e3):.0f} audio-s/s {tag}")
     print(f"  profiled step: {per_step:.0f} device kernels, device busy {busy_ms:.4f} ms "
-          f"({what} {ours_ms:.4f} ms, feature tail {tail_ms:.4f} ms, the rest "
-          f"{busy_ms - ours_ms - tail_ms:.4f} ms); "
+          f"({what} {shown:.4f} ms, feature tail {tail_ms:.4f} ms, the rest "
+          f"{busy_ms - shown - tail_ms:.4f} ms); "
           f"idle {max(0.0, 1 - busy_ms / e2e_ms) * 100:.1f}% of the {e2e_ms:.4f} ms step {tag}")
     return e2e_ms, ours_ms
 
@@ -548,10 +600,9 @@ def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2
     with their offsets and band starts, the twiddle and stage tables (and a
     resample's taps), each once."""
     M, N, tables = cfg.n_mels, cfg.n_fft, frontend.mel_matrices(cfg)
-    form = frontend.dft_form(N)
+    form = frontend.dft_form(cfg)
     tables = (cfg.frame_length + tables * frontend.packed_count(cfg) + (2 * M + 1) * (tables > 0)
-              + 2 * frontend.twiddle_count(N)
-              + (len(frontend.stage_bases(N)) if form == "stockham" else 0) + taps)
+              + 2 * frontend.twiddle_count(N, form) + len(frontend.stage_bases(N, form)) + taps)
     return int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4 + tables * 4
 
 
@@ -634,11 +685,12 @@ def kernel_times(torch, chain, frontend, cfg, audio, lengths, F: int,
 
 
 def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str) -> dict[str, float]:
-    """The kernel against the plain version computed in float64 (the gate:
-    at these sizes the fp32 plain version is itself ~2e-5 from float64 on
-    loud bins of narrow filters), with the fp32 plain version's errors
-    printed beside. whisper80's narrow lanes (filters of at most two
-    weights) take the per-bin gate (`testing.narrow_lanes`)."""
+    """The kernel against the plain version computed in float64 on the CPU
+    (the gate: at these sizes the fp32 plain version is itself ~2e-5 from
+    float64 on loud bins of narrow filters; the card's float64 rfft at odd
+    sizes such as 551 is itself wrong), with the fp32 plain version's errors
+    on the card printed beside. whisper80's narrow lanes (filters of at most
+    two weights) take the per-bin gate (`testing.narrow_lanes`)."""
     narrow = None
     if cfg.logmel_norm == "whisper":
         from mfcc_tpu_torch.ops import constants
@@ -651,9 +703,8 @@ def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str) -> di
     del plain
     print(f"  {what}, kernel vs the fp32 plain version: "
           + ", ".join(f"{k}={v:.3e}" for k, v in errs32.items()))
-    plain64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
-    return check_prefix(testing, got, plain64, cfg, f"{what}, vs the float64 plain version",
-                        narrow)
+    plain64 = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    return check_prefix(testing, got, plain64, cfg, f"{what}, vs the float64 plain version", narrow)
 
 
 def pcm_batch(pad_batch, cfg, lengths, bucket: int, seed: int):
@@ -691,7 +742,7 @@ def whisper_path(torch, counters, tag: str) -> dict:
     audio = torch.as_tensor(pcm, device="cuda")
     lengths = torch.as_tensor(lens, device="cuda")
     print(f"== 12. path whisper80 b{B} x {WHISPER_SECONDS} s int16 [{B}, {n}], {F} frames, n_fft "
-          f"{cfg.n_fft} ({frontend.dft_form(cfg.n_fft)}, radices {frontend.radices(cfg.n_fft)}), "
+          f"{cfg.n_fft} ({frontend.dft_form(cfg)}, radices {frontend.radices(cfg.n_fft)}), "
           f"{frontend.smem_bytes(cfg)} B of shared memory a block")
     counters.zero()
     got = frontend.logmel_prefix(audio, lengths, cfg)
@@ -750,9 +801,10 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths_d = torch.as_tensor(batch.lengths, device="cuda")
     F = cfg.num_frames(batch.audio.shape[1])
-    form = frontend.dft_form(cfg.n_fft)
+    form = frontend.dft_form(cfg)
     branches = {k: 1 for k, on in (
         ("centered", chain.centered(cfg)), ("direct", form == "direct"),
+        ("bluestein", form == "bluestein"),
         ("dither", cfg.dither > 0.0), ("conditioning", chain.needs_conditioning(cfg))) if on}
     print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
           f"{frontend.smem_bytes(cfg)} B of shared memory a block")
@@ -781,11 +833,73 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     return batch, audio, lengths_d, errs, launches
 
 
+def bluestein_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 15: the Bluestein form at classic13 n_fft 404 and 551 (odd),
+    b16 x 10 s: `small_path` (the kernel counted against the float64 plain
+    version computed on the CPU, the bitwise invariances, extract_batch
+    counted, features within 5e-4 of the CPU chain and the float64 chain);
+    fused_logmel_stages(dft_passes="fp32") counted, its prefix bitwise the
+    default route's; each timed beside rfft(n=n_fft) and its bound. Then
+    n_fft 1102 (its Bluestein rows are over the block) through the direct
+    DFT, counted and timed."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+
+    n16 = 16000 * SECONDS
+    lens = [n16 - 571 * i for i in range(B_SMALL)]
+    print(f"== 15. the Bluestein FFT: classic13 n_fft 404 and 551, b{B_SMALL} x {SECONDS} s; "
+          "the direct DFT at 1102")
+    for n_fft, seed, key in ((404, 21, "bluestein"), (551, 30, None), (1102, 31, "direct")):
+        cfg = named_config("classic13").replace(n_fft=n_fft)
+        form = frontend.dft_form(cfg)
+        check(form == ("direct" if n_fft == 1102 else "bluestein"), f"n_fft {n_fft} takes the {form} form")
+        if form == "bluestein":
+            q, k, P = frontend.bluestein_dims(n_fft)
+            print(f"  n_fft {n_fft}: Q {q} points, K {k} outputs, P {P} = "
+                  f"{'*'.join(map(str, frontend.radices(2 * P)))}, {frontend.smem_bytes(cfg)} B a block")
+        batch, audio, lengths, errs, launches = small_path(
+            torch, counters, cfg, lens, n16, seed, f"classic13 n_fft {n_fft}", testing.FEATURE_ATOL,
+            prefix64=True)
+        if form == "bluestein":
+            counters.zero()
+            st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="fp32")
+            torch.cuda.synchronize()
+            counters.expect("fused_logmel_stages(dft_passes='fp32')", frontend=1, bluestein=1)
+            check(torch.equal(st["prefix"], frontend.logmel_prefix(audio, lengths, cfg)),
+                  "the fp32 route's prefix == the default route's, bitwise")
+        if key is None:
+            continue
+        F = cfg.num_frames(batch.audio.shape[1])
+        event_ms, plain_ms, _ = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+        kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg), "logmel_kernel")
+        st = chain.logmel_stages(audio, lengths, cfg)
+        framed = st["windowed"].reshape(B_SMALL * F, -1).contiguous()
+        del st
+        rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=n_fft, dim=-1))
+        del framed
+        lens64 = batch.lengths.astype(np.int64)
+        bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B_SMALL, F),
+                                   frontend_ops(cfg, chain, frontend, torch, lens64, F))
+        print(f"  frontend kernel, {form} form at n_fft {n_fft}: {kernel_ms:.4f} ms of device time, L2 "
+              f"flushed ({bound_ms / kernel_ms * 100:.1f}% of bound; {kernel_ms / rfft_ms:.2f}x rfft); "
+              f"CUDA events {event_ms:.4f} ms {tag}")
+        print(f"  plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={n_fft}) on "
+              f"[{B_SMALL * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
+        results[key] = dict(launches=launches[key], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+        if n_fft == 404:
+            r2_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=512)),
+                              "logmel_kernel")
+            print(f"  the same rows at n_fft 512 (Stockham 8*8*4): {r2_ms:.4f} ms of device time {tag}")
+        del audio, lengths
+
+
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
     """Phases 13-18: whisper80 ragged, centered framing with conditioning
-    and dither, the direct DFT (n_fft 404, timed), a radix-3 Stockham size
-    (n_fft 480), frames longer than n_fft, and rows over the reference's
-    8 MiB slab bound (timed)."""
+    and dither, the Bluestein form (n_fft 404 and 551, timed) and the direct
+    DFT (1102, timed), a radix-3 Stockham size (n_fft 480), frames longer
+    than n_fft, and rows over the reference's 8 MiB slab bound (timed)."""
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
     from mfcc_tpu_torch.ops import chain
@@ -808,27 +922,8 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
                "classic13_deltas center, dither 1.0 (signal pre-emphasis at the source index)",
                testing.FEATURE_ATOL)
 
-    print(f"== 15. the direct DFT: classic13 n_fft 404 b{B_SMALL} x {SECONDS} s")
-    cfg = named_config("classic13").replace(n_fft=404)
+    bluestein_path(torch, counters, tag, results)
     lens = [n16 - 571 * i for i in range(B_SMALL)]
-    batch, audio, lengths, errs, launches = small_path(
-        torch, counters, cfg, lens, n16, 21, "classic13 n_fft 404", testing.FEATURE_ATOL,
-        prefix64=True)
-    F = cfg.num_frames(batch.audio.shape[1])
-    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
-    lens64 = batch.lengths.astype(np.int64)
-    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B_SMALL, F),
-                               frontend_ops(cfg, chain, frontend, torch, lens64, F))
-    print(f"  frontend kernel, direct DFT at n_fft 404: {kernel_ms:.4f} ms "
-          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
-    print(f"  plain version: {plain_ms:.4f} ms; torch.fft.rfft(n=404) on [{B_SMALL * F}, "
-          f"{cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms {tag}")
-    results["direct"] = dict(launches=launches["direct"], max_abs_err=errs["max_abs"],
-                             ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=rfft_ms)
-    r2_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=512)))
-    print(f"  the same rows at n_fft 512 (Stockham 8*8*4): {r2_ms:.4f} ms {tag}")
-    del audio, lengths
 
     print(f"== 16. a radix-3 Stockham size: classic13 n_fft 480 (240 = 8*2*3*5) b{B_SMALL}")
     cfg = named_config("classic13").replace(n_fft=480)
@@ -853,12 +948,13 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
         torch, counters, cfg, [n, n - 16001], n, 25, "classic13_deltas 140 s",
         testing.FEATURE_ATOL)
     F = cfg.num_frames(batch.audio.shape[1])
-    kernel_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+    event_ms, plain_ms, rfft_ms = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+    kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg), "logmel_kernel")
     lens64 = batch.lengths.astype(np.int64)
     bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, 2, F),
                                frontend_ops(cfg, chain, frontend, torch, lens64, F))
-    print(f"  frontend kernel, b2 x {LONG_SECONDS} s: {kernel_ms:.4f} ms "
-          f"({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  frontend kernel, b2 x {LONG_SECONDS} s: {kernel_ms:.4f} ms of device time, L2 flushed "
+          f"({bound_ms / kernel_ms * 100:.1f}% of bound); CUDA events {event_ms:.4f} ms {tag}")
     print(f"  plain version: {plain_ms:.4f} ms; torch.fft.rfft on [{2 * F}, 512] (DFT only): "
           f"{rfft_ms:.4f} ms {tag}")
     results["long_rows"] = dict(launches=launches["frontend"], max_abs_err=errs["max_abs"],
@@ -916,9 +1012,12 @@ def main_path_tail(torch, chain, testing, tail, cfg, prefix, lengths, feat, mask
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     _, _, kernel_ms, _ = profile_step(
         torch, lambda: (flush.zero_(), tail.feature_tail(prefix, nv, cfg)), "tail_kernel")
+    timed = "of device time"
+    if kernel_ms is None:
+        kernel_ms, timed = event_ms, "by CUDA events (the wrapper's host time included)"
     B, F = prefix.shape[:2]
     bound_ms, bound_by = tail_bound(cfg, B, F, int(nv.sum()))
-    print(f"  feature-tail kernel: {kernel_ms:.4f} ms of device time, L2 flushed "
+    print(f"  feature-tail kernel: {kernel_ms:.4f} ms {timed}, L2 flushed "
           f"({bound_ms / kernel_ms * 100:.1f}% of bound); CUDA events {event_ms:.4f} ms "
           f"({runs[0][0]:.4f}, {runs[1][0]:.4f}) {tag}")
     print(f"  plain version (the torch epilogue): {plain_ms:.4f} ms ({runs[0][1]:.4f}, "
@@ -976,12 +1075,28 @@ def tail_paths(torch, counters, tag: str) -> None:
         check(bool((got[st["frame_mask"] == 0] == 0).all()), "pad rows exactly 0")
 
 
-def bf16x3_path(torch, counters, tag: str) -> dict:
+def load_breakdown():
+    """scripts/frontend_breakdown.py as a module (its cut builds and timing)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "frontend_breakdown.py"
+    spec = importlib.util.spec_from_file_location("frontend_breakdown", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bf16x3_path(torch, counters, tag: str, breakdown, cuts: dict, lib_path) -> dict:
     """Phase 20: the bf16x3 form, classic13 b64 x 10 s through
     fused_logmel_stages(dft_passes="bf16x3"), counted: against its plain
     version (loud bins 1e-3, the other prefix gates) and the float64 plain
-    version (loud bins 1e-3); timed beside the Stockham form on the same rows,
-    in turns; kaldi_mfcc with dither 1.0 at n_fft 404, b16."""
+    version (loud bins 1e-3); the instantiation's SASS (HGMMA, the bulk
+    copies, no HMMA); timed beside the Stockham form on the same rows, in
+    turns, and cut after staging and before the projection (`cuts`, from
+    scripts/frontend_breakdown.py); kaldi_mfcc with dither 1.0 at n_fft 404,
+    b16."""
+    from mfcc_tpu_torch.kernels import _build
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
     from mfcc_tpu_torch.ops import chain
@@ -995,8 +1110,16 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths = torch.as_tensor(batch.lengths, device="cuda")
     kp, nbp = frontend.bf16_dims(cfg)
+    tile, stages = frontend.bf16_plan(cfg)
     print(f"== 20. the bf16x3 form: classic13 b{B} x {SECONDS} s int16 [{B}, {T}], matrix "
-          f"[{kp}, {2 * nbp}] bf16 x 2, {frontend.smem_bytes(cfg, 'bf16x3')} B of shared memory a block")
+          f"[{kp}, {2 * nbp}] bf16 x 2 in {kp // 16 * nbp // 136} ring chunks of 17,408 B, {tile} "
+          f"frames a block, {stages} ring stages, {frontend.smem_bytes(cfg, 'bf16x3')} B of shared "
+          f"memory a block")
+    ops = breakdown.sass_opcodes(lib_path, _build.nvcc(), breakdown.BF16X3)
+    print(f"  SASS of the int16 bf16x3 instantiation: HGMMA {ops.get('HGMMA', 0)}, UBLKCP "
+          f"{ops.get('UBLKCP', 0)}, HMMA {ops.get('HMMA', 0)}, {sum(ops.values())} instructions")
+    check(ops.get("HGMMA", 0) > 0 and ops.get("UBLKCP", 0) > 0 and ops.get("HMMA", 0) == 0,
+          "the bf16x3 form runs wgmma (HGMMA) on bulk-copied stages, and no mma.sync (HMMA)")
     counters.zero()
     st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="bf16x3")
     torch.cuda.synchronize()
@@ -1044,6 +1167,12 @@ def bf16x3_path(torch, counters, tag: str) -> dict:
           f"bf16x3 / Stockham = {kernel_ms / r2_ms:.2f} {tag}")
     print(f"  the three bf16 passes alone: 3 x 2 x {kp} x {2 * cfg.n_bins} FLOP x {frames} frames "
           f"-> {tensor_ms:.4f} ms at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s bf16")
+    ms = breakdown.time_cuts(torch, frontend, cuts, cfg, audio, lengths, "bf16x3",
+                             timer=lambda fn: device_ms(torch, fn, "logmel_kernel"))
+    p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
+    print(f"  breakdown (profiler device time, L2 flushed, cuts in turns): staging {p1:.4f} ms, "
+          f"tensor-core product and |X|^2 {p2 - p1:.4f}, projection {p0 - p2:.4f}, whole {p0:.4f} "
+          f"{tag}")
     print(f"  plain version (three fp32 matmuls of bf16 parts): {plain_ms:.4f} ms; torch.fft.rfft on "
           f"[{B * F}, {cfg.n_fft}] (DFT only): {rfft_ms:.4f} ms {tag}")
     del audio, lengths
@@ -1086,13 +1215,16 @@ def large_fft_path(torch, counters, tag: str) -> None:
 
 
 def occupancy(frontend, named_config) -> None:
-    """Phase 2's view of the front-end's FFT-form instantiations from the
-    card (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+    """Phase 2's view of the front-end's instantiations from the card
+    (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor):
     registers, local (spilled) bytes and blocks an SM of each of the 16
-    (int16 or float32 rows, plain or fused resample, dither, conditioning)
-    at the shared memory of a config that takes it; then the named configs'
-    blocks an SM. Fails on a spill, or under three blocks an SM for
-    classic13, logmel80 or whisper80 (the design's target)."""
+    FFT-form ones (int16 or float32 rows, plain or fused resample, dither,
+    conditioning; the Stockham, Bluestein and direct forms share them) and
+    of the 8 bf16x3 ones (the plain form only), at the shared memory of a
+    config that takes it; then the named configs' blocks an SM and the
+    Bluestein form's at n_fft 404 and 551. Fails on a spill, under three
+    blocks an SM for classic13, logmel80 or whisper80, or under two for the
+    Bluestein form at 404 (the designs' targets)."""
     print("  FFT-form instantiations (rows, resample, dither, conditioning): registers, "
           "local bytes, blocks an SM at that config's shared memory")
     for int16 in (True, False):
@@ -1114,6 +1246,24 @@ def occupancy(frontend, named_config) -> None:
               f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
         if name in ("classic13_deltas", "logmel80", "whisper80"):
             check(info["blocks_per_sm"] >= 3, f"{name}: three blocks an SM or more")
+    for n_fft in (404, 551):
+        cfg = named_config("classic13").replace(n_fft=n_fft)
+        info = frontend.kernel_info(cfg)
+        print(f"    classic13 n_fft {n_fft} ({frontend.dft_form(cfg)}, P "
+              f"{frontend.bluestein_dims(n_fft)[2]}): {info['smem_bytes']} B of shared memory a block, "
+              f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
+        if n_fft == 404:
+            check(info["blocks_per_sm"] >= 2, "the Bluestein form at n_fft 404: two blocks an SM or more")
+    print("  bf16x3 instantiations (rows, dither, conditioning): registers, local bytes, blocks an SM "
+          "at that config's shared memory (frames a block, ring stages)")
+    for int16 in (True, False):
+        for dith in (False, True):
+            for cond in (False, True):
+                cfg = named_config("kaldi_mfcc" if cond else "classic13").replace(dither=1.0 if dith else 0.0)
+                info = frontend.kernel_info(cfg, int16, "bf16x3")
+                print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
+                      f"{int(cond)}: {info}, plan {frontend.bf16_plan(cfg)}")
+                check(info["local_bytes"] == 0, "no spills")
 
 
 def main() -> int:
@@ -1149,13 +1299,16 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
     tag = f"[{card}]"
 
-    # 2. build every kernel source, in parallel
+    # 2. build every kernel source, in parallel, with the breakdown's cuts
     print("== 2. build")
+    breakdown = load_breakdown()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        cut_builds = pool.submit(breakdown.build_cuts, _build.CSRC, _build.BUILD_DIR / "breakdown")
         builds = dict(zip(SOURCES, pool.map(_build.build, SOURCES)))
-    print(f"built {', '.join(p.name for p, _ in builds.values())} in "
-          f"{time.perf_counter() - t0:.1f} s: nvcc {' '.join(_build.NVCC_FLAGS)}")
+        cut_builds = cut_builds.result()
+    print(f"built {', '.join(p.name for p, _ in builds.values())} and the front-end's three "
+          f"breakdown cuts in {time.perf_counter() - t0:.1f} s: nvcc {' '.join(_build.NVCC_FLAGS)}")
     for _, log in builds.values():
         for line in log.splitlines():
             if "ptxas" in line or "spill" in line:
@@ -1559,7 +1712,8 @@ def main() -> int:
 
     # 19-20. the feature tail's branches; the bf16x3 form
     tail_paths(torch, counters, tag)
-    results["bf16x3"] = bf16x3_path(torch, counters, tag)
+    cuts = breakdown.bind_cuts(cut_builds, frontend._lib())
+    results["bf16x3"] = bf16x3_path(torch, counters, tag, breakdown, cuts, builds["frontend"][0])
     large_fft_path(torch, counters, tag)
 
     print(card)

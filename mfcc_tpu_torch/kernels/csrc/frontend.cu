@@ -5,9 +5,10 @@
 // (:1552), at N2 = 128 and at whisper80's N2 = 100 with the host reflect
 // extension _reflect_extend (:1572-1640) and the log10_floor epilogue
 // (:701); _make_kernel (:807-897) with kernel_constants (:160-241), the
-// direct DFT of the fp32 dft_passes route, for the sizes radix-4 cannot
-// tile, also at any n_fft for the fp32 route; the bf16x3 route on the
-// tensor cores; and the dither, frame-first conditioning, log-kind and PLP,
+// DFT of the fp32 dft_passes route, for the sizes radix-4 cannot tile and
+// at any n_fft for the fp32 route (here the full-fp32 Stockham, Bluestein
+// or direct form of the size); the bf16x3 route on the tensor cores
+// (wgmma); and the dither, frame-first conditioning, log-kind and PLP,
 // spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
@@ -84,14 +85,36 @@
 //          remainder or a sincosf. Rows are padded by one float2 after
 //          every 8 (index i at i + i/8): stage 0's stride-8 stores, 8-way
 //          bank conflicts in a plain row, spread over 16 banks.
-//      (b) every other N, odd ones included (N = 404: H = 2*101): a direct
-//          DFT, lane k summing X[k] = sum_n v[n] e^{-2 pi i ((k n) mod N)/N}
-//          with the exact integer index into a table of all N entries; it
-//          costs O(N * bins) a frame and is meant for the sizes nothing
-//          else takes, not for speed.
+//      (d) every other N whose block fits, odd ones included: the Bluestein
+//          FFT (replaces the O(N * bins) direct sum the fp32 route took
+//          there). It computes the first K outputs of a Q-point DFT as a
+//          chirp-z convolution through a P-point Stockham FFT on the same
+//          stages as (a): even N packs the frame as in (a) (Q = K = H, then
+//          the real split); odd N transforms its N real samples (Q = N,
+//          K = N/2 + 1), one frame a warp, at P >= N + K - 1 (two frames as
+//          one complex sequence would need P >= 2N - 1 and rows that do not
+//          fit 8 warps beside the span at N = 551). P is the cheapest size
+//          >= Q + K - 1 the stages take: fewest stages, then fewest points
+//          (404: P = 512 = 8*8*8, three passes; 551: 960 = 8*8*3*5). With
+//          the chirp c[n] = e^{-i pi n^2/Q} (n^2 mod 2Q an exact integer on
+//          the host): the forward FFT's stage 0 loads a[n] = z[n] c[n] for
+//          n < Q straight from the staged signal (windowed, conditioned),
+//          0 past Q; the inverse FFT's stage 0 loads conj(A[n]) B[n], B the
+//          filter spectrum conj(FFT(b))/P of b[m] = conj(c[m]) on m in
+//          (-Q, K) (1/P folded in; for even N b is even, so only B[0 .. P/2]
+//          is staged and read at min(n, P - n)), and runs the same forward
+//          stages, which leave the conjugate of the convolution; Z[k] =
+//          c[k] conj(D[k]) then feeds the real split (even N) or is X[k]
+//          (odd N). Two FFTs of P points a frame against the direct sum's
+//          N * bins lookups; the error grows as log P.
+//      (b) the direct DFT, only where the Bluestein rows do not fit the block
+//          (at 26 filters: odd N over 683, and even N over 1,024 whose half
+//          has a prime factor of 7 or more; kernels/frontend.py dft_form):
+//          lane k sums X[k] = sum_n v[n] e^{-2 pi i ((k n) mod N)/N} with the
+//          exact integer index into a table of all N entries.
 //      Every table is computed on the host in float64; every sum is fp32
 //      FMA: no TF32, no bf16 (1-pass reduced precision breaks the 1e-4
-//      log-mel gate, docs/KERNEL.md section 3). For (a) the real split gives
+//      log-mel gate, docs/KERNEL.md section 3). For (a) and even-N (d) the real split gives
 //      X[k] and X[H-k] from Z[k] and Z[H-k] (k <= H/2) into the warp's free
 //      row, summing the powers on the way (the pspec energy); (b) writes
 //      its power row directly. Rows are indexed by bin in every form.
@@ -122,6 +145,10 @@
 // ssc; none for a spectrogram), then the dither's and fused resample's x
 // row and the resample's taps. classic13 takes 71,200 B, logmel80 73,184,
 // whisper80 62,832, ssc26 74,832: three blocks an SM (24 warps) for each.
+// The Bluestein form's table holds the split, the P-point stages' twists,
+// the chirp and the filter spectrum, its bases the P-point stages', its
+// rows P + P/8 + 1 float2: 114,384 B at classic13 n_fft 404, two blocks an
+// SM; 201,264 B at 551, one.
 // __launch_bounds__(256, 3) caps the FFT forms at 80 registers a thread.
 //
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
@@ -242,30 +269,51 @@
 // route of _make_kernel, :857-867, with the window-folded matrix of
 // kernel_constants :160-241). An opt-in of its own accuracy class (~1e-4 on
 // loud log-mel bins, as the reference's), chosen by the wrapper's dft_passes
-// and not by n_fft; no config and no default path takes it. After staging and
-// the per-frame conditioning, the tile's 32 frames go to shared memory as
-// bf16 hi = rn(g) and lo = rn(g - hi) of the conditioned, unwindowed samples
-// (the window rides the matrix), [32][kp] each (51 KB at L = 400), zero past
-// min(L, n_fft). The matrix (hi and lo, [kp][2 nbp] bf16, 0.87 MB at n_fft
-// 512, built on the host from constants.folded_dft) stays in device memory
-// and L2. Each warp takes (16 frames, 16 bins): wmma bf16 m16n16k16 with fp32
-// accumulation sums ah Wh + al Wh + ah Wl for the cosine block and the sine
-// block of the same bins, so |X|^2 forms element-wise in registers and one
-// store writes the tile's power rows [32][nbp]; the al Wl term (~2^-16
-// relative) is dropped, as in the reference. Then step 4 as in every form.
-// It takes the plain form's framing, dither, conditioning and feature-kind
-// branches (it stages every tile and transforms every frame); the
-// fused-resample form has no bf16x3 instantiation.
+// and not by n_fft; no config and no default path takes it. X = ah Wh +
+// al Wh + ah Wl with fp32 accumulation: ah = rn(g) and al = rn(g - ah) of the
+// conditioned, unwindowed samples (the window rides the matrix), the al Wl
+// term (~2^-16 relative) dropped, as in the reference.
+//   Block: 64 frames (kernels/frontend.py bf16_plan; 32, the wgmma's upper
+//   rows zero, where 64 frames' power rows do not fit, as at n_fft 2048),
+//   8 warps, one block an SM. Warps 0-3, one warpgroup, take 16 frames a
+//   warp through wgmma.mma_async m64n136k16 bf16 (sm_90a) with A from
+//   registers: each thread builds its fragment's hi and lo from the staged
+//   fp32 signal and the frame's conditioning, so no A buffer exists.
+//   B is the matrix, which the host lays out (bf16_matrix) in the ring's
+//   order: [pass][k16 step][hi | lo][8-column group][K half][column][k],
+//   K-major core matrices of 8 columns x 16 bytes read through wgmma's
+//   no-swizzle descriptors (the two K halves 128 B apart, column groups
+//   256 B apart; a core matrix is 128 contiguous bytes, so its rows take
+//   distinct banks); column c of a pass is bin c/2's cosine (even c) or sine
+//   (odd c), so re and im of a bin land in one thread's register pair and
+//   |X|^2 forms in registers before one store to the power rows.
+//   The matrix crosses L2 once a 64 frames (0.87 MB a block at classic13:
+//   0.89 GB a b64 step, where the wmma form read ~3.6 GB): warp 4's lane 0
+//   keeps a ring of 4 stages (3 or 2 where 4 do not fit) of 17,408-byte
+//   chunks (one k16 step of 272 columns, hi and lo) full with cp.async.bulk
+//   copies completing on full mbarriers, the first ones issued before the
+//   staging; the consumers wait on a stage's full barrier, issue the six
+//   products (three a column half of 136), wait for them and arrive on its
+//   empty barrier. Two passes of 136 bins cover 257 (npass = 2).
+//   A tile that stages nothing takes no product (its powers are 0).
+//   Then step 4 as in every form over the power rows, stride bins rounded up
+//   to 32 plus 4 (the fragment's 8 frames store to 8 bank groups).
+// Shared memory at classic13 (floats): the span 63 S + L (42 KB), window,
+// packed bands, the ring (4 x 17,408 B, 128-byte aligned), 2 x 4 mbarriers,
+// power rows [64][292] (75 KB), frame energies and means, the per-warp
+// scratch: 194,752 B; kernels/frontend.py smem_bytes mirrors it. A cluster
+// of two blocks sharing each chunk by multicast was measured slower
+// (PERF.md section 6) and is not taken. The fused-resample form has no
+// bf16x3 instantiation.
 // Bound: the bytes and the function's minimum of the other forms (9.47 us at
 // classic13 b64 x 10 s, by operations). The three passes alone are 3 x 2 x
 // 400 x 514 = 1.23 MFLOP a frame: 0.0709 ms of bf16 tensor work at 989 TFLOP/s
 // for 56,836 frames, 7.5x that minimum, so on Hopper the matrix DFT is no
-// throughput route (the TPU's MXU made it one). Shared memory at classic13:
-// 115,360 B, two blocks an SM.
+// throughput route (the TPU's MXU made it one); its own roofline is that
+// 0.0709 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "polyphase.cuh"
@@ -279,6 +327,20 @@ constexpr int kFftBlocks = 3;   // blocks an SM the FFT forms are built for
 constexpr int kStageBatch = 8;  // samples a thread loads at once while staging
 constexpr int kProjBatch = 4;   // packed weights a lane loads at once in the projection
 constexpr int kMaxStages = 16;  // Stockham stages, 4 bits each in Params::radices
+constexpr int kSmemBudget = 232448;  // the H100's dynamic shared memory a block
+// The bf16x3 form: a wgmma step's K, the bins of a pass (two m64n136k16
+// products over 272 interleaved cosine and sine columns), the bytes of one
+// part (hi or lo) of a step and of a ring stage (hi and lo), the ring's
+// deepest plan, and the consumer warpgroup (warps 0-3) and the thread
+// that issues the ring's copies (warp 4, lane 0).
+constexpr int kBfStep = 16;
+constexpr int kBfPassBins = 136;
+constexpr int kBfGroups = 2 * kBfPassBins / 8;               // 8-column groups a pass
+constexpr int kBfPartBytes = kBfStep * 2 * kBfPassBins * 2;  // 8,704
+constexpr int kBfStageBytes = 2 * kBfPartBytes;              // 17,408
+constexpr int kBfMaxStages = 4;
+constexpr int kConsumers = 128;
+constexpr int kProducer = 128;
 
 // energy_source, log_kind, feature_kind, DFT form and reflection codes
 // (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
@@ -286,11 +348,11 @@ constexpr int kMaxStages = 16;  // Stockham stages, 4 bits each in Params::radic
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
-enum { kStockham = 0, kDirect = 1, kBf16x3 = 2 };
+enum { kStockham = 0, kDirect = 1, kBf16x3 = 2, kBluestein = 3 };
 enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
-__host__ __device__ inline int align8(int n) { return (n + 7) & ~7; }
+__host__ __device__ inline int align32(int n) { return (n + 31) & ~31; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
@@ -311,13 +373,19 @@ struct Params {
   float frame_preemph, frame_keep0;
   int feature_kind;
   // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
-  // the Stockham radices, stage s in bits [4s, 4s + 4); the twiddle and
-  // output-base table lengths; the projection's weights a lane; for the
-  // bf16x3 form the matrix depth kp = min(L, n_fft) and bins nbp, each
-  // rounded up to 16
-  int half, bins, nstages;
+  // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
+  // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
+  // output-base table lengths; the projection's weights a lane. The
+  // twiddle table holds the real split's nsplit entries, the stages'
+  // twists, and for the Bluestein form the chirp (bq entries from `chirp`)
+  // and the filter spectrum (nfilt from `filt`); bq points in, bk outputs.
+  // For the bf16x3 form: the matrix depth kp = min(L, n_fft) rounded up to
+  // 16, bins nbp = 136 npass, the power rows' stride pws, frames a block
+  // (tile) and ring stages.
+  int half, bins, fft_n, nstages;
   unsigned long long radices;
-  int ntw, nbases, chunk, kp, nbp;
+  int ntw, nbases, chunk, nsplit, bq, bk, chirp, filt, nfilt;
+  int kp, nbp, npass, pws, tile, stages;
 };
 
 // Packed weight tables staged for the feature kind: mel; none for the
@@ -331,15 +399,15 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // warp 0's projection scratch (32 lane partials and the M filter sums, for
 // each weight table), pstride the step to the next warp's.
 struct Layout {
-  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, pw, ef, xs, tab,
-      total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, xs,
+      tab, total;
 };
 
 __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, bool xs) {
   Layout l;
   const int tables = weight_tables(p);
   const int parts = align4(tables * (32 + p.M));
-  l.span = (kTile - 1) * p.S + p.L;
+  l.span = ((p.form == kBf16x3 ? p.tile : kTile) - 1) * p.S + p.L;
   l.win = align4(imax(l.span, in_len));
   l.melw = l.win + align4(imax(p.L, p.n_fft));
   l.melf = l.melw + align4(p.nnz);  // ssc only
@@ -349,19 +417,21 @@ __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, 
   l.bases = l.tw + align4(2 * p.ntw);
   l.buf = l.bases + align4(p.nbases);
   if (p.form == kBf16x3) {
-    l.buf = align8(l.buf);
+    l.buf = align32(l.buf);  // the ring, 128-byte aligned for its bulk copies
     l.row = 0;
-    l.pw = l.buf + kTile * p.kp;  // two bf16 rows of kp a frame = kp floats
-    l.ef = l.pw + kTile * p.nbp;
-    l.part = l.ef + kTile;
+    l.bar = l.buf + p.stages * (kBfStageBytes / 4);
+    l.pw = l.bar + align4(4 * p.stages);  // full and empty mbarriers, 8 B each
+    l.ef = l.pw + p.tile * p.pws;
+    l.mu = l.ef + align4(p.tile);
+    l.part = l.mu + align4(p.tile);
     l.pstride = parts;
     l.xs = l.part + kWarps * parts;
   } else {
-    l.row = p.form == kStockham ? align4(2 * (p.half + (p.half >> 3) + 1))
-                                : align4(imax(p.n_fft, p.bins));
+    l.row = p.form == kDirect ? align4(imax(p.n_fft, p.bins))
+                              : align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + 2 * l.row;
     l.pstride = 2 * l.row + parts;
-    l.pw = l.ef = 0;
+    l.bar = l.pw = l.ef = l.mu = 0;
     l.xs = l.buf + kWarps * l.pstride;
   }
   l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
@@ -371,6 +441,27 @@ __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, 
 
 __host__ __device__ inline int resample_window(const Params& p, const Polyphase& pp) {
   return pp_input_span((kTile - 1) * p.S + p.L + 1, pp);  // x[t0-1 .. t0+span)
+}
+
+// The bf16x3 form's shape (kernels/frontend.py bf16_dims, bf16_plan): the
+// matrix depth kp, whole passes of 136 bins, the power rows' stride, and
+// the first of 64 or 32 frames a block and 4, 3 or 2 ring stages whose
+// layout fits the block's shared memory (else the smallest; the wrapper
+// refuses it).
+inline bool plan_bf16(Params& p) {
+  p.kp = (imin(p.L, p.n_fft) + kBfStep - 1) / kBfStep * kBfStep;
+  p.npass = (p.bins + kBfPassBins - 1) / kBfPassBins;
+  p.nbp = p.npass * kBfPassBins;
+  p.pws = (p.bins + 31) / 32 * 32 + 4;
+  const int tiles[2] = {64, 32};
+  for (int tile : tiles) {
+    for (int stages = kBfMaxStages; stages >= 2; --stages) {
+      p.tile = tile;
+      p.stages = stages;
+      if (layout(p, 0, 0, p.dither > 0.f).total * 4 <= kSmemBudget) return true;
+    }
+  }
+  return true;
 }
 
 __device__ inline float to_f32(int16_t v) { return static_cast<float>(v); }
@@ -589,26 +680,28 @@ __device__ inline void stage_of_radix(int R, First first, const float2* src, flo
   }
 }
 
-// 3a. The Stockham FFT of the frame's H = n_fft/2 complex points: stage 0
-//     loads point n by first(n) (from the staged signal), each later stage
-//     the row the one before stored, ping-ponging between the warp's rows a
-//     and b. tw holds the stage twists (after the split's entries), base
-//     the output bases, stage after stage. Returns the row holding Z.
+// 3a. The Stockham FFT of fft_n complex points (the frame's H = n_fft/2, or
+//     the Bluestein form's P): stage 0 loads point n by first(n) (from the
+//     staged signal, or from another row), each later stage the row the one
+//     before stored, ping-ponging between the warp's rows a (stage 0's
+//     output) and b. tw holds the stage twists (after the split's entries),
+//     base the output bases, stage after stage. Returns the row holding Z.
 template <typename First>
 __device__ inline const float2* stockham(First first, float2* a, float2* b, const Params& p,
                                          const float2* tw, const int* base, int lane) {
   float2* dst = a;
   const float2* src = b;
+  const int n = p.fft_n;
   int ns = 1;
   for (int s = 0; s < p.nstages; ++s) {
     const int R = static_cast<int>((p.radices >> (4 * s)) & 15u);
     if (s == 0) {
-      stage_of_radix<true>(R, first, nullptr, dst, p.half, 1, tw, base, lane);
+      stage_of_radix<true>(R, first, nullptr, dst, n, 1, tw, base, lane);
     } else {
-      stage_of_radix<false>(R, first, src, dst, p.half, ns, tw, base, lane);
-      tw += (p.half / R) * (R - 1);
+      stage_of_radix<false>(R, first, src, dst, n, ns, tw, base, lane);
+      tw += (n / R) * (R - 1);
     }
-    base += p.half / R;
+    base += n / R;
     __syncwarp();
     src = dst;
     dst = dst == a ? b : a;
@@ -617,18 +710,19 @@ __device__ inline const float2* stockham(First first, float2* a, float2* b, cons
   return src;
 }
 
-// Real split of the half-size complex FFT Z (a padded row) of
+// Real split of the half-size complex FFT Z (zat(k) = Z[k]) of
 // z[n] = y[2n] + i y[2n+1]:
 // Xe = (Z[k] + conj Z[H-k]) / 2, Xo = (Z[k] - conj Z[H-k]) / 2i,
 // X[k] = Xe + W^k Xo and X[H-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / n_fft},
 // for k <= H/2; |X|^2 * pscale into pw[k] and pw[H-k] (once when 2k = H).
 // Returns the warp sum of the powers (the pspec energy).
-__device__ inline float real_split(const float2* __restrict__ Z, float* __restrict__ pw,
-                                   const float2* __restrict__ tw, int H, float pscale, int lane) {
+template <typename Zat>
+__device__ inline float real_split(Zat zat, float* __restrict__ pw, const float2* __restrict__ tw,
+                                   int H, float pscale, int lane) {
   float es = 0.f;
   for (int k = lane; k <= H / 2; k += 32) {
-    const float2 a = Z[pad(k)];
-    const float2 c = Z[pad(k == 0 ? 0 : H - k)];
+    const float2 a = zat(k);
+    const float2 c = zat(k == 0 ? 0 : H - k);
     const float er = 0.5f * (a.x + c.x);
     const float ei = 0.5f * (a.y - c.y);
     const float orr = 0.5f * (a.y + c.y);
@@ -646,6 +740,21 @@ __device__ inline float real_split(const float2* __restrict__ Z, float* __restri
       pw[H - k] = py;
       es += py;
     }
+  }
+  return warp_sum(es);
+}
+
+// |X[k]|^2 * pscale of an odd n_fft's Bluestein outputs (zat(k) = X[k], k <
+// bins) into pw; returns the warp sum of the powers (the pspec energy).
+template <typename Zat>
+__device__ inline float chirp_power(Zat zat, float* __restrict__ pw, int bins, float pscale,
+                                    int lane) {
+  float es = 0.f;
+  for (int k = lane; k < bins; k += 32) {
+    const float2 x = zat(k);
+    const float px = (x.x * x.x + x.y * x.y) * pscale;
+    pw[k] = px;
+    es += px;
   }
   return warp_sum(es);
 }
@@ -771,54 +880,119 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
   if (lane == 0) o[M] = energy;
 }
 
-// 3c. The bf16x3 DFT of the tile (kBf16x3): X = ah Wh + al Wh + ah Wl on the
-//     tensor cores (wmma bf16 m16n16k16, fp32 accumulation), frames [kTile,
-//     kp] as bf16 hi a and lo al in shared memory, the window-folded, scaled
-//     matrix W [kp, 2 nbp] (hi Wh, lo Wl) in device memory, L2-resident,
-//     its column block 2j the cosines and 2j + 1 the sines of bins
-//     [16j, 16j + 16). A warp takes a (16-frame, 16-bin) tile: both
-//     accumulators share one fragment layout, so |X|^2 = re^2 + im^2 forms
-//     element-wise in registers before one store into the power rows.
-__device__ inline void bf16x3_dft(const __nv_bfloat16* ahi, const __nv_bfloat16* alo,
-                                  const __nv_bfloat16* __restrict__ whi,
-                                  const __nv_bfloat16* __restrict__ wlo, float* pw,
-                                  const Params& p, int warp) {
-  namespace wmma = nvcuda::wmma;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  const int ldw = 2 * p.nbp;
-  const int blocks = p.nbp / 16;
-  for (int item = warp; item < (kTile / 16) * blocks; item += kWarps) {
-    const int rt = item % (kTile / 16), j = item / (kTile / 16);
-    const __nv_bfloat16* ah_row = ahi + rt * 16 * p.kp;
-    const __nv_bfloat16* al_row = alo + rt * 16 * p.kp;
-    FragC re, im;
-    wmma::fill_fragment(re, 0.f);
-    wmma::fill_fragment(im, 0.f);
-#pragma unroll 1
-    for (int k = 0; k < p.kp; k += 16) {
-      FragA ah, al;
-      FragB ch, cl, sh, sl;
-      const size_t off = static_cast<size_t>(k) * ldw + 32 * j;
-      wmma::load_matrix_sync(ah, ah_row + k, p.kp);
-      wmma::load_matrix_sync(al, al_row + k, p.kp);
-      wmma::load_matrix_sync(ch, whi + off, ldw);
-      wmma::load_matrix_sync(sh, whi + off + 16, ldw);
-      wmma::load_matrix_sync(cl, wlo + off, ldw);
-      wmma::load_matrix_sync(sl, wlo + off + 16, ldw);
-      wmma::mma_sync(re, ah, ch, re);
-      wmma::mma_sync(re, al, ch, re);
-      wmma::mma_sync(re, ah, cl, re);
-      wmma::mma_sync(im, ah, sh, im);
-      wmma::mma_sync(im, al, sh, im);
-      wmma::mma_sync(im, ah, sl, im);
-    }
-    for (int t = 0; t < re.num_elements; ++t) {
-      re.x[t] = __fadd_rn(__fmul_rn(re.x[t], re.x[t]), __fmul_rn(im.x[t], im.x[t]));
-    }
-    wmma::store_matrix_sync(pw + rt * 16 * p.nbp + 16 * j, re, p.nbp, wmma::mem_row_major);
+// 3c. The bf16x3 form's pieces (kBf16x3): the ring's mbarriers and bulk
+//     copies, wgmma's shared-memory descriptor and its m64n136k16 product
+//     with A from registers (sm_90a).
+__device__ inline uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ inline void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 state;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+      :
+      : "r"(smem_u32(bar)), "r"(bytes)
+      : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :
+               : "r"(smem_u32(bar))
+               : "memory");
+}
+
+// Spins until the phase of `bar` with the given parity has completed.
+__device__ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
+}
+
+// One asynchronous bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into this block's shared memory, completing
+// on `bar`'s transaction count.
+__device__ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :
+      : "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma's descriptor of a K-major B operand without swizzle: core matrices
+// of 8 columns x 16 bytes (8 bf16 of K), the two K halves of a k16 step 128 B
+// apart (leading byte offset), 8-column groups 256 B apart (stride byte
+// offset); the address and both offsets in 16-byte units.
+__device__ inline uint64_t b_desc(const void* ptr) {
+  return static_cast<uint64_t>((smem_u32(ptr) >> 4) & 0x3FFF) |
+         static_cast<uint64_t>(128 >> 4) << 16 | static_cast<uint64_t>(256 >> 4) << 32;
+}
+
+__device__ inline void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ inline void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ inline void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma's registers across
+// the asynchronous product (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ inline void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ inline void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d[64 x 136] += a[64 x 16] (bf16, this thread's fragment) x B[16 x 136]
+// (bf16, shared memory at desc), fp32 accumulation. Thread (warp w, lane
+// 4g + t) holds a[q] = rows 16w + g + 8 (q & 1), columns 2t + 8 (q >> 1) and
+// + 1 (the lower column in the low half), and d[4j + 2h + c] = row
+// 16w + g + 8h, column 8j + 2t + c.
+__device__ inline void wgmma_m64n136k16(float (&d)[68], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %73, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67}, "
+      "{%68, %69, %70, %71}, %72, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ inline uint32_t bf16_pair(__nv_bfloat16 lo_col, __nv_bfloat16 hi_col) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo_col)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi_col)) << 16;
 }
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
@@ -828,8 +1002,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               const float* __restrict__ mel_w, const float* __restrict__ melf_w,
               const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
               const float2* __restrict__ twiddle, const int* __restrict__ bases,
-              const __nv_bfloat16* __restrict__ dft_hi, const __nv_bfloat16* __restrict__ dft_lo,
-              const float* __restrict__ taps, Params p, Polyphase pp) {
+              const unsigned char* __restrict__ dft_matrix, const float* __restrict__ taps,
+              Params p, Polyphase pp) {
   extern __shared__ __align__(128) float smem[];
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
@@ -845,7 +1019,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   int* sb = reinterpret_cast<int*>(smem + lay.bases);
 
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kTile;
+  const int tile = kBf16 ? p.tile : kTile;  // frames a block
+  const int f0 = blockIdx.x * tile;
   const long long t0 = static_cast<long long>(f0) * S;
   const Sample* row = audio + static_cast<size_t>(b) * T;
 
@@ -871,7 +1046,30 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int len_in = max(0, min(lengths[b], T));
   const long long len = kResample ? pp_output_length(len_in, pp) : len_in;
   const bool framed = p.center == kNoCenter;
-  const bool stage = kBf16 || !framed || t0 < len;
+  const bool stage = !framed || t0 < len;
+
+  // bf16x3: the ring of matrix chunks, its full and empty mbarriers; a tile
+  // that stages nothing takes no product. The producer thread starts the
+  // first stages' copies now, so they overlap the staging.
+  const bool dft = stage;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem + lay.buf);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  uint64_t* empty = full + p.stages;
+  if constexpr (kBf16) {
+    if (dft && threadIdx.x == kProducer) {
+      for (int i = 0; i < p.stages; ++i) {
+        mbar_init(full + i, 1);
+        mbar_init(empty + i, kConsumers);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      const int first = imin(p.stages, p.npass * (p.kp / kBfStep));
+      for (int c = 0; c < first; ++c) {
+        mbar_expect_tx(full + c, kBfStageBytes);
+        bulk_copy(ring + c * kBfStageBytes, dft_matrix + static_cast<size_t>(c) * kBfStageBytes,
+                  kBfStageBytes, full + c);
+      }
+    }
+  }
 
   if constexpr (kResample) {
     // 1r. the input window and the taps; x[t0-1 .. t0+span) by the FIR
@@ -1013,63 +1211,138 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const bool wsum = kCond && p.energy_source == kWindowedFrame;
 
   if constexpr (kBf16) {
-    // 2b. every frame of the tile (zeros past F) as bf16 hi and lo, the
-    //     conditioned samples unwindowed (the matrix carries the window),
-    //     zero past Lk; the frame energies into ef
-    __nv_bfloat16* ahi = reinterpret_cast<__nv_bfloat16*>(smem + lay.buf);
-    __nv_bfloat16* alo = ahi + kTile * p.kp;
+    // 2b. each frame's mean and energies under kCond (zeros past F and in a
+    //     tile that takes no product), into mu and ef
     float* pw_tile = smem + lay.pw;
     float* ef = smem + lay.ef;
-    for (int fl = warp; fl < kTile; fl += kWarps) {
-      __nv_bfloat16* ah = ahi + fl * p.kp;
-      __nv_bfloat16* al = alo + fl * p.kp;
-      if (f0 + fl >= F) {
-        for (int a = lane; a < p.kp; a += 32) ah[a] = al[a] = __float2bfloat16_rn(0.f);
-        continue;  // warp-uniform
-      }
-      const float* fr = sig + fl * S;
-      float mu, e;
-      frame_stats(fr, mu, e);
-#pragma unroll 1
-      for (int a = lane; a < p.kp; a += 32) {
-        const float g = a < Lk ? cond(fr, mu, a) : 0.f;
-        if (wsum && a < Lk) {
-          const float v = g * win[a];
-          e += v * v;
+    float* mu_t = smem + lay.mu;
+    for (int fl = warp; fl < tile; fl += kWarps) {
+      float mu = 0.f, e = 0.f;
+      if (dft && f0 + fl < F) {  // warp-uniform
+        const float* fr = sig + fl * S;
+        frame_stats(fr, mu, e);
+        if (wsum) {
+          for (int a = lane; a < L; a += 32) {
+            const float v = cond(fr, mu, a) * win[a];
+            e += v * v;
+          }
         }
-        const __nv_bfloat16 h = __float2bfloat16_rn(g);
-        ah[a] = h;
-        al[a] = __float2bfloat16_rn(g - __bfloat162float(h));
-      }
-      if (wsum) {
-        for (int a = Lk + lane; a < L; a += 32) {
-          const float v = cond(fr, mu, a) * win[a];
-          e += v * v;
+        if constexpr (kCond) {
+          if (p.energy_source != kPspec) e = warp_sum(e);
         }
       }
-      if constexpr (kCond) {
-        if (p.energy_source != kPspec) e = warp_sum(e);
+      if (lane == 0) {
+        ef[fl] = e;
+        mu_t[fl] = mu;
       }
-      if (lane == 0) ef[fl] = e;
     }
     __syncthreads();
-    // 3c. the tile's DFT on the tensor cores into the power rows
-    bf16x3_dft(ahi, alo, dft_hi, dft_lo, pw_tile, p, warp);
+    // 3c. the tile's DFT on the tensor cores into the power rows: the
+    //     consumer warpgroup (warps 0-3) takes 16 frames a warp, pass after
+    //     pass over 136 bins, step after step over k16 slices of the ring;
+    //     the producer thread keeps the ring full
+    if (!dft) {
+      for (int i = threadIdx.x; i < tile * p.pws; i += kThreads) pw_tile[i] = 0.f;
+    } else if (threadIdx.x < kConsumers) {
+      const int g = lane >> 2, t = lane & 3;
+      const int r0 = 16 * warp + g;
+      const int steps = p.kp / kBfStep;
+      const float* fr[2];
+      float mu[2];
+      bool live[2];
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        live[h] = r < tile && f0 + r < F;
+        fr[h] = sig + (live[h] ? r : 0) * S;
+        mu[h] = live[h] ? mu_t[r] : 0.f;
+      }
+      // the step's A fragment, hi and lo of the conditioned samples
+      // (unwindowed: the matrix carries the window), zero past Lk
+      auto fragment = [&](int k0, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = q & 1;
+          const int a = k0 + 2 * t + 8 * (q >> 1);
+          const float v0 = live[h] && a < Lk ? cond(fr[h], mu[h], a) : 0.f;
+          const float v1 = live[h] && a + 1 < Lk ? cond(fr[h], mu[h], a + 1) : 0.f;
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
+          ah[q] = bf16_pair(h0, h1);
+          al[q] = bf16_pair(__float2bfloat16_rn(v0 - __bfloat162float(h0)),
+                            __float2bfloat16_rn(v1 - __bfloat162float(h1)));
+        }
+      };
+      int c = 0;  // the ring's chunk: pass * steps + step
+      for (int pass = 0; pass < p.npass; ++pass) {
+        float re0[68], re1[68];  // bins [0, 68) and [68, 136) of the pass
+#pragma unroll
+        for (int i = 0; i < 68; ++i) re0[i] = re1[i] = 0.f;
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s, ++c) {
+          uint32_t ah[4], al[4];
+          fragment(s * kBfStep, ah, al);
+          const int slot = c % p.stages;
+          mbar_wait(full + slot, (c / p.stages) & 1);
+          __syncwarp();
+          const unsigned char* st = ring + slot * kBfStageBytes;
+          const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
+          const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
+          wgmma_fence();
+          fence_regs(re0);
+          fence_regs(re1);
+          wgmma_m64n136k16(re0, ah, wh);
+          wgmma_m64n136k16(re1, ah, wh + second);
+          wgmma_m64n136k16(re0, al, wh);
+          wgmma_m64n136k16(re1, al, wh + second);
+          wgmma_m64n136k16(re0, ah, wl);
+          wgmma_m64n136k16(re1, ah, wl + second);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(re0);
+          fence_regs(re1);
+          fence_regs(ah);
+          fence_regs(al);
+          mbar_arrive(empty + slot);
+        }
+        // |X|^2 of each bin from its (cosine, sine) column pair, in registers
+        auto store = [&](const float (&d)[68], int bin0) {
+#pragma unroll
+          for (int j = 0; j < 17; ++j) {
+            const int bin = bin0 + 4 * j + t;
+            if (bin >= p.bins) break;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = r0 + 8 * h;
+              const float x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
+              if (r < tile) pw_tile[r * p.pws + bin] = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+            }
+          }
+        };
+        store(re0, pass * kBfPassBins);
+        store(re1, pass * kBfPassBins + kBfPassBins / 2);
+      }
+    } else if (threadIdx.x == kProducer) {
+      const int total = p.npass * (p.kp / kBfStep);
+      for (int c = p.stages; c < total; ++c) {  // the first stages went out at the start
+        const int slot = c % p.stages;
+        mbar_wait(empty + slot, ((c / p.stages) & 1) ^ 1);
+        mbar_expect_tx(full + slot, kBfStageBytes);
+        bulk_copy(ring + slot * kBfStageBytes, dft_matrix + static_cast<size_t>(c) * kBfStageBytes,
+                  kBfStageBytes, full + slot);
+      }
+    }
     __syncthreads();
     // 4. each frame's output row (the powers carry the matrix's scale)
-    for (int fl = warp; fl < kTile; fl += kWarps) {
+    for (int fl = warp; fl < tile; fl += kWarps) {
       const int f = f0 + fl;
       if (f >= F) break;  // warp-uniform
-      const float* pw = pw_tile + fl * p.nbp;
+      const float* pw = pw_tile + fl * p.pws;
       const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
       write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
                   p, lane);
       __syncwarp();  // part is rewritten by the warp's next frame
     }
-    return;
-  }
-
-  float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
+  } else {
+    float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
   float2* ra = reinterpret_cast<float2*>(rows);
   float2* rb = reinterpret_cast<float2*>(rows + lay.row);
 
@@ -1106,6 +1379,39 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         direct_dft(v, pw, tw, p, Lk, lane);
         __syncwarp();
         es = power_sum(pw, p.bins, lane);
+      } else if (p.form == kBluestein) {
+        // 3d. the Bluestein FFT: stage 0 of the forward P-point FFT loads
+        //     point n < Q (the windowed pair (y[2n], y[2n+1]) for even n_fft,
+        //     the sample y[n] for odd) times the chirp c[n], zero past Q; the
+        //     inverse's stage 0 loads conj(A[n]) times the filter spectrum
+        //     (1/P folded in) and runs the same forward stages; Z[k] =
+        //     c[k] conj(D[k]) then feeds the real split (even n_fft) or is
+        //     X[k] itself (odd)
+        const float2* chirp = tw + p.chirp;
+        const float2* filt = tw + p.filt;
+        const bool packed = (p.n_fft & 1) == 0;
+        auto point = [&](int n) -> float2 {
+          if (n >= p.bq) return make_float2(0.f, 0.f);
+          const int a = packed ? 2 * n : n;
+          const float re = a < Lk ? sample(a) : 0.f;
+          const float im = packed && a + 1 < Lk ? sample(a + 1) : 0.f;
+          if (wsum) e += re * re + im * im;
+          return cmul(make_float2(re, im), chirp[n]);
+        };
+        float2* A = const_cast<float2*>(stockham(point, ra, rb, p, tw + p.nsplit, sb, lane));
+        const int P = p.fft_n;
+        auto spectrum = [&](int n) -> float2 {
+          const float2 x = A[pad(n)];
+          return cmul(make_float2(x.x, -x.y), filt[packed ? imin(n, P - n) : n]);
+        };
+        const float2* D = stockham(spectrum, A == ra ? rb : ra, A, p, tw + p.nsplit, sb, lane);
+        pw = reinterpret_cast<float*>(D == ra ? rb : ra);
+        auto zat = [&](int k) -> float2 {  // c[k] conj(D[k])
+          const float2 d = D[pad(k)], c = chirp[k];
+          return make_float2(c.x * d.x + c.y * d.y, c.y * d.x - c.x * d.y);
+        };
+        es = packed ? real_split(zat, pw, tw, p.half, p.pscale, lane)
+                    : chirp_power(zat, pw, p.bins, p.pscale, lane);
       } else {
         // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
         //     windowed (0 past Lk) from the staged frame; then the real
@@ -1117,9 +1423,9 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           if (wsum) e += re * re + im * im;
           return make_float2(re, im);
         };
-        const float2* Z = stockham(point, ra, rb, p, tw + p.half / 2 + 1, sb, lane);
+        const float2* Z = stockham(point, ra, rb, p, tw + p.nsplit, sb, lane);
         pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
-        es = real_split(Z, pw, tw, p.half, p.pscale, lane);
+        es = real_split([&](int k) { return Z[pad(k)]; }, pw, tw, p.half, p.pscale, lane);
       }
       if (wsum) {
         for (int a = Lk + lane; a < L; a += 32) {
@@ -1136,6 +1442,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
                 bd, part, from, p, lane);
     __syncwarp();  // the rows and partials are rewritten by the warp's next frame
   }
+  }
 }
 
 struct Args {
@@ -1146,7 +1453,7 @@ struct Args {
   const int *mel_off, *mel_meta;
   const float* twiddle;
   const int* bases;
-  const void *dft_hi, *dft_lo;
+  const void* dft_matrix;
   const float* taps;
   int B;
   Params p;
@@ -1172,12 +1479,11 @@ struct Launch {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.F + kTile - 1) / kTile, a.B);
+    const dim3 grid((p.F + p.tile - 1) / p.tile, a.B);
     kernel<<<grid, kThreads, bytes, a.stream>>>(
         static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel_w, a.melf_w,
         a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
-        static_cast<const __nv_bfloat16*>(a.dft_hi), static_cast<const __nv_bfloat16*>(a.dft_lo),
-        a.taps, p, a.pp);
+        static_cast<const unsigned char*>(a.dft_matrix), a.taps, p, a.pp);
     return cudaGetLastError();
   }
 };
@@ -1224,49 +1530,101 @@ cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
               : fn.template run<float, kResample, false, false, kBf16>();
 }
 
-// The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
-// kernel_form), as kernels/frontend.py radices and fft_twiddles lay it out:
-// the Stockham form only where it applies (an even n_fft >= 4 whose half
-// factors into 8s, one 4 or 2, 3s and 5s), the direct DFT and bf16x3 at any
-// n_fft; the projection's chunk. False when the wrapper's form disagrees,
-// or for n_fft < 2.
-bool plan(Params& p) {
-  const int N = p.n_fft;
-  if (N < 2) return false;
-  p.half = N / 2;
-  p.bins = N / 2 + 1;
-  p.nstages = 0;
-  p.radices = 0;
-  p.ntw = p.nbases = p.kp = p.nbp = 0;
-  p.chunk = ((p.nnz + 31) / 32) | 1;
-  if (p.form == kDirect) {
-    p.ntw = N;
-    return true;
-  }
-  if (p.form == kBf16x3) {
-    p.kp = (imin(p.L, N) + 15) / 16 * 16;
-    p.nbp = (p.bins + 15) / 16 * 16;
-    return true;
-  }
-  if (p.form != kStockham || N % 2 != 0 || N < 4) return false;
-  int h = p.half;
-  p.ntw = p.half / 2 + 1;
-  auto add = [&](int r) {
-    const int hr = p.half / r;
-    if (p.nstages > 0) p.ntw += hr * (r - 1);
-    p.nbases += hr;
-    p.radices |= static_cast<unsigned long long>(r) << (4 * p.nstages++);
-    h /= r;
+// The Stockham stages of n points (kernels/frontend.py radices(2n)): 8s,
+// then one 4 or 2, then 3s and 5s, stage s in bits [4s, 4s + 4) of *rad;
+// returns their count, or 0 when n < 2 or n has another prime factor.
+int stockham_plan(int n, unsigned long long* rad) {
+  if (n < 2) return 0;
+  int h = n, ns = 0;
+  unsigned long long r = 0;
+  auto add = [&](int R) {
+    r |= static_cast<unsigned long long>(R) << (4 * ns++);
+    h /= R;
   };
-  while (h % 8 == 0 && p.nstages < kMaxStages) add(8);
+  while (h % 8 == 0 && ns < kMaxStages) add(8);
   if (h % 4 == 0) {
     add(4);
   } else if (h % 2 == 0) {
     add(2);
   }
-  while (h % 3 == 0 && p.nstages < kMaxStages) add(3);
-  while (h % 5 == 0 && p.nstages < kMaxStages) add(5);
-  return h == 1;
+  while (h % 3 == 0 && ns < kMaxStages) add(3);
+  while (h % 5 == 0 && ns < kMaxStages) add(5);
+  if (h != 1 || ns > kMaxStages) return 0;
+  *rad = r;
+  return ns;
+}
+
+// p's Stockham FFT of n points: radices, the twiddle entries of its stages
+// after the first (after the split's nsplit) and its output bases.
+bool plan_stages(Params& p, int n) {
+  p.fft_n = n;
+  p.nstages = stockham_plan(n, &p.radices);
+  if (p.nstages == 0) return false;
+  int twists = 0;
+  p.nbases = 0;
+  for (int s = 0; s < p.nstages; ++s) {
+    const int R = static_cast<int>((p.radices >> (4 * s)) & 15u);
+    if (s > 0) twists += (n / R) * (R - 1);
+    p.nbases += n / R;
+  }
+  p.ntw = p.nsplit + twists;
+  return true;
+}
+
+// The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
+// kernel_form), as kernels/frontend.py radices, bluestein_dims,
+// fft_twiddles and bf16_plan lay it out: the Stockham form only where it
+// applies (an even n_fft >= 4 whose half factors into 8s, one 4 or 2, 3s and
+// 5s), the Bluestein form with P the cheapest size >= Q + K - 1 the
+// Stockham stages take (fewest stages, then fewest points), the direct DFT
+// and bf16x3 at any n_fft; the projection's chunk. False when the
+// wrapper's form disagrees, or for n_fft < 2.
+bool plan(Params& p) {
+  const int N = p.n_fft;
+  if (N < 2) return false;
+  p.half = N / 2;
+  p.bins = N / 2 + 1;
+  p.fft_n = p.nstages = 0;
+  p.radices = 0;
+  p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
+  p.kp = p.nbp = p.npass = p.pws = p.stages = 0;
+  p.tile = kTile;
+  p.chunk = ((p.nnz + 31) / 32) | 1;
+  switch (p.form) {
+    case kDirect:
+      p.ntw = N;
+      return true;
+    case kBf16x3:
+      return plan_bf16(p);
+    case kStockham:
+      if (N % 2 != 0 || N < 4) return false;
+      p.nsplit = N / 4 + 1;
+      return plan_stages(p, p.half);
+    case kBluestein: {
+      const bool packed = N % 2 == 0;
+      p.bq = packed ? p.half : N;
+      p.bk = packed ? p.half : p.bins;
+      p.nsplit = packed ? N / 4 + 1 : 0;
+      const int lo = imax(p.bq + p.bk - 1, 2);
+      int best = 0, best_stages = 0;
+      unsigned long long r;
+      for (int n = lo; n <= 2 * lo; ++n) {  // a power of two lies in [lo, 2 lo)
+        const int st = stockham_plan(n, &r);
+        if (st > 0 && (best == 0 || st < best_stages)) {
+          best = n;
+          best_stages = st;
+        }
+      }
+      if (!plan_stages(p, best)) return false;
+      p.chirp = p.ntw;
+      p.filt = p.chirp + p.bq;
+      p.nfilt = packed ? best / 2 + 1 : best;
+      p.ntw = p.filt + p.nfilt;
+      return true;
+    }
+    default:
+      return false;
+  }
 }
 
 bool bad_params(Params& p, int B, const float* melf_w, const int* bases) {
@@ -1276,7 +1634,8 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases) {
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
          (p.feature_kind != kSpectrogram && p.nnz < p.M) ||
          (p.feature_kind == kSsc && melf_w == nullptr) ||
-         (p.form == kStockham && bases == nullptr) || p.center < kNoCenter ||
+         ((p.form == kStockham || p.form == kBluestein) && bases == nullptr) ||
+         p.center < kNoCenter ||
          p.center > kCenterReflect;
 }
 
@@ -1294,11 +1653,14 @@ extern "C" {
 // at least one weight; twiddle [n, 2] float32 and bases int32 as
 // kernels/frontend.py fft_twiddles and stage_bases lay them out for
 // dft_form 0 (Stockham), twiddle [n_fft, 2] of e^{-2 pi i k / n_fft} for
-// 1 (direct), neither for 2 (bf16x3; bases may be null but for 0);
-// dft_hi / dft_lo [kp, 2 nbp] bf16 (dft_form 2 only, else null): the
-// window-folded, scaled DFT's hi and lo parts, rows past min(L, n_fft) and
-// bins past n_fft/2 zero, column block 2j the cosines and 2j + 1 the sines
-// of bins [16j, 16j + 16) (pscale is then unused: the matrix carries it).
+// 1 (direct), and for 3 (Bluestein) the split, the P-point stages' twists
+// and bases, the chirp and the filter spectrum (kernels/frontend.py
+// fft_twiddles, stage_bases), neither for 2 (bf16x3; bases may be null but
+// for 0 and 3); dft_matrix (dft_form 2 only, else null): the window-folded,
+// scaled DFT's hi and lo parts in bf16, in ring order (kernels/frontend.py
+// bf16_matrix: [pass][k16 step][hi | lo][8-column group][K half][column][k],
+// column c of a pass the cosine (even c) or sine (odd c) of bin c/2; pscale
+// is then unused: the matrix carries it).
 // frame_offset is frame 0's first sample and center 0 none / 1 "center" /
 // 2 "center_reflect". dither > 0 adds the contract noise (dither_seed =
 // fmix32(cfg.dither_seed)); conditioning != 0 takes the frame-first branch
@@ -1309,8 +1671,8 @@ extern "C" {
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, const float* window, const float* mel_w,
                          const float* melf_w, const int* mel_off, const int* mel_meta,
-                         const float* twiddle, const int* bases, const void* dft_hi,
-                         const void* dft_lo, int B, int T, int F, int L, int S, int M,
+                         const float* twiddle, const int* bases, const void* dft_matrix,
+                         int B, int T, int F, int L, int S, int M,
                          int n_packed, int n_fft, int dft_form, int frame_offset, int center,
                          float scale, float preemph, float eps, float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
@@ -1321,9 +1683,9 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
            frame_keep0, feature_kind};
   if (bad_params(p, B, melf_w, bases)) return cudaErrorInvalidValue;
   const bool tensor = dft_form == kBf16x3;
-  if (tensor && (dft_hi == nullptr || dft_lo == nullptr)) return cudaErrorInvalidValue;
+  if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
   const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
-               dft_hi, dft_lo, nullptr, B, p, Polyphase{1, 1, 0, 0},
+               dft_matrix, nullptr, B, p, Polyphase{1, 1, 0, 0},
                static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
@@ -1353,7 +1715,7 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
     return cudaErrorInvalidValue;
   }
   const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
-               nullptr, nullptr, taps, B, p, Polyphase{up, down, half_len, K},
+               nullptr, taps, B, p, Polyphase{up, down, half_len, K},
                static_cast<cudaStream_t>(stream)};
   return dispatch<true, false>(Launch{a}, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }

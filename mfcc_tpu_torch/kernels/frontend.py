@@ -1,8 +1,8 @@
 """The fused front-end on Hopper: audio rows → [log-mel | energy] prefix.
 
 Port of `mfcc_tpu/kernels/frontend.py::_make_radix4_kernel` (slab mode, at
-any N2), of `_make_kernel` (the direct DFT) and of the `_stage_dict` prefix
-they feed. One CUDA kernel (`csrc/frontend.cu`, whose header states its
+any N2), of `_make_kernel` (its fp32 and bf16x3 DFT routes) and of the
+`_stage_dict` prefix they feed. One CUDA kernel (`csrc/frontend.cu`, whose header states its
 design and bound) does, per utterance and frame: int16/fp32 convert ×
 input_scale, the dither contract (`ops/dither.py`) when cfg.dither > 0,
 signal pre-emphasis with x[-1] = 0, zeroing at t >= length, framing
@@ -11,7 +11,10 @@ Kaldi frame-first conditioning when the config asks for it (DC removal,
 raw-frame energy, frame pre-emphasis, windowed-frame energy), window, a
 real DFT of n_fft points (`dft_form`: a Stockham FFT of n_fft/2 complex
 points in radices 8, 4, 2, 3 and 5 for every even n_fft whose half factors
-so, powers of two included; a direct DFT otherwise), |X|², then by feature
+so, powers of two included; for every other n_fft a Bluestein FFT, the DFT
+as a chirp-z convolution through a Stockham FFT of a size that factors so;
+a direct DFT only where the Bluestein block is over the block's shared
+memory), |X|², then by feature
 kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
@@ -29,12 +32,13 @@ computes each staged 16 kHz sample from the input rows by the polyphase FIR
 of `csrc/polyphase.cuh`. F = cfg.num_frames(output_length(T)) then.
 
 The reference's `dft_passes` routes (`kernel_form`): "radix4", the
-default, takes the FFT form of `dft_form`; "fp32" the direct DFT at any
-n_fft; "bf16x3" (port of `_make_kernel` :857-867) a fourth form that
-computes the DFT on the tensor cores as three bf16 products against the
-window-folded matrix of `constants.folded_dft` (`bf16_matrix`), an opt-in of
-its own accuracy class that no config takes and the fused-resample form
-lacks.
+default, and "fp32" both take the form of `dft_form` (every one of them
+sums in full fp32; the reference's fp32 route is its own matrix DFT, and
+the port matches outputs, not layouts); "bf16x3" (port of `_make_kernel`
+:857-867) a form that computes the DFT on the tensor cores (wgmma) as three
+bf16 products against the window-folded matrix of `constants.folded_dft`
+(`bf16_matrix`), an opt-in of its own accuracy class that no config takes
+and the fused-resample form lacks.
 
 `logmel_prefix` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
@@ -42,9 +46,9 @@ PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
 `resample_launches` those of the fused resample; `dither_launches`,
 `conditioning_launches`, `plp_launches`, `spectrogram_launches`,
-`ssc_launches`, `centered_launches`, `direct_dft_launches` and
-`bf16x3_launches` count the launches (of either form) that take that
-branch. Set them to 0 to start a count.
+`ssc_launches`, `centered_launches`, `direct_dft_launches`,
+`bluestein_launches` and `bf16x3_launches` count the launches (of either
+form) that take that branch. Set them to 0 to start a count.
 
 `fused_logmel_stages` is the port of the reference's entry of the same
 name: the prefix by a `dft_passes` route, and with `feature_tail=True` the
@@ -71,7 +75,7 @@ TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
 ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
-DFT_FORMS = ("stockham", "direct", "bf16x3")  # csrc/frontend.cu codes
+DFT_FORMS = ("stockham", "direct", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 
 launches = 0
@@ -83,6 +87,7 @@ spectrogram_launches = 0
 ssc_launches = 0
 centered_launches = 0
 direct_dft_launches = 0
+bluestein_launches = 0
 bf16x3_launches = 0
 
 
@@ -147,103 +152,204 @@ def radices(n_fft: int) -> tuple[int, ...] | None:
     return tuple(out) if h == 1 else None
 
 
-def dft_form(n_fft: int) -> str:
-    """The kernel's DFT for n_fft: "stockham" (an FFT of n_fft/2 complex
-    points in radices 8, 4, 2, 3 and 5, powers of two included) or "direct"
-    (every other size, odd ones included)."""
-    return "direct" if radices(n_fft) is None else "stockham"
+@functools.lru_cache(maxsize=None)
+def bluestein_dims(n_fft: int) -> tuple[int, int, int]:
+    """(Q, K, P) of the Bluestein form: it computes the first K outputs of
+    a Q-point DFT as a chirp-z convolution through a P-point Stockham FFT.
+    Even n_fft packs the frame as n_fft/2 complex points (Q = K = n_fft/2,
+    then the real split, as the Stockham form); odd n_fft transforms the
+    n_fft real samples (Q = n_fft, K = n_bins). P is the cheapest size
+    >= Q + K - 1 that the Stockham stages take (`radices(2P)`): fewest
+    stages, then fewest points (404: P = 512 = 8·8·8; 551: 960 = 8·8·3·5)."""
+    if n_fft % 2 == 0:
+        q = k = n_fft // 2
+    else:
+        q, k = n_fft, n_fft // 2 + 1
+    lo = max(q + k - 1, 2)
+    # a power of two lies in [lo, 2 lo), and no size past 2 lo has fewer stages
+    best = min((len(r), n) for n in range(lo, 2 * lo + 1) if (r := radices(2 * n)) is not None)
+    return q, k, best[1]
+
+
+@functools.lru_cache(maxsize=256)
+def dft_form(cfg: FrontendConfig) -> str:
+    """The kernel's DFT form for cfg's n_fft: "stockham" (an FFT of n_fft/2
+    complex points in radices 8, 4, 2, 3 and 5, powers of two included);
+    else "bluestein" (`bluestein_dims`) where its block fits the block's
+    shared memory; else "direct" (sizes whose Bluestein rows do not fit:
+    at classic13 odd n_fft from 685 up, even ones from 1,026 up that the
+    Stockham form does not take)."""
+    if radices(cfg.n_fft) is not None:
+        return "stockham"
+    if _smem(cfg, "bluestein") <= rs_kernel.SMEM_BUDGET_BYTES:
+        return "bluestein"
+    return "direct"
 
 
 def resolve_dft_passes(cfg: FrontendConfig, dft_passes: str = "radix4") -> str:
     """The dft_passes route actually taken (port of the reference's
-    `resolve_dft_passes`): "radix4", the port's FFT form, becomes "fp32",
-    the direct DFT, for an n_fft that the Stockham form does not take."""
+    `resolve_dft_passes`): "radix4" becomes "fp32" for an n_fft that the
+    radix (Stockham) form does not take, as the reference's does."""
     if dft_passes not in chain.DFT_PASSES:
         raise ValueError(f"dft_passes={dft_passes!r} not in {chain.DFT_PASSES}")
-    if dft_passes == "radix4" and dft_form(cfg.n_fft) == "direct":
+    if dft_passes == "radix4" and radices(cfg.n_fft) is None:
         return "fp32"
     return dft_passes
 
 
 def kernel_form(cfg: FrontendConfig, dft_passes: str = "radix4") -> str:
-    """The kernel's DFT form for cfg and a dft_passes route: "radix4" the
-    FFT form of `dft_form`, "fp32" the direct DFT at any n_fft, "bf16x3" the
-    tensor-core form."""
+    """The kernel's DFT form for cfg and a dft_passes route: "radix4" and
+    "fp32" the full-fp32 form of `dft_form`, "bf16x3" the tensor-core
+    form."""
     route = resolve_dft_passes(cfg, dft_passes)
-    return {"radix4": dft_form(cfg.n_fft), "fp32": "direct", "bf16x3": "bf16x3"}[route]
+    return "bf16x3" if route == "bf16x3" else dft_form(cfg)
 
 
-def _stages(n_fft: int):
-    """(radix R, points ns before the stage, butterflies H/R) of each
-    Stockham stage of n_fft."""
+def fft_points(n_fft: int, form: str) -> int:
+    """Points of the form's Stockham FFT: n_fft/2 for "stockham", P of
+    `bluestein_dims` for "bluestein"."""
+    return n_fft // 2 if form == "stockham" else bluestein_dims(n_fft)[2]
+
+
+def _stages(n_fft: int, form: str = "stockham"):
+    """(radix R, points ns before the stage, butterflies n/R) of each stage
+    of the form's n-point Stockham FFT (`fft_points`)."""
+    n = fft_points(n_fft, form)
     ns, out = 1, []
-    for R in radices(n_fft):
-        out.append((R, ns, n_fft // 2 // R))
+    for R in radices(2 * n):
+        out.append((R, ns, n // R))
         ns *= R
     return out
 
 
-def twiddle_count(n_fft: int, form: str | None = None) -> int:
-    """Entries of the kernel's twiddle table for a DFT form (dft_form(n_fft)
-    by default): for the Stockham form the real split's n_fft/4 + 1, then
-    (R - 1) twists for each butterfly of every stage after the first (whose
-    twists are all 1); the whole circle for the direct DFT, which indexes it
-    by (k·n) mod n_fft; none for bf16x3."""
-    form = form or dft_form(n_fft)
-    if form != "stockham":
+def split_count(n_fft: int) -> int:
+    """Twiddles of the real split, e^{-2πik/n_fft} for k <= n_fft/4 (even
+    n_fft; odd n_fft takes no split)."""
+    return n_fft // 4 + 1 if n_fft % 2 == 0 else 0
+
+
+def twiddle_count(n_fft: int, form: str) -> int:
+    """Entries of the kernel's twiddle table for a DFT form: for the
+    Stockham form the real split's n_fft/4 + 1, then (R - 1) twists for each
+    butterfly of every stage after the first (whose twists are all 1); for
+    the Bluestein form the split's (even n_fft), the P-point stages' twists,
+    then the Q chirp values and the filter spectrum (`filter_count`);
+    the whole circle for the direct DFT, which indexes it by (k·n) mod
+    n_fft; none for bf16x3."""
+    if form in ("direct", "bf16x3"):
         return {"direct": n_fft, "bf16x3": 0}[form]
-    return n_fft // 4 + 1 + sum(hr * (R - 1) for R, ns, hr in _stages(n_fft)[1:])
+    twists = sum(hr * (R - 1) for R, ns, hr in _stages(n_fft, form)[1:])
+    if form == "stockham":
+        return split_count(n_fft) + twists
+    q, _, P = bluestein_dims(n_fft)
+    return split_count(n_fft) + twists + q + filter_count(n_fft)
 
 
-def fft_twiddles(n_fft: int, form: str | None = None) -> np.ndarray:
-    """[twiddle_count(n_fft, form), 2] float32 table (cos, -sin), each
-    entry computed in float64 and rounded once. Direct DFT: e^{-2πik/n_fft},
+def filter_count(n_fft: int) -> int:
+    """Entries of the Bluestein filter spectrum the kernel stages: P/2 + 1
+    for even n_fft, whose chirp filter is even (b[P - m] = b[m] for every m,
+    so its spectrum is too, and the kernel reads entry min(n, P - n)), all P
+    for odd n_fft."""
+    P = bluestein_dims(n_fft)[2]
+    return P // 2 + 1 if n_fft % 2 == 0 else P
+
+
+def bluestein_filter(n_fft: int) -> np.ndarray:
+    """The Bluestein form's filter spectrum, complex128 [P]: conj(FFT_P(b))
+    / P for the chirp filter b[m] = e^{+iπ m²/Q}, at m for 0 <= m < K and
+    at P - m for 1 <= m < Q (m² mod 2Q exact in integers), so that the
+    convolution's inverse FFT is the forward FFT of conj(A)·filter."""
+    q, k, P = bluestein_dims(n_fft)
+    m = np.arange(max(q, k), dtype=np.int64)
+    b_m = np.exp(1j * np.pi * ((m * m) % (2 * q)).astype(np.float64) / q)
+    b = np.zeros(P, np.complex128)
+    b[:k] = b_m[:k]
+    b[P - np.arange(1, q)] = b_m[1:q]
+    return np.conj(np.fft.fft(b)) / P
+
+
+def fft_twiddles(n_fft: int, form: str) -> np.ndarray:
+    """[twiddle_count(n_fft, form), 2] float32 table (re, im), each entry
+    computed in float64 and rounded once. Direct DFT: e^{-2πik/n_fft},
     k < n_fft. Stockham: e^{-2πik/n_fft} for k <= n_fft/4 (the real split),
     then per stage s >= 1 of radix R after ns points, at j·(R-1) + r - 1 for
-    butterfly j < H/R and input 1 <= r < R, the twist e^{-2πi·r·k/(ns·R)},
-    k = j mod ns, so the kernel takes no remainder."""
-    form = form or dft_form(n_fft)
-    if form != "stockham":
-        ang = 2.0 * np.pi * np.arange(twiddle_count(n_fft, form), dtype=np.float64) / n_fft
+    butterfly j < n/R and input 1 <= r < R, the twist e^{-2πi·r·k/(ns·R)},
+    k = j mod ns, so the kernel takes no remainder. Bluestein: the split
+    (even n_fft) and the P-point stages' twists laid out so, then the chirp
+    c[n] = e^{-iπ n²/Q} (n < Q, n² mod 2Q exact) and the first
+    `filter_count` entries of `bluestein_filter`."""
+    parts = [2.0 * np.pi * np.arange(split_count(n_fft), dtype=np.float64) / n_fft]
+    if form in ("direct", "bf16x3"):
+        parts = [2.0 * np.pi * np.arange(twiddle_count(n_fft, form), dtype=np.float64) / n_fft]
     else:
-        parts = [2.0 * np.pi * np.arange(n_fft // 4 + 1, dtype=np.float64) / n_fft]
-        for R, ns, hr in _stages(n_fft)[1:]:
+        for R, ns, hr in _stages(n_fft, form)[1:]:
             rk = (np.arange(hr)[:, None] % ns) * np.arange(1, R)[None, :]
             parts.append((2.0 * np.pi * (rk % (ns * R)) / (ns * R)).ravel())
-        ang = np.concatenate(parts)
-    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+    if form == "bluestein":
+        q = bluestein_dims(n_fft)[0]
+        n = np.arange(q, dtype=np.int64)
+        parts.append(np.pi * ((n * n) % (2 * q)).astype(np.float64) / q)
+    ang = np.concatenate(parts)
+    tab = np.stack([np.cos(ang), -np.sin(ang)], axis=-1)
+    if form == "bluestein":
+        filt = bluestein_filter(n_fft)[: filter_count(n_fft)]
+        tab = np.concatenate([tab, np.stack([filt.real, filt.imag], axis=-1)])
+    return tab.astype(np.float32)
 
 
-def stage_bases(n_fft: int) -> np.ndarray:
-    """int32 table of the Stockham stages' output bases, stage after stage:
-    butterfly j < H/R of a stage after ns points writes its R outputs at
-    (j - k)·R + k + r·ns, k = j mod ns; the table holds (j - k)·R + k."""
+def stage_bases(n_fft: int, form: str = "stockham") -> np.ndarray:
+    """int32 table of the form's Stockham stages' output bases, stage after
+    stage: butterfly j < n/R of a stage after ns points writes its R outputs
+    at (j - k)·R + k + r·ns, k = j mod ns; the table holds (j - k)·R + k.
+    Empty for the direct and bf16x3 forms."""
+    if form in ("direct", "bf16x3"):
+        return np.zeros(0, np.int32)
     out = [(np.arange(hr) - np.arange(hr) % ns) * R + np.arange(hr) % ns
-           for R, ns, hr in _stages(n_fft)]
+           for R, ns, hr in _stages(n_fft, form)]
     return np.concatenate(out).astype(np.int32)
 
 
+BF16_STEP = 16  # K of one wgmma step: one k16 slice of the matrix a ring stage
+BF16_PASS_BINS = 136  # bins a pass: two m64n136k16 products over 272 interleaved columns
+BF16_TILES = (64, 32)  # frames a block, the first whose layout fits
+BF16_STAGES = (4, 3, 2)  # ring stages, the first whose layout fits
+
+
 def bf16_dims(cfg: FrontendConfig) -> tuple[int, int]:
-    """(kp, nbp) of the bf16x3 form: min(frame_length, n_fft) and n_bins,
-    each rounded up to the tensor cores' 16."""
-    return -(-min(cfg.frame_length, cfg.n_fft) // 16) * 16, -(-cfg.n_bins // 16) * 16
+    """(kp, nbp) of the bf16x3 form: min(frame_length, n_fft) rounded up to
+    the wgmma step's 16, and n_bins rounded up to whole passes of 136 bins."""
+    kp = -(-min(cfg.frame_length, cfg.n_fft) // BF16_STEP) * BF16_STEP
+    return kp, -(-cfg.n_bins // BF16_PASS_BINS) * BF16_PASS_BINS
 
 
-def bf16_matrix(cfg: FrontendConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16x3 form's matrices (csrc/frontend.cu dft_hi / dft_lo): the
-    hi and lo parts of `constants.folded_dft`, [kp, 2·nbp] bfloat16, rows
-    past min(L, n_fft) and bins past n_bins zero, column block 2j the
-    cosines and 2j + 1 the sines of bins [16j, 16j + 16)."""
+def bf16_power_stride(cfg: FrontendConfig) -> int:
+    """Floats of a power row of the bf16x3 form: n_bins rounded up to 32,
+    plus 4, so the 8 frames a wgmma fragment stores to fall in 8 bank groups."""
+    return (cfg.n_bins + 31) // 32 * 32 + 4
+
+
+def bf16_matrix(cfg: FrontendConfig) -> torch.Tensor:
+    """The bf16x3 form's matrix (csrc/frontend.cu dft_matrix), one bf16
+    tensor in the order the ring's bulk copies and wgmma's shared-memory
+    descriptors read it: [pass][k16 step][hi | lo][8-column group (34)]
+    [K half (2)][column (8)][k (8)], so each (pass, step) is one contiguous
+    17,408-byte chunk of K-major core matrices (8 columns x 16 bytes).
+    Column c of pass p is bin p·136 + c/2, its cosine for even c and its sine
+    for odd c (re and im of a bin in adjacent columns); hi and lo are the
+    `bf16_split` parts of `constants.folded_dft`, rows past min(L, n_fft)
+    and bins past n_bins zero."""
     k = constants.folded_dft(cfg)
     kp, nbp = bf16_dims(cfg)
     le, nb = k["dft"].shape[0], cfg.n_bins
+    steps, passes, groups = kp // BF16_STEP, nbp // BF16_PASS_BINS, 2 * BF16_PASS_BINS // 8
     out = []
     for part in (k["dft_hi"], k["dft_lo"]):
-        m = np.zeros((kp, 2, nbp), np.float32)  # [row, cos | sin, bin]
-        m[:le, 0, :nb], m[:le, 1, :nb] = part[:, :nb], part[:, nb:]
-        m = m.reshape(kp, 2, nbp // 16, 16).transpose(0, 2, 1, 3).reshape(kp, 2 * nbp)
-        out.append(torch.from_numpy(np.ascontiguousarray(m)).to(torch.bfloat16))
-    return out[0], out[1]
+        m = np.zeros((kp, nbp, 2), np.float32)  # [k, bin, cos | sin]
+        m[:le, :nb, 0], m[:le, :nb, 1] = part[:, :nb], part[:, nb:]
+        m = m.reshape(steps, 2, 8, passes, groups, 8)  # [step, half, k, pass, group, column]
+        out.append(m.transpose(3, 0, 4, 1, 5, 2))  # [pass, step, group, half, column, k]
+    m = np.stack(out, axis=2)  # [pass, step, hi | lo, group, half, column, k]
+    return torch.from_numpy(np.ascontiguousarray(m).reshape(-1)).to(torch.bfloat16)
 
 
 def mel_bands(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -319,14 +425,13 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
 
 @functools.lru_cache(maxsize=16)
 def _device_fft_tables(n_fft: int, form: str, device: torch.device):
-    bases = stage_bases(n_fft) if form == "stockham" else np.zeros(0, np.int32)
     return (torch.as_tensor(fft_twiddles(n_fft, form), device=device),
-            torch.as_tensor(bases, device=device))
+            torch.as_tensor(stage_bases(n_fft, form), device=device))
 
 
 @functools.lru_cache(maxsize=16)
 def _device_bf16_matrix(cfg: FrontendConfig, device: torch.device):
-    return tuple(m.to(device).contiguous() for m in bf16_matrix(cfg))
+    return bf16_matrix(cfg).to(device).contiguous()
 
 
 def packed_count(cfg: FrontendConfig) -> int:
@@ -335,52 +440,93 @@ def packed_count(cfg: FrontendConfig) -> int:
 
 
 def row_floats(n_fft: int, form: str) -> int:
-    """Floats of each of a warp's two rows: for the Stockham form H + H/8 + 1
-    float2, the stages' rows with a float2 of padding after every 8 (H =
-    n_fft/2), whose free row then takes the n_fft/2 + 1 powers; for the
-    direct DFT the packed frame and the powers."""
-    if form == "stockham":
-        h = n_fft // 2
+    """Floats of each of a warp's two rows: for the Stockham and Bluestein
+    forms n + n/8 + 1 float2 (n = `fft_points`), the stages' rows with a
+    float2 of padding after every 8, whose free row then takes the n_fft/2
+    + 1 powers; for the direct DFT the packed frame and the powers."""
+    if form in ("stockham", "bluestein"):
+        h = fft_points(n_fft, form)
         return (2 * (h + h // 8 + 1) + 3) & ~3
     return (max(n_fft, n_fft // 2 + 1) + 3) & ~3
+
+
+def _a4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int, xs: int) -> int:
+    """Floats of the bf16x3 layout after the shared head (signal, window,
+    packed bands) at `tile` frames and `stages` ring stages: the ring at a
+    128-byte boundary, its mbarriers, the power rows, the frame energies and
+    means, the per-warp projection scratch, and the dither's x row."""
+    kp, nbp = bf16_dims(cfg)
+    part = _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
+    ring = stages * 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # hi and lo, bf16 in floats
+    n = ((head + 31) & ~31) + ring + _a4(4 * stages)
+    return n + tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part + xs
+
+
+def _span(cfg: FrontendConfig, tile: int) -> int:
+    return (tile - 1) * cfg.frame_step + cfg.frame_length
+
+
+def _head(cfg: FrontendConfig, tile: int, in_len: int = 0) -> int:
+    """Floats of the layout's head: the signal row (or the fused resample's
+    input window), the window and the packed mel bands."""
+    tables = mel_matrices(cfg)
+    return (_a4(max(_span(cfg, tile), in_len)) + _a4(max(cfg.frame_length, cfg.n_fft))
+            + (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0))
+
+
+@functools.lru_cache(maxsize=64)
+def bf16_plan(cfg: FrontendConfig) -> tuple[int, int]:
+    """(frames a block, ring stages) of the bf16x3 form: the first of 64 or
+    32 frames (a wgmma's 64 rows; at 32 the upper 32 are zero) and 4, 3 or
+    2 stages whose layout fits the block, else the smallest (refused by
+    `layout_reason`)."""
+    xs_of = (lambda tile: _a4(_span(cfg, tile) + 1)) if cfg.dither > 0.0 else (lambda tile: 0)
+    plans = [(t, s) for t in BF16_TILES for s in BF16_STAGES]
+    for tile, stages in plans:
+        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), xs_of(tile)) <= rs_kernel.SMEM_BUDGET_BYTES:
+            return tile, stages
+    return plans[-1]
+
+
+def _smem(cfg: FrontendConfig, form: str) -> int:
+    """Shared memory per block of cfg's layout in a given DFT form
+    (csrc/frontend.cu layout)."""
+    N, M = cfg.n_fft, cfg.n_mels
+    in_len = taps = 0
+    if chain.resamples(cfg):
+        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+        in_len = rs_kernel.input_span(_span(cfg, TILE) + 1, d)
+        taps = d["up"] * d["K"]
+    if form == "bf16x3":
+        tile, stages = bf16_plan(cfg)
+        xs = _a4(_span(cfg, tile) + 1) if cfg.dither > 0.0 else 0
+        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), xs)
+    xs = _a4(_span(cfg, TILE) + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
+    n = (_head(cfg, TILE, in_len) + _a4(2 * twiddle_count(N, form))
+         + _a4(len(stage_bases(N, form))))
+    part = _a4(mel_matrices(cfg) * (32 + M))
+    n += WARPS * (2 * row_floats(N, form) + part)
+    return 4 * (n + xs + _a4(taps))
 
 
 @functools.lru_cache(maxsize=64)
 def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4") -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout), cached:
-    every launch checks it (`layout_reason`). The
-    signal row (or the fused resample's input window, whichever is longer),
-    window, the packed mel bands (weights, and for SSC the melf weights;
-    the filter offsets and `packed_meta`; none for a spectrogram), twiddles
-    and the Stockham stages' output bases, then per warp two rows
+    every launch checks it (`layout_reason`). The signal row (or the fused
+    resample's input window, whichever is longer), window, the packed mel
+    bands (weights, and for SSC the melf weights; the filter offsets and
+    `packed_meta`; none for a spectrogram), then for the FFT and direct
+    forms the twiddles and the stages' output bases, per warp two rows
     (`row_floats`) and the projection's scratch (32 lane partials and M
-    filter sums, twice for SSC, none for a spectrogram), or for bf16x3 at a
-    32-byte boundary the tile's frames as bf16 hi and lo, its power rows and
-    frame energies and then the per-warp scratch; the staged x row of the
-    fused resample and of dither, and the resample's tap table."""
-    def a4(n):
-        return (n + 3) & ~3
-
-    N, form, M = cfg.n_fft, kernel_form(cfg, dft_passes), cfg.n_mels
-    span = (TILE - 1) * cfg.frame_step + cfg.frame_length
-    in_len = taps = 0
-    xs = a4(span + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
-    if chain.resamples(cfg):
-        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
-        in_len = rs_kernel.input_span(span + 1, d)
-        taps = d["up"] * d["K"]
-    tables = mel_matrices(cfg)
-    n = (a4(max(span, in_len)) + a4(max(cfg.frame_length, N))
-         + (tables + bool(tables)) * a4(packed_count(cfg)) + (a4(M + 1) if tables else 0)
-         + a4(2 * twiddle_count(N, form))
-         + a4(len(stage_bases(N)) if form == "stockham" else 0))
-    part = a4(tables * (32 + M))
-    if form == "bf16x3":
-        kp, nbp = bf16_dims(cfg)
-        n = ((n + 7) & ~7) + TILE * kp + TILE * nbp + TILE + WARPS * part
-    else:
-        n += WARPS * (2 * row_floats(N, form) + part)
-    return 4 * (n + xs + a4(taps))
+    filter sums, twice for SSC, none for a spectrogram); for bf16x3 the
+    ring, its barriers, the tile's power rows, energies and means, and the
+    per-warp scratch (`bf16_plan`); then the staged x row of the fused
+    resample and of dither, and the resample's tap table."""
+    return _smem(cfg, kernel_form(cfg, dft_passes))
 
 
 def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None:
@@ -408,7 +554,7 @@ def _lib() -> ctypes.CDLL:
     ]
     lib.mfcc_frontend_logmel.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
-        p, p,  # dft_hi, dft_lo (bf16x3)
+        p,  # dft_matrix (bf16x3)
         i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
         i, i, i, i,  # n_fft, dft_form, frame_offset, center
         f, f, f, f,  # scale, preemph, eps, pscale
@@ -458,17 +604,17 @@ def logmel_prefix(
     float32 (lanes [0:M] log-mel, lane M the clamped energy; other feature
     kinds as in `logmel_prefix_reference`). For resampling configs T and
     lengths count input samples and F frames of the resampled signal.
-    `dft_passes` picks the DFT route (`kernel_form`): "radix4" (the FFT
-    forms, the default), "fp32" (the direct DFT) or "bf16x3" (three bf16
-    tensor-core products, an opt-in of its own accuracy class, not in the
-    fused-resample form).
+    `dft_passes` picks the DFT route (`kernel_form`): "radix4" (the
+    default) and "fp32" (the full-fp32 form of `dft_form`), or "bf16x3"
+    (three bf16 tensor-core products, an opt-in of its own accuracy class,
+    not in the fused-resample form).
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
     window and mel matrix (a chain-constants dict)."""
     global launches, resample_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
-    global centered_launches, direct_dft_launches, bf16x3_launches
+    global centered_launches, direct_dft_launches, bluestein_launches, bf16x3_launches
     form = kernel_form(cfg, dft_passes)
     if form == "bf16x3" and chain.resamples(cfg):
         raise NotImplementedError(
@@ -524,9 +670,7 @@ def logmel_prefix(
         out.data_ptr(), k["window"].data_ptr(), k["mel_w"].data_ptr(), k["melf_w"].data_ptr(),
         k["mel_off"].data_ptr(), k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
     )
-    dft_hi = dft_lo = None
-    if form == "bf16x3":
-        dft_hi, dft_lo = (m.data_ptr() for m in _device_bf16_matrix(cfg, audio.device))
+    dft_matrix = _device_bf16_matrix(cfg, audio.device).data_ptr() if form == "bf16x3" else None
     dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, k["mel_w"].numel(), cfg.n_fft,
             DFT_FORMS.index(form))
     frame_mode = cfg.preemph_mode == "frame"
@@ -555,7 +699,7 @@ def logmel_prefix(
             )
         else:
             rc = lib.mfcc_frontend_logmel(
-                *head, dft_hi, dft_lo, *dims, chain.frame_offset(cfg),
+                *head, dft_matrix, *dims, chain.frame_offset(cfg),
                 CENTER_CODES.get(cfg.frame_tail, 0),
                 cfg.input_scale, *tail, *branches, stream,
             )
@@ -575,6 +719,7 @@ def logmel_prefix(
     ssc_launches += int(kind == "ssc")
     centered_launches += int(chain.centered(cfg))
     direct_dft_launches += int(form == "direct")
+    bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
     return out
 

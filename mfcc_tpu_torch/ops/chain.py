@@ -89,14 +89,20 @@ def needs_conditioning(cfg: FrontendConfig) -> bool:
 
 
 def matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b for the chain's products, at full fp32 accuracy on the card
-    whatever the caller's TF32 setting: a CUDA float32 product is computed
-    in float64 and rounded back, so neither TF32 nor the process-wide float32
-    matmul precision applies and no global state is read or written (a
-    training thread beside an extracting one keeps its setting). TF32 keeps
-    ~3 decimal digits, too few for the 5e-4 cepstra gate. Other products
-    are plain matmuls."""
-    if a.is_cuda and a.dtype == torch.float32:
+    """a @ b for the chain's products. A float32 product, on any device, is
+    computed in float64 and rounded back:
+    - on the card, whatever the caller's TF32 setting: neither TF32 nor the
+      process-wide float32 matmul precision applies and no global state is
+      read or written (a training thread beside an extracting one keeps its
+      setting). TF32 keeps ~3 decimal digits, too few for the 5e-4 cepstra
+      gate;
+    - on the CPU, a row's result does not depend on where it sits in the
+      batch: multi-threaded float32 sgemm splits its work by the batch's
+      shape and gives a row ulps apart from the same row alone, while the
+      float64 sums (exact products of float32 inputs) round back to the
+      same float32.
+    Other products are plain matmuls."""
+    if a.dtype == torch.float32:
         return torch.matmul(a.double(), b.double()).float()
     return torch.matmul(a, b)
 

@@ -11,12 +11,15 @@ cut before the projection (P2: each frame writes its first power bins, so
 staging, the DFT and the split still run). Times each with the profiler's
 device time of the kernel, L2 flushed before every launch, in turns
 (P1, P2, P0, P0, P2, P1), at classic13_deltas b64 x 10 s, logmel80 b256 x
-10 s and whisper80 b64 x 30 s int16, and prints the registers (ptxas) and
+10 s and whisper80 b64 x 30 s int16, and at classic13 b64 x 10 s through
+the bf16x3 form (there P2 - P1 is the tensor-core product and its |X|^2
+stores), and prints the registers (ptxas) and
 the blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
 int16 plain instantiation, and the opcode counts of that instantiation's
-SASS (cuobjdump, static counts), beside the card's name and power limit. The
-differences P1, P2 - P1 and P0 - P2 are staging, DFT and split, and the
-projection with its epilogue. Imports nothing of JAX.
+SASS and of the bf16x3 one's (cuobjdump, static counts), beside the card's
+name and power limit. The differences P1, P2 - P1 and P0 - P2 are staging,
+DFT and split, and the projection with its epilogue. Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +38,11 @@ import numpy as np
 STAGED = "  __syncthreads();\n\n  const int warp = threadIdx.x >> 5;"
 CUT_STAGED = """  __syncthreads();
 #if CUT == 1
+  if constexpr (kBf16) {  // the ring's first copies land before the block leaves
+    if (dft && threadIdx.x == kProducer) {
+      for (int c = 0; c < imin(p.stages, p.npass * (p.kp / kBfStep)); ++c) mbar_wait(full + c, 0);
+    }
+  }
   for (int fl = threadIdx.x >> 5; fl < kTile && f0 + fl < F; fl += kWarps) {
     const int ln = threadIdx.x & 31;
     if (ln <= M) out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + ln] = sig[fl * S + ln];
@@ -61,7 +69,9 @@ extern "C" int frontend_breakdown_blocks(int smem) {
   return n;
 }
 """
-PATHS = (("classic13_deltas", 64, 10), ("logmel80", 256, 10), ("whisper80", 64, 30))
+PATHS = (("classic13_deltas", 64, 10, "radix4"), ("logmel80", 256, 10, "radix4"),
+         ("whisper80", 64, 30, "radix4"), ("classic13", 64, 10, "bf16x3"))
+PLAIN, BF16X3 = "logmel_kernelIsLb0ELb0ELb0ELb0E", "logmel_kernelIsLb0ELb0ELb0ELb1E"  # int16 instantiations
 
 
 def variants(src: str) -> dict[int, str]:
@@ -85,26 +95,39 @@ def build(nvcc: str, flags, csrc: pathlib.Path, out: pathlib.Path, cut: int, tex
     return out, int(regs.group(1)) if regs else -1
 
 
-def sass_counts(so: pathlib.Path, nvcc: str) -> str:
-    """Static SASS opcode counts of the int16 plain instantiation in `so`."""
+def sass_opcodes(so: pathlib.Path, nvcc: str, kernel: str = PLAIN) -> dict[str, int]:
+    """Static SASS opcode counts of one instantiation in `so` (its mangled
+    name holds `kernel`), by cuobjdump; empty when it is not there."""
     tool = pathlib.Path(nvcc).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
     for fn in re.split(r"\n\s*Function : ", dump):
-        if "logmel_kernelIsLb0ELb0ELb0ELb0E" in fn.split("\n", 1)[0]:
+        if kernel in fn.split("\n", 1)[0]:
             ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)
-            top = sorted({o: ops.count(o) for o in set(ops)}.items(), key=lambda kv: -kv[1])[:12]
-            return f"{len(ops)} instructions: " + ", ".join(f"{o} {n}" for o, n in top)
-    return "not found"
+            return {o: ops.count(o) for o in set(ops)}
+    return {}
 
 
-def device_ms(torch, fn, sessions: int = 3) -> float:
+def sass_counts(so: pathlib.Path, nvcc: str, kernel: str = PLAIN) -> str:
+    """The total and the 12 commonest opcodes of `sass_opcodes`."""
+    ops = sass_opcodes(so, nvcc, kernel)
+    if not ops:
+        return "not found"
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:12]
+    return f"{sum(ops.values())} instructions: " + ", ".join(f"{o} {n}" for o, n in top)
+
+
+def device_ms(torch, fn, sessions: int = 3, tries: int = 8) -> float:
+    """Median over `sessions` profiler sessions of the kernel's mean device
+    time in five launches, L2 flushed before each; a session that lost
+    records is taken again, up to `tries` sessions in all. Without a whole
+    session, CUDA events around the five launches (flush included) stand in."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
     times = []
-    for _ in range(sessions):
+    for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -113,9 +136,69 @@ def device_ms(torch, fn, sessions: int = 3) -> float:
             torch.cuda.synchronize()
         ev = [e.self_device_time_total for e in prof.events()
               if e.device_type.name == "CUDA" and "logmel_kernel" in e.name]
-        if len(ev) == 5:  # a session that lost records is left out
+        if len(ev) == 5:
             times.append(np.mean(ev) / 1e3)
-    return float(np.median(times)) if times else float("nan")
+            if len(times) == sessions:
+                break
+    if times:
+        return float(np.median(times))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        flush.zero_()
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    print("  (the profiler lost records in every session: CUDA events, the flushes included)")
+    return start.elapsed_time(end) / 5
+
+
+def build_cuts(csrc: pathlib.Path, out: pathlib.Path) -> dict:
+    """The three cuts of csrc/frontend.cu, built in parallel into the
+    directory `out`: (path, registers of the int16 plain instantiation) by
+    cut."""
+    from mfcc_tpu_torch.kernels import _build
+
+    texts = variants((csrc / "frontend.cu").read_text())
+    out.mkdir(parents=True, exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        return dict(zip(texts, pool.map(
+            lambda c: build(_build.nvcc(), _build.NVCC_FLAGS, csrc, out / f"cut{c}.so", c, texts[c]),
+            texts)))
+
+
+def bind_cuts(built: dict, whole) -> dict:
+    """The built cuts loaded and bound as the checkout's own library `whole`
+    is, by cut."""
+    libs = {}
+    for cut, (path, _) in built.items():
+        lib = ctypes.CDLL(str(path))
+        for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample",
+                     "mfcc_frontend_error_string"):
+            getattr(lib, name).argtypes = getattr(whole, name).argtypes
+            getattr(lib, name).restype = getattr(whole, name).restype
+        lib.frontend_breakdown_blocks.argtypes = [ctypes.c_int]
+        libs[cut] = lib
+    return libs
+
+
+def time_cuts(torch, frontend, libs, cfg, audio, lengths, dft_passes: str = "radix4",
+              timer=None) -> dict:
+    """Device ms of the kernel with each cut's library in place of the
+    checkout's own, in turns (P1, P2, P0, P0, P2, P1), by `timer` (default
+    `device_ms`; a caller that has its own profiler sessions passes its
+    own); the wrapper's own library is put back after."""
+    timer = timer or (lambda fn: device_ms(torch, fn))
+    own = frontend._lib
+    ms = {0: [], 1: [], 2: []}
+    try:
+        for cut in (1, 2, 0, 0, 2, 1):
+            frontend._lib = lambda cut=cut: libs[cut]
+            ms[cut].append(timer(lambda: frontend.logmel_prefix(
+                audio, lengths, cfg, dft_passes=dft_passes)))
+    finally:
+        frontend._lib = own
+    return ms
 
 
 def main() -> int:
@@ -135,26 +218,15 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     csrc = root / "mfcc_tpu_torch" / "kernels" / "csrc"
-    texts = variants((csrc / "frontend.cu").read_text())
-    whole = frontend._lib()  # the checkout's own build and binding
     with tempfile.TemporaryDirectory() as tmp:
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            built = dict(zip(texts, pool.map(
-                lambda c: build(_build.nvcc(), _build.NVCC_FLAGS, csrc,
-                                pathlib.Path(tmp) / f"cut{c}.so", c, texts[c]), texts)))
-        libs = {}
-        for cut, (path, _) in built.items():
-            lib = ctypes.CDLL(str(path))
-            for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample",
-                         "mfcc_frontend_error_string"):
-                getattr(lib, name).argtypes = getattr(whole, name).argtypes
-                getattr(lib, name).restype = getattr(whole, name).restype
-            lib.frontend_breakdown_blocks.argtypes = [ctypes.c_int]
-            libs[cut] = lib
+        built = build_cuts(csrc, pathlib.Path(tmp))
+        libs = bind_cuts(built, frontend._lib())
         print(f"{root}: registers (int16 plain instantiation) P0 {built[0][1]}, P1 {built[1][1]}, "
               f"P2 {built[2][1]} [{card}]")
         print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
-        for name, B, secs in PATHS:
+        print(f"  SASS of P0's int16 bf16x3 instantiation: "
+              f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
+        for name, B, secs, passes in PATHS:
             cfg = named_config(name)
             n = cfg.sample_rate * secs
             g = np.random.default_rng(0)
@@ -167,17 +239,16 @@ def main() -> int:
                 batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
                 audio = torch.as_tensor(batch.audio, device="cuda")
                 lengths = torch.as_tensor(batch.lengths, device="cuda")
-            smem = frontend.smem_bytes(cfg)
-            ms = {0: [], 1: [], 2: []}
-            for cut in (1, 2, 0, 0, 2, 1):
-                frontend._lib = lambda cut=cut: libs[cut]
-                ms[cut].append(device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg)))
-            frontend._lib = lambda: whole
+            smem = frontend.smem_bytes(cfg, passes)
+            ms = time_cuts(torch, frontend, libs, cfg, audio, lengths, passes)
             p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
-            print(f"  {name} b{B} x {secs} s: P1 staging {p1:.4f} ms, P2 +DFT and split {p2:.4f}, "
+            blocks = (frontend.kernel_info(cfg, True, passes)["blocks_per_sm"] if passes == "bf16x3"
+                      else libs[0].frontend_breakdown_blocks(smem))
+            dft = "tensor-core product" if passes == "bf16x3" else "DFT and split"
+            print(f"  {name} {passes} b{B} x {secs} s: P1 staging {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
                   f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); staging {p1:.4f}, "
-                  f"DFT and split {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
-                  f"{libs[0].frontend_breakdown_blocks(smem)} blocks an SM [{card}]")
+                  f"{dft} {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
+                  f"{blocks} blocks an SM [{card}]")
             del audio, lengths
     return 0
 

@@ -6,12 +6,14 @@ the front-end wrapper takes its plain version (`chain.bf16x3_power` inside
 `logmel_stages`), so these tests hold:
   - the port's matrix and split (`constants.folded_dft`, `bf16_split`)
     against `kernel_constants` / `_bf16_split_np`, bitwise, and the kernel's
-    interleaved [kp, 2·nbp] layout (`frontend.bf16_matrix`) against them;
+    ring-ordered layout (`frontend.bf16_matrix`: K-major core matrices of
+    wgmma, cosine and sine of a bin in adjacent columns), un-permuted,
+    against them;
   - a numpy mirror of the kernel's tile product (frames split to bf16 with
-    round to nearest even, the interleaved matrices, |X|² from each
-    cosine/sine block pair) against `chain.bf16x3_power`: 1e-6 of the row's
-    max power (the products are exact; only the order of the fp32 sums
-    differs);
+    round to nearest even, the un-permuted matrices, the sums step after
+    step over k16 slices as ah·Wh, al·Wh, ah·Wl, |X|² from each cosine/sine
+    column pair) against `chain.bf16x3_power`: 1e-6 of the row's max power
+    (the products are exact; only the order of the fp32 sums differs);
   - the plain bf16x3 prefix against the JAX package's
     `fused_logmel_stages(dft_passes="bf16x3", interpret=True)` on loud bins
     (within 40 dB of the row max): 2e-4 in natural-log units. Measured on
@@ -90,13 +92,11 @@ def test_matrix_and_split_match_kernel_constants_bitwise(case):
         want = np.asarray(theirs[ref]).astype(np.float32)
         np.testing.assert_array_equal(ours[mine], want[:le, : 2 * nb])
         assert not want[le:].any() and not want[:, 2 * nb:].any()  # the rest of the TPU layout is 0
-    hi, lo = (m.float().numpy() for m in frontend.bf16_matrix(tcfg))
+    hi, lo = _unpermute(frontend.bf16_matrix(tcfg), tcfg)
     kp, nbp = frontend.bf16_dims(tcfg)
-    assert hi.shape == (kp, 2 * nbp) and kp % 16 == 0 and nbp % 16 == 0
+    assert hi.shape == (kp, 2 * nbp) and kp % 16 == 0 and nbp % 136 == 0
     for m, part in ((hi, ours["dft_hi"]), (lo, ours["dft_lo"])):
-        blocks = m.reshape(kp, nbp // 16, 2, 16)
-        cos = blocks[:, :, 0].reshape(kp, nbp)
-        sin = blocks[:, :, 1].reshape(kp, nbp)
+        cos, sin = m[:, 0::2], m[:, 1::2]
         np.testing.assert_array_equal(cos[:le, :nb], part[:, :nb])
         np.testing.assert_array_equal(sin[:le, :nb], part[:, nb:])
         assert not cos[le:].any() and not cos[:, nb:].any() and not sin[:, nb:].any()
@@ -115,22 +115,39 @@ def test_split_matches_the_reference_bitwise():
     assert hi.dtype == np.float32 and (hi.astype(ml_dtypes.bfloat16).astype(np.float32) == hi).all()
 
 
+def _unpermute(mat, cfg):
+    """`frontend.bf16_matrix`'s ring order [pass][k16 step][hi | lo][8-column
+    group][K half][column][k] back to the hi and lo matrices [kp, 2·nbp],
+    column 2b the cosine and 2b + 1 the sine of bin b."""
+    kp, nbp = frontend.bf16_dims(cfg)
+    steps, passes = kp // 16, nbp // 136
+    assert mat.dtype == torch.bfloat16 and mat.numel() == 2 * kp * 2 * nbp
+    m = mat.float().numpy().reshape(passes, steps, 2, 34, 2, 8, 8)
+    m = m.transpose(2, 1, 4, 6, 0, 3, 5).reshape(2, kp, 2 * nbp)
+    return m[0], m[1]
+
+
 def _emulate_tile_power(frames, cfg):
     """The kernel's bf16x3 DFT in numpy: each frame's first min(L, n_fft)
     samples, zero to kp, as bf16 hi = rn(g) and lo = rn(g - hi); the
-    interleaved matrices; re and im of each 16-bin block from its cosine and
-    sine column blocks (ah·Wh + al·Wh + ah·Wl, fp32 sums); re² + im²."""
+    un-permuted ring matrices; the fp32 accumulator summed step after step
+    over k16 slices, ah·Wh, then al·Wh, then ah·Wl, as the three wgmma
+    products of a ring stage; re and im of each bin from its adjacent
+    cosine and sine columns; re² + im²."""
     kp, nbp = frontend.bf16_dims(cfg)
-    hi_m, lo_m = (m.float().numpy() for m in frontend.bf16_matrix(cfg))
+    hi_m, lo_m = _unpermute(frontend.bf16_matrix(cfg), cfg)
     x = np.zeros(frames.shape[:-1] + (kp,), np.float32)
     le = min(cfg.frame_length, cfg.n_fft)
     x[..., :le] = frames[..., :le]
     ah = x.astype(ml_dtypes.bfloat16).astype(np.float32)
     al = (x - ah).astype(ml_dtypes.bfloat16).astype(np.float32)
-    y = ah @ hi_m + al @ hi_m + ah @ lo_m  # [..., 2·nbp]
-    blocks = y.reshape(y.shape[:-1] + (nbp // 16, 2, 16))
-    re = blocks[..., 0, :].reshape(y.shape[:-1] + (nbp,))
-    im = blocks[..., 1, :].reshape(y.shape[:-1] + (nbp,))
+    y = np.zeros(frames.shape[:-1] + (2 * nbp,), np.float32)
+    for k in range(0, kp, 16):
+        ks = slice(k, k + 16)
+        y = y + ah[..., ks] @ hi_m[ks]
+        y = y + al[..., ks] @ hi_m[ks]
+        y = y + ah[..., ks] @ lo_m[ks]
+    re, im = y[..., 0::2], y[..., 1::2]
     return (re * re + im * im)[..., : cfg.n_bins]
 
 
@@ -181,17 +198,36 @@ def test_dft_passes_validation_and_routing():
     assert frontend.resolve_dft_passes(cfg.replace(n_fft=404), "bf16x3") == "bf16x3"
     assert frontend.kernel_form(cfg) == "stockham"
     assert frontend.kernel_form(T_CONFIGS["whisper80"]) == "stockham"
-    assert frontend.kernel_form(cfg, "fp32") == "direct"
+    assert frontend.kernel_form(cfg, "fp32") == "stockham"
+    assert frontend.kernel_form(cfg.replace(n_fft=404), "fp32") == "bluestein"
     assert frontend.kernel_form(cfg, "bf16x3") == "bf16x3"
     assert frontend.twiddle_count(512, "direct") == 512 and frontend.twiddle_count(512, "bf16x3") == 0
-    # the bf16x3 layout: no twiddles or per-warp rows; the tile's frames, powers
-    # and energies, the projection's scratch (115,360 B at classic13, two
-    # blocks an SM); n_fft 4096's power rows alone are over the block
-    assert frontend.smem_bytes(cfg, "bf16x3") == 115360
+    # the bf16x3 layout: no twiddles or per-warp rows; 64 frames' signal span,
+    # a ring of four 17,408-byte matrix stages and its mbarriers, the tile's
+    # power rows (stride 292), energies and means, the projection's scratch
+    # (194,752 B at classic13, one block an SM); n_fft 4096's power rows
+    # alone are over the block
+    assert frontend.bf16_plan(cfg) == (64, 4) and frontend.bf16_power_stride(cfg) == 292
+    assert frontend.bf16_dims(cfg) == (400, 272)
+    assert frontend.smem_bytes(cfg, "bf16x3") == 194752
     assert frontend.layout_reason(cfg, "bf16x3") is None
     assert "232,448" in frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3")
     with pytest.raises(ValueError, match="not in"):
         tchain.logmel_stages(x, n, cfg, dft_passes="bf16x6")
+
+
+def test_bf16x3_layout_takes_every_n_fft_the_parent_took():
+    """`bf16_plan` takes 32 frames a block (the wgmma's upper 32 rows zero)
+    and fewer ring stages where 64 frames' power rows do not fit, so every
+    n_fft up to 2,079 at classic13 (1,791 at kaldi_mfcc with dither 1.0),
+    the limits of the wmma form before it, still fits the block."""
+    for name, over, top in (("classic13", {}, 2079), ("kaldi_mfcc", {"dither": 1.0}, 1791)):
+        cfg = T_CONFIGS[name].replace(**over)
+        for n in range(16, top + 1, 7):
+            assert frontend.layout_reason(cfg.replace(n_fft=n), "bf16x3") is None, (name, n)
+        assert frontend.layout_reason(cfg.replace(n_fft=top), "bf16x3") is None
+    assert frontend.bf16_plan(T_CONFIGS["classic13"].replace(n_fft=1024)) == (64, 2)
+    assert frontend.bf16_plan(T_CONFIGS["classic13"].replace(n_fft=2048))[0] == 32
 
 
 @pytest.mark.parametrize("name", ["mfcc39_48k", "mfcc39_44k"])

@@ -276,10 +276,11 @@ def test_kaldi_center_with_dither_matches_jnp_chain():
 
 
 def test_direct_dft_prefix_matches_pallas_fp32():
-    """classic13 at n_fft = 404 (404/2 = 2·101: the direct DFT) ≡ the
-    Pallas kernel's fp32 direct-DFT route, `_make_kernel`."""
+    """classic13 at n_fft = 404 (404/2 = 2·101: no Stockham plan; the
+    kernel takes the Bluestein form, which replaced the direct DFT at this
+    size) ≡ the Pallas kernel's fp32 direct-DFT route, `_make_kernel`."""
     tcfg, jcfg = T_CONFIGS["classic13"].replace(n_fft=404), J_CONFIGS["classic13"].replace(n_fft=404)
-    assert frontend.dft_form(404) == "direct"
+    assert frontend.dft_form(tcfg) == "bluestein" and frontend.resolve_dft_passes(tcfg) == "fp32"
     sigs = golden_signals()
     utts = [sigs[n] for n in ("noise", "speechish", "short", "tone_offbin")]
     b = jpipeline.pad_batch(utts, jcfg, bucket_len=max(u.shape[0] for u in utts))

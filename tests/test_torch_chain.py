@@ -117,6 +117,25 @@ def test_masking_invariance(config_name):
         np.testing.assert_array_equal(feat[i, fv:].numpy(), 0.0)
 
 
+@pytest.mark.parametrize("config_name", ["classic13", "classic13_deltas", "ssc26"])
+def test_masking_invariance_with_four_torch_threads(config_name):
+    """The masking invariance (bitwise) with four torch threads, set here
+    and restored after, so a host that runs one thread cannot hide a
+    float32 product whose result depends on the batch's shape (the CPU
+    chain's mel, DCT and SSC products, `chain.matmul_fp32`)."""
+    from tests import test_torch_families
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        if config_name in CONFIGS:
+            test_masking_invariance(config_name)
+        else:
+            test_torch_families.test_masking_invariance(config_name)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _jnp_batch(tcfg, jcfg, names=SIGNALS):
     b = tbatch.pad_batch(_pcm(names), tcfg)
     jf, jm = jchain.extract_batch(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg)

@@ -11,7 +11,9 @@ the row max), linear-domain 1e-5 of the row max elsewhere, energy rtol 1e-5.
 The CUDA kernel cannot run here. `_emulate_kernel` mirrors its loop
 structure in numpy — 32-frame tiles staged with pre-emphasis across tile
 starts, no DFT for frames past a row's length, the radix-8 Stockham stages
-on the host's twiddle and output-base tables, the real split, the
+on the host's twiddle and output-base tables, the real split, the Bluestein
+form (chirp, the P-point stages, the filter product folded into the
+inverse's loads, the inverse as forward stages on the conjugate), the
 balanced lane-split projection over the packed mel bands in its summation
 order, each feature kind's epilogue (log, raw PLP lanes, the spectrogram's
 identity projection, SSC's clamped centroids) and the energy — so the
@@ -192,7 +194,7 @@ def test_fft_twiddles_table():
     """n_fft 512 (8·8·4): the split's 129 entries, then 32 butterflies × 7
     twists of stage 1 and 64 × 3 of stage 2, each rounded once from float64;
     the stages' output bases (j - k)·R + k."""
-    tw = frontend.fft_twiddles(512)
+    tw = frontend.fft_twiddles(512, "stockham")
     assert tw.shape == (129 + 32 * 7 + 64 * 3, 2) and tw.dtype == np.float32
     np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], _twiddles64(512).astype(np.complex64))
     np.testing.assert_array_equal(tw[:129, 0], np.cos(2 * np.pi * np.arange(129) / 512).astype(np.float32))
@@ -203,20 +205,26 @@ def test_fft_twiddles_table():
 
 
 @pytest.mark.parametrize("n_fft,form,count", [(400, "stockham", 421), (480, "stockham", 593),
-                                              (404, "direct", 404), (405, "direct", 405),
-                                              (1024, "stockham", 1153)])
+                                              (404, "bluestein", 1457), (405, "bluestein", 2530),
+                                              (1024, "stockham", 1153), (2047, "direct", 2047)])
 def test_dft_forms_and_twiddle_tables(n_fft, form, count):
-    """The form each n_fft takes, its radices, and its float64-built table:
-    the split's quarter circle and the stages' twists for the Stockham
-    form, the whole circle for the direct DFT."""
-    assert frontend.dft_form(n_fft) == form
-    tw = frontend.fft_twiddles(n_fft)
-    assert tw.shape == (count, 2) == (frontend.twiddle_count(n_fft), 2)
+    """The form each n_fft takes at classic13, its radices, and its
+    float64-built table: the split's quarter circle and the stages' twists
+    for the Stockham form; for the Bluestein form the split (even n_fft),
+    the P-point stages' twists, the chirp and the filter spectrum; the whole
+    circle for the direct DFT."""
+    assert frontend.dft_form(T_CONFIGS["classic13"].replace(n_fft=n_fft)) == form
+    tw = frontend.fft_twiddles(n_fft, form)
+    assert tw.shape == (count, 2) == (frontend.twiddle_count(n_fft, form), 2)
     if form == "stockham":
         r = frontend.radices(n_fft)
         assert np.prod(r) == n_fft // 2 and set(r) <= {2, 3, 4, 5, 8}
         want = _twiddles64(n_fft)
         assert len(frontend.stage_bases(n_fft)) == sum(n_fft // 2 // R for R in r)
+    elif form == "bluestein":
+        want = _bluestein64(n_fft)
+        P = frontend.bluestein_dims(n_fft)[2]
+        assert len(frontend.stage_bases(n_fft, form)) == sum(P // R for R in frontend.radices(2 * P))
     else:
         want = np.exp(-2j * np.pi * np.arange(count) / n_fft)
     np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], want.astype(np.complex64))
@@ -229,9 +237,54 @@ def test_radix_plans():
     assert frontend.radices(480) == (8, 2, 3, 5)
     assert frontend.radices(512) == (8, 8, 4) and frontend.radices(2048) == (8, 8, 8, 2)
     assert frontend.radices(404) is None and frontend.radices(401) is None
-    assert frontend.dft_form(512) == "stockham" and frontend.dft_form(2) == "direct"
+    assert frontend.dft_form(T_CONFIGS["classic13"]) == "stockham"
+    assert frontend.dft_form(T_CONFIGS["classic13"].replace(n_fft=2)) == "bluestein"
     assert "radix2" not in frontend.DFT_FORMS
     assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 62832  # three blocks an SM
+
+
+# sizes the parent layout already refused at kaldi_mfcc with dither 1.0 (its
+# dither row): Stockham sizes over the block, left to ROADMAP queue 2 item 4
+PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": (1944, 2000, 2048)}
+
+
+@pytest.mark.parametrize("case", sorted(PARENT_REFUSED))
+def test_every_n_fft_from_16_to_2100_fits_a_form(case):
+    """Every n_fft from 16 to 2,100 takes a form whose layout fits the
+    block (Stockham, Bluestein, or direct where the Bluestein rows do not
+    fit), but those the parent layout refused too; the "fp32" route takes
+    the same form as "radix4" at every size."""
+    cfg = T_CONFIGS["classic13"] if case == "classic13" else T_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
+    refused = [n for n in range(16, 2101) if frontend.layout_reason(cfg.replace(n_fft=n))]
+    assert refused == list(PARENT_REFUSED[case])
+    forms = {frontend.kernel_form(cfg.replace(n_fft=n)) for n in range(16, 2101)}
+    assert forms == {"stockham", "bluestein", "direct"}
+    for n in range(16, 2101):
+        c = cfg.replace(n_fft=n)
+        assert frontend.kernel_form(c, "fp32") == frontend.kernel_form(c) == frontend.dft_form(c)
+        if frontend.dft_form(c) == "direct":
+            assert frontend._smem(c, "bluestein") > frontend.rs_kernel.SMEM_BUDGET_BYTES
+
+
+def test_bluestein_sizes_and_layouts():
+    """n_fft 404: Q = K = 202 packed points, P = 512 (8·8·8: three stages,
+    fewer than 405 = 3⁴·5 or 480 = 8·4·3·5), 114,384 B a block: two blocks
+    an SM (233,472 B / 2 less 1 KB a block). n_fft 551 (odd): Q = 551, K =
+    276, P = 960 (8·8·3·5), 201,264 B, one block an SM. The layout mirrors
+    csrc/frontend.cu: the Stockham head, the twiddle table, the P-point
+    stages' bases, and two rows of P + P/8 + 1 float2 a warp."""
+    c13 = T_CONFIGS["classic13"]
+    assert frontend.bluestein_dims(404) == (202, 202, 512) and frontend.radices(1024) == (8, 8, 8)
+    assert frontend.bluestein_dims(551) == (551, 276, 960) and frontend.radices(1920) == (8, 8, 3, 5)
+    assert frontend.filter_count(404) == 257 and frontend.filter_count(551) == 960
+    assert frontend.row_floats(404, "bluestein") == 1156
+    assert frontend.smem_bytes(c13.replace(n_fft=404)) == 114384 <= 233472 // 2 - 1024
+    assert frontend.smem_bytes(c13.replace(n_fft=404), "fp32") == 114384
+    assert frontend.smem_bytes(c13.replace(n_fft=551)) == 201264
+    assert frontend.dft_form(c13.replace(n_fft=404)) == frontend.dft_form(c13.replace(n_fft=551)) == "bluestein"
+    # the filter of an even n_fft is even: the kernel reads entry min(n, P - n)
+    h = frontend.bluestein_filter(404)
+    np.testing.assert_allclose(h[1:], h[1:][::-1], rtol=0, atol=1e-15)
 
 
 def test_mel_bands_cover_every_weight():
@@ -300,17 +353,18 @@ def _reflect(t, n, kind):
     return np.where(m < n, m, 2 * n - 2 - m)
 
 
-def _stockham(z, n_fft, w):
-    """The kernel's Stockham stages on rows z [nf, H] with the twiddle
-    table w (`frontend.fft_twiddles` order): stage s of radix R after ns
-    points, butterfly j < H/R reads src[j + r·H/R], twists input r by
-    w[after the split and the earlier stages + j·(R-1) + r - 1] (stage 0:
-    none), takes the R-point DFT and writes dst[base[j] + q·ns] with the
-    host's output bases (`frontend.stage_bases`)."""
-    H = n_fft // 2
-    bases = frontend.stage_bases(n_fft)
-    src, ns, tw, b0 = z, 1, n_fft // 4 + 1, 0
-    for s, R in enumerate(frontend.radices(n_fft)):
+def _stockham(z, n_fft, w, form="stockham"):
+    """The kernel's Stockham stages on rows z [nf, H] (H = fft_points:
+    n_fft/2, or P for the Bluestein form) with the twiddle table w
+    (`frontend.fft_twiddles` order): stage s of radix R after ns points,
+    butterfly j < H/R reads src[j + r·H/R], twists input r by w[after the
+    split and the earlier stages + j·(R-1) + r - 1] (stage 0: none), takes
+    the R-point DFT and writes dst[base[j] + q·ns] with the host's output
+    bases (`frontend.stage_bases`)."""
+    H = frontend.fft_points(n_fft, form)
+    bases = frontend.stage_bases(n_fft, form)
+    src, ns, tw, b0 = z, 1, frontend.split_count(n_fft), 0
+    for s, R in enumerate(frontend.radices(2 * H)):
         hr = H // R
         j = np.arange(hr)
         v = np.stack([src[:, j + r * hr] for r in range(R)])  # [R, nf, hr]
@@ -328,6 +382,87 @@ def _stockham(z, n_fft, w):
             dst[:, d + qq * ns] = out[qq]
         src, ns = dst, ns * R
     return src
+
+
+def _bluestein64(n_fft):
+    """frontend.fft_twiddles' Bluestein table in complex128: the split
+    (even n_fft) and the P-point stages' twists as `_twiddles64` lays them
+    out, the chirp e^{-iπ (n² mod 2Q)/Q}, n < Q, and the first
+    `filter_count` entries of the filter spectrum."""
+    q, _, P = frontend.bluestein_dims(n_fft)
+    parts = [np.exp(-2j * np.pi * np.arange(frontend.split_count(n_fft)) / n_fft)]
+    ns = 1
+    for s, R in enumerate(frontend.radices(2 * P)):
+        j = np.arange(P // R)
+        if s:
+            parts.append(np.exp(-2j * np.pi * np.outer(j % ns, np.arange(1, R)) / (ns * R)).ravel())
+        ns *= R
+    n = np.arange(q)
+    parts.append(np.exp(-1j * np.pi * ((n * n) % (2 * q)) / q))
+    parts.append(frontend.bluestein_filter(n_fft)[: frontend.filter_count(n_fft)])
+    return np.concatenate(parts)
+
+
+def _real_split(z, w, pscale, dtype):
+    """The kernel's real split of the half-size FFT rows z [nf, H] into
+    the power rows [nf, H + 1] (w[k] = e^{-2πik/n_fft}, k <= H/2)."""
+    H = z.shape[1]
+    kk = np.arange(H // 2 + 1)
+    a, cc = z[:, kk], np.conj(z[:, np.where(kk == 0, 0, H - kk)])
+    xe, xo = (a + cc) / 2, (a - cc) / 2j
+    X, Y = xe + w[kk] * xo, xe - w[kk] * xo
+    P = np.empty((z.shape[0], H + 1), dtype)
+    P[:, kk] = np.abs(X) ** 2 * pscale
+    mirror = 2 * kk != H
+    P[:, H - kk[mirror]] = np.abs(Y[:, mirror]) ** 2 * pscale
+    return P
+
+
+def _bluestein(fr, n_fft, w, ctype):
+    """The kernel's Bluestein form on windowed frames fr [nf, >= n_fft]
+    (zero past min(L, n_fft)) with its table w: stage 0 loads point n < Q
+    (the pair y[2n] + i·y[2n+1] for even n_fft, the sample y[n] for odd)
+    times the chirp c[n], zero to P; the P-point stages; the inverse's stage
+    0 loads conj(A[n])·filter[n] (filter[min(n, P - n)] for even n_fft) and
+    runs the same forward stages; then Z[k] = c[k]·conj(D[k]) for k < K.
+    Returns Z [nf, K]: the n_fft/2-point DFT of the packed frame for even
+    n_fft (the real split follows), the first n_bins outputs of the n_fft-
+    point DFT for odd."""
+    q, k, P = frontend.bluestein_dims(n_fft)
+    nt, nfl = frontend.twiddle_count(n_fft, "bluestein"), frontend.filter_count(n_fft)
+    chirp, filt = w[nt - nfl - q : nt - nfl], w[nt - nfl :]
+    if n_fft % 2 == 0:
+        filt = filt[np.minimum(np.arange(P), P - np.arange(P))]
+        z = fr[:, 0 : 2 * q : 2] + 1j * fr[:, 1 : 2 * q : 2]
+    else:
+        z = fr[:, :q].astype(ctype)
+    a = np.zeros((fr.shape[0], P), ctype)
+    a[:, :q] = z * chirp
+    A = _stockham(a, n_fft, w, "bluestein")
+    D = _stockham((np.conj(A) * filt).astype(ctype), n_fft, w, "bluestein")
+    return (chirp[:k] * np.conj(D[:, :k])).astype(ctype)
+
+
+@pytest.mark.parametrize("n_fft", [404, 551, 286, 1102, 683])
+def test_bluestein_dft_matches_numpy_rfft_in_float64(n_fft):
+    """The Bluestein form's loops in float64 (packing, chirp, the P-point
+    stages, the filter product, the inverse, the split) ≡ np.fft.rfft
+    within 1e-9: n_fft 404 (P = 512), 551 (odd, 960), 286 (n_fft under the
+    frame length, 320), 1102 (1,280, whose block is over the block's shared
+    memory, so the kernel takes the direct DFT there) and 683, the largest
+    odd n_fft whose Bluestein block fits at classic13."""
+    g = np.random.default_rng(n_fft)
+    fr = g.standard_normal((5, n_fft + 2))
+    fr[:, n_fft:] = 0.0
+    Z = _bluestein(fr, n_fft, _bluestein64(n_fft), np.complex128)
+    if n_fft % 2 == 0:
+        power = _real_split(Z, _bluestein64(n_fft), 1.0, np.float64)
+    else:
+        power = np.abs(Z) ** 2
+    want = np.abs(np.fft.rfft(fr[:, :n_fft], axis=-1)) ** 2
+    np.testing.assert_allclose(power, want, rtol=0, atol=1e-9 * want.max())
+    if n_fft % 2:
+        np.testing.assert_allclose(Z, np.fft.rfft(fr[:, :n_fft], axis=-1), rtol=0, atol=1e-9)
 
 
 def _project(P, w, wf, off, kbin, eps, ssc):
@@ -370,7 +505,7 @@ def _project(P, w, wf, off, kbin, eps, ssc):
     return sums, sumsf
 
 
-def _emulate_kernel(audio, lengths, cfg, dtype):
+def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
     staged row (x plus the contract noise at t < length when cfg dithers,
     signal pre-emphasis from x[t-1], zeroing at t >= length; for centered
@@ -381,7 +516,9 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     row's length (non-centered framing) taking no DFT: zero powers and zero
     frame energies; the others' first min(L, n_fft) samples transformed by
     the kernel's DFT form (the Stockham stages on the host tables, then the
-    real split; or the direct DFT on the whole-circle table), then by
+    real split; the Bluestein form (`_bluestein`, then the split for even
+    n_fft, |X|² for odd); or the direct DFT on the whole-circle table, which
+    `form` can force at any size), then by
     feature kind the balanced projection over the packed bands (`_project`)
     and the log kind (logmel) or nothing (plp), the log kind of each power
     bin (spectrogram), or the centroids of the per-bin clamped power (ssc,
@@ -393,14 +530,16 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
     melf = (k["freqs"][:, None] * k["mel"]).astype(dtype)  # rounded once, as _tables does
     off, index = (t.numpy() for t in frontend.mel_packed(torch.as_tensor(mel)))
     w_mel, w_melf = mel.reshape(-1)[index], melf.reshape(-1)[index]
-    N, form = cfg.n_fft, frontend.dft_form(cfg.n_fft)
+    N, form = cfg.n_fft, form or frontend.dft_form(cfg)
     H, nb = N // 2, cfg.n_bins
     if form == "direct":
         w = np.exp(-2j * np.pi * np.arange(N) / N)
+    elif form == "bluestein":
+        w = _bluestein64(N)
     else:
         w = _twiddles64(N)
     if dtype == np.float32:
-        tw = frontend.fft_twiddles(N).astype(dtype)
+        tw = frontend.fft_twiddles(N, form).astype(dtype)
         w = (tw[:, 0] + 1j * tw[:, 1]).astype(ctype)
     B, T = audio.shape
     S, L, M = cfg.frame_step, cfg.frame_length, cfg.n_mels
@@ -452,17 +591,15 @@ def _emulate_kernel(audio, lengths, cfg, dtype):
                 idx = np.outer(np.arange(nb), np.arange(Lk)) % N
                 X = (fr[:, None, :Lk] * w[idx][None]).sum(axis=-1)
                 P = (np.abs(X) ** 2 * pscale).astype(dtype)
+            elif form == "bluestein":
+                Z = _bluestein(fr, N, w, ctype)
+                if N % 2:
+                    P = (np.abs(Z) ** 2 * pscale).astype(dtype)
+                else:
+                    P = _real_split(Z, w, pscale, dtype)
             else:
                 z = (fr[:, 0 : 2 * H : 2] + 1j * fr[:, 1 : 2 * H : 2]).astype(ctype)
-                z = _stockham(z, N, w)
-                kk = np.arange(H // 2 + 1)
-                a, cc = z[:, kk], np.conj(z[:, np.where(kk == 0, 0, H - kk)])
-                xe, xo = (a + cc) / 2, (a - cc) / 2j
-                X, Y = xe + w[kk] * xo, xe - w[kk] * xo
-                P = np.empty((nf, nb), dtype)
-                P[:, kk] = np.abs(X) ** 2 * pscale
-                mirror = 2 * kk != H
-                P[:, H - kk[mirror]] = np.abs(Y[:, mirror]) ** 2 * pscale
+                P = _real_split(_stockham(z, N, w), w, pscale, dtype)
             P[zero], e_raw[zero], e_win[zero] = 0, 0, 0
             if kind == "spectrogram":
                 lanes = _log_lane(P[:, :M], cfg.log_kind, eps, dtype)
@@ -548,24 +685,40 @@ BRANCHES = [
     ("kaldi_mfcc", {"win_len_s": 0.040, "energy_source": "windowed_frame"}),
     ("kaldi_spectrogram", {"n_fft": 400, "n_mels": 201}),
     ("classic13", {"n_fft": 2048}),
+    ("classic13", {"n_fft": 404}),
+    ("kaldi_fbank", {"n_fft": 405}),
+    ("classic13", {"n_fft": 551}),
+    ("classic13", {"n_fft": 286}),
+    ("kaldi_mfcc", {"n_fft": 404, "dither": 1.0, "energy_source": "windowed_frame"}),
+    ("classic13", {"n_fft": 683, "frame_tail": "center"}),
 ]
 BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy_no_dc",
               "logmel80_ln_stab", "logmel80_db", "classic13_dither", "kaldi_plp",
               "kaldi_spectrogram", "ssc26", "ssc26_dither_dc", "whisper80", "whisper80_dither",
               "center_preemph_dither", "kaldi_center_dither", "center_reflect_preemph",
               "direct_dft_404", "mixed_radix_480", "direct_dft_odd_405",
-              "frame_longer_than_nfft_windowed_energy", "spectrogram_400", "stockham_2048"]
+              "frame_longer_than_nfft_windowed_energy", "spectrogram_400", "stockham_2048",
+              "bluestein_404", "bluestein_odd_405", "bluestein_odd_551", "bluestein_286",
+              "bluestein_404_dither_windowed_energy", "bluestein_odd_683_centered"]
+# the direct DFT, now the form only of sizes whose Bluestein block does not
+# fit, still held at 404 and 405
+FORCED_FORMS = {"direct_dft_404": "direct", "direct_dft_odd_405": "direct"}
+
+
+def _forced_form(request):
+    return FORCED_FORMS.get(request.node.callspec.id)
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
-def test_kernel_branches_exact_in_float64(name, overrides):
-    """The dither staging, the conditioning of the pack loop, each log kind
-    and each feature kind reproduce the plain version to ~1e-9 in float64."""
+def test_kernel_branches_exact_in_float64(name, overrides, request):
+    """The dither staging, the conditioning of the pack loop, each log kind,
+    each feature kind and each DFT form reproduce the plain version to
+    ~1e-9 in float64."""
     cfg = T_CONFIGS[name].replace(dtype="float64", **overrides)
     audio, lengths = _batch("classic13", ("noise", "short", "tone_offbin"))
     audio = audio[:, :12000].astype(np.float64) * 3000
     lengths = np.minimum(lengths, 11000)
-    got = _emulate_kernel(audio, lengths, cfg, np.float64)
+    got = _emulate_kernel(audio, lengths, cfg, np.float64, _forced_form(request))
     want = _reference(audio, lengths, cfg)
     assert got.shape == want.shape == (3, cfg.num_frames(12000), cfg.n_mels + 1)
     if cfg.features == "spectrogram":
@@ -581,11 +734,11 @@ def test_kernel_branches_exact_in_float64(name, overrides):
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
-def test_kernel_branches_float32_within_gates(name, overrides):
+def test_kernel_branches_float32_within_gates(name, overrides, request):
     cfg = T_CONFIGS[name].replace(**overrides)
     audio, lengths = _batch("classic13_deltas")
     pcm = np.round(audio * 3000).astype(np.int16)
-    got = _emulate_kernel(pcm, lengths, cfg, np.float32)
+    got = _emulate_kernel(pcm, lengths, cfg, np.float32, _forced_form(request))
     want = _reference(pcm, lengths, cfg)
     valid = lengths >= cfg.frame_length  # rows with a frame under either framing
     assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind, cfg.features)

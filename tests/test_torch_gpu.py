@@ -375,7 +375,7 @@ def test_layout_over_the_block_budget_raises():
 
 def _counts():
     return (frontend.launches, frontend.centered_launches, frontend.direct_dft_launches,
-            frontend.dither_launches)
+            frontend.dither_launches, frontend.bluestein_launches)
 
 
 def test_whisper80_at_30_s_matches_reference():
@@ -394,7 +394,7 @@ def test_whisper80_at_30_s_matches_reference():
     before = _counts()
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
-    assert _counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2], before[3], before[4])
     assert got.shape == (4, cfg.num_frames(b.audio.shape[1]), 81)
     want = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
     narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
@@ -414,17 +414,24 @@ CENTERED = [
     ("classic13", {"n_fft": 480}),
     ("whisper80", {"dither": 0.5}),
     ("classic13", {"n_fft": 2048}),
+    ("classic13", {"n_fft": 551}),
+    ("kaldi_mfcc", {"n_fft": 405, "frame_tail": "center", "dither": 1.0}),
+    ("classic13", {"n_fft": 1102}),
 ]
 CENTERED_IDS = ["kaldi_center_dither", "center_preemph_dither", "center_reflect_preemph",
-                "direct_dft_404", "mixed_radix_480", "whisper80_dither", "stockham_2048"]
+                "bluestein_404", "mixed_radix_480", "whisper80_dither", "stockham_2048",
+                "bluestein_odd_551", "bluestein_odd_405_center_dither", "direct_dft_1102"]
 
 
 @pytest.mark.parametrize("name,overrides", CENTERED, ids=CENTERED_IDS)
 def test_centered_and_dft_forms_match_reference(name, overrides):
     """Centered staging in both modes (source-index pre-emphasis and noise),
-    the direct DFT, a radix-3 Stockham size and n_fft 2048 (1,024 =
-    8·8·8·2 points, 1,915 packed weights) against the plain version,
-    rows down to 90 samples (multi-wrap); int16 ≡ float32, two runs equal."""
+    the Bluestein form (404: P = 512; odd 551 and 405), the direct DFT where
+    the Bluestein block does not fit (1102), a radix-3 Stockham size and
+    n_fft 2048 (1,024 = 8·8·8·2 points, 1,915 packed weights) against the
+    plain version computed on the CPU in float64 (the card's float64 rfft
+    at some odd sizes is not), rows down to 90 samples (multi-wrap); int16 ≡
+    float32, two runs equal."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
     g = np.random.default_rng(29)
@@ -432,17 +439,18 @@ def test_centered_and_dft_forms_match_reference(name, overrides):
     b = pad_batch(utts, cfg, bucket_len=16000, dtype="int16")
     audio = torch.as_tensor(b.audio, device=dev)
     lengths = torch.as_tensor(b.lengths, device=dev)
-    form = frontend.dft_form(cfg.n_fft)
+    form = frontend.dft_form(cfg)
     before = _counts()
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + chain.centered(cfg),
-                         before[2] + (form == "direct"), before[3] + (cfg.dither > 0))
+                         before[2] + (form == "direct"), before[3] + (cfg.dither > 0),
+                         before[4] + (form == "bluestein"))
     narrow = None
     if cfg.logmel_norm == "whisper":
         narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"])
-    assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels,
-                        cfg.log_kind, narrow=narrow)
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, narrow=narrow)
     assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
 
@@ -554,15 +562,20 @@ BF16X3 = [
     ("kaldi_plp", {}),
     ("ssc26", {}),
     ("kaldi_mfcc", {"win_len_s": 0.040, "n_fft": 512, "energy_source": "windowed_frame"}),
+    ("classic13", {"n_fft": 1024}),
+    ("classic13", {"n_fft": 2048, "frame_tail": "center"}),
 ]
-BF16X3_IDS = ["classic13", "kaldi_404_dither", "whisper80", "kaldi_plp", "ssc26", "frames_over_n_fft"]
+BF16X3_IDS = ["classic13", "kaldi_404_dither", "whisper80", "kaldi_plp", "ssc26", "frames_over_n_fft",
+              "n_fft_1024_two_stages", "n_fft_2048_32_frames_centered"]
 
 
 @pytest.mark.parametrize("name,overrides", BF16X3, ids=BF16X3_IDS)
 def test_bf16x3_matches_reference(name, overrides):
-    """The bf16x3 form ≡ its plain version (loud log-mel bins within 1e-3,
-    the other prefix gates as for every form); classic13's loud bins within
-    1e-3 of the float64 plain version; one launch, counted."""
+    """The bf16x3 form (wgmma over the ring; 64 frames a block, 32 with the
+    upper rows zero at n_fft 2048, two ring stages at 1024) ≡ its plain
+    version (loud log-mel bins within 1e-3, the other prefix gates as for
+    every form); classic13's loud bins within 1e-3 of the float64 plain
+    version; one launch, counted."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
     g = np.random.default_rng(41)
@@ -582,6 +595,54 @@ def test_bf16x3_matches_reference(name, overrides):
         f64 = frontend.logmel_prefix_reference(audio, lengths, cfg.replace(dtype="float64"))
         errs = testing.prefix_errors(got, f64, cfg.n_mels)
         assert errs["logmel_loud_max_abs"] < testing.BF16X3_LOUD_ATOL, errs
+
+
+def test_bf16x3_form_runs_wgmma():
+    """The bf16x3 instantiations' SASS holds HGMMA (wgmma) and the ring's
+    bulk copies (UBLKCP), and no HMMA (mma.sync)."""
+    import pathlib
+    import subprocess
+
+    from mfcc_tpu_torch.kernels import _build
+
+    _card()
+    lib, _ = _build.build("frontend")
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    bf16 = [fn for fn in dump.split("Function : ")[1:] if "Lb1EEEv" in fn.split("\n", 1)[0]]
+    assert len(bf16) == 8
+    for fn in bf16:
+        assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
+
+
+@pytest.mark.parametrize("n_fft", [404, 551])
+def test_bluestein_form_through_extract_batch_and_the_fp32_route(n_fft):
+    """classic13 at n_fft 404 and 551: extract_batch and
+    fused_logmel_stages(dft_passes="fp32") each launch the Bluestein form
+    once (no direct DFT); the prefix within the gates of the float64 plain
+    version computed on the CPU, the features within 5e-4 of the CPU chain.
+    (No pure tone: at n_fft 404 the CPU fp32 chain is itself 1.1e-3 from
+    float64 on tone_offbin's quiet cepstra.)"""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=n_fft)
+    sigs = golden_signals()
+    b = pad_batch([np.round(sigs[n] * 3000) for n in ("noise", "speechish", "short")], cfg,
+                  dtype="int16")
+    before = (frontend.bluestein_launches, frontend.direct_dft_launches)
+    feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.bluestein_launches, frontend.direct_dft_launches) == (before[0] + 1, before[1])
+    cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    assert_features_close(feat, cpu)
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="fp32")
+    torch.cuda.synchronize()
+    assert (frontend.bluestein_launches, frontend.direct_dft_launches) == (before[0] + 2, before[1])
+    want = frontend.logmel_prefix_reference(torch.as_tensor(b.audio), torch.as_tensor(b.lengths),
+                                            cfg.replace(dtype="float64"))
+    assert_prefix_close(st["prefix"], want, cfg.n_mels)
 
 
 def test_bf16x3_refused_in_the_fused_resample_form():
