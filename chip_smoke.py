@@ -9,9 +9,11 @@ Phases, in order; any failure exits non-zero:
      together, with phase 20's three breakdown cuts of the front-end) and
      print ptxas usage; then, from the card, the registers, local (spilled)
      bytes and blocks an SM of each FFT-form instantiation of the front-end
-     kernel (no spills; classic13, logmel80 and whisper80 at three blocks an
-     SM or more; the Bluestein form at n_fft 404 at two) and of each bf16x3
-     instantiation (no spills);
+     kernel (no spills, 80 registers or fewer; classic13, logmel80 and
+     whisper80 at three blocks an SM or more; the fused resample's int16
+     instantiation at three for mfcc39_48k and two for mfcc39_44k, its
+     float32 one printed; the Bluestein form at n_fft 404 at two) and of
+     each bf16x3 instantiation (no spills);
   3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
      n - 571*i): the front-end kernel against its plain version (the
      test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
@@ -30,13 +32,21 @@ Phases, in order; any failure exits non-zero:
      its plain version (prefix gates, int16 ≡ float32 bitwise, dirty tails,
      boundary input lengths at the 16 kHz frame and first-tile edges); then
      `extract_batch`, counted (fused resample 1, tail 1, the others 0): [64, 999, 39]
-     within 8e-4 of the CPU chain and of the float64 chain; times;
+     within 8e-4 of the CPU chain and of the float64 chain; the fused
+     instantiations' registers, spills and blocks an SM; times, the fused
+     kernel beside the two-launch split (resample.cu, then the plain form)
+     in turns;
   5. path resample_batch (the same rows as float32 [64, 480,080], 48 kHz ->
      16 kHz): the polyphase kernel, counted, within 1e-5 of each row's max
      |x| of its plain version and of scipy float64 on four rows; refusals
-     (float64, a tap table over budget, a config the port lacks); times;
-  6. path mfcc39_44k at b16 x 10 s: the fused resample against its plain
-     version, `extract_batch` counted and within 8e-4 of the CPU chain;
+     (float64, a tap table over budget, a config the port lacks); times,
+     blocks an SM and the share of the bound;
+  6. path mfcc39_44k at b64 x 10 s (lengths 441,000 - 1,573*i): the fused
+     resample against its plain version (prefix gates, int16 ≡ float32,
+     dirty tails), `extract_batch` counted and within 8e-4 of the CPU chain
+     and of the float64 chain; its instantiations' registers and blocks an
+     SM, its time beside the two-launch split in turns and its bound (no
+     single PyTorch call computes a 160/441 resample, so no library time);
      mfcc39_48k with dither 0.5 at b16: the fused form's dither against its
      plain version, int16 ≡ float32 and two runs bitwise;
   7. path kaldi_mfcc with dither 1.0 (Kaldi's default; b64 x 10 s int16,
@@ -158,7 +168,7 @@ import time
 import numpy as np
 
 B, SECONDS = 64, 10
-B_SMALL = 16  # depth of the secondary paths (mfcc39_44k, dithered 48 kHz, kaldi_fbank, db)
+B_SMALL = 16  # depth of the secondary paths (dithered 48 kHz, kaldi_fbank, db)
 B_LOGMEL80 = 256  # logmel80 is BASELINE config #3, "batch-256"
 WHISPER_SECONDS = 30  # Whisper's padded chunk
 WHISPER_SHORT = [801, 401, 250, 90]  # rows of the ragged whisper80 batch that wrap
@@ -668,6 +678,25 @@ def family_path(torch, counters, name: str, seed: int, phase: int, tag: str) -> 
         launches=launches[kind], max_abs_err=errs["max_abs"], ms=kernel_ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms,
     )
+
+
+def fused_and_split(torch, frontend, R, cfg, audio, lengths, reps: int = 20) -> tuple[float, float]:
+    """The fused resample kernel and the two-launch split (resample.cu on
+    the rows in float32, converted before the timing, then the plain form on
+    its 16 kHz rows), each by `cuda_ms`, in turns (fused, split, split,
+    fused); the means of each pair."""
+    sr_in = cfg.input_sample_rate
+    x = audio.float()
+    lens16 = R.output_lengths(lengths, sr_in, cfg.sample_rate)
+    cfg16 = cfg.replace(input_sample_rate=None)
+
+    def split():
+        frontend.logmel_prefix(R.resample_batch(x, sr_in, cfg.sample_rate), lens16, cfg16)
+
+    fused = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+    runs = [cuda_ms(torch, fn, reps=reps) for fn in (fused, split, split, fused)]
+    print(f"  in turns: fused {runs[0]:.4f}, split {runs[1]:.4f}, split {runs[2]:.4f}, fused {runs[3]:.4f} ms")
+    return (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
 
 
 def kernel_times(torch, chain, frontend, cfg, audio, lengths, F: int,
@@ -1238,6 +1267,7 @@ def occupancy(frontend, named_config) -> None:
                     print(f"    {'int16' if int16 else 'float32'}, resample {int(resample)}, "
                           f"dither {int(dith)}, conditioning {int(cond)}: {info}")
                     check(info["local_bytes"] == 0, "no spills")
+                    check(info["registers"] <= 80, "80 registers or fewer (three blocks an SM)")
     for name in ("classic13_deltas", "logmel80", "whisper80", "ssc26", "kaldi_plp",
                  "kaldi_spectrogram", "kaldi_mfcc", "mfcc39_48k", "mfcc39_44k"):
         cfg = named_config(name)
@@ -1246,6 +1276,16 @@ def occupancy(frontend, named_config) -> None:
               f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
         if name in ("classic13_deltas", "logmel80", "whisper80"):
             check(info["blocks_per_sm"] >= 3, f"{name}: three blocks an SM or more")
+    print("  the fused resample's instantiations: int16 rows stage their window as int16 over the "
+          "warps' rows; float32 rows widen it")
+    for name, blocks in (("mfcc39_48k", 3), ("mfcc39_44k", 2)):
+        for int16 in (True, False):
+            info = frontend.kernel_info(named_config(name), int16)
+            print(f"    {name}, {'int16' if int16 else 'float32'} rows: {info['smem_bytes']} B of shared "
+                  f"memory a block, {info['blocks_per_sm']} blocks an SM, {info['registers']} "
+                  f"registers, {info['local_bytes']} local bytes")
+            if int16:
+                check(info["blocks_per_sm"] >= blocks, f"{name}, int16 rows: {blocks} blocks an SM or more")
     for n_fft in (404, 551):
         cfg = named_config("classic13").replace(n_fft=n_fft)
         info = frontend.kernel_info(cfg)
@@ -1417,7 +1457,12 @@ def main() -> int:
     del feat, mask
 
     print(f"  times {tag}")
-    kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    for int16 in (True, False):
+        info = frontend.kernel_info(cfg, int16)
+        print(f"  fused instantiation, {'int16' if int16 else 'float32'} rows: {info['registers']} registers, "
+              f"{info['local_bytes']} local bytes, {info['blocks_per_sm']} blocks an SM at "
+              f"{info['smem_bytes']} B")
+    kernel_ms, split_ms = fused_and_split(torch, frontend, R, cfg, audio, lengths)
     plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
     d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
     taps = torch.as_tensor(np.ascontiguousarray(d["table"][0, ::-1]), dtype=torch.float32,
@@ -1441,6 +1486,8 @@ def main() -> int:
     bound_ms, bound_by = bound(
         frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]), fe_ops + rs_ops)
     print(f"  fused resample kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    print(f"  two-launch split (resample.cu on the float32 rows, then the plain form on its 16 kHz "
+          f"rows), timed in turns with the fused kernel: {split_ms:.4f} ms {tag}")
     print(f"  plain version (float64 two-dot resample + torch rfft chain on the card): {plain_ms:.4f} ms {tag}")
     print(f"  library, resample and DFT only: conv1d stride {d['down']} on [{B}, {T}] {conv_ms:.4f} ms "
           f"+ torch.fft.rfft on [{B * F}, {cfg.n_fft}] {rfft_ms:.4f} ms = {conv_ms + rfft_ms:.4f} ms {tag}")
@@ -1496,7 +1543,11 @@ def main() -> int:
     conv_ms = cuda_ms(torch, lambda: torch.nn.functional.conv1d(xpad, taps, stride=d["down"]))
     nbytes = B * T * 4 + B * n_out * 4 + d["up"] * d["K"] * 4
     bound_ms, bound_by = bound(nbytes, resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), [n_out] * B))
-    print(f"  polyphase kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound) {tag}")
+    info = rs_kernel.kernel_info(sr_in, cfg.sample_rate)
+    print(f"  polyphase kernel: {kernel_ms:.4f} ms ({bound_ms / kernel_ms * 100:.1f}% of bound), "
+          f"{info['blocks_per_sm']} blocks an SM at {info['smem_bytes']} B, {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes {tag}")
+    check(info["local_bytes"] == 0, "resample.cu: no spills")
     print(f"  plain version (float64 two-dot on the card): {plain_ms:.4f} ms {tag}")
     print(f"  library: conv1d stride {d['down']} on the zero-padded rows: {conv_ms:.4f} ms {tag}")
     results["resample"] = dict(
@@ -1505,27 +1556,47 @@ def main() -> int:
     )
     del x, y, xpad, audio, lengths
 
-    # 6. mfcc39_44k at a smaller depth; the fused form's dither
+    # 6. mfcc39_44k at b64 x 10 s; the fused form's dither
     cfg = named_config("mfcc39_44k")
     sr_in = cfg.input_sample_rate
-    batch = make_batch(pad_batch, cfg, B_SMALL, sr_in * SECONDS, 1573, seed=4)
+    batch = make_batch(pad_batch, cfg, B, sr_in * SECONDS, 1573, seed=4)
     T = batch.audio.shape[1]
+    T16 = R.output_length(T, sr_in, cfg.sample_rate)
+    F = cfg.num_frames(T16)
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths = torch.as_tensor(batch.lengths, device="cuda")
-    print(f"== 6. path mfcc39_44k b{B_SMALL} x {SECONDS} s int16 [{B_SMALL}, {T}]")
+    print(f"== 6. path mfcc39_44k b{B} x {SECONDS} s int16 [{B}, {T}] -> {T16} samples at 16 kHz")
     got = frontend.logmel_prefix(audio, lengths, cfg)
     check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "main batch")
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
           "int16 rows == the same rows in float32, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 5), lengths, cfg)),
+          "garbage past each input length leaves the output unchanged")
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
     counters.expect("main path", fused=1, tail=1)
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
-    k44_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    del feat, mask
+    for int16 in (True, False):
+        info = frontend.kernel_info(cfg, int16)
+        print(f"  fused instantiation, {'int16' if int16 else 'float32'} rows: {info['registers']} registers, "
+              f"{info['local_bytes']} local bytes, {info['blocks_per_sm']} blocks an SM at "
+              f"{info['smem_bytes']} B")
+    k44_ms, s44_ms = fused_and_split(torch, frontend, R, cfg, audio, lengths)
     e44_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
-    print(f"  fused resample kernel at 44.1 kHz: {k44_ms:.4f} ms; extract_batch {e44_ms:.4f} ms/step = "
-          f"{B_SMALL * SECONDS / (e44_ms / 1e3):.0f} audio-s/s {tag}")
+    lens_in = np.minimum(batch.lengths.astype(np.int64), T)
+    lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
+    d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
+    rs_ops = resample_ops(R, d["up"], d["down"], lens16)
+    print(f"  resample: {int(lens16.sum())} output samples with signal, {rs_ops / lens16.sum():.1f} FLOP each")
+    b44_ms, _ = bound(frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]),
+                      frontend_ops(cfg, chain, frontend, torch, lens16, F) + rs_ops)
+    print(f"  fused resample kernel at 44.1 kHz: {k44_ms:.4f} ms ({b44_ms / k44_ms * 100:.1f}% of bound); "
+          f"two-launch split in turns {s44_ms:.4f} ms; extract_batch {e44_ms:.4f} ms/step = "
+          f"{B * SECONDS / (e44_ms / 1e3):.0f} audio-s/s {tag}")
+    print("  library: none (no single PyTorch call computes a 160/441 polyphase resample)")
+    del audio, lengths
 
     cfg = named_config("mfcc39_48k").replace(dither=0.5)
     batch = make_batch(pad_batch, cfg, B_SMALL, cfg.input_sample_rate * SECONDS, 1713, seed=5)
@@ -1547,7 +1618,7 @@ def main() -> int:
     k0_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(dither=0.0)))
     print(f"  fused resample kernel at 48 kHz b{B_SMALL}: {kd_ms:.4f} ms with dither 0.5, "
           f"{k0_ms:.4f} ms without {tag}")
-    del audio, lengths, feat, mask
+    del audio, lengths
 
     # 7. kaldi_mfcc with Kaldi's default dither: conditioning and dither
     cfg = named_config("kaldi_mfcc").replace(dither=1.0)

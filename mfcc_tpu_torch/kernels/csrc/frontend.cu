@@ -136,13 +136,14 @@
 //      reaches device memory.
 //
 // Shared memory (floats, every offset 16-byte aligned; kernels/frontend.py
-// smem_bytes mirrors it): the signal row (the fused resample's input
-// window first when longer), the window, the packed weights (mel; melf
+// smem_bytes mirrors it): the signal row (one more float in the fused
+// resample), the window, the packed weights (mel; melf
 // after it for ssc), the filters' offsets [M+1] and the weights' bin-filter
 // words, the twiddles (the split's N/4 + 1 entries, then each later stage's
 // (H/R)(R - 1) twists), the stages' output bases, then per warp its two
 // rows and its projection scratch (32 lane partials and M sums; twice for
-// ssc; none for a spectrogram), then the dither's and fused resample's x
+// ssc; none for a spectrogram), which the fused resample's input window
+// overlays (widening them only where it is longer), then the dither's x
 // row and the resample's taps. classic13 takes 71,200 B, logmel80 73,184,
 // whisper80 62,832, ssc26 74,832: three blocks an SM (24 warps) for each.
 // The Bluestein form's table holds the split, the P-point stages' twists,
@@ -182,19 +183,27 @@
 //   x[t]   = sum_i tab[p(t), i] * in[q(t) - i],  in[u] = 0 unless 0 <= u < lengths[b]
 //   y[t]   = x[t] - c * x[t-1] with x[-1] = 0; then y[t] = 0 for
 //            t >= ceil(lengths[b] * up / down)
-// Staging becomes: the tile's input window (span*down/up + K samples) and
-// the [up][K] tap table into shared memory, then x[t0-1 .. t0+span) by the
-// FIR (only t < the output length), then pre-emphasis and zeroing into the
-// signal row, which reuses the input window's memory. The resampled signal
-// never reaches device memory. Frames past the output length take step 2z.
-// Shared memory at 44.1 kHz (up = 160, K = 56): 166,384 B, one block an SM.
+// Staging becomes: the tile's input window (pp_window of span + 1 outputs:
+// 16,146 samples at 48 kHz, 14,830 at 44.1 kHz) in the rows' own type
+// (int16 rows stay int16, 32.3 KB at 48 kHz) over the warps' Stockham rows,
+// which stand idle until the DFT (39 KB at n_fft 512), and the tap table
+// at polyphase.cuh's padded stride; then polyphase.cuh's register-blocked
+// FIR (7 consecutive outputs a thread at 48 kHz, 4 outputs 160 apart at
+// 44.1 kHz) writes x[t0-1 .. t0+span) into the signal row (only t < the
+// output length; dithered there under kDither), then pre-emphasis and
+// zeroing in place. Each x[t-1] is the row's previous entry, so no second
+// x row is kept. The resampled signal never reaches device memory. Frames
+// past the output length take step 2z. Shared memory with int16 rows:
+// 71,472 B at 48 kHz (three blocks an SM, as the plain form), 107,696 B at
+// 44.1 kHz (the 160 x 57 tap table; two); float32 rows widen the window
+// past the rows: 97,040 B at 48 kHz (two), 128,000 B at 44.1 kHz (one).
 // No centered framing.
 // Bound at mfcc39_48k (batch 64 x 10 s int16, lengths 480,000 - 1,713*i):
 //   bytes: 54.5 MB int16 in + 6.9 MB out -> ~18 us;
 //   operations: 91 FLOP per output sample that holds signal (61 symmetric
 //   taps folded) x ~9.1 M = 0.83 GFLOP, plus the front-end's 0.63 GFLOP
 //   -> ~22 us: operations bound it (chip_smoke.py computes it per run).
-//
+
 // Dither (kDither; replaces _gather_frames' slab dither, frontend.py
 // :537-546, and the hash of mfcc_tpu/ops/dither.py::dither_field :113-136).
 // Every source sample 0 <= t < length (at 16 kHz: output positions in the
@@ -386,6 +395,8 @@ struct Params {
   unsigned long long radices;
   int ntw, nbases, chunk, nsplit, bq, bk, chirp, filt, nfilt;
   int kp, nbp, npass, pws, tile, stages;
+  // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
+  int aligned;
 };
 
 // Packed weight tables staged for the feature kind: mel; none for the
@@ -403,12 +414,16 @@ struct Layout {
       tab, total;
 };
 
-__host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, bool xs) {
+// fir is the fused resample's input window in floats (0 without it): it
+// lies over the warps' rows, which stand idle until the DFT, and widens
+// them only where it is longer; the signal row then holds span + 1 floats
+// (x[t0-1 .. t0+span) before pre-emphasis).
+__host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool xs) {
   Layout l;
   const int tables = weight_tables(p);
   const int parts = align4(tables * (32 + p.M));
   l.span = ((p.form == kBf16x3 ? p.tile : kTile) - 1) * p.S + p.L;
-  l.win = align4(imax(l.span, in_len));
+  l.win = align4(l.span + (fir > 0 ? 1 : 0));
   l.melw = l.win + align4(imax(p.L, p.n_fft));
   l.melf = l.melw + align4(p.nnz);  // ssc only
   l.moff = l.melw + tables * align4(p.nnz);
@@ -432,15 +447,21 @@ __host__ __device__ inline Layout layout(const Params& p, int in_len, int taps, 
     l.part = l.buf + 2 * l.row;
     l.pstride = 2 * l.row + parts;
     l.bar = l.pw = l.ef = l.mu = 0;
-    l.xs = l.buf + kWarps * l.pstride;
+    l.xs = l.buf + imax(kWarps * l.pstride, align4(fir));
   }
   l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
   l.total = l.tab + align4(taps);
   return l;
 }
 
+// The fused resample's input window for x[t0-1 .. t0+span): samples, and
+// floats of Sample.
 __host__ __device__ inline int resample_window(const Params& p, const Polyphase& pp) {
-  return pp_input_span((kTile - 1) * p.S + p.L + 1, pp);  // x[t0-1 .. t0+span)
+  return pp_window((kTile - 1) * p.S + p.L + 1, pp);
+}
+template <typename Sample>
+__host__ __device__ inline int resample_floats(const Params& p, const Polyphase& pp) {
+  return pp_stage_floats<Sample>(resample_window(p, pp));
 }
 
 // The bf16x3 form's shape (kernels/frontend.py bf16_dims, bf16_plan): the
@@ -1008,7 +1029,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
   const float preemph = p.preemph;
-  const Layout lay = kResample ? layout(p, resample_window(p, pp), pp.up * pp.K, true)
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), false)
                                : layout(p, 0, 0, kDither);
   float* sig = smem;
   float* win = smem + lay.win;
@@ -1072,34 +1093,54 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   }
 
   if constexpr (kResample) {
-    // 1r. the input window and the taps; x[t0-1 .. t0+span) by the FIR
-    //     (x[-1] = 0, and 0 past the output length), dithered at output
-    //     positions under kDither; then pre-emphasis and zeroing into the
-    //     signal row, over the input window
+    // 1r. the input window (the rows' own int16 or float32, copied
+    //     asynchronously, then zeroed at t_in >= length) over the warps'
+    //     rows, and the taps; the FIR (polyphase.cuh pp_block) writes
+    //     x[t0-1 .. t0+span) into the signal row (x[-1] = 0, and 0 past the
+    //     output length); under kDither a pass adds the noise at output
+    //     positions; then pre-emphasis and zeroing in place, a chunk at a
+    //     time: each thread reads its pairs, the block meets, then writes
+    //     (the next chunk reads only what no thread has written yet)
     if (stage) {
+      const int n = lay.span + 1;
       const long long lo = pp_first_input(t0 - 1, pp);
       const int in_len = resample_window(p, pp);
-      float* in = sig;
-      float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
+      Sample* win_s = reinterpret_cast<Sample*>(smem + lay.buf);
+      Sample* in = win_s + pp_stage(win_s, audio, static_cast<long long>(gridDim.y) * T,
+                                    static_cast<long long>(b) * T, lo, in_len, p.aligned != 0);
+      pp_copies_commit();
       float* tab = smem + lay.tab;
-      for (int i = threadIdx.x; i < in_len; i += kThreads) {
-        const long long u = lo + i;
-        in[i] = (u >= 0 && u < len_in) ? to_f32(row[u]) : 0.f;
-      }
-      for (int i = threadIdx.x; i < pp.up * pp.K; i += kThreads) tab[i] = taps[i];
+      const int ntab = pp.up * pp_stride(pp);
+      for (int i = threadIdx.x; i < ntab; i += kThreads) tab[i] = taps[i];
+      pp_copies_wait<0>();
       __syncthreads();
-      for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
-        const long long t = t0 - 1 + i;
-        float x = 0.f;
-        if (t >= 0 && t < len) {
-          x = pp_output(t, lo, in, tab, pp);
-          if constexpr (kDither) x = dithered(x, static_cast<uint32_t>(t), p);
+      if (pp_needs_mask(lo, in_len, len_in)) {  // the row's start, or samples past its length
+        pp_mask(in, lo, in_len, len_in);
+        __syncthreads();
+      }
+      const int live_lo = t0 == 0 ? 1 : 0;  // x[-1] = 0
+      const int live_hi = static_cast<int>(min(static_cast<long long>(n), len - t0 + 1));
+      pp_block(t0 - 1, n, live_lo, live_hi, lo, in, tab, pp, [=](int i, float x) { sig[i] = x; });
+      __syncthreads();
+      if constexpr (kDither) {  // in place: each entry on its own
+        for (int i = live_lo + threadIdx.x; i < live_hi; i += kThreads) {
+          sig[i] = dithered(sig[i], static_cast<uint32_t>(t0 - 1 + i), p);
         }
-        xs[i] = x;
+        __syncthreads();
       }
-      __syncthreads();
-      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-        sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
+      for (int c0 = 0; c0 < lay.span; c0 += kThreads * kStageBatch) {
+        float v[kStageBatch];
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const int i = c0 + u * kThreads + threadIdx.x;
+          v[u] = i < lay.span && t0 + i < len ? sig[i + 1] - preemph * sig[i] : 0.f;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const int i = c0 + u * kThreads + threadIdx.x;
+          if (i < lay.span) sig[i] = v[u];
+        }
       }
     }
   } else if (!framed) {
@@ -1463,7 +1504,7 @@ struct Args {
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
 size_t smem_of(const Params& p, const Polyphase& pp) {
-  const Layout lay = kResample ? layout(p, resample_window(p, pp), pp.up * pp.K, true)
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), false)
                                : layout(p, 0, 0, kDither);
   return static_cast<size_t>(lay.total) * sizeof(float);
 }
@@ -1714,6 +1755,7 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
       half_len < 10 * down) {
     return cudaErrorInvalidValue;
   }
+  p.aligned = (reinterpret_cast<uintptr_t>(audio) & 15) == 0;
   const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
                nullptr, taps, B, p, Polyphase{up, down, half_len, K},
                static_cast<cudaStream_t>(stream)};

@@ -15,13 +15,23 @@
 // taps folded) = 0.93 GFLOP -> 14 us at 67 TFLOP/s fp32. Bytes bound it;
 // chip_smoke.py computes the bound from each run's inputs.
 //
-// Design. One block per (row, tile of 2,048 outputs), 256 threads: the
-// block stages the tile's input window (tile*down/up + K samples, zero
-// outside the row) and the [up][K] tap table in shared memory with
-// coalesced loads, then each thread computes 8 outputs by the polyphase
-// dot of polyphase.cuh (fp32 FMA). Every input byte is read about once
-// from device memory (the K-sample halo between tiles is L2's). A tap table
-// larger than the shared-memory budget is refused by the wrapper.
+// Design. Tiles of kTileOut = 1,792 outputs of a row; 256 threads a block,
+// kPpR1 = 7 outputs a thread at up = 1 (one round a tile), kPpRU = 4 at up
+// > 1. Blocks are persistent (the SMs times the blocks an SM holds), block
+// k taking tiles k, k + grid, .... A block stages the tap table
+// (polyphase.cuh's padded stride) once, and each tile's input window
+// (pp_window samples) with cp.async 16-byte copies of the flat [B, T] array
+// from the boundary at or below the window's flat index into one of two
+// buffers: the next tile's copies run while the FIR computes the current
+// one, so device-memory time and FIR time overlap, where one tile a block
+// ran them one after the other. Vectors that would leave the array, and every one
+// for a base pointer that is not 16-byte aligned, take scalar loads; the
+// first and last tiles of a row zero their samples outside it once the
+// copies land. polyphase.cuh's register-blocked FIR (pp_block) writes each
+// output into a shared row, which the block stores coalesced. Every input
+// byte is read about once from device memory (the halo between tiles is
+// L2's). A tap table larger than the shared-memory budget is refused by
+// the wrapper.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,41 +41,92 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileOut = 2048;  // outputs per block (kernels/resample.py TILE_OUT)
+constexpr int kTileOut = kPpR1 * kThreads;  // outputs per block (kernels/resample.py TILE_OUT)
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
-__global__ void __launch_bounds__(kThreads)
-resample_kernel(const float* __restrict__ x, float* __restrict__ y,
-                const float* __restrict__ table, int T, int n_out, Polyphase pp) {
-  extern __shared__ __align__(16) float smem[];
-  float* tab = smem;
-  float* in = smem + align4(pp.up * pp.K);
+// Shared memory, in floats: the table [up][pp_stride], two windows
+// (pp_stage_floats: room for the alignment shift), the output row.
+struct Layout {
+  int win, wstride, out, total;
+};
 
-  const int b = blockIdx.y;
-  const long long j0 = static_cast<long long>(blockIdx.x) * kTileOut;
-  const int n = static_cast<int>(min(static_cast<long long>(kTileOut), n_out - j0));
-  const long long lo = pp_first_input(j0, pp);
-  const int in_len = pp_input_span(n, pp);
-  const float* row = x + static_cast<size_t>(b) * T;
-
-  for (int i = threadIdx.x; i < pp.up * pp.K; i += kThreads) tab[i] = table[i];
-  for (int i = threadIdx.x; i < in_len; i += kThreads) {
-    const long long u = lo + i;
-    in[i] = (u >= 0 && u < T) ? row[u] : 0.f;
-  }
-  __syncthreads();
-
-  float* out = y + static_cast<size_t>(b) * n_out + j0;
-  for (int jj = threadIdx.x; jj < n; jj += kThreads) {
-    out[jj] = pp_output(j0 + jj, lo, in, tab, pp);
-  }
+__host__ __device__ inline Layout layout(const Polyphase& pp) {
+  Layout l;
+  l.win = align4(pp.up * pp_stride(pp));
+  l.wstride = pp_stage_floats<float>(pp_window(kTileOut, pp));
+  l.out = l.win + 2 * l.wstride;
+  l.total = l.out + kTileOut;
+  return l;
 }
 
-// Shared memory for this ratio, in bytes (kernels/resample.py smem_bytes).
-long long smem_bytes(const Polyphase& pp) {
-  return (static_cast<long long>(align4(pp.up * pp.K)) + pp_input_span(kTileOut, pp)) *
-         static_cast<long long>(sizeof(float));
+// Tile t of the grid: its row, first output and outputs.
+struct Tile {
+  int b, n;
+  long long j0, lo;
+};
+
+__device__ __forceinline__ Tile tile_of(int t, int tiles_a_row, int n_out, const Polyphase& pp) {
+  Tile tl;
+  tl.b = t / tiles_a_row;
+  tl.j0 = static_cast<long long>(t - tl.b * tiles_a_row) * kTileOut;
+  tl.n = static_cast<int>(min(static_cast<long long>(kTileOut), n_out - tl.j0));
+  tl.lo = pp_first_input(tl.j0, pp);
+  return tl;
+}
+
+// Starts the copies of tile tl's window into dst; returns its shift.
+__device__ __forceinline__ int start_window(float* dst, const float* x, long long total, int T,
+                                            const Tile& tl, const Polyphase& pp, bool aligned) {
+  return pp_stage(dst, x, total, static_cast<long long>(tl.b) * T, tl.lo, pp_window(tl.n, pp),
+                  aligned);
+}
+
+// Persistent: block k takes tiles k, k + grid, ...; the next tile's window
+// copies run while the FIR computes the current one (two window buffers).
+__global__ void __launch_bounds__(kThreads)
+resample_kernel(const float* __restrict__ x, float* __restrict__ y,
+                const float* __restrict__ table, int B, int T, int n_out, Polyphase pp,
+                bool aligned) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout lay = layout(pp);
+  float* tab = smem;
+  float* os = smem + lay.out;
+  const int tiles_a_row = (n_out + kTileOut - 1) / kTileOut;
+  const int tiles = tiles_a_row * B;
+  const long long total = static_cast<long long>(B) * T;
+
+  const int ntab = pp.up * pp_stride(pp);
+  for (int i = threadIdx.x; i < ntab; i += kThreads) tab[i] = table[i];
+
+  int t = blockIdx.x;
+  Tile cur = tile_of(min(t, tiles - 1), tiles_a_row, n_out, pp);
+  int shift = t < tiles ? start_window(smem + lay.win, x, total, T, cur, pp, aligned) : 0;
+  pp_copies_commit();
+  for (int it = 0; t < tiles; ++it, t += gridDim.x) {
+    float* win = smem + lay.win + (it & 1) * lay.wstride;
+    const int tn = t + gridDim.x;
+    Tile next = tile_of(min(tn, tiles - 1), tiles_a_row, n_out, pp);
+    int next_shift = 0;
+    if (tn < tiles) {
+      next_shift = start_window(smem + lay.win + ((it + 1) & 1) * lay.wstride, x, total, T, next,
+                                pp, aligned);
+    }
+    pp_copies_commit();
+    pp_copies_wait<1>();  // the current tile's
+    __syncthreads();      // the current window (and os, free since the last store) for everyone
+    if (pp_needs_mask(cur.lo, pp_window(cur.n, pp), T)) {  // a row's first or last tile
+      pp_mask(win + shift, cur.lo, pp_window(cur.n, pp), T);
+      __syncthreads();
+    }
+    pp_block(cur.j0, cur.n, 0, cur.n, cur.lo, win + shift, tab, pp,
+             [=](int i, float v) { os[i] = v; });
+    __syncthreads();  // os complete; the window free for the tile after next
+    float* out = y + static_cast<size_t>(cur.b) * n_out + cur.j0;
+    for (int i = threadIdx.x; i < cur.n; i += kThreads) out[i] = os[i];
+    cur = next;
+    shift = next_shift;
+  }
 }
 
 }  // namespace
@@ -73,22 +134,49 @@ long long smem_bytes(const Polyphase& pp) {
 extern "C" {
 
 // Launches the resampler on `stream`; returns cudaGetLastError() (0 = launched).
-// x [B, T] float32; y [B, n_out] float32; table [up, K] float32.
-int mfcc_resample(const float* x, float* y, const float* table, int B, int T,
-                  int n_out, int up, int down, int half_len, int K, void* stream) {
-  if (B < 1 || T < 1 || n_out < 1 || up < 1 || down < 1 || K < 1) {
+// x [B, T] float32; y [B, n_out] float32; table [up, pp_stride] float32
+// (kernels/resample.py device_table).
+int mfcc_resample(const float* x, float* y, const float* table, int B, int T, int n_out,
+                  int up, int down, int half_len, int K, void* stream) {
+  if (B < 1 || T < 1 || n_out < 1 || up < 1 || down < 1 || K < 1 ||
+      static_cast<long long>((n_out + kTileOut - 1) / kTileOut) * B > 0x7FFFFFFF) {
     return cudaErrorInvalidValue;
   }
   const Polyphase pp{up, down, half_len, K};
-  const long long bytes = smem_bytes(pp);
+  const int bytes = layout(pp).total * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_out + kTileOut - 1) / kTileOut, B);
+  int per_sm = 0, sms = 0, dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, resample_kernel, kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((n_out + kTileOut - 1) / kTileOut) * B;
+  const dim3 grid(static_cast<unsigned>(min(tiles, static_cast<long long>(max(per_sm, 1)) * sms)));
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   resample_kernel<<<grid, kThreads, static_cast<size_t>(bytes),
-                    static_cast<cudaStream_t>(stream)>>>(x, y, table, T, n_out, pp);
+                    static_cast<cudaStream_t>(stream)>>>(x, y, table, B, T, n_out, pp, aligned);
   return cudaGetLastError();
+}
+
+// Registers, local (spilled) bytes a thread, blocks an SM and shared
+// memory a block of the kernel for this ratio, into out[0..4).
+int mfcc_resample_kernel_info(int up, int down, int half_len, int K, int* out) {
+  const Polyphase pp{up, down, half_len, K};
+  const int bytes = layout(pp).total * static_cast<int>(sizeof(float));
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, resample_kernel);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], resample_kernel, kThreads, bytes);
+  }
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[3] = bytes;
+  return err;
 }
 
 const char* mfcc_resample_error_string(int err) {

@@ -470,11 +470,12 @@ def _span(cfg: FrontendConfig, tile: int) -> int:
     return (tile - 1) * cfg.frame_step + cfg.frame_length
 
 
-def _head(cfg: FrontendConfig, tile: int, in_len: int = 0) -> int:
-    """Floats of the layout's head: the signal row (or the fused resample's
-    input window), the window and the packed mel bands."""
+def _head(cfg: FrontendConfig, tile: int, resample: bool = False) -> int:
+    """Floats of the layout's head: the signal row (one more float in the
+    fused resample, which stages x[t0-1 ..] there), the window and the
+    packed mel bands."""
     tables = mel_matrices(cfg)
-    return (_a4(max(_span(cfg, tile), in_len)) + _a4(max(cfg.frame_length, cfg.n_fft))
+    return (_a4(_span(cfg, tile) + resample) + _a4(max(cfg.frame_length, cfg.n_fft))
             + (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0))
 
 
@@ -492,47 +493,60 @@ def bf16_plan(cfg: FrontendConfig) -> tuple[int, int]:
     return plans[-1]
 
 
-def _smem(cfg: FrontendConfig, form: str) -> int:
-    """Shared memory per block of cfg's layout in a given DFT form
-    (csrc/frontend.cu layout)."""
+def resample_window(cfg: FrontendConfig) -> int:
+    """Input samples of the fused resample's window a block stages: the
+    FIR's window for x[t0-1 .. t0+span) (csrc/frontend.cu resample_window)."""
+    d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+    return rs_kernel.fir_window(_span(cfg, TILE) + 1, d)
+
+
+def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
+    """Shared memory per block of cfg's layout in a given DFT form, for
+    int16 or float32 rows (csrc/frontend.cu layout)."""
     N, M = cfg.n_fft, cfg.n_mels
-    in_len = taps = 0
-    if chain.resamples(cfg):
-        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
-        in_len = rs_kernel.input_span(_span(cfg, TILE) + 1, d)
-        taps = d["up"] * d["K"]
     if form == "bf16x3":
         tile, stages = bf16_plan(cfg)
         xs = _a4(_span(cfg, tile) + 1) if cfg.dither > 0.0 else 0
         return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), xs)
-    xs = _a4(_span(cfg, TILE) + 1) if chain.resamples(cfg) or cfg.dither > 0.0 else 0
-    n = (_head(cfg, TILE, in_len) + _a4(2 * twiddle_count(N, form))
+    resampling = chain.resamples(cfg)
+    n = (_head(cfg, TILE, resampling) + _a4(2 * twiddle_count(N, form))
          + _a4(len(stage_bases(N, form))))
     part = _a4(mel_matrices(cfg) * (32 + M))
-    n += WARPS * (2 * row_floats(N, form) + part)
-    return 4 * (n + xs + _a4(taps))
+    rows = WARPS * (2 * row_floats(N, form) + part)
+    xs = taps = 0
+    if resampling:  # the input window over the warps' rows; no x row
+        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+        rows = max(rows, rs_kernel.stage_floats(resample_window(cfg), 2 if int16 else 4))
+        taps = d["up"] * rs_kernel.table_stride(d)
+    elif cfg.dither > 0.0:
+        xs = _a4(_span(cfg, TILE) + 1)
+    return 4 * (n + rows + xs + _a4(taps))
 
 
 @functools.lru_cache(maxsize=64)
-def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4") -> int:
-    """Shared memory per block for cfg (csrc/frontend.cu layout), cached:
-    every launch checks it (`layout_reason`). The signal row (or the fused
-    resample's input window, whichever is longer), window, the packed mel
-    bands (weights, and for SSC the melf weights; the filter offsets and
-    `packed_meta`; none for a spectrogram), then for the FFT and direct
-    forms the twiddles and the stages' output bases, per warp two rows
-    (`row_floats`) and the projection's scratch (32 lane partials and M
-    filter sums, twice for SSC, none for a spectrogram); for bf16x3 the
+def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = True) -> int:
+    """Shared memory per block for cfg (csrc/frontend.cu layout) with int16
+    or float32 rows, cached: every launch checks it (`layout_reason`). The
+    signal row (span floats, span + 1 in the fused resample), window, the
+    packed mel bands (weights, and for SSC the melf weights; the filter
+    offsets and `packed_meta`; none for a spectrogram), then for the FFT
+    and direct forms the twiddles and the stages' output bases, per warp
+    two rows (`row_floats`) and the projection's scratch (32 lane partials
+    and M filter sums, twice for SSC, none for a spectrogram), which the
+    fused resample's input window (`resample_window` samples of the rows'
+    type) overlays, widening them only where it is longer; for bf16x3 the
     ring, its barriers, the tile's power rows, energies and means, and the
-    per-warp scratch (`bf16_plan`); then the staged x row of the fused
-    resample and of dither, and the resample's tap table."""
-    return _smem(cfg, kernel_form(cfg, dft_passes))
+    per-warp scratch (`bf16_plan`); then the staged x row of dither (not in
+    the fused resample), and the resample's tap table [up, table_stride].
+    The sample type changes only the fused resample's window."""
+    return _smem(cfg, kernel_form(cfg, dft_passes), int16)
 
 
 def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None:
     """Why cfg's kernel layout cannot launch (over the block's shared
-    memory), or None."""
-    n = smem_bytes(cfg, dft_passes)
+    memory), or None. Held to the float32 rows' layout, the larger, so a
+    config the port takes runs with either row type."""
+    n = smem_bytes(cfg, dft_passes, int16=False)
     if n <= rs_kernel.SMEM_BUDGET_BYTES:
         return None
     return (
@@ -580,10 +594,10 @@ def _lib() -> ctypes.CDLL:
 def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radix4") -> dict:
     """The card's view of cfg's kernel instantiation (needs a card):
     registers a thread, local (spilled) bytes a thread, and the blocks an SM
-    holds at cfg's shared memory (`smem_bytes`), from cudaFuncGetAttributes
+    holds at cfg's shared memory for these rows (`smem_bytes`), from cudaFuncGetAttributes
     and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
     out = (ctypes.c_int * 3)()
-    smem = smem_bytes(cfg, dft_passes)
+    smem = smem_bytes(cfg, dft_passes, int16)
     rc = _lib().mfcc_frontend_kernel_info(
         int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
         int(chain.needs_conditioning(cfg)), int(kernel_form(cfg, dft_passes) == "bf16x3"), smem, out)

@@ -25,9 +25,11 @@ from mfcc_tpu_torch.kernels import _build
 from mfcc_tpu_torch.ops import resample as R
 from mfcc_tpu_torch.ops.resample import resample_reference  # noqa: F401
 
-TILE_OUT = 2048  # outputs per block (csrc/resample.cu kTileOut)
+FIR_R1 = 7  # consecutive outputs a thread at up = 1 (csrc/polyphase.cuh kPpR1)
+FIR_RU = 4  # outputs a thread, up apart, at up > 1 (kPpRU)
+TILE_OUT = FIR_R1 * 256  # outputs a tile: one group a thread of 256 (csrc/resample.cu kTileOut)
 SMEM_BUDGET_BYTES = 232448  # the H100's dynamic shared memory per block
-MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
+MAX_TILES = 2**31 - 1  # tiles of all rows: the kernel's int tile index
 
 launches = 0
 
@@ -36,17 +38,64 @@ def _align4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def table_stride(d: dict) -> int:
+    """Taps a row of the staged table (csrc/polyphase.cuh pp_stride): at
+    up = 1 K rounded up to a multiple of down * FIR_R1 (equal residue
+    classes, each whole steps of FIR_R1), at up > 1 K rounded up to odd
+    (bank-distinct rows)."""
+    if d["up"] == 1:
+        block = d["down"] * FIR_R1
+        return -(-d["K"] // block) * block
+    return d["K"] | 1
+
+
+def fir_taps(d: dict) -> int:
+    """Taps an output reads (pp_taps): the padded row at up = 1, K else."""
+    return table_stride(d) if d["up"] == 1 else d["K"]
+
+
+def first_input(j: int, d: dict) -> int:
+    """Lowest input index outputs from j on read (pp_first_input)."""
+    return (j * d["down"] + d["half_len"]) // d["up"] - (fir_taps(d) - 1)
+
+
 def input_span(n: int, d: dict) -> int:
     """Input samples that n consecutive outputs read (csrc/polyphase.cuh
     pp_input_span)."""
-    return ((n - 1) * d["down"] + d["up"] - 1) // d["up"] + d["K"]
+    return ((n - 1) * d["down"] + d["up"] - 1) // d["up"] + fir_taps(d)
+
+
+def fir_window(n: int, d: dict) -> int:
+    """The window the FIR reads for n outputs (pp_window): at up = 1 the
+    last thread's FIR_R1 outputs may run past n."""
+    return input_span(-(-n // FIR_R1) * FIR_R1 if d["up"] == 1 else n, d)
+
+
+def stage_floats(n: int, sample_bytes: int = 4) -> int:
+    """Floats of shared memory a staged window of n samples takes
+    (pp_stage_floats): n rounded up to whole 16-byte vectors, plus one
+    vector for the shift to the 16-byte boundary below its first sample."""
+    v = 16 // sample_bytes
+    return (-(-n // v) * v + v) * sample_bytes // 4
+
+
+def table(up: int, down: int, scale: float = 1.0) -> np.ndarray:
+    """The staged tap table, float32 [up, table_stride]: polyphase_design's
+    rows times `scale`, rounded once, zeros past K."""
+    d = R.polyphase_design(up, down)
+    t = np.zeros((d["up"], table_stride(d)), dtype=np.float32)
+    t[:, : d["K"]] = d["table"] * scale
+    return t
 
 
 def smem_bytes(up: int, down: int) -> int:
-    """Shared memory the kernel needs for this reduced ratio: the [up, K]
-    tap table plus one tile's input window, float32."""
+    """Shared memory the kernel needs for this reduced ratio (csrc/resample.cu
+    layout): the tap table, two tiles' input windows (`stage_floats`: the
+    current tile's and the next one's, copied while the current one is
+    computed), and the tile's output row, float32."""
     d = R.polyphase_design(up, down)
-    return (_align4(d["up"] * d["K"]) + input_span(TILE_OUT, d)) * 4
+    return (_align4(d["up"] * table_stride(d)) + 2 * stage_floats(fir_window(TILE_OUT, d))
+            + TILE_OUT) * 4
 
 
 def check_budget(nbytes: int, what: str) -> None:
@@ -59,8 +108,7 @@ def check_budget(nbytes: int, what: str) -> None:
 
 @functools.lru_cache(maxsize=16)
 def device_table(up: int, down: int, scale: float, device: torch.device) -> torch.Tensor:
-    table = R.polyphase_design(up, down)["table"] * scale
-    return torch.as_tensor(table.astype(np.float32).ravel(), device=device)
+    return torch.as_tensor(table(up, down, scale).ravel(), device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,9 +117,26 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mfcc_resample.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.mfcc_resample.restype = ctypes.c_int
+    lib.mfcc_resample_kernel_info.argtypes = [i, i, i, i, p]
+    lib.mfcc_resample_kernel_info.restype = ctypes.c_int
     lib.mfcc_resample_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_resample_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_info(sr_in: int, sr_out: int) -> dict:
+    """The card's view of the kernel at this ratio (needs a card):
+    registers and local (spilled) bytes a thread, blocks an SM and shared
+    memory a block, from cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    d = R.polyphase_design(*R.ratio(sr_in, sr_out))
+    out = (ctypes.c_int * 4)()
+    rc = _lib().mfcc_resample_kernel_info(d["up"], d["down"], d["half_len"], d["K"], out)
+    if rc != 0:
+        raise RuntimeError(f"resample kernel info failed: "
+                           f"{_lib().mfcc_resample_error_string(rc).decode()} (cudaError {rc})")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2],
+            "smem_bytes": out[3]}
 
 
 def polyphase_resample(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
@@ -101,8 +166,8 @@ def polyphase_resample(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Te
         return audio.new_zeros(lead + (n_out,))
     x = audio.reshape(-1, n_in)
     B = x.shape[0]
-    if B > MAX_BATCH:
-        raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
+    if -(-n_out // TILE_OUT) * B > MAX_TILES:
+        raise ValueError(f"{B} rows of {n_out} outputs exceed the kernel's {MAX_TILES} tiles")
     out = torch.empty((B, n_out), dtype=torch.float32, device=audio.device)
     d = R.polyphase_design(up, down)
     table = device_table(up, down, 1.0, audio.device)

@@ -11,7 +11,9 @@ cut before the projection (P2: each frame writes its first power bins, so
 staging, the DFT and the split still run). Times each with the profiler's
 device time of the kernel, L2 flushed before every launch, in turns
 (P1, P2, P0, P0, P2, P1), at classic13_deltas b64 x 10 s, logmel80 b256 x
-10 s and whisper80 b64 x 30 s int16, and at classic13 b64 x 10 s through
+10 s, whisper80 b64 x 30 s and mfcc39_48k b64 x 10 s (the fused resample's
+int16 instantiation: there P1 is the staging with the FIR) int16, and at
+classic13 b64 x 10 s through
 the bf16x3 form (there P2 - P1 is the tensor-core product and its |X|^2
 stores), and prints the registers (ptxas) and
 the blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
@@ -70,7 +72,8 @@ extern "C" int frontend_breakdown_blocks(int smem) {
 }
 """
 PATHS = (("classic13_deltas", 64, 10, "radix4"), ("logmel80", 256, 10, "radix4"),
-         ("whisper80", 64, 30, "radix4"), ("classic13", 64, 10, "bf16x3"))
+         ("whisper80", 64, 30, "radix4"), ("mfcc39_48k", 64, 10, "radix4"),
+         ("classic13", 64, 10, "bf16x3"))
 PLAIN, BF16X3 = "logmel_kernelIsLb0ELb0ELb0ELb0E", "logmel_kernelIsLb0ELb0ELb0ELb1E"  # int16 instantiations
 
 
@@ -228,25 +231,28 @@ def main() -> int:
               f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
         for name, B, secs, passes in PATHS:
             cfg = named_config(name)
-            n = cfg.sample_rate * secs
+            n = (cfg.input_sample_rate or cfg.sample_rate) * secs
+            step = 1713 if cfg.input_sample_rate else 571  # chip_smoke.py's rows
             g = np.random.default_rng(0)
             if name == "whisper80":
                 pcm = (g.standard_normal((B, n)) * 3000).astype(np.int16)
                 audio = torch.as_tensor(pcm, device="cuda")
                 lengths = torch.full((B,), n, dtype=torch.int32, device="cuda")
             else:
-                utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(B)]
+                utts = [(g.standard_normal(n - step * i) * 3000).astype(np.int16) for i in range(B)]
                 batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
                 audio = torch.as_tensor(batch.audio, device="cuda")
                 lengths = torch.as_tensor(batch.lengths, device="cuda")
             smem = frontend.smem_bytes(cfg, passes)
             ms = time_cuts(torch, frontend, libs, cfg, audio, lengths, passes)
             p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
-            blocks = (frontend.kernel_info(cfg, True, passes)["blocks_per_sm"] if passes == "bf16x3"
+            own = passes == "bf16x3" or cfg.input_sample_rate  # not the plain instantiation
+            blocks = (frontend.kernel_info(cfg, True, passes)["blocks_per_sm"] if own
                       else libs[0].frontend_breakdown_blocks(smem))
             dft = "tensor-core product" if passes == "bf16x3" else "DFT and split"
-            print(f"  {name} {passes} b{B} x {secs} s: P1 staging {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
-                  f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); staging {p1:.4f}, "
+            stage = "staging with the FIR" if cfg.input_sample_rate else "staging"
+            print(f"  {name} {passes} b{B} x {secs} s: P1 {stage} {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
+                  f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); {stage} {p1:.4f}, "
                   f"{dft} {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
                   f"{blocks} blocks an SM [{card}]")
             del audio, lengths

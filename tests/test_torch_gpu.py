@@ -148,6 +148,43 @@ def test_resample_kernel_refusals():
         resample.resample_batch(x[:, ::2], 48000, 16000)
 
 
+@pytest.mark.parametrize("config_name,blocks", [("mfcc39_48k", 3), ("mfcc39_44k", 2)])
+def test_fused_resample_blocks_an_sm(config_name, blocks):
+    """The fused form's int16 instantiation holds three blocks an SM at 48
+    kHz and two at 44.1 kHz, with no spills and at most 80 registers (the
+    FFT forms' launch bounds); float32 rows take fewer blocks, no fewer
+    than one; resample.cu spills nothing, and its layout is the one
+    `resample.smem_bytes` mirrors."""
+    _card()
+    cfg = NAMED_CONFIGS[config_name]
+    info = frontend.kernel_info(cfg, True)
+    assert info["blocks_per_sm"] >= blocks, info
+    assert info["local_bytes"] == 0 and info["registers"] <= 80, info
+    f32 = frontend.kernel_info(cfg, False)
+    assert 1 <= f32["blocks_per_sm"] <= info["blocks_per_sm"] and f32["local_bytes"] == 0, f32
+    rs = rs_kernel.kernel_info(cfg.input_sample_rate, cfg.sample_rate)
+    assert rs["local_bytes"] == 0 and rs["blocks_per_sm"] >= 1, rs
+    assert rs["smem_bytes"] == rs_kernel.smem_bytes(*resample.ratio(cfg.input_sample_rate, 16000))
+
+
+def test_fused_resample_over_budget_raises():
+    """A ratio whose fused layout does not fit the block (16000/15999: a
+    16,000 x 21 tap table) raises on the card before any launch, as
+    chain.unsupported_reason refuses it on the CPU; it never becomes the
+    two-launch split."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["mfcc39_48k"].replace(input_sample_rate=15999)
+    assert frontend.layout_reason(cfg) is not None
+    audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
+    lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
+    before = (frontend.launches, frontend.resample_launches, rs_kernel.launches)
+    with pytest.raises(NotImplementedError, match="232,448"):
+        frontend.logmel_prefix(audio, lengths, cfg)
+    with pytest.raises(NotImplementedError, match="232,448"):
+        chain.extract_batch(audio, lengths, cfg)
+    assert (frontend.launches, frontend.resample_launches, rs_kernel.launches) == before
+
+
 @pytest.mark.parametrize("config_name", ["mfcc39_48k", "mfcc39_44k"])
 def test_fused_resample_matches_reference(config_name):
     """Boundary input lengths (frame and first-tile edges), garbage past

@@ -320,7 +320,7 @@ def test_smem_budget():
         assert K.smem_bytes(*R.ratio(sr_in, sr_out)) <= K.SMEM_BUDGET_BYTES
         cfg = T_CONFIGS["mfcc39_48k"].replace(input_sample_rate=sr_in)
         assert frontend.smem_bytes(cfg) <= K.SMEM_BUDGET_BYTES
-    assert frontend.smem_bytes(T_CONFIGS["mfcc39_44k"]) == 166384
+    assert frontend.smem_bytes(T_CONFIGS["mfcc39_44k"]) == 107696  # two blocks an SM
     assert frontend.smem_bytes(T_CONFIGS["classic13"]) == 71200  # the plain form
     big = K.smem_bytes(*R.ratio(16000, 15999))
     with pytest.raises(ValueError, match="232,448 bytes"):
