@@ -9,24 +9,29 @@ Phases, in order; any failure exits non-zero:
      together, with phase 20's three breakdown cuts of the front-end) and
      print ptxas usage; then, from the card, the registers, local (spilled)
      bytes and blocks an SM of each FFT-form instantiation of the front-end
-     kernel (no spills, 80 registers or fewer; classic13, logmel80 and
-     whisper80 at three blocks an SM or more; the fused resample's int16
-     instantiation at three for mfcc39_48k and two for mfcc39_44k, its
-     float32 one printed; the Bluestein form at n_fft 404 at two) and of
-     each bf16x3 instantiation (no spills);
+     kernel (no spills, 80 registers or fewer; classic13, logmel80,
+     whisper80 and kaldi_mfcc with dither 1.0 at three blocks an SM or more;
+     the fused resample's int16 instantiation at three for mfcc39_48k and
+     two for mfcc39_44k, its float32 one printed; the Bluestein form at
+     n_fft 404 at two, and with dither printed) and of each bf16x3
+     instantiation (no spills);
   3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
      n - 571*i): the front-end kernel against its plain version (the
      test_kernel_matches_jnp_twin gates, int16 rows ≡ float32 rows bitwise,
      boundary lengths, garbage past each length leaving the output
-     unchanged); then `chain.extract_batch` with every launch count set to
-     0 just before and read just after (the front-end kernel and the
-     feature-tail kernel once each): features [64, 999, 39], finite, pad
-     frames exactly 0, within 5e-4 of the CPU chain and of the float64
-     chain on four rows; the tail kernel on the front-end's own prefix
-     against its plain version (max(2e-4, 2e-5 max|f|)), masks equal, pad
-     rows 0, and extract_batch's features bitwise the tail's; times (the
-     tail kernel and the torch epilogue in turns, the epilogue's device
-     kernels and time);
+     unchanged); the kernel's n_valid and frame mask bitwise
+     chain.num_valid_frames / frame_mask of the same card lengths (also at
+     lengths 0, 1, L - 1, L, L + 1 and T); then `chain.extract_batch` with
+     every launch count set to 0 just before and read just after (the
+     front-end kernel and the feature-tail kernel once each): features [64,
+     999, 39], finite, pad frames exactly 0, within 5e-4 of the CPU chain and
+     of the float64 chain on four rows; the tail kernel on the front-end's
+     own prefix against its plain version (max(2e-4, 2e-5 max|f|)), masks
+     equal, pad rows 0, and extract_batch's features bitwise the tail's;
+     times (the tail kernel's device time with its share of the bound and
+     the torch epilogue, in turns; the epilogue's device kernels and time);
+     the profiler's device kernels of one step with int32 lengths on the
+     card, which must be the front-end and the tail alone;
   4. path mfcc39_48k (b64 x 10 s int16 PCM at 48 kHz, lengths
      480,000 - 1,713*i): the fused resample of the front-end kernel against
      its plain version (prefix gates, int16 ≡ float32 bitwise, dirty tails,
@@ -119,6 +124,11 @@ Phases, in order; any failure exits non-zero:
   21. n_fft 2048 (classic13, 26 filters), b16: the Stockham form at 1,024
      points (8*8*8*2) against the float64 plain version, counted, its
      features within 5e-4 of the CPU chain.
+  Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
+  bitwise to chain.num_valid_frames / frame_mask of the same card lengths
+  ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
+  from 48 and 44.1 kHz; each also at lengths 0, 1, L - 1, L, L + 1 and T);
+  phase 7 times the dithered front-end beside the undithered one in turns.
   Phases 13-18 each hold the kernel to its plain version (whisper80 and the
   n_fft 404, 551, 1102 and 480 sizes: the float64 plain version, computed
   on the CPU: the card's float64 rfft at odd sizes such as 551 is not
@@ -387,12 +397,17 @@ def device_ms(torch, fn, kernel_substr: str | None = None, steps: int = 5) -> fl
     each call (`trace`). CUDA events around one launch of a kernel of ~0.1
     ms also hold the host's time in the wrapper: at b16 they read n_fft 512
     at 0.2225 ms on one host. Where the profiler lost records in all three
-    traces: CUDA events (said so)."""
+    traces (with None: fewer kernel records than calls; one run lost every
+    record of `rfft(n=1102)`): CUDA events (said so)."""
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    on_device, ours = trace(torch, lambda: (flush.zero_(), fn()), kernel_substr, steps)
-    if kernel_substr is None:
-        ours = [e for e in on_device if "Fill" not in e.name and "Memset" not in e.name]
-    elif len(ours) != steps:
+    for _ in range(3 if kernel_substr is None else 1):
+        on_device, ours = trace(torch, lambda: (flush.zero_(), fn()), kernel_substr, steps)
+        if kernel_substr is None:  # fn's own kernels: at least one a call
+            ours = [e for e in on_device if "Fill" not in e.name and "Memset" not in e.name]
+            if len(ours) >= steps:
+                break
+            print(f"  profiler: {len(ours)} kernel records for {steps} calls, tracing again")
+    if len(ours) < steps or (kernel_substr is not None and len(ours) != steps):
         print("  (the profiler lost records in three traces: CUDA events, the wrapper's host "
               "time included)")
         return cuda_ms(torch, fn)
@@ -531,6 +546,54 @@ def dirty_rows(torch, audio, lengths, seed: int):
     garbage = torch.randint(-32768, 32767, audio.shape, dtype=torch.int16, device=audio.device,
                             generator=torch.Generator(audio.device).manual_seed(seed))
     return torch.where(t < lengths[:, None], audio, garbage.to(audio.dtype))
+
+
+def edge_lengths(cfg, T: int) -> list[int]:
+    """0, 1, a frame length less one, the frame length and one more, in the
+    rows' own samples (input samples for resampled rows), and T."""
+    L = -(-cfg.frame_length * (cfg.input_sample_rate or cfg.sample_rate) // cfg.sample_rate)
+    return [0, 1, L - 1, L, L + 1, T]
+
+
+def check_counts(torch, frontend, audio, lengths, cfg, what: str, dft_passes: str = "radix4") -> None:
+    """The front-end kernel's n_valid and frame mask (`logmel_prefix_counts`)
+    bitwise equal to chain.num_valid_frames / chain.frame_mask of the same
+    card lengths (`frame_counts_reference`: of the output lengths for
+    resampled rows), on the batch and on its first rows at `edge_lengths`."""
+    T = audio.shape[1]
+    edge = torch.tensor(edge_lengths(cfg, T), dtype=torch.int32, device=audio.device)
+    pick = torch.arange(edge.numel(), device=audio.device) % audio.shape[0]
+    for rows, lens, tag in ((audio, lengths, "the batch"),
+                            (audio[pick].contiguous(), edge, f"lengths {edge.tolist()}")):
+        prefix, nv, mask = frontend.logmel_prefix_counts(rows, lens, cfg, dft_passes=dft_passes)
+        want_nv, want_mask = frontend.frame_counts_reference(lens, cfg, prefix.shape[1])
+        check(torch.equal(nv, want_nv) and torch.equal(mask, want_mask),
+              f"{what} ({cfg.frame_tail}{', drop_last_frame' if cfg.drop_last_frame else ''}), {tag}: "
+              "the kernel's n_valid and mask == chain.num_valid_frames / frame_mask, bitwise")
+
+
+def in_turns(torch, fns, reps: int = 20) -> list[float]:
+    """`cuda_ms` of each fn, in turns (a, b, ..., b, a); the mean of each
+    fn's two runs."""
+    order = list(range(len(fns))) + list(reversed(range(len(fns))))
+    runs = [[] for _ in fns]
+    for i in order:
+        runs[i].append(cuda_ms(torch, fns[i], reps=reps))
+    return [float(np.mean(r)) for r in runs]
+
+
+def step_kernels(torch, fn, steps: int = 5) -> tuple[float, dict[str, float]]:
+    """(device events a call, {event name: events a call}) over `steps`
+    traced calls of fn after two warm-up calls (`trace`); a trace that lost
+    some front-end records is taken again, up to three times."""
+    for _ in range(3):
+        on_device, _ = trace(torch, fn, "tail_kernel", steps)
+        if sum("logmel_kernel" in e.name for e in on_device) == steps:
+            break
+    names: dict[str, float] = {}
+    for e in on_device:
+        names[e.name] = names.get(e.name, 0) + 1 / steps
+    return len(on_device) / steps, names
 
 
 def make_batch(pad_batch, cfg, rows: int, n: int, step: int, seed: int):
@@ -782,6 +845,7 @@ def whisper_path(torch, counters, tag: str) -> dict:
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
           "int16 rows == the same rows in float32, bitwise")
     del got
+    check_counts(torch, frontend, audio, lengths, cfg, "whisper80")
 
     counters.zero()
     feat, mask = chain.extract_batch(pcm, lens, cfg)
@@ -852,6 +916,7 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths_d, seed),
                                                   lengths_d, cfg)),
           "garbage past each length leaves the output unchanged")
+    check_counts(torch, frontend, audio, lengths_d, cfg, what)
     del got
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
@@ -1099,8 +1164,12 @@ def tail_paths(torch, counters, tag: str) -> None:
         print(f"   {name} {over}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
         check(not testing.tail_failures(errs), f"{name} {over}: the tail within its gate of the plain version")
         cpu_nv = chain.num_valid_frames(torch.as_tensor(batch.lengths), cfg)
-        check(torch.equal(st["frame_mask"].cpu(), chain.frame_mask(cpu_nv, got.shape[1], torch.float32)),
-              "masks equal to the CPU chain's")
+        check(torch.equal(st["frame_mask"].cpu(), chain.frame_mask(cpu_nv, got.shape[1], torch.float32))
+              and torch.equal(st["n_valid"].cpu(), cpu_nv.to(torch.int32)),
+              "the kernel's n_valid and mask equal to the CPU chain's")
+        want_nv, want_mask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
+        check(torch.equal(st["n_valid"], want_nv) and torch.equal(st["frame_mask"], want_mask),
+              "and to chain.num_valid_frames / frame_mask on the same card lengths, bitwise")
         check(bool((got[st["frame_mask"] == 0] == 0).all()), "pad rows exactly 0")
 
 
@@ -1168,6 +1237,7 @@ def bf16x3_path(torch, counters, tag: str, breakdown, cuts: dict, lib_path) -> d
     del f64
     check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3")),
           "int16 rows == the same rows in float32, bitwise")
+    check_counts(torch, frontend, audio, lengths, cfg, "bf16x3 classic13", "bf16x3")
 
     print(f"  times {tag}")
     runs = []
@@ -1276,6 +1346,12 @@ def occupancy(frontend, named_config) -> None:
               f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
         if name in ("classic13_deltas", "logmel80", "whisper80"):
             check(info["blocks_per_sm"] >= 3, f"{name}: three blocks an SM or more")
+    info = frontend.kernel_info(named_config("kaldi_mfcc").replace(dither=1.0))
+    print(f"    kaldi_mfcc, dither 1.0: {info['smem_bytes']} B of shared memory a block, "
+          f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers, "
+          f"{info['local_bytes']} local bytes")
+    check(info["blocks_per_sm"] >= 3, "kaldi_mfcc with dither 1.0 (the dither in the signal row): "
+                                      "three blocks an SM or more")
     print("  the fused resample's instantiations: int16 rows stage their window as int16 over the "
           "warps' rows; float32 rows widen it")
     for name, blocks in (("mfcc39_48k", 3), ("mfcc39_44k", 2)):
@@ -1294,6 +1370,9 @@ def occupancy(frontend, named_config) -> None:
               f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
         if n_fft == 404:
             check(info["blocks_per_sm"] >= 2, "the Bluestein form at n_fft 404: two blocks an SM or more")
+            info = frontend.kernel_info(cfg.replace(dither=1.0))
+            print(f"    classic13 n_fft 404, dither 1.0: {info['smem_bytes']} B of shared memory a block, "
+                  f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
     print("  bf16x3 instantiations (rows, dither, conditioning): registers, local bytes, blocks an SM "
           "at that config's shared memory (frames a block, ring stages)")
     for int16 in (True, False):
@@ -1388,6 +1467,8 @@ def main() -> int:
           and bool(torch.allclose(b_got[0, :, :M].cpu(), torch.log(eps), rtol=1e-6)),
           "length-0 row is the clamp constant")
 
+    check_counts(torch, frontend, audio, lengths, cfg, "classic13_deltas")
+
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
@@ -1395,6 +1476,13 @@ def main() -> int:
     check_features(torch, chain, testing, batch, cfg, feat, mask, testing.FEATURE_ATOL)
     results["feature_tail"] = main_path_tail(torch, chain, testing, tail, cfg, got, lengths, feat,
                                              mask, launches, tag)
+    lengths32 = lengths.to(torch.int32)
+    per_step, names = step_kernels(torch, lambda: chain.extract_batch(audio, lengths32, cfg))
+    print(f"  one extract_batch step (int16 rows, int32 lengths on the card): {per_step:.0f} device "
+          f"kernels: " + ", ".join(f"{k[:60]} x{v:g}" for k, v in sorted(names.items())))
+    others = [k for k in names if "logmel_kernel" not in k and "tail_kernel" not in k]
+    check(not others and any("logmel_kernel" in k for k in names) and all(v <= 1 for v in names.values()),
+          "the classic13_deltas step runs the front-end and the tail kernel and no other device kernel")
 
     print(f"  times {tag}")
     kernel_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
@@ -1448,6 +1536,8 @@ def main() -> int:
     check_prefix(testing, b_got, frontend.logmel_prefix_reference(b_clean, bl, cfg), cfg,
                  "boundary input lengths")
     del plain
+    check_counts(torch, frontend, audio, lengths, cfg, "mfcc39_48k")
+    check_counts(torch, frontend, b_dirty, bl, cfg, "mfcc39_48k")
 
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
@@ -1572,6 +1662,7 @@ def main() -> int:
           "int16 rows == the same rows in float32, bitwise")
     check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 5), lengths, cfg)),
           "garbage past each input length leaves the output unchanged")
+    check_counts(torch, frontend, audio, lengths, cfg, "mfcc39_44k")
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
@@ -1644,6 +1735,7 @@ def main() -> int:
           "another seed gives another draw")
     check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 8), lengths, cfg)),
           "garbage past each length leaves the output unchanged")
+    check_counts(torch, frontend, audio, lengths, cfg, "kaldi_mfcc dither 1.0")
     twin, twin_len = audio.clone(), lengths.clone()
     twin[B - 1], twin_len[B - 1] = audio[0], lengths[0]
     nv = int(chain.num_valid_frames(lengths[:1], cfg)[0])
@@ -1676,8 +1768,8 @@ def main() -> int:
 
     print(f"  times {tag}")
     plain_cfg = cfg.replace(remove_dc_offset=False, preemph_mode="signal", energy_source="pspec")
-    kd_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
-    kc_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg0))
+    kd_ms, kc_ms = in_turns(torch, [lambda: frontend.logmel_prefix(audio, lengths, cfg),
+                                    lambda: frontend.logmel_prefix(audio, lengths, cfg0)])
     kn_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, plain_cfg.replace(dither=0.0)))
     pd_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=10)
     pc_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg0), reps=10)
@@ -1685,8 +1777,11 @@ def main() -> int:
     nbytes = frontend_bytes(cfg, frontend, lens, B, F)
     bc_ms, bc_by = bound(nbytes, frontend_ops(cfg0, chain, frontend, torch, lens, F))
     bd_ms, bd_by = bound(nbytes, frontend_ops(cfg, chain, frontend, torch, lens, F))
-    print(f"  kernel with conditioning and dither 1.0: {kd_ms:.4f} ms ({bd_ms / kd_ms * 100:.1f}% of bound) {tag}")
-    print(f"  kernel with conditioning, no dither: {kc_ms:.4f} ms ({bc_ms / kc_ms * 100:.1f}% of bound) {tag}")
+    info = frontend.kernel_info(cfg)
+    print(f"  kernel with conditioning and dither 1.0: {kd_ms:.4f} ms ({bd_ms / kd_ms * 100:.1f}% of bound; "
+          f"{info['blocks_per_sm']} blocks an SM at {info['smem_bytes']} B) {tag}")
+    print(f"  kernel with conditioning, no dither: {kc_ms:.4f} ms ({bc_ms / kc_ms * 100:.1f}% of bound; "
+          f"timed in turns with the dithered one: dither, none, none, dither) {tag}")
     print(f"  kernel without either (signal pre-emphasis, pspec energy, ln_floor): {kn_ms:.4f} ms {tag}")
     print(f"  dither adds {kd_ms - kc_ms:.4f} ms, conditioning {kc_ms - kn_ms:.4f} ms {tag}")
     print(f"  plain version with dither: {pd_ms:.4f} ms, without: {pc_ms:.4f} ms {tag}")

@@ -137,15 +137,16 @@
 //
 // Shared memory (floats, every offset 16-byte aligned; kernels/frontend.py
 // smem_bytes mirrors it): the signal row (one more float in the fused
-// resample), the window, the packed weights (mel; melf
+// resample and under dither: x[t0-1 .. t0+span)), the window, the packed weights (mel; melf
 // after it for ssc), the filters' offsets [M+1] and the weights' bin-filter
 // words, the twiddles (the split's N/4 + 1 entries, then each later stage's
 // (H/R)(R - 1) twists), the stages' output bases, then per warp its two
 // rows and its projection scratch (32 lane partials and M sums; twice for
 // ssc; none for a spectrogram), which the fused resample's input window
-// overlays (widening them only where it is longer), then the dither's x
-// row and the resample's taps. classic13 takes 71,200 B, logmel80 73,184,
-// whisper80 62,832, ssc26 74,832: three blocks an SM (24 warps) for each.
+// overlays (widening them only where it is longer), then the resample's
+// taps. classic13 takes 71,200 B, logmel80 73,184, whisper80 62,832, ssc26
+// 74,832, kaldi_mfcc with dither 71,232: three blocks an SM (24 warps) for
+// each.
 // The Bluestein form's table holds the split, the P-point stages' twists,
 // the chirp and the filter spectrum, its bases the P-point stages', its
 // rows P + P/8 + 1 float2: 114,384 B at classic13 n_fft 404, two blocks an
@@ -214,10 +215,15 @@
 // The hash is native uint32; the uniforms (k + 0.5) * 2^-16 and the cos
 // polynomial use __fmul_rn / __fadd_rn, so nvcc contracts none of them into
 // an FMA and they stay bit-equal to the numpy contract; only logf and sqrtf
-// may differ by ulps. The plain form stages x[t0-1 .. t0+span) once,
-// dithered, in a shared row (as the fused form's resampled row), and
-// pre-emphasizes from there, so the hash runs once per staged sample;
-// centered framing hashes x[r] (and x[r-1] when c != 0) per staged sample.
+// may differ by ulps. The plain form stages x[t0-1 .. t0+span) into the
+// signal row itself (x[t0 .. t0+span) in frame mode, where c = 0), the loads
+// kStageBatch at a time as the dither-free staging issues them; a pass over
+// the row then adds the noise in place at 0 <= t < length, so the hash runs
+// once per staged sample, and pre-emphasis and zeroing follow in place a
+// chunk at a time, each chunk read whole before it is written (the fused
+// form's order, 1r). No second row is kept: kaldi_mfcc with dither takes
+// 71,232 B, three blocks an SM, as without it. Centered framing hashes x[r]
+// (and x[r-1] when c != 0) per staged sample.
 // Cost per sample that holds signal: 30 float operations (uniforms 4, ln,
 // -2x, sqrt, cos 20, r cos, sigma n, the add) and 25 integer ones (two
 // fmix32, the row key, t / S and t % S, the 16-bit halves and their
@@ -239,6 +245,16 @@
 //   E    = sum (w g)^2 (windowed_frame), from those loads and a pass over
 //          the samples past N;
 // and lane M holds max(E, eps) for the two frame energies.
+//
+// Valid frame counts and the frame mask (the reference's _stage_dict :1896;
+// ops/chain.py num_valid_frames and frame_mask): every block computes its
+// row's count from lengths[b] as given (in the fused resample from the
+// output length ceil(lengths[b] up / down), in 64 bits), writes the mask of
+// its own frames, and the row's first block writes n_valid[b]. So a card
+// step launches no torch kernel for them. The count is integer arithmetic
+// whose numerators are all made non-negative first, as the torch version's
+// clamps and branches do, so C's truncating division equals its floor
+// division.
 //
 // Epilogue log kinds (_make_epilogue :693-702), a warp-uniform switch:
 //   ln: ln(where(m <= 0, eps, m)); ln_stab: ln(m + 1e-6);
@@ -351,14 +367,15 @@ constexpr int kBfMaxStages = 4;
 constexpr int kConsumers = 128;
 constexpr int kProducer = 128;
 
-// energy_source, log_kind, feature_kind, DFT form and reflection codes
-// (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
-// kernels/frontend.py FEATURE_KINDS, DFT_FORMS, CENTER_CODES)
+// energy_source, log_kind, feature_kind, DFT form, reflection and framing
+// codes (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
+// kernels/frontend.py FEATURE_KINDS, DFT_FORMS, CENTER_CODES, FRAMINGS)
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
 enum { kStockham = 0, kDirect = 1, kBf16x3 = 2, kBluestein = 3 };
 enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
+enum { kFramePad = 0, kFrameDrop = 1, kFrameCenter = 2, kFrameCenterReflect = 3 };  // FRAMINGS
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int align32(int n) { return (n + 31) & ~31; }
@@ -381,6 +398,8 @@ struct Params {
   int remove_dc, energy_source, log_kind;
   float frame_preemph, frame_keep0;
   int feature_kind;
+  // the frame counts' framing code and drop_last_frame
+  int framing, drop_last;
   // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
   // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
   // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
@@ -410,20 +429,20 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // warp 0's projection scratch (32 lane partials and the M filter sums, for
 // each weight table), pstride the step to the next warp's.
 struct Layout {
-  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, xs,
-      tab, total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, tab,
+      total;
 };
 
 // fir is the fused resample's input window in floats (0 without it): it
 // lies over the warps' rows, which stand idle until the DFT, and widens
-// them only where it is longer; the signal row then holds span + 1 floats
-// (x[t0-1 .. t0+span) before pre-emphasis).
-__host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool xs) {
+// them only where it is longer. wide (the fused resample, and kDither) gives
+// the signal row span + 1 floats: x[t0-1 .. t0+span) before pre-emphasis.
+__host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide) {
   Layout l;
   const int tables = weight_tables(p);
   const int parts = align4(tables * (32 + p.M));
   l.span = ((p.form == kBf16x3 ? p.tile : kTile) - 1) * p.S + p.L;
-  l.win = align4(l.span + (fir > 0 ? 1 : 0));
+  l.win = align4(l.span + (wide ? 1 : 0));
   l.melw = l.win + align4(imax(p.L, p.n_fft));
   l.melf = l.melw + align4(p.nnz);  // ssc only
   l.moff = l.melw + tables * align4(p.nnz);
@@ -440,16 +459,15 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
     l.mu = l.ef + align4(p.tile);
     l.part = l.mu + align4(p.tile);
     l.pstride = parts;
-    l.xs = l.part + kWarps * parts;
+    l.tab = l.part + kWarps * parts;
   } else {
     l.row = p.form == kDirect ? align4(imax(p.n_fft, p.bins))
                               : align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + 2 * l.row;
     l.pstride = 2 * l.row + parts;
     l.bar = l.pw = l.ef = l.mu = 0;
-    l.xs = l.buf + imax(kWarps * l.pstride, align4(fir));
+    l.tab = l.buf + imax(kWarps * l.pstride, align4(fir));
   }
-  l.tab = l.xs + (xs ? align4(l.span + 1) : 0);
   l.total = l.tab + align4(taps);
   return l;
 }
@@ -554,6 +572,33 @@ __device__ inline long long reflect(long long t, long long n, int kind) {
   if (m < 0) m += per;
   if (m < n) return m;
   return kind == kCenter ? 2 * n - 1 - m : 2 * n - 2 - m;
+}
+
+// ops/chain.py num_valid_frames for a row of n samples at the frame rate:
+// 1 + ceil(max(0, n - L) / S) ("pad"), 1 + (n - L) / S for n >= L else 0
+// ("drop"), (n + S/2) / S ("center"), 1 + (n + 2 (L/2) - L) / S
+// ("center_reflect"), one fewer under drop_last_frame (not below 0), and 0
+// for n <= 0. Every numerator is non-negative where it is divided, so C's
+// truncation is the floor division of the torch version; 64-bit throughout.
+__device__ inline int valid_frames(long long n, const Params& p) {
+  if (n <= 0) return 0;
+  const long long L = p.L, S = p.S;
+  long long v;
+  switch (p.framing) {
+    case kFrameDrop:
+      v = n >= L ? 1 + (n - L) / S : 0;
+      break;
+    case kFrameCenter:
+      v = (n + S / 2) / S;
+      break;
+    case kFrameCenterReflect:
+      v = 1 + (n + 2 * (L / 2) - L) / S;  // n >= 1: the numerator is >= 0
+      break;
+    default:
+      v = 1 + ((n > L ? n - L : 0) + S - 1) / S;
+  }
+  if (p.drop_last) v = v > 0 ? v - 1 : 0;
+  return static_cast<int>(v);
 }
 
 __device__ inline float log_lane(float m, const Params& p) {
@@ -1019,7 +1064,8 @@ __device__ inline uint32_t bf16_pair(__nv_bfloat16 lo_col, __nv_bfloat16 hi_col)
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kFftBlocks)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
-              float* __restrict__ out, const float* __restrict__ window,
+              float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+              const float* __restrict__ window,
               const float* __restrict__ mel_w, const float* __restrict__ melf_w,
               const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
               const float2* __restrict__ twiddle, const int* __restrict__ bases,
@@ -1029,8 +1075,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
   const float preemph = p.preemph;
-  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), false)
-                               : layout(p, 0, 0, kDither);
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true)
+                               : layout(p, 0, 0, kDither);  // kDither: the wide row
   float* sig = smem;
   float* win = smem + lay.win;
   int* moff = reinterpret_cast<int*>(smem + lay.moff);
@@ -1068,6 +1114,15 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const long long len = kResample ? pp_output_length(len_in, pp) : len_in;
   const bool framed = p.center == kNoCenter;
   const bool stage = !framed || t0 < len;
+
+  // the row's valid frame count from its length as given (the output length
+  // of the fused resample, 64-bit), the mask of the block's frames, and the
+  // count from the row's first block
+  const int nv = valid_frames(kResample ? pp_output_length(lengths[b], pp) : lengths[b], p);
+  for (int i = threadIdx.x; i < tile && f0 + i < F; i += kThreads) {
+    frame_mask[static_cast<size_t>(b) * F + f0 + i] = f0 + i < nv ? 1.f : 0.f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) n_valid[b] = nv;
 
   // bf16x3: the ring of matrix chunks, its full and empty mbarriers; a tile
   // that stages nothing takes no product. The producer thread starts the
@@ -1171,16 +1226,50 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     }
   } else if (stage) {
     if constexpr (kDither) {
-      // 1d. x[t0-1 .. t0+span) converted and dithered (0 outside [0, length))
-      //     into the xs row, then pre-emphasis and zeroing from there
-      float* xs = smem + lay.xs;  // xs[i] = x[t0 - 1 + i]
-      for (int i = threadIdx.x; i <= lay.span; i += kThreads) {
-        const long long t = t0 - 1 + i;
-        xs[i] = (t >= 0 && t < len) ? source<true>(row, t, p) : 0.f;
+      // 1d. x[t0-o .. t0+span) converted into the signal row (o = 1 under
+      //     signal pre-emphasis, 0 in frame mode, where the host passes
+      //     preemph = 0), 0 outside [0, length), the loads kStageBatch at a
+      //     time; then the dither pass in place at positions 0 <= t <
+      //     length; then, for o = 1, pre-emphasis and zeroing in place, a
+      //     chunk at a time, as the fused resample does (1r)
+      const int o = preemph != 0.f ? 1 : 0;
+      const int n = lay.span + o;
+      const long long ts = t0 - o;  // sig[i] holds x[ts + i]
+      for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kStageBatch) {
+        float x[kStageBatch];
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const long long t = ts + i0 + u * kThreads;
+          x[u] = i0 + u * kThreads < n && t >= 0 && t < len ? source<false>(row, t, p) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kStageBatch; ++u) {
+          const int i = i0 + u * kThreads;
+          if (i < n) sig[i] = x[u];
+        }
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < lay.span; i += kThreads) {
-        sig[i] = t0 + i < len ? xs[i + 1] - preemph * xs[i] : 0.f;
+      const int live_lo = ts < 0 ? 1 : 0;  // ts >= -1
+      const int live_hi = static_cast<int>(min(static_cast<long long>(n), len - ts));
+      for (int i = live_lo + threadIdx.x; i < live_hi; i += kThreads) {
+        sig[i] = dithered(sig[i], static_cast<uint32_t>(ts + i), p);
+      }
+      if (o) {
+        __syncthreads();
+        for (int c0 = 0; c0 < lay.span; c0 += kThreads * kStageBatch) {
+          float v[kStageBatch];
+#pragma unroll
+          for (int u = 0; u < kStageBatch; ++u) {
+            const int i = c0 + u * kThreads + threadIdx.x;
+            v[u] = i < lay.span && t0 + i < len ? sig[i + 1] - preemph * sig[i] : 0.f;
+          }
+          __syncthreads();
+#pragma unroll
+          for (int u = 0; u < kStageBatch; ++u) {
+            const int i = c0 + u * kThreads + threadIdx.x;
+            if (i < lay.span) sig[i] = v[u];
+          }
+        }
       }
     } else {
       // 1. stage the tile's span: convert, pre-emphasis, then zero t >= length
@@ -1490,6 +1579,8 @@ struct Args {
   const void* audio;
   const int* lengths;
   float* out;
+  int* n_valid;
+  float* frame_mask;
   const float *window, *mel_w, *melf_w;
   const int *mel_off, *mel_meta;
   const float* twiddle;
@@ -1504,7 +1595,7 @@ struct Args {
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
 size_t smem_of(const Params& p, const Polyphase& pp) {
-  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), false)
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true)
                                : layout(p, 0, 0, kDither);
   return static_cast<size_t>(lay.total) * sizeof(float);
 }
@@ -1522,7 +1613,8 @@ struct Launch {
     if (err != cudaSuccess) return err;
     const dim3 grid((p.F + p.tile - 1) / p.tile, a.B);
     kernel<<<grid, kThreads, bytes, a.stream>>>(
-        static_cast<const Sample*>(a.audio), a.lengths, a.out, a.window, a.mel_w, a.melf_w,
+        static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window,
+        a.mel_w, a.melf_w,
         a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
         static_cast<const unsigned char*>(a.dft_matrix), a.taps, p, a.pp);
     return cudaGetLastError();
@@ -1676,8 +1768,8 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases) {
          (p.feature_kind != kSpectrogram && p.nnz < p.M) ||
          (p.feature_kind == kSsc && melf_w == nullptr) ||
          ((p.form == kStockham || p.form == kBluestein) && bases == nullptr) ||
-         p.center < kNoCenter ||
-         p.center > kCenterReflect;
+         p.center < kNoCenter || p.center > kCenterReflect || p.framing < kFramePad ||
+         p.framing > kFrameCenterReflect;
 }
 
 }  // namespace
@@ -1686,7 +1778,10 @@ extern "C" {
 
 // Launches the front-end on `stream`; returns cudaGetLastError() (0 = launched).
 // audio [B, T] int16 (audio_is_int16 != 0) or float32; lengths [B] int32;
-// out [B, F, M+1] float32; window [L] float32; the packed mel bands
+// out [B, F, M+1] float32; n_valid [B] int32 and frame_mask [B, F] float32
+// receive ops/chain.py num_valid_frames and frame_mask of the lengths (framing
+// 0 pad / 1 drop / 2 center / 3 center_reflect, drop_last != 0 for
+// drop_last_frame); window [L] float32; the packed mel bands
 // (kernels/frontend.py mel_packed; none read for a spectrogram): mel_w
 // [n_packed] float32, melf_w [n_packed] float32 (ssc; may be null
 // otherwise), mel_off [M+1] and mel_meta [n_packed] int32 (bin | filter
@@ -1710,23 +1805,25 @@ extern "C" {
 // 1 ln_stab / 2 db / 3 ln_floor / 4 log10_floor; feature_kind 0 logmel /
 // 1 plp / 2 spectrogram (M = n_fft/2+1) / 3 ssc.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
-                         float* out, const float* window, const float* mel_w,
+                         float* out, int* n_valid, float* frame_mask, const float* window,
+                         const float* mel_w,
                          const float* melf_w, const int* mel_off, const int* mel_meta,
                          const float* twiddle, const int* bases, const void* dft_matrix,
                          int B, int T, int F, int L, int S, int M,
                          int n_packed, int n_fft, int dft_form, int frame_offset, int center,
-                         float scale, float preemph, float eps, float pscale, float dither,
+                         int framing, int drop_last, float scale, float preemph, float eps,
+                         float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
                          int log_kind, int feature_kind, void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
-           frame_keep0, feature_kind};
+           frame_keep0, feature_kind, framing, drop_last};
   if (bad_params(p, B, melf_w, bases)) return cudaErrorInvalidValue;
   const bool tensor = dft_form == kBf16x3;
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
-  const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
-               dft_matrix, nullptr, B, p, Polyphase{1, 1, 0, 0},
+  const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
+               mel_meta, twiddle, bases, dft_matrix, nullptr, B, p, Polyphase{1, 1, 0, 0},
                static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
@@ -1735,14 +1832,17 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
 
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
 // taps [up, K] float32 (input_scale folded in); F frames of the resampled
-// signal, ceil(T * up / down) samples long. Dither keys on 16 kHz positions.
+// signal, ceil(T * up / down) samples long; n_valid from each row's output
+// length ceil(lengths[b] * up / down). Dither keys on 16 kHz positions.
 // No centered framing and no bf16x3 form.
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
-                                  const int* lengths, float* out, const float* window,
+                                  const int* lengths, float* out, int* n_valid,
+                                  float* frame_mask, const float* window,
                                   const float* mel_w, const float* melf_w, const int* mel_off,
                                   const int* mel_meta, const float* twiddle, const int* bases,
                                   const float* taps, int B, int T, int F, int L, int S, int M,
-                                  int n_packed, int n_fft, int dft_form, int up, int down,
+                                  int n_packed, int n_fft, int dft_form, int framing,
+                                  int drop_last, int up, int down,
                                   int half_len, int K, float preemph, float eps, float pscale,
                                   float dither, unsigned dither_seed, int conditioning,
                                   int remove_dc, float frame_preemph, float frame_keep0,
@@ -1750,14 +1850,14 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale,
            dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
-           feature_kind};
+           feature_kind, framing, drop_last};
   if (bad_params(p, B, melf_w, bases) || dft_form == kBf16x3 || up < 1 || down < 1 || K < 1 ||
-      half_len < 10 * down) {
+      half_len < 10 * down || framing >= kFrameCenter) {
     return cudaErrorInvalidValue;
   }
   p.aligned = (reinterpret_cast<uintptr_t>(audio) & 15) == 0;
-  const Args a{audio, lengths, out, window, mel_w, melf_w, mel_off, mel_meta, twiddle, bases,
-               nullptr, taps, B, p, Polyphase{up, down, half_len, K},
+  const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
+               mel_meta, twiddle, bases, nullptr, taps, B, p, Polyphase{up, down, half_len, K},
                static_cast<cudaStream_t>(stream)};
   return dispatch<true, false>(Launch{a}, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
 }

@@ -34,21 +34,51 @@
 // 0.75 us at 67 TFLOP/s fp32. The bytes set the bound;
 // chip_smoke.py computes it from each run's inputs.
 //
-// Design. One block per (utterance, tile of 32 frames), 256 threads, the
-// front-end kernel's tiling. A tile needs base rows [f0 - 2N, f0 + 32 + 2N)
-// (N per delta order). Both replication rules happen at load time: staged
-// row q holds the prefix row clamp(q, 0, last), so a read at the unclipped
-// position s +- i equals B'[min(s+i, F-1)] or B'[max(s-i, 0)] (last <= F-1).
-// The block stages those prefix rows and dct_aug in shared memory, computes
-// base for every staged row (an fp32 FMA sum in lane order over the M1
-// terms: no tensor cores, no TF32), then D at positions [f0 - N, f0 + 32 +
-// N), each read at clamp(p, 0, last) (that is D'), then DD and the mask for
-// the tile's rows. The delta sums use __fmul_rn / __fadd_rn, so nvcc
-// contracts none of them into an FMA: they round as the torch version's
-// separate kernels do. A tile wholly past nv writes zeros and reads
-// nothing. Every thread's work is a few hundred FLOP, so the kernel is
-// bound by its launch and its memory traffic; nothing but the [B, F, D]
-// features reaches device memory.
+// Design. The kernel is a copy with a little arithmetic on the way, so it
+// is built to keep the memory busy: few, large tiles whose halo is a few
+// percent of what they read, copies that are all in flight at once, and
+// 16-byte stores.
+//   Tiles. One block per (utterance, tile of kTileMax = 128 frames), 256
+//   threads (64 and 32 frames only for a generic shape whose 128-frame
+//   layout is over the block; kernels/tail.py plan). A tile needs base at
+//   the frames [f0 - 2N, f0 + 128 + 2N) clamped to [0, last]: the distinct
+//   prefix rows q in [q_lo, q_hi] = [max(f0 - h, 0), min(f0 + 127 + h,
+//   last)], h = deltas * N, one contiguous run of the utterance's rows. The
+//   halo is 2h of 128 rows (6 % at N = 2), where 32-frame tiles re-read 25 %.
+//   Both replication rules are clamps of the read index: base at position
+//   q is row clamp(q, 0, last), D' at p is D[clamp(p, 0, last)], and a read
+//   at s + i or s - i clamps the same way (last <= F - 1).
+//   1. Staging: the run of rows is copied with cp.async, every copy issued
+//      before any is waited for: for odd M1, 16 bytes a copy from the
+//      16-byte boundary at or below its first float (scalar loads where the
+//      rows are not 16-byte aligned, and past the tensor's end); for even
+//      M1 (24 at kaldi_mfcc), 4 bytes a copy into rows padded to M1 + 1.
+//   2. base, one thread per distinct row: the row's M1 values (rows an odd
+//      stride apart: the lanes' rows lie in distinct banks), the energy lane logged, then
+//      C accumulators of fp32 FMAs in lane order (m = 0 .. M1-1), as the
+//      parent kernel and the torch matmul's order-free sum allow. For the
+//      named shapes (M1, C, N, deltas) = (27, 13, 2, 2), (27, 13, -, 0) and
+//      (24, 13, -, 0), the instantiation fixes them at compile time: the
+//      loops unroll, every index is an immediate, and dct_aug rides in the
+//      kernel's parameter space, so each FMA takes its weight as a constant
+//      operand (a broadcast from the constant cache) and the product reads
+//      no shared memory but the row. The generic instantiation (any other
+//      shape: run-time M1, C, N, deltas) stages dct_aug in shared memory
+//      once a block and reads it as broadcasts.
+//   3. D at the distinct positions [max(f0 - e, 0), min(f0 + 127 + e,
+//      last)] (e = N for DD, 0 else), then DD at the tile's rows, one
+//      thread per (position, column), each into shared memory (DD over the
+//      staged rows, free by then).
+//   4. The tile's [rows, 39] output, flat: 16-byte stores from the 16-byte
+//      boundary of the output (scalar stores for the head and tail of the
+//      run), each thread writing 4 consecutive floats, each one shared load
+//      (base, D or DD), 0 past nv: no lane of a warp waits on another's
+//      delta sum.
+// The delta sums use __fmul_rn / __fadd_rn, so nvcc contracts none of them
+// into an FMA: they round as the torch version's separate kernels do. base
+// is the same FMA chain as the parent's 32-frame kernel, so the two agree
+// bitwise. A tile wholly past nv writes zeros and reads nothing. Nothing but
+// the [B, F, D] features reaches device memory.
 //
 // CMVN needs a reduction over the whole utterance, which no tile holds, so it
 // is a second launch: one block per utterance, 8 warps; lane j of a warp takes
@@ -58,117 +88,234 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 32;  // frames per block, as the front-end kernel
+constexpr int kTileMax = 128;  // frames per block (the generic shape may take 64 or 32)
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxW = 27 * 13;  // dct_aug entries the parameter space holds (the named shapes)
+constexpr int kSmemBudget = 232448;  // the H100's dynamic shared memory a block
 
 struct TailParams {
-  int F, M1, C, deltas, N;
+  int F, M1, C, deltas, N, tile;
   int append_energy, has_floor;
+  int aligned_in, aligned_out;  // the prefix and out pointers are 16-byte aligned
+  long long total;              // floats of the prefix tensor
   float eps, log_floor, denom;
+  float w[kMaxW];  // dct_aug [M1][C], row-major, for the named shapes
 };
 
-// Shared memory of one tail block, in floats: dct_aug [M1][C], the staged
-// prefix rows [R][M1], their base cepstra [R][C], and D [RD][C].
-// kernels/tail.py smem_bytes mirrors it.
-__host__ __device__ inline int halo(const TailParams& p) { return p.deltas * p.N; }
-__host__ __device__ inline int staged_rows(const TailParams& p) { return kTile + 2 * halo(p); }
-__host__ __device__ inline int delta_rows(const TailParams& p) {
-  return p.deltas == 0 ? 0 : kTile + 2 * (p.deltas >= 2 ? p.N : 0);
-}
-__host__ __device__ inline int tail_floats(const TailParams& p) {
-  const int R = staged_rows(p);
-  return p.M1 * p.C + R * p.M1 + R * p.C + delta_rows(p) * p.C;
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// Shared memory of one tail block, in floats (kernels/tail.py smem_bytes
+// mirrors it): dct_aug [M1][C] for the generic shape only, the staged prefix
+// rows [R][M1 | 1] (odd M1 copied 16 bytes at a time from the boundary
+// below, so up to 6 floats more; even M1 a float at a time into rows padded
+// to the odd stride M1 + 1, so the rows a warp reads fall in distinct
+// banks), which DD [tile][C] overlays once base is formed, their base
+// cepstra [R][C], and D [RD][C].
+struct TailLayout {
+  int w, x, base, d, total;
+};
+__host__ __device__ inline TailLayout tail_layout(const TailParams& p, bool generic) {
+  const int h = p.deltas * p.N;
+  const int R = p.tile + 2 * h;
+  const int RD = p.deltas == 0 ? 0 : p.tile + 2 * (p.deltas >= 2 ? p.N : 0);
+  TailLayout l;
+  l.w = 0;
+  l.x = generic ? align4(p.M1 * p.C) : 0;
+  l.base = l.x + align4(R * (p.M1 | 1) + 6 > p.tile * p.C ? R * (p.M1 | 1) + 6 : p.tile * p.C);
+  l.d = l.base + R * p.C;
+  l.total = l.d + RD * p.C;
+  return l;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// The energy lane of a prefix row, logged and floored under append_energy.
+__device__ __forceinline__ float energy_lane(float v, const TailParams& p) {
+  if (p.append_energy) {
+    v = logf(v <= 0.f ? p.eps : v);
+    if (p.has_floor) v = fmaxf(v, p.log_floor);
+  }
+  return v;
+}
+
+// sum_{k=1..N} k (v(c + k) - v(c - k)) / denom, each term rounded on its own
+// (no contraction), v(j) read at clamp(j, 0, last).
+template <typename At>
+__device__ __forceinline__ float delta_sum(int c, int N, int last, float denom, const At& at) {
+  float acc = 0.f;
+  for (int k = 1; k <= N; ++k) {
+    const float diff = __fsub_rn(at(min(c + k, last)), at(max(c - k, 0)));
+    acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(k), diff));
+  }
+  return acc / denom;
+}
+
+// kM1, kC, kN, kDeltas > 0 fix the shape at compile time (kDeltas == 0 with
+// kM1 > 0: no deltas, N unused); kM1 == 0 is the generic instantiation.
+template <int kM1, int kC, int kN, int kDeltas>
 __global__ void __launch_bounds__(kThreads)
 tail_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
-            const float* __restrict__ dct, float* __restrict__ out, TailParams p) {
+            const float* __restrict__ dct, float* __restrict__ out,
+            const __grid_constant__ TailParams p) {
+  constexpr bool kGeneric = kM1 == 0;
   extern __shared__ __align__(16) float smem[];
+  const int M1 = kGeneric ? p.M1 : kM1;
+  const int C = kGeneric ? p.C : kC;
+  const int deltas = kGeneric ? p.deltas : kDeltas;
+  const int N = kGeneric ? p.N : (kDeltas > 0 ? kN : 0);
+  const int Dout = C * (deltas + 1);
+  const int F = p.F, tile = kGeneric ? p.tile : kTileMax;
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * kTile;
-  const int F = p.F, M1 = p.M1, C = p.C, N = p.N;
-  const int D = C * (p.deltas + 1);
+  const int f0 = blockIdx.x * tile;
   const int nv = min(max(n_valid[b], 0), F);
-  const int rows = min(kTile, F - f0);
-  float* o = out + (static_cast<size_t>(b) * F + f0) * D;
+  const int rows = min(tile, F - f0);
+  const long long go = (static_cast<long long>(b) * F + f0) * Dout;  // the tile's first output float
+  const int n_out = rows * Dout;
+  // 4. the tile's output in 16-byte stores: floats [0, head) and [n_out -
+  //    tail_n, n_out) one at a time, the rest four at a time
+  const int head = p.aligned_out ? min(static_cast<int>((4 - (go & 3)) & 3), n_out) : n_out;
+  const int quads = (n_out - head) >> 2;
+  auto store_tile = [&](const auto& value) {
+    float* o = out + go;
+    for (int q = threadIdx.x; q < quads; q += kThreads) {
+      const int i = head + 4 * q;
+      float4 v;
+      v.x = value(i);
+      v.y = value(i + 1);
+      v.z = value(i + 2);
+      v.w = value(i + 3);
+      *reinterpret_cast<float4*>(o + i) = v;
+    }
+    for (int i = threadIdx.x; i < head; i += kThreads) o[i] = value(i);
+    for (int i = head + 4 * quads + threadIdx.x; i < n_out; i += kThreads) o[i] = value(i);
+  };
   if (f0 >= nv) {  // the whole tile is padding
-    for (int i = threadIdx.x; i < rows * D; i += kThreads) o[i] = 0.f;
+    store_tile([](int) { return 0.f; });
     return;
   }
   const int last = nv - 1;  // >= f0 >= 0 here
-  const int h = halo(p);
-  const int R = staged_rows(p);
-  const int e = p.deltas >= 2 ? N : 0;  // D is needed at [f0 - e, f0 + 32 + e)
-  const int RD = delta_rows(p);
-  float* w = smem;               // dct_aug [M1][C]
-  float* x = w + M1 * C;         // staged prefix rows [R][M1], row r at position f0 - h + r
-  float* base = x + R * M1;      // [R][C]
-  float* d1 = base + R * C;      // D' [RD][C], row r at position f0 - e + r
+  const int h = deltas * N;
+  const int e = deltas >= 2 ? N : 0;  // D is needed at [f0 - e, f0 + tile + e)
+  const int q_lo = max(f0 - h, 0), q_hi = min(f0 + tile - 1 + h, last);
+  const int d_lo = max(f0 - e, 0), d_hi = min(f0 + tile - 1 + e, last);
+  const TailLayout lay = tail_layout(p, kGeneric);
+  float* w = smem + lay.w;
+  float* base = smem + lay.base;  // row q at (q - q_lo) * C
+  float* d1 = smem + lay.d;       // D at position c at (c - d_lo) * C
 
-  // 1. dct_aug and the prefix rows clamp(q, 0, last), the energy lane logged
-  for (int i = threadIdx.x; i < M1 * C; i += kThreads) w[i] = dct[i];
-  const float* row0 = prefix + static_cast<size_t>(b) * F * M1;
-  for (int i = threadIdx.x; i < R * M1; i += kThreads) {
-    const int r = i / M1, m = i - r * M1;
-    const int q = min(max(f0 - h + r, 0), last);
-    float v = row0[static_cast<size_t>(q) * M1 + m];
-    if (p.append_energy && m == M1 - 1) {
-      v = logf(v <= 0.f ? p.eps : v);
-      if (p.has_floor) v = fmaxf(v, p.log_floor);
-    }
-    x[i] = v;
-  }
-  __syncthreads();
-
-  // 2. base = x . dct_aug for every staged row, FMA in lane order
-  for (int i = threadIdx.x; i < R * C; i += kThreads) {
-    const int r = i / C, c = i - r * C;
-    const float* xr = x + r * M1;
-    float acc = 0.f;
-    for (int m = 0; m < M1; ++m) acc = fmaf(xr[m], w[m * C + c], acc);
-    base[i] = acc;
-  }
-  __syncthreads();
-
-  // 3. D' at positions p = f0 - e + r: D at c = clamp(p, 0, last), whose
-  //    reads c +- i stay inside the staged rows
-  for (int i = threadIdx.x; i < RD * C; i += kThreads) {
-    const int r = i / C, c = i - r * C;
-    const int at = min(max(f0 - e + r, 0), last) - (f0 - h);
-    float acc = 0.f;
-    for (int k = 1; k <= N; ++k) {
-      const float diff = __fsub_rn(base[(at + k) * C + c], base[(at - k) * C + c]);
-      acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(k), diff));
-    }
-    d1[i] = acc / p.denom;
-  }
-  __syncthreads();
-
-  // 4. the tile's rows: [base | D | DD] for s < nv, 0 past it
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, col = i - r * D;
-    float v = 0.f;
-    if (f0 + r < nv) {
-      if (col < C) {
-        v = base[(r + h) * C + col];
-      } else if (col < 2 * C) {
-        v = d1[(r + e) * C + col - C];
-      } else {
-        const int c = col - 2 * C;
-        float acc = 0.f;
-        for (int k = 1; k <= N; ++k) {
-          const float diff = __fsub_rn(d1[(r + e + k) * C + c], d1[(r + e - k) * C + c]);
-          acc = __fadd_rn(acc, __fmul_rn(static_cast<float>(k), diff));
+  // 1. the rows [q_lo, q_hi] by cp.async: odd M1 from the 16-byte boundary
+  //    below, 16 bytes a copy; even M1 a float a copy into rows M1 + 1 apart
+  const int XS = M1 | 1;  // the staged rows' stride
+  const long long flat = (static_cast<long long>(b) * F + q_lo) * M1;
+  const int n = (q_hi - q_lo + 1) * M1;
+  const int shift = XS == M1 ? static_cast<int>(flat & 3) : 0;
+  const float* x = smem + lay.x + shift;  // row q at (q - q_lo) * XS
+  {
+    float* xs = smem + lay.x;
+    if (XS == M1) {
+      const long long fa = flat - shift;
+      const int nvec = (n + shift + 3) >> 2;
+      for (int v = threadIdx.x; v < nvec; v += kThreads) {
+        const long long f = fa + 4 * v;
+        if (p.aligned_in && f + 4 <= p.total) {
+          copy16(xs + 4 * v, prefix + f);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) xs[4 * v + k] = f + k < p.total ? prefix[f + k] : 0.f;
         }
-        v = acc / p.denom;
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int r = i / M1;
+        copy4(xs + r * XS + (i - r * M1), prefix + flat + i);
       }
     }
-    o[i] = v;
+    asm volatile("cp.async.commit_group;" ::: "memory");
+    if constexpr (kGeneric) {
+      for (int i = threadIdx.x; i < M1 * C; i += kThreads) w[i] = dct[i];
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
   }
+  __syncthreads();
+
+  // 2. base for every distinct row, an FMA chain in lane order per column
+  for (int r = threadIdx.x; r <= q_hi - q_lo; r += kThreads) {
+    const float* xr = x + r * XS;
+    float* br = base + r * C;
+    if constexpr (kGeneric) {
+      const float el = energy_lane(xr[M1 - 1], p);
+      for (int c = 0; c < C; ++c) {
+        float acc = 0.f;
+        for (int m = 0; m < M1 - 1; ++m) acc = fmaf(xr[m], w[m * C + c], acc);
+        br[c] = fmaf(el, w[(M1 - 1) * C + c], acc);
+      }
+    } else {
+      float xv[kM1];
+#pragma unroll
+      for (int m = 0; m < kM1; ++m) xv[m] = xr[m];
+      xv[kM1 - 1] = energy_lane(xv[kM1 - 1], p);
+      float acc[kC];
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = 0.f;
+#pragma unroll
+      for (int m = 0; m < kM1; ++m) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = fmaf(xv[m], p.w[m * kC + c], acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) br[c] = acc[c];
+    }
+  }
+  __syncthreads();
+
+  // 3. D at the distinct positions [d_lo, d_hi], one (position, column) a thread
+  if (deltas >= 1) {
+    const int nd = (d_hi - d_lo + 1) * C;
+    for (int i = threadIdx.x; i < nd; i += kThreads) {
+      const int r = i / C, c = i - r * C;
+      d1[i] = delta_sum(d_lo + r, N, last, p.denom,
+                        [&](int j) { return base[(j - q_lo) * C + c]; });
+    }
+    __syncthreads();
+  }
+
+  // 3b. DD at the tile's rows below nv, one (row, column) a thread, over
+  //     the staged rows (free since step 2)
+  float* dd = smem + lay.x;  // row s at (s - f0) * C
+  if (deltas >= 2) {
+    const int n_dd = (min(f0 + rows, nv) - f0) * C;
+    for (int i = threadIdx.x; i < n_dd; i += kThreads) {
+      const int r = i / C, c = i - r * C;
+      dd[i] = delta_sum(f0 + r, N, last, p.denom, [&](int j) { return d1[(j - d_lo) * C + c]; });
+    }
+    __syncthreads();
+  }
+
+  // 4. [base | D | DD] of the tile's rows below nv, 0 past it: each float
+  //    one shared load
+  store_tile([&](int i) -> float {
+    const int r = i / Dout, col = i - r * Dout;
+    const int s = f0 + r;
+    if (s >= nv) return 0.f;
+    if (col < C) return base[(s - q_lo) * C + col];
+    if (col < 2 * C) return d1[(s - d_lo) * C + col - C];
+    return dd[r * C + col - 2 * C];
+  });
 }
 
 // Utterance CMVN in place over the valid rows of feat [B, F, D].
@@ -227,31 +374,89 @@ cmvn_kernel(float* __restrict__ feat, const int* __restrict__ n_valid, int F, in
   }
 }
 
+// The launch of one instantiation at p.tile frames a block.
+template <int kM1, int kC, int kN, int kDeltas>
+cudaError_t launch(const float* prefix, const int* n_valid, const float* dct, float* out, int B,
+                   const TailParams& p, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(tail_layout(p, kM1 == 0).total) * sizeof(float);
+  auto kernel = tail_kernel<kM1, kC, kN, kDeltas>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.F + p.tile - 1) / p.tile, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(prefix, n_valid, dct, out, p);
+  return cudaGetLastError();
+}
+
+// The named shapes fixed at compile time: (M1, C, N, deltas).
+inline int shape_of(int M1, int C, int N, int deltas) {
+  if (M1 == 27 && C == 13 && deltas == 2 && N == 2) return 1;
+  if (M1 == 27 && C == 13 && deltas == 0) return 2;
+  if (M1 == 24 && C == 13 && deltas == 0) return 3;
+  return 0;
+}
+
+// Frames a block of the tail for a shape (kernels/tail.py plan): 128 for
+// the named shapes; for the generic one the first of 128, 64 and 32 whose
+// layout fits the block (else 32, over the budget: the wrapper refuses it).
+inline int plan_tile(TailParams p) {
+  const bool generic = shape_of(p.M1, p.C, p.N, p.deltas) == 0;
+  for (p.tile = kTileMax; p.tile > 32; p.tile /= 2) {
+    if (!generic || tail_layout(p, true).total * 4 <= kSmemBudget) break;
+  }
+  return p.tile;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the tail on `stream`; returns cudaGetLastError() (0 = launched).
-// prefix [B, F, M1] float32; n_valid [B] int32; dct [M1, C] float32
-// (constants.dct_augmented); out [B, F, C * (deltas + 1)] float32. deltas 0-2,
-// delta_window N >= 1 when deltas > 0, denom = 2 sum_{i<=N} i^2; log_floor =
-// ln(energy_floor) used when has_floor != 0.
-int mfcc_feature_tail(const float* prefix, const int* n_valid, const float* dct, float* out,
-                      int B, int F, int M1, int C, int deltas, int N, int append_energy,
-                      int has_floor, float eps, float log_floor, float denom, void* stream) {
-  const TailParams p{F, M1, C, deltas, N, append_energy, has_floor, eps, log_floor, denom};
+// prefix [B, F, M1] float32; n_valid [B] int32; dct [M1, C] float32 on the
+// card and dct_host its host copy (constants.dct_augmented; the named shapes
+// carry it in the kernel's parameters, the generic one reads the card's);
+// out [B, F, C * (deltas + 1)] float32. deltas 0-2, delta_window N >= 1 when
+// deltas > 0, denom = 2 sum_{i<=N} i^2; log_floor = ln(energy_floor) used
+// when has_floor != 0.
+int mfcc_feature_tail(const float* prefix, const int* n_valid, const float* dct,
+                      const float* dct_host, float* out, int B, int F, int M1, int C, int deltas,
+                      int N, int append_energy, int has_floor, float eps, float log_floor,
+                      float denom, void* stream) {
   if (B < 1 || B > 65535 || F < 1 || M1 < 1 || C < 1 || deltas < 0 || deltas > 2 ||
-      (deltas > 0 && (N < 1 || !(denom > 0.f)))) {
+      (deltas > 0 && (N < 1 || !(denom > 0.f))) || dct == nullptr) {
     return cudaErrorInvalidValue;
   }
-  const size_t bytes = static_cast<size_t>(tail_floats(p)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((F + kTile - 1) / kTile, B);
-  tail_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(prefix, n_valid, dct,
-                                                                            out, p);
-  return cudaGetLastError();
+  TailParams p{};
+  p.F = F;
+  p.M1 = M1;
+  p.C = C;
+  p.deltas = deltas;
+  p.N = deltas > 0 ? N : 0;
+  p.append_energy = append_energy;
+  p.has_floor = has_floor;
+  p.aligned_in = (reinterpret_cast<uintptr_t>(prefix) & 15) == 0;
+  p.aligned_out = (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  p.total = static_cast<long long>(B) * F * M1;
+  p.eps = eps;
+  p.log_floor = log_floor;
+  p.denom = denom;
+  p.tile = plan_tile(p);
+  const int shape = shape_of(M1, C, N, deltas);
+  if (shape != 0) {
+    if (dct_host == nullptr) return cudaErrorInvalidValue;
+    for (int i = 0; i < M1 * C; ++i) p.w[i] = dct_host[i];
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (shape) {
+    case 1:
+      return launch<27, 13, 2, 2>(prefix, n_valid, dct, out, B, p, s);
+    case 2:
+      return launch<27, 13, 0, 0>(prefix, n_valid, dct, out, B, p, s);
+    case 3:
+      return launch<24, 13, 0, 0>(prefix, n_valid, dct, out, B, p, s);
+    default:
+      return launch<0, 0, 0, 0>(prefix, n_valid, dct, out, B, p, s);
+  }
 }
 
 // Utterance CMVN of feat [B, F, D] float32 in place, over rows s < n_valid[b].

@@ -77,6 +77,7 @@ ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu co
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
 DFT_FORMS = ("stockham", "direct", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
+FRAMINGS = ("pad", "drop", "center", "center_reflect")  # csrc/frontend.cu frame-count codes
 
 launches = 0
 resample_launches = 0
@@ -454,28 +455,33 @@ def _a4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int, xs: int) -> int:
+def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int) -> int:
     """Floats of the bf16x3 layout after the shared head (signal, window,
     packed bands) at `tile` frames and `stages` ring stages: the ring at a
     128-byte boundary, its mbarriers, the power rows, the frame energies and
-    means, the per-warp projection scratch, and the dither's x row."""
+    means, and the per-warp projection scratch."""
     kp, nbp = bf16_dims(cfg)
     part = _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
     ring = stages * 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # hi and lo, bf16 in floats
     n = ((head + 31) & ~31) + ring + _a4(4 * stages)
-    return n + tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part + xs
+    return n + tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part
 
 
 def _span(cfg: FrontendConfig, tile: int) -> int:
     return (tile - 1) * cfg.frame_step + cfg.frame_length
 
 
-def _head(cfg: FrontendConfig, tile: int, resample: bool = False) -> int:
-    """Floats of the layout's head: the signal row (one more float in the
-    fused resample, which stages x[t0-1 ..] there), the window and the
-    packed mel bands."""
+def _wide(cfg: FrontendConfig) -> bool:
+    """True when the signal row holds one more float, x[t0-1 .. t0+span)
+    before pre-emphasis: the fused resample, and the dither's staging."""
+    return chain.resamples(cfg) or cfg.dither > 0.0
+
+
+def _head(cfg: FrontendConfig, tile: int) -> int:
+    """Floats of the layout's head: the signal row (one more float when
+    `_wide`), the window and the packed mel bands."""
     tables = mel_matrices(cfg)
-    return (_a4(_span(cfg, tile) + resample) + _a4(max(cfg.frame_length, cfg.n_fft))
+    return (_a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft))
             + (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0))
 
 
@@ -485,10 +491,9 @@ def bf16_plan(cfg: FrontendConfig) -> tuple[int, int]:
     32 frames (a wgmma's 64 rows; at 32 the upper 32 are zero) and 4, 3 or
     2 stages whose layout fits the block, else the smallest (refused by
     `layout_reason`)."""
-    xs_of = (lambda tile: _a4(_span(cfg, tile) + 1)) if cfg.dither > 0.0 else (lambda tile: 0)
     plans = [(t, s) for t in BF16_TILES for s in BF16_STAGES]
     for tile, stages in plans:
-        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), xs_of(tile)) <= rs_kernel.SMEM_BUDGET_BYTES:
+        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile)) <= rs_kernel.SMEM_BUDGET_BYTES:
             return tile, stages
     return plans[-1]
 
@@ -506,28 +511,24 @@ def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
     N, M = cfg.n_fft, cfg.n_mels
     if form == "bf16x3":
         tile, stages = bf16_plan(cfg)
-        xs = _a4(_span(cfg, tile) + 1) if cfg.dither > 0.0 else 0
-        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), xs)
-    resampling = chain.resamples(cfg)
-    n = (_head(cfg, TILE, resampling) + _a4(2 * twiddle_count(N, form))
-         + _a4(len(stage_bases(N, form))))
+        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile))
+    n = _head(cfg, TILE) + _a4(2 * twiddle_count(N, form)) + _a4(len(stage_bases(N, form)))
     part = _a4(mel_matrices(cfg) * (32 + M))
     rows = WARPS * (2 * row_floats(N, form) + part)
-    xs = taps = 0
-    if resampling:  # the input window over the warps' rows; no x row
+    taps = 0
+    if chain.resamples(cfg):  # the input window over the warps' rows
         d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
         rows = max(rows, rs_kernel.stage_floats(resample_window(cfg), 2 if int16 else 4))
         taps = d["up"] * rs_kernel.table_stride(d)
-    elif cfg.dither > 0.0:
-        xs = _a4(_span(cfg, TILE) + 1)
-    return 4 * (n + rows + xs + _a4(taps))
+    return 4 * (n + rows + _a4(taps))
 
 
 @functools.lru_cache(maxsize=64)
 def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = True) -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout) with int16
     or float32 rows, cached: every launch checks it (`layout_reason`). The
-    signal row (span floats, span + 1 in the fused resample), window, the
+    signal row (span floats, span + 1 in the fused resample and under
+    dither), window, the
     packed mel bands (weights, and for SSC the melf weights; the filter
     offsets and `packed_meta`; none for a spectrogram), then for the FFT
     and direct forms the twiddles and the stages' output bases, per warp
@@ -536,8 +537,8 @@ def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = Tr
     fused resample's input window (`resample_window` samples of the rows'
     type) overlays, widening them only where it is longer; for bf16x3 the
     ring, its barriers, the tile's power rows, energies and means, and the
-    per-warp scratch (`bf16_plan`); then the staged x row of dither (not in
-    the fused resample), and the resample's tap table [up, table_stride].
+    per-warp scratch (`bf16_plan`); then the resample's tap table [up,
+    table_stride].
     The sample type changes only the fused resample's window."""
     return _smem(cfg, kernel_form(cfg, dft_passes), int16)
 
@@ -567,18 +568,20 @@ def _lib() -> ctypes.CDLL:
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables
+        p, i, p, p, p, p,  # audio, is_int16, lengths, out, n_valid, frame_mask
+        p, p, p, p, p, p, p,  # tables
         p,  # dft_matrix (bf16x3)
         i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
-        i, i, i, i,  # n_fft, dft_form, frame_offset, center
+        i, i, i, i, i, i,  # n_fft, dft_form, frame_offset, center, framing, drop_last
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, p,  # audio, is_int16, lengths, out, tables, taps
+        p, i, p, p, p, p,  # audio, is_int16, lengths, out, n_valid, frame_mask
+        p, p, p, p, p, p, p, p,  # tables, taps
         i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
-        i, i,  # n_fft, dft_form
+        i, i, i, i,  # n_fft, dft_form, framing, drop_last
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
         *branches,
@@ -607,6 +610,19 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem}
 
 
+def frame_counts_reference(
+    lengths: torch.Tensor, cfg: FrontendConfig, num_frames: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the kernel's frame counts: (n_valid [B] int32,
+    frame_mask [B, num_frames] float32) by `chain.num_valid_frames` and
+    `chain.frame_mask`, of the output lengths (`R.output_lengths`) for
+    resampling configs, as the reference's `_stage_dict` derives them."""
+    if chain.resamples(cfg):
+        lengths = R.output_lengths(lengths, cfg.input_sample_rate, cfg.sample_rate)
+    n_valid = chain.num_valid_frames(lengths, cfg).to(torch.int32)
+    return n_valid, chain.frame_mask(n_valid, num_frames, torch.float32)
+
+
 def logmel_prefix(
     audio: torch.Tensor,
     lengths: torch.Tensor,
@@ -625,7 +641,23 @@ def logmel_prefix(
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
-    window and mel matrix (a chain-constants dict)."""
+    window and mel matrix (a chain-constants dict). The launch's frame
+    counts and mask come with `logmel_prefix_counts`."""
+    return logmel_prefix_counts(audio, lengths, cfg, consts, dft_passes)[0]
+
+
+def logmel_prefix_counts(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+    dft_passes: str = "radix4",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`logmel_prefix` and, from the same launch, each row's valid frame
+    count n_valid [B] int32 and the frame mask [B, F] float32, bitwise
+    `frame_counts_reference` of the lengths. On a CPU tensor all three are
+    the plain versions; with B = 0 or F = 0 nothing launches and the counts
+    are the plain version's."""
     global launches, resample_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, direct_dft_launches, bluestein_launches, bf16x3_launches
@@ -636,7 +668,8 @@ def logmel_prefix(
             "csrc/frontend.cu has no bf16x3 DFT (ROADMAP queue 2 item 5)"
         )
     if audio.device.type == "cpu":
-        return logmel_prefix_reference(audio, lengths, cfg, consts, dft_passes)
+        prefix = logmel_prefix_reference(audio, lengths, cfg, consts, dft_passes)
+        return (prefix, *frame_counts_reference(lengths, cfg, prefix.shape[1]))
     if audio.device.type != "cuda":
         raise ValueError(f"the front-end kernel runs on CUDA, got {audio.device}")
     chain.check_supported(cfg)  # the default route's layout among the rest
@@ -675,18 +708,22 @@ def logmel_prefix(
     M = cfg.n_mels
     out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
-        return out
+        return (out, *frame_counts_reference(lengths, cfg, F))
+    n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
+    mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
     k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
     twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device)
     lib = _lib()
     head = (
         audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
-        out.data_ptr(), k["window"].data_ptr(), k["mel_w"].data_ptr(), k["melf_w"].data_ptr(),
-        k["mel_off"].data_ptr(), k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
+        out.data_ptr(), n_valid.data_ptr(), mask.data_ptr(), k["window"].data_ptr(),
+        k["mel_w"].data_ptr(), k["melf_w"].data_ptr(), k["mel_off"].data_ptr(),
+        k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
     )
     dft_matrix = _device_bf16_matrix(cfg, audio.device).data_ptr() if form == "bf16x3" else None
     dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, k["mel_w"].numel(), cfg.n_fft,
             DFT_FORMS.index(form))
+    framing = (FRAMINGS.index(cfg.frame_tail), int(cfg.drop_last_frame))
     frame_mode = cfg.preemph_mode == "frame"
     tail = (
         0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
@@ -708,13 +745,13 @@ def logmel_prefix(
             d = R.polyphase_design(up, down)
             taps = rs_kernel.device_table(up, down, cfg.input_scale, audio.device)
             rc = lib.mfcc_frontend_logmel_resample(
-                *head, taps.data_ptr(), *dims,
+                *head, taps.data_ptr(), *dims, *framing,
                 d["up"], d["down"], d["half_len"], d["K"], *tail, *branches, stream,
             )
         else:
             rc = lib.mfcc_frontend_logmel(
                 *head, dft_matrix, *dims, chain.frame_offset(cfg),
-                CENTER_CODES.get(cfg.frame_tail, 0),
+                CENTER_CODES.get(cfg.frame_tail, 0), *framing,
                 cfg.input_scale, *tail, *branches, stream,
             )
     if rc != 0:
@@ -735,7 +772,7 @@ def logmel_prefix(
     direct_dft_launches += int(form == "direct")
     bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
-    return out
+    return out, n_valid, mask
 
 
 def fused_logmel_stages(
@@ -757,7 +794,10 @@ def fused_logmel_stages(
     are) at any frame count, or raises on the card (`tail.feature_tail`).
     Other families keep the prefix, as the reference's ineligible configs
     do. For resampling configs lengths count
-    input samples; n_valid counts frames at cfg.sample_rate."""
+    input samples; n_valid counts frames at cfg.sample_rate. On the card
+    "n_valid" and "frame_mask" come from the front-end's own launch
+    (`logmel_prefix_counts`), so with int32 lengths on the card the step
+    runs the front-end and the tail and no other device kernel."""
     from mfcc_tpu_torch.kernels import tail
 
     if cfg.dtype != "float32":
@@ -769,16 +809,8 @@ def fused_logmel_stages(
         audio = audio.to(torch.float32)
     audio = audio.contiguous()
     lengths = torch.as_tensor(lengths, device=audio.device).to(torch.int32).contiguous()
-    prefix = logmel_prefix(audio, lengths, cfg, consts=consts, dft_passes=dft_passes)
-    if chain.resamples(cfg):
-        lengths = R.output_lengths(lengths, cfg.input_sample_rate, cfg.sample_rate)
-    n_valid = chain.num_valid_frames(lengths, cfg).to(torch.int32).contiguous()
-    F = prefix.shape[1]
-    stages = {
-        "n_valid": n_valid,
-        "frame_mask": chain.frame_mask(n_valid, F, torch.float32),
-        "num_frames": F,
-    }
+    prefix, n_valid, mask = logmel_prefix_counts(audio, lengths, cfg, consts, dft_passes)
+    stages = {"n_valid": n_valid, "frame_mask": mask, "num_frames": prefix.shape[1]}
     if feature_tail and cfg.features == "mfcc":
         stages["features_fused"] = tail.feature_tail(prefix, n_valid, cfg, consts)
     else:

@@ -13,7 +13,11 @@ as in the chain.
 
 Unlike the reference, whose tail needs the whole utterance in one frame
 block of its TPU layout (`fused_tail_active`), the kernel takes any frame
-count: a tile stages its own halo of 2·delta_window frames.
+count: a tile of 128 frames stages its own halo of 2·deltas·delta_window
+frames. The named shapes (`fixed_shape`) are compiled with their sizes
+fixed and dct_aug in the kernel's parameters; any other shape takes the
+kernel's generic instantiation, at the first of 128, 64 or 32 frames a
+block whose layout fits (`plan`).
 
 `feature_tail` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `feature_tail_reference`, the plain
@@ -35,21 +39,58 @@ from mfcc_tpu_torch.kernels import _build
 from mfcc_tpu_torch.kernels import resample as rs_kernel
 from mfcc_tpu_torch.ops import chain
 
-TILE = 32  # frames per block (csrc/tail.cu kTile)
+TILES = (128, 64, 32)  # frames per block (csrc/tail.cu kTileMax; the generic shape may halve it)
 MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
+# (n_mels + 1, n_ceps, delta_window or None, deltas) compiled with fixed sizes
+# (csrc/tail.cu shape_of); delta_window None: any (no deltas)
+FIXED_SHAPES = ((27, 13, 2, 2), (27, 13, None, 0), (24, 13, None, 0))
 
 tail_launches = 0
 tail_cmvn_launches = 0
 
 
+def fixed_shape(cfg: FrontendConfig) -> bool:
+    """True when cfg's tail shape is one the kernel is compiled for with its
+    sizes fixed (the named mfcc configs'); the others take the generic
+    instantiation."""
+    M1, C, N, nd = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window, cfg.deltas
+    return any(M1 == m and C == c and nd == d and (n is None or N == n)
+               for m, c, n, d in FIXED_SHAPES)
+
+
+def _a4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _floats(cfg: FrontendConfig, tile: int) -> int:
+    """Floats of one tail block at `tile` frames (csrc/tail.cu tail_layout):
+    dct_aug for the generic shape, the staged prefix rows with their halo of
+    deltas·delta_window frames on each side at the odd row stride M1 | 1
+    (and 6 floats of alignment slack), which ΔΔ [tile, C] overlays, their
+    base cepstra, and D."""
+    M1, C, N, nd = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window, cfg.deltas
+    N = N if nd > 0 else 0
+    R = tile + 2 * nd * N
+    RD = 0 if nd == 0 else tile + 2 * (N if nd >= 2 else 0)
+    w = 0 if fixed_shape(cfg) else _a4(M1 * C)
+    return w + _a4(max(R * (M1 | 1) + 6, tile * C)) + R * C + RD * C
+
+
+def plan(cfg: FrontendConfig) -> tuple[int, int]:
+    """(frames a block, shared-memory bytes a block) of cfg's tail (csrc/tail.cu
+    mfcc_feature_tail_plan): 128 frames for a fixed shape; for the generic
+    one the first of 128, 64 and 32 whose layout fits the block (else 32,
+    which `layout_reason` refuses)."""
+    for tile in TILES:
+        n = 4 * _floats(cfg, tile)
+        if fixed_shape(cfg) or n <= rs_kernel.SMEM_BUDGET_BYTES:
+            return tile, n
+    return tile, n
+
+
 def smem_bytes(cfg: FrontendConfig) -> int:
-    """Shared memory of one tail block (csrc/tail.cu tail_floats): dct_aug,
-    the staged prefix rows with their halo of deltas·delta_window frames on
-    each side, their base cepstra, and the first-order deltas."""
-    M1, C, N = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window
-    R = TILE + 2 * cfg.deltas * N
-    RD = 0 if cfg.deltas == 0 else TILE + 2 * (N if cfg.deltas >= 2 else 0)
-    return 4 * (M1 * C + R * M1 + R * C + RD * C)
+    """Shared memory of one tail block (`plan`)."""
+    return plan(cfg)[1]
 
 
 def layout_reason(cfg: FrontendConfig) -> str | None:
@@ -92,9 +133,16 @@ def feature_tail_reference(
 
 
 @functools.lru_cache(maxsize=16)
-def _device_dct(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+def _host_dct(cfg: FrontendConfig) -> torch.Tensor:
+    """dct_aug [M1, C] float32 in host memory: the fixed shapes' launch
+    copies it into the kernel's parameters."""
     aug = chain.device_constants(cfg, torch.device("cpu"), torch.float64)["dct_aug"]
-    return aug.to(device=device, dtype=torch.float32).contiguous()
+    return aug.to(torch.float32).contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _device_dct(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    return _host_dct(cfg).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,7 +150,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("tail")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.mfcc_feature_tail.argtypes = [
-        p, p, p, p,  # prefix, n_valid, dct, out
+        p, p, p, p, p,  # prefix, n_valid, dct, its host copy, out
         i, i, i, i, i, i,  # B, F, M1, C, deltas, N
         i, i, f, f, f,  # append_energy, has_floor, eps, log_floor, denom
         p,  # stream
@@ -161,15 +209,16 @@ def feature_tail(
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return out
     if consts is None:
-        dct = _device_dct(cfg, prefix.device)
+        dct, host = _device_dct(cfg, prefix.device), _host_dct(cfg)
     else:
         dct = consts["dct_aug"].to(device=prefix.device, dtype=torch.float32).contiguous()
+        host = dct.cpu()
     N = cfg.delta_window
     lib = _lib()
     with torch.cuda.device(prefix.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.mfcc_feature_tail(
-            prefix.data_ptr(), n_valid.data_ptr(), dct.data_ptr(), out.data_ptr(),
+            prefix.data_ptr(), n_valid.data_ptr(), dct.data_ptr(), host.data_ptr(), out.data_ptr(),
             B, F, M1, cfg.n_ceps, cfg.deltas, N, int(cfg.append_energy),
             int(cfg.energy_floor > 0.0), cfg.log_eps,
             math.log(cfg.energy_floor) if cfg.energy_floor > 0.0 else 0.0,

@@ -11,8 +11,10 @@ cut before the projection (P2: each frame writes its first power bins, so
 staging, the DFT and the split still run). Times each with the profiler's
 device time of the kernel, L2 flushed before every launch, in turns
 (P1, P2, P0, P0, P2, P1), at classic13_deltas b64 x 10 s, logmel80 b256 x
-10 s, whisper80 b64 x 30 s and mfcc39_48k b64 x 10 s (the fused resample's
-int16 instantiation: there P1 is the staging with the FIR) int16, and at
+10 s, whisper80 b64 x 30 s, mfcc39_48k b64 x 10 s (the fused resample's
+int16 instantiation: there P1 is the staging with the FIR) and kaldi_mfcc
+with dither 1.0 b64 x 10 s (the dither and conditioning instantiation:
+there P1 is the staging with the dither) int16, and at
 classic13 b64 x 10 s through
 the bf16x3 form (there P2 - P1 is the tensor-core product and its |X|^2
 stores), and prints the registers (ptxas) and
@@ -71,9 +73,9 @@ extern "C" int frontend_breakdown_blocks(int smem) {
   return n;
 }
 """
-PATHS = (("classic13_deltas", 64, 10, "radix4"), ("logmel80", 256, 10, "radix4"),
-         ("whisper80", 64, 30, "radix4"), ("mfcc39_48k", 64, 10, "radix4"),
-         ("classic13", 64, 10, "bf16x3"))
+PATHS = (("classic13_deltas", 64, 10, "radix4", {}), ("logmel80", 256, 10, "radix4", {}),
+         ("whisper80", 64, 30, "radix4", {}), ("mfcc39_48k", 64, 10, "radix4", {}),
+         ("kaldi_mfcc", 64, 10, "radix4", {"dither": 1.0}), ("classic13", 64, 10, "bf16x3", {}))
 PLAIN, BF16X3 = "logmel_kernelIsLb0ELb0ELb0ELb0E", "logmel_kernelIsLb0ELb0ELb0ELb1E"  # int16 instantiations
 
 
@@ -229,8 +231,8 @@ def main() -> int:
         print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
         print(f"  SASS of P0's int16 bf16x3 instantiation: "
               f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
-        for name, B, secs, passes in PATHS:
-            cfg = named_config(name)
+        for name, B, secs, passes, over in PATHS:
+            cfg = named_config(name).replace(**over)
             n = (cfg.input_sample_rate or cfg.sample_rate) * secs
             step = 1713 if cfg.input_sample_rate else 571  # chip_smoke.py's rows
             g = np.random.default_rng(0)
@@ -246,12 +248,14 @@ def main() -> int:
             smem = frontend.smem_bytes(cfg, passes)
             ms = time_cuts(torch, frontend, libs, cfg, audio, lengths, passes)
             p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
-            own = passes == "bf16x3" or cfg.input_sample_rate  # not the plain instantiation
+            # not the plain instantiation
+            own = passes == "bf16x3" or cfg.input_sample_rate or cfg.dither > 0.0
             blocks = (frontend.kernel_info(cfg, True, passes)["blocks_per_sm"] if own
                       else libs[0].frontend_breakdown_blocks(smem))
             dft = "tensor-core product" if passes == "bf16x3" else "DFT and split"
-            stage = "staging with the FIR" if cfg.input_sample_rate else "staging"
-            print(f"  {name} {passes} b{B} x {secs} s: P1 {stage} {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
+            stage = ("staging with the FIR" if cfg.input_sample_rate
+                     else "staging with the dither" if cfg.dither > 0.0 else "staging")
+            print(f"  {name}{''.join(f' {k} {v}' for k, v in over.items())} {passes} b{B} x {secs} s: P1 {stage} {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
                   f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); {stage} {p1:.4f}, "
                   f"{dft} {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
                   f"{blocks} blocks an SM [{card}]")

@@ -243,9 +243,10 @@ def test_radix_plans():
     assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 62832  # three blocks an SM
 
 
-# sizes the parent layout already refused at kaldi_mfcc with dither 1.0 (its
-# dither row): Stockham sizes over the block, left to ROADMAP queue 2 item 4
-PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": (1944, 2000, 2048)}
+# sizes the layout refuses: none. With dither 1.0 the parent's layout kept a
+# second x row (span + 1 floats) and refused n_fft 1944, 2000 and 2048 at
+# kaldi_mfcc; the dither now stages in the signal row itself, one float wider
+PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": ()}
 
 
 @pytest.mark.parametrize("case", sorted(PARENT_REFUSED))
@@ -285,6 +286,25 @@ def test_bluestein_sizes_and_layouts():
     # the filter of an even n_fft is even: the kernel reads entry min(n, P - n)
     h = frontend.bluestein_filter(404)
     np.testing.assert_allclose(h[1:], h[1:][::-1], rtol=0, atol=1e-15)
+
+
+def test_dither_layouts_meet_the_occupancy_goals():
+    """The dither stages in the signal row, one float wider (x[t0-1 ..
+    t0+span)), with no second x row: kaldi_mfcc with dither 1.0 takes
+    71,232 B, three blocks an SM (233,472 B / 3 less 1 KB a block), as
+    without dither (71,216 B); the Bluestein form at n_fft 404 with dither
+    two (233,472 / 2 less 1 KB); bf16x3 with dither its 64 frames and four
+    ring stages, as without."""
+    kaldi = T_CONFIGS["kaldi_mfcc"]
+    assert frontend.smem_bytes(kaldi.replace(dither=1.0)) == 71232 <= 233472 // 3 - 1024
+    assert frontend.smem_bytes(kaldi) == 71216
+    for name in ("classic13", "kaldi_mfcc"):
+        c = T_CONFIGS[name].replace(n_fft=404, dither=1.0)
+        assert frontend.dft_form(c) == "bluestein"
+        assert frontend.smem_bytes(c) <= 233472 // 2 - 1024, name
+    for name in ("classic13", "kaldi_mfcc"):
+        c = T_CONFIGS[name]
+        assert frontend.bf16_plan(c.replace(dither=1.0)) == frontend.bf16_plan(c) == (64, 4)
 
 
 def test_mel_bands_cover_every_weight():
@@ -505,12 +525,56 @@ def _project(P, w, wf, off, kbin, eps, ssc):
     return sums, sumsf
 
 
+STAGE_CHUNK = 256 * 8  # csrc/frontend.cu kThreads * kStageBatch: pre-emphasis in place, chunk by chunk
+
+
+def _stage_tile(x_row, noise_row, n, f0, cfg, dtype):
+    """csrc/frontend.cu's staged signal row of the tile at frame f0 (span
+    floats) for a row of n samples, x_row the converted samples and
+    noise_row the contract noise. Centered framing: each position reads the
+    reflected source index r and stages x[r] - c·x[r-1] (noise keyed on r).
+    Otherwise, with dither (step 1d): x[t0 - o .. t0 + span) converted into
+    the row (o = 1 under signal pre-emphasis, 0 in frame mode), 0 outside
+    [0, n); the dither pass in place at 0 <= t < n; then for o = 1
+    pre-emphasis and zeroing in place, STAGE_CHUNK entries at a time, each
+    chunk read whole before it is written. Without dither: x[t] - c·x[t-1],
+    zeroed at t >= n."""
+    S, L, T = cfg.frame_step, cfg.frame_length, x_row.shape[0]
+    span = (TILE - 1) * S + L
+    c_sig = dtype(0.0 if cfg.preemph_mode == "frame" else cfg.preemph)
+    sigma = dtype(cfg.dither)
+    xd = x_row + sigma * noise_row if cfg.dither > 0.0 else x_row
+    if tchain.centered(cfg):
+        r = _reflect(f0 * S + tchain.frame_offset(cfg) + np.arange(span), max(n, 1), cfg.frame_tail)
+        ok = r < n
+        x = np.where(ok, xd[np.minimum(r, T - 1)], 0)
+        xp = np.where(ok & (r > 0), xd[np.clip(r - 1, 0, T - 1)], 0)
+        return np.where(ok, x - c_sig * xp, 0).astype(dtype)
+    if cfg.dither > 0.0:
+        o = int(c_sig != 0)
+        t = f0 * S - o + np.arange(span + o)
+        live = (t >= 0) & (t < n)
+        sig = np.where(live, x_row[np.clip(t, 0, T - 1)], 0).astype(dtype)
+        sig[live] = sig[live] + sigma * noise_row[t[live]]  # the dither pass
+        if o:
+            for c0 in range(0, span, STAGE_CHUNK):
+                i = np.arange(c0, min(c0 + STAGE_CHUNK, span))
+                v = np.where(f0 * S + i < n, sig[i + 1] - c_sig * sig[i], 0)  # the chunk, read whole
+                sig[i] = v
+        return sig[:span]
+    t = f0 * S + np.arange(span)
+    ok = t < n
+    x = np.where(ok, x_row[np.minimum(t, T - 1)], 0)
+    xp = np.where(ok & (t > 0), x_row[np.clip(t - 1, 0, T - 1)], 0)
+    return np.where(ok, x - c_sig * xp, 0).astype(dtype)
+
+
 def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
-    staged row (x plus the contract noise at t < length when cfg dithers,
-    signal pre-emphasis from x[t-1], zeroing at t >= length; for centered
-    framing each staged position reads the reflected source index r and
-    stages x[r] - c·x[r-1]), the per-frame conditioning over all L samples
+    staged row (`_stage_tile`: x plus the contract noise at t < length when
+    cfg dithers, signal pre-emphasis from x[t-1], zeroing at t >= length, in
+    the kernel's order; for centered framing each staged position reads the
+    reflected source index r and stages x[r] - c·x[r-1]), the per-frame conditioning over all L samples
     (mean, the raw energy as a second pass, frame pre-emphasis from fr[a]
     and fr[a-1], the windowed energy), a frame that starts at or past its
     row's length (non-centered framing) taking no DFT: zero powers and zero
@@ -549,29 +613,16 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     pscale = dtype(1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
     eps = dtype(cfg.log_eps)
     frame_mode = cfg.preemph_mode == "frame"
-    c_sig = dtype(0.0 if frame_mode else cfg.preemph)
     c = dtype(cfg.preemph if frame_mode else 0.0)
     keep0 = dtype(np.float32(1.0 - float(c)))  # rounded on the host, passed as a float
     out = np.empty((B, F, M + 1), dtype)
     x_all = audio.astype(dtype) * dtype(cfg.input_scale)
-    if cfg.dither > 0.0:
-        noise = tdither.signal_noise(cfg.dither_seed, T, S).numpy().astype(dtype)
-        x_all = x_all + dtype(cfg.dither) * noise
+    noise = (tdither.signal_noise(cfg.dither_seed, T, S).numpy().astype(dtype)
+             if cfg.dither > 0.0 else None)
     for b in range(B):
         n = min(int(lengths[b]), T)
         for f0 in range(0, F, TILE):
-            if tchain.centered(cfg):
-                r = _reflect(f0 * S + tchain.frame_offset(cfg) + np.arange(span), max(n, 1),
-                             cfg.frame_tail)
-                ok = r < n
-                x = np.where(ok, x_all[b, np.minimum(r, T - 1)], 0)
-                xp = np.where(ok & (r > 0), x_all[b, np.clip(r - 1, 0, T - 1)], 0)
-            else:
-                t = f0 * S + np.arange(span)
-                ok = t < n
-                x = np.where(ok, x_all[b, np.minimum(t, T - 1)], 0)
-                xp = np.where(ok & (t > 0), x_all[b, np.clip(t - 1, 0, T - 1)], 0)
-            sig = np.where(ok, x - c_sig * xp, 0).astype(dtype)
+            sig = _stage_tile(x_all[b], noise, n, f0, cfg, dtype)
             nf = min(TILE, F - f0)
             f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
             # frames wholly past the row's length take no DFT (step 2z)
@@ -660,6 +711,45 @@ def test_kernel_algebra_float32_within_gates():
     audio, lengths = _batch("classic13_deltas")
     got = _emulate_kernel(audio, lengths, cfg, np.float32)
     assert_prefix_close(got, _reference(audio, lengths, cfg), cfg.n_mels)
+
+
+STAGING_CASES = [
+    ("classic13", {"dither": 1.0}),
+    ("kaldi_mfcc", {"dither": 1.0}),
+    ("classic13", {"dither": 0.5, "preemph": 0.0}),
+    ("classic13_deltas", {}),
+]
+STAGING_IDS = ["signal_preemph_dither", "frame_mode_dither", "signal_no_preemph_dither",
+               "signal_preemph_no_dither"]
+
+
+@pytest.mark.parametrize("name,overrides", STAGING_CASES, ids=STAGING_IDS)
+def test_staged_row_is_the_chains_dithered_signal(name, overrides):
+    """The kernel's staged row (`_stage_tile`: batched loads, the dither
+    pass in place, chunked in-place pre-emphasis) over every tile of rows
+    at the boundary lengths equals the signal `chain.logmel_stages` frames:
+    dithered, pre-emphasized in signal mode, zeroed past each length; in
+    frame mode the raw dithered signal (the kernel's host passes preemph =
+    0 there; the chain's frames are taken before its frame pre-emphasis and
+    DC removal). float64, 1e-9, as the other emulator tests."""
+    cfg = T_CONFIGS[name].replace(dtype="float64", **overrides)
+    chain_cfg = (cfg.replace(preemph=0.0, remove_dc_offset=False)
+                 if cfg.preemph_mode == "frame" else cfg)
+    T = 12000
+    g = np.random.default_rng(31)
+    lens = np.array(BOUNDARY_LENGTHS + [T - 1, T], np.int32)
+    audio = np.round(g.standard_normal((len(lens), T)) * 3000)
+    frames = tchain.logmel_stages(torch.as_tensor(audio), torch.as_tensor(lens), chain_cfg)["frames"]
+    frames = frames.numpy()
+    F, S, L = cfg.num_frames(T), cfg.frame_step, cfg.frame_length
+    noise = tdither.signal_noise(cfg.dither_seed, T, S).numpy().astype(np.float64)
+    assert frames.shape == (len(lens), F, L) and F > 2 * TILE
+    for b, n in enumerate(lens):
+        for f0 in range(0, F, TILE):
+            sig = _stage_tile(audio[b], noise, int(n), f0, cfg, np.float64)
+            nf = min(TILE, F - f0)
+            got = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
+            np.testing.assert_allclose(got, frames[b, f0 : f0 + nf], rtol=1e-9, atol=1e-9)
 
 
 BRANCHES = [

@@ -592,6 +592,142 @@ def test_extract_batch_launches_the_tail(config_name):
         assert_features_close(feat, cpu)
 
 
+def _count_lengths(cfg, T: int) -> list[int]:
+    """Lengths at the edges of cfg's frame count, in the rows' own samples:
+    0, 1, a frame length and its neighbours, a hop's, the first tile's span
+    and its neighbours, T - 1, T and a negative length."""
+    r = (cfg.input_sample_rate or cfg.sample_rate) / cfg.sample_rate
+    L, S = round(cfg.frame_length * r), round(cfg.frame_step * r)
+    span = round((31 * cfg.frame_step + cfg.frame_length) * r)
+    return [0, 1, L - 1, L, L + 1, S - 1, S, S + 1, span - 1, span, span + 1, T - 1, T, -1]
+
+
+COUNT_CASES = [
+    ("classic13_deltas", {}, "radix4"),
+    ("classic13_deltas", {}, "bf16x3"),
+    ("classic13", {"drop_last_frame": True}, "radix4"),
+    ("kaldi_mfcc", {}, "radix4"),
+    ("kaldi_mfcc", {"dither": 1.0}, "radix4"),
+    ("kaldi_mfcc", {"dither": 1.0}, "bf16x3"),
+    ("classic13", {"frame_tail": "center"}, "radix4"),
+    ("whisper80", {}, "radix4"),
+    ("classic13", {"frame_tail": "center_reflect"}, "radix4"),
+    ("mfcc39_48k", {}, "radix4"),
+    ("mfcc39_44k", {}, "radix4"),
+    ("mfcc39_48k", {"frame_tail": "drop", "drop_last_frame": True}, "radix4"),
+]
+COUNT_IDS = ["pad", "pad_bf16x3", "pad_drop_last", "drop", "drop_dither", "drop_dither_bf16x3",
+             "center", "center_reflect_drop_last", "center_reflect", "resampled_48k",
+             "resampled_44k", "resampled_48k_drop_drop_last"]
+
+
+@pytest.mark.parametrize("name,overrides,passes", COUNT_CASES, ids=COUNT_IDS)
+def test_kernel_counts_and_mask_equal_the_chains(name, overrides, passes):
+    """The front-end kernel's n_valid and frame mask (`logmel_prefix_counts`)
+    bitwise equal to chain.num_valid_frames / chain.frame_mask of the same
+    card lengths (of their output lengths for resampled rows), at each
+    framing's edge lengths, through each form's launch."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    T = cfg.input_sample_rate or cfg.sample_rate  # one second
+    lens = torch.tensor(_count_lengths(cfg, T), dtype=torch.int32, device=dev)
+    g = torch.Generator(dev).manual_seed(41)
+    audio = torch.randint(-3000, 3000, (lens.numel(), T), dtype=torch.int16, device=dev, generator=g)
+    prefix, nv, mask = frontend.logmel_prefix_counts(audio, lens, cfg, dft_passes=passes)
+    want_nv, want_mask = frontend.frame_counts_reference(lens, cfg, prefix.shape[1])
+    assert nv.device.type == mask.device.type == "cuda"
+    assert torch.equal(nv, want_nv) and torch.equal(mask, want_mask)
+    assert torch.equal(prefix, frontend.logmel_prefix(audio, lens, cfg, dft_passes=passes))
+
+
+TAIL_EDGE_CASES = [
+    ("classic13_deltas", {}),
+    ("classic13_deltas", {"cmvn": "utterance"}),
+    ("classic13", {"deltas": 1}),
+    ("kaldi_mfcc", {}),
+    ("classic13_deltas", {"n_mels": 150, "n_ceps": 140}),
+]
+TAIL_EDGE_IDS = ["deltas2", "deltas2_cmvn", "generic_deltas1", "kaldi_even_rows", "generic_tile64"]
+
+
+@pytest.mark.parametrize("F", [127, 128, 129, 257])
+@pytest.mark.parametrize("name,overrides", TAIL_EDGE_CASES, ids=TAIL_EDGE_IDS)
+def test_feature_tail_at_its_tile_edges(name, overrides, F):
+    """The tail kernel against its plain version with F and n_valid at its
+    tile's edges (tail.plan: 128 frames, 64 for the wide generic shape),
+    with utterance CMVN, the generic instantiation, even prefix rows, and a
+    prefix that is not 16-byte aligned (the scalar staging); pad rows 0."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    M1 = cfg.n_mels + 1
+    nvs = sorted(v for v in {0, 1, 2, 63, 64, 65, 127, 128, 129, F} if v <= F)
+    g = torch.Generator(dev).manual_seed(F)
+    flat = torch.randn(len(nvs) * F * M1 + 1, generator=g, device=dev)
+    for prefix in (flat[:-1].view(len(nvs), F, M1), flat[1:].view(len(nvs), F, M1)):
+        prefix[..., -1] = prefix[..., -1].abs() * 1e3
+        nv = torch.tensor(nvs, dtype=torch.int32, device=dev)
+        got = tail.feature_tail(prefix, nv, cfg)
+        want = tail.feature_tail_reference(prefix, nv, cfg)
+        scale = None
+        if cfg.cmvn == "utterance":
+            pre = tail.feature_tail_reference(prefix, nv, cfg.replace(cmvn="off"))
+            scale = testing.cmvn_column_scale(pre, nv, cfg.cmvn_eps)
+        errs = testing.tail_errors(got, want, scale)
+        assert not testing.tail_failures(errs), errs
+        pad = torch.arange(F, device=dev)[None, :] >= nv[:, None]
+        assert bool((got[pad] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["kaldi_mfcc", "classic13"])
+def test_dither_staged_in_the_signal_row(name):
+    """With dither 1.0 (frame mode at kaldi_mfcc, signal pre-emphasis at
+    classic13) the kernel's prefix against its plain version on rows over
+    several chunks and tiles, int16 ≡ float32 and two runs bitwise; the
+    dithered layout keeps three blocks an SM."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(dither=1.0)
+    n = 48000
+    lens = [n - 571 * i for i in range(6)] + [0, 1, 399, 400, 401, 5359, 5360, 5361]
+    g = np.random.default_rng(43)
+    b = pad_batch([g.standard_normal(x) * 3000 for x in lens], cfg, bucket_len=n, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    want = frontend.logmel_prefix_reference(audio, lengths, cfg)
+    valid = lengths >= cfg.frame_length
+    assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    assert frontend.kernel_info(cfg)["blocks_per_sm"] >= 3
+
+
+def test_extract_batch_step_runs_two_device_kernels():
+    """One classic13_deltas extract_batch with int16 rows and int32 lengths
+    on the card runs the front-end kernel and the tail kernel and no other
+    device kernel (the profiler's device events; a trace that lost records
+    is taken again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13_deltas"]
+    b = _pcm_batch(cfg)
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev).to(torch.int32)
+    for _ in range(2):
+        chain.extract_batch(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            chain.extract_batch(audio, lengths, cfg)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        assert len(names) <= 2, names
+        if len(names) == 2:
+            break
+    assert sorted("logmel_kernel" in x for x in names) == [False, True], names
+    assert any("tail_kernel" in x for x in names), names
+
+
 BF16X3 = [
     ("classic13", {}),
     ("kaldi_mfcc", {"dither": 1.0, "n_fft": 404}),

@@ -8,11 +8,14 @@ On the CPU the wrapper takes its plain version (the prefix branch of
     nine cases of tests/test_pallas_kernels.py::_TAIL_CASES, on the same
     signals, at that test's gate: max(2e-4, 2e-5·max|f|) absolute, masks
     equal, pad frames exactly 0;
-  - a numpy mirror of csrc/tail.cu (tile by tile: the staged rows clamped to
-    [0, n_valid - 1], base for the halo, D at clamped positions, ΔΔ, the mask,
+  - a numpy mirror of csrc/tail.cu (128-frame tiles: the distinct prefix
+    rows staged from the flat prefix with the kernel's alignment shift or
+    padded stride, base for each, D at clamped positions, ΔΔ, the mask, the
+    output in the kernel's 16-byte store order with each float written once,
     the CMVN kernel's two passes) against the plain version in float64, over
-    n_valid ∈ {0, 1, 2, 3, 31, 32, 33, F} and F ∈ {1, 3, 31, 32, 33, 100}:
-    1e-12 (the same arithmetic, only the order of sums differs);
+    n_valid at the old and new tile edges and F ∈ {1, 3, 31, 32, 33, 100,
+    127, 128, 129, 257}: 1e-12 (the same arithmetic, only the order of sums
+    differs); the tail's plans and layouts;
   - rows longer than the reference's largest frame block (15 s), where the
     reference's tail refuses, against the JAX jnp chain at the 5e-4 cepstra
     gate;
@@ -36,8 +39,6 @@ from mfcc_tpu_torch.kernels import frontend, tail
 from mfcc_tpu_torch.ops import chain as tchain
 from mfcc_tpu_torch.ops import constants as tconstants
 from mfcc_tpu_torch.pipeline import pad_batch
-
-TILE = tail.TILE
 
 # tests/test_pallas_kernels.py::_TAIL_CASES
 TAIL_CASES = {
@@ -86,59 +87,111 @@ def test_feature_tail_matches_pallas_tail(case):
     assert (got[mask == 0] == 0).all()
 
 
+def _stage(flat, total, lo, n, M1):
+    """csrc/tail.cu step 1: the n floats from flat index lo as the block's
+    staged row region holds them. Odd M1: 16-byte copies from the boundary
+    at or below lo (floats past the tensor's end read as 0), the rows then
+    begin `shift` floats in; even M1: one float a copy into rows M1 + 1
+    apart. Returns (region, shift, row stride)."""
+    XS = M1 | 1
+    region = np.full(n // M1 * XS + 6 + 3, np.nan)
+    if XS == M1:
+        shift = lo % 4
+        nvec = (n + shift + 3) // 4
+        idx = lo - shift + np.arange(4 * nvec)
+        region[: 4 * nvec] = np.where(idx < total, flat[np.minimum(idx, total - 1)], 0)
+        return region, shift, XS
+    i = np.arange(n)
+    region[i // M1 * XS + i % M1] = flat[lo + i]
+    return region, 0, XS
+
+
+def _store_order(go, n_out):
+    """csrc/tail.cu step 4: the output floats each store writes, in order:
+    16-byte stores from the 16-byte boundary of the flat output index go,
+    scalar stores for the head before it and the tail after the last whole
+    quad."""
+    head = min((4 - go % 4) % 4, n_out)
+    quads = (n_out - head) // 4
+    return ([head + 4 * q + np.arange(4) for q in range(quads)], list(range(head)),
+            list(range(head + 4 * quads, n_out)))
+
+
 def _emulate_tail(prefix, n_valid, cfg):
-    """csrc/tail.cu in numpy (float64), tile by tile: the staged rows
-    clamp(q, 0, last) for q in [f0 - h, f0 + 32 + h) (h = deltas·N), the
-    energy lane logged and floored, base = x·dct_aug for every staged row,
-    D at positions [f0 - e, f0 + 32 + e) (e = N for ΔΔ) read at clamp(p, 0,
-    last), ΔΔ and the mask for the tile's rows; a tile wholly past n_valid
-    stays 0. Then the CMVN kernel: per column, the mean over rows < n_valid
-    (at least 1), the centred squares, the rows normalized in place."""
+    """csrc/tail.cu in numpy (float64), tile by tile at `tail.plan`'s tile
+    (128 frames; 64 or 32 for a wide generic shape): the distinct prefix
+    rows [q_lo, q_hi] = [max(f0 - h, 0), min(f0 + tile - 1 + h, last)] (h =
+    deltas·N) staged from the flat prefix (`_stage`), the energy lane logged
+    and floored, base = x·dct_aug for each distinct row, D at the distinct
+    positions [max(f0 - e, 0), min(f0 + tile - 1 + e, last)] (e = N for ΔΔ)
+    with every read clamped to [0, last], then the tile's flat output in the
+    kernel's store order (`_store_order`, each float written once): base, D,
+    ΔΔ from D, 0 past n_valid; a tile wholly past n_valid writes zeros. Then
+    the CMVN kernel: per column, the mean over rows < n_valid (at least 1),
+    the centred squares, the rows normalized in place."""
     aug = tconstants.chain_constants(cfg)["dct_aug"]
     B, F, M1 = prefix.shape
     C, N, nd = cfg.n_ceps, cfg.delta_window, cfg.deltas
+    N = N if nd else 0
     D = C * (nd + 1)
     h, e = nd * N, (N if nd >= 2 else 0)
     denom = 2.0 * sum(i * i for i in range(1, N + 1))
-    out = np.zeros((B, F, D))
+    tile = tail.plan(cfg)[0]
+    flat = prefix.reshape(-1)
+    out = np.full(B * F * D, np.nan)
     for b in range(B):
         nv = min(max(int(n_valid[b]), 0), F)
-        for f0 in range(0, F, TILE):
-            if f0 >= nv:
-                continue
-            last = nv - 1
-            x = prefix[b, np.clip(np.arange(f0 - h, f0 + TILE + h), 0, last)].copy()
-            if cfg.append_energy:
-                lane = x[:, M1 - 1]
-                lane = np.log(np.where(lane <= 0, cfg.log_eps, lane))
-                if cfg.energy_floor > 0:
-                    lane = np.maximum(lane, np.log(cfg.energy_floor))
-                x[:, M1 - 1] = lane
-            base = x @ aug
-            if nd >= 1:
-                at = np.clip(np.arange(f0 - e, f0 + TILE + e), 0, last) - (f0 - h)
-                d1 = sum(k * (base[at + k] - base[at - k]) for k in range(1, N + 1)) / denom
-            for r in range(min(TILE, F - f0)):
-                s = f0 + r
-                if s >= nv:
-                    continue
-                parts = [base[r + h]]
+        last = nv - 1
+        for f0 in range(0, F, tile):
+            rows = min(tile, F - f0)
+            go = (b * F + f0) * D
+            vals = np.zeros(rows * D)
+            if f0 < nv:
+                q_lo, q_hi = max(f0 - h, 0), min(f0 + tile - 1 + h, last)
+                n = (q_hi - q_lo + 1) * M1
+                region, shift, XS = _stage(flat, flat.size, (b * F + q_lo) * M1, n, M1)
+                r = np.arange(q_hi - q_lo + 1)
+                x = region[shift + r[:, None] * XS + np.arange(M1)]
+                if cfg.append_energy:
+                    lane = x[:, M1 - 1]
+                    lane = np.log(np.where(lane <= 0, cfg.log_eps, lane))
+                    if cfg.energy_floor > 0:
+                        lane = np.maximum(lane, np.log(cfg.energy_floor))
+                    x[:, M1 - 1] = lane
+                base = x @ aug  # row q at q - q_lo
+
+                def clamp(j):
+                    return np.clip(j, 0, last)
+
+                def dsum(v, c, lo):  # sum_k k (v(c + k) - v(c - k)) / denom, reads clamped
+                    return sum(k * (v[clamp(c + k) - lo] - v[clamp(c - k) - lo])
+                               for k in range(1, N + 1)) / denom
+
                 if nd >= 1:
-                    parts.append(d1[r + e])
+                    d_lo, d_hi = max(f0 - e, 0), min(f0 + tile - 1 + e, last)
+                    d1 = dsum(base, np.arange(d_lo, d_hi + 1), q_lo)  # position c at c - d_lo
+                s = np.arange(f0, min(f0 + rows, nv))
+                parts = [base[s - q_lo]]
+                if nd >= 1:
+                    parts.append(d1[s - d_lo])
                 if nd >= 2:
-                    parts.append(sum(k * (d1[r + e + k] - d1[r + e - k]) for k in range(1, N + 1))
-                                 / denom)
-                out[b, s] = np.concatenate(parts)
+                    parts.append(dsum(d1, s, d_lo))
+                vals[: len(s) * D] = np.concatenate(parts, axis=1).reshape(-1)
+            quads, head, tail_ = _store_order(go, rows * D)
+            order = np.concatenate([np.concatenate(quads) if quads else np.zeros(0, int),
+                                    np.asarray(head, int), np.asarray(tail_, int)])
+            assert np.array_equal(np.sort(order), np.arange(rows * D))  # each float once
+            out[go + order] = vals[order]
         if cfg.cmvn == "utterance":
-            v = out[b, :nv]
+            v = out[b * F * D: (b + 1) * F * D].reshape(F, D)[:nv]
             n = max(nv, 1)
             mu = v.sum(axis=0) / n
             if cfg.cmvn_var_norm:
                 sd = np.sqrt(((v - mu) ** 2).sum(axis=0) / n + cfg.cmvn_eps)
-                out[b, :nv] = (v - mu) / sd
+                v[:] = (v - mu) / sd
             else:
-                out[b, :nv] = v - mu
-    return out
+                v[:] = v - mu
+    return out.reshape(B, F, D)
 
 
 MIRROR_CASES = {
@@ -148,15 +201,20 @@ MIRROR_CASES = {
     "deltas1_window3": dict(name="classic13", deltas=1, delta_window=3),
     "no_deltas_no_energy": dict(name="classic13", append_energy=False),
     "kaldi_floor_window1": dict(name="kaldi_mfcc", deltas=2, delta_window=1, energy_floor=1e-3),
+    "kaldi": dict(name="kaldi_mfcc"),
+    "wide_generic_tile64": dict(name="classic13_deltas", n_mels=150, n_ceps=140),
 }
+# the new tile's edges (tile - 1, tile, tile + 1, two tiles + 1) beside the
+# parent's 32-frame ones
+TAIL_F = [1, 3, 31, 32, 33, 100, 127, 128, 129, 257]
 
 
-@pytest.mark.parametrize("F", [1, 3, 31, 32, 33, 100])
+@pytest.mark.parametrize("F", TAIL_F)
 @pytest.mark.parametrize("case", sorted(MIRROR_CASES))
 def test_kernel_mirror_matches_plain_tail(case, F):
     kw = dict(MIRROR_CASES[case])
     cfg = T_CONFIGS[kw.pop("name")].replace(dtype="float64", **kw)
-    nvs = sorted(v for v in {0, 1, 2, 3, 31, 32, 33, F} if v <= F)
+    nvs = sorted(v for v in {0, 1, 2, 3, 31, 32, 33, 63, 64, 65, 127, 128, 129, F} if v <= F)
     g = np.random.default_rng(F)
     prefix = g.standard_normal((len(nvs), F, cfg.n_mels + 1))
     prefix[..., -1] = np.abs(prefix[..., -1]) * 1e3 * (g.random((len(nvs), F)) > 0.1)  # some 0s
@@ -165,6 +223,23 @@ def test_kernel_mirror_matches_plain_tail(case, F):
     got = _emulate_tail(prefix, nvs, cfg)
     np.testing.assert_allclose(got, want, atol=1e-12, rtol=1e-12)
     assert (got[np.arange(F)[None, :] >= np.asarray(nvs)[:, None]] == 0).all()
+
+
+def test_tail_plans_and_layouts():
+    """The named mfcc shapes are compiled with fixed sizes at 128 frames a
+    block; a generic shape halves the tile until its layout fits (150 mels,
+    140 cepstra: 64 frames). The layout mirrors csrc/tail.cu tail_layout:
+    at classic13_deltas 136 staged rows of 27 floats (+6), 136 base rows
+    and 132 D rows of 13, 28,656 B; kaldi_mfcc's even rows padded to 25."""
+    c = T_CONFIGS
+    assert all(tail.fixed_shape(c[n]) for n in c if c[n].features == "mfcc")
+    assert not tail.fixed_shape(c["classic13"].replace(deltas=1))
+    assert tail.plan(c["classic13_deltas"]) == (128, 4 * ((136 * 27 + 6 + 3) // 4 * 4 + 136 * 13 + 132 * 13))
+    assert tail.plan(c["classic13_deltas"]) == (128, 28656)
+    assert tail.plan(c["kaldi_mfcc"]) == (128, 4 * ((128 * 25 + 6 + 3) // 4 * 4 + 128 * 13))
+    assert tail.plan(c["classic13_deltas"].replace(n_mels=150, n_ceps=140))[0] == 64
+    wide = c["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
+    assert tail.plan(wide)[0] == 32 and tail.layout_reason(wide)
 
 
 @pytest.mark.parametrize("cmvn", ["off", "utterance"])
