@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`mfcc_tpu_torch`) on one CUDA card.
 
-    python3 chip_smoke.py        # from the root of a checkout; needs one card
+    python3 chip_smoke.py [--seed N]   # from the root of a checkout; needs one card
+
+--seed (default 0) seeds the wav corpus of phase 22.
 
 Phases, in order; any failure exits non-zero:
   1. the card: `nvidia-smi` name and power limit, torch's device name;
@@ -124,6 +126,30 @@ Phases, in order; any failure exits non-zero:
   21. n_fft 2048 (classic13, 26 filters), b16: the Stockham form at 1,024
      points (8*8*8*2) against the float64 plain version, counted, its
      features within 5e-4 of the CPU chain.
+  22. the corpus path, on a corpus written from --seed into a temporary
+     directory (256 PCM16 files of 1-10 s at 16 kHz, every fourth in a
+     speaker subdirectory, two of 75 and 90 s, a corrupt file and one at 8
+     kHz; 32 files at 48 kHz and one of 90 s): (a) `cli.main(["extract",
+     ..., "--config", "classic13_deltas", "--feed", "direct"])` on the
+     card, with every count set to 0 just before and read just after: one
+     shard a batch and one a long file, the decode errors and wrong rates
+     counted, front-end launches = batches + the long files' segment groups
+     and tail launches = batches + long files (no other kernel), every
+     utterance within 5e-4 of the CPU chain's `extract_single` on the same
+     decoded samples; (b) classic13_deltas_gcmvn's two passes (`extract
+     --cmvn-stats`, then `apply-cmvn`): the moments within 1e-5 of the same
+     run with `--device cpu` (Σx relative to sqrt(n Σx²), Σx² relative to
+     itself), the normalized corpus with mean 0 and std 1 within 1e-3 per
+     dimension; (c) mfcc39_48k: `resample.cu` launched once (for the 90 s
+     file), whose features are within 8e-4 of the CPU chain's monolithic
+     extraction; `resample.cu` timed on a 90 s 44.1 kHz row beside its
+     bound; (d) `--format htk` and `--format kaldi` read back equal to the
+     npz run; (e) with CUDA_VISIBLE_DEVICES="" `python -m
+     mfcc_tpu_torch.cli extract --device cuda` exits non-zero and writes no
+     shard; (f) the corpus audio-s/s by wall clock, decode and writes
+     included, the share of it in `sharded_extract_batch` (host wall, and
+     device span by CUDA events), and the host-fed step from pinned rows
+     beside pageable ones, in turns.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -131,8 +157,7 @@ Phases, in order; any failure exits non-zero:
   phase 7 times the dithered front-end beside the undithered one in turns.
   Phases 13-18 each hold the kernel to its plain version (whisper80 and the
   n_fft 404, 551, 1102 and 480 sizes: the float64 plain version, computed
-  on the CPU: the card's float64 rfft at odd sizes such as 551 is not
-  right), check int16 ≡
+  on the CPU), check int16 ≡
   float32, two runs and dirty tails ≡ clean bitwise, and count
   `extract_batch` with its features within the config's gate of the CPU
   chain and the float64 chain. Every mfcc path's extract_batch (phases 3,
@@ -168,9 +193,12 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -962,6 +990,17 @@ def bluestein_path(torch, counters, tag: str, results: dict) -> None:
             counters.expect("fused_logmel_stages(dft_passes='fp32')", frontend=1, bluestein=1)
             check(torch.equal(st["prefix"], frontend.logmel_prefix(audio, lengths, cfg)),
                   "the fp32 route's prefix == the default route's, bitwise")
+        if n_fft == 551:
+            # cuFFT's own rfft at this size, beside the float64 product
+            # chain.power_spectrum takes on the card instead
+            st = chain.logmel_stages(audio, lengths, cfg)
+            got = torch.fft.rfft(st["windowed"], n=n_fft, dim=-1).cpu().to(torch.complex128)
+            want = torch.fft.rfft(st["windowed"].cpu().double(), n=n_fft, dim=-1)
+            rel = (got - want).abs().amax(-1) / want.abs().amax(-1).clamp(min=1.0)
+            print(f"  torch.fft.rfft(n=551) on the card vs float64 on the CPU: max |diff| / frame max "
+                  f"{float(rel.max()):.3e}, {int((rel > 1e-3).sum())} frames over 1e-3 (the plain chain "
+                  f"on the card takes the float64 DFT product at this size)")
+            del st, got, want
         if key is None:
             continue
         F = cfg.num_frames(batch.audio.shape[1])
@@ -1385,7 +1424,283 @@ def occupancy(frontend, named_config) -> None:
                 check(info["local_bytes"] == 0, "no spills")
 
 
-def main() -> int:
+CORPUS_FILES = 256  # 16 kHz PCM16 files of 1-10 s
+CORPUS_LONG_S = (75, 90)  # files over the 10 s top bucket: split / stitched
+CORPUS_48K_FILES, CORPUS_48K_LONG_S = 32, 90
+CMVN_GATE = 1e-3  # the normalized corpus: |mean| and |std - 1| per dimension
+
+
+def write_corpus(wav, root, n_files: int, sr: int, long_s, seed: int, extra: bool) -> list[str]:
+    """PCM16 files of 1-10 s (noise under a slow random envelope, so the log
+    energy varies), every fourth in a speaker subdirectory, plus files of
+    long_s seconds; with extra, a corrupt file and one at 8 kHz."""
+    g = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    paths = []
+    for i, n in enumerate([int(s * sr) for s in g.uniform(1.0, 10.0, n_files)] + [s * sr for s in long_s]):
+        d = root / f"spk{i % 3}" if i % 4 == 0 else root
+        d.mkdir(exist_ok=True)
+        env = np.repeat(g.uniform(0.05, 1.0, n // 1600 + 1), 1600)[:n]
+        p = d / f"u{i:04d}.wav"
+        wav.write_wav(p, sr, (g.standard_normal(n) * 6000 * env).astype(np.int16))
+        paths.append(str(p))
+    if extra:
+        (root / "corrupt.wav").write_bytes(b"RIFF\x10\x00\x00\x00WAVEfmt ")
+        wav.write_wav(root / "rate8k.wav", 8000, np.zeros(8000, np.int16))
+    return paths
+
+
+def cli_run(torch, cli, args: list[str], metrics) -> tuple[float, dict]:
+    """`cli.main(["extract", ...])` through a synchronize: (wall seconds, the
+    metrics file's "done" line)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli.main(["extract", *args, "--metrics", str(metrics)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"extract {' '.join(a for a in args if not a.startswith('/'))}: exit 0")
+    return wall, json.loads(metrics.read_text().splitlines()[-1])
+
+
+def corpus_path(torch, counters, tag: str, seed: int) -> None:
+    """Phase 22: the corpus path, `python -m mfcc_tpu_torch.cli extract` and
+    `apply-cmvn`, on a corpus the script writes (see the module docstring)."""
+    import pathlib
+    import tempfile
+
+    from mfcc_tpu_torch import cli, named_config, parallel
+    from mfcc_tpu_torch import io as io_mod
+    from mfcc_tpu_torch import pipeline as pipeline_mod
+    from mfcc_tpu_torch.io import ShardWriter, read_ark, read_htk, read_shard, read_wav, stream_batches_direct, wav
+    from mfcc_tpu_torch.io.htk import energy_last_permutation
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import resample as R
+    from mfcc_tpu_torch.parallel import CmvnAccumulator
+    from mfcc_tpu_torch.pipeline import longform, pad_batch
+    from mfcc_tpu_torch.testing import RESAMPLED_FEATURE_ATOL, RESAMPLED_FEATURE_RTOL
+
+    print(f"== 22. the corpus path: python -m mfcc_tpu_torch.cli extract / apply-cmvn (seed {seed})")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        files = write_corpus(wav, tmp / "c16", CORPUS_FILES, 16000, CORPUS_LONG_S, seed, True)
+        files48 = write_corpus(wav, tmp / "c48", CORPUS_48K_FILES, 48000, (CORPUS_48K_LONG_S,), seed + 1, False)
+        audio_s = sum(read_wav(p)[1].shape[0] for p in files) / 16000
+        print(f"  corpus: {len(files)} files at 16 kHz ({audio_s:.1f} audio-s; two of "
+              f"{CORPUS_LONG_S} s), a corrupt file, one at 8 kHz; {len(files48)} at 48 kHz (one of "
+              f"{CORPUS_48K_LONG_S} s); written in {time.perf_counter() - t_phase:.1f} s")
+        cfg = named_config("classic13_deltas")
+        # the batches of the run, from the feed's headers (no decode)
+        plan = list(stream_batches_direct(sorted(files), cfg, skip_ids=frozenset(files)))
+        seg_frames = int(10.0 * cfg.sample_rate) // cfg.frame_step
+        groups = [math.ceil(len(longform.segment_plan(s * 16000, cfg, seg_frames)[0]) / 8)
+                  for s in CORPUS_LONG_S]
+
+        # (a) extract on the card, counted; where its wall time goes: the
+        # feed (decode into the rows, the consumer waiting on the next
+        # batch), sharded_extract_batch (host wall, and device span by
+        # events), the long files, the shard writes (writer threads)
+        spans, host = [], {"feed": 0.0, "long files": 0.0, "writes (thread time)": 0.0}
+        inner = parallel.sharded_extract_batch
+        inner_feed, inner_long = io_mod.stream_batches_direct, pipeline_mod.extract_long
+        inner_write = ShardWriter.write
+
+        def timed(*a, **k):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = inner(*a, **k)
+            end.record()
+            spans.append((start, end, time.perf_counter() - t0))
+            return out
+
+        def timed_feed(*a, **k):
+            it = inner_feed(*a, **k)
+            while True:
+                t0 = time.perf_counter()
+                b = next(it, None)
+                host["feed"] += time.perf_counter() - t0
+                if b is None:
+                    return
+                yield b
+
+        def timed_long(*a, **k):
+            t0 = time.perf_counter()
+            out = inner_long(*a, **k)
+            torch.cuda.synchronize()
+            host["long files"] += time.perf_counter() - t0
+            return out
+
+        def timed_write(self, *a, **k):
+            t0 = time.perf_counter()
+            out = inner_write(self, *a, **k)
+            host["writes (thread time)"] += time.perf_counter() - t0
+            return out
+
+        parallel.sharded_extract_batch, io_mod.stream_batches_direct = timed, timed_feed
+        pipeline_mod.extract_long, ShardWriter.write = timed_long, timed_write
+        try:
+            counters.zero()
+            wall, done = cli_run(torch, cli, [str(tmp / "c16"), "-o", str(tmp / "a"), "--config",
+                                              "classic13_deltas", "--feed", "direct"], tmp / "a.jsonl")
+            launches = counters.read()
+        finally:
+            parallel.sharded_extract_batch, io_mod.stream_batches_direct = inner, inner_feed
+            pipeline_mod.extract_long, ShardWriter.write = inner_long, inner_write
+        shards = sorted((tmp / "a").glob("h0-*.npz"))
+        n_long = sum("long" in p.name for p in shards)
+        print(f"  (a) {len(shards)} shards ({len(plan)} batches + {n_long} long files), "
+              f"{int(done['utterances'])} utterances, decode errors {int(done['decode_errors'])}, "
+              f"wrong rate {int(done['wrong_rate'])}, long split {int(done['long_split'])}; launches {launches}")
+        check(len(shards) == len(plan) + len(CORPUS_LONG_S) and n_long == len(CORPUS_LONG_S),
+              "one shard a batch and one a long file")
+        check((done["decode_errors"], done["wrong_rate"], done["long_split"]) == (1, 1, len(CORPUS_LONG_S)),
+              "the corrupt file and the 8 kHz file are counted, the long files split")
+        check(launches["frontend"] == len(plan) + sum(groups)
+              and launches["tail"] == len(plan) + len(CORPUS_LONG_S)
+              and not any(v for k, v in launches.items() if k not in ("frontend", "tail")),
+              f"front-end launches {launches['frontend']} == {len(plan)} batches + {sum(groups)} segment "
+              f"groups; tail launches {launches['tail']} == batches + long files; no other kernel")
+        got = {}
+        for p in shards:
+            got.update(read_shard(p))
+        check(sorted(got) == sorted(files), f"every one of the {len(files)} files in a shard, once")
+        worst, shapes = 0.0, []
+        for path, feat in got.items():
+            ref = chain.extract_single(read_wav(path)[1], cfg, device="cpu").numpy()
+            if feat.shape != ref.shape:
+                shapes.append(f"{path}: {feat.shape} != {ref.shape}")
+                continue
+            worst = max(worst, float(np.abs(feat - ref).max()))
+        check(not shapes, f"every utterance has the CPU chain's frames {shapes[:3]}")
+        print(f"  max |card - CPU chain extract_single| over every utterance: {worst:.3e}")
+        check(worst <= 5e-4, "every utterance within 5e-4 of the CPU chain")
+        busy = sum(s.elapsed_time(e) for s, e, _ in spans) / 1e3
+        print(f"  (f) corpus extract, decode and writes included: {audio_s:.1f} audio-s in {wall:.3f} s "
+              f"wall = {audio_s / wall:.0f} audio-s/s {tag}")
+        in_call = sum(h for _, _, h in spans)
+        print(f"      in sharded_extract_batch ({len(spans)} calls): {in_call:.3f} s of host wall "
+              f"({in_call / wall * 100:.1f}%), {busy:.4f} s of device span from its first copy to its "
+              f"last kernel ({busy / wall * 100:.1f}% of the wall) {tag}")
+        print("      " + ", ".join(f"{k} {v:.3f} s ({v / wall * 100:.1f}%)" for k, v in host.items())
+              + f" {tag}")
+
+        # (b) the two-pass global CMVN, on the card and on the CPU
+        moments = {}
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"g_{dev}"
+            cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas_gcmvn",
+                                 "--device", dev, "--cmvn-stats", str(tmp / f"m_{dev}.npz")], tmp / "g.jsonl")
+            moments[dev] = CmvnAccumulator.load(tmp / f"m_{dev}.npz")
+        g, c = moments["cuda"], moments["cpu"]
+        # a column's sums relative to its scale: sqrt(n Σx²) bounds Σ|x|
+        rel1 = float(np.max(np.abs(g.s1 - c.s1) / np.sqrt(c.n * c.s2)))
+        rel2 = float(np.max(np.abs(g.s2 - c.s2) / c.s2))
+        print(f"  (b) moments, card vs --device cpu: n {g.n:.0f} / {c.n:.0f}; max |ds1| / sqrt(n s2) "
+              f"{rel1:.3e}, max |ds2| / s2 {rel2:.3e}")
+        check(g.n == c.n and rel1 <= 1e-5 and rel2 <= 1e-5, "the moments within 1e-5 of the CPU run's")
+        rc = cli.main(["apply-cmvn", str(tmp / "g_cuda"), "--stats", str(tmp / "m_cuda.npz"),
+                       "--config", "classic13_deltas_gcmvn"])
+        check(rc == 0, "apply-cmvn: exit 0")
+        norm = np.concatenate([f for p in sorted((tmp / "g_cuda").glob("h0-*.npz"))
+                               for f in read_shard(p).values()])
+        mean_err = float(np.abs(norm.mean(axis=0)).max())
+        std_err = float(np.abs(norm.std(axis=0) - 1.0).max())
+        print(f"  normalized corpus ({norm.shape[0]} frames): max |mean| {mean_err:.3e}, "
+              f"max |std - 1| {std_err:.3e}")
+        check(mean_err <= CMVN_GATE and std_err <= CMVN_GATE,
+              f"the normalized corpus has mean 0 and std 1 within {CMVN_GATE} per dimension")
+
+        # (c) mfcc39_48k: batches through the fused form, the 90 s file
+        # through resample.cu and the segmented front-end
+        cfg48 = named_config("mfcc39_48k")
+        counters.zero()
+        cli_run(torch, cli, [str(tmp / "c48"), "-o", str(tmp / "r"), "--config", "mfcc39_48k",
+                             "--feed", "direct"], tmp / "r.jsonl")
+        launches = counters.read()
+        print(f"  (c) mfcc39_48k launches: {launches}")
+        check(launches["resample"] == 1, "the 90 s file resampled by resample.cu once")
+        long48 = files48[-1]
+        feat = read_shard(tmp / "r" / "h0-long-000000.npz")[long48]
+        ref = chain.extract_single(read_wav(long48)[1], cfg48, device="cpu").numpy()
+        err = float(np.abs(feat - ref).max())
+        print(f"  the {CORPUS_48K_LONG_S} s file vs the CPU chain's monolithic extraction: {err:.3e}")
+        check(feat.shape == ref.shape and np.allclose(feat, ref, atol=RESAMPLED_FEATURE_ATOL,
+                                                      rtol=RESAMPLED_FEATURE_RTOL),
+              f"within {RESAMPLED_FEATURE_ATOL} of it")
+        x44 = torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 44100 * 90)) * 3000,
+                              dtype=torch.float32, device="cuda")
+        n_out = R.output_length(x44.shape[1], 44100, 16000)
+        k44_ms = cuda_ms(torch, lambda: R.resample_batch(x44, 44100, 16000), reps=10)
+        p44_ms = cuda_ms(torch, lambda: R.resample_reference(x44, 44100, 16000), reps=3)
+        d = R.polyphase_design(*R.ratio(44100, 16000))
+        b44_ms, b44_by = bound(x44.numel() * 4 + n_out * 4 + d["up"] * d["K"] * 4,
+                               resample_ops(R, *R.ratio(44100, 16000), [n_out]))
+        print(f"  resample.cu, one {x44.shape[1]}-sample row (90 s) 44.1 -> 16 kHz: {k44_ms:.4f} ms "
+              f"({b44_ms / k44_ms * 100:.1f}% of its {b44_ms:.4f} ms bound, {b44_by}); plain version "
+              f"{p44_ms:.4f} ms; library: none {tag}")
+        del x44
+
+        # (d) HTK and Kaldi output equal to the npz run
+        ref_feats = got
+        perm = energy_last_permutation(cfg)
+        for fmt in ("htk", "kaldi"):
+            out = tmp / fmt
+            cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas",
+                                 "--format", fmt], tmp / f"{fmt}.jsonl")
+            back = {}
+            for marker in sorted((out / "done").glob("h0-*.json")):
+                meta = json.loads(marker.read_text())
+                if fmt == "kaldi":
+                    back.update(read_ark(out / meta["files"][0]))
+                else:
+                    for name in meta["files"]:
+                        back[name] = read_htk(out / name)[0]
+            if fmt == "htk":
+                names = {f"{pathlib.Path(p).stem}-{hashlib.sha256(p.encode()).hexdigest()[:8]}.htk": p
+                         for p in files}
+                back = {names[k]: v for k, v in back.items()}
+                inv = np.argsort(perm)
+                back = {k: v[:, inv] for k, v in back.items()}
+            same = sorted(back) == sorted(ref_feats) and all(
+                np.array_equal(back[k], ref_feats[k]) for k in ref_feats)
+            check(same, f"--format {fmt}: {len(back)} utterances read back equal to the npz run")
+
+        # (e) no card visible: the CLI exits non-zero and writes no shard
+        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+        res = subprocess.run([sys.executable, "-m", "mfcc_tpu_torch.cli", "extract", str(tmp / "c16"),
+                              "-o", str(tmp / "e"), "--device", "cuda"], env=env, capture_output=True,
+                             text=True, timeout=120)
+        wrote = list((tmp / "e").rglob("*.npz")) if (tmp / "e").exists() else []
+        check(res.returncode != 0 and not wrote,
+              f"with CUDA_VISIBLE_DEVICES='' --device cuda exits {res.returncode} and writes no shard")
+
+        # (f) the host-fed step: pinned rows against pageable ones
+        b = pad_batch([read_wav(p)[1] for p in files[:B]], cfg, bucket_len=160000, dtype="int16")
+        pinned = torch.from_numpy(b.audio).pin_memory()
+        lens_d = torch.as_tensor(b.lengths, device="cuda")
+
+        def pinned_step():
+            chain.extract_batch(pinned.to("cuda", non_blocking=True), lens_d, cfg)
+
+        pageable = lambda: chain.extract_batch(b.audio, b.lengths, cfg)  # noqa: E731
+        times = {"pinned": [], "pageable": []}
+        for _ in range(3):
+            for name, fn in (("pageable", pageable), ("pinned", pinned_step), ("pinned", pinned_step),
+                             ("pageable", pageable)):
+                times[name].append(host_ms(torch, fn, reps=3))
+        pin_ms, page_ms = (float(np.median(times[k])) for k in ("pinned", "pageable"))
+        rows_s = float(b.lengths.sum()) / 16000
+        print(f"  (f) host-fed extract_batch step, b{B} int16 rows [{B}, {b.audio.shape[1]}] ({rows_s:.1f} "
+              f"audio-s), host clock, in turns: pinned rows {pin_ms:.3f} ms, pageable rows {page_ms:.3f} ms "
+              f"{tag}")
+    print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
+    args.add_argument("--seed", type=int, default=0, help="seed of the corpus phase's wav files")
+    args = args.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1881,6 +2196,9 @@ def main() -> int:
     cuts = breakdown.bind_cuts(cut_builds, frontend._lib())
     results["bf16x3"] = bf16x3_path(torch, counters, tag, breakdown, cuts, builds["frontend"][0])
     large_fft_path(torch, counters, tag)
+
+    # 22. the corpus path
+    corpus_path(torch, counters, tag, args.seed)
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -232,12 +232,44 @@ def frame_signal_centered(
     return torch.gather(x, 1, r.reshape(B, -1)).reshape(B, num_frames, L)
 
 
+def smooth_fft_size(n: int) -> bool:
+    """True when n has no prime factor above 7 (the sizes cuFFT computes
+    by its own radix kernels)."""
+    for p in (2, 3, 5, 7):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+@functools.lru_cache(maxsize=16)
+def dft_basis(frame_length: int, n_fft: int, device: torch.device) -> torch.Tensor:
+    """[min(L, n_fft), 2 * n_bins] float64: cos and -sin of 2πkn/n_fft, the
+    real DFT of a frame zero-padded (or truncated) to n_fft as one product."""
+    n = torch.arange(min(frame_length, n_fft), dtype=torch.float64)
+    k = torch.arange(n_fft // 2 + 1, dtype=torch.float64)
+    ang = (2.0 * math.pi / n_fft) * torch.remainder(n[:, None] * k[None, :], n_fft)
+    return torch.cat([torch.cos(ang), -torch.sin(ang)], dim=1).to(device)
+
+
 def power_spectrum(windowed: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
-    """rfft with n=n_fft (pads/truncates), |X|^2 (optionally / NFFT)."""
+    """rfft with n=n_fft (pads/truncates), |X|^2 (optionally / NFFT).
+
+    On a card, an n_fft with a prime factor above 7 takes the DFT as one
+    float64 product with `dft_basis` instead of `torch.fft.rfft`: cuFFT's
+    rfft (float32 and float64, with the implicit zero-pad or an explicit
+    one) gave whole frames wrong by up to 1.7e-2 of their largest bin at
+    n_fft 551 = 19·29 on a b16 x 10 s batch (tests/test_torch_gpu.py::
+    test_plain_chain_at_n_fft_551_matches_the_cpu_chain)."""
     if windowed.numel() == 0:  # no frames ("drop" framing of a short batch)
         return windowed.new_zeros(windowed.shape[:-1] + (cfg.n_bins,))
-    spec = torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1)
-    p = spec.real**2 + spec.imag**2
+    if windowed.device.type == "cuda" and not smooth_fft_size(cfg.n_fft):
+        w = dft_basis(windowed.shape[-1], cfg.n_fft, windowed.device)
+        reim = torch.matmul(windowed[..., : w.shape[0]].double(), w)
+        re, im = reim[..., : cfg.n_bins], reim[..., cfg.n_bins :]
+        p = (re * re + im * im).to(windowed.dtype)
+    else:
+        spec = torch.fft.rfft(windowed, n=cfg.n_fft, dim=-1)
+        p = spec.real**2 + spec.imag**2
     if cfg.power_scale_nfft:
         p = p / cfg.n_fft
     return p

@@ -6,14 +6,21 @@ lengths travel with the batch and every stage is mask-aware. The port's feed
 is flat rows `[B, T]` with `T = required_samples(bucket)`, int16 or the
 compute dtype. (The JAX package's chunk-slab and blocked layouts exist for
 the TPU's VMEM and are not ported.)
+
+`RowPool` recycles the feed's row buffers; for a CUDA target they are pinned
+(page-locked) host memory, so the host-to-device copy of a batch is
+asynchronous, and a buffer goes back into use only once the copy that reads
+it has completed (the CUDA events recorded after the copy, `Batch.copy_events`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Iterable, Sequence
 
 import numpy as np
+import torch
 
 from mfcc_tpu_torch.config import FrontendConfig
 
@@ -60,6 +67,10 @@ class Batch:
     lengths: np.ndarray  # [B] int32 valid sample counts
     ids: list  # opaque per-utterance keys (paths, indices)
     on_release: object = None  # producer callback: audio buffer reusable
+    # CUDA events recorded after the host-to-device copies that read `audio`
+    # (`parallel.sharded_extract_batch(copy_events=...)`): the buffer is
+    # reused only once they have completed
+    copy_events: list = dataclasses.field(default_factory=list)
 
     @property
     def pad_occupancy(self) -> float:
@@ -68,10 +79,54 @@ class Batch:
 
     def release(self) -> None:
         """Hand the audio buffer back to the producer for reuse (optional;
-        an unreleased batch is simply garbage-collected)."""
+        an unreleased batch is simply garbage-collected). The producer's
+        pool waits on `copy_events` before it fills the buffer again, so a
+        batch may be released as soon as its copy is enqueued."""
         cb, self.on_release = self.on_release, None
         if cb is not None:
             cb(self)
+
+
+_TORCH_DTYPES = {np.dtype(np.int16): torch.int16, np.dtype(np.float32): torch.float32}
+
+
+class RowPool:
+    """Recycled [rows, T] host row buffers of the feed.
+
+    pin=True allocates them in pinned (page-locked) memory, for a CUDA
+    target: the host-to-device copy from such a buffer is asynchronous.
+    Pin only for a CUDA target (a CPU-only torch cannot pin). `give` takes a
+    buffer back with the events of the copies that read it; `take` waits on
+    those events before it hands the buffer out again, so a buffer is never
+    overwritten under a copy. At most `capacity` free buffers are kept a
+    shape; the rest are dropped."""
+
+    def __init__(self, pin: bool = False, capacity: int = 4):
+        self.pin = pin
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._free: dict[tuple, list] = {}
+
+    def take(self, rows: int, T: int, dtype) -> np.ndarray:
+        dtype = np.dtype(dtype)
+        with self._lock:
+            stack = self._free.get((rows, T, dtype))
+            entry = stack.pop() if stack else None
+        if entry is not None:
+            buf, events = entry
+            for ev in events:
+                ev.synchronize()  # the copy that read this buffer has completed
+            return buf
+        if not self.pin:
+            return np.empty((rows, T), dtype=dtype)
+        # the ndarray keeps the pinned tensor (its base) alive
+        return torch.empty((rows, T), dtype=_TORCH_DTYPES[dtype], pin_memory=True).numpy()
+
+    def give(self, buf: np.ndarray, events=()) -> None:
+        with self._lock:
+            stack = self._free.setdefault((buf.shape[0], buf.shape[1], buf.dtype), [])
+            if len(stack) < self.capacity:
+                stack.append((buf, list(events)))
 
 
 def pad_batch(

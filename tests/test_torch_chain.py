@@ -254,8 +254,15 @@ def test_extract_entry_point_matches_jax():
         mfcc_tpu_torch.extract(pcm.astype(np.int16), "classic13", device="cpu"),
         mfcc_tpu_torch.extract(pcm, "classic13", device="cpu"),
     )
-    with pytest.raises(NotImplementedError, match="io port"):
-        mfcc_tpu_torch.extract(str(REPO / "demo.wav"), "classic13", device="cpu")
+    # a wav path or its bytes are decoded, as the JAX package does
+    demo = REPO / "demo.wav"
+    want = np.asarray(mfcc_tpu.extract(str(demo), "classic13_deltas", backend="jnp"))
+    got = mfcc_tpu_torch.extract(str(demo), "classic13_deltas", device="cpu")
+    assert got.shape == want.shape
+    assert_features_close(got.numpy(), want)
+    assert torch.equal(mfcc_tpu_torch.extract(demo.read_bytes(), "classic13_deltas", device="cpu"), got)
+    with pytest.raises(ValueError, match="expects 48000 Hz"):
+        mfcc_tpu_torch.extract(demo, "mfcc39_48k", device="cpu")
 
 
 def test_num_valid_frames_matches_jax():
@@ -327,9 +334,9 @@ def test_pad_batch_errors_and_release():
 
 
 def test_port_imports_no_jax_and_no_mfcc_tpu():
-    """`import mfcc_tpu_torch` and the CPU main path, in a fresh process
-    (this one has jax loaded by conftest), leave jax and every mfcc_tpu
-    module out of sys.modules."""
+    """`import mfcc_tpu_torch`, every module of the port and the CPU main
+    path, in a fresh process (this one has jax loaded by conftest), leave
+    jax and every mfcc_tpu module out of sys.modules."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -366,6 +373,19 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "st = frontend.fused_logmel_stages(x, n, cfg, feature_tail=True, dft_passes='bf16x3')\n"
         "assert tuple(st['features_fused'].shape) == (1, 30, 39), st['features_fused'].shape\n"
         "assert tail.tail_launches == 0 and frontend.bf16x3_launches == 0\n"
+        "import mfcc_tpu_torch.cli, mfcc_tpu_torch.cli.main, mfcc_tpu_torch.io, mfcc_tpu_torch.parallel\n"
+        "import mfcc_tpu_torch.utils, mfcc_tpu_torch.utils.trace\n"
+        "from mfcc_tpu_torch.io import htk, kaldi, reader, wav, writer\n"
+        "from mfcc_tpu_torch.parallel import cmvn, extract, mesh\n"
+        "from mfcc_tpu_torch.pipeline import longform\n"
+        "feat = mfcc_tpu_torch.extract('demo.wav', 'classic13_deltas', device='cpu')\n"
+        "assert tuple(feat.shape) == (249, 39), feat.shape\n"
+        "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
+        "x = np.arange(40000) % 300 - 150\n"
+        "assert tuple(longform.extract_long(x, cfg, device='cpu', seg_len_s=0.5).shape) == (249, 39)\n"
+        "m = mesh.data_mesh(device='cpu')\n"
+        "f, k, mom = extract.sharded_extract_batch(b.audio, b.lengths, cfg, m, with_moments=True)\n"
+        "assert tuple(mom[0].shape) == (39,)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"
@@ -377,3 +397,23 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+@pytest.mark.parametrize("n_fft", [551, 404, 1102, 683, 256, 600])
+def test_dft_basis_matches_rfft(n_fft):
+    """The float64 DFT product the card's plain chain takes at an n_fft with
+    a prime factor above 7 (`chain.power_spectrum`) ≡ rfft(n=n_fft), with
+    frames zero-padded (L < n_fft) or truncated (L > n_fft)."""
+    g = torch.Generator().manual_seed(n_fft)
+    w = torch.randn(3, 7, 400, dtype=torch.float64, generator=g) * 1000
+    basis = tchain.dft_basis(400, n_fft, torch.device("cpu"))
+    nb = n_fft // 2 + 1
+    assert basis.shape == (min(400, n_fft), 2 * nb) and basis.dtype == torch.float64
+    reim = w[..., : basis.shape[0]] @ basis
+    ref = torch.fft.rfft(w, n=n_fft, dim=-1)
+    scale = float(ref.abs().max())
+    assert float((reim[..., :nb] - ref.real).abs().max()) < 1e-12 * scale
+    assert float((reim[..., nb:] - ref.imag).abs().max()) < 1e-12 * scale
+    smooth = {256: True, 600: True, 551: False, 404: False, 1102: False, 683: False}
+    assert tchain.smooth_fft_size(n_fft) is smooth[n_fft]
+    assert all(tchain.smooth_fft_size(n) for n in (400, 480, 512, 2048, 7 * 9 * 25))

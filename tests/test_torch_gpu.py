@@ -909,3 +909,127 @@ def test_the_tf32_flag_survives_concurrent_calls():
         assert all(f is True for f in flags), flags
         valid = torch.as_tensor(b.lengths) >= cfg.frame_length
         testing.assert_family_features_close(feat[valid], cpu[valid], cfg.features)
+
+
+# ---------------------------------------------------------------------------
+# the plain chain at n_fft 551; the corpus path (CLI, long files, the feed)
+# ---------------------------------------------------------------------------
+
+
+def _pcm_rows(lengths, seed):
+    g = np.random.default_rng(seed)
+    return [(g.standard_normal(n) * 3000).astype(np.int16) for n in lengths]
+
+
+def test_plain_chain_at_n_fft_551_matches_the_cpu_chain():
+    """The plain chain on the card at n_fft 551 (= 19·29): cuFFT's rfft gave
+    11 frames of this b16 x 10 s batch wrong by up to 1.7e-2 of their
+    largest bin (log-mel off by 22.69); `chain.power_spectrum` takes the DFT
+    as a float64 product there. Held to the CPU chain at the log-mel gate,
+    batched and through `logmel_single`."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=551)
+    n16 = 160000
+    lengths = [n16 - 571 * i for i in range(16)]
+    b = pad_batch(_pcm_rows(lengths, 30), cfg, bucket_len=n16, dtype="int16")
+    audio, lens = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)
+    got = chain.logmel_stages(audio.to(dev), lens.to(dev), cfg)
+    want = chain.logmel_stages(audio, lens, cfg)
+    for i, n in enumerate(lengths):
+        f = cfg.num_frames(n)
+        testing.assert_logmel_close(got["logmel"][i, :f].cpu(), want["logmel"][i, :f])
+    for i in (0, 3, 15):
+        x = audio[i, : lengths[i]]
+        testing.assert_logmel_close(chain.logmel_single(x, cfg, device="cuda")["logmel"].cpu(),
+                                    chain.logmel_single(x, cfg, device="cpu")["logmel"])
+
+
+def _corpus(root, files, sr=16000, seed=0):
+    from mfcc_tpu_torch.io import write_wav
+
+    g = np.random.default_rng(seed)
+    for i, n in enumerate(files):
+        sub = root / f"spk{i % 3}"
+        sub.mkdir(parents=True, exist_ok=True)
+        env = np.repeat(g.uniform(0.05, 1.0, n // 800 + 1), 800)[:n]
+        write_wav(sub / f"u{i:03d}.wav", sr, (g.standard_normal(n) * 6000 * env).astype(np.int16))
+    return root
+
+
+def _shards_close(a_dir, b_dir, cfg):
+    from mfcc_tpu_torch.io import read_shard
+
+    names = sorted(p.name for p in a_dir.glob("h*.npz"))
+    assert names and names == sorted(p.name for p in b_dir.glob("h*.npz"))
+    for name in names:
+        a, b = read_shard(a_dir / name), read_shard(b_dir / name)
+        assert list(a) == list(b)
+        for k in a:
+            if chain.resamples(cfg):
+                np.testing.assert_allclose(a[k], b[k], atol=testing.RESAMPLED_FEATURE_ATOL,
+                                           rtol=testing.RESAMPLED_FEATURE_RTOL)
+            else:
+                assert_features_close(a[k], b[k])
+    return names
+
+
+def test_cli_extract_on_the_card_matches_the_cpu_run(tmp_path):
+    from mfcc_tpu_torch.cli import main
+
+    _card()
+    corpus = _corpus(tmp_path / "c", [8000, 23000, 5000, 41000, 16000, 2000, 15000, 9000, 12000])
+    common = ["extract", str(corpus), "--config", "classic13_deltas", "--batch-size", "4",
+              "--max-len-s", "1.0", "--feed", "direct"]
+    before = (frontend.launches, tail.tail_launches)
+    assert main([*common, "-o", str(tmp_path / "gpu")]) == 0
+    launched = (frontend.launches - before[0], tail.tail_launches - before[1])
+    assert main([*common, "-o", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    names = _shards_close(tmp_path / "gpu", tmp_path / "cpu", NAMED_CONFIGS["classic13_deltas"])
+    batches = sum(not n.startswith("h0-long") for n in names)
+    # a batch launches the front-end and the tail once; a long file (23,000
+    # and 41,000 samples at 1 s segments) one front-end launch a group of
+    # 8 segments and one tail launch
+    assert launched == (batches + 2, batches + 2)
+
+
+def test_long_48k_file_launches_the_resampler_once(tmp_path):
+    from mfcc_tpu_torch.pipeline import extract_long
+
+    dev = _card()
+    cfg = NAMED_CONFIGS["mfcc39_48k"]
+    g = np.random.default_rng(7)
+    x = (g.standard_normal(48000 * 20) * 3000).astype(np.float32)
+    before = rs_kernel.launches
+    got = extract_long(x, cfg, device=dev, seg_len_s=1.0)
+    torch.cuda.synchronize()
+    assert rs_kernel.launches == before + 1
+    want = chain.extract_single(torch.as_tensor(x), cfg, device="cpu")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=testing.RESAMPLED_FEATURE_ATOL,
+                               rtol=testing.RESAMPLED_FEATURE_RTOL)
+
+
+def test_pinned_rows_are_not_refilled_under_their_copy(tmp_path, monkeypatch):
+    """The feed's pinned rows at pipeline depth 3 and a pool of 2 buffers: a
+    batch is released right after its copy is enqueued, and the pool waits
+    on the copy's event before refilling it, so the shards equal the CPU
+    run's."""
+    import importlib
+
+    from mfcc_tpu_torch.pipeline import RowPool
+
+    # the module (the package's `main` attribute is the function)
+    cli_mod = importlib.import_module("mfcc_tpu_torch.cli.main")
+
+    _card()
+    pool = RowPool(pin=True)
+    buf = pool.take(4, 1000, np.int16)
+    assert torch.from_numpy(buf).is_pinned()
+    monkeypatch.setattr(cli_mod, "FEED_BUFFERS", 2)
+    g = np.random.default_rng(3)
+    corpus = _corpus(tmp_path / "c", list(g.integers(3000, 16000, 60)), seed=3)
+    common = ["extract", str(corpus), "--config", "classic13_deltas", "--batch-size", "4",
+              "--pipeline-depth", "3", "--feed", "direct", "--max-len-s", "1.0"]
+    assert cli_mod.main([*common, "-o", str(tmp_path / "gpu")]) == 0
+    assert cli_mod.main([*common, "-o", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    assert len(_shards_close(tmp_path / "gpu", tmp_path / "cpu", NAMED_CONFIGS["classic13_deltas"])) >= 15
