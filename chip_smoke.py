@@ -150,6 +150,34 @@ Phases, in order; any failure exits non-zero:
      included, the share of it in `sharded_extract_batch` (host wall, and
      device span by CUDA events), and the host-fed step from pinned rows
      beside pageable ones, in turns.
+  23. streaming and serving (classic13_deltas, K = 16): (b) the front-end
+     kernel's block launch (rows whose sample 0 is the pre-context) against
+     its plain version at the prefix gates, with a zero and a dirty
+     pre-context and valid 0, 1, L - 1, L, L + 1 and span, samples past
+     valid ≡ zeros bitwise, and 64 rows at K = 16 and 128; (a)
+     `MultiStreamExtractor` with 256 streams of 1-10 s pushed in 160 ms
+     chunks (2,560 samples) and polled after each turn, every count set to
+     0 before each round and read after it: the block launch once where a
+     stream had a block, the tail once a window width (at most twice), no
+     other kernel of the port; frame counts equal the offline ones, every
+     stream within 5e-4 of the card's offline `extract_batch` and four of
+     the float64 chain, and bitwise its own single-stream
+     `StreamingExtractor` run; the profiler's device ops of one 256-stream
+     round (one block launch, at most two tail launches); (c) classic13,
+     ssc26, logmel80, classic13_deltas_gcmvn (with moments), mfcc39_48k,
+     mfcc39_44k, kaldi_mfcc, kaldi_spectrogram, kaldi_fbank and kaldi_plp
+     at 16 streams of 1-4 s, counted the same way (their conditioning, PLP,
+     spectrogram and SSC branches once a round), within their family's gate
+     of the card's offline chain; (d) `StreamingExtractor` at K = 16 and
+     128 on one 10 s stream within 5e-4 of offline; (e) `python -m
+     mfcc_tpu_torch.cli serve` as a subprocess with 8 sessions on `--wire
+     jsonl` and on `--wire binary --emit b64-batched`, each session's
+     frames bitwise the in-process pool's, and with CUDA_VISIBLE_DEVICES=""
+     exit 2 and no event; (f) a steady poll round's host wall and device
+     busy time at 16, 64 and 256 streams, the host µs a stream-block, the
+     projected real-time streams (a block's 160 ms over it), and the
+     single-stream push of a block at K = 16 and 128 by wall and by CUDA
+     events; the phase's time and the whole script's.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -460,6 +488,7 @@ class Counters:
         self.frontend.direct_dft_launches = 0
         self.frontend.bluestein_launches = 0
         self.frontend.bf16x3_launches = 0
+        self.frontend.block_launches = 0
         self.rs_kernel.launches = 0
         self.tail.tail_launches = 0
         self.tail.tail_cmvn_launches = 0
@@ -480,6 +509,7 @@ class Counters:
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
+            "block": self.frontend.block_launches,
         }
 
     def expect(self, what: str, **want: int) -> dict[str, int]:
@@ -1697,10 +1727,459 @@ def corpus_path(torch, counters, tag: str, seed: int) -> None:
     print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
+SERVE_STREAMS = 256  # docs/SERVE.md's default block on a 256-session box (SERVING_r04.json's rows)
+SERVE_K = 16
+SERVE_CHUNK_S = 0.16  # 2,560 samples a push at 16 kHz
+SERVE_SECONDS = (1.0, 10.0)  # stream lengths, uniform
+SERVE_SMALL = 16  # streams of each other streamable named config
+SERVE_CONFIGS = ("classic13", "ssc26", "logmel80", "classic13_deltas_gcmvn", "mfcc39_48k",
+                 "mfcc39_44k", "kaldi_mfcc", "kaldi_spectrogram", "kaldi_fbank", "kaldi_plp")
+SERVE_SESSIONS = 8  # sessions of each `cli serve` run
+SERVE_POOLS = (16, 64, 256)  # pool sizes of the readings
+SERVE_STAGGER = 8  # session i opens on turn i mod 8 (drive_pool, serve_requests)
+
+
+def stream_signals(cfg, n: int, lo_s: float, hi_s: float, seed: int) -> list:
+    """n int16-valued float32 signals at cfg's input rate, lengths uniform in
+    [lo_s, hi_s) seconds: noise under a slow random envelope."""
+    sr = cfg.input_sample_rate or cfg.sample_rate
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        m = int(g.uniform(lo_s, hi_s) * sr)
+        env = np.repeat(g.uniform(0.05, 1.0, m // 800 + 1), 800)[:m]
+        out.append(np.round(g.standard_normal(m) * 6000 * env).clip(-32768, 32767).astype(np.float32))
+    return out
+
+
+def drive_pool(pool, xs: list, chunk: int, stagger: int = SERVE_STAGGER) -> list:
+    """Opens session i on turn i mod `stagger` (staggered arrivals: a round
+    then holds first and inner windows), pushes `chunk` samples to every
+    live session in turn and polls after each turn, ends a session when its
+    signal is pushed; returns each signal's concatenated features."""
+    sids = [None] * len(xs)
+    pos = [0] * len(xs)
+    got = {}
+    turn = 0
+    while turn < stagger or pool.n_active:
+        for i in range(len(xs)):
+            if sids[i] is None and i % stagger == turn:
+                sids[i] = pool.open()
+                got[sids[i]] = []
+            if sids[i] is None or pos[i] is None:
+                continue
+            if pos[i] < len(xs[i]):
+                pool.push(sids[i], xs[i][pos[i] : pos[i] + chunk])
+                pos[i] += chunk
+            if pos[i] >= len(xs[i]):
+                pool.end(sids[i])
+                pos[i] = None
+        for s, f in pool.poll().items():
+            got[s].append(f)
+        turn += 1
+    return [np.concatenate(got[s]) if got[s] else np.zeros((0, pool.cfg.feat_dim), np.float32)
+            for s in sids]
+
+
+def counted_rounds(pool, counters) -> list:
+    """Wraps the pool's rounds: every count is set to 0 just before a round
+    and read just after it; returns the list that collects (counts, the
+    round's result) a round."""
+    inner, rounds = pool._engine.round, []
+
+    def round_(entries):
+        counters.zero()
+        res = inner(entries)
+        rounds.append((counters.read(), res))
+        return res
+
+    pool._engine.round = round_
+    return rounds
+
+
+def check_rounds(rounds, cfg, frontend, what: str) -> dict:
+    """Each round: the front-end's block form once where a stream had a
+    block (its conditioning, PLP, spectrogram or SSC branch with it where
+    cfg takes one), the tail once a finalize group for mfcc configs, and no
+    other kernel of the port. Returns the counted launches: the block's in
+    all and its most in a round, the tail's in all, its most in a round and
+    the rounds that took two."""
+    from mfcc_tpu_torch.ops import chain
+
+    kind = frontend.feature_kind(cfg)
+    cond = int(chain.needs_conditioning(cfg))
+    bad = []
+    for counts, res in rounds:
+        b = res.base_launches
+        want = {"block": b, "conditioning": cond * b, "plp": b * (kind == "plp"),
+                "spectrogram": b * (kind == "spectrogram"), "ssc": b * (kind == "ssc"),
+                "tail": res.fin_launches if cfg.features == "mfcc" else 0}
+        want = {k: want.get(k, 0) for k in counts}
+        if counts != want or b > 1 or res.fin_launches > 2:
+            bad.append((counts, b, res.fin_launches))
+    n = dict(blocks=sum(c["block"] for c, _ in rounds),
+             block_max=max((c["block"] for c, _ in rounds), default=0),
+             tails=sum(c["tail"] for c, _ in rounds),
+             tail_max=max((c["tail"] for c, _ in rounds), default=0),
+             two_tail_rounds=sum(c["tail"] == 2 for c, _ in rounds))
+    check(not bad and n["blocks"] > 0,
+          f"{what}: {len(rounds)} rounds, each the front-end's block form once where a block was "
+          f"ready and at most two finalize launches, no other kernel of the port ({n['blocks']} block "
+          f"launches, at most {n['block_max']} a round; {n['tails']} tail launches, at most "
+          f"{n['tail_max']} a round, two in {n['two_tail_rounds']} rounds) {bad[:3] if bad else ''}")
+    return n
+
+
+def stream_gate(testing, cfg, got, want, what: str) -> float:
+    """Streamed features against the offline chain's under cfg's gate: 5e-4
+    (8e-4 resampled; the Kaldi mfcc / fbank gates), the two-regime log-mel
+    gate for log-mel features, the family gates for PLP, spectrogram and
+    SSC. Returns the max |diff|."""
+    err = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max()) if got.size else 0.0
+    if cfg.features in testing.FAMILY_GATES:
+        errs = testing.family_feature_errors(got, want, cfg.features, "fp32")
+        fails = testing.family_feature_failures(errs, cfg.features, "fp32")
+    elif cfg.features == "logmel":
+        errs = testing.logmel_errors(got, want, cfg.log_kind)
+        fails = testing.logmel_failures(errs)
+    else:
+        atol = (testing.RESAMPLED_FEATURE_ATOL if cfg.input_sample_rate
+                else testing.kaldi_feature_atol(cfg) if cfg.window == "povey" else testing.FEATURE_ATOL)
+        errs, fails = {"max_abs": err}, ([] if err <= atol else [f"max_abs {err:.3e} > {atol}"])
+    print(f"  {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    check(not fails, f"{what}: within the gate {fails or ''}")
+    return err
+
+
+def offline_features(torch, chain, pad_batch, cfg, xs) -> list:
+    """The card's offline extract_batch of each whole signal, trimmed to its
+    frames."""
+    b = pad_batch([x.astype(np.int16) for x in xs], cfg, dtype="int16")
+    feat, _ = chain.extract_batch(b.audio, b.lengths, cfg)
+    feat = feat.cpu().numpy()
+    return [feat[i, : cfg.num_frames(chain.valid_length(len(x), cfg))] for i, x in enumerate(xs)]
+
+
+def open_order(n: int) -> list:
+    """The sessions in the order they open under the staggered schedule
+    (session i on turn i mod SERVE_STAGGER): a server numbers its sids
+    0, 1, ... in that order."""
+    return sorted(range(n), key=lambda i: (i % SERVE_STAGGER, i))
+
+
+def serve_requests(xs: list, chunk: int, wire: str) -> bytes:
+    """The request stream of a `cli serve` client: session i opened on turn
+    i mod SERVE_STAGGER (sids in the order of the opens), the open
+    sessions' int16 chunks pushed in turns, each session ended after its
+    last push; EOF follows."""
+    import base64
+    import struct
+
+    def msg(obj, payload=b""):
+        if wire == "jsonl":
+            if payload:
+                obj = {**obj, "pcm16": base64.b64encode(payload).decode()}
+            return (json.dumps(obj) + "\n").encode()
+        head = json.dumps(obj).encode()
+        return struct.pack("<I", len(head)) + head + struct.pack("<I", len(payload)) + payload
+
+    out = []
+    pos = [0] * len(xs)
+    sid = {i: k for k, i in enumerate(open_order(len(xs)))}
+    turn = 0
+    while turn < SERVE_STAGGER or any(p is not None for p in pos):
+        for i, x in enumerate(xs):
+            if i % SERVE_STAGGER == turn:  # session i opens on turn i mod SERVE_STAGGER
+                out.append(msg({"op": "open", "id": f"s{i}"}))
+            if turn < i % SERVE_STAGGER or pos[i] is None:
+                continue
+            pcm = x[pos[i] : pos[i] + chunk].astype("<i2").tobytes()
+            out.append(msg({"op": "push", "sid": sid[i]}, pcm))
+            pos[i] += chunk
+            if pos[i] >= len(x):
+                out.append(msg({"op": "end", "sid": sid[i]}))
+                pos[i] = None
+        turn += 1
+    return b"".join(out)
+
+
+def serve_events(raw: bytes, wire: str) -> list:
+    """The (header, payload) events of a `cli serve` run's stdout."""
+    import base64
+    import struct
+
+    if wire == "jsonl":
+        out = []
+        for line in raw.decode().splitlines():
+            if line.strip():
+                ev = json.loads(line)
+                out.append((ev, base64.b64decode(ev["data"]) if "data" in ev else b""))
+        return out
+    out, off = [], 0
+    while off < len(raw):
+        (hlen,) = struct.unpack_from("<I", raw, off)
+        head = json.loads(raw[off + 4 : off + 4 + hlen].decode())
+        off += 4 + hlen
+        (plen,) = struct.unpack_from("<I", raw, off)
+        out.append((head, raw[off + 4 : off + 4 + plen]))
+        off += 4 + plen
+    return out
+
+
+def session_frames(events: list, n: int) -> list:
+    """Each session's frames, from frames and frames_batch events."""
+    rows = {i: [] for i in range(n)}
+    for head, payload in events:
+        a = np.frombuffer(payload, dtype="<f4")
+        if head.get("event") == "frames":
+            rows[head["sid"]].append(a.reshape(head["n"], head["dim"]))
+        elif head.get("event") == "frames_batch":
+            off = 0
+            for m in head["streams"]:
+                k = m["n"] * m["dim"]
+                rows[m["sid"]].append(a[off : off + k].reshape(m["n"], m["dim"]))
+                off += k
+    return [np.concatenate(r) if r else np.zeros((0, 0), np.float32) for r in rows.values()]
+
+
+def round_readings(torch, MultiStreamExtractor, cfg, n: int, tag: str) -> dict:
+    """A poll round of n streams at steady state (every stream one block
+    and one window): its host wall (median of 20, the sync included), the
+    host µs a stream-block, the projected real-time streams (a block's 160
+    ms over that), and the device busy time of one round (profiler)."""
+    K, S = SERVE_K, cfg.frame_step
+    chunk = K * S
+    pool = MultiStreamExtractor(cfg, n, frames_per_block=K)
+    g = np.random.default_rng(n)
+    sids = [pool.open() for _ in range(n)]
+    sig = (g.standard_normal((n, 40 * chunk)) * 3000).astype(np.float32)
+    pos = [0]
+
+    def step():
+        a = pos[0]
+        for i, s in enumerate(sids):
+            pool.push(s, sig[i, a : a + chunk])
+        pos[0] += chunk
+        return pool.poll()
+
+    for _ in range(4):  # primes the windows: the first block needs span = 2,800 samples
+        step()
+    walls, emitted = [], []
+    for _ in range(20):
+        for i, s in enumerate(sids):
+            pool.push(s, sig[i, pos[0] : pos[0] + chunk])
+        pos[0] += chunk
+        t0 = time.perf_counter()
+        out = pool.poll()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        emitted.append(sorted({v.shape[0] for v in out.values()}) if len(out) == n else None)
+    check(all(e == [K] for e in emitted), f"{n} streams: each timed poll emits {K} frames a stream")
+    wall = float(np.median(walls))
+    on_device, _ = trace(torch, step, None, steps=3)
+    busy = sum(e.self_device_time_total for e in on_device) / 1e3 / 3
+    names = {}
+    for e in on_device:
+        names[e.name] = names.get(e.name, 0) + 1 / 3
+    per_block_us = wall * 1e3 / n
+    realtime = K * cfg.hop_s * 1e6 / per_block_us
+    print(f"  {n} streams: poll round {wall:.4f} ms wall (median of 20), device busy {busy:.4f} ms "
+          f"({busy / wall * 100:.1f}% of the wall), {per_block_us:.2f} us of host a stream-block, "
+          f"projected {realtime:.0f} real-time streams {tag}")
+    print(f"    device ops a round: " + ", ".join(f"{k[:160]} x{v:g}" for k, v in sorted(names.items())))
+    return {"wall_ms": wall, "busy_ms": busy, "per_block_us": per_block_us, "realtime": realtime,
+            "ops": names}
+
+
+def serving_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 23: on-line streaming and serving (see the module docstring)."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import MultiStreamExtractor, StreamingExtractor, pad_batch
+
+    t_phase = time.perf_counter()
+    cfg = named_config("classic13_deltas")
+    K, S, L = SERVE_K, cfg.frame_step, cfg.frame_length
+    chunk = int(SERVE_CHUNK_S * cfg.sample_rate)
+    print(f"== 23. serving: classic13_deltas, {SERVE_STREAMS} streams of {SERVE_SECONDS[0]:g}-"
+          f"{SERVE_SECONDS[1]:g} s pushed in {chunk}-sample chunks, K = {K} {tag}")
+
+    # (b) the block launch against its plain version
+    span = (K - 1) * S + L
+    g = np.random.default_rng(23)
+    edges = [0, 1, L - 1, L, L + 1, span]
+    rows = torch.as_tensor((g.standard_normal((2 * len(edges), span + 1)) * 3000).astype(np.float32),
+                           device="cuda")
+    rows[: len(edges), 0] = 0.0  # t0 = 0: the pre-context is 0; the others' is dirty
+    valid = torch.tensor(edges * 2, dtype=torch.int32, device="cuda")
+    got = frontend.logmel_block(rows, valid, cfg)
+    plain = frontend.logmel_block_reference(rows, valid, cfg)
+    errs_b = check_prefix(testing, got, plain, cfg, f"block launch vs plain, valid {edges}, t0 = 0 "
+                                                     "and a dirty pre-context")
+    t = torch.arange(span + 1, device="cuda")[None, :]
+    clean = torch.where(t <= valid[:, None], rows, 0)
+    check(torch.equal(got, frontend.logmel_block(clean, valid, cfg)),
+          "samples past valid leave the block's prefix unchanged, bitwise")
+    for Kb in (16, 128):
+        sp = (Kb - 1) * S + L
+        r = torch.as_tensor((g.standard_normal((64, sp + 1)) * 3000).astype(np.float32), device="cuda")
+        v = torch.full((64,), sp, dtype=torch.int32, device="cuda")
+        e = check_prefix(testing, frontend.logmel_block(r, v, cfg), frontend.logmel_block_reference(r, v, cfg),
+                         cfg, f"block launch vs plain, 64 rows at K = {Kb}")
+        errs_b["max_abs"] = max(errs_b["max_abs"], e["max_abs"])
+
+    # (a) the pool at full width
+    xs = stream_signals(cfg, SERVE_STREAMS, *SERVE_SECONDS, seed=230)
+    pool = MultiStreamExtractor(cfg, SERVE_STREAMS, frames_per_block=K)
+    rounds = counted_rounds(pool, counters)
+    t0 = time.perf_counter()
+    feats = drive_pool(pool, xs, chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_rounds = check_rounds(rounds, cfg, frontend, f"{SERVE_STREAMS}-stream pool, staggered arrivals")
+    check(n_rounds["two_tail_rounds"] > 0, f"{SERVE_STREAMS}-stream pool: first and inner windows "
+                                           f"shared a round ({n_rounds['two_tail_rounds']} rounds "
+                                           "took two tail launches)")
+    audio_s = sum(len(x) for x in xs) / cfg.sample_rate
+    print(f"  {SERVE_STREAMS} streams, {audio_s:.1f} audio-s: {len(rounds)} rounds in "
+          f"{pool.stats['poll_rounds']} polls, {wall:.3f} s of wall (pushes included) = "
+          f"{audio_s / wall:.0f} audio-s/s {tag}")
+    check(all(f.shape == (cfg.num_frames(len(x)), cfg.feat_dim) for f, x in zip(feats, xs)),
+          "every stream's frame count == the offline count")
+    check(all(bool(np.isfinite(f).all()) for f in feats), "finite")
+    want = offline_features(torch, chain, pad_batch, cfg, xs)
+    err = max(float(np.abs(f - w).max()) for f, w in zip(feats, want))
+    print(f"  max |stream - offline extract_batch| over {SERVE_STREAMS} streams: {err:.3e}")
+    check(err <= testing.FEATURE_ATOL, f"every stream within {testing.FEATURE_ATOL} of the card's offline "
+                                       "extract_batch of the whole utterance")
+    b4 = pad_batch([x.astype(np.int16) for x in xs[:4]], cfg, dtype="int16")
+    f64, _ = chain.extract_batch(b4.audio, b4.lengths, cfg.replace(dtype="float64"), device="cpu")
+    err64 = max(float(np.abs(feats[i] - f64[i, : len(feats[i])].numpy()).max()) for i in range(4))
+    print(f"  max |stream - float64 chain| on four streams: {err64:.3e}")
+    check(err64 <= testing.FEATURE_ATOL, f"four streams within {testing.FEATURE_ATOL} of the float64 chain")
+    counters.zero()
+    singles = []
+    for x in xs:
+        ex = StreamingExtractor(cfg, frames_per_block=K)
+        parts = [ex.push(x[a : a + chunk]) for a in range(0, len(x), chunk)]
+        singles.append(np.concatenate(parts + [ex.flush()]))
+    single_blocks = counters.read()["block"]
+    check(all(np.array_equal(a, b) for a, b in zip(feats, singles)),
+          f"every stream bitwise its own single-stream StreamingExtractor run ({single_blocks} block "
+          "launches there)")
+    del singles
+
+    # the profiler's device kernels of one round, at 256 streams
+    readings = {n: round_readings(torch, MultiStreamExtractor, cfg, n, tag) for n in SERVE_POOLS}
+    ops = readings[SERVE_STREAMS]["ops"]
+    kernels = [k for k in ops if "Memcpy" not in k and "Memset" not in k]
+    check(sum(v for k, v in ops.items() if "logmel_kernel" in k) == 1
+          and sum(v for k, v in ops.items() if "tail_kernel" in k) <= 2,
+          f"a {SERVE_STREAMS}-stream round: one front-end block launch, at most two tail launches; "
+          f"device kernels {sorted(k[:40] for k in kernels)}")
+
+    # (c) every other streamable named config at 16 streams
+    for i, name in enumerate(SERVE_CONFIGS):
+        c = named_config(name)
+        sr = c.input_sample_rate or c.sample_rate
+        xs_c = stream_signals(c, SERVE_SMALL, 1.0, 4.0, seed=231 + i)
+        raw = offline_features(torch, chain, pad_batch, c, xs_c)
+        moments = None
+        if c.cmvn == "global":
+            allf = np.concatenate(raw).astype(np.float64)
+            moments = (allf.sum(0), (allf**2).sum(0), float(allf.shape[0]))
+        pool = MultiStreamExtractor(c, SERVE_SMALL, frames_per_block=K, cmvn_moments=moments)
+        rounds = counted_rounds(pool, counters)
+        got = drive_pool(pool, xs_c, int(SERVE_CHUNK_S * sr))
+        check_rounds(rounds, c, frontend, f"{name}, {SERVE_SMALL} streams")
+        check(all(f.shape[0] == w.shape[0] for f, w in zip(got, raw)), f"{name}: frame counts == offline")
+        if moments is None:
+            stream_gate(testing, c, np.concatenate(got), np.concatenate(raw), f"{name} vs offline")
+        else:  # the difference before the division by each column's std
+            mu = moments[0] / moments[2]
+            std = np.sqrt(moments[1] / moments[2] - mu**2 + c.cmvn_eps)
+            err = max(float((np.abs(f - (w - mu) / std) * std).max()) for f, w in zip(got, raw))
+            print(f"  {name}: max |stream - offline| x std after global CMVN: {err:.3e}")
+            check(err <= testing.FEATURE_ATOL, f"{name}: within {testing.FEATURE_ATOL} (in feature units)")
+
+    # (d) single-stream StreamingExtractor at K = 16 and 128 on one 10 s stream
+    x = stream_signals(cfg, 1, 10.0, 10.0 + 1e-9, seed=239)[0]
+    want1 = offline_features(torch, chain, pad_batch, cfg, [x])[0]
+    latency = {}
+    for Kb in (16, 128):
+        counters.zero()
+        ex = StreamingExtractor(cfg, frames_per_block=Kb)
+        hop = Kb * S
+        walls, evs, parts = [], [], []
+        for a in range(0, len(x), hop):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            parts.append(ex.push(x[a : a + hop]))
+            end.record()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            evs.append((start, end))
+        parts.append(ex.flush())
+        torch.cuda.synchronize()
+        got1 = np.concatenate(parts)
+        n_blocks = counters.read()["block"]
+        check(got1.shape == want1.shape and float(np.abs(got1 - want1).max()) <= testing.FEATURE_ATOL,
+              f"StreamingExtractor K = {Kb}: {got1.shape[0]} frames within {testing.FEATURE_ATOL} of "
+              f"offline ({n_blocks} block launches)")
+        steady = slice(len(walls) // 4, None)  # past the first windows
+        lat_wall = float(np.median(walls[steady]))
+        lat_ev = float(np.median([s.elapsed_time(e) for s, e in evs[steady]]))
+        latency[Kb] = (lat_wall, lat_ev)
+        print(f"  single stream, K = {Kb}: a block's push {lat_wall:.4f} ms wall, {lat_ev:.4f} ms by CUDA "
+              f"events (median) {tag}")
+
+    # (e) `python -m mfcc_tpu_torch.cli serve` as a subprocess
+    xs_s = stream_signals(cfg, SERVE_SESSIONS, 2.0, 4.0, seed=240)
+    pool = MultiStreamExtractor(cfg, SERVE_SESSIONS, frames_per_block=K)
+    ref = drive_pool(pool, xs_s, chunk)
+    base_cmd = [sys.executable, "-m", "mfcc_tpu_torch.cli", "serve", "--config", "classic13_deltas",
+                "--streams", str(SERVE_SESSIONS), "--frames-per-block", str(K)]
+    for wire, emit in (("jsonl", "b64"), ("binary", "b64-batched")):
+        t0 = time.perf_counter()
+        res = subprocess.run(base_cmd + ["--wire", wire, "--emit", emit],
+                             input=serve_requests(xs_s, chunk, wire), capture_output=True, timeout=300)
+        events = serve_events(res.stdout, wire)
+        by_sid = session_frames(events, SERVE_SESSIONS)
+        frames = [by_sid[k] for k in np.argsort(open_order(SERVE_SESSIONS))]  # back to signal order
+        kinds = [h.get("event") for h, _ in events]
+        same = all(np.array_equal(a, b) for a, b in zip(frames, ref))
+        check(res.returncode == 0 and kinds.count("opened") == SERVE_SESSIONS
+              and kinds.count("done") == SERVE_SESSIONS and kinds[-1] == "stats" and same,
+              f"serve --wire {wire} --emit {emit}: rc {res.returncode}, {len(events)} events, "
+              f"{SERVE_SESSIONS} sessions' frames bitwise the in-process pool's "
+              f"({time.perf_counter() - t0:.1f} s) {res.stderr.decode()[-300:] if res.returncode else ''}")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run(base_cmd, input=serve_requests(xs_s[:1], chunk, "jsonl"), env=env,
+                         capture_output=True, timeout=120)
+    check(res.returncode == 2 and not res.stdout.strip(),
+          f"with CUDA_VISIBLE_DEVICES='' serve exits {res.returncode} and prints no event")
+
+    # (f) the readings
+    print(f"  readings {tag}:")
+    for n, r in readings.items():
+        print(f"    {n} streams: round {r['wall_ms']:.4f} ms wall, {r['busy_ms']:.4f} ms device busy, "
+              f"{r['per_block_us']:.2f} us a stream-block, {r['realtime']:.0f} real-time streams")
+    for Kb, (w, e) in latency.items():
+        print(f"    single stream K = {Kb}: {w:.4f} ms wall, {e:.4f} ms by events a block")
+    results["frontend"].update(block_launches=n_rounds["blocks"],
+                               block_launches_per_round=n_rounds["block_max"],
+                               block_max_abs_err=errs_b["max_abs"])
+    results["feature_tail"].update(serve_launches=n_rounds["tails"],
+                                   serve_launches_per_round=n_rounds["tail_max"],
+                                   serve_rounds_with_two=n_rounds["two_tail_rounds"])
+    print(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     args.add_argument("--seed", type=int, default=0, help="seed of the corpus phase's wav files")
     args = args.parse_args(argv)
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2199,6 +2678,10 @@ def main(argv=None) -> int:
 
     # 22. the corpus path
     corpus_path(torch, counters, tag, args.seed)
+
+    # 23. streaming and serving
+    serving_path(torch, counters, tag, results)
+    print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))

@@ -4,10 +4,12 @@ Commands:
   extract     wav files → feature shards (streaming, resumable, data-parallel)
   apply-cmvn  second pass: normalize existing shards with global or
               speaker stats
+  serve       on-line extraction over stdin/stdout (docs/SERVE.md)
 
-The port of `mfcc_tpu/cli/main.py`'s `extract` (:78-472) and `apply-cmvn`
-(:475-645), with its flags, except that `--device {cuda,cpu}` (default
-cuda) stands where `--backend` stood. On the card: threaded decode into
+The port of `mfcc_tpu/cli/main.py`'s `extract` (:78-472), `apply-cmvn`
+(:475-645) and `serve` (:744-1131), with their flags, except that
+`--device {cuda,cpu}` (default cuda) stands where `--backend` stood. On the
+card: threaded decode into
 pinned int16 rows → an asynchronous host-to-device copy →
 `parallel.sharded_extract_batch` (the front-end kernel, and the feature
 tail for mfcc configs) → an asynchronous device-to-host copy into pinned
@@ -16,8 +18,12 @@ markers on writer threads; global-CMVN moments ride the markers. A config
 the port's kernels do not implement, and `--device cuda` without a card,
 exit 2 before any shard is written: there is no fallback to the CPU. Shard
 names, ids and markers are the JAX package's, so a resume works across the
-two packages. `info`, `convert`, `plot` and `serve`, and the multi-process
-feed (`--feed mp`), are not ported yet (ROADMAP queue 1).
+two packages. `serve` speaks `docs/SERVE.md` over the
+`pipeline.MultiStreamExtractor` pool (one front-end launch and at most two
+tail launches a poll round), and exits 2 before any event on a config the
+kernels refuse or on `--device cuda` without a card. `info`, `convert` and
+`plot`, and the multi-process feed (`--feed mp`), are not ported yet
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -672,6 +678,345 @@ def cmd_apply_cmvn(args) -> int:
     return 0
 
 
+WIRE_HEADER_CAP = 1 << 20  # a framed header's bytes, in and out (docs/SERVE.md)
+WIRE_PAYLOAD_CAP = 1 << 30  # a framed payload's bytes, in
+DRAIN_EVERY = 256  # request lines between drains under saturating input
+IDLE_TICK_S = 0.2  # a drain after this long with no request
+
+
+def chunk_metas(metas: list[dict], cap: int) -> list[list[dict]]:
+    """Split a frames_batch event's stream metas into runs whose header
+    ({"event": "frames_batch", "streams": [...]}) stays under cap bytes of
+    JSON, so no outbound header reaches the reader's cap."""
+    room = cap - len(json.dumps({"event": "frames_batch", "streams": []}))
+    runs, run, size = [], [], 0
+    for m in metas:
+        n = len(json.dumps(m)) + 2  # ", " between entries
+        if run and size + n > room:
+            runs.append(run)
+            run, size = [], 0
+        run.append(m)
+        size += n
+    if run:
+        runs.append(run)
+    return runs
+
+
+def _serve_moments(args, cfg):
+    """(s1, s2, n) for the pool from --cmvn-stats (global, or --speaker's
+    pool of speaker stats), None without; raises ValueError with the
+    refusal."""
+    if not args.cmvn_stats:
+        return None
+    from mfcc_tpu_torch.parallel import (
+        CmvnAccumulator, SpeakerCmvnAccumulator, is_speaker_stats,
+    )
+
+    if is_speaker_stats(args.cmvn_stats[0]):
+        sacc = SpeakerCmvnAccumulator(cfg.feat_dim)
+        for mpath in args.cmvn_stats:
+            sacc.merge(SpeakerCmvnAccumulator.load(mpath))
+        if not args.speaker or args.speaker not in sacc.pools:
+            raise ValueError(
+                "speaker-CMVN stats need --speaker to pick this server's pool; "
+                f"available: {sorted(sacc.pools)}"
+            )
+        spool = sacc.pools[args.speaker]
+        return spool.s1, spool.s2, spool.n
+    acc = CmvnAccumulator(cfg.feat_dim)
+    for mpath in args.cmvn_stats:
+        acc.merge(CmvnAccumulator.load(mpath))
+    return acc.s1, acc.s2, acc.n
+
+
+def _read_exact(src, n: int) -> bytes:
+    """Up to n bytes: b"" at EOF before any byte, fewer at EOF mid-field."""
+    buf = b""
+    while len(buf) < n:
+        chunk = src.read(n - len(buf))
+        if not chunk:
+            break
+        buf += chunk
+    return buf
+
+
+def _binary_reader(src, put) -> None:
+    """The framed wire's reader: puts ("req", header, payload), ("bad_req",
+    msg) for a bad header inside an intact frame, or ("bad", msg) for a
+    framing error (the byte stream has no resync point), then None at EOF."""
+    import struct
+
+    while True:
+        hl = _read_exact(src, 4)
+        if not hl:
+            break  # a clean EOF at a frame boundary
+        if len(hl) < 4:
+            put(("bad", "truncated message (length prefix)"))
+            break
+        (hlen,) = struct.unpack("<I", hl)
+        if hlen > WIRE_HEADER_CAP:
+            put(("bad", f"header length {hlen} > 1 MiB"))
+            break
+        head = _read_exact(src, hlen)
+        pl = _read_exact(src, 4) if len(head) == hlen else b""
+        if len(pl) < 4:
+            put(("bad", "truncated message"))
+            break
+        (plen,) = struct.unpack("<I", pl)
+        if plen > WIRE_PAYLOAD_CAP:
+            put(("bad", f"payload length {plen} > 1 GiB"))
+            break
+        payload = _read_exact(src, plen) if plen else b""
+        if len(payload) < plen:
+            put(("bad", "truncated payload"))
+            break
+        try:
+            req = json.loads(head.decode())
+        except (UnicodeDecodeError, json.JSONDecodeError) as e:
+            put(("bad_req", f"bad header JSON: {e}"))
+            continue
+        put(("req", req, payload))
+    put(None)
+
+
+def cmd_serve(args) -> int:
+    """On-line serving: requests on stdin, events on stdout, as
+    docs/SERVE.md states them (the reference's protocol), driving the
+    `MultiStreamExtractor` pool on the card. One process serves up to
+    --streams sessions with one front-end launch and at most two tail
+    launches a poll round, whatever the number of sessions.
+
+    Requests (one JSON object per line, or framed with --wire binary):
+      {"op":"open"[, "id":<client tag>]}       -> {"event":"opened","sid":N}
+      {"op":"push","sid":N,"pcm16":"<b64>"}    little-endian int16 samples
+      {"op":"push","sid":N,"samples":[...]}    float samples (int16 range)
+      {"op":"end","sid":N}      audio complete; tail frames follow
+      {"op":"close","sid":N}    abandon (no tail extraction)
+      {"op":"poll"}             force a poll round
+      {"op":"stats"}            -> {"event":"stats", ...pool counters}
+    Events: frames (sid, n, dim and the <f4 row-major payload: b64 "data",
+    "frames" lists with --emit list, or the framed payload), frames_batch
+    (--emit b64-batched: one a poll round, its stream metas split so no
+    header reaches 1 MiB), done, stats, error.
+
+    Drains run when the request queue empties (a burst's end), on "poll",
+    on a 0.2 s idle tick, and at latest every 256 lines. A push that trips
+    the pool's per-session buffer cap (`BufferFullError`) drains and
+    retries once. EOF, SIGTERM and SIGINT flush: open streams are ended,
+    their tails drained, a final stats event emitted. --wire binary frames
+    every message as u32 header_len | JSON header | u32 payload_len |
+    payload (push audio raw <i2, frames raw <f4); a framing error flushes
+    like EOF. stdin is read on a thread that touches no CUDA; the signal
+    handlers only set a flag, from the main thread."""
+    import base64
+    import queue
+    import signal
+    import struct
+    import threading
+
+    from mfcc_tpu_torch.pipeline import BufferFullError, MultiStreamExtractor
+    from mfcc_tpu_torch.utils import MetricsLogger
+
+    try:
+        cfg = _resolve_config(args)
+    except (KeyError, ValueError) as e:
+        log.error("%s", e.args[0])
+        return 2
+    reason = _refusal(cfg, args.device)
+    if reason:
+        log.error("%s", reason)
+        return 2
+    wire = args.wire
+    if wire == "binary" and args.emit == "list":
+        # list mode puts the whole frames list in the JSON header, which
+        # can exceed the framed-header cap after one long tail drain
+        log.error("--emit list is a jsonl-wire debug mode; use b64/"
+                  "b64-batched with --wire binary")
+        return 2
+    try:
+        moments = _serve_moments(args, cfg)
+        pool = MultiStreamExtractor(
+            cfg, n_streams=args.streams, frames_per_block=args.frames_per_block,
+            cmvn_moments=moments, device=args.device,
+        )
+    except (ValueError, NotImplementedError) as e:
+        log.error("%s", e)
+        return 2
+
+    fin, fout = sys.stdin, sys.stdout
+    metrics = MetricsLogger(args.metrics, context={"config": args.config})
+    t0 = time.perf_counter()
+    audio_s = 0.0
+    sr_in = cfg.input_sample_rate or cfg.sample_rate
+    client_gone = False
+    fout_b = getattr(fout, "buffer", fout)
+
+    def emit(obj, payload: bytes = b"") -> None:
+        # a consumer that closed its read end must not crash the server
+        # mid-stream: flag it, so the loop winds down and metrics still land
+        nonlocal client_gone
+        if client_gone:
+            return
+        try:
+            if wire == "binary":
+                head = json.dumps(obj).encode()
+                fout_b.write(struct.pack("<I", len(head)) + head
+                             + struct.pack("<I", len(payload)) + payload)
+                fout_b.flush()
+            else:
+                fout.write(json.dumps(obj) + "\n")
+                fout.flush()
+        except (BrokenPipeError, OSError):
+            client_gone = True
+
+    def tile(feat) -> bytes:
+        return np.ascontiguousarray(feat, dtype="<f4").tobytes()
+
+    def drain() -> None:
+        polled = pool.poll()
+        if args.emit == "b64-batched":
+            # one frames_batch event a poll round (split only where its
+            # metas would reach the header cap): the streams' [n_i, dim] f32
+            # tiles concatenated row-major in listed order
+            ready = [(sid, feat) for sid, feat in polled.items() if feat.shape[0]]
+            metas = [{"sid": sid, "n": int(f.shape[0]), "dim": int(f.shape[1])} for sid, f in ready]
+            tiles = {sid: tile(f) for sid, f in ready}
+            for run in chunk_metas(metas, WIRE_HEADER_CAP):
+                payload = b"".join(tiles[m["sid"]] for m in run)
+                if wire == "binary":
+                    emit({"event": "frames_batch", "streams": run}, payload=payload)
+                else:
+                    emit({"event": "frames_batch", "streams": run,
+                          "data": base64.b64encode(payload).decode("ascii")})
+            for sid in polled:
+                if pool.done(sid):
+                    emit({"event": "done", "sid": sid})
+            return
+        for sid, feat in polled.items():
+            if feat.shape[0]:
+                head = {"event": "frames", "sid": sid, "n": int(feat.shape[0]),
+                        "dim": int(feat.shape[1])}
+                if args.emit == "list":
+                    emit({**head, "frames": [[round(float(v), 6) for v in row] for row in feat]})
+                elif wire == "binary":
+                    emit(head, payload=tile(feat))
+                else:
+                    emit({**head, "data": base64.b64encode(tile(feat)).decode("ascii")})
+            if pool.done(sid):
+                emit({"event": "done", "sid": sid})
+
+    # SIGTERM (process managers' stop signal) and SIGINT flush like EOF; the
+    # handlers only set a flag, and stdin is read on a daemon thread, so the
+    # main loop observes the flag instead of blocking in a read
+    shutdown = threading.Event()
+    old_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            old_handlers[sig] = signal.signal(sig, lambda *_: shutdown.set())
+        except ValueError:  # not the main thread (library or test use): skip
+            pass
+    lines_q: queue.Queue = queue.Queue()
+
+    def read_lines() -> None:
+        for raw in fin:
+            lines_q.put(raw)
+        lines_q.put(None)  # EOF
+
+    if wire == "binary":
+        reader = threading.Thread(target=_binary_reader,
+                                  args=(getattr(fin, "buffer", fin), lines_q.put), daemon=True)
+    else:
+        reader = threading.Thread(target=read_lines, daemon=True)
+    reader.start()
+
+    lines_since_drain = 0
+    try:
+        while not shutdown.is_set():
+            try:
+                line = lines_q.get(timeout=IDLE_TICK_S)
+            except queue.Empty:
+                drain()
+                lines_since_drain = 0
+                continue
+            if line is None:
+                break  # EOF
+            payload, req = b"", None
+            if isinstance(line, tuple):  # the binary reader's items
+                if line[0] == "bad":
+                    emit({"event": "error", "msg": f"wire framing error: {line[1]}; flushing"})
+                    break  # a desynced byte stream: flush like EOF
+                if line[0] == "bad_req":
+                    emit({"event": "error", "msg": line[1]})
+                    continue
+                _, req, payload = line
+            else:
+                line = line.strip()
+                if not line:
+                    continue
+            force_drain = False
+            try:
+                framed = req is not None
+                req = json.loads(line) if req is None else req
+                op = req["op"]
+                if op == "open":
+                    sid = pool.open()
+                    emit({"event": "opened", "sid": sid, **({"id": req["id"]} if "id" in req else {})})
+                elif op == "push":
+                    if framed and "pcm16" not in req and "samples" not in req:
+                        # the binary wire: raw little-endian int16 PCM, possibly
+                        # empty (a 0-sample no-op, as pcm16="" on jsonl)
+                        x = np.frombuffer(payload, dtype="<i2").astype(np.float32)
+                    elif "pcm16" in req:
+                        x = np.frombuffer(base64.b64decode(req["pcm16"]), dtype="<i2").astype(np.float32)
+                    else:
+                        x = np.asarray(req["samples"], dtype=np.float32).reshape(-1)
+                    try:
+                        pool.push(req["sid"], x)
+                    except BufferFullError:
+                        # backpressure only: drain (frees buffered blocks) and
+                        # retry once, so the chunk's audio is not dropped
+                        drain()
+                        lines_since_drain = 0
+                        pool.push(req["sid"], x)
+                    audio_s += x.size / sr_in
+                elif op == "end":
+                    pool.end(req["sid"])
+                elif op == "close":
+                    pool.close(req["sid"])
+                    emit({"event": "done", "sid": req["sid"]})
+                elif op == "poll":
+                    force_drain = True
+                elif op == "stats":
+                    emit({"event": "stats", "active": pool.n_active, **pool.stats})
+                else:
+                    emit({"event": "error", "msg": f"unknown op {op!r}"})
+            except (KeyError, IndexError, ValueError, RuntimeError, TypeError) as e:
+                emit({"event": "error", "msg": f"{type(e).__name__}: {e}"})
+            lines_since_drain += 1
+            if force_drain or lines_since_drain >= DRAIN_EVERY or lines_q.empty():
+                drain()
+                lines_since_drain = 0
+            if client_gone:
+                break
+    finally:
+        if shutdown.is_set():
+            log.info("shutdown signal: flushing open streams")
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+
+    # EOF or shutdown: end the open streams and drain their tails
+    pool.end_all()
+    while pool.n_active:
+        drain()
+    wall = time.perf_counter() - t0
+    metrics.set(audio_seconds=round(audio_s, 3), wall_s=round(wall, 3),
+                rtf=round(audio_s / wall, 2) if wall > 0 else 0.0, **pool.stats)
+    snap = metrics.emit("done")
+    emit({"event": "stats", "active": 0, **{k: snap[k] for k in pool.stats},
+          "audio_seconds": snap["audio_seconds"], "wall_s": snap["wall_s"], "rtf": snap["rtf"]})
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="mfcc_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -762,6 +1107,37 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--compress", choices=["none", "zlib"], default="none",
                    help="compression for rewritten shards")
     a.set_defaults(fn=cmd_apply_cmvn)
+
+    s = sub.add_parser("serve", help="on-line serving over stdin/stdout (docs/SERVE.md)")
+    s.add_argument("--config", default="classic13")
+    s.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help=set_help)
+    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda (default): the CUDA kernels on the card, and "
+                        "exit 2 without one; cpu: the kernels' plain versions")
+    s.add_argument("--streams", type=int, default=16,
+                   help="max concurrent sessions (pool slots)")
+    s.add_argument("--frames-per-block", type=int, default=16,
+                   help="frames per device block (latency/throughput knob)")
+    s.add_argument("--cmvn-stats", nargs="+", default=None,
+                   help="cmvn moment .npz files (required for global/"
+                        "speaker-CMVN configs; merged)")
+    s.add_argument("--speaker", default=None,
+                   help="with speaker-CMVN stats: the pool to normalize "
+                        "this server's sessions with")
+    s.add_argument("--wire", choices=["jsonl", "binary"], default="jsonl",
+                   help="transport framing: jsonl (one JSON object per "
+                        "line, payloads b64 — the default, debuggable) or "
+                        "binary (u32 header_len | JSON header | u32 "
+                        "payload_len | payload; push audio as raw <i2 PCM, "
+                        "frames as raw <f4)")
+    s.add_argument("--emit", choices=["b64", "list", "b64-batched"],
+                   default="b64",
+                   help="frame payload encoding: b64 float32 (compact), "
+                        "JSON lists (debuggable, jsonl wire only), or "
+                        "b64-batched (one frames_batch event per poll round)")
+    s.add_argument("--metrics", default=None, help="JSON-lines metrics file")
+    s.set_defaults(fn=cmd_serve)
     return p
 
 

@@ -166,6 +166,25 @@
 // the difference of two staged neighbours, which differ at the seams.
 // Reflected frames hold samples, so centered framing skips no frame.
 //
+// The block launch (mfcc_frontend_logmel at origin 1; port of the
+// streaming base block, mfcc_tpu/pipeline/streaming.py:51-139, which the
+// reference computes with jnp stages, not a Pallas kernel). Streaming
+// (mfcc_tpu_torch/pipeline/streaming.py) extracts a stream K frames at a
+// time from a window of span + 1 samples, span = (K - 1) S + L, whose
+// sample 0 is the pre-context x[t0 S - 1] (0 at the stream's start) and
+// whose samples past `valid` are padding. Row b is that window, F = K and
+// lengths[b] = valid; the row's signal starts at row sample 1, which the
+// staging reads as x[0], and row sample 0 only as x[-1]:
+//   y[t] = x[t] - c * x[t-1] for 0 <= t < valid, x[-1] = row[0]; y[t] = 0
+//          for t >= valid; frame f = y[f S .. f S + L)
+// and the rest as above. Frame-first (Kaldi) pre-emphasis (c = 0 here)
+// never reads the pre-context. No dither, no centered framing, no bf16x3
+// form (streaming refuses the first two; the third is an opt-in of the
+// offline route). The launch's n_valid and mask are those of `valid`, not
+// the stream's counts, which streaming keeps on the host. Each row is
+// computed by its own blocks, so a stream's prefix does not depend on the
+// other rows of the launch.
+//
 // Bound at whisper80 (batch 64 x 30 s int16, all lengths 480,000, T =
 // 480,240, F = 3,000, M = 80, N = 400): bytes 61.4 MB in + 62.2 MB of
 // [64, 3000, 81] out = 123.6 MB -> ~37 us; operations ~8.6 k a frame at the
@@ -416,6 +435,9 @@ struct Params {
   int kp, nbp, npass, pws, tile, stages;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
   int aligned;
+  // the block launch (streaming): 1 when each row's sample 0 is the
+  // pre-context x[-1] and frame 0 starts at sample 1, else 0
+  int origin;
 };
 
 // Packed weight tables staged for the feature kind: mel; none for the
@@ -1089,7 +1111,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int tile = kBf16 ? p.tile : kTile;  // frames a block
   const int f0 = blockIdx.x * tile;
   const long long t0 = static_cast<long long>(f0) * S;
-  const Sample* row = audio + static_cast<size_t>(b) * T;
+  const Sample* row = audio + static_cast<size_t>(b) * T + p.origin;  // x[0]; x[-1] under origin 1
 
   const int wlen = imax(L, p.n_fft);
   for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
@@ -1110,7 +1132,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   // the fused resample): under non-centered framing a frame that starts at
   // or past it holds only zeros (step 2z), and so does every frame of a tile
   // that starts there, which then stages nothing
-  const int len_in = max(0, min(lengths[b], T));
+  const int len_in = max(0, min(lengths[b], T - p.origin));
   const long long len = kResample ? pp_output_length(len_in, pp) : len_in;
   const bool framed = p.center == kNoCenter;
   const bool stage = !framed || t0 < len;
@@ -1280,7 +1302,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           const long long t = t0 + i0 + u * kThreads;
           const bool in = i0 + u * kThreads < lay.span && t < len;
           x[u] = in ? source<false>(row, t, p) : 0.f;
-          xp[u] = in && t > 0 ? source<false>(row, t - 1, p) : 0.f;
+          xp[u] = in && t + p.origin > 0 ? source<false>(row, t - 1, p) : 0.f;
         }
 #pragma unroll
         for (int u = 0; u < kStageBatch; ++u) {
@@ -1803,7 +1825,12 @@ extern "C" {
 // (remove_dc, frame_preemph and frame_keep0 = 1 - frame_preemph,
 // energy_source 0 pspec / 1 raw_frame / 2 windowed_frame); log_kind 0 ln /
 // 1 ln_stab / 2 db / 3 ln_floor / 4 log10_floor; feature_kind 0 logmel /
-// 1 plp / 2 spectrogram (M = n_fft/2+1) / 3 ssc.
+// 1 plp / 2 spectrogram (M = n_fft/2+1) / 3 ssc. origin 0 frames each
+// row from its sample 0; origin 1 is the block launch (streaming, see "The
+// block launch" above): each row holds the pre-context sample x[-1] at 0
+// and the block's signal from 1 (frame 0 starts at row sample 1), lengths[b]
+// the samples from row sample 1 that hold signal (the counts and mask are
+// of those lengths); it takes no dither, centered framing or bf16x3 form.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, int* n_valid, float* frame_mask, const float* window,
                          const float* mel_w,
@@ -1815,11 +1842,16 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                          float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
-                         int log_kind, int feature_kind, void* stream) {
+                         int log_kind, int feature_kind, int origin, void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind, framing, drop_last};
+  p.origin = origin;
   if (bad_params(p, B, melf_w, bases)) return cudaErrorInvalidValue;
+  if (origin != 0 && (origin != 1 || T < 2 || dither > 0.f || center != kNoCenter ||
+                      frame_offset != 0 || dft_form == kBf16x3)) {
+    return cudaErrorInvalidValue;
+  }
   const bool tensor = dft_form == kBf16x3;
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,

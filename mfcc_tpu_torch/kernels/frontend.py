@@ -50,6 +50,13 @@ for resampling configs). `launches` counts launches of the plain front-end,
 `bluestein_launches` and `bf16x3_launches` count the launches (of either
 form) that take that branch. Set them to 0 to start a count.
 
+`logmel_block` is the block launch of the plain form for streaming
+(`pipeline/streaming.py`): rows [N, span+1] whose sample 0 is each block's
+pre-context sample x[t0·S - 1] and whose frames start at sample 1, with
+the samples after it that hold signal, → [N, K, n_mels+1]; its plain
+version `logmel_block_reference`, its count `block_launches` (the branch
+counts above count it too, `launches` does not).
+
 `fused_logmel_stages` is the port of the reference's entry of the same
 name: the prefix by a `dft_passes` route, and with `feature_tail=True` the
 finished mfcc features from the feature-tail kernel (`kernels/tail.py`);
@@ -90,6 +97,7 @@ centered_launches = 0
 direct_dft_launches = 0
 bluestein_launches = 0
 bf16x3_launches = 0
+block_launches = 0
 
 
 def feature_kind(cfg: FrontendConfig) -> str:
@@ -122,12 +130,61 @@ def logmel_prefix_reference(
     if chain.resamples(cfg):
         audio, lengths = chain.resample_input(audio, lengths, cfg)
     st = chain.logmel_stages(audio, lengths, cfg, consts, dft_passes=dft_passes)
+    return _prefix_lanes(st, cfg, consts)
+
+
+def _prefix_lanes(st: dict, cfg: FrontendConfig, consts) -> torch.Tensor:
+    """The prefix from the chain's frame stages, by feature kind."""
     kind = feature_kind(cfg)
     if kind == "ssc":
         c = chain.ssc_centroids(st["pspec"], cfg, consts)
         return torch.cat([c, torch.zeros_like(c[..., :1])], dim=-1)
     lanes = st["melspec"] if kind == "plp" else st["logmel"]
     return torch.cat([lanes, st["energy"][..., None]], dim=-1)
+
+
+def block_frames(cfg: FrontendConfig, T: int) -> int:
+    """K of block rows of T = span + 1 samples, span = (K - 1)·S + L (the
+    pre-context and K frames at cfg.sample_rate); anything else raises."""
+    L, S = cfg.frame_length, cfg.frame_step
+    K = (T - 1 - L) // S + 1 if T - 1 >= L else 0
+    if K < 1 or (K - 1) * S + L != T - 1:
+        raise ValueError(f"block rows hold (K - 1)·{S} + {L} + 1 samples for K >= 1, got {T}")
+    return K
+
+
+def _block_refusal(cfg: FrontendConfig) -> None:
+    if cfg.dither > 0.0 or chain.centered(cfg):
+        raise ValueError("the block launch has no dither and no centered framing (streaming "
+                         "refuses both)")
+
+
+def logmel_block_reference(
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """The block launch's plain version (the reference's streaming base
+    block up to the prefix, `mfcc_tpu/pipeline/streaming.py:51-139`), on
+    any device: rows [N, span+1] at cfg.sample_rate × input_scale, y =
+    x[1:] - c·x[:-1] (signal pre-emphasis; x[1:] in frame mode), zeroed
+    at t >= valid, K frames from y[0], then `chain.frame_stages` and the
+    prefix lanes of `logmel_prefix_reference` → [N, K, n_mels+1]."""
+    _block_refusal(cfg)
+    K = block_frames(cfg, rows.shape[-1])
+    dtype = chain.compute_dtype(cfg)
+    k = consts if consts is not None else chain.device_constants(cfg, rows.device, dtype)
+    x = rows.to(dtype)
+    if cfg.input_scale != 1.0:
+        x = x * cfg.input_scale
+    if cfg.preemph_mode == "signal" and cfg.preemph:
+        y = x[:, 1:] - cfg.preemph * x[:, :-1]
+    else:  # frame-first conditioning (Kaldi order): frame the raw signal
+        y = x[:, 1:]
+    y = chain.zero_beyond(y, valid)
+    st = chain.frame_stages(chain.frame_signal(y, K, cfg), cfg, k)
+    return _prefix_lanes(st, cfg, consts)
 
 
 def radices(n_fft: int) -> tuple[int, ...] | None:
@@ -565,7 +622,6 @@ def _lib() -> ctypes.CDLL:
         f, u,  # dither, premixed seed
         i, i, f, f, i,  # conditioning, remove_dc, frame_preemph, frame_keep0, energy_source
         i, i,  # log_kind, feature_kind
-        p,  # stream
     ]
     lib.mfcc_frontend_logmel.argtypes = [
         p, i, p, p, p, p,  # audio, is_int16, lengths, out, n_valid, frame_mask
@@ -575,6 +631,7 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i, i, i,  # n_fft, dft_form, frame_offset, center, framing, drop_last
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
+        i, p,  # origin, stream
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
@@ -585,6 +642,7 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i,  # up, down, half_len, K
         f, f, f,  # preemph, eps, pscale
         *branches,
+        p,  # stream
     ]
     lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
     lib.mfcc_frontend_kernel_info.argtypes = [i, i, i, i, i, i, p]
@@ -646,6 +704,59 @@ def logmel_prefix(
     return logmel_prefix_counts(audio, lengths, cfg, consts, dft_passes)[0]
 
 
+def _launch_args(audio, lengths, out, n_valid, mask, cfg: FrontendConfig, consts, form: str):
+    """(head, dims, framing, tail, branches): the arguments the entries share
+    (`_lib`), for rows audio [B, T] and an output of F frames."""
+    B, T = audio.shape
+    k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
+    twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device)
+    head = (
+        audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
+        out.data_ptr(), n_valid.data_ptr(), mask.data_ptr(), k["window"].data_ptr(),
+        k["mel_w"].data_ptr(), k["melf_w"].data_ptr(), k["mel_off"].data_ptr(),
+        k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
+    )
+    dims = (B, T, out.shape[1], cfg.frame_length, cfg.frame_step, cfg.n_mels,
+            k["mel_w"].numel(), cfg.n_fft, DFT_FORMS.index(form))
+    framing = (FRAMINGS.index(cfg.frame_tail), int(cfg.drop_last_frame))
+    frame_mode = cfg.preemph_mode == "frame"
+    tail = (
+        0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
+        cfg.log_eps,
+        1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0,
+    )
+    c = cfg.preemph if frame_mode else 0.0
+    branches = (
+        cfg.dither, dither._fmix32_int(cfg.dither_seed),
+        int(chain.needs_conditioning(cfg)), int(cfg.remove_dc_offset), c, 1.0 - c,
+        ENERGY_SOURCES.index(cfg.energy_source), chain.LOG_KINDS.index(cfg.log_kind),
+        FEATURE_KINDS.index(feature_kind(cfg)),
+    )
+    return head, dims, framing, tail, branches
+
+
+def _check_rows(audio: torch.Tensor, lengths: torch.Tensor) -> None:
+    if audio.dim() != 2 or audio.dtype not in (torch.int16, torch.float32):
+        raise ValueError(
+            f"audio must be [B, T] int16 or float32, got {audio.dtype} "
+            f"{tuple(audio.shape)}"
+        )
+    B = audio.shape[0]
+    if (
+        lengths.device != audio.device
+        or lengths.dtype != torch.int32
+        or lengths.shape != (B,)
+    ):
+        raise ValueError(
+            f"lengths must be int32 [{B}] on {audio.device}, got "
+            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
+        )
+    if not (audio.is_contiguous() and lengths.is_contiguous()):
+        raise ValueError("audio and lengths must be contiguous")
+    if B > MAX_BATCH:
+        raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
+
+
 def logmel_prefix_counts(
     audio: torch.Tensor,
     lengths: torch.Tensor,
@@ -658,9 +769,6 @@ def logmel_prefix_counts(
     `frame_counts_reference` of the lengths. On a CPU tensor all three are
     the plain versions; with B = 0 or F = 0 nothing launches and the counts
     are the plain version's."""
-    global launches, resample_launches, dither_launches, conditioning_launches
-    global plp_launches, spectrogram_launches, ssc_launches
-    global centered_launches, direct_dft_launches, bluestein_launches, bf16x3_launches
     form = kernel_form(cfg, dft_passes)
     if form == "bf16x3" and chain.resamples(cfg):
         raise NotImplementedError(
@@ -679,69 +787,40 @@ def logmel_prefix_counts(
                                   f"(dft_passes={dft_passes!r})")
     if cfg.dtype != "float32":
         raise NotImplementedError(f"the kernel computes in float32, not {cfg.dtype}")
-    if audio.dim() != 2 or audio.dtype not in (torch.int16, torch.float32):
-        raise ValueError(
-            f"audio must be [B, T] int16 or float32, got {audio.dtype} "
-            f"{tuple(audio.shape)}"
-        )
+    _check_rows(audio, lengths)
     B, T = audio.shape
-    if (
-        lengths.device != audio.device
-        or lengths.dtype != torch.int32
-        or lengths.shape != (B,)
-    ):
-        raise ValueError(
-            f"lengths must be int32 [{B}] on {audio.device}, got "
-            f"{lengths.dtype} {tuple(lengths.shape)} on {lengths.device}"
-        )
-    if not (audio.is_contiguous() and lengths.is_contiguous()):
-        raise ValueError("audio and lengths must be contiguous")
-    if B > MAX_BATCH:
-        raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
-    resampling = chain.resamples(cfg)
-    kind = feature_kind(cfg)
-    if resampling:
-        sr_in = cfg.input_sample_rate
-        F = cfg.num_frames(R.output_length(T, sr_in, cfg.sample_rate))
+    if chain.resamples(cfg):
+        F = cfg.num_frames(R.output_length(T, cfg.input_sample_rate, cfg.sample_rate))
     else:
         F = cfg.num_frames(T)
     M = cfg.n_mels
     out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return (out, *frame_counts_reference(lengths, cfg, F))
+    n_valid, mask = _launch(audio, lengths, out, cfg, consts, form, origin=0)
+    return out, n_valid, mask
+
+
+def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin: int):
+    """Launches the front-end on rows audio over out's F frames (the fused
+    form for a resampling config, else the plain form with frame 0 at row
+    sample `origin`: 0 offline, 1 the block launch) and counts the launch
+    → (n_valid, mask)."""
+    global launches, resample_launches, block_launches, dither_launches, conditioning_launches
+    global plp_launches, spectrogram_launches, ssc_launches
+    global centered_launches, direct_dft_launches, bluestein_launches, bf16x3_launches
+    B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
     mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
-    k = _device_tables(cfg, audio.device) if consts is None else _tables(consts, audio.device)
-    twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device)
-    lib = _lib()
-    head = (
-        audio.data_ptr(), int(audio.dtype == torch.int16), lengths.data_ptr(),
-        out.data_ptr(), n_valid.data_ptr(), mask.data_ptr(), k["window"].data_ptr(),
-        k["mel_w"].data_ptr(), k["melf_w"].data_ptr(), k["mel_off"].data_ptr(),
-        k["mel_meta"].data_ptr(), twiddle.data_ptr(), bases.data_ptr(),
-    )
+    head, dims, framing, tail, branches = _launch_args(audio, lengths, out, n_valid, mask, cfg,
+                                                       consts, form)
     dft_matrix = _device_bf16_matrix(cfg, audio.device).data_ptr() if form == "bf16x3" else None
-    dims = (B, T, F, cfg.frame_length, cfg.frame_step, M, k["mel_w"].numel(), cfg.n_fft,
-            DFT_FORMS.index(form))
-    framing = (FRAMINGS.index(cfg.frame_tail), int(cfg.drop_last_frame))
-    frame_mode = cfg.preemph_mode == "frame"
-    tail = (
-        0.0 if frame_mode else cfg.preemph,  # signal pre-emphasis while staging
-        cfg.log_eps,
-        1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0,
-    )
-    c = cfg.preemph if frame_mode else 0.0
-    conditioning = chain.needs_conditioning(cfg)
-    branches = (
-        cfg.dither, dither._fmix32_int(cfg.dither_seed),
-        int(conditioning), int(cfg.remove_dc_offset), c, 1.0 - c,
-        ENERGY_SOURCES.index(cfg.energy_source), chain.LOG_KINDS.index(cfg.log_kind),
-        FEATURE_KINDS.index(kind),
-    )
+    lib = _lib()
+    resampling = origin == 0 and chain.resamples(cfg)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         if resampling:
-            up, down = R.ratio(sr_in, cfg.sample_rate)
+            up, down = R.ratio(cfg.input_sample_rate, cfg.sample_rate)
             d = R.polyphase_design(up, down)
             taps = rs_kernel.device_table(up, down, cfg.input_scale, audio.device)
             rc = lib.mfcc_frontend_logmel_resample(
@@ -752,19 +831,22 @@ def logmel_prefix_counts(
             rc = lib.mfcc_frontend_logmel(
                 *head, dft_matrix, *dims, chain.frame_offset(cfg),
                 CENTER_CODES.get(cfg.frame_tail, 0), *framing,
-                cfg.input_scale, *tail, *branches, stream,
+                cfg.input_scale, *tail, *branches, origin, stream,
             )
     if rc != 0:
         raise RuntimeError(
-            "front-end kernel launch failed: "
+            f"front-end {'block ' if origin else ''}launch failed: "
             f"{lib.mfcc_frontend_error_string(rc).decode()} (cudaError {rc})"
         )
     if resampling:
         resample_launches += 1
+    elif origin:
+        block_launches += 1
     else:
         launches += 1
+    kind = feature_kind(cfg)
     dither_launches += int(cfg.dither > 0.0)
-    conditioning_launches += int(conditioning)
+    conditioning_launches += int(chain.needs_conditioning(cfg))
     plp_launches += int(kind == "plp")
     spectrogram_launches += int(kind == "spectrogram")
     ssc_launches += int(kind == "ssc")
@@ -772,7 +854,43 @@ def logmel_prefix_counts(
     direct_dft_launches += int(form == "direct")
     bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
-    return out, n_valid, mask
+    return n_valid, mask
+
+
+def logmel_block(
+    rows: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """The block launch: rows [N, span+1] int16 or float32 at
+    cfg.sample_rate (streaming resamples on the host first), row sample 0
+    the block's pre-context x[t0·S - 1], frames from sample 1, span =
+    (K - 1)·S + L; valid [N] int32, the samples from sample 1 that hold
+    signal → the prefix [N, K, n_mels+1] of `logmel_prefix`'s lanes (see
+    csrc/frontend.cu, "The block launch"). A config with dither or centered
+    framing raises ValueError on both devices.
+
+    CUDA tensors launch the plain form at row origin 1 (contiguous, on one
+    device, else it raises; a config the kernels refuse raises
+    NotImplementedError); CPU tensors get `logmel_block_reference`. N = 0
+    launches nothing."""
+    _block_refusal(cfg)
+    K = block_frames(cfg, rows.shape[-1])
+    if rows.device.type == "cpu":
+        return logmel_block_reference(rows, valid, cfg, consts)
+    if rows.device.type != "cuda":
+        raise ValueError(f"the front-end kernel runs on CUDA, got {rows.device}")
+    chain.check_supported(cfg)
+    if cfg.dtype != "float32":
+        raise NotImplementedError(f"the kernel computes in float32, not {cfg.dtype}")
+    _check_rows(rows, valid)
+    B = rows.shape[0]
+    out = torch.empty((B, K, cfg.n_mels + 1), dtype=torch.float32, device=rows.device)
+    if B == 0:
+        return out
+    _launch(rows, valid, out, cfg, consts, dft_form(cfg), origin=1)
+    return out
 
 
 def fused_logmel_stages(

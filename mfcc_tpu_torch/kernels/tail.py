@@ -174,6 +174,7 @@ def feature_tail(
     n_valid: torch.Tensor,
     cfg: FrontendConfig,
     consts: dict[str, torch.Tensor] | None = None,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """prefix [B, F, n_mels+1] float32 ([log-mel | clamped energy]) +
     n_valid [B] int32 → features [B, F, feat_dim] float32, rows past each
@@ -181,10 +182,19 @@ def feature_tail(
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides dct_aug
-    (a chain-constants dict)."""
+    (a chain-constants dict). `out`, a contiguous float32 [B, F, feat_dim]
+    tensor on prefix's device, receives the features (the streaming round
+    writes both window kinds into one buffer)."""
     global tail_launches, tail_cmvn_launches
+    if out is not None and (out.shape != (*prefix.shape[:2], cfg.feat_dim)
+                            or out.dtype != torch.float32 or out.device != prefix.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous float32 [{prefix.shape[0]}, {prefix.shape[1]}, "
+                         f"{cfg.feat_dim}] on {prefix.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
     if prefix.device.type == "cpu":
-        return feature_tail_reference(prefix, n_valid, cfg, consts)
+        feat = feature_tail_reference(prefix, n_valid, cfg, consts)
+        return feat if out is None else out.copy_(feat)
     if prefix.device.type != "cuda":
         raise ValueError(f"the feature-tail kernel runs on CUDA, got {prefix.device}")
     reason = tail_reason(cfg)
@@ -205,7 +215,8 @@ def feature_tail(
         raise ValueError("prefix and n_valid must be contiguous")
     if B > MAX_BATCH:
         raise ValueError(f"batch {B} exceeds the kernel's {MAX_BATCH} rows")
-    out = torch.empty((B, F, cfg.feat_dim), dtype=torch.float32, device=prefix.device)
+    if out is None:
+        out = torch.empty((B, F, cfg.feat_dim), dtype=torch.float32, device=prefix.device)
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return out
     if consts is None:

@@ -493,6 +493,25 @@ def logmel_stages(
         if span > y.shape[-1]:
             y = torch.nn.functional.pad(y, (0, span - y.shape[-1]))
         frames = frame_signal(y, F, cfg)  # [B, F, L]
+    out = frame_stages(frames, cfg, k, dft_passes)
+    n_valid = num_valid_frames(lengths, cfg)
+    out["n_valid"] = n_valid
+    out["frame_mask"] = frame_mask(n_valid, F, dtype)
+    if dither_noise is not None:
+        out["dither_noise"] = dither_noise  # for replay through the oracle
+    return out
+
+
+def frame_stages(
+    frames: torch.Tensor,
+    cfg: FrontendConfig,
+    k: dict[str, torch.Tensor],
+    dft_passes: str = "radix4",
+) -> dict[str, torch.Tensor]:
+    """The frame-level stages of `logmel_stages` on frames [..., F, L] (cut
+    from the pre-emphasized, zeroed signal): the conditioning (DC removal,
+    raw-frame energy, frame pre-emphasis), window, power spectrum, energy,
+    mel and log; k holds the chain constants."""
     eps = cfg.log_eps
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
@@ -502,7 +521,7 @@ def logmel_stages(
         frames = preemphasis_frames(frames, cfg.preemph)
     windowed = frames * k["window"]
     if dft_passes == "bf16x3":
-        if dtype != torch.float32:
+        if frames.dtype != torch.float32:
             raise NotImplementedError(f"the bf16x3 route computes in float32, not {cfg.dtype}")
         pspec = bf16x3_power(frames, cfg)  # the window rides the matrix
     else:
@@ -513,20 +532,14 @@ def logmel_stages(
     elif cfg.energy_source == "windowed_frame":
         energy = torch.clamp((windowed * windowed).sum(dim=-1), min=eps)
     melspec = matmul_fp32(pspec, k["mel"])
-    n_valid = num_valid_frames(lengths, cfg)
-    out = {
+    return {
         "frames": frames,
         "windowed": windowed,
         "pspec": pspec,
         "energy": energy,
         "melspec": melspec,
         "logmel": apply_log(melspec, cfg),
-        "n_valid": n_valid,
-        "frame_mask": frame_mask(n_valid, F, dtype),
     }
-    if dither_noise is not None:
-        out["dither_noise"] = dither_noise  # for replay through the oracle
-    return out
 
 
 def logmel_norm(base: torch.Tensor, mask: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
@@ -539,6 +552,43 @@ def logmel_norm(base: torch.Tensor, mask: torch.Tensor, cfg: FrontendConfig) -> 
     valid = mask[..., None] > 0
     mx = torch.where(valid, base, -1e30).amax(dim=(-2, -1), keepdim=True)
     return (torch.maximum(base, mx - 8.0) + 4.0) / 4.0
+
+
+def base_from_prefix(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """The base features (before deltas and the mask) from the kernel's
+    [..., F, n_mels+1] prefix: the log-mel (its Whisper norm over the valid
+    frames of mask), the centroids, PLP cepstra (`plp_base`), the log
+    spectrogram with the log energy in lane 0, or for mfcc the augmented
+    DCT·lifter·c0 product on [log-mel | log energy]."""
+    M = cfg.n_mels
+    if cfg.features == "logmel":
+        return logmel_norm(x[..., :M], mask, cfg)
+    if cfg.features == "ssc":
+        return x[..., :M]
+    if cfg.features == "plp":
+        return plp_base(x[..., :M], x[..., M], cfg, consts)
+    if cfg.features == "spectrogram":
+        base = x[..., :M]
+        if cfg.append_energy:
+            e = x[..., M:]
+            log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
+            if cfg.energy_floor > 0.0:
+                log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+            base = torch.cat([log_e, base[..., 1:]], dim=-1)
+        return base
+    k = consts if consts is not None else device_constants(cfg, x.device, x.dtype)
+    if cfg.append_energy:
+        e = x[..., M:]
+        log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
+        if cfg.energy_floor > 0.0:
+            log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
+        x = torch.cat([x[..., :M], log_e], dim=-1)
+    return matmul_fp32(x, k["dct_aug"])
 
 
 def features_from_logmel(
@@ -561,32 +611,8 @@ def features_from_logmel(
         return stages["features_fused"]
     n_valid = stages["n_valid"]
     mask = stages["frame_mask"]
-    M = cfg.n_mels
     if "prefix" in stages:
-        x = stages["prefix"]
-        if cfg.features == "logmel":
-            base = logmel_norm(x[..., :M], mask, cfg)
-        elif cfg.features == "ssc":
-            base = x[..., :M]
-        elif cfg.features == "plp":
-            base = plp_base(x[..., :M], x[..., M], cfg, consts)
-        elif cfg.features == "spectrogram":
-            base = x[..., :M]
-            if cfg.append_energy:
-                e = x[..., M:]
-                log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
-                if cfg.energy_floor > 0.0:
-                    log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
-                base = torch.cat([log_e, base[..., 1:]], dim=-1)
-        else:
-            k = consts if consts is not None else device_constants(cfg, x.device, x.dtype)
-            if cfg.append_energy:
-                e = x[..., M:]
-                log_e = torch.log(torch.where(e <= 0, cfg.log_eps, e))
-                if cfg.energy_floor > 0.0:
-                    log_e = torch.clamp(log_e, min=math.log(cfg.energy_floor))
-                x = torch.cat([x[..., :M], log_e], dim=-1)
-            base = matmul_fp32(x, k["dct_aug"])
+        base = base_from_prefix(stages["prefix"], mask, cfg, consts)
     elif cfg.features == "logmel":
         base = logmel_norm(stages["logmel"], mask, cfg)
     elif cfg.features == "spectrogram":  # logmel is the log pspec (mel == identity)

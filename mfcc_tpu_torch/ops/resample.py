@@ -23,9 +23,14 @@ n_pre_pad leading zeros dropped, output j is
 
 since (j + n_pre_remove)*down - n_pre_pad = j*down + half_len exactly.
 
+`StreamingResampler` is the streaming twin (port of the reference's
+:424-515): host float64 numpy, one banded [J, W] matrix product a block of
+J outputs, sample-exact against scipy for any chunking; the streaming
+extractor (`pipeline/streaming.py`) feeds resampling configs through it.
+
 Not ported: the TPU's blocked host layouts (`BlockedLayout`,
 `resample_blocked`, `slab_design`), which exist for VMEM (the port takes
-flat rows), and `StreamingResampler` (the streaming slice).
+flat rows).
 """
 
 from __future__ import annotations
@@ -214,6 +219,91 @@ def resample_batch(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor
     from mfcc_tpu_torch.kernels import resample as K
 
     return K.polyphase_resample(audio, sr_in, sr_out)
+
+
+class StreamingResampler:
+    """Streaming twin of `resample_batch` / scipy `resample_poly`
+    (padtype='constant'): push arbitrary-sized chunks at sr_in, get back
+    resampled samples at sr_out, with
+
+        concat(push(c) for c in chunks) + flush() == resample_numpy(x)
+
+    for any chunking (the zero edges at stream start and end are scipy's
+    constant padding, so the parity is sample-exact in float64).
+
+    Fixed block structure: J output samples a block with J % up == 0, so
+    every block reads a window of the same width W at the same polyphase
+    alignment, and a block is one precomputed float64 [J, W] banded-matrix
+    product on the host (`_stream_design`; ~1 MFLOP a second of audio, so
+    push() launches nothing on a device). The algorithmic latency is the
+    filter's look-ahead, ~(half_len + n_pre_pad) / sr_in seconds (0.7 ms
+    at 48 kHz -> 16 kHz)."""
+
+    def __init__(self, sr_in: int, sr_out: int, block_out: int = 512, dtype=np.float32):
+        if sr_in == sr_out:
+            raise ValueError("sr_in == sr_out; nothing to resample")
+        self.up, self.down = ratio(sr_in, sr_out)
+        J = -(-int(block_out) // self.up) * self.up
+        self.M, self.origin, self.W, self.step = _stream_design(self.up, self.down, J)
+        self.J = J
+        self.dtype = dtype
+        self._buf = np.zeros(0, dtype=np.float64)
+        self._pos = 0  # absolute input index of _buf[0]
+        self._n_in = 0
+        self._emitted = 0
+        self._closed = False
+
+    def push(self, x: np.ndarray) -> np.ndarray:
+        """Feed input samples; returns every output sample whose whole
+        filter window is now available."""
+        if self._closed:
+            raise RuntimeError("resampler already flushed")
+        x = np.asarray(x, dtype=np.float64).reshape(-1)
+        self._buf = np.concatenate([self._buf, x])
+        self._n_in += x.shape[0]
+        out = []
+        while self.origin + (self._emitted // self.J) * self.step + self.W <= self._n_in:
+            out.append(self._run_block(self._emitted // self.J))
+        if not out:
+            return np.zeros(0, dtype=self.dtype)
+        return np.concatenate(out).astype(self.dtype)
+
+    def flush(self) -> np.ndarray:
+        """Emit the remaining ceil(n_in * up / down) - emitted samples (their
+        windows zero-filled past the end: scipy's constant padding); close."""
+        if self._closed:
+            raise RuntimeError("resampler already flushed")
+        self._closed = True
+        nu = self._n_in * self.up
+        n_out = nu // self.down + bool(nu % self.down)
+        out = []
+        before = self._emitted
+        while self._emitted < n_out:
+            out.append(self._run_block(self._emitted // self.J))
+        self._emitted = n_out  # the final block is cut to n_out
+        if not out:
+            return np.zeros(0, dtype=self.dtype)
+        return np.concatenate(out)[: n_out - before].astype(self.dtype)
+
+    @property
+    def samples_out(self) -> int:
+        return self._emitted
+
+    def _run_block(self, b: int) -> np.ndarray:
+        start = self.origin + b * self.step
+        w = np.zeros(self.W, dtype=np.float64)
+        lo = max(start, self._pos)
+        hi = min(start + self.W, self._pos + self._buf.shape[0])
+        if hi > lo:
+            w[lo - start : hi - start] = self._buf[lo - self._pos : hi - self._pos]
+        y = self.M @ w
+        self._emitted += self.J
+        keep_from = self.origin + (b + 1) * self.step
+        if keep_from > self._pos:
+            drop = min(keep_from - self._pos, self._buf.shape[0])
+            self._buf = self._buf[drop:]
+            self._pos += drop
+        return y
 
 
 def resample_numpy(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

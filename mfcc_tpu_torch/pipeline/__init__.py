@@ -1,5 +1,6 @@
-"""Host-side batching of the port (flat int16 or float rows) and the
-segment/stitch extraction of long utterances."""
+"""Host-side batching of the port (flat int16 or float rows), the
+segment/stitch extraction of long utterances, and on-line streaming and
+serving."""
 
 from mfcc_tpu_torch.pipeline.batch import (  # noqa: F401
     Batch,
@@ -14,4 +15,12 @@ from mfcc_tpu_torch.pipeline.longform import (  # noqa: F401
     extract_long,
     long_moments,
     segment_plan,
+)
+from mfcc_tpu_torch.pipeline.serving import (  # noqa: F401
+    BufferFullError,
+    MultiStreamExtractor,
+)
+from mfcc_tpu_torch.pipeline.streaming import (  # noqa: F401
+    StreamingExtractor,
+    stream_features,
 )

@@ -386,6 +386,18 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "m = mesh.data_mesh(device='cpu')\n"
         "f, k, mom = extract.sharded_extract_batch(b.audio, b.lengths, cfg, m, with_moments=True)\n"
         "assert tuple(mom[0].shape) == (39,)\n"
+        "from mfcc_tpu_torch.pipeline import MultiStreamExtractor, StreamingExtractor, stream_features\n"
+        "from mfcc_tpu_torch.pipeline import serving, streaming\n"
+        "from mfcc_tpu_torch.ops.resample import StreamingResampler\n"
+        "ex = StreamingExtractor(cfg, frames_per_block=16, device='cpu')\n"
+        "assert ex.push(x[:20000]).shape[1] == 39 and ex.flush().shape[1] == 39\n"
+        "pool = MultiStreamExtractor(cfg, 2, device='cpu')\n"
+        "sid = pool.open(); pool.push(sid, x[:5000]); pool.end(sid)\n"
+        "assert tuple(pool.poll()[sid].shape) == (30, 39)\n"
+        "assert StreamingResampler(48000, 16000).push(np.ones(4800)).shape[0] > 0\n"
+        "assert frontend.block_launches == 0 and tail.tail_launches == 0\n"
+        "cli = __import__('importlib').import_module('mfcc_tpu_torch.cli.main')\n"
+        "assert cli.build_parser().parse_args(['serve']).device == 'cuda'\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"

@@ -528,7 +528,7 @@ def _project(P, w, wf, off, kbin, eps, ssc):
 STAGE_CHUNK = 256 * 8  # csrc/frontend.cu kThreads * kStageBatch: pre-emphasis in place, chunk by chunk
 
 
-def _stage_tile(x_row, noise_row, n, f0, cfg, dtype):
+def _stage_tile(x_row, noise_row, n, f0, cfg, dtype, pre=0.0):
     """csrc/frontend.cu's staged signal row of the tile at frame f0 (span
     floats) for a row of n samples, x_row the converted samples and
     noise_row the contract noise. Centered framing: each position reads the
@@ -538,7 +538,8 @@ def _stage_tile(x_row, noise_row, n, f0, cfg, dtype):
     [0, n); the dither pass in place at 0 <= t < n; then for o = 1
     pre-emphasis and zeroing in place, STAGE_CHUNK entries at a time, each
     chunk read whole before it is written. Without dither: x[t] - c·x[t-1],
-    zeroed at t >= n."""
+    zeroed at t >= n, x[-1] = pre (the block launch's pre-context; 0
+    otherwise)."""
     S, L, T = cfg.frame_step, cfg.frame_length, x_row.shape[0]
     span = (TILE - 1) * S + L
     c_sig = dtype(0.0 if cfg.preemph_mode == "frame" else cfg.preemph)
@@ -565,11 +566,11 @@ def _stage_tile(x_row, noise_row, n, f0, cfg, dtype):
     t = f0 * S + np.arange(span)
     ok = t < n
     x = np.where(ok, x_row[np.minimum(t, T - 1)], 0)
-    xp = np.where(ok & (t > 0), x_row[np.clip(t - 1, 0, T - 1)], 0)
+    xp = np.where(t > 0, x_row[np.clip(t - 1, 0, T - 1)], pre)
     return np.where(ok, x - c_sig * xp, 0).astype(dtype)
 
 
-def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
+def _emulate_kernel(audio, lengths, cfg, dtype, form=None, origin=0, frames=None):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
     staged row (`_stage_tile`: x plus the contract noise at t < length when
     cfg dithers, signal pre-emphasis from x[t-1], zeroing at t >= length, in
@@ -586,7 +587,9 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     feature kind the balanced projection over the packed bands (`_project`)
     and the log kind (logmel) or nothing (plp), the log kind of each power
     bin (spectrogram), or the centroids of the per-bin clamped power (ssc,
-    lane M = 0), and the energy lane."""
+    lane M = 0), and the energy lane. origin=1 is the block launch: each
+    row's sample 0 is the pre-context x[-1], its signal starts at sample 1,
+    lengths count from there, and `frames` frames are cut."""
     ctype = np.complex64 if dtype == np.float32 else np.complex128
     k = tconstants.chain_constants(cfg)
     kind = frontend.feature_kind(cfg)
@@ -605,10 +608,12 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     if dtype == np.float32:
         tw = frontend.fft_twiddles(N, form).astype(dtype)
         w = (tw[:, 0] + 1j * tw[:, 1]).astype(ctype)
+    pre = audio[:, 0] if origin else np.zeros(audio.shape[0])
+    audio = audio[:, origin:]
     B, T = audio.shape
     S, L, M = cfg.frame_step, cfg.frame_length, cfg.n_mels
     Lk = min(L, N)
-    F = cfg.num_frames(T)
+    F = cfg.num_frames(T) if frames is None else frames
     span = (TILE - 1) * S + L
     pscale = dtype(1.0 / cfg.n_fft if cfg.power_scale_nfft else 1.0)
     eps = dtype(cfg.log_eps)
@@ -622,7 +627,8 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None):
     for b in range(B):
         n = min(int(lengths[b]), T)
         for f0 in range(0, F, TILE):
-            sig = _stage_tile(x_all[b], noise, n, f0, cfg, dtype)
+            sig = _stage_tile(x_all[b], noise, n, f0, cfg, dtype,
+                              dtype(pre[b]) * dtype(cfg.input_scale))
             nf = min(TILE, F - f0)
             f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
             # frames wholly past the row's length take no DFT (step 2z)
@@ -704,6 +710,32 @@ def test_kernel_algebra_exact_in_float64(overrides):
     got = _emulate_kernel(audio, lengths, cfg, np.float64)
     want = _reference(audio, lengths, cfg)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["classic13_deltas", "kaldi_mfcc"])
+@pytest.mark.parametrize("K", [16, 40])
+def test_block_launch_algebra_exact_in_float64(name, K):
+    """The block launch (row origin 1: sample 0 read only as x[-1], lengths
+    from sample 1, K frames) in the kernel's tiles ≡ its plain version
+    `frontend.logmel_block_reference` to ~1e-9 in float64, with a zero and
+    a dirty pre-context and valid at 0, 1, L - 1, L, L + 1 and span (K = 40
+    spans two 32-frame tiles)."""
+    cfg = T_CONFIGS[name].replace(dtype="float64")
+    S, L = cfg.frame_step, cfg.frame_length
+    span = (K - 1) * S + L
+    g = np.random.default_rng(K)
+    rows = np.round(g.standard_normal((12, span + 1)) * 3000)
+    rows[:6, 0] = 0.0
+    valid = np.array([0, 1, L - 1, L, L + 1, span] * 2)
+    got = _emulate_kernel(rows, valid, cfg, np.float64, origin=1, frames=K)
+    want = frontend.logmel_block_reference(torch.as_tensor(rows), torch.as_tensor(valid), cfg).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+    # the pre-context reaches frame 0's first sample only under signal pre-emphasis
+    other = rows.copy()
+    other[:, 0] += 1000.0
+    moved = _emulate_kernel(other, valid, cfg, np.float64, origin=1, frames=K)
+    assert np.array_equal(moved[:, 1:], got[:, 1:])
+    assert np.array_equal(moved[:, 0], got[:, 0]) == (cfg.preemph_mode == "frame")
 
 
 def test_kernel_algebra_float32_within_gates():

@@ -1033,3 +1033,110 @@ def test_pinned_rows_are_not_refilled_under_their_copy(tmp_path, monkeypatch):
     assert cli_mod.main([*common, "-o", str(tmp_path / "gpu")]) == 0
     assert cli_mod.main([*common, "-o", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
     assert len(_shards_close(tmp_path / "gpu", tmp_path / "cpu", NAMED_CONFIGS["classic13_deltas"])) >= 15
+
+
+@pytest.mark.parametrize("name", ["classic13_deltas", "logmel80", "kaldi_mfcc", "kaldi_plp",
+                                  "kaldi_spectrogram", "ssc26", "mfcc39_48k"])
+def test_block_launch_matches_reference(name):
+    """The front-end's block launch (streaming; rows whose sample 0 is the
+    pre-context, frames from sample 1) ≡ its plain version at the prefix
+    gates, with a zero and a dirty pre-context and valid at 0, 1, L - 1, L,
+    L + 1 and span; samples past valid leave it unchanged, bitwise; one
+    launch, counted. mfcc39_48k launches at its 16 kHz feature rate."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name]
+    K, S, L = 16, cfg.frame_step, cfg.frame_length
+    span = (K - 1) * S + L
+    edges = [0, 1, L - 1, L, L + 1, span]
+    g = np.random.default_rng(5)
+    rows = torch.as_tensor((g.standard_normal((12, span + 1)) * 3000).astype(np.float32), device=dev)
+    rows[:6, 0] = 0.0
+    valid = torch.tensor(edges * 2, dtype=torch.int32, device=dev)
+    before = frontend.block_launches
+    got = frontend.logmel_block(rows, valid, cfg)
+    torch.cuda.synchronize()
+    assert frontend.block_launches == before + 1 and got.shape == (12, K, cfg.n_mels + 1)
+    assert_prefix_close(got, frontend.logmel_block_reference(rows, valid, cfg), cfg.n_mels,
+                        cfg.log_kind, cfg.features)
+    t = torch.arange(span + 1, device=dev)[None, :]
+    assert torch.equal(got, frontend.logmel_block(torch.where(t <= valid[:, None], rows, 0), valid, cfg))
+
+
+@pytest.mark.parametrize("name, K", [("classic13_deltas", 16), ("classic13_deltas", 3),
+                                     ("classic13", 8), ("kaldi_mfcc", 16)])
+def test_pool_streams_are_bitwise_their_single_streams(name, K):
+    """Each stream of a MultiStreamExtractor on the card, its sessions opened
+    on turns 0..4 (staggered arrivals), is bitwise its own StreamingExtractor
+    run, and within 5e-4 of the offline extract_batch; for classic13_deltas
+    some round finalizes first and inner windows (two tail launches)."""
+    from mfcc_tpu_torch.pipeline import MultiStreamExtractor, StreamingExtractor
+
+    _card()
+    cfg = NAMED_CONFIGS[name]
+    g = np.random.default_rng(K)
+    xs = [(g.standard_normal(int(n)) * 3000).astype(np.float32) for n in (16373, 7001, 399, 31999, 0)]
+    pool = MultiStreamExtractor(cfg, 5, frames_per_block=K)
+    inner, fins = pool._engine.round, []
+
+    def round_(entries):
+        res = inner(entries)
+        fins.append(res.fin_launches)
+        return res
+
+    pool._engine.round = round_
+    sids, got, pos, turn = [None] * len(xs), {}, [0] * len(xs), 0
+    while turn < len(xs) or pool.n_active:
+        for i, x in enumerate(xs):
+            if i == turn:
+                sids[i] = pool.open()
+                got[sids[i]] = []
+            if i > turn or pool.done(sids[i]) or pos[i] > len(x):
+                continue
+            if pos[i] < len(x):
+                pool.push(sids[i], x[pos[i] : pos[i] + 2560])
+            if pos[i] + 2560 >= len(x):
+                pool.end(sids[i])
+            pos[i] += 2560
+        turn += 1
+        for s, f in pool.poll().items():
+            got[s].append(f)
+    if name == "classic13_deltas":
+        assert max(fins) == 2
+    assert max(fins) <= 2
+    for s, x in zip(sids, xs):
+        mine = np.concatenate(got[s])
+        ex = StreamingExtractor(cfg, frames_per_block=K)
+        want = np.concatenate([ex.push(x), ex.flush()])
+        assert np.array_equal(mine, want)
+        if len(x):
+            off = chain.extract_single(torch.as_tensor(x), cfg).cpu().numpy()
+            assert mine.shape == off.shape
+            np.testing.assert_allclose(mine, off, atol=testing.FEATURE_ATOL, rtol=testing.FEATURE_RTOL)
+
+
+def test_streaming_without_a_card_raises():
+    """With no card visible, StreamingExtractor() and MultiStreamExtractor()
+    (device "cuda" by default) raise instead of running on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    code = (
+        "from mfcc_tpu_torch import named_config\n"
+        "from mfcc_tpu_torch.pipeline import MultiStreamExtractor, StreamingExtractor\n"
+        "cfg = named_config('classic13_deltas')\n"
+        "for make in (lambda: StreamingExtractor(cfg), lambda: MultiStreamExtractor(cfg, 2)):\n"
+        "    try:\n"
+        "        make()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA device' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without a card')\n"
+        "print('raised')\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": repo}
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120, cwd=repo)
+    assert res.returncode == 0 and res.stdout.strip() == "raised", res.stderr
