@@ -149,7 +149,23 @@ Phases, in order; any failure exits non-zero:
      shard; (f) the corpus audio-s/s by wall clock, decode and writes
      included, the share of it in `sharded_extract_batch` (host wall, and
      device span by CUDA events), and the host-fed step from pinned rows
-     beside pageable ones, in turns.
+     beside pageable ones, in turns; (g) `extract --feed mp` (feed worker
+     processes decoding into shared-memory slabs, pinned once) on the same
+     corpus, counted: the launches of (a) and (a)'s shards, their npz
+     members bytewise; (h) a corpus of 2,048 PCM16 files of 1-10 s
+     (~11,000 audio-s, ~350 MB) written from --seed: after one warm-up run
+     of the worker pool, `--feed mp` and `--feed direct` timed in turns
+     (mp, direct, direct, mp), each run's audio-s/s by wall clock and the
+     share of the wall the CLI waits on the feed, the two feeds' shards
+     equal, no slab file of this process left in /dev/shm; then the feeds
+     alone on that corpus (no extraction, no writes; a warm-up, then two
+     turns a, b, ..., b, a): the header parse serially and through the
+     worker pool, `stream_batches_direct` and `stream_batches_mp` at the
+     CLI's defaults with a fresh pinned row pool a run, as the CLI makes
+     one on a card, each with its audio-s/s and µs a file; (i)
+     `io.ShardDataset` over the mp run's shards: every utterance equal to
+     `read_shard`'s, the frames counted from the markers, split(i, 4) a
+     partition, two shuffled epochs in different orders.
   23. streaming and serving (classic13_deltas, K = 16): (b) the front-end
      kernel's block launch (rows whose sample 0 is the pre-context) against
      its plain version at the prefix gates, with a zero and a dirty
@@ -178,6 +194,28 @@ Phases, in order; any failure exits non-zero:
      projected real-time streams (a block's 160 ms over it), and the
      single-stream push of a block at K = 16 and 128 by wall and by CUDA
      events; the phase's time and the whole script's.
+  24. the training path, `chain.extract_batch_diff` (the kernels forward,
+     the plain chain's VJP backward), classic13_deltas at b64 x 10 s float32
+     rows (lengths 160,000 - 571*i), loss (feat**2).sum(), with every count
+     set to 0 just before a training step and read just after (the
+     front-end and the tail once each, nothing else: the backward launches
+     no kernel of the port): the forward bitwise `extract_batch`'s, the
+     gradient finite and within 1e-3 (relative max diff) of the float64
+     plain chain's on the card, a row-0 loss giving exactly 0 gradient on
+     the other rows and past row 0's length; the forward and backward ms by
+     CUDA events, the backward's device kernels and busy time (profiler),
+     the peak device memory of a step, the step's audio-s/s (of the rows'
+     valid samples); then every named config and kaldi_mfcc with dither 1.0
+     at b4 x 1 s, counted (one front-end launch, the dither branch once
+     when dithering, no polyphase kernel): the forward bitwise, the
+     gradient within 1e-3 of the float64 plain chain's.
+  25. the tools: `cli convert` of phase 22's npz shards to HTK and to Kaldi,
+     byte-identical to `io/htk.py` / `io/kaldi.py` writing the same
+     features (through `ShardWriter`); `cli info --self-test` on the card
+     (classic13_deltas and logmel80 on the card and the CPU against the
+     float64 oracle at 2e-3) must PASS; `utils.trace.stage_times` on the
+     main path's batch gives four non-negative keys (CUDA events). `cli
+     plot` is not driven (the card's machine has no matplotlib).
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -227,8 +265,10 @@ import hashlib
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1492,12 +1532,11 @@ def cli_run(torch, cli, args: list[str], metrics) -> tuple[float, dict]:
     return wall, json.loads(metrics.read_text().splitlines()[-1])
 
 
-def corpus_path(torch, counters, tag: str, seed: int) -> None:
+def corpus_path(torch, counters, tag: str, seed: int, tmp) -> None:
     """Phase 22: the corpus path, `python -m mfcc_tpu_torch.cli extract` and
-    `apply-cmvn`, on a corpus the script writes (see the module docstring)."""
-    import pathlib
-    import tempfile
-
+    `apply-cmvn`, and the multi-process feed, on corpora the script writes
+    into tmp (see the module docstring); the npz shards of (a) stay in
+    tmp / "a" for phase 25."""
     from mfcc_tpu_torch import cli, named_config, parallel
     from mfcc_tpu_torch import io as io_mod
     from mfcc_tpu_torch import pipeline as pipeline_mod
@@ -1511,220 +1550,396 @@ def corpus_path(torch, counters, tag: str, seed: int) -> None:
 
     print(f"== 22. the corpus path: python -m mfcc_tpu_torch.cli extract / apply-cmvn (seed {seed})")
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = pathlib.Path(tmp)
-        files = write_corpus(wav, tmp / "c16", CORPUS_FILES, 16000, CORPUS_LONG_S, seed, True)
-        files48 = write_corpus(wav, tmp / "c48", CORPUS_48K_FILES, 48000, (CORPUS_48K_LONG_S,), seed + 1, False)
-        audio_s = sum(read_wav(p)[1].shape[0] for p in files) / 16000
-        print(f"  corpus: {len(files)} files at 16 kHz ({audio_s:.1f} audio-s; two of "
-              f"{CORPUS_LONG_S} s), a corrupt file, one at 8 kHz; {len(files48)} at 48 kHz (one of "
-              f"{CORPUS_48K_LONG_S} s); written in {time.perf_counter() - t_phase:.1f} s")
-        cfg = named_config("classic13_deltas")
-        # the batches of the run, from the feed's headers (no decode)
-        plan = list(stream_batches_direct(sorted(files), cfg, skip_ids=frozenset(files)))
-        seg_frames = int(10.0 * cfg.sample_rate) // cfg.frame_step
-        groups = [math.ceil(len(longform.segment_plan(s * 16000, cfg, seg_frames)[0]) / 8)
-                  for s in CORPUS_LONG_S]
+    files = write_corpus(wav, tmp / "c16", CORPUS_FILES, 16000, CORPUS_LONG_S, seed, True)
+    files48 = write_corpus(wav, tmp / "c48", CORPUS_48K_FILES, 48000, (CORPUS_48K_LONG_S,), seed + 1, False)
+    audio_s = sum(read_wav(p)[1].shape[0] for p in files) / 16000
+    print(f"  corpus: {len(files)} files at 16 kHz ({audio_s:.1f} audio-s; two of "
+          f"{CORPUS_LONG_S} s), a corrupt file, one at 8 kHz; {len(files48)} at 48 kHz (one of "
+          f"{CORPUS_48K_LONG_S} s); written in {time.perf_counter() - t_phase:.1f} s")
+    cfg = named_config("classic13_deltas")
+    # the batches of the run, from the feed's headers (no decode)
+    plan = list(stream_batches_direct(sorted(files), cfg, skip_ids=frozenset(files)))
+    seg_frames = int(10.0 * cfg.sample_rate) // cfg.frame_step
+    groups = [math.ceil(len(longform.segment_plan(s * 16000, cfg, seg_frames)[0]) / 8)
+              for s in CORPUS_LONG_S]
 
-        # (a) extract on the card, counted; where its wall time goes: the
-        # feed (decode into the rows, the consumer waiting on the next
-        # batch), sharded_extract_batch (host wall, and device span by
-        # events), the long files, the shard writes (writer threads)
-        spans, host = [], {"feed": 0.0, "long files": 0.0, "writes (thread time)": 0.0}
-        inner = parallel.sharded_extract_batch
-        inner_feed, inner_long = io_mod.stream_batches_direct, pipeline_mod.extract_long
-        inner_write = ShardWriter.write
+    # (a) extract on the card, counted; where its wall time goes: the
+    # feed (decode into the rows, the consumer waiting on the next
+    # batch), sharded_extract_batch (host wall, and device span by
+    # events), the long files, the shard writes (writer threads)
+    spans, host = [], {"feed": 0.0, "long files": 0.0, "writes (thread time)": 0.0}
+    inner = parallel.sharded_extract_batch
+    inner_feed, inner_long = io_mod.stream_batches_direct, pipeline_mod.extract_long
+    inner_write = ShardWriter.write
 
-        def timed(*a, **k):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    def timed(*a, **k):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(*a, **k)
+        end.record()
+        spans.append((start, end, time.perf_counter() - t0))
+        return out
+
+    def timed_feed(*a, **k):
+        it = inner_feed(*a, **k)
+        while True:
             t0 = time.perf_counter()
-            start.record()
-            out = inner(*a, **k)
-            end.record()
-            spans.append((start, end, time.perf_counter() - t0))
-            return out
+            b = next(it, None)
+            host["feed"] += time.perf_counter() - t0
+            if b is None:
+                return
+            yield b
 
-        def timed_feed(*a, **k):
-            it = inner_feed(*a, **k)
+    def timed_long(*a, **k):
+        t0 = time.perf_counter()
+        out = inner_long(*a, **k)
+        torch.cuda.synchronize()
+        host["long files"] += time.perf_counter() - t0
+        return out
+
+    def timed_write(self, *a, **k):
+        t0 = time.perf_counter()
+        out = inner_write(self, *a, **k)
+        host["writes (thread time)"] += time.perf_counter() - t0
+        return out
+
+    parallel.sharded_extract_batch, io_mod.stream_batches_direct = timed, timed_feed
+    pipeline_mod.extract_long, ShardWriter.write = timed_long, timed_write
+    try:
+        counters.zero()
+        wall, done = cli_run(torch, cli, [str(tmp / "c16"), "-o", str(tmp / "a"), "--config",
+                                          "classic13_deltas", "--feed", "direct"], tmp / "a.jsonl")
+        launches = counters.read()
+    finally:
+        parallel.sharded_extract_batch, io_mod.stream_batches_direct = inner, inner_feed
+        pipeline_mod.extract_long, ShardWriter.write = inner_long, inner_write
+    shards = sorted((tmp / "a").glob("h0-*.npz"))
+    n_long = sum("long" in p.name for p in shards)
+    print(f"  (a) {len(shards)} shards ({len(plan)} batches + {n_long} long files), "
+          f"{int(done['utterances'])} utterances, decode errors {int(done['decode_errors'])}, "
+          f"wrong rate {int(done['wrong_rate'])}, long split {int(done['long_split'])}; launches {launches}")
+    check(len(shards) == len(plan) + len(CORPUS_LONG_S) and n_long == len(CORPUS_LONG_S),
+          "one shard a batch and one a long file")
+    check((done["decode_errors"], done["wrong_rate"], done["long_split"]) == (1, 1, len(CORPUS_LONG_S)),
+          "the corrupt file and the 8 kHz file are counted, the long files split")
+    check(launches["frontend"] == len(plan) + sum(groups)
+          and launches["tail"] == len(plan) + len(CORPUS_LONG_S)
+          and not any(v for k, v in launches.items() if k not in ("frontend", "tail")),
+          f"front-end launches {launches['frontend']} == {len(plan)} batches + {sum(groups)} segment "
+          f"groups; tail launches {launches['tail']} == batches + long files; no other kernel")
+    got = {}
+    for p in shards:
+        got.update(read_shard(p))
+    check(sorted(got) == sorted(files), f"every one of the {len(files)} files in a shard, once")
+    worst, shapes = 0.0, []
+    for path, feat in got.items():
+        ref = chain.extract_single(read_wav(path)[1], cfg, device="cpu").numpy()
+        if feat.shape != ref.shape:
+            shapes.append(f"{path}: {feat.shape} != {ref.shape}")
+            continue
+        worst = max(worst, float(np.abs(feat - ref).max()))
+    check(not shapes, f"every utterance has the CPU chain's frames {shapes[:3]}")
+    print(f"  max |card - CPU chain extract_single| over every utterance: {worst:.3e}")
+    check(worst <= 5e-4, "every utterance within 5e-4 of the CPU chain")
+    busy = sum(s.elapsed_time(e) for s, e, _ in spans) / 1e3
+    print(f"  (f) corpus extract, decode and writes included: {audio_s:.1f} audio-s in {wall:.3f} s "
+          f"wall = {audio_s / wall:.0f} audio-s/s {tag}")
+    in_call = sum(h for _, _, h in spans)
+    print(f"      in sharded_extract_batch ({len(spans)} calls): {in_call:.3f} s of host wall "
+          f"({in_call / wall * 100:.1f}%), {busy:.4f} s of device span from its first copy to its "
+          f"last kernel ({busy / wall * 100:.1f}% of the wall) {tag}")
+    print("      " + ", ".join(f"{k} {v:.3f} s ({v / wall * 100:.1f}%)" for k, v in host.items())
+          + f" {tag}")
+
+    # (b) the two-pass global CMVN, on the card and on the CPU
+    moments = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"g_{dev}"
+        cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas_gcmvn",
+                             "--device", dev, "--cmvn-stats", str(tmp / f"m_{dev}.npz")], tmp / "g.jsonl")
+        moments[dev] = CmvnAccumulator.load(tmp / f"m_{dev}.npz")
+    g, c = moments["cuda"], moments["cpu"]
+    # a column's sums relative to its scale: sqrt(n Σx²) bounds Σ|x|
+    rel1 = float(np.max(np.abs(g.s1 - c.s1) / np.sqrt(c.n * c.s2)))
+    rel2 = float(np.max(np.abs(g.s2 - c.s2) / c.s2))
+    print(f"  (b) moments, card vs --device cpu: n {g.n:.0f} / {c.n:.0f}; max |ds1| / sqrt(n s2) "
+          f"{rel1:.3e}, max |ds2| / s2 {rel2:.3e}")
+    check(g.n == c.n and rel1 <= 1e-5 and rel2 <= 1e-5, "the moments within 1e-5 of the CPU run's")
+    rc = cli.main(["apply-cmvn", str(tmp / "g_cuda"), "--stats", str(tmp / "m_cuda.npz"),
+                   "--config", "classic13_deltas_gcmvn"])
+    check(rc == 0, "apply-cmvn: exit 0")
+    norm = np.concatenate([f for p in sorted((tmp / "g_cuda").glob("h0-*.npz"))
+                           for f in read_shard(p).values()])
+    mean_err = float(np.abs(norm.mean(axis=0)).max())
+    std_err = float(np.abs(norm.std(axis=0) - 1.0).max())
+    print(f"  normalized corpus ({norm.shape[0]} frames): max |mean| {mean_err:.3e}, "
+          f"max |std - 1| {std_err:.3e}")
+    check(mean_err <= CMVN_GATE and std_err <= CMVN_GATE,
+          f"the normalized corpus has mean 0 and std 1 within {CMVN_GATE} per dimension")
+
+    # (c) mfcc39_48k: batches through the fused form, the 90 s file
+    # through resample.cu and the segmented front-end
+    cfg48 = named_config("mfcc39_48k")
+    counters.zero()
+    cli_run(torch, cli, [str(tmp / "c48"), "-o", str(tmp / "r"), "--config", "mfcc39_48k",
+                         "--feed", "direct"], tmp / "r.jsonl")
+    launches = counters.read()
+    print(f"  (c) mfcc39_48k launches: {launches}")
+    check(launches["resample"] == 1, "the 90 s file resampled by resample.cu once")
+    long48 = files48[-1]
+    feat = read_shard(tmp / "r" / "h0-long-000000.npz")[long48]
+    ref = chain.extract_single(read_wav(long48)[1], cfg48, device="cpu").numpy()
+    err = float(np.abs(feat - ref).max())
+    print(f"  the {CORPUS_48K_LONG_S} s file vs the CPU chain's monolithic extraction: {err:.3e}")
+    check(feat.shape == ref.shape and np.allclose(feat, ref, atol=RESAMPLED_FEATURE_ATOL,
+                                                  rtol=RESAMPLED_FEATURE_RTOL),
+          f"within {RESAMPLED_FEATURE_ATOL} of it")
+    x44 = torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 44100 * 90)) * 3000,
+                          dtype=torch.float32, device="cuda")
+    n_out = R.output_length(x44.shape[1], 44100, 16000)
+    k44_ms = cuda_ms(torch, lambda: R.resample_batch(x44, 44100, 16000), reps=10)
+    p44_ms = cuda_ms(torch, lambda: R.resample_reference(x44, 44100, 16000), reps=3)
+    d = R.polyphase_design(*R.ratio(44100, 16000))
+    b44_ms, b44_by = bound(x44.numel() * 4 + n_out * 4 + d["up"] * d["K"] * 4,
+                           resample_ops(R, *R.ratio(44100, 16000), [n_out]))
+    print(f"  resample.cu, one {x44.shape[1]}-sample row (90 s) 44.1 -> 16 kHz: {k44_ms:.4f} ms "
+          f"({b44_ms / k44_ms * 100:.1f}% of its {b44_ms:.4f} ms bound, {b44_by}); plain version "
+          f"{p44_ms:.4f} ms; library: none {tag}")
+    del x44
+
+    # (d) HTK and Kaldi output equal to the npz run
+    ref_feats = got
+    perm = energy_last_permutation(cfg)
+    for fmt in ("htk", "kaldi"):
+        out = tmp / fmt
+        cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas",
+                             "--format", fmt], tmp / f"{fmt}.jsonl")
+        back = {}
+        for marker in sorted((out / "done").glob("h0-*.json")):
+            meta = json.loads(marker.read_text())
+            if fmt == "kaldi":
+                back.update(read_ark(out / meta["files"][0]))
+            else:
+                for name in meta["files"]:
+                    back[name] = read_htk(out / name)[0]
+        if fmt == "htk":
+            names = {f"{pathlib.Path(p).stem}-{hashlib.sha256(p.encode()).hexdigest()[:8]}.htk": p
+                     for p in files}
+            back = {names[k]: v for k, v in back.items()}
+            inv = np.argsort(perm)
+            back = {k: v[:, inv] for k, v in back.items()}
+        same = sorted(back) == sorted(ref_feats) and all(
+            np.array_equal(back[k], ref_feats[k]) for k in ref_feats)
+        check(same, f"--format {fmt}: {len(back)} utterances read back equal to the npz run")
+
+    # (e) no card visible: the CLI exits non-zero and writes no shard
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    res = subprocess.run([sys.executable, "-m", "mfcc_tpu_torch.cli", "extract", str(tmp / "c16"),
+                          "-o", str(tmp / "e"), "--device", "cuda"], env=env, capture_output=True,
+                         text=True, timeout=120)
+    wrote = list((tmp / "e").rglob("*.npz")) if (tmp / "e").exists() else []
+    check(res.returncode != 0 and not wrote,
+          f"with CUDA_VISIBLE_DEVICES='' --device cuda exits {res.returncode} and writes no shard")
+
+    # (f) the host-fed step: pinned rows against pageable ones
+    b = pad_batch([read_wav(p)[1] for p in files[:B]], cfg, bucket_len=160000, dtype="int16")
+    pinned = torch.from_numpy(b.audio).pin_memory()
+    lens_d = torch.as_tensor(b.lengths, device="cuda")
+
+    def pinned_step():
+        chain.extract_batch(pinned.to("cuda", non_blocking=True), lens_d, cfg)
+
+    pageable = lambda: chain.extract_batch(b.audio, b.lengths, cfg)  # noqa: E731
+    times = {"pinned": [], "pageable": []}
+    for _ in range(3):
+        for name, fn in (("pageable", pageable), ("pinned", pinned_step), ("pinned", pinned_step),
+                         ("pageable", pageable)):
+            times[name].append(host_ms(torch, fn, reps=3))
+    pin_ms, page_ms = (float(np.median(times[k])) for k in ("pinned", "pageable"))
+    rows_s = float(b.lengths.sum()) / 16000
+    print(f"  (f) host-fed extract_batch step, b{B} int16 rows [{B}, {b.audio.shape[1]}] ({rows_s:.1f} "
+          f"audio-s), host clock, in turns: pinned rows {pin_ms:.3f} ms, pageable rows {page_ms:.3f} ms "
+          f"{tag}")
+
+    # (g) the multi-process feed on the same corpus, counted: the launches
+    # of (a) and the shards of its direct feed
+    counters.zero()
+    cli_run(torch, cli, [str(tmp / "c16"), "-o", str(tmp / "mp"), "--config", "classic13_deltas",
+                         "--feed", "mp"], tmp / "mp.jsonl")
+    launches = counters.read()
+    print(f"  (g) --feed mp launches: {launches}")
+    check(launches["frontend"] == len(plan) + sum(groups)
+          and launches["tail"] == len(plan) + len(CORPUS_LONG_S)
+          and not any(v for k, v in launches.items() if k not in ("frontend", "tail")),
+          "--feed mp launches the front-end and the tail as the direct feed does, and nothing else")
+    n = same_shards(tmp / "a", tmp / "mp")
+    check(n == len(shards), f"--feed mp writes (a)'s {n} shards (npz members bytewise)")
+    mp_feed_turns(torch, cli, io_mod, tmp, seed, tag)
+    print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
+BIG_FILES = 2048  # 16 kHz PCM16 files of 1-10 s: ~11,000 audio-s (~3 h), ~350 MB
+FEED_TURNS = ("mp", "mp", "direct", "direct", "mp")  # the first warms the worker pool
+
+
+def same_shards(a_dir, b_dir) -> int:
+    """The number of npz shards of a_dir, checked equal in name and in their
+    members' bytes to b_dir's (a zip's timestamps aside)."""
+    import zipfile
+
+    names = sorted(p.name for p in a_dir.glob("h0-*.npz"))
+    check(names == sorted(p.name for p in b_dir.glob("h0-*.npz")), f"{b_dir.name}: the shards of {a_dir.name}")
+    for name in names:
+        with zipfile.ZipFile(a_dir / name) as za, zipfile.ZipFile(b_dir / name) as zb:
+            if {m: za.read(m) for m in za.namelist()} != {m: zb.read(m) for m in zb.namelist()}:
+                return -1
+    return len(names)
+
+
+def feeds_alone(torch, files: list[str], audio_s: float, tag: str) -> None:
+    """Phase 22 (h), the feeds without the CLI: the header parse serially
+    (the direct feed's) and through the worker pool (the mp feed's), and
+    both feeds at the CLI's defaults with a fresh pinned row pool a run,
+    each batch released as it comes. A warm-up of each, then two turns in
+    the order a, b, ..., b, a; host clock."""
+    from mfcc_tpu_torch import named_config
+    from mfcc_tpu_torch.io import DecodeStats, SlabPool, reader
+    from mfcc_tpu_torch.pipeline import RowPool
+
+    cfg = named_config("classic13_deltas")
+    kw = dict(batch_size=64, max_len_s=10.0, num_threads=FEED_THREADS, dtype="i16")
+
+    def headers_serial():
+        st = DecodeStats()
+        for p in files:
+            reader._parse_header_counted(p, 16000, st)
+
+    def headers_pool():
+        pool, private = reader.POOL_CACHE.acquire(FEED_THREADS)
+        try:
+            for _ in reader._mp_header_stream(files, pool, 16000, DecodeStats()):
+                pass
+        finally:
+            reader.POOL_CACHE.release(pool, private)
+
+    def feed(fn, **rows):
+        def run():
+            for b in fn(files, cfg, **kw, **{k: make() for k, make in rows.items()}):
+                b.release()
+        return run
+
+    variants = {
+        "headers, serial": headers_serial,
+        "headers, pool": headers_pool,
+        "direct, pinned": feed(reader.stream_batches_direct, pool=lambda: RowPool(pin=True)),
+        "mp, pinned": feed(reader.stream_batches_mp, slabs=lambda: SlabPool(pin=True)),
+    }
+    walls = {name: [] for name in variants}
+    for name, run in variants.items():  # warm-up
+        run()
+    for name in [*variants, *reversed(variants)]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        variants[name]()
+        torch.cuda.synchronize()
+        walls[name].append(time.perf_counter() - t0)
+    print(f"      the feeds alone ({FEED_THREADS} threads / workers; no extraction, no writes; mean of two turns):")
+    for name, ws in walls.items():
+        wall = float(np.mean(ws))
+        print(f"        {name:16s} {audio_s / wall:.0f} audio-s/s, {wall / len(files) * 1e6:.1f} us a file "
+              f"(turns {', '.join(f'{w:.4f}' for w in ws)} s) {tag}")
+
+
+FEED_THREADS = 4  # the CLI's --threads default
+
+
+def mp_feed_turns(torch, cli, io_mod, tmp, seed: int, tag: str) -> None:
+    """Phase 22 (h) and (i): the two feeds timed in turns on a corpus of
+    BIG_FILES files, and `ShardDataset` over the shards (see the module
+    docstring)."""
+    import glob
+    import shutil
+
+    from mfcc_tpu_torch.io import ShardDataset, read_shard, wav
+    from mfcc_tpu_torch.io.reader import _shm_dir
+
+    t0 = time.perf_counter()
+    files = write_corpus(wav, tmp / "big", BIG_FILES, 16000, (), seed + 2, False)
+    audio_s = sum(wav.parse_file_header(p)[1] for p in files) / 16000
+    size = sum(os.path.getsize(p) for p in files)
+    print(f"  (h) {len(files)} PCM16 files of 1-10 s at 16 kHz: {audio_s:.1f} audio-s, {size / 1e6:.1f} MB, "
+          f"written in {time.perf_counter() - t0:.1f} s")
+    names = {"mp": "stream_batches_mp", "direct": "stream_batches_direct"}
+    inner = {feed: getattr(io_mod, name) for feed, name in names.items()}
+    waits = dict.fromkeys(names, 0.0)
+
+    def waited(feed):
+        """The feed, with the time the CLI waits on its next batch summed."""
+        def stream(*a, **k):
+            it = inner[feed](*a, **k)
             while True:
-                t0 = time.perf_counter()
+                t = time.perf_counter()
                 b = next(it, None)
-                host["feed"] += time.perf_counter() - t0
+                waits[feed] += time.perf_counter() - t
                 if b is None:
                     return
                 yield b
+        return stream
 
-        def timed_long(*a, **k):
-            t0 = time.perf_counter()
-            out = inner_long(*a, **k)
-            torch.cuda.synchronize()
-            host["long files"] += time.perf_counter() - t0
-            return out
+    runs = {feed: [] for feed in names}
+    kept = {}
+    for feed, name in names.items():
+        setattr(io_mod, name, waited(feed))
+    try:
+        for i, feed in enumerate(FEED_TURNS):
+            out = tmp / f"big_{i}_{feed}"
+            waits[feed] = 0.0
+            wall, done = cli_run(torch, cli, [str(tmp / "big"), "-o", str(out), "--config", "classic13_deltas",
+                                              "--feed", feed], tmp / "big.jsonl")
+            check(int(done["utterances"]) == len(files), f"run {i} ({feed}): every file in a shard")
+            if i == 0:
+                print(f"      warm-up ({feed}, the worker pool started): {wall:.3f} s")
+            else:
+                runs[feed].append((wall, waits[feed]))
+                print(f"      turn {i} --feed {feed}: {audio_s / wall:.0f} audio-s/s ({wall:.3f} s), the feed "
+                      f"{waits[feed] / wall * 100:.1f}% of the wall {tag}")
+            if feed in kept:
+                shutil.rmtree(kept[feed])
+            kept[feed] = out
+    finally:
+        for feed, name in names.items():
+            setattr(io_mod, name, inner[feed])
+    for feed, rs in runs.items():
+        wall = float(np.mean([w for w, _ in rs]))
+        share = float(np.mean([f / w for w, f in rs]))
+        print(f"      --feed {feed}: {audio_s / wall:.0f} audio-s/s (mean of {len(rs)} turns), the feed "
+              f"{share * 100:.1f}% of the wall {tag}")
+    n = same_shards(kept["direct"], kept["mp"])
+    check(n >= len(files) // 64, f"the two feeds' {n} shards equal (npz members bytewise)")
+    feeds_alone(torch, files, audio_s, tag)
+    left = glob.glob(os.path.join(_shm_dir(), f"mfcc_tpu_torch_slab_{os.getpid()}_*"))
+    check(not left, f"no slab file of this process's pools left in {_shm_dir()} {left[:3]}")
 
-        def timed_write(self, *a, **k):
-            t0 = time.perf_counter()
-            out = inner_write(self, *a, **k)
-            host["writes (thread time)"] += time.perf_counter() - t0
-            return out
-
-        parallel.sharded_extract_batch, io_mod.stream_batches_direct = timed, timed_feed
-        pipeline_mod.extract_long, ShardWriter.write = timed_long, timed_write
-        try:
-            counters.zero()
-            wall, done = cli_run(torch, cli, [str(tmp / "c16"), "-o", str(tmp / "a"), "--config",
-                                              "classic13_deltas", "--feed", "direct"], tmp / "a.jsonl")
-            launches = counters.read()
-        finally:
-            parallel.sharded_extract_batch, io_mod.stream_batches_direct = inner, inner_feed
-            pipeline_mod.extract_long, ShardWriter.write = inner_long, inner_write
-        shards = sorted((tmp / "a").glob("h0-*.npz"))
-        n_long = sum("long" in p.name for p in shards)
-        print(f"  (a) {len(shards)} shards ({len(plan)} batches + {n_long} long files), "
-              f"{int(done['utterances'])} utterances, decode errors {int(done['decode_errors'])}, "
-              f"wrong rate {int(done['wrong_rate'])}, long split {int(done['long_split'])}; launches {launches}")
-        check(len(shards) == len(plan) + len(CORPUS_LONG_S) and n_long == len(CORPUS_LONG_S),
-              "one shard a batch and one a long file")
-        check((done["decode_errors"], done["wrong_rate"], done["long_split"]) == (1, 1, len(CORPUS_LONG_S)),
-              "the corrupt file and the 8 kHz file are counted, the long files split")
-        check(launches["frontend"] == len(plan) + sum(groups)
-              and launches["tail"] == len(plan) + len(CORPUS_LONG_S)
-              and not any(v for k, v in launches.items() if k not in ("frontend", "tail")),
-              f"front-end launches {launches['frontend']} == {len(plan)} batches + {sum(groups)} segment "
-              f"groups; tail launches {launches['tail']} == batches + long files; no other kernel")
-        got = {}
-        for p in shards:
-            got.update(read_shard(p))
-        check(sorted(got) == sorted(files), f"every one of the {len(files)} files in a shard, once")
-        worst, shapes = 0.0, []
-        for path, feat in got.items():
-            ref = chain.extract_single(read_wav(path)[1], cfg, device="cpu").numpy()
-            if feat.shape != ref.shape:
-                shapes.append(f"{path}: {feat.shape} != {ref.shape}")
-                continue
-            worst = max(worst, float(np.abs(feat - ref).max()))
-        check(not shapes, f"every utterance has the CPU chain's frames {shapes[:3]}")
-        print(f"  max |card - CPU chain extract_single| over every utterance: {worst:.3e}")
-        check(worst <= 5e-4, "every utterance within 5e-4 of the CPU chain")
-        busy = sum(s.elapsed_time(e) for s, e, _ in spans) / 1e3
-        print(f"  (f) corpus extract, decode and writes included: {audio_s:.1f} audio-s in {wall:.3f} s "
-              f"wall = {audio_s / wall:.0f} audio-s/s {tag}")
-        in_call = sum(h for _, _, h in spans)
-        print(f"      in sharded_extract_batch ({len(spans)} calls): {in_call:.3f} s of host wall "
-              f"({in_call / wall * 100:.1f}%), {busy:.4f} s of device span from its first copy to its "
-              f"last kernel ({busy / wall * 100:.1f}% of the wall) {tag}")
-        print("      " + ", ".join(f"{k} {v:.3f} s ({v / wall * 100:.1f}%)" for k, v in host.items())
-              + f" {tag}")
-
-        # (b) the two-pass global CMVN, on the card and on the CPU
-        moments = {}
-        for dev in ("cuda", "cpu"):
-            out = tmp / f"g_{dev}"
-            cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas_gcmvn",
-                                 "--device", dev, "--cmvn-stats", str(tmp / f"m_{dev}.npz")], tmp / "g.jsonl")
-            moments[dev] = CmvnAccumulator.load(tmp / f"m_{dev}.npz")
-        g, c = moments["cuda"], moments["cpu"]
-        # a column's sums relative to its scale: sqrt(n Σx²) bounds Σ|x|
-        rel1 = float(np.max(np.abs(g.s1 - c.s1) / np.sqrt(c.n * c.s2)))
-        rel2 = float(np.max(np.abs(g.s2 - c.s2) / c.s2))
-        print(f"  (b) moments, card vs --device cpu: n {g.n:.0f} / {c.n:.0f}; max |ds1| / sqrt(n s2) "
-              f"{rel1:.3e}, max |ds2| / s2 {rel2:.3e}")
-        check(g.n == c.n and rel1 <= 1e-5 and rel2 <= 1e-5, "the moments within 1e-5 of the CPU run's")
-        rc = cli.main(["apply-cmvn", str(tmp / "g_cuda"), "--stats", str(tmp / "m_cuda.npz"),
-                       "--config", "classic13_deltas_gcmvn"])
-        check(rc == 0, "apply-cmvn: exit 0")
-        norm = np.concatenate([f for p in sorted((tmp / "g_cuda").glob("h0-*.npz"))
-                               for f in read_shard(p).values()])
-        mean_err = float(np.abs(norm.mean(axis=0)).max())
-        std_err = float(np.abs(norm.std(axis=0) - 1.0).max())
-        print(f"  normalized corpus ({norm.shape[0]} frames): max |mean| {mean_err:.3e}, "
-              f"max |std - 1| {std_err:.3e}")
-        check(mean_err <= CMVN_GATE and std_err <= CMVN_GATE,
-              f"the normalized corpus has mean 0 and std 1 within {CMVN_GATE} per dimension")
-
-        # (c) mfcc39_48k: batches through the fused form, the 90 s file
-        # through resample.cu and the segmented front-end
-        cfg48 = named_config("mfcc39_48k")
-        counters.zero()
-        cli_run(torch, cli, [str(tmp / "c48"), "-o", str(tmp / "r"), "--config", "mfcc39_48k",
-                             "--feed", "direct"], tmp / "r.jsonl")
-        launches = counters.read()
-        print(f"  (c) mfcc39_48k launches: {launches}")
-        check(launches["resample"] == 1, "the 90 s file resampled by resample.cu once")
-        long48 = files48[-1]
-        feat = read_shard(tmp / "r" / "h0-long-000000.npz")[long48]
-        ref = chain.extract_single(read_wav(long48)[1], cfg48, device="cpu").numpy()
-        err = float(np.abs(feat - ref).max())
-        print(f"  the {CORPUS_48K_LONG_S} s file vs the CPU chain's monolithic extraction: {err:.3e}")
-        check(feat.shape == ref.shape and np.allclose(feat, ref, atol=RESAMPLED_FEATURE_ATOL,
-                                                      rtol=RESAMPLED_FEATURE_RTOL),
-              f"within {RESAMPLED_FEATURE_ATOL} of it")
-        x44 = torch.as_tensor(np.random.default_rng(seed).standard_normal((1, 44100 * 90)) * 3000,
-                              dtype=torch.float32, device="cuda")
-        n_out = R.output_length(x44.shape[1], 44100, 16000)
-        k44_ms = cuda_ms(torch, lambda: R.resample_batch(x44, 44100, 16000), reps=10)
-        p44_ms = cuda_ms(torch, lambda: R.resample_reference(x44, 44100, 16000), reps=3)
-        d = R.polyphase_design(*R.ratio(44100, 16000))
-        b44_ms, b44_by = bound(x44.numel() * 4 + n_out * 4 + d["up"] * d["K"] * 4,
-                               resample_ops(R, *R.ratio(44100, 16000), [n_out]))
-        print(f"  resample.cu, one {x44.shape[1]}-sample row (90 s) 44.1 -> 16 kHz: {k44_ms:.4f} ms "
-              f"({b44_ms / k44_ms * 100:.1f}% of its {b44_ms:.4f} ms bound, {b44_by}); plain version "
-              f"{p44_ms:.4f} ms; library: none {tag}")
-        del x44
-
-        # (d) HTK and Kaldi output equal to the npz run
-        ref_feats = got
-        perm = energy_last_permutation(cfg)
-        for fmt in ("htk", "kaldi"):
-            out = tmp / fmt
-            cli_run(torch, cli, [str(tmp / "c16"), "-o", str(out), "--config", "classic13_deltas",
-                                 "--format", fmt], tmp / f"{fmt}.jsonl")
-            back = {}
-            for marker in sorted((out / "done").glob("h0-*.json")):
-                meta = json.loads(marker.read_text())
-                if fmt == "kaldi":
-                    back.update(read_ark(out / meta["files"][0]))
-                else:
-                    for name in meta["files"]:
-                        back[name] = read_htk(out / name)[0]
-            if fmt == "htk":
-                names = {f"{pathlib.Path(p).stem}-{hashlib.sha256(p.encode()).hexdigest()[:8]}.htk": p
-                         for p in files}
-                back = {names[k]: v for k, v in back.items()}
-                inv = np.argsort(perm)
-                back = {k: v[:, inv] for k, v in back.items()}
-            same = sorted(back) == sorted(ref_feats) and all(
-                np.array_equal(back[k], ref_feats[k]) for k in ref_feats)
-            check(same, f"--format {fmt}: {len(back)} utterances read back equal to the npz run")
-
-        # (e) no card visible: the CLI exits non-zero and writes no shard
-        env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-        res = subprocess.run([sys.executable, "-m", "mfcc_tpu_torch.cli", "extract", str(tmp / "c16"),
-                              "-o", str(tmp / "e"), "--device", "cuda"], env=env, capture_output=True,
-                             text=True, timeout=120)
-        wrote = list((tmp / "e").rglob("*.npz")) if (tmp / "e").exists() else []
-        check(res.returncode != 0 and not wrote,
-              f"with CUDA_VISIBLE_DEVICES='' --device cuda exits {res.returncode} and writes no shard")
-
-        # (f) the host-fed step: pinned rows against pageable ones
-        b = pad_batch([read_wav(p)[1] for p in files[:B]], cfg, bucket_len=160000, dtype="int16")
-        pinned = torch.from_numpy(b.audio).pin_memory()
-        lens_d = torch.as_tensor(b.lengths, device="cuda")
-
-        def pinned_step():
-            chain.extract_batch(pinned.to("cuda", non_blocking=True), lens_d, cfg)
-
-        pageable = lambda: chain.extract_batch(b.audio, b.lengths, cfg)  # noqa: E731
-        times = {"pinned": [], "pageable": []}
-        for _ in range(3):
-            for name, fn in (("pageable", pageable), ("pinned", pinned_step), ("pinned", pinned_step),
-                             ("pageable", pageable)):
-                times[name].append(host_ms(torch, fn, reps=3))
-        pin_ms, page_ms = (float(np.median(times[k])) for k in ("pinned", "pageable"))
-        rows_s = float(b.lengths.sum()) / 16000
-        print(f"  (f) host-fed extract_batch step, b{B} int16 rows [{B}, {b.audio.shape[1]}] ({rows_s:.1f} "
-              f"audio-s), host clock, in turns: pinned rows {pin_ms:.3f} ms, pageable rows {page_ms:.3f} ms "
-              f"{tag}")
-    print(f"  phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    # (i) ShardDataset over the mp feed's shards
+    t0 = time.perf_counter()
+    want = {}
+    for p in sorted(kept["mp"].glob("h0-*.npz")):
+        want.update(read_shard(p))
+    ds = ShardDataset(kept["mp"])
+    got = list(ds)
+    check(len(ds) == len(got) == len(want) == len(files) and {k for k, _ in got} == set(want)
+          and all(np.array_equal(f, want[k]) for k, f in got),
+          f"(i) ShardDataset: {len(got)} utterances, each equal to read_shard's")
+    check(ds.num_frames == sum(f.shape[0] for f in want.values()), f"{ds.num_frames} frames from the markers")
+    parts = [ds.split(i, 4) for i in range(4)]
+    keys = [k for part in parts for k, _ in part]
+    check(sorted(keys) == sorted(want) and sum(len(part) for part in parts) == len(ds),
+          "split(i, 4) partitions the set")
+    shuffled = ShardDataset(kept["mp"], shuffle=True, seed=seed)
+    e1, e2 = [k for k, _ in shuffled], [k for k, _ in shuffled]
+    check(e1 != e2 and sorted(e1) == sorted(e2) == sorted(want), "two epochs give different orders of the set")
+    print(f"      read {len(got)} utterances ({ds.num_frames} frames) three times in {time.perf_counter() - t0:.2f} s")
 
 
 SERVE_STREAMS = 256  # docs/SERVE.md's default block on a 256-session box (SERVING_r04.json's rows)
@@ -2174,6 +2389,164 @@ def serving_path(torch, counters, tag: str, results: dict) -> None:
                                    serve_rounds_with_two=n_rounds["two_tail_rounds"])
     print(f"  phase 23 took {time.perf_counter() - t_phase:.1f} s")
 
+
+TRAIN_GATE = 1e-3  # the gradient's relative max diff from the float64 plain chain's (tests/test_grad.py:104)
+TRAIN_SMALL_B, TRAIN_SMALL_S = 4, 1  # the named configs' depth on the training path
+
+
+def grad_rel(torch, chain, cfg, audio, lengths, grad) -> float:
+    """max |grad - the float64 plain chain's gradient| / its max |.|, of
+    (feat**2).sum() at audio (float32 rows on the card)."""
+    a64 = audio.double().requires_grad_(True)
+    f64, _ = chain.plain_chain(a64, lengths, cfg.replace(dtype="float64"))
+    (f64**2).sum().backward()
+    return float((grad.double() - a64.grad).abs().max() / a64.grad.abs().max())
+
+
+def training_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 24: the training path, `chain.extract_batch_diff` (see the
+    module docstring)."""
+    from mfcc_tpu_torch import named_config
+    from mfcc_tpu_torch.config import NAMED_CONFIGS
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    cfg = named_config("classic13_deltas")
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=0)
+    audio = torch.as_tensor(batch.audio, dtype=torch.float32, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    print(f"== 24. the training path: chain.extract_batch_diff, classic13_deltas b{B} x {SECONDS} s float32 "
+          f"[{B}, {audio.shape[1]}], loss (feat**2).sum()")
+    a = audio.clone().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters.zero()
+    feat, mask = chain.extract_batch_diff(a, lengths, cfg)
+    (feat**2).sum().backward()
+    torch.cuda.synchronize()
+    launches = counters.expect("a training step (forward and backward)", frontend=1, tail=1)
+    peak = torch.cuda.max_memory_allocated()
+    want, want_mask = chain.extract_batch(audio, lengths, cfg)
+    check(torch.equal(feat.detach(), want) and torch.equal(mask, want_mask) and not mask.requires_grad,
+          "the forward is extract_batch's, bitwise; the mask has no gradient")
+    check(bool(torch.isfinite(a.grad).all()) and bool(a.grad.any()), "the gradient is finite and not 0")
+    rel = grad_rel(torch, chain, cfg, audio, lengths, a.grad)
+    print(f"  gradient vs the float64 plain chain's on the card: relative max diff {rel:.3e}")
+    check(rel < TRAIN_GATE, f"within {TRAIN_GATE}")
+    a.grad = None
+    feat, _ = chain.extract_batch_diff(a, lengths, cfg)
+    (feat[0] ** 2).sum().backward()
+    n0 = int(batch.lengths[0])
+    check(not a.grad[1:].any() and not a.grad[0, n0:].any() and bool(a.grad[0, :n0].any()),
+          "a row-0 loss: exactly 0 gradient on rows 1-63 and past row 0's length")
+
+    steps = []
+    for _ in range(12):
+        a.grad = None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = (chain.extract_batch_diff(a, lengths, cfg)[0] ** 2).sum()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        torch.cuda.synchronize()
+        steps.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    fwd_ms, bwd_ms = (float(np.median([s[i] for s in steps[2:]])) for i in (0, 1))
+    # the backward alone under the profiler: graphs made first, one a call
+    losses = [(chain.extract_batch_diff(a, lengths, cfg)[0] ** 2).sum() for _ in range(7)]
+    on_device, _ = trace(torch, lambda: losses.pop().backward(), None, steps=5)
+    bwd_ops = len(on_device) / 5
+    bwd_busy = sum(e.self_device_time_total for e in on_device) / 1e3 / 5
+    audio_s = float(batch.lengths.sum()) / cfg.sample_rate  # the rows' valid samples, not their padding
+    print(f"  forward {fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms by CUDA events (median of 10 steps); a training "
+          f"step {fwd_ms + bwd_ms:.4f} ms = {audio_s / ((fwd_ms + bwd_ms) / 1e3):.0f} audio-s/s "
+          f"({audio_s:.2f} audio-s a step) {tag}")
+    print(f"  the backward (the plain chain's VJP): {bwd_ops:.0f} device kernels and copies, device busy "
+          f"{bwd_busy:.4f} ms ({bwd_busy / bwd_ms * 100:.1f}% of its {bwd_ms:.4f} ms) {tag}")
+    print(f"  peak device memory of a training step: {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    results["frontend"]["train_launches"] = launches["frontend"]
+    results["feature_tail"]["train_launches"] = launches["tail"]
+    del a, audio, feat, losses
+
+    # every named config at b4 x 1 s, and kaldi_mfcc with dither (the contract
+    # noise in the kernel's forward and in the plain chain's backward)
+    g = np.random.default_rng(24)
+    dithered = named_config("kaldi_mfcc").replace(dither=1.0)
+    for name, cfg in [*NAMED_CONFIGS.items(), ("kaldi_mfcc dither 1.0", dithered)]:
+        sr = cfg.input_sample_rate or cfg.sample_rate
+        xs = [g.standard_normal(TRAIN_SMALL_S * sr - 571 * i * sr // 16000) * 3000 for i in range(TRAIN_SMALL_B)]
+        b = pad_batch(xs, cfg)
+        x = torch.as_tensor(b.audio, dtype=torch.float32, device="cuda")
+        n_d = torch.as_tensor(b.lengths, device="cuda")
+        a = x.clone().requires_grad_(True)
+        counters.zero()
+        feat, mask = chain.extract_batch_diff(a, n_d, cfg)
+        (feat**2).sum().backward()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in counters.read().items() if v}
+        want, _ = chain.extract_batch(x, n_d, cfg)
+        rel = grad_rel(torch, chain, cfg, x, n_d, a.grad)
+        print(f"  {name} b{TRAIN_SMALL_B} x {TRAIN_SMALL_S} s: launches {counts}; gradient vs float64 {rel:.3e}")
+        check(torch.equal(feat.detach(), want) and bool(torch.isfinite(a.grad).all()) and rel < TRAIN_GATE,
+              f"{name}: the forward bitwise extract_batch's, the gradient finite and within {TRAIN_GATE}")
+        check(counts.get("frontend", 0) + counts.get("fused", 0) == 1 and "resample" not in counts
+              and counts.get("dither", 0) == (cfg.dither > 0),
+              f"{name}: one front-end launch (the dither branch when dithering), no polyphase kernel")
+    print(f"  phase 24 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def tools_path(torch, tag: str, tmp) -> None:
+    """Phase 25: `cli convert`, `cli info --self-test` and `stage_times`
+    (see the module docstring)."""
+    import contextlib
+    import io
+
+    from mfcc_tpu_torch import cli, named_config
+    from mfcc_tpu_torch.io import ShardWriter, read_shard
+    from mfcc_tpu_torch.io.writer import iter_feature_shards
+    from mfcc_tpu_torch.pipeline import pad_batch
+    from mfcc_tpu_torch.utils.trace import stage_times
+
+    t_phase = time.perf_counter()
+    print("== 25. the tools: cli convert, cli info --self-test, utils.trace.stage_times")
+    cfg = named_config("classic13_deltas")
+    src = tmp / "a"
+    for fmt in ("htk", "kaldi"):
+        out, ref = tmp / f"convert_{fmt}", tmp / f"writer_{fmt}"
+        check(cli.main(["convert", str(src), "-o", str(out), "--to", fmt, "--config", "classic13_deltas"]) == 0,
+              f"convert --to {fmt}: exit 0")
+        w = ShardWriter(ref, cfg, fmt=fmt)  # io/htk.py, io/kaldi.py on the same features
+        for p in iter_feature_shards(src):
+            feats = read_shard(p)
+            w.write(p.stem, list(feats), list(feats.values()))
+
+        def files(d):
+            return {q.relative_to(d).as_posix(): q.read_bytes().replace(str(d).encode(), b"")
+                    for q in d.rglob("*") if q.is_file() and q.parent.name != "done"}
+
+        got, want = files(out), files(ref)
+        check(got == want and len(got) > 0, f"convert --to {fmt}: {len(got)} files, the bytes of io/{fmt}.py "
+                                             "writing the same features")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["info", "--self-test"])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("torch", "card", "process", "self-test")):
+            print(f"  info: {line}")
+    check(rc == 0 and lines[-1] == "self-test: PASS", "info --self-test on the card: PASS")
+    batch = make_batch(pad_batch, cfg, B, cfg.sample_rate * SECONDS, 571, seed=0)
+    st = stage_times(torch.as_tensor(batch.audio, device="cuda"), torch.as_tensor(batch.lengths, device="cuda"),
+                     cfg)
+    print("  stage_times, classic13_deltas b64 x 10 s int16 on the card (CUDA events, best of 3): "
+          + ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in st.items()) + f" {tag}")
+    check(set(st) == {"preemph", "logmel", "full", "features_minus_logmel"} and min(st.values()) >= 0,
+          "stage_times: four non-negative keys")
+    print("  plot: not driven here (`cli plot` needs matplotlib, which this machine lacks: it exits 2 and "
+          "names the package; tests/test_torch_tools.py draws its PNGs on the CPU)")
+    print(f"  phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
@@ -2676,11 +3049,14 @@ def main(argv=None) -> int:
     results["bf16x3"] = bf16x3_path(torch, counters, tag, breakdown, cuts, builds["frontend"][0])
     large_fft_path(torch, counters, tag)
 
-    # 22. the corpus path
-    corpus_path(torch, counters, tag, args.seed)
-
-    # 23. streaming and serving
-    serving_path(torch, counters, tag, results)
+    # 22-25: the corpus path, streaming and serving, the training path, the
+    # tools (which convert phase 22's shards) in one temporary directory
+    with tempfile.TemporaryDirectory() as work:
+        work = pathlib.Path(work)
+        corpus_path(torch, counters, tag, args.seed, work)
+        serving_path(torch, counters, tag, results)
+        training_path(torch, counters, tag, results)
+        tools_path(torch, tag, work)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

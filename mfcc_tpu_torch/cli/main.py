@@ -4,13 +4,15 @@ Commands:
   extract     wav files → feature shards (streaming, resumable, data-parallel)
   apply-cmvn  second pass: normalize existing shards with global or
               speaker stats
+  convert     npz feature shards → HTK or Kaldi files (resumable)
   serve       on-line extraction over stdin/stdout (docs/SERVE.md)
+  plot        4-panel inspection PNGs for wav files (needs matplotlib)
+  info        versions, cards, process group, named configs; --self-test
 
-The port of `mfcc_tpu/cli/main.py`'s `extract` (:78-472), `apply-cmvn`
-(:475-645) and `serve` (:744-1131), with their flags, except that
+The port of `mfcc_tpu/cli/main.py`, with its commands and flags, except that
 `--device {cuda,cpu}` (default cuda) stands where `--backend` stood. On the
-card: threaded decode into
-pinned int16 rows → an asynchronous host-to-device copy →
+card: decode (worker processes into pinned shared-memory slabs, or threads
+into pinned rows) → an asynchronous host-to-device copy →
 `parallel.sharded_extract_batch` (the front-end kernel, and the feature
 tail for mfcc configs) → an asynchronous device-to-host copy into pinned
 tensors, waited on by an event per batch → trimmed shard writes with resume
@@ -21,9 +23,7 @@ names, ids and markers are the JAX package's, so a resume works across the
 two packages. `serve` speaks `docs/SERVE.md` over the
 `pipeline.MultiStreamExtractor` pool (one front-end launch and at most two
 tail launches a poll round), and exits 2 before any event on a config the
-kernels refuse or on `--device cuda` without a card. `info`, `convert` and
-`plot`, and the multi-process feed (`--feed mp`), are not ported yet
-(ROADMAP queue 1).
+kernels refuse or on `--device cuda` without a card.
 """
 
 from __future__ import annotations
@@ -133,8 +133,8 @@ def _to_host(tensors):
 def cmd_extract(args) -> int:
     from mfcc_tpu_torch import parallel
     from mfcc_tpu_torch.io import (
-        DecodeStats, ShardWriter, shard_files, stream_batches,
-        stream_batches_direct, trim_batch,
+        DecodeStats, ShardWriter, SlabPool, shard_files, stream_batches,
+        stream_batches_direct, stream_batches_mp, trim_batch,
     )
     from mfcc_tpu_torch.parallel import CmvnAccumulator, data_mesh
     from mfcc_tpu_torch.parallel.mesh import (
@@ -144,10 +144,6 @@ def cmd_extract(args) -> int:
     from mfcc_tpu_torch.utils import MetricsLogger
     from mfcc_tpu_torch.utils import trace as trace_mod
 
-    if args.feed == "mp":
-        log.error("--feed mp: the multi-process feed is not ported yet (ROADMAP "
-                  "queue 1 item 4); use --feed direct or arrays")
-        return 2
     try:
         cfg = _resolve_config(args)
     except (KeyError, ValueError) as e:
@@ -307,7 +303,7 @@ def cmd_extract(args) -> int:
             }
         with trace_mod.annotate("shard_write"):
             # pair ids with rows (None ids can appear mid-batch if a decode
-            # failed after row assignment in the direct feed path)
+            # failed after row assignment in the direct or mp feed)
             trimmed = trim_batch(feat, mask)
             rows = [
                 (i, t) for i, t in zip(batch.ids, trimmed) if i is not None
@@ -342,25 +338,35 @@ def cmd_extract(args) -> int:
     )
     feed = args.feed
     if feed == "auto":
-        log.info("--feed auto: the direct feed (the multi-process feed is not "
-                 "ported yet)")
-        feed = "direct"
+        # the multi-process feed where the C++ decoder builds (per-file
+        # Python runs under the workers' own interpreter locks); both it and
+        # the direct feed give byte-identical batches
+        from mfcc_tpu_torch.io import wav
+
+        feed = "mp" if wav._native() is not None else "arrays"
+        log.info("--feed auto: the %s feed", {"mp": "multi-process", "arrays": "arrays"}[feed])
+    # pinned rows for the card: the host-to-device copy is asynchronous
+    pin = args.device == "cuda"
     if feed == "direct":
         stream_fn = stream_batches_direct
         stream_kw["dtype"] = args.feed_dtype
-        # pinned rows for the card: the host-to-device copy is asynchronous
-        stream_kw["pool"] = RowPool(pin=args.device == "cuda", capacity=FEED_BUFFERS)
+        stream_kw["pool"] = RowPool(pin=pin, capacity=FEED_BUFFERS)
+    elif feed == "mp":
+        stream_fn = stream_batches_mp
+        stream_kw["dtype"] = args.feed_dtype
+        stream_kw["slabs"] = SlabPool(pin=pin)
     else:
         stream_fn = stream_batches
         if args.feed_dtype != "f32":
-            log.warning("--feed-dtype %s requires the direct feed; using f32",
+            log.warning("--feed-dtype %s requires the direct or mp feed; using f32",
                         args.feed_dtype)
-    if args.resume and feed == "direct":
+    if args.resume and feed in ("direct", "mp"):
         # header-only planning pass: batch composition depends only on
         # phase-A headers, so a resume decision per shard costs a header
         # scan — files of already-done shards are then never decoded in
         # the real pass
-        plan_kw = {**stream_kw, "stats": DecodeStats(), "pool": RowPool(),
+        plan_rows = {"pool": RowPool()} if feed == "direct" else {"slabs": SlabPool()}
+        plan_kw = {**stream_kw, **plan_rows, "stats": DecodeStats(),
                    "skip_ids": frozenset(files)}
         done_files: set = set()
         pidx = 0
@@ -682,6 +688,191 @@ WIRE_HEADER_CAP = 1 << 20  # a framed header's bytes, in and out (docs/SERVE.md)
 WIRE_PAYLOAD_CAP = 1 << 30  # a framed payload's bytes, in
 DRAIN_EVERY = 256  # request lines between drains under saturating input
 IDLE_TICK_S = 0.2  # a drain after this long with no request
+
+
+def cmd_convert(args) -> int:
+    """Convert npz feature shards to HTK or Kaldi files: the last step of
+    the two-pass global-CMVN path (extract to npz → apply-cmvn → convert)
+    and an exporter of existing corpora. Resumable by the extract's marker
+    scheme (one marker a source shard in the output directory); a shard
+    whose feature dimension is not the config's exits 2."""
+    import concurrent.futures
+
+    from mfcc_tpu_torch.io import ShardWriter
+    from mfcc_tpu_torch.io.writer import iter_feature_shards
+
+    try:
+        cfg = _resolve_config(args)
+    except (KeyError, ValueError) as e:
+        log.error("%s", e.args[0])
+        return 2
+    shard_dir = pathlib.Path(args.shard_dir)
+    paths = iter_feature_shards(shard_dir)
+    if not paths:
+        log.error("no feature shards (*.npz) in %s", shard_dir)
+        return 2
+    writer = ShardWriter(args.output_dir, cfg, fmt=args.to)
+
+    def convert_one(spath: pathlib.Path) -> tuple[str, int]:
+        name = spath.stem
+        with np.load(spath, allow_pickle=False) as z:
+            # npz members load lazily: the resume check reads only the ids,
+            # so a finished rerun reads no feature bytes
+            ids = [str(i) for i in z["ids"]]
+            if writer.is_done(name, ids):
+                return "skipped", len(ids)
+            feats, offsets = z["features"], z["offsets"]
+        if feats.shape[1] != cfg.feat_dim:
+            raise ValueError(
+                f"{spath.name}: feat dim {feats.shape[1]} != config "
+                f"{args.config}'s {cfg.feat_dim} — wrong --config/--set?"
+            )
+        writer.write(name, ids, [feats[offsets[i] : offsets[i + 1]] for i in range(len(ids))])
+        return "converted", len(ids)
+
+    counts = {"converted": 0, "skipped": 0}
+    utts = 0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=args.jobs) as pool:
+        try:
+            for outcome, n in pool.map(convert_one, paths):
+                counts[outcome] += 1
+                utts += n
+        except (ValueError, KeyError, OSError) as e:
+            log.error("%s", e)
+            return 2
+    log.info("%d shards -> %s (%d already done), %d utterances, format=%s",
+             counts["converted"], args.output_dir, counts["skipped"], utts, args.to)
+    return 0
+
+
+def cmd_plot(args) -> int:
+    """4-panel waveform / spectrogram / filterbank / features PNG a wav
+    (`mfcc_tpu_torch.viz`), the chain run on --device. Exits 2 without
+    matplotlib, on a config the port refuses and on --device cuda without
+    a card; 1 when a file could not be read."""
+    from mfcc_tpu_torch.io import read_wav
+
+    try:
+        from mfcc_tpu_torch import viz
+
+        plt = viz._plt()
+    except ImportError as e:
+        log.error("plot: %s (pip install matplotlib)", e)
+        return 2
+    try:
+        cfg = _resolve_config(args)
+    except (KeyError, ValueError) as e:
+        log.error("%s", e.args[0])
+        return 2
+    reason = _refusal(cfg, args.device)
+    if reason:
+        log.error("%s", reason)
+        return 2
+    files = _expand_files(args.files)
+    if not files:
+        log.error("no input files matched")
+        return 2
+    out_dir = pathlib.Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    expect_sr = cfg.input_sample_rate or cfg.sample_rate
+    failed = 0
+    for path in files:
+        try:
+            sr, samples = read_wav(path)
+        except (OSError, ValueError) as e:
+            log.warning("skipping %s: %s", path, e)
+            failed += 1
+            continue
+        if sr != expect_sr:
+            log.warning("skipping %s: sample rate %d != config's %d", path, sr, expect_sr)
+            failed += 1
+            continue
+        out = out_dir / (pathlib.Path(path).stem + ".png")
+        plt.close(viz.plot_all(samples, cfg, out_path=out, device=args.device))
+        log.info("%s -> %s", path, out)
+    return 0 if failed == 0 else 1
+
+
+# the self-test's gate against the float64 oracle: the reference's (the
+# documented fp32 floor of lifted cepstra, 1.34e-3, on pathological signals)
+SELF_TEST_GATE = 2e-3
+
+
+def _cards() -> list[str]:
+    """`name, power limit` of each card as nvidia-smi gives them; torch's
+    device names when nvidia-smi cannot be run."""
+    import subprocess
+
+    import torch
+
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        if res.returncode == 0 and res.stdout.strip():
+            return [line.strip() for line in res.stdout.strip().splitlines()]
+    except (OSError, subprocess.TimeoutExpired):
+        pass
+    return [f"{torch.cuda.get_device_name(i)}, power limit not read"
+            for i in range(torch.cuda.device_count())]
+
+
+def cmd_info(args) -> int:
+    """Versions, cards, the process group and every named config with its
+    hash; --self-test runs classic13_deltas and logmel80 through the port on
+    --device and on the CPU against the float64 oracle (`ops/
+    reference_numpy.py`) at the reference's gate. --self-test on cuda
+    without a card exits 2."""
+    import torch
+    import torch.distributed as dist
+
+    from mfcc_tpu_torch import NAMED_CONFIGS
+
+    print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
+          f"cuda available={torch.cuda.is_available()}")
+    if torch.cuda.is_available():
+        for i, card in enumerate(_cards()):
+            print(f"card {i}: {card}")
+    else:
+        print("cards: none visible")
+    if dist.is_available() and dist.is_initialized():
+        print(f"process {dist.get_rank()}/{dist.get_world_size()} ({dist.get_backend()})")
+    else:
+        print("process 0/1 (no process group)")
+    print("named configs:")
+    for name, cfg in NAMED_CONFIGS.items():
+        print(
+            f"  {name:24s} sr={cfg.sample_rate} in_sr={cfg.input_sample_rate or '-'} "
+            f"mels={cfg.n_mels} feat={cfg.features}:{cfg.feat_dim} cmvn={cfg.cmvn} "
+            f"hash={cfg.config_hash()}"
+        )
+    if not args.self_test:
+        return 0
+    if args.device == "cuda" and not torch.cuda.is_available():
+        log.error("--self-test --device cuda: no CUDA device (torch.cuda.is_available() is "
+                  "False); pass --device cpu")
+        return 2
+
+    # a deployment smoke: the port on this machine's card and on the CPU
+    # against the float64 oracle
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import reference_numpy as ref
+
+    x = np.random.default_rng(0).standard_normal(16000) * 3000.0
+    failures = 0
+    for cname in ("classic13_deltas", "logmel80"):
+        cfg = NAMED_CONFIGS[cname]
+        want = ref.extract(x, cfg)
+        for device in dict.fromkeys((args.device, "cpu")):
+            t0 = time.perf_counter()
+            got = chain.extract_single(x, cfg, device=device).cpu().numpy()
+            dt = (time.perf_counter() - t0) * 1e3
+            err = float(np.abs(got.astype(np.float64) - want).max()) if got.shape == want.shape else float("inf")
+            ok = err < SELF_TEST_GATE
+            failures += not ok
+            print(f"self-test {cname:18s} {device:5s} max|err|={err:.2e} "
+                  f"{'ok' if ok else 'FAIL'} ({dt:.0f} ms)")
+    print("self-test:", "PASS" if failures == 0 else f"{failures} FAILURES")
+    return 0 if failures == 0 else 1
 
 
 def chunk_metas(metas: list[dict], cap: int) -> list[list[dict]]:
@@ -1053,9 +1244,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "oldest is written (hides the device->host copies)")
     e.add_argument("--feed", choices=["auto", "mp", "direct", "arrays"],
                    default="auto",
-                   help="direct: threaded decode into (pinned, for the card) "
-                        "batch rows, and what auto picks; arrays: simple "
-                        "threaded path; mp: not ported yet (exits 2)")
+                   help="mp: worker processes decode into shared-memory "
+                        "slabs (pinned once for the card); direct: threaded "
+                        "decode into (pinned) batch rows; arrays: simple "
+                        "threaded path; auto: mp where the C++ wav decoder "
+                        "builds, else arrays")
     e.add_argument("--feed-dtype", choices=["f32", "i16"], default="i16",
                    help="i16 (default): half-bandwidth host rows, cast on "
                         "device — PCM16 sources are bit-exact, other widths "
@@ -1108,6 +1301,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="compression for rewritten shards")
     a.set_defaults(fn=cmd_apply_cmvn)
 
+    c = sub.add_parser("convert", help="convert npz feature shards to HTK/Kaldi files")
+    c.add_argument("shard_dir", help="directory of extracted npz shards")
+    c.add_argument("--output-dir", "-o", required=True)
+    c.add_argument("--to", choices=["htk", "kaldi"], required=True)
+    c.add_argument("--config", default="classic13",
+                   help="the config the shards were extracted with (HTK "
+                        "parmKind/hop and a feat-dim sanity check)")
+    c.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help=set_help)
+    c.add_argument("--jobs", type=int, default=4)
+    c.set_defaults(fn=cmd_convert)
+
     s = sub.add_parser("serve", help="on-line serving over stdin/stdout (docs/SERVE.md)")
     s.add_argument("--config", default="classic13")
     s.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -1138,6 +1343,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "b64-batched (one frames_batch event per poll round)")
     s.add_argument("--metrics", default=None, help="JSON-lines metrics file")
     s.set_defaults(fn=cmd_serve)
+
+    v = sub.add_parser("plot", help="4-panel inspection PNGs for wav files (needs matplotlib)")
+    v.add_argument("files", nargs="+", help="wav paths, globs, or directories")
+    v.add_argument("--config", default="classic13")
+    v.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                   help=set_help)
+    v.add_argument("--output-dir", "-o", required=True)
+    v.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the panels' chain runs: cuda (default; exit 2 "
+                        "without a card) or cpu")
+    v.set_defaults(fn=cmd_plot)
+
+    i = sub.add_parser("info", help="show versions, cards and configs")
+    i.add_argument("--self-test", action="store_true",
+                   help="classic13_deltas and logmel80 through the port on "
+                        "--device and on the CPU against the float64 oracle")
+    i.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="the self-test's device besides the CPU: cuda "
+                        "(default; exit 2 without a card) or cpu")
+    i.set_defaults(fn=cmd_info)
     return p
 
 

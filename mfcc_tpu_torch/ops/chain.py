@@ -33,6 +33,9 @@ plain chain of this module (`resample_input`, then `logmel_stages`: the
 kernels' plain versions). A config outside the port raises on both devices,
 naming what it still needs. Torch matmuls on the card run in full fp32
 (`matmul_fp32`), which leaves the caller's TF32 setting as it was.
+
+`extract_batch_diff` is the training path: `extract_batch`'s forward (the
+kernels on the card) with the plain chain's VJP as its backward.
 """
 
 from __future__ import annotations
@@ -392,7 +395,15 @@ def plp_base(
     energy, lifter, then c0 ← ln(frame energy) when cfg appends it."""
     k = consts if consts is not None else device_constants(cfg, melspec.device, melspec.dtype)
     mel = torch.clamp(melspec, min=0.0) * k["equal_loudness"]
-    mel = mel ** cfg.compress_factor
+    if mel.requires_grad:
+        # x**c at x = 0 is 0, but its derivative is infinite there, and a
+        # pad frame's zero upstream gradient times it is NaN: under autograd
+        # the power takes 1 in place of 0 and the 0 is put back (the same
+        # values; extraction keeps the one power op)
+        live = mel > 0
+        mel = torch.where(live, torch.where(live, mel, 1.0) ** cfg.compress_factor, 0.0)
+    else:
+        mel = mel**cfg.compress_factor
     dup = torch.cat([mel[..., :1], mel, mel[..., -1:]], dim=-1)
     r = matmul_fp32(dup, k["idft"].T)
     a, e = durbin(r, cfg.lpc_order)
@@ -687,10 +698,7 @@ def extract_batch(
             f"and {tuple(lengths.shape)}"
         )
     if device.type != "cuda":
-        if resamples(cfg):
-            audio, lengths = resample_input(audio, lengths, cfg)
-        stages = logmel_stages(audio, lengths, cfg, consts)
-        return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
+        return plain_chain(audio, lengths, cfg, consts)
 
     from mfcc_tpu_torch.kernels import frontend
 
@@ -703,6 +711,79 @@ def extract_batch(
     stages = frontend.fused_logmel_stages(audio, lengths, cfg, feature_tail=True, consts=consts)
     k = consts if consts is not None else device_constants(cfg, device, torch.float32)
     return features_from_logmel(stages, cfg, k), stages["frame_mask"]
+
+
+def plain_chain(
+    audio: torch.Tensor,
+    lengths: torch.Tensor,
+    cfg: FrontendConfig,
+    consts: dict[str, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain chain on audio's own device: `resample_input` for a
+    resampling config, then `logmel_stages` and `features_from_logmel` →
+    (features, frame_mask). What `extract_batch` runs off the card, and the
+    function whose gradient `extract_batch_diff` takes on every device: it
+    is torch code throughout (the plain resample, never the polyphase
+    kernel), so autograd differentiates it."""
+    if resamples(cfg):
+        audio, lengths = resample_input(audio, lengths, cfg)
+    stages = logmel_stages(audio, lengths, cfg, consts)
+    return features_from_logmel(stages, cfg, consts), stages["frame_mask"]
+
+
+class _ExtractBatchDiff(torch.autograd.Function):
+    """Forward: `extract_batch` on audio's device (the kernels on the card).
+    Backward: the VJP of `plain_chain`, recomputed at the saved inputs —
+    the reference's `_ebd_fwd` / `_ebd_bwd` (`mfcc_tpu/ops/chain.py:825-842`):
+    the kernels have no backward, so the gradient is the plain chain's,
+    which agrees with the kernels' forward within the features' gates."""
+
+    @staticmethod
+    def forward(ctx, audio, lengths, cfg):
+        feat, mask = extract_batch(audio, lengths, cfg, device=audio.device)
+        ctx.save_for_backward(audio, lengths)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(mask)
+        return feat, mask
+
+    @staticmethod
+    def backward(ctx, d_feat, _d_mask):
+        audio, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            a = audio.detach().requires_grad_(True)
+            feat, _ = plain_chain(a, lengths, ctx.cfg)
+            (d_audio,) = torch.autograd.grad(feat, a, d_feat)
+        return d_audio, None, None
+
+
+def extract_batch_diff(audio, lengths, cfg: FrontendConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """`extract_batch` that autograd differentiates (the trainable-front-end
+    case): flat float audio [B, T] + lengths [B] → (features, frame_mask)
+    on audio's device. A tensor stays where it is (on the card the kernels,
+    on the CPU the plain chain); other input (numpy, lists) goes to the
+    card, as `extract_batch`'s default, and raises RuntimeError without
+    one. The forward is `extract_batch`'s, bit for bit; the backward is
+    the VJP of the plain chain (`plain_chain`) at the same inputs, run on
+    the same device (on the card its products in float64, `matmul_fp32`).
+    The mask depends only on lengths and carries no gradient; lengths get
+    none. int16 PCM and 3-D input raise ValueError."""
+    host_array = not isinstance(audio, torch.Tensor)
+    audio = torch.as_tensor(audio)
+    if not audio.dtype.is_floating_point or audio.dim() != 2:
+        raise ValueError(
+            "extract_batch_diff takes flat float audio [B, T]; decode/convert "
+            "first (gradients of int PCM or slab layouts are not meaningful), "
+            f"got {audio.dtype} {tuple(audio.shape)}"
+        )
+    if host_array:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: extract_batch_diff takes host arrays to the "
+                "card; pass a CPU tensor for the plain chain"
+            )
+        audio = audio.to("cuda")
+    lengths = torch.as_tensor(lengths, device=audio.device).to(torch.int32)
+    return _ExtractBatchDiff.apply(audio, lengths, cfg)
 
 
 # ---------------------------------------------------------------------------

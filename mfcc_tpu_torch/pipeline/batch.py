@@ -99,9 +99,10 @@ class RowPool:
     buffer back with the events of the copies that read it; `take` waits on
     those events before it hands the buffer out again, so a buffer is never
     overwritten under a copy. At most `capacity` free buffers are kept a
-    shape; the rest are dropped."""
+    shape (None: all); the rest are dropped. A subclass changes where the
+    buffers live by overriding `_alloc` (`io.reader.SlabPool`)."""
 
-    def __init__(self, pin: bool = False, capacity: int = 4):
+    def __init__(self, pin: bool = False, capacity: int | None = 4):
         self.pin = pin
         self.capacity = capacity
         self._lock = threading.Lock()
@@ -117,6 +118,9 @@ class RowPool:
             for ev in events:
                 ev.synchronize()  # the copy that read this buffer has completed
             return buf
+        return self._alloc(rows, T, dtype)
+
+    def _alloc(self, rows: int, T: int, dtype: np.dtype) -> np.ndarray:
         if not self.pin:
             return np.empty((rows, T), dtype=dtype)
         # the ndarray keeps the pinned tensor (its base) alive
@@ -125,7 +129,7 @@ class RowPool:
     def give(self, buf: np.ndarray, events=()) -> None:
         with self._lock:
             stack = self._free.setdefault((buf.shape[0], buf.shape[1], buf.dtype), [])
-            if len(stack) < self.capacity:
+            if self.capacity is None or len(stack) < self.capacity:
                 stack.append((buf, list(events)))
 
 

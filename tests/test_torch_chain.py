@@ -334,9 +334,10 @@ def test_pad_batch_errors_and_release():
 
 
 def test_port_imports_no_jax_and_no_mfcc_tpu():
-    """`import mfcc_tpu_torch`, every module of the port and the CPU main
-    path, in a fresh process (this one has jax loaded by conftest), leave
-    jax and every mfcc_tpu module out of sys.modules."""
+    """`import mfcc_tpu_torch`, every module of the port, the CPU main path,
+    the training path, the multi-process feed and the tools, in a fresh
+    process (this one has jax loaded by conftest), leave jax and every
+    mfcc_tpu module out of sys.modules."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -398,6 +399,21 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "assert frontend.block_launches == 0 and tail.tail_launches == 0\n"
         "cli = __import__('importlib').import_module('mfcc_tpu_torch.cli.main')\n"
         "assert cli.build_parser().parse_args(['serve']).device == 'cuda'\n"
+        "assert cli.build_parser().parse_args(['info', '--self-test']).device == 'cuda'\n"
+        "assert cli.build_parser().parse_args(['convert', 'd', '-o', 'o', '--to', 'htk']).to == 'htk'\n"
+        "a = torch.tensor(b.audio.astype(np.float32), requires_grad=True)\n"
+        "f, m = chain.extract_batch_diff(a, b.lengths, cfg)\n"
+        "(f ** 2).sum().backward()\n"
+        "assert a.grad.shape == a.shape and not m.requires_grad\n"
+        "from mfcc_tpu_torch import compat, viz\n"
+        "from mfcc_tpu_torch.io import ShardDataset, SlabPool, dataset, feed_worker, stream_batches_mp\n"
+        "from mfcc_tpu_torch.ops import reference_numpy\n"
+        "from mfcc_tpu_torch.utils.trace import stage_times\n"
+        "assert compat.as_config(winfunc=np.hamming).window == 'hamming_sym'\n"
+        "assert reference_numpy.extract(x[:4000] * 1.0, cfg).shape == (24, 39)\n"
+        "assert [len(mb.ids) for mb in stream_batches_mp(['demo.wav'], cfg, num_threads=1)] == [64]\n"
+        "assert set(stage_times(b.audio, b.lengths, cfg, device='cpu', reps=1)) == "
+        "{'preemph', 'logmel', 'full', 'features_minus_logmel'}\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'mfcc_tpu'))\n"
         "print(repr(bad))\n"

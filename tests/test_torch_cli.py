@@ -6,8 +6,9 @@ split, a corrupt file and one at the wrong rate) goes through both CLIs:
 the shard names, ids, markers and moments match, and the features are
 within each family's gate, for extract (npz, HTK and Kaldi), the two-pass
 global and speaker CMVN (`apply-cmvn`), and a resume across the two
-packages in both directions. `--feed mp` exits 2; an unsupported config or
-`--device cuda` without a card exits non-zero with no shard written.
+packages in both directions. An unsupported config, through either feed,
+or `--device cuda` without a card exits non-zero with no shard written;
+`--feed auto` takes the multi-process feed where the C++ decoder builds.
 (`--batch-size 8`: the JAX package's tests run it on 8 CPU devices, whose
 mesh rounds the batch up to a multiple of 8.)
 """
@@ -209,8 +210,8 @@ def test_resume_works_across_the_packages(tmp_path, corpus, caplog):
 
 def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
     out = tmp_path / "o"
-    assert tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp"]) == 2
-    assert "not ported" in caplog.text
+    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_fft=4096"])
+    assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
     rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_fft=4096", "--device", "cuda"])
     assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
     if not torch.cuda.is_available():
@@ -222,7 +223,8 @@ def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
 def test_module_entry_point_without_a_card(tmp_path, corpus):
     """`python -m mfcc_tpu_torch.cli extract --device cuda` with no card
     visible exits non-zero and writes no shard; `--device cpu --feed auto`
-    runs the direct feed."""
+    runs the multi-process feed where the C++ decoder builds (else the
+    arrays feed), and says which."""
     env = {**os.environ, "PYTHONPATH": str(REPO), "CUDA_VISIBLE_DEVICES": ""}
     out = tmp_path / "o"
     res = subprocess.run([sys.executable, "-m", "mfcc_tpu_torch.cli", "extract", str(corpus), "-o", str(out),
@@ -233,5 +235,7 @@ def test_module_entry_point_without_a_card(tmp_path, corpus):
                           str(out), "--device", "cpu", "--batch-size", "2"], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
-    assert "the direct feed" in res.stderr
+    from mfcc_tpu_torch.io.wav import _native
+
+    assert f"--feed auto: the {'multi-process' if _native() is not None else 'arrays'} feed" in res.stderr
     assert len(list(out.glob("h0-*.npz"))) == 2

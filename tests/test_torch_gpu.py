@@ -1140,3 +1140,79 @@ def test_streaming_without_a_card_raises():
     res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120, cwd=repo)
     assert res.returncode == 0 and res.stdout.strip() == "raised", res.stderr
+
+
+_DIFF_CASES = [(name, {}) for name in ("classic13_deltas", "logmel80", "kaldi_mfcc", "kaldi_plp",
+                                        "kaldi_spectrogram", "ssc26", "whisper80", "mfcc39_48k")]
+
+
+@pytest.mark.parametrize("name, over", [*_DIFF_CASES, ("kaldi_mfcc", {"dither": 1.0})],
+                         ids=[name for name, _ in _DIFF_CASES] + ["kaldi_mfcc_dither"])
+def test_extract_batch_diff_on_the_card(name, over):
+    """The training path at b4: the forward bitwise extract_batch's (the
+    kernels; with dither the kernel's dither branch, once), the gradient of
+    (feat**2).sum() within 1e-3 (relative max diff, the reference's gate)
+    of the float64 plain chain's on the card (with the same contract
+    noise), a row-0 loss giving exactly zero gradient on row 1 and past
+    row 0's length."""
+    from mfcc_tpu_torch.kernels import frontend
+
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**over)
+    sr = cfg.input_sample_rate or cfg.sample_rate
+    g = np.random.default_rng(31)
+    b = pad_batch([g.standard_normal(sr - 571 * i * sr // 16000) * 3000 for i in range(4)], cfg)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    a = torch.tensor(b.audio, dtype=torch.float32, device=dev, requires_grad=True)
+    dithered = frontend.dither_launches
+    feat, mask = chain.extract_batch_diff(a, lengths, cfg)
+    assert frontend.dither_launches - dithered == (cfg.dither > 0)
+    want, want_mask = chain.extract_batch(a.detach(), lengths, cfg)
+    assert torch.equal(feat, want) and torch.equal(mask, want_mask) and not mask.requires_grad
+    (feat**2).sum().backward()
+    a64 = a.detach().double().requires_grad_(True)
+    f64, _ = chain.plain_chain(a64, lengths, cfg.replace(dtype="float64"))
+    (f64**2).sum().backward()
+    assert torch.isfinite(a.grad).all()
+    rel = float((a.grad.double() - a64.grad).abs().max() / a64.grad.abs().max())
+    assert rel < 1e-3, rel
+    a.grad = None
+    feat, _ = chain.extract_batch_diff(a, lengths, cfg)
+    (feat[0] ** 2).sum().backward()
+    assert not a.grad[1:].any() and not a.grad[0, b.lengths[0]:].any() and a.grad[0].any()
+
+
+def test_cli_feed_mp_writes_the_direct_feeds_shards_on_the_card(tmp_path):
+    """`extract --feed mp` on the card (pinned slabs) writes the shards of
+    `--feed direct` (pinned rows): the npz members' bytes equal, the zip
+    timestamps aside; no slab file is left in the pool's directory."""
+    import glob
+    import importlib
+    import os
+    import zipfile
+
+    from mfcc_tpu_torch.io import reader
+
+    cli_mod = importlib.import_module("mfcc_tpu_torch.cli.main")
+    _card()
+    g = np.random.default_rng(9)
+    corpus = _corpus(tmp_path / "c", list(g.integers(3000, 40000, 40)), seed=9)
+    common = ["extract", str(corpus), "--config", "classic13_deltas", "--batch-size", "4",
+              "--pipeline-depth", "3", "--max-len-s", "2.0"]
+    assert cli_mod.main([*common, "-o", str(tmp_path / "mp"), "--feed", "mp"]) == 0
+    assert cli_mod.main([*common, "-o", str(tmp_path / "direct"), "--feed", "direct"]) == 0
+    names = sorted(p.name for p in (tmp_path / "direct").glob("h0-*.npz"))
+    assert len(names) >= 10 and names == sorted(p.name for p in (tmp_path / "mp").glob("h0-*.npz"))
+    for name in names:
+        with zipfile.ZipFile(tmp_path / "mp" / name) as a, zipfile.ZipFile(tmp_path / "direct" / name) as b:
+            assert {n: a.read(n) for n in a.namelist()} == {n: b.read(n) for n in b.namelist()}
+    assert not glob.glob(f"{reader._shm_dir()}/mfcc_tpu_torch_slab_{os.getpid()}_*")
+
+
+def test_info_self_test_passes_on_the_card(capsys):
+    from mfcc_tpu_torch.cli import main
+
+    _card()
+    assert main(["info", "--self-test"]) == 0
+    out = capsys.readouterr().out
+    assert "self-test: PASS" in out and out.count(" cuda  max|err|=") == 2
