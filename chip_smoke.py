@@ -46,7 +46,7 @@ Phases, in order; any failure exits non-zero:
   5. path resample_batch (the same rows as float32 [64, 480,080], 48 kHz ->
      16 kHz): the polyphase kernel, counted, within 1e-5 of each row's max
      |x| of its plain version and of scipy float64 on four rows; refusals
-     (float64, a tap table over budget, a config the port lacks); times,
+     (float64, non-contiguous rows, a config the port lacks); times,
      blocks an SM and the share of the bound;
   6. path mfcc39_44k at b64 x 10 s (lengths 441,000 - 1,573*i): the fused
      resample against its plain version (prefix gates, int16 ≡ float32,
@@ -216,6 +216,32 @@ Phases, in order; any failure exits non-zero:
      float64 oracle at 2e-3) must PASS; `utils.trace.stage_times` on the
      main path's batch gives four non-negative keys (CUDA events). `cli
      plot` is not driven (the card's machine has no matplotlib).
+  26. resampled rows, every framing, DFT route and ratio (the split route:
+     resample.cu on the rows, zeroed past each length, then the plain form,
+     picked by the layout mirrors for centered framing and for fused
+     layouts over the block): (1) whisper80 fed 48 kHz, b64 x 30 s int16
+     [64, 1,440,000], every row a full chunk: against the float64 plain
+     version (prefix gates, narrow lanes per bin), int16 ≡ float32,
+     counted (resample.cu 1, the plain form 1 on its centered branch, the
+     fused form 0), extract_batch within 5e-5 of the CPU chain and 1e-5 of
+     the float64 chain, the profiler's device kernels of a step (resample.cu,
+     the front-end and the whisper norm's torch kernels, the same as a 16 kHz
+     whisper80 step's at that shape, nothing else), times beside conv1d +
+     rfft(n=400); (2) classic13_deltas "center" at 44.1 kHz, b64 x 10 s:
+     exactly three device kernels a step (resample, front-end, tail),
+     features within 8e-4; (3) kaldi_mfcc "center" with dither 1.0 at 48
+     kHz, b16: the dither branch once, two runs and int16/float32 rows
+     bitwise equal; (4) kaldi_plp, kaldi_spectrogram and ssc26 "center" at
+     48 kHz, b16, each at its family's gate; (5) bf16x3 in the fused form on
+     mfcc39_48k and mfcc39_44k, b64 x 10 s int16: against its plain version
+     at the bf16x3 gates, int16 ≡ float32, the route and plan printed,
+     registers, spills and blocks an SM, its time beside the radix-4 fused
+     kernel's in turns; (6) classic13_deltas at 192 kHz, b16 x 10 s: the
+     split route, counted, features within 8e-4; (7) resample_batch at 192
+     kHz -> 8 kHz (a reduced tile) and 16,000 -> 15,999 (the taps from
+     device memory) on four 10 s rows, within 1e-5 of each row's max |x| of
+     the plain version and of scipy float64, with the tile and tap branch
+     printed, counted by branch, timed beside the bound.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -381,6 +407,30 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:857",
     },
+    "bf16x3_fused": {
+        "name": "frontend_bf16x3_fused_resample",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:857",
+    },
+    "centered_resampled": {
+        "name": "resample_then_frontend_centered_whisper80_48k",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "resample_reduced_tile": {
+        "name": "polyphase_resample_reduced_tile",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
+        "replaces": "mfcc_tpu/kernels/resample.py:79",
+    },
+    "resample_global_taps": {
+        "name": "polyphase_resample_global_taps",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
+        "replaces": "mfcc_tpu/kernels/resample.py:79",
+    },
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # dither: float operations per sample that holds signal (uniforms 4, ln,
@@ -529,7 +579,11 @@ class Counters:
         self.frontend.bluestein_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.block_launches = 0
+        self.frontend.split_launches = 0
         self.rs_kernel.launches = 0
+        self.rs_kernel.reduced_tile_launches = 0
+        self.rs_kernel.global_tap_launches = 0
+        self.rs_kernel.global_window_launches = 0
         self.tail.tail_launches = 0
         self.tail.tail_cmvn_launches = 0
 
@@ -550,6 +604,10 @@ class Counters:
             "tail": self.tail.tail_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
             "block": self.frontend.block_launches,
+            "split": self.frontend.split_launches,
+            "reduced_tile": self.rs_kernel.reduced_tile_launches,
+            "global_taps": self.rs_kernel.global_tap_launches,
+            "global_window": self.rs_kernel.global_window_launches,
         }
 
     def expect(self, what: str, **want: int) -> dict[str, int]:
@@ -680,12 +738,14 @@ def in_turns(torch, fns, reps: int = 20) -> list[float]:
     return [float(np.mean(r)) for r in runs]
 
 
-def step_kernels(torch, fn, steps: int = 5) -> tuple[float, dict[str, float]]:
+def step_kernels(torch, fn, steps: int = 5, kernel_substr: str = "tail_kernel"
+                 ) -> tuple[float, dict[str, float]]:
     """(device events a call, {event name: events a call}) over `steps`
-    traced calls of fn after two warm-up calls (`trace`); a trace that lost
+    traced calls of fn after two warm-up calls (`trace`, which retraces where
+    it lost records of the kernels named by kernel_substr); a trace that lost
     some front-end records is taken again, up to three times."""
     for _ in range(3):
-        on_device, _ = trace(torch, fn, "tail_kernel", steps)
+        on_device, _ = trace(torch, fn, kernel_substr, steps)
         if sum("logmel_kernel" in e.name for e in on_device) == steps:
             break
     names: dict[str, float] = {}
@@ -1491,6 +1551,18 @@ def occupancy(frontend, named_config) -> None:
                 info = frontend.kernel_info(cfg, int16, "bf16x3")
                 print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
                       f"{int(cond)}: {info}, plan {frontend.bf16_plan(cfg)}")
+                check(info["local_bytes"] == 0, "no spills")
+    print("  bf16x3 fused-resample instantiations at 48 kHz (rows, dither, conditioning): the input "
+          "window over the power rows, the taps after them")
+    for int16 in (True, False):
+        for dith in (False, True):
+            for cond in (False, True):
+                cfg = named_config("kaldi_mfcc" if cond else "classic13").replace(
+                    dither=1.0 if dith else 0.0, input_sample_rate=48000)
+                check(frontend.resample_route(cfg, "bf16x3") == "fused", "the fused route")
+                info = frontend.kernel_info(cfg, int16, "bf16x3")
+                print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
+                      f"{int(cond)}: {info}, plan {frontend.bf16_plan(cfg, int16)}")
                 check(info["local_bytes"] == 0, "no spills")
 
 
@@ -2548,6 +2620,312 @@ def tools_path(torch, tag: str, tmp) -> None:
           "names the package; tests/test_torch_tools.py draws its PNGs on the CPU)")
     print(f"  phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
+RS48_SECONDS = 30  # whisper80 fed 48 kHz: Whisper's padded chunk
+
+
+def conv1d_resample(torch, x, d):
+    """The library's yardstick of a resample at up = 1 (polyphase_design
+    d): a call of conv1d over the rows x [B, T] zero-padded by half_len,
+    with the reversed taps, at stride down (its inputs made once)."""
+    taps = torch.as_tensor(np.ascontiguousarray(d["table"][0, ::-1]), dtype=torch.float32,
+                           device=x.device)[None, None]
+    xpad = torch.nn.functional.pad(x, (d["half_len"], d["half_len"]))[:, None]
+    return lambda: torch.nn.functional.conv1d(xpad, taps, stride=d["down"])
+RESAMPLED_FAMILIES = ("kaldi_plp", "kaldi_spectrogram", "ssc26")
+
+
+def resampled_rows_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 26: resampled rows take every framing, DFT route and ratio: the
+    split route (resample.cu on the rows, zeroed past each length, then the
+    plain form) for centered framing and for fused layouts over the block,
+    bf16x3 in the fused form, and resample.cu at a reduced tile and with
+    its taps read from device memory."""
+    import types
+
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.kernels import resample as rs_kernel
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import resample as R
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    # 26.1 whisper80 fed 48 kHz at full width
+    cfg = named_config("whisper80").replace(input_sample_rate=48000)
+    sr_in = cfg.input_sample_rate
+    n = sr_in * RS48_SECONDS
+    pcm = (np.random.default_rng(26).standard_normal((B, n)) * 3000).astype(np.int16)
+    lens = np.full(B, n, np.int32)
+    n16 = R.output_length(n, sr_in, cfg.sample_rate)
+    F, M = cfg.num_frames(n16), cfg.n_mels
+    audio = torch.as_tensor(pcm, device="cuda")
+    lengths = torch.as_tensor(lens, device="cuda")
+    print(f"== 26. resampled rows: the split route, bf16x3 fused, resample.cu's plans")
+    print(f"  26.1 whisper80 fed 48 kHz, b{B} x {RS48_SECONDS} s int16 [{B}, {n}] -> {n16} samples at "
+          f"16 kHz, {F} frames; route {frontend.resample_route(cfg)} (resample.cu plan "
+          f"{rs_kernel.plan(*R.ratio(sr_in, cfg.sample_rate))}, then the plain form's centered staging)")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the split route", resample=1, frontend=1, centered=1, split=1)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "whisper80 fed 48 kHz")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == the same rows in float32, bitwise")
+    del got
+    check_counts(torch, frontend, audio, lengths, cfg, "whisper80 fed 48 kHz")
+    counters.zero()
+    feat, mask = chain.extract_batch(pcm, lens, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("extract_batch", resample=1, frontend=1, centered=1, split=1)
+    check(tuple(feat.shape) == (B, F, M) and bool(torch.isfinite(feat).all()),
+          f"features {tuple(feat.shape)}, finite")
+    cpu_feat, cpu_mask = chain.extract_batch(pcm, lens, cfg, device="cpu")
+    check(torch.equal(mask.cpu(), cpu_mask), "frame mask equal to the CPU chain's")
+    whisper_gate(testing, feat, cpu_feat, testing.WHISPER_ATOL, "CPU chain")
+    del cpu_feat
+    f64, _ = chain.extract_batch(pcm[:4], lens[:4], cfg.replace(dtype="float64"), device="cpu")
+    whisper_gate(testing, feat[:4], f64, testing.WHISPER_ORACLE_ATOL, "float64 chain (rows 0-3)")
+    del feat, mask, f64
+    lengths32 = lengths.to(torch.int32)
+    zeros16 = torch.zeros((B, n16), dtype=torch.int16, device="cuda")
+    full16 = torch.full((B,), n16, dtype=torch.int32, device="cuda")
+    _, norm16 = step_kernels(torch, lambda: chain.extract_batch(zeros16, full16, named_config("whisper80")),
+                             kernel_substr="logmel_kernel")
+    _, names = step_kernels(torch, lambda: chain.extract_batch(audio, lengths32, cfg),
+                            kernel_substr="logmel_kernel")
+    print("  one extract_batch step: " + ", ".join(f"{k[:60]} x{v:g}" for k, v in sorted(names.items())))
+    norm = {k: v for k, v in norm16.items() if "logmel_kernel" not in k}
+    rest = {k: v for k, v in names.items() if "logmel_kernel" not in k and "resample_kernel" not in k}
+    check(sum(v for k, v in names.items() if "resample_kernel" in k) == 1
+          and sum(v for k, v in names.items() if "logmel_kernel" in k) == 1 and rest == norm,
+          f"the step runs resample.cu once, the front-end once and the whisper norm's {sum(norm.values()):g} "
+          "torch kernels (those of a 16 kHz whisper80 step at the same shape), nothing else")
+    del zeros16
+    print(f"  times {tag}")
+    route_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    rs_ms = device_ms(torch, lambda: rs_kernel.resample_rows(audio, lengths32, sr_in, cfg.sample_rate))
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=5)
+    d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
+    conv_ms = cuda_ms(torch, conv1d_resample(torch, audio.float(), d))
+    st = chain.logmel_stages(*chain.resample_input(audio[:16], lengths[:16], cfg), cfg)
+    framed = st["windowed"].reshape(-1, cfg.frame_length).repeat(B // 16, 1).contiguous()
+    del st
+    rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
+    del framed
+    lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens])
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B, F, taps=d["up"] * d["K"]),
+                               frontend_ops(cfg, chain, frontend, torch, lens16, F)
+                               + resample_ops(R, d["up"], d["down"], lens16))
+    print(f"  the split route (resample.cu, then the plain form): {route_ms:.4f} ms "
+          f"({bound_ms / route_ms * 100:.1f}% of bound); resample.cu alone {rs_ms:.4f} ms device time {tag}")
+    print(f"  plain version (float64 two-dot resample, gather + rfft chain on the card): {plain_ms:.4f} ms {tag}")
+    print(f"  library, resample and DFT only: conv1d stride {d['down']} {conv_ms:.4f} ms + "
+          f"torch.fft.rfft(n={cfg.n_fft}) on [{B * F}, {cfg.frame_length}] {rfft_ms:.4f} ms = "
+          f"{conv_ms + rfft_ms:.4f} ms {tag}")
+    step_times(torch, chain, types.SimpleNamespace(audio=pcm, lengths=lens), audio, lengths, cfg,
+               "front-end kernel", tag, seconds=RS48_SECONDS)
+    results["centered_resampled"] = dict(
+        launches=launches["split"], max_abs_err=errs["max_abs"], ms=route_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms + rfft_ms)
+    del audio, lengths, lengths32
+
+    # 26.2 classic13_deltas centered at 44.1 kHz: three device kernels a step
+    cfg = named_config("classic13_deltas").replace(frame_tail="center", input_sample_rate=44100)
+    batch = make_batch(pad_batch, cfg, B, 44100 * SECONDS, 1573, seed=27)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda").to(torch.int32)
+    print(f"  26.2 classic13_deltas centered at 44.1 kHz, b{B} x {SECONDS} s int16 {list(audio.shape)}")
+    check_prefix(testing, frontend.logmel_prefix(audio, lengths, cfg),
+                 frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "kernel route vs plain")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("extract_batch", resample=1, frontend=1, centered=1, split=1, tail=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
+    del feat, mask
+    per_step, names = step_kernels(torch, lambda: chain.extract_batch(audio, lengths, cfg))
+    print(f"  one step: {per_step:.0f} device kernels: "
+          + ", ".join(f"{k[:60]} x{v:g}" for k, v in sorted(names.items())))
+    kinds = ("resample_kernel", "logmel_kernel", "tail_kernel")
+    check(per_step == 3 and all(sum(v for k, v in names.items() if s in k) == 1 for s in kinds),
+          "exactly three device kernels a step: resample, front-end and tail")
+    e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
+    print(f"  extract_batch step {e_ms:.4f} ms = {B * SECONDS / (e_ms / 1e3):.0f} audio-s/s {tag}")
+    del audio, lengths
+
+    # 26.3 kaldi_mfcc centered with dither at 48 kHz
+    cfg = named_config("kaldi_mfcc").replace(frame_tail="center", dither=1.0, input_sample_rate=48000)
+    batch = make_batch(pad_batch, cfg, B_SMALL, 48000 * SECONDS, 1713, seed=28)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda").to(torch.int32)
+    print(f"  26.3 kaldi_mfcc centered, dither 1.0, at 48 kHz, b{B_SMALL} x {SECONDS} s int16 "
+          f"{list(audio.shape)}")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the split route", resample=1, frontend=1, centered=1, split=1, dither=1,
+                    conditioning=1)
+    check_prefix(testing, got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg,
+                 "dither and conditioning after the resample vs plain")
+    check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+          and torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "two runs, and int16 and float32 rows, bitwise equal")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("extract_batch", resample=1, frontend=1, centered=1, split=1, dither=1,
+                    conditioning=1, tail=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
+    del audio, lengths, got, feat, mask
+
+    # 26.4 the families centered at 48 kHz
+    for name in RESAMPLED_FAMILIES:
+        cfg = named_config(name).replace(frame_tail="center", input_sample_rate=48000)
+        kind = frontend.feature_kind(cfg)
+        batch = make_batch(pad_batch, cfg, B_SMALL, 48000 * SECONDS, 1713, seed=29)
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda").to(torch.int32)
+        print(f"  26.4 {name} centered at 48 kHz, b{B_SMALL} x {SECONDS} s int16 {list(audio.shape)}")
+        check_prefix(testing, frontend.logmel_prefix(audio, lengths, cfg),
+                     frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, f"{kind} kind vs plain")
+        counters.zero()
+        feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+        torch.cuda.synchronize()
+        counters.expect("extract_batch", resample=1, frontend=1, centered=1, split=1, **{kind: 1},
+                        **({"conditioning": 1} if chain.needs_conditioning(cfg) else {}))
+        check_features(torch, chain, testing, batch, cfg, feat, mask, None)
+        del audio, lengths, feat, mask
+
+    # 26.5 bf16x3 in the fused form
+    for name, step, seed in (("mfcc39_48k", 1713, 30), ("mfcc39_44k", 1573, 31)):
+        cfg = named_config(name)
+        sr_in = cfg.input_sample_rate
+        batch = make_batch(pad_batch, cfg, B, sr_in * SECONDS, step, seed=seed)
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda").to(torch.int32)
+        T = audio.shape[1]
+        F = cfg.num_frames(R.output_length(T, sr_in, cfg.sample_rate))
+        route = frontend.resample_route(cfg, "bf16x3")
+        print(f"  26.5 bf16x3 on {name}, b{B} x {SECONDS} s int16 {list(audio.shape)}: route {route}, "
+              f"plan int16 {frontend.bf16_plan(cfg, True)}, float32 {frontend.bf16_plan(cfg, False)} "
+              f"(frames a block, ring stages)")
+        check(route == "fused", "the fused form takes bf16x3")
+        for int16 in (True, False):
+            info = frontend.kernel_info(cfg, int16, "bf16x3")
+            print(f"    {'int16' if int16 else 'float32'} rows: {info['registers']} registers, "
+                  f"{info['local_bytes']} local bytes, {info['blocks_per_sm']} blocks an SM at "
+                  f"{info['smem_bytes']} B")
+            check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, resident")
+        counters.zero()
+        got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+        torch.cuda.synchronize()
+        launches = counters.expect("logmel_prefix(dft_passes='bf16x3')", fused=1, bf16x3=1)
+        plain = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+        e = testing.prefix_errors(got, plain, cfg.n_mels)
+        print("  kernel vs its plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in e.items()))
+        fails = testing.prefix_failures(e, testing.BF16X3_LOUD_ATOL)
+        check(not fails, f"within the bf16x3 gates of the plain version {fails or ''}")
+        del plain
+        check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3")),
+              "int16 rows == the same rows in float32, bitwise")
+        del got
+        check_counts(torch, frontend, audio, lengths, cfg, f"bf16x3 {name}", "bf16x3")
+        k_ms, r_ms = in_turns(torch, [
+            lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3"),
+            lambda: frontend.logmel_prefix(audio, lengths, cfg)])
+        print(f"  bf16x3 fused kernel {k_ms:.4f} ms; the radix-4 (Stockham) fused kernel {r_ms:.4f} ms, "
+              f"in turns {tag}")
+        if name == "mfcc39_48k":
+            plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(
+                audio, lengths, cfg, dft_passes="bf16x3"), reps=5)
+            lens_in = np.minimum(batch.lengths.astype(np.int64), T)
+            lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
+            d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
+            kp, nbp = frontend.bf16_dims(cfg)
+            bound_ms, bound_by = bound(
+                frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]) + 2 * kp * 2 * nbp * 2,
+                frontend_ops(cfg, chain, frontend, torch, lens16, F) + resample_ops(R, d["up"], d["down"], lens16))
+            print(f"  its three bf16 passes alone: {3 * 2 * kp * 2 * nbp * B * F / PEAK_BF16_FLOPS * 1e3:.4f} ms "
+                  f"at the bf16 peak")
+            conv_ms = cuda_ms(torch, conv1d_resample(torch, audio.float(), d))
+            st = chain.logmel_stages(*chain.resample_input(audio, lengths, cfg), cfg)
+            framed = torch.nn.functional.pad(st["windowed"].reshape(B * F, -1),
+                                             (0, cfg.n_fft - cfg.frame_length)).contiguous()
+            del st
+            rfft_ms = cuda_ms(torch, lambda: torch.fft.rfft(framed, dim=-1))
+            del framed
+            print(f"  plain version {plain_ms:.4f} ms; library conv1d + rfft {conv_ms + rfft_ms:.4f} ms {tag}")
+            results["bf16x3_fused"] = dict(
+                launches=launches["bf16x3"], max_abs_err=e["max_abs"], ms=k_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=conv_ms + rfft_ms)
+        del audio, lengths
+
+    # 26.6 classic13_deltas at 192 kHz: the split route
+    cfg = named_config("classic13_deltas").replace(input_sample_rate=192000)
+    batch = make_batch(pad_batch, cfg, B_SMALL, 192000 * SECONDS, 6852, seed=32)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda").to(torch.int32)
+    print(f"  26.6 classic13_deltas at 192 kHz, b{B_SMALL} x {SECONDS} s int16 {list(audio.shape)}: "
+          f"route {frontend.resample_route(cfg)} (the fused layout {frontend.smem_bytes(cfg, int16=False):,} B "
+          f"with float32 rows), resample.cu plan {rs_kernel.plan(*R.ratio(192000, 16000))}")
+    check(frontend.resample_route(cfg) == "split", "the split route, by the layout mirror")
+    check_prefix(testing, frontend.logmel_prefix(audio, lengths, cfg),
+                 frontend.logmel_prefix_reference(audio, lengths, cfg), cfg, "kernel route vs plain")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("extract_batch", resample=1, frontend=1, split=1, tail=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, testing.RESAMPLED_FEATURE_ATOL)
+    e_ms = cuda_ms(torch, lambda: chain.extract_batch(audio, lengths, cfg), reps=10)
+    print(f"  extract_batch step {e_ms:.4f} ms = {B_SMALL * SECONDS / (e_ms / 1e3):.0f} audio-s/s {tag}")
+    del audio, lengths, feat, mask
+
+    # 26.7 resample_batch at a reduced tile and with global taps
+    for key, sr_in, sr_out, counts in (
+        ("resample_reduced_tile", 192000, 8000, {"reduced_tile": 1}),
+        ("resample_global_taps", 16000, 15999, {"global_taps": 1}),
+    ):
+        up, down = R.ratio(sr_in, sr_out)
+        d = R.polyphase_design(up, down)
+        T = sr_in * SECONDS
+        x = torch.as_tensor((np.random.default_rng(sr_out).standard_normal((4, T)) * 3000).astype(np.float32),
+                            device="cuda")
+        n_out = R.output_length(T, sr_in, sr_out)
+        info = rs_kernel.kernel_info(sr_in, sr_out)
+        print(f"  26.7 resample_batch {sr_in} -> {sr_out} Hz (up {up}, down {down}, {d['K']} taps a "
+              f"phase) on [4, {T}]: tile {info['tile']} outputs, taps {info['mode']}; "
+              f"{info['registers']} registers, {info['local_bytes']} local bytes, "
+              f"{info['blocks_per_sm']} blocks an SM at {info['smem_bytes']} B")
+        counters.zero()
+        y = R.resample_batch(x, sr_in, sr_out)
+        torch.cuda.synchronize()
+        launches = counters.expect("resample_batch", resample=1, **counts)
+        plain = rs_kernel.resample_reference(x, sr_in, sr_out)
+        err = testing.resample_error(y, plain, x)
+        max_abs_err = float((y - plain).abs().max())
+        del plain
+        want = np.stack([R.resample_numpy(r, sr_in, sr_out) for r in x.double().cpu().numpy()])
+        sp_err = testing.resample_error(y, want, x)
+        print(f"  kernel vs plain {err:.3e}, vs scipy float64 {sp_err:.3e} (of each row's max |x|)")
+        check(tuple(y.shape) == (4, n_out) and err < testing.RESAMPLE_KERNEL_REL_ROWMAX
+              and sp_err < testing.RESAMPLE_KERNEL_REL_ROWMAX,
+              f"within {testing.RESAMPLE_KERNEL_REL_ROWMAX} of the plain version and of scipy")
+        k_ms = device_ms(torch, lambda: R.resample_batch(x, sr_in, sr_out))
+        plain_ms = cuda_ms(torch, lambda: rs_kernel.resample_reference(x, sr_in, sr_out), reps=5)
+        library_ms = cuda_ms(torch, conv1d_resample(torch, x, d)) if up == 1 else None
+        bound_ms, bound_by = bound(4 * T * 4 + 4 * n_out * 4 + d["up"] * d["K"] * 4,
+                                   resample_ops(R, up, down, [n_out] * 4))
+        lib = "none (no single PyTorch call computes a 15999/16000 resample)" if library_ms is None \
+            else f"conv1d stride {down} {library_ms:.4f} ms"
+        print(f"  resample.cu {k_ms:.4f} ms device time ({bound_ms / k_ms * 100:.1f}% of bound); plain "
+              f"{plain_ms:.4f} ms; library {lib} {tag}")
+        results[key] = dict(launches=launches["resample"], max_abs_err=max_abs_err, ms=k_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        del x, y
+    print(f"  phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     args = argparse.ArgumentParser(description="Smoke test of the port on one CUDA card.")
     args.add_argument("--seed", type=int, default=0, help="seed of the corpus phase's wav files")
@@ -2777,14 +3155,10 @@ def main(argv=None) -> int:
     max_abs_err = float((y - rs_kernel.resample_reference(x, sr_in, cfg.sample_rate)).abs().max())
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
-        ("a tap table over the budget", lambda: R.resample_batch(x[:1], 16000, 15999), ValueError),
+        ("non-contiguous rows", lambda: R.resample_batch(x[:1, ::2], sr_in, 16000), ValueError),
         ("a front-end layout over the block's shared memory (n_fft 4096)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
                                      named_config("classic13").replace(n_fft=4096)),
-         NotImplementedError),
-        ("centered framing of resampled rows (whisper80 at 48 kHz)",
-         lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("whisper80").replace(input_sample_rate=48000)),
          NotImplementedError),
     ):
         try:
@@ -3057,6 +3431,7 @@ def main(argv=None) -> int:
         serving_path(torch, counters, tag, results)
         training_path(torch, counters, tag, results)
         tools_path(torch, tag, work)
+    resampled_rows_path(torch, counters, tag, results)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

@@ -8,7 +8,7 @@
 // DFT of the fp32 dft_passes route, for the sizes radix-4 cannot tile and
 // at any n_fft for the fp32 route (here the full-fp32 Stockham, Bluestein
 // or direct form of the size); the bf16x3 route on the tensor cores
-// (wgmma); and the dither, frame-first conditioning, log-kind and PLP,
+// (wgmma), in both forms; and the dither, frame-first conditioning, log-kind and PLP,
 // spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
@@ -217,7 +217,15 @@
 // 71,472 B at 48 kHz (three blocks an SM, as the plain form), 107,696 B at
 // 44.1 kHz (the 160 x 57 tap table; two); float32 rows widen the window
 // past the rows: 97,040 B at 48 kHz (two), 128,000 B at 44.1 kHz (one).
-// No centered framing.
+// No centered framing: centered resampled rows, and every config whose fused
+// layout with float32 rows is over the block (192 kHz input: 291,536 B),
+// take the split route instead (kernels/frontend.py resample_route, picked
+// by the layout mirror before any launch): resample.cu on the rows, zeroed
+// past each length and writing each row's output length, then the plain form
+// of this file on its 16 kHz rows (the reference's unfused route,
+// mfcc_tpu/ops/chain.py:734-764, whose kernel dithers, reflects and frames
+// the resampled rows, frontend.py:1852-1862: the plain form's centered
+// staging, with the noise keyed on the 16 kHz source index).
 // Bound at mfcc39_48k (batch 64 x 10 s int16, lengths 480,000 - 1,713*i):
 //   bytes: 54.5 MB int16 in + 6.9 MB out -> ~18 us;
 //   operations: 91 FLOP per output sample that holds signal (61 symmetric
@@ -347,8 +355,16 @@
 // power rows [64][292] (75 KB), frame energies and means, the per-warp
 // scratch: 194,752 B; kernels/frontend.py smem_bytes mirrors it. A cluster
 // of two blocks sharing each chunk by multicast was measured slower
-// (PERF.md section 6) and is not taken. The fused-resample form has no
-// bf16x3 instantiation.
+// (PERF.md section 6) and is not taken.
+// In the fused resample (kResample with kBf16) the staging is step 1r's at
+// the plan's frames a block; the input window lies over the power rows, the
+// energies, means and scratch, which stand idle until the products (not over
+// the ring, whose first copies land during the staging), and the taps follow
+// them. plan_bf16 counts both: mfcc39_48k takes 64 frames and 4 ring stages
+// with int16 rows (195,008 B), 3 stages with float32 rows (226,496 B);
+// mfcc39_44k 64 frames and 4 stages with int16 rows (231,232 B), 32 frames
+// with float32 rows (192,912 B). Where no plan fits, the wrapper takes the
+// split route with the plain form's bf16x3.
 // Bound: the bytes and the function's minimum of the other forms (9.47 us at
 // classic13 b64 x 10 s, by operations). The three passes alone are 3 x 2 x
 // 400 x 514 = 1.23 MFLOP a frame: 0.0709 ms of bf16 tensor work at 989 TFLOP/s
@@ -451,19 +467,21 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // warp 0's projection scratch (32 lane partials and the M filter sums, for
 // each weight table), pstride the step to the next warp's.
 struct Layout {
-  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, tab,
-      total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, fir,
+      tab, total;
 };
 
 // fir is the fused resample's input window in floats (0 without it): it
-// lies over the warps' rows, which stand idle until the DFT, and widens
-// them only where it is longer. wide (the fused resample, and kDither) gives
-// the signal row span + 1 floats: x[t0-1 .. t0+span) before pre-emphasis.
+// lies over the warps' rows (the bf16x3 form: over the power rows, the
+// frames' energies and means and the projection's scratch), which stand
+// idle until the DFT, and widens them only where it is longer. wide (the
+// fused resample, and kDither) gives the signal row span + 1 floats:
+// x[t0-1 .. t0+span) before pre-emphasis.
 __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide) {
   Layout l;
   const int tables = weight_tables(p);
   const int parts = align4(tables * (32 + p.M));
-  l.span = ((p.form == kBf16x3 ? p.tile : kTile) - 1) * p.S + p.L;
+  l.span = (p.tile - 1) * p.S + p.L;
   l.win = align4(l.span + (wide ? 1 : 0));
   l.melw = l.win + align4(imax(p.L, p.n_fft));
   l.melf = l.melw + align4(p.nnz);  // ssc only
@@ -481,23 +499,25 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
     l.mu = l.ef + align4(p.tile);
     l.part = l.mu + align4(p.tile);
     l.pstride = parts;
-    l.tab = l.part + kWarps * parts;
+    l.fir = l.pw;  // not the ring: its first copies land during the staging
+    l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
   } else {
     l.row = p.form == kDirect ? align4(imax(p.n_fft, p.bins))
                               : align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + 2 * l.row;
     l.pstride = 2 * l.row + parts;
     l.bar = l.pw = l.ef = l.mu = 0;
+    l.fir = l.buf;
     l.tab = l.buf + imax(kWarps * l.pstride, align4(fir));
   }
   l.total = l.tab + align4(taps);
   return l;
 }
 
-// The fused resample's input window for x[t0-1 .. t0+span): samples, and
-// floats of Sample.
+// The fused resample's input window for x[t0-1 .. t0+span) of a block's
+// p.tile frames: samples, and floats of Sample.
 __host__ __device__ inline int resample_window(const Params& p, const Polyphase& pp) {
-  return pp_window((kTile - 1) * p.S + p.L + 1, pp);
+  return pp_window((p.tile - 1) * p.S + p.L + 1, pp);
 }
 template <typename Sample>
 __host__ __device__ inline int resample_floats(const Params& p, const Polyphase& pp) {
@@ -508,8 +528,9 @@ __host__ __device__ inline int resample_floats(const Params& p, const Polyphase&
 // matrix depth kp, whole passes of 136 bins, the power rows' stride, and
 // the first of 64 or 32 frames a block and 4, 3 or 2 ring stages whose
 // layout fits the block's shared memory (else the smallest; the wrapper
-// refuses it).
-inline bool plan_bf16(Params& p) {
+// takes the split route or refuses it), in the fused resample (pp not null)
+// with the input window of that many frames in the rows' type and the taps.
+inline bool plan_bf16(Params& p, const Polyphase* pp, bool int16) {
   p.kp = (imin(p.L, p.n_fft) + kBfStep - 1) / kBfStep * kBfStep;
   p.npass = (p.bins + kBfPassBins - 1) / kBfPassBins;
   p.nbp = p.npass * kBfPassBins;
@@ -519,7 +540,12 @@ inline bool plan_bf16(Params& p) {
     for (int stages = kBfMaxStages; stages >= 2; --stages) {
       p.tile = tile;
       p.stages = stages;
-      if (layout(p, 0, 0, p.dither > 0.f).total * 4 <= kSmemBudget) return true;
+      int fir = 0, taps = 0;
+      if (pp) {
+        fir = int16 ? resample_floats<int16_t>(p, *pp) : resample_floats<float>(p, *pp);
+        taps = pp->up * pp_stride(*pp);
+      }
+      if (layout(p, fir, taps, pp || p.dither > 0.f).total * 4 <= kSmemBudget) return true;
     }
   }
   return true;
@@ -1182,7 +1208,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       const int n = lay.span + 1;
       const long long lo = pp_first_input(t0 - 1, pp);
       const int in_len = resample_window(p, pp);
-      Sample* win_s = reinterpret_cast<Sample*>(smem + lay.buf);
+      Sample* win_s = reinterpret_cast<Sample*>(smem + lay.fir);
       Sample* in = win_s + pp_stage(win_s, audio, static_cast<long long>(gridDim.y) * T,
                                     static_cast<long long>(b) * T, lo, in_len, p.aligned != 0);
       pp_copies_commit();
@@ -1666,7 +1692,7 @@ struct Info {
 };
 
 // Picks the instantiation for the sample type and the dither and
-// conditioning branches (the bf16x3 form: the plain form only).
+// conditioning branches.
 template <bool kResample, bool kBf16, typename Fn>
 cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
   if (is_int16) {
@@ -1732,9 +1758,10 @@ bool plan_stages(Params& p, int n) {
 // applies (an even n_fft >= 4 whose half factors into 8s, one 4 or 2, 3s and
 // 5s), the Bluestein form with P the cheapest size >= Q + K - 1 the
 // Stockham stages take (fewest stages, then fewest points), the direct DFT
-// and bf16x3 at any n_fft; the projection's chunk. False when the
-// wrapper's form disagrees, or for n_fft < 2.
-bool plan(Params& p) {
+// and bf16x3 at any n_fft (pp: the fused resample's, or null; int16: the
+// rows' type); the projection's chunk. False when the wrapper's form
+// disagrees, or for n_fft < 2.
+bool plan(Params& p, const Polyphase* pp, bool int16) {
   const int N = p.n_fft;
   if (N < 2) return false;
   p.half = N / 2;
@@ -1750,7 +1777,7 @@ bool plan(Params& p) {
       p.ntw = N;
       return true;
     case kBf16x3:
-      return plan_bf16(p);
+      return plan_bf16(p, pp, int16);
     case kStockham:
       if (N % 2 != 0 || N < 4) return false;
       p.nsplit = N / 4 + 1;
@@ -1782,8 +1809,9 @@ bool plan(Params& p) {
   }
 }
 
-bool bad_params(Params& p, int B, const float* melf_w, const int* bases) {
-  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p) ||
+bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const Polyphase* pp,
+                bool int16) {
+  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p, pp, int16) ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
@@ -1847,7 +1875,7 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind, framing, drop_last};
   p.origin = origin;
-  if (bad_params(p, B, melf_w, bases)) return cudaErrorInvalidValue;
+  if (bad_params(p, B, melf_w, bases, nullptr, audio_is_int16 != 0)) return cudaErrorInvalidValue;
   if (origin != 0 && (origin != 1 || T < 2 || dither > 0.f || center != kNoCenter ||
                       frame_offset != 0 || dft_form == kBf16x3)) {
     return cudaErrorInvalidValue;
@@ -1866,12 +1894,15 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
 // taps [up, K] float32 (input_scale folded in); F frames of the resampled
 // signal, ceil(T * up / down) samples long; n_valid from each row's output
 // length ceil(lengths[b] * up / down). Dither keys on 16 kHz positions.
-// No centered framing and no bf16x3 form.
+// dft_matrix as above for dft_form 2 (bf16x3), else null. No centered
+// framing (kernels/frontend.py takes the split route for it: resample.cu,
+// then mfcc_frontend_logmel).
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                                   const int* lengths, float* out, int* n_valid,
                                   float* frame_mask, const float* window,
                                   const float* mel_w, const float* melf_w, const int* mel_off,
                                   const int* mel_meta, const float* twiddle, const int* bases,
+                                  const void* dft_matrix,
                                   const float* taps, int B, int T, int F, int L, int S, int M,
                                   int n_packed, int n_fft, int dft_form, int framing,
                                   int drop_last, int up, int down,
@@ -1883,15 +1914,20 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, 0, kNoCenter, 1.f, preemph, eps, pscale,
            dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph, frame_keep0,
            feature_kind, framing, drop_last};
-  if (bad_params(p, B, melf_w, bases) || dft_form == kBf16x3 || up < 1 || down < 1 || K < 1 ||
-      half_len < 10 * down || framing >= kFrameCenter) {
+  const Polyphase pp{up, down, half_len, K};
+  if (up < 1 || down < 1 || K < 1 || half_len < 10 * down || framing >= kFrameCenter ||
+      bad_params(p, B, melf_w, bases, &pp, audio_is_int16 != 0)) {
     return cudaErrorInvalidValue;
   }
+  const bool tensor = dft_form == kBf16x3;
+  if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
   p.aligned = (reinterpret_cast<uintptr_t>(audio) & 15) == 0;
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
-               mel_meta, twiddle, bases, nullptr, taps, B, p, Polyphase{up, down, half_len, K},
+               mel_meta, twiddle, bases, dft_matrix, taps, B, p, pp,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true, false>(Launch{a}, audio_is_int16 != 0, dither > 0.f, conditioning != 0);
+  const Launch fn{a};
+  const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
+  return tensor ? dispatch<true, true>(fn, i16, dth, cnd) : dispatch<true, false>(fn, i16, dth, cnd);
 }
 
 // Registers, local (spilled) bytes a thread and blocks an SM of the
@@ -1901,7 +1937,7 @@ int mfcc_frontend_kernel_info(int audio_is_int16, int resample, int dither, int 
                               int bf16x3, int smem_bytes, int* out) {
   const Info fn{smem_bytes, out};
   const bool i16 = audio_is_int16 != 0, dth = dither != 0, cnd = conditioning != 0;
-  if (bf16x3) return resample ? cudaErrorInvalidValue : dispatch<false, true>(fn, i16, dth, cnd);
+  if (bf16x3) return resample ? dispatch<true, true>(fn, i16, dth, cnd) : dispatch<false, true>(fn, i16, dth, cnd);
   return resample ? dispatch<true, false>(fn, i16, dth, cnd) : dispatch<false, false>(fn, i16, dth, cnd);
 }
 

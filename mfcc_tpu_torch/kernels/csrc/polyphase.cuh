@@ -42,10 +42,12 @@
 // memory: n outputs from j0 read inputs [pp_first_input(j0),
 // pp_first_input(j0) + pp_window(n)), laid out from the 16-byte boundary at
 // or below the window's flat index (pp_stage_floats). The window may hold
-// int16 samples (the fused form's int16 rows), converted exactly in
-// registers. pp_stage copies it with cp.async, 16 bytes a copy, and
-// pp_mask zeroes the samples outside the row's valid range once they land;
-// resample.cu overlaps the next tile's copies with the FIR.
+// int16 samples (int16 rows), converted exactly in registers. pp_stage
+// copies it with cp.async, 16 bytes a copy, and pp_mask zeroes the samples
+// outside the row's valid range once they land; resample.cu overlaps the
+// next tile's copies with the FIR. Where a window or the table does not fit
+// a block, resample.cu reads it from device memory (PpGlobalWindow,
+// PpGlobalTaps).
 
 #pragma once
 
@@ -169,12 +171,36 @@ __device__ __forceinline__ float pp_sample(int16_t v) {
   return __int_as_float(0x4B400000 + static_cast<int>(v)) - 12582912.f;
 }
 
+// What the FIR reads its window and taps through: a pointer (shared memory,
+// the staged window and table), or, in resample.cu's global branches, these
+// views of device memory read through the read-only path (__ldg; the table
+// and the rows' windows stay in L2). PpGlobalWindow's in[i] is x[lo + i] of
+// the row x, 0 outside [0, len), so it needs no staging and no pp_mask.
+template <typename Sample>
+struct PpGlobalWindow {
+  const Sample* x;
+  long long lo, len;
+  __device__ __forceinline__ Sample operator[](long long i) const {
+    const long long u = lo + i;
+    return u >= 0 && u < len ? __ldg(x + u) : Sample(0);
+  }
+  __device__ __forceinline__ PpGlobalWindow operator+(long long d) const { return {x, lo + d, len}; }
+  __device__ __forceinline__ PpGlobalWindow operator-(long long d) const { return {x, lo - d, len}; }
+};
+
+struct PpGlobalTaps {
+  const float* t;
+  __device__ __forceinline__ float operator[](int i) const { return __ldg(t + i); }
+  __device__ __forceinline__ PpGlobalTaps operator+(int d) const { return {t + d}; }
+};
+
 // up = 1: outputs j .. j + kPpR1 - 1 into acc, from the window `in` (in[0]
 // is input index lo) and the table row `tab`. kD > 0 fixes down at compile
 // time (the steps' offsets become immediates); kD = 0 reads it from pp.
-template <int kD, typename Sample>
+// In and Tab are pointers or the global views above.
+template <int kD, typename In, typename Tab>
 __device__ __forceinline__ void pp_consecutive(float (&acc)[kPpR1], long long j, long long lo,
-                                               const Sample* in, const float* tab,
+                                               const In& in, const Tab& tab,
                                                const Polyphase& pp) {
   constexpr int R = kPpR1;
   const int D = kD > 0 ? kD : pp.down;
@@ -184,13 +210,13 @@ __device__ __forceinline__ void pp_consecutive(float (&acc)[kPpR1], long long j,
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
 #pragma unroll 1
   for (int c = 0; c < D; ++c) {
-    const Sample* z = in + base - c;  // z[D*m] = x[q - c + D*m]
-    const float* h = tab + c;         // h[D*k] = tap c + D*k
-    float w[R];                        // w[m mod R] = z[D*m], m in [r - k] over r < R
+    auto z = in + (base - c);  // z[D*m] = x[q - c + D*m]
+    auto h = tab + c;          // h[D*k] = tap c + D*k
+    float w[R];                // w[m mod R] = z[D*m], m in [r - k] over r < R
 #pragma unroll
     for (int m = 1; m < R; ++m) w[m] = pp_sample(z[D * m]);
 #pragma unroll 1
-    for (int k0 = 0; k0 < Kc; k0 += R, z -= D * R, h += D * R) {
+    for (int k0 = 0; k0 < Kc; k0 += R, z = z - D * R, h = h + D * R) {
 #pragma unroll
       for (int kk = 0; kk < R; ++kk) {
         w[(R - kk) % R] = pp_sample(z[-D * kk]);
@@ -204,12 +230,12 @@ __device__ __forceinline__ void pp_consecutive(float (&acc)[kPpR1], long long j,
 
 // up > 1: outputs j + up*r for r < nr into acc (the others read a safe
 // index and are not used).
-template <typename Sample>
+template <typename In, typename Tab>
 __device__ __forceinline__ void pp_strided(float (&acc)[kPpRU], long long j, int nr, long long lo,
-                                  const Sample* in, const float* tab, const Polyphase& pp) {
+                                  const In& in, const Tab& tab, const Polyphase& pp) {
   constexpr int R = kPpRU;
   const long long a = pp_anchor(j, pp);
-  const float* h = tab + static_cast<int>(a % pp.up) * pp_stride(pp);
+  const auto h = tab + static_cast<int>(a % pp.up) * pp_stride(pp);
   const int base = static_cast<int>(a / pp.up - lo);
   int idx[R];
 #pragma unroll
@@ -229,9 +255,9 @@ __device__ __forceinline__ void pp_strided(float (&acc)[kPpRU], long long j, int
 // input index lo, pp_window(n) samples) and table: put(i, y) for every
 // i < n, y the FIR's output for i in [live_lo, live_hi) and 0 elsewhere
 // (no FIR for a thread's outputs that are all outside).
-template <typename Sample, typename Put>
+template <typename In, typename Tab, typename Put>
 __device__ __forceinline__ void pp_block(long long j0, int n, int live_lo, int live_hi, long long lo,
-                                const Sample* in, const float* tab, const Polyphase& pp,
+                                const In& in, const Tab& tab, const Polyphase& pp,
                                 const Put& put) {
   if (pp.up == 1) {
     const int groups = (n + kPpR1 - 1) / kPpR1;

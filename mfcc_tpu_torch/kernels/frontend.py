@@ -22,14 +22,18 @@ for PLP, the log kind of each power bin for a spectrogram (the identity
 projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
-empty prefix without a launch). A config whose shared-memory layout
-exceeds the block's 227 KB is refused (`layout_reason`).
+empty prefix without a launch). A config whose plain-form layout exceeds
+the block's 227 KB is refused (`layout_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
-input rate, with lengths in input samples, through the kernel's second
-form: the fused resample (port of `_gather_frames` :493-529), which
-computes each staged 16 kHz sample from the input rows by the polyphase FIR
-of `csrc/polyphase.cuh`. F = cfg.num_frames(output_length(T)) then.
+input rate, with lengths in input samples, F = cfg.num_frames(output_length
+(T)), by one of two routes (`resample_route`, picked by the layout mirrors
+before any launch): the kernel's second form, the fused resample (port of
+`_gather_frames` :493-529), which computes each staged 16 kHz sample from
+the input rows by the polyphase FIR of `csrc/polyphase.cuh`; or the split
+route, the reference's unfused one, for centered framing and for configs
+whose fused layout is over the block (192 kHz input): `resample.cu`
+(`kernels/resample.py::resample_rows`), then the plain form on its rows.
 
 The reference's `dft_passes` routes (`kernel_form`): "radix4", the
 default, and "fp32" both take the form of `dft_form` (every one of them
@@ -37,8 +41,8 @@ sums in full fp32; the reference's fp32 route is its own matrix DFT, and
 the port matches outputs, not layouts); "bf16x3" (port of `_make_kernel`
 :857-867) a form that computes the DFT on the tensor cores (wgmma) as three
 bf16 products against the window-folded matrix of `constants.folded_dft`
-(`bf16_matrix`), an opt-in of its own accuracy class that no config takes
-and the fused-resample form lacks.
+(`bf16_matrix`), an opt-in of its own accuracy class that no config takes,
+in both forms.
 
 `logmel_prefix` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
@@ -48,7 +52,9 @@ for resampling configs). `launches` counts launches of the plain front-end,
 `conditioning_launches`, `plp_launches`, `spectrogram_launches`,
 `ssc_launches`, `centered_launches`, `direct_dft_launches`,
 `bluestein_launches` and `bf16x3_launches` count the launches (of either
-form) that take that branch. Set them to 0 to start a count.
+form) that take that branch, `split_launches` the plain-form launches of
+the split route (each after one `resample.cu` launch, counted by
+`kernels/resample.py`). Set them to 0 to start a count.
 
 `logmel_block` is the block launch of the plain form for streaming
 (`pipeline/streaming.py`): rows [N, span+1] whose sample 0 is each block's
@@ -98,6 +104,7 @@ direct_dft_launches = 0
 bluestein_launches = 0
 bf16x3_launches = 0
 block_launches = 0
+split_launches = 0
 
 
 def feature_kind(cfg: FrontendConfig) -> str:
@@ -512,16 +519,19 @@ def _a4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int) -> int:
+def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int, fir: int = 0,
+                 taps: int = 0) -> int:
     """Floats of the bf16x3 layout after the shared head (signal, window,
     packed bands) at `tile` frames and `stages` ring stages: the ring at a
     128-byte boundary, its mbarriers, the power rows, the frame energies and
-    means, and the per-warp projection scratch."""
-    kp, nbp = bf16_dims(cfg)
+    means, and the per-warp projection scratch, which the fused resample's
+    input window (`fir` floats) overlays, widening them only where it is
+    longer; then its tap table (`taps` floats)."""
     part = _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
     ring = stages * 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # hi and lo, bf16 in floats
     n = ((head + 31) & ~31) + ring + _a4(4 * stages)
-    return n + tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part
+    rows = tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part
+    return n + max(rows, _a4(fir)) + _a4(taps)
 
 
 def _span(cfg: FrontendConfig, tile: int) -> int:
@@ -542,24 +552,39 @@ def _head(cfg: FrontendConfig, tile: int) -> int:
             + (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0))
 
 
-@functools.lru_cache(maxsize=64)
-def bf16_plan(cfg: FrontendConfig) -> tuple[int, int]:
-    """(frames a block, ring stages) of the bf16x3 form: the first of 64 or
-    32 frames (a wgmma's 64 rows; at 32 the upper 32 are zero) and 4, 3 or
-    2 stages whose layout fits the block, else the smallest (refused by
-    `layout_reason`)."""
+def _fir_floats(cfg: FrontendConfig, tile: int, int16: bool) -> tuple[int, int]:
+    """(window, taps) floats of the fused resample at `tile` frames a block:
+    its input window in the rows' type (`rs_kernel.stage_floats`) and its
+    tap table [up, table_stride]; (0, 0) for a config at its feature rate."""
+    if not chain.resamples(cfg):
+        return 0, 0
+    d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+    window = rs_kernel.stage_floats(resample_window(cfg, tile), 2 if int16 else 4)
+    return window, d["up"] * rs_kernel.table_stride(d)
+
+
+@functools.lru_cache(maxsize=128)
+def bf16_plan(cfg: FrontendConfig, int16: bool = False) -> tuple[int, int]:
+    """(frames a block, ring stages) of the bf16x3 form for int16 or float32
+    rows: the first of 64 or 32 frames (a wgmma's 64 rows; at 32 the upper
+    32 are zero) and 4, 3 or 2 stages whose layout fits the block, in the
+    fused resample with its input window of that many frames and its taps
+    (csrc/frontend.cu plan_bf16); else the smallest (the split route's, or
+    refused by `layout_reason`)."""
     plans = [(t, s) for t in BF16_TILES for s in BF16_STAGES]
     for tile, stages in plans:
-        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile)) <= rs_kernel.SMEM_BUDGET_BYTES:
+        fir, taps = _fir_floats(cfg, tile, int16)
+        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), fir, taps) <= rs_kernel.SMEM_BUDGET_BYTES:
             return tile, stages
     return plans[-1]
 
 
-def resample_window(cfg: FrontendConfig) -> int:
-    """Input samples of the fused resample's window a block stages: the
-    FIR's window for x[t0-1 .. t0+span) (csrc/frontend.cu resample_window)."""
+def resample_window(cfg: FrontendConfig, tile: int = TILE) -> int:
+    """Input samples of the fused resample's window a block of `tile`
+    frames stages: the FIR's window for x[t0-1 .. t0+span) (csrc/frontend.cu
+    resample_window)."""
     d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
-    return rs_kernel.fir_window(_span(cfg, TILE) + 1, d)
+    return rs_kernel.fir_window(_span(cfg, tile) + 1, d)
 
 
 def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
@@ -567,16 +592,12 @@ def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
     int16 or float32 rows (csrc/frontend.cu layout)."""
     N, M = cfg.n_fft, cfg.n_mels
     if form == "bf16x3":
-        tile, stages = bf16_plan(cfg)
-        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile))
+        tile, stages = bf16_plan(cfg, int16)
+        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), *_fir_floats(cfg, tile, int16))
     n = _head(cfg, TILE) + _a4(2 * twiddle_count(N, form)) + _a4(len(stage_bases(N, form)))
     part = _a4(mel_matrices(cfg) * (32 + M))
-    rows = WARPS * (2 * row_floats(N, form) + part)
-    taps = 0
-    if chain.resamples(cfg):  # the input window over the warps' rows
-        d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
-        rows = max(rows, rs_kernel.stage_floats(resample_window(cfg), 2 if int16 else 4))
-        taps = d["up"] * rs_kernel.table_stride(d)
+    fir, taps = _fir_floats(cfg, TILE, int16)  # the input window over the warps' rows
+    rows = max(WARPS * (2 * row_floats(N, form) + part), fir)
     return 4 * (n + rows + _a4(taps))
 
 
@@ -600,10 +621,47 @@ def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = Tr
     return _smem(cfg, kernel_form(cfg, dft_passes), int16)
 
 
+def feature_rate_config(cfg: FrontendConfig) -> FrontendConfig:
+    """cfg at its feature rate (no input_sample_rate): the config of the
+    split route's second launch, the plain form on resampled rows."""
+    return cfg.replace(input_sample_rate=None)
+
+
+@functools.lru_cache(maxsize=256)
+def resample_route(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None:
+    """How a resampling config reaches the front-end on the card, picked by
+    the layout mirrors before any launch (None for a config at its feature
+    rate):
+    - "fused": one launch of the fused-resample form, which resamples the
+      rows as it stages them;
+    - "split": `resample.cu` on the rows (zeroed past each length, with
+      their output lengths, `rs_kernel.resample_rows`), then the plain form
+      on its rows at `feature_rate_config(cfg)`, the reference's unfused
+      route (`mfcc_tpu/ops/chain.py:734-764`). It takes centered framing
+      (the reference resamples, then dithers, reflects and frames the
+      resampled rows: `mfcc_tpu/kernels/frontend.py:1852-1862`), and every
+      config whose fused layout with float32 rows is over the block's shared
+      memory (192 kHz input; bf16x3 where no plan of `bf16_plan` fits). The
+      float32 rows' layout, the larger, decides, so int16 and float32 rows
+      take the same route and give the same output, bitwise."""
+    if not chain.resamples(cfg):
+        return None
+    if chain.centered(cfg):
+        return "split"
+    if smem_bytes(cfg, dft_passes, int16=False) > rs_kernel.SMEM_BUDGET_BYTES:
+        return "split"
+    return "fused"
+
+
 def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None:
     """Why cfg's kernel layout cannot launch (over the block's shared
     memory), or None. Held to the float32 rows' layout, the larger, so a
-    config the port takes runs with either row type."""
+    config the port takes runs with either row type. A resampling config is
+    held to the plain form's layout at its feature rate: the split route's
+    second launch, which the fused form (taken only where its own layout
+    fits) never exceeds."""
+    if chain.resamples(cfg):
+        cfg = feature_rate_config(cfg)
     n = smem_bytes(cfg, dft_passes, int16=False)
     if n <= rs_kernel.SMEM_BUDGET_BYTES:
         return None
@@ -636,7 +694,8 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
         p, i, p, p, p, p,  # audio, is_int16, lengths, out, n_valid, frame_mask
-        p, p, p, p, p, p, p, p,  # tables, taps
+        p, p, p, p, p, p, p,  # tables
+        p, p,  # dft_matrix (bf16x3), taps
         i, i, i, i, i, i, i,  # B, T, F, L, S, M, packed weights
         i, i, i, i,  # n_fft, dft_form, framing, drop_last
         i, i, i, i,  # up, down, half_len, K
@@ -653,10 +712,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radix4") -> dict:
-    """The card's view of cfg's kernel instantiation (needs a card):
-    registers a thread, local (spilled) bytes a thread, and the blocks an SM
-    holds at cfg's shared memory for these rows (`smem_bytes`), from cudaFuncGetAttributes
+    """The card's view of cfg's kernel instantiation (needs a card; of the
+    plain form on the split route, `resample_route`): registers a thread,
+    local (spilled) bytes a thread, and the blocks an SM holds at cfg's
+    shared memory for these rows (`smem_bytes`), from cudaFuncGetAttributes
     and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    if resample_route(cfg, dft_passes) == "split":
+        cfg = feature_rate_config(cfg)  # the split route's front-end launch
     out = (ctypes.c_int * 3)()
     smem = smem_bytes(cfg, dft_passes, int16)
     rc = _lib().mfcc_frontend_kernel_info(
@@ -694,8 +756,9 @@ def logmel_prefix(
     lengths count input samples and F frames of the resampled signal.
     `dft_passes` picks the DFT route (`kernel_form`): "radix4" (the
     default) and "fp32" (the full-fp32 form of `dft_form`), or "bf16x3"
-    (three bf16 tensor-core products, an opt-in of its own accuracy class,
-    not in the fused-resample form).
+    (three bf16 tensor-core products, an opt-in of its own accuracy class).
+    A resampling config takes the route of `resample_route`: the fused
+    form, or `resample.cu` and then the plain form.
 
     CUDA tensors launch the kernel (contiguous, on one device, else it
     raises); CPU tensors get the plain version. `consts` overrides the
@@ -769,12 +832,8 @@ def logmel_prefix_counts(
     `frame_counts_reference` of the lengths. On a CPU tensor all three are
     the plain versions; with B = 0 or F = 0 nothing launches and the counts
     are the plain version's."""
+    global split_launches
     form = kernel_form(cfg, dft_passes)
-    if form == "bf16x3" and chain.resamples(cfg):
-        raise NotImplementedError(
-            "dft_passes='bf16x3' in the fused-resample form: the resample branch of "
-            "csrc/frontend.cu has no bf16x3 DFT (ROADMAP queue 2 item 5)"
-        )
     if audio.device.type == "cpu":
         prefix = logmel_prefix_reference(audio, lengths, cfg, consts, dft_passes)
         return (prefix, *frame_counts_reference(lengths, cfg, prefix.shape[1]))
@@ -797,6 +856,14 @@ def logmel_prefix_counts(
     out = torch.empty((B, F, M + 1), dtype=torch.float32, device=audio.device)
     if B == 0 or F == 0:  # F = 0: "drop" framing of rows shorter than a frame
         return (out, *frame_counts_reference(lengths, cfg, F))
+    if resample_route(cfg, dft_passes) == "split":
+        rows, out_lengths = rs_kernel.resample_rows(audio, lengths, cfg.input_sample_rate,
+                                                    cfg.sample_rate)
+        at_rate = feature_rate_config(cfg)
+        n_valid, mask = _launch(rows, out_lengths, out, at_rate, consts,
+                                kernel_form(at_rate, dft_passes), origin=0)
+        split_launches += 1
+        return out, n_valid, mask
     n_valid, mask = _launch(audio, lengths, out, cfg, consts, form, origin=0)
     return out, n_valid, mask
 
@@ -824,7 +891,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
             d = R.polyphase_design(up, down)
             taps = rs_kernel.device_table(up, down, cfg.input_scale, audio.device)
             rc = lib.mfcc_frontend_logmel_resample(
-                *head, taps.data_ptr(), *dims, *framing,
+                *head, dft_matrix, taps.data_ptr(), *dims, *framing,
                 d["up"], d["down"], d["half_len"], d["K"], *tail, *branches, stream,
             )
         else:

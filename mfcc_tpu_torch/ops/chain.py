@@ -23,7 +23,10 @@ pre-emphasis, windowed-frame energy) follows framing, in Kaldi's order.
 `kernels/frontend.py::fused_logmel_stages`. There the front-end (dither
 and framing through log-mel and energy) is one hand-written CUDA kernel
 (`mfcc_tpu_torch/kernels/frontend.py`); for resampling configs the same
-kernel resamples the input rows as it stages them. For mfcc configs a second
+kernel resamples the input rows as it stages them, or, for centered
+framing and for fused layouts over the block (`frontend.resample_route`),
+the polyphase kernel resamples them first and the front-end frames its
+rows. For mfcc configs a second
 kernel (`kernels/tail.py`) turns its [log-mel | energy] prefix into the
 finished features (DCT, Δ/ΔΔ, mask, utterance CMVN); the other families feed
 the prefix to `features_from_logmel`'s prefix path (lanes [0, M) are the
@@ -117,15 +120,14 @@ def centered(cfg: FrontendConfig) -> bool:
 
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when the port implements `cfg`; otherwise what it still needs,
-    with its ROADMAP queue-2 item: centered framing of resampled rows, or a
-    kernel layout over the block's shared memory (an n_fft, frame length or
-    filter count too large for one front-end block; for mfcc configs, cepstra
-    and a delta window too large for one feature-tail block)."""
-    if resamples(cfg) and centered(cfg):
-        return (
-            "centered framing of resampled rows (the fused resample stages "
-            "no reflection; ROADMAP queue 2 item 3)"
-        )
+    with its ROADMAP queue-2 item (item 4): a kernel layout over the block's
+    shared memory (an n_fft, frame length or filter count too large for one
+    front-end block; for mfcc configs, cepstra and a delta window too large
+    for one feature-tail block). A resampling config is held to the plain
+    form's layout at its feature rate (`frontend.layout_reason`): centered
+    framing of resampled rows and fused layouts over the block take the
+    split route (`frontend.resample_route`), resample.cu and then the plain
+    form."""
     from mfcc_tpu_torch.kernels import frontend, tail  # the kernels' layout mirrors
 
     reason = frontend.layout_reason(cfg)

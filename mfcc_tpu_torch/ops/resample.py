@@ -183,9 +183,36 @@ def _resample_flat(x: torch.Tensor, up: int, down: int, n_out: int) -> torch.Ten
     return y.reshape(B, n_blk * J)
 
 
+DENSE_BLOCK_MAX = 1 << 22  # entries of the two-dot form's [J, W] block matrix it builds at most
+GATHER_CHUNK = 1 << 22  # outputs x taps a gather step of `_resample_gather` takes
+
+
+def _resample_gather(x: torch.Tensor, up: int, down: int, n_out: int) -> torch.Tensor:
+    """The polyphase sum as a gather, float64: y[j] = sum_i table[p, i] *
+    x[q - i] (a = j*down + half_len, p = a % up, q = a // up, x = 0 outside
+    the row), outputs a chunk at a time — for designs whose banded block
+    matrix is too large to build (16,000 -> 15,999: J = 15,999 outputs a
+    block, a [15,999, ~16,022] float64 matrix of 2 GB)."""
+    d = polyphase_design(up, down)
+    tab = torch.tensor(d["table"], device=x.device)
+    B, n_in = x.shape
+    i = torch.arange(d["K"], device=x.device)
+    y = x.new_empty((B, n_out))
+    step = max(1, GATHER_CHUNK // d["K"])
+    for j0 in range(0, n_out, step):
+        a = torch.arange(j0, min(n_out, j0 + step), device=x.device) * down + d["half_len"]
+        idx = (a // up)[:, None] - i[None, :]  # [n, K]
+        live = ((idx >= 0) & (idx < n_in)).to(x.dtype)
+        xs = x[:, idx.clamp(0, max(n_in - 1, 0))] * live
+        y[:, j0 : j0 + idx.shape[0]] = (xs * tab[a % up]).sum(-1)
+    return y
+
+
 def resample_reference(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Tensor:
     """The plain version: [..., T] float -> [..., output_length(T)] by the
-    two-dot form, on any device, returned in the input's dtype.
+    two-dot form, on any device, returned in the input's dtype; a design
+    whose [J, W] block matrix would be over DENSE_BLOCK_MAX entries takes
+    the same sum as a gather (`_resample_gather`).
 
     The dots accumulate in float64 and round once. In float32 the two-dot
     sums leave mfcc39_44k features up to 1.2e-3 from the float64 goldens
@@ -204,7 +231,12 @@ def resample_reference(audio: torch.Tensor, sr_in: int, sr_out: int) -> torch.Te
     lead = audio.shape[:-1]
     if n_in == 0:
         return audio.new_zeros(lead + (0,))
-    y = _resample_flat(audio.reshape(-1, n_in).double(), up, down, n_out)
+    x = audio.reshape(-1, n_in).double()
+    J = _block_J(up)
+    if J * (J * down // up + polyphase_design(up, down)["K"]) > DENSE_BLOCK_MAX:
+        y = _resample_gather(x, up, down, n_out)
+    else:
+        y = _resample_flat(x, up, down, n_out)
     return y[:, :n_out].reshape(lead + (n_out,)).to(audio.dtype)
 
 

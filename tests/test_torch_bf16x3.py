@@ -25,8 +25,10 @@ the front-end wrapper takes its plain version (`chain.bf16x3_power` inside
     (tests/test_pallas_kernels.py::test_bf16x3_path_runs_and_is_close;
     measured 1.8e-4 to 3.9e-4), and the port's within 1e-3 of the float64
     chain;
-  - `dft_passes` validation and routing, and the fused-resample form's
-    refusal.
+  - `dft_passes` validation and routing; in the fused-resample form the
+    plan and layout with the input window and taps, a numpy mirror of its
+    staging and product, and its plain prefix against the JAX package's
+    bf16x3 on the same resampled rows.
 """
 
 import ml_dtypes
@@ -230,14 +232,100 @@ def test_bf16x3_layout_takes_every_n_fft_the_parent_took():
     assert frontend.bf16_plan(T_CONFIGS["classic13"].replace(n_fft=2048))[0] == 32
 
 
+def _a4(n):
+    return (n + 3) & ~3
+
+
+def _fused_bf16_layout(cfg, tile, stages, int16):
+    """csrc/frontend.cu layout() of the fused resample's bf16x3 form, field
+    by field (floats): the signal row (span + 1), the window, the packed
+    mel weights and bin-filter words, the filters' offsets; at a 128-byte
+    boundary the ring (17,408 B a stage) and its full and empty mbarriers;
+    then the power rows, the frames' energies and means and the per-warp
+    projection scratch, which the input window (16-byte vectors of the rows'
+    samples plus one for the shift) overlays; then the tap table."""
+    from mfcc_tpu_torch.kernels import resample as K
+    from mfcc_tpu_torch.ops import resample as R
+
+    span = (tile - 1) * cfg.frame_step + cfg.frame_length
+    nnz = frontend.packed_count(cfg)
+    head = _a4(span + 1) + _a4(max(cfg.frame_length, cfg.n_fft)) + 2 * _a4(nnz) + _a4(cfg.n_mels + 1)
+    ring = (head + 31) // 32 * 32 + stages * 17408 // 4 + _a4(4 * stages)
+    pws = (cfg.n_bins + 31) // 32 * 32 + 4
+    rows = tile * pws + 2 * _a4(tile) + 8 * _a4(32 + cfg.n_mels)
+    d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+    v = 8 if int16 else 4  # samples a 16-byte vector
+    n_in = K.input_span(span + 1, d) if d["up"] > 1 else K.input_span(-(-(span + 1) // 7) * 7, d)
+    fir = (-(-n_in // v) * v + v) * (2 if int16 else 4) // 4
+    taps = d["up"] * K.table_stride(d)
+    return 4 * (ring + max(rows, _a4(fir)) + _a4(taps))
+
+
 @pytest.mark.parametrize("name", ["mfcc39_48k", "mfcc39_44k"])
 def test_fused_resample_form_refuses_bf16x3(name):
-    cfg = T_CONFIGS[name]
-    x = torch.zeros((1, 4800), dtype=torch.int16)
-    with pytest.raises(NotImplementedError, match="fused-resample form"):
-        frontend.fused_logmel_stages(x, torch.tensor([4800]), cfg, dft_passes="bf16x3")
-    with pytest.raises(NotImplementedError, match="bf16x3"):
-        frontend.logmel_prefix(x, torch.tensor([4800], dtype=torch.int32), cfg, dft_passes="bf16x3")
+    """bf16x3 in the fused-resample form, which the card refused before,
+    runs. Here:
+      - its plan (`bf16_plan`: 64 frames a block where the input window and
+        the taps fit beside the ring, else 32) and layout, by hand, for int16
+        and float32 rows; the route is the fused one (the float32 layout
+        fits);
+      - the kernel's staging and product in numpy (`_emulate_fused_staging`
+        at the plan's tile, then `_emulate_tile_power`) against the plain
+        bf16x3 power of the plain chain's resampled frames: 1e-5 of the row's
+        max power;
+      - the plain fused bf16x3 prefix (the wrapper's CPU path: the plain
+        resample, then `chain.bf16x3_power`) against the JAX package's
+        `fused_logmel_stages(dft_passes="bf16x3", interpret=True)` on the same
+        resampled rows, loud bins within CLASS_LOUD (the reference's bf16x3
+        gate), and against the jnp twin and the float64 chain at that gate;
+        the masks equal."""
+    from tests.test_torch_resample import _emulate_fused_staging
+    from mfcc_tpu.ops import resample as jresample
+
+    tcfg, jcfg = T_CONFIGS[name], J_CONFIGS[name]
+    want_plan = {"mfcc39_48k": {True: (64, 4), False: (64, 3)},
+                 "mfcc39_44k": {True: (64, 4), False: (32, 4)}}[name]
+    for int16 in (True, False):
+        tile, stages = frontend.bf16_plan(tcfg, int16)
+        assert (tile, stages) == want_plan[int16]
+        n = frontend.smem_bytes(tcfg, "bf16x3", int16)
+        assert n == _fused_bf16_layout(tcfg, tile, stages, int16) <= 232448
+        if stages < 4 or tile < 64:  # the next larger plan is over the block
+            bigger = (tile, stages + 1) if stages < 4 else (64, 2)
+            assert _fused_bf16_layout(tcfg, *bigger, int16) > 232448
+    assert frontend.resample_route(tcfg, "bf16x3") == "fused"
+
+    sr = tcfg.input_sample_rate
+    g = np.random.default_rng(31)
+    utts = [np.round(g.standard_normal(n) * 3000) for n in (sr, sr // 2 + 313, 1201)]
+    b = pad_batch(utts, tcfg, dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)
+
+    tile = frontend.bf16_plan(tcfg, True)[0]
+    sig = _emulate_fused_staging(b.audio.astype(np.float32), b.lengths, tcfg, np.float32, tile=tile)
+    x16, l16 = tchain.resample_input(audio, lengths, tcfg)
+    F, S, L = tcfg.num_frames(x16.shape[1]), tcfg.frame_step, tcfg.frame_length
+    idx = np.arange(F)[:, None] * S + np.arange(L)[None, :]
+    got_p = _emulate_tile_power(sig[:, idx], tcfg)
+    y = tchain.zero_beyond(tchain.preemphasis(x16, tcfg.preemph), l16)
+    y = torch.nn.functional.pad(y, (0, max(0, (F - 1) * S + L - y.shape[1])))
+    want_p = tchain.bf16x3_power(tchain.frame_signal(y, F, tcfg), tcfg).numpy()
+    rowmax = want_p.max(axis=-1, keepdims=True) + 1e-30
+    assert float((np.abs(got_p - want_p) / rowmax).max()) < 1e-5
+
+    st = frontend.fused_logmel_stages(audio, lengths, tcfg, dft_passes="bf16x3")
+    got = st["prefix"][..., : tcfg.n_mels].double().numpy()
+    ya = jresample.resample_batch(jnp.asarray(b.audio, jnp.float32), sr, tcfg.sample_rate)
+    ja = jresample.output_lengths(jnp.asarray(b.lengths), sr, tcfg.sample_rate)
+    js = jfrontend.fused_logmel_stages(ya, ja, jcfg, interpret=True, dft_passes="bf16x3")
+    ref = np.asarray(js["logmel"], np.float64)[:, : got.shape[1]]
+    twin = np.asarray(jchain.logmel_stages(ya, ja, jcfg)["logmel"], np.float64)
+    np.testing.assert_array_equal(st["frame_mask"].numpy(), np.asarray(js["frame_mask"])[:, : got.shape[1]])
+    f64 = frontend.logmel_prefix_reference(audio, lengths, tcfg.replace(dtype="float64"))
+    k = tcfg.log_kind
+    assert _loud_max_abs(got, ref, k) < CLASS_LOUD
+    assert _loud_max_abs(got, twin, k) < CLASS_LOUD
+    assert _loud_max_abs(got, f64[..., : tcfg.n_mels].numpy(), k) < CLASS_LOUD
 
 
 def test_bf16x3_in_float64_raises():

@@ -36,18 +36,21 @@ from mfcc_tpu_torch.kernels import frontend
 from mfcc_tpu_torch.ops import chain as tchain
 from mfcc_tpu_torch.ops import constants as tconstants
 from mfcc_tpu_torch.pipeline import batch as tbatch
-from mfcc_tpu_torch.testing import assert_features_close
+from mfcc_tpu_torch.testing import (
+    RESAMPLED_FEATURE_ATOL, RESAMPLED_FEATURE_RTOL, assert_family_features_close, assert_features_close,
+)
 from tests.test_jnp_chain import assert_logmel_close
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = ["classic13", "classic13_deltas"]
 SIGNALS = ("noise", "speechish", "short", "tone_offbin")
-# configs outside the port: every named config runs, so these are named
-# configs with what the port still refuses, centered framing of resampled
-# rows (whisper80 fed 48 kHz, the families centered at 48 kHz)
+# centered framing of resampled rows, once outside the port: whisper80 fed
+# 48 kHz, the families centered at 48 kHz (the split route on the card,
+# `frontend.resample_route`; resample_input then logmel_stages here)
 OUTSIDE = {"whisper80": {"input_sample_rate": 48000}}
 OUTSIDE.update({name: {"frame_tail": "center", "input_sample_rate": 48000}
                 for name in ("kaldi_plp", "kaldi_spectrogram", "ssc26")})
+OUTSIDE_PALLAS = ("whisper80", "ssc26")  # also held to the Pallas route (interpret mode)
 
 
 def _pcm(names=SIGNALS, scale=3000.0):
@@ -224,11 +227,68 @@ def test_carry_over_of_jax_constants():
     assert torch.equal(own, carried)
 
 
+def _outside_close(cfg, got, want):
+    """whisper80 at the resampled features' gate (8e-4), the other families
+    at their own gate."""
+    if cfg.features in ("plp", "spectrogram", "ssc"):
+        assert_family_features_close(got, want, cfg.features)
+    else:
+        np.testing.assert_allclose(got, want, atol=RESAMPLED_FEATURE_ATOL, rtol=RESAMPLED_FEATURE_RTOL)
+
+
 @pytest.mark.parametrize("name", sorted(OUTSIDE))
 def test_configs_outside_the_slice_raise(name):
-    cfg = T_CONFIGS[name].replace(**OUTSIDE[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg, device="cpu")
+    """Centered framing of resampled rows, which the port refused before,
+    runs and matches the JAX package: three ragged int16 rows at 48 kHz
+    (zero past each length) against `extract_batch(backend="jnp")`, and for
+    whisper80 and ssc26 against `backend="pallas"` (interpret mode: the
+    reference resamples, then its kernel reflects and frames), at the
+    resampled gate or the family's; the masks equal."""
+    tcfg = T_CONFIGS[name].replace(**OUTSIDE[name])
+    jcfg = J_CONFIGS[name].replace(**OUTSIDE[name])
+    assert tchain.unsupported_reason(tcfg) is None
+    assert frontend.resample_route(tcfg) == "split"
+    g = np.random.default_rng(sorted(OUTSIDE).index(name))
+    utts = [np.round(g.standard_normal(n) * 3000) for n in (48000, 31111, 4801)]
+    tb = tbatch.pad_batch(utts, tcfg, dtype="int16")
+    jb = jpipeline.pad_batch(utts, jcfg)
+    np.testing.assert_array_equal(tb.audio, jb.audio.astype(np.int16))
+    feat, mask = tchain.extract_batch(tb.audio, tb.lengths, tcfg, device="cpu")
+    assert feat.shape[:2] == mask.shape and torch.isfinite(feat).all()
+    backends = ("jnp", "pallas") if name in OUTSIDE_PALLAS else ("jnp",)
+    for backend in backends:
+        jfeat, jmask = jchain.extract_batch(jnp.asarray(jb.audio), jnp.asarray(jb.lengths), jcfg,
+                                            backend=backend)
+        F = feat.shape[1]
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask)[:, :F])
+        _outside_close(tcfg, feat.numpy(), np.asarray(jfeat)[:, :F])
+
+
+RESAMPLED_RATES = (22050, 32000, 44100, 48000, 96000, 192000)
+
+
+def test_unsupported_reason_takes_every_resampled_row():
+    """Every named config takes centered framing ("center" and
+    "center_reflect") at 22.05-192 kHz input, and its own framing at 192 kHz
+    input (the split route where the fused layout is over the block); what
+    the port still refuses (n_fft 3072, frames of 3 s, 170 cepstra at delta
+    window 8) is refused with or without resampling, citing ROADMAP queue 2
+    item 4."""
+    for name in sorted(T_CONFIGS):
+        for rate in RESAMPLED_RATES:
+            for tail in ("center", "center_reflect"):
+                cfg = T_CONFIGS[name].replace(input_sample_rate=rate, frame_tail=tail)
+                assert tchain.unsupported_reason(cfg) is None, (name, rate, tail)
+                assert frontend.resample_route(cfg) == "split"
+        cfg = T_CONFIGS[name].replace(input_sample_rate=192000)
+        assert tchain.unsupported_reason(cfg) is None and frontend.resample_route(cfg) == "split", name
+    refused = [dict(n_fft=3072), dict(win_len_s=3.0), dict(n_mels=170, n_ceps=170, delta_window=8)]
+    for over in refused:
+        for rate in (None, 48000):
+            cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, **over)
+            assert "ROADMAP queue 2 item 4" in tchain.unsupported_reason(cfg), (over, rate)
+    assert frontend.resample_route(T_CONFIGS["mfcc39_48k"]) == "fused"
+    assert frontend.resample_route(T_CONFIGS["classic13"]) is None
 
 
 def test_default_device_is_the_card():

@@ -30,7 +30,7 @@ from mfcc_tpu_torch.cli import main as tmain
 from mfcc_tpu_torch.config import NAMED_CONFIGS
 from mfcc_tpu_torch.io import read_ark, read_htk, read_shard, write_wav
 from mfcc_tpu_torch.parallel import cmvn as tcmvn
-from mfcc_tpu_torch.testing import assert_features_close, assert_logmel_close
+from mfcc_tpu_torch.testing import assert_features_close, assert_logmel_close, assert_whisper_features_close
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 COMMON = ["--batch-size", "8", "--threads", "2", "--max-len-s", "1.0", "--feed", "direct"]
@@ -111,6 +111,46 @@ def test_extract_matches_reference_cli(tmp_path, corpus, config_name):
     done = json.loads((tmp_path / "m.jsonl").read_text().splitlines()[-1])
     assert done["event"] == "done" and done["utterances"] == 11
     assert (done["decode_errors"], done["wrong_rate"], done["long_split"]) == (1, 1, 2)
+
+
+@pytest.fixture(scope="module")
+def corpus48(tmp_path_factory):
+    """Whisper-style input at 48 kHz: five files of 0.1-1.6 s (two over
+    --max-len-s 1.0, which split) and one at 16 kHz, the wrong rate."""
+    d = tmp_path_factory.mktemp("corpus48")
+    g = np.random.default_rng(48)
+    for i, n in enumerate([24000, 76801, 4800, 48000, 60013]):
+        env = np.repeat(g.uniform(0.05, 1.0, n // 2400 + 1), 2400)[:n]
+        write_wav(d / f"utt{i}.wav", 48000, (g.standard_normal(n) * 6000 * env).astype(np.int16))
+    write_wav(d / "r16k.wav", 16000, np.zeros(1600, np.int16))
+    return d
+
+
+def test_extract_whisper80_fed_48k_matches_reference_cli(tmp_path, corpus48):
+    """`extract --config whisper80 --set input_sample_rate=48000` (centered
+    framing of resampled rows, which the port refused with exit 2 before)
+    writes the reference CLI's shards, ids and markers, each utterance
+    within whisper80's gate (5e-5), the long files through the resampled
+    long-file path."""
+    conf = ["--config", "whisper80", "--set", "input_sample_rate=48000", "--metrics",
+            str(tmp_path / "m.jsonl")]
+    rc_j, j = _run(tmp_path, corpus48, *conf[:4], ref=True)
+    rc_t, t = _run(tmp_path, corpus48, *conf)
+    assert rc_j == rc_t == 0
+    names = sorted(p.name for p in j.glob("*.npz"))
+    assert sorted(p.name for p in t.glob("*.npz")) == names and names
+    _compare_markers(_markers(t), _markers(j))
+    n_utts = 0
+    for name in names:
+        got, want = read_shard(t / name), jread_shard(j / name)
+        assert list(got) == list(want)
+        for k in got:
+            assert got[k].shape == want[k].shape and got[k].shape[-1] == 80
+            assert_whisper_features_close(got[k], want[k])
+        n_utts += len(got)
+    assert n_utts == 5
+    done = json.loads((tmp_path / "m.jsonl").read_text().splitlines()[-1])
+    assert (done["utterances"], done["wrong_rate"], done["long_split"]) == (5, 1, 2)
 
 
 def _normalized_close(got: dict, want: dict, stats_path, cfg):

@@ -10,7 +10,10 @@ both chains over every framing ("pad", "drop", "center", "center_reflect"),
 with and without drop_last_frame, for rows at 16 kHz and resampled from 48
 and 44.1 kHz, at edge lengths: 0, 1, a frame length and its neighbours,
 hop and tile edges, negative lengths, and 44.1 kHz rows over 13.4 M samples
-(where n·160 passes 2^31). Exact: they are integers. The CPU route of
+(where n·160 passes 2^31). Centered resampled rows take the split route
+on the card, whose plain form counts from the output lengths resample.cu
+writes by the same formula (in 64 bits, then int32: no clamp is reached
+when down-sampling). Exact: they are integers. The CPU route of
 `logmel_prefix_counts` and `fused_logmel_stages` returns the chain's counts;
 tests/test_torch_gpu.py holds the kernel's own on a card.
 """
@@ -99,8 +102,6 @@ def _cases():
     for tail in frontend.FRAMINGS:
         for drop_last in (False, True):
             for rate in RATES:
-                if rate and tail.startswith("center"):
-                    continue  # centered framing of resampled rows is refused (ROADMAP queue 2)
                 out.append(pytest.param(tail, drop_last, rate,
                                         id=f"{tail}-{'drop_last' if drop_last else 'all'}-{rate or 16000}"))
     return out

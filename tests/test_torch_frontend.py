@@ -165,15 +165,39 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory (n_fft = 4096: ~404 KB) and
-    centered framing of resampled rows raise on every device."""
+    """A layout over the block's shared memory (n_fft = 4096: ~404 KB)
+    raises on every device. Centered framing of resampled rows, which it
+    refused before, runs: whisper80 fed 48 kHz takes the split route
+    (resample.cu, then the plain form's centered staging) on the card, and
+    here its plain version, whose prefix is the JAX package's resample and
+    jnp stages (the reflection of the 16 kHz rows at each row's output
+    length) within the prefix gates (whisper80's narrow Slaney filters at
+    the log-mel gate, 1e-4), with no launch."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="shared memory"):
         frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=4096))
-    with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
-        frontend.logmel_prefix(
-            audio, lengths, T_CONFIGS["whisper80"].replace(input_sample_rate=48000))
+    from mfcc_tpu.ops import resample as jresample
+    from mfcc_tpu_torch import testing
+
+    tcfg = T_CONFIGS["whisper80"].replace(input_sample_rate=48000)
+    jcfg = J_CONFIGS["whisper80"].replace(input_sample_rate=48000)
+    assert frontend.resample_route(tcfg) == "split" and frontend.layout_reason(tcfg) is None
+    g = np.random.default_rng(21)
+    lens = np.array([48000, 20011, 1500], np.int32)
+    x = np.round(g.standard_normal((3, 48000)) * 3000).astype(np.float32)
+    x[np.arange(48000)[None, :] >= lens[:, None]] = 0.0
+    before = (frontend.launches, frontend.split_launches, frontend.resample_launches)
+    got = frontend.logmel_prefix(torch.as_tensor(x), torch.as_tensor(lens), tcfg)
+    assert (frontend.launches, frontend.split_launches, frontend.resample_launches) == before
+    y = jresample.resample_batch(jnp.asarray(x), 48000, 16000)
+    n16 = jresample.output_lengths(jnp.asarray(lens), 48000, 16000)
+    st = jchain.logmel_stages(y, n16, jcfg)
+    want = np.concatenate([np.asarray(st["logmel"]), np.asarray(st["energy"])[..., None]], axis=-1)
+    assert got.shape == want.shape == (3, tcfg.num_frames(16000), tcfg.n_mels + 1)
+    mel = tchain.device_constants(tcfg, torch.device("cpu"), torch.float32)["mel"]
+    narrow = testing.narrow_lanes(mel)
+    testing.assert_prefix_close(got, want, tcfg.n_mels, tcfg.log_kind, narrow=narrow)
 
 
 def _twiddles64(n_fft):

@@ -95,8 +95,17 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio.double(), lengths, cfg)
     with pytest.raises(NotImplementedError, match="shared memory"):
         frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096))
-    with pytest.raises(NotImplementedError, match="centered framing of resampled rows"):
-        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["whisper80"].replace(input_sample_rate=48000))
+    # centered framing of resampled rows, refused before: the split route
+    # (resample.cu, then the plain form's centered staging), counted, within
+    # the prefix gates of the float64 plain version
+    w48 = NAMED_CONFIGS["whisper80"].replace(input_sample_rate=48000)
+    before = (rs_kernel.launches, frontend.launches, frontend.split_launches, frontend.resample_launches)
+    got = frontend.logmel_prefix(audio, lengths, w48)
+    torch.cuda.synchronize()
+    after = (rs_kernel.launches, frontend.launches, frontend.split_launches, frontend.resample_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 0)
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), w48.replace(dtype="float64"))
+    assert_prefix_close(got, want, w48.n_mels, w48.log_kind)
 
 
 def test_extract_batch_on_card_matches_cpu():
@@ -142,10 +151,18 @@ def test_resample_kernel_refusals():
     x = torch.zeros((2, 4800), device=dev)
     with pytest.raises(ValueError, match="float32"):
         resample.resample_batch(x.double(), 48000, 16000)
-    with pytest.raises(ValueError, match="232,448 bytes"):
-        resample.resample_batch(x, 16000, 15999)
     with pytest.raises(ValueError, match="contiguous"):
         resample.resample_batch(x[:, ::2], 48000, 16000)
+    # 16000 -> 15999, refused before (its 1.34 MB tap table): the taps read
+    # from device memory
+    g = np.random.default_rng(14)
+    x = torch.as_tensor((g.standard_normal((2, 4800)) * 3000).astype(np.float32), device=dev)
+    before = (rs_kernel.launches, rs_kernel.global_tap_launches)
+    got = resample.resample_batch(x, 16000, 15999)
+    torch.cuda.synchronize()
+    assert (rs_kernel.launches, rs_kernel.global_tap_launches) == (before[0] + 1, before[1] + 1)
+    err = testing.resample_error(got, rs_kernel.resample_reference(x, 16000, 15999), x)
+    assert err < testing.RESAMPLE_KERNEL_REL_ROWMAX, err
 
 
 @pytest.mark.parametrize("config_name,blocks", [("mfcc39_48k", 3), ("mfcc39_44k", 2)])
@@ -167,22 +184,34 @@ def test_fused_resample_blocks_an_sm(config_name, blocks):
     assert rs["smem_bytes"] == rs_kernel.smem_bytes(*resample.ratio(cfg.input_sample_rate, 16000))
 
 
-def test_fused_resample_over_budget_raises():
-    """A ratio whose fused layout does not fit the block (16000/15999: a
-    16,000 x 21 tap table) raises on the card before any launch, as
-    chain.unsupported_reason refuses it on the CPU; it never becomes the
-    two-launch split."""
+@pytest.mark.parametrize("sr_in", [15999, 192000])
+def test_fused_resample_over_budget_raises(sr_in):
+    """A ratio whose fused layout does not fit the block (15999 Hz input: a
+    16,000 x 21 tap table; 192 kHz input: its window), which raised before,
+    takes the split route, picked by the layout mirror before any launch:
+    resample.cu once (global taps at 15999 Hz), the plain form once, the
+    fused form never; the prefix within its gates of the plain version,
+    int16 ≡ float32 bitwise, and extract_batch within 8e-4 of the CPU
+    chain."""
     dev = _card()
-    cfg = NAMED_CONFIGS["mfcc39_48k"].replace(input_sample_rate=15999)
-    assert frontend.layout_reason(cfg) is not None
-    audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
-    lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
+    cfg = NAMED_CONFIGS["mfcc39_48k"].replace(input_sample_rate=sr_in)
+    assert frontend.layout_reason(cfg) is None and frontend.resample_route(cfg) == "split"
+    assert frontend.smem_bytes(cfg, int16=False) > rs_kernel.SMEM_BUDGET_BYTES
+    g = np.random.default_rng(sr_in)
+    n = sr_in * 2
+    audio = torch.as_tensor((g.standard_normal((3, n)) * 3000).astype(np.int16), device=dev)
+    lengths = torch.tensor([n, n - 4001, 997], dtype=torch.int32, device=dev)
     before = (frontend.launches, frontend.resample_launches, rs_kernel.launches)
-    with pytest.raises(NotImplementedError, match="232,448"):
-        frontend.logmel_prefix(audio, lengths, cfg)
-    with pytest.raises(NotImplementedError, match="232,448"):
-        chain.extract_batch(audio, lengths, cfg)
-    assert (frontend.launches, frontend.resample_launches, rs_kernel.launches) == before
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.launches, frontend.resample_launches, rs_kernel.launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert_prefix_close(got, frontend.logmel_prefix_reference(audio, lengths, cfg), cfg.n_mels)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    feat, mask = chain.extract_batch(audio, lengths, cfg)
+    cpu, cpu_mask = chain.extract_batch(audio.cpu(), lengths.cpu(), cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    testing.assert_resampled_features_close(feat, cpu)
 
 
 @pytest.mark.parametrize("config_name", ["mfcc39_48k", "mfcc39_44k"])
@@ -772,7 +801,8 @@ def test_bf16x3_matches_reference(name, overrides):
 
 def test_bf16x3_form_runs_wgmma():
     """The bf16x3 instantiations' SASS holds HGMMA (wgmma) and the ring's
-    bulk copies (UBLKCP), and no HMMA (mma.sync)."""
+    bulk copies (UBLKCP), and no HMMA (mma.sync): 8 of the plain form and 8
+    of the fused resample (int16 or float32 rows, dither, conditioning)."""
     import pathlib
     import subprocess
 
@@ -783,7 +813,8 @@ def test_bf16x3_form_runs_wgmma():
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
     bf16 = [fn for fn in dump.split("Function : ")[1:] if "Lb1EEEv" in fn.split("\n", 1)[0]]
-    assert len(bf16) == 8
+    assert len(bf16) == 16
+    assert sum("Lb1ELb" in fn.split("\n", 1)[0].split("logmel_kernel", 1)[1][:8] for fn in bf16) == 8
     for fn in bf16:
         assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
 
@@ -819,11 +850,105 @@ def test_bluestein_form_through_extract_batch_and_the_fp32_route(n_fft):
 
 
 def test_bf16x3_refused_in_the_fused_resample_form():
+    """bf16x3 in the fused-resample form, refused before, runs: at 48 and
+    44.1 kHz one fused launch that takes the bf16x3 branch, within the
+    bf16x3 gates of its plain version, int16 ≡ float32 bitwise, no spills."""
     dev = _card()
-    audio = torch.zeros((1, 4800), dtype=torch.int16, device=dev)
-    lengths = torch.tensor([4800], dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="fused-resample form"):
-        frontend.logmel_prefix(audio, lengths, NAMED_CONFIGS["mfcc39_48k"], dft_passes="bf16x3")
+    g = np.random.default_rng(15)
+    for name in ("mfcc39_48k", "mfcc39_44k"):
+        cfg = NAMED_CONFIGS[name]
+        n = cfg.input_sample_rate * 2
+        audio = torch.as_tensor((g.standard_normal((3, n)) * 3000).astype(np.int16), device=dev)
+        lengths = torch.tensor([n, n - 3001, 1201], dtype=torch.int32, device=dev)
+        assert frontend.resample_route(cfg, "bf16x3") == "fused"
+        before = (frontend.resample_launches, frontend.bf16x3_launches, rs_kernel.launches)
+        got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+        torch.cuda.synchronize()
+        assert (frontend.resample_launches, frontend.bf16x3_launches, rs_kernel.launches) == (
+            before[0] + 1, before[1] + 1, before[2])
+        want = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+        errs = testing.prefix_errors(got, want, cfg.n_mels)
+        assert not testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL), errs
+        assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3"))
+        for int16 in (True, False):
+            info = frontend.kernel_info(cfg, int16, "bf16x3")
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.parametrize("name,over", [
+    ("whisper80", {"input_sample_rate": 48000}),
+    ("classic13_deltas", {"frame_tail": "center", "input_sample_rate": 44100}),
+    ("kaldi_mfcc", {"frame_tail": "center", "dither": 1.0, "input_sample_rate": 48000}),
+    ("kaldi_plp", {"frame_tail": "center", "input_sample_rate": 48000}),
+    ("kaldi_spectrogram", {"frame_tail": "center", "input_sample_rate": 48000}),
+    ("ssc26", {"frame_tail": "center", "input_sample_rate": 48000}),
+], ids=["whisper80_48k", "classic13_deltas_center_44k", "kaldi_mfcc_center_dither_48k",
+        "kaldi_plp_center_48k", "kaldi_spectrogram_center_48k", "ssc26_center_48k"])
+def test_centered_resampled_rows_take_the_split_route(name, over):
+    """Centered framing of resampled rows: extract_batch launches resample.cu
+    once, the plain form once (its centered branch, the dither branch once
+    when dithering), the fused form never and, for mfcc, the tail once; the
+    features within the family's gate of the CPU chain (8e-4 resampled,
+    whisper80 5e-5), masks equal, two runs bitwise equal."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**over)
+    sr = cfg.input_sample_rate
+    g = np.random.default_rng(sr + len(name))
+    pcm = (g.standard_normal((3, 2 * sr)) * 3000).astype(np.int16)
+    lens = np.array([2 * sr, sr + 777, 1999], np.int32)
+    pcm[np.arange(2 * sr)[None, :] >= lens[:, None]] = 0
+    audio = torch.as_tensor(pcm, device=dev)
+    lengths = torch.as_tensor(lens, device=dev)
+    counts = lambda: (rs_kernel.launches, frontend.launches, frontend.resample_launches,  # noqa: E731
+                      frontend.centered_launches, frontend.dither_launches, tail.tail_launches)
+    before = counts()
+    feat, mask = chain.extract_batch(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    mfcc = cfg.features == "mfcc"
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0, 1, int(cfg.dither > 0), int(mfcc))
+    cpu, cpu_mask = chain.extract_batch(pcm, lens, cfg, device="cpu")
+    assert torch.equal(mask.cpu(), cpu_mask)
+    if cfg.logmel_norm == "whisper":
+        testing.assert_whisper_features_close(feat, cpu)
+    elif mfcc:
+        testing.assert_resampled_features_close(feat, cpu)
+    else:
+        testing.assert_family_features_close(feat, cpu, cfg.features)
+    again, _ = chain.extract_batch(audio, lengths, cfg)
+    assert torch.equal(feat, again)
+
+
+@pytest.mark.parametrize("sr_in,sr_out,mode,tile", [
+    (192000, 8000, "staged", 1120), (16000, 15999, "global_taps", 1792),
+    (48000, 400, "global_all", 1792), (192000, 16000, "staged", 1792),
+])
+def test_resample_kernel_plans(sr_in, sr_out, mode, tile):
+    """resample.cu at each plan: a reduced tile, the taps from device
+    memory, the windows too; within 1e-5 of each row's max |x| of the plain
+    version, counted by branch; int16 rows with lengths (`resample_rows`)
+    ≡ the same rows in float32 bitwise, and within 1e-5 of
+    `resample_rows_reference`, their output lengths equal."""
+    dev = _card()
+    assert rs_kernel.plan(*resample.ratio(sr_in, sr_out)) == (tile, mode)
+    g = np.random.default_rng(sr_out)
+    T = 3 * sr_in // 4 + 13
+    x16 = torch.as_tensor((g.standard_normal((4, T)) * 3000).astype(np.int16), device=dev)
+    x = x16.float()
+    counts = lambda: (rs_kernel.launches, rs_kernel.reduced_tile_launches,  # noqa: E731
+                      rs_kernel.global_tap_launches, rs_kernel.global_window_launches)
+    before = counts()
+    got = resample.resample_batch(x, sr_in, sr_out)
+    torch.cuda.synchronize()
+    want_d = (1, int(tile < rs_kernel.TILE_OUT), int(mode != "staged"), int(mode == "global_all"))
+    assert tuple(a - b for a, b in zip(counts(), before)) == want_d
+    err = testing.resample_error(got, rs_kernel.resample_reference(x, sr_in, sr_out), x)
+    assert err < testing.RESAMPLE_KERNEL_REL_ROWMAX, err
+    lengths = torch.tensor([T, T - 1, T // 3, 0], dtype=torch.int32, device=dev)
+    y16, n16 = rs_kernel.resample_rows(x16, lengths, sr_in, sr_out)
+    yf, nf = rs_kernel.resample_rows(x, lengths, sr_in, sr_out)
+    wy, wn = rs_kernel.resample_rows_reference(x, lengths, sr_in, sr_out)
+    assert torch.equal(y16, yf) and torch.equal(n16, nf) and torch.equal(n16, wn.to(torch.int32))
+    assert testing.resample_error(y16, wy, x) < testing.RESAMPLE_KERNEL_REL_ROWMAX
 
 
 def test_a_tail_layout_over_the_block_raises_on_the_card():

@@ -19,6 +19,7 @@ from a numpy seed.
 """
 
 import functools
+import types
 
 import numpy as np
 import pytest
@@ -176,6 +177,31 @@ def test_diff_grad_matches_jax_extract_batch_diff(name, over):
     got = _grad(b.audio, b.lengths, cfg, chain.extract_batch_diff)
     assert np.isfinite(got).all()
     assert _rel(got, want) < GRAD_RTOL, _rel(got, want)
+
+
+def test_diff_grad_of_whisper80_fed_48k_matches_jax():
+    """extract_batch_diff on whisper80 fed 48 kHz (centered framing of
+    resampled rows, which the port refused before): two rows of 0.25 s at
+    48 kHz, no padding (the reference's gradient reaches padding, ROADMAP
+    queue 3), against `jax.grad` of the JAX package's extract_batch_diff
+    (its resample, then its Pallas forward in interpret mode; the jnp twin's
+    backward) within 1e-4; its forward the port's extract_batch, bitwise,
+    and a float64 directional derivative within 1e-5."""
+    name, over = "whisper80", {"input_sample_rate": 48000}
+    jcfg, cfg = jnamed_config(name).replace(**over), named_config(name).replace(**over)
+    b = types.SimpleNamespace(audio=(RNG.standard_normal((2, 12000)) * 1000 + 50).astype(np.float32),
+                              lengths=np.array([12000, 12000], np.int32))
+    lengths = jnp.asarray(b.lengths)
+    want = np.asarray(jax.grad(lambda x: (jchain.extract_batch_diff(x, lengths, jcfg)[0] ** 2).sum())(
+        jnp.asarray(b.audio)))
+    got = _grad(b.audio, b.lengths, cfg, chain.extract_batch_diff)
+    assert np.isfinite(got).all()
+    assert _rel(got, want) < GRAD_RTOL, _rel(got, want)
+    feat, _ = chain.extract_batch_diff(torch.as_tensor(b.audio), b.lengths, cfg)
+    plain, _ = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
+    assert torch.equal(feat, plain)
+    g, num = _directional(cfg, b)
+    assert abs(g - num) <= DIRECTIONAL_RTOL * abs(num), (g, num)
 
 
 def _jnp_grad(b, jcfg) -> np.ndarray:

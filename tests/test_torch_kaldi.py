@@ -292,20 +292,33 @@ def test_pad_batch_under_drop_matches_jax(name):
 @pytest.mark.parametrize(
     "over,match",
     [(dict(win_len_s=3.0), "shared memory"),
-     (dict(frame_tail="center", input_sample_rate=48000), "centered framing of resampled rows"),
+     (dict(frame_tail="center", input_sample_rate=48000), None),
      (dict(log_kind="log10_floor", n_fft=4096), "shared memory"),
-     (dict(drop_last_frame=True, frame_tail="center_reflect", input_sample_rate=44100),
-      "centered framing of resampled rows")],
+     (dict(drop_last_frame=True, frame_tail="center_reflect", input_sample_rate=44100), None)],
     ids=["long_frame_conditioning", "centered", "log10_floor", "drop_last_frame"],
 )
 def test_outside_the_slice_raises_on_cpu(over, match):
     """Conditioning of long frames, centered framing, log10_floor and
     drop_last_frame are in the port; each still raises where it meets what
-    is not: a 3 s frame or n_fft = 4096 over the kernel's shared memory,
-    centered framing of resampled rows."""
+    is not: a 3 s frame or n_fft = 4096 over the kernel's shared memory.
+    Centered framing of resampled rows (48 and 44.1 kHz), which raised
+    before, runs (match None): two ragged rows against the JAX package's
+    jnp chain at the resampled features' gate, masks equal."""
     cfg = T_CONFIGS["kaldi_mfcc"].replace(**over)
-    with pytest.raises(NotImplementedError, match=match):
-        tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg, device="cpu")
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tchain.extract_batch(np.zeros((1, 16000), np.int16), [16000], cfg, device="cpu")
+        return
+    jcfg = J_CONFIGS["kaldi_mfcc"].replace(**over)
+    g = np.random.default_rng(5)
+    sr = cfg.input_sample_rate
+    utts = [np.round(g.standard_normal(n) * 3000) for n in (sr, sr // 2 + 77)]
+    b = jpipeline.pad_batch(utts, jcfg)
+    feat, mask = tchain.extract_batch(b.audio.astype(np.int16), b.lengths, cfg, device="cpu")
+    jfeat, jmask = jchain.extract_batch(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg, backend="jnp")
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), atol=testing.RESAMPLED_FEATURE_ATOL,
+                               rtol=testing.RESAMPLED_FEATURE_RTOL)
 
 
 def test_dither_float64_chain_is_exact_under_x64():

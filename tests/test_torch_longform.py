@@ -142,3 +142,24 @@ def test_long_moments_match_reference():
         want = jlongform.long_moments(feat)
         for a, b in zip(got, want):
             np.testing.assert_array_equal(a, b)
+
+
+def test_whisper80_fed_48k_over_60_s_matches_reference():
+    """whisper80 fed 48 kHz (centered framing of resampled rows, which the
+    port refused before) over 60 s: `mfcc_tpu_torch.extract` takes
+    `extract_long` (resample first, then segments of the 16 kHz signal)
+    and matches the JAX package's `extract` of the same samples, frame for
+    frame, within whisper80's gate (5e-5), and the port's monolithic
+    `extract_single`."""
+    import mfcc_tpu
+    import mfcc_tpu_torch
+
+    tcfg = T_CONFIGS["whisper80"].replace(input_sample_rate=48000)
+    jcfg = J_CONFIGS["whisper80"].replace(input_sample_rate=48000)
+    x = _signal(tcfg, seconds=75.0, seed=3)
+    got = mfcc_tpu_torch.extract(x, tcfg, device="cpu")
+    want = np.asarray(mfcc_tpu.extract(x, jcfg))
+    assert got.shape == want.shape == (tcfg.num_frames(75 * 16000), tcfg.feat_dim)
+    assert_whisper_features_close(got.numpy(), want)
+    mono = chain.extract_single(torch.as_tensor(x), tcfg, device="cpu").numpy()
+    assert_whisper_features_close(got.numpy(), mono)

@@ -249,8 +249,9 @@ def test_polyphase_mirror_float32_vs_plain():
     assert err < testing.RESAMPLE_KERNEL_REL_ROWMAX, err
 
 
-def _emulate_fused_staging(audio, lengths, cfg, dtype):
-    """The fused resample's staging in csrc/frontend.cu, tile by tile: the
+def _emulate_fused_staging(audio, lengths, cfg, dtype, tile=frontend.TILE):
+    """The fused resample's staging in csrc/frontend.cu, tile by tile of
+    `tile` frames (the FFT forms' 32; the bf16x3 form's `bf16_plan`): the
     input window masked at t_in >= length, x[t0-1 .. t0+span) by the FIR
     (x[-1] = 0, zero past the output length), pre-emphasis and zeroing.
     Returns the staged signal rows [B, T_out + a tile] and checks that
@@ -261,15 +262,15 @@ def _emulate_fused_staging(audio, lengths, cfg, dtype):
     B, T = audio.shape
     T_out = R.output_length(T, cfg.input_sample_rate, cfg.sample_rate)
     F, S = cfg.num_frames(T_out), cfg.frame_step
-    span = (frontend.TILE - 1) * S + cfg.frame_length
+    span = (tile - 1) * S + cfg.frame_length
     n_win = K.input_span(span + 1, d)
     c = dtype(cfg.preemph)
-    n_tiles = -(-F // frontend.TILE)
-    sig = np.full((B, (n_tiles - 1) * frontend.TILE * S + span), np.nan, dtype)
+    n_tiles = -(-F // tile)
+    sig = np.full((B, (n_tiles - 1) * tile * S + span), np.nan, dtype)
     for b in range(B):
         len_in = max(0, min(int(lengths[b]), T))
         n_valid = -(-len_in * up // down)
-        for f0 in range(0, F, frontend.TILE):
+        for f0 in range(0, F, tile):
             t0 = f0 * S
             lo = _first_input(t0 - 1, d)
             win = _stage(audio[b].astype(dtype), lo, n_win, len_in)
@@ -314,17 +315,117 @@ def test_fused_staging_mirror_matches_plain(config_name):
 
 
 def test_smem_budget():
-    """Both kernels fit the 48, 44.1, 22.05 and 8 kHz tables; a ratio whose
-    table does not fit is refused, naming the limit."""
+    """Both kernels fit the 48, 44.1, 22.05 and 8 kHz tables at their whole
+    tile; resample.cu's plan fits every ratio: 16000/15999's table (16,000
+    phases of 21 taps, 1.34 MB) is read from device memory at the whole
+    tile, 192 kHz -> 8 kHz takes 1,120 outputs a tile, and a decimation by
+    over 118 reads its windows from device memory too."""
     for sr_in, sr_out, _ in RATES:
+        assert K.plan(*R.ratio(sr_in, sr_out)) == (K.TILE_OUT, "staged")
         assert K.smem_bytes(*R.ratio(sr_in, sr_out)) <= K.SMEM_BUDGET_BYTES
         cfg = T_CONFIGS["mfcc39_48k"].replace(input_sample_rate=sr_in)
         assert frontend.smem_bytes(cfg) <= K.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(T_CONFIGS["mfcc39_44k"]) == 107696  # two blocks an SM
     assert frontend.smem_bytes(T_CONFIGS["classic13"]) == 71200  # the plain form
-    big = K.smem_bytes(*R.ratio(16000, 15999))
-    with pytest.raises(ValueError, match="232,448 bytes"):
-        K.check_budget(big, "the 16000 -> 15999 Hz tap table")
+    d = R.polyphase_design(*R.ratio(16000, 15999))
+    assert 4 * d["up"] * K.table_stride(d) > K.SMEM_BUDGET_BYTES  # the table alone is over
+    assert K.plan(*R.ratio(16000, 15999)) == (K.TILE_OUT, "global_taps")
+    assert K.plan(*R.ratio(192000, 8000)) == (1120, "staged")
+    assert K.plan(1, 119) == (K.TILE_OUT, "global_all") and K.plan(1, 114) == (224, "global_taps")
+    for up, down in [(16000, 15999), (1, 24), (1, 119), (1, 480), (15999, 16000), (1, 12)]:
+        for int16 in (False, True):
+            assert K.smem_bytes(up, down, int16) <= K.SMEM_BUDGET_BYTES
+        tile, mode = K.plan(up, down)
+        assert tile % K.TILE_STEP == 0 and K.TILE_STEP <= tile <= K.TILE_OUT
+
+
+# ---------------------------------------------------------------------------
+# ratios over a block's 227 KB: resample.cu's plan, its mirror, the plain
+# version
+# ---------------------------------------------------------------------------
+
+PLAN_RATES = [(192000, 8000, 24011), (16000, 15999, 8011)]
+PLAN_IDS = ["192k_to_8k", "16000_to_15999"]
+
+
+def _plan_bytes(d, tile, staged_taps):
+    """csrc/resample.cu's layout by hand, float32 rows: the table [up,
+    table_stride] when staged, two windows of fir_window(tile) samples in
+    16-byte vectors plus one for the shift, the output row."""
+    table = (d["up"] * K.table_stride(d) + 3) // 4 * 4 if staged_taps else 0
+    window = -(-K.fir_window(tile, d) // 4) * 4 + 4
+    return 4 * (table + 2 * window + tile)
+
+
+def _mirror_plan(x, lengths, sr_in, sr_out, dtype):
+    """csrc/resample.cu at its plan (`K.plan`) in numpy: per (row, tile of
+    the plan's outputs) the window of fir_window(n) samples from the tile's
+    first input, zero outside [0, the row's length) (the staged window that
+    pp_mask zeroes in modes 0 and 1, PpGlobalWindow's masked reads in mode
+    2: the same values), each output by `_outputs` over the table (staged,
+    or read from device memory: the same taps); the row's first tile gives
+    its output length, ceil(length · up / down)."""
+    up, down = R.ratio(sr_in, sr_out)
+    d = R.polyphase_design(up, down)
+    tile, _ = K.plan(up, down)
+    tab = d["table"].astype(dtype)
+    B, T = x.shape
+    n_out = R.output_length(T, sr_in, sr_out)
+    y = np.empty((B, n_out), dtype)
+    out_len = np.empty(B, np.int64)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), T)
+        for j0 in range(0, n_out, tile):
+            m = min(tile, n_out - j0)
+            lo = K.first_input(j0, d)
+            win = _stage(x[b].astype(dtype), lo, K.fir_window(m, d), n)
+            y[b, j0 : j0 + m] = _outputs(np.arange(j0, j0 + m), lo, win, tab, d)
+        out_len[b] = -(-int(lengths[b]) * up // down)
+    return y, out_len
+
+
+@pytest.mark.parametrize("sr_in,sr_out,T", PLAN_RATES, ids=PLAN_IDS)
+def test_ratios_over_the_block_plan_mirror_and_plain(sr_in, sr_out, T):
+    """192 kHz -> 8 kHz (down 24) takes 1,120 outputs a tile, the largest
+    multiple of 224 whose two windows fit beside the staged table; 16,000
+    -> 15,999 (up 15,999, 21 taps a phase) reads its table, alone over the
+    block, from device memory at the whole tile. The mirror of the kernel at
+    that plan, on ragged rows with garbage past each length, equals scipy on
+    the zeroed rows in float64 (1e-12) and `resample_rows`' plain version in
+    float32 (1e-5 of each row's max |x|), with its output lengths; the plain
+    version (`resample_batch` on a CPU tensor) is within 1e-5 of scipy and of
+    the JAX package's `resample_batch`."""
+    up, down = R.ratio(sr_in, sr_out)
+    d = R.polyphase_design(up, down)
+    tile, mode = K.plan(up, down)
+    if up == 1:
+        assert (tile, mode) == (1120, "staged")
+        assert _plan_bytes(d, tile, True) == K.smem_bytes(up, down) <= K.SMEM_BUDGET_BYTES
+        assert _plan_bytes(d, tile + K.TILE_STEP, True) > K.SMEM_BUDGET_BYTES
+    else:
+        assert (tile, mode) == (K.TILE_OUT, "global_taps")
+        assert _plan_bytes(d, K.TILE_STEP, True) > K.SMEM_BUDGET_BYTES  # no tile fits the table
+        assert _plan_bytes(d, tile, False) == K.smem_bytes(up, down) <= K.SMEM_BUDGET_BYTES
+    g = np.random.default_rng(up + down)
+    x = (g.standard_normal((4, T)) * 3000).astype(np.float32)
+    lengths = np.array([T, T - 1, T // 3 + 5, 0], np.int32)
+    clean = np.where(np.arange(T)[None, :] < lengths[:, None], x, 0.0).astype(np.float32)
+    got64, n_out = _mirror_plan(x.astype(np.float64), lengths, sr_in, sr_out, np.float64)
+    want64 = scipy.signal.resample_poly(clean.astype(np.float64), up, down, axis=-1)
+    np.testing.assert_allclose(got64, want64, rtol=0, atol=1e-12 * np.abs(want64).max())
+    np.testing.assert_array_equal(n_out, R.output_lengths(torch.as_tensor(lengths), sr_in, sr_out).numpy())
+    got32, _ = _mirror_plan(x, lengths, sr_in, sr_out, np.float32)
+    plain, plain_n = K.resample_rows(torch.as_tensor(x), torch.as_tensor(lengths), sr_in, sr_out)
+    assert plain_n.dtype == torch.int32 and np.array_equal(plain_n.numpy(), n_out)
+    assert testing.resample_error(got32, plain.numpy(), x) < testing.RESAMPLE_KERNEL_REL_ROWMAX
+    ours = R.resample_batch(torch.as_tensor(clean), sr_in, sr_out).numpy()
+    assert testing.resample_error(ours, want64, clean) < testing.RESAMPLE_KERNEL_REL_ROWMAX
+    try:
+        theirs = np.asarray(jresample.resample_batch(jnp.asarray(clean), sr_in, sr_out))
+    finally:  # 16,000 -> 15,999: the reference's 2 GB float64 block matrix is cached
+        jresample._stream_design.cache_clear()
+    assert theirs.shape == ours.shape
+    assert testing.resample_error(ours, theirs, clean) < testing.RESAMPLE_KERNEL_REL_ROWMAX
 
 
 # ---------------------------------------------------------------------------

@@ -224,6 +224,21 @@ def test_whisper80_is_refused():
         StreamingExtractor(T_CONFIGS["whisper80"], device="cpu")
 
 
+@pytest.mark.parametrize("name,over", [("whisper80", {"input_sample_rate": 48000}),
+                                       ("classic13", {"frame_tail": "center", "input_sample_rate": 44100})],
+                         ids=["whisper80_48k", "classic13_center_44k"])
+def test_centered_resampled_rows_are_refused_in_the_references_words(name, over):
+    """Offline, centered framing of resampled rows runs (the split route);
+    streaming still refuses centered framing, with the reference's message
+    word for word, on every device."""
+    tcfg, jcfg = T_CONFIGS[name].replace(**over), J_CONFIGS[name].replace(**over)
+    with pytest.raises(ValueError) as mine:
+        StreamingExtractor(tcfg, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        jstreaming.StreamingExtractor(jcfg)
+    assert str(mine.value) == str(theirs.value) and "centered framing" in str(mine.value)
+
+
 def test_default_device_is_the_card(monkeypatch):
     """device="cuda" is the default, and without a card it raises instead
     of running on the CPU."""
