@@ -15,7 +15,8 @@ Phases, in order; any failure exits non-zero:
      whisper80 and kaldi_mfcc with dither 1.0 at three blocks an SM or more;
      the fused resample's int16 instantiation at three for mfcc39_48k and
      two for mfcc39_44k, its float32 one printed; the Bluestein form at
-     n_fft 404 at two, and with dither printed) and of each bf16x3
+     n_fft 404 at two, and with dither printed), of each block-plan
+     instantiation at n_fft 1102 (no spills) and of each bf16x3
      instantiation (no spills);
   3. path classic13_deltas (b64 x 10 s int16 PCM at 16 kHz, lengths
      n - 571*i): the front-end kernel against its plain version (the
@@ -100,10 +101,11 @@ Phases, in order; any failure exits non-zero:
   15. the Bluestein FFT: classic13 at n_fft 404 (P = 512) and 551 (odd, P =
      960), b16, through extract_batch and through
      fused_logmel_stages(dft_passes="fp32"), each counted (Bluestein 1,
-     direct 0), against the float64 plain version, the n_fft 404 features' error
-     against the CPU chain printed; timed beside rfft(n=...) and the bound;
-     then n_fft 1102, a size whose Bluestein block does not fit, through the
-     direct DFT, counted and timed;
+     the block plan 0), against the float64 plain version, the n_fft 404
+     features' error against the CPU chain printed; timed beside
+     rfft(n=...) and the bound; then n_fft 1102, a size whose warp-plan rows
+     do not fit, the same through the block FFT plan (counted), timed: under
+     its plain version's time and within 5x rfft(n=1102), or it fails;
   16. a radix-3 Stockham size (classic13 at n_fft 480), b16;
   17. frames longer than n_fft (kaldi_mfcc with 40 ms frames at n_fft 512,
      with raw and windowed energy), b16;
@@ -242,6 +244,18 @@ Phases, in order; any failure exits non-zero:
      device memory) on four 10 s rows, within 1e-5 of each row's max |x| of
      the plain version and of scipy float64, with the tile and tap branch
      printed, counted by branch, timed beside the bound.
+  27. the block FFT plan at the sizes the warp plan refused: librosa's
+     framing (logmel80 at 22.05 kHz, n_fft 2048, 2048-sample frames, hop
+     512, 128 mels), b64 x 10 s int16: the kernel against the float64 plain
+     version, int16 ≡ float32, two runs and dirty tails bitwise, the counts
+     and mask, extract_batch counted (front-end 1 in the block plan) within
+     the two-regime log-mel gate of the CPU chain and the float64 chain, one
+     block launch (row origin 1) at frames [100, 140) against the offline
+     prefix, timed (device time, events, plain, rfft(n=2048), bound, a
+     profiled step); classic13_deltas at n_fft 4096 (Stockham, 2,048
+     points) and 2501 (Bluestein, P = 4,096, its tables in device memory),
+     b16, through `small_path` (front-end and tail counted), each timed the
+     same way.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -259,8 +273,8 @@ flush buffer zeroed before each, beyond the 50 MB L2), each beside the
 card's name and power limit. `bound_ms` is computed from each run's inputs
 against the H100 SXM peaks (3.35 TB/s, 67 TFLOP/s fp32 without tensor
 cores) at the function's minimum: an n_fft/2-point complex FFT counted by
-the split-radix formula (whatever form the kernel takes: Stockham or the
-Bluestein or direct DFT), the real split with its 1/2 scalings folded into the
+the split-radix formula (whatever form the kernel takes: Stockham or
+Bluestein, in either plan), the real split with its 1/2 scalings folded into the
 power scale, the mel sums
 over the filters' nonzero weights (none for a spectrogram; for SSC the
 per-bin clamps, two sums per weight and a division per filter, and no
@@ -377,11 +391,29 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:905",
     },
-    "direct": {
-        "name": "frontend_direct_dft",
+    "block_fft": {
+        "name": "frontend_block_fft_bluestein_1102",
         "route": "cuda",
         "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:807",
+    },
+    "block_fft_2501": {
+        "name": "frontend_block_fft_bluestein_2501_global_tables",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:807",
+    },
+    "block_fft_4096": {
+        "name": "frontend_block_fft_stockham_4096",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "block_fft_librosa": {
+        "name": "frontend_block_fft_librosa_22k_2048",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
     },
     "bluestein": {
         "name": "frontend_bluestein_dft",
@@ -433,6 +465,9 @@ KERNELS = {
     },
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
+# librosa's default framing (librosa.feature.melspectrogram: sr 22,050, n_fft
+# 2048, win_length n_fft, hop 512, 128 mels), a logmel80 override
+LIBROSA = dict(sample_rate=22050, n_fft=2048, win_len_s=2048 / 22050, hop_s=512 / 22050, n_mels=128)
 # dither: float operations per sample that holds signal (uniforms 4, ln,
 # -2x, sqrt, cos(2 pi u) 20, r cos, sigma n, the add) and integer ones (two
 # fmix32 16, row key 2, t / S and t % S, lane add, the two 16-bit halves
@@ -486,9 +521,9 @@ def host_ms(torch, fn, reps: int = 7) -> float:
     return float(np.median(times))
 
 
-def trace(torch, fn, kernel_substr: str | None, steps: int = 5):
+def trace(torch, fn, kernel_substr: str | None, steps: int = 5, warmup: int = 2):
     """(device events, the events whose name holds kernel_substr) of
-    `steps` calls of fn, traced after two warm-up calls inside the same
+    `steps` calls of fn, traced after `warmup` warm-up calls inside the same
     session (a session's first launches can be missed while tracing starts:
     one run saw 4 of 5 front-end records). A trace that still lost some of
     those kernels' records is taken again, up to three times; kernel_substr
@@ -498,8 +533,8 @@ def trace(torch, fn, kernel_substr: str | None, steps: int = 5):
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=2, active=steps, repeat=1)) as prof:
-            for _ in range(2 + steps):
+                     schedule=schedule(wait=0, warmup=warmup, active=steps, repeat=1)) as prof:
+            for _ in range(warmup + steps):
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
@@ -542,17 +577,25 @@ def device_ms(torch, fn, kernel_substr: str | None = None, steps: int = 5) -> fl
     (with None, every kernel of fn), the 64 MiB flush buffer zeroed before
     each call (`trace`). CUDA events around one launch of a kernel of ~0.1
     ms also hold the host's time in the wrapper: at b16 they read n_fft 512
-    at 0.2225 ms on one host. Where the profiler lost records in all three
-    traces (with None: fewer kernel records than calls; one run lost every
-    record of `rfft(n=1102)`): CUDA events (said so)."""
+    at 0.2225 ms on one host. With None fn may launch several kernels a
+    call (cuFFT does), so three traces are taken and the one with the most
+    records is used, its count a whole number a call: one run read
+    `rfft(n=4096)` at half its time from a trace that had lost some records.
+    Where the profiler lost records in all three traces (with None: fewer
+    kernel records than calls, or none whole; one run lost every record of
+    `rfft(n=1102)`): CUDA events (said so)."""
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    best: list = []
     for _ in range(3 if kernel_substr is None else 1):
         on_device, ours = trace(torch, lambda: (flush.zero_(), fn()), kernel_substr, steps)
-        if kernel_substr is None:  # fn's own kernels: at least one a call
+        if kernel_substr is None:  # fn's own kernels: a whole number a call
             ours = [e for e in on_device if "Fill" not in e.name and "Memset" not in e.name]
-            if len(ours) >= steps:
-                break
-            print(f"  profiler: {len(ours)} kernel records for {steps} calls, tracing again")
+            if len(ours) >= steps and len(ours) % steps == 0 and len(ours) > len(best):
+                best = ours
+            if len(ours) < steps or len(ours) % steps:
+                print(f"  profiler: {len(ours)} kernel records for {steps} calls, tracing again")
+    if kernel_substr is None:
+        ours = best
     if len(ours) < steps or (kernel_substr is not None and len(ours) != steps):
         print("  (the profiler lost records in three traces: CUDA events, the wrapper's host "
               "time included)")
@@ -575,8 +618,9 @@ class Counters:
         self.frontend.spectrogram_launches = 0
         self.frontend.ssc_launches = 0
         self.frontend.centered_launches = 0
-        self.frontend.direct_dft_launches = 0
         self.frontend.bluestein_launches = 0
+        self.frontend.block_fft_launches = 0
+        self.frontend.global_table_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.block_launches = 0
         self.frontend.split_launches = 0
@@ -598,8 +642,9 @@ class Counters:
             "spectrogram": self.frontend.spectrogram_launches,
             "ssc": self.frontend.ssc_launches,
             "centered": self.frontend.centered_launches,
-            "direct": self.frontend.direct_dft_launches,
             "bluestein": self.frontend.bluestein_launches,
+            "block_fft": self.frontend.block_fft_launches,
+            "global_tables": self.frontend.global_table_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
@@ -635,7 +680,7 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     n_fft/2-point complex FFT counted by the split-radix formula
     4H log2 H - 6H + 8 at H = n_fft/2 (the least count known for a power of
     two, and below any known count for other sizes: the bound counts the
-    function, not the kernel's Stockham or direct form), the real
+    function, not the kernel's Stockham or Bluestein form), the real
     split, |X|^2, then by feature kind: mel over the nonzero weights with a
     clamp and log per filter (mfcc, logmel) or without (plp), a clamp and log
     per bin (spectrogram), or SSC's clamp per bin that a filter weighs, two
@@ -741,13 +786,22 @@ def in_turns(torch, fns, reps: int = 20) -> list[float]:
 def step_kernels(torch, fn, steps: int = 5, kernel_substr: str = "tail_kernel"
                  ) -> tuple[float, dict[str, float]]:
     """(device events a call, {event name: events a call}) over `steps`
-    traced calls of fn after two warm-up calls (`trace`, which retraces where
-    it lost records of the kernels named by kernel_substr); a trace that lost
-    some front-end records is taken again, up to three times."""
-    for _ in range(3):
-        on_device, _ = trace(torch, fn, kernel_substr, steps)
-        if sum("logmel_kernel" in e.name for e in on_device) == steps:
+    traced calls of fn after warm-up calls (`trace`, which retraces where it
+    lost records of the kernels named by kernel_substr); a trace that lost
+    some front-end records, or some records of any kernel (a count that is
+    not whole a call: two runs traced 4 of 5 resample.cu launches at phase
+    26, one in three traces in a row), is taken again with two more warm-up
+    calls, up to eight times, each retrace said."""
+    for attempt in range(8):
+        on_device, _ = trace(torch, fn, kernel_substr, steps, warmup=2 + 2 * attempt)
+        counts: dict[str, int] = {}
+        for e in on_device:
+            counts[e.name] = counts.get(e.name, 0) + 1
+        if (sum("logmel_kernel" in e.name for e in on_device) == steps
+                and all(c % steps == 0 for c in counts.values())):
             break
+        short = {k[:40]: c for k, c in counts.items() if c % steps}
+        print(f"  profiler: records short of {steps} calls {short}, tracing again")
     names: dict[str, float] = {}
     for e in on_device:
         names[e.name] = names.get(e.name, 0) + 1 / steps
@@ -1052,13 +1106,14 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     audio = torch.as_tensor(batch.audio, device="cuda")
     lengths_d = torch.as_tensor(batch.lengths, device="cuda")
     F = cfg.num_frames(batch.audio.shape[1])
-    form = frontend.dft_form(cfg)
+    form, (plan, groups) = frontend.dft_form(cfg), frontend.fft_layout(cfg)
     branches = {k: 1 for k, on in (
-        ("centered", chain.centered(cfg)), ("direct", form == "direct"),
-        ("bluestein", form == "bluestein"),
+        ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"),
+        ("global_tables", plan == "block_global"), ("bluestein", form == "bluestein"),
         ("dither", cfg.dither > 0.0), ("conditioning", chain.needs_conditioning(cfg))) if on}
     print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
-          f"{frontend.smem_bytes(cfg)} B of shared memory a block")
+          f"{plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg)} B of shared "
+          "memory a block")
     counters.zero()
     got = frontend.logmel_prefix(audio, lengths_d, cfg)
     torch.cuda.synchronize()
@@ -1085,6 +1140,32 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     return batch, audio, lengths_d, errs, launches
 
 
+def dft_times(torch, chain, frontend, cfg, batch, audio, lengths, what: str, tag: str) -> dict:
+    """The kernel's device time (profiler, L2 flushed), CUDA events around
+    it, its plain version (events), torch.fft.rfft(n=n_fft) on the same
+    windowed frames (device time) and the bound, printed; the KERNELS line's
+    numbers but launches and max_abs_err."""
+    B, F = audio.shape[0], cfg.num_frames(batch.audio.shape[1])
+    event_ms, plain_ms, _ = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
+    kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg), "logmel_kernel")
+    st = chain.logmel_stages(audio, lengths, cfg)
+    framed = st["windowed"].reshape(B * F, -1).contiguous()
+    del st
+    rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
+    del framed
+    lens64 = np.minimum(batch.lengths.astype(np.int64), batch.audio.shape[1])
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B, F),
+                               frontend_ops(cfg, chain, frontend, torch, lens64, F))
+    plan, groups = frontend.fft_layout(cfg)
+    print(f"  frontend kernel, {what} ({frontend.dft_form(cfg)} form, {plan} plan, {groups} frames a "
+          f"block at once): {kernel_ms:.4f} ms of device time, L2 flushed ({bound_ms / kernel_ms * 100:.1f}% "
+          f"of bound; {kernel_ms / rfft_ms:.2f}x rfft; {kernel_ms / plain_ms:.3f}x its plain version); "
+          f"CUDA events {event_ms:.4f} ms {tag}")
+    print(f"  plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={cfg.n_fft}) on "
+          f"[{B * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+
+
 def bluestein_path(torch, counters, tag: str, results: dict) -> None:
     """Phase 15: the Bluestein form at classic13 n_fft 404 and 551 (odd),
     b16 x 10 s: `small_path` (the kernel counted against the float64 plain
@@ -1092,8 +1173,9 @@ def bluestein_path(torch, counters, tag: str, results: dict) -> None:
     counted, features within 5e-4 of the CPU chain and the float64 chain);
     fused_logmel_stages(dft_passes="fp32") counted, its prefix bitwise the
     default route's; each timed beside rfft(n=n_fft) and its bound. Then
-    n_fft 1102 (its Bluestein rows are over the block) through the direct
-    DFT, counted and timed."""
+    n_fft 1102 (its warp-plan rows are over the block) through the block
+    FFT plan, counted and timed: under its plain version and within 5x
+    rfft."""
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
     from mfcc_tpu_torch.ops import chain
@@ -1101,25 +1183,25 @@ def bluestein_path(torch, counters, tag: str, results: dict) -> None:
     n16 = 16000 * SECONDS
     lens = [n16 - 571 * i for i in range(B_SMALL)]
     print(f"== 15. the Bluestein FFT: classic13 n_fft 404 and 551, b{B_SMALL} x {SECONDS} s; "
-          "the direct DFT at 1102")
-    for n_fft, seed, key in ((404, 21, "bluestein"), (551, 30, None), (1102, 31, "direct")):
+          "the block FFT plan at 1102")
+    for n_fft, seed, key in ((404, 21, "bluestein"), (551, 30, None), (1102, 31, "block_fft")):
         cfg = named_config("classic13").replace(n_fft=n_fft)
-        form = frontend.dft_form(cfg)
-        check(form == ("direct" if n_fft == 1102 else "bluestein"), f"n_fft {n_fft} takes the {form} form")
-        if form == "bluestein":
-            q, k, P = frontend.bluestein_dims(n_fft)
-            print(f"  n_fft {n_fft}: Q {q} points, K {k} outputs, P {P} = "
-                  f"{'*'.join(map(str, frontend.radices(2 * P)))}, {frontend.smem_bytes(cfg)} B a block")
+        form, plan = frontend.dft_form(cfg), frontend.fft_plan(cfg)
+        check(form == "bluestein" and (plan == "warp") == (n_fft != 1102),
+              f"n_fft {n_fft} takes the {form} form in the {plan} plan")
+        q, k, P = frontend.bluestein_dims(n_fft)
+        print(f"  n_fft {n_fft}: Q {q} points, K {k} outputs, P {P} = "
+              f"{'*'.join(map(str, frontend.radices(2 * P)))}, {frontend.smem_bytes(cfg)} B a block")
         batch, audio, lengths, errs, launches = small_path(
             torch, counters, cfg, lens, n16, seed, f"classic13 n_fft {n_fft}", testing.FEATURE_ATOL,
             prefix64=True)
-        if form == "bluestein":
-            counters.zero()
-            st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="fp32")
-            torch.cuda.synchronize()
-            counters.expect("fused_logmel_stages(dft_passes='fp32')", frontend=1, bluestein=1)
-            check(torch.equal(st["prefix"], frontend.logmel_prefix(audio, lengths, cfg)),
-                  "the fp32 route's prefix == the default route's, bitwise")
+        counters.zero()
+        st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="fp32")
+        torch.cuda.synchronize()
+        counters.expect("fused_logmel_stages(dft_passes='fp32')", frontend=1, bluestein=1,
+                        **({"block_fft": 1} if plan != "warp" else {}))
+        check(torch.equal(st["prefix"], frontend.logmel_prefix(audio, lengths, cfg)),
+              "the fp32 route's prefix == the default route's, bitwise")
         if n_fft == 551:
             # cuFFT's own rfft at this size, beside the float64 product
             # chain.power_spectrum takes on the card instead
@@ -1133,24 +1215,11 @@ def bluestein_path(torch, counters, tag: str, results: dict) -> None:
             del st, got, want
         if key is None:
             continue
-        F = cfg.num_frames(batch.audio.shape[1])
-        event_ms, plain_ms, _ = kernel_times(torch, chain, frontend, cfg, audio, lengths, F)
-        kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg), "logmel_kernel")
-        st = chain.logmel_stages(audio, lengths, cfg)
-        framed = st["windowed"].reshape(B_SMALL * F, -1).contiguous()
-        del st
-        rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=n_fft, dim=-1))
-        del framed
-        lens64 = batch.lengths.astype(np.int64)
-        bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B_SMALL, F),
-                                   frontend_ops(cfg, chain, frontend, torch, lens64, F))
-        print(f"  frontend kernel, {form} form at n_fft {n_fft}: {kernel_ms:.4f} ms of device time, L2 "
-              f"flushed ({bound_ms / kernel_ms * 100:.1f}% of bound; {kernel_ms / rfft_ms:.2f}x rfft); "
-              f"CUDA events {event_ms:.4f} ms {tag}")
-        print(f"  plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={n_fft}) on "
-              f"[{B_SMALL * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
-        results[key] = dict(launches=launches[key], max_abs_err=errs["max_abs"], ms=kernel_ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+        times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, f"n_fft {n_fft}", tag)
+        results[key] = dict(launches=launches[key], max_abs_err=errs["max_abs"], **times)
+        if key == "block_fft":
+            check(times["ms"] < times["plain_ms"], "the block FFT plan under its plain version's time")
+            check(times["ms"] < 5 * times["library_ms"], "the block FFT plan within 5x rfft(n=1102)")
         if n_fft == 404:
             r2_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=512)),
                               "logmel_kernel")
@@ -1158,10 +1227,96 @@ def bluestein_path(torch, counters, tag: str, results: dict) -> None:
         del audio, lengths
 
 
+def large_n_fft_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 27: the n_fft sizes the warp plan refused, through the block
+    FFT plan: librosa's framing (logmel80 at 22.05 kHz, n_fft 2048, hop 512,
+    128 mels) at b64 x 10 s int16 through extract_batch (one front-end
+    launch, counted) against the float64 plain version, the CPU chain and
+    the float64 chain; classic13_deltas at n_fft 4096 (Stockham) and 2501
+    (Bluestein, its tables in device memory) at b16 through the kernels
+    (`small_path`, the front-end and the tail counted); one block launch at
+    librosa's framing against the offline prefix on its valid frames; each
+    timed beside its plain version, rfft(n=n_fft) and its bound."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    cfg = named_config("logmel80").replace(**LIBROSA)
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 571, seed=27)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    plan, groups = frontend.fft_layout(cfg)
+    print(f"== 27. the block FFT plan: librosa's framing (22.05 kHz, n_fft 2048, frames of 2048, hop 512, "
+          f"128 mels) b{B} x {SECONDS} s int16 [{B}, {T}], {F} frames, {plan} plan ({groups} frames a "
+          f"block at once), {frontend.smem_bytes(cfg)} B a block (the warp plan's "
+          f"{frontend._fft_smem(cfg, 'stockham', 'warp'):,} B)")
+    check(plan == "block" and chain.unsupported_reason(cfg) is None, "librosa's framing takes the block plan")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, block_fft=1)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "librosa's framing, main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+          and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+          "int16 rows == float32 rows, and two runs equal, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 27), lengths, cfg)),
+          "garbage past each length leaves the output unchanged")
+    check_counts(torch, frontend, audio, lengths, cfg, "librosa's framing")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1, block_fft=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, None)
+    del feat, mask
+
+    # one block launch (row origin 1) over frames [f0, f0 + K) of row 0
+    # against the offline prefix on its valid frames
+    K, S, L = 40, cfg.frame_step, cfg.frame_length
+    f0 = 100
+    span = (K - 1) * S + L
+    t0 = f0 * S
+    rows = audio[:1, t0 - 1 : t0 + span].float().contiguous()
+    valid = torch.tensor([min(int(batch.lengths[0]) - t0, span)], dtype=torch.int32, device="cuda")
+    counters.zero()
+    blk = frontend.logmel_block(rows, valid, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the block launch", block=1, block_fft=1)
+    nv = int(chain.num_valid_frames(valid, cfg)[0])
+    check_prefix(testing, blk[:, :nv], got[:1, f0 : f0 + nv], cfg,
+                 f"block launch at frames [{f0}, {f0 + K}) vs the offline prefix ({nv} valid)")
+    del got
+
+    print(f"  times {tag}")
+    times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, "librosa's framing", tag)
+    results["block_fft_librosa"] = dict(launches=launches["block_fft"], max_abs_err=errs["max_abs"], **times)
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag)
+    del audio, lengths
+
+    n16 = 16000 * SECONDS
+    lens = [n16 - 571 * i for i in range(B_SMALL)]
+    for n_fft, seed, key in ((4096, 271, "block_fft_4096"), (2501, 272, "block_fft_2501")):
+        cfg = named_config("classic13_deltas").replace(n_fft=n_fft)
+        print(f"   classic13_deltas n_fft {n_fft}: warp plan {frontend._fft_smem(cfg, frontend.dft_form(cfg), 'warp'):,} B")
+        batch, audio, lengths, errs, launches = small_path(
+            torch, counters, cfg, lens, n16, seed, f"classic13_deltas n_fft {n_fft}", testing.FEATURE_ATOL,
+            prefix64=True)
+        check(launches["block_fft"] == 1 and launches["tail"] == 1, "the block plan and the tail, once each")
+        times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, f"n_fft {n_fft}", tag)
+        results[key] = dict(launches=launches["block_fft"], max_abs_err=errs["max_abs"], **times)
+        del audio, lengths
+    print(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
     """Phases 13-18: whisper80 ragged, centered framing with conditioning
-    and dither, the Bluestein form (n_fft 404 and 551, timed) and the direct
-    DFT (1102, timed), a radix-3 Stockham size (n_fft 480), frames longer
+    and dither, the Bluestein form (n_fft 404 and 551, timed) and its block
+    FFT plan (1102, timed), a radix-3 Stockham size (n_fft 480), frames longer
     than n_fft, and rows over the reference's 8 MiB slab bound (timed)."""
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
@@ -1487,8 +1642,9 @@ def occupancy(frontend, named_config) -> None:
     (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor):
     registers, local (spilled) bytes and blocks an SM of each of the 16
     FFT-form ones (int16 or float32 rows, plain or fused resample, dither,
-    conditioning; the Stockham, Bluestein and direct forms share them) and
-    of the 8 bf16x3 ones (the plain form only), at the shared memory of a
+    conditioning; the Stockham and Bluestein forms share them), of the 8
+    block-plan ones (the plain form only, at n_fft 1102) and of the 8
+    bf16x3 ones (the plain form only), at the shared memory of a
     config that takes it; then the named configs' blocks an SM and the
     Bluestein form's at n_fft 404 and 551. Fails on a spill, under three
     blocks an SM for classic13, logmel80 or whisper80, or under two for the
@@ -1542,6 +1698,17 @@ def occupancy(frontend, named_config) -> None:
             info = frontend.kernel_info(cfg.replace(dither=1.0))
             print(f"    classic13 n_fft 404, dither 1.0: {info['smem_bytes']} B of shared memory a block, "
                   f"{info['blocks_per_sm']} blocks an SM, {info['registers']} registers")
+    print("  block-plan instantiations (rows, dither, conditioning) at n_fft 1102: registers, local "
+          "bytes, blocks an SM at that config's shared memory (plan, frames a block at once)")
+    for int16 in (True, False):
+        for dith in (False, True):
+            for cond in (False, True):
+                cfg = named_config("kaldi_mfcc" if cond else "classic13").replace(
+                    n_fft=1102, dither=1.0 if dith else 0.0)
+                info = frontend.kernel_info(cfg, int16)
+                print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
+                      f"{int(cond)}: {info}, {frontend.fft_layout(cfg)}")
+                check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
     print("  bf16x3 instantiations (rows, dither, conditioning): registers, local bytes, blocks an SM "
           "at that config's shared memory (frames a block, ring stages)")
     for int16 in (True, False):
@@ -3156,9 +3323,9 @@ def main(argv=None) -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("non-contiguous rows", lambda: R.resample_batch(x[:1, ::2], sr_in, 16000), ValueError),
-        ("a front-end layout over the block's shared memory (n_fft 4096)",
+        ("a front-end layout over the block's shared memory (n_fft 6001)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("classic13").replace(n_fft=4096)),
+                                     named_config("classic13").replace(n_fft=6001)),
          NotImplementedError),
     ):
         try:
@@ -3412,7 +3579,7 @@ def main(argv=None) -> int:
         feature_kind, numbers = family_path(torch, counters, name, seed, phase, tag)
         results[feature_kind] = numbers
 
-    # 12-18. whisper80, centered framing, the direct DFT and other Stockham sizes,
+    # 12-18. whisper80, centered framing, the Bluestein form and other Stockham sizes,
     # long frames and long rows
     results["whisper"] = whisper_path(torch, counters, tag)
     new_form_paths(torch, counters, tag, results)
@@ -3432,6 +3599,7 @@ def main(argv=None) -> int:
         training_path(torch, counters, tag, results)
         tools_path(torch, tag, work)
     resampled_rows_path(torch, counters, tag, results)
+    large_n_fft_path(torch, counters, tag, results)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

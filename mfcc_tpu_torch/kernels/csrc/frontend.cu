@@ -6,8 +6,9 @@
 // extension _reflect_extend (:1572-1640) and the log10_floor epilogue
 // (:701); _make_kernel (:807-897) with kernel_constants (:160-241), the
 // DFT of the fp32 dft_passes route, for the sizes radix-4 cannot tile and
-// at any n_fft for the fp32 route (here the full-fp32 Stockham, Bluestein
-// or direct form of the size); the bf16x3 route on the tensor cores
+// at any n_fft for the fp32 route (here the full-fp32 Stockham or
+// Bluestein form of the size, a frame a warp or, at large sizes, a frame a
+// block); the bf16x3 route on the tensor cores
 // (wgmma), in both forms; and the dither, frame-first conditioning, log-kind and PLP,
 // spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
@@ -59,7 +60,8 @@
 //      so y[length] = 0, and it does not rely on the padding being zero.
 //      Under non-centered framing a tile that starts at or past its row's
 //      length stages nothing (all its frames are zero frames, step 2z).
-//   2. Each warp takes one frame at a time.
+//   2. Each warp takes one frame at a time (the warp plan; the block plan,
+//      below, has the whole block take each frame in turn).
 //   2z. A frame that starts at or past its row's length (non-centered
 //      framing, both forms) holds only zeros by construction, so it takes
 //      no DFT: its power row is set to 0, exactly what the DFT of its zero
@@ -85,15 +87,15 @@
 //          remainder or a sincosf. Rows are padded by one float2 after
 //          every 8 (index i at i + i/8): stage 0's stride-8 stores, 8-way
 //          bank conflicts in a plain row, spread over 16 banks.
-//      (d) every other N whose block fits, odd ones included: the Bluestein
-//          FFT (replaces the O(N * bins) direct sum the fp32 route took
-//          there). It computes the first K outputs of a Q-point DFT as a
-//          chirp-z convolution through a P-point Stockham FFT on the same
+//      (d) every other N, odd ones included: the Bluestein FFT (it replaced
+//          the O(N * bins) direct sum the fp32 route took there). It
+//          computes the first K outputs of a Q-point DFT as a chirp-z
+//          convolution through a P-point Stockham FFT on the same
 //          stages as (a): even N packs the frame as in (a) (Q = K = H, then
 //          the real split); odd N transforms its N real samples (Q = N,
-//          K = N/2 + 1), one frame a warp, at P >= N + K - 1 (two frames as
-//          one complex sequence would need P >= 2N - 1 and rows that do not
-//          fit 8 warps beside the span at N = 551). P is the cheapest size
+//          K = N/2 + 1), one frame at a time, at P >= N + K - 1 (two frames
+//          as one complex sequence would need P >= 2N - 1 and rows that do
+//          not fit 8 warps beside the span at N = 551). P is the cheapest size
 //          >= Q + K - 1 the stages take: fewest stages, then fewest points
 //          (404: P = 512 = 8*8*8, three passes; 551: 960 = 8*8*3*5). With
 //          the chirp c[n] = e^{-i pi n^2/Q} (n^2 mod 2Q an exact integer on
@@ -105,19 +107,16 @@
 //          is staged and read at min(n, P - n)), and runs the same forward
 //          stages, which leave the conjugate of the convolution; Z[k] =
 //          c[k] conj(D[k]) then feeds the real split (even N) or is X[k]
-//          (odd N). Two FFTs of P points a frame against the direct sum's
+//          (odd N). Two FFTs of P points a frame against a direct sum's
 //          N * bins lookups; the error grows as log P.
-//      (b) the direct DFT, only where the Bluestein rows do not fit the block
-//          (at 26 filters: odd N over 683, and even N over 1,024 whose half
-//          has a prime factor of 7 or more; kernels/frontend.py dft_form):
-//          lane k sums X[k] = sum_n v[n] e^{-2 pi i ((k n) mod N)/N} with the
-//          exact integer index into a table of all N entries.
+//      No direct DFT is left: every N takes (a) or (d), in the warp plan or
+//      the block plan (below).
 //      Every table is computed on the host in float64; every sum is fp32
 //      FMA: no TF32, no bf16 (1-pass reduced precision breaks the 1e-4
 //      log-mel gate, docs/KERNEL.md section 3). For (a) and even-N (d) the real split gives
-//      X[k] and X[H-k] from Z[k] and Z[H-k] (k <= H/2) into the warp's free
-//      row, summing the powers on the way (the pspec energy); (b) writes
-//      its power row directly. Rows are indexed by bin in every form.
+//      X[k] and X[H-k] from Z[k] and Z[H-k] (k <= H/2) into the free row,
+//      summing the powers on the way (the pspec energy). Rows are indexed
+//      by bin in every form.
 //   4. The projection over packed mel bands: the host packs each filter's
 //      nonzero band [lo, hi) filter after filter (459 weights at
 //      classic13, 1.8 KB, where the dense [257, 26] matrix took 26.7 KB),
@@ -151,7 +150,44 @@
 // the chirp and the filter spectrum, its bases the P-point stages', its
 // rows P + P/8 + 1 float2: 114,384 B at classic13 n_fft 404, two blocks an
 // SM; 201,264 B at 551, one.
-// __launch_bounds__(256, 3) caps the FFT forms at 80 registers a thread.
+// __launch_bounds__(256, 3) caps the warp plan at 80 registers a thread.
+//
+// The block plan (kBlock; plan() and plan_block pick it, kernels/frontend.py
+// fft_layout mirrors them; the plain form only) where the warp plan's
+// layout is over the block's 227 KB: at 26 filters every Bluestein N from
+// 685 and every Stockham N from 2,160; librosa's 2,048-point frames at
+// 22.05 kHz, 270,368 B in the warp plan. At large P the eight warps' own
+// rows are what does not fit, so the block's 256 threads form 4, 2 or 1
+// groups (p.groups), and each group transforms its share of the tile's 32
+// frames one at a time through two rows of its own (P + P/8 + 1 float2
+// each): the same Stockham stages, butterfly j < P/R of a stage taken by
+// the group's thread j, j + 256/groups, ..., the group meeting at its named
+// barrier (bar.sync 1 + group) between stages and between the Bluestein
+// form's two FFTs; the real split and the powers over the group's threads;
+// the frame's conditioning and energies as group sums (each warp's shuffle
+// sum, then the group's warps' in order, so two runs are bitwise equal); the
+// projection over the packed bands cut into chunks of c = ceil(nnz /
+// (256/groups)) rounded up to odd, summed as step 4 sums a warp's 32. Step
+// 2z and the counts and mask are as in the warp plan. The tables
+// (twiddles, chirp, filter spectrum, stage bases) are staged where the
+// layout fits, else read from device memory through the read-only path
+// (__ldg). plan_block takes the first of 4, 2 and 1 groups with the tables
+// staged, then 4, 2 and 1 with them in device memory, that fits (at
+// classic13: 1,102 four groups staged, 168,080 B; 4,096 two, 198,144 B;
+// 2,501 two from device memory; 5,392 one from device memory, 195,584 B).
+// From n_fft 5,393 the Bluestein rows (P = 8,192) are over the block in
+// every plan. More frames in flight an SM is what pays, and first-fit
+// stays within 15 % of the best choice at each size measured
+// (scripts/block_plan_sweep.py times every choice; PERF.md section 6). A
+// size the warp plan fits keeps the warp plan, whose code and bits are as
+// before.
+// Bound at classic13 n_fft 1,102, b16 x 10 s: the function's minimum (a
+// 551-point complex FFT counted by the split-radix formula, the split,
+// |X|^2, the mel sums, the logs) is ~0.006 ms: operations bound it. The
+// plan does two 1,280-point FFTs a frame, four frames a block at a time at
+// one block an SM, a barrier a stage: it is bound by the stages' latency
+// (a few butterflies a thread a stage), not by the card's rate.
+// __launch_bounds__(256, 2): at most 128 registers a thread.
 //
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
@@ -317,7 +353,7 @@
 // less the logs) and ssc26 (~10 us: the clamps, two sums per weight and the
 // divisions instead of the logs and the energy) by operations.
 //
-// The bf16x3 form (dft_form 2, kBf16x3; replaces the dft_passes="bf16x3"
+// The bf16x3 form (dft_form 1, kBf16x3; replaces the dft_passes="bf16x3"
 // route of _make_kernel, :857-867, with the window-folded matrix of
 // kernel_constants :160-241). An opt-in of its own accuracy class (~1e-4 on
 // loud log-mel bins, as the reference's), chosen by the wrapper's dft_passes
@@ -408,7 +444,7 @@ constexpr int kProducer = 128;
 enum { kPspec = 0, kRawFrame = 1, kWindowedFrame = 2 };
 enum { kLn = 0, kLnStab = 1, kDb = 2, kLnFloor = 3, kLog10Floor = 4 };
 enum { kLogmel = 0, kPlp = 1, kSpectrogram = 2, kSsc = 3 };
-enum { kStockham = 0, kDirect = 1, kBf16x3 = 2, kBluestein = 3 };
+enum { kStockham = 0, kBf16x3 = 1, kBluestein = 2 };
 enum { kNoCenter = 0, kCenter = 1, kCenterReflect = 2 };
 enum { kFramePad = 0, kFrameDrop = 1, kFrameCenter = 2, kFrameCenterReflect = 3 };  // FRAMINGS
 
@@ -436,6 +472,10 @@ struct Params {
   // the frame counts' framing code and drop_last_frame
   int framing, drop_last;
   // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
+  // block (the block plan), its groups (frames a block transforms at
+  // once, 4, 2 or 1, each by 256 / groups threads) and tables_global (its
+  // tables read from device memory, not staged); bchunk, the weights a
+  // thread of a group sums;
   // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
   // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
   // output-base table lengths; the projection's weights a lane. The
@@ -447,7 +487,8 @@ struct Params {
   // (tile) and ring stages.
   int half, bins, fft_n, nstages;
   unsigned long long radices;
-  int ntw, nbases, chunk, nsplit, bq, bk, chirp, filt, nfilt;
+  int block, groups, tables_global;
+  int ntw, nbases, chunk, bchunk, nsplit, bq, bk, chirp, filt, nfilt;
   int kp, nbp, npass, pws, tile, stages;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
   int aligned;
@@ -465,10 +506,12 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // Dynamic shared memory layout, in floats (every offset 16-byte aligned;
 // the header states it, kernels/frontend.py smem_bytes mirrors it). part is
 // warp 0's projection scratch (32 lane partials and the M filter sums, for
-// each weight table), pstride the step to the next warp's.
+// each weight table), pstride the step to the next warp's; in the block
+// plan the block's (256 partials and M sums a table), then red, the 8
+// warps' partials of a block sum.
 struct Layout {
-  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, bar, pw, ef, mu, fir,
-      tab, total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, red, bar, pw, ef, mu,
+      fir, tab, total;
 };
 
 // fir is the fused resample's input window in floats (0 without it): it
@@ -490,6 +533,7 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
   l.tw = l.meta + (tables ? align4(p.nnz) : 0);
   l.bases = l.tw + align4(2 * p.ntw);
   l.buf = l.bases + align4(p.nbases);
+  l.red = 0;
   if (p.form == kBf16x3) {
     l.buf = align32(l.buf);  // the ring, 128-byte aligned for its bulk copies
     l.row = 0;
@@ -501,9 +545,17 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
     l.pstride = parts;
     l.fir = l.pw;  // not the ring: its first copies land during the staging
     l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
+  } else if (p.block) {
+    if (p.tables_global) l.buf = l.tw;  // no table staged
+    l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
+    l.part = l.buf + p.groups * 2 * l.row;
+    l.pstride = align4(tables * (kThreads / p.groups + p.M));
+    l.red = l.part + p.groups * l.pstride;
+    l.bar = l.pw = l.ef = l.mu = 0;
+    l.fir = l.buf;
+    l.tab = l.buf + imax(l.red + kWarps - l.buf, align4(fir));
   } else {
-    l.row = p.form == kDirect ? align4(imax(p.n_fft, p.bins))
-                              : align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
+    l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + 2 * l.row;
     l.pstride = 2 * l.row + parts;
     l.bar = l.pw = l.ef = l.mu = 0;
@@ -670,6 +722,56 @@ __device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x
 // every 8, so stride-8 stores spread over the banks.
 __device__ inline int pad(int i) { return i + (i >> 3); }
 
+// A load from a table: staged in shared memory, or (kG, the block plan's
+// "block_global") in device memory through the read-only path.
+template <bool kG, typename T>
+__device__ inline T ld(const T* p) {
+  if constexpr (kG) {
+    return __ldg(p);
+  } else {
+    return *p;
+  }
+}
+
+// bar.sync on barrier id (1-15; 0 is __syncthreads') by n threads, whole
+// warps.
+__device__ inline void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// The threads that transform one frame: in the warp plan a warp (rank the
+// lane); in the block plan a group of the block (all 256 threads, or 128 or
+// 64 where the block takes 2 or 4 frames at once) meeting at its named
+// barrier, its tables staged or (kGlobal) in device memory.
+struct WarpTeam {
+  static constexpr bool kGlobal = false;
+  int rank;
+  __host__ __device__ static constexpr int size() { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+};
+template <bool kGlobal_>
+struct GroupTeam {
+  static constexpr bool kGlobal = kGlobal_;
+  int rank, n, id;
+  __device__ int size() const { return n; }
+  __device__ void sync() const { named_sync(id, n); }
+};
+
+// The group's sum of v (every thread of the group calls it): each warp's
+// shuffle sum, then the group's warps' partials in order from red (a float a
+// warp of the block), so two runs give the same bits.
+template <typename T>
+__device__ inline float group_sum(float v, float* red, const T& team) {
+  const int warp = threadIdx.x >> 5, w0 = warp - (team.rank >> 5);
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  team.sync();
+  float s = red[w0];
+  for (int w = 1; w < team.size() / 32; ++w) s += red[w0 + w];
+  team.sync();  // red is rewritten by the next sum
+  return s;
+}
+
 // R-point forward DFTs, X[q] = sum_r v[r] e^{-2 pi i r q / R}, in place.
 // Constants are float64 values rounded once to float32 (no sincosf).
 template <int R>
@@ -749,18 +851,20 @@ __device__ inline void dft_small<8>(float2 (&v)[8]) {
 }
 
 // One Stockham stage of radix R over H points after ns = the product of the
-// earlier radices: butterfly j < H/R loads inputs j + r H/R (stage 0 by
-// first(n), from the staged signal; later stages from the padded row src), twists
-// input r by tw[j (R-1) + r - 1] = e^{-2 pi i r k/(ns R)}, k = j mod ns (none
-// at ns = 1: every twist is 1), and stores output r at base[j] + r ns =
-// (j - k) R + k + r ns into the padded row dst.
-template <int R, bool kFirst, typename First>
+// earlier radices: butterfly j < H/R (the team's thread rank, rank +
+// size, ...) loads inputs j + r H/R (stage 0 by first(n), from the staged
+// signal; later stages from the padded row src), twists input r by
+// tw[j (R-1) + r - 1] = e^{-2 pi i r k/(ns R)}, k = j mod ns (none at ns = 1:
+// every twist is 1), and stores output r at base[j] + r ns = (j - k) R + k +
+// r ns into the padded row dst. kG: the tables in device memory.
+template <int R, bool kFirst, typename T, typename First>
 __device__ inline void stockham_stage(First first, const float2* __restrict__ src,
                                       float2* __restrict__ dst, int H, int ns,
                                       const float2* __restrict__ tw,
-                                      const int* __restrict__ base, int lane) {
+                                      const int* __restrict__ base, const T& team) {
+  constexpr bool kG = T::kGlobal;
   const int hr = H / R;
-  for (int j = lane; j < hr; j += 32) {
+  for (int j = team.rank; j < hr; j += team.size()) {
     float2 v[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -773,36 +877,38 @@ __device__ inline void stockham_stage(First first, const float2* __restrict__ sr
     if (ns > 1) {
       const float2* w = tw + j * (R - 1);
 #pragma unroll
-      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], w[r - 1]);
+      for (int r = 1; r < R; ++r) v[r] = cmul(v[r], ld<kG>(w + r - 1));
     }
     dft_small<R>(v);
-    const int d = base[j];
+    const int d = ld<kG>(base + j);
 #pragma unroll
     for (int r = 0; r < R; ++r) dst[pad(d + r * ns)] = v[r];
   }
 }
 
-template <bool kFirst, typename First>
+template <bool kFirst, typename T, typename First>
 __device__ inline void stage_of_radix(int R, First first, const float2* src, float2* dst, int H,
-                                      int ns, const float2* tw, const int* base, int lane) {
-  switch (R) {  // warp-uniform
-    case 8: stockham_stage<8, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
-    case 4: stockham_stage<4, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
-    case 2: stockham_stage<2, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
-    case 3: stockham_stage<3, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
-    default: stockham_stage<5, kFirst>(first, src, dst, H, ns, tw, base, lane); break;
+                                      int ns, const float2* tw, const int* base, const T& team) {
+  switch (R) {  // uniform over the team
+    case 8: stockham_stage<8, kFirst>(first, src, dst, H, ns, tw, base, team); break;
+    case 4: stockham_stage<4, kFirst>(first, src, dst, H, ns, tw, base, team); break;
+    case 2: stockham_stage<2, kFirst>(first, src, dst, H, ns, tw, base, team); break;
+    case 3: stockham_stage<3, kFirst>(first, src, dst, H, ns, tw, base, team); break;
+    default: stockham_stage<5, kFirst>(first, src, dst, H, ns, tw, base, team); break;
   }
 }
 
 // 3a. The Stockham FFT of fft_n complex points (the frame's H = n_fft/2, or
-//     the Bluestein form's P): stage 0 loads point n by first(n) (from the
-//     staged signal, or from another row), each later stage the row the one
-//     before stored, ping-ponging between the warp's rows a (stage 0's
-//     output) and b. tw holds the stage twists (after the split's entries),
-//     base the output bases, stage after stage. Returns the row holding Z.
-template <typename First>
+//     the Bluestein form's P) by a team (a warp, or a group of the
+//     block): stage 0 loads
+//     point n by first(n) (from the staged signal, or from another row),
+//     each later stage the row the one before stored, ping-ponging between
+//     the rows a (stage 0's output) and b, the team meeting after each
+//     stage. tw holds the stage twists (after the split's entries), base
+//     the output bases, stage after stage. Returns the row holding Z.
+template <typename T, typename First>
 __device__ inline const float2* stockham(First first, float2* a, float2* b, const Params& p,
-                                         const float2* tw, const int* base, int lane) {
+                                         const float2* tw, const int* base, const T& team) {
   float2* dst = a;
   const float2* src = b;
   const int n = p.fft_n;
@@ -810,13 +916,13 @@ __device__ inline const float2* stockham(First first, float2* a, float2* b, cons
   for (int s = 0; s < p.nstages; ++s) {
     const int R = static_cast<int>((p.radices >> (4 * s)) & 15u);
     if (s == 0) {
-      stage_of_radix<true>(R, first, nullptr, dst, n, 1, tw, base, lane);
+      stage_of_radix<true>(R, first, nullptr, dst, n, 1, tw, base, team);
     } else {
-      stage_of_radix<false>(R, first, src, dst, n, ns, tw, base, lane);
+      stage_of_radix<false>(R, first, src, dst, n, ns, tw, base, team);
       tw += (n / R) * (R - 1);
     }
     base += n / R;
-    __syncwarp();
+    team.sync();
     src = dst;
     dst = dst == a ? b : a;
     ns *= R;
@@ -828,20 +934,22 @@ __device__ inline const float2* stockham(First first, float2* a, float2* b, cons
 // z[n] = y[2n] + i y[2n+1]:
 // Xe = (Z[k] + conj Z[H-k]) / 2, Xo = (Z[k] - conj Z[H-k]) / 2i,
 // X[k] = Xe + W^k Xo and X[H-k] = conj(Xe - W^k Xo), W = e^{-2 pi i / n_fft},
-// for k <= H/2; |X|^2 * pscale into pw[k] and pw[H-k] (once when 2k = H).
-// Returns the warp sum of the powers (the pspec energy).
-template <typename Zat>
+// for k <= H/2 (the team's rank, rank + size, ...); |X|^2 * pscale into
+// pw[k] and pw[H-k] (once when 2k = H). Returns this thread's share of the
+// powers' sum (the pspec energy).
+template <typename T, typename Zat>
 __device__ inline float real_split(Zat zat, float* __restrict__ pw, const float2* __restrict__ tw,
-                                   int H, float pscale, int lane) {
+                                   int H, float pscale, const T& team) {
+  constexpr bool kG = T::kGlobal;
   float es = 0.f;
-  for (int k = lane; k <= H / 2; k += 32) {
+  for (int k = team.rank; k <= H / 2; k += team.size()) {
     const float2 a = zat(k);
     const float2 c = zat(k == 0 ? 0 : H - k);
     const float er = 0.5f * (a.x + c.x);
     const float ei = 0.5f * (a.y - c.y);
     const float orr = 0.5f * (a.y + c.y);
     const float oi = -0.5f * (a.x - c.x);
-    const float2 w = tw[k];
+    const float2 w = ld<kG>(tw + k);
     const float wr = orr * w.x - oi * w.y;
     const float wi = orr * w.y + oi * w.x;
     const float xr = er + wr, xi = ei + wi;
@@ -855,49 +963,29 @@ __device__ inline float real_split(Zat zat, float* __restrict__ pw, const float2
       es += py;
     }
   }
-  return warp_sum(es);
+  return es;
 }
 
 // |X[k]|^2 * pscale of an odd n_fft's Bluestein outputs (zat(k) = X[k], k <
-// bins) into pw; returns the warp sum of the powers (the pspec energy).
-template <typename Zat>
+// bins) into pw; returns this thread's share of the powers' sum.
+template <typename T, typename Zat>
 __device__ inline float chirp_power(Zat zat, float* __restrict__ pw, int bins, float pscale,
-                                    int lane) {
+                                    const T& team) {
   float es = 0.f;
-  for (int k = lane; k < bins; k += 32) {
+  for (int k = team.rank; k < bins; k += team.size()) {
     const float2 x = zat(k);
     const float px = (x.x * x.x + x.y * x.y) * pscale;
     pw[k] = px;
     es += px;
   }
-  return warp_sum(es);
+  return es;
 }
 
-// The warp sum of a power row (the pspec energy of the direct and bf16x3
-// forms).
+// The warp sum of a power row (the pspec energy of the bf16x3 form).
 __device__ inline float power_sum(const float* pw, int bins, int lane) {
   float es = 0.f;
   for (int k = lane; k < bins; k += 32) es += pw[k];
   return warp_sum(es);
-}
-
-// 3b. The direct DFT of v[0 .. Lk): lane bins k, X[k] = sum_n v[n] W^{(k n)
-//     mod n_fft} with the exact integer index into the whole-circle table.
-__device__ inline void direct_dft(const float* v, float* pw, const float2* tw, const Params& p,
-                                  int Lk, int lane) {
-  const int N = p.n_fft;
-  for (int k = lane; k < p.bins; k += 32) {
-    float re = 0.f, im = 0.f;
-    int m = 0;  // (k n) mod N
-    for (int n = 0; n < Lk; ++n) {
-      const float2 w = tw[m];
-      re += v[n] * w.x;
-      im += v[n] * w.y;
-      m += k;
-      if (m >= N) m -= N;
-    }
-    pw[k] = (re * re + im * im) * p.pscale;
-  }
 }
 
 // Shared-memory views of the packed mel bands: filter m's weights are
@@ -912,29 +1000,34 @@ struct Bands {
 };
 
 // 4. One frame's output row o from its power row pw (pw[k], k < bins), by
-//    feature kind: the projection over the packed bands, then the log kind
-//    (logmel), nothing (plp) or the centroid (ssc, over the clamped
-//    powers); the log kind of power bin m (spectrogram). Lane l sums the
-//    packed weights [l c, l c + c) in order, c = p.chunk: a filter that
+//    feature kind, by a team (a warp, or a group of the block plan; lane
+//    below is the thread's rank in it): the projection over the
+//    packed bands, then the log kind (logmel), nothing (plp) or the
+//    centroid (ssc, over the clamped powers); the log kind of power bin m
+//    (spectrogram). Lane l sums the packed weights [l c, l c + c) in order
+//    (c = chunk: p.chunk for a warp, p.bchunk for a group): a filter that
 //    ends in the lane's chunk has its sum stored to sum[m] there, the
 //    partial of the one that goes on is posted to part[l], and a filter
 //    that began in an earlier lane `from` (-1: the chunk starts a filter)
 //    is summed by the lane it ends in as part[from] + ... + part[l-1] + its
 //    own sum. Then lane m takes the log kind (or the ratio) of sum[m], m,
-//    m + 32, ..., off the divergent loop, and lane M `energy`. scratch
-//    holds part [32] and sum [M] (for ssc then the melf ones).
+//    m + size, ..., off the divergent loop, and lane 0 writes `energy` to
+//    o[M]. scratch holds part [size] and sum [M] (for ssc then the melf
+//    ones).
+template <typename T>
 __device__ inline void write_frame(float* o, const float* pw, float energy, const Bands& bd,
-                                   float* scratch, int from, const Params& p, int lane) {
-  const int M = p.M, kind = p.feature_kind;
+                                   float* scratch, int from, int chunk, const Params& p,
+                                   const T& team) {
+  const int M = p.M, kind = p.feature_kind, lane = team.rank, lanes = team.size();
   if (kind == kSpectrogram) {
-    for (int m = lane; m < M; m += 32) o[m] = log_lane(pw[m], p);
+    for (int m = lane; m < M; m += lanes) o[m] = log_lane(pw[m], p);
   } else {
     const bool ssc = kind == kSsc;
     float* part = scratch;
-    float* sum = scratch + 32;
+    float* sum = scratch + lanes;
     float* partf = sum + M;  // ssc only
-    float* sumf = partf + 32;
-    const int i0 = lane * p.chunk, i1 = imin(i0 + p.chunk, p.nnz);
+    float* sumf = partf + lanes;
+    const int i0 = lane * chunk, i1 = imin(i0 + chunk, p.nnz);
     float acc = 0.f, accf = 0.f, hacc = 0.f, haccf = 0.f;
     int held = -1;  // the filter begun in lane `from` that ends in this one
     bool head = from >= 0;
@@ -976,7 +1069,7 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
     }
     part[lane] = acc;
     if (ssc) partf[lane] = accf;
-    __syncwarp();
+    team.sync();
     if (held >= 0) {
       float s = part[from], sf = ssc ? partf[from] : 0.f;
       for (int l = from + 1; l < lane; ++l) {
@@ -986,8 +1079,8 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
       sum[held] = s + hacc;
       if (ssc) sumf[held] = sf + haccf;
     }
-    __syncwarp();
-    for (int m = lane; m < M; m += 32) {
+    team.sync();
+    for (int m = lane; m < M; m += lanes) {
       o[m] = ssc ? __fdiv_rn(sumf[m], sum[m]) : kind == kPlp ? sum[m] : log_lane(sum[m], p);
     }
   }
@@ -1109,8 +1202,10 @@ __device__ inline uint32_t bf16_pair(__nv_bfloat16 lo_col, __nv_bfloat16 hi_col)
          static_cast<uint32_t>(__bfloat16_as_ushort(hi_col)) << 16;
 }
 
-template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
-__global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kFftBlocks)
+// kBlock: the block plan (the plain form's Stockham and Bluestein forms
+// only; two blocks an SM at most 128 registers a thread).
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock = false>
+__global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kBlock ? 2 : kFftBlocks)
 logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
               const float* __restrict__ window,
@@ -1151,8 +1246,10 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     }
     for (int i = threadIdx.x; i <= M; i += kThreads) moff[i] = mel_off[i];
   }
-  for (int i = threadIdx.x; i < p.ntw; i += kThreads) tw[i] = twiddle[i];
-  for (int i = threadIdx.x; i < p.nbases; i += kThreads) sb[i] = bases[i];
+  if (!(kBlock && p.tables_global)) {  // "block_global" reads them from device memory
+    for (int i = threadIdx.x; i < p.ntw; i += kThreads) tw[i] = twiddle[i];
+    for (int i = threadIdx.x; i < p.nbases; i += kThreads) sb[i] = bases[i];
+  }
 
   // the row's length at the frame rate's sample rate (the output length of
   // the fused resample): under non-centered framing a frame that starts at
@@ -1516,48 +1613,22 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       const float* pw = pw_tile + fl * p.pws;
       const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
       write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
-                  p, lane);
+                  p.chunk, p, WarpTeam{lane});
       __syncwarp();  // part is rewritten by the warp's next frame
     }
   } else {
-    float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
-  float2* ra = reinterpret_cast<float2*>(rows);
-  float2* rb = reinterpret_cast<float2*>(rows + lay.row);
-
-  for (int fl = warp; fl < kTile; fl += kWarps) {
-    const int f = f0 + fl;
-    if (f >= F) break;  // warp-uniform
-    float* pw;
-    float es, e_frame = 0.f;
-    if (framed && static_cast<long long>(f) * S >= len) {
-      // 2z. a frame wholly past its row's length: zero samples, zero powers
-      pw = rows;
-      for (int k = lane; k < p.bins; k += 32) pw[k] = 0.f;
-      es = 0.f;
-    } else {
-      const float* fr = sig + fl * S;
-      // 2. under kCond the conditioning over the frame's L samples: mean,
-      //    raw energy of the centered frame, then frame pre-emphasis folded
-      //    into the DFT's loads, and the windowed energy of all L samples
-      //    (those past n_fft too)
-      float mu, e;
-      frame_stats(fr, mu, e);
+    // 3. one frame's DFT by a team (a warp over its own rows ra, rb; a
+    //    group of the block plan over its group's) from the frame fr with
+    //    mean mu, on the tables tws (twiddles, chirp, filter) and bs (stage
+    //    bases): the Stockham or Bluestein form, then the real split (or the
+    //    odd form's powers) into the free row pw; returns this thread's
+    //    share of the power sum, and adds its windowed samples' squares to e
+    //    under wsum
+    auto transform = [&](auto team, const float* fr, float mu, float2* ra, float2* rb,
+                         const float2* tws, const int* bs, float& e, float*& pw) -> float {
+      constexpr bool kG = decltype(team)::kGlobal;
       auto sample = [&](int a) -> float { return cond(fr, mu, a) * win[a]; };
-      if (p.form == kDirect) {
-        // 3b. the first Lk windowed samples into row a, the powers into row b
-        float* v = rows;
-#pragma unroll 1
-        for (int a = lane; a < Lk; a += 32) {
-          const float x = sample(a);
-          if (wsum) e += x * x;
-          v[a] = x;
-        }
-        __syncwarp();
-        pw = rows + lay.row;
-        direct_dft(v, pw, tw, p, Lk, lane);
-        __syncwarp();
-        es = power_sum(pw, p.bins, lane);
-      } else if (p.form == kBluestein) {
+      if (p.form == kBluestein) {
         // 3d. the Bluestein FFT: stage 0 of the forward P-point FFT loads
         //     point n < Q (the windowed pair (y[2n], y[2n+1]) for even n_fft,
         //     the sample y[n] for odd) times the chirp c[n], zero past Q; the
@@ -1565,8 +1636,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         //     (1/P folded in) and runs the same forward stages; Z[k] =
         //     c[k] conj(D[k]) then feeds the real split (even n_fft) or is
         //     X[k] itself (odd)
-        const float2* chirp = tw + p.chirp;
-        const float2* filt = tw + p.filt;
+        const float2* chirp = tws + p.chirp;
+        const float2* filt = tws + p.filt;
         const bool packed = (p.n_fft & 1) == 0;
         auto point = [&](int n) -> float2 {
           if (n >= p.bq) return make_float2(0.f, 0.f);
@@ -1574,52 +1645,145 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           const float re = a < Lk ? sample(a) : 0.f;
           const float im = packed && a + 1 < Lk ? sample(a + 1) : 0.f;
           if (wsum) e += re * re + im * im;
-          return cmul(make_float2(re, im), chirp[n]);
+          return cmul(make_float2(re, im), ld<kG>(chirp + n));
         };
-        float2* A = const_cast<float2*>(stockham(point, ra, rb, p, tw + p.nsplit, sb, lane));
+        float2* A = const_cast<float2*>(stockham(point, ra, rb, p, tws + p.nsplit, bs, team));
         const int P = p.fft_n;
         auto spectrum = [&](int n) -> float2 {
           const float2 x = A[pad(n)];
-          return cmul(make_float2(x.x, -x.y), filt[packed ? imin(n, P - n) : n]);
+          return cmul(make_float2(x.x, -x.y), ld<kG>(filt + (packed ? imin(n, P - n) : n)));
         };
-        const float2* D = stockham(spectrum, A == ra ? rb : ra, A, p, tw + p.nsplit, sb, lane);
+        const float2* D = stockham(spectrum, A == ra ? rb : ra, A, p, tws + p.nsplit, bs, team);
         pw = reinterpret_cast<float*>(D == ra ? rb : ra);
         auto zat = [&](int k) -> float2 {  // c[k] conj(D[k])
-          const float2 d = D[pad(k)], c = chirp[k];
+          const float2 d = D[pad(k)], c = ld<kG>(chirp + k);
           return make_float2(c.x * d.x + c.y * d.y, c.y * d.x - c.x * d.y);
         };
-        es = packed ? real_split(zat, pw, tw, p.half, p.pscale, lane)
-                    : chirp_power(zat, pw, p.bins, p.pscale, lane);
-      } else {
-        // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
-        //     windowed (0 past Lk) from the staged frame; then the real
-        //     split into the free row
-        auto point = [&](int n) -> float2 {
-          const int a = 2 * n;
-          const float re = a < Lk ? sample(a) : 0.f;
-          const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
-          if (wsum) e += re * re + im * im;
-          return make_float2(re, im);
-        };
-        const float2* Z = stockham(point, ra, rb, p, tw + p.nsplit, sb, lane);
-        pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
-        es = real_split([&](int k) { return Z[pad(k)]; }, pw, tw, p.half, p.pscale, lane);
+        return packed ? real_split(zat, pw, tws, p.half, p.pscale, team)
+                      : chirp_power(zat, pw, p.bins, p.pscale, team);
       }
-      if (wsum) {
-        for (int a = Lk + lane; a < L; a += 32) {
-          const float x = sample(a);
-          e += x * x;
+      // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
+      //     windowed (0 past Lk) from the staged frame; then the real split
+      //     into the free row
+      auto point = [&](int n) -> float2 {
+        const int a = 2 * n;
+        const float re = a < Lk ? sample(a) : 0.f;
+        const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
+        if (wsum) e += re * re + im * im;
+        return make_float2(re, im);
+      };
+      const float2* Z = stockham(point, ra, rb, p, tws + p.nsplit, bs, team);
+      pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
+      return real_split([&](int k) { return Z[pad(k)]; }, pw, tws, p.half, p.pscale, team);
+    };
+
+    if constexpr (!kBlock) {
+      float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
+      float2* ra = reinterpret_cast<float2*>(rows);
+      float2* rb = reinterpret_cast<float2*>(rows + lay.row);
+      for (int fl = warp; fl < kTile; fl += kWarps) {
+        const int f = f0 + fl;
+        if (f >= F) break;  // warp-uniform
+        float* pw;
+        float es, e_frame = 0.f;
+        if (framed && static_cast<long long>(f) * S >= len) {
+          // 2z. a frame wholly past its row's length: zero samples, zero powers
+          pw = rows;
+          for (int k = lane; k < p.bins; k += 32) pw[k] = 0.f;
+          es = 0.f;
+        } else {
+          const float* fr = sig + fl * S;
+          // 2. under kCond the conditioning over the frame's L samples: mean,
+          //    raw energy of the centered frame, then frame pre-emphasis folded
+          //    into the DFT's loads, and the windowed energy of all L samples
+          //    (those past n_fft too)
+          float mu, e;
+          frame_stats(fr, mu, e);
+          es = warp_sum(transform(WarpTeam{lane}, fr, mu, ra, rb, tw, sb, e, pw));
+          if (wsum) {
+            for (int a = Lk + lane; a < L; a += 32) {
+              const float x = cond(fr, mu, a) * win[a];
+              e += x * x;
+            }
+          }
+          if constexpr (kCond) {
+            if (p.energy_source != kPspec) e_frame = warp_sum(e);
+          }
         }
+        __syncwarp();
+        write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
+                    bd, part, from, p.chunk, p, WarpTeam{lane});
+        __syncwarp();  // the rows and partials are rewritten by the warp's next frame
       }
-      if constexpr (kCond) {
-        if (p.energy_source != kPspec) e_frame = warp_sum(e);
+    } else {
+      // the block plan: p.groups groups of gsize threads, group g taking the
+      // tile's frames g, g + groups, ... one at a time through its own two
+      // rows, meeting at named barrier 1 + g; the tables staged (tw, sb) or
+      // in device memory (twiddle, bases)
+      const int gsize = kThreads / p.groups;
+      const int group = threadIdx.x / gsize, rank = threadIdx.x % gsize;
+      float* rows = smem + lay.buf + group * 2 * lay.row;
+      float2* ra = reinterpret_cast<float2*>(rows);
+      float2* rb = reinterpret_cast<float2*>(rows + lay.row);
+      float* scratch = smem + lay.part + group * lay.pstride;
+      float* red = smem + lay.red;
+      // the group's thread where the filter this thread's chunk starts inside began
+      int gfrom = -1;
+      if (kind != kSpectrogram && rank * p.bchunk < p.nnz) {
+        const int m = (meta[rank * p.bchunk] >> 16) & 0x7FFF;
+        if (moff[m] < rank * p.bchunk) gfrom = moff[m] / p.bchunk;
+      }
+      auto frames = [&](auto team, const float2* tws, const int* bs) {
+        auto gsum = [&](float v) { return group_sum(v, red, team); };
+        for (int fl = group; fl < kTile; fl += p.groups) {
+          const int f = f0 + fl;
+          if (f >= F) break;  // group-uniform
+          float* pw;
+          float es, e_frame = 0.f;
+          if (framed && static_cast<long long>(f) * S >= len) {  // 2z
+            pw = rows;
+            for (int k = rank; k < p.bins; k += gsize) pw[k] = 0.f;
+            es = 0.f;
+          } else {
+            const float* fr = sig + fl * S;
+            // 2. the conditioning's mean and raw energy as group sums
+            float mu = 0.f, e = 0.f;
+            if constexpr (kCond) {
+              if (p.remove_dc) {
+                float s = 0.f;
+                for (int a = rank; a < L; a += gsize) s += fr[a];
+                mu = gsum(s) / static_cast<float>(L);
+              }
+              if (p.energy_source == kRawFrame) {
+                for (int a = rank; a < L; a += gsize) {
+                  const float d = fr[a] - mu;
+                  e += d * d;
+                }
+              }
+            }
+            es = gsum(transform(team, fr, mu, ra, rb, tws, bs, e, pw));
+            if (wsum) {
+              for (int a = Lk + rank; a < L; a += gsize) {
+                const float x = cond(fr, mu, a) * win[a];
+                e += x * x;
+              }
+            }
+            if constexpr (kCond) {
+              if (p.energy_source != kPspec) e_frame = gsum(e);
+            }
+          }
+          team.sync();  // the power row is whole
+          write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
+                      bd, scratch, gfrom, p.bchunk, p, team);
+          team.sync();  // the rows and partials are rewritten by the group's next frame
+        }
+      };
+      if (p.tables_global) {
+        frames(GroupTeam<true>{rank, gsize, 1 + group}, twiddle, bases);
+      } else {
+        frames(GroupTeam<false>{rank, gsize, 1 + group}, tw, sb);
       }
     }
-    __syncwarp();
-    write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
-                bd, part, from, p, lane);
-    __syncwarp();  // the rows and partials are rewritten by the warp's next frame
-  }
   }
 }
 
@@ -1641,7 +1805,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
 size_t smem_of(const Params& p, const Polyphase& pp) {
   const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true)
                                : layout(p, 0, 0, kDither);
@@ -1651,11 +1815,11 @@ size_t smem_of(const Params& p, const Polyphase& pp) {
 // The launch of one instantiation.
 struct Launch {
   const Args& a;
-  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
   cudaError_t run() const {
     const Params& p = a.p;
-    const size_t bytes = smem_of<Sample, kResample, kDither, kCond, kBf16>(p, a.pp);
-    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16>;
+    const size_t bytes = smem_of<Sample, kResample, kDither, kCond, kBf16, kBlock>(p, a.pp);
+    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
@@ -1674,9 +1838,9 @@ struct Launch {
 struct Info {
   int smem;
   int* out;
-  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16>
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
   cudaError_t run() const {
-    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16>;
+    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>;
     cudaFuncAttributes attr = {};
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess) {
@@ -1693,22 +1857,31 @@ struct Info {
 
 // Picks the instantiation for the sample type and the dither and
 // conditioning branches.
-template <bool kResample, bool kBf16, typename Fn>
+template <bool kResample, bool kBf16, bool kBlock, typename Fn>
 cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
   if (is_int16) {
     if (dither) {
-      return cond ? fn.template run<int16_t, kResample, true, true, kBf16>()
-                  : fn.template run<int16_t, kResample, true, false, kBf16>();
+      return cond ? fn.template run<int16_t, kResample, true, true, kBf16, kBlock>()
+                  : fn.template run<int16_t, kResample, true, false, kBf16, kBlock>();
     }
-    return cond ? fn.template run<int16_t, kResample, false, true, kBf16>()
-                : fn.template run<int16_t, kResample, false, false, kBf16>();
+    return cond ? fn.template run<int16_t, kResample, false, true, kBf16, kBlock>()
+                : fn.template run<int16_t, kResample, false, false, kBf16, kBlock>();
   }
   if (dither) {
-    return cond ? fn.template run<float, kResample, true, true, kBf16>()
-                : fn.template run<float, kResample, true, false, kBf16>();
+    return cond ? fn.template run<float, kResample, true, true, kBf16, kBlock>()
+                : fn.template run<float, kResample, true, false, kBf16, kBlock>();
   }
-  return cond ? fn.template run<float, kResample, false, true, kBf16>()
-              : fn.template run<float, kResample, false, false, kBf16>();
+  return cond ? fn.template run<float, kResample, false, true, kBf16, kBlock>()
+              : fn.template run<float, kResample, false, false, kBf16, kBlock>();
+}
+
+// The plain form's instantiations: bf16x3, the block plan, or the warp plan.
+template <typename Fn>
+cudaError_t dispatch_plain(const Fn& fn, bool is_int16, bool dither, bool cond, bool tensor,
+                           bool block) {
+  if (tensor) return dispatch<false, true, false>(fn, is_int16, dither, cond);
+  if (block) return dispatch<false, false, true>(fn, is_int16, dither, cond);
+  return dispatch<false, false, false>(fn, is_int16, dither, cond);
 }
 
 // The Stockham stages of n points (kernels/frontend.py radices(2n)): 8s,
@@ -1752,15 +1925,34 @@ bool plan_stages(Params& p, int n) {
   return true;
 }
 
+// The block plan (kernels/frontend.py fft_plan, block_groups): the first of
+// 4, 2 and 1 groups (frames a block transforms at once) with the tables
+// staged, then with them in device memory, whose layout fits the block
+// (else 1 group, device memory: refused by kernels/frontend.py
+// layout_reason before any launch).
+void plan_block(Params& p, bool wide) {
+  p.block = 1;
+  for (int global = 0; global < 2; ++global) {
+    for (int groups = 4; groups >= 1; groups /= 2) {
+      p.tables_global = global;
+      p.groups = groups;
+      p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
+      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return;
+    }
+  }
+}
+
 // The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
 // kernel_form), as kernels/frontend.py radices, bluestein_dims,
-// fft_twiddles and bf16_plan lay it out: the Stockham form only where it
-// applies (an even n_fft >= 4 whose half factors into 8s, one 4 or 2, 3s and
-// 5s), the Bluestein form with P the cheapest size >= Q + K - 1 the
-// Stockham stages take (fewest stages, then fewest points), the direct DFT
-// and bf16x3 at any n_fft (pp: the fused resample's, or null; int16: the
-// rows' type); the projection's chunk. False when the wrapper's form
-// disagrees, or for n_fft < 2.
+// fft_twiddles, fft_plan and bf16_plan lay it out: the Stockham form only
+// where it applies (an even n_fft >= 4 whose half factors into 8s, one 4 or
+// 2, 3s and 5s), the Bluestein form with P the cheapest size >= Q + K - 1
+// the Stockham stages take (fewest stages, then fewest points), bf16x3 at
+// any n_fft (pp: the fused resample's, or null; int16: the rows' type); the
+// projection's chunks. In the plain form (pp null) the Stockham and
+// Bluestein forms take the block plan where the warp plan's layout is over
+// the block, with the tables in device memory where the staged ones do not
+// fit either. False when the wrapper's form disagrees, or for n_fft < 2.
 bool plan(Params& p, const Polyphase* pp, bool int16) {
   const int N = p.n_fft;
   if (N < 2) return false;
@@ -1770,18 +1962,19 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.radices = 0;
   p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
   p.kp = p.nbp = p.npass = p.pws = p.stages = 0;
+  p.block = p.tables_global = 0;
+  p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;
+  p.bchunk = ((p.nnz + kThreads - 1) / kThreads) | 1;
   switch (p.form) {
-    case kDirect:
-      p.ntw = N;
-      return true;
     case kBf16x3:
       return plan_bf16(p, pp, int16);
     case kStockham:
       if (N % 2 != 0 || N < 4) return false;
       p.nsplit = N / 4 + 1;
-      return plan_stages(p, p.half);
+      if (!plan_stages(p, p.half)) return false;
+      break;
     case kBluestein: {
       const bool packed = N % 2 == 0;
       p.bq = packed ? p.half : N;
@@ -1802,11 +1995,14 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
       p.filt = p.chirp + p.bq;
       p.nfilt = packed ? best / 2 + 1 : best;
       p.ntw = p.filt + p.nfilt;
-      return true;
+      break;
     }
     default:
       return false;
   }
+  const bool wide = p.dither > 0.f;  // the plain form's signal row under dither
+  if (pp == nullptr && layout(p, 0, 0, wide).total * 4 > kSmemBudget) plan_block(p, wide);
+  return true;
 }
 
 bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const Polyphase* pp,
@@ -1838,12 +2034,12 @@ extern "C" {
 // << 16, the sign bit on each filter's last weight), every filter owning
 // at least one weight; twiddle [n, 2] float32 and bases int32 as
 // kernels/frontend.py fft_twiddles and stage_bases lay them out for
-// dft_form 0 (Stockham), twiddle [n_fft, 2] of e^{-2 pi i k / n_fft} for
-// 1 (direct), and for 3 (Bluestein) the split, the P-point stages' twists
-// and bases, the chirp and the filter spectrum (kernels/frontend.py
-// fft_twiddles, stage_bases), neither for 2 (bf16x3; bases may be null but
-// for 0 and 3); dft_matrix (dft_form 2 only, else null): the window-folded,
-// scaled DFT's hi and lo parts in bf16, in ring order (kernels/frontend.py
+// dft_form 0 (Stockham), and for 2 (Bluestein) the split, the P-point
+// stages' twists and bases, the chirp and the filter spectrum
+// (kernels/frontend.py fft_twiddles, stage_bases), neither for 1 (bf16x3;
+// bases may be null but for 0 and 2), read from device memory by the block
+// plan's "block_global" (plan()); dft_matrix (dft_form 1 only, else null):
+// the window-folded, scaled DFT's hi and lo parts in bf16, in ring order (kernels/frontend.py
 // bf16_matrix: [pass][k16 step][hi | lo][8-column group][K half][column][k],
 // column c of a pass the cosine (even c) or sine (odd c) of bin c/2; pscale
 // is then unused: the matrix carries it).
@@ -1887,14 +2083,14 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
-  return tensor ? dispatch<false, true>(fn, i16, dth, cnd) : dispatch<false, false>(fn, i16, dth, cnd);
+  return dispatch_plain(fn, i16, dth, cnd, tensor, p.block != 0);
 }
 
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
 // taps [up, K] float32 (input_scale folded in); F frames of the resampled
 // signal, ceil(T * up / down) samples long; n_valid from each row's output
 // length ceil(lengths[b] * up / down). Dither keys on 16 kHz positions.
-// dft_matrix as above for dft_form 2 (bf16x3), else null. No centered
+// dft_matrix as above for dft_form 1 (bf16x3), else null. No centered
 // framing (kernels/frontend.py takes the split route for it: resample.cu,
 // then mfcc_frontend_logmel).
 int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
@@ -1927,18 +2123,22 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
                static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
-  return tensor ? dispatch<true, true>(fn, i16, dth, cnd) : dispatch<true, false>(fn, i16, dth, cnd);
+  return tensor ? dispatch<true, true, false>(fn, i16, dth, cnd)
+                : dispatch<true, false, false>(fn, i16, dth, cnd);
 }
 
 // Registers, local (spilled) bytes a thread and blocks an SM of the
 // instantiation for (int16 rows, fused resample, dither, conditioning,
-// bf16x3) at smem_bytes of dynamic shared memory, into out[0..3).
+// bf16x3, the block plan) at smem_bytes of dynamic shared memory, into
+// out[0..3). The fused resample has no block plan.
 int mfcc_frontend_kernel_info(int audio_is_int16, int resample, int dither, int conditioning,
-                              int bf16x3, int smem_bytes, int* out) {
+                              int bf16x3, int block, int smem_bytes, int* out) {
   const Info fn{smem_bytes, out};
   const bool i16 = audio_is_int16 != 0, dth = dither != 0, cnd = conditioning != 0;
-  if (bf16x3) return resample ? dispatch<true, true>(fn, i16, dth, cnd) : dispatch<false, true>(fn, i16, dth, cnd);
-  return resample ? dispatch<true, false>(fn, i16, dth, cnd) : dispatch<false, false>(fn, i16, dth, cnd);
+  if (!resample) return dispatch_plain(fn, i16, dth, cnd, bf16x3 != 0, block != 0);
+  if (block) return cudaErrorInvalidValue;
+  return bf16x3 ? dispatch<true, true, false>(fn, i16, dth, cnd)
+                : dispatch<true, false, false>(fn, i16, dth, cnd);
 }
 
 const char* mfcc_frontend_error_string(int err) {

@@ -13,8 +13,10 @@ real DFT of n_fft points (`dft_form`: a Stockham FFT of n_fft/2 complex
 points in radices 8, 4, 2, 3 and 5 for every even n_fft whose half factors
 so, powers of two included; for every other n_fft a Bluestein FFT, the DFT
 as a chirp-z convolution through a Stockham FFT of a size that factors so;
-a direct DFT only where the Bluestein block is over the block's shared
-memory), |X|², then by feature
+by the plan of `fft_layout`: each warp a frame through its own two rows,
+or, where those rows are over the block's shared memory, the block's
+threads in 4, 2 or 1 groups, each a frame at a time through two rows of
+its own, the tables staged or read from device memory), |X|², then by feature
 kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
@@ -23,7 +25,7 @@ projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
 empty prefix without a launch). A config whose plain-form layout exceeds
-the block's 227 KB is refused (`layout_reason`).
+the block's 227 KB in every plan is refused (`layout_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -50,9 +52,11 @@ PyTorch version built from the chain's stages (after `chain.resample_input`
 for resampling configs). `launches` counts launches of the plain front-end,
 `resample_launches` those of the fused resample; `dither_launches`,
 `conditioning_launches`, `plp_launches`, `spectrogram_launches`,
-`ssc_launches`, `centered_launches`, `direct_dft_launches`,
-`bluestein_launches` and `bf16x3_launches` count the launches (of either
-form) that take that branch, `split_launches` the plain-form launches of
+`ssc_launches`, `centered_launches`, `bluestein_launches` and
+`bf16x3_launches` count the launches (of either form) that take that
+branch, `block_fft_launches` those of the block plan and
+`global_table_launches` those of it that read the FFT tables from device
+memory (`fft_layout`), `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
 
@@ -86,9 +90,16 @@ from mfcc_tpu_torch.ops import resample as R
 MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
 TILE = 32  # frames per block (csrc/frontend.cu kTile)
 WARPS = 8
+THREADS = 32 * WARPS
 ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu codes
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
-DFT_FORMS = ("stockham", "direct", "bf16x3", "bluestein")  # csrc/frontend.cu codes
+DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
+# the FFT forms' plans (csrc/frontend.cu plan): a frame a warp; frames a
+# group of the block with the tables staged, or in device memory
+FFT_PLANS = ("warp", "block", "block_global")
+# (plan, frames a block transforms at once) in the order plan() tries them
+FFT_LAYOUTS = (("warp", WARPS), ("block", 4), ("block", 2), ("block", 1),
+               ("block_global", 4), ("block_global", 2), ("block_global", 1))
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 FRAMINGS = ("pad", "drop", "center", "center_reflect")  # csrc/frontend.cu frame-count codes
 
@@ -100,8 +111,9 @@ plp_launches = 0
 spectrogram_launches = 0
 ssc_launches = 0
 centered_launches = 0
-direct_dft_launches = 0
 bluestein_launches = 0
+block_fft_launches = 0
+global_table_launches = 0
 bf16x3_launches = 0
 block_launches = 0
 split_launches = 0
@@ -231,24 +243,26 @@ def bluestein_dims(n_fft: int) -> tuple[int, int, int]:
     else:
         q, k = n_fft, n_fft // 2 + 1
     lo = max(q + k - 1, 2)
-    # a power of two lies in [lo, 2 lo), and no size past 2 lo has fewer stages
-    best = min((len(r), n) for n in range(lo, 2 * lo + 1) if (r := radices(2 * n)) is not None)
-    return q, k, best[1]
+    # a power of two lies in [lo, 2 lo), and no size past 2 lo has fewer
+    # stages; argmin takes the first of the fewest, the fewest points
+    stages = _stage_counts(1 << (2 * lo + 1).bit_length())[lo : 2 * lo + 1]
+    return q, k, lo + int(np.argmin(stages))
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_counts(limit: int) -> np.ndarray:
+    """Stages of the Stockham FFT of n points (`radices(2n)`) for n <
+    limit, 99 where it takes none."""
+    return np.array([len(r) if (r := radices(2 * n)) is not None else 99 for n in range(limit)])
 
 
 @functools.lru_cache(maxsize=256)
 def dft_form(cfg: FrontendConfig) -> str:
     """The kernel's DFT form for cfg's n_fft: "stockham" (an FFT of n_fft/2
     complex points in radices 8, 4, 2, 3 and 5, powers of two included);
-    else "bluestein" (`bluestein_dims`) where its block fits the block's
-    shared memory; else "direct" (sizes whose Bluestein rows do not fit:
-    at classic13 odd n_fft from 685 up, even ones from 1,026 up that the
-    Stockham form does not take)."""
-    if radices(cfg.n_fft) is not None:
-        return "stockham"
-    if _smem(cfg, "bluestein") <= rs_kernel.SMEM_BUDGET_BYTES:
-        return "bluestein"
-    return "direct"
+    else "bluestein" (`bluestein_dims`), at every other n_fft. Where a form's
+    rows do not fit a warp each, `fft_layout` gives the block plan."""
+    return "stockham" if radices(cfg.n_fft) is not None else "bluestein"
 
 
 def resolve_dft_passes(cfg: FrontendConfig, dft_passes: str = "radix4") -> str:
@@ -299,10 +313,9 @@ def twiddle_count(n_fft: int, form: str) -> int:
     butterfly of every stage after the first (whose twists are all 1); for
     the Bluestein form the split's (even n_fft), the P-point stages' twists,
     then the Q chirp values and the filter spectrum (`filter_count`);
-    the whole circle for the direct DFT, which indexes it by (k·n) mod
-    n_fft; none for bf16x3."""
-    if form in ("direct", "bf16x3"):
-        return {"direct": n_fft, "bf16x3": 0}[form]
+    none for bf16x3."""
+    if form == "bf16x3":
+        return 0
     twists = sum(hr * (R - 1) for R, ns, hr in _stages(n_fft, form)[1:])
     if form == "stockham":
         return split_count(n_fft) + twists
@@ -335,21 +348,20 @@ def bluestein_filter(n_fft: int) -> np.ndarray:
 
 def fft_twiddles(n_fft: int, form: str) -> np.ndarray:
     """[twiddle_count(n_fft, form), 2] float32 table (re, im), each entry
-    computed in float64 and rounded once. Direct DFT: e^{-2πik/n_fft},
-    k < n_fft. Stockham: e^{-2πik/n_fft} for k <= n_fft/4 (the real split),
+    computed in float64 and rounded once (none for bf16x3). Stockham:
+    e^{-2πik/n_fft} for k <= n_fft/4 (the real split),
     then per stage s >= 1 of radix R after ns points, at j·(R-1) + r - 1 for
     butterfly j < n/R and input 1 <= r < R, the twist e^{-2πi·r·k/(ns·R)},
     k = j mod ns, so the kernel takes no remainder. Bluestein: the split
     (even n_fft) and the P-point stages' twists laid out so, then the chirp
     c[n] = e^{-iπ n²/Q} (n < Q, n² mod 2Q exact) and the first
     `filter_count` entries of `bluestein_filter`."""
+    if form == "bf16x3":
+        return np.zeros((0, 2), np.float32)
     parts = [2.0 * np.pi * np.arange(split_count(n_fft), dtype=np.float64) / n_fft]
-    if form in ("direct", "bf16x3"):
-        parts = [2.0 * np.pi * np.arange(twiddle_count(n_fft, form), dtype=np.float64) / n_fft]
-    else:
-        for R, ns, hr in _stages(n_fft, form)[1:]:
-            rk = (np.arange(hr)[:, None] % ns) * np.arange(1, R)[None, :]
-            parts.append((2.0 * np.pi * (rk % (ns * R)) / (ns * R)).ravel())
+    for R, ns, hr in _stages(n_fft, form)[1:]:
+        rk = (np.arange(hr)[:, None] % ns) * np.arange(1, R)[None, :]
+        parts.append((2.0 * np.pi * (rk % (ns * R)) / (ns * R)).ravel())
     if form == "bluestein":
         q = bluestein_dims(n_fft)[0]
         n = np.arange(q, dtype=np.int64)
@@ -366,8 +378,8 @@ def stage_bases(n_fft: int, form: str = "stockham") -> np.ndarray:
     """int32 table of the form's Stockham stages' output bases, stage after
     stage: butterfly j < n/R of a stage after ns points writes its R outputs
     at (j - k)·R + k + r·ns, k = j mod ns; the table holds (j - k)·R + k.
-    Empty for the direct and bf16x3 forms."""
-    if form in ("direct", "bf16x3"):
+    Empty for the bf16x3 form."""
+    if form == "bf16x3":
         return np.zeros(0, np.int32)
     out = [(np.arange(hr) - np.arange(hr) % ns) * R + np.arange(hr) % ns
            for R, ns, hr in _stages(n_fft, form)]
@@ -459,11 +471,12 @@ def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int) -> torch.Tensor:
     return torch.where(last, meta - (1 << 31), meta).to(torch.int32)
 
 
-def chunk(n_packed: int) -> int:
+def chunk(n_packed: int, lanes: int = 32) -> int:
     """Packed weights a lane sums in the balanced projection: n_packed over
-    the warp's 32 lanes, rounded up to an odd count, so that the lanes' first
-    weights fall in 32 distinct shared-memory banks."""
-    return -(-n_packed // 32) | 1
+    the warp's 32 lanes (`lanes`: a block-plan group's 64, 128 or 256
+    threads), rounded up to an odd count, so that the lanes' first weights
+    fall in 32 distinct shared-memory banks."""
+    return -(-n_packed // lanes) | 1
 
 
 def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
@@ -499,20 +512,23 @@ def _device_bf16_matrix(cfg: FrontendConfig, device: torch.device):
     return bf16_matrix(cfg).to(device).contiguous()
 
 
+@functools.lru_cache(maxsize=4096)
 def packed_count(cfg: FrontendConfig) -> int:
-    """Entries of cfg's packed mel table (`mel_packed`)."""
-    return int(_device_tables(cfg, torch.device("cpu"))["mel_off"][-1])
+    """Entries of cfg's packed mel table (`mel_packed`): each filter's band
+    of `mel_bands`, one entry for an all-zero filter."""
+    nz = constants.mel_filterbank(cfg) != 0
+    hi = np.where(nz, np.arange(nz.shape[0])[:, None] + 1, 0).max(axis=0)
+    lo = np.where(nz, np.arange(nz.shape[0])[:, None], nz.shape[0]).min(axis=0)
+    return int(np.maximum(np.where(hi > 0, hi - lo, 0), 1).sum())
 
 
 def row_floats(n_fft: int, form: str) -> int:
-    """Floats of each of a warp's two rows: for the Stockham and Bluestein
-    forms n + n/8 + 1 float2 (n = `fft_points`), the stages' rows with a
-    float2 of padding after every 8, whose free row then takes the n_fft/2
-    + 1 powers; for the direct DFT the packed frame and the powers."""
-    if form in ("stockham", "bluestein"):
-        h = fft_points(n_fft, form)
-        return (2 * (h + h // 8 + 1) + 3) & ~3
-    return (max(n_fft, n_fft // 2 + 1) + 3) & ~3
+    """Floats of each of the two rows of a warp (or of the block plan) in
+    the Stockham and Bluestein forms: n + n/8 + 1 float2 (n =
+    `fft_points`), the stages' rows with a float2 of padding after every 8,
+    whose free row then takes the n_fft/2 + 1 powers."""
+    h = fft_points(n_fft, form)
+    return (2 * (h + h // 8 + 1) + 3) & ~3
 
 
 def _a4(n: int) -> int:
@@ -587,18 +603,66 @@ def resample_window(cfg: FrontendConfig, tile: int = TILE) -> int:
     return rs_kernel.fir_window(_span(cfg, tile) + 1, d)
 
 
+def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, groups: int = 1) -> int:
+    """Shared memory per block of cfg's layout in the Stockham or Bluestein
+    form, a plan of `FFT_PLANS` and, for the block plans, `groups` frames a
+    block at once, for int16 or float32 rows (csrc/frontend.cu layout): the
+    head, the twiddles and the stages' output bases (none staged by
+    "block_global"), then for "warp" per warp two rows and the projection's
+    scratch (32 lane partials and M sums a weight table), which the fused
+    resample's input window overlays, widening them only where it is
+    longer, and the resample's taps; for the block plans per group two rows
+    and the projection's scratch (256 / groups thread partials and M sums a
+    weight table), then the 8 warps' partials of a group sum."""
+    N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
+    n = _head(cfg, TILE)
+    if plan != "block_global":
+        n += _a4(2 * twiddle_count(N, form)) + _a4(sum(hr for _, _, hr in _stages(N, form)))
+    fir, taps = _fir_floats(cfg, TILE, int16)
+    if plan == "warp":
+        rows = WARPS * (2 * row_floats(N, form) + _a4(tables * (32 + M)))
+    else:
+        rows = groups * (2 * row_floats(N, form) + _a4(tables * (THREADS // groups + M))) + WARPS
+    return 4 * (n + max(rows, fir) + _a4(taps))
+
+
+@functools.lru_cache(maxsize=256)
+def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True) -> tuple[str, int]:
+    """(plan, frames a block transforms at once) of cfg's Stockham or
+    Bluestein form (mirrors csrc/frontend.cu plan and plan_block): the first
+    of `FFT_LAYOUTS` whose layout fits the block. "warp": each of the 8
+    warps a frame through its own two rows. Else "block": the block's
+    threads in 4, 2 or 1 groups, each taking a frame at a time through two
+    rows of its own, each stage's butterflies spread over the group, the
+    tables staged; else "block_global", the same with the twiddles, chirp,
+    filter spectrum and stage bases read from device memory. Where none
+    fits, the last (refused by `layout_reason`). The fused resample takes
+    "warp" only: a resampling config whose fused layout is over the block
+    takes the split route (`resample_route`), whose plain form plans at the
+    feature rate."""
+    form = form or dft_form(cfg)
+    if chain.resamples(cfg):
+        return FFT_LAYOUTS[0]
+    for plan, groups in FFT_LAYOUTS:
+        if _fft_smem(cfg, form, plan, int16, groups) <= rs_kernel.SMEM_BUDGET_BYTES:
+            return plan, groups
+    return FFT_LAYOUTS[-1]
+
+
+def fft_plan(cfg: FrontendConfig, form: str | None = None, int16: bool = True) -> str:
+    """The plan of `fft_layout`: "warp", "block" or "block_global"."""
+    return fft_layout(cfg, form, int16)[0]
+
+
 def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
     """Shared memory per block of cfg's layout in a given DFT form, for
-    int16 or float32 rows (csrc/frontend.cu layout)."""
-    N, M = cfg.n_fft, cfg.n_mels
+    int16 or float32 rows (csrc/frontend.cu layout); the Stockham and
+    Bluestein forms in the plan of `fft_layout`."""
     if form == "bf16x3":
         tile, stages = bf16_plan(cfg, int16)
         return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), *_fir_floats(cfg, tile, int16))
-    n = _head(cfg, TILE) + _a4(2 * twiddle_count(N, form)) + _a4(len(stage_bases(N, form)))
-    part = _a4(mel_matrices(cfg) * (32 + M))
-    fir, taps = _fir_floats(cfg, TILE, int16)  # the input window over the warps' rows
-    rows = max(WARPS * (2 * row_floats(N, form) + part), fir)
-    return 4 * (n + rows + _a4(taps))
+    plan, groups = fft_layout(cfg, form, int16)
+    return _fft_smem(cfg, form, plan, int16, groups)
 
 
 @functools.lru_cache(maxsize=64)
@@ -609,11 +673,14 @@ def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = Tr
     dither), window, the
     packed mel bands (weights, and for SSC the melf weights; the filter
     offsets and `packed_meta`; none for a spectrogram), then for the FFT
-    and direct forms the twiddles and the stages' output bases, per warp
-    two rows (`row_floats`) and the projection's scratch (32 lane partials
-    and M filter sums, twice for SSC, none for a spectrogram), which the
-    fused resample's input window (`resample_window` samples of the rows'
-    type) overlays, widening them only where it is longer; for bf16x3 the
+    forms in the plan of `fft_layout` the twiddles and the stages' output
+    bases (unless read from device memory), per warp (or per group of the
+    block plan) two rows (`row_floats`) and the projection's scratch (32
+    lane partials, or the group's thread partials, and M filter sums, twice
+    for SSC, none for a spectrogram; the block plan then the 8 warps'
+    partials of a group sum), which the fused
+    resample's input window (`resample_window` samples of the rows' type)
+    overlays, widening them only where it is longer; for bf16x3 the
     ring, its barriers, the tile's power rows, energies and means, and the
     per-warp scratch (`bf16_plan`); then the resample's tap table [up,
     table_stride].
@@ -704,7 +771,7 @@ def _lib() -> ctypes.CDLL:
         p,  # stream
     ]
     lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
-    lib.mfcc_frontend_kernel_info.argtypes = [i, i, i, i, i, i, p]
+    lib.mfcc_frontend_kernel_info.argtypes = [i, i, i, i, i, i, i, p]
     lib.mfcc_frontend_kernel_info.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
@@ -713,7 +780,8 @@ def _lib() -> ctypes.CDLL:
 
 def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radix4") -> dict:
     """The card's view of cfg's kernel instantiation (needs a card; of the
-    plain form on the split route, `resample_route`): registers a thread,
+    plain form on the split route, `resample_route`; of the block plan's
+    instantiation where `fft_plan` takes it): registers a thread,
     local (spilled) bytes a thread, and the blocks an SM holds at cfg's
     shared memory for these rows (`smem_bytes`), from cudaFuncGetAttributes
     and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
@@ -721,9 +789,11 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
         cfg = feature_rate_config(cfg)  # the split route's front-end launch
     out = (ctypes.c_int * 3)()
     smem = smem_bytes(cfg, dft_passes, int16)
+    form = kernel_form(cfg, dft_passes)
+    block = form != "bf16x3" and fft_plan(cfg, form, int16) != "warp"
     rc = _lib().mfcc_frontend_kernel_info(
         int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
-        int(chain.needs_conditioning(cfg)), int(kernel_form(cfg, dft_passes) == "bf16x3"), smem, out)
+        int(chain.needs_conditioning(cfg)), int(form == "bf16x3"), int(block), smem, out)
     if rc != 0:
         raise RuntimeError(f"front-end kernel info failed: "
                            f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
@@ -875,7 +945,8 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     → (n_valid, mask)."""
     global launches, resample_launches, block_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
-    global centered_launches, direct_dft_launches, bluestein_launches, bf16x3_launches
+    global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
+    global global_table_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
     mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
@@ -918,9 +989,16 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     spectrogram_launches += int(kind == "spectrogram")
     ssc_launches += int(kind == "ssc")
     centered_launches += int(chain.centered(cfg))
-    direct_dft_launches += int(form == "direct")
     bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
+    # the fused form plans "warp" only; a plain-form launch (the block launch of
+    # a resampling config too) plans at the feature rate
+    if form == "bf16x3" or resampling:
+        plan = "warp"
+    else:
+        plan = fft_plan(feature_rate_config(cfg) if chain.resamples(cfg) else cfg, form)
+    block_fft_launches += int(plan != "warp")
+    global_table_launches += int(plan == "block_global")
     return n_valid, mask
 
 

@@ -76,7 +76,10 @@ extern "C" int frontend_breakdown_blocks(int smem) {
 PATHS = (("classic13_deltas", 64, 10, "radix4", {}), ("logmel80", 256, 10, "radix4", {}),
          ("whisper80", 64, 30, "radix4", {}), ("mfcc39_48k", 64, 10, "radix4", {}),
          ("kaldi_mfcc", 64, 10, "radix4", {"dither": 1.0}), ("classic13", 64, 10, "bf16x3", {}))
-PLAIN, BF16X3 = "logmel_kernelIsLb0ELb0ELb0ELb0E", "logmel_kernelIsLb0ELb0ELb0ELb1E"  # int16 instantiations
+# the int16 instantiations' mangled names (a sixth template argument, the
+# block plan's, since the block FFT plan; its false keeps these)
+PLAIN = r"logmel_kernelIsLb0ELb0ELb0ELb0E(?:Lb0E)?EE"
+BF16X3 = r"logmel_kernelIsLb0ELb0ELb0ELb1E(?:Lb0E)?EE"
 
 
 def variants(src: str) -> dict[int, str]:
@@ -96,17 +99,18 @@ def build(nvcc: str, flags, csrc: pathlib.Path, out: pathlib.Path, cut: int, tex
     if res.returncode:
         raise SystemExit(f"nvcc failed on cut {cut}:\n{res.stdout}{res.stderr}")
     log = res.stdout + res.stderr
-    regs = re.search(r"logmel_kernelIsLb0ELb0ELb0ELb0E.*?Used (\d+) registers", log, re.S)
+    regs = re.search(PLAIN + r".*?Used (\d+) registers", log, re.S)
     return out, int(regs.group(1)) if regs else -1
 
 
 def sass_opcodes(so: pathlib.Path, nvcc: str, kernel: str = PLAIN) -> dict[str, int]:
     """Static SASS opcode counts of one instantiation in `so` (its mangled
-    name holds `kernel`), by cuobjdump; empty when it is not there."""
+    name matches the pattern `kernel`), by cuobjdump; empty when it is not
+    there."""
     tool = pathlib.Path(nvcc).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True).stdout
     for fn in re.split(r"\n\s*Function : ", dump):
-        if kernel in fn.split("\n", 1)[0]:
+        if re.search(kernel, fn.split("\n", 1)[0]):
             ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", fn)
             return {o: ops.count(o) for o in set(ops)}
     return {}

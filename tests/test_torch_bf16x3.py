@@ -203,7 +203,7 @@ def test_dft_passes_validation_and_routing():
     assert frontend.kernel_form(cfg, "fp32") == "stockham"
     assert frontend.kernel_form(cfg.replace(n_fft=404), "fp32") == "bluestein"
     assert frontend.kernel_form(cfg, "bf16x3") == "bf16x3"
-    assert frontend.twiddle_count(512, "direct") == 512 and frontend.twiddle_count(512, "bf16x3") == 0
+    assert frontend.twiddle_count(512, "bf16x3") == 0 and frontend.fft_twiddles(512, "bf16x3").shape == (0, 2)
     # the bf16x3 layout: no twiddles or per-warp rows; 64 frames' signal span,
     # a ring of four 17,408-byte matrix stages and its mbarriers, the tile's
     # power rows (stride 292), energies and means, the projection's scratch

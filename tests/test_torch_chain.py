@@ -271,9 +271,10 @@ def test_unsupported_reason_takes_every_resampled_row():
     """Every named config takes centered framing ("center" and
     "center_reflect") at 22.05-192 kHz input, and its own framing at 192 kHz
     input (the split route where the fused layout is over the block); what
-    the port still refuses (n_fft 3072, frames of 3 s, 170 cepstra at delta
+    the port still refuses (n_fft 6001, frames of 3 s, 170 cepstra at delta
     window 8) is refused with or without resampling, citing ROADMAP queue 2
-    item 4."""
+    item 4; n_fft 3072, refused before, is taken (the block FFT plan), with
+    or without resampling."""
     for name in sorted(T_CONFIGS):
         for rate in RESAMPLED_RATES:
             for tail in ("center", "center_reflect"):
@@ -282,11 +283,15 @@ def test_unsupported_reason_takes_every_resampled_row():
                 assert frontend.resample_route(cfg) == "split"
         cfg = T_CONFIGS[name].replace(input_sample_rate=192000)
         assert tchain.unsupported_reason(cfg) is None and frontend.resample_route(cfg) == "split", name
-    refused = [dict(n_fft=3072), dict(win_len_s=3.0), dict(n_mels=170, n_ceps=170, delta_window=8)]
+    refused = [dict(n_fft=6001), dict(win_len_s=3.0), dict(n_mels=170, n_ceps=170, delta_window=8)]
     for over in refused:
         for rate in (None, 48000):
             cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, **over)
             assert "ROADMAP queue 2 item 4" in tchain.unsupported_reason(cfg), (over, rate)
+    for rate in (None, 48000):
+        cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_fft=3072)
+        assert tchain.unsupported_reason(cfg) is None, rate
+    assert frontend.resample_route(T_CONFIGS["mfcc39_48k"].replace(n_fft=3072)) == "split"
     assert frontend.resample_route(T_CONFIGS["mfcc39_48k"]) == "fused"
     assert frontend.resample_route(T_CONFIGS["classic13"]) is None
 
@@ -427,7 +432,7 @@ def test_port_imports_no_jax_and_no_mfcc_tpu():
         "feat, mask = chain.extract_batch(b.audio, b.lengths, cfg, device='cpu')\n"
         "assert tuple(feat.shape) == (1, 32, 80), feat.shape\n"
         "assert frontend.dither_launches == 0 and frontend.conditioning_launches == 0\n"
-        "assert frontend.centered_launches == 0 and frontend.direct_dft_launches == 0\n"
+        "assert frontend.centered_launches == 0 and frontend.block_fft_launches == 0\n"
         "cfg = mfcc_tpu_torch.named_config('classic13_deltas')\n"
         "b = pad_batch([np.arange(5000) % 300 - 150], cfg, dtype='int16')\n"
         "x, n = torch.as_tensor(b.audio), torch.as_tensor(b.lengths)\n"

@@ -17,8 +17,11 @@ inverse's loads, the inverse as forward stages on the conjugate), the
 balanced lane-split projection over the packed mel bands in its summation
 order, each feature kind's epilogue (log, raw PLP lanes, the spectrogram's
 identity projection, SSC's clamped centroids) and the energy — so the
-index algebra is tested on the CPU. tests/test_torch_gpu.py holds the
-kernel itself to the plain version on a card.
+index algebra is tested on the CPU; with the block plan (`frontend.fft_plan`)
+it runs each stage's butterflies, the real split and the projection by the
+block's 256 thread ranks, each output written once, the block sums in the
+kernel's order. tests/test_torch_gpu.py holds the kernel itself to the
+plain version on a card.
 """
 
 import numpy as np
@@ -165,9 +168,11 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory (n_fft = 4096: ~404 KB)
-    raises on every device. Centered framing of resampled rows, which it
-    refused before, runs: whisper80 fed 48 kHz takes the split route
+    """A layout over the block's shared memory in every plan (n_fft 5,393:
+    232,464 B at the block plan's tables from device memory) raises on every
+    device; n_fft 4096, which it refused before (420,160 B in the warp
+    plan), runs in the block plan (161,136 B), here as its plain version.
+    Centered framing of resampled rows, which it refused before, runs: whisper80 fed 48 kHz takes the split route
     (resample.cu, then the plain form's centered staging) on the card, and
     here its plain version, whose prefix is the JAX package's resample and
     jnp stages (the reflection of the 16 kHz rows at each row's output
@@ -176,7 +181,12 @@ def test_wrapper_refuses_configs_outside_the_slice():
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=4096))
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=5393))
+    c4096 = T_CONFIGS["classic13"].replace(n_fft=4096)
+    assert frontend.layout_reason(c4096) is None and frontend.fft_plan(c4096) == "block"
+    got4096 = frontend.logmel_prefix(audio, lengths, c4096)
+    assert got4096.shape == (1, c4096.num_frames(1000), c4096.n_mels + 1)
+    np.testing.assert_array_equal(got4096.numpy(), _reference(audio.numpy(), lengths.numpy(), c4096))
     from mfcc_tpu.ops import resample as jresample
     from mfcc_tpu_torch import testing
 
@@ -230,13 +240,13 @@ def test_fft_twiddles_table():
 
 @pytest.mark.parametrize("n_fft,form,count", [(400, "stockham", 421), (480, "stockham", 593),
                                               (404, "bluestein", 1457), (405, "bluestein", 2530),
-                                              (1024, "stockham", 1153), (2047, "direct", 2047)])
+                                              (1024, "stockham", 1153), (2047, "bluestein", 16895)])
 def test_dft_forms_and_twiddle_tables(n_fft, form, count):
     """The form each n_fft takes at classic13, its radices, and its
     float64-built table: the split's quarter circle and the stages' twists
     for the Stockham form; for the Bluestein form the split (even n_fft),
-    the P-point stages' twists, the chirp and the filter spectrum; the whole
-    circle for the direct DFT."""
+    the P-point stages' twists, the chirp and the filter spectrum (n_fft
+    2047, which took the direct DFT before, at P = 4,096 = 8·8·8·8)."""
     assert frontend.dft_form(T_CONFIGS["classic13"].replace(n_fft=n_fft)) == form
     tw = frontend.fft_twiddles(n_fft, form)
     assert tw.shape == (count, 2) == (frontend.twiddle_count(n_fft, form), 2)
@@ -249,8 +259,6 @@ def test_dft_forms_and_twiddle_tables(n_fft, form, count):
         want = _bluestein64(n_fft)
         P = frontend.bluestein_dims(n_fft)[2]
         assert len(frontend.stage_bases(n_fft, form)) == sum(P // R for R in frontend.radices(2 * P))
-    else:
-        want = np.exp(-2j * np.pi * np.arange(count) / n_fft)
     np.testing.assert_array_equal(tw[:, 0] + 1j * tw[:, 1], want.astype(np.complex64))
 
 
@@ -263,7 +271,7 @@ def test_radix_plans():
     assert frontend.radices(404) is None and frontend.radices(401) is None
     assert frontend.dft_form(T_CONFIGS["classic13"]) == "stockham"
     assert frontend.dft_form(T_CONFIGS["classic13"].replace(n_fft=2)) == "bluestein"
-    assert "radix2" not in frontend.DFT_FORMS
+    assert "radix2" not in frontend.DFT_FORMS and "direct" not in frontend.DFT_FORMS
     assert frontend.smem_bytes(T_CONFIGS["whisper80"]) == 62832  # three blocks an SM
 
 
@@ -271,24 +279,36 @@ def test_radix_plans():
 # second x row (span + 1 floats) and refused n_fft 1944, 2000 and 2048 at
 # kaldi_mfcc; the dither now stages in the signal row itself, one float wider
 PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": ()}
+# the top of the range every n_fft fits at classic13: the Bluestein rows of
+# n_fft 5,393 (P = 8,192) are over the block in every plan
+TOP_N_FFT = 5392
 
 
 @pytest.mark.parametrize("case", sorted(PARENT_REFUSED))
 def test_every_n_fft_from_16_to_2100_fits_a_form(case):
-    """Every n_fft from 16 to 2,100 takes a form whose layout fits the
-    block (Stockham, Bluestein, or direct where the Bluestein rows do not
-    fit), but those the parent layout refused too; the "fp32" route takes
-    the same form as "radix4" at every size."""
+    """Every n_fft from 16 to TOP_N_FFT takes the Stockham or the Bluestein
+    form (no direct DFT is left) in a plan whose layout fits the block, but
+    those the parent layout refused too: the warp plan where it fits, else
+    the block plan, 4, 2 or 1 frames a block at once with its tables
+    staged, else with them in device memory (`fft_layout` takes the first
+    of `FFT_LAYOUTS` that fits); the "fp32" route takes the same form as
+    "radix4" at every size. 5,393 is refused."""
     cfg = T_CONFIGS["classic13"] if case == "classic13" else T_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
-    refused = [n for n in range(16, 2101) if frontend.layout_reason(cfg.replace(n_fft=n))]
+    sizes = range(16, TOP_N_FFT + 1)
+    refused = [n for n in sizes if frontend.layout_reason(cfg.replace(n_fft=n))]
     assert refused == list(PARENT_REFUSED[case])
-    forms = {frontend.kernel_form(cfg.replace(n_fft=n)) for n in range(16, 2101)}
-    assert forms == {"stockham", "bluestein", "direct"}
-    for n in range(16, 2101):
+    forms, layouts = set(), set()
+    budget = frontend.rs_kernel.SMEM_BUDGET_BYTES
+    for n in sizes:
         c = cfg.replace(n_fft=n)
-        assert frontend.kernel_form(c, "fp32") == frontend.kernel_form(c) == frontend.dft_form(c)
-        if frontend.dft_form(c) == "direct":
-            assert frontend._smem(c, "bluestein") > frontend.rs_kernel.SMEM_BUDGET_BYTES
+        form, layout = frontend.dft_form(c), frontend.fft_layout(c)
+        assert frontend.kernel_form(c, "fp32") == frontend.kernel_form(c) == form
+        forms.add(form)
+        layouts.add(layout)
+        earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
+        assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
+    assert forms == {"stockham", "bluestein"} and {pl for pl, _ in layouts} == set(frontend.FFT_PLANS)
+    assert frontend.layout_reason(T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1))
 
 
 def test_bluestein_sizes_and_layouts():
@@ -397,33 +417,43 @@ def _reflect(t, n, kind):
     return np.where(m < n, m, 2 * n - 2 - m)
 
 
-def _stockham(z, n_fft, w, form="stockham"):
+def _stockham(z, n_fft, w, form="stockham", team=None):
     """The kernel's Stockham stages on rows z [nf, H] (H = fft_points:
     n_fft/2, or P for the Bluestein form) with the twiddle table w
     (`frontend.fft_twiddles` order): stage s of radix R after ns points,
     butterfly j < H/R reads src[j + r·H/R], twists input r by w[after the
     split and the earlier stages + j·(R-1) + r - 1] (stage 0: none), takes
     the R-point DFT and writes dst[base[j] + q·ns] with the host's output
-    bases (`frontend.stage_bases`)."""
+    bases (`frontend.stage_bases`). With a team size (the block plan's 256)
+    each thread rank takes butterflies rank, rank + team, ... of a stage,
+    one rank after another, into a row of NaNs: every input a butterfly
+    reads was written by the stage before, and every output is written
+    once."""
     H = frontend.fft_points(n_fft, form)
     bases = frontend.stage_bases(n_fft, form)
     src, ns, tw, b0 = z, 1, frontend.split_count(n_fft), 0
     for s, R in enumerate(frontend.radices(2 * H)):
         hr = H // R
-        j = np.arange(hr)
-        v = np.stack([src[:, j + r * hr] for r in range(R)])  # [R, nf, hr]
-        if s:
-            t = w[tw : tw + hr * (R - 1)].reshape(hr, R - 1)
-            v[1:] = v[1:] * t.T[:, None, :]
-            tw += hr * (R - 1)
         q = np.arange(R)
         dft = np.exp(-2j * np.pi * np.outer(q, q) / R).astype(z.dtype)
-        out = np.einsum("qr,rfj->qfj", dft, v)
-        dst = np.empty_like(src)
+        t = w[tw : tw + hr * (R - 1)].reshape(hr, R - 1) if s else None
         d = bases[b0 : b0 + hr]
+        dst = np.full_like(src, np.nan)
+        written = np.zeros(H, np.int64)
+        ranks = [np.arange(hr)] if team is None else [np.arange(r, hr, team) for r in range(min(team, hr))]
+        for j in ranks:
+            v = np.stack([src[:, j + r * hr] for r in range(R)])  # [R, nf, len(j)]
+            assert not np.isnan(v).any()
+            if s:
+                v[1:] = v[1:] * t[j].T[:, None, :]
+            out = np.einsum("qr,rfj->qfj", dft, v)
+            for qq in range(R):
+                dst[:, d[j] + qq * ns] = out[qq]
+                written[d[j] + qq * ns] += 1
+        assert (written == 1).all()
+        if s:
+            tw += hr * (R - 1)
         b0 += hr
-        for qq in range(R):
-            dst[:, d + qq * ns] = out[qq]
         src, ns = dst, ns * R
     return src
 
@@ -462,7 +492,7 @@ def _real_split(z, w, pscale, dtype):
     return P
 
 
-def _bluestein(fr, n_fft, w, ctype):
+def _bluestein(fr, n_fft, w, ctype, team=None):
     """The kernel's Bluestein form on windowed frames fr [nf, >= n_fft]
     (zero past min(L, n_fft)) with its table w: stage 0 loads point n < Q
     (the pair y[2n] + i·y[2n+1] for even n_fft, the sample y[n] for odd)
@@ -482,23 +512,28 @@ def _bluestein(fr, n_fft, w, ctype):
         z = fr[:, :q].astype(ctype)
     a = np.zeros((fr.shape[0], P), ctype)
     a[:, :q] = z * chirp
-    A = _stockham(a, n_fft, w, "bluestein")
-    D = _stockham((np.conj(A) * filt).astype(ctype), n_fft, w, "bluestein")
+    A = _stockham(a, n_fft, w, "bluestein", team)
+    D = _stockham((np.conj(A) * filt).astype(ctype), n_fft, w, "bluestein", team)
     return (chirp[:k] * np.conj(D[:, :k])).astype(ctype)
 
 
-@pytest.mark.parametrize("n_fft", [404, 551, 286, 1102, 683])
+@pytest.mark.parametrize("n_fft", [404, 551, 286, 1102, 683, 2501, 5392])
 def test_bluestein_dft_matches_numpy_rfft_in_float64(n_fft):
     """The Bluestein form's loops in float64 (packing, chirp, the P-point
     stages, the filter product, the inverse, the split) ≡ np.fft.rfft
     within 1e-9: n_fft 404 (P = 512), 551 (odd, 960), 286 (n_fft under the
-    frame length, 320), 1102 (1,280, whose block is over the block's shared
-    memory, so the kernel takes the direct DFT there) and 683, the largest
-    odd n_fft whose Bluestein block fits at classic13."""
+    frame length, 320), 683, the largest odd n_fft whose warp plan fits at
+    classic13, and the block plan's 1102 (1,280), 2501 (odd, 4,096) and
+    5392 (6,144), which took the direct DFT or were refused before, there
+    with each stage's butterflies by a group's thread ranks (`_stockham`'s
+    team: 64, 128 or 256 by `frontend.fft_layout` at classic13)."""
     g = np.random.default_rng(n_fft)
     fr = g.standard_normal((5, n_fft + 2))
     fr[:, n_fft:] = 0.0
-    Z = _bluestein(fr, n_fft, _bluestein64(n_fft), np.complex128)
+    plan, groups = frontend.fft_layout(T_CONFIGS["classic13"].replace(n_fft=n_fft))
+    team = None if plan == "warp" else frontend.THREADS // groups
+    assert (team is None) == (n_fft < 685)
+    Z = _bluestein(fr, n_fft, _bluestein64(n_fft), np.complex128, team)
     if n_fft % 2 == 0:
         power = _real_split(Z, _bluestein64(n_fft), 1.0, np.float64)
     else:
@@ -509,21 +544,38 @@ def test_bluestein_dft_matches_numpy_rfft_in_float64(n_fft):
         np.testing.assert_allclose(Z, np.fft.rfft(fr[:, :n_fft], axis=-1), rtol=0, atol=1e-9)
 
 
-def _project(P, w, wf, off, kbin, eps, ssc):
-    """The kernel's balanced projection on power rows P [nf, bins]: lane l
-    sums packed weights [l·c, l·c + c) in order (c = frontend.chunk), a
-    filter that ends in the lane is finished there, the partial of one that
-    goes on is posted, and a filter begun in lane a < l is finished as
-    part[a] + ... + part[l-1] + the lane's own sum. Returns the mel sums
-    [nf, M] (for ssc the melf sums too)."""
+@pytest.mark.parametrize("n_fft,team", [(2160, 64), (4096, 128), (2048, 64), (8192, 256)])
+def test_block_plan_stockham_matches_numpy_rfft_in_float64(n_fft, team):
+    """The Stockham stages with each stage's butterflies by a block-plan
+    group's thread ranks (64, 128 or 256: each output written once, every
+    input read after the stage before wrote it), then the real split, ≡
+    np.fft.rfft within 1e-9 in float64: n_fft 2160 (1,080 = 8·3·3·3·5
+    points) and 4096, which the port refused before, librosa's 2048 and
+    8192 (4,096 = 8⁴ points)."""
+    g = np.random.default_rng(n_fft)
+    fr = g.standard_normal((3, n_fft))
+    w = _twiddles64(n_fft)
+    P = _real_split(_stockham(fr[:, 0::2] + 1j * fr[:, 1::2], n_fft, w, team=team), w, 1.0, np.float64)
+    want = np.abs(np.fft.rfft(fr, axis=-1)) ** 2
+    np.testing.assert_allclose(P, want, rtol=0, atol=1e-9 * want.max())
+
+
+def _project(P, w, wf, off, kbin, eps, ssc, lanes=32):
+    """The kernel's balanced projection on power rows P [nf, bins] by
+    `lanes` lanes (a warp's 32, the block plan's 256 threads): lane l sums
+    packed weights [l·c, l·c + c) in order (c = frontend.chunk), a filter
+    that ends in the lane is finished there, the partial of one that goes
+    on is posted, and a filter begun in lane a < l is finished as part[a] +
+    ... + part[l-1] + the lane's own sum. Returns the mel sums [nf, M] (for
+    ssc the melf sums too)."""
     nnz, M = int(off[-1]), len(off) - 1
-    c = frontend.chunk(nnz)
+    c = frontend.chunk(nnz, lanes)
     filt = np.repeat(np.arange(M), np.diff(off))
     nf = P.shape[0]
     z = np.zeros(nf, P.dtype)
     sums, sumsf = np.zeros((nf, M), P.dtype), np.zeros((nf, M), P.dtype)
     part, partf, held = {}, {}, {}
-    for lane in range(32):
+    for lane in range(lanes):
         i0, i1 = lane * c, min(lane * c + c, nnz)
         acc, accf = z.copy(), z.copy()
         for i in range(i0, i1):
@@ -594,7 +646,7 @@ def _stage_tile(x_row, noise_row, n, f0, cfg, dtype, pre=0.0):
     return np.where(ok, x - c_sig * xp, 0).astype(dtype)
 
 
-def _emulate_kernel(audio, lengths, cfg, dtype, form=None, origin=0, frames=None):
+def _emulate_kernel(audio, lengths, cfg, dtype, plan=None, origin=0, frames=None):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
     staged row (`_stage_tile`: x plus the contract noise at t < length when
     cfg dithers, signal pre-emphasis from x[t-1], zeroing at t >= length, in
@@ -606,8 +658,11 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None, origin=0, frames=None
     frame energies; the others' first min(L, n_fft) samples transformed by
     the kernel's DFT form (the Stockham stages on the host tables, then the
     real split; the Bluestein form (`_bluestein`, then the split for even
-    n_fft, |X|² for odd); or the direct DFT on the whole-circle table, which
-    `form` can force at any size), then by
+    n_fft, |X|² for odd)) in the plan of `frontend.fft_layout`, which
+    `plan` ((plan, frames a block at once)) can force at any size (the block
+    plans: each stage by the 256 / groups thread ranks of a group, the
+    projection's chunks over them; their tables are the same entries,
+    staged or read from device memory), then by
     feature kind the balanced projection over the packed bands (`_project`)
     and the log kind (logmel) or nothing (plp), the log kind of each power
     bin (spectrogram), or the centroids of the per-bin clamped power (ssc,
@@ -621,11 +676,11 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None, origin=0, frames=None
     melf = (k["freqs"][:, None] * k["mel"]).astype(dtype)  # rounded once, as _tables does
     off, index = (t.numpy() for t in frontend.mel_packed(torch.as_tensor(mel)))
     w_mel, w_melf = mel.reshape(-1)[index], melf.reshape(-1)[index]
-    N, form = cfg.n_fft, form or frontend.dft_form(cfg)
+    N, form = cfg.n_fft, frontend.dft_form(cfg)
+    plan, groups = plan or frontend.fft_layout(cfg)
+    team, n_lanes = (None, 32) if plan == "warp" else (frontend.THREADS // groups,) * 2
     H, nb = N // 2, cfg.n_bins
-    if form == "direct":
-        w = np.exp(-2j * np.pi * np.arange(N) / N)
-    elif form == "bluestein":
+    if form == "bluestein":
         w = _bluestein64(N)
     else:
         w = _twiddles64(N)
@@ -668,24 +723,20 @@ def _emulate_kernel(audio, lengths, cfg, dtype, form=None, origin=0, frames=None
             e_win = (wf * wf).sum(axis=-1)  # all L samples, past n_fft too
             fr = np.zeros((nf, 2 * H + 2), dtype)
             fr[:, :Lk] = wf[:, :Lk]
-            if form == "direct":
-                idx = np.outer(np.arange(nb), np.arange(Lk)) % N
-                X = (fr[:, None, :Lk] * w[idx][None]).sum(axis=-1)
-                P = (np.abs(X) ** 2 * pscale).astype(dtype)
-            elif form == "bluestein":
-                Z = _bluestein(fr, N, w, ctype)
+            if form == "bluestein":
+                Z = _bluestein(fr, N, w, ctype, team)
                 if N % 2:
                     P = (np.abs(Z) ** 2 * pscale).astype(dtype)
                 else:
                     P = _real_split(Z, w, pscale, dtype)
             else:
                 z = (fr[:, 0 : 2 * H : 2] + 1j * fr[:, 1 : 2 * H : 2]).astype(ctype)
-                P = _real_split(_stockham(z, N, w), w, pscale, dtype)
+                P = _real_split(_stockham(z, N, w, team=team), w, pscale, dtype)
             P[zero], e_raw[zero], e_win[zero] = 0, 0, 0
             if kind == "spectrogram":
                 lanes = _log_lane(P[:, :M], cfg.log_kind, eps, dtype)
             else:
-                sums, sumsf = _project(P, w_mel, w_melf, off, index // M, eps, kind == "ssc")
+                sums, sumsf = _project(P, w_mel, w_melf, off, index // M, eps, kind == "ssc", n_lanes)
                 if kind == "ssc":
                     lanes = sumsf / sums
                 elif kind == "plp":
@@ -842,29 +893,30 @@ BRANCH_IDS = ["kaldi_mfcc_dither", "kaldi_mfcc", "kaldi_fbank", "windowed_energy
               "logmel80_ln_stab", "logmel80_db", "classic13_dither", "kaldi_plp",
               "kaldi_spectrogram", "ssc26", "ssc26_dither_dc", "whisper80", "whisper80_dither",
               "center_preemph_dither", "kaldi_center_dither", "center_reflect_preemph",
-              "direct_dft_404", "mixed_radix_480", "direct_dft_odd_405",
+              "block_fft_404", "mixed_radix_480", "block_fft_global_odd_405",
               "frame_longer_than_nfft_windowed_energy", "spectrogram_400", "stockham_2048",
               "bluestein_404", "bluestein_odd_405", "bluestein_odd_551", "bluestein_286",
               "bluestein_404_dither_windowed_energy", "bluestein_odd_683_centered"]
-# the direct DFT, now the form only of sizes whose Bluestein block does not
-# fit, still held at 404 and 405
-FORCED_FORMS = {"direct_dft_404": "direct", "direct_dft_odd_405": "direct"}
+# the block plan, forced at small sizes (where the direct DFT was held before
+# it was retired): 4 frames a block (64 threads a frame), the tables staged,
+# at 404; 2 (128 threads), from device memory, at odd 405
+FORCED_PLANS = {"block_fft_404": ("block", 4), "block_fft_global_odd_405": ("block_global", 2)}
 
 
-def _forced_form(request):
-    return FORCED_FORMS.get(request.node.callspec.id)
+def _forced_plan(request):
+    return FORCED_PLANS.get(request.node.callspec.id)
 
 
 @pytest.mark.parametrize("name,overrides", BRANCHES, ids=BRANCH_IDS)
 def test_kernel_branches_exact_in_float64(name, overrides, request):
     """The dither staging, the conditioning of the pack loop, each log kind,
-    each feature kind and each DFT form reproduce the plain version to
-    ~1e-9 in float64."""
+    each feature kind, each DFT form and each plan (the block plans forced
+    at 404 and 405) reproduce the plain version to ~1e-9 in float64."""
     cfg = T_CONFIGS[name].replace(dtype="float64", **overrides)
     audio, lengths = _batch("classic13", ("noise", "short", "tone_offbin"))
     audio = audio[:, :12000].astype(np.float64) * 3000
     lengths = np.minimum(lengths, 11000)
-    got = _emulate_kernel(audio, lengths, cfg, np.float64, _forced_form(request))
+    got = _emulate_kernel(audio, lengths, cfg, np.float64, _forced_plan(request))
     want = _reference(audio, lengths, cfg)
     assert got.shape == want.shape == (3, cfg.num_frames(12000), cfg.n_mels + 1)
     if cfg.features == "spectrogram":
@@ -884,7 +936,7 @@ def test_kernel_branches_float32_within_gates(name, overrides, request):
     cfg = T_CONFIGS[name].replace(**overrides)
     audio, lengths = _batch("classic13_deltas")
     pcm = np.round(audio * 3000).astype(np.int16)
-    got = _emulate_kernel(pcm, lengths, cfg, np.float32, _forced_form(request))
+    got = _emulate_kernel(pcm, lengths, cfg, np.float32, _forced_plan(request))
     want = _reference(pcm, lengths, cfg)
     valid = lengths >= cfg.frame_length  # rows with a frame under either framing
     assert_prefix_close(got[valid], want[valid], cfg.n_mels, cfg.log_kind, cfg.features)

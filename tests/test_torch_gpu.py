@@ -19,6 +19,8 @@ features; the feature tail's max(2e-4, 2e-5·max|f|) with near-constant CMVN
 columns held before the division; the bf16x3 route's 1e-3 on loud bins).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -94,7 +96,7 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096))
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=6001))
     # centered framing of resampled rows, refused before: the split route
     # (resample.cu, then the plain form's centered staging), counted, within
     # the prefix gates of the float64 plain version
@@ -423,14 +425,17 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 
 def test_layout_over_the_block_budget_raises():
-    """A config whose layout overflows the block's 227 KB raises before the
-    launch (n_fft = 4096: ~404 KB, its two rows a warp alone 149 KB); n_fft
-    2048 at 26 filters, over it while the mel matrix was staged dense,
-    fits with the packed bands."""
+    """A config whose layout overflows the block's 227 KB in every plan
+    raises before the launch (n_fft 5,393: the block plan's Bluestein rows
+    of P = 8,192 with its tables in device memory, 232,464 B); n_fft 2048
+    at 26 filters, over it while the mel matrix was staged dense, fits with
+    the packed bands, and 4096 (420,160 B in the warp plan) in the block
+    plan."""
     dev = _card()
-    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=4096)
+    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=5393)
     assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg.replace(n_fft=2048)) <= rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg.replace(n_fft=4096)) <= rs_kernel.SMEM_BUDGET_BYTES
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
@@ -440,7 +445,7 @@ def test_layout_over_the_block_budget_raises():
 
 
 def _counts():
-    return (frontend.launches, frontend.centered_launches, frontend.direct_dft_launches,
+    return (frontend.launches, frontend.centered_launches, frontend.block_fft_launches,
             frontend.dither_launches, frontend.bluestein_launches)
 
 
@@ -483,17 +488,26 @@ CENTERED = [
     ("classic13", {"n_fft": 551}),
     ("kaldi_mfcc", {"n_fft": 405, "frame_tail": "center", "dither": 1.0}),
     ("classic13", {"n_fft": 1102}),
+    ("classic13", {"n_fft": 4096}),
+    ("classic13", {"n_fft": 2501}),
+    ("kaldi_mfcc", {"n_fft": 2160, "frame_tail": "center", "dither": 1.0}),
+    ("logmel80", {"sample_rate": 22050, "n_fft": 2048, "win_len_s": 2048 / 22050,
+                  "hop_s": 512 / 22050, "n_mels": 128}),
 ]
 CENTERED_IDS = ["kaldi_center_dither", "center_preemph_dither", "center_reflect_preemph",
                 "bluestein_404", "mixed_radix_480", "whisper80_dither", "stockham_2048",
-                "bluestein_odd_551", "bluestein_odd_405_center_dither", "direct_dft_1102"]
+                "bluestein_odd_551", "bluestein_odd_405_center_dither", "block_fft_1102",
+                "block_fft_4096", "block_fft_global_odd_2501", "block_fft_2160_center_dither",
+                "block_fft_librosa_2048"]
 
 
 @pytest.mark.parametrize("name,overrides", CENTERED, ids=CENTERED_IDS)
 def test_centered_and_dft_forms_match_reference(name, overrides):
     """Centered staging in both modes (source-index pre-emphasis and noise),
-    the Bluestein form (404: P = 512; odd 551 and 405), the direct DFT where
-    the Bluestein block does not fit (1102), a radix-3 Stockham size and
+    the Bluestein form (404: P = 512; odd 551 and 405), the block FFT plan
+    where the warp plan's rows do not fit (1102, 4096, 2501 with its tables
+    in device memory, 2160 centered with conditioning and dither, librosa's
+    22.05 kHz framing), a radix-3 Stockham size and
     n_fft 2048 (1,024 = 8·8·8·2 points, 1,915 packed weights) against the
     plain version computed on the CPU in float64 (the card's float64 rfft
     at some odd sizes is not), rows down to 90 samples (multi-wrap); int16 ≡
@@ -510,7 +524,7 @@ def test_centered_and_dft_forms_match_reference(name, overrides):
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
     assert _counts() == (before[0] + 1, before[1] + chain.centered(cfg),
-                         before[2] + (form == "direct"), before[3] + (cfg.dither > 0),
+                         before[2] + (frontend.fft_plan(cfg) != "warp"), before[3] + (cfg.dither > 0),
                          before[4] + (form == "bluestein"))
     narrow = None
     if cfg.logmel_norm == "whisper":
@@ -812,7 +826,9 @@ def test_bf16x3_form_runs_wgmma():
     lib, _ = _build.build("frontend")
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
-    bf16 = [fn for fn in dump.split("Function : ")[1:] if "Lb1EEEv" in fn.split("\n", 1)[0]]
+    # template arguments: the sample type, kResample, kDither, kCond, kBf16 and kBlock
+    bf16 = [fn for fn in dump.split("Function : ")[1:]
+            if re.search(r"logmel_kernelI[sf](?:Lb[01]E){3}Lb1ELb0EEEv", fn.split("\n", 1)[0])]
     assert len(bf16) == 16
     assert sum("Lb1ELb" in fn.split("\n", 1)[0].split("logmel_kernel", 1)[1][:8] for fn in bf16) == 8
     for fn in bf16:
@@ -823,7 +839,7 @@ def test_bf16x3_form_runs_wgmma():
 def test_bluestein_form_through_extract_batch_and_the_fp32_route(n_fft):
     """classic13 at n_fft 404 and 551: extract_batch and
     fused_logmel_stages(dft_passes="fp32") each launch the Bluestein form
-    once (no direct DFT); the prefix within the gates of the float64 plain
+    once (the warp plan, no block plan); the prefix within the gates of the float64 plain
     version computed on the CPU, the features within 5e-4 of the CPU chain.
     (No pure tone: at n_fft 404 the CPU fp32 chain is itself 1.1e-3 from
     float64 on tone_offbin's quiet cepstra.)"""
@@ -832,10 +848,10 @@ def test_bluestein_form_through_extract_batch_and_the_fp32_route(n_fft):
     sigs = golden_signals()
     b = pad_batch([np.round(sigs[n] * 3000) for n in ("noise", "speechish", "short")], cfg,
                   dtype="int16")
-    before = (frontend.bluestein_launches, frontend.direct_dft_launches)
+    before = (frontend.bluestein_launches, frontend.block_fft_launches)
     feat, mask = chain.extract_batch(b.audio, b.lengths, cfg)
     torch.cuda.synchronize()
-    assert (frontend.bluestein_launches, frontend.direct_dft_launches) == (before[0] + 1, before[1])
+    assert (frontend.bluestein_launches, frontend.block_fft_launches) == (before[0] + 1, before[1])
     cpu, cpu_mask = chain.extract_batch(b.audio, b.lengths, cfg, device="cpu")
     assert torch.equal(mask.cpu(), cpu_mask)
     assert_features_close(feat, cpu)
@@ -843,7 +859,7 @@ def test_bluestein_form_through_extract_batch_and_the_fp32_route(n_fft):
     lengths = torch.as_tensor(b.lengths, device=dev)
     st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="fp32")
     torch.cuda.synchronize()
-    assert (frontend.bluestein_launches, frontend.direct_dft_launches) == (before[0] + 2, before[1])
+    assert (frontend.bluestein_launches, frontend.block_fft_launches) == (before[0] + 2, before[1])
     want = frontend.logmel_prefix_reference(torch.as_tensor(b.audio), torch.as_tensor(b.lengths),
                                             cfg.replace(dtype="float64"))
     assert_prefix_close(st["prefix"], want, cfg.n_mels)
