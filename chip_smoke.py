@@ -256,6 +256,22 @@ Phases, in order; any failure exits non-zero:
      points) and 2501 (Bluestein, P = 4,096, its tables in device memory),
      b16, through `small_path` (front-end and tail counted), each timed the
      same way.
+  28. the gather plan (every hop and frame length) and the feature tail's
+     split for wide cepstra: librosa's melspectrogram(n_fft=8192) framing
+     (logmel80 at 22.05 kHz, 8192-sample frames, hop 2048, 128 mels), b64
+     x 30 s int16, as phase 27 holds librosa's 2048 framing (the float64
+     plain version, the bitwise invariances, the counts and mask,
+     extract_batch counted and gated, the step's device kernels and idle
+     share, device time beside rfft(n=8192)); at b16 through `small_path`,
+     timed: classic13_deltas at a 0.2 s hop and with 3 s frames, kaldi_mfcc
+     with dither at 0.25 s, whisper80 at 0.2 s, n_fft 4096 at hop 2048 at
+     44.1 kHz, n_fft 6001 (tables in device memory); whisper80 fed 48 kHz
+     at 0.2 s (the split route, then the gather plan); the block launch at
+     0.2 s bitwise the offline prefix; the tail's split at 170 cepstra,
+     window 8 and 200, window 40, each pass counted, against its plain
+     version on the front-end's own prefix at the tail's gate, rows 0-3 of
+     the features against the float64 chain (the card's gated, the CPU
+     chain's printed), timed.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -457,6 +473,66 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
         "replaces": "mfcc_tpu/kernels/resample.py:79",
     },
+    "gather_librosa_8192": {
+        "name": "frontend_gather_librosa_22k_8192_hop_2048",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "gather_hop": {
+        "name": "frontend_gather_classic13_deltas_hop_0.2s",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "gather_long_frames": {
+        "name": "frontend_gather_classic13_deltas_frames_3s",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "gather_conditioning_dither": {
+        "name": "frontend_gather_kaldi_mfcc_dither_hop_0.25s",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:620",
+    },
+    "gather_centered": {
+        "name": "frontend_gather_whisper80_hop_0.2s",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "gather_44k_4096": {
+        "name": "frontend_gather_44k_4096_hop_2048",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "gather_bluestein_6001": {
+        "name": "frontend_gather_global_bluestein_6001",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:807",
+    },
+    "gather_split_48k": {
+        "name": "resample_then_frontend_gather_whisper80_48k_hop_0.2s",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:905",
+    },
+    "tail_split_170": {
+        "name": "feature_tail_split_170_cepstra_window_8",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/tail.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:714",
+    },
+    "tail_split_200": {
+        "name": "feature_tail_split_200_cepstra_window_40",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/tail.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:714",
+    },
     "resample_global_taps": {
         "name": "polyphase_resample_global_taps",
         "route": "cuda",
@@ -621,6 +697,7 @@ class Counters:
         self.frontend.bluestein_launches = 0
         self.frontend.block_fft_launches = 0
         self.frontend.global_table_launches = 0
+        self.frontend.gather_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.block_launches = 0
         self.frontend.split_launches = 0
@@ -629,6 +706,7 @@ class Counters:
         self.rs_kernel.global_tap_launches = 0
         self.rs_kernel.global_window_launches = 0
         self.tail.tail_launches = 0
+        self.tail.tail_split_launches = 0
         self.tail.tail_cmvn_launches = 0
 
     def read(self) -> dict[str, int]:
@@ -645,8 +723,10 @@ class Counters:
             "bluestein": self.frontend.bluestein_launches,
             "block_fft": self.frontend.block_fft_launches,
             "global_tables": self.frontend.global_table_launches,
+            "gather": self.frontend.gather_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
+            "tail_split": self.tail.tail_split_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
             "block": self.frontend.block_launches,
             "split": self.frontend.split_launches,
@@ -673,8 +753,8 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     """Operations of the front-end's minimum for rows holding lens16 samples
-    at 16 kHz: per sample, signal pre-emphasis and the dither (when cfg has
-    them); per frame that holds samples (every frame of a non-empty row
+    at 16 kHz: per sample its frames read (`framed_mask`), signal
+    pre-emphasis and the dither (when cfg has them); per frame that holds samples (every frame of a non-empty row
     under centered framing), the conditioning over its L samples (when cfg
     has it), the window over the min(L, n_fft) it transforms, an
     n_fft/2-point complex FFT counted by the split-radix formula
@@ -722,23 +802,23 @@ def frontend_ops(cfg, chain, frontend, torch, lens16, F) -> int:
     )
     print(f"  front-end: {frames} frames x {per_frame} operations ({conditioning} of "
           f"conditioning) + {per_sample} per sample of pre-emphasis and dither")
-    return per_sample * int(np.sum(lens16)) + frames * per_frame
+    read = sum(int(framed_mask(cfg, int(n), F).sum()) for n in lens16) if per_sample else 0
+    return per_sample * read + frames * per_frame
 
 
-def resample_ops(R, up: int, down: int, lens_out) -> int:
-    """FLOP of the polyphase FIR's minimum for outputs [0, n) of each row:
-    2*n_p - 1 for the n_p nonzero taps of the output's phase, or with the
-    symmetric taps of up = 1 folded, ceil(n/2) products and n - 1 sums."""
+def resample_ops(R, up: int, down: int, lens_out, cfg=None, F: int = 0) -> int:
+    """FLOP of the polyphase FIR's minimum for outputs [0, n) of each row,
+    or with cfg, for the outputs its F frames read (`framed_mask`): 2*n_p - 1
+    for the n_p nonzero taps of the output's phase, or with the symmetric
+    taps of up = 1 folded, ceil(n/2) products and n - 1 sums."""
     d = R.polyphase_design(up, down)
     nz = (d["table"] != 0).sum(axis=1)
+    outs = [np.arange(int(n), dtype=np.int64) if cfg is None
+            else np.nonzero(framed_mask(cfg, int(n), F))[0] for n in lens_out]
     if d["up"] == 1:
-        return int(np.sum(lens_out)) * int((nz[0] + 1) // 2 + nz[0] - 1)
+        return sum(j.size for j in outs) * int((nz[0] + 1) // 2 + nz[0] - 1)
     per_phase = 2 * nz - 1
-    total = 0
-    for n in lens_out:
-        p = (np.arange(int(n), dtype=np.int64) * d["down"] + d["half_len"]) % d["up"]
-        total += int(per_phase[p].sum())
-    return total
+    return sum(int(per_phase[(j * d["down"] + d["half_len"]) % d["up"]].sum()) for j in outs)
 
 
 def dirty_rows(torch, audio, lengths, seed: int):
@@ -878,17 +958,76 @@ def step_times(torch, chain, batch, audio, lengths, cfg, what: str, tag: str,
     return e2e_ms, ours_ms
 
 
+def framed_mask(cfg, n: int, F: int) -> np.ndarray:
+    """[n] bool: the samples of a row of n samples at the feature rate that
+    its F frames read: frame f's L samples from f*S + frame_offset (under
+    centered framing each reflected at the row's length; otherwise the
+    frames that start before n, cut at n) and, under signal pre-emphasis,
+    each sample's x[t-1]. At a hop longer than the frame the rest of the row
+    is never read (a 0.2 s hop of 400-sample frames reads 1/8 of it)."""
+    from mfcc_tpu_torch.ops import chain
+
+    L, S = cfg.frame_length, cfg.frame_step
+    pre = int(cfg.preemph_mode == "signal" and cfg.preemph != 0.0)
+    if n <= 0 or F <= 0:
+        return np.zeros(max(n, 0), bool)
+    if not chain.centered(cfg):
+        starts = S * np.arange(min(F, -(-n // S)))
+        cover = np.zeros(n + 1, np.int64)
+        np.add.at(cover, np.maximum(starts - pre, 0), 1)
+        np.add.at(cover, np.minimum(starts + L, n), -1)
+        return np.cumsum(cover)[:-1] > 0
+    starts = S * np.arange(F)  # from frame_offset
+    cover = np.zeros(S * (F - 1) + L + 1, np.int64)
+    np.add.at(cover, starts, 1)
+    np.add.at(cover, starts + L, -1)
+    idx = np.nonzero(np.cumsum(cover)[:-1] > 0)[0] + chain.frame_offset(cfg)
+    if cfg.frame_tail == "center":  # chain.reflect_index
+        m = np.mod(idx, 2 * n)
+        r = np.where(m < n, m, 2 * n - 1 - m)
+    else:
+        m = np.mod(idx, max(2 * n - 2, 1))
+        r = np.where(m < n, m, 2 * n - 2 - m)
+    mask = np.zeros(n, bool)
+    mask[r] = True
+    if pre:
+        mask[np.maximum(r - 1, 0)] = True
+    return mask
+
+
+def input_read(cfg, n_in: int, F: int) -> int:
+    """Input samples of a row of n_in that the front-end's function reads:
+    `framed_mask`'s at the feature rate, or where cfg resamples, the inputs
+    x[q - K + 1 .. q] (q = (j*down + half_len) // up) of each framed output j
+    (ops/resample.py), within the row."""
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import resample as R
+
+    if not chain.resamples(cfg):
+        return int(framed_mask(cfg, n_in, F).sum())
+    d = R.polyphase_design(*R.ratio(cfg.input_sample_rate, cfg.sample_rate))
+    out = framed_mask(cfg, R.output_length(n_in, cfg.input_sample_rate, cfg.sample_rate), F)
+    edge = np.diff(np.concatenate([[0], out.astype(np.int8), [0]]))
+    lo, hi = np.nonzero(edge == 1)[0], np.nonzero(edge == -1)[0] - 1  # runs [lo, hi] of outputs
+    q = lambda j: (j * d["down"] + d["half_len"]) // d["up"]  # noqa: E731
+    cover = np.zeros(n_in + 1, np.int64)
+    np.add.at(cover, np.clip(q(lo) - d["K"] + 1, 0, n_in), 1)
+    np.add.at(cover, np.clip(q(hi) + 1, 0, n_in), -1)
+    return int((np.cumsum(cover)[:-1] > 0).sum())
+
+
 def frontend_bytes(cfg, frontend, lens_in, B: int, F: int, sample_bytes: int = 2, taps: int = 0) -> int:
-    """Bytes the front-end must move: each input sample that holds signal,
-    the lengths, the [B, F, M+1] prefix and the window, the packed mel
-    weights it reads (mel; none for a spectrogram; mel and melf for SSC)
-    with their offsets and band starts, the twiddle and stage tables (and a
-    resample's taps), each once."""
+    """Bytes the front-end must move: each input sample its frames read
+    (`input_read`), the lengths, the [B, F, M+1] prefix and the window, the
+    packed mel weights it reads (mel; none for a spectrogram; mel and melf
+    for SSC) with their offsets and band starts, the twiddle and stage
+    tables (and a resample's taps), each once."""
     M, N, tables = cfg.n_mels, cfg.n_fft, frontend.mel_matrices(cfg)
     form = frontend.dft_form(cfg)
     tables = (cfg.frame_length + tables * frontend.packed_count(cfg) + (2 * M + 1) * (tables > 0)
               + 2 * frontend.twiddle_count(N, form) + len(frontend.stage_bases(N, form)) + taps)
-    return int(np.sum(lens_in)) * sample_bytes + B * 4 + B * F * (M + 1) * 4 + tables * 4
+    samples = sum(input_read(cfg, int(n), F) for n in lens_in)
+    return samples * sample_bytes + B * 4 + B * F * (M + 1) * 4 + tables * 4
 
 
 def family_path(torch, counters, name: str, seed: int, phase: int, tag: str) -> tuple[str, dict]:
@@ -1109,8 +1248,9 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     form, (plan, groups) = frontend.dft_form(cfg), frontend.fft_layout(cfg)
     branches = {k: 1 for k, on in (
         ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"),
-        ("global_tables", plan == "block_global"), ("bluestein", form == "bluestein"),
-        ("dither", cfg.dither > 0.0), ("conditioning", chain.needs_conditioning(cfg))) if on}
+        ("global_tables", plan.endswith("_global")), ("gather", plan.startswith("gather")),
+        ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
+        ("conditioning", chain.needs_conditioning(cfg))) if on}
     print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
           f"{plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg)} B of shared "
           "memory a block")
@@ -1134,10 +1274,23 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     counters.zero()
     feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
     torch.cuda.synchronize()
-    launches = counters.expect("extract_batch", frontend=1, **branches,
-                               **({"tail": 1} if cfg.features == "mfcc" else {}))
+    tail_plan = tail_branches(cfg)
+    launches = counters.expect("extract_batch", frontend=1, **branches, **tail_plan)
     check_features(torch, chain, testing, batch, cfg, feat, mask, atol, atol64=atol64)
     return batch, audio, lengths_d, errs, launches
+
+
+def tail_branches(cfg) -> dict[str, int]:
+    """The feature tail's launch counts for one mfcc extract_batch of cfg:
+    the tail once, its CMVN pass under utterance CMVN, and the split's
+    1 + deltas passes where it takes the split."""
+    from mfcc_tpu_torch.kernels import tail
+
+    if cfg.features != "mfcc":
+        return {}
+    split = tail.plan(cfg)[0] == "split"
+    return {"tail": 1, **({"tail_cmvn": 1} if cfg.cmvn == "utterance" else {}),
+            **({"tail_split": 1 + cfg.deltas} if split else {})}
 
 
 def dft_times(torch, chain, frontend, cfg, batch, audio, lengths, what: str, tag: str) -> dict:
@@ -1311,6 +1464,263 @@ def large_n_fft_path(torch, counters, tag: str, results: dict) -> None:
         results[key] = dict(launches=launches["block_fft"], max_abs_err=errs["max_abs"], **times)
         del audio, lengths
     print(f"  phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# librosa's melspectrogram at n_fft 8192 (win_length n_fft, hop_length
+# win_length // 4 = 2048, 128 mels, sr 22,050) and a 44.1 kHz framing of
+# 4096 at hop 2048, logmel80 overrides
+LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
+K44_4096 = dict(sample_rate=44100, n_fft=4096, win_len_s=4096 / 44100, hop_s=2048 / 44100, n_mels=128)
+LONG_SPAN_SECONDS = 30  # librosa's 8192-point framing: rows of 30 s at full width
+# the tail at wide cepstra: (key, overrides, the batch's seed, the card's
+# features' gate against the float64 chain on rows 0-3 of that batch). On
+# the H100 the card read 2.59 (170 filters; row 3, frame 880, where filter
+# 1's DC power is roundoff) and 2.56e-2 (200), the CPU fp32 chain 20.6 and
+# 2.56e-2 on the same rows: each gate is about 2.3 times the card's reading.
+TAIL_WIDE = (("tail_split_170", dict(n_mels=170, n_ceps=170, delta_window=8), 1556, 6.0),
+             ("tail_split_200", dict(n_mels=200, n_ceps=200, delta_window=40), 1077, 6e-2))
+
+
+def long_span_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 28: every hop and frame length, and the feature tail at wide
+    cepstra and delta windows. (28.1) librosa's melspectrogram(n_fft=8192)
+    framing (22.05 kHz, 8192-sample frames, hop 2048, 128 mels) at b64 x 30 s
+    int16 through the gather plan: the kernel against the float64 plain
+    version, int16 == float32, two runs and dirty tails bitwise, the counts
+    and mask, extract_batch counted within the two-regime log-mel gate of the
+    CPU chain and the float64 chain; timed (device time, events, plain,
+    rfft(n=8192), bound, the extract_batch step with its device kernels and
+    idle share). (28.2) at b16 through `small_path` (the kernel counted
+    against its plain version, the bitwise invariances, extract_batch
+    counted and gated) and timed: classic13_deltas at a 0.2 s hop and with
+    3 s frames, kaldi_mfcc with dither at 0.25 s, whisper80 at 0.2 s, n_fft
+    4096 at hop 2048 at 44.1 kHz, n_fft 6001 (Bluestein, tables in device
+    memory); whisper80 fed 48 kHz at 0.2 s (the split route) counted and
+    gated. (28.3) the block launch at a 0.2 s hop, bitwise the offline
+    prefix on its valid frames. (28.4) the feature tail in its split plan
+    at 170 cepstra and delta window 8 and at 200 and window 40, b16,
+    counted through extract_batch (each of the split's passes), bitwise the
+    tail on the front-end's own prefix, against its plain version there at
+    the tail's gate; the prefix against the float64 plain version; the
+    features of rows 0-3 against the float64 chain, the card's gated and
+    the CPU chain's printed beside them; timed."""
+    import types
+
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend, tail
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.ops import resample as R
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    # 28.1 librosa's 8192-point framing at full width
+    cfg = named_config("logmel80").replace(**LIBROSA_8192)
+    n = cfg.sample_rate * LONG_SPAN_SECONDS
+    batch = make_batch(pad_batch, cfg, B, n, 5711, seed=28)
+    T = batch.audio.shape[1]
+    F, M = cfg.num_frames(T), cfg.n_mels
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    plan, groups = frontend.fft_layout(cfg)
+    print(f"== 28. every hop and frame length: librosa's melspectrogram(n_fft=8192) framing (22.05 kHz, "
+          f"frames of 8192, hop 2048, 128 mels) b{B} x {LONG_SPAN_SECONDS} s int16 [{B}, {T}], {F} frames, "
+          f"{plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg):,} B a block (the "
+          f"staged block plan's {frontend._fft_smem(cfg, 'stockham', 'block', True, 1):,} B)")
+    check(plan == "gather" and chain.unsupported_reason(cfg) is None, "librosa's 8192 framing takes the gather plan")
+    for c in (cfg, named_config("classic13_deltas").replace(hop_s=0.2),
+              named_config("kaldi_mfcc").replace(dither=1.0, hop_s=0.25)):
+        info = frontend.kernel_info(c)
+        print(f"    the gather plan {frontend.fft_layout(c)}, n_fft {c.n_fft}, hop {c.frame_step}: {info}")
+        check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the kernel", frontend=1, block_fft=1, gather=1)
+    check(tuple(got.shape) == (B, F, M + 1), f"prefix shape {tuple(got.shape)}")
+    errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "librosa's 8192 framing, main batch")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+          and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+          "int16 rows == float32 rows, and two runs equal, bitwise")
+    check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, 28), lengths, cfg)),
+          "garbage past each length leaves the output unchanged")
+    del got
+    check_counts(torch, frontend, audio, lengths, cfg, "librosa's 8192 framing")
+    counters.zero()
+    feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("main path", frontend=1, block_fft=1, gather=1)
+    check_features(torch, chain, testing, batch, cfg, feat, mask, None)
+    del feat, mask
+    print(f"  times {tag}")
+    times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, "librosa's 8192 framing", tag)
+    results["gather_librosa_8192"] = dict(launches=launches["gather"], max_abs_err=errs["max_abs"], **times)
+    step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag, seconds=LONG_SPAN_SECONDS)
+    del audio, lengths
+
+    # 28.2 the other framings at b16: (key, config, overrides, the features'
+    # gate against the CPU chain and against float64, the float64 plain version)
+    for key, name, over, atol, atol64, prefix64 in (
+        ("gather_hop", "classic13_deltas", dict(hop_s=0.2), testing.FEATURE_ATOL, None, False),
+        ("gather_long_frames", "classic13_deltas", dict(win_len_s=3.0), testing.FEATURE_ATOL, None, False),
+        ("gather_conditioning_dither", "kaldi_mfcc", dict(dither=1.0, hop_s=0.25), testing.KALDI_MFCC_ATOL,
+         None, False),
+        ("gather_centered", "whisper80", dict(hop_s=0.2), testing.WHISPER_ATOL, testing.WHISPER_ORACLE_ATOL,
+         True),
+        ("gather_44k_4096", "logmel80", K44_4096, None, None, True),
+        ("gather_bluestein_6001", "classic13_deltas", dict(n_fft=6001), testing.FEATURE_ATOL, None, True),
+    ):
+        cfg = named_config(name).replace(**over)
+        n = cfg.sample_rate * SECONDS
+        lens = [n - 571 * i for i in range(B_SMALL - 2)] + [min(n, 3 * cfg.frame_length // 2), 1]
+        print(f"   {key}: {name} {over}: {frontend.fft_layout(cfg)}, the staged block plan's "
+              f"{frontend._fft_smem(cfg, frontend.dft_form(cfg), 'block', True, 1):,} B")
+        batch, audio, lengths, errs, launches = small_path(
+            torch, counters, cfg, lens, n, sum(map(ord, key)), f"{name} {over}", atol, atol64,
+            prefix64=prefix64)
+        check(launches["gather"] == 1, "the gather plan, once")
+        times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, key, tag)
+        results[key] = dict(launches=launches["gather"], max_abs_err=errs["max_abs"], **times)
+        del audio, lengths
+
+    # whisper80 fed 48 kHz at a 0.2 s hop: the split route, then the gather plan
+    cfg = named_config("whisper80").replace(input_sample_rate=48000, hop_s=0.2)
+    sr_in = cfg.input_sample_rate
+    n = sr_in * SECONDS
+    g = np.random.default_rng(282)
+    pcm = (g.standard_normal((B_SMALL, n)) * 3000).astype(np.int16)
+    lens = np.array([n - 1713 * i for i in range(B_SMALL)], np.int32)
+    pcm[np.arange(n)[None, :] >= lens[:, None]] = 0
+    audio = torch.as_tensor(pcm, device="cuda")
+    lengths = torch.as_tensor(lens, device="cuda")
+    F = cfg.num_frames(R.output_length(n, sr_in, cfg.sample_rate))
+    print(f"   whisper80 fed 48 kHz at a 0.2 s hop, b{B_SMALL} x {SECONDS} s: route "
+          f"{frontend.resample_route(cfg)}, {frontend.fft_layout(frontend.feature_rate_config(cfg))} at 16 kHz")
+    counters.zero()
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    launches = counters.expect("the split route", resample=1, frontend=1, centered=1, split=1,
+                               block_fft=1, gather=1)
+    errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, "whisper80 fed 48 kHz, hop 0.2 s")
+    check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg)),
+          "int16 rows == float32 rows, bitwise")
+    del got
+    counters.zero()
+    feat, mask = chain.extract_batch(pcm, lens, cfg)
+    torch.cuda.synchronize()
+    counters.expect("extract_batch", resample=1, frontend=1, centered=1, split=1, block_fft=1, gather=1)
+    cpu_feat, cpu_mask = chain.extract_batch(pcm, lens, cfg, device="cpu")
+    check(torch.equal(mask.cpu(), cpu_mask), "frame mask equal to the CPU chain's")
+    whisper_gate(testing, feat, cpu_feat, testing.WHISPER_ATOL, "CPU chain")
+    f64, _ = chain.extract_batch(pcm[:4], lens[:4], cfg.replace(dtype="float64"), device="cpu")
+    whisper_gate(testing, feat[:4], f64, testing.WHISPER_ORACLE_ATOL, "float64 chain (rows 0-3)")
+    del feat, mask, cpu_feat, f64
+    event_ms = cuda_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))
+    route_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg))  # both kernels
+    plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg), reps=5)
+    d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
+    conv_ms = device_ms(torch, conv1d_resample(torch, audio.float(), d))
+    st = chain.logmel_stages(*chain.resample_input(audio, lengths, cfg), cfg)
+    framed = st["windowed"].reshape(-1, cfg.frame_length).contiguous()
+    del st
+    rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
+    del framed
+    lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens])
+    bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B_SMALL, F, taps=d["up"] * d["K"]),
+                               frontend_ops(cfg, chain, frontend, torch, lens16, F)
+                               + resample_ops(R, d["up"], d["down"], lens16, cfg, F))
+    print(f"  the split route (resample.cu, then the gather plan): {route_ms:.4f} ms of device time "
+          f"({bound_ms / route_ms * 100:.1f}% of bound); CUDA events {event_ms:.4f} ms; plain {plain_ms:.4f} "
+          f"ms; library: conv1d stride {d['down']} {conv_ms:.4f} + rfft(n={cfg.n_fft}) {rfft_ms:.4f} ms "
+          f"of device time {tag}")
+    results["gather_split_48k"] = dict(launches=launches["gather"], max_abs_err=errs["max_abs"], ms=route_ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=conv_ms + rfft_ms)
+    del audio, lengths
+
+    # 28.3 the block launch at a 0.2 s hop against the offline prefix
+    cfg = named_config("classic13_deltas").replace(hop_s=0.2)
+    n = cfg.sample_rate * SECONDS
+    batch = make_batch(pad_batch, cfg, 1, n, 0, seed=283)
+    audio = torch.as_tensor(batch.audio, device="cuda")
+    lengths = torch.as_tensor(batch.lengths, device="cuda")
+    offline = frontend.logmel_prefix(audio, lengths, cfg)
+    K, S, L, f0 = 16, cfg.frame_step, cfg.frame_length, 7
+    span = (K - 1) * S + L
+    rows = audio[:, f0 * S - 1 : f0 * S + span].float().contiguous()
+    valid = torch.tensor([min(int(batch.lengths[0]) - f0 * S, span)], dtype=torch.int32, device="cuda")
+    counters.zero()
+    blk = frontend.logmel_block(rows, valid, cfg)
+    torch.cuda.synchronize()
+    counters.expect("the block launch", block=1, block_fft=1, gather=1)
+    nv = int(chain.num_valid_frames(valid, cfg)[0])
+    check(nv >= 1 and torch.equal(blk[:, :nv], offline[:, f0 : f0 + nv]),
+          f"the block launch at a 0.2 s hop, frames [{f0}, {f0 + K}) ({nv} valid), == the offline prefix, "
+          "bitwise")
+    del audio, lengths
+
+    # 28.4 the feature tail at wide cepstra and delta windows. 170 or 200
+    # filters at n_fft 512 are mostly one or two bins wide (29 of 170 empty,
+    # 82 of one or two weights), and filter 1 weighs the DC bin alone: where
+    # a frame's windowed sum is near 0, its fp32 power is roundoff (exactly 0
+    # in one fp32 chain, 1e-9 in the other) and its log moves by up to tens,
+    # which the DCT and lifter carry into every cepstrum. The front-end is
+    # held to the float64 plain version at the prefix gates, those lanes per
+    # bin (`testing.narrow_lanes`), and the tail to its plain version on the
+    # same prefix; the features of rows 0-3, of the card and of the CPU
+    # chain, each against the float64 chain, the card's at `f64_gate`.
+    n16 = 16000 * SECONDS
+    lens = [n16 - 571 * i for i in range(B_SMALL - 2)] + [401, 0]
+    for key, over, seed, f64_gate in TAIL_WIDE:
+        cfg = named_config("classic13_deltas").replace(**over)
+        mode = tail.plan(cfg)[0]
+        print(f"   {key}: classic13_deltas {over}: the tail's plan {tail.plan(cfg)}")
+        batch = pcm_batch(pad_batch, cfg, lens, n16, seed)
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        counters.zero()
+        feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+        torch.cuda.synchronize()
+        launches = counters.expect("extract_batch", frontend=1, **tail_branches(cfg))
+        check(mode == "split", f"the tail's {mode} plan")
+        prefix, nv, _ = frontend.logmel_prefix_counts(audio, lengths, cfg)
+        mel = chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
+        plain64 = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+        check_prefix(testing, prefix, plain64, cfg, f"{cfg.n_mels} filters vs the float64 plain version",
+                     narrow=testing.narrow_lanes(mel))
+        del plain64
+        got = tail.feature_tail(prefix, nv, cfg)
+        check(torch.equal(got, feat), "extract_batch's features == the tail kernel's on the front-end's prefix, "
+                                      "bitwise")
+        want = tail.feature_tail_reference(prefix, nv, cfg)
+        errs = testing.tail_errors(got, want)
+        print("  the tail vs its plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        check(not testing.tail_failures(errs), "the tail within max(2e-4, 2e-5 max|f|) of its plain version")
+        check(torch.equal(got, tail.feature_tail(prefix, nv, cfg)), "two runs equal, bitwise")
+        cpu_feat, cpu_mask = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
+        check(torch.equal(mask.cpu(), cpu_mask) and bool((feat[mask == 0] == 0).all())
+              and bool(torch.isfinite(feat).all()), "mask equal to the CPU chain's, finite, pad rows exactly 0")
+        f64, _ = chain.extract_batch(batch.audio[:4], batch.lengths[:4], cfg.replace(dtype="float64"),
+                                     device="cpu")
+        card64 = (feat[:4].cpu().double() - f64).abs()
+        cpu64 = float((cpu_feat[:4].double() - f64).abs().max())
+        at = np.unravel_index(int(card64.argmax()), tuple(card64.shape))
+        print(f"  rows 0-3 against the float64 chain: card {float(card64.max()):.4e} (at row, frame, column "
+              f"{tuple(int(i) for i in at)}), CPU chain {cpu64:.4e}; card vs the CPU chain on all rows "
+              f"{float((feat.cpu() - cpu_feat).abs().max()):.4e} (max |f| {float(f64.abs().max()):.1f})")
+        check(float(card64.max()) < f64_gate, f"the card's features within {f64_gate} of the float64 chain "
+                                               "(rows 0-3)")
+        del feat, mask, cpu_feat, got, want, f64, card64
+        substr = None  # the split's passes
+        kernel_ms = device_ms(torch, lambda: tail.feature_tail(prefix, nv, cfg), substr)
+        plain_ms = cuda_ms(torch, lambda: tail.feature_tail_reference(prefix, nv, cfg), reps=10)
+        bound_ms, bound_by = tail_bound(cfg, B_SMALL, prefix.shape[1], int(nv.sum()))
+        print(f"  feature tail, {mode} plan: {kernel_ms:.4f} ms of device time, L2 flushed "
+              f"({bound_ms / kernel_ms * 100:.1f}% of bound); plain version {plain_ms:.4f} ms {tag}")
+        print("  library: none (no single PyTorch call computes the cepstral tail)")
+        results[key] = dict(launches=launches["tail_split"], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del audio, lengths, prefix
+    print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
@@ -2883,7 +3293,7 @@ def resampled_rows_path(torch, counters, tag: str, results: dict) -> None:
     lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens])
     bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, B, F, taps=d["up"] * d["K"]),
                                frontend_ops(cfg, chain, frontend, torch, lens16, F)
-                               + resample_ops(R, d["up"], d["down"], lens16))
+                               + resample_ops(R, d["up"], d["down"], lens16, cfg, F))
     print(f"  the split route (resample.cu, then the plain form): {route_ms:.4f} ms "
           f"({bound_ms / route_ms * 100:.1f}% of bound); resample.cu alone {rs_ms:.4f} ms device time {tag}")
     print(f"  plain version (float64 two-dot resample, gather + rfft chain on the card): {plain_ms:.4f} ms {tag}")
@@ -3012,7 +3422,8 @@ def resampled_rows_path(torch, counters, tag: str, results: dict) -> None:
             kp, nbp = frontend.bf16_dims(cfg)
             bound_ms, bound_by = bound(
                 frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]) + 2 * kp * 2 * nbp * 2,
-                frontend_ops(cfg, chain, frontend, torch, lens16, F) + resample_ops(R, d["up"], d["down"], lens16))
+                frontend_ops(cfg, chain, frontend, torch, lens16, F)
+                + resample_ops(R, d["up"], d["down"], lens16, cfg, F))
             print(f"  its three bf16 passes alone: {3 * 2 * kp * 2 * nbp * B * F / PEAK_BF16_FLOPS * 1e3:.4f} ms "
                   f"at the bf16 peak")
             conv_ms = cuda_ms(torch, conv1d_resample(torch, audio.float(), d))
@@ -3283,7 +3694,7 @@ def main(argv=None) -> int:
     lens_in = np.minimum(batch.lengths.astype(np.int64), T)
     lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
     fe_ops = frontend_ops(cfg, chain, frontend, torch, lens16, F)
-    rs_ops = resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), lens16)
+    rs_ops = resample_ops(R, *R.ratio(sr_in, cfg.sample_rate), lens16, cfg, F)
     print(f"  resample: {int(lens16.sum())} output samples with signal, {rs_ops / lens16.sum():.0f} FLOP each")
     bound_ms, bound_by = bound(
         frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]), fe_ops + rs_ops)
@@ -3323,9 +3734,9 @@ def main(argv=None) -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("non-contiguous rows", lambda: R.resample_batch(x[:1, ::2], sr_in, 16000), ValueError),
-        ("a front-end layout over the block's shared memory (n_fft 6001)",
+        ("a front-end layout over the block's shared memory (n_fft 7001)",
          lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("classic13").replace(n_fft=6001)),
+                                     named_config("classic13").replace(n_fft=7001)),
          NotImplementedError),
     ):
         try:
@@ -3387,7 +3798,7 @@ def main(argv=None) -> int:
     lens_in = np.minimum(batch.lengths.astype(np.int64), T)
     lens16 = np.array([R.output_length(int(x), sr_in, cfg.sample_rate) for x in lens_in])
     d = R.polyphase_design(*R.ratio(sr_in, cfg.sample_rate))
-    rs_ops = resample_ops(R, d["up"], d["down"], lens16)
+    rs_ops = resample_ops(R, d["up"], d["down"], lens16, cfg, F)
     print(f"  resample: {int(lens16.sum())} output samples with signal, {rs_ops / lens16.sum():.1f} FLOP each")
     b44_ms, _ = bound(frontend_bytes(cfg, frontend, lens_in, B, F, taps=d["up"] * d["K"]),
                       frontend_ops(cfg, chain, frontend, torch, lens16, F) + rs_ops)
@@ -3600,6 +4011,7 @@ def main(argv=None) -> int:
         tools_path(torch, tag, work)
     resampled_rows_path(torch, counters, tag, results)
     large_n_fft_path(torch, counters, tag, results)
+    long_span_path(torch, counters, tag, results)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

@@ -189,6 +189,45 @@
 // (a few butterflies a thread a stage), not by the card's rate.
 // __launch_bounds__(256, 2): at most 128 registers a thread.
 //
+// The gather plan (p.gather, a run-time branch of the block plan's
+// instantiations; plan_block tries it only after every block plan above
+// fails, so a config that fits those keeps its plan and its bits). The
+// staged span, (32 - 1) S + L floats, and the window, max(L, n_fft), grow
+// with the hop and the frame length, not with n_fft: at a hop of 0.125 s
+// (2,000 samples) or frames of 1.6 s they alone are over the block. The
+// gather plan stages neither. Each group builds its frame straight from the
+// row in device memory into its second FFT row (step 2g), the row stage 0
+// of the first FFT reads and never writes: for a < min(L, n_fft) the value
+// the staged span would hold at t = f S + a (staged_at: the int16 or float32
+// convert, signal pre-emphasis from x[t-1] (0 only at t = 0; under origin 1
+// the pre-context sample), zeroing at t >= length after pre-emphasis; under
+// kDither the contract noise keyed on each sample's source index; under
+// centered framing the same reflection index), and the window read from
+// device memory (the DFT's loads through one window pointer a block, staged
+// or not: a choice at each load cost the staged block plan 4-11 % in turns,
+// scripts/block_plan_sweep.py --parent). Under kCond the mean and the raw
+// energy are group sums over all L samples in the order the staged block
+// plan sums them (those past n_fft from device memory), and the windowed
+// energy past n_fft reads device memory too. Step 2z stays; the tables are staged where they fit, else read
+// from device memory (p.tables_global) as in "block_global". Shared memory
+// then holds the packed bands, the tables where staged, and each group's two
+// rows and scratch: it no longer depends on the hop or the frame length.
+// plan_block takes the first of 4, 2 and 1 groups, tables staged, then in
+// device memory, that fits (classic13_deltas at any hop or frame length:
+// four groups, 28,736 B; librosa's 8,192-point frames at hop 2,048: one
+// group, its tables staged, 230,432 B; n_fft 6,001: one group, its tables in
+// device memory, 230,912 B). Each sample of a frame is read from L2 by every
+// frame that holds it (L / S frames; one at hops of a frame or more), and its
+// x[t-1] once more under signal pre-emphasis: the plan trades those reads for
+// the layout's independence of the hop and the frame length.
+// Bound at librosa's 8,192-point framing (22.05 kHz, hop 2,048, 128 mels,
+// b64 x 30 s int16, 20,672 frames): bytes 84.7 MB in + 10.7 MB out -> ~28 us;
+// operations ~0.2 MFLOP a frame at the function's minimum (a 4,096-point
+// complex FFT by the split-radix formula, the split, |X|^2, the mel sums) ->
+// ~60 us: operations bound it (chip_smoke.py computes it per run). One frame
+// a block at once, one block an SM, a barrier a stage: like the block plan,
+// it is bound by the stages' latency, not by the card's rate.
+//
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
 // starts at f*S + o, o = S/2 - L/2 ("center", Kaldi snip_edges=false) or
@@ -473,9 +512,10 @@ struct Params {
   int framing, drop_last;
   // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
   // block (the block plan), its groups (frames a block transforms at
-  // once, 4, 2 or 1, each by 256 / groups threads) and tables_global (its
-  // tables read from device memory, not staged); bchunk, the weights a
-  // thread of a group sums;
+  // once, 4, 2 or 1, each by 256 / groups threads), tables_global (its
+  // tables read from device memory, not staged) and gather (the gather
+  // plan: no span and no window staged, each frame read from device
+  // memory); bchunk, the weights a thread of a group sums;
   // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
   // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
   // output-base table lengths; the projection's weights a lane. The
@@ -487,7 +527,7 @@ struct Params {
   // (tile) and ring stages.
   int half, bins, fft_n, nstages;
   unsigned long long radices;
-  int block, groups, tables_global;
+  int block, groups, tables_global, gather;
   int ntw, nbases, chunk, bchunk, nsplit, bq, bk, chirp, filt, nfilt;
   int kp, nbp, npass, pws, tile, stages;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
@@ -519,14 +559,15 @@ struct Layout {
 // frames' energies and means and the projection's scratch), which stand
 // idle until the DFT, and widens them only where it is longer. wide (the
 // fused resample, and kDither) gives the signal row span + 1 floats:
-// x[t0-1 .. t0+span) before pre-emphasis.
+// x[t0-1 .. t0+span) before pre-emphasis. The gather plan stages no signal
+// row and no window: its layout starts at the packed bands.
 __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide) {
   Layout l;
   const int tables = weight_tables(p);
   const int parts = align4(tables * (32 + p.M));
-  l.span = (p.tile - 1) * p.S + p.L;
-  l.win = align4(l.span + (wide ? 1 : 0));
-  l.melw = l.win + align4(imax(p.L, p.n_fft));
+  l.span = p.gather ? 0 : (p.tile - 1) * p.S + p.L;
+  l.win = p.gather ? 0 : align4(l.span + (wide ? 1 : 0));
+  l.melw = l.win + (p.gather ? 0 : align4(imax(p.L, p.n_fft)));
   l.melf = l.melw + align4(p.nnz);  // ssc only
   l.moff = l.melw + tables * align4(p.nnz);
   l.meta = l.moff + (tables ? align4(p.M + 1) : 0);
@@ -672,6 +713,33 @@ __device__ inline long long reflect(long long t, long long n, int kind) {
   if (m < 0) m += per;
   if (m < n) return m;
   return kind == kCenter ? 2 * n - 1 - m : 2 * n - 2 - m;
+}
+
+// The gather plan's sample (step 2g): what the plain form's staged span
+// holds at frame position t = f S + a of a row of len samples, computed from
+// device memory by the arithmetic of the staging that span takes (step 1c
+// for centered framing, 1d under kDither, 1 otherwise), so the two plans
+// frame the same values.
+template <bool kDither, typename Sample>
+__device__ inline float staged_at(const Sample* row, long long t, long long len, const Params& p) {
+  const float c = p.preemph;
+  if (p.center != kNoCenter) {  // 1c: the reflected source index r
+    const long long r = reflect(t + p.offset, len > 0 ? len : 1, p.center);
+    const bool in = r < len;
+    const float x = in ? source<kDither>(row, r, p) : 0.f;
+    const float xp = in && c != 0.f && r > 0 ? source<kDither>(row, r - 1, p) : 0.f;
+    return c != 0.f ? x - c * xp : x;
+  }
+  if (t >= len) return 0.f;  // zeroing after pre-emphasis
+  if constexpr (kDither) {  // 1d: the noise on x[t] and x[t-1] before pre-emphasis
+    const float x = dithered(source<false>(row, t, p), static_cast<uint32_t>(t), p);
+    if (c == 0.f) return x;
+    const float xp = t > 0 ? dithered(source<false>(row, t - 1, p), static_cast<uint32_t>(t - 1), p) : 0.f;
+    return x - c * xp;
+  }
+  const float x = source<false>(row, t, p);
+  const float xp = t + p.origin > 0 ? source<false>(row, t - 1, p) : 0.f;
+  return x - c * xp;
 }
 
 // ops/chain.py num_valid_frames for a row of n samples at the frame rate:
@@ -1233,9 +1301,16 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int f0 = blockIdx.x * tile;
   const long long t0 = static_cast<long long>(f0) * S;
   const Sample* row = audio + static_cast<size_t>(b) * T + p.origin;  // x[0]; x[-1] under origin 1
+  const bool gather = kBlock && p.gather;  // no span and no window staged (step 2g)
+  // the window the DFT's loads read: staged, or the gather plan's in device
+  // memory, one pointer chosen a block (a choice at each load cost the
+  // staged block plan 4-11 %; scripts/block_plan_sweep.py --parent)
+  const float* wv = gather ? window : win;
 
-  const int wlen = imax(L, p.n_fft);
-  for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
+  if (!gather) {
+    const int wlen = imax(L, p.n_fft);
+    for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
+  }
   if (kind != kSpectrogram) {
     float* w = smem + lay.melw;
     float* wf = smem + lay.melf;
@@ -1343,6 +1418,9 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         }
       }
     }
+  } else if (gather) {
+    // the gather plan stages nothing: each group reads its frames from
+    // device memory (step 2g)
   } else if (!framed) {
     // 1c. centered framing: staged position t = t0 + offset + i reads the
     //     source index r = reflect(t, max(len, 1)) and stages
@@ -1627,7 +1705,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     auto transform = [&](auto team, const float* fr, float mu, float2* ra, float2* rb,
                          const float2* tws, const int* bs, float& e, float*& pw) -> float {
       constexpr bool kG = decltype(team)::kGlobal;
-      auto sample = [&](int a) -> float { return cond(fr, mu, a) * win[a]; };
+      auto sample = [&](int a) -> float { return cond(fr, mu, a) * wv[a]; };
       if (p.form == kBluestein) {
         // 3d. the Bluestein FFT: stage 0 of the forward P-point FFT loads
         //     point n < Q (the windowed pair (y[2n], y[2n+1]) for even n_fft,
@@ -1746,17 +1824,30 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
             es = 0.f;
           } else {
             const float* fr = sig + fl * S;
+            // 2g. the gather plan: the frame's first Lk samples from device
+            //     memory into the group's second row (stage 0 of the first
+            //     FFT reads it and writes the first); dev(a), any a < L, the
+            //     same value from device memory
+            const long long tf = static_cast<long long>(f) * S;
+            auto dev = [&](int a) -> float { return staged_at<kDither>(row, tf + a, len, p); };
+            if (gather) {
+              float* g = reinterpret_cast<float*>(rb);
+              for (int a = rank; a < Lk; a += gsize) g[a] = dev(a);
+              team.sync();
+              fr = g;
+            }
+            auto x_at = [&](int a) -> float { return gather && a >= Lk ? dev(a) : fr[a]; };
             // 2. the conditioning's mean and raw energy as group sums
             float mu = 0.f, e = 0.f;
             if constexpr (kCond) {
               if (p.remove_dc) {
                 float s = 0.f;
-                for (int a = rank; a < L; a += gsize) s += fr[a];
+                for (int a = rank; a < L; a += gsize) s += x_at(a);
                 mu = gsum(s) / static_cast<float>(L);
               }
               if (p.energy_source == kRawFrame) {
                 for (int a = rank; a < L; a += gsize) {
-                  const float d = fr[a] - mu;
+                  const float d = x_at(a) - mu;
                   e += d * d;
                 }
               }
@@ -1764,7 +1855,13 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
             es = gsum(transform(team, fr, mu, ra, rb, tws, bs, e, pw));
             if (wsum) {
               for (int a = Lk + rank; a < L; a += gsize) {
-                const float x = cond(fr, mu, a) * win[a];
+                float x;
+                if (gather) {  // the rows hold the FFT now: both samples from device memory
+                  const float d = dev(a) - mu;
+                  x = (d - p.frame_preemph * (dev(a - 1) - mu)) * __ldg(window + a);
+                } else {
+                  x = cond(fr, mu, a) * win[a];
+                }
                 e += x * x;
               }
             }
@@ -1925,21 +2022,31 @@ bool plan_stages(Params& p, int n) {
   return true;
 }
 
-// The block plan (kernels/frontend.py fft_plan, block_groups): the first of
-// 4, 2 and 1 groups (frames a block transforms at once) with the tables
-// staged, then with them in device memory, whose layout fits the block
-// (else 1 group, device memory: refused by kernels/frontend.py
-// layout_reason before any launch).
-void plan_block(Params& p, bool wide) {
-  p.block = 1;
+// The first of 4, 2 and 1 groups (frames a block transforms at once) with
+// the tables staged, then with them in device memory, whose layout fits the
+// block; false (1 group, device memory) when none does.
+bool plan_groups(Params& p, bool wide) {
   for (int global = 0; global < 2; ++global) {
     for (int groups = 4; groups >= 1; groups /= 2) {
       p.tables_global = global;
       p.groups = groups;
       p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
-      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return;
+      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return true;
     }
   }
+  return false;
+}
+
+// The block plan (kernels/frontend.py fft_layout): plan_groups with the
+// tile's span and window staged, then with neither (the gather plan); else
+// the gather plan at 1 group, device memory (refused by kernels/frontend.py
+// layout_reason before any launch).
+void plan_block(Params& p, bool wide) {
+  p.block = 1;
+  for (p.gather = 0; p.gather < 2; ++p.gather) {
+    if (plan_groups(p, wide)) return;
+  }
+  p.gather = 1;
 }
 
 // The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
@@ -1952,7 +2059,8 @@ void plan_block(Params& p, bool wide) {
 // projection's chunks. In the plain form (pp null) the Stockham and
 // Bluestein forms take the block plan where the warp plan's layout is over
 // the block, with the tables in device memory where the staged ones do not
-// fit either. False when the wrapper's form disagrees, or for n_fft < 2.
+// fit either, and the gather plan where the staged span and window do not.
+// False when the wrapper's form disagrees, or for n_fft < 2.
 bool plan(Params& p, const Polyphase* pp, bool int16) {
   const int N = p.n_fft;
   if (N < 2) return false;
@@ -1962,7 +2070,7 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.radices = 0;
   p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
   p.kp = p.nbp = p.npass = p.pws = p.stages = 0;
-  p.block = p.tables_global = 0;
+  p.block = p.tables_global = p.gather = 0;
   p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;

@@ -63,8 +63,11 @@
 //      kernel's parameter space, so each FMA takes its weight as a constant
 //      operand (a broadcast from the constant cache) and the product reads
 //      no shared memory but the row. The generic instantiation (any other
-//      shape: run-time M1, C, N, deltas) stages dct_aug in shared memory
-//      once a block and reads it as broadcasts.
+//      shape: run-time M1, C, N, deltas) logs each row's energy lane in
+//      place, then takes one (row, column) a thread, the same FMA chain in
+//      lane order, so a wide shape (140 cepstra: 21,140 FMAs a row) spreads
+//      over the block's threads and not over one thread a row; it reads
+//      dct_aug staged in shared memory (coalesced over the columns).
 //   3. D at the distinct positions [max(f0 - e, 0), min(f0 + 127 + e,
 //      last)] (e = N for DD, 0 else), then DD at the tile's rows, one
 //      thread per (position, column), each into shared memory (DD over the
@@ -79,6 +82,22 @@
 // is the same FMA chain as the parent's 32-frame kernel, so the two agree
 // bitwise. A tile wholly past nv writes zeros and reads nothing. Nothing but
 // the [B, F, D] features reaches device memory.
+//
+// Plans for the generic shape (kernels/tail.py plan, plan_tail below): the
+// first of 128, 64 and 32 frames a block whose layout fits the block
+// (tiled); else the split, where dct_aug, the staged rows and their halo
+// of 2 deltas N frames are over the block (170 cepstra at delta window 8:
+// 236,256 B at 32 frames; 200 at window 40: 558,400 B). The split stages
+// nothing, and reads dct_aug through __ldg: pass 0 writes base
+// into the output's first C columns of each row below nv (zeros across the
+// rows past it: the mask), pass 1 reads base from there and writes D into
+// columns [C, 2C), pass 2 reads D and writes DD into [2C, 3C), each one
+// thread per (row, column), a launch each (one pass's reads need its
+// neighbours' writes from the pass before). Each value is the arithmetic of
+// the tiled kernel's on the same inputs (the same FMA chain for base, the
+// same delta_sum and clamps), so the plans agree bitwise. It reads each
+// prefix row C times from L2 and each base and D value 2N times, where the
+// tiled kernel reads them once from shared memory.
 //
 // CMVN needs a reduction over the whole utterance, which no tile holds, so it
 // is a second launch: one block per utterance, 8 warps; lane j of a warp takes
@@ -100,6 +119,8 @@ constexpr int kSmemBudget = 232448;  // the H100's dynamic shared memory a block
 
 struct TailParams {
   int F, M1, C, deltas, N, tile;
+  int split;  // the generic shape's plan: 0 tiled, 1 the split
+  int pass;   // the split's pass: 0 base, 1 D, 2 DD
   int append_energy, has_floor;
   int aligned_in, aligned_out;  // the prefix and out pointers are 16-byte aligned
   long long total;              // floats of the prefix tensor
@@ -254,17 +275,25 @@ tail_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
   __syncthreads();
 
   // 2. base for every distinct row, an FMA chain in lane order per column
-  for (int r = threadIdx.x; r <= q_hi - q_lo; r += kThreads) {
-    const float* xr = x + r * XS;
-    float* br = base + r * C;
-    if constexpr (kGeneric) {
-      const float el = energy_lane(xr[M1 - 1], p);
-      for (int c = 0; c < C; ++c) {
-        float acc = 0.f;
-        for (int m = 0; m < M1 - 1; ++m) acc = fmaf(xr[m], w[m * C + c], acc);
-        br[c] = fmaf(el, w[(M1 - 1) * C + c], acc);
-      }
-    } else {
+  const int nrows = q_hi - q_lo + 1;
+  if constexpr (kGeneric) {
+    // the energy lane logged in place, then one (row, column) a thread
+    float* xw = smem + lay.x + shift;
+    for (int r = threadIdx.x; r < nrows; r += kThreads) {
+      xw[r * XS + M1 - 1] = energy_lane(xw[r * XS + M1 - 1], p);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nrows * C; i += kThreads) {
+      const int r = i / C, c = i - r * C;
+      const float* xr = x + r * XS;
+      float acc = 0.f;
+      for (int m = 0; m < M1 - 1; ++m) acc = fmaf(xr[m], w[m * C + c], acc);
+      base[i] = fmaf(xr[M1 - 1], w[(M1 - 1) * C + c], acc);
+    }
+  } else {
+    for (int r = threadIdx.x; r < nrows; r += kThreads) {
+      const float* xr = x + r * XS;
+      float* br = base + r * C;
       float xv[kM1];
 #pragma unroll
       for (int m = 0; m < kM1; ++m) xv[m] = xr[m];
@@ -316,6 +345,40 @@ tail_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
     if (col < 2 * C) return d1[(s - d_lo) * C + col - C];
     return dd[r * C + col - 2 * C];
   });
+}
+
+// The split, pass p.pass over row b = blockIdx.y, one thread per
+// (frame s, column): pass 0 over all Dout columns (base into [0, C) below
+// nv, zeros at and past nv), pass 1 over C (D into [C, 2C) from base),
+// pass 2 over C (DD into [2C, 3C) from D), each below nv only.
+__global__ void __launch_bounds__(kThreads)
+tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
+                  const float* __restrict__ dct, float* __restrict__ out, const TailParams p) {
+  const int F = p.F, M1 = p.M1, C = p.C, N = p.N;
+  const int Dout = C * (p.deltas + 1);
+  const int width = p.pass == 0 ? Dout : C;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<long long>(F) * width) return;
+  const int s = static_cast<int>(i / width), col = static_cast<int>(i - static_cast<long long>(s) * width);
+  const int b = blockIdx.y;
+  const int nv = min(max(n_valid[b], 0), F), last = nv - 1;
+  float* o = out + static_cast<size_t>(b) * F * Dout;
+  if (p.pass == 0) {
+    if (s >= nv) {
+      o[static_cast<size_t>(s) * Dout + col] = 0.f;
+    } else if (col < C) {  // the generic kernel's FMA chain in lane order
+      const float* xr = prefix + (static_cast<size_t>(b) * F + s) * M1;
+      float acc = 0.f;
+      for (int m = 0; m < M1 - 1; ++m) acc = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), acc);
+      o[static_cast<size_t>(s) * Dout + col] =
+          fmaf(energy_lane(__ldg(xr + M1 - 1), p), __ldg(dct + (M1 - 1) * C + col), acc);
+    }
+    return;
+  }
+  if (s >= nv) return;
+  const int from = (p.pass - 1) * C + col;  // base (pass 1) or D (pass 2) of this column
+  o[static_cast<size_t>(s) * Dout + from + C] =
+      delta_sum(s, N, last, p.denom, [&](int j) { return o[static_cast<size_t>(j) * Dout + from]; });
 }
 
 // Utterance CMVN in place over the valid rows of feat [B, F, D].
@@ -396,15 +459,31 @@ inline int shape_of(int M1, int C, int N, int deltas) {
   return 0;
 }
 
-// Frames a block of the tail for a shape (kernels/tail.py plan): 128 for
-// the named shapes; for the generic one the first of 128, 64 and 32 whose
-// layout fits the block (else 32, over the budget: the wrapper refuses it).
-inline int plan_tile(TailParams p) {
-  const bool generic = shape_of(p.M1, p.C, p.N, p.deltas) == 0;
-  for (p.tile = kTileMax; p.tile > 32; p.tile /= 2) {
-    if (!generic || tail_layout(p, true).total * 4 <= kSmemBudget) break;
+// The tail's plan for a shape (kernels/tail.py plan): the named shapes
+// tiled at 128 frames a block; for the generic one the first of 128, 64
+// and 32 frames whose layout fits the block, else the split (no tile).
+inline void plan_tail(TailParams& p) {
+  p.split = 0;
+  p.tile = kTileMax;
+  if (shape_of(p.M1, p.C, p.N, p.deltas) != 0) return;
+  for (; p.tile >= 32; p.tile /= 2) {
+    if (tail_layout(p, true).total * 4 <= kSmemBudget) return;
   }
-  return p.tile;
+  p.split = 1;
+  p.tile = 0;
+}
+
+// The split's passes: base and the mask, then one pass a delta order.
+cudaError_t launch_split(const float* prefix, const int* n_valid, const float* dct, float* out,
+                         int B, TailParams p, cudaStream_t stream) {
+  for (p.pass = 0; p.pass <= p.deltas; ++p.pass) {
+    const long long n = static_cast<long long>(p.F) * (p.pass == 0 ? p.C * (p.deltas + 1) : p.C);
+    const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), B);
+    tail_split_kernel<<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -440,13 +519,14 @@ int mfcc_feature_tail(const float* prefix, const int* n_valid, const float* dct,
   p.eps = eps;
   p.log_floor = log_floor;
   p.denom = denom;
-  p.tile = plan_tile(p);
+  plan_tail(p);
   const int shape = shape_of(M1, C, N, deltas);
   if (shape != 0) {
     if (dct_host == nullptr) return cudaErrorInvalidValue;
     for (int i = 0; i < M1 * C; ++i) p.w[i] = dct_host[i];
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.split) return launch_split(prefix, n_valid, dct, out, B, p, s);
   switch (shape) {
     case 1:
       return launch<27, 13, 2, 2>(prefix, n_valid, dct, out, B, p, s);

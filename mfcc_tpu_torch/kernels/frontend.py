@@ -16,7 +16,9 @@ as a chirp-z convolution through a Stockham FFT of a size that factors so;
 by the plan of `fft_layout`: each warp a frame through its own two rows,
 or, where those rows are over the block's shared memory, the block's
 threads in 4, 2 or 1 groups, each a frame at a time through two rows of
-its own, the tables staged or read from device memory), |X|², then by feature
+its own, the tables staged or read from device memory, and where the
+tile's staged span and window are over it too (long hops, long frames),
+each frame read from device memory), |X|², then by feature
 kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
@@ -25,7 +27,9 @@ projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
 empty prefix without a launch). A config whose plain-form layout exceeds
-the block's 227 KB in every plan is refused (`layout_reason`).
+the block's 227 KB in every plan (its FFT rows and packed bands: the
+layout of the last plan depends on neither the hop nor the frame length)
+is refused (`layout_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -56,6 +60,7 @@ for resampling configs). `launches` counts launches of the plain front-end,
 `bf16x3_launches` count the launches (of either form) that take that
 branch, `block_fft_launches` those of the block plan and
 `global_table_launches` those of it that read the FFT tables from device
+memory and `gather_launches` those that read each frame from device
 memory (`fft_layout`), `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
@@ -95,11 +100,12 @@ ENERGY_SOURCES = ("pspec", "raw_frame", "windowed_frame")  # csrc/frontend.cu co
 FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu codes; mfcc is logmel
 DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 # the FFT forms' plans (csrc/frontend.cu plan): a frame a warp; frames a
-# group of the block with the tables staged, or in device memory
-FFT_PLANS = ("warp", "block", "block_global")
+# group of the block with the tables staged, or in device memory; the same
+# with each frame read from device memory, no span and no window staged
+FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global")
 # (plan, frames a block transforms at once) in the order plan() tries them
-FFT_LAYOUTS = (("warp", WARPS), ("block", 4), ("block", 2), ("block", 1),
-               ("block_global", 4), ("block_global", 2), ("block_global", 1))
+FFT_LAYOUTS = (("warp", WARPS),
+               *((plan, g) for plan in FFT_PLANS[1:] for g in (4, 2, 1)))
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 FRAMINGS = ("pad", "drop", "center", "center_reflect")  # csrc/frontend.cu frame-count codes
 
@@ -114,6 +120,7 @@ centered_launches = 0
 bluestein_launches = 0
 block_fft_launches = 0
 global_table_launches = 0
+gather_launches = 0
 bf16x3_launches = 0
 block_launches = 0
 split_launches = 0
@@ -560,12 +567,18 @@ def _wide(cfg: FrontendConfig) -> bool:
     return chain.resamples(cfg) or cfg.dither > 0.0
 
 
+def _bands(cfg: FrontendConfig) -> int:
+    """Floats of the packed mel bands: the weights (and SSC's melf
+    weights), the filter offsets and `packed_meta`; none for a
+    spectrogram."""
+    tables = mel_matrices(cfg)
+    return (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0)
+
+
 def _head(cfg: FrontendConfig, tile: int) -> int:
     """Floats of the layout's head: the signal row (one more float when
     `_wide`), the window and the packed mel bands."""
-    tables = mel_matrices(cfg)
-    return (_a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft))
-            + (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0))
+    return _a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft)) + _bands(cfg)
 
 
 def _fir_floats(cfg: FrontendConfig, tile: int, int16: bool) -> tuple[int, int]:
@@ -607,16 +620,17 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     """Shared memory per block of cfg's layout in the Stockham or Bluestein
     form, a plan of `FFT_PLANS` and, for the block plans, `groups` frames a
     block at once, for int16 or float32 rows (csrc/frontend.cu layout): the
-    head, the twiddles and the stages' output bases (none staged by
-    "block_global"), then for "warp" per warp two rows and the projection's
+    head (for the gather plans the packed bands alone: no span and no
+    window), the twiddles and the stages' output bases (none staged by the
+    "_global" plans), then for "warp" per warp two rows and the projection's
     scratch (32 lane partials and M sums a weight table), which the fused
     resample's input window overlays, widening them only where it is
     longer, and the resample's taps; for the block plans per group two rows
     and the projection's scratch (256 / groups thread partials and M sums a
     weight table), then the 8 warps' partials of a group sum."""
     N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
-    n = _head(cfg, TILE)
-    if plan != "block_global":
+    n = _bands(cfg) if plan.startswith("gather") else _head(cfg, TILE)
+    if not plan.endswith("_global"):
         n += _a4(2 * twiddle_count(N, form)) + _a4(sum(hr for _, _, hr in _stages(N, form)))
     fir, taps = _fir_floats(cfg, TILE, int16)
     if plan == "warp":
@@ -635,8 +649,11 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
     threads in 4, 2 or 1 groups, each taking a frame at a time through two
     rows of its own, each stage's butterflies spread over the group, the
     tables staged; else "block_global", the same with the twiddles, chirp,
-    filter spectrum and stage bases read from device memory. Where none
-    fits, the last (refused by `layout_reason`). The fused resample takes
+    filter spectrum and stage bases read from device memory; else "gather"
+    and "gather_global", the same two with no span and no window staged,
+    each group reading its frame from device memory (a layout that depends
+    on neither the hop nor the frame length). Where none fits, the last
+    (refused by `layout_reason`). The fused resample takes
     "warp" only: a resampling config whose fused layout is over the block
     takes the split route (`resample_route`), whose plain form plans at the
     feature rate."""
@@ -650,7 +667,7 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
 
 
 def fft_plan(cfg: FrontendConfig, form: str | None = None, int16: bool = True) -> str:
-    """The plan of `fft_layout`: "warp", "block" or "block_global"."""
+    """The plan of `fft_layout`, one of `FFT_PLANS`."""
     return fft_layout(cfg, form, int16)[0]
 
 
@@ -726,16 +743,31 @@ def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None
     config the port takes runs with either row type. A resampling config is
     held to the plain form's layout at its feature rate: the split route's
     second launch, which the fused form (taken only where its own layout
-    fits) never exceeds."""
+    fits) never exceeds. The Stockham and Bluestein forms are refused only
+    where the last plan ("gather_global", one frame a block at once) is
+    over the block: it stages neither the span nor the window nor the FFT
+    tables, so the reason names what it does stage, the FFT's two rows and
+    the packed mel bands, which depend on n_fft and the filters alone. The
+    bf16x3 form stages the tile's span, so its reason names the frame too."""
     if chain.resamples(cfg):
         cfg = feature_rate_config(cfg)
     n = smem_bytes(cfg, dft_passes, int16=False)
-    if n <= rs_kernel.SMEM_BUDGET_BYTES:
+    budget = rs_kernel.SMEM_BUDGET_BYTES
+    if n <= budget:
         return None
+    form = kernel_form(cfg, dft_passes)
+    if form == "bf16x3":
+        return (
+            f"front-end kernel layout of {n:,} bytes of shared memory a block in the bf16x3 "
+            f"form (n_fft={cfg.n_fft}, frame length {cfg.frame_length}, hop {cfg.frame_step}, "
+            f"{cfg.n_mels} filters), over the block's {budget:,}"
+        )
     return (
-        f"front-end kernel layout of {n:,} bytes of shared memory a block "
-        f"(n_fft={cfg.n_fft}, frame length {cfg.frame_length}, "
-        f"{cfg.n_mels} filters), over the block's {rs_kernel.SMEM_BUDGET_BYTES:,}"
+        f"front-end kernel layout of {n:,} bytes of shared memory a block in its last plan "
+        f"(one frame a block at once, frames and FFT tables read from device memory): two FFT "
+        f"rows of {8 * row_floats(cfg.n_fft, form):,} B (the {form} form's "
+        f"{fft_points(cfg.n_fft, form):,}-point FFT at n_fft={cfg.n_fft}) and {4 * _bands(cfg):,} B "
+        f"of packed mel bands ({cfg.n_mels} filters), over the block's {budget:,}"
     )
 
 
@@ -946,7 +978,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global launches, resample_launches, block_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
-    global global_table_launches
+    global global_table_launches, gather_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
     mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
@@ -998,7 +1030,8 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     else:
         plan = fft_plan(feature_rate_config(cfg) if chain.resamples(cfg) else cfg, form)
     block_fft_launches += int(plan != "warp")
-    global_table_launches += int(plan == "block_global")
+    global_table_launches += int(plan.endswith("_global"))
+    gather_launches += int(plan.startswith("gather"))
     return n_valid, mask
 
 

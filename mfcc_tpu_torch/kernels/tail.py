@@ -17,13 +17,18 @@ count: a tile of 128 frames stages its own halo of 2·deltas·delta_window
 frames. The named shapes (`fixed_shape`) are compiled with their sizes
 fixed and dct_aug in the kernel's parameters; any other shape takes the
 kernel's generic instantiation, at the first of 128, 64 or 32 frames a
-block whose layout fits (`plan`).
+block whose layout fits; where none fits (wide cepstra: 170 at delta
+window 8, 200 at 40) the split plan, 1 + deltas passes through the output
+in device memory (`plan`). So the tail takes every mfcc config, as the
+reference's jnp tail does.
 
 `feature_tail` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `feature_tail_reference`, the plain
 PyTorch version (the prefix branch of `chain.features_from_logmel`).
-`tail_launches` counts launches of the tail kernel, `tail_cmvn_launches`
-those of its CMVN pass; set them to 0 to start a count.
+`tail_launches` counts calls that launch the tail (one a call, whatever
+its plan), `tail_split_launches` the kernels the split plan launches (its
+1 + deltas passes, each counted), `tail_cmvn_launches` the launches of its
+CMVN pass; set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -40,12 +45,15 @@ from mfcc_tpu_torch.kernels import resample as rs_kernel
 from mfcc_tpu_torch.ops import chain
 
 TILES = (128, 64, 32)  # frames per block (csrc/tail.cu kTileMax; the generic shape may halve it)
+# the generic shape's plans (csrc/tail.cu TailParams::split), in the order tried
+MODES = ("staged", "split")
 MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
 # (n_mels + 1, n_ceps, delta_window or None, deltas) compiled with fixed sizes
 # (csrc/tail.cu shape_of); delta_window None: any (no deltas)
 FIXED_SHAPES = ((27, 13, 2, 2), (27, 13, None, 0), (24, 13, None, 0))
 
 tail_launches = 0
+tail_split_launches = 0
 tail_cmvn_launches = 0
 
 
@@ -76,43 +84,34 @@ def _floats(cfg: FrontendConfig, tile: int) -> int:
     return w + _a4(max(R * (M1 | 1) + 6, tile * C)) + R * C + RD * C
 
 
-def plan(cfg: FrontendConfig) -> tuple[int, int]:
-    """(frames a block, shared-memory bytes a block) of cfg's tail (csrc/tail.cu
-    mfcc_feature_tail_plan): 128 frames for a fixed shape; for the generic
-    one the first of 128, 64 and 32 whose layout fits the block (else 32,
-    which `layout_reason` refuses)."""
+def plan(cfg: FrontendConfig) -> tuple[str, int, int]:
+    """(plan of `MODES`, frames a block, shared-memory bytes a block) of
+    cfg's tail (csrc/tail.cu plan_tail): "staged" at 128 frames for a fixed
+    shape; for the generic one the first of 128, 64 and 32 frames whose
+    layout fits the block ("staged"); else "split" (no tile, no shared
+    memory: base, then Δ and ΔΔ, each a pass through the output)."""
+    if fixed_shape(cfg):
+        return "staged", TILES[0], 4 * _floats(cfg, TILES[0])
     for tile in TILES:
         n = 4 * _floats(cfg, tile)
-        if fixed_shape(cfg) or n <= rs_kernel.SMEM_BUDGET_BYTES:
-            return tile, n
-    return tile, n
+        if n <= rs_kernel.SMEM_BUDGET_BYTES:
+            return "staged", tile, n
+    return "split", 0, 0
 
 
 def smem_bytes(cfg: FrontendConfig) -> int:
     """Shared memory of one tail block (`plan`)."""
-    return plan(cfg)[1]
-
-
-def layout_reason(cfg: FrontendConfig) -> str | None:
-    """None when one tail block's layout (`smem_bytes`) fits the block's
-    shared memory; otherwise its size. `chain.unsupported_reason` refuses
-    such mfcc configs on both devices."""
-    n = smem_bytes(cfg)
-    if n > rs_kernel.SMEM_BUDGET_BYTES:
-        return (
-            f"feature-tail layout of {n:,} bytes of shared memory a block, over "
-            f"the block's {rs_kernel.SMEM_BUDGET_BYTES:,}"
-        )
-    return None
+    return plan(cfg)[2]
 
 
 def tail_reason(cfg: FrontendConfig) -> str | None:
     """None when the feature-tail kernel computes cfg's features; otherwise
     why not (port of `fused_tail_reason`, without its 128-lane limits, which
-    are a TPU layout)."""
+    are a TPU layout, and without its frame-block and layout limits: a plan
+    of `plan` takes every mfcc shape)."""
     if cfg.features != "mfcc":
         return "the feature tail is the mfcc cepstral epilogue only"
-    return layout_reason(cfg)
+    return None
 
 
 def feature_tail_reference(
@@ -185,7 +184,7 @@ def feature_tail(
     (a chain-constants dict). `out`, a contiguous float32 [B, F, feat_dim]
     tensor on prefix's device, receives the features (the streaming round
     writes both window kinds into one buffer)."""
-    global tail_launches, tail_cmvn_launches
+    global tail_launches, tail_split_launches, tail_cmvn_launches
     if out is not None and (out.shape != (*prefix.shape[:2], cfg.feat_dim)
                             or out.dtype != torch.float32 or out.device != prefix.device
                             or not out.is_contiguous()):
@@ -237,6 +236,8 @@ def feature_tail(
         )
         _check(rc, lib, "feature-tail kernel")
         tail_launches += 1
+        if plan(cfg)[0] == "split":
+            tail_split_launches += 1 + cfg.deltas
         if cfg.cmvn == "utterance":
             rc = lib.mfcc_feature_tail_cmvn(
                 out.data_ptr(), n_valid.data_ptr(), B, F, cfg.feat_dim,

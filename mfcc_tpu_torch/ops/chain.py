@@ -120,19 +120,19 @@ def centered(cfg: FrontendConfig) -> bool:
 
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when the port implements `cfg`; otherwise what it still needs,
-    with its ROADMAP queue-2 item (item 4): a kernel layout over the block's
-    shared memory (an n_fft, frame length or filter count too large for one
-    front-end block; for mfcc configs, cepstra and a delta window too large
-    for one feature-tail block). A resampling config is held to the plain
-    form's layout at its feature rate (`frontend.layout_reason`): centered
+    with its ROADMAP queue-2 item (item 4): a front-end layout over the
+    block's shared memory in every plan, which only an n_fft whose FFT rows
+    and packed mel bands are too large for one block gives
+    (`frontend.layout_reason`: the last plan stages neither the frames nor
+    the FFT tables, so no hop or frame length is refused; the feature tail
+    takes every cepstra count and delta window, `tail.plan`). A resampling
+    config is held to the plain form's layout at its feature rate: centered
     framing of resampled rows and fused layouts over the block take the
     split route (`frontend.resample_route`), resample.cu and then the plain
     form."""
-    from mfcc_tpu_torch.kernels import frontend, tail  # the kernels' layout mirrors
+    from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
 
     reason = frontend.layout_reason(cfg)
-    if reason is None and cfg.features == "mfcc":
-        reason = tail.layout_reason(cfg)
     if reason:
         return f"{reason} (ROADMAP queue 2 item 4)"
     return None

@@ -186,6 +186,10 @@ class _Stream:
         self.cfg, self.K, self.span, self.c = cfg, K, span, lookahead
         self.raw = _SampleBuf()  # samples from t = t0·S - 1 (once have_pre)
         self.have_pre = False  # raw's first sample is the pre-context?
+        # samples still to drop as they arrive: a block advances K·S samples,
+        # more than its window of span + 1 holds when the hop is longer than
+        # a frame, so the next block's pre-context may not have arrived yet
+        self.skip = 0
         self.t0 = 0  # first frame not yet base-computed
         self.n_samples = 0  # feature-rate samples pushed
         self.emitted = 0  # frames finalized and returned
@@ -194,7 +198,14 @@ class _Stream:
 
     def avail(self) -> int:
         """Samples on hand counting from frame t0's start."""
-        return len(self.raw) - (1 if self.have_pre else 0)
+        return max(0, len(self.raw) - (1 if self.have_pre else 0))
+
+    def _append(self, samples: np.ndarray) -> None:
+        """Buffer feature-rate samples, less those still to skip."""
+        self.n_samples += samples.shape[0]
+        k = min(self.skip, samples.shape[0])
+        self.skip -= k
+        self.raw.append(samples[k:])
 
     def ingest(self, samples) -> None:
         """Buffer a chunk (resampled to cfg.sample_rate when configured)."""
@@ -203,16 +214,13 @@ class _Stream:
             samples = self.resampler.push(samples)
         else:
             samples = samples.copy()  # the caller may reuse its array after push returns
-        self.raw.append(samples)
-        self.n_samples += samples.shape[0]
+        self._append(samples)
 
     def end(self) -> None:
         """The audio is complete: drain the resampler's look-ahead tail and
         fix the stream's frame count (the offline count; 0 when empty)."""
         if self.resampler is not None:
-            tail = self.resampler.flush()
-            self.raw.append(tail)
-            self.n_samples += tail.shape[0]
+            self._append(self.resampler.flush())
         self.ended = True
         self.total = self.cfg.num_frames(self.n_samples) if self.n_samples > 0 else 0
 
@@ -229,7 +237,9 @@ class _Stream:
     def prepare_base(self, win: np.ndarray) -> None:
         """Write the (span+1,) window for frames [t0, t0+K) into win: the
         pre-context sample (0 at the stream's start), then the samples on
-        hand, zeros past them; then advance (drop K·S samples, t0 += K)."""
+        hand, zeros past them; then advance (drop K·S samples, t0 += K; those
+        not on hand yet as they arrive: with a hop over L + 1 samples the
+        window holds fewer than K·S)."""
         need = self.span + 1
         if self.have_pre:
             n = self.raw.peek_into(win, need)
@@ -237,8 +247,10 @@ class _Stream:
             n = 1 + self.raw.peek_into(win[1:], need - 1)
             win[0] = 0.0  # the synthetic pre-context x[-1] = 0
         win[n:] = 0.0
-        adv = self.K * self.cfg.frame_step
-        self.raw.drop(adv if self.have_pre else adv - 1)
+        adv = self.K * self.cfg.frame_step - (0 if self.have_pre else 1)
+        dropped = min(adv, len(self.raw))
+        self.raw.drop(dropped)
+        self.skip += adv - dropped
         self.have_pre = True
         self.t0 += self.K
 

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """The front-end's block FFT plan at each of its (tables, groups) choices, on
-one CUDA card.
+one CUDA card; or this checkout's kernels against another checkout's, in
+turns.
 
     python3 scripts/block_plan_sweep.py
+    python3 scripts/block_plan_sweep.py --parent DIR
 
 csrc/frontend.cu's plan_block takes the first of 4, 2 and 1 groups (frames
 a block transforms at once) with the tables staged, then with them in
@@ -18,10 +20,24 @@ mels) at b64 x 10 s, int16 rows. Each choice's output is held to the
 default build's within the kernel-vs-plain gates. Prints the choice taken,
 its shared memory and blocks an SM (from the layout mirror), the card's
 name and power limit. Imports nothing of JAX.
+
+With --parent DIR it builds `frontend.cu` and `tail.cu` of this checkout and
+of the checkout at DIR (their C interfaces the same), binds each build as
+the wrapper's library in turn, and times each kernel (profiler device time,
+L2 flushed before every call; the tail's every kernel of the call) in the order
+parent, change, change, parent: the front-end at `TURNS` (classic13_deltas
+b64 x 10 s in the warp plan; classic13 at n_fft 1102, 4096 and 2501 b16 x
+10 s and librosa's framing b64 x 10 s in the block plan), the feature tail
+at `TAIL_TURNS` (classic13_deltas at 170 cepstra and delta window 8 and at
+200 and window 40, b16 x 10 s, on this checkout's front-end prefix). Each
+build's output is held to the other's within the kernel-vs-plain gates.
+Prints both means, their ratio, the plans and whether the outputs are
+equal bitwise.
 """
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import ctypes
 import pathlib
@@ -38,6 +54,13 @@ STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1))  # (tables in device m
 PATHS = (("classic13", 1102, 16), ("classic13", 4096, 16), ("classic13", 2501, 16),
          ("classic13", 2160, 16), ("librosa", 2048, 64))
 LIBROSA = dict(sample_rate=22050, n_fft=2048, win_len_s=2048 / 22050, hop_s=512 / 22050, n_mels=128)
+# --parent: (config, overrides, rows) of the front-end and of the tail
+TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("classic13", dict(n_fft=4096), 16),
+         ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64))
+TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
+              ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
+FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_error_string")
+TAIL_FNS = ("mfcc_feature_tail", "mfcc_feature_tail_cmvn", "mfcc_tail_error_string")
 
 
 def variant(src: str, start: tuple[int, int]) -> str:
@@ -61,7 +84,107 @@ def taken(frontend, cfg, start: tuple[int, int]) -> tuple[str, int, int, int]:
     raise ValueError("no block plan fits")
 
 
+def build(cu: pathlib.Path, csrc: pathlib.Path, so: pathlib.Path) -> pathlib.Path:
+    """nvcc of one source with the kernels' flags, its headers from csrc."""
+    from mfcc_tpu_torch.kernels import _build
+
+    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so), str(cu)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise SystemExit(f"nvcc failed on {cu}:\n{res.stderr[-3000:]}")
+    return so
+
+
+def bind(so: pathlib.Path, whole, names) -> ctypes.CDLL:
+    """A build's library with the C signatures of the wrapper's own."""
+    lib = ctypes.CDLL(str(so))
+    for name in names:
+        getattr(lib, name).argtypes = getattr(whole, name).argtypes
+        getattr(lib, name).restype = getattr(whole, name).restype
+    return lib
+
+
+def rows(pad_batch, cfg, n_rows: int, seed: int = 3):
+    """int16 rows of 10 s (571 samples shorter each) on the card."""
+    import torch
+
+    n = cfg.sample_rate * 10
+    g = np.random.default_rng(seed)
+    utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(n_rows)]
+    batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+    return torch.as_tensor(batch.audio, device="cuda"), torch.as_tensor(batch.lengths, device="cuda")
+
+
+def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None) -> tuple[dict, dict]:
+    """(ms per build of fn's kernels whose name holds substr, every kernel
+    with None; one output per build) with each build bound as module's
+    library, parent, change, change, parent."""
+    own = module._lib
+    ms = {key: [] for key in libs}
+    outs = {}
+    try:
+        for key in ("parent", "change", "change", "parent"):
+            module._lib = lambda key=key: libs[key]
+            outs[key] = fn()
+            ms[key].append(chip_smoke.device_ms(torch, fn, substr))
+    finally:
+        module._lib = own
+    return ms, outs
+
+
+def turns(parent: pathlib.Path, card: str) -> int:
+    """This checkout's front-end and tail against parent's, in turns."""
+    import torch
+
+    import chip_smoke
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import _build, frontend, tail
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    out = _build.BUILD_DIR / "turns"
+    out.mkdir(parents=True, exist_ok=True)
+    trees = {"change": _build.CSRC, "parent": parent.resolve() / "mfcc_tpu_torch" / "kernels" / "csrc"}
+    jobs = [(key, src) for key in trees for src in ("frontend", "tail")]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        sos = dict(zip(jobs, pool.map(lambda j: build(trees[j[0]] / f"{j[1]}.cu", trees[j[0]],
+                                                      out / f"{j[0]}_{j[1]}.so"), jobs)))
+    fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS) for key in trees}
+    tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}
+    print(f"in turns, parent {parent} [{card}]")
+
+    def report(what, ms, outs):
+        p, c = float(np.mean(ms["parent"])), float(np.mean(ms["change"]))
+        print(f"{what}: parent {p:.4f} ms ({ms['parent'][0]:.4f}, {ms['parent'][1]:.4f}), change {c:.4f} ms "
+              f"({ms['change'][0]:.4f}, {ms['change'][1]:.4f}), change / parent {c / p:.3f}; bitwise equal: "
+              f"{bool(torch.equal(outs['change'], outs['parent']))}")
+
+    for name, over, n_rows in TURNS:
+        cfg = named_config(name).replace(**over)
+        audio, lengths = rows(pad_batch, cfg, n_rows)
+        ms, outs = in_turns(torch, chip_smoke, frontend, fe, lambda: frontend.logmel_prefix(audio, lengths, cfg),
+                            "logmel_kernel")
+        errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+        if testing.prefix_failures(errs):
+            raise SystemExit(f"{name} {over}: the builds disagree: {errs}")
+        report(f"front-end {name} {over} b{n_rows} x 10 s, {frontend.fft_layout(cfg)}", ms, outs)
+        del audio, lengths, outs
+    for name, over, n_rows in TAIL_TURNS:
+        cfg = named_config(name).replace(**over)
+        audio, lengths = rows(pad_batch, cfg, n_rows)
+        prefix, nv, _ = frontend.logmel_prefix_counts(audio, lengths, cfg)
+        ms, outs = in_turns(torch, chip_smoke, tail, tl, lambda: tail.feature_tail(prefix, nv, cfg), None)
+        errs = testing.tail_errors(outs["change"], outs["parent"])
+        if testing.tail_failures(errs):
+            raise SystemExit(f"{name} {over}: the builds disagree: {errs}")
+        report(f"feature tail {name} {over} b{n_rows} x 10 s, plan {tail.plan(cfg)}", ms, outs)
+        del audio, lengths, prefix, outs
+    return 0
+
+
 def main() -> int:
+    args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    args.add_argument("--parent", type=pathlib.Path, help="root of another checkout: time both in turns")
+    args = args.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -75,41 +198,27 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if args.parent is not None:
+        return turns(args.parent, card)
     src = (_build.CSRC / "frontend.cu").read_text()
     out = _build.BUILD_DIR / "block_plan_sweep"
     out.mkdir(parents=True, exist_ok=True)
 
-    def build(start):
+    def build_start(start):
         cu = out / f"start{start[0]}{start[1]}.cu"
         cu.write_text(variant(src, start))
-        so = cu.with_suffix(".so")
-        res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so),
-                              str(cu)], capture_output=True, text=True)
-        if res.returncode:
-            raise SystemExit(f"nvcc failed on {cu}:\n{res.stderr[-3000:]}")
-        return so
+        return build(cu, _build.CSRC, cu.with_suffix(".so"))
 
     with concurrent.futures.ThreadPoolExecutor(len(STARTS)) as pool:
-        sos = dict(zip(STARTS, pool.map(build, STARTS)))
+        sos = dict(zip(STARTS, pool.map(build_start, STARTS)))
     whole = frontend._lib()
-    libs = {}
-    for start, so in sos.items():
-        lib = ctypes.CDLL(str(so))
-        for name in ("mfcc_frontend_logmel", "mfcc_frontend_error_string"):
-            getattr(lib, name).argtypes = getattr(whole, name).argtypes
-            getattr(lib, name).restype = getattr(whole, name).restype
-        libs[start] = lib
+    libs = {start: bind(so, whole, FRONTEND_FNS) for start, so in sos.items()}
     print(f"block plan sweep [{card}]")
     own = frontend._lib
-    for name, n_fft, rows in PATHS:
+    for name, n_fft, n_rows in PATHS:
         cfg = (named_config("logmel80").replace(**LIBROSA) if name == "librosa"
                else named_config(name).replace(n_fft=n_fft))
-        n = cfg.sample_rate * 10
-        g = np.random.default_rng(3)
-        utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(rows)]
-        batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
-        audio = torch.as_tensor(batch.audio, device="cuda")
-        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        audio, lengths = rows(pad_batch, cfg, n_rows)
         want = frontend.logmel_prefix(audio, lengths, cfg)
         ms = {start: [] for start in STARTS}
         try:
@@ -124,10 +233,10 @@ def main() -> int:
         finally:
             frontend._lib = own
         st = frontend.chain.logmel_stages(audio, lengths, cfg)
-        framed = st["windowed"].reshape(rows * st["windowed"].shape[1], -1).contiguous()
+        framed = st["windowed"].reshape(n_rows * st["windowed"].shape[1], -1).contiguous()
         del st
         rfft_ms = chip_smoke.device_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
-        print(f"{name} n_fft {n_fft} b{rows} x 10 s: rfft(n={n_fft}) {rfft_ms:.4f} ms of device time; "
+        print(f"{name} n_fft {n_fft} b{n_rows} x 10 s: rfft(n={n_fft}) {rfft_ms:.4f} ms of device time; "
               f"default {frontend.fft_layout(cfg)}")
         for start in STARTS:
             plan, groups, nbytes, blocks = taken(frontend, cfg, start)

@@ -270,11 +270,13 @@ RESAMPLED_RATES = (22050, 32000, 44100, 48000, 96000, 192000)
 def test_unsupported_reason_takes_every_resampled_row():
     """Every named config takes centered framing ("center" and
     "center_reflect") at 22.05-192 kHz input, and its own framing at 192 kHz
-    input (the split route where the fused layout is over the block); what
-    the port still refuses (n_fft 6001, frames of 3 s, 170 cepstra at delta
-    window 8) is refused with or without resampling, citing ROADMAP queue 2
-    item 4; n_fft 3072, refused before, is taken (the block FFT plan), with
-    or without resampling."""
+    input (the split route where the fused layout is over the block); n_fft
+    6001, frames of 3 s, a 0.2 s hop and 170 cepstra at delta window 8,
+    refused before, are taken with or without resampling (the gather plan,
+    the tail's split plan); what the port still refuses (n_fft 7001,
+    whose FFT rows are over the block in every plan) is refused with or
+    without resampling, citing ROADMAP queue 2 item 4; n_fft 3072, refused
+    before, is taken (the block FFT plan), with or without resampling."""
     for name in sorted(T_CONFIGS):
         for rate in RESAMPLED_RATES:
             for tail in ("center", "center_reflect"):
@@ -283,14 +285,15 @@ def test_unsupported_reason_takes_every_resampled_row():
                 assert frontend.resample_route(cfg) == "split"
         cfg = T_CONFIGS[name].replace(input_sample_rate=192000)
         assert tchain.unsupported_reason(cfg) is None and frontend.resample_route(cfg) == "split", name
-    refused = [dict(n_fft=6001), dict(win_len_s=3.0), dict(n_mels=170, n_ceps=170, delta_window=8)]
-    for over in refused:
+    taken = [dict(n_fft=6001), dict(win_len_s=3.0), dict(hop_s=0.2),
+             dict(n_mels=170, n_ceps=170, delta_window=8), dict(n_fft=3072)]
+    for over in taken:
         for rate in (None, 48000):
             cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, **over)
-            assert "ROADMAP queue 2 item 4" in tchain.unsupported_reason(cfg), (over, rate)
+            assert tchain.unsupported_reason(cfg) is None, (over, rate)
     for rate in (None, 48000):
-        cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_fft=3072)
-        assert tchain.unsupported_reason(cfg) is None, rate
+        cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_fft=7001)
+        assert "ROADMAP queue 2 item 4" in tchain.unsupported_reason(cfg), rate
     assert frontend.resample_route(T_CONFIGS["mfcc39_48k"].replace(n_fft=3072)) == "split"
     assert frontend.resample_route(T_CONFIGS["mfcc39_48k"]) == "fused"
     assert frontend.resample_route(T_CONFIGS["classic13"]) is None

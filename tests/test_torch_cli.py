@@ -249,13 +249,13 @@ def test_resume_works_across_the_packages(tmp_path, corpus, caplog):
 
 
 def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
-    """A layout over the block in every plan (n_fft 6001) exits 2 and
-    writes nothing, on either device; n_fft 4096, refused before, now
-    extracts (the block FFT plan; here on the CPU)."""
+    """A layout over the block in every plan (n_fft 16384: its FFT rows and
+    packed bands) exits 2 and writes nothing, on either device; n_fft 4096,
+    refused before, now extracts (the block FFT plan; here on the CPU)."""
     out = tmp_path / "o"
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_fft=6001"])
+    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_fft=16384"])
     assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_fft=6001", "--device", "cuda"])
+    rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_fft=16384", "--device", "cuda"])
     assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
     rc, ran = _run(tmp_path, corpus, "--set", "n_fft=4096", out="n4096")
     assert rc == 0 and list(ran.rglob("*.npz"))

@@ -168,10 +168,12 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory in every plan (n_fft 5,393:
-    232,464 B at the block plan's tables from device memory) raises on every
-    device; n_fft 4096, which it refused before (420,160 B in the warp
-    plan), runs in the block plan (161,136 B), here as its plain version.
+    """A layout over the block's shared memory in every plan (n_fft 7,001:
+    275,360 B in the gather plan, one frame at a time, frames and tables in
+    device memory) raises on every device; n_fft 5,393, which it refused
+    before (232,464 B in the block plan), runs in the gather plan, and
+    n_fft 4096 (420,160 B in the warp plan) in the block plan (161,136 B),
+    here as their plain versions.
     Centered framing of resampled rows, which it refused before, runs: whisper80 fed 48 kHz takes the split route
     (resample.cu, then the plain form's centered staging) on the card, and
     here its plain version, whose prefix is the JAX package's resample and
@@ -181,7 +183,11 @@ def test_wrapper_refuses_configs_outside_the_slice():
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=5393))
+        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=7001))
+    c5393 = T_CONFIGS["classic13"].replace(n_fft=5393)
+    assert frontend.layout_reason(c5393) is None and frontend.fft_plan(c5393) == "gather_global"
+    got5393 = frontend.logmel_prefix(audio, lengths, c5393)
+    np.testing.assert_array_equal(got5393.numpy(), _reference(audio.numpy(), lengths.numpy(), c5393))
     c4096 = T_CONFIGS["classic13"].replace(n_fft=4096)
     assert frontend.layout_reason(c4096) is None and frontend.fft_plan(c4096) == "block"
     got4096 = frontend.logmel_prefix(audio, lengths, c4096)
@@ -279,9 +285,11 @@ def test_radix_plans():
 # second x row (span + 1 floats) and refused n_fft 1944, 2000 and 2048 at
 # kaldi_mfcc; the dither now stages in the signal row itself, one float wider
 PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": ()}
-# the top of the range every n_fft fits at classic13: the Bluestein rows of
-# n_fft 5,393 (P = 8,192) are over the block in every plan
-TOP_N_FFT = 5392
+# the top of the range every n_fft fits at classic13: from n_fft 5,393 (the
+# Bluestein form's P = 8,192) only the gather plan fits, and the Bluestein
+# rows of n_fft 6,205 (P = 10,240) and its packed bands are over the block in
+# every plan
+TOP_N_FFT = 6204
 
 
 @pytest.mark.parametrize("case", sorted(PARENT_REFUSED))
@@ -290,9 +298,11 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
     form (no direct DFT is left) in a plan whose layout fits the block, but
     those the parent layout refused too: the warp plan where it fits, else
     the block plan, 4, 2 or 1 frames a block at once with its tables
-    staged, else with them in device memory (`fft_layout` takes the first
-    of `FFT_LAYOUTS` that fits); the "fp32" route takes the same form as
-    "radix4" at every size. 5,393 is refused."""
+    staged, else with them in device memory, else the gather plan with them
+    in device memory (`fft_layout` takes the first of `FFT_LAYOUTS` that
+    fits; at a 10 ms hop the gather plan with staged tables is never the
+    first); the "fp32" route takes the same form as "radix4" at every size.
+    6,205 is refused."""
     cfg = T_CONFIGS["classic13"] if case == "classic13" else T_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
     sizes = range(16, TOP_N_FFT + 1)
     refused = [n for n in sizes if frontend.layout_reason(cfg.replace(n_fft=n))]
@@ -307,7 +317,8 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
         layouts.add(layout)
         earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
         assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
-    assert forms == {"stockham", "bluestein"} and {pl for pl, _ in layouts} == set(frontend.FFT_PLANS)
+    assert forms == {"stockham", "bluestein"}
+    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather"}
     assert frontend.layout_reason(T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1))
 
 
@@ -646,6 +657,35 @@ def _stage_tile(x_row, noise_row, n, f0, cfg, dtype, pre=0.0):
     return np.where(ok, x - c_sig * xp, 0).astype(dtype)
 
 
+def _gather_samples(x_row, noise_row, n, t, cfg, dtype, pre=0.0):
+    """csrc/frontend.cu staged_at, the gather plan's sample (step 2g), at
+    frame positions t (any shape): each from the row alone, by the
+    arithmetic of the staging the span would take. Centered framing: the
+    reflected source index r of t + offset, x[r] - c·x[r-1] (x[-1] = 0, the
+    noise keyed on r), 0 where r >= n. Otherwise 0 at t >= n (zeroing after
+    pre-emphasis); with dither d(t) - c·d(t-1), d(u) = x[u] + noise(u) for 0
+    <= u < n (d(-1) = 0), or d(t) where c = 0; without x[t] - c·x[t-1],
+    x[-1] = pre (the block launch's pre-context; 0 otherwise)."""
+    S, T = cfg.frame_step, x_row.shape[0]
+    c = dtype(0.0 if cfg.preemph_mode == "frame" else cfg.preemph)
+    sigma = dtype(cfg.dither)
+    xd = x_row + sigma * noise_row if cfg.dither > 0.0 else x_row
+    t = np.asarray(t, np.int64)
+    if tchain.centered(cfg):
+        r = _reflect(t + tchain.frame_offset(cfg), max(n, 1), cfg.frame_tail)
+        ok = r < n
+        x = np.where(ok, xd[np.clip(r, 0, T - 1)], dtype(0))
+        xp = np.where(ok & (r > 0), xd[np.clip(r - 1, 0, T - 1)], dtype(0))
+        return (x - c * xp if c != 0 else x).astype(dtype)
+    ok = t < n
+    x = np.where(ok, xd[np.clip(t, 0, T - 1)], dtype(0))
+    if cfg.dither > 0.0:
+        xp = np.where(ok & (t > 0), xd[np.clip(t - 1, 0, T - 1)], dtype(0))
+        return np.where(ok, x - c * xp if c != 0 else x, dtype(0)).astype(dtype)
+    xp = np.where(t > 0, x_row[np.clip(t - 1, 0, T - 1)], dtype(pre))
+    return np.where(ok, x - c * xp, dtype(0)).astype(dtype)
+
+
 def _emulate_kernel(audio, lengths, cfg, dtype, plan=None, origin=0, frames=None):
     """csrc/frontend.cu's algorithm in numpy, tile by tile, in `dtype`: the
     staged row (`_stage_tile`: x plus the contract noise at t < length when
@@ -662,7 +702,8 @@ def _emulate_kernel(audio, lengths, cfg, dtype, plan=None, origin=0, frames=None
     `plan` ((plan, frames a block at once)) can force at any size (the block
     plans: each stage by the 256 / groups thread ranks of a group, the
     projection's chunks over them; their tables are the same entries,
-    staged or read from device memory), then by
+    staged or read from device memory; the gather plans take each frame's
+    samples from the row itself, `_gather_samples`), then by
     feature kind the balanced projection over the packed bands (`_project`)
     and the log kind (logmel) or nothing (plp), the log kind of each power
     bin (spectrogram), or the centroids of the per-bin clamped power (ssc,
@@ -679,6 +720,7 @@ def _emulate_kernel(audio, lengths, cfg, dtype, plan=None, origin=0, frames=None
     N, form = cfg.n_fft, frontend.dft_form(cfg)
     plan, groups = plan or frontend.fft_layout(cfg)
     team, n_lanes = (None, 32) if plan == "warp" else (frontend.THREADS // groups,) * 2
+    gather = plan.startswith("gather")
     H, nb = N // 2, cfg.n_bins
     if form == "bluestein":
         w = _bluestein64(N)
@@ -706,10 +748,14 @@ def _emulate_kernel(audio, lengths, cfg, dtype, plan=None, origin=0, frames=None
     for b in range(B):
         n = min(int(lengths[b]), T)
         for f0 in range(0, F, TILE):
-            sig = _stage_tile(x_all[b], noise, n, f0, cfg, dtype,
-                              dtype(pre[b]) * dtype(cfg.input_scale))
             nf = min(TILE, F - f0)
-            f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
+            if gather:  # each sample from the row itself (step 2g)
+                f = _gather_samples(x_all[b], noise, n, ((f0 + np.arange(nf)) * S)[:, None] + np.arange(L),
+                                    cfg, dtype, dtype(pre[b]) * dtype(cfg.input_scale))
+            else:
+                sig = _stage_tile(x_all[b], noise, n, f0, cfg, dtype,
+                                  dtype(pre[b]) * dtype(cfg.input_scale))
+                f = sig[(np.arange(nf) * S)[:, None] + np.arange(L)]
             # frames wholly past the row's length take no DFT (step 2z)
             zero = np.zeros(nf, bool) if tchain.centered(cfg) else (f0 + np.arange(nf)) * S >= n
             e_raw = np.zeros(nf, dtype)

@@ -96,7 +96,7 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=6001))
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=7001))
     # centered framing of resampled rows, refused before: the split route
     # (resample.cu, then the plain form's centered staging), counted, within
     # the prefix gates of the float64 plain version
@@ -426,13 +426,14 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 def test_layout_over_the_block_budget_raises():
     """A config whose layout overflows the block's 227 KB in every plan
-    raises before the launch (n_fft 5,393: the block plan's Bluestein rows
-    of P = 8,192 with its tables in device memory, 232,464 B); n_fft 2048
-    at 26 filters, over it while the mel matrix was staged dense, fits with
-    the packed bands, and 4096 (420,160 B in the warp plan) in the block
-    plan."""
+    raises before the launch (n_fft 7,001: the gather plan's Bluestein rows
+    of P = 12,288 and its packed bands, 275,360 B; 5,393, refused before,
+    takes the gather plan); n_fft 2048 at 26 filters, over it while the mel
+    matrix was staged dense, fits with the packed bands, and 4096 (420,160 B
+    in the warp plan) in the block plan."""
     dev = _card()
-    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=5393)
+    cfg = NAMED_CONFIGS["classic13"].replace(n_fft=7001)
+    assert frontend.smem_bytes(cfg.replace(n_fft=5393)) <= rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg.replace(n_fft=2048)) <= rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg.replace(n_fft=4096)) <= rs_kernel.SMEM_BUDGET_BYTES
@@ -968,20 +969,78 @@ def test_resample_kernel_plans(sr_in, sr_out, mode, tile):
 
 
 def test_a_tail_layout_over_the_block_raises_on_the_card():
-    """An mfcc config whose tail block is over the block's shared memory
-    raises on the card, from extract_batch and from the tail's wrapper, and
-    launches nothing: no plain version finishes it."""
+    """An mfcc config whose tiled tail with dct_aug staged is over the
+    block's shared memory, refused before, runs on the card: 170 cepstra at
+    delta window 8 and 200 at window 40 (with utterance CMVN) in the split
+    plan, each of its 1 + deltas passes counted, against the plain version at the
+    tail's gate, pad rows 0; extract_batch launches the front-end and the
+    tail once each."""
     dev = _card()
-    cfg = NAMED_CONFIGS["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
-    audio = torch.zeros((2, 16000), dtype=torch.int16, device=dev)
-    lengths = torch.tensor([16000, 8000], device=dev)
-    before = (frontend.launches, tail.tail_launches)
-    with pytest.raises(NotImplementedError, match="feature-tail layout"):
-        chain.extract_batch(audio, lengths, cfg)
-    with pytest.raises(NotImplementedError, match="feature-tail layout"):
-        tail.feature_tail(torch.zeros((2, 99, 171), device=dev),
-                          torch.tensor([99, 49], dtype=torch.int32, device=dev), cfg)
-    assert (frontend.launches, tail.tail_launches) == before
+    for over in (dict(n_mels=170, n_ceps=170, delta_window=8),
+                 dict(n_mels=200, n_ceps=200, delta_window=40, cmvn="utterance")):
+        cfg = NAMED_CONFIGS["classic13_deltas"].replace(**over)
+        assert tail.plan(cfg)[0] == "split"
+        g = np.random.default_rng(cfg.n_ceps)
+        prefix = torch.as_tensor(g.standard_normal((3, 257, cfg.n_mels + 1)).astype(np.float32), device=dev)
+        prefix[..., -1] = prefix[..., -1].abs() * 1e3
+        nv = torch.tensor([257, 100, 0], dtype=torch.int32, device=dev)
+        tail.tail_launches = tail.tail_split_launches = 0
+        got = tail.feature_tail(prefix, nv, cfg)
+        torch.cuda.synchronize()
+        assert (tail.tail_launches, tail.tail_split_launches) == (1, 1 + cfg.deltas)
+        errs = testing.tail_errors(got, tail.feature_tail_reference(prefix, nv, cfg))
+        assert not testing.tail_failures(errs), errs
+        assert bool((got[chain.frame_mask(nv, 257, torch.float32) == 0] == 0).all())
+        audio = torch.as_tensor(np.round(g.standard_normal((2, 16000)) * 3000).astype(np.int16), device=dev)
+        lengths = torch.tensor([16000, 8000], dtype=torch.int32, device=dev)
+        frontend.launches = tail.tail_launches = 0
+        feat, mask = chain.extract_batch(audio, lengths, cfg)
+        torch.cuda.synchronize()
+        assert (frontend.launches, tail.tail_launches) == (1, 1)
+        assert bool(torch.isfinite(feat).all()) and bool((feat[mask == 0] == 0).all())
+
+
+GATHER_CASES = [
+    ("classic13_deltas", {"hop_s": 0.2}),
+    ("classic13_deltas", {"win_len_s": 3.0}),
+    ("kaldi_mfcc", {"dither": 1.0, "hop_s": 0.25}),
+    ("kaldi_mfcc", {"win_len_s": 1.6, "energy_source": "windowed_frame"}),
+    ("whisper80", {"hop_s": 0.2}),
+    ("logmel80", {"sample_rate": 22050, "n_fft": 8192, "win_len_s": 8192 / 22050,
+                  "hop_s": 2048 / 22050, "n_mels": 128}),
+    ("classic13", {"n_fft": 6001}),
+]
+GATHER_IDS = ["hop_0.2", "frames_3s", "kaldi_dither_hop_0.25", "kaldi_frames_1.6s_windowed",
+              "whisper80_hop_0.2", "librosa_8192_hop_2048", "bluestein_6001_global"]
+
+
+@pytest.mark.parametrize("name,overrides", GATHER_CASES, ids=GATHER_IDS)
+def test_gather_plan_matches_reference(name, overrides):
+    """The gather plan (each frame read from device memory) against the
+    float64 plain version on the CPU at the prefix gates, int16 ≡ float32
+    and two runs bitwise, its n_valid and mask bitwise the chain's,
+    counted."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    assert frontend.fft_plan(cfg).startswith("gather")
+    g = np.random.default_rng(len(overrides))
+    n = cfg.sample_rate * 6
+    lens = [n, n - 12345, 3 * cfg.frame_length // 2, 1]
+    b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in lens], cfg, bucket_len=n, dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
+    frontend.gather_launches = 0
+    got, nv, mask = frontend.logmel_prefix_counts(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert frontend.gather_launches == 1
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    narrow = None
+    if cfg.logmel_norm == "whisper":  # its narrow filters take the per-bin gate
+        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
+    assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
 
 
 def test_extract_batch_keeps_the_callers_tf32_flag():

@@ -291,9 +291,9 @@ def test_pad_batch_under_drop_matches_jax(name):
 
 @pytest.mark.parametrize(
     "over,match",
-    [(dict(win_len_s=3.0), "shared memory"),
+    [(dict(win_len_s=3.0), None),
      (dict(frame_tail="center", input_sample_rate=48000), None),
-     (dict(log_kind="log10_floor", n_fft=6001), "shared memory"),
+     (dict(log_kind="log10_floor", n_fft=16384), "shared memory"),
      (dict(drop_last_frame=True, frame_tail="center_reflect", input_sample_rate=44100), None),
      (dict(log_kind="log10_floor", n_fft=4096), None)],
     ids=["long_frame_conditioning", "centered", "log10_floor", "drop_last_frame", "log10_floor_4096"],
@@ -301,11 +301,13 @@ def test_pad_batch_under_drop_matches_jax(name):
 def test_outside_the_slice_raises_on_cpu(over, match):
     """Conditioning of long frames, centered framing, log10_floor and
     drop_last_frame are in the port; each still raises where it meets what
-    is not: a 3 s frame or n_fft = 6001 over the kernel's shared memory.
-    Centered framing of resampled rows (48 and 44.1 kHz) and n_fft 4096
-    (the block FFT plan), which raised before, run (match None): two ragged
-    rows against the JAX package's jnp chain at the resampled features'
-    gate, masks equal."""
+    is not: n_fft = 16384, whose FFT rows and packed bands are over the
+    kernel's shared memory in every plan. Centered framing of resampled rows
+    (48 and 44.1 kHz), n_fft 4096 (the block FFT plan) and 3 s frames (the
+    gather plan: the conditioning's sums over all 48,000 samples), which
+    raised before, run (match None): two ragged rows (of a frame and more)
+    against the JAX package's jnp chain at the resampled features' gate,
+    masks equal."""
     cfg = T_CONFIGS["kaldi_mfcc"].replace(**over)
     if match is not None:
         with pytest.raises(NotImplementedError, match=match):
@@ -314,9 +316,11 @@ def test_outside_the_slice_raises_on_cpu(over, match):
     jcfg = J_CONFIGS["kaldi_mfcc"].replace(**over)
     g = np.random.default_rng(5)
     sr = cfg.input_sample_rate or cfg.sample_rate
-    utts = [np.round(g.standard_normal(n) * 3000) for n in (sr, sr // 2 + 77)]
+    k = -(-2 * cfg.frame_length // cfg.sample_rate)  # seconds: rows of two frames or more
+    utts = [np.round(g.standard_normal(n) * 3000) for n in (k * sr, k * sr // 2 + 77)]
     b = jpipeline.pad_batch(utts, jcfg)
     feat, mask = tchain.extract_batch(b.audio.astype(np.int16), b.lengths, cfg, device="cpu")
+    assert mask.sum() > 1
     jfeat, jmask = jchain.extract_batch(jnp.asarray(b.audio), jnp.asarray(b.lengths), jcfg, backend="jnp")
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
     np.testing.assert_allclose(feat.numpy(), np.asarray(jfeat), atol=testing.RESAMPLED_FEATURE_ATOL,

@@ -134,17 +134,21 @@ def test_plans_and_layouts():
 
 
 @pytest.mark.parametrize("over,refused", [
-    (dict(n_fft=5392), False), (dict(n_fft=5393), True),
+    (dict(n_fft=5392), False), (dict(n_fft=5393), False),
     (dict(win_len_s=20640 / 16000), False), (dict(win_len_s=25376 / 16000), False),
-    (dict(win_len_s=25377 / 16000), True), (dict(n_mels=170, n_ceps=170, delta_window=8), True),
-], ids=["n_fft_5392", "n_fft_5393", "frame_1.29_s", "frame_25376", "frame_25377", "tail_170_cepstra"])
+    (dict(win_len_s=25377 / 16000), False), (dict(n_mels=170, n_ceps=170, delta_window=8), False),
+    (dict(n_fft=7001), True), (dict(n_fft=16384, win_len_s=25377 / 16000), True),
+], ids=["n_fft_5392", "n_fft_5393", "frame_1.29_s", "frame_25376", "frame_25377", "tail_170_cepstra",
+        "n_fft_7001", "n_fft_16384"])
 def test_what_is_still_refused(over, refused):
     """classic13_deltas: every n_fft to 5,392 and frames to 25,376 samples
-    (1.29 s, refused before, among them) take a layout that fits; n_fft
-    5,393 (the Bluestein rows of P = 8,192), frames of 25,377 samples and
-    the tail at 170 cepstra and delta window 8 are still refused, citing
-    ROADMAP queue 2 item 4, and raise NotImplementedError (here through the
-    CPU chain; the card's wrapper raises the same before any launch)."""
+    (1.29 s) take a layout of the block plan; n_fft 5,393 (the Bluestein
+    rows of P = 8,192) and frames of 25,377 samples, refused before, take
+    the gather plan, and the tail at 170 cepstra and delta window 8 its
+    split plan. n_fft 7,001 (the Bluestein rows of P = 12,288) and
+    16,384 (its packed mel bands) are still refused, citing ROADMAP queue 2
+    item 4, and raise NotImplementedError (here through the CPU chain; the
+    card's wrapper raises the same before any launch)."""
     cfg = T_CONFIGS["classic13_deltas"].replace(**over)
     reason = tchain.unsupported_reason(cfg)
     assert (reason is not None) == refused, reason

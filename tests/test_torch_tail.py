@@ -12,15 +12,17 @@ On the CPU the wrapper takes its plain version (the prefix branch of
     rows staged from the flat prefix with the kernel's alignment shift or
     padded stride, base for each, D at clamped positions, ΔΔ, the mask, the
     output in the kernel's 16-byte store order with each float written once,
-    the CMVN kernel's two passes) against the plain version in float64, over
-    n_valid at the old and new tile edges and F ∈ {1, 3, 31, 32, 33, 100,
-    127, 128, 129, 257}: 1e-12 (the same arithmetic, only the order of sums
-    differs); the tail's plans and layouts;
+    the CMVN kernel's two passes; in the split plan its three passes through
+    the output) against the plain version in float64, over n_valid at the
+    old and new tile edges and F ∈ {1, 3, 31, 32, 33, 100, 127, 128, 129,
+    257}: 1e-12 (the same arithmetic, only the order of sums differs); the
+    tail's plans and layouts;
   - rows longer than the reference's largest frame block (15 s), where the
     reference's tail refuses, against the JAX jnp chain at the 5e-4 cepstra
     gate;
-  - `tail_reason` against `fused_tail_reason` on every named config, and a
-    tail layout over the block refused on the CPU as on the card.
+  - `tail_reason` against `fused_tail_reason` on every named config, and
+    tails whose tiled layout is over the block taken on the CPU as on the
+    card (the split plan).
 """
 
 import numpy as np
@@ -117,9 +119,39 @@ def _store_order(go, n_out):
             list(range(head + 4 * quads, n_out)))
 
 
+def _emulate_split(prefix, n_valid, cfg, aug):
+    """csrc/tail.cu's split plan (tail_split_kernel) in numpy (float64): pass
+    0 writes base (the energy lane logged and floored, x·dct_aug) into each
+    row's first C columns below n_valid and zeros across the rows at and
+    past it; pass 1 writes D into [C, 2C) from the base columns, pass 2 ΔΔ
+    into [2C, 3C) from the D columns, every read at a row clamped to [0,
+    last]; the columns a later pass writes are NaN until then."""
+    B, F, M1 = prefix.shape
+    C, N, nd = cfg.n_ceps, cfg.delta_window, cfg.deltas
+    D = C * (nd + 1)
+    denom = 2.0 * sum(i * i for i in range(1, N + 1))
+    out = np.full((B, F, D), np.nan)
+    for b in range(B):
+        nv = min(max(int(n_valid[b]), 0), F)
+        out[b, nv:] = 0.0
+        x = prefix[b, :nv].copy()
+        if cfg.append_energy:
+            lane = np.log(np.where(x[:, -1] <= 0, cfg.log_eps, x[:, -1]))
+            x[:, -1] = np.maximum(lane, np.log(cfg.energy_floor)) if cfg.energy_floor > 0 else lane
+        out[b, :nv, :C] = x @ aug
+        s = np.arange(nv)
+        for p in range(1, nd + 1):
+            src = out[b, :, (p - 1) * C : p * C]
+            out[b, :nv, p * C : (p + 1) * C] = sum(
+                k * (src[np.minimum(s + k, nv - 1)] - src[np.maximum(s - k, 0)])
+                for k in range(1, N + 1)) / denom
+    return out
+
+
 def _emulate_tail(prefix, n_valid, cfg):
     """csrc/tail.cu in numpy (float64), tile by tile at `tail.plan`'s tile
-    (128 frames; 64 or 32 for a wide generic shape): the distinct prefix
+    (128 frames; 64 or 32 for a wide generic shape), or by the split's passes
+    (`_emulate_split`) in its split plan: the distinct prefix
     rows [q_lo, q_hi] = [max(f0 - h, 0), min(f0 + tile - 1 + h, last)] (h =
     deltas·N) staged from the flat prefix (`_stage`), the energy lane logged
     and floored, base = x·dct_aug for each distinct row, D at the distinct
@@ -130,19 +162,20 @@ def _emulate_tail(prefix, n_valid, cfg):
     the CMVN kernel: per column, the mean over rows < n_valid (at least 1),
     the centred squares, the rows normalized in place."""
     aug = tconstants.chain_constants(cfg)["dct_aug"]
+    mode, tile, _ = tail.plan(cfg)
     B, F, M1 = prefix.shape
     C, N, nd = cfg.n_ceps, cfg.delta_window, cfg.deltas
     N = N if nd else 0
     D = C * (nd + 1)
     h, e = nd * N, (N if nd >= 2 else 0)
     denom = 2.0 * sum(i * i for i in range(1, N + 1))
-    tile = tail.plan(cfg)[0]
     flat = prefix.reshape(-1)
-    out = np.full(B * F * D, np.nan)
+    split = mode == "split"
+    out = _emulate_split(prefix, n_valid, cfg, aug).reshape(-1) if split else np.full(B * F * D, np.nan)
     for b in range(B):
         nv = min(max(int(n_valid[b]), 0), F)
         last = nv - 1
-        for f0 in range(0, F, tile):
+        for f0 in range(0, 0 if split else F, tile or 1):
             rows = min(tile, F - f0)
             go = (b * F + f0) * D
             vals = np.zeros(rows * D)
@@ -203,6 +236,11 @@ MIRROR_CASES = {
     "kaldi_floor_window1": dict(name="kaldi_mfcc", deltas=2, delta_window=1, energy_floor=1e-3),
     "kaldi": dict(name="kaldi_mfcc"),
     "wide_generic_tile64": dict(name="classic13_deltas", n_mels=150, n_ceps=140),
+    # 170 cepstra at delta window 8: over the block at every tile, so the split
+    "dct_global_170_window8": dict(name="classic13_deltas", n_mels=170, n_ceps=170, delta_window=8),
+    "split_200_window40_cmvn": dict(name="classic13_deltas", n_mels=200, n_ceps=200, delta_window=40,
+                                    cmvn="utterance"),
+    "split_deltas1": dict(name="classic13", deltas=1, n_mels=200, n_ceps=200, delta_window=60),
 }
 # the new tile's edges (tile - 1, tile, tile + 1, two tiles + 1) beside the
 # parent's 32-frame ones
@@ -228,18 +266,24 @@ def test_kernel_mirror_matches_plain_tail(case, F):
 def test_tail_plans_and_layouts():
     """The named mfcc shapes are compiled with fixed sizes at 128 frames a
     block; a generic shape halves the tile until its layout fits (150 mels,
-    140 cepstra: 64 frames). The layout mirrors csrc/tail.cu tail_layout:
-    at classic13_deltas 136 staged rows of 27 floats (+6), 136 base rows
-    and 132 D rows of 13, 28,656 B; kaldi_mfcc's even rows padded to 25."""
+    140 cepstra: 64 frames), then takes the split (170 cepstra at delta
+    window 8: 236,256 B at 32 frames; 200 at window 40: 558,400 B; no tile
+    and no shared memory). The layout mirrors csrc/tail.cu tail_layout: at
+    classic13_deltas 136 staged rows of 27 floats (+6), 136 base rows and
+    132 D rows of 13, 28,656 B; kaldi_mfcc's even rows padded to 25."""
     c = T_CONFIGS
     assert all(tail.fixed_shape(c[n]) for n in c if c[n].features == "mfcc")
     assert not tail.fixed_shape(c["classic13"].replace(deltas=1))
-    assert tail.plan(c["classic13_deltas"]) == (128, 4 * ((136 * 27 + 6 + 3) // 4 * 4 + 136 * 13 + 132 * 13))
-    assert tail.plan(c["classic13_deltas"]) == (128, 28656)
-    assert tail.plan(c["kaldi_mfcc"]) == (128, 4 * ((128 * 25 + 6 + 3) // 4 * 4 + 128 * 13))
-    assert tail.plan(c["classic13_deltas"].replace(n_mels=150, n_ceps=140))[0] == 64
+    assert tail.plan(c["classic13_deltas"]) == (
+        "staged", 128, 4 * ((136 * 27 + 6 + 3) // 4 * 4 + 136 * 13 + 132 * 13))
+    assert tail.plan(c["classic13_deltas"]) == ("staged", 128, 28656)
+    assert tail.plan(c["kaldi_mfcc"]) == ("staged", 128, 4 * ((128 * 25 + 6 + 3) // 4 * 4 + 128 * 13))
+    assert tail.plan(c["classic13_deltas"].replace(n_mels=150, n_ceps=140))[:2] == ("staged", 64)
     wide = c["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
-    assert tail.plan(wide)[0] == 32 and tail.layout_reason(wide)
+    assert tail.plan(wide) == ("split", 0, 0) and 4 * tail._floats(wide, 32) == 236256
+    wider = c["classic13_deltas"].replace(n_mels=200, n_ceps=200, delta_window=40)
+    assert tail.plan(wider) == ("split", 0, 0) and 4 * tail._floats(wider, 32) == 558400
+    assert all(tail.tail_reason(x) is None for x in (wide, wider))
 
 
 @pytest.mark.parametrize("cmvn", ["off", "utterance"])
@@ -306,24 +350,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         frontend.fused_logmel_stages(torch.zeros((1, 800)), torch.tensor([800]),
                                      cfg.replace(dtype="float64"))
     assert "mfcc" in tail.tail_reason(T_CONFIGS["kaldi_plp"])
-    assert "shared memory" in tail.tail_reason(cfg.replace(n_mels=200, n_ceps=200, delta_window=40))
+    assert tail.tail_reason(cfg.replace(n_mels=200, n_ceps=200, delta_window=40)) is None
 
 
 def test_a_tail_layout_over_the_block_is_refused_on_both_devices():
-    """An mfcc config whose tail block needs more shared memory than a block
-    has (170 cepstra, delta window 8) is refused by `check_supported`, so the
-    CPU chain refuses it as the card does; its front-end layout fits. The
-    other families never take the tail, so its layout does not refuse them."""
-    cfg = T_CONFIGS["classic13_deltas"].replace(n_mels=170, n_ceps=170, delta_window=8)
-    assert frontend.layout_reason(cfg) is None
-    assert "shared memory" in tail.layout_reason(cfg)
-    assert "feature-tail layout" in tchain.unsupported_reason(cfg)
-    x, n = torch.zeros((1, 800)), torch.tensor([800])
-    with pytest.raises(NotImplementedError, match="feature-tail layout"):
-        tchain.extract_batch(x, n, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="feature-tail layout"):
-        frontend.fused_logmel_stages(x, n, cfg, feature_tail=True)
-    assert tchain.unsupported_reason(cfg.replace(features="logmel")) is None
+    """An mfcc config whose tiled tail with dct_aug staged needs more shared
+    memory than a block has (170 cepstra at delta window 8; 200 at window
+    40, whose staged rows and halo are over the block at any tile), refused
+    before on both devices, is taken on both: `check_supported` passes, the
+    tail takes the split, and the
+    CPU chain's features ≡ `fused_logmel_stages(feature_tail=True)`'s (the
+    tail's plain version on the CPU), masks equal."""
+    for over, plan in ((dict(n_mels=170, n_ceps=170, delta_window=8), "split"),
+                       (dict(n_mels=200, n_ceps=200, delta_window=40, cmvn="utterance"), "split")):
+        cfg = T_CONFIGS["classic13_deltas"].replace(**over)
+        assert frontend.layout_reason(cfg) is None and tchain.unsupported_reason(cfg) is None
+        assert tail.plan(cfg)[0] == plan
+        g = np.random.default_rng(cfg.n_ceps)
+        x = torch.as_tensor(np.round(g.standard_normal((2, 24000)) * 3000).astype(np.float32))
+        n = torch.tensor([24000, 9000])
+        feat, mask = tchain.extract_batch(x, n, cfg, device="cpu")
+        st = frontend.fused_logmel_stages(x, n, cfg, feature_tail=True)
+        torch.testing.assert_close(st["features_fused"], feat, atol=2e-4, rtol=0)
+        assert torch.equal(st["frame_mask"], mask) and bool((feat[mask == 0] == 0).all())
+        assert tchain.unsupported_reason(cfg.replace(features="logmel")) is None
 
 
 def test_extract_batch_cpu_is_the_plain_chain():
