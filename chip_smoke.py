@@ -539,6 +539,16 @@ KERNELS = {
         "source": "mfcc_tpu_torch/kernels/csrc/resample.cu",
         "replaces": "mfcc_tpu/kernels/resample.py:79",
     },
+    **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+             "replaces": replaces}
+       for key, replaces in (("gather_bands_librosa_44k_16384", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_bands_bluestein_7001", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("gather_bands_bluestein_12502", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("gather_bands_whisper80_16384", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_rows_bluestein_13001", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("gather_rows_32768", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_rows_48k_65536", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_rows_131072", "mfcc_tpu/kernels/frontend.py:905"))},
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # librosa's default framing (librosa.feature.melspectrogram: sr 22,050, n_fft
@@ -698,6 +708,8 @@ class Counters:
         self.frontend.block_fft_launches = 0
         self.frontend.global_table_launches = 0
         self.frontend.gather_launches = 0
+        self.frontend.gather_bands_launches = 0
+        self.frontend.gather_rows_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.block_launches = 0
         self.frontend.split_launches = 0
@@ -724,6 +736,8 @@ class Counters:
             "block_fft": self.frontend.block_fft_launches,
             "global_tables": self.frontend.global_table_launches,
             "gather": self.frontend.gather_launches,
+            "gather_bands": self.frontend.gather_bands_launches,
+            "gather_rows": self.frontend.gather_rows_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "tail": self.tail.tail_launches,
             "tail_split": self.tail.tail_split_launches,
@@ -1127,13 +1141,17 @@ def kernel_times(torch, chain, frontend, cfg, audio, lengths, F: int,
     return kernel_ms, plain_ms, rfft_ms
 
 
-def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str) -> dict[str, float]:
+def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str,
+                   chunk: int | None = None) -> dict[str, float]:
     """The kernel against the plain version computed in float64 on the CPU
-    (the gate: at these sizes the fp32 plain version is itself ~2e-5 from
+    over every row, `chunk` rows at a time (all at once by default), (the
+    gate: at these sizes the fp32 plain version is itself ~2e-5 from
     float64 on loud bins of narrow filters; the card's float64 rfft at odd
     sizes such as 551 is itself wrong), with the fp32 plain version's errors
     on the card printed beside. whisper80's narrow lanes (filters of at most
     two weights) take the per-bin gate (`testing.narrow_lanes`)."""
+    import torch
+
     narrow = None
     if cfg.logmel_norm == "whisper":
         from mfcc_tpu_torch.ops import constants
@@ -1146,7 +1164,9 @@ def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str) -> di
     del plain
     print(f"  {what}, kernel vs the fp32 plain version: "
           + ", ".join(f"{k}={v:.3e}" for k, v in errs32.items()))
-    plain64 = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    n, chunk, cfg64 = audio.shape[0], chunk or audio.shape[0], cfg.replace(dtype="float64")
+    plain64 = torch.cat([frontend.logmel_prefix_reference(audio[i:i + chunk].cpu(), lengths[i:i + chunk].cpu(),
+                                                          cfg64) for i in range(0, n, chunk)])
     return check_prefix(testing, got, plain64, cfg, f"{what}, vs the float64 plain version", narrow)
 
 
@@ -1246,11 +1266,7 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     lengths_d = torch.as_tensor(batch.lengths, device="cuda")
     F = cfg.num_frames(batch.audio.shape[1])
     form, (plan, groups) = frontend.dft_form(cfg), frontend.fft_layout(cfg)
-    branches = {k: 1 for k, on in (
-        ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"),
-        ("global_tables", plan.endswith("_global")), ("gather", plan.startswith("gather")),
-        ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
-        ("conditioning", chain.needs_conditioning(cfg))) if on}
+    branches = plan_branches(chain, frontend, cfg)
     print(f"   {what}: b{len(lengths)} int16 {list(batch.audio.shape)}, {F} frames, {form} DFT, "
           f"{plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg)} B of shared "
           "memory a block")
@@ -1278,6 +1294,19 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
     launches = counters.expect("extract_batch", frontend=1, **branches, **tail_plan)
     check_features(torch, chain, testing, batch, cfg, feat, mask, atol, atol64=atol64)
     return batch, audio, lengths_d, errs, launches
+
+
+def plan_branches(chain, frontend, cfg) -> dict[str, int]:
+    """The front-end's branch counts of one plain-form launch of cfg: its
+    framing, form, plan (`frontend.PLAN_TRAITS`: frames, tables, bands and
+    rows from device memory), dither and conditioning."""
+    form, plan = frontend.dft_form(cfg), frontend.fft_plan(cfg)
+    gather, tables = frontend.PLAN_TRAITS.get(plan, (False,) * 4)[:2]
+    return {k: 1 for k, on in (
+        ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"), ("global_tables", tables),
+        ("gather", gather), ("gather_bands", plan == "gather_bands"), ("gather_rows", plan == "gather_rows"),
+        ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
+        ("conditioning", chain.needs_conditioning(cfg))) if on}
 
 
 def tail_branches(cfg) -> dict[str, int]:
@@ -1721,6 +1750,125 @@ def long_span_path(torch, counters, tag: str, results: dict) -> None:
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
         del audio, lengths, prefix
     print(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# librosa's melspectrogram at 44.1 kHz and n_fft 16384 (win_length n_fft,
+# hop_length 4096, 128 Slaney filters from 0 Hz to Nyquist), a logmel80
+# override; phase 29's sizes past the gather plan's layouts: (key, config,
+# overrides, rows, seconds a row, the plan, rows of the float64 chain's check)
+LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, hop_s=4096 / 44100, n_mels=128,
+                     mel_variant="librosa_hz", mel_scale="slaney", mel_norm="slaney", mel_low_hz=0.0,
+                     mel_high_hz=22050.0)
+ANY_NFFT = (
+    ("gather_bands_librosa_44k_16384", "logmel80", LIBROSA_16384, B, 30, "gather_bands", 2),
+    ("gather_bands_bluestein_7001", "classic13_deltas", dict(n_fft=7001), B_SMALL, 10, "gather_bands", 2),
+    ("gather_bands_bluestein_12502", "classic13_deltas", dict(n_fft=12502), B_SMALL, 10, "gather_bands", 2),
+    ("gather_bands_whisper80_16384", "whisper80", dict(n_fft=16384), B_SMALL, 10, "gather_bands", 2),
+    ("gather_rows_bluestein_13001", "classic13_deltas", dict(n_fft=13001), B_SMALL, 10, "gather_rows", 2),
+    ("gather_rows_32768", "classic13_deltas", dict(n_fft=32768), B_SMALL, 10, "gather_rows", 2),
+    ("gather_rows_48k_65536", "classic13_deltas", dict(sample_rate=48000, n_fft=65536), 4, 30, "gather_rows", 1),
+    ("gather_rows_131072", "classic13_deltas", dict(n_fft=131072), 2, 30, "gather_rows", 1),
+)
+
+
+def any_n_fft_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 29: every n_fft, through the plans past the gather plan's
+    layouts: "gather_bands" (the packed mel bands read from device memory)
+    and "gather_rows" (each group's FFT rows in a workspace in device
+    memory). librosa's melspectrogram(sr=44100, n_fft=16384, hop_length=4096,
+    n_mels=128) framing at b64 x 30 s int16; classic13_deltas at n_fft 7,001
+    and 12,502 (Bluestein, "gather_bands"), 13,001 and 32,768 ("gather_rows")
+    and whisper80 at 16,384, b16 x 10 s; classic13_deltas at 48 kHz and n_fft
+    65,536, b4 x 30 s; at 131,072 (the packed table's 17-bit bin field), b2 x
+    30 s. For each: the kernel counted by plan against the float64 plain
+    version on the CPU on every row at the prefix gates, the fp32 plain
+    version's errors printed; int16 == float32, two runs, dirty tails, and
+    under "gather_rows" a NaN-filled workspace and a persistent grid of 7
+    blocks, bitwise; the counts and mask; extract_batch
+    counted, its mask the chain's and its features on the first rows within
+    the family's gate of the float64 chain; device time, events, the plain
+    version, rfft(n=n_fft), the bound and the extract_batch step."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    print("== 29. every n_fft: the packed bands, then the FFT rows, in device memory")
+    own_workspace, own_resident = frontend._workspace, frontend._resident_blocks
+    for key, name, over, rows, seconds, plan, rows64 in ANY_NFFT:
+        t_case = time.perf_counter()
+        cfg = named_config(name).replace(**over)
+        n = cfg.sample_rate * seconds
+        lens = [n - 571 * i for i in range(rows - 2)] + [min(n, 3 * cfg.frame_length // 2), 1] if rows > 2 \
+            else [n - 571 * i for i in range(rows)]
+        batch = pcm_batch(pad_batch, cfg, lens, n, sum(map(ord, key)))
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        F = cfg.num_frames(batch.audio.shape[1])
+        form, (got_plan, groups) = frontend.dft_form(cfg), frontend.fft_layout(cfg)
+        print(f"   {key}: {name} {over} b{rows} x {seconds} s int16 {list(batch.audio.shape)}, {F} frames, "
+              f"{form} DFT, {got_plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg):,} B "
+              f"a block (gather_global's {frontend._fft_smem(cfg, form, 'gather_global', True, 1):,} B)")
+        check(got_plan == plan and chain.unsupported_reason(cfg) is None, f"{key} takes {plan}")
+        info = frontend.kernel_info(cfg)
+        print(f"    {info}")
+        check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
+        branches = plan_branches(chain, frontend, cfg)
+        counters.zero()
+        got = frontend.logmel_prefix(audio, lengths, cfg)
+        torch.cuda.synchronize()
+        counters.expect("the kernel", frontend=1, **branches)
+        check(tuple(got.shape) == (rows, F, cfg.n_mels + 1), f"prefix shape {tuple(got.shape)}")
+        # every row (each block's slot of the workspace): the float64 frames
+        # of a chunk of rows at most 2 GB
+        errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, f"{key}, all {rows} rows",
+                              chunk=max(1, 2**28 // (F * cfg.n_fft)))
+        check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+              and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+              "int16 rows == float32 rows, and two runs equal, bitwise")
+        check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, rows), lengths, cfg)),
+              "garbage past each length leaves the output unchanged")
+        if plan == "gather_rows":
+            frontend._workspace = lambda floats, device: torch.full((floats,), float("nan"), device=device)
+            try:
+                check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+                      "a NaN-filled workspace leaves the output unchanged, bitwise")
+                frontend._resident_blocks = lambda *args: 7
+                check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
+                      "a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
+            finally:
+                frontend._workspace, frontend._resident_blocks = own_workspace, own_resident
+        del got
+        check_counts(torch, frontend, audio, lengths, cfg, key)
+        counters.zero()
+        feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+        torch.cuda.synchronize()
+        launches = counters.expect("extract_batch", frontend=1, **branches, **tail_branches(cfg))
+        want_mask = frontend.frame_counts_reference(torch.as_tensor(batch.lengths), cfg, F)[1]
+        check(torch.equal(mask.cpu(), want_mask) and bool(torch.isfinite(feat).all())
+              and bool((feat[mask == 0] == 0).all()), "mask the chain's, finite, pad frames exactly 0")
+        f64, _ = chain.extract_batch(batch.audio[:rows64], batch.lengths[:rows64], cfg.replace(dtype="float64"),
+                                     device="cpu")
+        got64 = feat[:rows64].cpu()
+        if cfg.logmel_norm == "whisper":
+            whisper_gate(testing, got64, f64, testing.WHISPER_ORACLE_ATOL, f"float64 chain (rows 0-{rows64 - 1})")
+        elif cfg.features == "mfcc":
+            err = float((got64.double() - f64).abs().max())
+            print(f"  max |card - float64 chain (rows 0-{rows64 - 1})| = {err:.3e}")
+            check(err <= testing.FEATURE_ATOL, f"card within {testing.FEATURE_ATOL} of the float64 chain")
+        else:
+            e = testing.logmel_errors(got64, f64, cfg.log_kind)
+            print("  card vs the float64 chain: " + ", ".join(f"{k}={v:.3e}" for k, v in e.items()))
+            check(not testing.logmel_failures(e), "card within the two-regime log-mel gate of the float64 chain")
+        del feat, mask, f64, got64
+        times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, key, tag)
+        results[key] = dict(launches=launches[plan], max_abs_err=errs["max_abs"], **times)
+        step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag, seconds=seconds)
+        del audio, lengths
+        torch.cuda.empty_cache()
+        print(f"  {key} took {time.perf_counter() - t_case:.1f} s")
+    print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
@@ -3734,9 +3882,10 @@ def main(argv=None) -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("non-contiguous rows", lambda: R.resample_batch(x[:1, ::2], sr_in, 16000), ValueError),
-        ("a front-end layout over the block's shared memory (n_fft 7001)",
-         lambda: chain.extract_batch(batch.audio[:1, :16000], batch.lengths[:1] * 0 + 16000,
-                                     named_config("classic13").replace(n_fft=7001)),
+        ("a front-end layout over the block's shared memory (the bf16x3 opt-in at n_fft 4096)",
+         lambda: frontend.logmel_prefix(torch.as_tensor(batch.audio[:1, :16000], device="cuda"),
+                                        torch.tensor([16000], dtype=torch.int32, device="cuda"),
+                                        named_config("classic13").replace(n_fft=4096), dft_passes="bf16x3"),
          NotImplementedError),
     ):
         try:
@@ -4012,6 +4161,7 @@ def main(argv=None) -> int:
     resampled_rows_path(torch, counters, tag, results)
     large_n_fft_path(torch, counters, tag, results)
     long_span_path(torch, counters, tag, results)
+    any_n_fft_path(torch, counters, tag, results)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

@@ -170,11 +170,12 @@
 // (256/groups)) rounded up to odd, summed as step 4 sums a warp's 32. Step
 // 2z and the counts and mask are as in the warp plan. The tables
 // (twiddles, chirp, filter spectrum, stage bases) are staged where the
-// layout fits, else read from device memory through the read-only path
-// (__ldg). plan_block takes the first of 4, 2 and 1 groups with the tables
-// staged, then 4, 2 and 1 with them in device memory, that fits (at
-// classic13: 1,102 four groups staged, 168,080 B; 4,096 two, 198,144 B;
-// 2,501 two from device memory; 5,392 one from device memory, 195,584 B).
+// layout fits, else read from device memory (one table pointer a block,
+// plain loads; "gather_rows" by __ldg, below). plan_block takes the first
+// of 4, 2 and 1 groups with the tables staged, then 4, 2 and 1 with them in
+// device memory, that fits (at classic13: 1,102 four groups staged,
+// 168,080 B; 4,096 two, 198,144 B; 2,501 two from device memory; 5,392 one
+// from device memory, 195,584 B).
 // From n_fft 5,393 the Bluestein rows (P = 8,192) are over the block in
 // every plan. More frames in flight an SM is what pays, and first-fit
 // stays within 15 % of the best choice at each size measured
@@ -227,6 +228,59 @@
 // ~60 us: operations bound it (chip_smoke.py computes it per run). One frame
 // a block at once, one block an SM, a barrier a stage: like the block plan,
 // it is bound by the stages' latency, not by the card's rate.
+//
+// The plans past the gather plan's layouts ("gather_bands", "gather_rows":
+// p.bands_global and p.rows_global, run-time branches of the same kBlock
+// instantiations, tried last in plan_block's ladder, kLadder). The gather
+// plan still stages the packed mel bands beside each group's two FFT rows:
+// at n_fft 16,384 and 26 filters the bands are 124 KB of 272,736 B, and from
+// n_fft 6,205 at classic13 (the Bluestein rows of P = 10,240) the two are
+// over the block. "gather_bands" is "gather_global" with the mel weights,
+// SSC's melf weights, the filter offsets and the bin-filter words read from
+// device memory through one Bands of pointers a block: shared memory holds
+// each group's two rows, its projection scratch and the warps' partials. It
+// takes Stockham sizes to n_fft 25,600 (h = 12,800: 231,600 B at
+// classic13) and Bluestein sizes to P = 12,800 (7,001: 222,384 B; 12,502:
+// 231,600 B). "gather_rows" also keeps each
+// group's two rows, and the power row they hold, in a workspace in device
+// memory that the wrapper allocates (kernels/frontend.py rows_workspace).
+// Its grid is persistent: as many blocks as the card holds at once (its
+// SMs times the blocks an SM holds, at most the batch's tiles), block i
+// taking tiles i, i + gridDim.x, ... of the batch one after another, with
+// slot i of groups x 2 rows its own. So no two blocks share rows, no block
+// waits for another, and the workspace is bounded by the card, not by the
+// batch. The rows are read with plain (coherent) loads, never __ldg: the
+// group writes them, and its named barrier orders its stages; each entry is
+// written before it is read, so what the workspace held never reaches the
+// output. The kernel calls the tile (logmel_tile) from one place, with p
+// and pp grid constants it reads in place; the same loop written inline
+// around the kernel's body spilled in four instantiations and cost the
+// block plan 1.06-1.13x in turns, and a lambda around the call put 600 B of
+// stack on the block plan's dither and conditioning instantiation. The
+// group's frame loop has two copies, as before: "gather_rows"
+// (GroupTeam<true>: its rows
+// in the workspace, its tables by __ldg), and every other block plan
+// (GroupTeam<false>: its rows staged; its tables and bands through pointers
+// chosen once a block, so generic loads). Choosing the rows' pointer once a
+// block instead cost "block_global" 1.06x at n_fft 2,501; the tables'
+// pointer costs the staged block plan 1.03-1.04x at 1,102 and 4,096, bitwise
+// (scripts/block_plan_sweep.py --parent; PERF.md section 6), and
+// moves the last bits of kaldi_mfcc with dither at n_fft 1,102 (at most
+// 1.8e-5; its instantiation sits at the 128-register cap); a third copy
+// moved the staged block plan's bits. Shared memory holds only the
+// groups' projection scratch and the warps' partials: 1,504 B at classic13
+// whatever n_fft, four frames a block at once. Past 65,536 bins
+// (n_fft from 131,070) the packed table's bin field widens (bin_bits: 17 at
+// 131,072) and its filter field narrows; the staged plans never reach such
+// sizes and keep the 16-bit packing and its bank layout.
+// Bound of "gather_rows" at classic13_deltas n_fft 32,768, b16 x 10 s
+// (~16,000 frames): ~1.0 MFLOP a frame at the function's minimum (a
+// 16,384-point complex FFT by the split-radix formula, the split, |X|^2, the
+// mel sums) -> ~0.24 ms at 67 TFLOP/s; bytes ~7 MB -> ~2 us: operations
+// bound it (chip_smoke.py computes it per run). The plan moves each stage's
+// row through L2, and through HBM where the resident slots' rows are over
+// L2's 50 MB (at n_fft 32,768, 264 slots of 4 x 2 rows of 147 KB): its
+// stages are bound by those round trips, not by the card's rate.
 //
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
@@ -513,9 +567,16 @@ struct Params {
   // derived on the host (plan()): half = n_fft / 2, bins = n_fft / 2 + 1;
   // block (the block plan), its groups (frames a block transforms at
   // once, 4, 2 or 1, each by 256 / groups threads), tables_global (its
-  // tables read from device memory, not staged) and gather (the gather
+  // tables read from device memory, not staged), gather (the gather
   // plan: no span and no window staged, each frame read from device
-  // memory); bchunk, the weights a thread of a group sums;
+  // memory), bands_global (the packed mel bands read from device memory,
+  // not staged) and rows_global (each group's two FFT rows in a slot of
+  // the workspace in device memory: a persistent grid of nslots blocks,
+  // block i in slot i, looping over the tiles of the batch's rows);
+  // bchunk, the weights a
+  // thread of a group sums; bin_bits, the width of the packed table's bin
+  // field (16 unless the bins need more; the filter field takes the rest
+  // of the 31 bits);
   // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
   // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
   // output-base table lengths; the projection's weights a lane. The
@@ -527,7 +588,7 @@ struct Params {
   // (tile) and ring stages.
   int half, bins, fft_n, nstages;
   unsigned long long radices;
-  int block, groups, tables_global, gather;
+  int block, groups, tables_global, gather, bands_global, rows_global, nslots, batch, bin_bits;
   int ntw, nbases, chunk, bchunk, nsplit, bq, bk, chirp, filt, nfilt;
   int kp, nbp, npass, pws, tile, stages;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
@@ -560,18 +621,22 @@ struct Layout {
 // idle until the DFT, and widens them only where it is longer. wide (the
 // fused resample, and kDither) gives the signal row span + 1 floats:
 // x[t0-1 .. t0+span) before pre-emphasis. The gather plan stages no signal
-// row and no window: its layout starts at the packed bands.
+// row and no window: its layout starts at the packed bands, or, with the
+// bands in device memory (bands_global), at the tables. With the rows in
+// device memory (rows_global) l.row is the workspace's row, and the
+// layout holds only the groups' scratch and the warps' partials.
 __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide) {
   Layout l;
   const int tables = weight_tables(p);
+  const int staged = p.bands_global ? 0 : tables;  // packed weight tables staged
   const int parts = align4(tables * (32 + p.M));
   l.span = p.gather ? 0 : (p.tile - 1) * p.S + p.L;
   l.win = p.gather ? 0 : align4(l.span + (wide ? 1 : 0));
   l.melw = l.win + (p.gather ? 0 : align4(imax(p.L, p.n_fft)));
   l.melf = l.melw + align4(p.nnz);  // ssc only
-  l.moff = l.melw + tables * align4(p.nnz);
-  l.meta = l.moff + (tables ? align4(p.M + 1) : 0);
-  l.tw = l.meta + (tables ? align4(p.nnz) : 0);
+  l.moff = l.melw + staged * align4(p.nnz);
+  l.meta = l.moff + (staged ? align4(p.M + 1) : 0);
+  l.tw = l.meta + (staged ? align4(p.nnz) : 0);
   l.bases = l.tw + align4(2 * p.ntw);
   l.buf = l.bases + align4(p.nbases);
   l.red = 0;
@@ -589,7 +654,7 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
   } else if (p.block) {
     if (p.tables_global) l.buf = l.tw;  // no table staged
     l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
-    l.part = l.buf + p.groups * 2 * l.row;
+    l.part = l.buf + (p.rows_global ? 0 : p.groups * 2 * l.row);
     l.pstride = align4(tables * (kThreads / p.groups + p.M));
     l.red = l.part + p.groups * l.pstride;
     l.bar = l.pw = l.ef = l.mu = 0;
@@ -790,8 +855,9 @@ __device__ inline float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x
 // every 8, so stride-8 stores spread over the banks.
 __device__ inline int pad(int i) { return i + (i >> 3); }
 
-// A load from a table: staged in shared memory, or (kG, the block plan's
-// "block_global") in device memory through the read-only path.
+// A load from a table: a plain load (staged in shared memory, or where the
+// pointer chosen once a block is in device memory), or (kG, "gather_rows")
+// from device memory through the read-only path.
 template <bool kG, typename T>
 __device__ inline T ld(const T* p) {
   if constexpr (kG) {
@@ -810,7 +876,8 @@ __device__ inline void named_sync(int id, int n) {
 // The threads that transform one frame: in the warp plan a warp (rank the
 // lane); in the block plan a group of the block (all 256 threads, or 128 or
 // 64 where the block takes 2 or 4 frames at once) meeting at its named
-// barrier, its tables staged or (kGlobal) in device memory.
+// barrier; kGlobal: "gather_rows" (its rows in the workspace, its tables by
+// __ldg from device memory).
 struct WarpTeam {
   static constexpr bool kGlobal = false;
   int rank;
@@ -1056,16 +1123,22 @@ __device__ inline float power_sum(const float* pw, int bins, int lane) {
   return warp_sum(es);
 }
 
-// Shared-memory views of the packed mel bands: filter m's weights are
-// w[off[m] .. off[m+1]) (wf: melf, ssc); meta[i] = k | m << 16, with the
-// sign bit set on a filter's last weight, gives weight i's bin k and filter
-// m (kernels/frontend.py mel_packed, packed_meta).
+// Views of the packed mel bands, staged in shared memory or (bands_global)
+// in device memory: filter m's weights are w[off[m] .. off[m+1]) (wf:
+// melf, ssc); meta[i] = k | m << bin_bits, with the sign bit set on a
+// filter's last weight, gives weight i's bin k and filter m
+// (kernels/frontend.py mel_packed, packed_meta; bin_bits is 16 unless the
+// bins need more, which only the plan with its rows in device memory
+// reaches).
 struct Bands {
   const float* w;
   const float* wf;
   const int* off;
   const int* meta;
 };
+
+__device__ inline int meta_bin(int e, int bits) { return e & ((1 << bits) - 1); }
+__device__ inline int meta_filter(int e, int bits) { return (e >> bits) & ((1 << (31 - bits)) - 1); }
 
 // 4. One frame's output row o from its power row pw (pw[k], k < bins), by
 //    feature kind, by a team (a warp, or a group of the block plan; lane
@@ -1111,7 +1184,7 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
         wf[u] = in && ssc ? bd.wf[i + u] : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kProjBatch; ++u) q[u] = pw[e[u] & 0xFFFF];
+      for (int u = 0; u < kProjBatch; ++u) q[u] = pw[meta_bin(e[u], p.bin_bits)];
 #pragma unroll
       for (int u = 0; u < kProjBatch; ++u) {
         if (i + u >= i1) break;
@@ -1121,7 +1194,7 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
         }
         acc += q[u] * w[u];
         if (e[u] < 0) {  // the last weight of filter m
-          const int m = (e[u] >> 16) & 0x7FFF;
+          const int m = meta_filter(e[u], p.bin_bits);
           if (head) {
             hacc = acc;
             haccf = accf;
@@ -1270,18 +1343,19 @@ __device__ inline uint32_t bf16_pair(__nv_bfloat16 lo_col, __nv_bfloat16 hi_col)
          static_cast<uint32_t>(__bfloat16_as_ushort(hi_col)) << 16;
 }
 
-// kBlock: the block plan (the plain form's Stockham and Bluestein forms
-// only; two blocks an SM at most 128 registers a thread).
-template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock = false>
-__global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kBlock ? 2 : kFftBlocks)
-logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
-              float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
-              const float* __restrict__ window,
-              const float* __restrict__ mel_w, const float* __restrict__ melf_w,
-              const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
-              const float2* __restrict__ twiddle, const int* __restrict__ bases,
-              const unsigned char* __restrict__ dft_matrix, const float* __restrict__ taps,
-              Params p, Polyphase pp) {
+// One tile of the block's frames: frames [tx * tile, (tx + 1) * tile) of
+// row b; slot, the block's slot of the "gather_rows" workspace.
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
+__device__ __forceinline__ void
+logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+            float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+            const float* __restrict__ window,
+            const float* __restrict__ mel_w, const float* __restrict__ melf_w,
+            const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
+            const float2* __restrict__ twiddle, const int* __restrict__ bases,
+            const unsigned char* __restrict__ dft_matrix, const float* __restrict__ taps,
+            float* __restrict__ rows_ws, const Params& p, const Polyphase& pp, int b, int tx,
+            int slot) {
   extern __shared__ __align__(128) float smem[];
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
@@ -1296,9 +1370,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
   int* sb = reinterpret_cast<int*>(smem + lay.bases);
 
-  const int b = blockIdx.y;
   const int tile = kBf16 ? p.tile : kTile;  // frames a block
-  const int f0 = blockIdx.x * tile;
+  const int f0 = tx * tile;
   const long long t0 = static_cast<long long>(f0) * S;
   const Sample* row = audio + static_cast<size_t>(b) * T + p.origin;  // x[0]; x[-1] under origin 1
   const bool gather = kBlock && p.gather;  // no span and no window staged (step 2g)
@@ -1311,7 +1384,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     const int wlen = imax(L, p.n_fft);
     for (int i = threadIdx.x; i < wlen; i += kThreads) win[i] = i < L ? window[i] : 0.f;
   }
-  if (kind != kSpectrogram) {
+  if (kind != kSpectrogram && !(kBlock && p.bands_global)) {  // else read from device memory
     float* w = smem + lay.melw;
     float* wf = smem + lay.melf;
     for (int i = threadIdx.x; i < p.nnz; i += kThreads) {
@@ -1342,7 +1415,7 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   for (int i = threadIdx.x; i < tile && f0 + i < F; i += kThreads) {
     frame_mask[static_cast<size_t>(b) * F + f0 + i] = f0 + i < nv ? 1.f : 0.f;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) n_valid[b] = nv;
+  if (tx == 0 && threadIdx.x == 0) n_valid[b] = nv;
 
   // bf16x3: the ring of matrix chunks, its full and empty mbarriers; a tile
   // that stages nothing takes no product. The producer thread starts the
@@ -1522,8 +1595,8 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   // step 4: the lane where the filter this lane's chunk starts inside began
   // (-1 when the chunk starts a filter, or lies past the table)
   int from = -1;
-  if (kind != kSpectrogram && lane * p.chunk < p.nnz) {
-    const int m = (meta[lane * p.chunk] >> 16) & 0x7FFF;
+  if (!kBlock && kind != kSpectrogram && lane * p.chunk < p.nnz) {
+    const int m = meta_filter(meta[lane * p.chunk], p.bin_bits);
     if (moff[m] < lane * p.chunk) from = moff[m] / p.chunk;
   }
   auto energy_lane = [&](float es, float e_frame) -> float {
@@ -1800,18 +1873,25 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       // in device memory (twiddle, bases)
       const int gsize = kThreads / p.groups;
       const int group = threadIdx.x / gsize, rank = threadIdx.x % gsize;
-      float* rows = smem + lay.buf + group * 2 * lay.row;
-      float2* ra = reinterpret_cast<float2*>(rows);
-      float2* rb = reinterpret_cast<float2*>(rows + lay.row);
       float* scratch = smem + lay.part + group * lay.pstride;
       float* red = smem + lay.red;
-      // the group's thread where the filter this thread's chunk starts inside began
-      int gfrom = -1;
-      if (kind != kSpectrogram && rank * p.bchunk < p.nnz) {
-        const int m = (meta[rank * p.bchunk] >> 16) & 0x7FFF;
-        if (moff[m] < rank * p.bchunk) gfrom = moff[m] / p.bchunk;
-      }
       auto frames = [&](auto team, const float2* tws, const int* bs) {
+        constexpr bool kG = decltype(team)::kGlobal;
+        // the group's two rows: staged, or (kG, "gather_rows") in its slot
+        // of the workspace, written and read by the group under its
+        // barrier: plain loads, never the read-only path. The packed bands:
+        // staged, or from device memory, one pointer a block.
+        float* rows = kG ? rows_ws + (static_cast<size_t>(slot) * p.groups + group) * 2 * lay.row
+                         : smem + lay.buf + group * 2 * lay.row;
+        float2* ra = reinterpret_cast<float2*>(rows);
+        float2* rb = reinterpret_cast<float2*>(rows + lay.row);
+        const Bands bg = p.bands_global ? Bands{mel_w, melf_w, mel_off, mel_meta} : bd;
+        // the group's thread where the filter this thread's chunk starts inside began
+        int gfrom = -1;
+        if (kind != kSpectrogram && rank * p.bchunk < p.nnz) {
+          const int m = meta_filter(bg.meta[rank * p.bchunk], p.bin_bits);
+          if (bg.off[m] < rank * p.bchunk) gfrom = bg.off[m] / p.bchunk;
+        }
         auto gsum = [&](float v) { return group_sum(v, red, team); };
         for (int fl = group; fl < kTile; fl += p.groups) {
           const int f = f0 + fl;
@@ -1871,16 +1951,54 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           }
           team.sync();  // the power row is whole
           write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
-                      bd, scratch, gfrom, p.bchunk, p, team);
+                      bg, scratch, gfrom, p.bchunk, p, team);
           team.sync();  // the rows and partials are rewritten by the group's next frame
         }
       };
-      if (p.tables_global) {
+      if (p.rows_global) {  // "gather_rows": the tables by __ldg, the rows in the workspace
         frames(GroupTeam<true>{rank, gsize, 1 + group}, twiddle, bases);
-      } else {
-        frames(GroupTeam<false>{rank, gsize, 1 + group}, tw, sb);
+      } else {  // the rows staged; the tables staged or in device memory, one pointer a block
+        frames(GroupTeam<false>{rank, gsize, 1 + group}, p.tables_global ? twiddle : tw,
+               p.tables_global ? bases : sb);
       }
     }
+  }
+}
+
+// kBlock: the block plan (the plain form's Stockham and Bluestein forms
+// only; two blocks an SM at most 128 registers a thread). A tile a block
+// (blockIdx.x of row blockIdx.y); under "gather_rows" a persistent grid of
+// nslots blocks, at most the blocks the card holds at once, block i taking
+// tiles i, i + gridDim.x, ... of the batch one after another through slot i
+// of the workspace, so no two blocks share rows. p and pp are grid
+// constants: the tile reads them in place, by reference.
+template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock = false>
+__global__ void __launch_bounds__(kThreads, kBf16 ? 1 : kBlock ? 2 : kFftBlocks)
+logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+              float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+              const float* __restrict__ window,
+              const float* __restrict__ mel_w, const float* __restrict__ melf_w,
+              const int* __restrict__ mel_off, const int* __restrict__ mel_meta,
+              const float2* __restrict__ twiddle, const int* __restrict__ bases,
+              const unsigned char* __restrict__ dft_matrix, const float* __restrict__ taps,
+              float* __restrict__ rows_ws, const __grid_constant__ Params p,
+              const __grid_constant__ Polyphase pp) {
+  if constexpr (kBlock) {  // one call of the tile, so it is inlined once; only w lives across it
+    for (int w = p.rows_global ? blockIdx.x : 0;; w += gridDim.x) {
+      const int nx = (p.F + p.tile - 1) / p.tile;
+      logmel_tile<Sample, kResample, kDither, kCond, kBf16, kBlock>(
+          audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off, mel_meta, twiddle,
+          bases, dft_matrix, taps, rows_ws, p, pp, p.rows_global ? w / nx : blockIdx.y,
+          p.rows_global ? w % nx : blockIdx.x, blockIdx.x);
+      if (!p.rows_global || static_cast<long long>(w) + gridDim.x >= static_cast<long long>(p.batch) * nx) {
+        break;
+      }
+      __syncthreads();  // the next tile rewrites the block's shared memory
+    }
+  } else {
+    logmel_tile<Sample, kResample, kDither, kCond, kBf16, kBlock>(
+        audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off, mel_meta, twiddle,
+        bases, dft_matrix, taps, rows_ws, p, pp, blockIdx.y, blockIdx.x, 0);
   }
 }
 
@@ -1896,6 +2014,7 @@ struct Args {
   const int* bases;
   const void* dft_matrix;
   const float* taps;
+  float* rows_ws;  // "gather_rows": the workspace
   int B;
   Params p;
   Polyphase pp;
@@ -1920,12 +2039,12 @@ struct Launch {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(bytes));
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.F + p.tile - 1) / p.tile, a.B);
+    const dim3 grid = p.rows_global ? dim3(p.nslots) : dim3((p.F + p.tile - 1) / p.tile, a.B);
     kernel<<<grid, kThreads, bytes, a.stream>>>(
         static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window,
         a.mel_w, a.melf_w,
         a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
-        static_cast<const unsigned char*>(a.dft_matrix), a.taps, p, a.pp);
+        static_cast<const unsigned char*>(a.dft_matrix), a.taps, a.rows_ws, p, a.pp);
     return cudaGetLastError();
   }
 };
@@ -2022,31 +2141,44 @@ bool plan_stages(Params& p, int n) {
   return true;
 }
 
-// The first of 4, 2 and 1 groups (frames a block transforms at once) with
-// the tables staged, then with them in device memory, whose layout fits the
-// block; false (1 group, device memory) when none does.
-bool plan_groups(Params& p, bool wide) {
-  for (int global = 0; global < 2; ++global) {
-    for (int groups = 4; groups >= 1; groups /= 2) {
-      p.tables_global = global;
-      p.groups = groups;
-      p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
-      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return true;
-    }
-  }
-  return false;
-}
+// The block plan's ladder (kernels/frontend.py FFT_PLANS after "warp", and
+// PLAN_TRAITS): whether a plan reads each frame (gather), the FFT tables,
+// the packed bands and the FFT rows from device memory.
+constexpr int kLadder[6][4] = {
+    {0, 0, 0, 0},  // block
+    {0, 1, 0, 0},  // block_global
+    {1, 0, 0, 0},  // gather
+    {1, 1, 0, 0},  // gather_global
+    {1, 1, 1, 0},  // gather_bands
+    {1, 1, 1, 1},  // gather_rows
+};
 
-// The block plan (kernels/frontend.py fft_layout): plan_groups with the
-// tile's span and window staged, then with neither (the gather plan); else
-// the gather plan at 1 group, device memory (refused by kernels/frontend.py
-// layout_reason before any launch).
+// The block plan (kernels/frontend.py fft_layout): the first plan of the
+// ladder, at the first of 4, 2 and 1 groups (frames a block transforms at
+// once), whose layout fits the block; else gather_rows at 1 group (refused
+// by kernels/frontend.py layout_reason before any launch: only a projection
+// scratch over the block, at tens of thousands of filters).
 void plan_block(Params& p, bool wide) {
   p.block = 1;
-  for (p.gather = 0; p.gather < 2; ++p.gather) {
-    if (plan_groups(p, wide)) return;
+  for (int plan = 0; plan < 6; ++plan) {
+    for (int groups = 4; groups >= 1; groups /= 2) {
+      p.gather = kLadder[plan][0];
+      p.tables_global = kLadder[plan][1];
+      p.bands_global = kLadder[plan][2];
+      p.rows_global = kLadder[plan][3];
+      p.groups = groups;
+      p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
+      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return;
+    }
   }
-  p.gather = 1;
+}
+
+// The width of the packed table's bin field (kernels/frontend.py
+// meta_bin_bits): 16, or the bits of the largest bin where that is wider.
+int bin_bits(int bins) {
+  int bits = 16;
+  while ((bins - 1) >> bits) ++bits;
+  return bits;
 }
 
 // The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
@@ -2059,8 +2191,9 @@ void plan_block(Params& p, bool wide) {
 // projection's chunks. In the plain form (pp null) the Stockham and
 // Bluestein forms take the block plan where the warp plan's layout is over
 // the block, with the tables in device memory where the staged ones do not
-// fit either, and the gather plan where the staged span and window do not.
-// False when the wrapper's form disagrees, or for n_fft < 2.
+// fit either, and the gather plans where the staged span and window do not
+// (the packed bands, then the FFT rows, in device memory where they do not
+// fit either). False when the wrapper's form disagrees, or for n_fft < 2.
 bool plan(Params& p, const Polyphase* pp, bool int16) {
   const int N = p.n_fft;
   if (N < 2) return false;
@@ -2070,7 +2203,8 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.radices = 0;
   p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
   p.kp = p.nbp = p.npass = p.pws = p.stages = 0;
-  p.block = p.tables_global = p.gather = 0;
+  p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = 0;
+  p.bin_bits = bin_bits(p.bins);
   p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;
@@ -2119,7 +2253,7 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const P
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
-         (p.feature_kind != kSpectrogram && p.nnz < p.M) ||
+         (p.feature_kind != kSpectrogram && (p.nnz < p.M || p.M >= 1 << (31 - p.bin_bits))) ||
          (p.feature_kind == kSsc && melf_w == nullptr) ||
          ((p.form == kStockham || p.form == kBluestein) && bases == nullptr) ||
          p.center < kNoCenter || p.center > kCenterReflect || p.framing < kFramePad ||
@@ -2163,6 +2297,10 @@ extern "C" {
 // and the block's signal from 1 (frame 0 starts at row sample 1), lengths[b]
 // the samples from row sample 1 that hold signal (the counts and mask are
 // of those lengths); it takes no dither, centered framing or bf16x3 form.
+// Where plan() takes "gather_rows", rows_ws is the workspace of nslots
+// slots of groups x 2 FFT rows (kernels/frontend.py rows_workspace:
+// ws_floats floats, its contents any), one for each block of the
+// persistent grid; null for every other plan.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, int* n_valid, float* frame_mask, const float* window,
                          const float* mel_w,
@@ -2174,7 +2312,8 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                          float pscale, float dither,
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
-                         int log_kind, int feature_kind, int origin, void* stream) {
+                         int log_kind, int feature_kind, int origin, float* rows_ws,
+                         int nslots, long long ws_floats, void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind, framing, drop_last};
@@ -2186,9 +2325,18 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   }
   const bool tensor = dft_form == kBf16x3;
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
+  if (p.rows_global) {
+    const long long row = layout(p, 0, 0, dither > 0.f).row;
+    if (rows_ws == nullptr || nslots < 1 ||
+        ws_floats < static_cast<long long>(nslots) * p.groups * 2 * row) {
+      return cudaErrorInvalidValue;
+    }
+    p.nslots = nslots;
+    p.batch = B;
+  }
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
-               mel_meta, twiddle, bases, dft_matrix, nullptr, B, p, Polyphase{1, 1, 0, 0},
-               static_cast<cudaStream_t>(stream)};
+               mel_meta, twiddle, bases, dft_matrix, nullptr, rows_ws, B, p,
+               Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
   return dispatch_plain(fn, i16, dth, cnd, tensor, p.block != 0);
@@ -2227,7 +2375,7 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
   p.aligned = (reinterpret_cast<uintptr_t>(audio) & 15) == 0;
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
-               mel_meta, twiddle, bases, dft_matrix, taps, B, p, pp,
+               mel_meta, twiddle, bases, dft_matrix, taps, nullptr, B, p, pp,
                static_cast<cudaStream_t>(stream)};
   const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;

@@ -18,18 +18,21 @@ or, where those rows are over the block's shared memory, the block's
 threads in 4, 2 or 1 groups, each a frame at a time through two rows of
 its own, the tables staged or read from device memory, and where the
 tile's staged span and window are over it too (long hops, long frames),
-each frame read from device memory), |X|², then by feature
-kind (`FEATURE_KINDS`): the mel projection over the packed bands
+each frame read from device memory; where the rows and the packed mel
+bands are over it too (n_fft from ~6,200), the bands read from device
+memory, then the rows kept in a workspace in device memory), |X|², then
+by feature kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
 for PLP, the log kind of each power bin for a spectrogram (the identity
 projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
-empty prefix without a launch). A config whose plain-form layout exceeds
-the block's 227 KB in every plan (its FFT rows and packed bands: the
-layout of the last plan depends on neither the hop nor the frame length)
-is refused (`layout_reason`).
+empty prefix without a launch). The last plan's layout depends on neither
+n_fft nor the hop nor the frame length, so the Stockham and Bluestein forms
+take every n_fft, hop and frame length the reference takes; only the
+bf16x3 opt-in past its layout (it stages the span) and more filters than
+the packed table's filter field holds are refused (`layout_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -60,8 +63,10 @@ for resampling configs). `launches` counts launches of the plain front-end,
 `bf16x3_launches` count the launches (of either form) that take that
 branch, `block_fft_launches` those of the block plan and
 `global_table_launches` those of it that read the FFT tables from device
-memory and `gather_launches` those that read each frame from device
-memory (`fft_layout`), `split_launches` the plain-form launches of
+memory, `gather_launches` those that read each frame from device
+memory, `gather_bands_launches` and `gather_rows_launches` those of the
+plans that read the packed mel bands, and also keep the FFT rows, in device
+memory (`fft_layout`, `PLAN_TRAITS`), `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
 
@@ -101,8 +106,21 @@ FEATURE_KINDS = ("logmel", "plp", "spectrogram", "ssc")  # csrc/frontend.cu code
 DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 # the FFT forms' plans (csrc/frontend.cu plan): a frame a warp; frames a
 # group of the block with the tables staged, or in device memory; the same
-# with each frame read from device memory, no span and no window staged
-FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global")
+# with each frame read from device memory, no span and no window staged;
+# then with the packed mel bands, and then the FFT rows, in device memory too
+FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "gather_bands",
+             "gather_rows")
+# what each block plan reads from device memory rather than staging
+# (csrc/frontend.cu kLadder): (each frame, the FFT tables, the packed mel
+# bands, the FFT rows)
+PLAN_TRAITS = {
+    "block": (False, False, False, False),
+    "block_global": (False, True, False, False),
+    "gather": (True, False, False, False),
+    "gather_global": (True, True, False, False),
+    "gather_bands": (True, True, True, False),
+    "gather_rows": (True, True, True, True),
+}
 # (plan, frames a block transforms at once) in the order plan() tries them
 FFT_LAYOUTS = (("warp", WARPS),
                *((plan, g) for plan in FFT_PLANS[1:] for g in (4, 2, 1)))
@@ -121,6 +139,8 @@ bluestein_launches = 0
 block_fft_launches = 0
 global_table_launches = 0
 gather_launches = 0
+gather_bands_launches = 0
+gather_rows_launches = 0
 bf16x3_launches = 0
 block_launches = 0
 split_launches = 0
@@ -464,15 +484,26 @@ def mel_packed(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return off.to(torch.int32), k * mel.shape[1] + m
 
 
-def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int) -> torch.Tensor:
+def meta_bin_bits(bins: int) -> int:
+    """Width of the packed table's bin field for a power row of `bins` bins
+    (csrc/frontend.cu bin_bits): 16, the staged plans' packing at every
+    n_fft they take, or the bits of the largest bin where that is wider
+    (n_fft from 131,070, which only "gather_rows" reaches); the filter
+    field takes the other 31 - bits."""
+    return max(16, (bins - 1).bit_length())
+
+
+def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int, bins: int | None = None) -> torch.Tensor:
     """int32 [n_packed] per packed weight (csrc/frontend.cu Bands::meta): its
-    bin | its filter << 16, the sign bit set on each filter's last weight,
-    so the projection finds a weight's bin and the end of its filter with
-    one load."""
-    if M >= 1 << 15 or int(index.max()) // M >= 1 << 16:
-        raise ValueError(f"{M} filters or {int(index.max()) // M + 1} bins: over the packed "
-                         "table's 15-bit filter and 16-bit bin fields")
-    meta = (index // M) | (index % M) << 16
+    bin | its filter << `meta_bin_bits(bins)` (bins: the power row's, by
+    default the largest bin's + 1), the sign bit set on each filter's last
+    weight, so the projection finds a weight's bin and the end of its filter
+    with one load."""
+    bits = meta_bin_bits(int(index.max()) // M + 1 if bins is None else bins)
+    if M >= 1 << (31 - bits):
+        raise ValueError(f"{M} filters: over the packed table's {31 - bits}-bit filter field "
+                         f"(beside a {bits}-bit bin field)")
+    meta = (index // M) | (index % M) << bits
     last = torch.zeros_like(meta, dtype=torch.bool)
     last[off[1:].long() - 1] = True
     return torch.where(last, meta - (1 << 31), meta).to(torch.int32)
@@ -499,7 +530,7 @@ def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
         "mel_w": mel.reshape(-1)[index].to(device).contiguous(),
         "melf_w": melf.reshape(-1)[index].to(device=device, dtype=torch.float32).contiguous(),
         "mel_off": off.to(device),
-        "mel_meta": packed_meta(off, index, mel.shape[1]).to(device),
+        "mel_meta": packed_meta(off, index, mel.shape[1], mel.shape[0]).to(device),
     }
 
 
@@ -572,7 +603,9 @@ def _bands(cfg: FrontendConfig) -> int:
     weights), the filter offsets and `packed_meta`; none for a
     spectrogram."""
     tables = mel_matrices(cfg)
-    return (tables + bool(tables)) * _a4(packed_count(cfg)) + (_a4(cfg.n_mels + 1) if tables else 0)
+    if not tables:  # a spectrogram's identity: nothing packed (and no identity matrix built)
+        return 0
+    return (tables + 1) * _a4(packed_count(cfg)) + _a4(cfg.n_mels + 1)
 
 
 def _head(cfg: FrontendConfig, tile: int) -> int:
@@ -620,23 +653,28 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     """Shared memory per block of cfg's layout in the Stockham or Bluestein
     form, a plan of `FFT_PLANS` and, for the block plans, `groups` frames a
     block at once, for int16 or float32 rows (csrc/frontend.cu layout): the
-    head (for the gather plans the packed bands alone: no span and no
-    window), the twiddles and the stages' output bases (none staged by the
-    "_global" plans), then for "warp" per warp two rows and the projection's
-    scratch (32 lane partials and M sums a weight table), which the fused
-    resample's input window overlays, widening them only where it is
-    longer, and the resample's taps; for the block plans per group two rows
-    and the projection's scratch (256 / groups thread partials and M sums a
-    weight table), then the 8 warps' partials of a group sum."""
+    head (for the gather plans no span and no window; none of it for
+    "gather_bands" and "gather_rows", which read the packed bands from
+    device memory), the twiddles and the stages' output bases (none staged
+    where `PLAN_TRAITS` reads the tables from device memory), then for
+    "warp" per warp two rows and the projection's scratch (32 lane partials
+    and M sums a weight table), which the fused resample's input window
+    overlays, widening them only where it is longer, and the resample's
+    taps; for the block plans per group two rows (none for "gather_rows":
+    a workspace in device memory holds them, `rows_workspace`) and the
+    projection's scratch (256 / groups thread partials and M sums a weight
+    table), then the 8 warps' partials of a group sum."""
     N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
-    n = _bands(cfg) if plan.startswith("gather") else _head(cfg, TILE)
-    if not plan.endswith("_global"):
+    gather, tables_dev, bands_dev, rows_dev = PLAN_TRAITS.get(plan, (False,) * 4)
+    n = 0 if bands_dev else _bands(cfg) if gather else _head(cfg, TILE)
+    if not tables_dev:
         n += _a4(2 * twiddle_count(N, form)) + _a4(sum(hr for _, _, hr in _stages(N, form)))
     fir, taps = _fir_floats(cfg, TILE, int16)
     if plan == "warp":
         rows = WARPS * (2 * row_floats(N, form) + _a4(tables * (32 + M)))
     else:
-        rows = groups * (2 * row_floats(N, form) + _a4(tables * (THREADS // groups + M))) + WARPS
+        rows = groups * (0 if rows_dev else 2 * row_floats(N, form))
+        rows += groups * _a4(tables * (THREADS // groups + M)) + WARPS
     return 4 * (n + max(rows, fir) + _a4(taps))
 
 
@@ -652,8 +690,13 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
     filter spectrum and stage bases read from device memory; else "gather"
     and "gather_global", the same two with no span and no window staged,
     each group reading its frame from device memory (a layout that depends
-    on neither the hop nor the frame length). Where none fits, the last
-    (refused by `layout_reason`). The fused resample takes
+    on neither the hop nor the frame length); else "gather_bands", the
+    packed mel bands read from device memory too (Stockham to n_fft 25,600,
+    Bluestein to P = 12,800); else "gather_rows", each group's two FFT rows
+    in a workspace in device memory (`rows_workspace`): its layout, the
+    groups' projection scratch alone, depends on the filters and nothing
+    else. Where none fits (tens of thousands of filters), the last (refused
+    by `layout_reason`). The fused resample takes
     "warp" only: a resampling config whose fused layout is over the block
     takes the split route (`resample_route`), whose plain form plans at the
     feature rate."""
@@ -743,14 +786,19 @@ def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None
     config the port takes runs with either row type. A resampling config is
     held to the plain form's layout at its feature rate: the split route's
     second launch, which the fused form (taken only where its own layout
-    fits) never exceeds. The Stockham and Bluestein forms are refused only
-    where the last plan ("gather_global", one frame a block at once) is
-    over the block: it stages neither the span nor the window nor the FFT
-    tables, so the reason names what it does stage, the FFT's two rows and
-    the packed mel bands, which depend on n_fft and the filters alone. The
-    bf16x3 form stages the tile's span, so its reason names the frame too."""
+    fits) never exceeds. A packed mel table whose filters overflow its
+    filter field (`packed_meta`: 32,768 filters at most) is refused too.
+    The Stockham and Bluestein forms take every n_fft, hop and frame
+    length: their last plan ("gather_rows") stages only the projection's
+    scratch, which only tens of thousands of filters put over the block,
+    and the reason names it. The bf16x3 opt-in stages the tile's span, so
+    its reason names the frame too."""
     if chain.resamples(cfg):
         cfg = feature_rate_config(cfg)
+    bits = meta_bin_bits(cfg.n_bins)
+    if mel_matrices(cfg) and cfg.n_mels >= 1 << (31 - bits):
+        return (f"packed mel table of {cfg.n_mels} filters, over its {31 - bits}-bit filter field "
+                f"(beside a {bits}-bit bin field)")
     n = smem_bytes(cfg, dft_passes, int16=False)
     budget = rs_kernel.SMEM_BUDGET_BYTES
     if n <= budget:
@@ -764,10 +812,9 @@ def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None
         )
     return (
         f"front-end kernel layout of {n:,} bytes of shared memory a block in its last plan "
-        f"(one frame a block at once, frames and FFT tables read from device memory): two FFT "
-        f"rows of {8 * row_floats(cfg.n_fft, form):,} B (the {form} form's "
-        f"{fft_points(cfg.n_fft, form):,}-point FFT at n_fft={cfg.n_fft}) and {4 * _bands(cfg):,} B "
-        f"of packed mel bands ({cfg.n_mels} filters), over the block's {budget:,}"
+        f"(one frame a block at once; frames, FFT tables, packed mel bands and FFT rows in "
+        f"device memory): the projection's scratch of {cfg.n_mels} filters, over the block's "
+        f"{budget:,}"
     )
 
 
@@ -788,7 +835,9 @@ def _lib() -> ctypes.CDLL:
         i, i, i, i, i, i,  # n_fft, dft_form, frame_offset, center, framing, drop_last
         f, f, f, f,  # scale, preemph, eps, pscale
         *branches,
-        i, p,  # origin, stream
+        i,  # origin
+        p, i, ctypes.c_longlong,  # "gather_rows": workspace, slots (its grid's blocks), workspace floats
+        p,  # stream
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
     lib.mfcc_frontend_logmel_resample.argtypes = [
@@ -830,6 +879,41 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
         raise RuntimeError(f"front-end kernel info failed: "
                            f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem}
+
+
+@functools.lru_cache(maxsize=64)
+def _resident_blocks(cfg: FrontendConfig, int16: bool, device: torch.device) -> int:
+    """Blocks of cfg's block-plan instantiation (a config at its feature
+    rate) that the card holds at once: its SMs times the blocks an SM holds
+    at the layout's shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        rc = _lib().mfcc_frontend_kernel_info(
+            int(int16), 0, int(cfg.dither > 0.0), int(chain.needs_conditioning(cfg)), 0, 1,
+            smem_bytes(cfg, int16=int16), out)
+    if rc != 0:
+        raise RuntimeError(f"front-end kernel info failed: "
+                           f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
+    return max(1, out[2]) * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rows_workspace(cfg: FrontendConfig, form: str, blocks: int, resident: int) -> tuple[int, int]:
+    """(slots, floats) of the workspace of a "gather_rows" launch of cfg (a
+    config at its feature rate) in the Stockham or Bluestein form, over
+    `blocks` tiles on a card that holds `resident` blocks at once: its
+    persistent grid has a block for each that can be resident (never more
+    than the tiles), each looping over the tiles with a slot of its own that
+    holds its groups' two FFT rows (`row_floats`). Its size is bounded by
+    the card, not by the batch."""
+    groups = fft_layout(cfg, form)[1]
+    slots = max(1, min(blocks, resident))
+    return slots, slots * groups * 2 * row_floats(cfg.n_fft, form)
+
+
+def _workspace(floats: int, device: torch.device) -> torch.Tensor:
+    """A "gather_rows" launch's workspace: uninitialized (the kernel writes
+    every row before it reads it)."""
+    return torch.empty(floats, dtype=torch.float32, device=device)
 
 
 def frame_counts_reference(
@@ -978,7 +1062,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global launches, resample_launches, block_launches, dither_launches, conditioning_launches
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
-    global global_table_launches, gather_launches
+    global global_table_launches, gather_launches, gather_bands_launches, gather_rows_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
     mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
@@ -987,6 +1071,17 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     dft_matrix = _device_bf16_matrix(cfg, audio.device).data_ptr() if form == "bf16x3" else None
     lib = _lib()
     resampling = origin == 0 and chain.resamples(cfg)
+    # the fused form plans "warp" only; a plain-form launch (the block launch of
+    # a resampling config too) plans at the feature rate
+    at_rate = feature_rate_config(cfg)
+    plan = "warp" if form == "bf16x3" or resampling else fft_plan(at_rate, form)
+    rows = (None, 0, 0)  # "gather_rows": its workspace, slots (the persistent grid's blocks), floats
+    if plan == "gather_rows":
+        int16 = audio.dtype == torch.int16
+        slots, floats = rows_workspace(at_rate, form, B * -(-F // TILE),
+                                       _resident_blocks(at_rate, int16, audio.device))
+        ws = _workspace(floats, audio.device)
+        rows = (ws.data_ptr(), slots, floats)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         if resampling:
@@ -1001,7 +1096,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
             rc = lib.mfcc_frontend_logmel(
                 *head, dft_matrix, *dims, chain.frame_offset(cfg),
                 CENTER_CODES.get(cfg.frame_tail, 0), *framing,
-                cfg.input_scale, *tail, *branches, origin, stream,
+                cfg.input_scale, *tail, *branches, origin, *rows, stream,
             )
     if rc != 0:
         raise RuntimeError(
@@ -1023,15 +1118,12 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     centered_launches += int(chain.centered(cfg))
     bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
-    # the fused form plans "warp" only; a plain-form launch (the block launch of
-    # a resampling config too) plans at the feature rate
-    if form == "bf16x3" or resampling:
-        plan = "warp"
-    else:
-        plan = fft_plan(feature_rate_config(cfg) if chain.resamples(cfg) else cfg, form)
+    gather, tables_dev = PLAN_TRAITS.get(plan, (False,) * 4)[:2]
     block_fft_launches += int(plan != "warp")
-    global_table_launches += int(plan.endswith("_global"))
-    gather_launches += int(plan.startswith("gather"))
+    global_table_launches += int(tables_dev)
+    gather_launches += int(gather)
+    gather_bands_launches += int(plan == "gather_bands")
+    gather_rows_launches += int(plan == "gather_rows")
     return n_valid, mask
 
 

@@ -119,17 +119,20 @@ def centered(cfg: FrontendConfig) -> bool:
 
 
 def unsupported_reason(cfg: FrontendConfig) -> str | None:
-    """None when the port implements `cfg`; otherwise what it still needs,
-    with its ROADMAP queue-2 item (item 4): a front-end layout over the
-    block's shared memory in every plan, which only an n_fft whose FFT rows
-    and packed mel bands are too large for one block gives
-    (`frontend.layout_reason`: the last plan stages neither the frames nor
-    the FFT tables, so no hop or frame length is refused; the feature tail
-    takes every cepstra count and delta window, `tail.plan`). A resampling
-    config is held to the plain form's layout at its feature rate: centered
-    framing of resampled rows and fused layouts over the block take the
-    split route (`frontend.resample_route`), resample.cu and then the plain
-    form."""
+    """None when the port implements `cfg` on its default DFT route;
+    otherwise what it still needs, with its ROADMAP queue-2 item (item 4): a
+    front-end layout over the block's shared memory in every plan
+    (`frontend.layout_reason`). No n_fft, hop or frame length gives one: the
+    last plan ("gather_rows") reads the frames, the FFT tables and the packed
+    mel bands from device memory and keeps the FFT rows in a workspace
+    there, staging only the projection's scratch, which only tens of
+    thousands of filters put over the block; the feature tail takes every
+    cepstra count and delta window (`tail.plan`). The bf16x3 opt-in, which
+    stages the span, is held to its own layout by the kernel wrapper
+    (`frontend.layout_reason(cfg, "bf16x3")`). A resampling config is held
+    to the plain form's layout at its feature rate: centered framing of
+    resampled rows and fused layouts over the block take the split route
+    (`frontend.resample_route`), resample.cu and then the plain form."""
     from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
 
     reason = frontend.layout_reason(cfg)

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""The front-end's block FFT plan at each of its (tables, groups) choices, on
+"""The front-end's block FFT plan at each of its (plan, groups) choices, on
 one CUDA card; or this checkout's kernels against another checkout's, in
 turns.
 
     python3 scripts/block_plan_sweep.py
     python3 scripts/block_plan_sweep.py --parent DIR
 
-csrc/frontend.cu's plan_block takes the first of 4, 2 and 1 groups (frames
-a block transforms at once) with the tables staged, then with them in
-device memory, whose layout fits the block. This script builds the source
-six times, each with plan_block's search started at another choice (it
-then takes the first that fits from there), binds each build as the
-wrapper's library, and times the front-end kernel (profiler device time, L2
-flushed before every launch, `chip_smoke.device_ms`) at each choice in
-turns (forward, then backward) beside torch.fft.rfft(n=n_fft) on the same
+csrc/frontend.cu's plan_block takes the first plan of its ladder (block,
+block_global, gather, gather_global, gather_bands, gather_rows:
+kernels/frontend.py PLAN_TRAITS) at the first of 4, 2 and 1 groups (frames
+a block transforms at once) whose layout fits the block. This script builds
+the source once for each of `STARTS`, each with plan_block's search started
+at another choice (it then takes the first that fits from there: a start
+in the last two plans forces them), binds each build as the wrapper's
+library, and times the front-end kernel (profiler device time, L2 flushed
+before every launch, `chip_smoke.device_ms`) at each choice in turns
+(forward, then backward) beside torch.fft.rfft(n=n_fft) on the same
 windowed frames: classic13 at n_fft 1102, 4096, 2501 and 2160, b16 x 10 s,
 and librosa's framing (logmel80 at 22.05 kHz, n_fft 2048, hop 512, 128
 mels) at b64 x 10 s, int16 rows. Each choice's output is held to the
@@ -27,12 +29,21 @@ the wrapper's library in turn, and times each kernel (profiler device time,
 L2 flushed before every call; the tail's every kernel of the call) in the order
 parent, change, change, parent: the front-end at `TURNS` (classic13_deltas
 b64 x 10 s in the warp plan; classic13 at n_fft 1102, 4096 and 2501 b16 x
-10 s and librosa's framing b64 x 10 s in the block plan), the feature tail
+10 s and librosa's framing b64 x 10 s in the block plan; classic13_deltas
+b16 x 10 s at hop 0.2 s in the gather plan and at n_fft 6001 in
+"gather_global"; kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
+plan's dither and conditioning instantiation), the feature tail
 at `TAIL_TURNS` (classic13_deltas at 170 cepstra and delta window 8 and at
 200 and window 40, b16 x 10 s, on this checkout's front-end prefix). Each
 build's output is held to the other's within the kernel-vs-plain gates.
 Prints both means, their ratio, the plans and whether the outputs are
-equal bitwise.
+equal bitwise. Then it
+builds this checkout's frontend.cu forced to "gather_bands" and to
+"gather_rows" (`FORCED`, one group each) and times each in turns with the
+default build at `FORCED_AT` (classic13_deltas at n_fft 6001, b16 x 10 s,
+where "gather_global" at one group fits), printing whether the outputs are
+equal bitwise: the two plans move operands to device memory and change no
+arithmetic.
 """
 
 from __future__ import annotations
@@ -48,26 +59,32 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # plan_block's search, whose starting point each build moves
-SEARCH = """  for (int global = 0; global < 2; ++global) {
+SEARCH = """  for (int plan = 0; plan < 6; ++plan) {
     for (int groups = 4; groups >= 1; groups /= 2) {"""
-STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1))  # (tables in device memory, groups)
+# (plan of the ladder after "warp", kernels/frontend.py FFT_PLANS[1 + plan]; groups)
+STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1), (4, 1), (5, 4))
 PATHS = (("classic13", 1102, 16), ("classic13", 4096, 16), ("classic13", 2501, 16),
          ("classic13", 2160, 16), ("librosa", 2048, 64))
 LIBROSA = dict(sample_rate=22050, n_fft=2048, win_len_s=2048 / 22050, hop_s=512 / 22050, n_mels=128)
 # --parent: (config, overrides, rows) of the front-end and of the tail
 TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("classic13", dict(n_fft=4096), 16),
-         ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64))
+         ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64),
+         ("classic13_deltas", dict(hop_s=0.2), 16), ("classic13_deltas", dict(n_fft=6001), 16),
+         ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
               ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
-FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_error_string")
+FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_error_string", "mfcc_frontend_kernel_info")
+# --parent: the plans forced at one group, and the config they are forced at
+FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)))
+FORCED_AT = ("classic13_deltas", dict(n_fft=6001), 16)
 TAIL_FNS = ("mfcc_feature_tail", "mfcc_feature_tail_cmvn", "mfcc_tail_error_string")
 
 
 def variant(src: str, start: tuple[int, int]) -> str:
     """csrc/frontend.cu with plan_block's search started at `start`."""
     assert src.count(SEARCH) == 1, "plan_block's search not found"
-    g, n = start
-    return src.replace(SEARCH, f"""  for (int global = {g}; global < 2; ++global) {{
+    plan, n = start
+    return src.replace(SEARCH, f"""  for (int plan = {plan}; plan < 6; ++plan) {{
     for (int groups = {n}; groups >= 1; groups /= 2) {{""")
 
 
@@ -75,7 +92,7 @@ def taken(frontend, cfg, start: tuple[int, int]) -> tuple[str, int, int, int]:
     """(plan, groups, bytes, blocks an SM by shared memory) that a build
     whose search starts at `start` takes for cfg (the layout mirror)."""
     order = list(frontend.FFT_LAYOUTS[1:])
-    first = order.index(("block_global" if start[0] else "block", start[1]))
+    first = order.index((frontend.FFT_PLANS[1 + start[0]], start[1]))
     form = frontend.dft_form(cfg)
     for plan, groups in order[first:]:
         n = frontend._fft_smem(cfg, form, plan, True, groups)
@@ -145,9 +162,14 @@ def turns(parent: pathlib.Path, card: str) -> int:
     out.mkdir(parents=True, exist_ok=True)
     trees = {"change": _build.CSRC, "parent": parent.resolve() / "mfcc_tpu_torch" / "kernels" / "csrc"}
     jobs = [(key, src) for key in trees for src in ("frontend", "tail")]
-    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        sos = dict(zip(jobs, pool.map(lambda j: build(trees[j[0]] / f"{j[1]}.cu", trees[j[0]],
-                                                      out / f"{j[0]}_{j[1]}.so"), jobs)))
+    src = (_build.CSRC / "frontend.cu").read_text()
+    for plan, start in FORCED:  # this checkout's source, the search started at the plan
+        (out / f"forced_{plan}.cu").write_text(variant(src, start))
+    cus = {**{j: trees[j[0]] / f"{j[1]}.cu" for j in jobs},
+           **{(plan, "frontend"): out / f"forced_{plan}.cu" for plan, _ in FORCED}}
+    with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
+        sos = dict(zip(cus, pool.map(lambda j: build(cus[j], trees.get(j[0], _build.CSRC),
+                                                     out / f"{j[0]}_{j[1]}.so"), cus)))
     fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS) for key in trees}
     tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}
     print(f"in turns, parent {parent} [{card}]")
@@ -178,7 +200,38 @@ def turns(parent: pathlib.Path, card: str) -> int:
             raise SystemExit(f"{name} {over}: the builds disagree: {errs}")
         report(f"feature tail {name} {over} b{n_rows} x 10 s, plan {tail.plan(cfg)}", ms, outs)
         del audio, lengths, prefix, outs
+    # this checkout forced to each new plan at one group, against its default
+    # build ("gather_global" at one group) in turns
+    name, over, n_rows = FORCED_AT
+    cfg = named_config(name).replace(**over)
+    check(frontend.fft_layout(cfg) == ("gather_global", 1), f"{name} {over} takes gather_global at one group")
+    audio, lengths = rows(pad_batch, cfg, n_rows)
+    own, own_layout = frontend._lib, frontend.fft_layout
+    for plan, _ in FORCED:
+        libs = {"parent": fe["change"], "change": bind(sos[plan, "frontend"], frontend._lib(), FRONTEND_FNS)}
+        ms = {key: [] for key in libs}
+        outs = {}
+        try:
+            for key in ("parent", "change", "change", "parent"):
+                frontend._lib = lambda key=key: libs[key]
+                # the mirror follows the build (the forced plan's workspace and counts)
+                frontend.fft_layout = own_layout if key == "parent" else (lambda *a, plan=plan, **k: (plan, 1))
+                fn = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+                outs[key] = fn()
+                ms[key].append(chip_smoke.device_ms(torch, fn, "logmel_kernel"))
+        finally:
+            frontend._lib, frontend.fft_layout = own, own_layout
+        errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+        if testing.prefix_failures(errs):
+            raise SystemExit(f"{plan} forced at {name} {over}: the builds disagree: {errs}")
+        report(f"front-end {name} {over} b{n_rows} x 10 s forced to {plan} (change) against "
+               f"gather_global (parent), one group each", ms, outs)
     return 0
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"block_plan_sweep: {what}")
 
 
 def main() -> int:

@@ -273,10 +273,13 @@ def test_unsupported_reason_takes_every_resampled_row():
     input (the split route where the fused layout is over the block); n_fft
     6001, frames of 3 s, a 0.2 s hop and 170 cepstra at delta window 8,
     refused before, are taken with or without resampling (the gather plan,
-    the tail's split plan); what the port still refuses (n_fft 7001,
-    whose FFT rows are over the block in every plan) is refused with or
-    without resampling, citing ROADMAP queue 2 item 4; n_fft 3072, refused
-    before, is taken (the block FFT plan), with or without resampling."""
+    the tail's split plan); n_fft 3072 (the block FFT plan), 7001 and 16384
+    (the packed bands read from device memory) and 32768 (the FFT rows in
+    device memory too), refused before, are taken with or without
+    resampling, and at 7001 with 48 kHz input the CPU chain ≡ the JAX jnp
+    chain; what the port still refuses on the default route (60,000
+    filters, over the packed mel table's filter field) is refused with or
+    without resampling, citing ROADMAP queue 2 item 4."""
     for name in sorted(T_CONFIGS):
         for rate in RESAMPLED_RATES:
             for tail in ("center", "center_reflect"):
@@ -286,14 +289,26 @@ def test_unsupported_reason_takes_every_resampled_row():
         cfg = T_CONFIGS[name].replace(input_sample_rate=192000)
         assert tchain.unsupported_reason(cfg) is None and frontend.resample_route(cfg) == "split", name
     taken = [dict(n_fft=6001), dict(win_len_s=3.0), dict(hop_s=0.2),
-             dict(n_mels=170, n_ceps=170, delta_window=8), dict(n_fft=3072)]
+             dict(n_mels=170, n_ceps=170, delta_window=8), dict(n_fft=3072), dict(n_fft=7001),
+             dict(n_fft=16384), dict(n_fft=32768)]
     for over in taken:
         for rate in (None, 48000):
             cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, **over)
             assert tchain.unsupported_reason(cfg) is None, (over, rate)
     for rate in (None, 48000):
-        cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_fft=7001)
+        cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_mels=60000)
         assert "ROADMAP queue 2 item 4" in tchain.unsupported_reason(cfg), rate
+    tcfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=48000, n_fft=7001)
+    jcfg = J_CONFIGS["classic13_deltas"].replace(input_sample_rate=48000, n_fft=7001)
+    g = np.random.default_rng(7001)
+    x = np.round(g.standard_normal((2, 48000)) * 3000).astype(np.int16)
+    lens = np.array([48000, 30011], np.int32)
+    x[1, 30011:] = 0
+    feat, mask = tchain.extract_batch(x, lens, tcfg, device="cpu")
+    jfeat, jmask = jchain.extract_batch(jnp.asarray(x.astype(np.float32)), jnp.asarray(lens), jcfg,
+                                        backend="jnp")
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    _outside_close(tcfg, feat.numpy(), np.asarray(jfeat))
     assert frontend.resample_route(T_CONFIGS["mfcc39_48k"].replace(n_fft=3072)) == "split"
     assert frontend.resample_route(T_CONFIGS["mfcc39_48k"]) == "fused"
     assert frontend.resample_route(T_CONFIGS["classic13"]) is None

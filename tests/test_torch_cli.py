@@ -249,16 +249,28 @@ def test_resume_works_across_the_packages(tmp_path, corpus, caplog):
 
 
 def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
-    """A layout over the block in every plan (n_fft 16384: its FFT rows and
-    packed bands) exits 2 and writes nothing, on either device; n_fft 4096,
-    refused before, now extracts (the block FFT plan; here on the CPU)."""
+    """A config the kernels refuse (60,000 filters: over the packed mel
+    table's filter field) exits 2 and writes nothing, on either device;
+    n_fft 4096 (the block FFT plan) and 16384 (the packed bands read from
+    device memory), refused before, now extract (here on the CPU), at 16384
+    the reference CLI's shards within the cepstra gate."""
     out = tmp_path / "o"
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_fft=16384"])
+    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_mels=60000"])
     assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_fft=16384", "--device", "cuda"])
+    rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_mels=60000", "--device", "cuda"])
     assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
     rc, ran = _run(tmp_path, corpus, "--set", "n_fft=4096", out="n4096")
     assert rc == 0 and list(ran.rglob("*.npz"))
+    rc_t, t = _run(tmp_path, corpus, "--set", "n_fft=16384", out="n16384")
+    rc_j, j = _run(tmp_path, corpus, "--set", "n_fft=16384", ref=True, out="j16384")
+    assert rc_t == rc_j == 0
+    names = sorted(p.name for p in j.glob("*.npz"))
+    assert sorted(p.name for p in t.glob("*.npz")) == names and names
+    for name in names:
+        got, want = read_shard(t / name), jread_shard(j / name)
+        assert list(got) == list(want)
+        for k in got:
+            assert_features_close(got[k], want[k])
     if not torch.cuda.is_available():
         assert tmain(["extract", str(corpus), "-o", str(out), "--config", "classic13"]) == 2
         assert "no CUDA device" in caplog.text

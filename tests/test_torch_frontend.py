@@ -168,12 +168,15 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory in every plan (n_fft 7,001:
-    275,360 B in the gather plan, one frame at a time, frames and tables in
-    device memory) raises on every device; n_fft 5,393, which it refused
-    before (232,464 B in the block plan), runs in the gather plan, and
-    n_fft 4096 (420,160 B in the warp plan) in the block plan (161,136 B),
-    here as their plain versions.
+    """A layout over the block's shared memory: the bf16x3 opt-in at n_fft
+    4096 (it stages the span) names its layout, which the card's wrapper
+    refuses before any launch; n_fft 7,001, which it refused before
+    (275,360 B in the gather plan), runs with the packed bands read from
+    device memory ("gather_bands", 222,384 B), here as its plain version ≡
+    the JAX package's jnp stages; n_fft 5,393, refused before that
+    (232,464 B in the block plan), runs in the gather plan, and n_fft 4096
+    (420,160 B in the warp plan) in the block plan (161,136 B), here as
+    their plain versions.
     Centered framing of resampled rows, which it refused before, runs: whisper80 fed 48 kHz takes the split route
     (resample.cu, then the plain form's centered staging) on the card, and
     here its plain version, whose prefix is the JAX package's resample and
@@ -182,8 +185,18 @@ def test_wrapper_refuses_configs_outside_the_slice():
     the log-mel gate, 1e-4), with no launch."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, T_CONFIGS["classic13"].replace(n_fft=7001))
+    reason = frontend.layout_reason(T_CONFIGS["classic13"].replace(n_fft=4096), "bf16x3")
+    assert "shared memory" in reason and "bf16x3" in reason
+    c7001, j7001 = T_CONFIGS["classic13"].replace(n_fft=7001), J_CONFIGS["classic13"].replace(n_fft=7001)
+    assert frontend.layout_reason(c7001) is None and frontend.fft_plan(c7001) == "gather_bands"
+    x = np.round(np.random.default_rng(7001).standard_normal((2, 9000)) * 3000).astype(np.float32)
+    lens = np.array([9000, 5001], np.int32)
+    x[1, 5001:] = 0.0
+    got7001 = frontend.logmel_prefix(torch.as_tensor(x), torch.as_tensor(lens), c7001)
+    st = jchain.logmel_stages(jnp.asarray(x), jnp.asarray(lens), j7001)
+    want = np.concatenate([np.asarray(st["logmel"]), np.asarray(st["energy"])[..., None]], axis=-1)
+    assert got7001.shape == want.shape
+    assert_prefix_close(got7001.numpy(), want, c7001.n_mels)
     c5393 = T_CONFIGS["classic13"].replace(n_fft=5393)
     assert frontend.layout_reason(c5393) is None and frontend.fft_plan(c5393) == "gather_global"
     got5393 = frontend.logmel_prefix(audio, lengths, c5393)
@@ -288,7 +301,7 @@ PARENT_REFUSED = {"classic13": (), "kaldi_mfcc_dither": ()}
 # the top of the range every n_fft fits at classic13: from n_fft 5,393 (the
 # Bluestein form's P = 8,192) only the gather plan fits, and the Bluestein
 # rows of n_fft 6,205 (P = 10,240) and its packed bands are over the block in
-# every plan
+# the parent's plans: it takes "gather_bands"
 TOP_N_FFT = 6204
 
 
@@ -302,7 +315,8 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
     in device memory (`fft_layout` takes the first of `FFT_LAYOUTS` that
     fits; at a 10 ms hop the gather plan with staged tables is never the
     first); the "fp32" route takes the same form as "radix4" at every size.
-    6,205 is refused."""
+    6,205, refused before, takes "gather_bands" (the packed bands read from
+    device memory)."""
     cfg = T_CONFIGS["classic13"] if case == "classic13" else T_CONFIGS["kaldi_mfcc"].replace(dither=1.0)
     sizes = range(16, TOP_N_FFT + 1)
     refused = [n for n in sizes if frontend.layout_reason(cfg.replace(n_fft=n))]
@@ -318,8 +332,9 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
         earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
         assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
     assert forms == {"stockham", "bluestein"}
-    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather"}
-    assert frontend.layout_reason(T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1))
+    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "gather_bands", "gather_rows"}
+    over = T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1)
+    assert frontend.layout_reason(over) is None and frontend.fft_plan(over) == "gather_bands"
 
 
 def test_bluestein_sizes_and_layouts():

@@ -95,8 +95,18 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio, lengths.long(), cfg)
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
+    # the bf16x3 opt-in past its layout (it stages the span) raises before
+    # any launch; n_fft 7001, refused before, runs in the default form
+    before = frontend.launches
     with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=7001))
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096), dft_passes="bf16x3")
+    assert frontend.launches == before
+    c7001 = cfg.replace(n_fft=7001)
+    got = frontend.logmel_prefix(audio, lengths, c7001)
+    torch.cuda.synchronize()
+    assert frontend.launches == before + 1
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), c7001.replace(dtype="float64"))
+    assert_prefix_close(got, want, c7001.n_mels)
     # centered framing of resampled rows, refused before: the split route
     # (resample.cu, then the plain form's centered staging), counted, within
     # the prefix gates of the float64 plain version
@@ -425,24 +435,31 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 
 def test_layout_over_the_block_budget_raises():
-    """A config whose layout overflows the block's 227 KB in every plan
-    raises before the launch (n_fft 7,001: the gather plan's Bluestein rows
-    of P = 12,288 and its packed bands, 275,360 B; 5,393, refused before,
-    takes the gather plan); n_fft 2048 at 26 filters, over it while the mel
-    matrix was staged dense, fits with the packed bands, and 4096 (420,160 B
-    in the warp plan) in the block plan."""
+    """A layout over the block's 227 KB raises before the launch: the bf16x3
+    opt-in at n_fft 4096 (it stages the span); n_fft 7,001 (refused before:
+    the gather plan's Bluestein rows of P = 12,288 and its packed bands,
+    275,360 B) fits with the bands read from device memory (222,384 B) and
+    launches; n_fft 2048 at 26 filters, over it while the mel matrix was
+    staged dense, fits with the packed bands, and 4096 (420,160 B in the
+    warp plan) in the block plan."""
     dev = _card()
     cfg = NAMED_CONFIGS["classic13"].replace(n_fft=7001)
     assert frontend.smem_bytes(cfg.replace(n_fft=5393)) <= rs_kernel.SMEM_BUDGET_BYTES
-    assert frontend.smem_bytes(cfg) > rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg) == 222384 and frontend.fft_plan(cfg) == "gather_bands"
     assert frontend.smem_bytes(cfg.replace(n_fft=2048)) <= rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg.replace(n_fft=4096)) <= rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg.replace(n_fft=4096), "bf16x3") > rs_kernel.SMEM_BUDGET_BYTES
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
     with pytest.raises(NotImplementedError, match="232,448"):
-        frontend.logmel_prefix(audio, lengths, cfg)
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096), dft_passes="bf16x3")
     assert frontend.launches == before
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert frontend.launches == before + 1
+    eps = torch.tensor(cfg.log_eps, dtype=torch.float32)
+    assert torch.equal(got[..., cfg.n_mels].cpu(), eps.expand(got.shape[:2]))  # zero rows: energy eps
 
 
 def _counts():
@@ -1041,6 +1058,92 @@ def test_gather_plan_matches_reference(name, overrides):
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
     wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
     assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
+
+
+# n_fft past the gather plan's layouts: (config, overrides, plan)
+ANY_NFFT_CASES = [
+    ("classic13", {"n_fft": 7001}, "gather_bands"),
+    ("classic13_deltas", {"n_fft": 16384}, "gather_bands"),
+    ("kaldi_mfcc", {"dither": 1.0, "n_fft": 16384, "win_len_s": 0.5}, "gather_bands"),
+    ("whisper80", {"n_fft": 16384}, "gather_bands"),
+    ("kaldi_plp", {"n_fft": 16384}, "gather_bands"),
+    ("classic13", {"n_fft": 13001}, "gather_rows"),
+    ("classic13_deltas", {"n_fft": 32768}, "gather_rows"),
+    ("ssc26", {"n_fft": 32768}, "gather_rows"),
+    ("kaldi_spectrogram", {"n_fft": 13001, "n_mels": 6501}, "gather_rows"),
+    ("logmel80", {"sample_rate": 48000, "n_fft": 65536, "win_len_s": 65536 / 48000,
+                  "hop_s": 16384 / 48000}, "gather_rows"),
+    ("classic13", {"n_fft": 131072}, "gather_rows"),
+]
+ANY_NFFT_IDS = ["bands_7001", "bands_16384", "bands_kaldi_dither_16384", "bands_whisper80_16384",
+                "bands_plp_16384", "rows_13001", "rows_32768", "rows_ssc_32768",
+                "rows_spectrogram_13001", "rows_48k_65536", "rows_131072_bin_field"]
+
+
+def _nan_workspace(monkeypatch):
+    """The wrapper's "gather_rows" workspace filled with NaN (its contents
+    must not matter)."""
+    monkeypatch.setattr(frontend, "_workspace",
+                        lambda n, device: torch.full((n,), float("nan"), device=device))
+
+
+@pytest.mark.parametrize("name,overrides,plan", ANY_NFFT_CASES, ids=ANY_NFFT_IDS)
+def test_any_n_fft_matches_reference(name, overrides, plan, monkeypatch):
+    """The plans past the gather plan's layouts: "gather_bands" (the packed
+    mel bands read from device memory) and "gather_rows" (the FFT rows in a
+    workspace in device memory, the bin field past 16 bits at 131,072)
+    against the float64 plain version on the CPU at the prefix gates,
+    int16 ≡ float32, two runs, a NaN-filled workspace and a persistent grid
+    of 3 blocks (each looping over many tiles through its own slot) bitwise,
+    n_valid and the mask bitwise the chain's, counted by plan."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    assert frontend.fft_plan(cfg) == plan and chain.unsupported_reason(cfg) is None
+    g = np.random.default_rng(cfg.n_fft + cfg.n_mels)
+    n = max(cfg.sample_rate * 2, 2 * cfg.frame_length)
+    lens = [n, n - 12345, 3 * cfg.frame_length // 2, 1]
+    b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in lens], cfg, bucket_len=n, dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
+    frontend.gather_bands_launches = frontend.gather_rows_launches = frontend.gather_launches = 0
+    got, nv, mask = frontend.logmel_prefix_counts(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert frontend.gather_launches == 1
+    assert (frontend.gather_bands_launches, frontend.gather_rows_launches) == (
+        int(plan == "gather_bands"), int(plan == "gather_rows"))
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    narrow = None
+    if cfg.logmel_norm == "whisper":  # its narrow filters take the per-bin gate
+        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    _nan_workspace(monkeypatch)
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    monkeypatch.setattr(frontend, "_resident_blocks", lambda *args: 3)
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
+    assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
+
+
+@pytest.mark.parametrize("n_fft,plan", [(16384, "gather_bands"), (32768, "gather_rows")])
+def test_any_n_fft_block_launch_matches_offline(n_fft, plan, monkeypatch):
+    """The block launch (streaming's, row origin 1) in the new plans, on a
+    NaN-filled workspace, ≡ the offline prefix on its valid frames, bitwise."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13_deltas"].replace(n_fft=n_fft)
+    assert frontend.fft_plan(cfg) == plan
+    g = np.random.default_rng(n_fft)
+    audio = torch.as_tensor(np.round(g.standard_normal((1, 48000)) * 3000).astype(np.int16), device=dev)
+    lengths = torch.tensor([47000], dtype=torch.int32, device=dev)
+    offline = frontend.logmel_prefix(audio, lengths, cfg)
+    K, S, L, f0 = 16, cfg.frame_step, cfg.frame_length, 7
+    span = (K - 1) * S + L
+    rows = audio[:, f0 * S - 1 : f0 * S + span].float().contiguous()
+    valid = torch.tensor([span], dtype=torch.int32, device=dev)
+    _nan_workspace(monkeypatch)
+    blk = frontend.logmel_block(rows, valid, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(blk, offline[:, f0 : f0 + K])
 
 
 def test_extract_batch_keeps_the_callers_tf32_flag():

@@ -133,29 +133,32 @@ def test_plans_and_layouts():
         assert frontend.packed_count(cfg) == int(frontend.mel_packed(mel)[0][-1])
 
 
-@pytest.mark.parametrize("over,refused", [
-    (dict(n_fft=5392), False), (dict(n_fft=5393), False),
-    (dict(win_len_s=20640 / 16000), False), (dict(win_len_s=25376 / 16000), False),
-    (dict(win_len_s=25377 / 16000), False), (dict(n_mels=170, n_ceps=170, delta_window=8), False),
-    (dict(n_fft=7001), True), (dict(n_fft=16384, win_len_s=25377 / 16000), True),
+@pytest.mark.parametrize("over,plan", [
+    (dict(n_fft=5392), "block_global"), (dict(n_fft=5393), "gather_global"),
+    (dict(win_len_s=20640 / 16000), "block"), (dict(win_len_s=25376 / 16000), "block_global"),
+    (dict(win_len_s=25377 / 16000), "gather"), (dict(n_mels=170, n_ceps=170, delta_window=8), "warp"),
+    (dict(n_fft=7001), "gather_bands"), (dict(n_fft=16384, win_len_s=25377 / 16000), "gather_bands"),
 ], ids=["n_fft_5392", "n_fft_5393", "frame_1.29_s", "frame_25376", "frame_25377", "tail_170_cepstra",
         "n_fft_7001", "n_fft_16384"])
-def test_what_is_still_refused(over, refused):
+def test_what_is_still_refused(over, plan):
     """classic13_deltas: every n_fft to 5,392 and frames to 25,376 samples
     (1.29 s) take a layout of the block plan; n_fft 5,393 (the Bluestein
     rows of P = 8,192) and frames of 25,377 samples, refused before, take
     the gather plan, and the tail at 170 cepstra and delta window 8 its
-    split plan. n_fft 7,001 (the Bluestein rows of P = 12,288) and
-    16,384 (its packed mel bands) are still refused, citing ROADMAP queue 2
-    item 4, and raise NotImplementedError (here through the CPU chain; the
-    card's wrapper raises the same before any launch)."""
+    split plan. n_fft 7,001 (the Bluestein rows of P = 12,288) and 16,384
+    with frames longer than n_fft (its packed mel bands), refused before,
+    take the plan that reads the bands from device memory, and their CPU
+    chain ≡ the JAX jnp chain at the cepstra gate: nothing is refused."""
     cfg = T_CONFIGS["classic13_deltas"].replace(**over)
-    reason = tchain.unsupported_reason(cfg)
-    assert (reason is not None) == refused, reason
-    if refused:
-        assert "ROADMAP queue 2 item 4" in reason
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tchain.extract_batch(np.zeros((1, 30000), np.int16), [30000], cfg, device="cpu")
+    assert tchain.unsupported_reason(cfg) is None
+    assert frontend.fft_plan(cfg) == plan
+    if plan == "gather_bands":
+        jcfg = J_CONFIGS["classic13_deltas"].replace(**over)
+        x, lens = _rows(jcfg, seed=cfg.n_fft)
+        feat, mask = tchain.extract_batch(x.astype(np.int16), lens, cfg, device="cpu")
+        jfeat, jmask = jchain.extract_batch(jnp.asarray(x), jnp.asarray(lens), jcfg, backend="jnp")
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        testing.assert_features_close(feat.numpy(), np.asarray(jfeat))
 
 
 def test_block_plan_sweep_applies_to_the_kernel_source():
@@ -174,8 +177,12 @@ def test_block_plan_sweep_applies_to_the_kernel_source():
     assert sweep.variant(src, (0, 4)) == src
     for start in sweep.STARTS[1:]:
         text = sweep.variant(src, start)
-        assert text != src and text.replace(f"int global = {start[0]}", "int global = 0").replace(
+        assert text != src and text.replace(f"int plan = {start[0]}", "int plan = 0").replace(
             f"int groups = {start[1]}", "int groups = 4") == src
     c = T_CONFIGS["classic13"].replace(n_fft=1102)
     assert sweep.taken(frontend, c, (0, 4)) == ("block", 4, 168080, 1)
     assert sweep.taken(frontend, c, (1, 2))[:2] == ("block_global", 2)
+    # the starts at the two new plans force them
+    assert {start: sweep.taken(frontend, c, start)[:2] for start in sweep.STARTS[6:]} == {
+        (4, 1): ("gather_bands", 1), (5, 4): ("gather_rows", 4)}
+    assert [frontend.FFT_PLANS[1 + start[0]] for _, start in sweep.FORCED] == [p for p, _ in sweep.FORCED]

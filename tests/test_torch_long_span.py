@@ -246,11 +246,13 @@ def test_every_config_that_fits_today_keeps_its_plan():
     order, so every config the parent's layouts fit keeps its plan (and its
     kernel's bits): the named configs and their variants at n_fft from 256
     to 6,001, hops of 5 to 40 ms and frames of 20 to 64 ms; the others take
-    a gather plan and are no longer refused but for their FFT rows."""
+    a gather plan (the last two, with the packed bands and then the FFT rows
+    in device memory, after the first two) and are no longer refused."""
     assert frontend.FFT_LAYOUTS[:7] == (
         ("warp", 8), ("block", 4), ("block", 2), ("block", 1),
         ("block_global", 4), ("block_global", 2), ("block_global", 1))
-    assert [p for p, _ in frontend.FFT_LAYOUTS[7:]] == ["gather"] * 3 + ["gather_global"] * 3
+    assert [p for p, _ in frontend.FFT_LAYOUTS[7:]] == (
+        ["gather"] * 3 + ["gather_global"] * 3 + ["gather_bands"] * 3 + ["gather_rows"] * 3)
     kept = moved = 0
     for name in sorted(T_CONFIGS):
         base = frontend.feature_rate_config(T_CONFIGS[name])
@@ -295,28 +297,30 @@ def test_layouts_of_the_gather_plan():
     assert 4 * (frontend._bands(n6001) + rows + scratch + frontend.WARPS) == 230912
 
 
-@pytest.mark.parametrize("over,refused", [
-    (dict(n_fft=6001), False), (dict(n_fft=6204), False), (dict(n_fft=6205), True),
-    (dict(n_fft=7001), True), (dict(n_fft=12500), False), (dict(n_fft=12502), True),
-    (dict(n_fft=16384), True), (dict(n_fft=6001, hop_s=1.0, win_len_s=3.0), False),
-    (dict(n_fft=7001, hop_s=0.001), True),
+@pytest.mark.parametrize("over,plan", [
+    (dict(n_fft=6001), "gather_global"), (dict(n_fft=6204), "block_global"), (dict(n_fft=6205), "gather_bands"),
+    (dict(n_fft=7001), "gather_bands"), (dict(n_fft=12500), "gather_global"), (dict(n_fft=12502), "gather_bands"),
+    (dict(n_fft=16384), "gather_bands"), (dict(n_fft=6001, hop_s=1.0, win_len_s=3.0), "gather_global"),
+    (dict(n_fft=7001, hop_s=0.001), "gather_bands"),
 ], ids=["6001", "6204", "6205", "7001", "12500", "12502", "16384", "6001_long_span", "7001_short_hop"])
-def test_refusal_map_names_rows_and_bands(over, refused):
-    """What is still refused is an n_fft whose two FFT rows and packed mel
-    bands are over the block in the last plan, whatever the hop and the
-    frame: every n_fft to 6,204 (the top of the contiguous range at 26
-    filters) and every Stockham size to 12,500 are taken; 6,205 and 7,001
-    (Bluestein, P = 10,240 and 12,288), 12,502 and 16,384 (its bands) are
-    refused, citing ROADMAP queue 2 item 4, the reason naming the rows and
-    the bands and not the frame."""
+def test_refusal_map_names_rows_and_bands(over, plan):
+    """What the parent refused was an n_fft whose two FFT rows and packed
+    mel bands were over the block in its last plan, whatever the hop and the
+    frame: 6,205 and 7,001 (Bluestein, P = 10,240 and 12,288), 12,502 and
+    16,384 (its bands). Each now takes "gather_bands", the bands read from
+    device memory, at any hop; what the parent took keeps its plan; nothing
+    is refused, and the formerly refused sizes' CPU chain ≡ the JAX jnp
+    chain at the cepstra gate (one row of 1.0 s)."""
     cfg = T_CONFIGS["classic13_deltas"].replace(**over)
-    reason = tchain.unsupported_reason(cfg)
-    assert (reason is not None) == refused, reason
-    if refused:
-        assert "ROADMAP queue 2 item 4" in reason and "two FFT rows" in reason
-        assert "packed mel bands" in reason and "frame length" not in reason
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tchain.extract_batch(np.zeros((1, 30000), np.int16), [30000], cfg, device="cpu")
+    assert tchain.unsupported_reason(cfg) is None
+    assert frontend.fft_plan(cfg) == plan
+    if plan == "gather_bands":
+        jcfg = J_CONFIGS["classic13_deltas"].replace(**over)
+        x, lens = _rows(jcfg, (1.0,), seed=cfg.n_fft)
+        feat, mask = tchain.extract_batch(x.astype(np.int16), lens, cfg, device="cpu")
+        jfeat, jmask = jchain.extract_batch(jnp.asarray(x), jnp.asarray(lens), jcfg, backend="jnp")
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+        _assert_close(cfg, feat.numpy(), np.asarray(jfeat))
 
 
 @pytest.mark.parametrize("name,over,top", [
@@ -324,18 +328,21 @@ def test_refusal_map_names_rows_and_bands(over, refused):
     ("whisper80", {}, 5924),
 ], ids=["classic13", "kaldi_mfcc_dither", "logmel80", "whisper80"])
 def test_refusal_map_edges(name, over, top):
-    """The top of the contiguous n_fft range of each family at any hop (its
-    next size refused at a 10 ms hop and at 0.5 s), and at classic13 every
-    Stockham size to 13,824 taken, 14,400 refused (`PERF.md` §1, `ROADMAP.md`
-    queue 2 item 4)."""
+    """The top of each family's contiguous n_fft range in the parent's plans
+    at any hop (a 10 ms hop and 0.5 s) keeps the parent's plan; the next size,
+    which the parent refused, takes a plan past it; at classic13 every
+    Stockham size to 13,824 keeps "gather_global" and 14,400, refused
+    before, takes "gather_bands" (`PERF.md` §1, `ROADMAP.md` queue 2 item
+    4). None is refused."""
     cfg = T_CONFIGS[name].replace(**over)
     for hop in (cfg.hop_s, 0.5):
-        assert frontend.layout_reason(cfg.replace(n_fft=top, hop_s=hop)) is None
-        assert frontend.layout_reason(cfg.replace(n_fft=top + 1, hop_s=hop))
+        assert frontend.fft_layout(cfg.replace(n_fft=top, hop_s=hop)) in frontend.FFT_LAYOUTS[:13]
+        assert frontend.fft_plan(cfg.replace(n_fft=top + 1, hop_s=hop)) in ("gather_bands", "gather_rows")
+        assert frontend.layout_reason(cfg.replace(n_fft=top + 1, hop_s=hop)) is None
     if name == "classic13":
         stockham = [n for n in range(top + 2, 14401, 2) if frontend.radices(n) is not None]
-        taken = [n for n in stockham if frontend.layout_reason(cfg.replace(n_fft=n)) is None]
-        assert max(taken) == 13824 and frontend.layout_reason(cfg.replace(n_fft=14400))
+        kept = [n for n in stockham if frontend.fft_plan(cfg.replace(n_fft=n)) == "gather_global"]
+        assert max(kept) == 13824 and frontend.fft_plan(cfg.replace(n_fft=14400)) == "gather_bands"
 
 
 def test_bf16x3_form_still_stages_the_span():

@@ -327,14 +327,15 @@ def test_frames_batch_metas_are_split_under_the_header_cap(monkeypatch, capsysbi
 
 def test_serve_refuses_before_any_event(monkeypatch, capsys):
     """--device cuda (the default) without a card, and a config the kernels
-    refuse, exit 2 and print no event."""
+    refuse (60,000 filters: over the packed mel table's filter field), exit
+    2 and print no event."""
     lines = [json.dumps({"op": "open"})]
     monkeypatch.setattr(sys, "stdin", __import__("io").StringIO(lines[0] + "\n"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["serve", "--config", "classic13"]) == 2
     assert capsys.readouterr().out == ""
     rc, events = _serve(True, monkeypatch, capsys, lines, "--config", "classic13",
-                        "--set", "n_fft=16384", "--set", "win_len_s=0.9")
+                        "--set", "n_mels=60000")
     assert (rc, events) == (2, [])
     rc, events = _serve(True, monkeypatch, capsys, lines, "--config", "whisper80")
     assert (rc, events) == (2, [])

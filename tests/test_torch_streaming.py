@@ -250,12 +250,24 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unsupported_config_raises_on_the_card(monkeypatch):
-    """A streamable config the kernels refuse (a layout over the block's
-    shared memory) raises NotImplementedError on the card, before any
-    launch."""
+    """A streamable config the kernels refuse (60,000 filters: over the
+    packed mel table's filter field) raises NotImplementedError on the card,
+    before any launch; n_fft 16384
+    with 0.9 s frames, refused before, is taken (the packed bands read from
+    device memory), and its stream on the CPU ≡ the offline chain."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        StreamingExtractor(T_CONFIGS["classic13"].replace(n_fft=16384, win_len_s=0.9))
+    before = (frontend.launches, frontend.block_launches)
+    with pytest.raises(NotImplementedError, match="filter field"):
+        StreamingExtractor(T_CONFIGS["classic13"].replace(n_mels=60000))
+    cfg = T_CONFIGS["classic13"].replace(n_fft=16384, win_len_s=0.9)
+    assert chain.unsupported_reason(cfg) is None and frontend.fft_plan(cfg) == "gather_bands"
+    assert (frontend.launches, frontend.block_launches) == before
+    x = np.round(np.random.default_rng(16384).standard_normal(40000) * 3000).astype(np.float32)
+    ex = StreamingExtractor(cfg, frames_per_block=8, device="cpu")
+    got = np.concatenate([ex.push(x[:17000]), ex.push(x[17000:]), ex.flush()], axis=0)
+    want = chain.extract_single(torch.as_tensor(x), cfg, device="cpu").numpy()
+    assert got.shape == want.shape
+    _assert_close(cfg, got, want)
 
 
 @pytest.mark.parametrize("name", ["classic13_deltas", "kaldi_mfcc", "kaldi_plp", "ssc26",
