@@ -272,6 +272,16 @@ Phases, in order; any failure exits non-zero:
      version on the front-end's own prefix at the tail's gate, rows 0-3 of
      the features against the float64 chain (the card's gated, the CPU
      chain's printed), timed.
+  29. every n_fft ("gather_bands", "gather_rows"; `any_n_fft_path`).
+  30. the bf16x3 opt-in at every layout (`bf16x3_plans_path`,
+     `BF16X3_PLANS`): its block plans ("pass", "gather", "gather_bands",
+     "gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
+     classic13_deltas at n_fft 4096 b64 x 10 s and the other cases at b16
+     (b4 for the last two plans), each counted by plan, against its plain
+     version at the bf16x3 gates and the float64 plain version on rows 0-1,
+     int16 == float32 and two runs bitwise, the counts and mask, no spills;
+     device time beside rfft(n=n_fft), the function's bound, the three
+     products at the bf16 peak and the matrix each tile reads.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -549,6 +559,12 @@ KERNELS = {
                              ("gather_rows_32768", "mfcc_tpu/kernels/frontend.py:905"),
                              ("gather_rows_48k_65536", "mfcc_tpu/kernels/frontend.py:905"),
                              ("gather_rows_131072", "mfcc_tpu/kernels/frontend.py:905"))},
+    **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+             "replaces": "mfcc_tpu/kernels/frontend.py:857"}
+       for key in ("bf16x3_pass_4096", "bf16x3_pass_2245", "bf16x3_pass_8192", "bf16x3_gather_hop_0.1",
+                   "bf16x3_gather_frames_1.1s", "bf16x3_pass_kaldi_dither_4096", "bf16x3_pass_ssc26_4096",
+                   "bf16x3_pass_kaldi_plp_4096", "bf16x3_split_48k_hop_0.1", "bf16x3_gather_librosa_8192",
+                   "bf16x3_gather_bands_24000", "bf16x3_gather_out_2000_filters")},
 }
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # librosa's default framing (librosa.feature.melspectrogram: sr 22,050, n_fft
@@ -711,6 +727,10 @@ class Counters:
         self.frontend.gather_bands_launches = 0
         self.frontend.gather_rows_launches = 0
         self.frontend.bf16x3_launches = 0
+        self.frontend.bf16_pass_launches = 0
+        self.frontend.bf16_gather_launches = 0
+        self.frontend.bf16_gather_bands_launches = 0
+        self.frontend.bf16_gather_out_launches = 0
         self.frontend.block_launches = 0
         self.frontend.split_launches = 0
         self.rs_kernel.launches = 0
@@ -739,6 +759,10 @@ class Counters:
             "gather_bands": self.frontend.gather_bands_launches,
             "gather_rows": self.frontend.gather_rows_launches,
             "bf16x3": self.frontend.bf16x3_launches,
+            "bf16_pass": self.frontend.bf16_pass_launches,
+            "bf16_gather": self.frontend.bf16_gather_launches,
+            "bf16_gather_bands": self.frontend.bf16_gather_bands_launches,
+            "bf16_gather_out": self.frontend.bf16_gather_out_launches,
             "tail": self.tail.tail_launches,
             "tail_split": self.tail.tail_split_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
@@ -1871,6 +1895,144 @@ def any_n_fft_path(torch, counters, tag: str, results: dict) -> None:
     print(f"  phase 29 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 30's cases, the bf16x3 form in its block plans: (key, config,
+# overrides, rows, seconds a row, the plan of the launch that computes the
+# prefix; resampled rows take the split route, then the plain form's plan)
+BF16X3_PLANS = (
+    ("bf16x3_pass_4096", "classic13_deltas", dict(n_fft=4096), B, 10, "pass"),
+    ("bf16x3_pass_2245", "classic13_deltas", dict(n_fft=2245), B_SMALL, 10, "pass"),
+    ("bf16x3_pass_8192", "classic13_deltas", dict(n_fft=8192), B_SMALL, 10, "pass"),
+    ("bf16x3_gather_hop_0.1", "classic13_deltas", dict(hop_s=0.1), B_SMALL, 10, "gather"),
+    ("bf16x3_gather_frames_1.1s", "classic13_deltas", dict(win_len_s=1.1), B_SMALL, 10, "gather"),
+    ("bf16x3_pass_kaldi_dither_4096", "kaldi_mfcc", dict(dither=1.0, n_fft=4096), B_SMALL, 10, "pass"),
+    ("bf16x3_pass_ssc26_4096", "ssc26", dict(n_fft=4096), B_SMALL, 10, "pass"),
+    ("bf16x3_pass_kaldi_plp_4096", "kaldi_plp", dict(n_fft=4096), B_SMALL, 10, "pass"),
+    ("bf16x3_split_48k_hop_0.1", "mfcc39_48k", dict(hop_s=0.1), B_SMALL, 10, "gather"),
+    ("bf16x3_gather_librosa_8192", "logmel80", LIBROSA_8192, B_SMALL, 30, "gather"),
+    ("bf16x3_gather_bands_24000", "classic13_deltas", dict(n_fft=24000), 4, 10, "gather_bands"),
+    ("bf16x3_gather_out_2000_filters", "classic13_deltas", dict(n_mels=2000, n_fft=4096), 4, 10, "gather_out"),
+)
+BF16X3_PLAN_COUNTERS = {"pass": "bf16_pass", "gather": "bf16_gather", "gather_bands": "bf16_gather_bands",
+                        "gather_out": "bf16_gather_out"}
+
+
+def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
+    """Phase 30: the bf16x3 form at every layout (`BF16X3_PLANS`), through
+    fused_logmel_stages(dft_passes="bf16x3"): classic13_deltas at n_fft
+    4,096, b64 x 10 s ("pass"), and at b16 x 10 s: n_fft 2,245 (the first size
+    the staged plan refused) and 8,192, a 0.1 s hop and 1.1 s frames
+    ("gather"), kaldi_mfcc with dither 1.0 at n_fft 4,096 (the dither and
+    conditioning instantiation), ssc26 and kaldi_plp at 4,096, mfcc39_48k at
+    a 0.1 s hop (the split route: resample.cu, then the plain form's bf16x3);
+    librosa's melspectrogram(n_fft=8192) framing at b16 x 30 s (L = n_fft);
+    n_fft 24,000 ("gather_bands") and 2,000 filters ("gather_out") at b4 x
+    10 s. For each: the plan, tile, ring stages and shared bytes; registers
+    and spills (none); the launch counted by plan; the kernel against its
+    plain version at the bf16x3 gates and, on its first rows, against the
+    float64 plain version on the CPU at the loud-bin gate; int16 rows ==
+    float32 rows and two runs, bitwise; the counts and mask; device time,
+    the plain version, rfft(n=n_fft), the function's bound, the three
+    products at the bf16 peak and the matrix each tile reads at the HBM
+    rate."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.ops import chain
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    print("== 30. bf16x3 at every layout: the power rows of one pass, then frames, bands and "
+          "accumulators in device memory")
+    for key, name, over, rows, seconds, plan in BF16X3_PLANS:
+        t_case = time.perf_counter()
+        cfg = named_config(name).replace(**over)
+        at = frontend.feature_rate_config(cfg)
+        sr = cfg.input_sample_rate or cfg.sample_rate
+        n = sr * seconds
+        batch = make_batch(pad_batch, cfg, rows, n, 571 * sr // cfg.sample_rate, seed=sum(map(ord, key)))
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        got_plan, tile, stages = frontend.bf16_layout(at)
+        kp, nbp = frontend.bf16_dims(at)
+        matrix = frontend.bf16_matrix_bytes(at)[0]
+        route = frontend.resample_route(cfg, "bf16x3")
+        print(f"   {key}: {name} {over} b{rows} x {seconds} s int16 {list(batch.audio.shape)}"
+              f"{f', {route} route' if route else ''}: plan {got_plan}, {tile} frames a block, "
+              f"{stages} ring stages, {frontend.smem_bytes(at, 'bf16x3'):,} B a block; matrix [{kp}, "
+              f"{2 * nbp}] bf16 x 2, {matrix:,} B")
+        check(got_plan == plan and frontend.layout_reason(cfg, "bf16x3") is None, f"{key} takes {plan}")
+        info = frontend.kernel_info(cfg, True, "bf16x3")
+        print(f"    {info}")
+        check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
+        kind = frontend.feature_kind(at)
+        branches = {"bf16x3": 1, BF16X3_PLAN_COUNTERS[plan]: 1,
+                    **({kind: 1} if kind in ("plp", "spectrogram", "ssc") else {}),
+                    **{k: v for k, v in plan_branches(chain, frontend, at).items()
+                       if k in ("conditioning", "dither", "centered")}}
+        if route == "split":
+            branches.update(split=1, resample=1)
+        counters.zero()
+        st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="bf16x3")
+        torch.cuda.synchronize()
+        launches = counters.expect("fused_logmel_stages(dft_passes='bf16x3')", frontend=1, **branches)
+        got = st["prefix"]
+        F = got.shape[1]
+        check(tuple(got.shape) == (rows, F, cfg.n_mels + 1) and bool(torch.isfinite(got).all()),
+              f"prefix shape {tuple(got.shape)}, finite")
+        plain = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+        errs = testing.prefix_errors(got, plain, cfg.n_mels, cfg.log_kind, cfg.features)
+        del plain
+        print("    kernel vs its plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+        fails = testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL)
+        check(not fails, f"within the bf16x3 gates of the plain version {fails or ''}")
+        k64 = 2
+        f64 = frontend.logmel_prefix_reference(audio[:k64].cpu(), lengths[:k64].cpu(), cfg.replace(dtype="float64"))
+        e64 = testing.prefix_errors(got[:k64].cpu(), f64, cfg.n_mels, cfg.log_kind, cfg.features)
+        del f64
+        print(f"    rows 0-{k64 - 1} vs the float64 plain version: " + ", ".join(f"{k}={v:.3e}" for k, v in e64.items()))
+        if "logmel_loud_max_abs" in e64:
+            check(e64["logmel_loud_max_abs"] < testing.BF16X3_LOUD_ATOL, "loud bins within 1e-3 of float64")
+        check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3"))
+              and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")),
+              "int16 rows == float32 rows, and two runs equal, bitwise")
+        del got, st
+        check_counts(torch, frontend, audio, lengths, cfg, key, "bf16x3")
+        kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3"),
+                              "logmel_kernel")
+        plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3"),
+                           reps=3, warmup=1)
+        rows16, lens16 = audio, lengths
+        if route == "split":
+            rows16, lens16 = frontend.rs_kernel.resample_rows(audio, lengths, cfg.input_sample_rate,
+                                                              cfg.sample_rate)
+        stg = chain.logmel_stages(rows16, lens16, at)
+        framed = stg["windowed"].reshape(rows * F, -1).contiguous()
+        del stg
+        rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=at.n_fft, dim=-1))
+        del framed
+        lens = np.minimum(lens16.cpu().numpy().astype(np.int64), rows16.shape[1])
+        frames = int(sum(min(F, math.ceil(x / at.frame_step)) for x in lens)) if not chain.centered(at) \
+            else F * int(np.count_nonzero(lens > 0))
+        bound_ms, bound_by = bound(frontend_bytes(at, frontend, lens, rows, F) + matrix,
+                                   frontend_ops(at, chain, frontend, torch, lens, F))
+        tensor_ms = 3 * 2 * kp * 2 * at.n_bins * frames / PEAK_BF16_FLOPS * 1e3
+        tiles = rows * -(-F // tile)
+        matrix_ms = tiles * matrix / PEAK_BYTES_PER_S * 1e3
+        print(f"    bf16x3 kernel ({plan}): {kernel_ms:.4f} ms of device time, L2 flushed "
+              f"({bound_ms / kernel_ms * 100:.2f}% of the function's bound; {kernel_ms / rfft_ms:.2f}x rfft) {tag}")
+        print(f"    the three bf16 products alone: {tensor_ms:.4f} ms at {PEAK_BF16_FLOPS / 1e12:.1f} TFLOP/s; "
+              f"the matrix read whole by each of {tiles} tiles: {tiles * matrix / 1e9:.2f} GB, {matrix_ms:.4f} ms "
+              f"at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s (from L2 where it fits its 50 MB)")
+        print(f"    plain version (three fp32 matmuls of bf16 parts): {plain_ms:.4f} ms; torch.fft.rfft(n={at.n_fft}) "
+              f"on [{rows * F}, {at.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
+        results[key] = dict(launches=launches[BF16X3_PLAN_COUNTERS[plan]], max_abs_err=errs["max_abs"],
+                            ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=rfft_ms)
+        del audio, lengths, rows16, lens16
+        torch.cuda.empty_cache()
+        print(f"  {key} took {time.perf_counter() - t_case:.1f} s")
+    print(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
     """Phases 13-18: whisper80 ragged, centered framing with conditioning
     and dither, the Bluestein form (n_fft 404 and 551, timed) and its block
@@ -2289,6 +2451,17 @@ def occupancy(frontend, named_config) -> None:
                 print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
                       f"{int(cond)}: {info}, plan {frontend.bf16_plan(cfg, int16)}")
                 check(info["local_bytes"] == 0, "no spills")
+    print("  bf16x3 block-plan instantiations (rows, dither, conditioning) at n_fft 4096: registers, "
+          "local bytes, blocks an SM at that config's shared memory (plan, frames a block, ring stages)")
+    for int16 in (True, False):
+        for dith in (False, True):
+            for cond in (False, True):
+                cfg = named_config("kaldi_mfcc" if cond else "classic13").replace(
+                    n_fft=4096, dither=1.0 if dith else 0.0)
+                info = frontend.kernel_info(cfg, int16, "bf16x3")
+                print(f"    {'int16' if int16 else 'float32'}, dither {int(dith)}, conditioning "
+                      f"{int(cond)}: {info}, {frontend.bf16_layout(cfg, int16)}")
+                check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
 
 
 CORPUS_FILES = 256  # 16 kHz PCM16 files of 1-10 s
@@ -3882,10 +4055,12 @@ def main(argv=None) -> int:
     for what, fn, exc in (
         ("float64 on the card", lambda: R.resample_batch(x[:1].double(), sr_in, 16000), ValueError),
         ("non-contiguous rows", lambda: R.resample_batch(x[:1, ::2], sr_in, 16000), ValueError),
-        ("a front-end layout over the block's shared memory (the bf16x3 opt-in at n_fft 4096)",
+        ("a bf16x3 matrix over the card's memory (n_fft = frame length = 131,072: 68.7 GB, "
+         "folded from 137.4 GB of float64)",
          lambda: frontend.logmel_prefix(torch.as_tensor(batch.audio[:1, :16000], device="cuda"),
                                         torch.tensor([16000], dtype=torch.int32, device="cuda"),
-                                        named_config("classic13").replace(n_fft=4096), dft_passes="bf16x3"),
+                                        named_config("classic13").replace(n_fft=131072, win_len_s=131072 / 16000),
+                                        dft_passes="bf16x3"),
          NotImplementedError),
     ):
         try:
@@ -4162,6 +4337,7 @@ def main(argv=None) -> int:
     large_n_fft_path(torch, counters, tag, results)
     long_span_path(torch, counters, tag, results)
     any_n_fft_path(torch, counters, tag, results)
+    bf16x3_plans_path(torch, counters, tag, results)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

@@ -9,7 +9,8 @@
 // at any n_fft for the fp32 route (here the full-fp32 Stockham or
 // Bluestein form of the size, a frame a warp or, at large sizes, a frame a
 // block); the bf16x3 route on the tensor cores
-// (wgmma), in both forms; and the dither, frame-first conditioning, log-kind and PLP,
+// (wgmma), in both forms, at any n_fft, hop and frame length; and the
+// dither, frame-first conditioning, log-kind and PLP,
 // spectrogram and SSC branches. Plain version and wrapper:
 // mfcc_tpu_torch/kernels/frontend.py (logmel_prefix_reference,
 // logmel_prefix).
@@ -500,6 +501,57 @@
 // for 56,836 frames, 7.5x that minimum, so on Hopper the matrix DFT is no
 // throughput route (the TPU's MXU made it one); its own roofline is that
 // 0.0709 ms.
+//
+// The bf16x3 form's block plans (kBf16 with kBlock: p.block, p.gather,
+// p.bands_global, p.acc_global; plan_bf16 walks kBfLadder after "staged",
+// kernels/frontend.py bf16_layout mirrors it; the plain form only, so a
+// resampling config whose fused layout is over the block takes the split
+// route). "staged" holds the span (63 S + L), the window (max(L, n_fft)),
+// the packed bands and power rows of every bin (64 x 2,084 floats at n_fft
+// 4,096): from n_fft 2,245 at classic13, at hops of ~0.07 s and frames of
+// ~1 s it is over the block. The reference's route has no such limit.
+//   "pass": the power rows hold one pass of 136 bins. The consumers keep
+//   each pass's re and im in the pass's rows (tile x 280 floats) and, once
+//   the pass's products are done, its powers over them (stride 137); then
+//   they project that pass (4p) before the next pass's first stretch
+//   rewrites the rows. The host's pass table (kernels/frontend.py
+//   pass_table, in `bases`) lists, pass by pass, filter by filter, each
+//   filter's band clipped to the pass as a segment of packed weights; item
+//   (segment, frame) sums its weights in packed order and adds the sum to
+//   the frame's accumulator of that filter (tile x (M + 1) floats; 2M for
+//   SSC; the energy for a spectrogram, whose bins go straight to their
+//   lanes), so a band over two passes adds its pieces in pass order and
+//   the result does not depend on the row's place in the batch; item
+//   (energy, frame) adds the pass's powers. After the last pass the
+//   epilogue (4e) takes the log kind, the raw sums (PLP) or the centroid
+//   ratio (SSC) of each accumulator, and lane M the energy.
+//   The tensor cores' fp32 accumulation drifts with the sum's length: over
+//   3 x 512 products (L = n_fft = 8,192) the frames' energies drifted 4.9e-5
+//   from the plain version's float64 sums (2.7e-6 after classic13's 3 x 25).
+//   So the block plans sum kBfPromote (25) steps on the tensor cores, then
+//   add that stretch to the pass's re/im rows in fp32 and start again from 0
+//   (75 products at most, as "staged" at classic13 takes).
+//   The next step's A fragment is built while the products run.
+//   "gather": no span and no window staged. Each fragment sample, the
+//   conditioning's mean and raw energy, and the windowed energy (the window
+//   through the one pointer a block, in device memory) read the row in
+//   device memory by staged_at, the staging's own arithmetic (the mean
+//   needs the whole frame before the first product: a pass over the frame
+//   first, warp by warp).
+//   "gather_bands": the packed bands and the pass table read from device
+//   memory too.
+//   "gather_out": the accumulators in the block's frames' rows of a
+//   workspace [B, F, nacc] that the wrapper allocates (rows_ws), which no
+//   other block touches: no atomics. Its layout, the ring and one pass's
+//   rows, depends on nothing but the tile.
+// A tile with no frame that holds samples takes no product (zero powers,
+// projected as any). Registers: the block plans' instantiations use
+// 236-254 of the 255 (no spills; chip_smoke.py phase 30 prints them).
+// The matrix is the route's only limit left: 8 kp nbp bytes (kp = min(L,
+// n_fft) rounded to 16), 276 MB at librosa's 8,192-point framing, each tile
+// reading it whole, from HBM once it is over L2's 50 MB. The wrapper
+// refuses a matrix, or the host's float64 folding of it, over the card's
+// memory (kernels/frontend.py bf16_matrix_reason) before building it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -528,6 +580,14 @@ constexpr int kBfGroups = 2 * kBfPassBins / 8;               // 8-column groups 
 constexpr int kBfPartBytes = kBfStep * 2 * kBfPassBins * 2;  // 8,704
 constexpr int kBfStageBytes = 2 * kBfPartBytes;              // 17,408
 constexpr int kBfMaxStages = 4;
+// The bf16x3 block plans: steps whose products the tensor cores sum before
+// the sum joins the pass's re/im rows in fp32, and the floats between two
+// frames' re/im rows (272 columns; 280 = 24 mod 32: a quarter warp's float2
+// accesses take 32 distinct banks) and between two frames' power rows over
+// them (137, odd: the projection's 32 frames fall in 32 banks).
+constexpr int kBfPromote = 25;
+constexpr int kBfAccStride = 2 * kBfPassBins + 8;
+constexpr int kBfPowStride = kBfPassBins + 1;
 constexpr int kConsumers = 128;
 constexpr int kProducer = 128;
 
@@ -585,12 +645,16 @@ struct Params {
   // and the filter spectrum (nfilt from `filt`); bq points in, bk outputs.
   // For the bf16x3 form: the matrix depth kp = min(L, n_fft) rounded up to
   // 16, bins nbp = 136 npass, the power rows' stride pws, frames a block
-  // (tile) and ring stages.
+  // (tile) and ring stages; in its block plans (block: the power rows of one
+  // pass; gather and bands_global as above, the packed bands and the pass
+  // table from device memory; acc_global, the accumulators in the workspace)
+  // the accumulators a frame (nacc) and the pass table's words (nptab, an
+  // upper bound: npass + 1 offsets and 4 words a segment).
   int half, bins, fft_n, nstages;
   unsigned long long radices;
   int block, groups, tables_global, gather, bands_global, rows_global, nslots, batch, bin_bits;
   int ntw, nbases, chunk, bchunk, nsplit, bq, bk, chirp, filt, nfilt;
-  int kp, nbp, npass, pws, tile, stages;
+  int kp, nbp, npass, pws, tile, stages, nacc, nptab, acc_global;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
   int aligned;
   // the block launch (streaming): 1 when each row's sample 0 is the
@@ -612,7 +676,7 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // warps' partials of a block sum.
 struct Layout {
   int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, red, bar, pw, ef, mu,
-      fir, tab, total;
+      ptab, acc, fir, tab, total;
 };
 
 // fir is the fused resample's input window in floats (0 without it): it
@@ -624,8 +688,13 @@ struct Layout {
 // row and no window: its layout starts at the packed bands, or, with the
 // bands in device memory (bands_global), at the tables. With the rows in
 // device memory (rows_global) l.row is the workspace's row, and the
-// layout holds only the groups' scratch and the warps' partials.
-__host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide) {
+// layout holds only the groups' scratch and the warps' partials. The
+// bf16x3 form's block plans hold the pass table after the staged bands,
+// the power rows of one pass, and the accumulators (none where they are in
+// the workspace) in place of the per-warp scratch. block is p.block, which
+// the kernel passes as its template's kBlock, so an instantiation computes
+// no other layout.
+__host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide, bool block) {
   Layout l;
   const int tables = weight_tables(p);
   const int staged = p.bands_global ? 0 : tables;  // packed weight tables staged
@@ -639,19 +708,28 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
   l.tw = l.meta + (staged ? align4(p.nnz) : 0);
   l.bases = l.tw + align4(2 * p.ntw);
   l.buf = l.bases + align4(p.nbases);
-  l.red = 0;
+  l.red = l.ptab = l.acc = 0;
   if (p.form == kBf16x3) {
-    l.buf = align32(l.buf);  // the ring, 128-byte aligned for its bulk copies
+    l.ptab = l.buf;
+    // the ring, 128-byte aligned for its bulk copies
+    l.buf = align32(l.ptab + (block && staged ? align4(p.nptab) : 0));
     l.row = 0;
     l.bar = l.buf + p.stages * (kBfStageBytes / 4);
     l.pw = l.bar + align4(4 * p.stages);  // full and empty mbarriers, 8 B each
     l.ef = l.pw + p.tile * p.pws;
     l.mu = l.ef + align4(p.tile);
-    l.part = l.mu + align4(p.tile);
-    l.pstride = parts;
-    l.fir = l.pw;  // not the ring: its first copies land during the staging
-    l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
-  } else if (p.block) {
+    if (block) {
+      l.acc = l.mu + align4(p.tile);
+      l.part = l.tab = l.acc + (p.acc_global ? 0 : align4(p.tile * p.nacc));
+      l.pstride = 0;
+      l.fir = l.pw;
+    } else {
+      l.part = l.mu + align4(p.tile);
+      l.pstride = parts;
+      l.fir = l.pw;  // not the ring: its first copies land during the staging
+      l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
+    }
+  } else if (block) {
     if (p.tables_global) l.buf = l.tw;  // no table staged
     l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + (p.rows_global ? 0 : p.groups * 2 * l.row);
@@ -682,29 +760,58 @@ __host__ __device__ inline int resample_floats(const Params& p, const Polyphase&
   return pp_stage_floats<Sample>(resample_window(p, pp));
 }
 
-// The bf16x3 form's shape (kernels/frontend.py bf16_dims, bf16_plan): the
-// matrix depth kp, whole passes of 136 bins, the power rows' stride, and
-// the first of 64 or 32 frames a block and 4, 3 or 2 ring stages whose
-// layout fits the block's shared memory (else the smallest; the wrapper
-// takes the split route or refuses it), in the fused resample (pp not null)
-// with the input window of that many frames in the rows' type and the taps.
+// The bf16x3 form's block plans after "staged" (kernels/frontend.py
+// BF16_PLANS and BF16_TRAITS): whether a plan reads each frame (gather), the
+// packed bands and the pass table (bands_global) from device memory, and
+// keeps its accumulators in the workspace (acc_global). "pass" stages all
+// three and holds the power rows of one pass.
+constexpr int kBfLadder[4][3] = {
+    {0, 0, 0},  // pass
+    {1, 0, 0},  // gather
+    {1, 1, 0},  // gather_bands
+    {1, 1, 1},  // gather_out
+};
+
+// The bf16x3 form's shape (kernels/frontend.py bf16_dims, bf16_layout): the
+// matrix depth kp, whole passes of 136 bins, and the first of 64 or 32
+// frames a block and 4, 3 or 2 ring stages whose layout fits the block's
+// shared memory: in the staged plan (power rows of every bin), then, in the
+// plain form (pp null), in the block plans of kBfLadder in turn (power rows
+// of one pass, p.block); else the smallest. The fused resample (pp not
+// null, with the input window of that many frames in the rows' type and the
+// taps) takes the staged plan alone: the wrapper takes the split route
+// where it does not fit.
 inline bool plan_bf16(Params& p, const Polyphase* pp, bool int16) {
   p.kp = (imin(p.L, p.n_fft) + kBfStep - 1) / kBfStep * kBfStep;
   p.npass = (p.bins + kBfPassBins - 1) / kBfPassBins;
   p.nbp = p.npass * kBfPassBins;
   p.pws = (p.bins + 31) / 32 * 32 + 4;
-  const int tiles[2] = {64, 32};
-  for (int tile : tiles) {
-    for (int stages = kBfMaxStages; stages >= 2; --stages) {
-      p.tile = tile;
-      p.stages = stages;
-      int fir = 0, taps = 0;
-      if (pp) {
-        fir = int16 ? resample_floats<int16_t>(p, *pp) : resample_floats<float>(p, *pp);
-        taps = pp->up * pp_stride(*pp);
+  p.nacc = p.feature_kind == kSsc ? 2 * p.M : p.feature_kind == kSpectrogram ? 1 : p.M + 1;
+  p.nptab = weight_tables(p) ? p.npass + 1 + 4 * (p.nnz / kBfPassBins + 2 * p.M) : 0;
+  auto fits = [&]() {
+    const int tiles[2] = {64, 32};
+    for (int tile : tiles) {
+      for (int stages = kBfMaxStages; stages >= 2; --stages) {
+        p.tile = tile;
+        p.stages = stages;
+        int fir = 0, taps = 0;
+        if (pp) {
+          fir = int16 ? resample_floats<int16_t>(p, *pp) : resample_floats<float>(p, *pp);
+          taps = pp->up * pp_stride(*pp);
+        }
+        if (layout(p, fir, taps, pp || p.dither > 0.f, p.block).total * 4 <= kSmemBudget) return true;
       }
-      if (layout(p, fir, taps, pp || p.dither > 0.f).total * 4 <= kSmemBudget) return true;
     }
+    return false;
+  };
+  if (fits() || pp) return true;
+  p.block = 1;
+  p.pws = kBfAccStride;  // one pass's re/im, then its powers
+  for (const auto& rung : kBfLadder) {
+    p.gather = rung[0];
+    p.bands_global = rung[1];
+    p.acc_global = rung[2];
+    if (fits()) return true;
   }
   return true;
 }
@@ -1360,8 +1467,8 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int T = p.T, F = p.F, L = p.L, S = p.S, M = p.M;
   const int kind = p.feature_kind;
   const float preemph = p.preemph;
-  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true)
-                               : layout(p, 0, 0, kDither);  // kDither: the wide row
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true, false)
+                               : layout(p, 0, 0, kDither, kBlock);  // kDither: the wide row
   float* sig = smem;
   float* win = smem + lay.win;
   int* moff = reinterpret_cast<int*>(smem + lay.moff);
@@ -1397,6 +1504,13 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   if (!(kBlock && p.tables_global)) {  // "block_global" reads them from device memory
     for (int i = threadIdx.x; i < p.ntw; i += kThreads) tw[i] = twiddle[i];
     for (int i = threadIdx.x; i < p.nbases; i += kThreads) sb[i] = bases[i];
+  }
+  if constexpr (kBf16 && kBlock) {  // the pass table, in `bases`, beside the staged bands
+    if (kind != kSpectrogram && !p.bands_global) {
+      int* pt = reinterpret_cast<int*>(smem + lay.ptab);
+      const int words = p.npass + 1 + 4 * bases[p.npass];
+      for (int i = threadIdx.x; i < words; i += kThreads) pt[i] = bases[i];
+    }
   }
 
   // the row's length at the frame rate's sample rate (the output length of
@@ -1642,15 +1756,51 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     float* pw_tile = smem + lay.pw;
     float* ef = smem + lay.ef;
     float* mu_t = smem + lay.mu;
+    // the block plans: sample a < L of the tile's frame fl, staged or (the
+    // gather plans) from device memory (staged_at), and its conditioned value
+    auto xs = [&](int fl, int a) -> float {
+      if (gather) return staged_at<kDither>(row, static_cast<long long>(f0 + fl) * S + a, len, p);
+      return sig[fl * S + a];
+    };
+    auto bcond = [&](int fl, float mu, int a) -> float {
+      if constexpr (kCond) {
+        const float d = xs(fl, a) - mu;
+        return a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (xs(fl, a - 1) - mu);
+      } else {
+        return xs(fl, a);
+      }
+    };
     for (int fl = warp; fl < tile; fl += kWarps) {
       float mu = 0.f, e = 0.f;
       if (dft && f0 + fl < F) {  // warp-uniform
-        const float* fr = sig + fl * S;
-        frame_stats(fr, mu, e);
-        if (wsum) {
-          for (int a = lane; a < L; a += 32) {
-            const float v = cond(fr, mu, a) * win[a];
-            e += v * v;
+        if constexpr (kBlock) {
+          if constexpr (kCond) {
+            if (p.remove_dc) {
+              float s = 0.f;
+              for (int a = lane; a < L; a += 32) s += xs(fl, a);
+              mu = warp_sum(s) / static_cast<float>(L);
+            }
+            if (p.energy_source == kRawFrame) {
+              for (int a = lane; a < L; a += 32) {
+                const float d = xs(fl, a) - mu;
+                e += d * d;
+              }
+            }
+          }
+          if (wsum) {
+            for (int a = lane; a < L; a += 32) {
+              const float v = bcond(fl, mu, a) * wv[a];
+              e += v * v;
+            }
+          }
+        } else {
+          const float* fr = sig + fl * S;
+          frame_stats(fr, mu, e);
+          if (wsum) {
+            for (int a = lane; a < L; a += 32) {
+              const float v = cond(fr, mu, a) * win[a];
+              e += v * v;
+            }
           }
         }
         if constexpr (kCond) {
@@ -1662,12 +1812,74 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         mu_t[fl] = mu;
       }
     }
+    // the block plans' accumulators, frame after frame (kernels/frontend.py
+    // bf16_accumulators): M filter sums and the energy; for ssc the M mel
+    // and then the M melf sums; for a spectrogram the energy alone. In
+    // shared memory, or (acc_global) in the block's frames' rows of the
+    // workspace, which no other block touches
+    float* acc = p.acc_global ? rows_ws + (static_cast<size_t>(b) * F + f0) * p.nacc : smem + lay.acc;
+    const int e_at = kind == kSpectrogram ? 0 : M;  // the energy's accumulator
+    if constexpr (kBlock) {
+      for (int i = threadIdx.x; i < tile * p.nacc && f0 + i / p.nacc < F; i += kThreads) acc[i] = 0.f;
+    }
     __syncthreads();
+    // 4p. the block plans' projection of one pass (bins [136 pass, 136 pass +
+    //     nb)) from its power rows, by the consumer warpgroup: item (s, fl)
+    //     sums segment s of the pass table (filter m's weights i0 <= i < i1,
+    //     bins from k0 of the pass) over frame fl's row in packed order and
+    //     adds the sum to the frame's accumulator of m (for ssc both sums;
+    //     one segment a filter a pass, so no two items add to one
+    //     accumulator and the pieces of a band over two passes add in pass
+    //     order); item (ns, fl), but for ssc, adds the pass's powers to the
+    //     energy. A spectrogram writes the log kind of each bin to its lane.
+    const Bands bg = p.bands_global ? Bands{mel_w, melf_w, mel_off, mel_meta} : bd;
+    const int* pt = p.bands_global ? bases : reinterpret_cast<const int*>(smem + lay.ptab);
+    auto project = [&](int pass) {
+      const int nb = imin(kBfPassBins, p.bins - pass * kBfPassBins);
+      if (kind == kSpectrogram) {
+        for (int i = threadIdx.x; i < tile * nb; i += kConsumers) {
+          const int fl = i / nb, k = i - fl * nb;
+          if (f0 + fl >= F) break;
+          out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + pass * kBfPassBins + k] =
+              log_lane(pw_tile[fl * kBfPowStride + k], p);
+        }
+      }
+      const int s0 = kind == kSpectrogram ? 0 : pt[pass];
+      const int ns = kind == kSpectrogram ? 0 : pt[pass + 1] - s0;
+      const int items = tile * (ns + (kind == kSsc ? 0 : 1));
+      for (int i = threadIdx.x; i < items; i += kConsumers) {
+        const int s = i / tile, fl = i - s * tile;
+        if (f0 + fl >= F) continue;
+        const float* pw = pw_tile + fl * kBfPowStride;
+        float* a = acc + fl * p.nacc;
+        if (s == ns) {
+          float e = 0.f;
+          for (int k = 0; k < nb; ++k) e += pw[k];
+          a[e_at] += e;
+          continue;
+        }
+        const int* sg = pt + p.npass + 1 + 4 * (s0 + s);
+        const int m = sg[0], i0 = sg[1], i1 = sg[2];
+        const float* q = pw + sg[3] - i0;  // q[i]: weight i's power
+        float sum = 0.f, sumf = 0.f;
+        for (int j = i0; j < i1; ++j) {
+          float v = q[j];
+          if (kind == kSsc) {
+            v = v <= 0.f ? p.eps : v;
+            sumf += v * bg.wf[j];
+          }
+          sum += v * bg.w[j];
+        }
+        a[m] += sum;
+        if (kind == kSsc) a[M + m] += sumf;
+      }
+    };
     // 3c. the tile's DFT on the tensor cores into the power rows: the
     //     consumer warpgroup (warps 0-3) takes 16 frames a warp, pass after
     //     pass over 136 bins, step after step over k16 slices of the ring;
-    //     the producer thread keeps the ring full
-    if (!dft) {
+    //     the producer thread keeps the ring full. The block plans project
+    //     each pass (4p) before the next one rewrites its rows.
+    if (!dft && !kBlock) {
       for (int i = threadIdx.x; i < tile * p.pws; i += kThreads) pw_tile[i] = 0.f;
     } else if (threadIdx.x < kConsumers) {
       const int g = lane >> 2, t = lane & 3;
@@ -1682,6 +1894,14 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         fr[h] = sig + (live[h] ? r : 0) * S;
         mu[h] = live[h] ? mu_t[r] : 0.f;
       }
+      // conditioned sample a of row h's frame
+      auto value = [&](int h, int a) -> float {
+        if constexpr (kBlock) {
+          return bcond(r0 + 8 * h, mu[h], a);
+        } else {
+          return cond(fr[h], mu[h], a);
+        }
+      };
       // the step's A fragment, hi and lo of the conditioned samples
       // (unwindowed: the matrix carries the window), zero past Lk
       auto fragment = [&](int k0, uint32_t (&ah)[4], uint32_t (&al)[4]) {
@@ -1689,8 +1909,8 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         for (int q = 0; q < 4; ++q) {
           const int h = q & 1;
           const int a = k0 + 2 * t + 8 * (q >> 1);
-          const float v0 = live[h] && a < Lk ? cond(fr[h], mu[h], a) : 0.f;
-          const float v1 = live[h] && a + 1 < Lk ? cond(fr[h], mu[h], a + 1) : 0.f;
+          const float v0 = live[h] && a < Lk ? value(h, a) : 0.f;
+          const float v1 = live[h] && a + 1 < Lk ? value(h, a + 1) : 0.f;
           const __nv_bfloat16 h0 = __float2bfloat16_rn(v0), h1 = __float2bfloat16_rn(v1);
           ah[q] = bf16_pair(h0, h1);
           al[q] = bf16_pair(__float2bfloat16_rn(v0 - __bfloat162float(h0)),
@@ -1702,34 +1922,127 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         float re0[68], re1[68];  // bins [0, 68) and [68, 136) of the pass
 #pragma unroll
         for (int i = 0; i < 68; ++i) re0[i] = re1[i] = 0.f;
-#pragma unroll 1
-        for (int s = 0; s < steps; ++s, ++c) {
+        if constexpr (kBlock) {
+          // the six products of ring chunk c on the fragment (ah, al), issued
+          auto products = [&](int slot, const uint32_t (&ah)[4], const uint32_t (&al)[4]) {
+            const unsigned char* st = ring + slot * kBfStageBytes;
+            const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
+            const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
+            wgmma_fence();
+            fence_regs(re0);
+            fence_regs(re1);
+            wgmma_m64n136k16(re0, ah, wh);
+            wgmma_m64n136k16(re1, ah, wh + second);
+            wgmma_m64n136k16(re0, al, wh);
+            wgmma_m64n136k16(re1, al, wh + second);
+            wgmma_m64n136k16(re0, ah, wl);
+            wgmma_m64n136k16(re1, ah, wl + second);
+            wgmma_commit();
+          };
+          // this thread's re/im of the pass in the block plans' rows (row r,
+          // column 8j + 2t + c of re0, 136 more of re1), where the sums of each
+          // kBfPromote steps add up: the tensor cores' own accumulation drifts
+          // with the sum's length, so each stretch starts from 0 and adds to
+          // the rows in fp32
+          auto promote = [&](bool first) {
+#pragma unroll
+            for (int j = 0; j < 17; ++j) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 8 * h, i = 4 * j + 2 * h;
+                float2* row = reinterpret_cast<float2*>(pw_tile + r * kBfAccStride + 8 * j + 2 * t);
+                if (r < tile) {
+                  const float2 a = make_float2(re0[i], re0[i + 1]), b = make_float2(re1[i], re1[i + 1]);
+                  row[0] = first ? a : make_float2(row[0].x + a.x, row[0].y + a.y);
+                  row[kBfPassBins / 2] = first ? b : make_float2(row[kBfPassBins / 2].x + b.x,
+                                                                 row[kBfPassBins / 2].y + b.y);
+                }
+                re0[i] = re0[i + 1] = re1[i] = re1[i + 1] = 0.f;
+              }
+            }
+          };
+          // the next step's fragment is built while the products run
           uint32_t ah[4], al[4];
-          fragment(s * kBfStep, ah, al);
-          const int slot = c % p.stages;
-          mbar_wait(full + slot, (c / p.stages) & 1);
-          __syncwarp();
-          const unsigned char* st = ring + slot * kBfStageBytes;
-          const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
-          const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
-          wgmma_fence();
-          fence_regs(re0);
-          fence_regs(re1);
-          wgmma_m64n136k16(re0, ah, wh);
-          wgmma_m64n136k16(re1, ah, wh + second);
-          wgmma_m64n136k16(re0, al, wh);
-          wgmma_m64n136k16(re1, al, wh + second);
-          wgmma_m64n136k16(re0, ah, wl);
-          wgmma_m64n136k16(re1, ah, wl + second);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(re0);
-          fence_regs(re1);
-          fence_regs(ah);
-          fence_regs(al);
-          mbar_arrive(empty + slot);
+          fragment(0, ah, al);
+          bool first = true;
+#pragma unroll 1
+          for (int s = 0; s < steps; ++s, ++c) {
+            const int slot = c % p.stages;
+            if (dft) {
+              mbar_wait(full + slot, (c / p.stages) & 1);
+              __syncwarp();
+              products(slot, ah, al);
+            }
+            uint32_t nh[4], nl[4];
+            fragment(imin(s + 1, steps - 1) * kBfStep, nh, nl);
+            if (dft) {
+              wgmma_wait_all();
+              fence_regs(re0);
+              fence_regs(re1);
+              fence_regs(ah);
+              fence_regs(al);
+              mbar_arrive(empty + slot);
+            }
+            if ((s + 1) % kBfPromote == 0 && s + 1 < steps) {
+              if (first) named_sync(1, kConsumers);  // the last pass's projection has read the rows
+              promote(first);
+              first = false;
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              ah[q] = nh[q];
+              al[q] = nl[q];
+            }
+          }
+          if (!first) {  // the earlier stretches' sums, before the rows take the powers
+#pragma unroll
+            for (int j = 0; j < 17; ++j) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = r0 + 8 * h, i = 4 * j + 2 * h;
+                const float2* row = reinterpret_cast<const float2*>(pw_tile + r * kBfAccStride + 8 * j + 2 * t);
+                if (r < tile) {
+                  const float2 a = row[0], b = row[kBfPassBins / 2];
+                  re0[i] += a.x;
+                  re0[i + 1] += a.y;
+                  re1[i] += b.x;
+                  re1[i + 1] += b.y;
+                }
+              }
+            }
+          }
+        } else {
+#pragma unroll 1
+          for (int s = 0; s < steps; ++s, ++c) {
+            uint32_t ah[4], al[4];
+            fragment(s * kBfStep, ah, al);
+            const int slot = c % p.stages;
+            mbar_wait(full + slot, (c / p.stages) & 1);
+            __syncwarp();
+            const unsigned char* st = ring + slot * kBfStageBytes;
+            const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
+            const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
+            wgmma_fence();
+            fence_regs(re0);
+            fence_regs(re1);
+            wgmma_m64n136k16(re0, ah, wh);
+            wgmma_m64n136k16(re1, ah, wh + second);
+            wgmma_m64n136k16(re0, al, wh);
+            wgmma_m64n136k16(re1, al, wh + second);
+            wgmma_m64n136k16(re0, ah, wl);
+            wgmma_m64n136k16(re1, ah, wl + second);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(re0);
+            fence_regs(re1);
+            fence_regs(ah);
+            fence_regs(al);
+            mbar_arrive(empty + slot);
+          }
         }
-        // |X|^2 of each bin from its (cosine, sine) column pair, in registers
+        // |X|^2 of each bin from its (cosine, sine) column pair, in registers,
+        // into its power row (the block plans': the pass's own, at stride
+        // kBfPowStride)
         auto store = [&](const float (&d)[68], int bin0) {
 #pragma unroll
           for (int j = 0; j < 17; ++j) {
@@ -1739,14 +2052,26 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
             for (int h = 0; h < 2; ++h) {
               const int r = r0 + 8 * h;
               const float x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
-              if (r < tile) pw_tile[r * p.pws + bin] = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+              if (r < tile) {
+                pw_tile[kBlock ? r * kBfPowStride + bin - pass * kBfPassBins : r * p.pws + bin] =
+                    __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+              }
             }
           }
         };
-        store(re0, pass * kBfPassBins);
-        store(re1, pass * kBfPassBins + kBfPassBins / 2);
+        if constexpr (kBlock) {
+          const int bin0 = pass * kBfPassBins;
+          named_sync(1, kConsumers);  // the last pass's projection, and every re/im, has been read
+          store(re0, bin0);
+          store(re1, bin0 + kBfPassBins / 2);
+          named_sync(1, kConsumers);
+          project(pass);
+        } else {
+          store(re0, pass * kBfPassBins);
+          store(re1, pass * kBfPassBins + kBfPassBins / 2);
+        }
       }
-    } else if (threadIdx.x == kProducer) {
+    } else if (threadIdx.x == kProducer && (dft || !kBlock)) {
       const int total = p.npass * (p.kp / kBfStep);
       for (int c = p.stages; c < total; ++c) {  // the first stages went out at the start
         const int slot = c % p.stages;
@@ -1757,15 +2082,33 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       }
     }
     __syncthreads();
-    // 4. each frame's output row (the powers carry the matrix's scale)
-    for (int fl = warp; fl < tile; fl += kWarps) {
-      const int f = f0 + fl;
-      if (f >= F) break;  // warp-uniform
-      const float* pw = pw_tile + fl * p.pws;
-      const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
-      write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
-                  p.chunk, p, WarpTeam{lane});
-      __syncwarp();  // part is rewritten by the warp's next frame
+    if constexpr (kBlock) {
+      // 4e. the block plans' epilogue over the accumulators, lane-parallel:
+      //     the log kind (logmel), nothing (plp) or the centroid (ssc) of
+      //     each filter's sum (a spectrogram's bins were written pass by
+      //     pass); lane M the energy (0 for ssc)
+      for (int i = threadIdx.x; i < tile * (M + 1); i += kThreads) {
+        const int fl = i / (M + 1), m = i - fl * (M + 1);
+        if (f0 + fl >= F) break;
+        float* o = out + (static_cast<size_t>(b) * F + f0 + fl) * (M + 1);
+        const float* a = acc + fl * p.nacc;
+        if (m == M) {
+          o[M] = energy_lane(a[e_at], ef[fl]);
+        } else if (kind != kSpectrogram) {
+          o[m] = kind == kSsc ? __fdiv_rn(a[M + m], a[m]) : kind == kPlp ? a[m] : log_lane(a[m], p);
+        }
+      }
+    } else {
+      // 4. each frame's output row (the powers carry the matrix's scale)
+      for (int fl = warp; fl < tile; fl += kWarps) {
+        const int f = f0 + fl;
+        if (f >= F) break;  // warp-uniform
+        const float* pw = pw_tile + fl * p.pws;
+        const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
+        write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
+                    p.chunk, p, WarpTeam{lane});
+        __syncwarp();  // part is rewritten by the warp's next frame
+      }
     }
   } else {
     // 3. one frame's DFT by a team (a warp over its own rows ra, rb; a
@@ -2023,8 +2366,8 @@ struct Args {
 
 template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
 size_t smem_of(const Params& p, const Polyphase& pp) {
-  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true)
-                               : layout(p, 0, 0, kDither);
+  const Layout lay = kResample ? layout(p, resample_floats<Sample>(p, pp), pp.up * pp_stride(pp), true, false)
+                               : layout(p, 0, 0, kDither, kBlock);
   return static_cast<size_t>(lay.total) * sizeof(float);
 }
 
@@ -2091,11 +2434,15 @@ cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
               : fn.template run<float, kResample, false, false, kBf16, kBlock>();
 }
 
-// The plain form's instantiations: bf16x3, the block plan, or the warp plan.
+// The plain form's instantiations: bf16x3 (its staged plan, or its block
+// plans), the block plan, or the warp plan.
 template <typename Fn>
 cudaError_t dispatch_plain(const Fn& fn, bool is_int16, bool dither, bool cond, bool tensor,
                            bool block) {
-  if (tensor) return dispatch<false, true, false>(fn, is_int16, dither, cond);
+  if (tensor) {
+    return block ? dispatch<false, true, true>(fn, is_int16, dither, cond)
+                 : dispatch<false, true, false>(fn, is_int16, dither, cond);
+  }
   if (block) return dispatch<false, false, true>(fn, is_int16, dither, cond);
   return dispatch<false, false, false>(fn, is_int16, dither, cond);
 }
@@ -2168,7 +2515,7 @@ void plan_block(Params& p, bool wide) {
       p.rows_global = kLadder[plan][3];
       p.groups = groups;
       p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
-      if (layout(p, 0, 0, wide).total * 4 <= kSmemBudget) return;
+      if (layout(p, 0, 0, wide, true).total * 4 <= kSmemBudget) return;
     }
   }
 }
@@ -2202,8 +2549,8 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.fft_n = p.nstages = 0;
   p.radices = 0;
   p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
-  p.kp = p.nbp = p.npass = p.pws = p.stages = 0;
-  p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = 0;
+  p.kp = p.nbp = p.npass = p.pws = p.stages = p.nacc = p.nptab = 0;
+  p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = p.acc_global = 0;
   p.bin_bits = bin_bits(p.bins);
   p.groups = 1;
   p.tile = kTile;
@@ -2243,7 +2590,7 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
       return false;
   }
   const bool wide = p.dither > 0.f;  // the plain form's signal row under dither
-  if (pp == nullptr && layout(p, 0, 0, wide).total * 4 > kSmemBudget) plan_block(p, wide);
+  if (pp == nullptr && layout(p, 0, 0, wide, false).total * 4 > kSmemBudget) plan_block(p, wide);
   return true;
 }
 
@@ -2256,6 +2603,7 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const P
          (p.feature_kind != kSpectrogram && (p.nnz < p.M || p.M >= 1 << (31 - p.bin_bits))) ||
          (p.feature_kind == kSsc && melf_w == nullptr) ||
          ((p.form == kStockham || p.form == kBluestein) && bases == nullptr) ||
+         (p.form == kBf16x3 && p.block && p.nptab > 0 && bases == nullptr) ||
          p.center < kNoCenter || p.center > kCenterReflect || p.framing < kFramePad ||
          p.framing > kFrameCenterReflect;
 }
@@ -2280,7 +2628,9 @@ extern "C" {
 // stages' twists and bases, the chirp and the filter spectrum
 // (kernels/frontend.py fft_twiddles, stage_bases), neither for 1 (bf16x3;
 // bases may be null but for 0 and 2), read from device memory by the block
-// plan's "block_global" (plan()); dft_matrix (dft_form 1 only, else null):
+// plan's "block_global" (plan()); for 1 in a block plan of plan_bf16,
+// bases is the pass table instead (kernels/frontend.py pass_table; null
+// for a spectrogram); dft_matrix (dft_form 1 only, else null):
 // the window-folded, scaled DFT's hi and lo parts in bf16, in ring order (kernels/frontend.py
 // bf16_matrix: [pass][k16 step][hi | lo][8-column group][K half][column][k],
 // column c of a pass the cosine (even c) or sine (odd c) of bin c/2; pscale
@@ -2300,7 +2650,9 @@ extern "C" {
 // Where plan() takes "gather_rows", rows_ws is the workspace of nslots
 // slots of groups x 2 FFT rows (kernels/frontend.py rows_workspace:
 // ws_floats floats, its contents any), one for each block of the
-// persistent grid; null for every other plan.
+// persistent grid; where plan_bf16 takes "gather_out", rows_ws is the
+// accumulators' workspace [B, F, nacc] (ws_floats floats at least, its
+// contents any); null for every other plan.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, int* n_valid, float* frame_mask, const float* window,
                          const float* mel_w,
@@ -2325,8 +2677,12 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   }
   const bool tensor = dft_form == kBf16x3;
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
+  if (p.acc_global &&
+      (rows_ws == nullptr || ws_floats < static_cast<long long>(B) * F * p.nacc)) {
+    return cudaErrorInvalidValue;
+  }
   if (p.rows_global) {
-    const long long row = layout(p, 0, 0, dither > 0.f).row;
+    const long long row = layout(p, 0, 0, dither > 0.f, true).row;
     if (rows_ws == nullptr || nslots < 1 ||
         ws_floats < static_cast<long long>(nslots) * p.groups * 2 * row) {
       return cudaErrorInvalidValue;

@@ -30,9 +30,12 @@ lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
 empty prefix without a launch). The last plan's layout depends on neither
 n_fft nor the hop nor the frame length, so the Stockham and Bluestein forms
-take every n_fft, hop and frame length the reference takes; only the
-bf16x3 opt-in past its layout (it stages the span) and more filters than
-the packed table's filter field holds are refused (`layout_reason`).
+take every n_fft, hop and frame length the reference takes, and so does
+the bf16x3 opt-in (`bf16_layout`: past its staged plan, the power rows of
+one pass at a time, then each frame, the packed bands and the accumulators
+in device memory); only more filters than the packed table's filter field
+holds are refused (`layout_reason`), and on the card a bf16x3 matrix over
+the card's memory (`bf16_matrix_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -51,7 +54,7 @@ the port matches outputs, not layouts); "bf16x3" (port of `_make_kernel`
 :857-867) a form that computes the DFT on the tensor cores (wgmma) as three
 bf16 products against the window-folded matrix of `constants.folded_dft`
 (`bf16_matrix`), an opt-in of its own accuracy class that no config takes,
-in both forms.
+in both forms, in the plans of `bf16_layout`.
 
 `logmel_prefix` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `logmel_prefix_reference`, the plain
@@ -61,7 +64,10 @@ for resampling configs). `launches` counts launches of the plain front-end,
 `conditioning_launches`, `plp_launches`, `spectrogram_launches`,
 `ssc_launches`, `centered_launches`, `bluestein_launches` and
 `bf16x3_launches` count the launches (of either form) that take that
-branch, `block_fft_launches` those of the block plan and
+branch, `bf16_pass_launches`, `bf16_gather_launches`,
+`bf16_gather_bands_launches` and `bf16_gather_out_launches` those of the
+bf16x3 form in each block plan of `BF16_PLANS`, `block_fft_launches` those
+of the FFT forms' block plan and
 `global_table_launches` those of it that read the FFT tables from device
 memory, `gather_launches` those that read each frame from device
 memory, `gather_bands_launches` and `gather_rows_launches` those of the
@@ -85,8 +91,10 @@ finished mfcc features from the feature-tail kernel (`kernels/tail.py`);
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -142,6 +150,10 @@ gather_launches = 0
 gather_bands_launches = 0
 gather_rows_launches = 0
 bf16x3_launches = 0
+bf16_pass_launches = 0
+bf16_gather_launches = 0
+bf16_gather_bands_launches = 0
+bf16_gather_out_launches = 0
 block_launches = 0
 split_launches = 0
 
@@ -417,6 +429,31 @@ BF16_STEP = 16  # K of one wgmma step: one k16 slice of the matrix a ring stage
 BF16_PASS_BINS = 136  # bins a pass: two m64n136k16 products over 272 interleaved columns
 BF16_TILES = (64, 32)  # frames a block, the first whose layout fits
 BF16_STAGES = (4, 3, 2)  # ring stages, the first whose layout fits
+# the bf16x3 form's plans (csrc/frontend.cu plan_bf16, kBfLadder): the power
+# rows of every bin; then the power rows of one pass, projected pass by pass
+# into per-frame accumulators; the same with each frame read from device
+# memory (no span, no window staged); with the packed bands and the pass
+# table read from device memory too; and with the accumulators in a workspace
+# in device memory too
+BF16_PLANS = ("staged", "pass", "gather", "gather_bands", "gather_out")
+# what each bf16x3 plan does (csrc/frontend.cu kBfLadder): (power rows of one
+# pass, each frame from device memory, the packed bands and the pass table
+# from device memory, the accumulators in a workspace in device memory)
+BF16_TRAITS = {
+    "staged": (False, False, False, False),
+    "pass": (True, False, False, False),
+    "gather": (True, True, False, False),
+    "gather_bands": (True, True, True, False),
+    "gather_out": (True, True, True, True),
+}
+# (plan, frames a block, ring stages) in the order bf16_layout tries them
+BF16_LAYOUTS = tuple((plan, t, s) for plan in BF16_PLANS for t in BF16_TILES for s in BF16_STAGES)
+# the block plans: steps whose products the tensor cores sum before the sum
+# joins the pass's re/im rows in fp32 (csrc/frontend.cu kBfPromote), and the
+# floats between two frames' re/im rows, over which the pass's powers go
+BF16_PROMOTE = 25
+BF16_PASS_STRIDE = 2 * BF16_PASS_BINS + 8
+BF16_MATRIX_CACHE_BYTES = 2 << 30  # the card's matrices kept at once (`_device_bf16_matrix`)
 
 
 def bf16_dims(cfg: FrontendConfig) -> tuple[int, int]:
@@ -430,6 +467,30 @@ def bf16_power_stride(cfg: FrontendConfig) -> int:
     """Floats of a power row of the bf16x3 form: n_bins rounded up to 32,
     plus 4, so the 8 frames a wgmma fragment stores to fall in 8 bank groups."""
     return (cfg.n_bins + 31) // 32 * 32 + 4
+
+
+def bf16_matrix_bytes(cfg: FrontendConfig) -> tuple[int, int]:
+    """(bytes of `bf16_matrix` on the card, 8·kp·nbp; bytes of the host's
+    float64 folding it starts from, `constants.folded_dft`'s [min(L, n_fft),
+    2·n_bins] float64)."""
+    kp, nbp = bf16_dims(cfg)
+    return 8 * kp * nbp, 16 * min(cfg.frame_length, cfg.n_fft) * cfg.n_bins
+
+
+def bf16_matrix_reason(cfg: FrontendConfig, device_bytes: int) -> str | None:
+    """Why the bf16x3 route cannot run cfg on a card of `device_bytes` of
+    memory, or None: its matrix, or the float64 folding the host builds it
+    from, is over the card's memory (`bf16_matrix_bytes`). The route reads
+    O(n_fft · L) bytes a frame by design; this first happens near n_fft = L
+    = 131,072 on an 80 GB card. A resampling config is held to its feature
+    rate's matrix, as `layout_reason` holds it."""
+    if chain.resamples(cfg):
+        cfg = feature_rate_config(cfg)
+    matrix, folded = bf16_matrix_bytes(cfg)
+    if max(matrix, folded) <= device_bytes:
+        return None
+    return (f"bf16x3 matrix of {matrix:,} bytes, folded from {folded:,} bytes of float64 on the host "
+            f"(n_fft={cfg.n_fft}, frame length {cfg.frame_length}), over the card's {device_bytes:,} bytes")
 
 
 def bf16_matrix(cfg: FrontendConfig) -> torch.Tensor:
@@ -545,9 +606,81 @@ def _device_fft_tables(n_fft: int, form: str, device: torch.device):
             torch.as_tensor(stage_bases(n_fft, form), device=device))
 
 
+_bf16_matrices: collections.OrderedDict = collections.OrderedDict()
+_bf16_matrices_lock = threading.Lock()
+
+
+def _device_bf16_matrix(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    """cfg's `bf16_matrix` on `device`, cached least recently used first out
+    once the cache holds over BF16_MATRIX_CACHE_BYTES (the newest is always
+    kept): at librosa's 16,384-point framing one matrix is 1.1 GB."""
+    key = (cfg, device)
+    with _bf16_matrices_lock:
+        m = _bf16_matrices.pop(key, None)
+        if m is None:
+            m = bf16_matrix(cfg).to(device).contiguous()
+        _bf16_matrices[key] = m
+        while len(_bf16_matrices) > 1 and sum(
+                t.numel() * t.element_size() for t in _bf16_matrices.values()) > BF16_MATRIX_CACHE_BYTES:
+            _bf16_matrices.popitem(last=False)
+    return m
+
+
+def pass_table(mel: torch.Tensor) -> torch.Tensor:
+    """The bf16x3 block plans' pass table of mel [n_bins, M] (csrc/frontend.cu
+    4p), int32: npass + 1 offsets, then for each pass p (bins [136p, 136p +
+    136)) in turn, filter by filter, one segment of 4 words for each filter
+    whose packed band (`mel_packed`: [lo, hi), one weight at bin 0 for an
+    all-zero filter) touches the pass: (filter m, first and end packed index
+    of its weights in the pass, the first one's bin less 136p). Segments s of
+    pass p are offsets[p] <= s < offsets[p + 1]."""
+    n_bins, M = mel.shape
+    npass = -(-n_bins // BF16_PASS_BINS)
+    lo, hi = mel_bands(mel)
+    off, _ = mel_packed(mel)
+    lo = lo.long()
+    hi = lo + torch.clamp(hi.long() - lo, min=1)
+    first, last = lo // BF16_PASS_BINS, (hi - 1) // BF16_PASS_BINS
+    count = last - first + 1
+    m = torch.repeat_interleave(torch.arange(M), count)
+    start = torch.cumsum(count, 0) - count
+    ps = first[m] + torch.arange(int(count.sum())) - start[m]
+    order = torch.argsort(ps * M + m)
+    m, ps = m[order], ps[order]
+    kl = torch.maximum(lo[m], ps * BF16_PASS_BINS)
+    kh = torch.minimum(hi[m], ps * BF16_PASS_BINS + BF16_PASS_BINS)
+    base = off.long()[m] - lo[m]
+    segs = torch.stack([m, base + kl, base + kh, kl - ps * BF16_PASS_BINS], dim=1)
+    offsets = torch.zeros(npass + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(torch.bincount(ps, minlength=npass), 0)
+    return torch.cat([offsets, segs.reshape(-1)]).to(torch.int32)
+
+
+def pass_table_words(cfg: FrontendConfig) -> int:
+    """Words the bf16x3 block plans stage for cfg's pass table
+    (csrc/frontend.cu Params::nptab), an upper bound of `pass_table`'s:
+    npass + 1 offsets and 4 words for each of at most n_packed // 136 + 2M
+    segments (a filter of w weights touches at most w // 136 + 2 passes);
+    none for a spectrogram."""
+    if not mel_matrices(cfg):
+        return 0
+    npass = -(-cfg.n_bins // BF16_PASS_BINS)
+    return npass + 1 + 4 * (packed_count(cfg) // BF16_PASS_BINS + 2 * cfg.n_mels)
+
+
 @functools.lru_cache(maxsize=16)
-def _device_bf16_matrix(cfg: FrontendConfig, device: torch.device):
-    return bf16_matrix(cfg).to(device).contiguous()
+def _device_pass_table(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    mel = chain.device_constants(cfg, torch.device("cpu"), torch.float64)["mel"]
+    return pass_table(mel.to(torch.float32)).to(device)
+
+
+def bf16_accumulators(cfg: FrontendConfig) -> int:
+    """Accumulators a frame of the bf16x3 block plans (csrc/frontend.cu
+    Params::nacc): M filter sums and the energy; for SSC the M mel and the M
+    melf sums (its lane M is 0); for a spectrogram the energy alone (its
+    bins go straight to their lanes)."""
+    kind = feature_kind(cfg)
+    return 2 * cfg.n_mels if kind == "ssc" else 1 if kind == "spectrogram" else cfg.n_mels + 1
 
 
 @functools.lru_cache(maxsize=4096)
@@ -573,19 +706,31 @@ def _a4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _bf16_layout(cfg: FrontendConfig, tile: int, stages: int, head: int, fir: int = 0,
-                 taps: int = 0) -> int:
-    """Floats of the bf16x3 layout after the shared head (signal, window,
-    packed bands) at `tile` frames and `stages` ring stages: the ring at a
-    128-byte boundary, its mbarriers, the power rows, the frame energies and
-    means, and the per-warp projection scratch, which the fused resample's
-    input window (`fir` floats) overlays, widening them only where it is
-    longer; then its tap table (`taps` floats)."""
-    part = _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
+def _bf16_smem(cfg: FrontendConfig, plan: str, tile: int, stages: int, int16: bool = True) -> int:
+    """Shared memory per block of cfg's bf16x3 layout in a plan of
+    `BF16_PLANS` at `tile` frames and `stages` ring stages, for int16 or
+    float32 rows (csrc/frontend.cu layout): the head (the signal row and the
+    window unless the plan reads each frame from device memory; the packed
+    bands and, in the block plans, the pass table, unless it reads them from
+    device memory), then the ring at a 128-byte boundary and its mbarriers;
+    in "staged" the power rows of every bin, the frame energies and means
+    and the per-warp projection scratch, which the fused resample's input
+    window overlays, widening them only where it is longer, then its tap
+    table; in the block plans the re/im rows of one pass (then its powers),
+    the frame energies and means and the accumulators (`bf16_accumulators`;
+    none where they are in device memory)."""
+    by_pass, gather, bands_dev, acc_dev = BF16_TRAITS[plan]
+    head = 0 if gather else _a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft))
+    if not bands_dev:
+        head += _bands(cfg) + (_a4(pass_table_words(cfg)) if by_pass else 0)
     ring = stages * 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # hi and lo, bf16 in floats
     n = ((head + 31) & ~31) + ring + _a4(4 * stages)
-    rows = tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * part
-    return n + max(rows, _a4(fir)) + _a4(taps)
+    if by_pass:
+        return 4 * (n + tile * BF16_PASS_STRIDE + 2 * _a4(tile)
+                    + (0 if acc_dev else _a4(tile * bf16_accumulators(cfg))))
+    fir, taps = _fir_floats(cfg, tile, int16)
+    rows = tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
+    return 4 * (n + max(rows, _a4(fir)) + _a4(taps))
 
 
 def _span(cfg: FrontendConfig, tile: int) -> int:
@@ -625,20 +770,34 @@ def _fir_floats(cfg: FrontendConfig, tile: int, int16: bool) -> tuple[int, int]:
     return window, d["up"] * rs_kernel.table_stride(d)
 
 
-@functools.lru_cache(maxsize=128)
+@functools.lru_cache(maxsize=256)
+def bf16_layout(cfg: FrontendConfig, int16: bool = False) -> tuple[str, int, int]:
+    """(plan, frames a block, ring stages) of the bf16x3 form for int16 or
+    float32 rows (csrc/frontend.cu plan_bf16): the first of `BF16_LAYOUTS`
+    whose layout fits the block, 64 or 32 frames (a wgmma's 64 rows; at 32
+    the upper 32 are zero) and 4, 3 or 2 stages in each plan. "staged": the
+    tile's span, window, packed bands and power rows of every bin (in the
+    fused resample with its input window of that many frames and its taps);
+    where those are over the block (n_fft from 2,245 at classic13, long hops
+    and frames), the plain form's block plans: "pass", the power rows of
+    one pass of 136 bins, each pass projected into per-frame accumulators
+    before the next; "gather", the same with each frame read from device
+    memory (no span, no window); "gather_bands", the packed bands and the
+    pass table read from device memory too; "gather_out", the accumulators
+    in a workspace in device memory too (thousands of filters), a layout of
+    the ring and one pass's rows alone. A resampling config's fused form
+    takes "staged" alone (else its smallest, and the wrapper takes the split
+    route, `resample_route`)."""
+    layouts = BF16_LAYOUTS[: len(BF16_TILES) * len(BF16_STAGES)] if chain.resamples(cfg) else BF16_LAYOUTS
+    for plan, tile, stages in layouts:
+        if _bf16_smem(cfg, plan, tile, stages, int16) <= rs_kernel.SMEM_BUDGET_BYTES:
+            return plan, tile, stages
+    return layouts[-1]
+
+
 def bf16_plan(cfg: FrontendConfig, int16: bool = False) -> tuple[int, int]:
-    """(frames a block, ring stages) of the bf16x3 form for int16 or float32
-    rows: the first of 64 or 32 frames (a wgmma's 64 rows; at 32 the upper
-    32 are zero) and 4, 3 or 2 stages whose layout fits the block, in the
-    fused resample with its input window of that many frames and its taps
-    (csrc/frontend.cu plan_bf16); else the smallest (the split route's, or
-    refused by `layout_reason`)."""
-    plans = [(t, s) for t in BF16_TILES for s in BF16_STAGES]
-    for tile, stages in plans:
-        fir, taps = _fir_floats(cfg, tile, int16)
-        if 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), fir, taps) <= rs_kernel.SMEM_BUDGET_BYTES:
-            return tile, stages
-    return plans[-1]
+    """(frames a block, ring stages) of `bf16_layout`."""
+    return bf16_layout(cfg, int16)[1:]
 
 
 def resample_window(cfg: FrontendConfig, tile: int = TILE) -> int:
@@ -719,8 +878,7 @@ def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
     int16 or float32 rows (csrc/frontend.cu layout); the Stockham and
     Bluestein forms in the plan of `fft_layout`."""
     if form == "bf16x3":
-        tile, stages = bf16_plan(cfg, int16)
-        return 4 * _bf16_layout(cfg, tile, stages, _head(cfg, tile), *_fir_floats(cfg, tile, int16))
+        return _bf16_smem(cfg, *bf16_layout(cfg, int16), int16)
     plan, groups = fft_layout(cfg, form, int16)
     return _fft_smem(cfg, form, plan, int16, groups)
 
@@ -791,8 +949,10 @@ def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None
     The Stockham and Bluestein forms take every n_fft, hop and frame
     length: their last plan ("gather_rows") stages only the projection's
     scratch, which only tens of thousands of filters put over the block,
-    and the reason names it. The bf16x3 opt-in stages the tile's span, so
-    its reason names the frame too."""
+    and the reason names it. So does the bf16x3 opt-in (`bf16_layout`):
+    its last plan ("gather_out") stages the matrix ring and one pass's power
+    rows alone. What bounds it is its matrix's bytes on the card
+    (`bf16_matrix_reason`, which its card wrapper checks)."""
     if chain.resamples(cfg):
         cfg = feature_rate_config(cfg)
     bits = meta_bin_bits(cfg.n_bins)
@@ -862,7 +1022,8 @@ def _lib() -> ctypes.CDLL:
 def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radix4") -> dict:
     """The card's view of cfg's kernel instantiation (needs a card; of the
     plain form on the split route, `resample_route`; of the block plan's
-    instantiation where `fft_plan` takes it): registers a thread,
+    instantiation where `fft_plan` takes it, and of the bf16x3 block plans'
+    where `bf16_layout` takes one of them): registers a thread,
     local (spilled) bytes a thread, and the blocks an SM holds at cfg's
     shared memory for these rows (`smem_bytes`), from cudaFuncGetAttributes
     and cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
@@ -871,7 +1032,10 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
     out = (ctypes.c_int * 3)()
     smem = smem_bytes(cfg, dft_passes, int16)
     form = kernel_form(cfg, dft_passes)
-    block = form != "bf16x3" and fft_plan(cfg, form, int16) != "warp"
+    if form == "bf16x3":
+        block = not chain.resamples(cfg) and bf16_layout(cfg, int16)[0] != "staged"
+    else:
+        block = fft_plan(cfg, form, int16) != "warp"
     rc = _lib().mfcc_frontend_kernel_info(
         int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
         int(chain.needs_conditioning(cfg)), int(form == "bf16x3"), int(block), smem, out)
@@ -1027,6 +1191,8 @@ def logmel_prefix_counts(
         raise ValueError(f"the front-end kernel runs on CUDA, got {audio.device}")
     chain.check_supported(cfg)  # the default route's layout among the rest
     reason = layout_reason(cfg, dft_passes) if dft_passes != "radix4" else None
+    if not reason and form == "bf16x3":  # before the matrix is built
+        reason = bf16_matrix_reason(cfg, torch.cuda.get_device_properties(audio.device).total_memory)
     if reason:
         raise NotImplementedError(f"config {cfg.config_hash()} needs the {reason} "
                                   f"(dft_passes={dft_passes!r})")
@@ -1063,6 +1229,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
     global global_table_launches, gather_launches, gather_bands_launches, gather_rows_launches
+    global bf16_pass_launches, bf16_gather_launches, bf16_gather_bands_launches, bf16_gather_out_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
     mask = torch.empty((B, F), dtype=torch.float32, device=audio.device)
@@ -1071,17 +1238,26 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     dft_matrix = _device_bf16_matrix(cfg, audio.device).data_ptr() if form == "bf16x3" else None
     lib = _lib()
     resampling = origin == 0 and chain.resamples(cfg)
+    int16 = audio.dtype == torch.int16
     # the fused form plans "warp" only; a plain-form launch (the block launch of
     # a resampling config too) plans at the feature rate
     at_rate = feature_rate_config(cfg)
     plan = "warp" if form == "bf16x3" or resampling else fft_plan(at_rate, form)
+    bf16 = bf16_layout(cfg, int16)[0] if form == "bf16x3" else None
     rows = (None, 0, 0)  # "gather_rows": its workspace, slots (the persistent grid's blocks), floats
     if plan == "gather_rows":
-        int16 = audio.dtype == torch.int16
         slots, floats = rows_workspace(at_rate, form, B * -(-F // TILE),
                                        _resident_blocks(at_rate, int16, audio.device))
         ws = _workspace(floats, audio.device)
         rows = (ws.data_ptr(), slots, floats)
+    elif bf16 == "gather_out":  # the accumulators' workspace, frame after frame
+        floats = B * F * bf16_accumulators(cfg)
+        ws = _workspace(floats, audio.device)
+        rows = (ws.data_ptr(), 0, floats)
+    if bf16 not in (None, "staged") and mel_matrices(cfg):  # the pass table rides `bases`
+        table = _device_pass_table(cfg, audio.device) if consts is None else pass_table(
+            consts["mel"].to(device="cpu", dtype=torch.float32)).to(audio.device)
+        head = (*head[:-1], table.data_ptr())
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream().cuda_stream
         if resampling:
@@ -1118,6 +1294,10 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     centered_launches += int(chain.centered(cfg))
     bluestein_launches += int(form == "bluestein")
     bf16x3_launches += int(form == "bf16x3")
+    bf16_pass_launches += int(bf16 == "pass")
+    bf16_gather_launches += int(bf16 == "gather")
+    bf16_gather_bands_launches += int(bf16 == "gather_bands")
+    bf16_gather_out_launches += int(bf16 == "gather_out")
     gather, tables_dev = PLAN_TRAITS.get(plan, (False,) * 4)[:2]
     block_fft_launches += int(plan != "warp")
     global_table_launches += int(tables_dev)

@@ -127,9 +127,12 @@ def unsupported_reason(cfg: FrontendConfig) -> str | None:
     mel bands from device memory and keeps the FFT rows in a workspace
     there, staging only the projection's scratch, which only tens of
     thousands of filters put over the block; the feature tail takes every
-    cepstra count and delta window (`tail.plan`). The bf16x3 opt-in, which
-    stages the span, is held to its own layout by the kernel wrapper
-    (`frontend.layout_reason(cfg, "bf16x3")`). A resampling config is held
+    cepstra count and delta window (`tail.plan`). The bf16x3 opt-in takes
+    every n_fft, hop and frame length too (`frontend.bf16_layout`: its last
+    plan stages the matrix ring and one pass's rows alone); its card
+    wrapper refuses only the filter field and a matrix over the card's
+    memory (`frontend.layout_reason(cfg, "bf16x3")`,
+    `frontend.bf16_matrix_reason`). A resampling config is held
     to the plain form's layout at its feature rate: centered framing of
     resampled rows and fused layouts over the block take the split route
     (`frontend.resample_route`), resample.cu and then the plain form."""

@@ -4,7 +4,7 @@ one CUDA card; or this checkout's kernels against another checkout's, in
 turns.
 
     python3 scripts/block_plan_sweep.py
-    python3 scripts/block_plan_sweep.py --parent DIR
+    python3 scripts/block_plan_sweep.py --parent DIR [--bf16x3]
 
 csrc/frontend.cu's plan_block takes the first plan of its ladder (block,
 block_global, gather, gather_global, gather_bands, gather_rows:
@@ -43,7 +43,16 @@ builds this checkout's frontend.cu forced to "gather_bands" and to
 default build at `FORCED_AT` (classic13_deltas at n_fft 6001, b16 x 10 s,
 where "gather_global" at one group fits), printing whether the outputs are
 equal bitwise: the two plans move operands to device memory and change no
-arithmetic.
+arithmetic. The bf16x3 form's staged plan is timed the same way, in turns
+with the parent's, at `BF16X3_TURNS` (classic13 b64 x 10 s, and the fused
+resample at mfcc39_48k b64 x 10 s; where the parent has them, the "gather"
+plan at a 0.1 s hop, classic13 b16 x 10 s, and librosa's 8192-point framing,
+b16 x 10 s), and this checkout's bf16x3 block
+plans forced past "pass" to "gather" (`BF16X3_FORCED_AT`: classic13 at
+n_fft 4096, b16 x 10 s, whose default is "pass") in turns with the default
+build: the cost of reading each frame from device memory where the span
+could be staged; --bf16x3 builds the two checkouts' frontend.cu and the
+forced build alone and times only those.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1), (4, 1), (5, 4))
 PATHS = (("classic13", 1102, 16), ("classic13", 4096, 16), ("classic13", 2501, 16),
          ("classic13", 2160, 16), ("librosa", 2048, 64))
 LIBROSA = dict(sample_rate=22050, n_fft=2048, win_len_s=2048 / 22050, hop_s=512 / 22050, n_mels=128)
+LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
 # --parent: (config, overrides, rows) of the front-end and of the tail
 TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("classic13", dict(n_fft=4096), 16),
          ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64),
@@ -73,7 +83,15 @@ TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("cl
          ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
               ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
-FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_error_string", "mfcc_frontend_kernel_info")
+# --parent: (config, overrides, rows) of the bf16x3 form: its staged plan,
+# then (where the parent has them) its "gather" plan; the bf16x3 ladder's
+# loop (csrc/frontend.cu plan_bf16) and the config its "gather" is forced at
+BF16X3_TURNS = (("classic13", {}, 64), ("mfcc39_48k", {}, 64), ("classic13", dict(hop_s=0.1), 16),
+                ("logmel80", LIBROSA_8192, 16))
+BF16X3_SEARCH = "  for (const auto& rung : kBfLadder) {"
+BF16X3_FORCED_AT = ("classic13", dict(n_fft=4096), 16)
+FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
+                "mfcc_frontend_kernel_info")
 # --parent: the plans forced at one group, and the config they are forced at
 FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)))
 FORCED_AT = ("classic13_deltas", dict(n_fft=6001), 16)
@@ -122,10 +140,11 @@ def bind(so: pathlib.Path, whole, names) -> ctypes.CDLL:
 
 
 def rows(pad_batch, cfg, n_rows: int, seed: int = 3):
-    """int16 rows of 10 s (571 samples shorter each) on the card."""
+    """int16 rows of 10 s (571 samples shorter each) at the rows' rate on
+    the card."""
     import torch
 
-    n = cfg.sample_rate * 10
+    n = (cfg.input_sample_rate or cfg.sample_rate) * 10
     g = np.random.default_rng(seed)
     utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(n_rows)]
     batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
@@ -149,8 +168,9 @@ def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None) -> t
     return ms, outs
 
 
-def turns(parent: pathlib.Path, card: str) -> int:
-    """This checkout's front-end and tail against parent's, in turns."""
+def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
+    """This checkout's front-end and tail against parent's, in turns (with
+    bf16x3_only, the bf16x3 form's staged plan alone)."""
     import torch
 
     import chip_smoke
@@ -161,17 +181,21 @@ def turns(parent: pathlib.Path, card: str) -> int:
     out = _build.BUILD_DIR / "turns"
     out.mkdir(parents=True, exist_ok=True)
     trees = {"change": _build.CSRC, "parent": parent.resolve() / "mfcc_tpu_torch" / "kernels" / "csrc"}
-    jobs = [(key, src) for key in trees for src in ("frontend", "tail")]
+    jobs = [(key, src) for key in trees for src in (("frontend",) if bf16x3_only else ("frontend", "tail"))]
     src = (_build.CSRC / "frontend.cu").read_text()
-    for plan, start in FORCED:  # this checkout's source, the search started at the plan
+    forced = () if bf16x3_only else FORCED
+    for plan, start in forced:  # this checkout's source, the search started at the plan
         (out / f"forced_{plan}.cu").write_text(variant(src, start))
+    check(src.count(BF16X3_SEARCH) == 1, "plan_bf16's ladder found")
+    (out / "forced_bf16_gather.cu").write_text(
+        src.replace(BF16X3_SEARCH, BF16X3_SEARCH + "\n    if (rung[0] == 0) continue;  // past \"pass\""))
     cus = {**{j: trees[j[0]] / f"{j[1]}.cu" for j in jobs},
-           **{(plan, "frontend"): out / f"forced_{plan}.cu" for plan, _ in FORCED}}
+           **{(plan, "frontend"): out / f"forced_{plan}.cu" for plan, _ in forced},
+           ("bf16_gather", "frontend"): out / "forced_bf16_gather.cu"}
     with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
         sos = dict(zip(cus, pool.map(lambda j: build(cus[j], trees.get(j[0], _build.CSRC),
                                                      out / f"{j[0]}_{j[1]}.so"), cus)))
     fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS) for key in trees}
-    tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}
     print(f"in turns, parent {parent} [{card}]")
 
     def report(what, ms, outs):
@@ -180,6 +204,51 @@ def turns(parent: pathlib.Path, card: str) -> int:
               f"({ms['change'][0]:.4f}, {ms['change'][1]:.4f}), change / parent {c / p:.3f}; bitwise equal: "
               f"{bool(torch.equal(outs['change'], outs['parent']))}")
 
+    block_parent = "kBfLadder" in (trees["parent"] / "frontend.cu").read_text()
+    for name, over, n_rows in BF16X3_TURNS:
+        cfg = named_config(name).replace(**over)
+        check(frontend.resample_route(cfg, "bf16x3") in (None, "fused"), f"{name} takes no split route")
+        if frontend.bf16_layout(cfg)[0] != "staged" and not block_parent:
+            continue  # the parent refuses the bf16x3 form past its staged plan
+        audio, lengths = rows(pad_batch, cfg, n_rows)
+        fn = lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")  # noqa: E731
+        ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel")
+        errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+        if testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL):
+            raise SystemExit(f"{name} {over} bf16x3: the builds disagree: {errs}")
+        report(f"front-end bf16x3 {name} {over} b{n_rows} x 10 s, {frontend.bf16_layout(cfg, True)}", ms, outs)
+        del audio, lengths, outs
+    # this checkout's bf16x3 block plans forced to "gather" against its
+    # default build ("pass") in turns
+    name, over, n_rows = BF16X3_FORCED_AT
+    cfg = named_config(name).replace(**over)
+    check(frontend.bf16_layout(cfg)[0] == "pass", f"{name} {over} takes pass")
+    audio, lengths = rows(pad_batch, cfg, n_rows)
+    own, own_layout = frontend._lib, frontend.bf16_layout
+    forced = next((p, t, s) for p, t, s in frontend.BF16_LAYOUTS
+                  if p == "gather" and frontend._bf16_smem(cfg, p, t, s) <= frontend.rs_kernel.SMEM_BUDGET_BYTES)
+    libs = {"parent": fe["change"], "change": bind(sos["bf16_gather", "frontend"], frontend._lib(), FRONTEND_FNS)}
+    ms = {key: [] for key in libs}
+    outs = {}
+    try:
+        for key in ("parent", "change", "change", "parent"):
+            frontend._lib = lambda key=key: libs[key]
+            # the mirror follows the build (the launch's counts)
+            frontend.bf16_layout = own_layout if key == "parent" else (lambda *a, **k: forced)
+            fn = lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")  # noqa: E731
+            outs[key] = fn()
+            ms[key].append(chip_smoke.device_ms(torch, fn, "logmel_kernel"))
+    finally:
+        frontend._lib, frontend.bf16_layout = own, own_layout
+    errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+    if testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL):
+        raise SystemExit(f"bf16x3 gather forced at {name} {over}: the builds disagree: {errs}")
+    report(f"front-end bf16x3 {name} {over} b{n_rows} x 10 s forced to {forced} (change) against "
+           f"{own_layout(cfg)} (parent)", ms, outs)
+    del audio, lengths, outs
+    if bf16x3_only:
+        return 0
+    tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}
     for name, over, n_rows in TURNS:
         cfg = named_config(name).replace(**over)
         audio, lengths = rows(pad_batch, cfg, n_rows)
@@ -237,6 +306,7 @@ def check(ok: bool, what: str) -> None:
 def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--parent", type=pathlib.Path, help="root of another checkout: time both in turns")
+    args.add_argument("--bf16x3", action="store_true", help="with --parent: the bf16x3 form's turns alone")
     args = args.parse_args()
     import torch
 
@@ -252,7 +322,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     if args.parent is not None:
-        return turns(args.parent, card)
+        return turns(args.parent, card, args.bf16x3)
     src = (_build.CSRC / "frontend.cu").read_text()
     out = _build.BUILD_DIR / "block_plan_sweep"
     out.mkdir(parents=True, exist_ok=True)

@@ -19,7 +19,7 @@ depend on n_fft; past 65,536 bins the packed table's bin field widens
 - the layout mirror: no Stockham or Bluestein layout refused from n_fft 16
   to 131,072 for any named family; every config the parent's five block
   plans fit keeps its plan; the "gather_rows" layout constant in n_fft; the
-  tops of "gather_bands"; the bf16x3 opt-in refused where it was;
+  tops of "gather_bands"; the bf16x3 opt-in taken where it was refused;
 - the packed table at n_fft 131,072 round-trips each bin and filter;
 - a stream and a block launch at 16,384 ≡ the offline chain.
 tests/test_torch_gpu.py and chip_smoke.py (phase 29) hold the kernel's new
@@ -194,15 +194,22 @@ def test_tops_of_gather_bands():
 
 
 def test_bf16x3_is_refused_where_it_was():
-    """The bf16x3 opt-in keeps its layout (it stages the span): refused from
-    n_fft 2,245 at classic13, and at 7,001 and 16,384, where the default form
-    now runs; the reason names the bf16x3 form and the block's 232,448 B."""
+    """Where the bf16x3 opt-in was refused (it staged the span: from n_fft
+    2,245 at classic13, and at 7,001 and 16,384, where the default form
+    runs), its block plans take it now (`frontend.bf16_layout`); what is
+    still refused is the packed table's filter field (60,000 filters) and,
+    on the card, a matrix over the card's memory (n_fft = frame length =
+    131,072 on an 80 GB card)."""
     c = T_CONFIGS["classic13"]
     assert frontend.layout_reason(c.replace(n_fft=2244), "bf16x3") is None
     for n in (2245, 4096, 7001, 16384):
-        reason = frontend.layout_reason(c.replace(n_fft=n), "bf16x3")
-        assert "bf16x3" in reason and "232,448" in reason, n
+        assert frontend.layout_reason(c.replace(n_fft=n), "bf16x3") is None, n
+        assert frontend.bf16_layout(c.replace(n_fft=n))[0] != "staged", n
         assert frontend.layout_reason(c.replace(n_fft=n)) is None
+    assert "filter field" in frontend.layout_reason(c.replace(n_mels=60000), "bf16x3")
+    wide = c.replace(n_fft=131072, win_len_s=131072 / 16000)
+    assert frontend.layout_reason(wide, "bf16x3") is None
+    assert "over the card's" in frontend.bf16_matrix_reason(wide, 80 * 10**9)
 
 
 def test_packed_table_at_131072_round_trips():

@@ -129,13 +129,16 @@ def _unpermute(mat, cfg):
     return m[0], m[1]
 
 
-def _emulate_tile_power(frames, cfg):
+def _emulate_tile_power(frames, cfg, promote=None):
     """The kernel's bf16x3 DFT in numpy: each frame's first min(L, n_fft)
     samples, zero to kp, as bf16 hi = rn(g) and lo = rn(g - hi); the
     un-permuted ring matrices; the fp32 accumulator summed step after step
     over k16 slices, ah·Wh, then al·Wh, then ah·Wl, as the three wgmma
-    products of a ring stage; re and im of each bin from its adjacent
-    cosine and sine columns; re² + im²."""
+    products of a ring stage; with `promote` (the block plans' kBfPromote)
+    each stretch of that many steps summed from 0 and added to the earlier
+    stretches' fp32 sum, the last stretch's sum plus that sum at the end;
+    re and im of each bin from its adjacent cosine and sine columns;
+    re² + im²."""
     kp, nbp = frontend.bf16_dims(cfg)
     hi_m, lo_m = _unpermute(frontend.bf16_matrix(cfg), cfg)
     x = np.zeros(frames.shape[:-1] + (kp,), np.float32)
@@ -144,11 +147,17 @@ def _emulate_tile_power(frames, cfg):
     ah = x.astype(ml_dtypes.bfloat16).astype(np.float32)
     al = (x - ah).astype(ml_dtypes.bfloat16).astype(np.float32)
     y = np.zeros(frames.shape[:-1] + (2 * nbp,), np.float32)
-    for k in range(0, kp, 16):
+    total = None
+    for s, k in enumerate(range(0, kp, 16)):
         ks = slice(k, k + 16)
         y = y + ah[..., ks] @ hi_m[ks]
         y = y + al[..., ks] @ hi_m[ks]
         y = y + ah[..., ks] @ lo_m[ks]
+        if promote and (s + 1) % promote == 0 and k + 16 < kp:
+            total = y if total is None else total + y
+            y = np.zeros_like(y)
+    if total is not None:
+        y = y + total
     re, im = y[..., 0::2], y[..., 1::2]
     return (re * re + im * im)[..., : cfg.n_bins]
 
@@ -207,13 +216,19 @@ def test_dft_passes_validation_and_routing():
     # the bf16x3 layout: no twiddles or per-warp rows; 64 frames' signal span,
     # a ring of four 17,408-byte matrix stages and its mbarriers, the tile's
     # power rows (stride 292), energies and means, the projection's scratch
-    # (194,752 B at classic13, one block an SM); n_fft 4096's power rows
-    # alone are over the block
+    # (194,752 B at classic13, one block an SM); n_fft 4096's power rows of
+    # every bin are over the block, so it takes the power rows of one pass
+    # ("pass"); what is still refused is the packed table's filter field, and
+    # on the card a matrix over the card's memory
     assert frontend.bf16_plan(cfg) == (64, 4) and frontend.bf16_power_stride(cfg) == 292
     assert frontend.bf16_dims(cfg) == (400, 272)
     assert frontend.smem_bytes(cfg, "bf16x3") == 194752
     assert frontend.layout_reason(cfg, "bf16x3") is None
-    assert "232,448" in frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3")
+    assert frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3") is None
+    assert frontend.bf16_layout(cfg.replace(n_fft=4096))[0] == "pass"
+    assert "filter field" in frontend.layout_reason(cfg.replace(n_mels=60000), "bf16x3")
+    wide = cfg.replace(n_fft=131072, win_len_s=131072 / 16000)
+    assert "over the card's 80,000,000,000 bytes" in frontend.bf16_matrix_reason(wide, 80 * 10**9)
     with pytest.raises(ValueError, match="not in"):
         tchain.logmel_stages(x, n, cfg, dft_passes="bf16x6")
 

@@ -168,9 +168,10 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """A layout over the block's shared memory: the bf16x3 opt-in at n_fft
-    4096 (it stages the span) names its layout, which the card's wrapper
-    refuses before any launch; n_fft 7,001, which it refused before
+    """What is still refused: 60,000 filters, over the packed table's
+    filter field, the bf16x3 opt-in's only layout reason (it takes n_fft
+    4096 in its "pass" plan now), which the card's wrapper refuses before
+    any launch; n_fft 7,001, which it refused before
     (275,360 B in the gather plan), runs with the packed bands read from
     device memory ("gather_bands", 222,384 B), here as its plain version ≡
     the JAX package's jnp stages; n_fft 5,393, refused before that
@@ -185,8 +186,8 @@ def test_wrapper_refuses_configs_outside_the_slice():
     the log-mel gate, 1e-4), with no launch."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    reason = frontend.layout_reason(T_CONFIGS["classic13"].replace(n_fft=4096), "bf16x3")
-    assert "shared memory" in reason and "bf16x3" in reason
+    reason = frontend.layout_reason(T_CONFIGS["classic13"].replace(n_mels=60000), "bf16x3")
+    assert "60000 filters" in reason and "filter field" in reason
     c7001, j7001 = T_CONFIGS["classic13"].replace(n_fft=7001), J_CONFIGS["classic13"].replace(n_fft=7001)
     assert frontend.layout_reason(c7001) is None and frontend.fft_plan(c7001) == "gather_bands"
     x = np.round(np.random.default_rng(7001).standard_normal((2, 9000)) * 3000).astype(np.float32)

@@ -95,11 +95,13 @@ def test_kernel_refuses_what_it_does_not_take():
         frontend.logmel_prefix(audio, lengths.long(), cfg)
     with pytest.raises(ValueError, match="int16 or float32"):
         frontend.logmel_prefix(audio.double(), lengths, cfg)
-    # the bf16x3 opt-in past its layout (it stages the span) raises before
-    # any launch; n_fft 7001, refused before, runs in the default form
+    # a bf16x3 matrix over the card's memory (n_fft = frame length =
+    # 131,072: 68.7 GB, folded from 137.4 GB of float64) raises before it is
+    # built or launched; n_fft 7001, refused before, runs in the default form
     before = frontend.launches
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096), dft_passes="bf16x3")
+    with pytest.raises(NotImplementedError, match="over the card's"):
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=131072, win_len_s=131072 / 16000),
+                               dft_passes="bf16x3")
     assert frontend.launches == before
     c7001 = cfg.replace(n_fft=7001)
     got = frontend.logmel_prefix(audio, lengths, c7001)
@@ -435,8 +437,10 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 
 def test_layout_over_the_block_budget_raises():
-    """A layout over the block's 227 KB raises before the launch: the bf16x3
-    opt-in at n_fft 4096 (it stages the span); n_fft 7,001 (refused before:
+    """What is still refused raises before the launch: 60,000 filters, over
+    the packed table's filter field (the bf16x3 opt-in at n_fft 4096, over
+    the block while it staged the power rows of every bin, now fits in its
+    "pass" plan and launches); n_fft 7,001 (refused before:
     the gather plan's Bluestein rows of P = 12,288 and its packed bands,
     275,360 B) fits with the bands read from device memory (222,384 B) and
     launches; n_fft 2048 at 26 filters, over it while the mel matrix was
@@ -448,16 +452,19 @@ def test_layout_over_the_block_budget_raises():
     assert frontend.smem_bytes(cfg) == 222384 and frontend.fft_plan(cfg) == "gather_bands"
     assert frontend.smem_bytes(cfg.replace(n_fft=2048)) <= rs_kernel.SMEM_BUDGET_BYTES
     assert frontend.smem_bytes(cfg.replace(n_fft=4096)) <= rs_kernel.SMEM_BUDGET_BYTES
-    assert frontend.smem_bytes(cfg.replace(n_fft=4096), "bf16x3") > rs_kernel.SMEM_BUDGET_BYTES
+    assert frontend.smem_bytes(cfg.replace(n_fft=4096), "bf16x3") <= rs_kernel.SMEM_BUDGET_BYTES
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
-    with pytest.raises(NotImplementedError, match="232,448"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096), dft_passes="bf16x3")
+    with pytest.raises(NotImplementedError, match="filter field"):
+        frontend.logmel_prefix(audio, lengths, cfg.replace(n_mels=60000), dft_passes="bf16x3")
     assert frontend.launches == before
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
     assert frontend.launches == before + 1
+    got = frontend.logmel_prefix(audio, lengths, cfg.replace(n_fft=4096), dft_passes="bf16x3")
+    torch.cuda.synchronize()
+    assert frontend.launches == before + 2 and bool(torch.isfinite(got).all())
     eps = torch.tensor(cfg.log_eps, dtype=torch.float32)
     assert torch.equal(got[..., cfg.n_mels].cpu(), eps.expand(got.shape[:2]))  # zero rows: energy eps
 
@@ -850,6 +857,80 @@ def test_bf16x3_form_runs_wgmma():
     assert len(bf16) == 16
     assert sum("Lb1ELb" in fn.split("\n", 1)[0].split("logmel_kernel", 1)[1][:8] for fn in bf16) == 8
     for fn in bf16:
+        assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
+
+
+BF16X3_PLANS = [
+    ("classic13", {"n_fft": 2245}, "pass"),
+    ("classic13", {"n_fft": 4096}, "pass"),
+    ("classic13", {"n_fft": 8192}, "pass"),
+    ("kaldi_mfcc", {"dither": 1.0, "n_fft": 4096}, "pass"),
+    ("ssc26", {"n_fft": 4096}, "pass"),
+    ("kaldi_plp", {"n_fft": 4096}, "pass"),
+    ("classic13", {"hop_s": 0.1}, "gather"),
+    ("classic13", {"win_len_s": 1.1}, "gather"),
+    ("kaldi_mfcc", {"dither": 1.0, "hop_s": 0.1, "frame_tail": "center"}, "gather"),
+    ("kaldi_spectrogram", {"hop_s": 0.1}, "gather"),
+    ("mfcc39_48k", {"hop_s": 0.1}, "gather"),
+    ("classic13", {"n_fft": 24000}, "gather_bands"),
+    ("classic13", {"n_mels": 2000, "n_fft": 4096}, "gather_out"),
+    ("ssc26", {"n_mels": 700, "n_fft": 16384}, "gather_out"),
+]
+BF16X3_PLAN_IDS = ["pass_2245", "pass_4096", "pass_8192", "pass_kaldi_dither", "pass_ssc26", "pass_kaldi_plp",
+                   "gather_hop", "gather_frames", "gather_kaldi_dither_centered", "gather_spectrogram",
+                   "gather_split_48k", "gather_bands_24000", "gather_out_2000", "gather_out_ssc_700"]
+
+
+@pytest.mark.parametrize("name,overrides,plan", BF16X3_PLANS, ids=BF16X3_PLAN_IDS)
+def test_bf16x3_block_plans_match_reference(name, overrides, plan):
+    """The bf16x3 form's block plans (`frontend.bf16_layout`: the power rows
+    of one pass; frames, then bands and the pass table, then the
+    accumulators in device memory) ≡ their plain version at the bf16x3
+    gates; one launch counted by plan (resampled rows: resample.cu, then the
+    plain form); int16 ≡ float32 and two runs bitwise; the instantiation
+    without spills."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    at = frontend.feature_rate_config(cfg)
+    assert frontend.bf16_layout(at)[0] == plan
+    sr = cfg.input_sample_rate or cfg.sample_rate
+    g = np.random.default_rng(43)
+    utts = [g.standard_normal(n) * 3000 for n in (3 * sr, 2 * sr + 12345, 801, 90)]
+    b = pad_batch(utts, cfg, bucket_len=3 * sr, dtype="int16")
+    audio = torch.as_tensor(b.audio, device=dev)
+    lengths = torch.as_tensor(b.lengths, device=dev)
+    counters = ("bf16x3_launches", f"bf16_{plan}_launches", "split_launches")
+    before = [getattr(frontend, c) for c in counters]
+    got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+    torch.cuda.synchronize()
+    split = int(frontend.resample_route(cfg, "bf16x3") == "split")
+    assert [getattr(frontend, c) - n for c, n in zip(counters, before)] == [1, 1, split]
+    want = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3")
+    errs = testing.prefix_errors(got, want, cfg.n_mels, cfg.log_kind, cfg.features)
+    assert not testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL), errs
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3"))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3"))
+    info = frontend.kernel_info(cfg, True, "bf16x3")
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+
+
+def test_bf16x3_block_plans_run_wgmma():
+    """The bf16x3 block plans' 8 instantiations (the plain form: int16 or
+    float32 rows, dither, conditioning) hold HGMMA and the ring's bulk
+    copies, and no mma.sync."""
+    import pathlib
+    import subprocess
+
+    from mfcc_tpu_torch.kernels import _build
+
+    _card()
+    lib, _ = _build.build("frontend")
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
+    block = [fn for fn in dump.split("Function : ")[1:]
+             if re.search(r"logmel_kernelI[sf](?:Lb[01]E){3}Lb1ELb1EEEv", fn.split("\n", 1)[0])]
+    assert len(block) == 8
+    for fn in block:
         assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
 
 

@@ -346,20 +346,24 @@ def test_refusal_map_edges(name, over, top):
 
 
 def test_bf16x3_form_still_stages_the_span():
-    """The bf16x3 form (an opt-in route) has no gather plan: n_fft 8192 and a
-    hop of 0.2 s are over the block under dft_passes="bf16x3", which the
-    default form takes. At classic13 it takes n_fft to 2,244, hops to 1,213
-    samples and frames to 16,788 samples."""
+    """The bf16x3 form (an opt-in route) stages the span in its first plan
+    ("staged"): at classic13 to n_fft 2,244, hops of 1,213 samples and
+    frames of 16,788 samples, as before. One past each edge, and at n_fft
+    8192 and a hop of 0.2 s, which the default form takes, it takes its
+    block plans (`frontend.bf16_layout`: the power rows of one pass, then
+    each frame from device memory) instead of being refused."""
     c = T_CONFIGS["classic13"]
     for over in (dict(n_fft=8192), dict(hop_s=0.2)):
         cfg = c.replace(**over)
         assert frontend.layout_reason(cfg) is None
-        reason = frontend.layout_reason(cfg, "bf16x3")
-        assert "bf16x3" in reason and "232,448" in reason
+        assert frontend.layout_reason(cfg, "bf16x3") is None
+        assert frontend.bf16_layout(cfg)[0] in ("pass", "gather")
     for key, edge in (("n_fft", 2244), ("hop_s", 1213 / 16000), ("win_len_s", 16788 / 16000)):
         step = 1 if key == "n_fft" else 1 / 16000
         assert frontend.layout_reason(c.replace(**{key: edge}), "bf16x3") is None, key
-        assert frontend.layout_reason(c.replace(**{key: edge + step}), "bf16x3"), key
+        assert frontend.bf16_layout(c.replace(**{key: edge}))[0] == "staged", key
+        assert frontend.layout_reason(c.replace(**{key: edge + step}), "bf16x3") is None, key
+        assert frontend.bf16_layout(c.replace(**{key: edge + step}))[0] in ("pass", "gather"), key
 
 
 @pytest.mark.parametrize("case", ["classic13_deltas_hop_0.2", "librosa_8192_hop_2048"])
