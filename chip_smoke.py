@@ -282,6 +282,25 @@ Phases, in order; any failure exits non-zero:
      int16 == float32 and two runs bitwise, the counts and mask, no spills;
      device time beside rfft(n=n_fft), the function's bound, the three
      products at the bf16 peak and the matrix each tile reads.
+  31. every filter count (`many_filters_path`, `MANY_FILTERS`): the packed
+     mel table without a filter field, and "gather_sums" (the projection's
+     sums in device memory): classic13_deltas at 40,000 ("gather_bands")
+     and 60,000 filters ("gather_sums"), b16 x 10 s; ssc26 at 30,000 filters
+     and n_fft 4,096 ("gather_sums"), b16; logmel80 at 33,000, b4; bf16x3 at
+     40,000 ("gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
+     b16; n_fft 131,072 at 16,385 filters (past the old 14-bit field), b2 x
+     30 s, where the host's memory holds its dense mel matrix and the run
+     is under HOST_BOUND_AFTER_S old. Each against
+     its plain version on the card (float64, the first and last rows;
+     the fp32 one printed; filters
+     of at most two weights at the per-bin gate, NaN where an SSC filter has
+     no weight, in the same places), int16 == float32, two runs, a NaN-filled
+     workspace and a persistent grid of 7 blocks, bitwise; the counts and
+     mask; extract_batch counted (fused_logmel_stages for bf16x3); the
+     tail against its plain version on the kernel's prefix, the features on
+     rows 0-1 within their family's gate of the float64 chain; device time,
+     the plain version, rfft(n=n_fft) and the bound; the tail's split (its
+     base compensated past 1,024 lanes) timed beside its plain version.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -565,7 +584,23 @@ KERNELS = {
                    "bf16x3_gather_frames_1.1s", "bf16x3_pass_kaldi_dither_4096", "bf16x3_pass_ssc26_4096",
                    "bf16x3_pass_kaldi_plp_4096", "bf16x3_split_48k_hop_0.1", "bf16x3_gather_librosa_8192",
                    "bf16x3_gather_bands_24000", "bf16x3_gather_out_2000_filters")},
+    **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+             "replaces": replaces}
+       for key, replaces in (("gather_bands_40000_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_sums_60000_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("gather_sums_ssc26_30000_filters", "mfcc_tpu/kernels/frontend.py:965"),
+                             ("gather_bands_logmel80_33000_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("bf16x3_gather_out_40000_filters", "mfcc_tpu/kernels/frontend.py:857"),
+                             ("gather_rows_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"))},
+    "tail_split_compensated_60000_filters": {
+        "name": "feature_tail_split_60000_filters_compensated",
+        "route": "cuda",
+        "source": "mfcc_tpu_torch/kernels/csrc/tail.cu",
+        "replaces": "mfcc_tpu/kernels/frontend.py:714",
+    },
 }
+# kernels whose case a host without the memory leaves out (phase 31)
+HOST_BOUND_KERNELS = {"gather_rows_131072_16385_filters"}
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # librosa's default framing (librosa.feature.melspectrogram: sr 22,050, n_fft
 # 2048, win_length n_fft, hop 512, 128 mels), a logmel80 override
@@ -726,6 +761,7 @@ class Counters:
         self.frontend.gather_launches = 0
         self.frontend.gather_bands_launches = 0
         self.frontend.gather_rows_launches = 0
+        self.frontend.gather_sums_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.bf16_pass_launches = 0
         self.frontend.bf16_gather_launches = 0
@@ -758,6 +794,7 @@ class Counters:
             "gather": self.frontend.gather_launches,
             "gather_bands": self.frontend.gather_bands_launches,
             "gather_rows": self.frontend.gather_rows_launches,
+            "gather_sums": self.frontend.gather_sums_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "bf16_pass": self.frontend.bf16_pass_launches,
             "bf16_gather": self.frontend.bf16_gather_launches,
@@ -1322,13 +1359,14 @@ def small_path(torch, counters, cfg, lengths: list[int], bucket: int, seed: int,
 
 def plan_branches(chain, frontend, cfg) -> dict[str, int]:
     """The front-end's branch counts of one plain-form launch of cfg: its
-    framing, form, plan (`frontend.PLAN_TRAITS`: frames, tables, bands and
-    rows from device memory), dither and conditioning."""
+    framing, form, plan (`frontend.PLAN_TRAITS`: frames, tables, bands,
+    rows and sums in device memory), dither and conditioning."""
     form, plan = frontend.dft_form(cfg), frontend.fft_plan(cfg)
-    gather, tables = frontend.PLAN_TRAITS.get(plan, (False,) * 4)[:2]
+    gather, tables = frontend.PLAN_TRAITS.get(plan, (False,) * 5)[:2]
     return {k: 1 for k, on in (
         ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"), ("global_tables", tables),
         ("gather", gather), ("gather_bands", plan == "gather_bands"), ("gather_rows", plan == "gather_rows"),
+        ("gather_sums", plan == "gather_sums"),
         ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
         ("conditioning", chain.needs_conditioning(cfg))) if on}
 
@@ -2031,6 +2069,290 @@ def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
         torch.cuda.empty_cache()
         print(f"  {key} took {time.perf_counter() - t_case:.1f} s")
     print(f"  phase 30 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 31's cases, tens of thousands of filters: (key, config, overrides,
+# rows, seconds a row, the plan, the dft_passes route); the host-bound case
+# first, while the run is young
+MANY_FILTERS = (
+    ("gather_rows_131072_16385_filters", "classic13_deltas", dict(n_fft=131072, n_mels=16385), 2, 30,
+     "gather_rows", "radix4"),
+    ("gather_bands_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_bands", "radix4"),
+    ("gather_sums_60000_filters", "classic13_deltas", dict(n_mels=60000), B_SMALL, 10, "gather_sums", "radix4"),
+    ("gather_sums_ssc26_30000_filters", "ssc26", dict(n_mels=30000, n_fft=4096), B_SMALL, 10, "gather_sums",
+     "radix4"),
+    ("gather_bands_logmel80_33000_filters", "logmel80", dict(n_mels=33000), 4, 10, "gather_bands", "radix4"),
+    ("bf16x3_gather_out_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_out", "bf16x3"),
+)
+
+
+# phase 31 leaves its n_fft 131,072 case out of a run already this many
+# seconds old (its dense tables take minutes of host time; the limit is 1,200)
+HOST_BOUND_AFTER_S = 650
+# phase 31's tail entry of the kernels line: the split with its base
+# compensated (past 1,024 lanes), at the case that times it
+TAIL_KEYS = {"gather_sums_60000_filters": "tail_split_compensated_60000_filters"}
+
+
+def mem_available() -> int:
+    """Bytes of host memory available (/proc/meminfo MemAvailable)."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return 0
+
+
+def nan_gate(torch, testing, got, want, cfg, what: str, narrow=None, rows=None) -> dict[str, float]:
+    """A prefix against a reference at the prefix gates: NaN, an SSC filter
+    with no weight (0/0 in every version), in the same places on every row;
+    the other lanes at the gates (`narrow` lanes at the per-bin gate) on
+    `rows` (every row by default), a row at a time on the host (each gate is
+    a max, so the rows' max is theirs)."""
+    want = want.to(got.device)
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: NaN where the reference has it")
+    nans = int(nan.sum())
+    del nan
+    errs: dict[str, float] = {}
+    for i in range(got.shape[0]) if rows is None else rows:
+        g, w = got[i].cpu(), want[i].cpu()
+        m = torch.isnan(w)
+        e = testing.prefix_errors(g.masked_fill(m, 0.0), w.masked_fill(m, 0.0), cfg.n_mels, cfg.log_kind,
+                                  cfg.features, narrow)
+        errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+    print(f"    {what}{'' if rows is None else f' (rows {list(rows)})'}: "
+          + ", ".join(f"{k}={v:.3e}" for k, v in errs.items())
+          + (f"; {nans} NaN lanes (filters with no weight) in both" if nans else ""))
+    return errs
+
+
+def features_gate(torch, testing, got, want, cfg, what: str) -> None:
+    """Lane-wise features (log-mel, PLP, SSC) against the float64 chain at
+    the family's gate (log-mel the two-regime gate; PLP and SSC
+    FAMILY_GATES' float64 ones), NaN in the same places."""
+    g, w = got.double().cpu(), want.double().cpu()
+    nan = torch.isnan(w)
+    check(torch.equal(torch.isnan(g), nan), f"{what}: NaN where the float64 chain has it")
+    g, w = g.masked_fill(nan, 0.0), w.masked_fill(nan, 0.0)
+    if cfg.features == "logmel":
+        errs = testing.logmel_errors(g, w, cfg.log_kind)
+        fails = testing.logmel_failures(errs)
+    else:
+        errs = testing.family_feature_errors(g, w, cfg.features, "float64")
+        fails = testing.family_feature_failures(errs, cfg.features, "float64")
+    print(f"    {what}: " + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    check(not fails, f"{what} within the family's gate {fails or ''}")
+
+
+def many_filters_path(torch, counters, tag: str, results: dict, t_script: float) -> None:
+    """Phase 31: every filter count (`MANY_FILTERS`): the packed mel table
+    holds each weight's bin alone, so 32,768 filters and more (16,384 at
+    n_fft 131,072) are taken; "gather_sums" keeps the projection's sums in
+    device memory where "gather_rows" at one group stages too many (57,849
+    filters, 28,797 for SSC). For each: the plan, no spills, the launch
+    counted by plan; the kernel against its plain version on the card in
+    float64 (the fp32 one printed, but at n_fft 131,072) at the prefix
+    gates on the first and last rows, NaN in the same places on every row,
+    filters of at most
+    two weights at the per-bin gate; int16 ==
+    float32, two runs, and in the plans with a workspace a NaN-filled one and
+    a persistent grid of 7 blocks, bitwise; the counts and mask;
+    extract_batch counted (fused_logmel_stages(dft_passes="bf16x3") for the
+    bf16x3 case), for mfcc the tail against its plain version on the
+    kernel's prefix and the cepstra on rows 0-1 within 5e-4 + 1e-5·|f| of
+    the float64 chain (the CPU fp32 chain's distance printed beside), the
+    other families' features on rows 0-1 within their gate of the float64
+    chain (none at n_fft 131,072, whose float64 CPU chain would take
+    minutes); device time, the plain version, rfft(n=n_fft) and the bound.
+    The n_fft 131,072 case builds its dense float64 mel matrix and its
+    copies on the host (~45 GB at 16,385 filters, 1.5-2 minutes of host
+    time): a host without that memory, or a run already HOST_BOUND_AFTER_S
+    seconds old (the script's limit is 1,200), leaves it out, and says so."""
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend, tail
+    from mfcc_tpu_torch.ops import chain, constants
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    t_phase = time.perf_counter()
+    print("== 31. every filter count: the packed table without a filter field, the projection's sums "
+          "in device memory")
+    own_workspace, own_resident = frontend._workspace, frontend._resident_blocks
+    bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731  (NaN-safe bitwise)
+    for key, name, over, rows, seconds, plan, passes in MANY_FILTERS:
+        t_case = time.perf_counter()
+        cfg = named_config(name).replace(**over)
+        host = 5 * 8 * cfg.n_bins * cfg.n_mels  # the dense float64 mel, its copies and band temporaries
+        if host > 32e9 and host > 0.8 * mem_available():
+            print(f"   {key}: left out: ~{host / 1e9:.0f} GB of host memory for the dense mel matrix, "
+                  f"{mem_available() / 1e9:.0f} GB available")
+            continue
+        if host > 32e9 and time.perf_counter() - t_script > HOST_BOUND_AFTER_S:
+            print(f"   {key}: left out: the script is {time.perf_counter() - t_script:.0f} s old, over "
+                  f"{HOST_BOUND_AFTER_S} s, and its dense tables take minutes of host time")
+            continue
+        bf16 = passes == "bf16x3"
+        n = cfg.sample_rate * seconds
+        batch = make_batch(pad_batch, cfg, rows, n, 571, seed=sum(map(ord, key)))
+        audio = torch.as_tensor(batch.audio, device="cuda")
+        lengths = torch.as_tensor(batch.lengths, device="cuda")
+        F = cfg.num_frames(batch.audio.shape[1])
+        layout = frontend.bf16_layout(cfg) if bf16 else frontend.fft_layout(cfg)
+        print(f"   {key}: {name} {over} b{rows} x {seconds} s int16 {list(batch.audio.shape)}, {F} frames, "
+              f"{passes}: {layout}, {frontend.smem_bytes(cfg, passes):,} B a block, "
+              f"{frontend.packed_count(cfg):,} packed weights")
+        check(layout[0] == plan and chain.unsupported_reason(cfg) is None and frontend.layout_reason(cfg) is None
+              and frontend.layout_reason(cfg, "bf16x3") is None, f"{key} takes {plan}, nothing refused")
+        info = frontend.kernel_info(cfg, True, passes)
+        print(f"    {info}")
+        check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
+        kind = frontend.feature_kind(cfg)
+        kinds = {kind: 1} if kind in ("plp", "spectrogram", "ssc") else {}
+        if bf16:
+            branches, counter = {"bf16x3": 1, "bf16_gather_out": 1, **kinds}, "bf16_gather_out"
+        else:
+            branches, counter = {**plan_branches(chain, frontend, cfg), **kinds}, plan
+        counters.zero()
+        got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes)
+        torch.cuda.synchronize()
+        launches = counters.expect("the kernel", frontend=1, **branches)
+        check(tuple(got.shape) == (rows, F, cfg.n_mels + 1), f"prefix shape {tuple(got.shape)}")
+        narrow = None
+        if not bf16 and cfg.features != "ssc":
+            narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+            print(f"    {int(narrow.sum())} of {cfg.n_mels} filters narrow (at most {testing.NARROW_WEIGHTS} "
+                  f"weights): the per-bin gate")
+        chunk = max(1, 2**30 // (F * (cfg.n_mels + cfg.n_bins) * 8))
+        # the gates' rows: the first and the last, the shortest (the host's
+        # numpy takes seconds a row at tens of thousands of lanes); the NaN
+        # check, the bitwise ones and the counts take every row
+        spread = [0, rows - 1]
+        e32 = {}
+        if bf16 or cfg.n_fft <= 16384:  # the bf16x3 route's gate; else printed on rows 0-1
+            k32 = rows if bf16 else 2
+            plain32 = torch.cat([frontend.logmel_prefix_reference(audio[i:i + chunk], lengths[i:i + chunk], cfg,
+                                                                  dft_passes=passes) for i in range(0, k32, chunk)])
+            e32 = nan_gate(torch, testing, got[:k32], plain32[:k32], cfg,
+                           "kernel vs its fp32 plain version" + ("" if bf16 else " (rows 0-1)"), narrow,
+                           spread if bf16 else None)
+            del plain32
+        if bf16:
+            errs = e32
+            fails = testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL)
+        else:
+            want = cfg.replace(dtype="float64")
+            plain64 = torch.cat([frontend.logmel_prefix_reference(audio[i:i + chunk], lengths[i:i + chunk], want)
+                                 for i in range(0, rows, chunk)])
+            errs = nan_gate(torch, testing, got, plain64, cfg, "kernel vs its float64 plain version on the card",
+                            narrow, spread)
+            del plain64
+            fails = testing.prefix_failures(errs)
+        check(not fails, f"{key}: within the prefix gates of its plain version {fails or ''}")
+        check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes=passes)))
+              and torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes))),
+              "int16 rows == float32 rows, and two runs equal, bitwise")
+        if plan in ("gather_rows", "gather_sums", "gather_out"):
+            frontend._workspace = lambda floats, device: torch.full((floats,), float("nan"), device=device)
+            try:
+                check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes))),
+                      "a NaN-filled workspace leaves the output unchanged, bitwise")
+                if plan != "gather_out":
+                    frontend._resident_blocks = lambda *args: 7
+                    check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg))),
+                          "a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
+            finally:
+                frontend._workspace, frontend._resident_blocks = own_workspace, own_resident
+        del got
+        check_counts(torch, frontend, audio, lengths, cfg, key, passes)
+        counters.zero()
+        if bf16:
+            st = frontend.fused_logmel_stages(audio, lengths, cfg, dft_passes="bf16x3", feature_tail=True)
+            torch.cuda.synchronize()
+            counters.expect("fused_logmel_stages(dft_passes='bf16x3', feature_tail=True)", frontend=1, **branches,
+                            **tail_branches(cfg))
+            feat, mask = st["features_fused"], st["frame_mask"]
+        else:
+            feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
+            torch.cuda.synchronize()
+            launches_x = counters.expect("extract_batch", frontend=1, **branches, **tail_branches(cfg))
+        want_mask = frontend.frame_counts_reference(torch.as_tensor(batch.lengths), cfg, F)[1]
+        pad = feat[mask == 0]
+        check(torch.equal(mask.cpu(), want_mask) and bool(((pad == 0) | torch.isnan(pad)).all())
+              and bool((torch.isfinite(feat) | torch.isnan(feat)).all()),
+              "mask the chain's, pad frames exactly 0 (NaN in the lanes of SSC filters with no weight)")
+        if bf16:  # its own accuracy class: the prefix's loud bins against float64 (phase 30's gate)
+            f64 = frontend.logmel_prefix_reference(audio[:2].cpu(), lengths[:2].cpu(), cfg.replace(dtype="float64"))
+            e64 = nan_gate(torch, testing, frontend.logmel_prefix(audio[:2], lengths[:2], cfg, dft_passes="bf16x3"),
+                           f64, cfg, "bf16x3 prefix (rows 0-1) vs the float64 plain version")
+            check(e64["logmel_loud_max_abs"] < testing.BF16X3_LOUD_ATOL, "loud bins within 1e-3 of float64")
+            del f64
+        elif cfg.features == "mfcc":
+            # the tail against its plain version on the front-end's own
+            # prefix (its DCT sums tens of thousands of lanes), then the
+            # cepstra against the float64 chain
+            prefix, nv, _ = frontend.logmel_prefix_counts(audio, lengths, cfg)
+            errs_t = testing.tail_errors(feat, tail.feature_tail_reference(prefix, nv, cfg))
+            print("    the tail vs its plain version on the kernel's prefix: "
+                  + ", ".join(f"{k}={v:.3e}" for k, v in errs_t.items()))
+            check(not testing.tail_failures(errs_t), "the tail within max(2e-4, 2e-5 max|f|) of its plain version")
+            # the split's passes, base compensated past 1,024 lanes
+            tail_ms = device_ms(torch, lambda: tail.feature_tail(prefix, nv, cfg), None)
+            tail_plain_ms = cuda_ms(torch, lambda: tail.feature_tail_reference(prefix, nv, cfg), reps=3, warmup=1)
+            tail_bound_ms, tail_by = tail_bound(cfg, rows, F, int(nv.sum()))
+            print(f"    feature tail, {tail.plan(cfg)[0]} plan: {tail_ms:.4f} ms of device time, L2 flushed "
+                  f"({tail_bound_ms / tail_ms * 100:.2f}% of its bound); plain version {tail_plain_ms:.4f} ms {tag}")
+            if key in TAIL_KEYS:
+                results[TAIL_KEYS[key]] = dict(
+                    launches=launches_x["tail_split"], max_abs_err=errs_t["max_abs"], ms=tail_ms,
+                    plain_ms=tail_plain_ms, bound_ms=tail_bound_ms, bound_by=tail_by, library_ms=None)
+            del prefix
+            if cfg.n_fft <= 16384:
+                f64, _ = chain.extract_batch(batch.audio[:2], batch.lengths[:2], cfg.replace(dtype="float64"),
+                                             device="cpu")
+                cpu, _ = chain.extract_batch(batch.audio[:2], batch.lengths[:2], cfg, device="cpu")
+                d = (feat[:2].double().cpu() - f64).abs()
+                excess = float((d - testing.FEATURE_RTOL * f64.abs()).max())
+                print(f"    features (rows 0-1) vs the float64 chain: max |diff| card {float(d.max()):.3e} "
+                      f"(over 1e-5 |f|: {excess:.3e}), the CPU fp32 chain {float((cpu.double() - f64).abs().max()):.3e}")
+                check(excess <= testing.FEATURE_ATOL, f"card cepstra within {testing.FEATURE_ATOL} + 1e-5 |f| of the "
+                                                      "float64 chain (rows 0-1)")
+                del f64, cpu, d
+        elif cfg.n_fft <= 16384:
+            f64, _ = chain.extract_batch(batch.audio[:2], batch.lengths[:2], cfg.replace(dtype="float64"),
+                                         device="cpu")
+            features_gate(torch, testing, feat[:2], f64, cfg, "card features (rows 0-1) vs the float64 chain")
+            del f64
+        else:
+            print("    features vs the float64 chain: not computed (its CPU rfft and mel product at "
+                  f"n_fft {cfg.n_fft} and {cfg.n_mels} filters take minutes)")
+        del feat, mask
+        kernel_ms = device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes),
+                              "logmel_kernel")
+        plain_ms = cuda_ms(torch, lambda: frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes=passes),
+                           reps=3, warmup=1)
+        stg = chain.logmel_stages(audio, lengths, cfg)
+        framed = stg["windowed"].reshape(rows * F, -1).contiguous()
+        del stg
+        rfft_ms = device_ms(torch, lambda: torch.fft.rfft(framed, n=cfg.n_fft, dim=-1))
+        del framed
+        lens = np.minimum(batch.lengths.astype(np.int64), batch.audio.shape[1])
+        matrix = frontend.bf16_matrix_bytes(cfg)[0] if bf16 else 0
+        bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens, rows, F) + matrix,
+                                   frontend_ops(cfg, chain, frontend, torch, lens, F))
+        print(f"    front-end kernel ({passes}, {plan}): {kernel_ms:.4f} ms of device time, L2 flushed "
+              f"({bound_ms / kernel_ms * 100:.2f}% of its bound, by {bound_by}; {kernel_ms / rfft_ms:.2f}x rfft); "
+              f"launches {launches[counter]} {tag}")
+        print(f"    plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={cfg.n_fft}) on "
+              f"[{rows * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
+        results[key] = dict(launches=launches[counter], max_abs_err=errs["max_abs"], ms=kernel_ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+        del audio, lengths
+        if cfg.n_fft > 16384:  # the dense tables of the largest case
+            chain.device_constants.cache_clear()
+            constants.chain_constants.cache_clear()
+            frontend._device_tables.cache_clear()
+        torch.cuda.empty_cache()
+        print(f"  {key} took {time.perf_counter() - t_case:.1f} s")
+    print(f"  phase 31 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def new_form_paths(torch, counters, tag: str, results: dict) -> None:
@@ -4338,10 +4660,12 @@ def main(argv=None) -> int:
     long_span_path(torch, counters, tag, results)
     any_n_fft_path(torch, counters, tag, results)
     bf16x3_plans_path(torch, counters, tag, results)
+    many_filters_path(torch, counters, tag, results, t_script)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS]}))
+    print(json.dumps({"kernels": [{**KERNELS[k], **results[k]} for k in KERNELS
+                                  if k in results or k not in HOST_BOUND_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

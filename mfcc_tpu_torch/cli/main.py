@@ -91,15 +91,9 @@ def _resolve_config(args):
 
 
 def _refusal(cfg, device: str) -> str | None:
-    """Why the port cannot extract cfg on device, or None. Both devices
-    refuse what `chain.unsupported_reason` names (a layout over a kernel
-    block, including the feature tail's for mfcc configs); the card also
-    refuses a compute dtype other than float32 and a missing card."""
-    from mfcc_tpu_torch.ops import chain
-
-    reason = chain.unsupported_reason(cfg)
-    if reason:
-        return f"config {cfg.config_hash()} needs the {reason}, which the port does not have yet"
+    """Why the port cannot extract cfg on device, or None: the CPU takes
+    every config; the card refuses a missing card and a compute dtype other
+    than float32."""
     if device == "cuda":
         import torch
 

@@ -121,8 +121,9 @@
 //   4. The projection over packed mel bands: the host packs each filter's
 //      nonzero band [lo, hi) filter after filter (459 weights at
 //      classic13, 1.8 KB, where the dense [257, 26] matrix took 26.7 KB),
-//      with per-filter offsets and, per weight, one word holding its bin,
-//      its filter and whether it is the filter's last. The packed weights
+//      with per-filter offsets and, per weight, one word holding its bin
+//      (all 31 bits) and, in the sign bit, whether it is the filter's last:
+//      no word names a filter, so no filter count is refused. The packed weights
 //      are cut evenly over the warp's lanes, c = ceil(nnz/32) rounded up to
 //      odd (15 at classic13; an odd stride puts the lanes' first weights in
 //      32 banks): lane l sums [l c, l c + c) one weight at a time, storing
@@ -130,15 +131,19 @@
 //      and posting the partial of the one that goes on; a filter that began
 //      in an earlier lane a is summed by the lane it ends in, as part[a] +
 //      ... + part[l-1] + its own sum, in that order, so two runs are
-//      bitwise equal. The loop's only branch stores a sum; the clamp and log
-//      (or nothing for plp, or the SSC ratio) follow lane-parallel over the
-//      sum row, with lane M's energy. Nothing but the [F, M+1] prefix
-//      reaches device memory.
+//      bitwise equal. Each lane finds the filter its chunk starts in once a
+//      tile, by a binary search of the offsets for its first weight
+//      (filter_of: log2(M + 1) loads, where a per-chunk table from the host
+//      would need one for each plan's chunk and a pointer more in the C
+//      interface), and counts one filter on at each sign bit. The loop's
+//      only branch stores a sum; the clamp and log (or nothing for plp, or
+//      the SSC ratio) follow lane-parallel over the sum row, with lane M's
+//      energy. Nothing but the [F, M+1] prefix reaches device memory.
 //
 // Shared memory (floats, every offset 16-byte aligned; kernels/frontend.py
 // smem_bytes mirrors it): the signal row (one more float in the fused
 // resample and under dither: x[t0-1 .. t0+span)), the window, the packed weights (mel; melf
-// after it for ssc), the filters' offsets [M+1] and the weights' bin-filter
+// after it for ssc), the filters' offsets [M+1] and the weights' bin
 // words, the twiddles (the split's N/4 + 1 entries, then each later stage's
 // (H/R)(R - 1) twists), the stages' output bases, then per warp its two
 // rows and its projection scratch (32 lane partials and M sums; twice for
@@ -237,7 +242,7 @@
 // at n_fft 16,384 and 26 filters the bands are 124 KB of 272,736 B, and from
 // n_fft 6,205 at classic13 (the Bluestein rows of P = 10,240) the two are
 // over the block. "gather_bands" is "gather_global" with the mel weights,
-// SSC's melf weights, the filter offsets and the bin-filter words read from
+// SSC's melf weights, the filter offsets and the bin words read from
 // device memory through one Bands of pointers a block: shared memory holds
 // each group's two rows, its projection scratch and the warps' partials. It
 // takes Stockham sizes to n_fft 25,600 (h = 12,800: 231,600 B at
@@ -270,10 +275,7 @@
 // 1.8e-5; its instantiation sits at the 128-register cap); a third copy
 // moved the staged block plan's bits. Shared memory holds only the
 // groups' projection scratch and the warps' partials: 1,504 B at classic13
-// whatever n_fft, four frames a block at once. Past 65,536 bins
-// (n_fft from 131,070) the packed table's bin field widens (bin_bits: 17 at
-// 131,072) and its filter field narrows; the staged plans never reach such
-// sizes and keep the 16-bit packing and its bank layout.
+// whatever n_fft, four frames a block at once.
 // Bound of "gather_rows" at classic13_deltas n_fft 32,768, b16 x 10 s
 // (~16,000 frames): ~1.0 MFLOP a frame at the function's minimum (a
 // 16,384-point complex FFT by the split-radix formula, the split, |X|^2, the
@@ -282,6 +284,30 @@
 // row through L2, and through HBM where the resident slots' rows are over
 // L2's 50 MB (at n_fft 32,768, 264 slots of 4 x 2 rows of 147 KB): its
 // stages are bound by those round trips, not by the card's rate.
+//
+// The plan past "gather_rows" ("gather_sums": p.sums_global, a run-time
+// branch of "gather_rows"' copy of the group loop, GroupTeam<true>, so the
+// staged plans' code is not touched; tried last in kLadder). "gather_rows"
+// still stages each group's projection scratch: 256 / groups thread
+// partials and the M filter sums, twice for SSC. At one group that is over
+// the block from 57,849 filters (mfcc and log-mel kinds) and from 28,797
+// (SSC). "gather_sums" keeps the partials staged and puts the sums in
+// device memory: the filter sums in the frame's own output row, out[b, f,
+// 0:M), where the log kind (or nothing for plp, or the centroid ratio) is
+// then taken in place, each lane over the filters it finishes; SSC's melf
+// sums in the workspace after the slots' rows (kernels/frontend.py
+// rows_workspace: groups x M floats a slot, one slot a block of the
+// persistent grid, so it does not grow with the batch). Only the block's
+// own threads write and read those rows, and the group's named barrier
+// (bar.sync, like __syncthreads for the threads it joins) orders a sum's
+// store before any other thread's load: a block reads back its own writes
+// with no grid-wide fence. The sums are added in the same order as in
+// every other plan, so the output is bitwise what "gather_rows" gives
+// where both fit. Its layout, the partials and the warps' partials, is
+// 1,056 B whatever the groups and M (2,080 B for SSC): every filter count
+// fits, and plan_block takes it at four groups. Bound at classic13_deltas with 60,000 filters, b16 x 10 s: the
+// output, 16 x 999 x 60,001 floats (3.84 GB) written once, is ~1.15 ms at
+// 3.35 TB/s; bytes bound it (chip_smoke.py computes it per run).
 //
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
@@ -632,11 +658,10 @@ struct Params {
   // memory), bands_global (the packed mel bands read from device memory,
   // not staged) and rows_global (each group's two FFT rows in a slot of
   // the workspace in device memory: a persistent grid of nslots blocks,
-  // block i in slot i, looping over the tiles of the batch's rows);
-  // bchunk, the weights a
-  // thread of a group sums; bin_bits, the width of the packed table's bin
-  // field (16 unless the bins need more; the filter field takes the rest
-  // of the 31 bits);
+  // block i in slot i, looping over the tiles of the batch's rows) and
+  // sums_global (the projection's filter sums in device memory too: the
+  // output row, and for SSC the melf sums in the slot); bchunk, the
+  // weights a thread of a group sums;
   // fft_n, the points of the form's Stockham FFT (half, or the Bluestein
   // form's P), its radices, stage s in bits [4s, 4s + 4); the twiddle and
   // output-base table lengths; the projection's weights a lane. The
@@ -652,7 +677,7 @@ struct Params {
   // upper bound: npass + 1 offsets and 4 words a segment).
   int half, bins, fft_n, nstages;
   unsigned long long radices;
-  int block, groups, tables_global, gather, bands_global, rows_global, nslots, batch, bin_bits;
+  int block, groups, tables_global, gather, bands_global, rows_global, sums_global, nslots, batch;
   int ntw, nbases, chunk, bchunk, nsplit, bq, bk, chirp, filt, nfilt;
   int kp, nbp, npass, pws, tile, stages, nacc, nptab, acc_global;
   // the fused resample: the rows' base pointer is 16-byte aligned (vector loads)
@@ -672,7 +697,8 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // the header states it, kernels/frontend.py smem_bytes mirrors it). part is
 // warp 0's projection scratch (32 lane partials and the M filter sums, for
 // each weight table), pstride the step to the next warp's; in the block
-// plan the block's (256 partials and M sums a table), then red, the 8
+// plan each group's (256 / groups partials and M sums a table; the partials
+// alone where the sums are in device memory, sums_global), then red, the 8
 // warps' partials of a block sum.
 struct Layout {
   int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, red, bar, pw, ef, mu,
@@ -688,7 +714,8 @@ struct Layout {
 // row and no window: its layout starts at the packed bands, or, with the
 // bands in device memory (bands_global), at the tables. With the rows in
 // device memory (rows_global) l.row is the workspace's row, and the
-// layout holds only the groups' scratch and the warps' partials. The
+// layout holds only the groups' scratch and the warps' partials (with the
+// sums in device memory too, sums_global, the partials alone). The
 // bf16x3 form's block plans hold the pass table after the staged bands,
 // the power rows of one pass, and the accumulators (none where they are in
 // the workspace) in place of the per-warp scratch. block is p.block, which
@@ -733,7 +760,7 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
     if (p.tables_global) l.buf = l.tw;  // no table staged
     l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
     l.part = l.buf + (p.rows_global ? 0 : p.groups * 2 * l.row);
-    l.pstride = align4(tables * (kThreads / p.groups + p.M));
+    l.pstride = align4(tables * (kThreads / p.groups + (p.sums_global ? 0 : p.M)));
     l.red = l.part + p.groups * l.pstride;
     l.bar = l.pw = l.ef = l.mu = 0;
     l.fir = l.buf;
@@ -1232,11 +1259,10 @@ __device__ inline float power_sum(const float* pw, int bins, int lane) {
 
 // Views of the packed mel bands, staged in shared memory or (bands_global)
 // in device memory: filter m's weights are w[off[m] .. off[m+1]) (wf:
-// melf, ssc); meta[i] = k | m << bin_bits, with the sign bit set on a
-// filter's last weight, gives weight i's bin k and filter m
-// (kernels/frontend.py mel_packed, packed_meta; bin_bits is 16 unless the
-// bins need more, which only the plan with its rows in device memory
-// reaches).
+// melf, ssc), off strictly increasing from off[0] = 0 (every filter owns a
+// weight); meta[i] is weight i's bin, with the sign bit set on a filter's
+// last weight (kernels/frontend.py mel_packed, packed_meta). No word names
+// a filter: the projection counts them from filter_of.
 struct Bands {
   const float* w;
   const float* wf;
@@ -1244,8 +1270,34 @@ struct Bands {
   const int* meta;
 };
 
-__device__ inline int meta_bin(int e, int bits) { return e & ((1 << bits) - 1); }
-__device__ inline int meta_filter(int e, int bits) { return (e >> bits) & ((1 << (31 - bits)) - 1); }
+__device__ inline int meta_bin(int e) { return e & 0x7fffffff; }
+
+// The filter whose weights hold packed index i < off[M]: the last m with
+// off[m] <= i, by a binary search of off[0 .. M].
+__device__ inline int filter_of(const int* off, int M, int i) {
+  int lo = 0, hi = M;  // off[lo] <= i < off[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (off[mid] <= i) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The filter a team member's chunk of c weights [rank c, rank c + c)
+// starts inside (filter_of; 0 past the table), and into from the member
+// where that filter began (-1 when the chunk starts a filter, or lies past
+// the table): write_frame's m0 and from, found once a tile.
+__device__ inline int chunk_filter(const int* off, int M, int nnz, int c, int rank, int& from) {
+  from = -1;
+  if (rank * c >= nnz) return 0;
+  const int m0 = filter_of(off, M, rank * c);
+  if (off[m0] < rank * c) from = off[m0] / c;
+  return m0;
+}
 
 // 4. One frame's output row o from its power row pw (pw[k], k < bins), by
 //    feature kind, by a team (a warp, or a group of the block plan; lane
@@ -1253,19 +1305,23 @@ __device__ inline int meta_filter(int e, int bits) { return (e >> bits) & ((1 <<
 //    packed bands, then the log kind (logmel), nothing (plp) or the
 //    centroid (ssc, over the clamped powers); the log kind of power bin m
 //    (spectrogram). Lane l sums the packed weights [l c, l c + c) in order
-//    (c = chunk: p.chunk for a warp, p.bchunk for a group): a filter that
-//    ends in the lane's chunk has its sum stored to sum[m] there, the
-//    partial of the one that goes on is posted to part[l], and a filter
-//    that began in an earlier lane `from` (-1: the chunk starts a filter)
-//    is summed by the lane it ends in as part[from] + ... + part[l-1] + its
-//    own sum. Then lane m takes the log kind (or the ratio) of sum[m], m,
-//    m + size, ..., off the divergent loop, and lane 0 writes `energy` to
-//    o[M]. scratch holds part [size] and sum [M] (for ssc then the melf
-//    ones).
+//    (c = chunk: p.chunk for a warp, p.bchunk for a group), starting inside
+//    filter m0 (filter_of its first weight) and counting one filter on at
+//    each sign bit: a filter that ends in the lane's chunk has its sum
+//    stored to sum[m] there, the partial of the one that goes on is posted
+//    to part[l], and the filter m0, where it began in an earlier lane
+//    `from` (the lane whose chunk holds off[m0]; -1 when the chunk starts
+//    a filter, or lies past the table), is summed by the lane it ends in as
+//    part[from] + ... + part[l-1] + its own sum. Then lane m
+//    takes the log kind (or the ratio) of sum[m], m, m + size, ..., off the
+//    divergent loop, and lane 0 writes `energy` to o[M]. scratch holds part
+//    [size] and sum [M] (for ssc then the melf ones); under "gather_sums"
+//    (kGlobal and p.sums_global) it holds part and partf alone, sum is the
+//    output row o itself and sumf is `sums` in the workspace.
 template <typename T>
 __device__ inline void write_frame(float* o, const float* pw, float energy, const Bands& bd,
-                                   float* scratch, int from, int chunk, const Params& p,
-                                   const T& team) {
+                                   float* scratch, float* sums, int from, int m0, int chunk,
+                                   const Params& p, const T& team) {
   const int M = p.M, kind = p.feature_kind, lane = team.rank, lanes = team.size();
   if (kind == kSpectrogram) {
     for (int m = lane; m < M; m += lanes) o[m] = log_lane(pw[m], p);
@@ -1275,10 +1331,18 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
     float* sum = scratch + lanes;
     float* partf = sum + M;  // ssc only
     float* sumf = partf + lanes;
+    if constexpr (T::kGlobal) {
+      if (p.sums_global) {  // "gather_sums": the sums in device memory
+        partf = scratch + lanes;
+        sum = o;
+        sumf = sums;
+      }
+    }
     const int i0 = lane * chunk, i1 = imin(i0 + chunk, p.nnz);
     float acc = 0.f, accf = 0.f, hacc = 0.f, haccf = 0.f;
     int held = -1;  // the filter begun in lane `from` that ends in this one
     bool head = from >= 0;
+    int filt = m0;  // the filter of weight i
     for (int i = i0; i < i1; i += kProjBatch) {
       // a batch's loads first: the sums' stores below would order them
       int e[kProjBatch];
@@ -1291,7 +1355,7 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
         wf[u] = in && ssc ? bd.wf[i + u] : 0.f;
       }
 #pragma unroll
-      for (int u = 0; u < kProjBatch; ++u) q[u] = pw[meta_bin(e[u], p.bin_bits)];
+      for (int u = 0; u < kProjBatch; ++u) q[u] = pw[meta_bin(e[u])];
 #pragma unroll
       for (int u = 0; u < kProjBatch; ++u) {
         if (i + u >= i1) break;
@@ -1300,18 +1364,18 @@ __device__ inline void write_frame(float* o, const float* pw, float energy, cons
           accf += q[u] * wf[u];
         }
         acc += q[u] * w[u];
-        if (e[u] < 0) {  // the last weight of filter m
-          const int m = meta_filter(e[u], p.bin_bits);
+        if (e[u] < 0) {  // the last weight of filter filt
           if (head) {
             hacc = acc;
             haccf = accf;
-            held = m;
+            held = filt;
             head = false;
           } else {
-            sum[m] = acc;
-            if (ssc) sumf[m] = accf;
+            sum[filt] = acc;
+            if (ssc) sumf[filt] = accf;
           }
           acc = accf = 0.f;
+          ++filt;
         }
       }
     }
@@ -1706,13 +1770,11 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   const int lane = threadIdx.x & 31;
   const int Lk = min(L, p.n_fft);  // rfft(n=n_fft) truncates longer frames
   float* part = smem + lay.part + warp * lay.pstride;
-  // step 4: the lane where the filter this lane's chunk starts inside began
-  // (-1 when the chunk starts a filter, or lies past the table)
-  int from = -1;
-  if (!kBlock && kind != kSpectrogram && lane * p.chunk < p.nnz) {
-    const int m = meta_filter(meta[lane * p.chunk], p.bin_bits);
-    if (moff[m] < lane * p.chunk) from = moff[m] / p.chunk;
-  }
+  // step 4: the filter this lane's chunk starts inside and the lane where
+  // it began (chunk_filter; the bf16x3 form's staged plan finds them just
+  // before its epilogue, so they do not live across its products)
+  int m0 = 0, from = -1;
+  if (!kBlock && !kBf16 && kind != kSpectrogram) m0 = chunk_filter(moff, M, p.nnz, p.chunk, lane, from);
   auto energy_lane = [&](float es, float e_frame) -> float {
     if (kind == kSsc) return 0.f;
     if (kCond && p.energy_source != kPspec) return fmaxf(e_frame, p.eps);
@@ -2100,13 +2162,14 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       }
     } else {
       // 4. each frame's output row (the powers carry the matrix's scale)
+      if (kind != kSpectrogram) m0 = chunk_filter(moff, M, p.nnz, p.chunk, lane, from);
       for (int fl = warp; fl < tile; fl += kWarps) {
         const int f = f0 + fl;
         if (f >= F) break;  // warp-uniform
         const float* pw = pw_tile + fl * p.pws;
         const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
-        write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, from,
-                    p.chunk, p, WarpTeam{lane});
+        write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, nullptr,
+                    from, m0, p.chunk, p, WarpTeam{lane});
         __syncwarp();  // part is rewritten by the warp's next frame
       }
     }
@@ -2206,7 +2269,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         }
         __syncwarp();
         write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
-                    bd, part, from, p.chunk, p, WarpTeam{lane});
+                    bd, part, nullptr, from, m0, p.chunk, p, WarpTeam{lane});
         __syncwarp();  // the rows and partials are rewritten by the warp's next frame
       }
     } else {
@@ -2229,13 +2292,19 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         float2* ra = reinterpret_cast<float2*>(rows);
         float2* rb = reinterpret_cast<float2*>(rows + lay.row);
         const Bands bg = p.bands_global ? Bands{mel_w, melf_w, mel_off, mel_meta} : bd;
-        // the group's thread where the filter this thread's chunk starts inside began
+        // the filter this thread's chunk starts inside and the group's
+        // thread where it began (chunk_filter)
         int gfrom = -1;
-        if (kind != kSpectrogram && rank * p.bchunk < p.nnz) {
-          const int m = meta_filter(bg.meta[rank * p.bchunk], p.bin_bits);
-          if (bg.off[m] < rank * p.bchunk) gfrom = bg.off[m] / p.bchunk;
-        }
+        const int gm0 = kind != kSpectrogram ? chunk_filter(bg.off, M, p.nnz, p.bchunk, rank, gfrom) : 0;
         auto gsum = [&](float v) { return group_sum(v, red, team); };
+        // "gather_sums": SSC's melf sums, the group's M floats of its slot
+        // after every slot's rows (formed at each call, so nothing more
+        // lives across the frame's FFT)
+        auto sums = [&]() -> float* {
+          if (!kG || !p.sums_global) return nullptr;
+          return rows_ws + static_cast<size_t>(p.nslots) * p.groups * 2 * lay.row +
+                 (static_cast<size_t>(slot) * p.groups + group) * M;
+        };
         for (int fl = group; fl < kTile; fl += p.groups) {
           const int f = f0 + fl;
           if (f >= F) break;  // group-uniform
@@ -2294,7 +2363,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           }
           team.sync();  // the power row is whole
           write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
-                      bg, scratch, gfrom, p.bchunk, p, team);
+                      bg, scratch, sums(), gfrom, gm0, p.bchunk, p, team);
           team.sync();  // the rows and partials are rewritten by the group's next frame
         }
       };
@@ -2490,42 +2559,36 @@ bool plan_stages(Params& p, int n) {
 
 // The block plan's ladder (kernels/frontend.py FFT_PLANS after "warp", and
 // PLAN_TRAITS): whether a plan reads each frame (gather), the FFT tables,
-// the packed bands and the FFT rows from device memory.
-constexpr int kLadder[6][4] = {
-    {0, 0, 0, 0},  // block
-    {0, 1, 0, 0},  // block_global
-    {1, 0, 0, 0},  // gather
-    {1, 1, 0, 0},  // gather_global
-    {1, 1, 1, 0},  // gather_bands
-    {1, 1, 1, 1},  // gather_rows
+// the packed bands and the FFT rows from device memory, and keeps the
+// projection's sums there.
+constexpr int kLadder[7][5] = {
+    {0, 0, 0, 0, 0},  // block
+    {0, 1, 0, 0, 0},  // block_global
+    {1, 0, 0, 0, 0},  // gather
+    {1, 1, 0, 0, 0},  // gather_global
+    {1, 1, 1, 0, 0},  // gather_bands
+    {1, 1, 1, 1, 0},  // gather_rows
+    {1, 1, 1, 1, 1},  // gather_sums
 };
 
 // The block plan (kernels/frontend.py fft_layout): the first plan of the
 // ladder, at the first of 4, 2 and 1 groups (frames a block transforms at
-// once), whose layout fits the block; else gather_rows at 1 group (refused
-// by kernels/frontend.py layout_reason before any launch: only a projection
-// scratch over the block, at tens of thousands of filters).
+// once), whose layout fits the block. The last, "gather_sums", fits at any
+// n_fft, hop, frame length and filter count.
 void plan_block(Params& p, bool wide) {
   p.block = 1;
-  for (int plan = 0; plan < 6; ++plan) {
+  for (int plan = 0; plan < 7; ++plan) {
     for (int groups = 4; groups >= 1; groups /= 2) {
       p.gather = kLadder[plan][0];
       p.tables_global = kLadder[plan][1];
       p.bands_global = kLadder[plan][2];
       p.rows_global = kLadder[plan][3];
+      p.sums_global = kLadder[plan][4];
       p.groups = groups;
       p.bchunk = ((p.nnz + kThreads / groups - 1) / (kThreads / groups)) | 1;
       if (layout(p, 0, 0, wide, true).total * 4 <= kSmemBudget) return;
     }
   }
-}
-
-// The width of the packed table's bin field (kernels/frontend.py
-// meta_bin_bits): 16, or the bits of the largest bin where that is wider.
-int bin_bits(int bins) {
-  int bits = 16;
-  while ((bins - 1) >> bits) ++bits;
-  return bits;
 }
 
 // The DFT plan of p.n_fft for the wrapper's form (kernels/frontend.py
@@ -2539,8 +2602,9 @@ int bin_bits(int bins) {
 // Bluestein forms take the block plan where the warp plan's layout is over
 // the block, with the tables in device memory where the staged ones do not
 // fit either, and the gather plans where the staged span and window do not
-// (the packed bands, then the FFT rows, in device memory where they do not
-// fit either). False when the wrapper's form disagrees, or for n_fft < 2.
+// (the packed bands, then the FFT rows, then the projection's sums, in
+// device memory where they do not fit either). False when the wrapper's
+// form disagrees, or for n_fft < 2.
 bool plan(Params& p, const Polyphase* pp, bool int16) {
   const int N = p.n_fft;
   if (N < 2) return false;
@@ -2550,8 +2614,8 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.radices = 0;
   p.ntw = p.nbases = p.nsplit = p.bq = p.bk = p.chirp = p.filt = p.nfilt = 0;
   p.kp = p.nbp = p.npass = p.pws = p.stages = p.nacc = p.nptab = 0;
-  p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = p.acc_global = 0;
-  p.bin_bits = bin_bits(p.bins);
+  p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = p.sums_global = 0;
+  p.acc_global = 0;
   p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;
@@ -2600,7 +2664,7 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const P
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
-         (p.feature_kind != kSpectrogram && (p.nnz < p.M || p.M >= 1 << (31 - p.bin_bits))) ||
+         (p.feature_kind != kSpectrogram && p.nnz < p.M) ||
          (p.feature_kind == kSsc && melf_w == nullptr) ||
          ((p.form == kStockham || p.form == kBluestein) && bases == nullptr) ||
          (p.form == kBf16x3 && p.block && p.nptab > 0 && bases == nullptr) ||
@@ -2620,8 +2684,8 @@ extern "C" {
 // drop_last_frame); window [L] float32; the packed mel bands
 // (kernels/frontend.py mel_packed; none read for a spectrogram): mel_w
 // [n_packed] float32, melf_w [n_packed] float32 (ssc; may be null
-// otherwise), mel_off [M+1] and mel_meta [n_packed] int32 (bin | filter
-// << 16, the sign bit on each filter's last weight), every filter owning
+// otherwise), mel_off [M+1] and mel_meta [n_packed] int32 (the weight's
+// bin, the sign bit on each filter's last weight), every filter owning
 // at least one weight; twiddle [n, 2] float32 and bases int32 as
 // kernels/frontend.py fft_twiddles and stage_bases lay them out for
 // dft_form 0 (Stockham), and for 2 (Bluestein) the split, the P-point
@@ -2647,10 +2711,11 @@ extern "C" {
 // and the block's signal from 1 (frame 0 starts at row sample 1), lengths[b]
 // the samples from row sample 1 that hold signal (the counts and mask are
 // of those lengths); it takes no dither, centered framing or bf16x3 form.
-// Where plan() takes "gather_rows", rows_ws is the workspace of nslots
-// slots of groups x 2 FFT rows (kernels/frontend.py rows_workspace:
-// ws_floats floats, its contents any), one for each block of the
-// persistent grid; where plan_bf16 takes "gather_out", rows_ws is the
+// Where plan() takes "gather_rows" or "gather_sums", rows_ws is the
+// workspace of nslots slots of groups x 2 FFT rows, then for SSC under
+// "gather_sums" nslots slots of groups x M melf sums (kernels/frontend.py
+// rows_workspace: ws_floats floats, its contents any), one slot for each
+// block of the persistent grid; where plan_bf16 takes "gather_out", rows_ws is the
 // accumulators' workspace [B, F, nacc] (ws_floats floats at least, its
 // contents any); null for every other plan.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
@@ -2683,8 +2748,9 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   }
   if (p.rows_global) {
     const long long row = layout(p, 0, 0, dither > 0.f, true).row;
+    const long long sums = p.sums_global && feature_kind == kSsc ? M : 0;
     if (rows_ws == nullptr || nslots < 1 ||
-        ws_floats < static_cast<long long>(nslots) * p.groups * 2 * row) {
+        ws_floats < static_cast<long long>(nslots) * p.groups * (2 * row + sums)) {
       return cudaErrorInvalidValue;
     }
     p.nslots = nslots;

@@ -95,9 +95,16 @@
 // thread per (row, column), a launch each (one pass's reads need its
 // neighbours' writes from the pass before). Each value is the arithmetic of
 // the tiled kernel's on the same inputs (the same FMA chain for base, the
-// same delta_sum and clamps), so the plans agree bitwise. It reads each
-// prefix row C times from L2 and each base and D value 2N times, where the
-// tiled kernel reads them once from shared memory.
+// same delta_sum and clamps), so the plans agree bitwise, up to kChainLanes
+// lanes. Past that (the split alone takes such shapes: from ~1,100 filters)
+// base is a compensated (Kahan) sum: the FMA chain's error grows with its
+// partial sums, which thousands of empty and one-weight filters (each lane
+// the log floor, or one low bin's log power) drive up together, and at
+// 40,000 filters it read 9.3e-3 from the float64 plain version (gate
+// 2.3e-3); the compensated sum holds ~5e-6 (a numpy emulation at 16,385,
+// 40,000 and 60,000 filters, tests/test_torch_many_filters.py). It reads
+// each prefix row C times from L2 and each base and D value 2N times, where
+// the tiled kernel reads them once from shared memory.
 //
 // CMVN needs a reduction over the whole utterance, which no tile holds, so it
 // is a second launch: one block per utterance, 8 warps; lane j of a warp takes
@@ -116,6 +123,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 27 * 13;  // dct_aug entries the parameter space holds (the named shapes)
 constexpr int kSmemBudget = 232448;  // the H100's dynamic shared memory a block
+constexpr int kChainLanes = 1024;    // the split's base: a plain FMA chain up to here, then compensated
 
 struct TailParams {
   int F, M1, C, deltas, N, tile;
@@ -350,7 +358,12 @@ tail_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
 // The split, pass p.pass over row b = blockIdx.y, one thread per
 // (frame s, column): pass 0 over all Dout columns (base into [0, C) below
 // nv, zeros at and past nv), pass 1 over C (D into [C, 2C) from base),
-// pass 2 over C (DD into [2C, 3C) from D), each below nv only.
+// pass 2 over C (DD into [2C, 3C) from D), each below nv only. kComp: base
+// as a compensated sum (past kChainLanes lanes); an instantiation of its
+// own, so the chain's loop compiles as before (a run-time branch around it
+// cost the split 1.29-1.39x on an H100 at 170 and 200 cepstra, in turns
+// with the chain alone: scripts/block_plan_sweep.py --parent).
+template <bool kComp>
 __global__ void __launch_bounds__(kThreads)
 tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
                   const float* __restrict__ dct, float* __restrict__ out, const TailParams p) {
@@ -366,10 +379,20 @@ tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_va
   if (p.pass == 0) {
     if (s >= nv) {
       o[static_cast<size_t>(s) * Dout + col] = 0.f;
-    } else if (col < C) {  // the generic kernel's FMA chain in lane order
+    } else if (col < C) {  // the generic kernel's FMA chain in lane order, or compensated past kChainLanes
       const float* xr = prefix + (static_cast<size_t>(b) * F + s) * M1;
       float acc = 0.f;
-      for (int m = 0; m < M1 - 1; ++m) acc = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), acc);
+      if constexpr (!kComp) {
+        for (int m = 0; m < M1 - 1; ++m) acc = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), acc);
+      } else {
+        float comp = 0.f;  // the low bits acc has lost
+        for (int m = 0; m < M1 - 1; ++m) {
+          const float y = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), -comp);
+          const float t = __fadd_rn(acc, y);
+          comp = __fsub_rn(__fsub_rn(t, acc), y);
+          acc = t;
+        }
+      }
       o[static_cast<size_t>(s) * Dout + col] =
           fmaf(energy_lane(__ldg(xr + M1 - 1), p), __ldg(dct + (M1 - 1) * C + col), acc);
     }
@@ -479,7 +502,11 @@ cudaError_t launch_split(const float* prefix, const int* n_valid, const float* d
   for (p.pass = 0; p.pass <= p.deltas; ++p.pass) {
     const long long n = static_cast<long long>(p.F) * (p.pass == 0 ? p.C * (p.deltas + 1) : p.C);
     const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), B);
-    tail_split_kernel<<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+    if (p.M1 - 1 > kChainLanes) {
+      tail_split_kernel<true><<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+    } else {
+      tail_split_kernel<false><<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+    }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

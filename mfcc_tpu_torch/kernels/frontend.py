@@ -20,7 +20,9 @@ its own, the tables staged or read from device memory, and where the
 tile's staged span and window are over it too (long hops, long frames),
 each frame read from device memory; where the rows and the packed mel
 bands are over it too (n_fft from ~6,200), the bands read from device
-memory, then the rows kept in a workspace in device memory), |X|², then
+memory, then the rows kept in a workspace in device memory, then, where
+tens of thousands of filters put the projection's sums over it too, the
+sums in device memory), |X|², then
 by feature kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
@@ -29,13 +31,12 @@ projection, no matrix), or the SSC centroids of the per-bin clamped power;
 lane M holds the clamped (unlogged) energy (0 for SSC). Output
 [B, F, n_mels+1] float32 with F = cfg.num_frames(T) (F = 0 returns an
 empty prefix without a launch). The last plan's layout depends on neither
-n_fft nor the hop nor the frame length, so the Stockham and Bluestein forms
-take every n_fft, hop and frame length the reference takes, and so does
-the bf16x3 opt-in (`bf16_layout`: past its staged plan, the power rows of
-one pass at a time, then each frame, the packed bands and the accumulators
-in device memory); only more filters than the packed table's filter field
-holds are refused (`layout_reason`), and on the card a bf16x3 matrix over
-the card's memory (`bf16_matrix_reason`).
+n_fft nor the hop nor the frame length nor the filter count, so the
+Stockham and Bluestein forms take every config the reference takes, and so
+does the bf16x3 opt-in (`bf16_layout`: past its staged plan, the power rows
+of one pass at a time, then each frame, the packed bands and the
+accumulators in device memory); only a bf16x3 matrix over the card's memory
+is refused, on the card (`bf16_matrix_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -70,8 +71,9 @@ bf16x3 form in each block plan of `BF16_PLANS`, `block_fft_launches` those
 of the FFT forms' block plan and
 `global_table_launches` those of it that read the FFT tables from device
 memory, `gather_launches` those that read each frame from device
-memory, `gather_bands_launches` and `gather_rows_launches` those of the
-plans that read the packed mel bands, and also keep the FFT rows, in device
+memory, `gather_bands_launches`, `gather_rows_launches` and
+`gather_sums_launches` those of the plans that read the packed mel bands,
+and also keep the FFT rows, and then the projection's sums, in device
 memory (`fft_layout`, `PLAN_TRAITS`), `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
@@ -115,19 +117,21 @@ DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 # the FFT forms' plans (csrc/frontend.cu plan): a frame a warp; frames a
 # group of the block with the tables staged, or in device memory; the same
 # with each frame read from device memory, no span and no window staged;
-# then with the packed mel bands, and then the FFT rows, in device memory too
+# then with the packed mel bands, then the FFT rows, then the projection's
+# sums in device memory too
 FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "gather_bands",
-             "gather_rows")
-# what each block plan reads from device memory rather than staging
+             "gather_rows", "gather_sums")
+# what each block plan keeps in device memory rather than staging
 # (csrc/frontend.cu kLadder): (each frame, the FFT tables, the packed mel
-# bands, the FFT rows)
+# bands, the FFT rows, the projection's sums)
 PLAN_TRAITS = {
-    "block": (False, False, False, False),
-    "block_global": (False, True, False, False),
-    "gather": (True, False, False, False),
-    "gather_global": (True, True, False, False),
-    "gather_bands": (True, True, True, False),
-    "gather_rows": (True, True, True, True),
+    "block": (False, False, False, False, False),
+    "block_global": (False, True, False, False, False),
+    "gather": (True, False, False, False, False),
+    "gather_global": (True, True, False, False, False),
+    "gather_bands": (True, True, True, False, False),
+    "gather_rows": (True, True, True, True, False),
+    "gather_sums": (True, True, True, True, True),
 }
 # (plan, frames a block transforms at once) in the order plan() tries them
 FFT_LAYOUTS = (("warp", WARPS),
@@ -149,6 +153,7 @@ global_table_launches = 0
 gather_launches = 0
 gather_bands_launches = 0
 gather_rows_launches = 0
+gather_sums_launches = 0
 bf16x3_launches = 0
 bf16_pass_launches = 0
 bf16_gather_launches = 0
@@ -545,26 +550,14 @@ def mel_packed(mel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return off.to(torch.int32), k * mel.shape[1] + m
 
 
-def meta_bin_bits(bins: int) -> int:
-    """Width of the packed table's bin field for a power row of `bins` bins
-    (csrc/frontend.cu bin_bits): 16, the staged plans' packing at every
-    n_fft they take, or the bits of the largest bin where that is wider
-    (n_fft from 131,070, which only "gather_rows" reaches); the filter
-    field takes the other 31 - bits."""
-    return max(16, (bins - 1).bit_length())
-
-
-def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int, bins: int | None = None) -> torch.Tensor:
+def packed_meta(off: torch.Tensor, index: torch.Tensor, M: int) -> torch.Tensor:
     """int32 [n_packed] per packed weight (csrc/frontend.cu Bands::meta): its
-    bin | its filter << `meta_bin_bits(bins)` (bins: the power row's, by
-    default the largest bin's + 1), the sign bit set on each filter's last
+    bin (index // M, all 31 bits), the sign bit set on each filter's last
     weight, so the projection finds a weight's bin and the end of its filter
-    with one load."""
-    bits = meta_bin_bits(int(index.max()) // M + 1 if bins is None else bins)
-    if M >= 1 << (31 - bits):
-        raise ValueError(f"{M} filters: over the packed table's {31 - bits}-bit filter field "
-                         f"(beside a {bits}-bit bin field)")
-    meta = (index // M) | (index % M) << bits
+    with one load. No word names a filter: a lane finds the filter its chunk
+    starts in by a binary search of `off` (csrc/frontend.cu filter_of) and
+    counts the ends from there."""
+    meta = index // M
     last = torch.zeros_like(meta, dtype=torch.bool)
     last[off[1:].long() - 1] = True
     return torch.where(last, meta - (1 << 31), meta).to(torch.int32)
@@ -591,7 +584,7 @@ def _tables(consts: dict[str, torch.Tensor], device) -> dict[str, torch.Tensor]:
         "mel_w": mel.reshape(-1)[index].to(device).contiguous(),
         "melf_w": melf.reshape(-1)[index].to(device=device, dtype=torch.float32).contiguous(),
         "mel_off": off.to(device),
-        "mel_meta": packed_meta(off, index, mel.shape[1], mel.shape[0]).to(device),
+        "mel_meta": packed_meta(off, index, mel.shape[1]).to(device),
     }
 
 
@@ -813,18 +806,20 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     form, a plan of `FFT_PLANS` and, for the block plans, `groups` frames a
     block at once, for int16 or float32 rows (csrc/frontend.cu layout): the
     head (for the gather plans no span and no window; none of it for
-    "gather_bands" and "gather_rows", which read the packed bands from
-    device memory), the twiddles and the stages' output bases (none staged
+    "gather_bands", "gather_rows" and "gather_sums", which read the packed
+    bands from device memory), the twiddles and the stages' output bases (none staged
     where `PLAN_TRAITS` reads the tables from device memory), then for
     "warp" per warp two rows and the projection's scratch (32 lane partials
     and M sums a weight table), which the fused resample's input window
     overlays, widening them only where it is longer, and the resample's
-    taps; for the block plans per group two rows (none for "gather_rows":
-    a workspace in device memory holds them, `rows_workspace`) and the
-    projection's scratch (256 / groups thread partials and M sums a weight
-    table), then the 8 warps' partials of a group sum."""
+    taps; for the block plans per group two rows (none for "gather_rows"
+    and "gather_sums": a workspace in device memory holds them,
+    `rows_workspace`) and the projection's scratch (256 / groups thread
+    partials and M sums a weight table; the partials alone for
+    "gather_sums", whose sums are in device memory), then the 8 warps'
+    partials of a group sum."""
     N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
-    gather, tables_dev, bands_dev, rows_dev = PLAN_TRAITS.get(plan, (False,) * 4)
+    gather, tables_dev, bands_dev, rows_dev, sums_dev = PLAN_TRAITS.get(plan, (False,) * 5)
     n = 0 if bands_dev else _bands(cfg) if gather else _head(cfg, TILE)
     if not tables_dev:
         n += _a4(2 * twiddle_count(N, form)) + _a4(sum(hr for _, _, hr in _stages(N, form)))
@@ -833,7 +828,7 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
         rows = WARPS * (2 * row_floats(N, form) + _a4(tables * (32 + M)))
     else:
         rows = groups * (0 if rows_dev else 2 * row_floats(N, form))
-        rows += groups * _a4(tables * (THREADS // groups + M)) + WARPS
+        rows += groups * _a4(tables * (THREADS // groups + (0 if sums_dev else M))) + WARPS
     return 4 * (n + max(rows, fir) + _a4(taps))
 
 
@@ -854,8 +849,10 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
     Bluestein to P = 12,800); else "gather_rows", each group's two FFT rows
     in a workspace in device memory (`rows_workspace`): its layout, the
     groups' projection scratch alone, depends on the filters and nothing
-    else. Where none fits (tens of thousands of filters), the last (refused
-    by `layout_reason`). The fused resample takes
+    else; else "gather_sums" (from 57,849 filters at one group, 28,797 for
+    SSC), the projection's filter sums in the output row and SSC's melf
+    sums in the workspace: its layout, the thread partials alone, fits at
+    any filter count, so one plan always fits. The fused resample takes
     "warp" only: a resampling config whose fused layout is over the block
     takes the split route (`resample_route`), whose plain form plans at the
     feature rate."""
@@ -886,7 +883,7 @@ def _smem(cfg: FrontendConfig, form: str, int16: bool = True) -> int:
 @functools.lru_cache(maxsize=64)
 def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = True) -> int:
     """Shared memory per block for cfg (csrc/frontend.cu layout) with int16
-    or float32 rows, cached: every launch checks it (`layout_reason`). The
+    or float32 rows, cached (`layout_reason`, `_resident_blocks`). The
     signal row (span floats, span + 1 in the fused resample and under
     dither), window, the
     packed mel bands (weights, and for SSC the melf weights; the filter
@@ -896,7 +893,7 @@ def smem_bytes(cfg: FrontendConfig, dft_passes: str = "radix4", int16: bool = Tr
     block plan) two rows (`row_floats`) and the projection's scratch (32
     lane partials, or the group's thread partials, and M filter sums, twice
     for SSC, none for a spectrogram; the block plan then the 8 warps'
-    partials of a group sum), which the fused
+    partials of a group sum; "gather_sums" the partials alone), which the fused
     resample's input window (`resample_window` samples of the rows' type)
     overlays, widening them only where it is longer; for bf16x3 the
     ring, its barriers, the tile's power rows, energies and means, and the
@@ -944,38 +941,21 @@ def layout_reason(cfg: FrontendConfig, dft_passes: str = "radix4") -> str | None
     config the port takes runs with either row type. A resampling config is
     held to the plain form's layout at its feature rate: the split route's
     second launch, which the fused form (taken only where its own layout
-    fits) never exceeds. A packed mel table whose filters overflow its
-    filter field (`packed_meta`: 32,768 filters at most) is refused too.
-    The Stockham and Bluestein forms take every n_fft, hop and frame
-    length: their last plan ("gather_rows") stages only the projection's
-    scratch, which only tens of thousands of filters put over the block,
-    and the reason names it. So does the bf16x3 opt-in (`bf16_layout`):
-    its last plan ("gather_out") stages the matrix ring and one pass's power
-    rows alone. What bounds it is its matrix's bytes on the card
-    (`bf16_matrix_reason`, which its card wrapper checks)."""
+    fits) never exceeds. No config gives a reason: the Stockham and
+    Bluestein forms' last plan ("gather_sums") stages the thread partials
+    alone, and the bf16x3 opt-in's (`bf16_layout`, "gather_out") the matrix
+    ring and one pass's power rows alone, whatever the n_fft, hop, frame
+    length and filter count. What bounds the bf16x3 route is its matrix's
+    bytes on the card (`bf16_matrix_reason`, which its card wrapper
+    checks)."""
     if chain.resamples(cfg):
         cfg = feature_rate_config(cfg)
-    bits = meta_bin_bits(cfg.n_bins)
-    if mel_matrices(cfg) and cfg.n_mels >= 1 << (31 - bits):
-        return (f"packed mel table of {cfg.n_mels} filters, over its {31 - bits}-bit filter field "
-                f"(beside a {bits}-bit bin field)")
     n = smem_bytes(cfg, dft_passes, int16=False)
     budget = rs_kernel.SMEM_BUDGET_BYTES
     if n <= budget:
         return None
-    form = kernel_form(cfg, dft_passes)
-    if form == "bf16x3":
-        return (
-            f"front-end kernel layout of {n:,} bytes of shared memory a block in the bf16x3 "
-            f"form (n_fft={cfg.n_fft}, frame length {cfg.frame_length}, hop {cfg.frame_step}, "
-            f"{cfg.n_mels} filters), over the block's {budget:,}"
-        )
-    return (
-        f"front-end kernel layout of {n:,} bytes of shared memory a block in its last plan "
-        f"(one frame a block at once; frames, FFT tables, packed mel bands and FFT rows in "
-        f"device memory): the projection's scratch of {cfg.n_mels} filters, over the block's "
-        f"{budget:,}"
-    )
+    return (f"front-end kernel layout of {n:,} bytes of shared memory a block in the "
+            f"{kernel_form(cfg, dft_passes)} form, over the block's {budget:,}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -1062,21 +1042,23 @@ def _resident_blocks(cfg: FrontendConfig, int16: bool, device: torch.device) -> 
 
 
 def rows_workspace(cfg: FrontendConfig, form: str, blocks: int, resident: int) -> tuple[int, int]:
-    """(slots, floats) of the workspace of a "gather_rows" launch of cfg (a
-    config at its feature rate) in the Stockham or Bluestein form, over
-    `blocks` tiles on a card that holds `resident` blocks at once: its
-    persistent grid has a block for each that can be resident (never more
-    than the tiles), each looping over the tiles with a slot of its own that
-    holds its groups' two FFT rows (`row_floats`). Its size is bounded by
-    the card, not by the batch."""
-    groups = fft_layout(cfg, form)[1]
+    """(slots, floats) of the workspace of a "gather_rows" or "gather_sums"
+    launch of cfg (a config at its feature rate) in the Stockham or
+    Bluestein form, over `blocks` tiles on a card that holds `resident`
+    blocks at once: its persistent grid has a block for each that can be
+    resident (never more than the tiles), each looping over the tiles with a
+    slot of its own that holds its groups' two FFT rows (`row_floats`), and
+    for SSC under "gather_sums" then a slot of its groups' M melf sums after
+    every slot's rows. Its size is bounded by the card, not by the batch."""
+    plan, groups = fft_layout(cfg, form)
     slots = max(1, min(blocks, resident))
-    return slots, slots * groups * 2 * row_floats(cfg.n_fft, form)
+    sums = cfg.n_mels if plan == "gather_sums" and feature_kind(cfg) == "ssc" else 0
+    return slots, slots * groups * (2 * row_floats(cfg.n_fft, form) + sums)
 
 
 def _workspace(floats: int, device: torch.device) -> torch.Tensor:
-    """A "gather_rows" launch's workspace: uninitialized (the kernel writes
-    every row before it reads it)."""
+    """A "gather_rows" or "gather_sums" launch's workspace: uninitialized
+    (the kernel writes every row and sum before it reads it)."""
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
@@ -1189,13 +1171,11 @@ def logmel_prefix_counts(
         return (prefix, *frame_counts_reference(lengths, cfg, prefix.shape[1]))
     if audio.device.type != "cuda":
         raise ValueError(f"the front-end kernel runs on CUDA, got {audio.device}")
-    chain.check_supported(cfg)  # the default route's layout among the rest
-    reason = layout_reason(cfg, dft_passes) if dft_passes != "radix4" else None
-    if not reason and form == "bf16x3":  # before the matrix is built
+    if form == "bf16x3":  # before the matrix is built
         reason = bf16_matrix_reason(cfg, torch.cuda.get_device_properties(audio.device).total_memory)
-    if reason:
-        raise NotImplementedError(f"config {cfg.config_hash()} needs the {reason} "
-                                  f"(dft_passes={dft_passes!r})")
+        if reason:
+            raise NotImplementedError(f"config {cfg.config_hash()} needs the {reason} "
+                                      f"(dft_passes={dft_passes!r})")
     if cfg.dtype != "float32":
         raise NotImplementedError(f"the kernel computes in float32, not {cfg.dtype}")
     _check_rows(audio, lengths)
@@ -1229,6 +1209,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
     global global_table_launches, gather_launches, gather_bands_launches, gather_rows_launches
+    global gather_sums_launches
     global bf16_pass_launches, bf16_gather_launches, bf16_gather_bands_launches, bf16_gather_out_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
@@ -1244,8 +1225,10 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     at_rate = feature_rate_config(cfg)
     plan = "warp" if form == "bf16x3" or resampling else fft_plan(at_rate, form)
     bf16 = bf16_layout(cfg, int16)[0] if form == "bf16x3" else None
-    rows = (None, 0, 0)  # "gather_rows": its workspace, slots (the persistent grid's blocks), floats
-    if plan == "gather_rows":
+    # "gather_rows" and "gather_sums": the workspace, slots (the persistent
+    # grid's blocks), floats
+    rows = (None, 0, 0)
+    if plan in ("gather_rows", "gather_sums"):
         slots, floats = rows_workspace(at_rate, form, B * -(-F // TILE),
                                        _resident_blocks(at_rate, int16, audio.device))
         ws = _workspace(floats, audio.device)
@@ -1298,12 +1281,13 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     bf16_gather_launches += int(bf16 == "gather")
     bf16_gather_bands_launches += int(bf16 == "gather_bands")
     bf16_gather_out_launches += int(bf16 == "gather_out")
-    gather, tables_dev = PLAN_TRAITS.get(plan, (False,) * 4)[:2]
+    gather, tables_dev = PLAN_TRAITS.get(plan, (False,) * 5)[:2]
     block_fft_launches += int(plan != "warp")
     global_table_launches += int(tables_dev)
     gather_launches += int(gather)
     gather_bands_launches += int(plan == "gather_bands")
     gather_rows_launches += int(plan == "gather_rows")
+    gather_sums_launches += int(plan == "gather_sums")
     return n_valid, mask
 
 
@@ -1322,7 +1306,7 @@ def logmel_block(
     framing raises ValueError on both devices.
 
     CUDA tensors launch the plain form at row origin 1 (contiguous, on one
-    device, else it raises; a config the kernels refuse raises
+    device, else it raises; a compute dtype other than float32 raises
     NotImplementedError); CPU tensors get `logmel_block_reference`. N = 0
     launches nothing."""
     _block_refusal(cfg)
@@ -1331,7 +1315,6 @@ def logmel_block(
         return logmel_block_reference(rows, valid, cfg, consts)
     if rows.device.type != "cuda":
         raise ValueError(f"the front-end kernel runs on CUDA, got {rows.device}")
-    chain.check_supported(cfg)
     if cfg.dtype != "float32":
         raise NotImplementedError(f"the kernel computes in float32, not {cfg.dtype}")
     _check_rows(rows, valid)

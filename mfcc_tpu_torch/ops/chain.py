@@ -122,19 +122,17 @@ def unsupported_reason(cfg: FrontendConfig) -> str | None:
     """None when the port implements `cfg` on its default DFT route;
     otherwise what it still needs, with its ROADMAP queue-2 item (item 4): a
     front-end layout over the block's shared memory in every plan
-    (`frontend.layout_reason`). No n_fft, hop or frame length gives one: the
-    last plan ("gather_rows") reads the frames, the FFT tables and the packed
-    mel bands from device memory and keeps the FFT rows in a workspace
-    there, staging only the projection's scratch, which only tens of
-    thousands of filters put over the block; the feature tail takes every
-    cepstra count and delta window (`tail.plan`). The bf16x3 opt-in takes
-    every n_fft, hop and frame length too (`frontend.bf16_layout`: its last
-    plan stages the matrix ring and one pass's rows alone); its card
-    wrapper refuses only the filter field and a matrix over the card's
-    memory (`frontend.layout_reason(cfg, "bf16x3")`,
-    `frontend.bf16_matrix_reason`). A resampling config is held
-    to the plain form's layout at its feature rate: centered framing of
-    resampled rows and fused layouts over the block take the split route
+    (`frontend.layout_reason`). No config the reference takes gives one: the
+    front-end's last plan ("gather_sums") keeps the frames, the FFT tables,
+    the packed mel bands, the FFT rows and the projection's sums in device
+    memory, staging only the thread partials, whatever the n_fft, hop, frame
+    length and filter count; the feature tail takes every cepstra count and
+    delta window (`tail.plan`). The bf16x3 opt-in's last plan stages the
+    matrix ring and one pass's rows alone (`frontend.bf16_layout`); its card
+    wrapper refuses only a matrix over the card's memory
+    (`frontend.bf16_matrix_reason`). A resampling config is held to the
+    plain form's layout at its feature rate: centered framing of resampled
+    rows and fused layouts over the block take the split route
     (`frontend.resample_route`), resample.cu and then the plain form."""
     from mfcc_tpu_torch.kernels import frontend  # the kernel's layout mirror
 

@@ -185,7 +185,6 @@ def extract_long(
             "no CUDA device: extract_long runs on the card by default; pass "
             "device='cpu' for the plain chain"
         )
-    chain.check_supported(cfg)
     x = _as_samples(x, device, cfg)
     if chain.resamples(cfg):
         from mfcc_tpu_torch.ops import resample

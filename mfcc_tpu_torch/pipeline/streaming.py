@@ -105,8 +105,8 @@ def check_streamable(cfg: FrontendConfig, cmvn_moments) -> None:
 
 
 def stream_device(cfg: FrontendConfig, device) -> torch.device:
-    """The device a stream runs on: on "cuda" a card must exist and the
-    kernels must take cfg (RuntimeError, NotImplementedError); no fallback."""
+    """The device a stream runs on: on "cuda" a card must exist and cfg must
+    compute in float32 (RuntimeError, NotImplementedError); no fallback."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -114,7 +114,6 @@ def stream_device(cfg: FrontendConfig, device) -> torch.device:
                 "no CUDA device: streaming runs on the card by default; pass "
                 "device='cpu' for the kernels' plain versions"
             )
-        chain.check_supported(cfg)
         if cfg.dtype != "float32":
             raise NotImplementedError(f"the kernels compute in float32, not {cfg.dtype}")
     elif device.type != "cpu":

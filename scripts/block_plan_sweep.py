@@ -7,8 +7,8 @@ turns.
     python3 scripts/block_plan_sweep.py --parent DIR [--bf16x3]
 
 csrc/frontend.cu's plan_block takes the first plan of its ladder (block,
-block_global, gather, gather_global, gather_bands, gather_rows:
-kernels/frontend.py PLAN_TRAITS) at the first of 4, 2 and 1 groups (frames
+block_global, gather, gather_global, gather_bands, gather_rows,
+gather_sums: kernels/frontend.py PLAN_TRAITS) at the first of 4, 2 and 1 groups (frames
 a block transforms at once) whose layout fits the block. This script builds
 the source once for each of `STARTS`, each with plan_block's search started
 at another choice (it then takes the first that fits from there: a start
@@ -24,26 +24,29 @@ its shared memory and blocks an SM (from the layout mirror), the card's
 name and power limit. Imports nothing of JAX.
 
 With --parent DIR it builds `frontend.cu` and `tail.cu` of this checkout and
-of the checkout at DIR (their C interfaces the same), binds each build as
-the wrapper's library in turn, and times each kernel (profiler device time,
+of the checkout at DIR (their C interfaces the same; a parent whose packed
+mel table carries each weight's filter, bin | filter << 16, is given that
+table), binds each build as the wrapper's library in turn, and times each kernel (profiler device time,
 L2 flushed before every call; the tail's every kernel of the call) in the order
 parent, change, change, parent: the front-end at `TURNS` (classic13_deltas
 b64 x 10 s in the warp plan; classic13 at n_fft 1102, 4096 and 2501 b16 x
 10 s and librosa's framing b64 x 10 s in the block plan; classic13_deltas
-b16 x 10 s at hop 0.2 s in the gather plan and at n_fft 6001 in
-"gather_global"; kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
-plan's dither and conditioning instantiation), the feature tail
+b16 x 10 s at hop 0.2 s in the gather plan, at n_fft 6001 in
+"gather_global", at 16,384 in "gather_bands" and at 32,768 in
+"gather_rows"; kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
+plan's dither and conditioning instantiation; the fused resample at
+mfcc39_48k b64 x 10 s), the feature tail
 at `TAIL_TURNS` (classic13_deltas at 170 cepstra and delta window 8 and at
 200 and window 40, b16 x 10 s, on this checkout's front-end prefix). Each
 build's output is held to the other's within the kernel-vs-plain gates.
 Prints both means, their ratio, the plans and whether the outputs are
 equal bitwise. Then it
-builds this checkout's frontend.cu forced to "gather_bands" and to
-"gather_rows" (`FORCED`, one group each) and times each in turns with the
-default build at `FORCED_AT` (classic13_deltas at n_fft 6001, b16 x 10 s,
-where "gather_global" at one group fits), printing whether the outputs are
-equal bitwise: the two plans move operands to device memory and change no
-arithmetic. The bf16x3 form's staged plan is timed the same way, in turns
+builds this checkout's frontend.cu forced to "gather_bands", "gather_rows"
+and "gather_sums" (`FORCED`, one group each) and times each in turns with
+the default build at `FORCED_AT` (classic13_deltas at n_fft 6001, b16 x 10
+s, where "gather_global" at one group fits), printing whether the outputs
+are equal bitwise: the three plans move operands to device memory and
+change no arithmetic. The bf16x3 form's staged plan is timed the same way, in turns
 with the parent's, at `BF16X3_TURNS` (classic13 b64 x 10 s, and the fused
 resample at mfcc39_48k b64 x 10 s; where the parent has them, the "gather"
 plan at a 0.1 s hop, classic13 b16 x 10 s, and librosa's 8192-point framing,
@@ -68,7 +71,7 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # plan_block's search, whose starting point each build moves
-SEARCH = """  for (int plan = 0; plan < 6; ++plan) {
+SEARCH = """  for (int plan = 0; plan < 7; ++plan) {
     for (int groups = 4; groups >= 1; groups /= 2) {"""
 # (plan of the ladder after "warp", kernels/frontend.py FFT_PLANS[1 + plan]; groups)
 STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1), (4, 1), (5, 4))
@@ -80,7 +83,8 @@ LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s
 TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("classic13", dict(n_fft=4096), 16),
          ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64),
          ("classic13_deltas", dict(hop_s=0.2), 16), ("classic13_deltas", dict(n_fft=6001), 16),
-         ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16))
+         ("classic13_deltas", dict(n_fft=16384), 16), ("classic13_deltas", dict(n_fft=32768), 16),
+         ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16), ("mfcc39_48k", {}, 64))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
               ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
 # --parent: (config, overrides, rows) of the bf16x3 form: its staged plan,
@@ -93,7 +97,7 @@ BF16X3_FORCED_AT = ("classic13", dict(n_fft=4096), 16)
 FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
                 "mfcc_frontend_kernel_info")
 # --parent: the plans forced at one group, and the config they are forced at
-FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)))
+FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)), ("gather_sums", (6, 1)))
 FORCED_AT = ("classic13_deltas", dict(n_fft=6001), 16)
 TAIL_FNS = ("mfcc_feature_tail", "mfcc_feature_tail_cmvn", "mfcc_tail_error_string")
 
@@ -102,7 +106,7 @@ def variant(src: str, start: tuple[int, int]) -> str:
     """csrc/frontend.cu with plan_block's search started at `start`."""
     assert src.count(SEARCH) == 1, "plan_block's search not found"
     plan, n = start
-    return src.replace(SEARCH, f"""  for (int plan = {plan}; plan < 6; ++plan) {{
+    return src.replace(SEARCH, f"""  for (int plan = {plan}; plan < 7; ++plan) {{
     for (int groups = {n}; groups >= 1; groups /= 2) {{""")
 
 
@@ -151,20 +155,40 @@ def rows(pad_batch, cfg, n_rows: int, seed: int = 3):
     return torch.as_tensor(batch.audio, device="cuda"), torch.as_tensor(batch.lengths, device="cuda")
 
 
-def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None) -> tuple[dict, dict]:
+def filter_field_meta(off, index, M: int):
+    """The packed table of a front-end from before the filter field was
+    dropped: bin | filter << 16 (every n_fft to 65,534 bins), the sign bit on
+    each filter's last weight."""
+    import torch
+
+    meta = index // M | (index % M) << 16
+    last = torch.zeros_like(meta, dtype=torch.bool)
+    last[off[1:].long() - 1] = True
+    return torch.where(last, meta - (1 << 31), meta).to(torch.int32)
+
+
+def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None,
+             packing: dict | None = None) -> tuple[dict, dict]:
     """(ms per build of fn's kernels whose name holds substr, every kernel
     with None; one output per build) with each build bound as module's
-    library, parent, change, change, parent."""
-    own = module._lib
+    library, parent, change, change, parent; `packing` (the front-end's)
+    names the packed table each build reads, bound with it."""
+    own, own_meta = module._lib, getattr(module, "packed_meta", None)
     ms = {key: [] for key in libs}
     outs = {}
     try:
         for key in ("parent", "change", "change", "parent"):
             module._lib = lambda key=key: libs[key]
+            if packing:
+                module.packed_meta = packing[key]
+                module._device_tables.cache_clear()
             outs[key] = fn()
             ms[key].append(chip_smoke.device_ms(torch, fn, substr))
     finally:
         module._lib = own
+        if packing:
+            module.packed_meta = own_meta
+            module._device_tables.cache_clear()
     return ms, outs
 
 
@@ -204,7 +228,11 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
               f"({ms['change'][0]:.4f}, {ms['change'][1]:.4f}), change / parent {c / p:.3f}; bitwise equal: "
               f"{bool(torch.equal(outs['change'], outs['parent']))}")
 
-    block_parent = "kBfLadder" in (trees["parent"] / "frontend.cu").read_text()
+    parent_src = (trees["parent"] / "frontend.cu").read_text()
+    block_parent = "kBfLadder" in parent_src
+    # a parent whose packed table carries each weight's filter reads it so
+    packing = {"parent": filter_field_meta if "meta_filter" in parent_src else frontend.packed_meta,
+               "change": frontend.packed_meta}
     for name, over, n_rows in BF16X3_TURNS:
         cfg = named_config(name).replace(**over)
         check(frontend.resample_route(cfg, "bf16x3") in (None, "fused"), f"{name} takes no split route")
@@ -212,7 +240,7 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
             continue  # the parent refuses the bf16x3 form past its staged plan
         audio, lengths = rows(pad_batch, cfg, n_rows)
         fn = lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")  # noqa: E731
-        ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel")
+        ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel", packing)
         errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
         if testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL):
             raise SystemExit(f"{name} {over} bf16x3: the builds disagree: {errs}")
@@ -253,7 +281,7 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
         cfg = named_config(name).replace(**over)
         audio, lengths = rows(pad_batch, cfg, n_rows)
         ms, outs = in_turns(torch, chip_smoke, frontend, fe, lambda: frontend.logmel_prefix(audio, lengths, cfg),
-                            "logmel_kernel")
+                            "logmel_kernel", packing)
         errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
         if testing.prefix_failures(errs):
             raise SystemExit(f"{name} {over}: the builds disagree: {errs}")

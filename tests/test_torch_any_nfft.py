@@ -9,8 +9,8 @@ devices, while the JAX package computes every size. Two plans follow it:
 "gather_bands" reads the packed bands from device memory (Stockham to n_fft
 25,600, Bluestein to P = 12,800), and "gather_rows", the last, keeps each
 group's two rows in a workspace in device memory, so its layout does not
-depend on n_fft; past 65,536 bins the packed table's bin field widens
-(`frontend.meta_bin_bits`). Here, on the CPU:
+depend on n_fft; the packed table's words hold the bin in all 31 bits.
+Here, on the CPU:
 - the port's CPU chain (the kernels' plain versions) ≡ the JAX jnp chain on
   the same seeded int16 rows, masks equal, at classic13_deltas n_fft 7,001,
   12,502, 13,001, 16,384 and 32,768 (5e-4), logmel80 at 16,384 (1e-4) and
@@ -20,7 +20,8 @@ depend on n_fft; past 65,536 bins the packed table's bin field widens
   to 131,072 for any named family; every config the parent's five block
   plans fit keeps its plan; the "gather_rows" layout constant in n_fft; the
   tops of "gather_bands"; the bf16x3 opt-in taken where it was refused;
-- the packed table at n_fft 131,072 round-trips each bin and filter;
+- the packed table at n_fft 131,072 round-trips each bin, and the offsets
+  each weight's filter;
 - a stream and a block launch at 16,384 ≡ the offline chain.
 tests/test_torch_gpu.py and chip_smoke.py (phase 29) hold the kernel's new
 plans to their plain versions on a card.
@@ -124,7 +125,8 @@ def test_every_config_that_fits_today_keeps_its_plan():
     families at n_fft from 256 to 12,500, hops of 10 ms to 1 s and frames of
     25 ms to 3 s; the others take "gather_bands" or "gather_rows"."""
     assert PARENT_LAYOUTS[-1] == ("gather_global", 1)
-    assert [p for p, _ in frontend.FFT_LAYOUTS[13:]] == ["gather_bands"] * 3 + ["gather_rows"] * 3
+    assert [p for p, _ in frontend.FFT_LAYOUTS[13:]] == (
+        ["gather_bands"] * 3 + ["gather_rows"] * 3 + ["gather_sums"] * 3)
     kept = moved = 0
     for name in sorted(T_CONFIGS):
         base = frontend.feature_rate_config(T_CONFIGS[name])
@@ -196,53 +198,50 @@ def test_tops_of_gather_bands():
 def test_bf16x3_is_refused_where_it_was():
     """Where the bf16x3 opt-in was refused (it staged the span: from n_fft
     2,245 at classic13, and at 7,001 and 16,384, where the default form
-    runs), its block plans take it now (`frontend.bf16_layout`); what is
-    still refused is the packed table's filter field (60,000 filters) and,
-    on the card, a matrix over the card's memory (n_fft = frame length =
-    131,072 on an 80 GB card)."""
+    runs), its block plans take it now (`frontend.bf16_layout`); so do
+    60,000 filters, refused before (the packed table's filter field), in
+    "gather_out"; what is still refused, on the card, is a matrix over the
+    card's memory (n_fft = frame length = 131,072 on an 80 GB card)."""
     c = T_CONFIGS["classic13"]
     assert frontend.layout_reason(c.replace(n_fft=2244), "bf16x3") is None
     for n in (2245, 4096, 7001, 16384):
         assert frontend.layout_reason(c.replace(n_fft=n), "bf16x3") is None, n
         assert frontend.bf16_layout(c.replace(n_fft=n))[0] != "staged", n
         assert frontend.layout_reason(c.replace(n_fft=n)) is None
-    assert "filter field" in frontend.layout_reason(c.replace(n_mels=60000), "bf16x3")
+    assert frontend.layout_reason(c.replace(n_mels=60000), "bf16x3") is None
+    assert frontend.bf16_layout(c.replace(n_mels=60000))[0] == "gather_out"
     wide = c.replace(n_fft=131072, win_len_s=131072 / 16000)
     assert frontend.layout_reason(wide, "bf16x3") is None
     assert "over the card's" in frontend.bf16_matrix_reason(wide, 80 * 10**9)
 
 
 def test_packed_table_at_131072_round_trips():
-    """At n_fft 131,072 (65,537 bins) the packed table's bin field widens
-    to 17 bits and its filter field narrows to 14: every weight's bin and
-    filter round-trip, the last weight of each filter carries the sign bit.
-    Up to 65,536 bins the field stays 16 bits, the staged plans' packing."""
-    assert [frontend.meta_bin_bits(b) for b in (257, 65536, 65537, 131073)] == [16, 16, 17, 18]
+    """At n_fft 131,072 (65,537 bins) each packed word holds its weight's
+    bin in all 31 bits (the old 16-bit field widened to 17 there and left
+    the filter 14), the sign bit on each filter's last weight; the filter
+    is in no word: the kernel's binary search of the offsets finds it
+    (`torch.searchsorted` here). The packing does not depend on the bins:
+    16,384's is the same function of (off, index)."""
     for name in ("classic13_deltas", "ssc26", "logmel80"):
         cfg = T_CONFIGS[name].replace(n_fft=131072)
         mel = tchain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"]
         assert mel.shape[0] == 65537
         off, index = frontend.mel_packed(mel)
         M = mel.shape[1]
-        meta = frontend.packed_meta(off, index, M, mel.shape[0]).long()
-        assert torch.equal(meta & 0x1FFFF, index // M)  # each weight's bin
-        assert torch.equal((meta >> 17) & 0x3FFF, index % M)  # and filter
+        meta = frontend.packed_meta(off, index, M).long()
+        assert torch.equal(meta & 0x7FFFFFFF, index // M)  # each weight's bin
         assert torch.equal((meta < 0).nonzero()[:, 0], off[1:].long() - 1)  # each filter's last
-        small = T_CONFIGS[name].replace(n_fft=16384)
-        smel = tchain.device_constants(small, torch.device("cpu"), torch.float32)["mel"]
-        soff, sindex = frontend.mel_packed(smel)
-        assert torch.equal(frontend.packed_meta(soff, sindex, M, smel.shape[0]),
-                           frontend.packed_meta(soff, sindex, M))
+        owner = torch.searchsorted(off[:-1].long(), torch.arange(index.numel()), right=True) - 1
+        assert torch.equal(owner, index % M)  # and its filter, from the offsets alone
     # a table whose filters weigh the top bins, past the old 16-bit field
     mel = torch.zeros(65537, 3)
     mel[65530:, 0], mel[:4, 1], mel[65535:, 2] = 1.0, 1.0, 0.5
     off, index = frontend.mel_packed(mel)
-    meta = frontend.packed_meta(off, index, 3, 65537).long()
-    assert torch.equal(meta & 0x1FFFF, index // 3) and int((meta & 0x1FFFF).max()) == 65536
-    assert torch.equal((meta >> 17) & 0x3FFF, index % 3)
-    with pytest.raises(ValueError, match="14-bit filter field"):
-        frontend.packed_meta(torch.tensor([0, 1], dtype=torch.int32), torch.tensor([20000 * 65536]),
-                             20000, 65537)
+    meta = frontend.packed_meta(off, index, 3).long()
+    assert torch.equal(meta & 0x7FFFFFFF, index // 3) and int((meta & 0x7FFFFFFF).max()) == 65536
+    # 20,000 filters over 65,537 bins, refused before (its 14-bit filter field)
+    word = frontend.packed_meta(torch.tensor([0, 1], dtype=torch.int32), torch.tensor([20000 * 65536]), 20000)
+    assert int(word[0]) == 65536 - (1 << 31)
 
 
 @pytest.mark.parametrize("n_fft", [16384, 32768])

@@ -218,15 +218,17 @@ def test_dft_passes_validation_and_routing():
     # power rows (stride 292), energies and means, the projection's scratch
     # (194,752 B at classic13, one block an SM); n_fft 4096's power rows of
     # every bin are over the block, so it takes the power rows of one pass
-    # ("pass"); what is still refused is the packed table's filter field, and
-    # on the card a matrix over the card's memory
+    # ("pass"); 60,000 filters, refused before (the packed table's filter
+    # field), take "gather_out"; what is still refused is, on the card, a
+    # matrix over the card's memory
     assert frontend.bf16_plan(cfg) == (64, 4) and frontend.bf16_power_stride(cfg) == 292
     assert frontend.bf16_dims(cfg) == (400, 272)
     assert frontend.smem_bytes(cfg, "bf16x3") == 194752
     assert frontend.layout_reason(cfg, "bf16x3") is None
     assert frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3") is None
     assert frontend.bf16_layout(cfg.replace(n_fft=4096))[0] == "pass"
-    assert "filter field" in frontend.layout_reason(cfg.replace(n_mels=60000), "bf16x3")
+    assert frontend.layout_reason(cfg.replace(n_mels=60000), "bf16x3") is None
+    assert frontend.bf16_layout(cfg.replace(n_mels=60000))[0] == "gather_out"
     wide = cfg.replace(n_fft=131072, win_len_s=131072 / 16000)
     assert "over the card's 80,000,000,000 bytes" in frontend.bf16_matrix_reason(wide, 80 * 10**9)
     with pytest.raises(ValueError, match="not in"):

@@ -159,9 +159,10 @@ def test_layout_reason_is_none_at_every_n_fft_hop_and_frame_length():
     for cfg in cfgs:
         assert frontend.layout_reason(cfg, "bf16x3") is None, cfg
         assert frontend.smem_bytes(cfg, "bf16x3", False) <= BUDGET, cfg
-    # what is still refused: the packed table's filter field
-    reason = frontend.layout_reason(c.replace(n_mels=60000), "bf16x3")
-    assert "60000 filters" in reason and "filter field" in reason
+    # 60,000 filters, refused before (the packed table's filter field), take
+    # "gather_out": nothing is refused for its layout
+    assert frontend.layout_reason(c.replace(n_mels=60000), "bf16x3") is None
+    assert frontend.bf16_layout(c.replace(n_mels=60000)) == ("gather_out", 64, 4)
     # a resampling config's fused form keeps "staged"; past it the split
     # route's plain form takes a block plan at the feature rate
     r = T_CONFIGS["mfcc39_48k"].replace(hop_s=0.1)

@@ -6,8 +6,9 @@ split, a corrupt file and one at the wrong rate) goes through both CLIs:
 the shard names, ids, markers and moments match, and the features are
 within each family's gate, for extract (npz, HTK and Kaldi), the two-pass
 global and speaker CMVN (`apply-cmvn`), and a resume across the two
-packages in both directions. An unsupported config, through either feed,
-or `--device cuda` without a card exits non-zero with no shard written;
+packages in both directions. 60,000 filters, refused before, extract
+through either feed; `--device cuda` without a card, or a float64 config
+on the card, exits non-zero with no shard written;
 `--feed auto` takes the multi-process feed where the C++ decoder builds.
 (`--batch-size 8`: the JAX package's tests run it on 8 CPU devices, whose
 mesh rounds the batch up to a multiple of 8.)
@@ -249,16 +250,29 @@ def test_resume_works_across_the_packages(tmp_path, corpus, caplog):
 
 
 def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
-    """A config the kernels refuse (60,000 filters: over the packed mel
-    table's filter field) exits 2 and writes nothing, on either device;
-    n_fft 4096 (the block FFT plan) and 16384 (the packed bands read from
-    device memory), refused before, now extract (here on the CPU), at 16384
-    the reference CLI's shards within the cepstra gate."""
-    out = tmp_path / "o"
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--device", "cpu", "--feed", "mp", "--set", "n_mels=60000"])
-    assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
-    rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "n_mels=60000", "--device", "cuda"])
-    assert rc == 2 and "ROADMAP queue 2 item 4" in caplog.text
+    """60,000 filters, refused before on both devices (over the packed mel
+    table's filter field), now extract on the CPU through either feed: the
+    shards and ids of the reference CLI, the features within the cepstra
+    gate of the same run in float64 and no further from it than the
+    reference's (whose DCT over 60,000 lanes sums in fp32); n_fft 4096 (the
+    block FFT plan) and 16384 (the packed bands read from device memory),
+    refused before, extract too, at 16384 the reference CLI's shards within
+    the cepstra gate. What is still refused exits 2 and writes nothing:
+    `--device cuda` without a card, and a float64 config on the card."""
+    many = ("--set", "n_mels=60000")
+    rc_t, t = _run(tmp_path, corpus, *many, "--feed", "mp", out="m60k")
+    rc_f, f = _run(tmp_path, corpus, *many, "--set", "dtype=float64", out="m60k64")
+    rc_j, j = _run(tmp_path, corpus, *many, ref=True, out="j60k")
+    assert rc_t == rc_f == rc_j == 0
+    names = sorted(p.name for p in j.glob("*.npz"))
+    assert sorted(p.name for p in t.glob("*.npz")) == sorted(p.name for p in f.glob("*.npz")) == names and names
+    for name in names:
+        got, want, ref = read_shard(t / name), read_shard(f / name), jread_shard(j / name)
+        assert list(got) == list(want) == list(ref)
+        for k in got:
+            assert_features_close(got[k], want[k])
+            err = np.abs(got[k].astype(np.float64) - want[k]).max()
+            assert err <= np.abs(ref[k].astype(np.float64) - want[k]).max(), (name, k)
     rc, ran = _run(tmp_path, corpus, "--set", "n_fft=4096", out="n4096")
     assert rc == 0 and list(ran.rglob("*.npz"))
     rc_t, t = _run(tmp_path, corpus, "--set", "n_fft=16384", out="n16384")
@@ -271,9 +285,15 @@ def test_refusals_exit_without_writing(tmp_path, corpus, caplog):
         assert list(got) == list(want)
         for k in got:
             assert_features_close(got[k], want[k])
+    out = tmp_path / "o"
     if not torch.cuda.is_available():
-        assert tmain(["extract", str(corpus), "-o", str(out), "--config", "classic13"]) == 2
+        assert tmain(["extract", str(corpus), "-o", str(out), "--config", "classic13", *many]) == 2
         assert "no CUDA device" in caplog.text
+    caplog.clear()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: True)
+        rc = tmain(["extract", str(corpus), "-o", str(out), "--set", "dtype=float64", "--device", "cuda"])
+    assert rc == 2 and "float32, not float64" in caplog.text
     assert not out.exists() or not list(out.rglob("*.npz"))
 
 

@@ -168,10 +168,12 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_wrapper_refuses_configs_outside_the_slice():
-    """What is still refused: 60,000 filters, over the packed table's
-    filter field, the bf16x3 opt-in's only layout reason (it takes n_fft
-    4096 in its "pass" plan now), which the card's wrapper refuses before
-    any launch; n_fft 7,001, which it refused before
+    """Nothing is refused for its layout now: 60,000 filters, refused
+    before (over the packed table's filter field) on both routes, take
+    "gather_sums" and bf16x3's "gather_out", and the wrapper's plain
+    version here ≡ the JAX package's jnp stages within the prefix gates (the
+    bf16x3 opt-in takes n_fft 4096 in its "pass" plan; what its card
+    wrapper still refuses is a matrix over the card's memory); n_fft 7,001, which it refused before
     (275,360 B in the gather plan), runs with the packed bands read from
     device memory ("gather_bands", 222,384 B), here as its plain version ≡
     the JAX package's jnp stages; n_fft 5,393, refused before that
@@ -186,8 +188,19 @@ def test_wrapper_refuses_configs_outside_the_slice():
     the log-mel gate, 1e-4), with no launch."""
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
-    reason = frontend.layout_reason(T_CONFIGS["classic13"].replace(n_mels=60000), "bf16x3")
-    assert "60000 filters" in reason and "filter field" in reason
+    c60k, j60k = T_CONFIGS["classic13"].replace(n_mels=60000), J_CONFIGS["classic13"].replace(n_mels=60000)
+    assert frontend.layout_reason(c60k) is None and frontend.fft_plan(c60k) == "gather_sums"
+    assert frontend.layout_reason(c60k, "bf16x3") is None and frontend.bf16_layout(c60k)[0] == "gather_out"
+    x = np.round(np.random.default_rng(60000).standard_normal((2, 4000)) * 3000).astype(np.float32)
+    lens = np.array([4000, 2500], np.int32)
+    x[1, 2500:] = 0.0
+    got60k = frontend.logmel_prefix(torch.as_tensor(x), torch.as_tensor(lens), c60k)
+    st = jchain.logmel_stages(jnp.asarray(x), jnp.asarray(lens), j60k)
+    want = np.concatenate([np.asarray(st["logmel"]), np.asarray(st["energy"])[..., None]], axis=-1)
+    assert got60k.shape == want.shape
+    assert_prefix_close(got60k.numpy(), want, c60k.n_mels)
+    wide = T_CONFIGS["classic13"].replace(n_fft=131072, win_len_s=131072 / 16000)
+    assert "over the card's" in frontend.bf16_matrix_reason(wide, 80 * 10**9)
     c7001, j7001 = T_CONFIGS["classic13"].replace(n_fft=7001), J_CONFIGS["classic13"].replace(n_fft=7001)
     assert frontend.layout_reason(c7001) is None and frontend.fft_plan(c7001) == "gather_bands"
     x = np.round(np.random.default_rng(7001).standard_normal((2, 9000)) * 3000).astype(np.float32)
@@ -333,7 +346,8 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
         earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
         assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
     assert forms == {"stockham", "bluestein"}
-    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "gather_bands", "gather_rows"}
+    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "gather_bands", "gather_rows",
+                                                                   "gather_sums"}
     over = T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1)
     assert frontend.layout_reason(over) is None and frontend.fft_plan(over) == "gather_bands"
 
@@ -400,8 +414,7 @@ def test_mel_bands_cover_every_weight():
     assert torch.equal(dense.reshape(mel.shape), mel)
     assert int(off[-1] - off[-2]) == 1 and int(index[-1]) == mel.shape[1] - 1  # bin 0, last column
     meta = frontend.packed_meta(off, index, mel.shape[1]).long()
-    assert torch.equal(meta & 0xFFFF, index // mel.shape[1])  # each weight's bin
-    assert torch.equal((meta >> 16) & 0x7FFF, index % mel.shape[1])  # and filter
+    assert torch.equal(meta & 0x7FFFFFFF, index // mel.shape[1])  # each weight's bin, no filter
     assert torch.equal((meta < 0).nonzero()[:, 0], off[1:].long() - 1)  # each filter's last
 
 

@@ -437,14 +437,16 @@ def test_extract_batch_families_on_card_match_cpu(config_name):
 
 
 def test_layout_over_the_block_budget_raises():
-    """What is still refused raises before the launch: 60,000 filters, over
-    the packed table's filter field (the bf16x3 opt-in at n_fft 4096, over
-    the block while it staged the power rows of every bin, now fits in its
-    "pass" plan and launches); n_fft 7,001 (refused before:
-    the gather plan's Bluestein rows of P = 12,288 and its packed bands,
-    275,360 B) fits with the bands read from device memory (222,384 B) and
-    launches; n_fft 2048 at 26 filters, over it while the mel matrix was
-    staged dense, fits with the packed bands, and 4096 (420,160 B in the
+    """What is still refused raises before the launch: a bf16x3 matrix over
+    the card's memory (n_fft = frame length = 131,072); 60,000 filters,
+    refused before (over the packed table's filter field), launch in the
+    default route ("gather_sums") and in bf16x3 ("gather_out"), and so does
+    the bf16x3 opt-in at n_fft 4096 (over the block while it staged the
+    power rows of every bin, now in its "pass" plan); n_fft 7,001 (refused
+    before: the gather plan's Bluestein rows of P = 12,288 and its packed
+    bands, 275,360 B) fits with the bands read from device memory (222,384
+    B) and launches; n_fft 2048 at 26 filters, over it while the mel matrix
+    was staged dense, fits with the packed bands, and 4096 (420,160 B in the
     warp plan) in the block plan."""
     dev = _card()
     cfg = NAMED_CONFIGS["classic13"].replace(n_fft=7001)
@@ -456,8 +458,9 @@ def test_layout_over_the_block_budget_raises():
     audio = torch.zeros((1, 16000), dtype=torch.int16, device=dev)
     lengths = torch.tensor([16000], dtype=torch.int32, device=dev)
     before = frontend.launches
-    with pytest.raises(NotImplementedError, match="filter field"):
-        frontend.logmel_prefix(audio, lengths, cfg.replace(n_mels=60000), dft_passes="bf16x3")
+    wide = cfg.replace(n_fft=131072, win_len_s=131072 / 16000)
+    with pytest.raises(NotImplementedError, match="over the card's"):
+        frontend.logmel_prefix(audio, lengths, wide, dft_passes="bf16x3")
     assert frontend.launches == before
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
@@ -467,6 +470,12 @@ def test_layout_over_the_block_budget_raises():
     assert frontend.launches == before + 2 and bool(torch.isfinite(got).all())
     eps = torch.tensor(cfg.log_eps, dtype=torch.float32)
     assert torch.equal(got[..., cfg.n_mels].cpu(), eps.expand(got.shape[:2]))  # zero rows: energy eps
+    many = NAMED_CONFIGS["classic13"].replace(n_mels=60000)
+    for passes in ("radix4", "bf16x3"):
+        got = frontend.logmel_prefix(audio, lengths, many, dft_passes=passes)
+        torch.cuda.synchronize()
+        assert got.shape[-1] == 60001 and bool(torch.isfinite(got).all())
+    assert frontend.launches == before + 4
 
 
 def _counts():
@@ -1204,6 +1213,72 @@ def test_any_n_fft_matches_reference(name, overrides, plan, monkeypatch):
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
     wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
     assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
+
+
+# tens of thousands of filters: (config, overrides, plan of the default route)
+MANY_FILTER_CASES = [
+    ("classic13_deltas", {"n_mels": 40000}, "gather_bands"),
+    ("classic13", {"n_mels": 60000}, "gather_sums"),
+    ("kaldi_plp", {"n_mels": 60000}, "gather_sums"),
+    ("logmel80", {"n_mels": 33000}, "gather_bands"),
+    ("ssc26", {"n_mels": 30000, "n_fft": 4096}, "gather_sums"),
+]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("name,overrides,plan", MANY_FILTER_CASES,
+                         ids=["40000", "60000_sums", "plp_60000_sums", "logmel80_33000", "ssc_30000_sums"])
+def test_many_filters_match_reference(name, overrides, plan, monkeypatch):
+    """Tens of thousands of filters (refused before: over the packed table's
+    filter field; from 57,849, 28,797 for SSC, the projection's sums over
+    the block, now in device memory, "gather_sums"): the kernel against the
+    float64 plain version on the CPU at the prefix gates (filters of at most
+    two weights at the per-bin gate; NaN, an SSC filter with no weight, in
+    the plain version's places), int16 ≡ float32, a NaN-filled workspace and
+    a persistent grid of 3 blocks, bitwise; counted by plan; the bf16x3
+    opt-in at the same config in "gather_out" against its plain version at
+    its gates."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    assert frontend.fft_plan(cfg) == plan and chain.unsupported_reason(cfg) is None
+    g = np.random.default_rng(cfg.n_mels)
+    n = cfg.sample_rate
+    lens = [n, n - 2345, 3 * cfg.frame_length // 2, 1]
+    b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in lens], cfg, bucket_len=n, dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
+    frontend.gather_bands_launches = frontend.gather_sums_launches = 0
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.gather_bands_launches, frontend.gather_sums_launches) == (
+        int(plan == "gather_bands"), int(plan == "gather_sums"))
+    narrow = None  # the fp32 route's filters of at most two weights: the per-bin gate
+    if cfg.features != "ssc":
+        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+    for passes, want, loud in (
+            ("radix4", frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64")),
+             None),
+            ("bf16x3", None, testing.BF16X3_LOUD_ATOL)):
+        if passes == "bf16x3":
+            frontend.bf16_gather_out_launches = 0
+            got = frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")
+            torch.cuda.synchronize()
+            assert frontend.bf16_gather_out_launches == 1
+            want = frontend.logmel_prefix_reference(audio, lengths, cfg, dft_passes="bf16x3").cpu()
+        got_c = got.cpu()
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got_c), nan)
+        errs = testing.prefix_errors(got_c.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0), cfg.n_mels,
+                                     cfg.log_kind, cfg.features, narrow if loud is None else None)
+        assert not testing.prefix_failures(errs, loud), (passes, errs)
+        assert torch.equal(_bits(got), _bits(frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes=passes)))
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    _nan_workspace(monkeypatch)
+    assert torch.equal(_bits(got), _bits(frontend.logmel_prefix(audio, lengths, cfg)))
+    monkeypatch.setattr(frontend, "_resident_blocks", lambda *args: 3)
+    assert torch.equal(_bits(got), _bits(frontend.logmel_prefix(audio, lengths, cfg)))
 
 
 @pytest.mark.parametrize("n_fft,plan", [(16384, "gather_bands"), (32768, "gather_rows")])

@@ -252,7 +252,8 @@ def test_every_config_that_fits_today_keeps_its_plan():
         ("warp", 8), ("block", 4), ("block", 2), ("block", 1),
         ("block_global", 4), ("block_global", 2), ("block_global", 1))
     assert [p for p, _ in frontend.FFT_LAYOUTS[7:]] == (
-        ["gather"] * 3 + ["gather_global"] * 3 + ["gather_bands"] * 3 + ["gather_rows"] * 3)
+        ["gather"] * 3 + ["gather_global"] * 3 + ["gather_bands"] * 3 + ["gather_rows"] * 3
+        + ["gather_sums"] * 3)
     kept = moved = 0
     for name in sorted(T_CONFIGS):
         base = frontend.feature_rate_config(T_CONFIGS[name])

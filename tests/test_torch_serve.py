@@ -11,8 +11,8 @@ and retries (the port catches `BufferFullError`, the reference matches a
 message); an explicit poll drains; EOF and SIGTERM flush; global CMVN
 stats. Where the port differs from the reference on purpose: frames_batch
 metas are split so no outbound header reaches the reader's 1 MiB cap
-(`cli.main.chunk_metas`), and `--device cuda` without a card, or a config
-the kernels refuse, exits 2 before any event.
+(`cli.main.chunk_metas`), and `--device cuda` without a card, or a float64
+config on the card, exits 2 before any event.
 """
 
 import base64
@@ -326,17 +326,21 @@ def test_frames_batch_metas_are_split_under_the_header_cap(monkeypatch, capsysbi
 
 
 def test_serve_refuses_before_any_event(monkeypatch, capsys):
-    """--device cuda (the default) without a card, and a config the kernels
-    refuse (60,000 filters: over the packed mel table's filter field), exit
-    2 and print no event."""
+    """--device cuda (the default) without a card, and a float64 config on
+    the card, exit 2 and print no event; 60,000 filters, refused before
+    (over the packed mel table's filter field), serve a session on the CPU."""
     lines = [json.dumps({"op": "open"})]
     monkeypatch.setattr(sys, "stdin", __import__("io").StringIO(lines[0] + "\n"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["serve", "--config", "classic13"]) == 2
     assert capsys.readouterr().out == ""
+    monkeypatch.setattr(sys, "stdin", __import__("io").StringIO(lines[0] + "\n"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tcli.main(["serve", "--config", "classic13", "--set", "dtype=float64"]) == 2
+    assert capsys.readouterr().out == ""
     rc, events = _serve(True, monkeypatch, capsys, lines, "--config", "classic13",
                         "--set", "n_mels=60000")
-    assert (rc, events) == (2, [])
+    assert rc == 0 and [ev["event"] for ev, _ in events][:1] == ["opened"]
     rc, events = _serve(True, monkeypatch, capsys, lines, "--config", "whisper80")
     assert (rc, events) == (2, [])
 

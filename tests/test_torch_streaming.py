@@ -250,15 +250,18 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unsupported_config_raises_on_the_card(monkeypatch):
-    """A streamable config the kernels refuse (60,000 filters: over the
-    packed mel table's filter field) raises NotImplementedError on the card,
-    before any launch; n_fft 16384
-    with 0.9 s frames, refused before, is taken (the packed bands read from
-    device memory), and its stream on the CPU ≡ the offline chain."""
+    """What the card still refuses, a float64 config, raises
+    NotImplementedError before any launch; 60,000 filters, refused before
+    (over the packed mel table's filter field), are taken (the projection's
+    sums in device memory); n_fft 16384 with 0.9 s frames, refused before,
+    is taken (the packed bands read from device memory), and its stream on
+    the CPU ≡ the offline chain."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     before = (frontend.launches, frontend.block_launches)
-    with pytest.raises(NotImplementedError, match="filter field"):
-        StreamingExtractor(T_CONFIGS["classic13"].replace(n_mels=60000))
+    with pytest.raises(NotImplementedError, match="float32, not float64"):
+        StreamingExtractor(T_CONFIGS["classic13"].replace(dtype="float64"))
+    many = T_CONFIGS["classic13"].replace(n_mels=60000)
+    assert chain.unsupported_reason(many) is None and frontend.fft_plan(many) == "gather_sums"
     cfg = T_CONFIGS["classic13"].replace(n_fft=16384, win_len_s=0.9)
     assert chain.unsupported_reason(cfg) is None and frontend.fft_plan(cfg) == "gather_bands"
     assert (frontend.launches, frontend.block_launches) == before
