@@ -272,7 +272,13 @@ Phases, in order; any failure exits non-zero:
      version on the front-end's own prefix at the tail's gate, rows 0-3 of
      the features against the float64 chain (the card's gated, the CPU
      chain's printed), timed.
-  29. every n_fft ("gather_bands", "gather_rows"; `any_n_fft_path`).
+  29. every n_fft past the gather plan's layouts (`any_n_fft_path`,
+     `ANY_NFFT`): the cluster plan (each frame's FFT rows over a
+     thread-block cluster of 2, 4 or 8 blocks), every gate on its default
+     launch, beside the parent's plans it replaced ("gather_bands",
+     "gather_rows") forced, each counted and gated against the float64
+     plain version and timed; the other cluster sizes forced at n_fft
+     32,768 within the gates.
   30. the bf16x3 opt-in at every layout (`bf16x3_plans_path`,
      `BF16X3_PLANS`): its block plans ("pass", "gather", "gather_bands",
      "gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
@@ -288,7 +294,8 @@ Phases, in order; any failure exits non-zero:
      and 60,000 filters ("gather_sums"), b16 x 10 s; ssc26 at 30,000 filters
      and n_fft 4,096 ("gather_sums"), b16; logmel80 at 33,000, b4; bf16x3 at
      40,000 ("gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
-     b16; n_fft 131,072 at 16,385 filters (past the old 14-bit field), b2 x
+     b16; n_fft 131,072 at 16,385 filters (past the old 14-bit field; the
+     cluster plan, and "gather_rows" forced beside it), b2 x
      30 s, where the host's memory holds its dense mel matrix and the run
      is under HOST_BOUND_AFTER_S old. Each against
      its plain version on the card (float64, the first and last rows;
@@ -591,7 +598,19 @@ KERNELS = {
                              ("gather_sums_ssc26_30000_filters", "mfcc_tpu/kernels/frontend.py:965"),
                              ("gather_bands_logmel80_33000_filters", "mfcc_tpu/kernels/frontend.py:905"),
                              ("bf16x3_gather_out_40000_filters", "mfcc_tpu/kernels/frontend.py:857"),
-                             ("gather_rows_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"))},
+                             ("gather_rows_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("cluster_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"))},
+    # the cluster plan at phase 29's cases
+    **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
+             "replaces": replaces}
+       for key, replaces in (("cluster_librosa_44k_16384", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("cluster_bluestein_7001", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("cluster_bluestein_12502", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("cluster_whisper80_16384", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("cluster_bluestein_13001", "mfcc_tpu/kernels/frontend.py:807"),
+                             ("cluster_32768", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("cluster_48k_65536", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("cluster_131072", "mfcc_tpu/kernels/frontend.py:905"))},
     "tail_split_compensated_60000_filters": {
         "name": "feature_tail_split_60000_filters_compensated",
         "route": "cuda",
@@ -600,7 +619,7 @@ KERNELS = {
     },
 }
 # kernels whose case a host without the memory leaves out (phase 31)
-HOST_BOUND_KERNELS = {"gather_rows_131072_16385_filters"}
+HOST_BOUND_KERNELS = {"gather_rows_131072_16385_filters", "cluster_131072_16385_filters"}
 FAMILY_PATHS = (("kaldi_plp", 13), ("kaldi_spectrogram", 14), ("ssc26", 15))  # (config, seed)
 # librosa's default framing (librosa.feature.melspectrogram: sr 22,050, n_fft
 # 2048, win_length n_fft, hop 512, 128 mels), a logmel80 override
@@ -762,6 +781,7 @@ class Counters:
         self.frontend.gather_bands_launches = 0
         self.frontend.gather_rows_launches = 0
         self.frontend.gather_sums_launches = 0
+        self.frontend.cluster_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.bf16_pass_launches = 0
         self.frontend.bf16_gather_launches = 0
@@ -795,6 +815,7 @@ class Counters:
             "gather_bands": self.frontend.gather_bands_launches,
             "gather_rows": self.frontend.gather_rows_launches,
             "gather_sums": self.frontend.gather_sums_launches,
+            "cluster": self.frontend.cluster_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "bf16_pass": self.frontend.bf16_pass_launches,
             "bf16_gather": self.frontend.bf16_gather_launches,
@@ -1203,14 +1224,16 @@ def kernel_times(torch, chain, frontend, cfg, audio, lengths, F: int,
 
 
 def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str,
-                   chunk: int | None = None) -> dict[str, float]:
+                   chunk: int | None = None, extra: dict | None = None) -> dict[str, float]:
     """The kernel against the plain version computed in float64 on the CPU
     over every row, `chunk` rows at a time (all at once by default), (the
     gate: at these sizes the fp32 plain version is itself ~2e-5 from
     float64 on loud bins of narrow filters; the card's float64 rfft at odd
     sizes such as 551 is itself wrong), with the fp32 plain version's errors
     on the card printed beside. whisper80's narrow lanes (filters of at most
-    two weights) take the per-bin gate (`testing.narrow_lanes`)."""
+    two weights) take the per-bin gate (`testing.narrow_lanes`). `extra`
+    maps a name to another output of the same rows, each held to the same
+    float64 version, its errors put back in its place."""
     import torch
 
     narrow = None
@@ -1228,6 +1251,9 @@ def check_prefix64(testing, frontend, got, audio, lengths, cfg, what: str,
     n, chunk, cfg64 = audio.shape[0], chunk or audio.shape[0], cfg.replace(dtype="float64")
     plain64 = torch.cat([frontend.logmel_prefix_reference(audio[i:i + chunk].cpu(), lengths[i:i + chunk].cpu(),
                                                           cfg64) for i in range(0, n, chunk)])
+    for name, other in (extra or {}).items():
+        extra[name] = check_prefix(testing, other, plain64, cfg, f"{what}, {name}, vs the float64 plain version",
+                                   narrow)
     return check_prefix(testing, got, plain64, cfg, f"{what}, vs the float64 plain version", narrow)
 
 
@@ -1366,7 +1392,7 @@ def plan_branches(chain, frontend, cfg) -> dict[str, int]:
     return {k: 1 for k, on in (
         ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"), ("global_tables", tables),
         ("gather", gather), ("gather_bands", plan == "gather_bands"), ("gather_rows", plan == "gather_rows"),
-        ("gather_sums", plan == "gather_sums"),
+        ("gather_sums", plan == "gather_sums"), ("cluster", plan == "cluster"),
         ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
         ("conditioning", chain.needs_conditioning(cfg))) if on}
 
@@ -1401,8 +1427,9 @@ def dft_times(torch, chain, frontend, cfg, batch, audio, lengths, what: str, tag
     bound_ms, bound_by = bound(frontend_bytes(cfg, frontend, lens64, B, F),
                                frontend_ops(cfg, chain, frontend, torch, lens64, F))
     plan, groups = frontend.fft_layout(cfg)
-    print(f"  frontend kernel, {what} ({frontend.dft_form(cfg)} form, {plan} plan, {groups} frames a "
-          f"block at once): {kernel_ms:.4f} ms of device time, L2 flushed ({bound_ms / kernel_ms * 100:.1f}% "
+    at_once = f"{groups} blocks a frame" if plan == "cluster" else f"{groups} frames a block at once"
+    print(f"  frontend kernel, {what} ({frontend.dft_form(cfg)} form, {plan} plan, {at_once}): "
+          f"{kernel_ms:.4f} ms of device time, L2 flushed ({bound_ms / kernel_ms * 100:.1f}% "
           f"of bound; {kernel_ms / rfft_ms:.2f}x rfft; {kernel_ms / plain_ms:.3f}x its plain version); "
           f"CUDA events {event_ms:.4f} ms {tag}")
     print(f"  plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={cfg.n_fft}) on "
@@ -1816,92 +1843,157 @@ def long_span_path(torch, counters, tag: str, results: dict) -> None:
 
 # librosa's melspectrogram at 44.1 kHz and n_fft 16384 (win_length n_fft,
 # hop_length 4096, 128 Slaney filters from 0 Hz to Nyquist), a logmel80
-# override; phase 29's sizes past the gather plan's layouts: (key, config,
-# overrides, rows, seconds a row, the plan, rows of the float64 chain's check)
+# override; phase 29's sizes past the gather plan's layouts: (case, config,
+# overrides, rows, seconds a row, the cluster plan's blocks a frame, the
+# parent's plan (the ladder without the cluster plan), rows of the float64
+# chain's check). The ladder takes the cluster plan at Stockham FFTs of
+# 8,192 points or more and Bluestein FFTs of P = 16,384 or more
+# (frontend.CLUSTER_MIN_POINTS), else the parent's; the other is forced
+# beside it. Entries "cluster_<case>" and "<parent plan>_<case>" of the
+# kernels line.
 LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, hop_s=4096 / 44100, n_mels=128,
                      mel_variant="librosa_hz", mel_scale="slaney", mel_norm="slaney", mel_low_hz=0.0,
                      mel_high_hz=22050.0)
 ANY_NFFT = (
-    ("gather_bands_librosa_44k_16384", "logmel80", LIBROSA_16384, B, 30, "gather_bands", 2),
-    ("gather_bands_bluestein_7001", "classic13_deltas", dict(n_fft=7001), B_SMALL, 10, "gather_bands", 2),
-    ("gather_bands_bluestein_12502", "classic13_deltas", dict(n_fft=12502), B_SMALL, 10, "gather_bands", 2),
-    ("gather_bands_whisper80_16384", "whisper80", dict(n_fft=16384), B_SMALL, 10, "gather_bands", 2),
-    ("gather_rows_bluestein_13001", "classic13_deltas", dict(n_fft=13001), B_SMALL, 10, "gather_rows", 2),
-    ("gather_rows_32768", "classic13_deltas", dict(n_fft=32768), B_SMALL, 10, "gather_rows", 2),
-    ("gather_rows_48k_65536", "classic13_deltas", dict(sample_rate=48000, n_fft=65536), 4, 30, "gather_rows", 1),
-    ("gather_rows_131072", "classic13_deltas", dict(n_fft=131072), 2, 30, "gather_rows", 1),
+    ("librosa_44k_16384", "logmel80", LIBROSA_16384, B, 30, 2, "gather_bands", 2),
+    ("bluestein_7001", "classic13_deltas", dict(n_fft=7001), B_SMALL, 10, 2, "gather_bands", 2),
+    ("bluestein_12502", "classic13_deltas", dict(n_fft=12502), B_SMALL, 10, 2, "gather_bands", 2),
+    ("whisper80_16384", "whisper80", dict(n_fft=16384), B_SMALL, 10, 2, "gather_bands", 2),
+    ("bluestein_13001", "classic13_deltas", dict(n_fft=13001), B_SMALL, 10, 2, "gather_rows", 2),
+    ("32768", "classic13_deltas", dict(n_fft=32768), B_SMALL, 10, 2, "gather_rows", 2),
+    ("48k_65536", "classic13_deltas", dict(sample_rate=48000, n_fft=65536), 4, 30, 4, "gather_rows", 1),
+    ("131072", "classic13_deltas", dict(n_fft=131072), 2, 30, 8, "gather_rows", 1),
 )
+# the case where every other cluster size is forced once
+FORCED_CLUSTERS_AT = "32768"
+
+
+def without_cluster(frontend):
+    """frontend.fft_layout without the cluster plan: the ladder of the
+    parent (every other plan), for a forced launch."""
+    own = frontend.fft_layout
+    return lambda cfg, form=None, int16=True, cluster=True: own(cfg, form, int16, False)
+
+
+def forced_layout(frontend, layout):
+    """A runner of fn under the layout mirror (frontend.fft_layout) forced
+    to `layout` (a layout, or a mirror), the mirror put back after."""
+    def run(fn):
+        own = frontend.fft_layout
+        frontend.fft_layout = layout if callable(layout) else (lambda *a, **k: layout)
+        try:
+            return fn()
+        finally:
+            frontend.fft_layout = own
+    return run
 
 
 def any_n_fft_path(torch, counters, tag: str, results: dict) -> None:
-    """Phase 29: every n_fft, through the plans past the gather plan's
-    layouts: "gather_bands" (the packed mel bands read from device memory)
-    and "gather_rows" (each group's FFT rows in a workspace in device
-    memory). librosa's melspectrogram(sr=44100, n_fft=16384, hop_length=4096,
-    n_mels=128) framing at b64 x 30 s int16; classic13_deltas at n_fft 7,001
-    and 12,502 (Bluestein, "gather_bands"), 13,001 and 32,768 ("gather_rows")
-    and whisper80 at 16,384, b16 x 10 s; classic13_deltas at 48 kHz and n_fft
-    65,536, b4 x 30 s; at 131,072 (the packed table's 17-bit bin field), b2 x
-    30 s. For each: the kernel counted by plan against the float64 plain
-    version on the CPU on every row at the prefix gates, the fp32 plain
-    version's errors printed; int16 == float32, two runs, dirty tails, and
-    under "gather_rows" a NaN-filled workspace and a persistent grid of 7
-    blocks, bitwise; the counts and mask; extract_batch
-    counted, its mask the chain's and its features on the first rows within
-    the family's gate of the float64 chain; device time, events, the plain
-    version, rfft(n=n_fft), the bound and the extract_batch step."""
+    """Phase 29: every n_fft past the gather plan's layouts, in the ladder's
+    plan and beside it the other forced: the cluster plan (each frame's FFT
+    rows over a thread-block cluster's shared memory: 2, 4 or 8 blocks a
+    frame; the ladder's at frontend.CLUSTER_MIN_POINTS) and the parent's plans
+    without it, "gather_bands" (the packed mel bands read from device
+    memory) and "gather_rows" (each group's FFT rows in a workspace in
+    device memory). librosa's melspectrogram(sr=44100, n_fft=16384,
+    hop_length=4096, n_mels=128) framing at b64 x 30 s int16;
+    classic13_deltas at n_fft 7,001, 12,502 and 13,001 (Bluestein), 32,768
+    and whisper80 at 16,384, b16 x 10 s; classic13_deltas at 48 kHz and
+    n_fft 65,536, b4 x 30 s; at 131,072, b2 x 30 s. For each: the plans and
+    the cluster size, the ladder's launch counted by plan against the
+    float64 plain version on the CPU on every row at the prefix gates (the
+    forced plan too, and at 32,768 the other cluster sizes), the fp32 plain
+    version's errors printed; int16 == float32, two runs and dirty tails
+    bitwise; a persistent grid of 3 clusters, and for "gather_rows" a
+    NaN-filled workspace and a grid of 7 blocks, bitwise; the counts and
+    mask; extract_batch counted, its mask the chain's and its features on
+    the first rows within the family's gate of the float64 chain; device
+    time of both plans in turns (the ladder's, the other, the other, the
+    ladder's), events, the plain version, rfft(n=n_fft), the bound and the
+    extract_batch step."""
     from mfcc_tpu_torch import named_config, testing
     from mfcc_tpu_torch.kernels import frontend
     from mfcc_tpu_torch.ops import chain
     from mfcc_tpu_torch.pipeline import pad_batch
 
     t_phase = time.perf_counter()
-    print("== 29. every n_fft: the packed bands, then the FFT rows, in device memory")
-    own_workspace, own_resident = frontend._workspace, frontend._resident_blocks
-    for key, name, over, rows, seconds, plan, rows64 in ANY_NFFT:
+    print("== 29. every n_fft: the cluster plan and the parent's plans (bands, then rows, in device memory)")
+    own_workspace, own_resident, own_clusters = frontend._workspace, frontend._resident_blocks, frontend._active_clusters
+    for case, name, over, rows, seconds, C, parent, rows64 in ANY_NFFT:
         t_case = time.perf_counter()
         cfg = named_config(name).replace(**over)
         n = cfg.sample_rate * seconds
         lens = [n - 571 * i for i in range(rows - 2)] + [min(n, 3 * cfg.frame_length // 2), 1] if rows > 2 \
             else [n - 571 * i for i in range(rows)]
-        batch = pcm_batch(pad_batch, cfg, lens, n, sum(map(ord, key)))
+        batch = pcm_batch(pad_batch, cfg, lens, n, sum(map(ord, f"{parent}_{case}")))
         audio = torch.as_tensor(batch.audio, device="cuda")
         lengths = torch.as_tensor(batch.lengths, device="cuda")
         F = cfg.num_frames(batch.audio.shape[1])
-        form, (got_plan, groups) = frontend.dft_form(cfg), frontend.fft_layout(cfg)
+        form, layout = frontend.dft_form(cfg), frontend.fft_layout(cfg)
+        taken = frontend.fft_points(cfg.n_fft, form) >= frontend.CLUSTER_MIN_POINTS[form]
+        plan, other = ("cluster", parent) if taken else (parent, "cluster")
+        key, other_key = f"{plan}_{case}", f"{other}_{case}"
+        to_other = forced_layout(frontend, without_cluster(frontend) if taken else ("cluster", C))
         print(f"   {key}: {name} {over} b{rows} x {seconds} s int16 {list(batch.audio.shape)}, {F} frames, "
-              f"{form} DFT, {got_plan} plan ({groups} frames a block at once), {frontend.smem_bytes(cfg):,} B "
-              f"a block (gather_global's {frontend._fft_smem(cfg, form, 'gather_global', True, 1):,} B)")
-        check(got_plan == plan and chain.unsupported_reason(cfg) is None, f"{key} takes {plan}")
-        info = frontend.kernel_info(cfg)
-        print(f"    {info}")
-        check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, "no spills, launchable")
+              f"{form} DFT, {layout} ({frontend.smem_bytes(cfg):,} B a block); the other forced: "
+              f"{to_other(lambda: frontend.fft_layout(cfg))}")
+        check(layout == (("cluster", C) if taken else frontend.fft_layout(cfg, cluster=False))
+              and frontend.fft_layout(cfg, cluster=False)[0] == parent and chain.unsupported_reason(cfg) is None,
+              f"{key} takes {plan}, the cluster plan at {C} blocks a frame where it does")
+        for run in (lambda fn: fn(), to_other):
+            info = run(lambda: frontend.kernel_info(cfg))
+            print(f"    {info}")
+            check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1 and info.get("clusters", 1) >= 1,
+                  "no spills, launchable")
         branches = plan_branches(chain, frontend, cfg)
         counters.zero()
         got = frontend.logmel_prefix(audio, lengths, cfg)
         torch.cuda.synchronize()
         counters.expect("the kernel", frontend=1, **branches)
         check(tuple(got.shape) == (rows, F, cfg.n_mels + 1), f"prefix shape {tuple(got.shape)}")
-        # every row (each block's slot of the workspace): the float64 frames
-        # of a chunk of rows at most 2 GB
+        # the other plan, forced: its launch counted, its output held to the
+        # same float64 version below; the other cluster sizes at one case
+        other_branches = to_other(lambda: plan_branches(chain, frontend, cfg))
+        counters.zero()
+        got_other = to_other(lambda: frontend.logmel_prefix(audio, lengths, cfg))
+        torch.cuda.synchronize()
+        other_launches = counters.expect(f"{other}, forced", frontend=1, **other_branches)
+        extra = {f"{other}, forced": got_other}
+        if case == FORCED_CLUSTERS_AT:
+            for c in frontend.CLUSTER_SIZES:
+                if c != C:
+                    extra[f"forced to {c} blocks a cluster"] = forced_layout(frontend, ("cluster", c))(
+                        lambda: frontend.logmel_prefix(audio, lengths, cfg))
+        # every row (each cluster, and each block's slot of a workspace): the
+        # float64 frames of a chunk of rows at most 2 GB
         errs = check_prefix64(testing, frontend, got, audio, lengths, cfg, f"{key}, all {rows} rows",
-                              chunk=max(1, 2**28 // (F * cfg.n_fft)))
+                              chunk=max(1, 2**28 // (F * cfg.n_fft)), extra=extra)
+        other_errs = extra[f"{other}, forced"]
         check(torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
               and torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
               "int16 rows == float32 rows, and two runs equal, bitwise")
         check(torch.equal(got, frontend.logmel_prefix(dirty_rows(torch, audio, lengths, rows), lengths, cfg)),
               "garbage past each length leaves the output unchanged")
-        if plan == "gather_rows":
+        by_plan = {plan: (got, lambda fn: fn()), other: (got_other, to_other)}
+        out_c, run_c = by_plan["cluster"]
+        frontend._active_clusters = lambda *args: 3
+        try:
+            check(torch.equal(out_c, run_c(lambda: frontend.logmel_prefix(audio, lengths, cfg))),
+                  "the cluster plan: a persistent grid of 3 clusters (each over many frames), bitwise")
+        finally:
+            frontend._active_clusters = own_clusters
+        if parent == "gather_rows":
+            out_r, run_r = by_plan["gather_rows"]
             frontend._workspace = lambda floats, device: torch.full((floats,), float("nan"), device=device)
             try:
-                check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
-                      "a NaN-filled workspace leaves the output unchanged, bitwise")
+                check(torch.equal(out_r, run_r(lambda: frontend.logmel_prefix(audio, lengths, cfg))),
+                      "gather_rows: a NaN-filled workspace leaves the output unchanged, bitwise")
                 frontend._resident_blocks = lambda *args: 7
-                check(torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg)),
-                      "a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
+                check(torch.equal(out_r, run_r(lambda: frontend.logmel_prefix(audio, lengths, cfg))),
+                      "gather_rows: a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
             finally:
                 frontend._workspace, frontend._resident_blocks = own_workspace, own_resident
-        del got
+        del got, got_other, extra, by_plan, out_c
         check_counts(torch, frontend, audio, lengths, cfg, key)
         counters.zero()
         feat, mask = chain.extract_batch(batch.audio, batch.lengths, cfg)
@@ -1924,8 +2016,20 @@ def any_n_fft_path(torch, counters, tag: str, results: dict) -> None:
             print("  card vs the float64 chain: " + ", ".join(f"{k}={v:.3e}" for k, v in e.items()))
             check(not testing.logmel_failures(e), "card within the two-regime log-mel gate of the float64 chain")
         del feat, mask, f64, got64
+        # in turns: the ladder's (dft_times), the other, the other, the ladder's
         times = dft_times(torch, chain, frontend, cfg, batch, audio, lengths, key, tag)
+        prefix = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+        other_ms = [to_other(lambda: device_ms(torch, prefix, "logmel_kernel")) for _ in range(2)]
+        ms = [times["ms"], device_ms(torch, prefix, "logmel_kernel")]
+        times["ms"], other_mean = float(np.mean(ms)), float(np.mean(other_ms))
+        print(f"  in turns: {key} {ms[0]:.4f}, {other} {other_ms[0]:.4f}, {other_ms[1]:.4f}, {key} {ms[1]:.4f} ms of "
+              f"device time; {other} {times['bound_ms'] / other_mean * 100:.2f}% of bound, "
+              f"{other_mean / times['library_ms']:.2f}x rfft; cluster / {parent} "
+              f"{(times['ms'] / other_mean) ** (1 if taken else -1):.3f} {tag}")
         results[key] = dict(launches=launches[plan], max_abs_err=errs["max_abs"], **times)
+        results[other_key] = dict(launches=other_launches[other], max_abs_err=other_errs["max_abs"], ms=other_mean,
+                                  plain_ms=times["plain_ms"], bound_ms=times["bound_ms"],
+                                  bound_by=times["bound_by"], library_ms=times["library_ms"])
         step_times(torch, chain, batch, audio, lengths, cfg, "front-end kernel", tag, seconds=seconds)
         del audio, lengths
         torch.cuda.empty_cache()
@@ -2075,8 +2179,8 @@ def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
 # rows, seconds a row, the plan, the dft_passes route); the host-bound case
 # first, while the run is young
 MANY_FILTERS = (
-    ("gather_rows_131072_16385_filters", "classic13_deltas", dict(n_fft=131072, n_mels=16385), 2, 30,
-     "gather_rows", "radix4"),
+    ("cluster_131072_16385_filters", "classic13_deltas", dict(n_fft=131072, n_mels=16385), 2, 30,
+     "cluster", "radix4"),
     ("gather_bands_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_bands", "radix4"),
     ("gather_sums_60000_filters", "classic13_deltas", dict(n_mels=60000), B_SMALL, 10, "gather_sums", "radix4"),
     ("gather_sums_ssc26_30000_filters", "ssc26", dict(n_mels=30000, n_fft=4096), B_SMALL, 10, "gather_sums",
@@ -2244,6 +2348,21 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
                                  for i in range(0, rows, chunk)])
             errs = nan_gate(torch, testing, got, plain64, cfg, "kernel vs its float64 plain version on the card",
                             narrow, spread)
+            if plan == "cluster":  # the parent's plan, forced, against the same version
+                to_parent = forced_layout(frontend, without_cluster(frontend))
+                parent = to_parent(lambda: frontend.fft_plan(cfg))
+                parent_branches = {**to_parent(lambda: plan_branches(chain, frontend, cfg)), **kinds}
+                counters.zero()
+                got_parent = to_parent(lambda: frontend.logmel_prefix(audio, lengths, cfg))
+                torch.cuda.synchronize()
+                parent_launches = counters.expect(f"the parent's plan ({parent}), forced", frontend=1,
+                                                  **parent_branches)
+                perr = nan_gate(torch, testing, got_parent, plain64, cfg,
+                                f"the parent's plan ({parent}) vs the float64 plain version", narrow, spread)
+                check(not testing.prefix_failures(perr), f"{parent}: within the prefix gates of its plain version")
+                parent_ms = to_parent(lambda: device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg),
+                                                        "logmel_kernel"))
+                del got_parent
             del plain64
             fails = testing.prefix_failures(errs)
         check(not fails, f"{key}: within the prefix gates of its plain version {fails or ''}")
@@ -2345,6 +2464,13 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
               f"[{rows * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
         results[key] = dict(launches=launches[counter], max_abs_err=errs["max_abs"], ms=kernel_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
+        if plan == "cluster":
+            print(f"    the parent's plan ({parent}), forced: {parent_ms:.4f} ms of device time, L2 flushed "
+                  f"({bound_ms / parent_ms * 100:.2f}% of its bound); the cluster plan {kernel_ms / parent_ms:.3f}x "
+                  f"it {tag}")
+            results[key.replace("cluster_", f"{parent}_")] = dict(
+                launches=parent_launches[parent], max_abs_err=perr["max_abs"], ms=parent_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
         del audio, lengths
         if cfg.n_fft > 16384:  # the dense tables of the largest case
             chain.device_constants.cache_clear()
@@ -3463,7 +3589,7 @@ def round_readings(torch, MultiStreamExtractor, cfg, n: int, tag: str) -> dict:
     pos = [0]
 
     def step():
-        a = pos[0]
+        a = pos[0] % sig.shape[1]  # a retraced round wraps to the signal's start
         for i, s in enumerate(sids):
             pool.push(s, sig[i, a : a + chunk])
         pos[0] += chunk
@@ -3482,7 +3608,8 @@ def round_readings(torch, MultiStreamExtractor, cfg, n: int, tag: str) -> dict:
         emitted.append(sorted({v.shape[0] for v in out.values()}) if len(out) == n else None)
     check(all(e == [K] for e in emitted), f"{n} streams: each timed poll emits {K} frames a stream")
     wall = float(np.median(walls))
-    on_device, _ = trace(torch, step, None, steps=3)
+    # a trace that lost or doubled a record of the block launch is taken again
+    on_device, _ = trace(torch, step, "logmel_kernel", steps=3)
     busy = sum(e.self_device_time_total for e in on_device) / 1e3 / 3
     names = {}
     for e in on_device:
@@ -3583,7 +3710,7 @@ def serving_path(torch, counters, tag: str, results: dict) -> None:
     check(sum(v for k, v in ops.items() if "logmel_kernel" in k) == 1
           and sum(v for k, v in ops.items() if "tail_kernel" in k) <= 2,
           f"a {SERVE_STREAMS}-stream round: one front-end block launch, at most two tail launches; "
-          f"device kernels {sorted(k[:40] for k in kernels)}")
+          f"device kernels a round {dict(sorted((k[:40], round(v, 3)) for k, v in ops.items() if k in kernels))}")
 
     # (c) every other streamable named config at 16 streams
     for i, name in enumerate(SERVE_CONFIGS):

@@ -309,6 +309,75 @@
 // output, 16 x 999 x 60,001 floats (3.84 GB) written once, is ~1.15 ms at
 // 3.35 TB/s; bytes bound it (chip_smoke.py computes it per run).
 //
+// The cluster plan (p.cluster = C; logmel_kernel_cluster, instantiations
+// of its own, launched by cudaLaunchKernelEx with the cluster dimension as
+// a launch attribute; the wrapper asks for it by its cluster size, a
+// launch argument, where kernels/frontend.py fft_layout takes it, after
+// "gather_global" and before "gather_bands" at its size rule; plan_cluster
+// lays it out, kernels/frontend.py cluster_smem mirrors it). "gather_bands" and "gather_rows" ran one frame a group through rows
+// in shared memory or in device memory: at n_fft 32,768 each Stockham
+// stage's 147 KB row went through L2 and HBM (the slots' rows are over
+// L2), at librosa's 16,384 one frame an SM waited on each stage's dependent
+// loads. A thread-block cluster of C = 2, 4 or 8 blocks (portable sizes;
+// the smallest whose layout fits) holds each frame's two FFT rows in the
+// shared memory of its C blocks, 1/C of each row a block (rank r of the
+// cluster), read across the cluster through distributed shared memory
+// (cooperative_groups map_shared_rank, ld/st.shared::cluster):
+//   3k. a four-step split of the form's n-point FFT, n = C H2: rank r
+//       transforms its points g = C n' + r (n' < H2) by the Stockham stages
+//       of an H2-point FFT, stage 0 loading them from device memory (the
+//       gather plan's staged_at: pre-emphasis, zeroing, the dither keyed
+//       on the source index, the reflection; the conditioning's mean and
+//       energies as cluster sums), each stage under __syncthreads;
+//   3x. the exchange, the one pass across the cluster: butterfly k1 < H2
+//       reads Y_r[k1] of every rank, twists it by e^{-2 pi i r k1 / n}
+//       (the host's float64 table), takes the C-point DFT and stores output
+//       q, X[k1 + q H2], to rank q: rank q then holds X[q H2, (q + 1) H2)
+//       in order; the Bluestein form does this twice, its inverse's stage
+//       0 reading conj(A[g]) from the rank that holds A[g];
+//   3s. the real split reads its partners Z[H - k] from the ranks that hold
+//       them and stores each power to the rank that holds its bin (rank
+//       k / pb, pb = ceil(bins / C));
+//   4c. each rank sums the packed weights of its own bins over the filters
+//       its bins touch (found once a launch from each filter's first and
+//       last bin: 4r), balanced over its 256 threads as a block plan's
+//       group sums them, a weight of another rank's bin adding nothing;
+//   4m. filter m is completed from the partials of the ranks it touches in
+//       rank order, and its log kind (or the PLP sum, or the SSC ratio)
+//       taken, by the rank that owns it (m = r 256 + thread, then on by C
+//       256); the energy is the ranks' power sums in rank order. So two
+//       runs are bitwise equal.
+// The cluster meets (barrier.cluster arrive.release / wait.acquire) after
+// the local stages, after each exchange, after the powers, after the
+// partials and at the frame's end; a frame that starts past its row's
+// length takes no FFT (step 2z). The grid is persistent: as many clusters
+// as the card holds at once (cudaOccupancyMaxActiveClusters, the wrapper's
+// nslots), cluster i taking frames i, i + clusters, ... of the batch, so
+// no workspace. Shared memory a block (cluster_layout): its two rows of H2
+// points (padded as every plan's), the 256 thread partials and M filter
+// partials a weight table, the warps' partials, 4 slots and the ranks'
+// filter ranges: at classic13_deltas n_fft 32,768, C = 2, 148,736 B (one
+// block an SM); 65,536 C = 4, 131,072 C = 8, 148,736 B; 116 registers, so
+// two blocks an SM at most (librosa's 16,384 at 44.1 kHz, C = 2, 75,408 B).
+// The size rule (kernels/frontend.py CLUSTER_MIN_POINTS, by form), from
+// chip_smoke.py phase 29's turns (PERF.md section 6): the plan beat
+// "gather_rows" at every size (0.36-0.73x of its time); against
+// "gather_bands" it won or tied in the Stockham form at 8,192 points
+// (librosa's 16,384 b64 x 30 s 0.76x, whisper80's b16 x 10 s 1.00x) and
+// lost in the Bluestein form at P = 12,800 (12,502: 1.38x), so it takes
+// Stockham FFTs from 8,192 points and Bluestein FFTs from P = 16,384. The tables (local twists, the
+// Bluestein chirp and filter spectrum, the exchange's twists) and the
+// packed bands are read from device memory by __ldg (staging them beside
+// the rows is left for later). The output is within the kernel-vs-plain
+// gates of the other plans', not bitwise theirs (other summation orders).
+// Bound, at classic13_deltas n_fft 32,768 b16 x 10 s as "gather_rows"'
+// above: operations (~0.24 ms at 67 TFLOP/s; chip_smoke.py computes it per
+// run). The rows no longer round-trip through L2 and HBM; what bounds the
+// plan now is latency: one frame a cluster and 8 warps an SM, so the
+// frame's loads from device memory, each stage, the exchange, the split's
+// remote reads and the projection's loads wait in turn (PERF.md section 6
+// breaks it down).
+//
 // Centered framing (center != 0; replaces _reflect_extend :1572-1640 and
 // its host twin, which write a reflect-extended float32 slab). Frame f
 // starts at f*S + o, o = S/2 - L/2 ("center", Kaldi snip_edges=false) or
@@ -579,13 +648,19 @@
 // refuses a matrix, or the host's float64 folding of it, over the card's
 // memory (kernels/frontend.py bf16_matrix_reason) before building it.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "polyphase.cuh"
 
-namespace {
+// A named namespace, not an anonymous one: the build compiles this file
+// once for each part of its instantiations (FRONTEND_PART, below) and links
+// the objects into one library, so the parts share these types by name.
+namespace mfcc_frontend {
+
+namespace cg = cooperative_groups;
 
 constexpr int kTile = 32;  // frames per block
 constexpr int kWarps = 8;
@@ -616,6 +691,8 @@ constexpr int kBfAccStride = 2 * kBfPassBins + 8;
 constexpr int kBfPowStride = kBfPassBins + 1;
 constexpr int kConsumers = 128;
 constexpr int kProducer = 128;
+// The cluster plan's largest portable cluster (blocks a frame).
+constexpr int kMaxCluster = 8;
 
 // energy_source, log_kind, feature_kind, DFT form, reflection and framing
 // codes (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
@@ -685,6 +762,12 @@ struct Params {
   // the block launch (streaming): 1 when each row's sample 0 is the
   // pre-context x[-1] and frame 0 starts at sample 1, else 0
   int origin;
+  // the cluster plan (cluster = C blocks a frame, else 0): its local FFT of
+  // cl_n = fft_n / C points (nstages, radices, ntw and nbases are then the
+  // local FFT's), the exchange's cl_j = cl_n / C butterflies a rank, the
+  // power bins a rank cl_pb = ceil(bins / C), and the offset of the
+  // exchange's twists in the twiddle table
+  int cluster, cl_n, cl_j, cl_pb, cross;
 };
 
 // Packed weight tables staged for the feature kind: mel; none for the
@@ -774,6 +857,29 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
     l.tab = l.buf + imax(kWarps * l.pstride, align4(fir));
   }
   l.total = l.tab + align4(taps);
+  return l;
+}
+
+// The cluster plan's layout a block, in floats (kernels/frontend.py
+// cluster_smem mirrors it): the rank's two rows of its cl_n points (padded
+// as every plan's rows), the projection's thread partials and filter
+// partials (M, twice for ssc, none for a spectrogram), the 8 warps'
+// partials, 4 slots of the rank's sums (the power sum, the frame energy,
+// the mean's sum) and the ranks' filter ranges (2 ints a rank).
+struct ClusterLayout {
+  int row, part, sum, red, slot, rng, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(const Params& p) {
+  ClusterLayout l;
+  const int tables = weight_tables(p);
+  l.row = align4(2 * (p.cl_n + (p.cl_n >> 3) + 1));
+  l.part = 2 * l.row;
+  l.sum = l.part + tables * kThreads;
+  l.red = l.sum + align4(tables * p.M);
+  l.slot = l.red + kWarps;
+  l.rng = l.slot + 4;
+  l.total = l.rng + 2 * kMaxCluster;
   return l;
 }
 
@@ -2414,6 +2520,439 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   }
 }
 
+// The cluster plan's team: the block's 256 threads at __syncthreads, its
+// tables read from device memory by __ldg.
+struct ClusterTeam {
+  static constexpr bool kGlobal = true;
+  int rank;
+  __host__ __device__ static constexpr int size() { return kThreads; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+// 3k. The cluster plan's local FFT: the rank's cl_n points by the Stockham
+//     stages of the local FFT's tables, stage 0 loading point n by first(n)
+//     into row d (0: r0, 1: r1), each later stage the row the one before
+//     stored; with remote0 the cluster meets after stage 0 (its loads read
+//     other ranks' rows, which their stage 1 rewrites), else the block.
+//     Returns the index of the row that holds the rank's outputs. (Rows
+//     are chosen by a select, never an array indexed at run time, which
+//     would live in local memory.)
+template <typename First>
+__device__ inline int local_fft(First first, float2* r0, float2* r1, int d, const Params& p,
+                                const float2* tw, const int* base, bool remote0) {
+  const ClusterTeam team{static_cast<int>(threadIdx.x)};
+  const int n = p.cl_n;
+  int src = 1 - d, dst = d, ns = 1;
+  for (int s = 0; s < p.nstages; ++s) {
+    const int R = static_cast<int>((p.radices >> (4 * s)) & 15u);
+    if (s == 0) {
+      stage_of_radix<true>(R, first, nullptr, dst ? r1 : r0, n, 1, tw, base, team);
+    } else {
+      stage_of_radix<false>(R, first, src ? r1 : r0, dst ? r1 : r0, n, ns, tw, base, team);
+      tw += (n / R) * (R - 1);
+    }
+    base += n / R;
+    if (s == 0 && remote0) {
+      cg::this_cluster().sync();
+    } else {
+      __syncthreads();
+    }
+    src = dst;
+    dst = 1 - dst;
+    ns *= R;
+  }
+  return src;
+}
+
+// 3x. The exchange, the plan's one pass across the cluster: butterfly k1 <
+//     cl_n loads Y_r[k1] from row y of every rank r, twists it by
+//     e^{-2 pi i r k1 / n} (the host's table, at (r - 1) cl_n + k1), takes
+//     the C-point DFT and stores output q, X[k1 + q cl_n], to row x of rank
+//     q at k1. Once the cluster meets, rank q holds X[q cl_n, (q + 1) cl_n)
+//     in order.
+template <int C>
+__device__ inline void exchange_at(int k1, const float2* y, float2* x, const float2* xtw, int n2) {
+  cg::cluster_group cl = cg::this_cluster();
+  float2 v[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) v[r] = cl.map_shared_rank(y, r)[pad(k1)];
+#pragma unroll
+  for (int r = 1; r < C; ++r) v[r] = cmul(v[r], __ldg(xtw + (r - 1) * n2 + k1));
+  dft_small<C>(v);
+#pragma unroll
+  for (int q = 0; q < C; ++q) cl.map_shared_rank(x, q)[pad(k1)] = v[q];
+}
+
+__device__ inline void exchange(const float2* y, float2* x, const Params& p, const float2* xtw, int rank) {
+  for (int k1 = rank * kThreads + threadIdx.x; k1 < p.cl_n; k1 += p.cluster * kThreads) {
+    switch (p.cluster) {  // uniform
+      case 2: exchange_at<2>(k1, y, x, xtw, p.cl_n); break;
+      case 4: exchange_at<4>(k1, y, x, xtw, p.cl_n); break;
+      default: exchange_at<8>(k1, y, x, xtw, p.cl_n); break;
+    }
+  }
+}
+
+// Entry g of an output the exchange spread over the cluster (rank g / n2,
+// index g mod n2 of its row x).
+__device__ inline float2 spread_at(const float2* x, int g, int n2) {
+  const int r = g / n2;
+  return cg::this_cluster().map_shared_rank(x, r)[pad(g - r * n2)];
+}
+
+// Power v of bin k into the row pw of the rank that holds it (k / pb, at k
+// mod pb).
+__device__ inline void put_power(float* pw, int k, int pb, float v) {
+  const int r = k / pb;
+  cg::this_cluster().map_shared_rank(pw, r)[k - r * pb] = v;
+}
+
+// The real split (real_split's arithmetic) of Z spread over the cluster
+// (zat(k) = Z[k]), its pairs k <= H/2 cut over the cluster's threads, each
+// power stored to the rank that holds its bin; returns this thread's share
+// of the powers' sum.
+template <typename Zat>
+__device__ inline float cluster_split(Zat zat, float* pw, const float2* tw, int H, float pscale, int pb,
+                                      int rank, int C) {
+  float es = 0.f;
+  for (int k = rank * kThreads + threadIdx.x; k <= H / 2; k += C * kThreads) {
+    const float2 a = zat(k);
+    const float2 c = zat(k == 0 ? 0 : H - k);
+    const float er = 0.5f * (a.x + c.x);
+    const float ei = 0.5f * (a.y - c.y);
+    const float orr = 0.5f * (a.y + c.y);
+    const float oi = -0.5f * (a.x - c.x);
+    const float2 w = __ldg(tw + k);
+    const float wr = orr * w.x - oi * w.y;
+    const float wi = orr * w.y + oi * w.x;
+    const float xr = er + wr, xi = ei + wi;
+    const float px = (xr * xr + xi * xi) * pscale;
+    put_power(pw, k, pb, px);
+    es += px;
+    if (2 * k != H) {
+      const float yr = er - wr, yi = ei - wi;
+      const float py = (yr * yr + yi * yi) * pscale;
+      put_power(pw, H - k, pb, py);
+      es += py;
+    }
+  }
+  return es;
+}
+
+// |X[k]|^2 * pscale of an odd n_fft's Bluestein outputs spread over the
+// cluster (zat(k) = X[k], k < bins), each to the rank that holds its bin.
+template <typename Zat>
+__device__ inline float cluster_power(Zat zat, float* pw, int bins, float pscale, int pb, int rank, int C) {
+  float es = 0.f;
+  for (int k = rank * kThreads + threadIdx.x; k < bins; k += C * kThreads) {
+    const float2 x = zat(k);
+    const float px = (x.x * x.x + x.y * x.y) * pscale;
+    put_power(pw, k, pb, px);
+    es += px;
+  }
+  return es;
+}
+
+// The cluster plan (see the header): a persistent grid of clusters of
+// p.cluster blocks, cluster i taking frames i, i + clusters, ... of the
+// batch one at a time, block rank r of a cluster holding 1/C of each of the
+// frame's FFT rows, the power bins [r pb, (r + 1) pb) and the filter
+// partials of its bins. p is a grid constant, read in place.
+template <typename Sample, bool kDither, bool kCond>
+__global__ void __launch_bounds__(kThreads, 1)
+logmel_kernel_cluster(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+               float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+               const float* __restrict__ window, const float* __restrict__ mel_w,
+               const float* __restrict__ melf_w, const int* __restrict__ mel_off,
+               const int* __restrict__ mel_meta, const float2* __restrict__ twiddle,
+               const int* __restrict__ bases, const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = p.cluster, rank = static_cast<int>(cl.block_rank()), tid = threadIdx.x;
+  const int M = p.M, kind = p.feature_kind, L = p.L, S = p.S, F = p.F;
+  const int n2 = p.cl_n, pb = p.cl_pb, bins = p.bins;
+  const ClusterLayout lay = cluster_layout(p);
+  float2* const r0 = reinterpret_cast<float2*>(smem);
+  float2* const r1 = reinterpret_cast<float2*>(smem + lay.row);
+  auto rank_row = [&](int i) { return i ? r1 : r0; };  // the rank's rows, by a select
+  float* part = smem + lay.part;
+  float* fsum = smem + lay.sum;
+  float* red = smem + lay.red;
+  float* slot = smem + lay.slot;
+  int* rng = reinterpret_cast<int*>(smem + lay.rng);
+  const bool ssc = kind == kSsc, bands = kind != kSpectrogram;
+  const int blo = rank * pb, bhi = imin(bins, blo + pb);  // this rank's power bins
+  const ClusterTeam team{tid};
+
+  // 4r. the filters whose bands touch each rank's bins, rng[2q] ..
+  //     rng[2q + 1] (none where the first is past the second), from each
+  //     filter's first and last bin: every block finds every rank's
+  if (tid < 2 * C) rng[tid] = tid & 1 ? -1 : M;
+  __syncthreads();
+  if (bands) {
+    for (int m = tid; m < M; m += kThreads) {
+      const int lo = meta_bin(mel_meta[mel_off[m]]);
+      const int hi = meta_bin(mel_meta[mel_off[m + 1] - 1]) + 1;
+      for (int q = 0; q < C; ++q) {
+        if (lo < imin(bins, (q + 1) * pb) && hi > q * pb) {
+          atomicMin(rng + 2 * q, m);
+          atomicMax(rng + 2 * q + 1, m);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // this rank's packed weights, all those of its filters, in chunks of c a
+  // thread; the filter each chunk starts inside and the thread where it
+  // began (chunk_filter's, from the rank's first weight)
+  const int ma = rng[2 * rank], mb = rng[2 * rank + 1];
+  const int i0 = ma <= mb ? mel_off[ma] : 0, i1 = ma <= mb ? mel_off[mb + 1] : 0;
+  const int c = ((i1 - i0 + kThreads - 1) / kThreads) | 1;
+  int from = -1, m0 = 0;
+  if (i0 + tid * c < i1) {
+    m0 = filter_of(mel_off, M, i0 + tid * c);
+    if (mel_off[m0] < i0 + tid * c) from = (mel_off[m0] - i0) / c;
+  }
+  cl.sync();  // every block of the cluster runs before one reads another's memory
+
+  const float2* tws = twiddle + p.nsplit;  // the local FFT's twists
+  const float2* chirp = twiddle + p.chirp;
+  const float2* filt = twiddle + p.filt;
+  const float2* xtw = twiddle + p.cross;
+  const int Lk = imin(L, p.n_fft);
+  const bool wsum = kCond && p.energy_source == kWindowedFrame;
+  const bool framed = p.center == kNoCenter;
+  const int nclusters = gridDim.x / C;
+  const long long frames = static_cast<long long>(p.batch) * F;
+  for (long long w = blockIdx.x / C; w < frames; w += nclusters) {
+    const int b = static_cast<int>(w / F), f = static_cast<int>(w - static_cast<long long>(b) * F);
+    const Sample* row = audio + static_cast<size_t>(b) * p.T + p.origin;
+    const long long len = max(0, min(lengths[b], p.T - p.origin));
+    if (rank == 0 && tid == 0) {  // the count and the mask
+      const int nv = valid_frames(lengths[b], p);
+      frame_mask[static_cast<size_t>(b) * F + f] = f < nv ? 1.f : 0.f;
+      if (f == 0) n_valid[b] = nv;
+    }
+    const long long tf = static_cast<long long>(f) * S;
+    // 2g. the frame's sample a from device memory (staged_at)
+    auto dev = [&](int a) -> float { return staged_at<kDither>(row, tf + a, len, p); };
+    float es = 0.f, e = 0.f, mu = 0.f;
+    int pwi = 0;  // the row that holds this rank's powers
+    if (framed && tf >= len) {  // 2z
+      float* pw = reinterpret_cast<float*>(r0);
+      for (int k = tid; k < pb; k += kThreads) pw[k] = 0.f;
+    } else {
+      // 2. the conditioning's mean and raw energy as cluster sums, the
+      //    frame's samples cut over the cluster's threads, the ranks'
+      //    block sums added in rank order
+      if constexpr (kCond) {
+        if (p.remove_dc) {
+          float sum = 0.f;
+          for (int a = rank * kThreads + tid; a < L; a += C * kThreads) sum += dev(a);
+          sum = group_sum(sum, red, team);
+          if (tid == 0) slot[2] = sum;
+          cl.sync();
+          float t = cl.map_shared_rank(slot, 0)[2];
+          for (int q = 1; q < C; ++q) t += cl.map_shared_rank(slot, q)[2];
+          mu = t / static_cast<float>(L);
+        }
+        if (p.energy_source == kRawFrame) {
+          for (int a = rank * kThreads + tid; a < L; a += C * kThreads) {
+            const float d = dev(a) - mu;
+            e += d * d;
+          }
+        }
+      }
+      // the conditioned, windowed sample a < Lk
+      auto sample = [&](int a) -> float {
+        float x = dev(a);
+        if constexpr (kCond) {
+          x -= mu;
+          x = a == 0 ? x * p.frame_keep0 : x - p.frame_preemph * (dev(a - 1) - mu);
+        }
+        return x * __ldg(window + a);
+      };
+      float* pw;
+      if (p.form == kBluestein) {
+        // 3d. the Bluestein form: the forward FFT of point g = C n + rank
+        //     (the chirped pair or sample), the exchange (A spread in order),
+        //     the inverse's stage 0 loading conj(A[g]) filter[g] from the rank
+        //     that holds it, its exchange (D spread in order), then c[k]
+        //     conj(D[k]) into the split (even n_fft) or the powers (odd)
+        const bool packed = (p.n_fft & 1) == 0;
+        auto point = [&](int n) -> float2 {
+          const int g = C * n + rank;
+          if (g >= p.bq) return make_float2(0.f, 0.f);
+          const int a = packed ? 2 * g : g;
+          const float re = a < Lk ? sample(a) : 0.f;
+          const float im = packed && a + 1 < Lk ? sample(a + 1) : 0.f;
+          if (wsum) e += re * re + im * im;
+          return cmul(make_float2(re, im), __ldg(chirp + g));
+        };
+        int yi = local_fft(point, r0, r1, 0, p, tws, bases, false);
+        cl.sync();
+        exchange(rank_row(yi), rank_row(1 - yi), p, xtw, rank);
+        cl.sync();
+        const float2* A = rank_row(1 - yi);
+        const int P = p.fft_n, J = p.cl_j;
+        auto spectrum = [&](int n) -> float2 {
+          const int g = C * n + rank, r = n / J;
+          const float2 x = cl.map_shared_rank(A, r)[pad(g - r * n2)];
+          return cmul(make_float2(x.x, -x.y), __ldg(filt + (packed ? imin(g, P - g) : g)));
+        };
+        yi = local_fft(spectrum, r0, r1, yi, p, tws, bases, true);
+        cl.sync();
+        exchange(rank_row(yi), rank_row(1 - yi), p, xtw, rank);
+        cl.sync();
+        const float2* D = rank_row(1 - yi);
+        pwi = yi;
+        pw = reinterpret_cast<float*>(rank_row(pwi));
+        auto zat = [&](int k) -> float2 {  // c[k] conj(D[k])
+          const float2 d = spread_at(D, k, n2), cc = __ldg(chirp + k);
+          return make_float2(cc.x * d.x + cc.y * d.y, cc.y * d.x - cc.x * d.y);
+        };
+        es = packed ? cluster_split(zat, pw, twiddle, p.half, p.pscale, pb, rank, C)
+                    : cluster_power(zat, pw, bins, p.pscale, pb, rank, C);
+      } else {
+        // 3a. the Stockham form: the local FFT of point g = C n + rank, the
+        //     windowed pair (y[2g], y[2g+1]); the exchange (Z spread in
+        //     order); the real split, its partners Z[H - k] from the ranks
+        //     that hold them
+        auto point = [&](int n) -> float2 {
+          const int a = 2 * (C * n + rank);
+          const float re = a < Lk ? sample(a) : 0.f;
+          const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
+          if (wsum) e += re * re + im * im;
+          return make_float2(re, im);
+        };
+        const int yi = local_fft(point, r0, r1, 0, p, tws, bases, false);
+        cl.sync();
+        exchange(rank_row(yi), rank_row(1 - yi), p, xtw, rank);
+        cl.sync();
+        const float2* Z = rank_row(1 - yi);
+        pwi = yi;
+        pw = reinterpret_cast<float*>(rank_row(pwi));
+        es = cluster_split([&](int k) { return spread_at(Z, k, n2); }, pw, twiddle, p.half, p.pscale, pb,
+                           rank, C);
+      }
+      if (wsum) {  // the windowed energy of the samples past n_fft
+        for (int a = Lk + rank * kThreads + tid; a < L; a += C * kThreads) {
+          const float d = dev(a) - mu;
+          const float x = (d - p.frame_preemph * (dev(a - 1) - mu)) * __ldg(window + a);
+          e += x * x;
+        }
+      }
+    }
+    // the rank's sums in slots, then the cluster meets: every power stored
+    es = group_sum(es, red, team);
+    if constexpr (kCond) {
+      if (p.energy_source != kPspec) e = group_sum(e, red, team);
+    }
+    if (tid == 0) {
+      slot[0] = es;
+      slot[1] = e;
+    }
+    cl.sync();
+    float* o = out + (static_cast<size_t>(b) * F + f) * (M + 1);
+    const float* pw = reinterpret_cast<const float*>(rank_row(pwi));
+    if (rank == 0 && tid == 0) {  // lane M: the energy, the ranks' sums in rank order
+      float te = cl.map_shared_rank(slot, 0)[0], tr = cl.map_shared_rank(slot, 0)[1];
+      for (int q = 1; q < C; ++q) {
+        te += cl.map_shared_rank(slot, q)[0];
+        tr += cl.map_shared_rank(slot, q)[1];
+      }
+      o[M] = kind == kSsc ? 0.f : kCond && p.energy_source != kPspec ? fmaxf(tr, p.eps) : te <= 0.f ? p.eps : te;
+    }
+    if (!bands) {  // a spectrogram: the log kind of each of the rank's bins
+      for (int k = blo + tid; k < bhi; k += kThreads) o[k] = log_lane(pw[k - blo], p);
+    } else {
+      // 4c. the rank's partial of each of its filters: write_frame's
+      //     balanced sum over the weights [i0, i1), a weight whose bin
+      //     another rank holds adding nothing, into fsum[m] (melf: fsum[M + m])
+      float acc = 0.f, accf = 0.f, hacc = 0.f, haccf = 0.f;
+      int held = -1;
+      bool head = from >= 0;
+      int filt_m = m0;
+      const int j0 = i0 + tid * c, j1 = imin(j0 + c, i1);
+      for (int i = j0; i < j1; i += kProjBatch) {
+        int ev[kProjBatch];
+        float q[kProjBatch], wv[kProjBatch], wfv[kProjBatch];
+#pragma unroll
+        for (int u = 0; u < kProjBatch; ++u) {
+          const bool in = i + u < j1;
+          ev[u] = in ? mel_meta[i + u] : 0;
+          wv[u] = in ? mel_w[i + u] : 0.f;
+          wfv[u] = in && ssc ? melf_w[i + u] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kProjBatch; ++u) {
+          const int k = meta_bin(ev[u]);
+          q[u] = k >= blo && k < bhi ? pw[k - blo] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kProjBatch; ++u) {
+          if (i + u >= j1) break;
+          const int k = meta_bin(ev[u]);
+          if (k >= blo && k < bhi) {
+            float v = q[u];
+            if (ssc) {
+              v = v <= 0.f ? p.eps : v;
+              accf += v * wfv[u];
+            }
+            acc += v * wv[u];
+          }
+          if (ev[u] < 0) {  // the last weight of filter filt_m
+            if (head) {
+              hacc = acc;
+              haccf = accf;
+              held = filt_m;
+              head = false;
+            } else {
+              fsum[filt_m] = acc;
+              if (ssc) fsum[M + filt_m] = accf;
+            }
+            acc = accf = 0.f;
+            ++filt_m;
+          }
+        }
+      }
+      part[tid] = acc;
+      if (ssc) part[kThreads + tid] = accf;
+      __syncthreads();
+      if (held >= 0) {
+        float sm = part[from], sf = ssc ? part[kThreads + from] : 0.f;
+        for (int l = from + 1; l < tid; ++l) {
+          sm += part[l];
+          if (ssc) sf += part[kThreads + l];
+        }
+        fsum[held] = sm + hacc;
+        if (ssc) fsum[M + held] = sf + haccf;
+      }
+    }
+    cl.sync();  // every rank's filter partials
+    if (bands) {
+      // 4m. filter m of the rank's share (m = rank 256 + thread, then on by
+      //     C 256) completed from the partials of the ranks whose bins it
+      //     touches, in rank order, then its log kind (or nothing for plp,
+      //     or the centroid ratio)
+      for (int m = rank * kThreads + tid; m < M; m += C * kThreads) {
+        float sm = 0.f, sf = 0.f;
+        bool any = false;
+        for (int q = 0; q < C; ++q) {
+          if (rng[2 * q] <= m && m <= rng[2 * q + 1]) {
+            const float* fq = cl.map_shared_rank(fsum, q);
+            sm = any ? sm + fq[m] : fq[m];
+            if (ssc) sf = any ? sf + fq[M + m] : fq[M + m];
+            any = true;
+          }
+        }
+        o[m] = ssc ? __fdiv_rn(sf, sm) : kind == kPlp ? sm : log_lane(sm, p);
+      }
+    }
+    cl.sync();  // the rows, slots and partials are rewritten by the next frame
+  }
+}
+
 struct Args {
   const void* audio;
   const int* lengths;
@@ -2483,43 +3022,198 @@ struct Info {
   }
 };
 
-// Picks the instantiation for the sample type and the dither and
-// conditioning branches.
-template <bool kResample, bool kBf16, bool kBlock, typename Fn>
-cudaError_t dispatch(const Fn& fn, bool is_int16, bool dither, bool cond) {
-  if (is_int16) {
-    if (dither) {
-      return cond ? fn.template run<int16_t, kResample, true, true, kBf16, kBlock>()
-                  : fn.template run<int16_t, kResample, true, false, kBf16, kBlock>();
+// The launch of the cluster plan's instantiation for a sample type and
+// the dither and conditioning branches (dispatch's other template
+// arguments are the plain form's, false): a persistent grid of p.nslots
+// clusters of p.cluster blocks, by cudaLaunchKernelEx with the cluster
+// dimension as a launch attribute.
+struct ClusterLaunch {
+  const Args& a;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
+  cudaError_t run() const {
+    const Params& p = a.p;
+    const size_t bytes = static_cast<size_t>(cluster_layout(p).total) * sizeof(float);
+    auto kernel = logmel_kernel_cluster<Sample, kDither, kCond>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = p.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(p.nslots * p.cluster);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = bytes;
+    cfg.stream = a.stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid,
+                             a.frame_mask, a.window, a.mel_w, a.melf_w, a.mel_off, a.mel_meta,
+                             reinterpret_cast<const float2*>(a.twiddle), a.bases, p);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  }
+};
+
+// The card's view of the cluster plan's instantiation at `smem` bytes and
+// `cluster` blocks a cluster: registers and local bytes a thread, blocks an
+// SM, and the clusters the card holds at once.
+struct ClusterInfo {
+  int smem, cluster;
+  int* out;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
+  cudaError_t run() const {
+    auto kernel = logmel_kernel_cluster<Sample, kDither, kCond>;
+    cudaFuncAttributes attr = {};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     }
-    return cond ? fn.template run<int16_t, kResample, false, true, kBf16, kBlock>()
-                : fn.template run<int16_t, kResample, false, false, kBf16, kBlock>();
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, kThreads, smem);
+    }
+    if (err == cudaSuccess) {
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = cluster;
+      at[0].val.clusterDim.y = 1;
+      at[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(cluster);
+      cfg.blockDim = dim3(kThreads);
+      cfg.dynamicSmemBytes = smem;
+      cfg.attrs = at;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&out[3], kernel, &cfg);
+    }
+    out[0] = attr.numRegs;
+    out[1] = static_cast<int>(attr.localSizeBytes);
+    return err;
   }
+};
+
+// Picks the instantiation for the dither and conditioning branches.
+template <typename Sample, bool kResample, bool kBf16, bool kBlock, typename Fn>
+cudaError_t dispatch_sample(const Fn& fn, bool dither, bool cond) {
   if (dither) {
-    return cond ? fn.template run<float, kResample, true, true, kBf16, kBlock>()
-                : fn.template run<float, kResample, true, false, kBf16, kBlock>();
+    return cond ? fn.template run<Sample, kResample, true, true, kBf16, kBlock>()
+                : fn.template run<Sample, kResample, true, false, kBf16, kBlock>();
   }
-  return cond ? fn.template run<float, kResample, false, true, kBf16, kBlock>()
-              : fn.template run<float, kResample, false, false, kBf16, kBlock>();
+  return cond ? fn.template run<Sample, kResample, false, true, kBf16, kBlock>()
+              : fn.template run<Sample, kResample, false, false, kBf16, kBlock>();
 }
+
+// One part of the instantiations (kernels/_build.py compiles each part of
+// this file on its own, FRONTEND_PART = 1 .. 14, and the extern "C" entries
+// alone as part 0, then links them): the launch and the card's view of the
+// four instantiations of one sample type and one (fused resample, bf16x3,
+// block plan) form, or (kCluster) of the cluster plan.
+template <typename Sample, bool kResample, bool kBf16, bool kBlock, bool kCluster>
+cudaError_t launch_of(const Args& a, bool dth, bool cnd) {
+  if constexpr (kCluster) {
+    return dispatch_sample<Sample, false, false, false>(ClusterLaunch{a}, dth, cnd);
+  } else {
+    return dispatch_sample<Sample, kResample, kBf16, kBlock>(Launch{a}, dth, cnd);
+  }
+}
+template <typename Sample, bool kResample, bool kBf16, bool kBlock, bool kCluster>
+cudaError_t info_of(int smem, int cluster, int* out, bool dth, bool cnd) {
+  if constexpr (kCluster) {
+    return dispatch_sample<Sample, false, false, false>(ClusterInfo{smem, cluster, out}, dth, cnd);
+  } else {
+    return dispatch_sample<Sample, kResample, kBf16, kBlock>(Info{smem, out}, dth, cnd);
+  }
+}
+
+// The form of either sample type.
+template <bool kResample, bool kBf16, bool kBlock, bool kCluster = false>
+cudaError_t launch_form(const Args& a, bool i16, bool dth, bool cnd) {
+  return i16 ? launch_of<int16_t, kResample, kBf16, kBlock, kCluster>(a, dth, cnd)
+             : launch_of<float, kResample, kBf16, kBlock, kCluster>(a, dth, cnd);
+}
+template <bool kResample, bool kBf16, bool kBlock, bool kCluster = false>
+cudaError_t info_form(int smem, int cluster, int* out, bool i16, bool dth, bool cnd) {
+  return i16 ? info_of<int16_t, kResample, kBf16, kBlock, kCluster>(smem, cluster, out, dth, cnd)
+             : info_of<float, kResample, kBf16, kBlock, kCluster>(smem, cluster, out, dth, cnd);
+}
+
+// The parts, in order (the sample type, then the form): built in parts,
+// every part declares them all (extern template) and then instantiates its
+// own; built as one file (no FRONTEND_PART) every use instantiates.
+#define FRONTEND_PARTS(X)                                                                  \
+  X(int16_t, false, false, false, false) X(float, false, false, false, false) /* warp */   \
+  X(int16_t, false, false, true, false) X(float, false, false, true, false)   /* block */  \
+  X(int16_t, false, true, false, false) X(float, false, true, false, false)   /* bf16x3 */ \
+  X(int16_t, false, true, true, false) X(float, false, true, true, false)   /* its plans */ \
+  X(int16_t, true, false, false, false) X(float, true, false, false, false)  /* resample */ \
+  X(int16_t, true, true, false, false) X(float, true, true, false, false)  /* it, bf16x3 */ \
+  X(int16_t, false, false, false, true) X(float, false, false, false, true)   /* cluster */
+#define FRONTEND_DECLARE(S, r, b, k, c)                                              \
+  extern template cudaError_t launch_of<S, r, b, k, c>(const Args&, bool, bool);    \
+  extern template cudaError_t info_of<S, r, b, k, c>(int, int, int*, bool, bool);
+#define FRONTEND_DEFINE(S, r, b, k, c)                                       \
+  template cudaError_t launch_of<S, r, b, k, c>(const Args&, bool, bool);   \
+  template cudaError_t info_of<S, r, b, k, c>(int, int, int*, bool, bool);
+#ifdef FRONTEND_PART
+FRONTEND_PARTS(FRONTEND_DECLARE)
+#if FRONTEND_PART == 1
+FRONTEND_DEFINE(int16_t, false, false, false, false)
+#elif FRONTEND_PART == 2
+FRONTEND_DEFINE(float, false, false, false, false)
+#elif FRONTEND_PART == 3
+FRONTEND_DEFINE(int16_t, false, false, true, false)
+#elif FRONTEND_PART == 4
+FRONTEND_DEFINE(float, false, false, true, false)
+#elif FRONTEND_PART == 5
+FRONTEND_DEFINE(int16_t, false, true, false, false)
+#elif FRONTEND_PART == 6
+FRONTEND_DEFINE(float, false, true, false, false)
+#elif FRONTEND_PART == 7
+FRONTEND_DEFINE(int16_t, false, true, true, false)
+#elif FRONTEND_PART == 8
+FRONTEND_DEFINE(float, false, true, true, false)
+#elif FRONTEND_PART == 9
+FRONTEND_DEFINE(int16_t, true, false, false, false)
+#elif FRONTEND_PART == 10
+FRONTEND_DEFINE(float, true, false, false, false)
+#elif FRONTEND_PART == 11
+FRONTEND_DEFINE(int16_t, true, true, false, false)
+#elif FRONTEND_PART == 12
+FRONTEND_DEFINE(float, true, true, false, false)
+#elif FRONTEND_PART == 13
+FRONTEND_DEFINE(int16_t, false, false, false, true)
+#elif FRONTEND_PART == 14
+FRONTEND_DEFINE(float, false, false, false, true)
+#endif
+#endif
 
 // The plain form's instantiations: bf16x3 (its staged plan, or its block
 // plans), the block plan, or the warp plan.
-template <typename Fn>
-cudaError_t dispatch_plain(const Fn& fn, bool is_int16, bool dither, bool cond, bool tensor,
-                           bool block) {
+inline cudaError_t launch_plain(const Args& a, bool is_int16, bool dither, bool cond, bool tensor,
+                                bool block) {
   if (tensor) {
-    return block ? dispatch<false, true, true>(fn, is_int16, dither, cond)
-                 : dispatch<false, true, false>(fn, is_int16, dither, cond);
+    return block ? launch_form<false, true, true>(a, is_int16, dither, cond)
+                 : launch_form<false, true, false>(a, is_int16, dither, cond);
   }
-  if (block) return dispatch<false, false, true>(fn, is_int16, dither, cond);
-  return dispatch<false, false, false>(fn, is_int16, dither, cond);
+  if (block) return launch_form<false, false, true>(a, is_int16, dither, cond);
+  return launch_form<false, false, false>(a, is_int16, dither, cond);
+}
+inline cudaError_t info_plain(int smem, int* out, bool is_int16, bool dither, bool cond, bool tensor,
+                              bool block) {
+  if (tensor) {
+    return block ? info_form<false, true, true>(smem, 0, out, is_int16, dither, cond)
+                 : info_form<false, true, false>(smem, 0, out, is_int16, dither, cond);
+  }
+  if (block) return info_form<false, false, true>(smem, 0, out, is_int16, dither, cond);
+  return info_form<false, false, false>(smem, 0, out, is_int16, dither, cond);
 }
 
 // The Stockham stages of n points (kernels/frontend.py radices(2n)): 8s,
 // then one 4 or 2, then 3s and 5s, stage s in bits [4s, 4s + 4) of *rad;
 // returns their count, or 0 when n < 2 or n has another prime factor.
-int stockham_plan(int n, unsigned long long* rad) {
+inline int stockham_plan(int n, unsigned long long* rad) {
   if (n < 2) return 0;
   int h = n, ns = 0;
   unsigned long long r = 0;
@@ -2542,7 +3236,7 @@ int stockham_plan(int n, unsigned long long* rad) {
 
 // p's Stockham FFT of n points: radices, the twiddle entries of its stages
 // after the first (after the split's nsplit) and its output bases.
-bool plan_stages(Params& p, int n) {
+inline bool plan_stages(Params& p, int n) {
   p.fft_n = n;
   p.nstages = stockham_plan(n, &p.radices);
   if (p.nstages == 0) return false;
@@ -2560,7 +3254,8 @@ bool plan_stages(Params& p, int n) {
 // The block plan's ladder (kernels/frontend.py FFT_PLANS after "warp", and
 // PLAN_TRAITS): whether a plan reads each frame (gather), the FFT tables,
 // the packed bands and the FFT rows from device memory, and keeps the
-// projection's sums there.
+// projection's sums there. The cluster plan is no row of it: a launch asks
+// for it by its cluster size, and plan_cluster lays it out.
 constexpr int kLadder[7][5] = {
     {0, 0, 0, 0, 0},  // block
     {0, 1, 0, 0, 0},  // block_global
@@ -2571,11 +3266,52 @@ constexpr int kLadder[7][5] = {
     {1, 1, 1, 1, 1},  // gather_sums
 };
 
-// The block plan (kernels/frontend.py fft_layout): the first plan of the
-// ladder, at the first of 4, 2 and 1 groups (frames a block transforms at
-// once), whose layout fits the block. The last, "gather_sums", fits at any
-// n_fft, hop, frame length and filter count.
-void plan_block(Params& p, bool wide) {
+// The cluster plan at C blocks a frame (kernels/frontend.py cluster_dims,
+// cluster_smem): the form's FFT of fft_n points as C local FFTs of cl_n =
+// fft_n / C points and one exchange, where fft_n is a multiple of C^2 and
+// the layout fits the block; its table (kernels/frontend.py
+// cluster_twiddles, cluster_bases) holds the split's entries, the local
+// FFT's twists, the Bluestein chirp and filter spectrum, then the
+// exchange's twists. False, p unchanged, where it does not apply.
+inline bool plan_cluster(Params& p, int C) {
+  const int n = p.fft_n;
+  if (C < 2 || C > kMaxCluster || (C & (C - 1)) != 0 || n % (C * C) != 0) return false;
+  Params q = p;
+  q.cluster = C;
+  q.cl_n = n / C;
+  q.cl_j = n / (C * C);
+  q.cl_pb = (q.bins + C - 1) / C;
+  q.nstages = stockham_plan(q.cl_n, &q.radices);
+  if (q.nstages == 0) return false;
+  int twists = 0;
+  q.nbases = 0;
+  for (int s = 0; s < q.nstages; ++s) {
+    const int R = static_cast<int>((q.radices >> (4 * s)) & 15u);
+    if (s > 0) twists += (q.cl_n / R) * (R - 1);
+    q.nbases += q.cl_n / R;
+  }
+  q.ntw = q.nsplit + twists;
+  if (q.form == kBluestein) {
+    q.chirp = q.ntw;
+    q.filt = q.chirp + q.bq;
+    q.ntw = q.filt + q.nfilt;
+  }
+  q.cross = q.ntw;
+  q.ntw += (C - 1) * q.cl_n;
+  if (cluster_layout(q).total * 4 > kSmemBudget) return false;
+  q.block = q.gather = q.tables_global = q.bands_global = 1;
+  q.rows_global = q.sums_global = 0;
+  q.groups = 1;
+  p = q;
+  return true;
+}
+
+// The block plan (kernels/frontend.py fft_layout without the cluster
+// plan): the first plan of the ladder, at the first of 4, 2 and 1 groups
+// (frames a block transforms at once), whose layout fits the block. The
+// last, "gather_sums", fits at any n_fft, hop, frame length and filter
+// count.
+inline void plan_block(Params& p, bool wide) {
   p.block = 1;
   for (int plan = 0; plan < 7; ++plan) {
     for (int groups = 4; groups >= 1; groups /= 2) {
@@ -2603,9 +3339,11 @@ void plan_block(Params& p, bool wide) {
 // the block, with the tables in device memory where the staged ones do not
 // fit either, and the gather plans where the staged span and window do not
 // (the packed bands, then the FFT rows, then the projection's sums, in
-// device memory where they do not fit either). False when the wrapper's
-// form disagrees, or for n_fft < 2.
-bool plan(Params& p, const Polyphase* pp, bool int16) {
+// device memory where they do not fit either); cluster > 0 takes the
+// cluster plan at that many blocks a frame, which must apply. False when
+// the wrapper's form disagrees, a cluster asked for does not apply, or for
+// n_fft < 2.
+inline bool plan(Params& p, const Polyphase* pp, bool int16, int cluster) {
   const int N = p.n_fft;
   if (N < 2) return false;
   p.half = N / 2;
@@ -2616,6 +3354,7 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
   p.kp = p.nbp = p.npass = p.pws = p.stages = p.nacc = p.nptab = 0;
   p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = p.sums_global = 0;
   p.acc_global = 0;
+  p.cluster = p.cl_n = p.cl_j = p.cl_pb = p.cross = 0;
   p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;
@@ -2654,13 +3393,14 @@ bool plan(Params& p, const Polyphase* pp, bool int16) {
       return false;
   }
   const bool wide = p.dither > 0.f;  // the plain form's signal row under dither
+  if (cluster > 0) return pp == nullptr && plan_cluster(p, cluster);
   if (pp == nullptr && layout(p, 0, 0, wide, false).total * 4 > kSmemBudget) plan_block(p, wide);
   return true;
 }
 
-bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const Polyphase* pp,
-                bool int16) {
-  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p, pp, int16) ||
+inline bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const Polyphase* pp,
+                       bool int16, int cluster = 0) {
+  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p, pp, int16, cluster) ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
@@ -2672,7 +3412,10 @@ bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const P
          p.framing > kFrameCenterReflect;
 }
 
-}  // namespace
+}  // namespace mfcc_frontend
+
+#if !defined(FRONTEND_PART) || FRONTEND_PART == 0
+using namespace mfcc_frontend;
 
 extern "C" {
 
@@ -2717,7 +3460,11 @@ extern "C" {
 // rows_workspace: ws_floats floats, its contents any), one slot for each
 // block of the persistent grid; where plan_bf16 takes "gather_out", rows_ws is the
 // accumulators' workspace [B, F, nacc] (ws_floats floats at least, its
-// contents any); null for every other plan.
+// contents any); null for every other plan. cluster > 0 takes the cluster
+// plan at that many blocks a frame (2, 4 or 8; refused where it does not
+// apply), in a persistent grid of nslots clusters (the card's active
+// clusters at most, kernels/frontend.py _active_clusters), its twiddle and
+// bases the cluster plan's tables; 0 takes the ladder's other plans.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, int* n_valid, float* frame_mask, const float* window,
                          const float* mel_w,
@@ -2730,12 +3477,13 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
                          int log_kind, int feature_kind, int origin, float* rows_ws,
-                         int nslots, long long ws_floats, void* stream) {
+                         int nslots, long long ws_floats, int cluster, void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind, framing, drop_last};
   p.origin = origin;
-  if (bad_params(p, B, melf_w, bases, nullptr, audio_is_int16 != 0)) return cudaErrorInvalidValue;
+  if (cluster < 0 || (cluster > 0 && dft_form == kBf16x3)) return cudaErrorInvalidValue;
+  if (bad_params(p, B, melf_w, bases, nullptr, audio_is_int16 != 0, cluster)) return cudaErrorInvalidValue;
   if (origin != 0 && (origin != 1 || T < 2 || dither > 0.f || center != kNoCenter ||
                       frame_offset != 0 || dft_form == kBf16x3)) {
     return cudaErrorInvalidValue;
@@ -2745,6 +3493,11 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   if (p.acc_global &&
       (rows_ws == nullptr || ws_floats < static_cast<long long>(B) * F * p.nacc)) {
     return cudaErrorInvalidValue;
+  }
+  if (p.cluster) {
+    if (nslots < 1) return cudaErrorInvalidValue;
+    p.nslots = nslots;
+    p.batch = B;
   }
   if (p.rows_global) {
     const long long row = layout(p, 0, 0, dither > 0.f, true).row;
@@ -2759,9 +3512,9 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
                mel_meta, twiddle, bases, dft_matrix, nullptr, rows_ws, B, p,
                Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
-  const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
-  return dispatch_plain(fn, i16, dth, cnd, tensor, p.block != 0);
+  if (p.cluster) return launch_form<false, false, false, true>(a, i16, dth, cnd);
+  return launch_plain(a, i16, dth, cnd, tensor, p.block != 0);
 }
 
 // The same with the fused resample: audio [B, T] and lengths [B] at sr_in;
@@ -2799,10 +3552,8 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
   const Args a{audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off,
                mel_meta, twiddle, bases, dft_matrix, taps, nullptr, B, p, pp,
                static_cast<cudaStream_t>(stream)};
-  const Launch fn{a};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
-  return tensor ? dispatch<true, true, false>(fn, i16, dth, cnd)
-                : dispatch<true, false, false>(fn, i16, dth, cnd);
+  return tensor ? launch_form<true, true, false>(a, i16, dth, cnd) : launch_form<true, false, false>(a, i16, dth, cnd);
 }
 
 // Registers, local (spilled) bytes a thread and blocks an SM of the
@@ -2811,12 +3562,22 @@ int mfcc_frontend_logmel_resample(const void* audio, int audio_is_int16,
 // out[0..3). The fused resample has no block plan.
 int mfcc_frontend_kernel_info(int audio_is_int16, int resample, int dither, int conditioning,
                               int bf16x3, int block, int smem_bytes, int* out) {
-  const Info fn{smem_bytes, out};
   const bool i16 = audio_is_int16 != 0, dth = dither != 0, cnd = conditioning != 0;
-  if (!resample) return dispatch_plain(fn, i16, dth, cnd, bf16x3 != 0, block != 0);
+  if (!resample) return info_plain(smem_bytes, out, i16, dth, cnd, bf16x3 != 0, block != 0);
   if (block) return cudaErrorInvalidValue;
-  return bf16x3 ? dispatch<true, true, false>(fn, i16, dth, cnd)
-                : dispatch<true, false, false>(fn, i16, dth, cnd);
+  return bf16x3 ? info_form<true, true, false>(smem_bytes, 0, out, i16, dth, cnd)
+                : info_form<true, false, false>(smem_bytes, 0, out, i16, dth, cnd);
+}
+
+// Registers, local (spilled) bytes a thread, blocks an SM and the clusters
+// the card holds at once of the cluster plan's instantiation for (int16
+// rows, dither, conditioning) at `cluster` blocks a cluster and smem_bytes
+// of dynamic shared memory a block, into out[0..4).
+int mfcc_frontend_cluster_info(int audio_is_int16, int dither, int conditioning, int cluster,
+                               int smem_bytes, int* out) {
+  if (cluster < 2 || cluster > kMaxCluster) return cudaErrorInvalidValue;
+  return info_form<false, false, false, true>(smem_bytes, cluster, out, audio_is_int16 != 0, dither != 0,
+                                              conditioning != 0);
 }
 
 const char* mfcc_frontend_error_string(int err) {
@@ -2824,3 +3585,4 @@ const char* mfcc_frontend_error_string(int err) {
 }
 
 }  // extern "C"
+#endif  // !FRONTEND_PART || FRONTEND_PART == 0

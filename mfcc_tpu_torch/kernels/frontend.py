@@ -19,8 +19,11 @@ threads in 4, 2 or 1 groups, each a frame at a time through two rows of
 its own, the tables staged or read from device memory, and where the
 tile's staged span and window are over it too (long hops, long frames),
 each frame read from device memory; where the rows and the packed mel
-bands are over it too (n_fft from ~6,200), the bands read from device
-memory, then the rows kept in a workspace in device memory, then, where
+bands are over it too (n_fft from ~6,200), at FFTs of CLUSTER_MIN_POINTS
+points or more (by form) each frame's rows split over the shared memory of a
+thread-block cluster of 2, 4 or 8 blocks (the cluster plan), else the bands
+read from device memory, then the rows kept in a workspace in device
+memory, then, where
 tens of thousands of filters put the projection's sums over it too, the
 sums in device memory), |X|², then
 by feature kind (`FEATURE_KINDS`): the mel projection over the packed bands
@@ -74,7 +77,8 @@ memory, `gather_launches` those that read each frame from device
 memory, `gather_bands_launches`, `gather_rows_launches` and
 `gather_sums_launches` those of the plans that read the packed mel bands,
 and also keep the FFT rows, and then the projection's sums, in device
-memory (`fft_layout`, `PLAN_TRAITS`), `split_launches` the plain-form launches of
+memory (`fft_layout`, `PLAN_TRAITS`), `cluster_launches` those of the
+cluster plan, `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
 
@@ -119,23 +123,41 @@ DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 # with each frame read from device memory, no span and no window staged;
 # then with the packed mel bands, then the FFT rows, then the projection's
 # sums in device memory too
-FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "gather_bands",
+# then "cluster": each frame's FFT rows split over the shared memory of a
+# thread-block cluster, the tables and bands in device memory
+FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "cluster", "gather_bands",
              "gather_rows", "gather_sums")
 # what each block plan keeps in device memory rather than staging
-# (csrc/frontend.cu kLadder): (each frame, the FFT tables, the packed mel
-# bands, the FFT rows, the projection's sums)
+# (csrc/frontend.cu kLadder, and plan_cluster for "cluster", which is no
+# row of it): (each frame, the FFT tables, the packed mel bands, the FFT
+# rows, the projection's sums); "cluster" stages its rows in the
+# cluster's shared memory
 PLAN_TRAITS = {
     "block": (False, False, False, False, False),
     "block_global": (False, True, False, False, False),
     "gather": (True, False, False, False, False),
     "gather_global": (True, True, False, False, False),
+    "cluster": (True, True, True, False, False),
     "gather_bands": (True, True, True, False, False),
     "gather_rows": (True, True, True, True, False),
     "gather_sums": (True, True, True, True, True),
 }
-# (plan, frames a block transforms at once) in the order plan() tries them
+# csrc/frontend.cu kLadder's plans in its order: the block plans plan_block
+# walks, every plan after "warp" but "cluster" (which a launch asks for by
+# its cluster size)
+BLOCK_LADDER = tuple(plan for plan in FFT_PLANS[1:] if plan != "cluster")
+# the cluster plan's portable cluster sizes (blocks a frame), tried smallest first
+CLUSTER_SIZES = (2, 4, 8)
+# the cluster plan's size rule, by DFT form: `fft_layout` tries it only at
+# FFTs of this many points or more (`fft_points`), where it beat or tied
+# the plans it replaces in turns (chip_smoke.py phase 29): the Stockham
+# form's 8,192 points (n_fft 16,384) and up, the Bluestein form's P = 16,384
+# and up (at P = 12,800 it lost to "gather_bands")
+CLUSTER_MIN_POINTS = {"stockham": 8192, "bluestein": 16384}
+# (plan, frames a block transforms at once; for "cluster" the blocks a
+# frame) in the order plan() tries them
 FFT_LAYOUTS = (("warp", WARPS),
-               *((plan, g) for plan in FFT_PLANS[1:] for g in (4, 2, 1)))
+               *((plan, g) for plan in FFT_PLANS[1:] for g in (CLUSTER_SIZES if plan == "cluster" else (4, 2, 1))))
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 FRAMINGS = ("pad", "drop", "center", "center_reflect")  # csrc/frontend.cu frame-count codes
 
@@ -154,6 +176,7 @@ gather_launches = 0
 gather_bands_launches = 0
 gather_rows_launches = 0
 gather_sums_launches = 0
+cluster_launches = 0
 bf16x3_launches = 0
 bf16_pass_launches = 0
 bf16_gather_launches = 0
@@ -430,6 +453,67 @@ def stage_bases(n_fft: int, form: str = "stockham") -> np.ndarray:
     return np.concatenate(out).astype(np.int32)
 
 
+def cluster_dims(n_fft: int, form: str, C: int) -> tuple[int, int, int] | None:
+    """(H2, J, PB) of the cluster plan at C blocks a frame: the form's
+    n-point FFT (`fft_points`) as C FFTs of H2 = n/C points, one a rank,
+    then one radix-C pass across the cluster, its butterflies J = H2/C a
+    rank; PB = ceil(n_bins / C) power bins a rank. None where n is not a
+    multiple of C²."""
+    n = fft_points(n_fft, form)
+    if n % (C * C):
+        return None
+    return n // C, n // (C * C), -(-(n_fft // 2 + 1) // C)
+
+
+def _local_stages(n_fft: int, form: str, C: int):
+    """(radix R, points ns before the stage, butterflies H2/R) of each stage
+    of the cluster plan's H2-point local FFT."""
+    h2 = cluster_dims(n_fft, form, C)[0]
+    ns, out = 1, []
+    for R in radices(2 * h2):
+        out.append((R, ns, h2 // R))
+        ns *= R
+    return out
+
+
+def cluster_twiddles(n_fft: int, form: str, C: int, dtype=np.float32) -> np.ndarray:
+    """[n, 2] float32 table (re, im) of the cluster plan at C blocks a
+    frame (`dtype` float64: unrounded), each entry computed in float64 and
+    rounded once: the real split's
+    e^{-2πik/n_fft}, k <= n_fft/4 (even n_fft); the H2-point local FFT's
+    stage twists laid out as `fft_twiddles` lays out a form's; for the
+    Bluestein form the chirp and the filter spectrum as there; then the
+    exchange's twists e^{-2πi·r·k1/n} of rank r = 1 .. C-1 at (r - 1)·H2 + k1,
+    k1 < H2 (n = `fft_points`, r·k1 mod n exact in integers)."""
+    n = fft_points(n_fft, form)
+    h2 = cluster_dims(n_fft, form, C)[0]
+    parts = [2.0 * np.pi * np.arange(split_count(n_fft), dtype=np.float64) / n_fft]
+    for R, ns, hr in _local_stages(n_fft, form, C)[1:]:
+        rk = (np.arange(hr)[:, None] % ns) * np.arange(1, R)[None, :]
+        parts.append((2.0 * np.pi * (rk % (ns * R)) / (ns * R)).ravel())
+    if form == "bluestein":
+        q = bluestein_dims(n_fft)[0]
+        m = np.arange(q, dtype=np.int64)
+        parts.append(np.pi * ((m * m) % (2 * q)).astype(np.float64) / q)
+    ang = np.concatenate(parts)
+    tab = [np.stack([np.cos(ang), -np.sin(ang)], axis=-1)]
+    if form == "bluestein":
+        filt = bluestein_filter(n_fft)[: filter_count(n_fft)]
+        tab.append(np.stack([filt.real, filt.imag], axis=-1))
+    rk = (np.arange(1, C, dtype=np.int64)[:, None] * np.arange(h2)[None, :]) % n
+    ang = (2.0 * np.pi * rk / n).ravel()
+    tab.append(np.stack([np.cos(ang), -np.sin(ang)], axis=-1))
+    return np.concatenate(tab).astype(dtype)
+
+
+def cluster_bases(n_fft: int, form: str, C: int) -> np.ndarray:
+    """int32 output bases of the cluster plan's local FFT (`stage_bases`'
+    layout for its H2 points)."""
+    out = [(np.arange(hr) - np.arange(hr) % ns) * R + np.arange(hr) % ns
+           for R, ns, hr in _local_stages(n_fft, form, C)]
+    return np.concatenate(out).astype(np.int32)
+
+
 BF16_STEP = 16  # K of one wgmma step: one k16 slice of the matrix a ring stage
 BF16_PASS_BINS = 136  # bins a pass: two m64n136k16 products over 272 interleaved columns
 BF16_TILES = (64, 32)  # frames a block, the first whose layout fits
@@ -594,7 +678,10 @@ def _device_tables(cfg: FrontendConfig, device: torch.device):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_fft_tables(n_fft: int, form: str, device: torch.device):
+def _device_fft_tables(n_fft: int, form: str, device: torch.device, cluster: int = 0):
+    if cluster:
+        return (torch.as_tensor(cluster_twiddles(n_fft, form, cluster), device=device),
+                torch.as_tensor(cluster_bases(n_fft, form, cluster), device=device))
     return (torch.as_tensor(fft_twiddles(n_fft, form), device=device),
             torch.as_tensor(stage_bases(n_fft, form), device=device))
 
@@ -676,10 +763,12 @@ def bf16_accumulators(cfg: FrontendConfig) -> int:
     return 2 * cfg.n_mels if kind == "ssc" else 1 if kind == "spectrogram" else cfg.n_mels + 1
 
 
-@functools.lru_cache(maxsize=4096)
+@functools.lru_cache(maxsize=None)
 def packed_count(cfg: FrontendConfig) -> int:
     """Entries of cfg's packed mel table (`mel_packed`): each filter's band
-    of `mel_bands`, one entry for an all-zero filter."""
+    of `mel_bands`, one entry for an all-zero filter. Cached without bound
+    (an int a config): each count builds the dense filterbank, and a sweep
+    over more configs than a bounded cache holds would rebuild every one."""
     nz = constants.mel_filterbank(cfg) != 0
     hi = np.where(nz, np.arange(nz.shape[0])[:, None] + 1, 0).max(axis=0)
     lo = np.where(nz, np.arange(nz.shape[0])[:, None], nz.shape[0]).min(axis=0)
@@ -818,6 +907,8 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     partials and M sums a weight table; the partials alone for
     "gather_sums", whose sums are in device memory), then the 8 warps'
     partials of a group sum."""
+    if plan == "cluster":  # its layout at `groups` blocks a frame
+        return cluster_smem(cfg, form, groups)
     N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
     gather, tables_dev, bands_dev, rows_dev, sums_dev = PLAN_TRAITS.get(plan, (False,) * 5)
     n = 0 if bands_dev else _bands(cfg) if gather else _head(cfg, TILE)
@@ -832,8 +923,28 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     return 4 * (n + max(rows, fir) + _a4(taps))
 
 
+CLUSTER_REFUSED = 1 << 40  # `cluster_smem` of a cluster size the FFT does not split into
+
+
+def cluster_smem(cfg: FrontendConfig, form: str, C: int) -> int:
+    """Shared memory per block of cfg's cluster plan at C blocks a frame
+    (csrc/frontend.cu cluster_layout): each rank's
+    two rows of its H2 points (`row_floats`' padding), the projection's 256
+    thread partials and M filter partials a weight table, the 8 warps'
+    partials, 4 slots of the rank's sums and 16 words of the ranks' filter
+    ranges; CLUSTER_REFUSED where the form's FFT does not split C x C
+    (`cluster_dims`)."""
+    dims = cluster_dims(cfg.n_fft, form, C)
+    if dims is None:
+        return CLUSTER_REFUSED
+    h2, tables = dims[0], mel_matrices(cfg)
+    row = (2 * (h2 + h2 // 8 + 1) + 3) & ~3
+    return 4 * (2 * row + tables * THREADS + _a4(tables * cfg.n_mels) + WARPS + 4 + 16)
+
+
 @functools.lru_cache(maxsize=256)
-def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True) -> tuple[str, int]:
+def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True,
+               cluster: bool = True) -> tuple[str, int]:
     """(plan, frames a block transforms at once) of cfg's Stockham or
     Bluestein form (mirrors csrc/frontend.cu plan and plan_block): the first
     of `FFT_LAYOUTS` whose layout fits the block. "warp": each of the 8
@@ -844,7 +955,11 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
     filter spectrum and stage bases read from device memory; else "gather"
     and "gather_global", the same two with no span and no window staged,
     each group reading its frame from device memory (a layout that depends
-    on neither the hop nor the frame length); else "gather_bands", the
+    on neither the hop nor the frame length); else, at FFTs of
+    CLUSTER_MIN_POINTS[form] points or more, "cluster" (the second value its
+    blocks a frame, the first of `CLUSTER_SIZES` whose layout fits: each
+    frame's FFT rows split over a thread-block cluster's shared memory,
+    `cluster_smem`); else "gather_bands", the
     packed mel bands read from device memory too (Stockham to n_fft 25,600,
     Bluestein to P = 12,800); else "gather_rows", each group's two FFT rows
     in a workspace in device memory (`rows_workspace`): its layout, the
@@ -855,11 +970,14 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True)
     any filter count, so one plan always fits. The fused resample takes
     "warp" only: a resampling config whose fused layout is over the block
     takes the split route (`resample_route`), whose plain form plans at the
-    feature rate."""
+    feature rate. cluster=False: the ladder without the cluster plan (the
+    plan a launch takes when it asks for none)."""
     form = form or dft_form(cfg)
     if chain.resamples(cfg):
         return FFT_LAYOUTS[0]
     for plan, groups in FFT_LAYOUTS:
+        if plan == "cluster" and not (cluster and fft_points(cfg.n_fft, form) >= CLUSTER_MIN_POINTS[form]):
+            continue
         if _fft_smem(cfg, form, plan, int16, groups) <= rs_kernel.SMEM_BUDGET_BYTES:
             return plan, groups
     return FFT_LAYOUTS[-1]
@@ -977,6 +1095,7 @@ def _lib() -> ctypes.CDLL:
         *branches,
         i,  # origin
         p, i, ctypes.c_longlong,  # "gather_rows": workspace, slots (its grid's blocks), workspace floats
+        i,  # cluster: blocks a frame of the cluster plan (0: another plan)
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
@@ -994,6 +1113,8 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_frontend_logmel_resample.restype = ctypes.c_int
     lib.mfcc_frontend_kernel_info.argtypes = [i, i, i, i, i, i, i, p]
     lib.mfcc_frontend_kernel_info.restype = ctypes.c_int
+    lib.mfcc_frontend_cluster_info.argtypes = [i, i, i, i, i, p]
+    lib.mfcc_frontend_cluster_info.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
     return lib
@@ -1010,12 +1131,16 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
     if resample_route(cfg, dft_passes) == "split":
         cfg = feature_rate_config(cfg)  # the split route's front-end launch
     out = (ctypes.c_int * 3)()
-    smem = smem_bytes(cfg, dft_passes, int16)
     form = kernel_form(cfg, dft_passes)
     if form == "bf16x3":
+        smem = smem_bytes(cfg, dft_passes, int16)
         block = not chain.resamples(cfg) and bf16_layout(cfg, int16)[0] != "staged"
-    else:
-        block = fft_plan(cfg, form, int16) != "warp"
+    else:  # the layout of the plan the mirror takes now (not smem_bytes' cached one)
+        plan, groups = fft_layout(cfg, form, int16)
+        smem = _fft_smem(cfg, form, plan, int16, groups)
+        if plan == "cluster":
+            return _cluster_info(cfg, int16, groups, smem)
+        block = plan != "warp"
     rc = _lib().mfcc_frontend_kernel_info(
         int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
         int(chain.needs_conditioning(cfg)), int(form == "bf16x3"), int(block), smem, out)
@@ -1025,16 +1150,43 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
     return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem}
 
 
+def _cluster_info(cfg: FrontendConfig, int16: bool, C: int, smem: int) -> dict:
+    """`kernel_info` of the cluster plan at C blocks a frame: registers, local
+    bytes, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+    the clusters the card holds at once (cudaOccupancyMaxActiveClusters)."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().mfcc_frontend_cluster_info(int(int16), int(cfg.dither > 0.0), int(chain.needs_conditioning(cfg)),
+                                           C, smem, out)
+    if rc != 0:
+        raise RuntimeError(f"front-end cluster info failed: "
+                           f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem,
+            "cluster": C, "clusters": out[3]}
+
+
+@functools.lru_cache(maxsize=64)
+def _active_clusters(cfg: FrontendConfig, int16: bool, C: int, device: torch.device) -> int:
+    """Clusters of C blocks of cfg's cluster-plan instantiation (a config at
+    its feature rate) that the card holds at once."""
+    with torch.cuda.device(device):
+        n = _cluster_info(cfg, int16, C, cluster_smem(cfg, dft_form(cfg), C))["clusters"]
+    if n < 1:
+        raise RuntimeError(f"the card holds no cluster of {C} blocks of the front-end's cluster plan")
+    return n
+
+
 @functools.lru_cache(maxsize=64)
 def _resident_blocks(cfg: FrontendConfig, int16: bool, device: torch.device) -> int:
     """Blocks of cfg's block-plan instantiation (a config at its feature
     rate) that the card holds at once: its SMs times the blocks an SM holds
     at the layout's shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = (ctypes.c_int * 3)()
+    form = dft_form(cfg)
+    plan, groups = fft_layout(cfg, form, int16, cluster=False)
     with torch.cuda.device(device):
         rc = _lib().mfcc_frontend_kernel_info(
             int(int16), 0, int(cfg.dither > 0.0), int(chain.needs_conditioning(cfg)), 0, 1,
-            smem_bytes(cfg, int16=int16), out)
+            _fft_smem(cfg, form, plan, int16, groups), out)
     if rc != 0:
         raise RuntimeError(f"front-end kernel info failed: "
                            f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
@@ -1050,7 +1202,7 @@ def rows_workspace(cfg: FrontendConfig, form: str, blocks: int, resident: int) -
     slot of its own that holds its groups' two FFT rows (`row_floats`), and
     for SSC under "gather_sums" then a slot of its groups' M melf sums after
     every slot's rows. Its size is bounded by the card, not by the batch."""
-    plan, groups = fft_layout(cfg, form)
+    plan, groups = fft_layout(cfg, form, cluster=False)
     slots = max(1, min(blocks, resident))
     sums = cfg.n_mels if plan == "gather_sums" and feature_kind(cfg) == "ssc" else 0
     return slots, slots * groups * (2 * row_floats(cfg.n_fft, form) + sums)
@@ -1209,7 +1361,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
     global global_table_launches, gather_launches, gather_bands_launches, gather_rows_launches
-    global gather_sums_launches
+    global gather_sums_launches, cluster_launches
     global bf16_pass_launches, bf16_gather_launches, bf16_gather_bands_launches, bf16_gather_out_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
@@ -1223,12 +1375,16 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     # the fused form plans "warp" only; a plain-form launch (the block launch of
     # a resampling config too) plans at the feature rate
     at_rate = feature_rate_config(cfg)
-    plan = "warp" if form == "bf16x3" or resampling else fft_plan(at_rate, form)
+    plan, C = ("warp", 0) if form == "bf16x3" or resampling else fft_layout(at_rate, form)
     bf16 = bf16_layout(cfg, int16)[0] if form == "bf16x3" else None
     # "gather_rows" and "gather_sums": the workspace, slots (the persistent
     # grid's blocks), floats
     rows = (None, 0, 0)
-    if plan in ("gather_rows", "gather_sums"):
+    if plan == "cluster":  # its persistent grid: the clusters the card holds, at most one a frame
+        rows = (None, max(1, min(B * F, _active_clusters(at_rate, int16, C, audio.device))), 0)
+        twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device, C)
+        head = (*head[:-2], twiddle.data_ptr(), bases.data_ptr())
+    elif plan in ("gather_rows", "gather_sums"):
         slots, floats = rows_workspace(at_rate, form, B * -(-F // TILE),
                                        _resident_blocks(at_rate, int16, audio.device))
         ws = _workspace(floats, audio.device)
@@ -1255,7 +1411,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
             rc = lib.mfcc_frontend_logmel(
                 *head, dft_matrix, *dims, chain.frame_offset(cfg),
                 CENTER_CODES.get(cfg.frame_tail, 0), *framing,
-                cfg.input_scale, *tail, *branches, origin, *rows, stream,
+                cfg.input_scale, *tail, *branches, origin, *rows, C if plan == "cluster" else 0, stream,
             )
     if rc != 0:
         raise RuntimeError(
@@ -1288,6 +1444,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     gather_bands_launches += int(plan == "gather_bands")
     gather_rows_launches += int(plan == "gather_rows")
     gather_sums_launches += int(plan == "gather_sums")
+    cluster_launches += int(plan == "cluster")
     return n_valid, mask
 
 

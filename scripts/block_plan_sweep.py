@@ -8,7 +8,8 @@ turns.
 
 csrc/frontend.cu's plan_block takes the first plan of its ladder (block,
 block_global, gather, gather_global, gather_bands, gather_rows,
-gather_sums: kernels/frontend.py PLAN_TRAITS) at the first of 4, 2 and 1 groups (frames
+gather_sums: kernels/frontend.py BLOCK_LADDER, PLAN_TRAITS; the cluster
+plan is no rung of it, a launch asks for it) at the first of 4, 2 and 1 groups (frames
 a block transforms at once) whose layout fits the block. This script builds
 the source once for each of `STARTS`, each with plan_block's search started
 at another choice (it then takes the first that fits from there: a start
@@ -32,10 +33,15 @@ parent, change, change, parent: the front-end at `TURNS` (classic13_deltas
 b64 x 10 s in the warp plan; classic13 at n_fft 1102, 4096 and 2501 b16 x
 10 s and librosa's framing b64 x 10 s in the block plan; classic13_deltas
 b16 x 10 s at hop 0.2 s in the gather plan, at n_fft 6001 in
-"gather_global", at 16,384 in "gather_bands" and at 32,768 in
-"gather_rows"; kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
+"gather_global"; at 16,384 and 32,768, 13,001 (Bluestein), 65,536 at 48
+kHz b4 x 30 s, 131,072 b2 x 30 s and librosa's 16,384 at 44.1 kHz b64 x
+30 s, the cluster plan's sizes ("gather_bands" or "gather_rows" in the
+parent); kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
 plan's dither and conditioning instantiation; the fused resample at
-mfcc39_48k b64 x 10 s), the feature tail
+mfcc39_48k b64 x 10 s; the parent from before the cluster plan given the
+ladder without it, its entry without the cluster argument), each size the
+cluster plan takes also at every other cluster size that fits, in turns
+with its default (the size is a launch argument: no rebuild), the feature tail
 at `TAIL_TURNS` (classic13_deltas at 170 cepstra and delta window 8 and at
 200 and window 40, b16 x 10 s, on this checkout's front-end prefix). Each
 build's output is held to the other's within the kernel-vs-plain gates.
@@ -73,17 +79,26 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # plan_block's search, whose starting point each build moves
 SEARCH = """  for (int plan = 0; plan < 7; ++plan) {
     for (int groups = 4; groups >= 1; groups /= 2) {"""
-# (plan of the ladder after "warp", kernels/frontend.py FFT_PLANS[1 + plan]; groups)
+# (plan of the ladder, kernels/frontend.py BLOCK_LADDER[plan]; groups)
 STARTS = ((0, 4), (0, 2), (0, 1), (1, 4), (1, 2), (1, 1), (4, 1), (5, 4))
 PATHS = (("classic13", 1102, 16), ("classic13", 4096, 16), ("classic13", 2501, 16),
          ("classic13", 2160, 16), ("librosa", 2048, 64))
 LIBROSA = dict(sample_rate=22050, n_fft=2048, win_len_s=2048 / 22050, hop_s=512 / 22050, n_mels=128)
 LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
-# --parent: (config, overrides, rows) of the front-end and of the tail
+# librosa's melspectrogram(sr=44100, n_fft=16384, hop_length=4096,
+# n_mels=128) framing (chip_smoke.py LIBROSA_16384)
+LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, hop_s=4096 / 44100, n_mels=128,
+                     mel_variant="librosa_hz", mel_scale="slaney", mel_norm="slaney", mel_low_hz=0.0,
+                     mel_high_hz=22050.0)
+# --parent: (config, overrides, rows[, seconds a row: 10]) of the front-end
+# and of the tail; the cluster plan's cases (chip_smoke.py phase 29's) also
+# at each cluster size that fits, in turns with the default
 TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("classic13", dict(n_fft=4096), 16),
          ("classic13", dict(n_fft=2501), 16), ("logmel80", LIBROSA, 64),
          ("classic13_deltas", dict(hop_s=0.2), 16), ("classic13_deltas", dict(n_fft=6001), 16),
          ("classic13_deltas", dict(n_fft=16384), 16), ("classic13_deltas", dict(n_fft=32768), 16),
+         ("classic13_deltas", dict(n_fft=13001), 16), ("classic13_deltas", dict(sample_rate=48000, n_fft=65536), 4, 30),
+         ("classic13_deltas", dict(n_fft=131072), 2, 30), ("logmel80", LIBROSA_16384, 64, 30),
          ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16), ("mfcc39_48k", {}, 64))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
               ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
@@ -95,7 +110,7 @@ BF16X3_TURNS = (("classic13", {}, 64), ("mfcc39_48k", {}, 64), ("classic13", dic
 BF16X3_SEARCH = "  for (const auto& rung : kBfLadder) {"
 BF16X3_FORCED_AT = ("classic13", dict(n_fft=4096), 16)
 FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
-                "mfcc_frontend_kernel_info")
+                "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info")
 # --parent: the plans forced at one group, and the config they are forced at
 FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)), ("gather_sums", (6, 1)))
 FORCED_AT = ("classic13_deltas", dict(n_fft=6001), 16)
@@ -113,8 +128,8 @@ def variant(src: str, start: tuple[int, int]) -> str:
 def taken(frontend, cfg, start: tuple[int, int]) -> tuple[str, int, int, int]:
     """(plan, groups, bytes, blocks an SM by shared memory) that a build
     whose search starts at `start` takes for cfg (the layout mirror)."""
-    order = list(frontend.FFT_LAYOUTS[1:])
-    first = order.index((frontend.FFT_PLANS[1 + start[0]], start[1]))
+    order = [layout for layout in frontend.FFT_LAYOUTS[1:] if layout[0] != "cluster"]
+    first = order.index((frontend.BLOCK_LADDER[start[0]], start[1]))
     form = frontend.dft_form(cfg)
     for plan, groups in order[first:]:
         n = frontend._fft_smem(cfg, form, plan, True, groups)
@@ -124,31 +139,58 @@ def taken(frontend, cfg, start: tuple[int, int]) -> tuple[str, int, int, int]:
 
 
 def build(cu: pathlib.Path, csrc: pathlib.Path, so: pathlib.Path) -> pathlib.Path:
-    """nvcc of one source with the kernels' flags, its headers from csrc."""
+    """nvcc of one source with the kernels' flags, its headers from csrc: in
+    the parts of kernels/_build.py PARTS where the source has them (an older
+    checkout's front-end compiles whole)."""
     from mfcc_tpu_torch.kernels import _build
 
-    res = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so), str(cu)],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise SystemExit(f"nvcc failed on {cu}:\n{res.stderr[-3000:]}")
+    parts = _build.PARTS["frontend"] if "FRONTEND_PARTS(" in cu.read_text() else 0
+    try:
+        _build.compile_source(cu, so, parts, csrc, name="frontend")
+    except RuntimeError as e:
+        raise SystemExit(f"nvcc failed on {cu}:\n{str(e)[-3000:]}")
     return so
 
 
-def bind(so: pathlib.Path, whole, names) -> ctypes.CDLL:
-    """A build's library with the C signatures of the wrapper's own."""
+class NoClusterArgument:
+    """A front-end library from before the cluster plan, called through this
+    checkout's wrapper: its mfcc_frontend_logmel has no `cluster` argument
+    (the one before the stream), which the call drops (the wrapper passes 0
+    there whenever the parent's plan is taken, `in_turns`' parent_plan)."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "mfcc_frontend_logmel":
+            return fn
+        return lambda *args: fn(*args[:-2], args[-1])
+
+
+def bind(so: pathlib.Path, whole, names, legacy: bool = False):
+    """A build's library with the C signatures of the wrapper's own (an
+    entry the build lacks left out); `legacy`: a front-end from before the
+    cluster plan, its mfcc_frontend_logmel without the `cluster` argument,
+    wrapped (`NoClusterArgument`)."""
     lib = ctypes.CDLL(str(so))
     for name in names:
-        getattr(lib, name).argtypes = getattr(whole, name).argtypes
+        if getattr(lib, name, None) is None:
+            continue
+        types = list(getattr(whole, name).argtypes)
+        if legacy and name == "mfcc_frontend_logmel":
+            del types[-2]
+        getattr(lib, name).argtypes = types
         getattr(lib, name).restype = getattr(whole, name).restype
-    return lib
+    return NoClusterArgument(lib) if legacy else lib
 
 
-def rows(pad_batch, cfg, n_rows: int, seed: int = 3):
-    """int16 rows of 10 s (571 samples shorter each) at the rows' rate on
-    the card."""
+def rows(pad_batch, cfg, n_rows: int, seed: int = 3, seconds: int = 10):
+    """int16 rows of `seconds` (571 samples shorter each) at the rows' rate
+    on the card."""
     import torch
 
-    n = (cfg.input_sample_rate or cfg.sample_rate) * 10
+    n = (cfg.input_sample_rate or cfg.sample_rate) * seconds
     g = np.random.default_rng(seed)
     utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(n_rows)]
     batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
@@ -168,12 +210,15 @@ def filter_field_meta(off, index, M: int):
 
 
 def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None,
-             packing: dict | None = None) -> tuple[dict, dict]:
+             packing: dict | None = None, layouts: dict | None = None) -> tuple[dict, dict]:
     """(ms per build of fn's kernels whose name holds substr, every kernel
     with None; one output per build) with each build bound as module's
     library, parent, change, change, parent; `packing` (the front-end's)
-    names the packed table each build reads, bound with it."""
+    names the packed table each build reads, bound with it; `layouts` the
+    layout mirror each build's launch follows (the front-end's fft_layout:
+    the parent's without the cluster plan)."""
     own, own_meta = module._lib, getattr(module, "packed_meta", None)
+    own_layout = getattr(module, "fft_layout", None)
     ms = {key: [] for key in libs}
     outs = {}
     try:
@@ -182,6 +227,8 @@ def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None,
             if packing:
                 module.packed_meta = packing[key]
                 module._device_tables.cache_clear()
+            if layouts:
+                module.fft_layout = layouts[key]
             outs[key] = fn()
             ms[key].append(chip_smoke.device_ms(torch, fn, substr))
     finally:
@@ -189,7 +236,15 @@ def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None,
         if packing:
             module.packed_meta = own_meta
             module._device_tables.cache_clear()
+        if layouts:
+            module.fft_layout = own_layout
     return ms, outs
+
+
+def without_cluster(layout):
+    """The layout mirror `layout` (frontend.fft_layout) without the cluster
+    plan: the plan a parent from before it takes."""
+    return lambda cfg, form=None, int16=True, cluster=True: layout(cfg, form, int16, False)
 
 
 def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
@@ -219,7 +274,11 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
     with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
         sos = dict(zip(cus, pool.map(lambda j: build(cus[j], trees.get(j[0], _build.CSRC),
                                                      out / f"{j[0]}_{j[1]}.so"), cus)))
-    fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS) for key in trees}
+    legacy = "int cluster, void* stream" not in (trees["parent"] / "frontend.cu").read_text()
+    fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS, legacy and key == "parent")
+          for key in trees}
+    layouts = {"parent": without_cluster(frontend.fft_layout) if legacy else frontend.fft_layout,
+               "change": frontend.fft_layout}
     print(f"in turns, parent {parent} [{card}]")
 
     def report(what, ms, outs):
@@ -277,15 +336,31 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
     if bf16x3_only:
         return 0
     tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}
-    for name, over, n_rows in TURNS:
+    for name, over, n_rows, *secs in TURNS:
+        seconds = secs[0] if secs else 10
         cfg = named_config(name).replace(**over)
-        audio, lengths = rows(pad_batch, cfg, n_rows)
-        ms, outs = in_turns(torch, chip_smoke, frontend, fe, lambda: frontend.logmel_prefix(audio, lengths, cfg),
-                            "logmel_kernel", packing)
+        audio, lengths = rows(pad_batch, cfg, n_rows, seconds=seconds)
+        fn = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+        ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel", packing, layouts)
         errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
         if testing.prefix_failures(errs):
             raise SystemExit(f"{name} {over}: the builds disagree: {errs}")
-        report(f"front-end {name} {over} b{n_rows} x 10 s, {frontend.fft_layout(cfg)}", ms, outs)
+        layout = frontend.fft_layout(cfg)
+        report(f"front-end {name} {over} b{n_rows} x {seconds} s, {layout} (parent "
+               f"{layouts['parent'](cfg)})", ms, outs)
+        if layout[0] == "cluster":  # each cluster size that fits, in turns with the default
+            print(f"  {frontend.kernel_info(cfg)}")
+            form = frontend.dft_form(cfg)
+            for C in frontend.CLUSTER_SIZES:
+                if C == layout[1] or frontend.cluster_smem(cfg, form, C) > frontend.rs_kernel.SMEM_BUDGET_BYTES:
+                    continue
+                forced = {"parent": frontend.fft_layout, "change": lambda *a, C=C, **k: ("cluster", C)}
+                ms, outs = in_turns(torch, chip_smoke, frontend, {"parent": fe["change"], "change": fe["change"]},
+                                    fn, "logmel_kernel", None, forced)
+                errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+                if testing.prefix_failures(errs):
+                    raise SystemExit(f"{name} {over} at {C} blocks a cluster: {errs}")
+                report(f"  forced to ('cluster', {C}) (change) against {layout} (parent)", ms, outs)
         del audio, lengths, outs
     for name, over, n_rows in TAIL_TURNS:
         cfg = named_config(name).replace(**over)

@@ -24,6 +24,16 @@ SASS and of the bf16x3 one's (cuobjdump, static counts), beside the card's
 name and power limit. The differences P1, P2 - P1 and P0 - P2 are staging,
 DFT and split, and the projection with its epilogue. Imports nothing of
 JAX.
+
+With --large it times phase 29's two cases whose plans the cluster plan
+redesigned (`LARGE`: librosa's 16,384-point framing at 44.1 kHz, b64 x 30
+s, and classic13_deltas at n_fft 32,768, b16 x 10 s) in the plan the
+checkout's layout mirror takes: there P1 cuts after each frame's staging
+(the gather plans' frame written into a row from device memory, step 2g;
+the cluster plan's loads of its ranks' samples) and P2 after the powers
+(the cluster plan: every rank's stored). An older checkout at DIR (its
+source compiled whole) gives the parent's breakdown. The cuts build with
+this checkout's kernels/_build.py (in parts where the source has them).
 """
 
 from __future__ import annotations
@@ -36,12 +46,14 @@ import re
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 
 STAGED = "  __syncthreads();\n\n  const int warp = threadIdx.x >> 5;"
 CUT_STAGED = """  __syncthreads();
 #if CUT == 1
+  if (!(kBlock && p.gather)) {  // the gather plans stage each frame in its loop (GATHER_STAGED)
   if constexpr (kBf16) {  // the ring's first copies land before the block leaves
     if (dft && threadIdx.x == kProducer) {
       for (int c = 0; c < imin(p.stages, p.npass * (p.kp / kBfStep)); ++c) mbar_wait(full + c, 0);
@@ -52,6 +64,7 @@ CUT_STAGED = """  __syncthreads();
     if (ln <= M) out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + ln] = sig[fl * S + ln];
   }
   return;
+  }
 #endif
 
   const int warp = threadIdx.x >> 5;"""
@@ -64,7 +77,49 @@ CUT_PROJECTION = """#if CUT == 2
 #else
 {call}
 #endif"""
+# the gather plans' staging of a frame (step 2g), and the cluster plan's:
+# P1 cuts after it (a few samples written, the frame's loop going on)
+GATHER_STAGED = """              team.sync();
+              fr = g;
+            }"""
+CUT_GATHER_STAGED = """              team.sync();
+              fr = g;
+#if CUT == 1
+              if (rank <= M) out[(static_cast<size_t>(b) * F + f) * (M + 1) + rank] = g[rank];
+              team.sync();
+              continue;
+#endif
+            }"""
+CLUSTER_STAGED = """      float* pw;
+      if (p.form == kBluestein) {"""
+CUT_CLUSTER_STAGED = """#if CUT == 1
+      {
+        float acc = 0.f;
+        for (int n = tid; n < n2; n += kThreads) {
+          const int a = 2 * (C * n + rank);
+          acc += (a < Lk ? sample(a) : 0.f) + (a + 1 < Lk ? sample(a + 1) : 0.f);
+        }
+        part[tid] = acc;
+        if (rank == 0 && tid <= M) out[(static_cast<size_t>(b) * F + f) * (M + 1) + tid] = acc;
+        cl.sync();
+        continue;
+      }
+#endif
+""" + CLUSTER_STAGED
+# the cluster plan's powers, every rank's stored: P2 cuts there
+CLUSTER_POWERS = """    float* o = out + (static_cast<size_t>(b) * F + f) * (M + 1);
+    const float* pw = reinterpret_cast<const float*>(rank_row(pwi));"""
+CUT_CLUSTER_POWERS = CLUSTER_POWERS + """
+#if CUT == 2
+    if (tid <= M && tid < bhi - blo) o[tid] = pw[tid];
+    cl.sync();
+    continue;
+#endif"""
 OCCUPANCY = """
+#if !defined(FRONTEND_PART) || FRONTEND_PART == 1
+#ifdef FRONTEND_PART
+using namespace mfcc_frontend;
+#endif
 extern "C" int frontend_breakdown_blocks(int smem) {
   auto k = logmel_kernel<int16_t, false, false, false, false>;
   int n = -1;
@@ -72,6 +127,7 @@ extern "C" int frontend_breakdown_blocks(int smem) {
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k, 256, smem) != cudaSuccess) return -1;
   return n;
 }
+#endif
 """
 PATHS = (("classic13_deltas", 64, 10, "radix4", {}), ("logmel80", 256, 10, "radix4", {}),
          ("whisper80", 64, 30, "radix4", {}), ("mfcc39_48k", 64, 10, "radix4", {}),
@@ -83,24 +139,50 @@ BF16X3 = r"logmel_kernelIsLb0ELb0ELb0ELb1E(?:Lb0E)?EE"
 
 
 def variants(src: str) -> dict[int, str]:
-    """The source with both cut points, once per CUT value."""
+    """The source with both cut points, once per CUT value: after the tile's
+    staging and before the projection in the warp and block plans, after
+    each frame's staging in the gather plans, and (where the source has it)
+    after the cluster plan's frame loads and its powers."""
     assert src.count(STAGED) == 1, "staging anchor not found"
     src, n = PROJECTION.subn(lambda m: CUT_PROJECTION.format(call=m.group(0)), src)
     assert n >= 1, "projection anchor not found"
-    src = src.replace(STAGED, CUT_STAGED) + OCCUPANCY
-    return {cut: f"#define CUT {cut}\n" + src for cut in (0, 1, 2)}
+    assert src.count(GATHER_STAGED) == 1, "the gather plans' staging anchor not found"
+    src = src.replace(STAGED, CUT_STAGED).replace(GATHER_STAGED, CUT_GATHER_STAGED)
+    if "logmel_kernel_cluster" in src:
+        assert src.count(CLUSTER_STAGED) == 1 and src.count(CLUSTER_POWERS) == 1, "cluster anchors not found"
+        src = src.replace(CLUSTER_STAGED, CUT_CLUSTER_STAGED).replace(CLUSTER_POWERS, CUT_CLUSTER_POWERS)
+    return {cut: f"#define CUT {cut}\n" + src + OCCUPANCY for cut in (0, 1, 2)}
 
 
-def build(nvcc: str, flags, csrc: pathlib.Path, out: pathlib.Path, cut: int, text: str):
+def build(csrc: pathlib.Path, out: pathlib.Path, cut: int, text: str):
+    """One cut's library, in the parts its source has (kernels/_build.py
+    PARTS; an older checkout's source compiles whole); (path, registers of
+    the int16 plain instantiation)."""
+    _build = own_build()
     cu = out.with_suffix(".cu")
     cu.write_text(text)
-    res = subprocess.run([nvcc, *flags, "-I", str(csrc), "-o", str(out), str(cu)],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise SystemExit(f"nvcc failed on cut {cut}:\n{res.stdout}{res.stderr}")
-    log = res.stdout + res.stderr
+    parts = _build.PARTS["frontend"] if "FRONTEND_PARTS(" in text else 0
+    try:
+        log = _build.compile_source(cu, out, parts, csrc, name="frontend")
+    except RuntimeError as e:
+        raise SystemExit(f"nvcc failed on cut {cut}:\n{e}")
     regs = re.search(PLAIN + r".*?Used (\d+) registers", log, re.S)
     return out, int(regs.group(1)) if regs else -1
+
+
+def own_build():
+    """This checkout's kernels/_build.py (its parts and its nvcc), whatever
+    checkout --root names."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "mfcc_tpu_torch" / "kernels" / "_build.py"
+    mod = sys.modules.get("mfcc_tpu_torch.kernels._build")
+    if mod is not None and pathlib.Path(mod.__file__).resolve() == path:
+        return mod  # the one already imported: one cap on the nvcc processes of a run
+    spec = importlib.util.spec_from_file_location("frontend_breakdown_build", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def sass_opcodes(so: pathlib.Path, nvcc: str, kernel: str = PLAIN) -> dict[str, int]:
@@ -171,9 +253,7 @@ def build_cuts(csrc: pathlib.Path, out: pathlib.Path) -> dict:
     texts = variants((csrc / "frontend.cu").read_text())
     out.mkdir(parents=True, exist_ok=True)
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        return dict(zip(texts, pool.map(
-            lambda c: build(_build.nvcc(), _build.NVCC_FLAGS, csrc, out / f"cut{c}.so", c, texts[c]),
-            texts)))
+        return dict(zip(texts, pool.map(lambda c: build(csrc, out / f"cut{c}.so", c, texts[c]), texts)))
 
 
 def bind_cuts(built: dict, whole) -> dict:
@@ -183,7 +263,9 @@ def bind_cuts(built: dict, whole) -> dict:
     for cut, (path, _) in built.items():
         lib = ctypes.CDLL(str(path))
         for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample",
-                     "mfcc_frontend_error_string"):
+                     "mfcc_frontend_error_string", "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info"):
+            if getattr(whole, name, None) is None:
+                continue  # an older checkout's entry that it has not
             getattr(lib, name).argtypes = getattr(whole, name).argtypes
             getattr(lib, name).restype = getattr(whole, name).restype
         lib.frontend_breakdown_blocks.argtypes = [ctypes.c_int]
@@ -210,10 +292,22 @@ def time_cuts(torch, frontend, libs, cfg, audio, lengths, dft_passes: str = "rad
     return ms
 
 
+# --large: phase 29's cases (chip_smoke.py ANY_NFFT) whose plans the cluster
+# plan redesigned: librosa's melspectrogram(sr=44100, n_fft=16384,
+# hop_length=4096, n_mels=128) at b64 x 30 s ("gather_bands" before it) and
+# classic13_deltas at n_fft 32,768, b16 x 10 s ("gather_rows" before it)
+LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, hop_s=4096 / 44100, n_mels=128,
+                     mel_variant="librosa_hz", mel_scale="slaney", mel_norm="slaney", mel_low_hz=0.0,
+                     mel_high_hz=22050.0)
+LARGE = (("logmel80", 64, 30, "radix4", LIBROSA_16384), ("classic13_deltas", 16, 10, "radix4", {"n_fft": 32768}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
-    root = pathlib.Path(ap.parse_args().root).resolve()
+    ap.add_argument("--large", action="store_true", help="phase 29's two cases (LARGE) alone")
+    args = ap.parse_args()
+    root = pathlib.Path(args.root).resolve()
     import torch
 
     if not torch.cuda.is_available():
@@ -228,14 +322,22 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     csrc = root / "mfcc_tpu_torch" / "kernels" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
         built = build_cuts(csrc, pathlib.Path(tmp))
+        print(f"{root}: built the three cuts in {time.perf_counter() - t0:.1f} s")
+        # the checkout's wrapper bound to cut 0 (the whole kernel), not to a
+        # build of its own
+        load = _build.load
+        _build.load = lambda name: ctypes.CDLL(str(built[0][0])) if name == "frontend" else load(name)
+        frontend._lib.cache_clear()
         libs = bind_cuts(built, frontend._lib())
         print(f"{root}: registers (int16 plain instantiation) P0 {built[0][1]}, P1 {built[1][1]}, "
               f"P2 {built[2][1]} [{card}]")
-        print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
-        print(f"  SASS of P0's int16 bf16x3 instantiation: "
-              f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
-        for name, B, secs, passes, over in PATHS:
+        if not args.large:
+            print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
+            print(f"  SASS of P0's int16 bf16x3 instantiation: "
+                  f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
+        for name, B, secs, passes, over in LARGE if args.large else PATHS:
             cfg = named_config(name).replace(**over)
             n = (cfg.input_sample_rate or cfg.sample_rate) * secs
             step = 1713 if cfg.input_sample_rate else 571  # chip_smoke.py's rows
@@ -252,17 +354,19 @@ def main() -> int:
             smem = frontend.smem_bytes(cfg, passes)
             ms = time_cuts(torch, frontend, libs, cfg, audio, lengths, passes)
             p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
+            layout = frontend.fft_layout(cfg) if passes != "bf16x3" else ("bf16x3", 0)
             # not the plain instantiation
-            own = passes == "bf16x3" or cfg.input_sample_rate or cfg.dither > 0.0
-            blocks = (frontend.kernel_info(cfg, True, passes)["blocks_per_sm"] if own
-                      else libs[0].frontend_breakdown_blocks(smem))
+            own = passes == "bf16x3" or cfg.input_sample_rate or cfg.dither > 0.0 or layout[0] != "warp"
+            info = frontend.kernel_info(cfg, True, passes) if own else None
+            blocks = info["blocks_per_sm"] if own else libs[0].frontend_breakdown_blocks(smem)
             dft = "tensor-core product" if passes == "bf16x3" else "DFT and split"
             stage = ("staging with the FIR" if cfg.input_sample_rate
                      else "staging with the dither" if cfg.dither > 0.0 else "staging")
-            print(f"  {name}{''.join(f' {k} {v}' for k, v in over.items())} {passes} b{B} x {secs} s: P1 {stage} {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
+            print(f"  {name}{''.join(f' {k} {v}' for k, v in over.items())} {passes} b{B} x {secs} s, {layout}: "
+                  f"P1 {stage} {p1:.4f} ms, P2 +{dft} {p2:.4f}, "
                   f"P0 whole {p0:.4f} (runs {ms[0][0]:.4f}, {ms[0][1]:.4f}); {stage} {p1:.4f}, "
                   f"{dft} {p2 - p1:.4f}, projection {p0 - p2:.4f}; {smem} B a block, "
-                  f"{blocks} blocks an SM [{card}]")
+                  f"{blocks} blocks an SM{f', {info}' if info and layout[0] != 'warp' else ''} [{card}]")
             del audio, lengths
     return 0
 

@@ -10,6 +10,10 @@ devices, while the JAX package computes every size. Two plans follow it:
 25,600, Bluestein to P = 12,800), and "gather_rows", the last, keeps each
 group's two rows in a workspace in device memory, so its layout does not
 depend on n_fft; the packed table's words hold the bin in all 31 bits.
+The cluster plan, tried before them at large FFTs, now takes most of these
+sizes at CLUSTER_MIN_POINTS[form] points or more (Stockham from n_fft
+16,384, Bluestein from P = 16,384; tests/test_torch_cluster.py); the two stay
+the ladder's rungs after it (`fft_layout(cfg, cluster=False)`: the plan a launch takes without it).
 Here, on the CPU:
 - the port's CPU chain (the kernels' plain versions) ≡ the JAX jnp chain on
   the same seeded int16 rows, masks equal, at classic13_deltas n_fft 7,001,
@@ -56,6 +60,16 @@ CASES = {
 PARENT_LAYOUTS = frontend.FFT_LAYOUTS[:13]
 
 
+def _ladder_plan(cfg):
+    """The cluster plan at FFTs of CLUSTER_MIN_POINTS[form] points or more
+    (n_fft 16,384, 32,768 and Bluestein 13,001 here), else the parent's
+    plan."""
+    form = frontend.dft_form(cfg)
+    if frontend.fft_points(cfg.n_fft, form) >= frontend.CLUSTER_MIN_POINTS[form]:
+        return "cluster"
+    return frontend.fft_layout(cfg, cluster=False)[0]
+
+
 def _rows(n_fft: int, seed: int):
     """Two int16 rows of 1.0 and 0.55 s at 16 kHz (zero past each length),
     and their lengths."""
@@ -75,7 +89,8 @@ def test_chain_matches_jax_jnp(case):
     name, n_fft, gate = CASES[case]
     tcfg, jcfg = T_CONFIGS[name].replace(n_fft=n_fft), J_CONFIGS[name].replace(n_fft=n_fft)
     assert tchain.unsupported_reason(tcfg) is None
-    assert frontend.fft_plan(tcfg) in ("gather_bands", "gather_rows")
+    assert frontend.fft_layout(tcfg, cluster=False)[0] in ("gather_bands", "gather_rows")
+    assert frontend.fft_plan(tcfg) == _ladder_plan(tcfg)
     x, lens = _rows(n_fft, seed=len(case))
     feat, mask = tchain.extract_batch(x, lens, tcfg, device="cpu")
     jfeat, jmask = jchain.extract_batch(jnp.asarray(x.astype(np.float32)), jnp.asarray(lens), jcfg,
@@ -92,7 +107,8 @@ def test_no_stockham_or_bluestein_layout_is_refused():
     powers of two, odd and even sizes between them, the Bluestein and
     Stockham sizes around the old tops) for every named family at its
     feature rate (a spectrogram with a lane a bin), in the Stockham or the
-    Bluestein form; the last plan ("gather_rows") takes the largest."""
+    Bluestein form; the cluster plan at 8 blocks a frame takes the largest,
+    and without it the last plan ("gather_rows")."""
     grid = sorted({*(1 << k for k in range(4, 18, 2)), 17, 30, 551, 1102, 2501, 6205, 7001, 12502,
                    13001, 14400, 25600, 25602, 40001, 65535, 131072})
     for name in sorted(T_CONFIGS):
@@ -106,7 +122,8 @@ def test_no_stockham_or_bluestein_layout_is_refused():
             assert frontend.layout_reason(cfg) is None, (name, n_fft)
             assert tchain.unsupported_reason(cfg) is None, (name, n_fft)
             if n_fft == 131072:
-                assert frontend.fft_plan(cfg) == "gather_rows", name
+                assert frontend.fft_layout(cfg) == ("cluster", 8), name
+                assert frontend.fft_layout(cfg, cluster=False)[0] == "gather_rows", name
 
 
 def _parent_layout(cfg):
@@ -123,10 +140,12 @@ def test_every_config_that_fits_today_keeps_its_plan():
     """The two new plans come after the parent's, so every config the
     parent's plans fit keeps its plan (and the kernel's bits): the named
     families at n_fft from 256 to 12,500, hops of 10 ms to 1 s and frames of
-    25 ms to 3 s; the others take "gather_bands" or "gather_rows"."""
+    25 ms to 3 s; the others take "gather_bands" or "gather_rows" without the
+    cluster plan, which is tried before them (at 2, 4 and 8 blocks a frame)."""
     assert PARENT_LAYOUTS[-1] == ("gather_global", 1)
-    assert [p for p, _ in frontend.FFT_LAYOUTS[13:]] == (
-        ["gather_bands"] * 3 + ["gather_rows"] * 3 + ["gather_sums"] * 3)
+    assert frontend.FFT_LAYOUTS[13:] == (
+        tuple(("cluster", C) for C in frontend.CLUSTER_SIZES)
+        + tuple((p, g) for p in ("gather_bands", "gather_rows", "gather_sums") for g in (4, 2, 1)))
     kept = moved = 0
     for name in sorted(T_CONFIGS):
         base = frontend.feature_rate_config(T_CONFIGS[name])
@@ -139,7 +158,8 @@ def test_every_config_that_fits_today_keeps_its_plan():
                     assert frontend.fft_layout(cfg) == parent, (name, n_fft, hop, win)
                     kept += 1
                 else:
-                    assert frontend.fft_plan(cfg) in ("gather_bands", "gather_rows"), (name, n_fft)
+                    assert frontend.fft_plan(cfg) in ("cluster", "gather_bands", "gather_rows"), (name, n_fft)
+                    assert frontend.fft_layout(cfg, cluster=False)[0] in ("gather_bands", "gather_rows")
                     moved += 1
     assert kept > 300 and moved > 30
 
@@ -149,7 +169,8 @@ def test_gather_rows_layout_is_constant_in_n_fft():
     groups thread partials and M sums a weight table) and the 8 warps'
     partials: 1,504 B at classic13 whatever n_fft, hop or frame, four frames
     a block at once; its workspace slot holds the groups' two rows
-    (`row_floats`) and grows with n_fft instead."""
+    (`row_floats`) and grows with n_fft instead. (The cluster plan, tried
+    before it, takes these sizes by default.)"""
     c = T_CONFIGS["classic13"]
     sizes = {frontend._fft_smem(c.replace(n_fft=n, hop_s=hop), frontend.dft_form(c.replace(n_fft=n)),
                                 "gather_rows", True, 4)
@@ -157,7 +178,10 @@ def test_gather_rows_layout_is_constant_in_n_fft():
     assert sizes == {4 * (4 * ((frontend.THREADS // 4 + c.n_mels + 3) & ~3) + frontend.WARPS)} == {1504}
     for n in (25602, 32768, 65536, 131072):
         cfg = c.replace(n_fft=n)
-        assert (*frontend.fft_layout(cfg), frontend.smem_bytes(cfg)) == ("gather_rows", 4, 1504), n
+        form = frontend.dft_form(cfg)
+        layout = frontend.fft_layout(cfg, cluster=False)
+        assert (*layout, frontend._fft_smem(cfg, form, layout[0], True, layout[1])) == ("gather_rows", 4, 1504), n
+        assert frontend.fft_plan(cfg) == "cluster", n
         slots, floats = frontend.rows_workspace(cfg, frontend.dft_form(cfg), blocks=10, resident=264)
         assert (slots, floats) == (10, 10 * 4 * 2 * frontend.row_floats(n, frontend.dft_form(cfg)))
     assert frontend.rows_workspace(c.replace(n_fft=65536), "stockham", 10**6, 264)[0] == 264
@@ -168,31 +192,43 @@ def test_tops_of_gather_bands():
     Stockham sizes to n_fft 25,600 (h = 12,800: 231,600 B at classic13) and
     Bluestein sizes to P = 12,800 (7,001: 222,384 B; 12,502: 231,600 B);
     the next size of each takes "gather_rows". The sizes the gather plan's
-    layout refused take the first plan that fits."""
+    layout refused take the first plan that fits: without the cluster plan
+    these; with it, the cluster plan wherever its size rule and a cluster
+    size fit: 16,384 and 25,600 (Stockham, 8,192 points or more), 13,001
+    (Bluestein P = 20,480), 25,602 (P = 32,768) and 32,768."""
     c = T_CONFIGS["classic13"]
     want = {6205: ("gather_bands", 185520), 7001: ("gather_bands", 222384),
             12502: ("gather_bands", 231600), 14400: ("gather_bands", 130800),
             16384: ("gather_bands", 148656), 25600: ("gather_bands", 231600),
             13001: ("gather_rows", 1504), 25602: ("gather_rows", 1504), 32768: ("gather_rows", 1504)}
+
+    def parent(cfg):  # the ladder without the cluster plan: (plan, bytes)
+        layout = frontend.fft_layout(cfg, cluster=False)
+        return layout[0], frontend._fft_smem(cfg, frontend.dft_form(cfg), layout[0], True, layout[1])
+
     for n, (plan, nbytes) in want.items():
         cfg = c.replace(n_fft=n)
-        assert (frontend.fft_plan(cfg), frontend.smem_bytes(cfg)) == (plan, nbytes), n
+        assert parent(cfg) == (plan, nbytes), n
+        form = frontend.dft_form(cfg)
+        taken = frontend.fft_points(n, form) >= frontend.CLUSTER_MIN_POINTS[form]
+        assert frontend.fft_plan(cfg) == ("cluster" if taken else plan), n
+        assert taken == (n in (13001, 16384, 25600, 25602, 32768)), n
     assert frontend.bluestein_dims(12502)[2] == 12800 and frontend.bluestein_dims(13001)[2] > 12800
     stockham = [n for n in range(20000, 40001, 2) if frontend.radices(n) is not None]
-    in_bands = [n for n in stockham if frontend.fft_plan(c.replace(n_fft=n)) == "gather_bands"]
+    in_bands = [n for n in stockham if parent(c.replace(n_fft=n))[0] == "gather_bands"]
     assert max(in_bands) == 25600
-    assert all(frontend.fft_plan(c.replace(n_fft=n)) == "gather_rows" for n in stockham if n > 25600)
+    assert all(parent(c.replace(n_fft=n))[0] == "gather_rows" for n in stockham if n > 25600)
     blue = [n for n in range(6205, 14001, 37) if frontend.dft_form(c.replace(n_fft=n)) == "bluestein"
-            and frontend.fft_plan(c.replace(n_fft=n)) in ("gather_bands", "gather_rows")]
+            and parent(c.replace(n_fft=n))[0] in ("gather_bands", "gather_rows")]
     for n in blue:
         P = frontend.bluestein_dims(n)[2]
-        assert frontend.fft_plan(c.replace(n_fft=n)) == ("gather_bands" if P <= 12800 else "gather_rows"), n
+        assert parent(c.replace(n_fft=n))[0] == ("gather_bands" if P <= 12800 else "gather_rows"), n
     sizes = {frontend.bluestein_dims(n)[2] for n in blue}
     assert {10240, 12800} <= sizes and max(sizes) > 12800
     # the bands' bytes in device memory are what the gather plan staged beside the rows
     n16 = c.replace(n_fft=16384)
     assert (frontend._fft_smem(n16, "stockham", "gather_global", True, 1)
-            - frontend.smem_bytes(n16)) == 4 * frontend._bands(n16)
+            - frontend._fft_smem(n16, "stockham", "gather_bands", True, 1)) == 4 * frontend._bands(n16)
 
 
 def test_bf16x3_is_refused_where_it_was():
@@ -251,7 +287,8 @@ def test_stream_and_block_launch_match_the_offline_chain(n_fft):
     the cepstra gate, frame counts equal; one block launch's prefix ≡ the
     offline prefix on its valid frames."""
     cfg = T_CONFIGS["classic13_deltas"].replace(n_fft=n_fft)
-    assert frontend.fft_plan(cfg) in ("gather_bands", "gather_rows")
+    assert frontend.fft_layout(cfg, cluster=False)[0] in ("gather_bands", "gather_rows")
+    assert frontend.fft_plan(cfg) == _ladder_plan(cfg) == "cluster"
     g = np.random.default_rng(n_fft)
     x = np.round(g.standard_normal(16000 + 777) * 3000).astype(np.float32)
     ex = StreamingExtractor(cfg, frames_per_block=16, device="cpu")

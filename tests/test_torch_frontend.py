@@ -346,8 +346,8 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
         earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
         assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
     assert forms == {"stockham", "bluestein"}
-    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "gather_bands", "gather_rows",
-                                                                   "gather_sums"}
+    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "cluster", "gather_bands",
+                                                                   "gather_rows", "gather_sums"}
     over = T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1)
     assert frontend.layout_reason(over) is None and frontend.fft_plan(over) == "gather_bands"
 

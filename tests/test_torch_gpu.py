@@ -1150,7 +1150,9 @@ def test_gather_plan_matches_reference(name, overrides):
     assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
 
 
-# n_fft past the gather plan's layouts: (config, overrides, plan)
+# n_fft past the gather plan's layouts: (config, overrides, the plan without
+# the cluster plan, which the ladder takes at CLUSTER_MIN_POINTS[form]
+# points or more)
 ANY_NFFT_CASES = [
     ("classic13", {"n_fft": 7001}, "gather_bands"),
     ("classic13_deltas", {"n_fft": 16384}, "gather_bands"),
@@ -1177,42 +1179,73 @@ def _nan_workspace(monkeypatch):
                         lambda n, device: torch.full((n,), float("nan"), device=device))
 
 
+def _without_cluster(monkeypatch):
+    """The layout mirror without the cluster plan: the parent's plans."""
+    own = frontend.fft_layout
+    monkeypatch.setattr(frontend, "fft_layout",
+                        lambda cfg, form=None, int16=True, cluster=True: own(cfg, form, int16, False))
+
+
 @pytest.mark.parametrize("name,overrides,plan", ANY_NFFT_CASES, ids=ANY_NFFT_IDS)
 def test_any_n_fft_matches_reference(name, overrides, plan, monkeypatch):
-    """The plans past the gather plan's layouts: "gather_bands" (the packed
-    mel bands read from device memory) and "gather_rows" (the FFT rows in a
-    workspace in device memory, the bin field past 16 bits at 131,072)
-    against the float64 plain version on the CPU at the prefix gates,
-    int16 ≡ float32, two runs, a NaN-filled workspace and a persistent grid
-    of 3 blocks (each looping over many tiles through its own slot) bitwise,
-    n_valid and the mask bitwise the chain's, counted by plan."""
+    """The plans past the gather plan's layouts, each case in both: the
+    cluster plan (each frame's FFT rows over a thread-block cluster's
+    shared memory; the ladder's at CLUSTER_MIN_POINTS[form] points or more,
+    else forced at the smallest cluster that fits), and forced without it
+    "gather_bands"
+    (the packed mel bands read from device memory) and "gather_rows" (the
+    FFT rows in a workspace in device memory, the bin field past 16 bits at
+    131,072): each against the float64 plain version on the CPU at the
+    prefix gates, int16 ≡ float32, two runs, a persistent grid of 3
+    clusters, and for the parent's plans a NaN-filled workspace and a
+    persistent grid of 3 blocks (each looping over many tiles through its
+    own slot), bitwise, n_valid and the mask bitwise the chain's in both,
+    counted by plan."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
-    assert frontend.fft_plan(cfg) == plan and chain.unsupported_reason(cfg) is None
+    form = frontend.dft_form(cfg)
+    assert frontend.fft_layout(cfg, cluster=False)[0] == plan
+    big = frontend.fft_points(cfg.n_fft, form) >= frontend.CLUSTER_MIN_POINTS[form]
+    assert frontend.fft_plan(cfg) == ("cluster" if big else plan)
+    C = next(c for c in frontend.CLUSTER_SIZES
+             if frontend.cluster_smem(cfg, form, c) <= rs_kernel.SMEM_BUDGET_BYTES)
+    monkeypatch.setattr(frontend, "fft_layout", lambda *a, **k: ("cluster", C))
+    assert chain.unsupported_reason(cfg) is None
     g = np.random.default_rng(cfg.n_fft + cfg.n_mels)
     n = max(cfg.sample_rate * 2, 2 * cfg.frame_length)
     lens = [n, n - 12345, 3 * cfg.frame_length // 2, 1]
     b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in lens], cfg, bucket_len=n, dtype="int16")
     audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    narrow = None
+    if cfg.logmel_norm == "whisper":  # its narrow filters take the per-bin gate
+        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+    frontend.cluster_launches = frontend.gather_launches = 0
+    got, nv, mask = frontend.logmel_prefix_counts(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert (frontend.cluster_launches, frontend.gather_launches) == (1, 1)
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    monkeypatch.setattr(frontend, "_active_clusters", lambda *args: 3)
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+    wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
+    assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
+    monkeypatch.undo()
+    _without_cluster(monkeypatch)
     frontend.gather_bands_launches = frontend.gather_rows_launches = frontend.gather_launches = 0
     got, nv, mask = frontend.logmel_prefix_counts(audio, lengths, cfg)
     torch.cuda.synchronize()
     assert frontend.gather_launches == 1
     assert (frontend.gather_bands_launches, frontend.gather_rows_launches) == (
         int(plan == "gather_bands"), int(plan == "gather_rows"))
-    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
-    narrow = None
-    if cfg.logmel_norm == "whisper":  # its narrow filters take the per-bin gate
-        narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
     assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, cfg.features, narrow)
+    assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
     assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
-    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
     _nan_workspace(monkeypatch)
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
     monkeypatch.setattr(frontend, "_resident_blocks", lambda *args: 3)
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
-    wnv, wmask = frontend.frame_counts_reference(lengths, cfg, got.shape[1])
-    assert torch.equal(nv, wnv) and torch.equal(mask, wmask)
 
 
 # tens of thousands of filters: (config, overrides, plan of the default route)
@@ -1281,25 +1314,62 @@ def test_many_filters_match_reference(name, overrides, plan, monkeypatch):
     assert torch.equal(_bits(got), _bits(frontend.logmel_prefix(audio, lengths, cfg)))
 
 
+@pytest.mark.parametrize("C", [2, 4, 8])
+@pytest.mark.parametrize("name,overrides", [("classic13_deltas", {"n_fft": 16384}),
+                                            ("kaldi_mfcc", {"dither": 1.0, "n_fft": 12502})],
+                         ids=["stockham_16384", "bluestein_kaldi_dither_12502"])
+def test_cluster_sizes_match_reference(name, overrides, C, monkeypatch):
+    """The cluster plan forced at 2, 4 and 8 blocks a frame (the Stockham
+    form, and the Bluestein form with dither and conditioning) against the
+    float64 plain version at the prefix gates, int16 ≡ float32 and two runs
+    bitwise, counted; no local memory."""
+    dev = _card()
+    cfg = NAMED_CONFIGS[name].replace(**overrides)
+    monkeypatch.setattr(frontend, "fft_layout", lambda *a, **k: ("cluster", C))
+    info = frontend.kernel_info(cfg)
+    assert info["local_bytes"] == 0 and info["clusters"] >= 1, info
+    g = np.random.default_rng(C)
+    n = 2 * cfg.sample_rate
+    b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in (n, n - 777, 500)], cfg, bucket_len=n,
+                  dtype="int16")
+    audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
+    frontend.cluster_launches = 0
+    got = frontend.logmel_prefix(audio, lengths, cfg)
+    torch.cuda.synchronize()
+    assert frontend.cluster_launches == 1
+    want = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    assert_prefix_close(got, want, cfg.n_mels, cfg.log_kind, cfg.features)
+    assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg))
+    assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
+
+
 @pytest.mark.parametrize("n_fft,plan", [(16384, "gather_bands"), (32768, "gather_rows")])
 def test_any_n_fft_block_launch_matches_offline(n_fft, plan, monkeypatch):
-    """The block launch (streaming's, row origin 1) in the new plans, on a
-    NaN-filled workspace, ≡ the offline prefix on its valid frames, bitwise."""
+    """The block launch (streaming's, row origin 1) in the cluster plan (the
+    ladder's at both sizes), and without it in the parent's
+    plan on a NaN-filled workspace, ≡ the offline prefix of the same plan
+    on its valid frames, bitwise."""
     dev = _card()
     cfg = NAMED_CONFIGS["classic13_deltas"].replace(n_fft=n_fft)
-    assert frontend.fft_plan(cfg) == plan
+    assert frontend.fft_layout(cfg, cluster=False)[0] == plan
+    assert frontend.fft_plan(cfg) == "cluster"
+    monkeypatch.setattr(frontend, "fft_layout", lambda *a, **k: ("cluster", 2))
     g = np.random.default_rng(n_fft)
     audio = torch.as_tensor(np.round(g.standard_normal((1, 48000)) * 3000).astype(np.int16), device=dev)
     lengths = torch.tensor([47000], dtype=torch.int32, device=dev)
-    offline = frontend.logmel_prefix(audio, lengths, cfg)
     K, S, L, f0 = 16, cfg.frame_step, cfg.frame_length, 7
     span = (K - 1) * S + L
     rows = audio[:, f0 * S - 1 : f0 * S + span].float().contiguous()
     valid = torch.tensor([span], dtype=torch.int32, device=dev)
-    _nan_workspace(monkeypatch)
-    blk = frontend.logmel_block(rows, valid, cfg)
-    torch.cuda.synchronize()
-    assert torch.equal(blk, offline[:, f0 : f0 + K])
+    for parent in (False, True):
+        if parent:
+            monkeypatch.undo()
+            _without_cluster(monkeypatch)
+            _nan_workspace(monkeypatch)
+        offline = frontend.logmel_prefix(audio, lengths, cfg)
+        blk = frontend.logmel_block(rows, valid, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(blk, offline[:, f0 : f0 + K]), parent
 
 
 def test_extract_batch_keeps_the_callers_tf32_flag():

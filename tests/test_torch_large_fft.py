@@ -147,11 +147,13 @@ def test_what_is_still_refused(over, plan):
     the gather plan, and the tail at 170 cepstra and delta window 8 its
     split plan. n_fft 7,001 (the Bluestein rows of P = 12,288) and 16,384
     with frames longer than n_fft (its packed mel bands), refused before,
-    take the plan that reads the bands from device memory, and their CPU
+    take the plan that reads the bands from device memory (16,384, an FFT
+    of 8,192 points, takes the cluster plan before it), and their CPU
     chain ≡ the JAX jnp chain at the cepstra gate: nothing is refused."""
     cfg = T_CONFIGS["classic13_deltas"].replace(**over)
     assert tchain.unsupported_reason(cfg) is None
-    assert frontend.fft_plan(cfg) == plan
+    assert frontend.fft_layout(cfg, cluster=False)[0] == plan
+    assert frontend.fft_plan(cfg) == ("cluster" if cfg.n_fft == 16384 else plan)
     if plan == "gather_bands":
         jcfg = J_CONFIGS["classic13_deltas"].replace(**over)
         x, lens = _rows(jcfg, seed=cfg.n_fft)
@@ -185,4 +187,4 @@ def test_block_plan_sweep_applies_to_the_kernel_source():
     # the starts at the two new plans force them
     assert {start: sweep.taken(frontend, c, start)[:2] for start in sweep.STARTS[6:]} == {
         (4, 1): ("gather_bands", 1), (5, 4): ("gather_rows", 4)}
-    assert [frontend.FFT_PLANS[1 + start[0]] for _, start in sweep.FORCED] == [p for p, _ in sweep.FORCED]
+    assert [frontend.BLOCK_LADDER[start[0]] for _, start in sweep.FORCED] == [p for p, _ in sweep.FORCED]

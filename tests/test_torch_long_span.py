@@ -252,7 +252,7 @@ def test_every_config_that_fits_today_keeps_its_plan():
         ("warp", 8), ("block", 4), ("block", 2), ("block", 1),
         ("block_global", 4), ("block_global", 2), ("block_global", 1))
     assert [p for p, _ in frontend.FFT_LAYOUTS[7:]] == (
-        ["gather"] * 3 + ["gather_global"] * 3 + ["gather_bands"] * 3 + ["gather_rows"] * 3
+        ["gather"] * 3 + ["gather_global"] * 3 + ["cluster"] * 3 + ["gather_bands"] * 3 + ["gather_rows"] * 3
         + ["gather_sums"] * 3)
     kept = moved = 0
     for name in sorted(T_CONFIGS):
@@ -267,7 +267,9 @@ def test_every_config_that_fits_today_keeps_its_plan():
                         assert frontend.fft_layout(cfg) == parent, (name, n_fft, hop, win)
                         kept += 1
                     else:
-                        assert frontend.fft_plan(cfg).startswith("gather"), (name, n_fft, hop, win)
+                        plan = frontend.fft_layout(cfg, cluster=False)[0]
+                        assert plan.startswith("gather"), (name, n_fft, hop, win)
+                        assert frontend.fft_plan(cfg) in (plan, "cluster"), (name, n_fft, hop, win)
                         moved += 1
     assert kept > 1000 and moved > 0
 
@@ -309,12 +311,14 @@ def test_refusal_map_names_rows_and_bands(over, plan):
     mel bands were over the block in its last plan, whatever the hop and the
     frame: 6,205 and 7,001 (Bluestein, P = 10,240 and 12,288), 12,502 and
     16,384 (its bands). Each now takes "gather_bands", the bands read from
-    device memory, at any hop; what the parent took keeps its plan; nothing
-    is refused, and the formerly refused sizes' CPU chain ≡ the JAX jnp
-    chain at the cepstra gate (one row of 1.0 s)."""
+    device memory, at any hop (16,384, a Stockham FFT of 8,192 points, takes
+    the cluster plan before it); what the parent took keeps its plan;
+    nothing is refused, and the formerly refused sizes' CPU chain ≡ the JAX
+    jnp chain at the cepstra gate (one row of 1.0 s)."""
     cfg = T_CONFIGS["classic13_deltas"].replace(**over)
     assert tchain.unsupported_reason(cfg) is None
-    assert frontend.fft_plan(cfg) == plan
+    assert frontend.fft_layout(cfg, cluster=False)[0] == plan
+    assert frontend.fft_plan(cfg) == ("cluster" if cfg.n_fft == 16384 else plan)
     if plan == "gather_bands":
         jcfg = J_CONFIGS["classic13_deltas"].replace(**over)
         x, lens = _rows(jcfg, (1.0,), seed=cfg.n_fft)
@@ -331,14 +335,17 @@ def test_refusal_map_names_rows_and_bands(over, plan):
 def test_refusal_map_edges(name, over, top):
     """The top of each family's contiguous n_fft range in the parent's plans
     at any hop (a 10 ms hop and 0.5 s) keeps the parent's plan; the next size,
-    which the parent refused, takes a plan past it; at classic13 every
+    which the parent refused, takes a plan past it (the cluster plan, or
+    without it "gather_bands" or "gather_rows"); at classic13 every
     Stockham size to 13,824 keeps "gather_global" and 14,400, refused
     before, takes "gather_bands" (`PERF.md` §1, `ROADMAP.md` queue 2 item
     4). None is refused."""
     cfg = T_CONFIGS[name].replace(**over)
     for hop in (cfg.hop_s, 0.5):
         assert frontend.fft_layout(cfg.replace(n_fft=top, hop_s=hop)) in frontend.FFT_LAYOUTS[:13]
-        assert frontend.fft_plan(cfg.replace(n_fft=top + 1, hop_s=hop)) in ("gather_bands", "gather_rows")
+        nxt = cfg.replace(n_fft=top + 1, hop_s=hop)
+        assert frontend.fft_layout(nxt, cluster=False)[0] in ("gather_bands", "gather_rows")
+        assert frontend.fft_plan(nxt) in ("cluster", "gather_bands", "gather_rows")
         assert frontend.layout_reason(cfg.replace(n_fft=top + 1, hop_s=hop)) is None
     if name == "classic13":
         stockham = [n for n in range(top + 2, 14401, 2) if frontend.radices(n) is not None]

@@ -271,7 +271,8 @@ def test_projection_mirror_keeps_the_sums_order(case, lanes):
 def test_gather_sums_ends_the_ladder():
     """"gather_sums" is the last plan (`FFT_PLANS`, `PLAN_TRAITS`, and the
     kernel's kLadder parsed from csrc/frontend.cu, plan_block walking all
-    seven): tried after "gather_rows" at 4, 2 and 1 groups, so every layout
+    seven, every plan but the cluster plan, which a launch asks for by its
+    size): tried after "gather_rows" at 4, 2 and 1 groups, so every layout
     the parent's plans fit keeps its plan; it is first taken at 57,849
     filters (28,797 for SSC), where "gather_rows" at one group is over the
     block by the projection's sums; its layout, the thread partials and the
@@ -279,11 +280,12 @@ def test_gather_sums_ends_the_ladder():
     filter count; its workspace adds a slot of groups x M melf sums for SSC
     alone."""
     assert frontend.FFT_PLANS[-2:] == ("gather_rows", "gather_sums")
-    assert [p for p, _ in frontend.FFT_LAYOUTS[19:]] == ["gather_sums"] * 3
+    assert [p for p, _ in frontend.FFT_LAYOUTS[22:]] == ["gather_sums"] * 3
     src = CSRC.read_text()
     rows = re.search(r"constexpr int kLadder\[7\]\[5\] = \{(.*?)\};", src, re.S).group(1)
     ladder = [tuple(bool(int(v)) for v in r.split(",")) for r in re.findall(r"\{([01, ]+)\}", rows)]
-    assert ladder == [frontend.PLAN_TRAITS[p] for p in frontend.FFT_PLANS[1:]]
+    assert ladder == [frontend.PLAN_TRAITS[p] for p in frontend.BLOCK_LADDER]
+    assert frontend.BLOCK_LADDER == tuple(p for p in frontend.FFT_PLANS[1:] if p != "cluster")
     assert "for (int plan = 0; plan < 7; ++plan)" in src
     c, s = T_CONFIGS["classic13_deltas"], T_CONFIGS["ssc26"]
     edges = {(c, 57848): ("gather_rows", 1, BUDGET), (c, 57849): ("gather_sums", 4, 1056),
@@ -297,11 +299,13 @@ def test_gather_sums_ends_the_ladder():
             cfg = base.replace(n_mels=M)
             form = frontend.dft_form(cfg)
             assert {frontend._fft_smem(cfg, form, "gather_sums", True, g) for g in (4, 2, 1)} == {nbytes}
-    parent = frontend.FFT_LAYOUTS[:-3]
+    parent = [layout for layout in frontend.FFT_LAYOUTS[:-3] if layout[0] != "cluster"]
     for cfg in (c, s, c.replace(n_fft=32768), c.replace(n_mels=40000), s.replace(n_mels=20000, n_fft=4096)):
         form = frontend.dft_form(cfg)
         first = next((p, g) for p, g in parent if frontend._fft_smem(cfg, form, p, True, g) <= BUDGET)
-        assert frontend.fft_layout(cfg) == first, cfg
+        assert frontend.fft_layout(cfg, cluster=False) == first, cfg
+        # the cluster plan takes the FFT of 16,384 points ahead of "gather_rows"
+        assert frontend.fft_layout(cfg) == (("cluster", 2) if cfg.n_fft == 32768 else first), cfg
     big = s.replace(n_mels=30000, n_fft=4096)
     assert frontend.fft_layout(big) == ("gather_sums", 4)
     row = frontend.row_floats(4096, "stockham")

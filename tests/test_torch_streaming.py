@@ -254,8 +254,9 @@ def test_unsupported_config_raises_on_the_card(monkeypatch):
     NotImplementedError before any launch; 60,000 filters, refused before
     (over the packed mel table's filter field), are taken (the projection's
     sums in device memory); n_fft 16384 with 0.9 s frames, refused before,
-    is taken (the packed bands read from device memory), and its stream on
-    the CPU ≡ the offline chain."""
+    is taken (the cluster plan, each frame's FFT rows over a thread-block
+    cluster; without it the packed bands read from device memory), and its
+    stream on the CPU ≡ the offline chain."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     before = (frontend.launches, frontend.block_launches)
     with pytest.raises(NotImplementedError, match="float32, not float64"):
@@ -263,7 +264,8 @@ def test_unsupported_config_raises_on_the_card(monkeypatch):
     many = T_CONFIGS["classic13"].replace(n_mels=60000)
     assert chain.unsupported_reason(many) is None and frontend.fft_plan(many) == "gather_sums"
     cfg = T_CONFIGS["classic13"].replace(n_fft=16384, win_len_s=0.9)
-    assert chain.unsupported_reason(cfg) is None and frontend.fft_plan(cfg) == "gather_bands"
+    assert chain.unsupported_reason(cfg) is None and frontend.fft_plan(cfg) == "cluster"
+    assert frontend.fft_layout(cfg, cluster=False)[0] == "gather_bands"
     assert (frontend.launches, frontend.block_launches) == before
     x = np.round(np.random.default_rng(16384).standard_normal(40000) * 3000).astype(np.float32)
     ex = StreamingExtractor(cfg, frames_per_block=8, device="cpu")
