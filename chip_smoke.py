@@ -283,7 +283,9 @@ Phases, in order; any failure exits non-zero:
      `BF16X3_PLANS`): its block plans ("pass", "gather", "gather_bands",
      "gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
      classic13_deltas at n_fft 4096 b64 x 10 s and the other cases at b16
-     (b4 for the last two plans), each counted by plan, against its plain
+     (b4 for n_fft 24,000 and 32,768 and 2,000 filters), each printing its
+     plan, threads, registers, local memory and blocks an SM, counted by
+     plan, against its plain
      version at the bf16x3 gates and the float64 plain version on rows 0-1,
      int16 == float32 and two runs bitwise, the counts and mask, no spills;
      device time beside rfft(n=n_fft), the function's bound, the three
@@ -587,10 +589,11 @@ KERNELS = {
                              ("gather_rows_131072", "mfcc_tpu/kernels/frontend.py:905"))},
     **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
              "replaces": "mfcc_tpu/kernels/frontend.py:857"}
-       for key in ("bf16x3_pass_4096", "bf16x3_pass_2245", "bf16x3_pass_8192", "bf16x3_gather_hop_0.1",
-                   "bf16x3_gather_frames_1.1s", "bf16x3_pass_kaldi_dither_4096", "bf16x3_pass_ssc26_4096",
-                   "bf16x3_pass_kaldi_plp_4096", "bf16x3_split_48k_hop_0.1", "bf16x3_gather_librosa_8192",
-                   "bf16x3_gather_bands_24000", "bf16x3_gather_out_2000_filters")},
+       for key in ("bf16x3_gather_4096", "bf16x3_gather_2245", "bf16x3_gather_8192", "bf16x3_gather_hop_0.1",
+                   "bf16x3_gather_frames_1.1s", "bf16x3_gather_kaldi_dither_4096", "bf16x3_gather_ssc26_4096",
+                   "bf16x3_gather_kaldi_plp_4096", "bf16x3_split_48k_hop_0.1", "bf16x3_gather_out_librosa_8192",
+                   "bf16x3_gather_24000", "bf16x3_gather_out_2000_filters", "bf16x3_pass_10ms_4096",
+                   "bf16x3_gather_bands_32768")},
     **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
              "replaces": replaces}
        for key, replaces in (("gather_bands_40000_filters", "mfcc_tpu/kernels/frontend.py:905"),
@@ -2041,18 +2044,20 @@ def any_n_fft_path(torch, counters, tag: str, results: dict) -> None:
 # overrides, rows, seconds a row, the plan of the launch that computes the
 # prefix; resampled rows take the split route, then the plain form's plan)
 BF16X3_PLANS = (
-    ("bf16x3_pass_4096", "classic13_deltas", dict(n_fft=4096), B, 10, "pass"),
-    ("bf16x3_pass_2245", "classic13_deltas", dict(n_fft=2245), B_SMALL, 10, "pass"),
-    ("bf16x3_pass_8192", "classic13_deltas", dict(n_fft=8192), B_SMALL, 10, "pass"),
+    ("bf16x3_gather_4096", "classic13_deltas", dict(n_fft=4096), B, 10, "gather"),
+    ("bf16x3_gather_2245", "classic13_deltas", dict(n_fft=2245), B_SMALL, 10, "gather"),
+    ("bf16x3_gather_8192", "classic13_deltas", dict(n_fft=8192), B_SMALL, 10, "gather"),
     ("bf16x3_gather_hop_0.1", "classic13_deltas", dict(hop_s=0.1), B_SMALL, 10, "gather"),
     ("bf16x3_gather_frames_1.1s", "classic13_deltas", dict(win_len_s=1.1), B_SMALL, 10, "gather"),
-    ("bf16x3_pass_kaldi_dither_4096", "kaldi_mfcc", dict(dither=1.0, n_fft=4096), B_SMALL, 10, "pass"),
-    ("bf16x3_pass_ssc26_4096", "ssc26", dict(n_fft=4096), B_SMALL, 10, "pass"),
-    ("bf16x3_pass_kaldi_plp_4096", "kaldi_plp", dict(n_fft=4096), B_SMALL, 10, "pass"),
+    ("bf16x3_gather_kaldi_dither_4096", "kaldi_mfcc", dict(dither=1.0, n_fft=4096), B_SMALL, 10, "gather"),
+    ("bf16x3_gather_ssc26_4096", "ssc26", dict(n_fft=4096), B_SMALL, 10, "gather"),
+    ("bf16x3_gather_kaldi_plp_4096", "kaldi_plp", dict(n_fft=4096), B_SMALL, 10, "gather"),
     ("bf16x3_split_48k_hop_0.1", "mfcc39_48k", dict(hop_s=0.1), B_SMALL, 10, "gather"),
-    ("bf16x3_gather_librosa_8192", "logmel80", LIBROSA_8192, B_SMALL, 30, "gather"),
-    ("bf16x3_gather_bands_24000", "classic13_deltas", dict(n_fft=24000), 4, 10, "gather_bands"),
+    ("bf16x3_gather_out_librosa_8192", "logmel80", LIBROSA_8192, B_SMALL, 30, "gather_out"),
+    ("bf16x3_gather_24000", "classic13_deltas", dict(n_fft=24000), 4, 10, "gather"),
     ("bf16x3_gather_out_2000_filters", "classic13_deltas", dict(n_mels=2000, n_fft=4096), 4, 10, "gather_out"),
+    ("bf16x3_pass_10ms_4096", "classic13_deltas", dict(win_len_s=0.01, n_fft=4096), B_SMALL, 10, "pass"),
+    ("bf16x3_gather_bands_32768", "classic13_deltas", dict(n_fft=32768), 4, 10, "gather_bands"),
 )
 BF16X3_PLAN_COUNTERS = {"pass": "bf16_pass", "gather": "bf16_gather", "gather_bands": "bf16_gather_bands",
                         "gather_out": "bf16_gather_out"}
@@ -2061,15 +2066,17 @@ BF16X3_PLAN_COUNTERS = {"pass": "bf16_pass", "gather": "bf16_gather", "gather_ba
 def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
     """Phase 30: the bf16x3 form at every layout (`BF16X3_PLANS`), through
     fused_logmel_stages(dft_passes="bf16x3"): classic13_deltas at n_fft
-    4,096, b64 x 10 s ("pass"), and at b16 x 10 s: n_fft 2,245 (the first size
-    the staged plan refused) and 8,192, a 0.1 s hop and 1.1 s frames
-    ("gather"), kaldi_mfcc with dither 1.0 at n_fft 4,096 (the dither and
-    conditioning instantiation), ssc26 and kaldi_plp at 4,096, mfcc39_48k at
-    a 0.1 s hop (the split route: resample.cu, then the plain form's bf16x3);
-    librosa's melspectrogram(n_fft=8192) framing at b16 x 30 s (L = n_fft);
-    n_fft 24,000 ("gather_bands") and 2,000 filters ("gather_out") at b4 x
-    10 s. For each: the plan, tile, ring stages and shared bytes; registers
-    and spills (none); the launch counted by plan; the kernel against its
+    4,096, b64 x 10 s ("gather": the tile's A in the workspace), and at b16 x
+    10 s: n_fft 2,245 (the first size the staged plan refused) and 8,192, a
+    0.1 s hop and 1.1 s frames, kaldi_mfcc with dither 1.0 at n_fft 4,096
+    (the dither and conditioning instantiation), ssc26 and kaldi_plp at
+    4,096, mfcc39_48k at a 0.1 s hop (the split route: resample.cu, then the
+    plain form's bf16x3); librosa's melspectrogram(n_fft=8192) framing at b16
+    x 30 s (L = n_fft, "gather_out"); 10 ms frames at n_fft 4,096 ("pass":
+    A in shared memory); n_fft 24,000, 32,768 ("gather_bands") and 2,000
+    filters ("gather_out") at b4 x 10 s. For each: the plan, tile, ring
+    stages and shared bytes; threads, registers and spills (none); the
+    launch counted by plan; the kernel against its
     plain version at the bf16x3 gates and, on its first rows, against the
     float64 plain version on the CPU at the loud-bin gate; int16 rows ==
     float32 rows and two runs, bitwise; the counts and mask; device time,
@@ -2082,8 +2089,8 @@ def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
     from mfcc_tpu_torch.pipeline import pad_batch
 
     t_phase = time.perf_counter()
-    print("== 30. bf16x3 at every layout: the power rows of one pass, then frames, bands and "
-          "accumulators in device memory")
+    print("== 30. bf16x3 at every layout: the block plans (the tile's A in shared memory, then A, bands "
+          "and accumulators in device memory)")
     for key, name, over, rows, seconds, plan in BF16X3_PLANS:
         t_case = time.perf_counter()
         cfg = named_config(name).replace(**over)

@@ -579,8 +579,10 @@
 // packed bands, the ring (4 x 17,408 B, 128-byte aligned), 2 x 4 mbarriers,
 // power rows [64][292] (75 KB), frame energies and means, the per-warp
 // scratch: 194,752 B; kernels/frontend.py smem_bytes mirrors it. A cluster
-// of two blocks sharing each chunk by multicast was measured slower
-// (PERF.md section 6) and is not taken.
+// of two blocks sharing each chunk by multicast was measured slower here
+// (0.6793 vs 0.4378 ms, PERF.md section 6) and is not taken; the block plans share each
+// chunk between two consumer warpgroups (128 frames) instead, and multicast
+// is not measured for them.
 // In the fused resample (kResample with kBf16) the staging is step 1r's at
 // the plan's frames a block; the input window lies over the power rows, the
 // energies, means and scratch, which stand idle until the products (not over
@@ -597,56 +599,68 @@
 // throughput route (the TPU's MXU made it one); its own roofline is that
 // 0.0709 ms.
 //
-// The bf16x3 form's block plans (kBf16 with kBlock: p.block, p.gather,
-// p.bands_global, p.acc_global; plan_bf16 walks kBfLadder after "staged",
-// kernels/frontend.py bf16_layout mirrors it; the plain form only, so a
-// resampling config whose fused layout is over the block takes the split
+// The bf16x3 form's block plans (kBf16 with kBlock, logmel_kernel_bf16,
+// step 3b; plan_bf16 walks kBfLadder after "staged", 128 frames a block;
+// kernels/frontend.py bf16_layout mirrors it; the plain form only, so
+// a resampling config whose fused layout is over the block takes the split
 // route). "staged" holds the span (63 S + L), the window (max(L, n_fft)),
 // the packed bands and power rows of every bin (64 x 2,084 floats at n_fft
 // 4,096): from n_fft 2,245 at classic13, at hops of ~0.07 s and frames of
 // ~1 s it is over the block. The reference's route has no such limit.
-//   "pass": the power rows hold one pass of 136 bins. The consumers keep
-//   each pass's re and im in the pass's rows (tile x 280 floats) and, once
-//   the pass's products are done, its powers over them (stride 137); then
-//   they project that pass (4p) before the next pass's first stretch
-//   rewrites the rows. The host's pass table (kernels/frontend.py
-//   pass_table, in `bases`) lists, pass by pass, filter by filter, each
-//   filter's band clipped to the pass as a segment of packed weights; item
-//   (segment, frame) sums its weights in packed order and adds the sum to
-//   the frame's accumulator of that filter (tile x (M + 1) floats; 2M for
-//   SSC; the energy for a spectrogram, whose bins go straight to their
-//   lanes), so a band over two passes adds its pieces in pass order and
-//   the result does not depend on the row's place in the batch; item
-//   (energy, frame) adds the pass's powers. After the last pass the
-//   epilogue (4e) takes the log kind, the raw sums (PLP) or the centroid
-//   ratio (SSC) of each accumulator, and lane M the energy.
-//   The tensor cores' fp32 accumulation drifts with the sum's length: over
-//   3 x 512 products (L = n_fft = 8,192) the frames' energies drifted 4.9e-5
-//   from the plain version's float64 sums (2.7e-6 after classic13's 3 x 25).
-//   So the block plans sum kBfPromote (25) steps on the tensor cores, then
-//   add that stretch to the pass's re/im rows in fp32 and start again from 0
-//   (75 products at most, as "staged" at classic13 takes).
-//   The next step's A fragment is built while the products run.
-//   "gather": no span and no window staged. Each fragment sample, the
-//   conditioning's mean and raw energy, and the windowed energy (the window
-//   through the one pointer a block, in device memory) read the row in
-//   device memory by staged_at, the staging's own arithmetic (the mean
-//   needs the whole frame before the first product: a pass over the frame
-//   first, warp by warp).
-//   "gather_bands": the packed bands and the pass table read from device
-//   memory too.
-//   "gather_out": the accumulators in the block's frames' rows of a
-//   workspace [B, F, nacc] that the wrapper allocates (rows_ws), which no
-//   other block touches: no atomics. Its layout, the ring and one pass's
-//   rows, depends on nothing but the tile.
-// A tile with no frame that holds samples takes no product (zero powers,
-// projected as any). Registers: the block plans' instantiations use
-// 236-254 of the 255 (no spills; chip_smoke.py phase 30 prints them).
-// The matrix is the route's only limit left: 8 kp nbp bytes (kp = min(L,
-// n_fft) rounded to 16), 276 MB at librosa's 8,192-point framing, each tile
-// reading it whole, from HBM once it is over L2's 50 MB. The wrapper
-// refuses a matrix, or the host's float64 folding of it, over the card's
-// memory (kernels/frontend.py bf16_matrix_reason) before building it.
+//   What bounds them: the products, 3 x 2 kp x 2 nbp flops a frame (0.57 ms
+//   at classic13 n_fft 4,096 b64 at the bf16 peak), and the matrix, 8 kp nbp
+//   bytes read whole by each tile (6.96 MB at n_fft 4,096, from L2; 276 MB
+//   at librosa's 8,192-point framing, from HBM), and at thousands of filters
+//   the projection and the [B, F, M + 1] output. The first design of these
+//   plans (one consumer warpgroup, its A fragment rebuilt from the frame
+//   each step of each pass, each step's products waited for before the
+//   next, the projection by the same warps between passes) took 4.12 ms
+//   there: 1.39 ms of it the A build, 2.06 the products' waits, 0.64 the
+//   projection, 0.15 the ring (PERF.md section 6, the breakdown).
+//   The design: 384 threads, one block an SM. (1) A once a tile: every
+//   thread builds the tile's A, bf16 hi and lo of each frame's conditioned
+//   samples (staged_at from device memory, the mean first: no span, no
+//   window staged), in wgmma's K-major core matrices step by step ([hi |
+//   lo][8-frame group][K half][frame][k]; 64 bytes a frame a step), into
+//   shared memory ("pass", where tile x kp x 4 bytes fit: short frames) or
+//   the tile's rows of a workspace (gather and after; kp = 400 at 128 frames
+//   is 200 KB), whence warp 8's lane 0 streams each step's A through the
+//   ring beside the matrix chunk (tile x 64 bytes more a stage); staged_at
+//   runs twice a sample a tile (the mean, then A), not once a pass. (2) Two
+//   consumer warpgroups (warps 0-7) take each chunk together, 64 frames each
+//   over the pass's 272 columns, so each chunk read from L2 or HBM serves
+//   128 frames (64 frames a block, both warpgroups on them a column half
+//   each with A in shared memory, took 1.47x as long at n_fft 4,096 in
+//   turns, PERF.md section 6). A and B come from shared memory through
+//   descriptors; each
+//   step's group of products stays in flight while the next one is waited
+//   for and issued (wait_group 1), and a stage is released once the group
+//   that read it has retired. (3) The projectors (warps 9-11) project pass
+//   p from the power rows (one buffer, stride 137) while the consumers run
+//   pass p + 1, items claimed a warp at a time from a counter; the
+//   consumers, at their next handoff (the pass's end, or its first
+//   promotion where a pass takes more than kBfPromote steps and the power
+//   rows hold its re/im), take what is left of it, then the power rows turn
+//   over (named barriers: full, empty); the last pass and the epilogue are
+//   the consumers' and projectors' together. Where the accumulators are in
+//   the workspace, a warp's items run along a frame's row, and at
+//   thousands of filters a warp takes 32 segments over every frame (the
+//   pass table read once a tile, its adds and stores coalesced); a filter's last
+//   piece writes its output lane (the epilogue writes the energy alone),
+//   its first one its accumulator (nothing is zeroed). (4) The promotion is kept: the
+//   tensor cores sum kBfPromote (25) steps, then the stretch joins the
+//   pass's re/im rows in fp32 (2.5e-6 of drift at L = n_fft = 8,192).
+//   The arithmetic is the first design's: the same products in the same
+//   order, each projection segment summed in packed order and the pieces
+//   added in pass order (tests/test_torch_bf16x3_plans.py
+//   _emulate_block_plan), so results do not depend on a row's place in the
+//   batch. A tile with no frame that holds samples takes no product (zero
+//   powers, projected as any). setmaxnreg moves registers to the consumers
+//   (216 a thread; the projectors and the producer 72), so the consumers
+//   hold their 136 accumulators while they take a share of the projection.
+// The matrix is the route's only limit left: the wrapper refuses a matrix,
+// or the host's float64 folding of it, over the card's memory
+// (kernels/frontend.py bf16_matrix_reason) before building it.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -681,16 +695,35 @@ constexpr int kBfGroups = 2 * kBfPassBins / 8;               // 8-column groups 
 constexpr int kBfPartBytes = kBfStep * 2 * kBfPassBins * 2;  // 8,704
 constexpr int kBfStageBytes = 2 * kBfPartBytes;              // 17,408
 constexpr int kBfMaxStages = 4;
-// The bf16x3 block plans: steps whose products the tensor cores sum before
-// the sum joins the pass's re/im rows in fp32, and the floats between two
-// frames' re/im rows (272 columns; 280 = 24 mod 32: a quarter warp's float2
-// accesses take 32 distinct banks) and between two frames' power rows over
-// them (137, odd: the projection's 32 frames fall in 32 banks).
+constexpr int kConsumers = 128;
+constexpr int kProducer = 128;
+// The bf16x3 block plans (logmel_kernel_bf16): steps whose products the
+// tensor cores sum before the sum joins the pass's re/im rows in fp32; the
+// floats between two frames' re/im rows (272 columns; 280 = 24 mod 32: a
+// quarter warp's float2 accesses take 32 distinct banks) and between two
+// frames' power rows (137, odd: 32 frames of a projection item fall in 32
+// banks); the bytes of one frame's A in one step (hi and lo of 16 samples);
+// the frames a block (two consumer warpgroups of 64); the threads: the two
+// consumer warpgroups (warps 0-7), then warp 8, whose lane 0 issues the
+// ring's copies, and the projectors (warps 9-11); the registers setmaxnreg
+// gives a consumer thread and the others (2 x 216 + 72 = 504 a thread of
+// each warpgroup: at 224 and 64, the whole register file, one consumer
+// warpgroup never got its registers); the named barriers: the consumers',
+// the power rows full and empty, and the end of the last projection.
 constexpr int kBfPromote = 25;
 constexpr int kBfAccStride = 2 * kBfPassBins + 8;
 constexpr int kBfPowStride = kBfPassBins + 1;
-constexpr int kConsumers = 128;
-constexpr int kProducer = 128;
+constexpr int kBfAChunk = 2 * kBfStep * 2;
+constexpr int kBfTile = 128;
+constexpr int kBfThreads = 384;
+constexpr int kBfConsumers = 256;
+constexpr int kBfProducer = 256;
+constexpr int kBfProjectors = 96;
+constexpr int kBfTeam = kBfConsumers + kBfProjectors;  // consumers and projectors
+constexpr int kBfConsumerRegs = 216;
+constexpr int kBfOtherRegs = 72;
+constexpr int kBfItems = 4;  // projection items a thread claims at once
+enum { kBarConsumers = 1, kBarFull = 2, kBarEmpty = 3, kBarEnd = 4 };
 // The cluster plan's largest portable cluster (blocks a frame).
 constexpr int kMaxCluster = 8;
 
@@ -784,8 +817,8 @@ __host__ __device__ inline int weight_tables(const Params& p) {
 // alone where the sums are in device memory, sums_global), then red, the 8
 // warps' partials of a block sum.
 struct Layout {
-  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, red, bar, pw, ef, mu,
-      ptab, acc, fir, tab, total;
+  int span, win, melw, melf, moff, meta, tw, bases, buf, row, part, pstride, red, bar, pw, ef, mu, fir,
+      tab, total;
 };
 
 // fir is the fused resample's input window in floats (0 without it): it
@@ -798,12 +831,10 @@ struct Layout {
 // bands in device memory (bands_global), at the tables. With the rows in
 // device memory (rows_global) l.row is the workspace's row, and the
 // layout holds only the groups' scratch and the warps' partials (with the
-// sums in device memory too, sums_global, the partials alone). The
-// bf16x3 form's block plans hold the pass table after the staged bands,
-// the power rows of one pass, and the accumulators (none where they are in
-// the workspace) in place of the per-warp scratch. block is p.block, which
-// the kernel passes as its template's kBlock, so an instantiation computes
-// no other layout.
+// sums in device memory too, sums_global, the partials alone). block is
+// p.block, which the kernel passes as its template's kBlock, so an
+// instantiation computes no other layout. The bf16x3 form's block plans
+// have a layout of their own (bf16_block_layout).
 __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, bool wide, bool block) {
   Layout l;
   const int tables = weight_tables(p);
@@ -818,27 +849,19 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
   l.tw = l.meta + (staged ? align4(p.nnz) : 0);
   l.bases = l.tw + align4(2 * p.ntw);
   l.buf = l.bases + align4(p.nbases);
-  l.red = l.ptab = l.acc = 0;
+  l.red = 0;
   if (p.form == kBf16x3) {
-    l.ptab = l.buf;
     // the ring, 128-byte aligned for its bulk copies
-    l.buf = align32(l.ptab + (block && staged ? align4(p.nptab) : 0));
+    l.buf = align32(l.buf);
     l.row = 0;
     l.bar = l.buf + p.stages * (kBfStageBytes / 4);
     l.pw = l.bar + align4(4 * p.stages);  // full and empty mbarriers, 8 B each
     l.ef = l.pw + p.tile * p.pws;
     l.mu = l.ef + align4(p.tile);
-    if (block) {
-      l.acc = l.mu + align4(p.tile);
-      l.part = l.tab = l.acc + (p.acc_global ? 0 : align4(p.tile * p.nacc));
-      l.pstride = 0;
-      l.fir = l.pw;
-    } else {
-      l.part = l.mu + align4(p.tile);
-      l.pstride = parts;
-      l.fir = l.pw;  // not the ring: its first copies land during the staging
-      l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
-    }
+    l.part = l.mu + align4(p.tile);
+    l.pstride = parts;
+    l.fir = l.pw;  // not the ring: its first copies land during the staging
+    l.tab = l.pw + imax(l.part + kWarps * parts - l.pw, align4(fir));
   } else if (block) {
     if (p.tables_global) l.buf = l.tw;  // no table staged
     l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
@@ -858,6 +881,52 @@ __host__ __device__ inline Layout layout(const Params& p, int fir, int taps, boo
   }
   l.total = l.tab + align4(taps);
   return l;
+}
+
+// The bf16x3 form's block plans' layout (logmel_kernel_bf16), in floats
+// (kernels/frontend.py _bf16_smem mirrors it): the packed weights (and
+// SSC's melf weights), the filters' offsets and the pass table, unless
+// bands_global; at a
+// 128-byte boundary the ring, each stage a matrix chunk and, where A is
+// in the workspace (gather), the tile's A of that step; its full and empty
+// mbarriers and the projection's claim counter; at a 128-byte boundary
+// the tile's A ("pass": in shared
+// memory); one pass's power rows (stride kBfPowStride), or, where a pass
+// takes more than kBfPromote steps, its re/im rows (stride kBfAccStride),
+// which then take its powers; the frames' energies and means; the
+// accumulators unless acc_global. No signal span, window or bin table.
+struct BfLayout {
+  int w, wf, moff, ptab, ring, stage, bar, a, pw, ef, mu, acc, total;
+};
+
+__host__ __device__ inline BfLayout bf16_block_layout(const Params& p) {
+  BfLayout l;
+  const int staged = p.bands_global ? 0 : weight_tables(p);
+  l.w = 0;
+  l.wf = align4(p.nnz);  // ssc only
+  l.moff = staged * align4(p.nnz);
+  l.ptab = l.moff + (staged ? align4(p.M + 1) : 0);
+  l.ring = align32(l.ptab + (staged ? align4(p.nptab) : 0));
+  l.stage = (kBfStageBytes + (p.gather ? p.tile * kBfAChunk : 0)) / 4;
+  l.bar = l.ring + p.stages * l.stage;
+  l.a = align32(l.bar + 4 * p.stages + 4);  // the projection's claim counter after the mbarriers
+  l.pw = l.a + (p.gather ? 0 : p.tile * p.kp);
+  l.ef = l.pw + p.tile * (p.kp / kBfStep > kBfPromote ? kBfAccStride : kBfPowStride);
+  l.mu = l.ef + p.tile;
+  l.acc = l.mu + p.tile;
+  l.total = l.acc + (p.acc_global ? 0 : align4(p.tile * p.nacc));
+  return l;
+}
+
+// Floats of the bf16x3 block plans' workspace (kernels/frontend.py
+// bf16_workspace): the accumulators [B, F, nacc] (acc_global), rounded up
+// to 128 bytes, then each tile's A, step by step (gather), tile x kp floats
+// a tile; 0 for neither.
+__host__ __device__ inline long long bf16_workspace(const Params& p, int B) {
+  if (p.form != kBf16x3 || !p.block) return 0;
+  const long long acc = p.acc_global ? (static_cast<long long>(B) * p.F * p.nacc + 31) / 32 * 32 : 0;
+  const long long tiles = static_cast<long long>(B) * ((p.F + p.tile - 1) / p.tile);
+  return acc + (p.gather ? tiles * p.tile * p.kp : 0);
 }
 
 // The cluster plan's layout a block, in floats (kernels/frontend.py
@@ -894,10 +963,10 @@ __host__ __device__ inline int resample_floats(const Params& p, const Polyphase&
 }
 
 // The bf16x3 form's block plans after "staged" (kernels/frontend.py
-// BF16_PLANS and BF16_TRAITS): whether a plan reads each frame (gather), the
-// packed bands and the pass table (bands_global) from device memory, and
-// keeps its accumulators in the workspace (acc_global). "pass" stages all
-// three and holds the power rows of one pass.
+// BF16_PLANS and BF16_TRAITS): whether a plan keeps the tile's A in the
+// workspace and streams it through the ring (gather; else A in shared
+// memory), reads the packed bands and the pass table from device memory
+// (bands_global) and keeps its accumulators in the workspace (acc_global).
 constexpr int kBfLadder[4][3] = {
     {0, 0, 0},  // pass
     {1, 0, 0},  // gather
@@ -906,14 +975,15 @@ constexpr int kBfLadder[4][3] = {
 };
 
 // The bf16x3 form's shape (kernels/frontend.py bf16_dims, bf16_layout): the
-// matrix depth kp, whole passes of 136 bins, and the first of 64 or 32
-// frames a block and 4, 3 or 2 ring stages whose layout fits the block's
-// shared memory: in the staged plan (power rows of every bin), then, in the
-// plain form (pp null), in the block plans of kBfLadder in turn (power rows
-// of one pass, p.block); else the smallest. The fused resample (pp not
-// null, with the input window of that many frames in the rows' type and the
-// taps) takes the staged plan alone: the wrapper takes the split route
-// where it does not fit.
+// matrix depth kp, whole passes of 136 bins; then the first layout that
+// fits the block's shared memory: the staged plan at 64 or 32 frames and
+// 4, 3 or 2 ring stages (power rows of every bin); then, in the plain form
+// (pp null), the block plans (p.block) at 128 frames: the rungs of
+// kBfLadder in turn, 4, 3 or 2 stages ("gather_out" at 2 stages, 196 KB at
+// most, always fits). The fused
+// resample (pp not null, with the input window of that many frames in the
+// rows' type and the taps) takes the staged plan alone: the wrapper takes
+// the split route where it does not fit.
 inline bool plan_bf16(Params& p, const Polyphase* pp, bool int16) {
   p.kp = (imin(p.L, p.n_fft) + kBfStep - 1) / kBfStep * kBfStep;
   p.npass = (p.bins + kBfPassBins - 1) / kBfPassBins;
@@ -921,30 +991,32 @@ inline bool plan_bf16(Params& p, const Polyphase* pp, bool int16) {
   p.pws = (p.bins + 31) / 32 * 32 + 4;
   p.nacc = p.feature_kind == kSsc ? 2 * p.M : p.feature_kind == kSpectrogram ? 1 : p.M + 1;
   p.nptab = weight_tables(p) ? p.npass + 1 + 4 * (p.nnz / kBfPassBins + 2 * p.M) : 0;
-  auto fits = [&]() {
-    const int tiles[2] = {64, 32};
-    for (int tile : tiles) {
-      for (int stages = kBfMaxStages; stages >= 2; --stages) {
-        p.tile = tile;
-        p.stages = stages;
-        int fir = 0, taps = 0;
-        if (pp) {
-          fir = int16 ? resample_floats<int16_t>(p, *pp) : resample_floats<float>(p, *pp);
-          taps = pp->up * pp_stride(*pp);
-        }
-        if (layout(p, fir, taps, pp || p.dither > 0.f, p.block).total * 4 <= kSmemBudget) return true;
-      }
+  auto fits = [&](int tile, int stages) {
+    p.tile = tile;
+    p.stages = stages;
+    if (p.block) return bf16_block_layout(p).total * 4 <= kSmemBudget;
+    int fir = 0, taps = 0;
+    if (pp) {
+      fir = int16 ? resample_floats<int16_t>(p, *pp) : resample_floats<float>(p, *pp);
+      taps = pp->up * pp_stride(*pp);
     }
-    return false;
+    return layout(p, fir, taps, pp || p.dither > 0.f, false).total * 4 <= kSmemBudget;
   };
-  if (fits() || pp) return true;
+  const int tiles[2] = {64, 32};
+  for (int tile : tiles) {
+    for (int stages = kBfMaxStages; stages >= 2; --stages) {
+      if (fits(tile, stages)) return true;
+    }
+  }
+  if (pp) return true;
   p.block = 1;
-  p.pws = kBfAccStride;  // one pass's re/im, then its powers
   for (const auto& rung : kBfLadder) {
     p.gather = rung[0];
     p.bands_global = rung[1];
     p.acc_global = rung[2];
-    if (fits()) return true;
+    for (int stages = kBfMaxStages; stages >= 2; --stages) {
+      if (fits(kBfTile, stages)) return true;
+    }
   }
   return true;
 }
@@ -1111,6 +1183,11 @@ __device__ inline T ld(const T* p) {
 // warps.
 __device__ inline void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+// bar.arrive: counts this warp towards barrier id's n threads, without
+// waiting (the threads that wait take bar.sync)
+__device__ inline void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
 // The threads that transform one frame: in the warp plan a warp (rank the
@@ -1573,6 +1650,11 @@ __device__ inline void wgmma_commit() {
 __device__ inline void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most N committed groups of products are still in flight.
+template <int N>
+__device__ inline void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of wgmma's registers across
 // the asynchronous product (CUTLASS's warpgroup_fence_operand).
@@ -1613,6 +1695,33 @@ __device__ inline void wgmma_m64n136k16(float (&d)[68], const uint32_t (&a)[4], 
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
         "+f"(d[66]), "+f"(d[67])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The same product with A from shared memory too (descriptor a, K-major
+// core matrices as B's: the two K halves 128 B apart, 8-row groups 256 B
+// apart): d[4j + 2h + c] = row 16w + g + 8h, column 8j + 2t + c.
+__device__ inline void wgmma_m64n136k16_ss(float (&d)[68], uint64_t a, uint64_t desc) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67}, "
+      "%68, %69, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67])
+      : "l"(a), "l"(desc), "r"(1));
 }
 
 __device__ inline uint32_t bf16_pair(__nv_bfloat16 lo_col, __nv_bfloat16 hi_col) {
@@ -1674,13 +1783,6 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   if (!(kBlock && p.tables_global)) {  // "block_global" reads them from device memory
     for (int i = threadIdx.x; i < p.ntw; i += kThreads) tw[i] = twiddle[i];
     for (int i = threadIdx.x; i < p.nbases; i += kThreads) sb[i] = bases[i];
-  }
-  if constexpr (kBf16 && kBlock) {  // the pass table, in `bases`, beside the staged bands
-    if (kind != kSpectrogram && !p.bands_global) {
-      int* pt = reinterpret_cast<int*>(smem + lay.ptab);
-      const int words = p.npass + 1 + 4 * bases[p.npass];
-      for (int i = threadIdx.x; i < words; i += kThreads) pt[i] = bases[i];
-    }
   }
 
   // the row's length at the frame rate's sample rate (the output length of
@@ -1924,51 +2026,15 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     float* pw_tile = smem + lay.pw;
     float* ef = smem + lay.ef;
     float* mu_t = smem + lay.mu;
-    // the block plans: sample a < L of the tile's frame fl, staged or (the
-    // gather plans) from device memory (staged_at), and its conditioned value
-    auto xs = [&](int fl, int a) -> float {
-      if (gather) return staged_at<kDither>(row, static_cast<long long>(f0 + fl) * S + a, len, p);
-      return sig[fl * S + a];
-    };
-    auto bcond = [&](int fl, float mu, int a) -> float {
-      if constexpr (kCond) {
-        const float d = xs(fl, a) - mu;
-        return a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (xs(fl, a - 1) - mu);
-      } else {
-        return xs(fl, a);
-      }
-    };
     for (int fl = warp; fl < tile; fl += kWarps) {
       float mu = 0.f, e = 0.f;
       if (dft && f0 + fl < F) {  // warp-uniform
-        if constexpr (kBlock) {
-          if constexpr (kCond) {
-            if (p.remove_dc) {
-              float s = 0.f;
-              for (int a = lane; a < L; a += 32) s += xs(fl, a);
-              mu = warp_sum(s) / static_cast<float>(L);
-            }
-            if (p.energy_source == kRawFrame) {
-              for (int a = lane; a < L; a += 32) {
-                const float d = xs(fl, a) - mu;
-                e += d * d;
-              }
-            }
-          }
-          if (wsum) {
-            for (int a = lane; a < L; a += 32) {
-              const float v = bcond(fl, mu, a) * wv[a];
-              e += v * v;
-            }
-          }
-        } else {
-          const float* fr = sig + fl * S;
-          frame_stats(fr, mu, e);
-          if (wsum) {
-            for (int a = lane; a < L; a += 32) {
-              const float v = cond(fr, mu, a) * win[a];
-              e += v * v;
-            }
+        const float* fr = sig + fl * S;
+        frame_stats(fr, mu, e);
+        if (wsum) {
+          for (int a = lane; a < L; a += 32) {
+            const float v = cond(fr, mu, a) * win[a];
+            e += v * v;
           }
         }
         if constexpr (kCond) {
@@ -1980,74 +2046,12 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         mu_t[fl] = mu;
       }
     }
-    // the block plans' accumulators, frame after frame (kernels/frontend.py
-    // bf16_accumulators): M filter sums and the energy; for ssc the M mel
-    // and then the M melf sums; for a spectrogram the energy alone. In
-    // shared memory, or (acc_global) in the block's frames' rows of the
-    // workspace, which no other block touches
-    float* acc = p.acc_global ? rows_ws + (static_cast<size_t>(b) * F + f0) * p.nacc : smem + lay.acc;
-    const int e_at = kind == kSpectrogram ? 0 : M;  // the energy's accumulator
-    if constexpr (kBlock) {
-      for (int i = threadIdx.x; i < tile * p.nacc && f0 + i / p.nacc < F; i += kThreads) acc[i] = 0.f;
-    }
     __syncthreads();
-    // 4p. the block plans' projection of one pass (bins [136 pass, 136 pass +
-    //     nb)) from its power rows, by the consumer warpgroup: item (s, fl)
-    //     sums segment s of the pass table (filter m's weights i0 <= i < i1,
-    //     bins from k0 of the pass) over frame fl's row in packed order and
-    //     adds the sum to the frame's accumulator of m (for ssc both sums;
-    //     one segment a filter a pass, so no two items add to one
-    //     accumulator and the pieces of a band over two passes add in pass
-    //     order); item (ns, fl), but for ssc, adds the pass's powers to the
-    //     energy. A spectrogram writes the log kind of each bin to its lane.
-    const Bands bg = p.bands_global ? Bands{mel_w, melf_w, mel_off, mel_meta} : bd;
-    const int* pt = p.bands_global ? bases : reinterpret_cast<const int*>(smem + lay.ptab);
-    auto project = [&](int pass) {
-      const int nb = imin(kBfPassBins, p.bins - pass * kBfPassBins);
-      if (kind == kSpectrogram) {
-        for (int i = threadIdx.x; i < tile * nb; i += kConsumers) {
-          const int fl = i / nb, k = i - fl * nb;
-          if (f0 + fl >= F) break;
-          out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + pass * kBfPassBins + k] =
-              log_lane(pw_tile[fl * kBfPowStride + k], p);
-        }
-      }
-      const int s0 = kind == kSpectrogram ? 0 : pt[pass];
-      const int ns = kind == kSpectrogram ? 0 : pt[pass + 1] - s0;
-      const int items = tile * (ns + (kind == kSsc ? 0 : 1));
-      for (int i = threadIdx.x; i < items; i += kConsumers) {
-        const int s = i / tile, fl = i - s * tile;
-        if (f0 + fl >= F) continue;
-        const float* pw = pw_tile + fl * kBfPowStride;
-        float* a = acc + fl * p.nacc;
-        if (s == ns) {
-          float e = 0.f;
-          for (int k = 0; k < nb; ++k) e += pw[k];
-          a[e_at] += e;
-          continue;
-        }
-        const int* sg = pt + p.npass + 1 + 4 * (s0 + s);
-        const int m = sg[0], i0 = sg[1], i1 = sg[2];
-        const float* q = pw + sg[3] - i0;  // q[i]: weight i's power
-        float sum = 0.f, sumf = 0.f;
-        for (int j = i0; j < i1; ++j) {
-          float v = q[j];
-          if (kind == kSsc) {
-            v = v <= 0.f ? p.eps : v;
-            sumf += v * bg.wf[j];
-          }
-          sum += v * bg.w[j];
-        }
-        a[m] += sum;
-        if (kind == kSsc) a[M + m] += sumf;
-      }
-    };
     // 3c. the tile's DFT on the tensor cores into the power rows: the
     //     consumer warpgroup (warps 0-3) takes 16 frames a warp, pass after
     //     pass over 136 bins, step after step over k16 slices of the ring;
-    //     the producer thread keeps the ring full. The block plans project
-    //     each pass (4p) before the next one rewrites its rows.
-    if (!dft && !kBlock) {
+    //     the producer thread keeps the ring full.
+    if (!dft) {
       for (int i = threadIdx.x; i < tile * p.pws; i += kThreads) pw_tile[i] = 0.f;
     } else if (threadIdx.x < kConsumers) {
       const int g = lane >> 2, t = lane & 3;
@@ -2063,13 +2067,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         mu[h] = live[h] ? mu_t[r] : 0.f;
       }
       // conditioned sample a of row h's frame
-      auto value = [&](int h, int a) -> float {
-        if constexpr (kBlock) {
-          return bcond(r0 + 8 * h, mu[h], a);
-        } else {
-          return cond(fr[h], mu[h], a);
-        }
-      };
+      auto value = [&](int h, int a) -> float { return cond(fr[h], mu[h], a); };
       // the step's A fragment, hi and lo of the conditioned samples
       // (unwindowed: the matrix carries the window), zero past Lk
       auto fragment = [&](int k0, uint32_t (&ah)[4], uint32_t (&al)[4]) {
@@ -2090,127 +2088,35 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         float re0[68], re1[68];  // bins [0, 68) and [68, 136) of the pass
 #pragma unroll
         for (int i = 0; i < 68; ++i) re0[i] = re1[i] = 0.f;
-        if constexpr (kBlock) {
-          // the six products of ring chunk c on the fragment (ah, al), issued
-          auto products = [&](int slot, const uint32_t (&ah)[4], const uint32_t (&al)[4]) {
-            const unsigned char* st = ring + slot * kBfStageBytes;
-            const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
-            const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
-            wgmma_fence();
-            fence_regs(re0);
-            fence_regs(re1);
-            wgmma_m64n136k16(re0, ah, wh);
-            wgmma_m64n136k16(re1, ah, wh + second);
-            wgmma_m64n136k16(re0, al, wh);
-            wgmma_m64n136k16(re1, al, wh + second);
-            wgmma_m64n136k16(re0, ah, wl);
-            wgmma_m64n136k16(re1, ah, wl + second);
-            wgmma_commit();
-          };
-          // this thread's re/im of the pass in the block plans' rows (row r,
-          // column 8j + 2t + c of re0, 136 more of re1), where the sums of each
-          // kBfPromote steps add up: the tensor cores' own accumulation drifts
-          // with the sum's length, so each stretch starts from 0 and adds to
-          // the rows in fp32
-          auto promote = [&](bool first) {
-#pragma unroll
-            for (int j = 0; j < 17; ++j) {
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = r0 + 8 * h, i = 4 * j + 2 * h;
-                float2* row = reinterpret_cast<float2*>(pw_tile + r * kBfAccStride + 8 * j + 2 * t);
-                if (r < tile) {
-                  const float2 a = make_float2(re0[i], re0[i + 1]), b = make_float2(re1[i], re1[i + 1]);
-                  row[0] = first ? a : make_float2(row[0].x + a.x, row[0].y + a.y);
-                  row[kBfPassBins / 2] = first ? b : make_float2(row[kBfPassBins / 2].x + b.x,
-                                                                 row[kBfPassBins / 2].y + b.y);
-                }
-                re0[i] = re0[i + 1] = re1[i] = re1[i + 1] = 0.f;
-              }
-            }
-          };
-          // the next step's fragment is built while the products run
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s, ++c) {
           uint32_t ah[4], al[4];
-          fragment(0, ah, al);
-          bool first = true;
-#pragma unroll 1
-          for (int s = 0; s < steps; ++s, ++c) {
-            const int slot = c % p.stages;
-            if (dft) {
-              mbar_wait(full + slot, (c / p.stages) & 1);
-              __syncwarp();
-              products(slot, ah, al);
-            }
-            uint32_t nh[4], nl[4];
-            fragment(imin(s + 1, steps - 1) * kBfStep, nh, nl);
-            if (dft) {
-              wgmma_wait_all();
-              fence_regs(re0);
-              fence_regs(re1);
-              fence_regs(ah);
-              fence_regs(al);
-              mbar_arrive(empty + slot);
-            }
-            if ((s + 1) % kBfPromote == 0 && s + 1 < steps) {
-              if (first) named_sync(1, kConsumers);  // the last pass's projection has read the rows
-              promote(first);
-              first = false;
-            }
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              ah[q] = nh[q];
-              al[q] = nl[q];
-            }
-          }
-          if (!first) {  // the earlier stretches' sums, before the rows take the powers
-#pragma unroll
-            for (int j = 0; j < 17; ++j) {
-#pragma unroll
-              for (int h = 0; h < 2; ++h) {
-                const int r = r0 + 8 * h, i = 4 * j + 2 * h;
-                const float2* row = reinterpret_cast<const float2*>(pw_tile + r * kBfAccStride + 8 * j + 2 * t);
-                if (r < tile) {
-                  const float2 a = row[0], b = row[kBfPassBins / 2];
-                  re0[i] += a.x;
-                  re0[i + 1] += a.y;
-                  re1[i] += b.x;
-                  re1[i + 1] += b.y;
-                }
-              }
-            }
-          }
-        } else {
-#pragma unroll 1
-          for (int s = 0; s < steps; ++s, ++c) {
-            uint32_t ah[4], al[4];
-            fragment(s * kBfStep, ah, al);
-            const int slot = c % p.stages;
-            mbar_wait(full + slot, (c / p.stages) & 1);
-            __syncwarp();
-            const unsigned char* st = ring + slot * kBfStageBytes;
-            const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
-            const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
-            wgmma_fence();
-            fence_regs(re0);
-            fence_regs(re1);
-            wgmma_m64n136k16(re0, ah, wh);
-            wgmma_m64n136k16(re1, ah, wh + second);
-            wgmma_m64n136k16(re0, al, wh);
-            wgmma_m64n136k16(re1, al, wh + second);
-            wgmma_m64n136k16(re0, ah, wl);
-            wgmma_m64n136k16(re1, ah, wl + second);
-            wgmma_commit();
-            wgmma_wait_all();
-            fence_regs(re0);
-            fence_regs(re1);
-            fence_regs(ah);
-            fence_regs(al);
-            mbar_arrive(empty + slot);
-          }
+          fragment(s * kBfStep, ah, al);
+          const int slot = c % p.stages;
+          mbar_wait(full + slot, (c / p.stages) & 1);
+          __syncwarp();
+          const unsigned char* st = ring + slot * kBfStageBytes;
+          const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
+          const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
+          wgmma_fence();
+          fence_regs(re0);
+          fence_regs(re1);
+          wgmma_m64n136k16(re0, ah, wh);
+          wgmma_m64n136k16(re1, ah, wh + second);
+          wgmma_m64n136k16(re0, al, wh);
+          wgmma_m64n136k16(re1, al, wh + second);
+          wgmma_m64n136k16(re0, ah, wl);
+          wgmma_m64n136k16(re1, ah, wl + second);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(re0);
+          fence_regs(re1);
+          fence_regs(ah);
+          fence_regs(al);
+          mbar_arrive(empty + slot);
         }
         // |X|^2 of each bin from its (cosine, sine) column pair, in registers,
-        // into its power row (the block plans': the pass's own, at stride
-        // kBfPowStride)
+        // into its power row
         auto store = [&](const float (&d)[68], int bin0) {
 #pragma unroll
           for (int j = 0; j < 17; ++j) {
@@ -2221,25 +2127,16 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
               const int r = r0 + 8 * h;
               const float x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
               if (r < tile) {
-                pw_tile[kBlock ? r * kBfPowStride + bin - pass * kBfPassBins : r * p.pws + bin] =
+                pw_tile[r * p.pws + bin] =
                     __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
               }
             }
           }
         };
-        if constexpr (kBlock) {
-          const int bin0 = pass * kBfPassBins;
-          named_sync(1, kConsumers);  // the last pass's projection, and every re/im, has been read
-          store(re0, bin0);
-          store(re1, bin0 + kBfPassBins / 2);
-          named_sync(1, kConsumers);
-          project(pass);
-        } else {
-          store(re0, pass * kBfPassBins);
-          store(re1, pass * kBfPassBins + kBfPassBins / 2);
-        }
+        store(re0, pass * kBfPassBins);
+        store(re1, pass * kBfPassBins + kBfPassBins / 2);
       }
-    } else if (threadIdx.x == kProducer && (dft || !kBlock)) {
+    } else if (threadIdx.x == kProducer) {
       const int total = p.npass * (p.kp / kBfStep);
       for (int c = p.stages; c < total; ++c) {  // the first stages went out at the start
         const int slot = c % p.stages;
@@ -2250,34 +2147,16 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       }
     }
     __syncthreads();
-    if constexpr (kBlock) {
-      // 4e. the block plans' epilogue over the accumulators, lane-parallel:
-      //     the log kind (logmel), nothing (plp) or the centroid (ssc) of
-      //     each filter's sum (a spectrogram's bins were written pass by
-      //     pass); lane M the energy (0 for ssc)
-      for (int i = threadIdx.x; i < tile * (M + 1); i += kThreads) {
-        const int fl = i / (M + 1), m = i - fl * (M + 1);
-        if (f0 + fl >= F) break;
-        float* o = out + (static_cast<size_t>(b) * F + f0 + fl) * (M + 1);
-        const float* a = acc + fl * p.nacc;
-        if (m == M) {
-          o[M] = energy_lane(a[e_at], ef[fl]);
-        } else if (kind != kSpectrogram) {
-          o[m] = kind == kSsc ? __fdiv_rn(a[M + m], a[m]) : kind == kPlp ? a[m] : log_lane(a[m], p);
-        }
-      }
-    } else {
-      // 4. each frame's output row (the powers carry the matrix's scale)
-      if (kind != kSpectrogram) m0 = chunk_filter(moff, M, p.nnz, p.chunk, lane, from);
-      for (int fl = warp; fl < tile; fl += kWarps) {
-        const int f = f0 + fl;
-        if (f >= F) break;  // warp-uniform
-        const float* pw = pw_tile + fl * p.pws;
-        const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
-        write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, nullptr,
-                    from, m0, p.chunk, p, WarpTeam{lane});
-        __syncwarp();  // part is rewritten by the warp's next frame
-      }
+    // 4. each frame's output row (the powers carry the matrix's scale)
+    if (kind != kSpectrogram) m0 = chunk_filter(moff, M, p.nnz, p.chunk, lane, from);
+    for (int fl = warp; fl < tile; fl += kWarps) {
+      const int f = f0 + fl;
+      if (f >= F) break;  // warp-uniform
+      const float* pw = pw_tile + fl * p.pws;
+      const float energy = energy_lane(power_sum(pw, p.bins, lane), ef[fl]);
+      write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy, bd, part, nullptr,
+                  from, m0, p.chunk, p, WarpTeam{lane});
+      __syncwarp();  // part is rewritten by the warp's next frame
     }
   } else {
     // 3. one frame's DFT by a team (a warp over its own rows ra, rb; a
@@ -2517,6 +2396,491 @@ logmel_kernel(const Sample* __restrict__ audio, const int* __restrict__ lengths,
     logmel_tile<Sample, kResample, kDither, kCond, kBf16, kBlock>(
         audio, lengths, out, n_valid, frame_mask, window, mel_w, melf_w, mel_off, mel_meta, twiddle,
         bases, dft_matrix, taps, rows_ws, p, pp, blockIdx.y, blockIdx.x, 0);
+  }
+}
+
+// 3b. The bf16x3 form's block plans (kBf16 with kBlock; the plain form
+//     only): one tile of p.tile frames (128) of row blockIdx.y a
+//     block, 384 threads in three warpgroups. The tile's A, hi and lo of each
+//     frame's conditioned samples, is built once by every thread (the
+//     frame's samples by staged_at from device memory, the conditioning's
+//     mean first), into shared memory ("pass") or the tile's rows of the
+//     workspace ("gather" and after), in wgmma's K-major core matrices step
+//     by step: [hi | lo][8-frame group][K half][frame][k]. Then the roles
+//     split (setmaxnreg): warp 8's lane 0 keeps the ring full (each stage a
+//     matrix chunk and, in the workspace's plans, the step's A chunk); the
+//     consumer warpgroups (warps 0-7) take each chunk together, 64 frames
+//     each over the pass's 272 columns, A and B from shared memory through
+//     descriptors, one step's products kept in flight behind the next
+//     (wait_group 1, each stage released once the group that read it
+//     retired); the projectors (warps 9-11) project pass p from the power
+//     rows while the consumers run pass p + 1, and the consumers, when they
+//     reach the next handoff, take what is left of it. The last pass is
+//     projected and the epilogue written by the consumers and projectors
+//     together.
+template <typename Sample, bool kDither, bool kCond>
+__global__ void __launch_bounds__(kBfThreads, 1)
+logmel_kernel_bf16(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+                   float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+                   const float* __restrict__ window, const float* __restrict__ mel_w,
+                   const float* __restrict__ melf_w, const int* __restrict__ mel_off,
+                   const int* __restrict__ bases, const unsigned char* __restrict__ dft_matrix,
+                   float* __restrict__ ws,
+                   const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) float smem[];
+  const int F = p.F, L = p.L, S = p.S, M = p.M, tile = p.tile;
+  const int kind = p.feature_kind;
+  const BfLayout lay = bf16_block_layout(p);
+  const int b = blockIdx.y, tx = blockIdx.x, f0 = tx * tile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const Sample* row = audio + static_cast<size_t>(b) * p.T;  // the bf16x3 form takes no block launch (origin 0)
+  const int steps = p.kp / kBfStep, chunks = p.npass * steps;
+  const int abytes = p.gather ? tile * kBfAChunk : 0;  // A's part of a stage
+  const int sbytes = lay.stage * 4;
+
+  // the packed weights, the filters' offsets and the pass table (in
+  // `bases`): staged, or read from device memory (bands_global), one
+  // pointer a block
+  if (kind != kSpectrogram && !p.bands_global) {
+    float* w = smem + lay.w;
+    float* wf = smem + lay.wf;
+    for (int i = tid; i < p.nnz; i += kBfThreads) {
+      w[i] = mel_w[i];
+      if (kind == kSsc) wf[i] = melf_w[i];
+    }
+    int* mo = reinterpret_cast<int*>(smem + lay.moff);
+    for (int i = tid; i <= M; i += kBfThreads) mo[i] = mel_off[i];
+    int* pt = reinterpret_cast<int*>(smem + lay.ptab);
+    const int words = p.npass + 1 + 4 * bases[p.npass];
+    for (int i = tid; i < words; i += kBfThreads) pt[i] = bases[i];
+  }
+  const float* bw = p.bands_global ? mel_w : smem + lay.w;
+  const float* bwf = p.bands_global ? melf_w : smem + lay.wf;
+  const int* off = p.bands_global ? mel_off : reinterpret_cast<const int*>(smem + lay.moff);
+  const int* pt = p.bands_global ? bases : reinterpret_cast<const int*>(smem + lay.ptab);
+
+  // the row's length; under non-centered framing a tile that starts at or
+  // past it holds only zeros and takes no product (its powers are 0)
+  const long long len = max(0, min(lengths[b], p.T));
+  const bool dft = p.center != kNoCenter || static_cast<long long>(f0) * S < len;
+  const int nv = valid_frames(lengths[b], p);
+  for (int i = tid; i < tile && f0 + i < F; i += kBfThreads) {
+    frame_mask[static_cast<size_t>(b) * F + f0 + i] = f0 + i < nv ? 1.f : 0.f;
+  }
+  if (tx == 0 && tid == 0) n_valid[b] = nv;
+
+  // the ring and its mbarriers; the matrix's first chunks go out now, A's
+  // parts of them once A is written
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem + lay.ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bar);
+  uint64_t* empty = full + p.stages;
+  const long long acc_floats = p.acc_global ? (static_cast<long long>(gridDim.y) * F * p.nacc + 31) / 32 * 32 : 0;
+  unsigned char* a_tile =
+      p.gather ? reinterpret_cast<unsigned char*>(ws + acc_floats) +
+                     (static_cast<size_t>(b) * gridDim.x + tx) * steps * abytes
+               : reinterpret_cast<unsigned char*>(smem + lay.a);
+  if (dft && tid == kBfProducer) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kBfConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int c = 0; c < imin(p.stages, chunks); ++c) {
+      mbar_expect_tx(full + c, sbytes);
+      bulk_copy(ring + c * sbytes, dft_matrix + static_cast<size_t>(c) * kBfStageBytes, kBfStageBytes, full + c);
+    }
+  }
+
+  // 2b. each frame's mean and energies under kCond (zeros past F and in a
+  //     tile that takes no product), a warp a frame; sample a < L of the
+  //     tile's frame fl from device memory (staged_at)
+  float* ef = smem + lay.ef;
+  float* mu_t = smem + lay.mu;
+  auto xs = [&](int fl, int a) -> float {
+    return staged_at<kDither>(row, static_cast<long long>(f0 + fl) * S + a, len, p);
+  };
+  const bool wsum = kCond && p.energy_source == kWindowedFrame;
+  for (int fl = warp; fl < tile; fl += kBfThreads / 32) {
+    float mu = 0.f, e = 0.f;
+    if (dft && f0 + fl < F) {  // warp-uniform
+      if constexpr (kCond) {
+        if (p.remove_dc) {
+          float s = 0.f;
+          for (int a = lane; a < L; a += 32) s += xs(fl, a);
+          mu = warp_sum(s) / static_cast<float>(L);
+        }
+        if (p.energy_source == kRawFrame) {
+          for (int a = lane; a < L; a += 32) {
+            const float d = xs(fl, a) - mu;
+            e += d * d;
+          }
+        }
+        if (wsum) {
+          for (int a = lane; a < L; a += 32) {
+            const float d = xs(fl, a) - mu;
+            const float v = (a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (xs(fl, a - 1) - mu)) * window[a];
+            e += v * v;
+          }
+        }
+        if (p.energy_source != kPspec) e = warp_sum(e);
+      }
+    }
+    if (lane == 0) {
+      ef[fl] = e;
+      mu_t[fl] = mu;
+    }
+  }
+  // the accumulators, frame after frame (kernels/frontend.py
+  // bf16_accumulators): M filter sums and the energy; for ssc the M mel and
+  // then the M melf sums; for a spectrogram the energy alone. In shared
+  // memory, or (acc_global) in the tile's frames' rows of the workspace's
+  // [B, F, nacc], which no other block touches. A filter's first piece
+  // writes its sum there and each later one adds to it (0 + s is s, so no
+  // accumulator is zeroed first); its last piece writes the output lane
+  const int e_at = kind == kSpectrogram ? 0 : M;  // the energy's accumulator
+  float* acc = p.acc_global ? ws + (static_cast<size_t>(b) * F + f0) * p.nacc : smem + lay.acc;
+  __syncthreads();  // the means
+
+  // 2a. A: 16-byte unit u of the tile's hi (and the same unit of its lo,
+  //     tile x 32 bytes on) holds frame fl's conditioned samples k0 .. k0 + 7
+  //     (unwindowed: the matrix carries the window; zero past Lk and in
+  //     frames past F) as bf16, hi = rn(g) and lo = rn(g - hi)
+  const int Lk = imin(L, p.n_fft);
+  if (dft) {
+    for (int u = tid; u < steps * 2 * tile; u += kBfThreads) {
+      const int s = u / (2 * tile), v = u - s * 2 * tile;
+      const int fl = (v >> 4) * 8 + (v & 7);
+      const int k0 = s * kBfStep + (v & 8);
+      const bool live = f0 + fl < F;
+      const float mu = mu_t[fl];
+      float x[9];  // x[j] = sample k0 - 1 + j
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {
+        const int a = k0 - 1 + j;
+        x[j] = live && a >= 0 && a < Lk && (kCond || j > 0) ? xs(fl, a) : 0.f;
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float g[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = 2 * q + c + 1, a = k0 + 2 * q + c;
+          if constexpr (kCond) {
+            const float d = x[j] - mu;
+            g[c] = a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (x[j - 1] - mu);
+          } else {
+            g[c] = x[j];
+          }
+          g[c] = live && a < Lk ? g[c] : 0.f;
+        }
+        const __nv_bfloat16 h0 = __float2bfloat16_rn(g[0]), h1 = __float2bfloat16_rn(g[1]);
+        hi[q] = bf16_pair(h0, h1);
+        lo[q] = bf16_pair(__float2bfloat16_rn(g[0] - __bfloat162float(h0)),
+                          __float2bfloat16_rn(g[1] - __bfloat162float(h1)));
+      }
+      unsigned char* dst = a_tile + static_cast<size_t>(s) * tile * kBfAChunk + v * 16;
+      *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(dst + tile * kBfAChunk / 2) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    // written by the generic proxy, read next by the async one (the bulk
+    // copies from the workspace, or wgmma from shared memory)
+    asm volatile("fence.proxy.async;" ::: "memory");
+  }
+  __syncthreads();
+
+  // 4p. the projection of one pass (bins [136 pass, 136 pass + nb)) from its
+  //     power rows, items claimed a warp at a time from a counter reset at
+  //     the pass's handoff: a spectrogram's bins (the log kind of
+  //     each into its lane), then item (s, fl): segment s of the pass table
+  //     (filter m's weights i0 <= i < i1, bins from k0 of the pass) summed
+  //     over frame fl's row in packed order and added to the frame's
+  //     accumulator of m (for ssc both sums; one segment a filter a pass, so
+  //     no two items add to one accumulator and the pieces of a band over two
+  //     passes add in pass order), or at the filter's last piece (i1 =
+  //     off[m + 1]) the log kind (logmel), the sum (plp) or the centroid
+  //     (ssc) of the whole written to its lane; item (ns, fl), but for ssc,
+  //     adds the pass's powers in bin order to the energy. A warp takes 32
+  //     frames of a segment; where the accumulators are in device memory,
+  //     items along a frame's row, and past 4 x kBfTeam segments a pass 32
+  //     segments over every frame (the pass table read once a tile, a
+  //     frame's outputs side by side).
+  const float* pw_rows = smem + lay.pw;
+  int* claim = reinterpret_cast<int*>(smem + lay.bar) + 2 * 2 * p.stages;  // 4 floats past the mbarriers
+  auto project = [&](int pass) {
+    const int nb = imin(kBfPassBins, p.bins - pass * kBfPassBins);
+    const int s0 = kind == kSpectrogram ? 0 : pt[pass];
+    const int ns = kind == kSpectrogram ? 0 : pt[pass + 1] - s0;
+    // frame fl's energy: the pass's powers in bin order
+    auto energy = [&](int fl) {
+      const float* pw = pw_rows + fl * kBfPowStride;
+      float e = 0.f;
+      for (int k = 0; k < nb; ++k) e += pw[k];
+      float* a = acc + static_cast<size_t>(fl) * p.nacc + e_at;
+      *a = pass == 0 ? e : *a + e;
+    };
+    // filter m's segment (weights i0 <= i < i1, bins from k0 of the pass;
+    // a later piece of its band, its last) over frame fl's row
+    auto segment = [&](int m, int i0, int i1, int k0, bool later, bool last, int fl) {
+      const float* q = pw_rows + fl * kBfPowStride + k0 - i0;  // q[i]: weight i's power
+      float sum = 0.f, sumf = 0.f;
+      for (int k = i0; k < i1; ++k) {
+        float v = q[k];
+        if (kind == kSsc) {
+          v = v <= 0.f ? p.eps : v;
+          sumf += v * bwf[k];
+        }
+        sum += v * bw[k];
+      }
+      float* a = acc + static_cast<size_t>(fl) * p.nacc;
+      if (later) {
+        sum = a[m] + sum;
+        if (kind == kSsc) sumf = a[M + m] + sumf;
+      }
+      if (last) {
+        out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + m] =
+            kind == kSsc ? __fdiv_rn(sumf, sum) : kind == kPlp ? sum : log_lane(sum, p);
+      } else {
+        a[m] = sum;
+        if (kind == kSsc) a[M + m] = sumf;
+      }
+    };
+    if (p.acc_global && kind != kSpectrogram && ns >= 4 * kBfTeam) {
+      // thousands of segments: a warp a unit, 32 segments, a lane's read
+      // once, over every frame of the tile (the lanes' outputs and
+      // accumulators side by side in a frame's row), then the energy, 32
+      // frames a unit
+      const int chunks = (ns + 31) / 32;
+      const int units = chunks + (kind == kSsc ? 0 : tile / 32);
+      for (;;) {
+        int u = 0;
+        if (lane == 0) u = atomicAdd(claim, 1);
+        u = __shfl_sync(0xffffffffu, u, 0);
+        if (u >= units) break;
+        if (u >= chunks) {
+          const int fl = 32 * (u - chunks) + lane;
+          if (f0 + fl < F) energy(fl);
+        } else if (32 * u + lane < ns) {
+          const int* sg = pt + p.npass + 1 + 4 * (s0 + 32 * u + lane);
+          const int m = sg[0], i0 = sg[1], i1 = sg[2], k0 = sg[3];
+          const bool later = i0 != off[m], last = i1 == off[m + 1];
+          for (int fl = 0; fl < tile && f0 + fl < F; ++fl) segment(m, i0, i1, k0, later, last, fl);
+        }
+      }
+      return;
+    }
+    // item (s, fl), 32 x kBfItems a claim, after a spectrogram's bins: a
+    // warp's 32 frames of one segment, or (the accumulators in device
+    // memory) its items along a frame's row; item (ns, fl) the energy
+    const int nspec = kind == kSpectrogram ? tile * nb : 0;
+    const int items = nspec + tile * (ns + (kind == kSsc ? 0 : 1));
+    for (;;) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(claim, 32 * kBfItems);
+      base = __shfl_sync(0xffffffffu, base, 0);
+      if (base >= items) break;
+#pragma unroll
+      for (int u = 0; u < kBfItems; ++u) {
+        const int i = base + 32 * u + lane;
+        if (i >= items) break;
+        if (i < nspec) {
+          const int fl = i / nb, k = i - fl * nb;
+          if (f0 + fl < F) {
+            out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + pass * kBfPassBins + k] =
+                log_lane(pw_rows[fl * kBfPowStride + k], p);
+          }
+          continue;
+        }
+        const int j = i - nspec, per = ns + (kind == kSsc ? 0 : 1);
+        const int fl = p.acc_global ? j / per : j % tile, s = p.acc_global ? j - fl * per : j / tile;
+        if (f0 + fl >= F) continue;
+        if (s == ns) {
+          energy(fl);
+          continue;
+        }
+        const int* sg = pt + p.npass + 1 + 4 * (s0 + s);
+        const int m = sg[0], i0 = sg[1], i1 = sg[2];
+        segment(m, i0, i1, sg[3], i0 != off[m], i1 == off[m + 1], fl);
+      }
+    }
+  };
+  // 4e. the epilogue: each frame's lane M, the energy (0 for ssc), by the
+  //     team's thread ti of kBfTeam (every filter's lane was written by its
+  //     last piece, a spectrogram's bins pass by pass)
+  auto epilogue = [&](int ti) {
+    for (int fl = ti; fl < tile && f0 + fl < F; fl += kBfTeam) {
+      const float e = acc[static_cast<size_t>(fl) * p.nacc + e_at];
+      out[(static_cast<size_t>(b) * F + f0 + fl) * (M + 1) + M] =
+          kind == kSsc ? 0.f : kCond && p.energy_source != kPspec ? fmaxf(ef[fl], p.eps) : e <= 0.f ? p.eps : e;
+    }
+  };
+
+  if (warp < kBfConsumers / 32) {
+    // 3b. the consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kBfConsumerRegs));
+    const int g = lane >> 2, t = lane & 3;
+    const int rbase = 64 * (warp >> 2);  // the warpgroup's first frame
+    const int r0 = rbase + 16 * (warp & 3) + g;
+    float* rows = smem + lay.pw;
+    // this thread's re/im of the pass in the re/im rows (row r, column
+    // 8j + 2t + c of re0, 136 more of re1), where the sums of each
+    // kBfPromote steps add up: the tensor cores' own accumulation drifts
+    // with the sum's length, so each stretch starts from 0 and adds to the
+    // rows in fp32
+    auto row_at = [&](int j, int h) {
+      return reinterpret_cast<float2*>(rows + (r0 + 8 * h) * kBfAccStride + 8 * j + 2 * t);
+    };
+    int c = 0;  // the ring's chunk: pass * steps + step
+    for (int pass = 0; pass < p.npass; ++pass) {
+      float re0[68], re1[68];  // bins [0, 68) and [68, 136) of the pass
+#pragma unroll
+      for (int i = 0; i < 68; ++i) re0[i] = re1[i] = 0.f;
+      // the handoff of the last pass's power rows: take what is left of its
+      // projection, then meet the projectors; before the rows are rewritten
+      auto handoff = [&]() {
+        if (pass > 0) {
+          project(pass - 1);
+          named_sync(kBarEmpty, kBfTeam);
+        }
+      };
+      bool first = true;
+      int held = -1;  // the stage the group in flight read
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s, ++c) {
+        const int slot = c % p.stages;
+        const bool drain = s + 1 == steps || (s + 1) % kBfPromote == 0;
+        if (dft) {
+          mbar_wait(full + slot, (c / p.stages) & 1);
+          __syncwarp();
+          const unsigned char* st = ring + slot * sbytes;
+          const unsigned char* at = p.gather ? st + kBfStageBytes : a_tile + static_cast<size_t>(s) * tile * kBfAChunk;
+          const uint64_t ah = b_desc(at + rbase * (kBfAChunk / 2));
+          const uint64_t al = b_desc(at + tile * (kBfAChunk / 2) + rbase * (kBfAChunk / 2));
+          const uint64_t wh = b_desc(st), wl = b_desc(st + kBfPartBytes);
+          const uint64_t second = (kBfGroups / 2) * 256 >> 4;  // columns [136, 272)
+          wgmma_fence();
+          fence_regs(re0);
+          fence_regs(re1);
+          wgmma_m64n136k16_ss(re0, ah, wh);
+          wgmma_m64n136k16_ss(re1, ah, wh + second);
+          wgmma_m64n136k16_ss(re0, al, wh);
+          wgmma_m64n136k16_ss(re1, al, wh + second);
+          wgmma_m64n136k16_ss(re0, ah, wl);
+          wgmma_m64n136k16_ss(re1, ah, wl + second);
+          wgmma_commit();
+          if (drain) {
+            wgmma_wait<0>();
+          } else {
+            wgmma_wait<1>();
+          }
+          fence_regs(re0);
+          fence_regs(re1);
+          if (held >= 0) mbar_arrive(empty + held);  // the group before has retired
+          held = slot;
+          if (drain) {
+            mbar_arrive(empty + slot);
+            held = -1;
+          }
+        }
+        if ((s + 1) % kBfPromote == 0 && s + 1 < steps) {
+          if (first) handoff();
+#pragma unroll
+          for (int j = 0; j < 17; ++j) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h;
+              float2* rw = row_at(j, h);
+              const float2 x = make_float2(re0[i], re0[i + 1]), y = make_float2(re1[i], re1[i + 1]);
+              rw[0] = first ? x : make_float2(rw[0].x + x.x, rw[0].y + x.y);
+              rw[kBfPassBins / 2] = first ? y : make_float2(rw[kBfPassBins / 2].x + y.x, rw[kBfPassBins / 2].y + y.y);
+              re0[i] = re0[i + 1] = re1[i] = re1[i + 1] = 0.f;
+            }
+          }
+          first = false;
+        }
+      }
+      if (!first) {  // the earlier stretches' sums, before the rows take the powers
+#pragma unroll
+        for (int j = 0; j < 17; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = 4 * j + 2 * h;
+            const float2* rw = row_at(j, h);
+            const float2 x = rw[0], y = rw[kBfPassBins / 2];
+            re0[i] += x.x;
+            re0[i + 1] += x.y;
+            re1[i] += y.x;
+            re1[i + 1] += y.y;
+          }
+        }
+        named_sync(kBarConsumers, kBfConsumers);  // every re/im read before the powers go over them
+      } else {
+        handoff();
+      }
+      // |X|^2 of each bin from its (cosine, sine) column pair, in registers,
+      // into its power row
+      auto store = [&](const float (&d)[68], int k0) {
+#pragma unroll
+        for (int j = 0; j < 17; ++j) {
+          const int k = k0 + 4 * j + t;
+          if (pass * kBfPassBins + k >= p.bins) break;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float x = d[4 * j + 2 * h], y = d[4 * j + 2 * h + 1];
+            rows[(r0 + 8 * h) * kBfPowStride + k] = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+          }
+        }
+      };
+      store(re0, 0);
+      store(re1, kBfPassBins / 2);
+      if (tid == 0) *claim = 0;
+      __threadfence_block();
+      if (pass + 1 < p.npass) {
+        named_arrive(kBarFull, kBfTeam);
+      } else {
+        named_sync(kBarFull, kBfTeam);
+        project(pass);
+        named_sync(kBarEnd, kBfTeam);
+        epilogue(tid);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kBfOtherRegs));
+    if (warp == kBfProducer / 32) {
+      // 3p. the producer: the first stages' A, then every later stage
+      if (lane == 0 && dft) {
+        if (abytes) {
+          for (int c = 0; c < imin(p.stages, chunks); ++c) {
+            bulk_copy(ring + c * sbytes + kBfStageBytes, a_tile + static_cast<size_t>(c % steps) * abytes, abytes,
+                      full + c);
+          }
+        }
+        for (int c = p.stages; c < chunks; ++c) {
+          const int slot = c % p.stages;
+          mbar_wait(empty + slot, ((c / p.stages) & 1) ^ 1);
+          mbar_expect_tx(full + slot, sbytes);
+          bulk_copy(ring + slot * sbytes, dft_matrix + static_cast<size_t>(c) * kBfStageBytes, kBfStageBytes,
+                    full + slot);
+          if (abytes) {
+            bulk_copy(ring + slot * sbytes + kBfStageBytes, a_tile + static_cast<size_t>(c % steps) * abytes,
+                      abytes, full + slot);
+          }
+        }
+      }
+    } else {
+      // 4p. the projectors: pass after pass as its power rows fill, the last
+      //     one and the epilogue with the consumers
+      for (int pass = 0; pass < p.npass; ++pass) {
+        named_sync(kBarFull, kBfTeam);
+        project(pass);
+        if (pass + 1 < p.npass) {
+          __threadfence_block();
+          named_arrive(kBarEmpty, kBfTeam);
+        }
+      }
+      named_sync(kBarEnd, kBfTeam);
+      epilogue(tid - kBfThreads + kBfTeam);
+    }
   }
 }
 
@@ -2985,18 +3349,30 @@ struct Launch {
   template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
   cudaError_t run() const {
     const Params& p = a.p;
-    const size_t bytes = smem_of<Sample, kResample, kDither, kCond, kBf16, kBlock>(p, a.pp);
-    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>;
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-    const dim3 grid = p.rows_global ? dim3(p.nslots) : dim3((p.F + p.tile - 1) / p.tile, a.B);
-    kernel<<<grid, kThreads, bytes, a.stream>>>(
-        static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window,
-        a.mel_w, a.melf_w,
-        a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
-        static_cast<const unsigned char*>(a.dft_matrix), a.taps, a.rows_ws, p, a.pp);
-    return cudaGetLastError();
+    if constexpr (kBf16 && kBlock) {
+      const size_t bytes = static_cast<size_t>(bf16_block_layout(p).total) * sizeof(float);
+      auto kernel = logmel_kernel_bf16<Sample, kDither, kCond>;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      kernel<<<dim3((p.F + p.tile - 1) / p.tile, a.B), kBfThreads, bytes, a.stream>>>(
+          static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window, a.mel_w,
+          a.melf_w, a.mel_off, a.bases, static_cast<const unsigned char*>(a.dft_matrix), a.rows_ws, p);
+      return cudaGetLastError();
+    } else {
+      const size_t bytes = smem_of<Sample, kResample, kDither, kCond, kBf16, kBlock>(p, a.pp);
+      auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>;
+      cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(bytes));
+      if (err != cudaSuccess) return err;
+      const dim3 grid = p.rows_global ? dim3(p.nslots) : dim3((p.F + p.tile - 1) / p.tile, a.B);
+      kernel<<<grid, kThreads, bytes, a.stream>>>(
+          static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window,
+          a.mel_w, a.melf_w,
+          a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases,
+          static_cast<const unsigned char*>(a.dft_matrix), a.taps, a.rows_ws, p, a.pp);
+      return cudaGetLastError();
+    }
   }
 };
 
@@ -3007,14 +3383,21 @@ struct Info {
   int* out;
   template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
   cudaError_t run() const {
-    auto kernel = logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>;
+    if constexpr (kBf16 && kBlock) {
+      return of(logmel_kernel_bf16<Sample, kDither, kCond>, kBfThreads);
+    } else {
+      return of(logmel_kernel<Sample, kResample, kDither, kCond, kBf16, kBlock>, kThreads);
+    }
+  }
+  template <typename Kernel>
+  cudaError_t of(Kernel kernel, int threads) const {
     cudaFuncAttributes attr = {};
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     }
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, kThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, threads, smem);
     }
     out[0] = attr.numRegs;
     out[1] = static_cast<int>(attr.localSizeBytes);
@@ -3458,9 +3841,10 @@ extern "C" {
 // workspace of nslots slots of groups x 2 FFT rows, then for SSC under
 // "gather_sums" nslots slots of groups x M melf sums (kernels/frontend.py
 // rows_workspace: ws_floats floats, its contents any), one slot for each
-// block of the persistent grid; where plan_bf16 takes "gather_out", rows_ws is the
-// accumulators' workspace [B, F, nacc] (ws_floats floats at least, its
-// contents any); null for every other plan. cluster > 0 takes the cluster
+// block of the persistent grid; where plan_bf16 takes a block plan past
+// "pass", rows_ws is its workspace (bf16_workspace: under "gather_out" the
+// accumulators [B, F, nacc], then each tile's A; ws_floats floats at
+// least, its contents any); null for every other plan. cluster > 0 takes the cluster
 // plan at that many blocks a frame (2, 4 or 8; refused where it does not
 // apply), in a persistent grid of nslots clusters (the card's active
 // clusters at most, kernels/frontend.py _active_clusters), its twiddle and
@@ -3490,10 +3874,8 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
   }
   const bool tensor = dft_form == kBf16x3;
   if (tensor && dft_matrix == nullptr) return cudaErrorInvalidValue;
-  if (p.acc_global &&
-      (rows_ws == nullptr || ws_floats < static_cast<long long>(B) * F * p.nacc)) {
-    return cudaErrorInvalidValue;
-  }
+  const long long bf16_ws = bf16_workspace(p, B);
+  if (bf16_ws > 0 && (rows_ws == nullptr || ws_floats < bf16_ws)) return cudaErrorInvalidValue;
   if (p.cluster) {
     if (nslots < 1) return cudaErrorInvalidValue;
     p.nslots = nslots;

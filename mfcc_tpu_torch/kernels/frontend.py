@@ -36,10 +36,11 @@ lane M holds the clamped (unlogged) energy (0 for SSC). Output
 empty prefix without a launch). The last plan's layout depends on neither
 n_fft nor the hop nor the frame length nor the filter count, so the
 Stockham and Bluestein forms take every config the reference takes, and so
-does the bf16x3 opt-in (`bf16_layout`: past its staged plan, the power rows
-of one pass at a time, then each frame, the packed bands and the
-accumulators in device memory); only a bf16x3 matrix over the card's memory
-is refused, on the card (`bf16_matrix_reason`).
+does the bf16x3 opt-in (`bf16_layout`: past its staged plan, the block
+plans' kernel, the tile's A built once in shared memory or the workspace,
+then the packed bands and the accumulators in device memory); only a bf16x3
+matrix over the card's memory is refused, on the card
+(`bf16_matrix_reason`).
 
 Resampling configs (input_sample_rate != sample_rate) take rows at the
 input rate, with lengths in input samples, F = cfg.num_frames(output_length
@@ -516,18 +517,22 @@ def cluster_bases(n_fft: int, form: str, C: int) -> np.ndarray:
 
 BF16_STEP = 16  # K of one wgmma step: one k16 slice of the matrix a ring stage
 BF16_PASS_BINS = 136  # bins a pass: two m64n136k16 products over 272 interleaved columns
-BF16_TILES = (64, 32)  # frames a block, the first whose layout fits
+BF16_TILES = (64, 32)  # frames a block of the staged plan, the first whose layout fits
+BF16_BLOCK_TILE = 128  # frames a block of the block plans (csrc/frontend.cu kBfTile)
 BF16_STAGES = (4, 3, 2)  # ring stages, the first whose layout fits
+BF16_BLOCK_THREADS = 384  # the block plans' kernel: two consumer warpgroups, the producer and projectors
 # the bf16x3 form's plans (csrc/frontend.cu plan_bf16, kBfLadder): the power
-# rows of every bin; then the power rows of one pass, projected pass by pass
-# into per-frame accumulators; the same with each frame read from device
-# memory (no span, no window staged); with the packed bands and the pass
-# table read from device memory too; and with the accumulators in a workspace
-# in device memory too
+# rows of every bin; then the block plans, each pass of 136 bins projected
+# into per-frame accumulators while the next one's products run, the tile's
+# A (the conditioned frames' bf16 hi and lo) built once: in shared memory;
+# in the tile's rows of a workspace in device memory, streamed through the
+# ring beside the matrix; the same with the packed bands and the pass table
+# read from device memory too; and with the accumulators in the workspace
+# too
 BF16_PLANS = ("staged", "pass", "gather", "gather_bands", "gather_out")
-# what each bf16x3 plan does (csrc/frontend.cu kBfLadder): (power rows of one
-# pass, each frame from device memory, the packed bands and the pass table
-# from device memory, the accumulators in a workspace in device memory)
+# what each bf16x3 plan does (csrc/frontend.cu kBfLadder): (a block plan,
+# the tile's A in the workspace, the packed bands and the pass table from
+# device memory, the accumulators in the workspace)
 BF16_TRAITS = {
     "staged": (False, False, False, False),
     "pass": (True, False, False, False),
@@ -535,13 +540,18 @@ BF16_TRAITS = {
     "gather_bands": (True, True, True, False),
     "gather_out": (True, True, True, True),
 }
-# (plan, frames a block, ring stages) in the order bf16_layout tries them
-BF16_LAYOUTS = tuple((plan, t, s) for plan in BF16_PLANS for t in BF16_TILES for s in BF16_STAGES)
+# (plan, frames a block, ring stages) in the order bf16_layout tries them:
+# the staged plan, then the block plans
+BF16_LAYOUTS = (tuple(("staged", t, s) for t in BF16_TILES for s in BF16_STAGES)
+                + tuple((plan, BF16_BLOCK_TILE, s) for plan in BF16_PLANS[1:] for s in BF16_STAGES))
 # the block plans: steps whose products the tensor cores sum before the sum
-# joins the pass's re/im rows in fp32 (csrc/frontend.cu kBfPromote), and the
-# floats between two frames' re/im rows, over which the pass's powers go
+# joins the pass's re/im rows in fp32 (csrc/frontend.cu kBfPromote); the
+# floats between two frames' re/im rows, over which the pass's powers go,
+# and between two frames' power rows; the bytes of one frame's A a step
 BF16_PROMOTE = 25
 BF16_PASS_STRIDE = 2 * BF16_PASS_BINS + 8
+BF16_POWER_STRIDE = BF16_PASS_BINS + 1
+BF16_A_CHUNK = 2 * BF16_STEP * 2
 BF16_MATRIX_CACHE_BYTES = 2 << 30  # the card's matrices kept at once (`_device_bf16_matrix`)
 
 
@@ -763,6 +773,20 @@ def bf16_accumulators(cfg: FrontendConfig) -> int:
     return 2 * cfg.n_mels if kind == "ssc" else 1 if kind == "spectrogram" else cfg.n_mels + 1
 
 
+def bf16_workspace(cfg: FrontendConfig, B: int, F: int, int16: bool = True) -> int:
+    """Floats of the bf16x3 block plans' workspace for B rows of F frames
+    (csrc/frontend.cu bf16_workspace): under "gather_out" the accumulators
+    [B, F, `bf16_accumulators`], rounded up to 128 bytes; then, past "pass",
+    each tile's A, tile x kp floats (bf16 hi and lo of kp samples a frame);
+    0 for "staged" and "pass"."""
+    plan, tile, _ = bf16_layout(cfg, int16)
+    block, gather, _, acc_dev = BF16_TRAITS[plan]
+    if not block:
+        return 0
+    acc = -(-B * F * bf16_accumulators(cfg) // 32) * 32 if acc_dev else 0
+    return acc + (B * -(-F // tile) * tile * bf16_dims(cfg)[0] if gather else 0)
+
+
 @functools.lru_cache(maxsize=None)
 def packed_count(cfg: FrontendConfig) -> int:
     """Entries of cfg's packed mel table (`mel_packed`): each filter's band
@@ -788,28 +812,41 @@ def _a4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def _a32(n: int) -> int:
+    return (n + 31) & ~31
+
+
 def _bf16_smem(cfg: FrontendConfig, plan: str, tile: int, stages: int, int16: bool = True) -> int:
     """Shared memory per block of cfg's bf16x3 layout in a plan of
     `BF16_PLANS` at `tile` frames and `stages` ring stages, for int16 or
-    float32 rows (csrc/frontend.cu layout): the head (the signal row and the
-    window unless the plan reads each frame from device memory; the packed
-    bands and, in the block plans, the pass table, unless it reads them from
-    device memory), then the ring at a 128-byte boundary and its mbarriers;
-    in "staged" the power rows of every bin, the frame energies and means
+    float32 rows. "staged" (csrc/frontend.cu layout): the signal row, the
+    window and the packed bands, then the ring at a 128-byte boundary and
+    its mbarriers, the power rows of every bin, the frame energies and means
     and the per-warp projection scratch, which the fused resample's input
     window overlays, widening them only where it is longer, then its tap
-    table; in the block plans the re/im rows of one pass (then its powers),
-    the frame energies and means and the accumulators (`bf16_accumulators`;
-    none where they are in device memory)."""
-    by_pass, gather, bands_dev, acc_dev = BF16_TRAITS[plan]
-    head = 0 if gather else _a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft))
-    if not bands_dev:
-        head += _bands(cfg) + (_a4(pass_table_words(cfg)) if by_pass else 0)
-    ring = stages * 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # hi and lo, bf16 in floats
-    n = ((head + 31) & ~31) + ring + _a4(4 * stages)
-    if by_pass:
-        return 4 * (n + tile * BF16_PASS_STRIDE + 2 * _a4(tile)
-                    + (0 if acc_dev else _a4(tile * bf16_accumulators(cfg))))
+    table. The block plans (csrc/frontend.cu bf16_block_layout): the packed
+    weights (and SSC's melf weights), the filters' offsets and the pass
+    table unless they are read from device memory; at a 128-byte boundary the ring, each stage a matrix
+    chunk and, where A is in the workspace, the tile's A of that step; its
+    mbarriers and the projection's claim counter; at a 128-byte boundary the
+    tile's A ("pass"); one pass's power rows (stride 137), or where a pass
+    takes more than BF16_PROMOTE steps its re/im rows (stride 280); the
+    frames' energies and means; the accumulators (`bf16_accumulators`) unless
+    they are in device memory. The block plans stage no signal and no
+    window: A is built from device memory."""
+    block, gather, bands_dev, acc_dev = BF16_TRAITS[plan]
+    ring = 2 * BF16_STEP * 2 * BF16_PASS_BINS // 2  # a stage's matrix chunk: hi and lo, bf16 in floats
+    if block:
+        kp = bf16_dims(cfg)[0]
+        tables = mel_matrices(cfg)
+        n = (tables * _a4(packed_count(cfg)) + _a4(cfg.n_mels + 1) + _a4(pass_table_words(cfg))
+             if tables and not bands_dev else 0)
+        n = _a32(n) + stages * (ring + (tile * BF16_A_CHUNK // 4 if gather else 0)) + 4 * stages + 4
+        n = _a32(n) + (0 if gather else tile * kp)
+        rows = BF16_PASS_STRIDE if kp // BF16_STEP > BF16_PROMOTE else BF16_POWER_STRIDE
+        return 4 * (n + tile * rows + 2 * tile + (0 if acc_dev else _a4(tile * bf16_accumulators(cfg))))
+    head = _a4(_span(cfg, tile) + _wide(cfg)) + _a4(max(cfg.frame_length, cfg.n_fft)) + _bands(cfg)
+    n = _a32(head) + stages * ring + _a4(4 * stages)
     fir, taps = _fir_floats(cfg, tile, int16)
     rows = tile * bf16_power_stride(cfg) + 2 * _a4(tile) + WARPS * _a4(mel_matrices(cfg) * (32 + cfg.n_mels))
     return 4 * (n + max(rows, _a4(fir)) + _a4(taps))
@@ -856,20 +893,20 @@ def _fir_floats(cfg: FrontendConfig, tile: int, int16: bool) -> tuple[int, int]:
 def bf16_layout(cfg: FrontendConfig, int16: bool = False) -> tuple[str, int, int]:
     """(plan, frames a block, ring stages) of the bf16x3 form for int16 or
     float32 rows (csrc/frontend.cu plan_bf16): the first of `BF16_LAYOUTS`
-    whose layout fits the block, 64 or 32 frames (a wgmma's 64 rows; at 32
-    the upper 32 are zero) and 4, 3 or 2 stages in each plan. "staged": the
-    tile's span, window, packed bands and power rows of every bin (in the
-    fused resample with its input window of that many frames and its taps);
-    where those are over the block (n_fft from 2,245 at classic13, long hops
-    and frames), the plain form's block plans: "pass", the power rows of
-    one pass of 136 bins, each pass projected into per-frame accumulators
-    before the next; "gather", the same with each frame read from device
-    memory (no span, no window); "gather_bands", the packed bands and the
-    pass table read from device memory too; "gather_out", the accumulators
-    in a workspace in device memory too (thousands of filters), a layout of
-    the ring and one pass's rows alone. A resampling config's fused form
-    takes "staged" alone (else its smallest, and the wrapper takes the split
-    route, `resample_route`)."""
+    whose layout fits the block. "staged" at 64 or 32 frames (a wgmma's 64
+    rows; at 32 the upper 32 are zero) and 4, 3 or 2 stages: the tile's
+    span, window, packed bands and power rows of every bin (in the fused
+    resample with its input window of that many frames and its taps). Where
+    those are over the block (n_fft from 2,245 at classic13, long hops and
+    frames), the plain form's block plans at 128 frames (two consumer
+    warpgroups of 64), each pass of 136 bins projected into per-frame
+    accumulators while the next one's products run: "pass", the tile's A in shared memory; "gather", A in the
+    tile's rows of the workspace, streamed through the ring; "gather_bands",
+    the packed bands and the pass table read from device memory too;
+    "gather_out", the accumulators in the workspace too (thousands of
+    filters). A resampling config's fused form takes "staged" alone (else
+    its smallest, and the wrapper takes the split route,
+    `resample_route`)."""
     layouts = BF16_LAYOUTS[: len(BF16_TILES) * len(BF16_STAGES)] if chain.resamples(cfg) else BF16_LAYOUTS
     for plan, tile, stages in layouts:
         if _bf16_smem(cfg, plan, tile, stages, int16) <= rs_kernel.SMEM_BUDGET_BYTES:
@@ -1132,9 +1169,11 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
         cfg = feature_rate_config(cfg)  # the split route's front-end launch
     out = (ctypes.c_int * 3)()
     form = kernel_form(cfg, dft_passes)
+    threads = THREADS
     if form == "bf16x3":
         smem = smem_bytes(cfg, dft_passes, int16)
         block = not chain.resamples(cfg) and bf16_layout(cfg, int16)[0] != "staged"
+        threads = BF16_BLOCK_THREADS if block else THREADS
     else:  # the layout of the plan the mirror takes now (not smem_bytes' cached one)
         plan, groups = fft_layout(cfg, form, int16)
         smem = _fft_smem(cfg, form, plan, int16, groups)
@@ -1147,7 +1186,8 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
     if rc != 0:
         raise RuntimeError(f"front-end kernel info failed: "
                            f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
-    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem}
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem,
+            "threads": threads}
 
 
 def _cluster_info(cfg: FrontendConfig, int16: bool, C: int, smem: int) -> dict:
@@ -1389,8 +1429,8 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
                                        _resident_blocks(at_rate, int16, audio.device))
         ws = _workspace(floats, audio.device)
         rows = (ws.data_ptr(), slots, floats)
-    elif bf16 == "gather_out":  # the accumulators' workspace, frame after frame
-        floats = B * F * bf16_accumulators(cfg)
+    elif bf16 not in (None, "staged", "pass"):  # the accumulators and the tiles' A
+        floats = bf16_workspace(cfg, B, F, int16)
         ws = _workspace(floats, audio.device)
         rows = (ws.data_ptr(), 0, floats)
     if bf16 not in (None, "staged") and mel_matrices(cfg):  # the pass table rides `bases`

@@ -52,16 +52,13 @@ and "gather_sums" (`FORCED`, one group each) and times each in turns with
 the default build at `FORCED_AT` (classic13_deltas at n_fft 6001, b16 x 10
 s, where "gather_global" at one group fits), printing whether the outputs
 are equal bitwise: the three plans move operands to device memory and
-change no arithmetic. The bf16x3 form's staged plan is timed the same way, in turns
-with the parent's, at `BF16X3_TURNS` (classic13 b64 x 10 s, and the fused
-resample at mfcc39_48k b64 x 10 s; where the parent has them, the "gather"
-plan at a 0.1 s hop, classic13 b16 x 10 s, and librosa's 8192-point framing,
-b16 x 10 s), and this checkout's bf16x3 block
-plans forced past "pass" to "gather" (`BF16X3_FORCED_AT`: classic13 at
-n_fft 4096, b16 x 10 s, whose default is "pass") in turns with the default
-build: the cost of reading each frame from device memory where the span
-could be staged; --bf16x3 builds the two checkouts' frontend.cu and the
-forced build alone and times only those.
+change no arithmetic. The bf16x3 form is timed the same way, in turns with
+the parent's, at `BF16X3_TURNS`: its staged plan (classic13 b64 x 10 s) and
+fused resample (mfcc39_48k b64 x 10 s), and, where the parent has them, its
+block plans at each of their layouts (classic13_deltas at n_fft 4,096 b64;
+a 0.1 s hop, 1.1 s frames, 10 ms frames at n_fft 4,096 and n_fft 32,768;
+librosa's 8,192-point framing b16 x 30 s; 2,000 and 40,000 filters).
+--bf16x3 builds the two checkouts' frontend.cu alone and times only those.
 """
 
 from __future__ import annotations
@@ -102,13 +99,15 @@ TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("cl
          ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16), ("mfcc39_48k", {}, 64))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
               ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
-# --parent: (config, overrides, rows) of the bf16x3 form: its staged plan,
-# then (where the parent has them) its "gather" plan; the bf16x3 ladder's
-# loop (csrc/frontend.cu plan_bf16) and the config its "gather" is forced at
-BF16X3_TURNS = (("classic13", {}, 64), ("mfcc39_48k", {}, 64), ("classic13", dict(hop_s=0.1), 16),
-                ("logmel80", LIBROSA_8192, 16))
-BF16X3_SEARCH = "  for (const auto& rung : kBfLadder) {"
-BF16X3_FORCED_AT = ("classic13", dict(n_fft=4096), 16)
+# --parent: (config, overrides, rows[, seconds a row: 10]) of the bf16x3
+# form: its staged plan and fused resample, then (where the parent has them)
+# its block plans at each layout
+BF16X3_TURNS = (("classic13", {}, 64), ("mfcc39_48k", {}, 64), ("classic13_deltas", dict(n_fft=4096), 64),
+                ("classic13_deltas", dict(hop_s=0.1), 16), ("classic13_deltas", dict(win_len_s=1.1), 16),
+                ("classic13_deltas", dict(win_len_s=0.01, n_fft=4096), 16),
+                ("classic13_deltas", dict(n_fft=32768), 4), ("logmel80", LIBROSA_8192, 16, 30),
+                ("classic13_deltas", dict(n_mels=2000, n_fft=4096), 4),
+                ("classic13_deltas", dict(n_mels=40000), 16))
 FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
                 "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info")
 # --parent: the plans forced at one group, and the config they are forced at
@@ -265,15 +264,15 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
     forced = () if bf16x3_only else FORCED
     for plan, start in forced:  # this checkout's source, the search started at the plan
         (out / f"forced_{plan}.cu").write_text(variant(src, start))
-    check(src.count(BF16X3_SEARCH) == 1, "plan_bf16's ladder found")
-    (out / "forced_bf16_gather.cu").write_text(
-        src.replace(BF16X3_SEARCH, BF16X3_SEARCH + "\n    if (rung[0] == 0) continue;  // past \"pass\""))
     cus = {**{j: trees[j[0]] / f"{j[1]}.cu" for j in jobs},
-           **{(plan, "frontend"): out / f"forced_{plan}.cu" for plan, _ in forced},
-           ("bf16_gather", "frontend"): out / "forced_bf16_gather.cu"}
+           **{(plan, "frontend"): out / f"forced_{plan}.cu" for plan, _ in forced}}
+    def build_job(j):
+        if j[0] == "change":  # this checkout's own build (kernels/_build.py, cached)
+            return _build.build(j[1])[0]
+        return build(cus[j], trees.get(j[0], _build.CSRC), out / f"{j[0]}_{j[1]}.so")
+
     with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
-        sos = dict(zip(cus, pool.map(lambda j: build(cus[j], trees.get(j[0], _build.CSRC),
-                                                     out / f"{j[0]}_{j[1]}.so"), cus)))
+        sos = dict(zip(cus, pool.map(build_job, cus)))
     legacy = "int cluster, void* stream" not in (trees["parent"] / "frontend.cu").read_text()
     fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS, legacy and key == "parent")
           for key in trees}
@@ -292,47 +291,21 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
     # a parent whose packed table carries each weight's filter reads it so
     packing = {"parent": filter_field_meta if "meta_filter" in parent_src else frontend.packed_meta,
                "change": frontend.packed_meta}
-    for name, over, n_rows in BF16X3_TURNS:
+    for name, over, n_rows, *secs in BF16X3_TURNS:
+        seconds = secs[0] if secs else 10
         cfg = named_config(name).replace(**over)
         check(frontend.resample_route(cfg, "bf16x3") in (None, "fused"), f"{name} takes no split route")
         if frontend.bf16_layout(cfg)[0] != "staged" and not block_parent:
             continue  # the parent refuses the bf16x3 form past its staged plan
-        audio, lengths = rows(pad_batch, cfg, n_rows)
+        audio, lengths = rows(pad_batch, cfg, n_rows, seconds=seconds)
         fn = lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")  # noqa: E731
         ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel", packing)
         errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
         if testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL):
             raise SystemExit(f"{name} {over} bf16x3: the builds disagree: {errs}")
-        report(f"front-end bf16x3 {name} {over} b{n_rows} x 10 s, {frontend.bf16_layout(cfg, True)}", ms, outs)
+        report(f"front-end bf16x3 {name} {over} b{n_rows} x {seconds} s, {frontend.bf16_layout(cfg, True)}",
+               ms, outs)
         del audio, lengths, outs
-    # this checkout's bf16x3 block plans forced to "gather" against its
-    # default build ("pass") in turns
-    name, over, n_rows = BF16X3_FORCED_AT
-    cfg = named_config(name).replace(**over)
-    check(frontend.bf16_layout(cfg)[0] == "pass", f"{name} {over} takes pass")
-    audio, lengths = rows(pad_batch, cfg, n_rows)
-    own, own_layout = frontend._lib, frontend.bf16_layout
-    forced = next((p, t, s) for p, t, s in frontend.BF16_LAYOUTS
-                  if p == "gather" and frontend._bf16_smem(cfg, p, t, s) <= frontend.rs_kernel.SMEM_BUDGET_BYTES)
-    libs = {"parent": fe["change"], "change": bind(sos["bf16_gather", "frontend"], frontend._lib(), FRONTEND_FNS)}
-    ms = {key: [] for key in libs}
-    outs = {}
-    try:
-        for key in ("parent", "change", "change", "parent"):
-            frontend._lib = lambda key=key: libs[key]
-            # the mirror follows the build (the launch's counts)
-            frontend.bf16_layout = own_layout if key == "parent" else (lambda *a, **k: forced)
-            fn = lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3")  # noqa: E731
-            outs[key] = fn()
-            ms[key].append(chip_smoke.device_ms(torch, fn, "logmel_kernel"))
-    finally:
-        frontend._lib, frontend.bf16_layout = own, own_layout
-    errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
-    if testing.prefix_failures(errs, testing.BF16X3_LOUD_ATOL):
-        raise SystemExit(f"bf16x3 gather forced at {name} {over}: the builds disagree: {errs}")
-    report(f"front-end bf16x3 {name} {over} b{n_rows} x 10 s forced to {forced} (change) against "
-           f"{own_layout(cfg)} (parent)", ms, outs)
-    del audio, lengths, outs
     if bf16x3_only:
         return 0
     tl = {key: bind(sos[key, "tail"], tail._lib(), TAIL_FNS) for key in trees}

@@ -34,6 +34,18 @@ the cluster plan's loads of its ranks' samples) and P2 after the powers
 (the cluster plan: every rank's stored). An older checkout at DIR (its
 source compiled whole) gives the parent's breakdown. The cuts build with
 this checkout's kernels/_build.py (in parts where the source has them).
+
+With --bf16 it times the bf16x3 form's block plans (`BF16_CASES`:
+classic13_deltas at n_fft 4,096 b64 x 10 s, librosa's
+melspectrogram(n_fft=8192) framing b16 x 30 s, classic13_deltas with
+40,000 filters b16 x 10 s) whole and with one piece taken out at a time
+(`BF16_CUTS`, anchored in the source of either the checkout or an older
+one): the A operand's build, the wait for the ring's matrix chunks, the
+tensor-core products, |X|^2 with the projection, and the epilogue. Whole
+less a cut is that piece's exposed time (the pieces overlap, so they do
+not add up to the whole). Only the int16 block-plan instantiations differ
+between cuts: the other parts of the source are compiled once and linked
+into every cut's library.
 """
 
 from __future__ import annotations
@@ -302,10 +314,163 @@ LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, ho
 LARGE = (("logmel80", 64, 30, "radix4", LIBROSA_16384), ("classic13_deltas", 16, 10, "radix4", {"n_fft": 32768}))
 
 
+# --bf16: the bf16x3 block plans' cases (chip_smoke.py BF16X3_PLANS and
+# MANY_FILTERS): "pass" at n_fft 4,096, "gather" at librosa's 8,192-point
+# framing (L = n_fft), "gather_out" at 40,000 filters
+LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
+BF16_CASES = (("classic13_deltas", 64, 10, "bf16x3", {"n_fft": 4096}),
+              ("logmel80", 16, 30, "bf16x3", LIBROSA_8192),
+              ("classic13_deltas", 16, 10, "bf16x3", {"n_mels": 40000}))
+# the pieces each cut takes out of the block plans, as (anchor, replacement)
+# pairs of the source: the parent's design ("register A": the A fragment
+# built from the frame in registers each step of each pass)
+BF16_CUTS = {
+    "register A": {
+        "A build": [("            fragment(imin(s + 1, steps - 1) * kBfStep, nh, nl);",
+                     "            for (int q = 0; q < 4; ++q) { nh[q] = ah[q]; nl[q] = al[q]; }")],
+        "ring wait": [("              mbar_wait(full + slot, (c / p.stages) & 1);",
+                       "              if (c < p.stages) mbar_wait(full + slot, (c / p.stages) & 1);"),
+                      ("    } else if (threadIdx.x == kProducer && (dft || !kBlock)) {",
+                       "    } else if (threadIdx.x == kProducer && (dft && !kBlock)) {")],
+        "products": [("              products(slot, ah, al);", "              (void)ah;")],
+        "projection": [("          project(pass);", "          (void)pass;")],
+        "epilogue": [("      for (int i = threadIdx.x; i < tile * (M + 1); i += kThreads) {",
+                      "      for (int i = threadIdx.x; i < 0; i += kThreads) {")],
+    },
+    # the redesign ("A once a tile"): A built once a tile into shared memory
+    # or the workspace, two consumer warpgroups, the projection on warps of
+    # its own
+    "A once a tile": {
+        "A build": [("    for (int u = tid; u < steps * 2 * tile; u += kBfThreads) {",
+                     "    for (int u = tid; u < 0; u += kBfThreads) {")],
+        "ring wait": [("        if (dft) {\n          mbar_wait(full + slot, (c / p.stages) & 1);",
+                       "        if (dft) {\n          if (c < p.stages) mbar_wait(full + slot, (c / p.stages) & 1);"),
+                      ("        for (int c = p.stages; c < chunks; ++c) {",
+                       "        for (int c = chunks; c < chunks; ++c) {")],
+        "products": [("          fence_regs(re1);\n          wgmma_m64n136k16_ss(re0, ah, wh);",
+                      "          fence_regs(re1);\n          if (false) {\n          wgmma_m64n136k16_ss(re0, ah, wh);"),
+                     ("          wgmma_m64n136k16_ss(re1, ah, wl + second);\n",
+                      "          wgmma_m64n136k16_ss(re1, ah, wl + second);\n          }\n")],
+        "projection": [("  auto project = [&](int pass) {\n",
+                        "  auto project = [&](int pass) {\n    if (pass >= 0) return;\n")],
+        "epilogue": [("    for (int fl = ti; fl < tile && f0 + fl < F; fl += kBfTeam) {",
+                      "    for (int fl = ti; fl < 0; fl += kBfTeam) {")],
+    },
+}
+# the source's part (FRONTEND_PART) of the int16 block-plan instantiations
+BF16_BLOCK_PART = 7
+
+
+def bf16_variants(src: str) -> dict[str, str]:
+    """The source whole and with each cut of the design whose anchors it
+    holds (each anchor once)."""
+    for design, cuts in BF16_CUTS.items():
+        if all(src.count(a) == 1 for pairs in cuts.values() for a, _ in pairs):
+            out = {"whole": src}
+            for name, pairs in cuts.items():
+                text = src
+                for a, r in pairs:
+                    text = text.replace(a, r)
+                out[name] = text
+            return design, out
+    raise SystemExit("no bf16x3 block-plan design's anchors found in the source")
+
+
+def build_bf16_cuts(csrc: pathlib.Path, out: pathlib.Path):
+    """Every cut of `bf16_variants` into the directory `out`: the source's
+    parts compiled once, the int16 block-plan part once a cut, each cut's
+    library linked from them; (design, {cut: library path}, compiler log of
+    the whole's block-plan part)."""
+    _build = own_build()
+    design, texts = bf16_variants((csrc / "frontend.cu").read_text())
+    out.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    nparts = _build.PARTS["frontend"]
+    jobs = [(name, k) for k in range(nparts) for name in ("whole",) if k != BF16_BLOCK_PART]
+    jobs += [(name, BF16_BLOCK_PART) for name in texts]
+    for name, text in texts.items():
+        (out / f"{_slug(name)}.cu").write_text(text)
+
+    def compile_part(job):
+        name, k = job
+        obj = out / f"{_slug(name)}.part{k}.o"
+        log = _build._run([*flags, "-c", f"-DFRONTEND_PART={k}", "-I", str(csrc), "-o", str(obj),
+                           str(out / f"{_slug(name)}.cu")], f"{name} part {k}")
+        return obj, log
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        done = dict(zip(jobs, pool.map(compile_part, jobs)))
+    libs = {}
+    for name in texts:
+        objs = [done[("whole", k) if k != BF16_BLOCK_PART else (name, k)][0] for k in range(nparts)]
+        lib = out / f"{_slug(name)}.so"
+        _build._run([*_build.NVCC_FLAGS, "-o", str(lib), *map(str, objs)], f"the link of {name}")
+        libs[name] = lib
+    return design, libs, done[("whole", BF16_BLOCK_PART)][1]
+
+
+def _slug(name: str) -> str:
+    return name.replace(" ", "_")
+
+
+def bf16_main(root: pathlib.Path, torch, frontend, _build, named_config, pad_batch, card: str) -> int:
+    """--bf16: each of BF16_CASES whole and with each cut taken out, in
+    turns (the cuts, then whole, then whole and the cuts again), device
+    time of the kernel, L2 flushed before each launch."""
+    csrc = root / "mfcc_tpu_torch" / "kernels" / "csrc"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        design, paths, log = build_bf16_cuts(csrc, pathlib.Path(tmp))
+        print(f"{root}: the {design} design, built {len(paths)} cuts in {time.perf_counter() - t0:.1f} s")
+        for line in re.findall(r"Compiling entry function '(\S*logmel_kernel\S*)'.*?\n(.*?registers.*?)\n",
+                               log, re.S):
+            print(f"  ptxas {line[0][:60]}: {' '.join(line[1].split())}")
+        load = _build.load
+        _build.load = lambda name: ctypes.CDLL(str(paths["whole"])) if name == "frontend" else load(name)
+        frontend._lib.cache_clear()
+        whole = frontend._lib()
+        libs = {}
+        for name, path in paths.items():
+            lib = ctypes.CDLL(str(path))
+            for fn in ("mfcc_frontend_logmel", "mfcc_frontend_error_string", "mfcc_frontend_kernel_info"):
+                getattr(lib, fn).argtypes = getattr(whole, fn).argtypes
+                getattr(lib, fn).restype = getattr(whole, fn).restype
+            libs[name] = lib
+        for name, B, secs, passes, over in BF16_CASES:
+            cfg = named_config(name).replace(**over)
+            n = cfg.sample_rate * secs
+            g = np.random.default_rng(0)
+            utts = [(g.standard_normal(n - 571 * i) * 3000).astype(np.int16) for i in range(B)]
+            batch = pad_batch(utts, cfg, bucket_len=n, dtype="int16")
+            audio = torch.as_tensor(batch.audio, device="cuda")
+            lengths = torch.as_tensor(batch.lengths, device="cuda")
+            order = [c for c in libs if c != "whole"] + ["whole"]
+            ms = {c: [] for c in libs}
+            own = frontend._lib
+            try:
+                for cut in order + order[::-1]:
+                    frontend._lib = lambda cut=cut: libs[cut]
+                    ms[cut].append(device_ms(torch, lambda: frontend.logmel_prefix(
+                        audio, lengths, cfg, dft_passes=passes)))
+            finally:
+                frontend._lib = own
+            info = frontend.kernel_info(cfg, True, passes)
+            w = float(np.mean(ms["whole"]))
+            parts = ", ".join(f"{c} {w - float(np.mean(ms[c])):.4f}" for c in libs if c != "whole")
+            print(f"  {name}{''.join(f' {k} {v}' for k, v in over.items())} b{B} x {secs} s, "
+                  f"{frontend.bf16_layout(cfg, True)}: whole {w:.4f} ms (runs {ms['whole'][0]:.4f}, "
+                  f"{ms['whole'][1]:.4f}); exposed: {parts}; without each: "
+                  f"{', '.join(f'{c} {float(np.mean(ms[c])):.4f}' for c in libs if c != 'whole')}; "
+                  f"{frontend.smem_bytes(cfg, passes, True)} B a block, {info} [{card}]")
+            del audio, lengths
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
     ap.add_argument("--large", action="store_true", help="phase 29's two cases (LARGE) alone")
+    ap.add_argument("--bf16", action="store_true", help="the bf16x3 block plans' cuts (BF16_CASES) alone")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
     import torch
@@ -320,6 +485,8 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if args.bf16:
+        return bf16_main(root, torch, frontend, _build, named_config, pad_batch, card)
     csrc = root / "mfcc_tpu_torch" / "kernels" / "csrc"
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

@@ -217,8 +217,8 @@ def test_dft_passes_validation_and_routing():
     # a ring of four 17,408-byte matrix stages and its mbarriers, the tile's
     # power rows (stride 292), energies and means, the projection's scratch
     # (194,752 B at classic13, one block an SM); n_fft 4096's power rows of
-    # every bin are over the block, so it takes the power rows of one pass
-    # ("pass"); 60,000 filters, refused before (the packed table's filter
+    # every bin are over the block, so it takes a block plan ("gather": the
+    # tile's A, kp = 400, in the workspace); 60,000 filters, refused before (the packed table's filter
     # field), take "gather_out"; what is still refused is, on the card, a
     # matrix over the card's memory
     assert frontend.bf16_plan(cfg) == (64, 4) and frontend.bf16_power_stride(cfg) == 292
@@ -226,7 +226,7 @@ def test_dft_passes_validation_and_routing():
     assert frontend.smem_bytes(cfg, "bf16x3") == 194752
     assert frontend.layout_reason(cfg, "bf16x3") is None
     assert frontend.layout_reason(cfg.replace(n_fft=4096), "bf16x3") is None
-    assert frontend.bf16_layout(cfg.replace(n_fft=4096))[0] == "pass"
+    assert frontend.bf16_layout(cfg.replace(n_fft=4096))[0] == "gather"
     assert frontend.layout_reason(cfg.replace(n_mels=60000), "bf16x3") is None
     assert frontend.bf16_layout(cfg.replace(n_mels=60000))[0] == "gather_out"
     wide = cfg.replace(n_fft=131072, win_len_s=131072 / 16000)

@@ -3,27 +3,37 @@ takes: the block plans of csrc/frontend.cu's bf16x3 form ≡ the JAX package.
 
 The bf16x3 form staged the tile's span, window, packed bands and the power
 rows of every bin, so n_fft from 2,245 at classic13, hops from ~0.07 s and
-frames from ~1 s were over the block. `frontend.bf16_layout` now takes,
-after that "staged" plan, the plain form's block plans: "pass" (the power
-rows of one pass of 136 bins, each pass projected into per-frame
-accumulators before the next overwrites them), "gather" (each frame read
-from device memory, no span and no window staged), "gather_bands" (the
-packed bands and the pass table read from device memory too) and
-"gather_out" (the accumulators in a workspace in device memory too). On the
-card only the matrix's bytes bound the route (`bf16_matrix_reason`). Here,
-on the CPU:
+frames from ~1 s were over the block. `frontend.bf16_layout` takes, after
+that "staged" plan, the plain form's block plans (csrc/frontend.cu
+logmel_kernel_bf16: two consumer warpgroups, a producer warp and three
+projector warps; 128 frames a block), each pass of 136 bins projected into
+per-frame accumulators while
+the next pass's products run, the tile's A (bf16 hi and lo of the
+conditioned frames) built once a tile from device memory: "pass" (A in
+shared memory), "gather" (A in the tile's rows of a workspace, streamed
+through the ring beside the matrix), "gather_bands" (the packed weights and
+the pass table read from device memory too) and "gather_out" (the
+accumulators in the workspace too). On the card only the matrix's bytes
+bound the route (`bf16_matrix_reason`). Here, on the CPU:
   - each plan's layout, field by field (`_block_layout`, csrc/frontend.cu
-    layout()), at n_fft 2,245 / 4,096 / 8,192 / 16,384, hops of 1,214 and
-    1,600 samples and 1.1 s and 3 s frames, for int16 and float32 rows, and
-    the first fit of `BF16_LAYOUTS`; `layout_reason(cfg, "bf16x3")` None over
-    a sweep of n_fft 16-16,384, hops to 2 s and frames to 3 s; the filter
-    field the only layout reason left (60,000 filters);
+    bf16_block_layout()), at n_fft 2,245 / 4,096 / 8,192 / 16,384 / 24,000
+    / 32,768, hops of 1,214 and 1,600 samples, 10 ms, 1.1 s and 3 s frames,
+    librosa's 8,192-point framing (L = n_fft: A in the workspace), 2,000
+    and 40,000 filters, for int16 and float32 rows, and the first fit of
+    `BF16_LAYOUTS`; the workspace (`bf16_workspace`);
+    `layout_reason(cfg, "bf16x3")` None over a sweep of n_fft 16-16,384,
+    hops to 2 s and frames to 3 s; the filter field the only layout reason
+    left (60,000 filters);
+  - the tile's A in wgmma's K-major core matrices (`_stage_a`, the kernel's
+    16-byte units step by step) read back through the descriptors' strides
+    (`_a_from_stage`) to each frame's bf16 hi and lo;
   - the pass table (`frontend.pass_table`): each packed weight in exactly
     one segment, in pass then filter order, its bin the packed table's,
     within the words the layout counts;
   - a numpy mirror of the block plans (`_emulate_block_plan`: the frames
     from the row itself, `_gather_samples`, which tests/test_torch_long_span
-    holds bitwise to the staged spans; the conditioning; the tile product of
+    holds bitwise to the staged spans; the conditioning; the tile's A staged
+    and read back as the consumers' descriptors read it; the tile product of
     tests/test_torch_bf16x3.py `_emulate_tile_power`; then the projection
     pass by pass in the kernel's order, each segment summed in packed order
     and added to its filter's accumulator in pass order, and the epilogue)
@@ -46,6 +56,7 @@ tests/test_torch_gpu.py and chip_smoke.py (phase 30) hold the kernel's
 plans to their plain versions on a card.
 """
 
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -67,20 +78,25 @@ from tests.test_torch_frontend import _gather_samples, _log_lane
 
 BUDGET = 232448
 # (config, overrides, the plan and (frames a block, ring stages) it takes)
+LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
 LAYOUT_CASES = {
-    "n_fft_2245": ("classic13", dict(n_fft=2245), ("pass", 64, 4)),
-    "n_fft_4096": ("classic13", dict(n_fft=4096), ("pass", 64, 3)),
-    "n_fft_8192": ("classic13", dict(n_fft=8192), ("pass", 32, 4)),
-    "n_fft_16384": ("classic13", dict(n_fft=16384), ("gather", 32, 3)),
-    "hop_1214": ("classic13", dict(hop_s=1214 / 16000), ("gather", 64, 4)),
-    "hop_1600": ("classic13", dict(hop_s=0.1), ("gather", 64, 4)),
-    "frames_1.1s": ("classic13", dict(win_len_s=1.1), ("gather", 64, 4)),
-    "frames_3s": ("classic13", dict(win_len_s=3.0), ("gather", 64, 4)),
-    "kaldi_dither_4096": ("kaldi_mfcc", dict(dither=1.0, n_fft=4096), ("pass", 64, 3)),
-    "ssc_4096": ("ssc26", dict(n_fft=4096), ("pass", 64, 2)),
-    "n_fft_24000": ("classic13", dict(n_fft=24000), ("gather_bands", 64, 4)),
-    "filters_2000": ("classic13", dict(n_mels=2000, n_fft=4096), ("gather_out", 64, 4)),
-    "ssc_filters_1500": ("ssc26", dict(n_mels=1500, n_fft=4096), ("gather_out", 64, 4)),
+    "n_fft_2245": ("classic13", dict(n_fft=2245), ("gather", 128, 4)),
+    "n_fft_4096": ("classic13", dict(n_fft=4096), ("gather", 128, 4)),
+    "n_fft_8192": ("classic13", dict(n_fft=8192), ("gather", 128, 4)),
+    "n_fft_16384": ("classic13", dict(n_fft=16384), ("gather", 128, 3)),
+    "hop_1214": ("classic13", dict(hop_s=1214 / 16000), ("gather", 128, 4)),
+    "hop_1600": ("classic13", dict(hop_s=0.1), ("gather", 128, 4)),
+    "frames_1.1s": ("classic13", dict(win_len_s=1.1), ("gather", 128, 2)),
+    "frames_3s": ("classic13", dict(win_len_s=3.0), ("gather", 128, 2)),
+    "kaldi_dither_4096": ("kaldi_mfcc", dict(dither=1.0, n_fft=4096), ("gather", 128, 4)),
+    "ssc_4096": ("ssc26", dict(n_fft=4096), ("gather", 128, 3)),
+    "n_fft_24000": ("classic13", dict(n_fft=24000), ("gather", 128, 2)),
+    "filters_2000": ("classic13", dict(n_mels=2000, n_fft=4096), ("gather_out", 128, 4)),
+    "ssc_filters_1500": ("ssc26", dict(n_mels=1500, n_fft=4096), ("gather_out", 128, 4)),
+    "frames_10ms_4096": ("classic13", dict(win_len_s=0.01, n_fft=4096), ("pass", 128, 2)),
+    "n_fft_32768": ("classic13", dict(n_fft=32768), ("gather_bands", 128, 4)),
+    "librosa_8192": ("logmel80", LIBROSA_8192, ("gather_out", 128, 3)),
+    "filters_40000": ("classic13", dict(n_mels=40000), ("gather_out", 128, 4)),
 }
 MIRROR_CASES = {
     "classic13_4096": ("classic13", dict(n_fft=4096)),
@@ -103,30 +119,32 @@ def _a4(n):
 
 
 def _block_layout(cfg, plan, tile, stages):
-    """csrc/frontend.cu layout() of a bf16x3 block plan, field by field
-    (floats; the plain form, whose row type changes nothing): the signal row
-    ((tile - 1)·S + L, one more under dither) and the window (max(L,
-    n_fft)) unless the plan gathers; the packed weights (and SSC's melf
-    weights), the filters' offsets, the bin-filter words and the pass table
-    (npass + 1 offsets and 4 words for each of at most n_packed // 136 + 2M
-    segments) unless they are read from device memory; at a 128-byte
-    boundary the ring (17,408 B a stage) and its full and empty mbarriers;
-    the re/im rows of one pass (272 columns and 8 of padding), which then
-    hold its power rows; the frames' energies and means; the accumulators (M + 1 a frame, 2M for SSC,
-    1 for a spectrogram) unless they are in device memory."""
+    """csrc/frontend.cu bf16_block_layout() of a bf16x3 block plan, field by
+    field (floats; the row type changes nothing): the packed weights (and
+    SSC's melf weights), the filters' offsets (M + 1) and the pass table
+    (npass + 1 offsets and 4 words for
+    each of at most n_packed // 136 + 2M segments) unless they are read from
+    device memory; at a 128-byte boundary the ring (17,408 B a stage, and 64
+    B a frame of the tile's A where A is in the workspace), its full and
+    empty mbarriers (8 B each) and the claim counter (4 floats); at a
+    128-byte boundary the tile's A under "pass" (kp floats a frame: bf16 hi
+    and lo); the power rows (stride 137), or where a pass takes more than 25
+    steps the re/im rows (272 columns and 8 of padding) that then take its
+    powers; the frames' energies and means; the accumulators (M + 1 a
+    frame, 2M for SSC, 1 for a spectrogram) unless they are in device
+    memory. No signal span, window or bin words."""
     gather, bands_dev, acc_dev = {"pass": (0, 0, 0), "gather": (1, 0, 0), "gather_bands": (1, 1, 0),
                                   "gather_out": (1, 1, 1)}[plan]
     M, nnz = cfg.n_mels, frontend.packed_count(cfg)
     tables = {"spectrogram": 0, "ssc": 2}.get(frontend.feature_kind(cfg), 1)
     npass = -(-cfg.n_bins // 136)
+    kp = -(-min(cfg.frame_length, cfg.n_fft) // 16) * 16
     n = 0
-    if not gather:
-        n += _a4((tile - 1) * cfg.frame_step + cfg.frame_length + (cfg.dither > 0)) + _a4(
-            max(cfg.frame_length, cfg.n_fft))
     if not bands_dev and tables:
-        n += tables * _a4(nnz) + _a4(M + 1) + _a4(nnz) + _a4(npass + 1 + 4 * (nnz // 136 + 2 * M))
-    n = (n + 31) // 32 * 32 + stages * 17408 // 4 + _a4(4 * stages)
-    n += tile * 280 + 2 * _a4(tile)
+        n += tables * _a4(nnz) + _a4(M + 1) + _a4(npass + 1 + 4 * (nnz // 136 + 2 * M))
+    n = (n + 31) // 32 * 32 + stages * (17408 + (64 * tile if gather else 0)) // 4 + 2 * 2 * stages + 4
+    n = (n + 31) // 32 * 32 + (0 if gather else tile * kp)
+    n += tile * (280 if kp // 16 > 25 else 137) + 2 * tile
     nacc = {"spectrogram": 1, "ssc": 2 * M}.get(frontend.feature_kind(cfg), M + 1)
     return 4 * (n + (0 if acc_dev else _a4(tile * nacc)))
 
@@ -162,7 +180,7 @@ def test_layout_reason_is_none_at_every_n_fft_hop_and_frame_length():
     # 60,000 filters, refused before (the packed table's filter field), take
     # "gather_out": nothing is refused for its layout
     assert frontend.layout_reason(c.replace(n_mels=60000), "bf16x3") is None
-    assert frontend.bf16_layout(c.replace(n_mels=60000)) == ("gather_out", 64, 4)
+    assert frontend.bf16_layout(c.replace(n_mels=60000)) == ("gather_out", 128, 4)
     # a resampling config's fused form keeps "staged"; past it the split
     # route's plain form takes a block plan at the feature rate
     r = T_CONFIGS["mfcc39_48k"].replace(hop_s=0.1)
@@ -194,6 +212,43 @@ def test_pass_table_covers_each_packed_weight_once(name, over):
             np.testing.assert_array_equal(bins[i0:i1], 136 * p + k0 + np.arange(i1 - i0))
             assert 0 <= k0 and k0 + i1 - i0 <= 136
     assert (covered == 1).all()
+
+
+def _bf16_bits(x):
+    """The bf16 bits of float32 x, rounded to nearest even (the kernel's
+    __float2bfloat16_rn)."""
+    return x.astype(ml_dtypes.bfloat16).view(np.uint16)
+
+
+def _stage_a(g, tile):
+    """The tile's A as csrc/frontend.cu logmel_kernel_bf16 step 2a writes
+    it: g [tile, kp] float32 (the conditioned samples, zero past min(L,
+    n_fft) and in frames past F) → [steps, 2, tile x 16] bf16 bits, step s
+    hi then lo, 16-byte unit u = s x 2 tile + v holding frame (v >> 4) x 8 +
+    (v & 7), samples 16 s + (v & 8) .. + 7."""
+    kp = g.shape[1]
+    steps = kp // 16
+    hi = g.astype(ml_dtypes.bfloat16).astype(np.float32)
+    lo = (g - hi).astype(ml_dtypes.bfloat16).astype(np.float32)
+    out = np.zeros((steps, 2, tile * 16), np.uint16)
+    v = np.arange(2 * tile)
+    fl, k8 = (v >> 4) * 8 + (v & 7), v & 8
+    for s in range(steps):
+        k = 16 * s + k8[:, None] + np.arange(8)  # [units, 8]
+        out[s, 0] = _bf16_bits(hi[fl[:, None], k]).reshape(-1)
+        out[s, 1] = _bf16_bits(lo[fl[:, None], k]).reshape(-1)
+    return out
+
+
+def _a_from_stage(stage, rbase):
+    """A's 64 rows from `rbase` as the consumers' wgmma descriptors read
+    them from `_stage_a`'s layout: K-major core matrices of 8 rows x 16
+    bytes, the start rbase x 32 bytes on, the two K halves 128 bytes apart
+    (LBO), 8-row groups 256 bytes apart (SBO) → (hi, lo) [64, kp] bits."""
+    steps = stage.shape[0]
+    m, k = np.arange(64)[:, None], np.arange(16)[None, :]
+    at = rbase * 16 + (m // 8) * 128 + (k // 8) * 64 + (m % 8) * 8 + k % 8  # bf16 elements
+    return tuple(np.concatenate([stage[s, part][at] for s in range(steps)], axis=1) for part in (0, 1))
 
 
 def _emulate_block_plan(audio, lengths, cfg):
@@ -231,6 +286,22 @@ def _emulate_block_plan(audio, lengths, cfg):
         fr = np.concatenate([d[..., :1] * keep0, d[..., 1:] - c * d[..., :-1]], axis=-1).astype(f32)
         wf = fr * win
         e_frame = e_raw if cfg.energy_source == "raw_frame" else (wf * wf).sum(axis=-1)
+    # the tile's A, staged in the kernel's layout and read back as the two
+    # consumer warpgroups' descriptors read it: the bf16 hi and lo of each
+    # frame's first min(L, n_fft) conditioned samples, zero to kp
+    plan, tile, _ = frontend.bf16_layout(cfg)
+    kp, le = frontend.bf16_dims(cfg)[0], min(L, cfg.n_fft)
+    g = np.zeros((B, -(-F // tile) * tile, kp), f32)
+    g[:, :F, :le] = fr[..., :le]
+    for b in range(B):
+        for t0 in range(0, F, tile):
+            stage = _stage_a(g[b, t0 : t0 + tile], tile)
+            for rbase in range(0, tile, 64):
+                hi, lo = _a_from_stage(stage, rbase)
+                want = g[b, t0 + rbase : t0 + rbase + 64]
+                np.testing.assert_array_equal(hi, _bf16_bits(want))
+                np.testing.assert_array_equal(
+                    lo, _bf16_bits(want - want.astype(ml_dtypes.bfloat16).astype(f32)))
     power = _emulate_tile_power(fr, cfg, frontend.BF16_PROMOTE)
     out = np.zeros((B, F, M + 1), f32)
     if kind != "spectrogram":
@@ -275,6 +346,45 @@ def _emulate_block_plan(audio, lengths, cfg):
         else:
             out[..., M] = np.where(acc[..., e_at] <= 0, eps, acc[..., e_at])
     return out, power, fr
+
+
+@pytest.mark.parametrize("kp", [160, 400, 512, 1024])
+def test_a_staging_reads_back_through_the_descriptors(kp):
+    """The tile's A (`_stage_a`, the kernel's units) read through the
+    consumers' descriptors (`_a_from_stage`) at each warpgroup's first row
+    (0 and 64) gives each frame's bf16 hi and lo back; every unit written
+    once; A of a step is tile x 64 bytes (BF16_A_CHUNK a frame), hi then lo."""
+    tile = frontend.BF16_BLOCK_TILE
+    g = (np.random.default_rng(kp + tile).standard_normal((tile, kp)) * 3000).astype(np.float32)
+    stage = _stage_a(g, tile)
+    assert stage.nbytes == kp // 16 * tile * frontend.BF16_A_CHUNK
+    for rbase in range(0, tile, 64):
+        hi, lo = _a_from_stage(stage, rbase)
+        rows = g[rbase : rbase + 64]
+        h = rows.astype(ml_dtypes.bfloat16).astype(np.float32)
+        np.testing.assert_array_equal(hi, _bf16_bits(rows))
+        np.testing.assert_array_equal(lo, _bf16_bits(rows - h))
+    # each frame's sample in exactly one unit of each step
+    v = np.arange(2 * tile)
+    seen = np.zeros((tile, 16), int)
+    for fl, k8 in zip((v >> 4) * 8 + (v & 7), v & 8):
+        seen[fl, k8 : k8 + 8] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("case", ["n_fft_4096", "librosa_8192", "filters_40000", "frames_10ms_4096"])
+def test_block_workspace_holds_the_accumulators_then_each_tiles_a(case):
+    """`bf16_workspace` (csrc/frontend.cu bf16_workspace): "gather_out" the
+    accumulators [B, F, nacc] rounded up to 128 bytes, then, past "pass",
+    each tile's A (tile x kp floats); "pass" none."""
+    name, over, (plan, tile, _) = LAYOUT_CASES[case]
+    cfg = T_CONFIGS[name].replace(**over)
+    B, F = 3, 1000
+    kp = frontend.bf16_dims(cfg)[0]
+    acc = -(-B * F * frontend.bf16_accumulators(cfg) // 32) * 32 if plan == "gather_out" else 0
+    a = B * -(-F // tile) * tile * kp if plan != "pass" else 0
+    assert frontend.bf16_workspace(cfg, B, F) == acc + a
+    assert acc % 32 == 0  # the A region's bulk copies start 128-byte aligned
 
 
 def _batch(cfg, seconds, seed, rows=(1.0, 0.61)):

@@ -172,7 +172,7 @@ def test_wrapper_refuses_configs_outside_the_slice():
     before (over the packed table's filter field) on both routes, take
     "gather_sums" and bf16x3's "gather_out", and the wrapper's plain
     version here ≡ the JAX package's jnp stages within the prefix gates (the
-    bf16x3 opt-in takes n_fft 4096 in its "pass" plan; what its card
+    bf16x3 opt-in takes n_fft 4096 in a block plan; what its card
     wrapper still refuses is a matrix over the card's memory); n_fft 7,001, which it refused before
     (275,360 B in the gather plan), runs with the packed bands read from
     device memory ("gather_bands", 222,384 B), here as its plain version ≡

@@ -869,35 +869,40 @@ def test_bf16x3_form_runs_wgmma():
         assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
 
 
+LIBROSA_8192 = dict(sample_rate=22050, n_fft=8192, win_len_s=8192 / 22050, hop_s=2048 / 22050, n_mels=128)
 BF16X3_PLANS = [
-    ("classic13", {"n_fft": 2245}, "pass"),
-    ("classic13", {"n_fft": 4096}, "pass"),
-    ("classic13", {"n_fft": 8192}, "pass"),
-    ("kaldi_mfcc", {"dither": 1.0, "n_fft": 4096}, "pass"),
-    ("ssc26", {"n_fft": 4096}, "pass"),
-    ("kaldi_plp", {"n_fft": 4096}, "pass"),
+    ("classic13", {"n_fft": 2245}, "gather"),
+    ("classic13", {"n_fft": 4096}, "gather"),
+    ("classic13", {"n_fft": 8192}, "gather"),
+    ("kaldi_mfcc", {"dither": 1.0, "n_fft": 4096}, "gather"),
+    ("ssc26", {"n_fft": 4096}, "gather"),
+    ("kaldi_plp", {"n_fft": 4096}, "gather"),
     ("classic13", {"hop_s": 0.1}, "gather"),
     ("classic13", {"win_len_s": 1.1}, "gather"),
     ("kaldi_mfcc", {"dither": 1.0, "hop_s": 0.1, "frame_tail": "center"}, "gather"),
     ("kaldi_spectrogram", {"hop_s": 0.1}, "gather"),
     ("mfcc39_48k", {"hop_s": 0.1}, "gather"),
-    ("classic13", {"n_fft": 24000}, "gather_bands"),
+    ("classic13", {"n_fft": 24000}, "gather"),
     ("classic13", {"n_mels": 2000, "n_fft": 4096}, "gather_out"),
     ("ssc26", {"n_mels": 700, "n_fft": 16384}, "gather_out"),
+    ("classic13", {"win_len_s": 0.01, "n_fft": 4096}, "pass"),
+    ("classic13", {"n_fft": 32768}, "gather_bands"),
+    ("logmel80", LIBROSA_8192, "gather_out"),
 ]
-BF16X3_PLAN_IDS = ["pass_2245", "pass_4096", "pass_8192", "pass_kaldi_dither", "pass_ssc26", "pass_kaldi_plp",
-                   "gather_hop", "gather_frames", "gather_kaldi_dither_centered", "gather_spectrogram",
-                   "gather_split_48k", "gather_bands_24000", "gather_out_2000", "gather_out_ssc_700"]
+BF16X3_PLAN_IDS = ["gather_2245", "gather_4096", "gather_8192", "gather_kaldi_dither", "gather_ssc26",
+                   "gather_kaldi_plp", "gather_hop", "gather_frames", "gather_kaldi_dither_centered",
+                   "gather_spectrogram", "gather_split_48k", "gather_24000", "gather_out_2000", "gather_out_ssc_700",
+                   "pass_10ms_4096", "gather_bands_32768", "gather_out_librosa_8192"]
 
 
 @pytest.mark.parametrize("name,overrides,plan", BF16X3_PLANS, ids=BF16X3_PLAN_IDS)
 def test_bf16x3_block_plans_match_reference(name, overrides, plan):
-    """The bf16x3 form's block plans (`frontend.bf16_layout`: the power rows
-    of one pass; frames, then bands and the pass table, then the
-    accumulators in device memory) ≡ their plain version at the bf16x3
-    gates; one launch counted by plan (resampled rows: resample.cu, then the
-    plain form); int16 ≡ float32 and two runs bitwise; the instantiation
-    without spills."""
+    """The bf16x3 form's block plans (`frontend.bf16_layout`: the tile's A in
+    shared memory; A in the workspace, then the bands and the pass table,
+    then the accumulators in device memory) ≡ their plain version at the
+    bf16x3 gates; one launch counted by plan (resampled rows: resample.cu,
+    then the plain form); int16 ≡ float32 and two runs bitwise; the
+    instantiation at 384 threads without spills."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
     at = frontend.feature_rate_config(cfg)
@@ -920,13 +925,13 @@ def test_bf16x3_block_plans_match_reference(name, overrides, plan):
     assert torch.equal(got, frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes="bf16x3"))
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg, dft_passes="bf16x3"))
     info = frontend.kernel_info(cfg, True, "bf16x3")
-    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1 and info["threads"] == 384, info
 
 
 def test_bf16x3_block_plans_run_wgmma():
-    """The bf16x3 block plans' 8 instantiations (the plain form: int16 or
-    float32 rows, dither, conditioning) hold HGMMA and the ring's bulk
-    copies, and no mma.sync."""
+    """The bf16x3 block plans' 8 instantiations of `logmel_kernel_bf16` (the
+    plain form: int16 or float32 rows, dither, conditioning) hold HGMMA, the
+    ring's bulk copies and setmaxnreg's register moves, and no mma.sync."""
     import pathlib
     import subprocess
 
@@ -937,10 +942,10 @@ def test_bf16x3_block_plans_run_wgmma():
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True).stdout
     block = [fn for fn in dump.split("Function : ")[1:]
-             if re.search(r"logmel_kernelI[sf](?:Lb[01]E){3}Lb1ELb1EEEv", fn.split("\n", 1)[0])]
+             if re.search(r"logmel_kernel_bf16I[sf](?:Lb[01]E){2}EEv", fn.split("\n", 1)[0])]
     assert len(block) == 8
     for fn in block:
-        assert "HGMMA" in fn and "UBLKCP" in fn and "HMMA" not in fn.replace("HGMMA", "")
+        assert "HGMMA" in fn and "UBLKCP" in fn and "USETMAXREG" in fn and "HMMA" not in fn.replace("HGMMA", "")
 
 
 @pytest.mark.parametrize("n_fft", [404, 551])

@@ -358,8 +358,9 @@ def test_bf16x3_form_still_stages_the_span():
     ("staged"): at classic13 to n_fft 2,244, hops of 1,213 samples and
     frames of 16,788 samples, as before. One past each edge, and at n_fft
     8192 and a hop of 0.2 s, which the default form takes, it takes its
-    block plans (`frontend.bf16_layout`: the power rows of one pass, then
-    each frame from device memory) instead of being refused."""
+    block plans (`frontend.bf16_layout`: the tile's A built once from
+    device memory, in shared memory or the workspace) instead of being
+    refused."""
     c = T_CONFIGS["classic13"]
     for over in (dict(n_fft=8192), dict(hop_s=0.2)):
         cfg = c.replace(**over)
