@@ -291,10 +291,12 @@ Phases, in order; any failure exits non-zero:
      device time beside rfft(n=n_fft), the function's bound, the three
      products at the bf16 peak and the matrix each tile reads.
   31. every filter count (`many_filters_path`, `MANY_FILTERS`): the packed
-     mel table without a filter field, and "gather_sums" (the projection's
-     sums in device memory): classic13_deltas at 40,000 ("gather_bands")
-     and 60,000 filters ("gather_sums"), b16 x 10 s; ssc26 at 30,000 filters
-     and n_fft 4,096 ("gather_sums"), b16; logmel80 at 33,000, b4; bf16x3 at
+     mel table without a filter field, and the wide plan (a tile's power
+     rows in shared memory, the projection filter by filter), with the plan
+     it replaced ("gather_bands" or "gather_sums") forced beside it and held
+     to it bitwise or its largest difference printed: classic13_deltas at
+     40,000 and 60,000 filters, b16 x 10 s; ssc26 at 30,000 filters and
+     n_fft 4,096, b16; logmel80 at 33,000, b4; bf16x3 at
      40,000 ("gather_out") through fused_logmel_stages(dft_passes="bf16x3"),
      b16; n_fft 131,072 at 16,385 filters (past the old 14-bit field; the
      cluster plan, and "gather_rows" forced beside it), b2 x
@@ -309,7 +311,7 @@ Phases, in order; any failure exits non-zero:
      tail against its plain version on the kernel's prefix, the features on
      rows 0-1 within their family's gate of the float64 chain; device time,
      the plain version, rfft(n=n_fft) and the bound; the tail's split (its
-     base compensated past 1,024 lanes) timed beside its plain version.
+     base kernel's stretches past 1,024 lanes) timed beside its plain version.
   Phases 4, 6, 7 and 12-21 hold the kernel's n_valid and frame mask
   bitwise to chain.num_valid_frames / frame_mask of the same card lengths
   ("drop", "center", "center_reflect" with drop_last_frame, rows resampled
@@ -602,7 +604,11 @@ KERNELS = {
                              ("gather_bands_logmel80_33000_filters", "mfcc_tpu/kernels/frontend.py:905"),
                              ("bf16x3_gather_out_40000_filters", "mfcc_tpu/kernels/frontend.py:857"),
                              ("gather_rows_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"),
-                             ("cluster_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"))},
+                             ("cluster_131072_16385_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("wide_40000_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("wide_60000_filters", "mfcc_tpu/kernels/frontend.py:905"),
+                             ("wide_ssc26_30000_filters", "mfcc_tpu/kernels/frontend.py:965"),
+                             ("wide_logmel80_33000_filters", "mfcc_tpu/kernels/frontend.py:905"))},
     # the cluster plan at phase 29's cases
     **{key: {"name": f"frontend_{key}", "route": "cuda", "source": "mfcc_tpu_torch/kernels/csrc/frontend.cu",
              "replaces": replaces}
@@ -614,8 +620,8 @@ KERNELS = {
                              ("cluster_32768", "mfcc_tpu/kernels/frontend.py:905"),
                              ("cluster_48k_65536", "mfcc_tpu/kernels/frontend.py:905"),
                              ("cluster_131072", "mfcc_tpu/kernels/frontend.py:905"))},
-    "tail_split_compensated_60000_filters": {
-        "name": "feature_tail_split_60000_filters_compensated",
+    "tail_base_60000_filters": {
+        "name": "feature_tail_split_base_60000_filters",
         "route": "cuda",
         "source": "mfcc_tpu_torch/kernels/csrc/tail.cu",
         "replaces": "mfcc_tpu/kernels/frontend.py:714",
@@ -785,6 +791,7 @@ class Counters:
         self.frontend.gather_rows_launches = 0
         self.frontend.gather_sums_launches = 0
         self.frontend.cluster_launches = 0
+        self.frontend.wide_launches = 0
         self.frontend.bf16x3_launches = 0
         self.frontend.bf16_pass_launches = 0
         self.frontend.bf16_gather_launches = 0
@@ -798,6 +805,7 @@ class Counters:
         self.rs_kernel.global_window_launches = 0
         self.tail.tail_launches = 0
         self.tail.tail_split_launches = 0
+        self.tail.tail_base_launches = 0
         self.tail.tail_cmvn_launches = 0
 
     def read(self) -> dict[str, int]:
@@ -819,6 +827,7 @@ class Counters:
             "gather_rows": self.frontend.gather_rows_launches,
             "gather_sums": self.frontend.gather_sums_launches,
             "cluster": self.frontend.cluster_launches,
+            "wide": self.frontend.wide_launches,
             "bf16x3": self.frontend.bf16x3_launches,
             "bf16_pass": self.frontend.bf16_pass_launches,
             "bf16_gather": self.frontend.bf16_gather_launches,
@@ -826,6 +835,7 @@ class Counters:
             "bf16_gather_out": self.frontend.bf16_gather_out_launches,
             "tail": self.tail.tail_launches,
             "tail_split": self.tail.tail_split_launches,
+            "tail_base": self.tail.tail_base_launches,
             "tail_cmvn": self.tail.tail_cmvn_launches,
             "block": self.frontend.block_launches,
             "split": self.frontend.split_launches,
@@ -1395,7 +1405,7 @@ def plan_branches(chain, frontend, cfg) -> dict[str, int]:
     return {k: 1 for k, on in (
         ("centered", chain.centered(cfg)), ("block_fft", plan != "warp"), ("global_tables", tables),
         ("gather", gather), ("gather_bands", plan == "gather_bands"), ("gather_rows", plan == "gather_rows"),
-        ("gather_sums", plan == "gather_sums"), ("cluster", plan == "cluster"),
+        ("gather_sums", plan == "gather_sums"), ("cluster", plan == "cluster"), ("wide", plan == "wide"),
         ("bluestein", form == "bluestein"), ("dither", cfg.dither > 0.0),
         ("conditioning", chain.needs_conditioning(cfg))) if on}
 
@@ -1403,14 +1413,16 @@ def plan_branches(chain, frontend, cfg) -> dict[str, int]:
 def tail_branches(cfg) -> dict[str, int]:
     """The feature tail's launch counts for one mfcc extract_batch of cfg:
     the tail once, its CMVN pass under utterance CMVN, and the split's
-    1 + deltas passes where it takes the split."""
+    1 + deltas passes where it takes the split, its base kernel past
+    tail.CHAIN_LANES filters."""
     from mfcc_tpu_torch.kernels import tail
 
     if cfg.features != "mfcc":
         return {}
     split = tail.plan(cfg)[0] == "split"
     return {"tail": 1, **({"tail_cmvn": 1} if cfg.cmvn == "utterance" else {}),
-            **({"tail_split": 1 + cfg.deltas} if split else {})}
+            **({"tail_split": 1 + cfg.deltas} if split else {}),
+            **({"tail_base": 1} if tail.split_base(cfg) == "stretches" else {})}
 
 
 def dft_times(torch, chain, frontend, cfg, batch, audio, lengths, what: str, tag: str) -> dict:
@@ -1878,6 +1890,13 @@ def without_cluster(frontend):
     return lambda cfg, form=None, int16=True, cluster=True: own(cfg, form, int16, False)
 
 
+def without_wide(frontend):
+    """frontend.fft_layout without the wide plan: the plan it replaced
+    ("gather_bands", "gather_rows" or "gather_sums"), for a forced launch."""
+    own = frontend.fft_layout
+    return lambda cfg, form=None, int16=True, cluster=True, wide=True: own(cfg, form, int16, cluster, False)
+
+
 def forced_layout(frontend, layout):
     """A runner of fn under the layout mirror (frontend.fft_layout) forced
     to `layout` (a layout, or a mirror), the mirror put back after."""
@@ -2183,26 +2202,35 @@ def bf16x3_plans_path(torch, counters, tag: str, results: dict) -> None:
 
 
 # phase 31's cases, tens of thousands of filters: (key, config, overrides,
-# rows, seconds a row, the plan, the dft_passes route); the host-bound case
-# first, while the run is young
+# rows, seconds a row, the plan, the dft_passes route, the rows' seed: the
+# rows each config has been held on since the port first took it); the
+# host-bound case first, while the run is young
 MANY_FILTERS = (
     ("cluster_131072_16385_filters", "classic13_deltas", dict(n_fft=131072, n_mels=16385), 2, 30,
-     "cluster", "radix4"),
-    ("gather_bands_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_bands", "radix4"),
-    ("gather_sums_60000_filters", "classic13_deltas", dict(n_mels=60000), B_SMALL, 10, "gather_sums", "radix4"),
-    ("gather_sums_ssc26_30000_filters", "ssc26", dict(n_mels=30000, n_fft=4096), B_SMALL, 10, "gather_sums",
-     "radix4"),
-    ("gather_bands_logmel80_33000_filters", "logmel80", dict(n_mels=33000), 4, 10, "gather_bands", "radix4"),
-    ("bf16x3_gather_out_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_out", "bf16x3"),
+     "cluster", "radix4", 2381),
+    ("wide_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "wide", "radix4", 2445),
+    ("wide_60000_filters", "classic13_deltas", dict(n_mels=60000), B_SMALL, 10, "wide", "radix4", 2383),
+    ("wide_ssc26_30000_filters", "ssc26", dict(n_mels=30000, n_fft=4096), B_SMALL, 10, "wide", "radix4", 2908),
+    ("wide_logmel80_33000_filters", "logmel80", dict(n_mels=33000), 4, 10, "wide", "radix4", 3286),
+    ("bf16x3_gather_out_40000_filters", "classic13_deltas", dict(n_mels=40000), B_SMALL, 10, "gather_out", "bf16x3",
+     2838),
 )
+# a recorded fault (ROADMAP.md queue 3 item 5), held apart on rows of its
+# own: the fp32 chain's cepstra at 40,000 filters read ~2e-3 from the
+# float64 chain on these rows, the CPU's as the card's (a quiet bin's fp32
+# power, shared by ~155 filters of one weight, summed by the DCT and scaled
+# ~12x by the lifter), over the 5e-4 + 1e-5|f| gate: (case key, the rows'
+# seed). The card is held no further from float64 than the CPU fp32 chain
+# plus the gate, and to the gate itself once the CPU chain is within it.
+FP32_CHAIN_FAULTS = {"wide_40000_filters": 1620}
 
 
 # phase 31 leaves its n_fft 131,072 case out of a run already this many
 # seconds old (its dense tables take minutes of host time; the limit is 1,200)
 HOST_BOUND_AFTER_S = 650
-# phase 31's tail entry of the kernels line: the split with its base
-# compensated (past 1,024 lanes), at the case that times it
-TAIL_KEYS = {"gather_sums_60000_filters": "tail_split_compensated_60000_filters"}
+# phase 31's tail entry of the kernels line: the split's base kernel (past
+# 1,024 lanes), at the case that times it
+TAIL_KEYS = {"wide_60000_filters": "tail_base_60000_filters"}
 
 
 def mem_available() -> int:
@@ -2255,26 +2283,59 @@ def features_gate(torch, testing, got, want, cfg, what: str) -> None:
     check(not fails, f"{what} within the family's gate {fails or ''}")
 
 
-def many_filters_path(torch, counters, tag: str, results: dict, t_script: float) -> None:
+def fault_rows(torch, chain, testing, pad_batch, cfg, n: int, seed: int) -> None:
+    """A recorded fault of the fp32 chain (`FP32_CHAIN_FAULTS`): two rows of
+    n samples from `seed` through the card's chain, the CPU fp32 chain and
+    the float64 chain; each one's excess over 1e-5 |f| from float64
+    printed; the card held to the gate's FEATURE_ATOL where the CPU fp32
+    chain is within it, else no further than the CPU chain's excess plus
+    FEATURE_ATOL (the kernels add at most the gate to the fp32 chain's own
+    error)."""
+    batch = make_batch(pad_batch, cfg, 2, n, 571, seed=seed)
+    card, _ = chain.extract_batch(batch.audio, batch.lengths, cfg)
+    f64, _ = chain.extract_batch(batch.audio, batch.lengths, cfg.replace(dtype="float64"), device="cpu")
+    cpu, _ = chain.extract_batch(batch.audio, batch.lengths, cfg, device="cpu")
+    over = lambda got: float(((got.double().cpu() - f64).abs() - testing.FEATURE_RTOL * f64.abs()).max())  # noqa: E731
+    e_card, e_cpu = over(card), over(cpu)
+    limit = testing.FEATURE_ATOL if e_cpu <= testing.FEATURE_ATOL else e_cpu + testing.FEATURE_ATOL
+    print(f"    the fp32 chain's recorded fault (ROADMAP.md queue 3 item 5), rows of seed {seed}: cepstra over "
+          f"1e-5 |f| from the float64 chain: card {e_card:.3e}, the CPU fp32 chain {e_cpu:.3e}; gate "
+          f"{testing.FEATURE_ATOL}: " + ("the CPU fp32 chain is within it now (the fault is gone)"
+                                         if e_cpu <= testing.FEATURE_ATOL else "still over it"))
+    check(e_card <= limit, f"card cepstra on the fault's rows within {limit:.3e} of the float64 chain "
+                           "(the CPU fp32 chain's excess plus the gate)")
+
+
+def many_filters_path(torch, counters, tag: str, results: dict, t_script: float, breakdown=None,
+                      cuts: dict | None = None) -> None:
     """Phase 31: every filter count (`MANY_FILTERS`): the packed mel table
     holds each weight's bin alone, so 32,768 filters and more (16,384 at
-    n_fft 131,072) are taken; "gather_sums" keeps the projection's sums in
-    device memory where "gather_rows" at one group stages too many (57,849
-    filters, 28,797 for SSC). For each: the plan, no spills, the launch
+    n_fft 131,072) are taken; the wide plan takes tens of thousands of
+    filters (a tile's power rows in shared memory, the projection filter by
+    filter), where "gather_bands" and "gather_sums" (the projection's sums in
+    device memory) took them: each of those forced beside it, held to its
+    plain version, timed, and its output against the wide plan's (bitwise
+    where every filter has one weight and the FFT stage runs the same
+    groups; else the largest difference, lanes and energy apart, printed).
+    For each: the plan, no spills, the launch
     counted by plan; the kernel against its plain version on the card in
     float64 (the fp32 one printed, but at n_fft 131,072) at the prefix
     gates on the first and last rows, NaN in the same places on every row,
     filters of at most
     two weights at the per-bin gate; int16 ==
-    float32, two runs, and in the plans with a workspace a NaN-filled one and
-    a persistent grid of 7 blocks, bitwise; the counts and mask;
+    float32, two runs, and in the plans with a workspace (the forced parents
+    "gather_sums" and "gather_rows", the bf16x3 "gather_out") a NaN-filled
+    one and a persistent grid of 7 blocks, bitwise, the forced parents
+    int16 == float32 and two runs too; the counts and mask;
     extract_batch counted (fused_logmel_stages(dft_passes="bf16x3") for the
     bf16x3 case), for mfcc the tail against its plain version on the
     kernel's prefix and the cepstra on rows 0-1 within 5e-4 + 1e-5·|f| of
     the float64 chain (the CPU fp32 chain's distance printed beside), the
     other families' features on rows 0-1 within their gate of the float64
     chain (none at n_fft 131,072, whose float64 CPU chain would take
-    minutes); device time, the plain version, rfft(n=n_fft) and the bound.
+    minutes); device time, the plain version, rfft(n=n_fft) and the bound;
+    for the wide plan, with the breakdown's cuts (`cuts`, phase 2's builds),
+    its staging, FFT stage and projection in turns.
     The n_fft 131,072 case builds its dense float64 mel matrix and its
     copies on the host (~45 GB at 16,385 filters, 1.5-2 minutes of host
     time): a host without that memory, or a run already HOST_BOUND_AFTER_S
@@ -2285,11 +2346,27 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
     from mfcc_tpu_torch.pipeline import pad_batch
 
     t_phase = time.perf_counter()
-    print("== 31. every filter count: the packed table without a filter field, the projection's sums "
-          "in device memory")
+    print("== 31. every filter count: the packed table without a filter field, the wide plan (the projection "
+          "filter by filter over a tile of frames), the tail's base as a sum of stretches")
     own_workspace, own_resident = frontend._workspace, frontend._resident_blocks
     bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731  (NaN-safe bitwise)
-    for key, name, over, rows, seconds, plan, passes in MANY_FILTERS:
+
+    def workspace_checks(ref, run, plan: str) -> None:
+        """The plans with a workspace ("gather_rows", "gather_sums", the
+        bf16x3 "gather_out"): a NaN-filled workspace, then (but
+        "gather_out") a persistent grid of 7 blocks, leave run()'s output
+        ref unchanged, bitwise."""
+        frontend._workspace = lambda floats, device: torch.full((floats,), float("nan"), device=device)
+        try:
+            check(torch.equal(bits(ref), bits(run())), f"{plan}: a NaN-filled workspace leaves the output "
+                                                       "unchanged, bitwise")
+            if plan != "gather_out":
+                frontend._resident_blocks = lambda *args: 7
+                check(torch.equal(bits(ref), bits(run())),
+                      f"{plan}: a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
+        finally:
+            frontend._workspace, frontend._resident_blocks = own_workspace, own_resident
+    for key, name, over, rows, seconds, plan, passes, seed in MANY_FILTERS:
         t_case = time.perf_counter()
         cfg = named_config(name).replace(**over)
         host = 5 * 8 * cfg.n_bins * cfg.n_mels  # the dense float64 mel, its copies and band temporaries
@@ -2303,7 +2380,7 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
             continue
         bf16 = passes == "bf16x3"
         n = cfg.sample_rate * seconds
-        batch = make_batch(pad_batch, cfg, rows, n, 571, seed=sum(map(ord, key)))
+        batch = make_batch(pad_batch, cfg, rows, n, 571, seed=seed)
         audio = torch.as_tensor(batch.audio, device="cuda")
         lengths = torch.as_tensor(batch.lengths, device="cuda")
         F = cfg.num_frames(batch.audio.shape[1])
@@ -2355,8 +2432,9 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
                                  for i in range(0, rows, chunk)])
             errs = nan_gate(torch, testing, got, plain64, cfg, "kernel vs its float64 plain version on the card",
                             narrow, spread)
-            if plan == "cluster":  # the parent's plan, forced, against the same version
-                to_parent = forced_layout(frontend, without_cluster(frontend))
+            if plan in ("cluster", "wide"):  # the parent's plan, forced, against the same version
+                to_parent = forced_layout(frontend, without_cluster(frontend) if plan == "cluster"
+                                          else without_wide(frontend))
                 parent = to_parent(lambda: frontend.fft_plan(cfg))
                 parent_branches = {**to_parent(lambda: plan_branches(chain, frontend, cfg)), **kinds}
                 counters.zero()
@@ -2367,8 +2445,27 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
                 perr = nan_gate(torch, testing, got_parent, plain64, cfg,
                                 f"the parent's plan ({parent}) vs the float64 plain version", narrow, spread)
                 check(not testing.prefix_failures(perr), f"{parent}: within the prefix gates of its plain version")
+                run_parent = lambda: to_parent(lambda: frontend.logmel_prefix(audio, lengths, cfg))  # noqa: E731
+                check(torch.equal(bits(got_parent), bits(to_parent(
+                          lambda: frontend.logmel_prefix(audio.float(), lengths, cfg))))
+                      and torch.equal(bits(got_parent), bits(run_parent())),
+                      f"{parent}: int16 rows == float32 rows, and two runs equal, bitwise")
+                if parent in ("gather_rows", "gather_sums"):
+                    workspace_checks(got_parent, run_parent, parent)
                 parent_ms = to_parent(lambda: device_ms(torch, lambda: frontend.logmel_prefix(audio, lengths, cfg),
                                                         "logmel_kernel"))
+                if plan == "wide":
+                    M = cfg.n_mels
+                    same = torch.equal(bits(got), bits(got_parent))
+                    d = (got - got_parent).abs().nan_to_num(0.0)
+                    print(f"    the wide plan vs {parent} (groups {frontend.wide_layout(cfg)[0]} vs "
+                          f"{to_parent(lambda: frontend.fft_layout(cfg))[1]}): bitwise equal {same}; largest "
+                          f"difference: lanes [0, {M}) {float(d[..., :M].max()):.3e}, the energy lane "
+                          f"{float(d[..., M].max()):.3e}; {frontend.packed_count(cfg):,} weights for {M:,} filters")
+                    if frontend.packed_count(cfg) == M and frontend.wide_layout(cfg)[0] == \
+                            to_parent(lambda: frontend.fft_layout(cfg))[1]:
+                        check(same, f"{key}: bitwise {parent}'s output (one weight a filter, the same groups)")
+                    del d
                 del got_parent
             del plain64
             fails = testing.prefix_failures(errs)
@@ -2376,17 +2473,8 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
         check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio.float(), lengths, cfg, dft_passes=passes)))
               and torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes))),
               "int16 rows == float32 rows, and two runs equal, bitwise")
-        if plan in ("gather_rows", "gather_sums", "gather_out"):
-            frontend._workspace = lambda floats, device: torch.full((floats,), float("nan"), device=device)
-            try:
-                check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes))),
-                      "a NaN-filled workspace leaves the output unchanged, bitwise")
-                if plan != "gather_out":
-                    frontend._resident_blocks = lambda *args: 7
-                    check(torch.equal(bits(got), bits(frontend.logmel_prefix(audio, lengths, cfg))),
-                          "a persistent grid of 7 blocks (each over many tiles, NaN-filled slots), bitwise")
-            finally:
-                frontend._workspace, frontend._resident_blocks = own_workspace, own_resident
+        if plan == "gather_out":
+            workspace_checks(got, lambda: frontend.logmel_prefix(audio, lengths, cfg, dft_passes=passes), plan)
         del got
         check_counts(torch, frontend, audio, lengths, cfg, key, passes)
         counters.zero()
@@ -2420,16 +2508,21 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
             print("    the tail vs its plain version on the kernel's prefix: "
                   + ", ".join(f"{k}={v:.3e}" for k, v in errs_t.items()))
             check(not testing.tail_failures(errs_t), "the tail within max(2e-4, 2e-5 max|f|) of its plain version")
-            # the split's passes, base compensated past 1,024 lanes
+            # the split's passes, its base kernel's stretches past 1,024 lanes
             tail_ms = device_ms(torch, lambda: tail.feature_tail(prefix, nv, cfg), None)
             tail_plain_ms = cuda_ms(torch, lambda: tail.feature_tail_reference(prefix, nv, cfg), reps=3, warmup=1)
             tail_bound_ms, tail_by = tail_bound(cfg, rows, F, int(nv.sum()))
-            print(f"    feature tail, {tail.plan(cfg)[0]} plan: {tail_ms:.4f} ms of device time, L2 flushed "
-                  f"({tail_bound_ms / tail_ms * 100:.2f}% of its bound); plain version {tail_plain_ms:.4f} ms {tag}")
-            if key in TAIL_KEYS:
+            print(f"    feature tail, {tail.plan(cfg)[0]} plan, base by {tail.split_base(cfg)}: {tail_ms:.4f} ms "
+                  f"of device time, L2 flushed ({tail_bound_ms / tail_ms * 100:.2f}% of its bound); plain version "
+                  f"{tail_plain_ms:.4f} ms {tag}")
+            if key in TAIL_KEYS:  # the base kernel alone: its device time and its own bound
+                base_ms = device_ms(torch, lambda: tail.feature_tail(prefix, nv, cfg), "tail_base_kernel")
+                base_bound_ms, base_by = tail_bound(cfg, rows, F, int(nv.sum()), base_only=True)
+                print(f"    its base kernel: {base_ms:.4f} ms of device time, L2 flushed "
+                      f"({base_bound_ms / base_ms * 100:.2f}% of its bound) {tag}")
                 results[TAIL_KEYS[key]] = dict(
-                    launches=launches_x["tail_split"], max_abs_err=errs_t["max_abs"], ms=tail_ms,
-                    plain_ms=tail_plain_ms, bound_ms=tail_bound_ms, bound_by=tail_by, library_ms=None)
+                    launches=launches_x["tail_base"], max_abs_err=errs_t["max_abs"], ms=base_ms,
+                    plain_ms=tail_plain_ms, bound_ms=base_bound_ms, bound_by=base_by, library_ms=None)
             del prefix
             if cfg.n_fft <= 16384:
                 f64, _ = chain.extract_batch(batch.audio[:2], batch.lengths[:2], cfg.replace(dtype="float64"),
@@ -2442,6 +2535,8 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
                 check(excess <= testing.FEATURE_ATOL, f"card cepstra within {testing.FEATURE_ATOL} + 1e-5 |f| of the "
                                                       "float64 chain (rows 0-1)")
                 del f64, cpu, d
+                if key in FP32_CHAIN_FAULTS:
+                    fault_rows(torch, chain, testing, pad_batch, cfg, n, FP32_CHAIN_FAULTS[key])
         elif cfg.n_fft <= 16384:
             f64, _ = chain.extract_batch(batch.audio[:2], batch.lengths[:2], cfg.replace(dtype="float64"),
                                          device="cpu")
@@ -2469,13 +2564,19 @@ def many_filters_path(torch, counters, tag: str, results: dict, t_script: float)
               f"launches {launches[counter]} {tag}")
         print(f"    plain version: {plain_ms:.4f} ms (events); torch.fft.rfft(n={cfg.n_fft}) on "
               f"[{rows * F}, {cfg.frame_length}] (DFT only): {rfft_ms:.4f} ms of device time {tag}")
+        if plan == "wide" and cuts:
+            ms = breakdown.time_cuts(torch, frontend, cuts, cfg, audio, lengths,
+                                     timer=lambda fn: device_ms(torch, fn, "logmel_kernel"))
+            p0, p1, p2 = (float(np.mean(ms[c])) for c in (0, 1, 2))
+            print(f"    breakdown (profiler device time, L2 flushed, cuts in turns): staging {p1:.4f} ms, "
+                  f"FFT stage {p2 - p1:.4f}, projection {p0 - p2:.4f}, whole {p0:.4f} {tag}")
         results[key] = dict(launches=launches[counter], max_abs_err=errs["max_abs"], ms=kernel_ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
-        if plan == "cluster":
+        if plan in ("cluster", "wide"):
             print(f"    the parent's plan ({parent}), forced: {parent_ms:.4f} ms of device time, L2 flushed "
-                  f"({bound_ms / parent_ms * 100:.2f}% of its bound); the cluster plan {kernel_ms / parent_ms:.3f}x "
+                  f"({bound_ms / parent_ms * 100:.2f}% of its bound); the {plan} plan {kernel_ms / parent_ms:.3f}x "
                   f"it {tag}")
-            results[key.replace("cluster_", f"{parent}_")] = dict(
+            results[key.replace(f"{plan}_", f"{parent}_", 1)] = dict(
                 launches=parent_launches[parent], max_abs_err=perr["max_abs"], ms=parent_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=rfft_ms)
         del audio, lengths
@@ -2555,7 +2656,7 @@ def new_form_paths(torch, counters, tag: str, results: dict) -> None:
                                 bound_by=bound_by, library_ms=rfft_ms)
 
 
-def tail_bound(cfg, B: int, F: int, frames: int) -> tuple[float, str]:
+def tail_bound(cfg, B: int, F: int, frames: int, base_only: bool = False) -> tuple[float, str]:
     """The feature tail's bound: it reads the prefix rows of the `frames`
     valid frames (rows past an utterance's n_valid are never read), the
     valid frame counts and dct_aug, and writes all of [B, F, feat_dim] (pad
@@ -2563,8 +2664,15 @@ def tail_bound(cfg, B: int, F: int, frames: int) -> tuple[float, str]:
     log, clamp and floor (3), the [n_mels+1] x [n_ceps] product (2 M1 C) and
     per delta order C (3N + 1) (N differences, products and sums, one
     division); CMVN adds per valid value a sum, a centring, a square, a sum
-    and the division (5 D)."""
+    and the division (5 D). base_only: the split's base pass alone, which
+    writes base on the valid rows and the pad rows' zeros (no deltas, no
+    CMVN)."""
     M1, C, N, D = cfg.n_mels + 1, cfg.n_ceps, cfg.delta_window, cfg.feat_dim
+    if base_only:
+        nbytes = 4 * (frames * M1 + B + M1 * C + frames * C + (B * F - frames) * D)
+        per_frame = 3 + 2 * M1 * C
+        print(f"  the split's base alone: {frames} valid frames x {per_frame} operations")
+        return bound(nbytes, frames * per_frame)
     nbytes = 4 * (frames * M1 + B + M1 * C + B * F * D)
     per_frame = 3 + 2 * M1 * C + cfg.deltas * C * (3 * N + 1)
     if cfg.cmvn == "utterance":
@@ -4794,7 +4902,7 @@ def main(argv=None) -> int:
     long_span_path(torch, counters, tag, results)
     any_n_fft_path(torch, counters, tag, results)
     bf16x3_plans_path(torch, counters, tag, results)
-    many_filters_path(torch, counters, tag, results, t_script)
+    many_filters_path(torch, counters, tag, results, t_script, breakdown, cuts)
     print(f"the whole script took {time.perf_counter() - t_script:.1f} s")
 
     print(card)

@@ -31,8 +31,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # sources compiled in parts: csrc/frontend.cu's C interface (part 0) and its
-# fourteen groups of kernel instantiations (csrc/frontend.cu FRONTEND_PARTS)
-PARTS = {"frontend": 15}
+# sixteen groups of kernel instantiations (csrc/frontend.cu FRONTEND_PARTS)
+PARTS = {"frontend": 17}
 _NVCC_SLOTS = threading.BoundedSemaphore(os.cpu_count() or 1)
 
 

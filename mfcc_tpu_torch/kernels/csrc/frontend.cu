@@ -309,6 +309,44 @@
 // output, 16 x 999 x 60,001 floats (3.84 GB) written once, is ~1.15 ms at
 // 3.35 TB/s; bytes bound it (chip_smoke.py computes it per run).
 //
+// The wide plan (p.wide; logmel_kernel_wide, instantiations of its own, its
+// tile p.tile a launch argument; kernels/frontend.py fft_layout takes it
+// where the ladder without it gives "gather_sums", and "gather_bands" or
+// "gather_rows" at WIDE_MIN_FILTERS filters or more; plan_wide lays it out,
+// kernels/frontend.py wide_smem mirrors it). At tens of thousands of
+// filters each filter has one weight (60,000 filters at n_fft 512: 60,000
+// packed weights), so the projection is a gather, a product and a log a
+// lane, and the work is writing the [B, F, M + 1] output once. "gather_sums"
+// wrote it three times (each sum a lone 4-byte store, the row read back for
+// the log and written again) and "gather_bands" took one frame an SM. A
+// block takes a tile of p.tile frames of one row:
+//   stage 1, the FFT: the block's p.groups groups (the first of 4, 2, 1
+//     whose two rows fit beside the tile's power rows) take the tile's
+//     frames one at a time through their rows in shared memory, as the
+//     gather plans' groups do (step 2g, the conditioning's group sums, the
+//     Stockham or Bluestein stages with the tables by __ldg, the real split
+//     or the odd form's powers), but into the frame's own power row of the
+//     tile, stride pws = bins rounded up to 4, and its energy lane into en;
+//   stage 2, the projection filter by filter: thread t takes filters t,
+//     t + 256, ..., reads each one's weights (off, meta, w, and wf for SSC)
+//     once a tile, and for each frame sums them in packed order from 0 (one
+//     rounded product where the filter has one weight), takes the epilogue
+//     (WideFinish: the log kind, nothing for PLP, the SSC ratio) in
+//     registers and stores the lane once (st.global.cs: a warp's 32 lanes
+//     are one run of the row); lane M takes en.
+// Nothing but the output reaches device memory: no sums there, no thread
+// partials, no second pass, no workspace. With one weight a filter each sum
+// is the one rounded product every plan computes, so where the groups are
+// "gather_sums"' (4) the output is bitwise its, and elsewhere it differs in
+// the energy lane alone (a group sum over other threads). The tile is the
+// most frames whose layout fits two blocks an SM, else one (93 at n_fft
+// 512, 10 at ssc26's 4,096); the wrapper may launch fewer a block (the
+// tile is an argument). Past one frame's power row beside the FFT rows
+// (n_fft from ~21,000) "gather_sums" stays.
+// Bound at classic13_deltas with 60,000 filters, b16 x 10 s: the output,
+// 3.84 GB written once, ~1.15 ms at 3.35 TB/s (chip_smoke.py computes it
+// per run).
+//
 // The cluster plan (p.cluster = C; logmel_kernel_cluster, instantiations
 // of its own, launched by cudaLaunchKernelEx with the cluster dimension as
 // a launch attribute; the wrapper asks for it by its cluster size, a
@@ -726,6 +764,13 @@ constexpr int kBfItems = 4;  // projection items a thread claims at once
 enum { kBarConsumers = 1, kBarFull = 2, kBarEmpty = 3, kBarEnd = 4 };
 // The cluster plan's largest portable cluster (blocks a frame).
 constexpr int kMaxCluster = 8;
+// The wide plan's projection: filters a thread takes at once, a chunk's
+// (kWideFilters a thread of the block), and the tiles (frames a block) from
+// which it takes them a chunk at a time (kernels/frontend.py wide_tile: the
+// large FFTs' shorter tiles take them a filter at a time).
+constexpr int kWideFilters = 8;
+constexpr int kWideChunk = kWideFilters * kThreads;
+constexpr int kWideChunkTile = 16;
 
 // energy_source, log_kind, feature_kind, DFT form, reflection and framing
 // codes (kernels/frontend.py ENERGY_SOURCES, ops/chain.py LOG_KINDS,
@@ -801,6 +846,9 @@ struct Params {
   // power bins a rank cl_pb = ceil(bins / C), and the offset of the
   // exchange's twists in the twiddle table
   int cluster, cl_n, cl_j, cl_pb, cross;
+  // the wide plan (1, else 0): tile frames a block, groups frames at once
+  // in its FFT stage, pws the power rows' stride
+  int wide;
 };
 
 // Packed weight tables staged for the feature kind: mel; none for the
@@ -949,6 +997,24 @@ __host__ __device__ inline ClusterLayout cluster_layout(const Params& p) {
   l.slot = l.red + kWarps;
   l.rng = l.slot + 4;
   l.total = l.rng + 2 * kMaxCluster;
+  return l;
+}
+
+// The wide plan's layout a block, in floats (kernels/frontend.py wide_smem
+// mirrors it): each group's two FFT rows (padded as every plan's), then the
+// tile's p.tile power rows (stride p.pws = bins rounded up to 4), the frames'
+// energy lanes and the 8 warps' partials of a group sum.
+struct WideLayout {
+  int row, pw, en, red, total;
+};
+
+__host__ __device__ inline WideLayout wide_layout(const Params& p) {
+  WideLayout l;
+  l.row = align4(2 * (p.fft_n + (p.fft_n >> 3) + 1));
+  l.pw = p.groups * 2 * l.row;
+  l.en = l.pw + p.tile * p.pws;
+  l.red = l.en + align4(p.tile);
+  l.total = l.red + kWarps;
   return l;
 }
 
@@ -1438,6 +1504,158 @@ __device__ inline float power_sum(const float* pw, int bins, int lane) {
   float es = 0.f;
   for (int k = lane; k < bins; k += 32) es += pw[k];
   return warp_sum(es);
+}
+
+// 2. The conditioned sample g[a] of the frame fr with mean mu under kCond
+//    (frame pre-emphasis folded in); fr[a] otherwise.
+template <bool kCond>
+__device__ __forceinline__ float frame_cond(const Params& p, const float* fr, float mu, int a) {
+  if constexpr (kCond) {
+    const float d = fr[a] - mu;
+    return a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (fr[a - 1] - mu);
+  } else {
+    return fr[a];
+  }
+}
+
+// A frame's energy lane from its power sum es and, under kCond with an
+// energy of the samples, its frame energy e_frame; 0 for SSC.
+template <bool kCond>
+__device__ __forceinline__ float energy_of(const Params& p, float es, float e_frame) {
+  if (p.feature_kind == kSsc) return 0.f;
+  if (kCond && p.energy_source != kPspec) return fmaxf(e_frame, p.eps);
+  return es <= 0.f ? p.eps : es;
+}
+
+// 3. One frame's DFT by a team (a warp over its own rows ra, rb; a group of
+//    the block plans or of the wide plan over its group's) from the frame
+//    fr with mean mu, its windowed samples frame_cond(a) * wv[a], on the
+//    tables tws (twiddles, chirp, filter) and bs (stage bases): the
+//    Stockham or Bluestein form, then the real split (or the odd form's
+//    powers) into pw: on entry the frame's own power row, or null for the
+//    team's free row, which pw then names. Returns this thread's share of
+//    the power sum, and adds its windowed samples' squares to e under wsum.
+template <bool kCond, typename Team>
+__device__ __forceinline__ float frame_fft(Team team, const Params& p, const float* fr, float mu,
+                                           const float* wv, bool wsum, float2* ra, float2* rb,
+                                           const float2* tws, const int* bs, float& e, float*& pw) {
+  constexpr bool kG = Team::kGlobal;
+  const int Lk = imin(p.L, p.n_fft);  // rfft(n=n_fft) truncates longer frames
+  auto sample = [&](int a) -> float { return frame_cond<kCond>(p, fr, mu, a) * wv[a]; };
+  if (p.form == kBluestein) {
+    // 3d. the Bluestein FFT: stage 0 of the forward P-point FFT loads
+    //     point n < Q (the windowed pair (y[2n], y[2n+1]) for even n_fft,
+    //     the sample y[n] for odd) times the chirp c[n], zero past Q; the
+    //     inverse's stage 0 loads conj(A[n]) times the filter spectrum
+    //     (1/P folded in) and runs the same forward stages; Z[k] =
+    //     c[k] conj(D[k]) then feeds the real split (even n_fft) or is
+    //     X[k] itself (odd)
+    const float2* chirp = tws + p.chirp;
+    const float2* filt = tws + p.filt;
+    const bool packed = (p.n_fft & 1) == 0;
+    auto point = [&](int n) -> float2 {
+      if (n >= p.bq) return make_float2(0.f, 0.f);
+      const int a = packed ? 2 * n : n;
+      const float re = a < Lk ? sample(a) : 0.f;
+      const float im = packed && a + 1 < Lk ? sample(a + 1) : 0.f;
+      if (wsum) e += re * re + im * im;
+      return cmul(make_float2(re, im), ld<kG>(chirp + n));
+    };
+    float2* A = const_cast<float2*>(stockham(point, ra, rb, p, tws + p.nsplit, bs, team));
+    const int P = p.fft_n;
+    auto spectrum = [&](int n) -> float2 {
+      const float2 x = A[pad(n)];
+      return cmul(make_float2(x.x, -x.y), ld<kG>(filt + (packed ? imin(n, P - n) : n)));
+    };
+    const float2* D = stockham(spectrum, A == ra ? rb : ra, A, p, tws + p.nsplit, bs, team);
+    if (!pw) pw = reinterpret_cast<float*>(D == ra ? rb : ra);
+    auto zat = [&](int k) -> float2 {  // c[k] conj(D[k])
+      const float2 d = D[pad(k)], c = ld<kG>(chirp + k);
+      return make_float2(c.x * d.x + c.y * d.y, c.y * d.x - c.x * d.y);
+    };
+    return packed ? real_split(zat, pw, tws, p.half, p.pscale, team)
+                  : chirp_power(zat, pw, p.bins, p.pscale, team);
+  }
+  // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
+  //     windowed (0 past Lk) from the frame; then the real split into pw
+  auto point = [&](int n) -> float2 {
+    const int a = 2 * n;
+    const float re = a < Lk ? sample(a) : 0.f;
+    const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
+    if (wsum) e += re * re + im * im;
+    return make_float2(re, im);
+  };
+  const float2* Z = stockham(point, ra, rb, p, tws + p.nsplit, bs, team);
+  if (!pw) pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
+  return real_split([&](int k) { return Z[pad(k)]; }, pw, tws, p.half, p.pscale, team);
+}
+
+// 2-3. Frame f of a group (the block plans' group loop, the wide plan's
+//     stage 1) through its rows ra, rb. 2z: a frame wholly past its row's
+//     length (framed) zeroes its power row (pw, or ra where pw is null).
+//     Else 2g, under `gather`: the frame's first Lk samples from device
+//     memory into rb (stage 0 of the first FFT reads it and writes ra);
+//     dev(a), any a < L, the same value from device memory; otherwise fr,
+//     the frame in the staged span. 2: the conditioning's mean and raw
+//     energy as group sums; 3: frame_fft into pw (frame_fft's rule); then
+//     the windowed energy of the samples past Lk. es: the group's power
+//     sum; e_frame: under kCond, the group's frame energy (else 0). wv: the
+//     window the DFT's loads read, window: its device-memory copy.
+template <bool kDither, bool kCond, typename Team, typename Sample>
+__device__ __forceinline__ void group_frame(Team team, const Params& p, const Sample* row, long long len, int f,
+                                            bool framed, bool gather, const float* fr, const float* wv,
+                                            const float* __restrict__ window, float2* ra, float2* rb,
+                                            const float2* tws, const int* bs, float* red, float*& pw, float& es,
+                                            float& e_frame) {
+  const int L = p.L, Lk = imin(L, p.n_fft), rank = team.rank, gsize = team.size();
+  const bool wsum = kCond && p.energy_source == kWindowedFrame;
+  auto gsum = [&](float v) { return group_sum(v, red, team); };
+  e_frame = 0.f;
+  if (framed && static_cast<long long>(f) * p.S >= len) {  // 2z
+    if (!pw) pw = reinterpret_cast<float*>(ra);
+    for (int k = rank; k < p.bins; k += gsize) pw[k] = 0.f;
+    es = 0.f;
+    return;
+  }
+  const long long tf = static_cast<long long>(f) * p.S;
+  auto dev = [&](int a) -> float { return staged_at<kDither>(row, tf + a, len, p); };
+  if (gather) {
+    float* g = reinterpret_cast<float*>(rb);
+    for (int a = rank; a < Lk; a += gsize) g[a] = dev(a);
+    team.sync();
+    fr = g;
+  }
+  auto x_at = [&](int a) -> float { return gather && a >= Lk ? dev(a) : fr[a]; };
+  float mu = 0.f, e = 0.f;
+  if constexpr (kCond) {
+    if (p.remove_dc) {
+      float s = 0.f;
+      for (int a = rank; a < L; a += gsize) s += x_at(a);
+      mu = gsum(s) / static_cast<float>(L);
+    }
+    if (p.energy_source == kRawFrame) {
+      for (int a = rank; a < L; a += gsize) {
+        const float d = x_at(a) - mu;
+        e += d * d;
+      }
+    }
+  }
+  es = gsum(frame_fft<kCond>(team, p, fr, mu, wv, wsum, ra, rb, tws, bs, e, pw));
+  if (wsum) {
+    for (int a = Lk + rank; a < L; a += gsize) {
+      float x;
+      if (gather) {  // the rows hold the FFT now: both samples from device memory
+        const float d = dev(a) - mu;
+        x = (d - p.frame_preemph * (dev(a - 1) - mu)) * __ldg(window + a);
+      } else {
+        x = frame_cond<kCond>(p, fr, mu, a) * wv[a];
+      }
+      e += x * x;
+    }
+  }
+  if constexpr (kCond) {
+    if (p.energy_source != kPspec) e_frame = gsum(e);
+  }
 }
 
 // Views of the packed mel bands, staged in shared memory or (bands_global)
@@ -1983,11 +2201,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
   // before its epilogue, so they do not live across its products)
   int m0 = 0, from = -1;
   if (!kBlock && !kBf16 && kind != kSpectrogram) m0 = chunk_filter(moff, M, p.nnz, p.chunk, lane, from);
-  auto energy_lane = [&](float es, float e_frame) -> float {
-    if (kind == kSsc) return 0.f;
-    if (kCond && p.energy_source != kPspec) return fmaxf(e_frame, p.eps);
-    return es <= 0.f ? p.eps : es;
-  };
+  auto energy_lane = [&](float es, float e_frame) -> float { return energy_of<kCond>(p, es, e_frame); };
 
   // 2. per frame, the conditioning over the frame's L samples under kCond:
   //    mean and raw energy of the centered frame (frame_stats); cond(a) is
@@ -2010,14 +2224,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       }
     }
   };
-  auto cond = [&](const float* fr, float mu, int a) -> float {
-    if constexpr (kCond) {
-      const float d = fr[a] - mu;
-      return a == 0 ? d * p.frame_keep0 : d - p.frame_preemph * (fr[a - 1] - mu);
-    } else {
-      return fr[a];
-    }
-  };
+  auto cond = [&](const float* fr, float mu, int a) -> float { return frame_cond<kCond>(p, fr, mu, a); };
   const bool wsum = kCond && p.energy_source == kWindowedFrame;
 
   if constexpr (kBf16) {
@@ -2159,66 +2366,6 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       __syncwarp();  // part is rewritten by the warp's next frame
     }
   } else {
-    // 3. one frame's DFT by a team (a warp over its own rows ra, rb; a
-    //    group of the block plan over its group's) from the frame fr with
-    //    mean mu, on the tables tws (twiddles, chirp, filter) and bs (stage
-    //    bases): the Stockham or Bluestein form, then the real split (or the
-    //    odd form's powers) into the free row pw; returns this thread's
-    //    share of the power sum, and adds its windowed samples' squares to e
-    //    under wsum
-    auto transform = [&](auto team, const float* fr, float mu, float2* ra, float2* rb,
-                         const float2* tws, const int* bs, float& e, float*& pw) -> float {
-      constexpr bool kG = decltype(team)::kGlobal;
-      auto sample = [&](int a) -> float { return cond(fr, mu, a) * wv[a]; };
-      if (p.form == kBluestein) {
-        // 3d. the Bluestein FFT: stage 0 of the forward P-point FFT loads
-        //     point n < Q (the windowed pair (y[2n], y[2n+1]) for even n_fft,
-        //     the sample y[n] for odd) times the chirp c[n], zero past Q; the
-        //     inverse's stage 0 loads conj(A[n]) times the filter spectrum
-        //     (1/P folded in) and runs the same forward stages; Z[k] =
-        //     c[k] conj(D[k]) then feeds the real split (even n_fft) or is
-        //     X[k] itself (odd)
-        const float2* chirp = tws + p.chirp;
-        const float2* filt = tws + p.filt;
-        const bool packed = (p.n_fft & 1) == 0;
-        auto point = [&](int n) -> float2 {
-          if (n >= p.bq) return make_float2(0.f, 0.f);
-          const int a = packed ? 2 * n : n;
-          const float re = a < Lk ? sample(a) : 0.f;
-          const float im = packed && a + 1 < Lk ? sample(a + 1) : 0.f;
-          if (wsum) e += re * re + im * im;
-          return cmul(make_float2(re, im), ld<kG>(chirp + n));
-        };
-        float2* A = const_cast<float2*>(stockham(point, ra, rb, p, tws + p.nsplit, bs, team));
-        const int P = p.fft_n;
-        auto spectrum = [&](int n) -> float2 {
-          const float2 x = A[pad(n)];
-          return cmul(make_float2(x.x, -x.y), ld<kG>(filt + (packed ? imin(n, P - n) : n)));
-        };
-        const float2* D = stockham(spectrum, A == ra ? rb : ra, A, p, tws + p.nsplit, bs, team);
-        pw = reinterpret_cast<float*>(D == ra ? rb : ra);
-        auto zat = [&](int k) -> float2 {  // c[k] conj(D[k])
-          const float2 d = D[pad(k)], c = ld<kG>(chirp + k);
-          return make_float2(c.x * d.x + c.y * d.y, c.y * d.x - c.x * d.y);
-        };
-        return packed ? real_split(zat, pw, tws, p.half, p.pscale, team)
-                      : chirp_power(zat, pw, p.bins, p.pscale, team);
-      }
-      // 3a. the Stockham FFT, stage 0 loading point n = (y[2n], y[2n+1])
-      //     windowed (0 past Lk) from the staged frame; then the real split
-      //     into the free row
-      auto point = [&](int n) -> float2 {
-        const int a = 2 * n;
-        const float re = a < Lk ? sample(a) : 0.f;
-        const float im = a + 1 < Lk ? sample(a + 1) : 0.f;
-        if (wsum) e += re * re + im * im;
-        return make_float2(re, im);
-      };
-      const float2* Z = stockham(point, ra, rb, p, tws + p.nsplit, bs, team);
-      pw = reinterpret_cast<float*>(Z == ra ? rb : ra);
-      return real_split([&](int k) { return Z[pad(k)]; }, pw, tws, p.half, p.pscale, team);
-    };
-
     if constexpr (!kBlock) {
       float* rows = smem + lay.buf + warp * lay.pstride;  // the warp's two rows
       float2* ra = reinterpret_cast<float2*>(rows);
@@ -2226,7 +2373,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
       for (int fl = warp; fl < kTile; fl += kWarps) {
         const int f = f0 + fl;
         if (f >= F) break;  // warp-uniform
-        float* pw;
+        float* pw = nullptr;
         float es, e_frame = 0.f;
         if (framed && static_cast<long long>(f) * S >= len) {
           // 2z. a frame wholly past its row's length: zero samples, zero powers
@@ -2241,7 +2388,7 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
           //    (those past n_fft too)
           float mu, e;
           frame_stats(fr, mu, e);
-          es = warp_sum(transform(WarpTeam{lane}, fr, mu, ra, rb, tw, sb, e, pw));
+          es = warp_sum(frame_fft<kCond>(WarpTeam{lane}, p, fr, mu, wv, wsum, ra, rb, tw, sb, e, pw));
           if (wsum) {
             for (int a = Lk + lane; a < L; a += 32) {
               const float x = cond(fr, mu, a) * win[a];
@@ -2281,7 +2428,6 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         // thread where it began (chunk_filter)
         int gfrom = -1;
         const int gm0 = kind != kSpectrogram ? chunk_filter(bg.off, M, p.nnz, p.bchunk, rank, gfrom) : 0;
-        auto gsum = [&](float v) { return group_sum(v, red, team); };
         // "gather_sums": SSC's melf sums, the group's M floats of its slot
         // after every slot's rows (formed at each call, so nothing more
         // lives across the frame's FFT)
@@ -2293,59 +2439,12 @@ logmel_tile(const Sample* __restrict__ audio, const int* __restrict__ lengths,
         for (int fl = group; fl < kTile; fl += p.groups) {
           const int f = f0 + fl;
           if (f >= F) break;  // group-uniform
-          float* pw;
-          float es, e_frame = 0.f;
-          if (framed && static_cast<long long>(f) * S >= len) {  // 2z
-            pw = rows;
-            for (int k = rank; k < p.bins; k += gsize) pw[k] = 0.f;
-            es = 0.f;
-          } else {
-            const float* fr = sig + fl * S;
-            // 2g. the gather plan: the frame's first Lk samples from device
-            //     memory into the group's second row (stage 0 of the first
-            //     FFT reads it and writes the first); dev(a), any a < L, the
-            //     same value from device memory
-            const long long tf = static_cast<long long>(f) * S;
-            auto dev = [&](int a) -> float { return staged_at<kDither>(row, tf + a, len, p); };
-            if (gather) {
-              float* g = reinterpret_cast<float*>(rb);
-              for (int a = rank; a < Lk; a += gsize) g[a] = dev(a);
-              team.sync();
-              fr = g;
-            }
-            auto x_at = [&](int a) -> float { return gather && a >= Lk ? dev(a) : fr[a]; };
-            // 2. the conditioning's mean and raw energy as group sums
-            float mu = 0.f, e = 0.f;
-            if constexpr (kCond) {
-              if (p.remove_dc) {
-                float s = 0.f;
-                for (int a = rank; a < L; a += gsize) s += x_at(a);
-                mu = gsum(s) / static_cast<float>(L);
-              }
-              if (p.energy_source == kRawFrame) {
-                for (int a = rank; a < L; a += gsize) {
-                  const float d = x_at(a) - mu;
-                  e += d * d;
-                }
-              }
-            }
-            es = gsum(transform(team, fr, mu, ra, rb, tws, bs, e, pw));
-            if (wsum) {
-              for (int a = Lk + rank; a < L; a += gsize) {
-                float x;
-                if (gather) {  // the rows hold the FFT now: both samples from device memory
-                  const float d = dev(a) - mu;
-                  x = (d - p.frame_preemph * (dev(a - 1) - mu)) * __ldg(window + a);
-                } else {
-                  x = cond(fr, mu, a) * win[a];
-                }
-                e += x * x;
-              }
-            }
-            if constexpr (kCond) {
-              if (p.energy_source != kPspec) e_frame = gsum(e);
-            }
-          }
+          // 2-3. the frame (group_frame: 2z, or 2g under the gather plans,
+          //      the conditioning, the FFT) into the group's free row
+          float* pw = nullptr;
+          float es, e_frame;
+          group_frame<kDither, kCond>(team, p, row, len, f, framed, gather, sig + fl * S, wv, window, ra, rb, tws,
+                                      bs, red, pw, es, e_frame);
           team.sync();  // the power row is whole
           write_frame(out + (static_cast<size_t>(b) * F + f) * (M + 1), pw, energy_lane(es, e_frame),
                       bg, scratch, sums(), gfrom, gm0, p.bchunk, p, team);
@@ -3317,6 +3416,213 @@ logmel_kernel_cluster(const Sample* __restrict__ audio, const int* __restrict__ 
   }
 }
 
+// The wide plan's epilogue of a filter's sums s (and SSC's melf sum sf), by
+// feature kind and, for log-mel, log kind: log_lane's arithmetic on the
+// rounded sum (ln_stab's add by __fadd_rn, so no product is fused into it),
+// the PLP sum, or the SSC ratio, fixed at compile time.
+template <int kKind, int kLog>
+struct WideFinish {
+  static constexpr bool kSsc = kKind == mfcc_frontend::kSsc;
+  float eps;
+  __device__ float operator()(float s, float sf) const {
+    if constexpr (kKind == mfcc_frontend::kSsc) {
+      return __fdiv_rn(sf, s);
+    } else if constexpr (kKind == kPlp) {
+      return s;
+    } else if constexpr (kLog == kLnStab) {
+      return logf(__fadd_rn(s, 1e-6f));
+    } else if constexpr (kLog == kDb) {
+      return 10.f * log10f(s <= 0.f ? eps : s);
+    } else if constexpr (kLog == kLnFloor) {
+      return logf(fmaxf(s, eps));
+    } else if constexpr (kLog == kLog10Floor) {
+      return log10f(fmaxf(s, eps));
+    } else {
+      return logf(s <= 0.f ? eps : s);
+    }
+  }
+};
+
+// 3w. The wide plan (see the header): one tile of p.tile frames of row
+//     blockIdx.y a block. Stage 1: the block's p.groups groups take the
+//     tile's frames g, g + groups, ... one at a time through their two rows
+//     as the gather plans do (step 2g: the frame from device memory; the
+//     conditioning's group sums; the Stockham or Bluestein stages, the
+//     tables by __ldg), the powers into the frame's own power row and the
+//     energy lane into en. Stage 2: thread t takes filters t, t + 256, ...,
+//     reads each one's weights once, and for each frame of the tile sums them
+//     in packed order from the power rows, takes the log kind (nothing for
+//     PLP, the ratio for SSC) in registers and stores its lane once. p is a
+//     grid constant, read in place.
+template <typename Sample, bool kDither, bool kCond>
+__global__ void __launch_bounds__(kThreads, 2)
+logmel_kernel_wide(const Sample* __restrict__ audio, const int* __restrict__ lengths,
+                   float* __restrict__ out, int* __restrict__ n_valid, float* __restrict__ frame_mask,
+                   const float* __restrict__ window, const float* __restrict__ mel_w,
+                   const float* __restrict__ melf_w, const int* __restrict__ mel_off,
+                   const int* __restrict__ mel_meta, const float2* __restrict__ twiddle,
+                   const int* __restrict__ bases, const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) float smem[];
+  const WideLayout lay = wide_layout(p);
+  const int F = p.F, M = p.M, kind = p.feature_kind;
+  const int b = blockIdx.y, f0 = blockIdx.x * p.tile, nf = imin(p.tile, F - f0);
+  const Sample* row = audio + static_cast<size_t>(b) * p.T + p.origin;  // x[0]; x[-1] under origin 1
+  const long long len = max(0, min(lengths[b], p.T - p.origin));
+  const bool framed = p.center == kNoCenter;
+  float* pws = smem + lay.pw;
+  float* en = smem + lay.en;
+  float* red = smem + lay.red;
+
+  // the row's valid frame count, the mask of the tile's frames, the count
+  // from the row's first tile
+  const int nv = valid_frames(lengths[b], p);
+  for (int i = threadIdx.x; i < nf; i += kThreads) {
+    frame_mask[static_cast<size_t>(b) * F + f0 + i] = f0 + i < nv ? 1.f : 0.f;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) n_valid[b] = nv;
+
+  // stage 1: the group's frames (group_frame, as the gather plans take
+  // them: 2g, the conditioning, the FFT), its two rows staged, its tables
+  // by __ldg, each frame's powers into its own power row, its energy lane
+  // into en
+  {
+    const int gsize = kThreads / p.groups, group = threadIdx.x / gsize, rank = threadIdx.x % gsize;
+    const GroupTeam<true> team{rank, gsize, 1 + group};
+    float* rows = smem + group * 2 * lay.row;
+    float2* ra = reinterpret_cast<float2*>(rows);
+    float2* rb = reinterpret_cast<float2*>(rows + lay.row);
+    for (int fl = group; fl < nf; fl += p.groups) {
+      float* pw = pws + fl * p.pws;
+      float es, e_frame;
+      group_frame<kDither, kCond>(team, p, row, len, f0 + fl, framed, true, nullptr, window, window, ra, rb,
+                                  twiddle, bases, red, pw, es, e_frame);
+      if (rank == 0) en[fl] = energy_of<kCond>(p, es, e_frame);
+      team.sync();  // the rows are rewritten by the group's next frame
+    }
+  }
+  __syncthreads();  // every power row of the tile is whole
+
+  // stage 2: the projection filter by filter, each lane stored once; the
+  // epilogue (finish: the log kind, the PLP sum or the SSC ratio) chosen
+  // once, so no loop branches on it. A filter of one weight is one rounded
+  // product a frame; of more, its weights in packed order from 0 (read from
+  // device memory each frame).
+  float* o = out + (static_cast<size_t>(b) * F + f0) * (M + 1);
+  const size_t ostride = static_cast<size_t>(M) + 1;
+  const float eps = p.eps;
+  auto sums = [&](auto finish, int m, int i0, const float* q, float& s, float& sf) {
+    constexpr bool ssc = decltype(finish)::kSsc;
+    for (int i = i0; i < __ldg(mel_off + m + 1); ++i) {
+      float v = q[meta_bin(__ldg(mel_meta + i))];
+      if (ssc) {
+        v = v <= 0.f ? eps : v;
+        sf += v * __ldg(melf_w + i);
+      }
+      s += v * __ldg(mel_w + i);
+    }
+  };
+  // tiles of kWideChunkTile frames or more: the filters kWideChunk at a
+  // time, thread t taking filters c0 + t + 256 k, k < kWideFilters, their
+  // weights read once a chunk into registers (one weight: its bin, w, wf;
+  // more: -1 - its first packed index); then frame after frame it stores
+  // their lanes, so the block writes a frame's kWideChunk lanes, one run of
+  // the row, before the next frame's
+  auto chunked = [&](auto finish) {
+    constexpr bool ssc = decltype(finish)::kSsc;
+    for (int c0 = 0; c0 < M; c0 += kWideChunk) {
+      int e[kWideFilters];
+      float w[kWideFilters], wf[kWideFilters];
+#pragma unroll
+      for (int k = 0; k < kWideFilters; ++k) {
+        const int m = c0 + threadIdx.x + k * kThreads;
+        e[k] = 0;
+        w[k] = wf[k] = 0.f;
+        if (m < M) {
+          const int i0 = __ldg(mel_off + m);
+          if (__ldg(mel_off + m + 1) - i0 == 1) {
+            e[k] = meta_bin(__ldg(mel_meta + i0));
+            w[k] = __ldg(mel_w + i0);
+            if (ssc) wf[k] = __ldg(melf_w + i0);
+          } else {
+            e[k] = -1 - i0;
+          }
+        }
+      }
+      for (int fl = 0; fl < nf; ++fl) {
+        const float* q = pws + fl * p.pws;
+        float* orow = o + fl * ostride + c0 + threadIdx.x;
+#pragma unroll
+        for (int k = 0; k < kWideFilters; ++k) {
+          const int m = c0 + threadIdx.x + k * kThreads;
+          if (m < M) {
+            float s = 0.f, sf = 0.f;
+            if (e[k] >= 0) {
+              float v = q[e[k]];
+              if (ssc) {
+                v = v <= 0.f ? eps : v;
+                sf = v * wf[k];
+              }
+              s = v * w[k];
+            } else {
+              sums(finish, m, -1 - e[k], q, s, sf);
+            }
+            __stcs(orow + k * kThreads, finish(s, sf));
+          }
+        }
+      }
+    }
+  };
+  // shorter tiles (the large FFTs', one block an SM): thread t takes filters
+  // t, t + 256, ..., each one's weights read once, then its lane frame after
+  // frame
+  auto filter_major = [&](auto finish) {
+    constexpr bool ssc = decltype(finish)::kSsc;
+    for (int m = threadIdx.x; m < M; m += kThreads) {
+      const int i0 = __ldg(mel_off + m);
+      if (__ldg(mel_off + m + 1) - i0 == 1) {
+        const float* q = pws + meta_bin(__ldg(mel_meta + i0));
+        const float w = __ldg(mel_w + i0), wf = ssc ? __ldg(melf_w + i0) : 0.f;
+#pragma unroll 4
+        for (int fl = 0; fl < nf; ++fl) {
+          float v = q[fl * p.pws], sf = 0.f;
+          if (ssc) {
+            v = v <= 0.f ? eps : v;
+            sf = v * wf;
+          }
+          __stcs(o + fl * ostride + m, finish(v * w, sf));
+        }
+      } else {
+        for (int fl = 0; fl < nf; ++fl) {
+          float s = 0.f, sf = 0.f;
+          sums(finish, m, i0, pws + fl * p.pws, s, sf);
+          __stcs(o + fl * ostride + m, finish(s, sf));
+        }
+      }
+    }
+  };
+  auto project = [&](auto finish) {
+    if (p.tile >= kWideChunkTile) {
+      chunked(finish);
+    } else {
+      filter_major(finish);
+    }
+  };
+  if (kind == kSsc) {
+    project(WideFinish<kSsc, 0>{eps});
+  } else if (kind == kPlp) {
+    project(WideFinish<kPlp, 0>{eps});
+  } else {
+    switch (p.log_kind) {
+      case kLnStab: project(WideFinish<kLogmel, kLnStab>{eps}); break;
+      case kDb: project(WideFinish<kLogmel, kDb>{eps}); break;
+      case kLnFloor: project(WideFinish<kLogmel, kLnFloor>{eps}); break;
+      case kLog10Floor: project(WideFinish<kLogmel, kLog10Floor>{eps}); break;
+      default: project(WideFinish<kLogmel, kLn>{eps}); break;
+    }
+  }
+  for (int fl = threadIdx.x; fl < nf; fl += kThreads) o[fl * ostride + M] = en[fl];
+}
+
 struct Args {
   const void* audio;
   const int* lengths;
@@ -3440,6 +3746,35 @@ struct ClusterLaunch {
   }
 };
 
+// The launch of the wide plan's instantiation for a sample type and the
+// dither and conditioning branches (dispatch's other template arguments are
+// the plain form's, false): a tile of p.tile frames a block.
+struct WideLaunch {
+  const Args& a;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
+  cudaError_t run() const {
+    const Params& p = a.p;
+    const size_t bytes = static_cast<size_t>(wide_layout(p).total) * sizeof(float);
+    auto kernel = logmel_kernel_wide<Sample, kDither, kCond>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((p.F + p.tile - 1) / p.tile, a.B), kThreads, bytes, a.stream>>>(
+        static_cast<const Sample*>(a.audio), a.lengths, a.out, a.n_valid, a.frame_mask, a.window, a.mel_w,
+        a.melf_w, a.mel_off, a.mel_meta, reinterpret_cast<const float2*>(a.twiddle), a.bases, p);
+    return cudaGetLastError();
+  }
+};
+
+// The card's view of the wide plan's instantiation at `smem` bytes.
+struct WideInfo {
+  Info info;
+  template <typename Sample, bool kResample, bool kDither, bool kCond, bool kBf16, bool kBlock>
+  cudaError_t run() const {
+    return info.of(logmel_kernel_wide<Sample, kDither, kCond>, kThreads);
+  }
+};
+
 // The card's view of the cluster plan's instantiation at `smem` bytes and
 // `cluster` blocks a cluster: registers and local bytes a thread, blocks an
 // SM, and the clusters the card holds at once.
@@ -3488,51 +3823,60 @@ cudaError_t dispatch_sample(const Fn& fn, bool dither, bool cond) {
               : fn.template run<Sample, kResample, false, false, kBf16, kBlock>();
 }
 
+// The plans with a kernel of their own (launch_of's kOwn): none (the ladder's
+// logmel_kernel and the bf16x3 block plans'), the cluster plan, the wide plan.
+enum { kLadderKernel = 0, kClusterKernel = 1, kWideKernel = 2 };
+
 // One part of the instantiations (kernels/_build.py compiles each part of
-// this file on its own, FRONTEND_PART = 1 .. 14, and the extern "C" entries
+// this file on its own, FRONTEND_PART = 1 .. 16, and the extern "C" entries
 // alone as part 0, then links them): the launch and the card's view of the
 // four instantiations of one sample type and one (fused resample, bf16x3,
-// block plan) form, or (kCluster) of the cluster plan.
-template <typename Sample, bool kResample, bool kBf16, bool kBlock, bool kCluster>
+// block plan) form, or (kOwn) of the cluster plan or the wide plan.
+template <typename Sample, bool kResample, bool kBf16, bool kBlock, int kOwn>
 cudaError_t launch_of(const Args& a, bool dth, bool cnd) {
-  if constexpr (kCluster) {
+  if constexpr (kOwn == kClusterKernel) {
     return dispatch_sample<Sample, false, false, false>(ClusterLaunch{a}, dth, cnd);
+  } else if constexpr (kOwn == kWideKernel) {
+    return dispatch_sample<Sample, false, false, false>(WideLaunch{a}, dth, cnd);
   } else {
     return dispatch_sample<Sample, kResample, kBf16, kBlock>(Launch{a}, dth, cnd);
   }
 }
-template <typename Sample, bool kResample, bool kBf16, bool kBlock, bool kCluster>
+template <typename Sample, bool kResample, bool kBf16, bool kBlock, int kOwn>
 cudaError_t info_of(int smem, int cluster, int* out, bool dth, bool cnd) {
-  if constexpr (kCluster) {
+  if constexpr (kOwn == kClusterKernel) {
     return dispatch_sample<Sample, false, false, false>(ClusterInfo{smem, cluster, out}, dth, cnd);
+  } else if constexpr (kOwn == kWideKernel) {
+    return dispatch_sample<Sample, false, false, false>(WideInfo{Info{smem, out}}, dth, cnd);
   } else {
     return dispatch_sample<Sample, kResample, kBf16, kBlock>(Info{smem, out}, dth, cnd);
   }
 }
 
 // The form of either sample type.
-template <bool kResample, bool kBf16, bool kBlock, bool kCluster = false>
+template <bool kResample, bool kBf16, bool kBlock, int kOwn = kLadderKernel>
 cudaError_t launch_form(const Args& a, bool i16, bool dth, bool cnd) {
-  return i16 ? launch_of<int16_t, kResample, kBf16, kBlock, kCluster>(a, dth, cnd)
-             : launch_of<float, kResample, kBf16, kBlock, kCluster>(a, dth, cnd);
+  return i16 ? launch_of<int16_t, kResample, kBf16, kBlock, kOwn>(a, dth, cnd)
+             : launch_of<float, kResample, kBf16, kBlock, kOwn>(a, dth, cnd);
 }
-template <bool kResample, bool kBf16, bool kBlock, bool kCluster = false>
+template <bool kResample, bool kBf16, bool kBlock, int kOwn = kLadderKernel>
 cudaError_t info_form(int smem, int cluster, int* out, bool i16, bool dth, bool cnd) {
-  return i16 ? info_of<int16_t, kResample, kBf16, kBlock, kCluster>(smem, cluster, out, dth, cnd)
-             : info_of<float, kResample, kBf16, kBlock, kCluster>(smem, cluster, out, dth, cnd);
+  return i16 ? info_of<int16_t, kResample, kBf16, kBlock, kOwn>(smem, cluster, out, dth, cnd)
+             : info_of<float, kResample, kBf16, kBlock, kOwn>(smem, cluster, out, dth, cnd);
 }
 
 // The parts, in order (the sample type, then the form): built in parts,
 // every part declares them all (extern template) and then instantiates its
 // own; built as one file (no FRONTEND_PART) every use instantiates.
-#define FRONTEND_PARTS(X)                                                                  \
-  X(int16_t, false, false, false, false) X(float, false, false, false, false) /* warp */   \
-  X(int16_t, false, false, true, false) X(float, false, false, true, false)   /* block */  \
-  X(int16_t, false, true, false, false) X(float, false, true, false, false)   /* bf16x3 */ \
-  X(int16_t, false, true, true, false) X(float, false, true, true, false)   /* its plans */ \
-  X(int16_t, true, false, false, false) X(float, true, false, false, false)  /* resample */ \
-  X(int16_t, true, true, false, false) X(float, true, true, false, false)  /* it, bf16x3 */ \
-  X(int16_t, false, false, false, true) X(float, false, false, false, true)   /* cluster */
+#define FRONTEND_PARTS(X)                                                              \
+  X(int16_t, false, false, false, 0) X(float, false, false, false, 0) /* warp */        \
+  X(int16_t, false, false, true, 0) X(float, false, false, true, 0)   /* block */       \
+  X(int16_t, false, true, false, 0) X(float, false, true, false, 0)   /* bf16x3 */      \
+  X(int16_t, false, true, true, 0) X(float, false, true, true, 0)     /* its plans */   \
+  X(int16_t, true, false, false, 0) X(float, true, false, false, 0)   /* resample */    \
+  X(int16_t, true, true, false, 0) X(float, true, true, false, 0)     /* it, bf16x3 */  \
+  X(int16_t, false, false, false, 1) X(float, false, false, false, 1) /* cluster */     \
+  X(int16_t, false, false, false, 2) X(float, false, false, false, 2) /* wide */
 #define FRONTEND_DECLARE(S, r, b, k, c)                                              \
   extern template cudaError_t launch_of<S, r, b, k, c>(const Args&, bool, bool);    \
   extern template cudaError_t info_of<S, r, b, k, c>(int, int, int*, bool, bool);
@@ -3542,33 +3886,37 @@ cudaError_t info_form(int smem, int cluster, int* out, bool i16, bool dth, bool 
 #ifdef FRONTEND_PART
 FRONTEND_PARTS(FRONTEND_DECLARE)
 #if FRONTEND_PART == 1
-FRONTEND_DEFINE(int16_t, false, false, false, false)
+FRONTEND_DEFINE(int16_t, false, false, false, 0)
 #elif FRONTEND_PART == 2
-FRONTEND_DEFINE(float, false, false, false, false)
+FRONTEND_DEFINE(float, false, false, false, 0)
 #elif FRONTEND_PART == 3
-FRONTEND_DEFINE(int16_t, false, false, true, false)
+FRONTEND_DEFINE(int16_t, false, false, true, 0)
 #elif FRONTEND_PART == 4
-FRONTEND_DEFINE(float, false, false, true, false)
+FRONTEND_DEFINE(float, false, false, true, 0)
 #elif FRONTEND_PART == 5
-FRONTEND_DEFINE(int16_t, false, true, false, false)
+FRONTEND_DEFINE(int16_t, false, true, false, 0)
 #elif FRONTEND_PART == 6
-FRONTEND_DEFINE(float, false, true, false, false)
+FRONTEND_DEFINE(float, false, true, false, 0)
 #elif FRONTEND_PART == 7
-FRONTEND_DEFINE(int16_t, false, true, true, false)
+FRONTEND_DEFINE(int16_t, false, true, true, 0)
 #elif FRONTEND_PART == 8
-FRONTEND_DEFINE(float, false, true, true, false)
+FRONTEND_DEFINE(float, false, true, true, 0)
 #elif FRONTEND_PART == 9
-FRONTEND_DEFINE(int16_t, true, false, false, false)
+FRONTEND_DEFINE(int16_t, true, false, false, 0)
 #elif FRONTEND_PART == 10
-FRONTEND_DEFINE(float, true, false, false, false)
+FRONTEND_DEFINE(float, true, false, false, 0)
 #elif FRONTEND_PART == 11
-FRONTEND_DEFINE(int16_t, true, true, false, false)
+FRONTEND_DEFINE(int16_t, true, true, false, 0)
 #elif FRONTEND_PART == 12
-FRONTEND_DEFINE(float, true, true, false, false)
+FRONTEND_DEFINE(float, true, true, false, 0)
 #elif FRONTEND_PART == 13
-FRONTEND_DEFINE(int16_t, false, false, false, true)
+FRONTEND_DEFINE(int16_t, false, false, false, 1)
 #elif FRONTEND_PART == 14
-FRONTEND_DEFINE(float, false, false, false, true)
+FRONTEND_DEFINE(float, false, false, false, 1)
+#elif FRONTEND_PART == 15
+FRONTEND_DEFINE(int16_t, false, false, false, 2)
+#elif FRONTEND_PART == 16
+FRONTEND_DEFINE(float, false, false, false, 2)
 #endif
 #endif
 
@@ -3689,6 +4037,27 @@ inline bool plan_cluster(Params& p, int C) {
   return true;
 }
 
+// The wide plan at `tile` frames a block (kernels/frontend.py wide_layout):
+// the form's FFT in the first of 4, 2 and 1 groups whose layout fits the
+// block beside the tile's power rows; each frame, the tables and the packed
+// bands from device memory. False, p unchanged, where no group count fits
+// or the feature kind has no weights (a spectrogram).
+inline bool plan_wide(Params& p, int tile) {
+  if (tile < 1 || p.feature_kind == kSpectrogram) return false;
+  Params q = p;
+  q.wide = q.block = q.gather = q.tables_global = q.bands_global = 1;
+  q.rows_global = q.sums_global = 0;
+  q.tile = tile;
+  q.pws = align4(q.bins);
+  for (q.groups = 4; q.groups >= 1; q.groups /= 2) {
+    if (wide_layout(q).total * 4 <= kSmemBudget) {
+      p = q;
+      return true;
+    }
+  }
+  return false;
+}
+
 // The block plan (kernels/frontend.py fft_layout without the cluster
 // plan): the first plan of the ladder, at the first of 4, 2 and 1 groups
 // (frames a block transforms at once), whose layout fits the block. The
@@ -3723,10 +4092,10 @@ inline void plan_block(Params& p, bool wide) {
 // fit either, and the gather plans where the staged span and window do not
 // (the packed bands, then the FFT rows, then the projection's sums, in
 // device memory where they do not fit either); cluster > 0 takes the
-// cluster plan at that many blocks a frame, which must apply. False when
-// the wrapper's form disagrees, a cluster asked for does not apply, or for
-// n_fft < 2.
-inline bool plan(Params& p, const Polyphase* pp, bool int16, int cluster) {
+// cluster plan at that many blocks a frame, wide_tile > 0 the wide plan at
+// that many frames a block, which must apply. False when the wrapper's form
+// disagrees, a plan asked for does not apply, or for n_fft < 2.
+inline bool plan(Params& p, const Polyphase* pp, bool int16, int cluster, int wide_tile) {
   const int N = p.n_fft;
   if (N < 2) return false;
   p.half = N / 2;
@@ -3738,6 +4107,7 @@ inline bool plan(Params& p, const Polyphase* pp, bool int16, int cluster) {
   p.block = p.tables_global = p.gather = p.bands_global = p.rows_global = p.sums_global = 0;
   p.acc_global = 0;
   p.cluster = p.cl_n = p.cl_j = p.cl_pb = p.cross = 0;
+  p.wide = 0;
   p.groups = 1;
   p.tile = kTile;
   p.chunk = ((p.nnz + 31) / 32) | 1;
@@ -3777,13 +4147,14 @@ inline bool plan(Params& p, const Polyphase* pp, bool int16, int cluster) {
   }
   const bool wide = p.dither > 0.f;  // the plain form's signal row under dither
   if (cluster > 0) return pp == nullptr && plan_cluster(p, cluster);
+  if (wide_tile > 0) return pp == nullptr && plan_wide(p, wide_tile);
   if (pp == nullptr && layout(p, 0, 0, wide, false).total * 4 > kSmemBudget) plan_block(p, wide);
   return true;
 }
 
 inline bool bad_params(Params& p, int B, const float* melf_w, const int* bases, const Polyphase* pp,
-                       bool int16, int cluster = 0) {
-  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p, pp, int16, cluster) ||
+                       bool int16, int cluster = 0, int wide = 0) {
+  return p.L < 1 || p.S < 1 || p.M < 1 || B < 1 || p.F < 1 || !plan(p, pp, int16, cluster, wide) ||
          p.energy_source < kPspec || p.energy_source > kWindowedFrame ||
          p.log_kind < kLn || p.log_kind > kLog10Floor || p.feature_kind < kLogmel ||
          p.feature_kind > kSsc || (p.feature_kind == kSpectrogram && p.M != p.bins) ||
@@ -3848,7 +4219,9 @@ extern "C" {
 // plan at that many blocks a frame (2, 4 or 8; refused where it does not
 // apply), in a persistent grid of nslots clusters (the card's active
 // clusters at most, kernels/frontend.py _active_clusters), its twiddle and
-// bases the cluster plan's tables; 0 takes the ladder's other plans.
+// bases the cluster plan's tables; 0 takes the ladder's other plans. wide >
+// 0 takes the wide plan at that many frames a block (refused where it does
+// not fit, and with cluster > 0), 0 another plan.
 int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengths,
                          float* out, int* n_valid, float* frame_mask, const float* window,
                          const float* mel_w,
@@ -3861,13 +4234,15 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                          unsigned dither_seed, int conditioning, int remove_dc,
                          float frame_preemph, float frame_keep0, int energy_source,
                          int log_kind, int feature_kind, int origin, float* rows_ws,
-                         int nslots, long long ws_floats, int cluster, void* stream) {
+                         int nslots, long long ws_floats, int cluster, int wide, void* stream) {
   Params p{T, F, L, S, M, n_packed, n_fft, dft_form, frame_offset, center, scale, preemph, eps,
            pscale, dither, dither_seed, remove_dc, energy_source, log_kind, frame_preemph,
            frame_keep0, feature_kind, framing, drop_last};
   p.origin = origin;
-  if (cluster < 0 || (cluster > 0 && dft_form == kBf16x3)) return cudaErrorInvalidValue;
-  if (bad_params(p, B, melf_w, bases, nullptr, audio_is_int16 != 0, cluster)) return cudaErrorInvalidValue;
+  if (cluster < 0 || wide < 0 || ((cluster > 0 || wide > 0) && dft_form == kBf16x3) || (cluster > 0 && wide > 0)) {
+    return cudaErrorInvalidValue;
+  }
+  if (bad_params(p, B, melf_w, bases, nullptr, audio_is_int16 != 0, cluster, wide)) return cudaErrorInvalidValue;
   if (origin != 0 && (origin != 1 || T < 2 || dither > 0.f || center != kNoCenter ||
                       frame_offset != 0 || dft_form == kBf16x3)) {
     return cudaErrorInvalidValue;
@@ -3895,7 +4270,8 @@ int mfcc_frontend_logmel(const void* audio, int audio_is_int16, const int* lengt
                mel_meta, twiddle, bases, dft_matrix, nullptr, rows_ws, B, p,
                Polyphase{1, 1, 0, 0}, static_cast<cudaStream_t>(stream)};
   const bool i16 = audio_is_int16 != 0, dth = dither > 0.f, cnd = conditioning != 0;
-  if (p.cluster) return launch_form<false, false, false, true>(a, i16, dth, cnd);
+  if (p.cluster) return launch_form<false, false, false, kClusterKernel>(a, i16, dth, cnd);
+  if (p.wide) return launch_form<false, false, false, kWideKernel>(a, i16, dth, cnd);
   return launch_plain(a, i16, dth, cnd, tensor, p.block != 0);
 }
 
@@ -3958,8 +4334,16 @@ int mfcc_frontend_kernel_info(int audio_is_int16, int resample, int dither, int 
 int mfcc_frontend_cluster_info(int audio_is_int16, int dither, int conditioning, int cluster,
                                int smem_bytes, int* out) {
   if (cluster < 2 || cluster > kMaxCluster) return cudaErrorInvalidValue;
-  return info_form<false, false, false, true>(smem_bytes, cluster, out, audio_is_int16 != 0, dither != 0,
-                                              conditioning != 0);
+  return info_form<false, false, false, kClusterKernel>(smem_bytes, cluster, out, audio_is_int16 != 0,
+                                                        dither != 0, conditioning != 0);
+}
+
+// Registers, local (spilled) bytes a thread and blocks an SM of the wide
+// plan's instantiation for (int16 rows, dither, conditioning) at smem_bytes
+// of dynamic shared memory a block, into out[0..3).
+int mfcc_frontend_wide_info(int audio_is_int16, int dither, int conditioning, int smem_bytes, int* out) {
+  return info_form<false, false, false, kWideKernel>(smem_bytes, 0, out, audio_is_int16 != 0, dither != 0,
+                                                     conditioning != 0);
 }
 
 const char* mfcc_frontend_error_string(int err) {

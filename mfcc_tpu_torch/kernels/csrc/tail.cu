@@ -96,15 +96,31 @@
 // neighbours' writes from the pass before). Each value is the arithmetic of
 // the tiled kernel's on the same inputs (the same FMA chain for base, the
 // same delta_sum and clamps), so the plans agree bitwise, up to kChainLanes
-// lanes. Past that (the split alone takes such shapes: from ~1,100 filters)
-// base is a compensated (Kahan) sum: the FMA chain's error grows with its
-// partial sums, which thousands of empty and one-weight filters (each lane
-// the log floor, or one low bin's log power) drive up together, and at
-// 40,000 filters it read 9.3e-3 from the float64 plain version (gate
-// 2.3e-3); the compensated sum holds ~5e-6 (a numpy emulation at 16,385,
-// 40,000 and 60,000 filters, tests/test_torch_many_filters.py). It reads
-// each prefix row C times from L2 and each base and D value 2N times, where
-// the tiled kernel reads them once from shared memory.
+// lanes. It reads each prefix row C times from L2 and each base and D value
+// 2N times, where the tiled kernel reads them once from shared memory.
+// Past kChainLanes lanes (the split alone takes such shapes: from ~1,100
+// filters) base is a kernel of its own, tail_base_kernel (pass 0; the Δ and
+// ΔΔ passes are the split's, so a step stays 1 + deltas launches). The FMA
+// chain's error grows with its partial sums, which thousands of empty and
+// one-weight filters (each lane the log floor, or one low bin's log power)
+// drive up together: at 40,000 filters a chain read 9.3e-3 from the float64
+// plain version (gate 2.3e-3), and chains over stretches of 256 or 16 lanes
+// with the stretches added exactly stay over the gate's hundredth (a numpy
+// emulation, tests/test_torch_wide.py), so every lane joins a compensated
+// (Kahan) sum, ~5e-6. A block takes a tile of kBaseTile frames
+// and kBaseCols cepstra (grid.z the rest; the columns past C zeros) and sweeps
+// the lanes: warp w takes stretches w, w + 8, ... of kStretch lanes,
+// kBaseLanes at a time, each chunk of the tile's rows staged by 16-byte
+// cp.async copies (from the 16-byte boundary at or below the row's lane,
+// whatever the row's alignment) beside dct_aug's chunk, double-buffered, so
+// each prefix row is read once and dct_aug once a tile (not once a frame); a
+// lane keeps kBaseRows frames x 4 cepstra of (sum, compensation) pairs. The
+// warps' sums are added in float64 in warp order, a fixed order with no
+// atomics, rounded once, and the energy lane's product added as the chain
+// does. Bound at classic13_deltas with 60,000 filters, b16 x 10 s: the
+// 3.84 GB prefix read once, ~1.15 ms at 3.35 TB/s; its 4 FP32 operations a
+// term (12.5 G terms, padded to 16 cepstra 15.4 G) ~2.1 ms at the FP32 issue
+// rate: the compensation, not the bytes, sets its floor.
 //
 // CMVN needs a reduction over the whole utterance, which no tile holds, so it
 // is a second launch: one block per utterance, 8 warps; lane j of a warp takes
@@ -123,7 +139,23 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxW = 27 * 13;  // dct_aug entries the parameter space holds (the named shapes)
 constexpr int kSmemBudget = 232448;  // the H100's dynamic shared memory a block
-constexpr int kChainLanes = 1024;    // the split's base: a plain FMA chain up to here, then compensated
+constexpr int kChainLanes = 1024;    // the split's base: a plain FMA chain up to here, then tail_base_kernel
+// tail_base_kernel: frames a block, lanes a warp's chunk, floats a staged row
+// of it (from the 16-byte boundary at or below its first lane), lanes a
+// stretch (the warps take them in turn), cepstra a block (grid.z takes the
+// rest), a warp's stages and the floats of one stage (the rows, then
+// dct_aug's chunk) and of a warp's stages
+constexpr int kBaseTile = 64;
+constexpr int kBaseLanes = 32;
+constexpr int kBaseRow = kBaseLanes + 4;
+constexpr int kStretch = 256;
+constexpr int kBaseCols = 16;
+constexpr int kBaseStages = 2;
+constexpr int kBaseStage = kBaseTile * kBaseRow + kBaseLanes * kBaseCols;
+constexpr int kBaseWarp = kBaseStages * kBaseStage;
+constexpr int kBaseRows = kBaseTile / 8;  // frames a lane: fg + 8i, i < kBaseRows
+static_assert(kStretch % kBaseLanes == 0, "a stretch is whole chunks");
+static_assert(kWarps * kBaseTile * kBaseCols * 2 <= kWarps * kBaseWarp, "the warps' sums fit the stages");
 
 struct TailParams {
   int F, M1, C, deltas, N, tile;
@@ -358,12 +390,8 @@ tail_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
 // The split, pass p.pass over row b = blockIdx.y, one thread per
 // (frame s, column): pass 0 over all Dout columns (base into [0, C) below
 // nv, zeros at and past nv), pass 1 over C (D into [C, 2C) from base),
-// pass 2 over C (DD into [2C, 3C) from D), each below nv only. kComp: base
-// as a compensated sum (past kChainLanes lanes); an instantiation of its
-// own, so the chain's loop compiles as before (a run-time branch around it
-// cost the split 1.29-1.39x on an H100 at 170 and 200 cepstra, in turns
-// with the chain alone: scripts/block_plan_sweep.py --parent).
-template <bool kComp>
+// pass 2 over C (DD into [2C, 3C) from D), each below nv only. Past
+// kChainLanes lanes tail_base_kernel takes pass 0.
 __global__ void __launch_bounds__(kThreads)
 tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
                   const float* __restrict__ dct, float* __restrict__ out, const TailParams p) {
@@ -379,20 +407,10 @@ tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_va
   if (p.pass == 0) {
     if (s >= nv) {
       o[static_cast<size_t>(s) * Dout + col] = 0.f;
-    } else if (col < C) {  // the generic kernel's FMA chain in lane order, or compensated past kChainLanes
+    } else if (col < C) {  // the generic kernel's FMA chain in lane order
       const float* xr = prefix + (static_cast<size_t>(b) * F + s) * M1;
       float acc = 0.f;
-      if constexpr (!kComp) {
-        for (int m = 0; m < M1 - 1; ++m) acc = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), acc);
-      } else {
-        float comp = 0.f;  // the low bits acc has lost
-        for (int m = 0; m < M1 - 1; ++m) {
-          const float y = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), -comp);
-          const float t = __fadd_rn(acc, y);
-          comp = __fsub_rn(__fsub_rn(t, acc), y);
-          acc = t;
-        }
-      }
+      for (int m = 0; m < M1 - 1; ++m) acc = fmaf(__ldg(xr + m), __ldg(dct + m * C + col), acc);
       o[static_cast<size_t>(s) * Dout + col] =
           fmaf(energy_lane(__ldg(xr + M1 - 1), p), __ldg(dct + (M1 - 1) * C + col), acc);
     }
@@ -402,6 +420,136 @@ tail_split_kernel(const float* __restrict__ prefix, const int* __restrict__ n_va
   const int from = (p.pass - 1) * C + col;  // base (pass 1) or D (pass 2) of this column
   o[static_cast<size_t>(s) * Dout + from + C] =
       delta_sum(s, N, last, p.denom, [&](int j) { return o[static_cast<size_t>(j) * Dout + from]; });
+}
+
+// The split's base past kChainLanes lanes (pass 0; see the header): a tile
+// of kBaseTile frames of row blockIdx.y, cepstra [c0, c0 + kBaseCols), c0 =
+// kBaseCols blockIdx.z, a block. Warp w sweeps stretches w, w + 8, ... of
+// kStretch lanes, kBaseLanes at a time through kBaseStages stages of its
+// own: the chunk of the tile's rows below nv by 16-byte cp.async copies
+// (each row's from the 16-byte boundary at or below its first lane, so a
+// row starts `shift` floats in) and dct_aug's rows of the chunk by 4-byte
+// ones (its columns past C staged as zeros once). Lane (fg, cg) keeps
+// kBaseRows frames (fg + 8i) x 4 cepstra (4 cg + j) of compensated (Kahan) sums over
+// the warp's lanes in order; the warps' sums (acc - comp, in float64) are
+// then added in warp order, rounded once, and the energy lane's product
+// added as the split does. The first column block also writes the zeros of
+// the tile's rows at and past nv.
+__global__ void __launch_bounds__(kThreads, 1)
+tail_base_kernel(const float* __restrict__ prefix, const int* __restrict__ n_valid,
+                 const float* __restrict__ dct, float* __restrict__ out, const __grid_constant__ TailParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int F = p.F, M1 = p.M1, C = p.C, Dout = C * (p.deltas + 1);
+  const int b = blockIdx.y, f0 = blockIdx.x * kBaseTile, c0 = blockIdx.z * kBaseCols;
+  const int nv = min(max(n_valid[b], 0), F);
+  const int rows = min(kBaseTile, F - f0);
+  float* o = out + static_cast<size_t>(b) * F * Dout;
+  if (blockIdx.z == 0) {  // the mask: every column of the tile's rows at and past nv
+    for (int i = threadIdx.x; i < rows * Dout; i += kThreads) {
+      if (f0 + i / Dout >= nv) o[static_cast<size_t>(f0) * Dout + i] = 0.f;
+    }
+  }
+  const int live = min(rows, nv - f0);  // the tile's rows below nv
+  if (live <= 0) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int fg = lane >> 2, cg = lane & 3;
+  const int lanes = M1 - 1;  // the sweep's (the energy lane apart)
+  const int per = kStretch / kBaseLanes;  // chunks a stretch
+  const int stretches = (lanes + kStretch - 1) / kStretch;
+  const int chunks = (stretches > warp ? (stretches - warp + kWarps - 1) / kWarps : 0) * per;
+  float* ws = smem + warp * kBaseWarp;
+  const long long row0 = (static_cast<long long>(b) * F + f0) * M1;  // the tile's first row
+  const long long at = static_cast<long long>(reinterpret_cast<uintptr_t>(prefix) >> 2);
+  auto shift_of = [&](int r) { return static_cast<int>((at + row0 + static_cast<long long>(r) * M1) & 3); };
+  auto lane0 = [&](int c) { return (warp + kWarps * (c / per)) * kStretch + (c % per) * kBaseLanes; };
+  auto nlanes = [&](int c) { return min(kBaseLanes, lanes - lane0(c)); };  // <= 0 past the last stretch's end
+  auto copy_chunk = [&](int c) {
+    const int k0 = lane0(c), nl = nlanes(c);
+    float* xs = ws + (c & 1) * kBaseStage;
+    float* ds = xs + kBaseTile * kBaseRow;
+    if (nl > 0) {
+      for (int i = lane; i < live * (kBaseRow / 4); i += 32) {
+        const int r = i / (kBaseRow / 4), q = i - r * (kBaseRow / 4);
+        const int sh = shift_of(r);
+        if (4 * q < sh + nl) copy16(xs + r * kBaseRow + 4 * q, prefix + row0 + static_cast<long long>(r) * M1 + k0 - sh + 4 * q);
+      }
+      for (int i = lane; i < nl * kBaseCols; i += 32) {
+        const int m = i / kBaseCols, j = i - m * kBaseCols;
+        if (c0 + j < C) copy4(ds + i, dct + static_cast<size_t>(k0 + m) * C + c0 + j);
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int st = 0; st < kBaseStages; ++st) {  // dct_aug's columns past C: zeros, never copied over
+    float* ds = ws + st * kBaseStage + kBaseTile * kBaseRow;
+    for (int i = lane; i < kBaseLanes * kBaseCols; i += 32) {
+      if (c0 + (i & (kBaseCols - 1)) >= C) ds[i] = 0.f;
+    }
+  }
+  int xoff[kBaseRows];  // this lane's frames' rows in a stage, each from its shift
+#pragma unroll
+  for (int i = 0; i < kBaseRows; ++i) {
+    const int r = fg + 8 * i;
+    xoff[i] = r * kBaseRow + (r < live ? shift_of(r) : 0);
+  }
+  float acc[kBaseRows][4], comp[kBaseRows][4];  // comp: the low bits acc has lost
+#pragma unroll
+  for (int i = 0; i < kBaseRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = comp[i][j] = 0.f;
+  }
+  auto add = [](float& s, float& c, float x, float w) {
+    const float y = fmaf(x, w, -c);
+    const float t = __fadd_rn(s, y);
+    c = __fsub_rn(__fsub_rn(t, s), y);
+    s = t;
+  };
+  if (chunks > 0) copy_chunk(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      copy_chunk(c + 1);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncwarp();  // every lane's copies of chunk c are in
+    const float* xs = ws + (c & 1) * kBaseStage;
+    const float* ds = xs + kBaseTile * kBaseRow;
+    const int nl = nlanes(c);
+    for (int m = 0; m < nl; ++m) {
+      const float4 d = *reinterpret_cast<const float4*>(ds + m * kBaseCols + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < kBaseRows; ++i) {
+        const float x = xs[xoff[i] + m];
+        add(acc[i][0], comp[i][0], x, d.x);
+        add(acc[i][1], comp[i][1], x, d.y);
+        add(acc[i][2], comp[i][2], x, d.z);
+        add(acc[i][3], comp[i][3], x, d.w);
+      }
+    }
+    __syncwarp();  // the stage is rewritten by chunk c + 2's copies
+  }
+  __syncthreads();  // every warp's sweep is done: the stages hold the warps' sums
+  double* red = reinterpret_cast<double*>(smem);  // [warp][frame][column]
+#pragma unroll
+  for (int i = 0; i < kBaseRows; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[(warp * kBaseTile + fg + 8 * i) * kBaseCols + 4 * cg + j] =
+          static_cast<double>(acc[i][j]) - static_cast<double>(comp[i][j]);
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < live * kBaseCols; e += kThreads) {
+    const int r = e / kBaseCols, col = c0 + e - r * kBaseCols;
+    if (col >= C) continue;
+    double t = red[r * kBaseCols + col - c0];
+    for (int w = 1; w < kWarps; ++w) t += red[(w * kBaseTile + r) * kBaseCols + col - c0];
+    const float* xr = prefix + row0 + static_cast<long long>(r) * M1;
+    o[static_cast<size_t>(f0 + r) * Dout + col] =
+        fmaf(energy_lane(__ldg(xr + M1 - 1), p), __ldg(dct + static_cast<size_t>(M1 - 1) * C + col),
+             static_cast<float>(t));
+  }
 }
 
 // Utterance CMVN in place over the valid rows of feat [B, F, D].
@@ -496,16 +644,22 @@ inline void plan_tail(TailParams& p) {
   p.tile = 0;
 }
 
-// The split's passes: base and the mask, then one pass a delta order.
+// The split's passes: base and the mask (tail_base_kernel past kChainLanes
+// lanes), then one pass a delta order.
 cudaError_t launch_split(const float* prefix, const int* n_valid, const float* dct, float* out,
                          int B, TailParams p, cudaStream_t stream) {
   for (p.pass = 0; p.pass <= p.deltas; ++p.pass) {
-    const long long n = static_cast<long long>(p.F) * (p.pass == 0 ? p.C * (p.deltas + 1) : p.C);
-    const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), B);
-    if (p.M1 - 1 > kChainLanes) {
-      tail_split_kernel<true><<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+    if (p.pass == 0 && p.M1 - 1 > kChainLanes) {
+      const int bytes = kWarps * kBaseWarp * static_cast<int>(sizeof(float));
+      const cudaError_t err = cudaFuncSetAttribute(tail_base_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   bytes);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((p.F + kBaseTile - 1) / kBaseTile, B, (p.C + kBaseCols - 1) / kBaseCols);
+      tail_base_kernel<<<grid, kThreads, bytes, stream>>>(prefix, n_valid, dct, out, p);
     } else {
-      tail_split_kernel<false><<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
+      const long long n = static_cast<long long>(p.F) * (p.pass == 0 ? p.C * (p.deltas + 1) : p.C);
+      const dim3 grid(static_cast<unsigned>((n + kThreads - 1) / kThreads), B);
+      tail_split_kernel<<<grid, kThreads, 0, stream>>>(prefix, n_valid, dct, out, p);
     }
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;

@@ -25,7 +25,9 @@ thread-block cluster of 2, 4 or 8 blocks (the cluster plan), else the bands
 read from device memory, then the rows kept in a workspace in device
 memory, then, where
 tens of thousands of filters put the projection's sums over it too, the
-sums in device memory), |X|², then
+sums in device memory; at tens of thousands of filters, by `fft_layout`'s
+rule, the wide plan: a tile's FFTs into power rows in shared memory, then
+the projection filter by filter over the tile's frames), |X|², then
 by feature kind (`FEATURE_KINDS`): the mel projection over the packed bands
 (`mel_packed`) and the log kind (ln, ln_stab, db, ln_floor, log10_floor)
 for mfcc and logmel configs, the raw mel energies
@@ -79,7 +81,7 @@ memory, `gather_bands_launches`, `gather_rows_launches` and
 `gather_sums_launches` those of the plans that read the packed mel bands,
 and also keep the FFT rows, and then the projection's sums, in device
 memory (`fft_layout`, `PLAN_TRAITS`), `cluster_launches` those of the
-cluster plan, `split_launches` the plain-form launches of
+cluster plan, `wide_launches` those of the wide plan, `split_launches` the plain-form launches of
 the split route (each after one `resample.cu` launch, counted by
 `kernels/resample.py`). Set them to 0 to start a count.
 
@@ -125,28 +127,32 @@ DFT_FORMS = ("stockham", "bf16x3", "bluestein")  # csrc/frontend.cu codes
 # then with the packed mel bands, then the FFT rows, then the projection's
 # sums in device memory too
 # then "cluster": each frame's FFT rows split over the shared memory of a
-# thread-block cluster, the tables and bands in device memory
-FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "cluster", "gather_bands",
+# thread-block cluster, the tables and bands in device memory; "wide": a
+# tile's power rows in shared memory, projected filter by filter (tens of
+# thousands of filters)
+FFT_PLANS = ("warp", "block", "block_global", "gather", "gather_global", "cluster", "wide", "gather_bands",
              "gather_rows", "gather_sums")
 # what each block plan keeps in device memory rather than staging
-# (csrc/frontend.cu kLadder, and plan_cluster for "cluster", which is no
-# row of it): (each frame, the FFT tables, the packed mel bands, the FFT
-# rows, the projection's sums); "cluster" stages its rows in the
-# cluster's shared memory
+# (csrc/frontend.cu kLadder, and plan_cluster and plan_wide for "cluster"
+# and "wide", which are no rows of it): (each frame, the FFT tables, the
+# packed mel bands, the FFT rows, the projection's sums); "cluster" stages
+# its rows in the cluster's shared memory, "wide" its groups' rows and the
+# tile's power rows, its sums in registers
 PLAN_TRAITS = {
     "block": (False, False, False, False, False),
     "block_global": (False, True, False, False, False),
     "gather": (True, False, False, False, False),
     "gather_global": (True, True, False, False, False),
     "cluster": (True, True, True, False, False),
+    "wide": (True, True, True, False, False),
     "gather_bands": (True, True, True, False, False),
     "gather_rows": (True, True, True, True, False),
     "gather_sums": (True, True, True, True, True),
 }
 # csrc/frontend.cu kLadder's plans in its order: the block plans plan_block
-# walks, every plan after "warp" but "cluster" (which a launch asks for by
-# its cluster size)
-BLOCK_LADDER = tuple(plan for plan in FFT_PLANS[1:] if plan != "cluster")
+# walks, every plan after "warp" but "cluster" and "wide" (which a launch
+# asks for by its cluster size and its tile)
+BLOCK_LADDER = tuple(plan for plan in FFT_PLANS[1:] if plan not in ("cluster", "wide"))
 # the cluster plan's portable cluster sizes (blocks a frame), tried smallest first
 CLUSTER_SIZES = (2, 4, 8)
 # the cluster plan's size rule, by DFT form: `fft_layout` tries it only at
@@ -155,10 +161,26 @@ CLUSTER_SIZES = (2, 4, 8)
 # form's 8,192 points (n_fft 16,384) and up, the Bluestein form's P = 16,384
 # and up (at P = 12,800 it lost to "gather_bands")
 CLUSTER_MIN_POINTS = {"stockham": 8192, "bluestein": 16384}
+# the wide plan's rule (`fft_layout`): it takes every config the ladder
+# without it gives "gather_sums", and those it gives "gather_bands" or
+# "gather_rows" at this many filters or more (where "gather_bands" is first
+# taken at n_fft 512), where it beat them in turns (scripts/block_plan_sweep.py
+# --parent and --wide-rule, from 14,172 filters); its tile is the most frames whose
+# layout fits two blocks an SM (WIDE_TWO_BLOCKS bytes each), else one, at
+# most WIDE_MAX_TILE (32 beat 16, 46 and 93 at 60,000 filters b16 on an H100,
+# `wide_tile` taking fewer where a launch's frames would leave SMs idle);
+# from WIDE_CHUNK_TILE frames its projection takes the filters a chunk at a
+# time, below it a filter at a time (csrc/frontend.cu kWideChunkTile)
+WIDE_MIN_FILTERS = 14172
+WIDE_TWO_BLOCKS = 115712
+WIDE_MAX_TILE = 32
+WIDE_CHUNK_TILE = 16
 # (plan, frames a block transforms at once; for "cluster" the blocks a
-# frame) in the order plan() tries them
+# frame) in the order plan() tries them; "wide" (its second value its tile,
+# `wide_layout`) is tried apart, by its rule
 FFT_LAYOUTS = (("warp", WARPS),
-               *((plan, g) for plan in FFT_PLANS[1:] for g in (CLUSTER_SIZES if plan == "cluster" else (4, 2, 1))))
+               *((plan, g) for plan in FFT_PLANS[1:] if plan != "wide"
+                 for g in (CLUSTER_SIZES if plan == "cluster" else (4, 2, 1))))
 CENTER_CODES = {"center": 1, "center_reflect": 2}  # csrc/frontend.cu reflection kinds; 0 = none
 FRAMINGS = ("pad", "drop", "center", "center_reflect")  # csrc/frontend.cu frame-count codes
 
@@ -178,6 +200,7 @@ gather_bands_launches = 0
 gather_rows_launches = 0
 gather_sums_launches = 0
 cluster_launches = 0
+wide_launches = 0
 bf16x3_launches = 0
 bf16_pass_launches = 0
 bf16_gather_launches = 0
@@ -946,6 +969,8 @@ def _fft_smem(cfg: FrontendConfig, form: str, plan: str, int16: bool = True, gro
     partials of a group sum."""
     if plan == "cluster":  # its layout at `groups` blocks a frame
         return cluster_smem(cfg, form, groups)
+    if plan == "wide":  # its layout at a tile of `groups` frames
+        return wide_smem(cfg, form, wide_groups(cfg, form, groups), groups)
     N, M, tables = cfg.n_fft, cfg.n_mels, mel_matrices(cfg)
     gather, tables_dev, bands_dev, rows_dev, sums_dev = PLAN_TRAITS.get(plan, (False,) * 5)
     n = 0 if bands_dev else _bands(cfg) if gather else _head(cfg, TILE)
@@ -979,9 +1004,65 @@ def cluster_smem(cfg: FrontendConfig, form: str, C: int) -> int:
     return 4 * (2 * row + tables * THREADS + _a4(tables * cfg.n_mels) + WARPS + 4 + 16)
 
 
+def wide_smem(cfg: FrontendConfig, form: str, groups: int, tile: int) -> int:
+    """Shared memory per block of cfg's wide plan (csrc/frontend.cu
+    wide_layout): each of `groups` groups' two FFT rows (`row_floats`), the
+    tile's `tile` power rows (bins rounded up to 4 floats), their energy
+    lanes and the 8 warps' partials of a group sum."""
+    return 4 * (groups * 2 * row_floats(cfg.n_fft, form) + tile * _a4(cfg.n_bins) + _a4(tile) + WARPS)
+
+
+def wide_groups(cfg: FrontendConfig, form: str, tile: int) -> int:
+    """Groups (frames at once) of the wide plan's FFT stage at a tile of
+    `tile` frames (csrc/frontend.cu plan_wide): the first of 4, 2 and 1 whose
+    layout fits the block; 0 where none does."""
+    budget = rs_kernel.SMEM_BUDGET_BYTES
+    return next((g for g in (4, 2, 1) if wide_smem(cfg, form, g, tile) <= budget), 0)
+
+
+def wide_layout(cfg: FrontendConfig, form: str | None = None) -> tuple[int, int] | None:
+    """(groups, tile) of cfg's wide plan: its FFT stage's groups
+    (`wide_groups` at one frame), then the most frames whose power rows fit
+    beside them in WIDE_TWO_BLOCKS bytes (two blocks an SM), else in the
+    block, at most WIDE_MAX_TILE; None where one frame does not fit, or cfg
+    has no weights (a spectrogram)."""
+    form = form or dft_form(cfg)
+    groups = wide_groups(cfg, form, 1)
+    if not groups or not mel_matrices(cfg):
+        return None
+    fixed = wide_smem(cfg, form, groups, 0)
+    for budget in (WIDE_TWO_BLOCKS, rs_kernel.SMEM_BUDGET_BYTES):
+        tile = min(WIDE_MAX_TILE, (budget - fixed) // (4 * _a4(cfg.n_bins) + 4))
+        while tile > 0 and wide_smem(cfg, form, groups, tile) > budget:  # the energies' rounding
+            tile -= 1
+        if tile > 0:
+            return groups, tile
+    return None
+
+
+def wide_tile(tile: int, frames: int, slots: int) -> int:
+    """The wide plan's tile for a launch of `frames` frames (B x F) on a card
+    that holds `slots` of its blocks at once: its layout's `tile`, or fewer,
+    so that the launch's blocks fill the card's slots once (at least one
+    frame a block)."""
+    return max(1, min(tile, -(-frames // slots)))
+
+
+@functools.lru_cache(maxsize=64)
+def _wide_slots(cfg: FrontendConfig, int16: bool, device: torch.device) -> int:
+    """Blocks of cfg's wide-plan instantiation (a config at its feature rate)
+    at its layout that the card holds at once: its SMs times the blocks an
+    SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    form = dft_form(cfg)
+    groups, tile = wide_layout(cfg, form)
+    with torch.cuda.device(device):
+        n = _wide_info(cfg, int16, tile, wide_smem(cfg, form, groups, tile))["blocks_per_sm"]
+    return max(1, n) * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=256)
 def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True,
-               cluster: bool = True) -> tuple[str, int]:
+               cluster: bool = True, wide: bool = True) -> tuple[str, int]:
     """(plan, frames a block transforms at once) of cfg's Stockham or
     Bluestein form (mirrors csrc/frontend.cu plan and plan_block): the first
     of `FFT_LAYOUTS` whose layout fits the block. "warp": each of the 8
@@ -1004,20 +1085,33 @@ def fft_layout(cfg: FrontendConfig, form: str | None = None, int16: bool = True,
     else; else "gather_sums" (from 57,849 filters at one group, 28,797 for
     SSC), the projection's filter sums in the output row and SSC's melf
     sums in the workspace: its layout, the thread partials alone, fits at
-    any filter count, so one plan always fits. The fused resample takes
+    any filter count, so one plan always fits. Then the wide plan ("wide",
+    the second value its tile of frames a block, `wide_layout`) takes every
+    config that ladder gives "gather_sums" and, by its rule, those it gives
+    "gather_bands" or "gather_rows" at WIDE_MIN_FILTERS filters or more,
+    wherever one frame's power row fits beside its FFT rows (n_fft to
+    ~21,000; past it "gather_sums" stays). The fused resample takes
     "warp" only: a resampling config whose fused layout is over the block
     takes the split route (`resample_route`), whose plain form plans at the
     feature rate. cluster=False: the ladder without the cluster plan (the
-    plan a launch takes when it asks for none)."""
+    plan a launch takes when it asks for none); wide=False: without the
+    wide plan."""
     form = form or dft_form(cfg)
     if chain.resamples(cfg):
         return FFT_LAYOUTS[0]
+    layout = FFT_LAYOUTS[-1]
     for plan, groups in FFT_LAYOUTS:
         if plan == "cluster" and not (cluster and fft_points(cfg.n_fft, form) >= CLUSTER_MIN_POINTS[form]):
             continue
         if _fft_smem(cfg, form, plan, int16, groups) <= rs_kernel.SMEM_BUDGET_BYTES:
-            return plan, groups
-    return FFT_LAYOUTS[-1]
+            layout = plan, groups
+            break
+    if wide and (layout[0] == "gather_sums" or layout[0] in ("gather_bands", "gather_rows")
+                 and cfg.n_mels >= WIDE_MIN_FILTERS):
+        shape = wide_layout(cfg, form)
+        if shape is not None:
+            return "wide", shape[1]
+    return layout
 
 
 def fft_plan(cfg: FrontendConfig, form: str | None = None, int16: bool = True) -> str:
@@ -1133,6 +1227,7 @@ def _lib() -> ctypes.CDLL:
         i,  # origin
         p, i, ctypes.c_longlong,  # "gather_rows": workspace, slots (its grid's blocks), workspace floats
         i,  # cluster: blocks a frame of the cluster plan (0: another plan)
+        i,  # wide: frames a block of the wide plan (0: another plan)
         p,  # stream
     ]
     lib.mfcc_frontend_logmel.restype = ctypes.c_int
@@ -1152,6 +1247,8 @@ def _lib() -> ctypes.CDLL:
     lib.mfcc_frontend_kernel_info.restype = ctypes.c_int
     lib.mfcc_frontend_cluster_info.argtypes = [i, i, i, i, i, p]
     lib.mfcc_frontend_cluster_info.restype = ctypes.c_int
+    lib.mfcc_frontend_wide_info.argtypes = [i, i, i, i, p]
+    lib.mfcc_frontend_wide_info.restype = ctypes.c_int
     lib.mfcc_frontend_error_string.argtypes = [ctypes.c_int]
     lib.mfcc_frontend_error_string.restype = ctypes.c_char_p
     return lib
@@ -1179,6 +1276,8 @@ def kernel_info(cfg: FrontendConfig, int16: bool = True, dft_passes: str = "radi
         smem = _fft_smem(cfg, form, plan, int16, groups)
         if plan == "cluster":
             return _cluster_info(cfg, int16, groups, smem)
+        if plan == "wide":
+            return _wide_info(cfg, int16, groups, smem)
         block = plan != "warp"
     rc = _lib().mfcc_frontend_kernel_info(
         int(int16), int(chain.resamples(cfg)), int(cfg.dither > 0.0),
@@ -1204,6 +1303,20 @@ def _cluster_info(cfg: FrontendConfig, int16: bool, C: int, smem: int) -> dict:
             "cluster": C, "clusters": out[3]}
 
 
+def _wide_info(cfg: FrontendConfig, int16: bool, tile: int, smem: int) -> dict:
+    """`kernel_info` of the wide plan at a tile of `tile` frames: registers,
+    local bytes, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    its tile and its FFT stage's groups."""
+    out = (ctypes.c_int * 3)()
+    rc = _lib().mfcc_frontend_wide_info(int(int16), int(cfg.dither > 0.0), int(chain.needs_conditioning(cfg)),
+                                        smem, out)
+    if rc != 0:
+        raise RuntimeError(f"front-end wide info failed: "
+                           f"{_lib().mfcc_frontend_error_string(rc).decode()} (cudaError {rc})")
+    return {"registers": out[0], "local_bytes": out[1], "blocks_per_sm": out[2], "smem_bytes": smem,
+            "tile": tile, "groups": wide_groups(cfg, dft_form(cfg), tile)}
+
+
 @functools.lru_cache(maxsize=64)
 def _active_clusters(cfg: FrontendConfig, int16: bool, C: int, device: torch.device) -> int:
     """Clusters of C blocks of cfg's cluster-plan instantiation (a config at
@@ -1223,6 +1336,8 @@ def _resident_blocks(cfg: FrontendConfig, int16: bool, device: torch.device) -> 
     out = (ctypes.c_int * 3)()
     form = dft_form(cfg)
     plan, groups = fft_layout(cfg, form, int16, cluster=False)
+    if plan == "wide":  # the ladder's own plan without it (a launch forced to it)
+        plan, groups = fft_layout(cfg, form, int16, False, False)
     with torch.cuda.device(device):
         rc = _lib().mfcc_frontend_kernel_info(
             int(int16), 0, int(cfg.dither > 0.0), int(chain.needs_conditioning(cfg)), 0, 1,
@@ -1243,6 +1358,8 @@ def rows_workspace(cfg: FrontendConfig, form: str, blocks: int, resident: int) -
     for SSC under "gather_sums" then a slot of its groups' M melf sums after
     every slot's rows. Its size is bounded by the card, not by the batch."""
     plan, groups = fft_layout(cfg, form, cluster=False)
+    if plan == "wide":  # the ladder's own plan without it (a launch forced to it)
+        plan, groups = fft_layout(cfg, form, True, False, False)
     slots = max(1, min(blocks, resident))
     sums = cfg.n_mels if plan == "gather_sums" and feature_kind(cfg) == "ssc" else 0
     return slots, slots * groups * (2 * row_floats(cfg.n_fft, form) + sums)
@@ -1401,7 +1518,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     global plp_launches, spectrogram_launches, ssc_launches
     global centered_launches, bluestein_launches, bf16x3_launches, block_fft_launches
     global global_table_launches, gather_launches, gather_bands_launches, gather_rows_launches
-    global gather_sums_launches, cluster_launches
+    global gather_sums_launches, cluster_launches, wide_launches
     global bf16_pass_launches, bf16_gather_launches, bf16_gather_bands_launches, bf16_gather_out_launches
     B, F = out.shape[:2]
     n_valid = torch.empty(B, dtype=torch.int32, device=audio.device)
@@ -1424,6 +1541,8 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
         rows = (None, max(1, min(B * F, _active_clusters(at_rate, int16, C, audio.device))), 0)
         twiddle, bases = _device_fft_tables(cfg.n_fft, form, audio.device, C)
         head = (*head[:-2], twiddle.data_ptr(), bases.data_ptr())
+    elif plan == "wide":  # its tile for this launch's frames
+        C = wide_tile(C, B * F, _wide_slots(at_rate, int16, audio.device))
     elif plan in ("gather_rows", "gather_sums"):
         slots, floats = rows_workspace(at_rate, form, B * -(-F // TILE),
                                        _resident_blocks(at_rate, int16, audio.device))
@@ -1451,7 +1570,8 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
             rc = lib.mfcc_frontend_logmel(
                 *head, dft_matrix, *dims, chain.frame_offset(cfg),
                 CENTER_CODES.get(cfg.frame_tail, 0), *framing,
-                cfg.input_scale, *tail, *branches, origin, *rows, C if plan == "cluster" else 0, stream,
+                cfg.input_scale, *tail, *branches, origin, *rows, C if plan == "cluster" else 0,
+                C if plan == "wide" else 0, stream,
             )
     if rc != 0:
         raise RuntimeError(
@@ -1485,6 +1605,7 @@ def _launch(audio, lengths, out, cfg: FrontendConfig, consts, form: str, origin:
     gather_rows_launches += int(plan == "gather_rows")
     gather_sums_launches += int(plan == "gather_sums")
     cluster_launches += int(plan == "cluster")
+    wide_launches += int(plan == "wide")
     return n_valid, mask
 
 

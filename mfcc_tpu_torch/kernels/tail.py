@@ -19,16 +19,20 @@ fixed and dct_aug in the kernel's parameters; any other shape takes the
 kernel's generic instantiation, at the first of 128, 64 or 32 frames a
 block whose layout fits; where none fits (wide cepstra: 170 at delta
 window 8, 200 at 40) the split plan, 1 + deltas passes through the output
-in device memory (`plan`). So the tail takes every mfcc config, as the
-reference's jnp tail does.
+in device memory (`plan`), its base pass past CHAIN_LANES filters a kernel
+of its own (`split_base`: tiles of BASE_TILE frames, each warp a
+compensated (Kahan) sum over every lane of its stretches of STRETCH lanes,
+the warps' sums added in float64). So the tail takes every mfcc config, as
+the reference's jnp tail does.
 
 `feature_tail` is the wrapper: on a CUDA tensor it launches the kernel or
 raises; on a CPU tensor it returns `feature_tail_reference`, the plain
 PyTorch version (the prefix branch of `chain.features_from_logmel`).
 `tail_launches` counts calls that launch the tail (one a call, whatever
 its plan), `tail_split_launches` the kernels the split plan launches (its
-1 + deltas passes, each counted), `tail_cmvn_launches` the launches of its
-CMVN pass; set them to 0 to start a count.
+1 + deltas passes, each counted), `tail_base_launches` those of them that
+are the base kernel past CHAIN_LANES filters, `tail_cmvn_launches` the
+launches of its CMVN pass; set them to 0 to start a count.
 """
 
 from __future__ import annotations
@@ -51,9 +55,19 @@ MAX_BATCH = 65535  # grid.y limit: one grid row per utterance
 # (n_mels + 1, n_ceps, delta_window or None, deltas) compiled with fixed sizes
 # (csrc/tail.cu shape_of); delta_window None: any (no deltas)
 FIXED_SHAPES = ((27, 13, 2, 2), (27, 13, None, 0), (24, 13, None, 0))
+# the split's base (csrc/tail.cu): one FMA chain a (row, column) up to
+# CHAIN_LANES lanes (kChainLanes); past it tail_base_kernel, BASE_TILE frames
+# and BASE_COLS cepstra a block, 8 warps, warp w summing stretches w, w + 8,
+# ... of STRETCH lanes (kBaseTile, kBaseCols, kStretch)
+CHAIN_LANES = 1024
+BASE_TILE = 64
+BASE_COLS = 16
+STRETCH = 256
+BASE_WARPS = 8
 
 tail_launches = 0
 tail_split_launches = 0
+tail_base_launches = 0
 tail_cmvn_launches = 0
 
 
@@ -97,6 +111,17 @@ def plan(cfg: FrontendConfig) -> tuple[str, int, int]:
         if n <= rs_kernel.SMEM_BUDGET_BYTES:
             return "staged", tile, n
     return "split", 0, 0
+
+
+def split_base(cfg: FrontendConfig) -> str | None:
+    """How the split plan sums base (None for the tiled plans): "chain", one
+    FMA chain a (row, column) in lane order, the tiled kernel's; "stretches"
+    past CHAIN_LANES filters, tail_base_kernel's: each warp a compensated
+    (Kahan) sum over every lane of its stretches of STRETCH lanes, the warps'
+    sums added in float64."""
+    if plan(cfg)[0] != "split":
+        return None
+    return "stretches" if cfg.n_mels > CHAIN_LANES else "chain"
 
 
 def smem_bytes(cfg: FrontendConfig) -> int:
@@ -184,7 +209,7 @@ def feature_tail(
     (a chain-constants dict). `out`, a contiguous float32 [B, F, feat_dim]
     tensor on prefix's device, receives the features (the streaming round
     writes both window kinds into one buffer)."""
-    global tail_launches, tail_split_launches, tail_cmvn_launches
+    global tail_launches, tail_split_launches, tail_base_launches, tail_cmvn_launches
     if out is not None and (out.shape != (*prefix.shape[:2], cfg.feat_dim)
                             or out.dtype != torch.float32 or out.device != prefix.device
                             or not out.is_contiguous()):
@@ -238,6 +263,7 @@ def feature_tail(
         tail_launches += 1
         if plan(cfg)[0] == "split":
             tail_split_launches += 1 + cfg.deltas
+            tail_base_launches += int(split_base(cfg) == "stretches")
         if cfg.cmvn == "utterance":
             rc = lib.mfcc_feature_tail_cmvn(
                 out.data_ptr(), n_valid.data_ptr(), B, F, cfg.feat_dim,

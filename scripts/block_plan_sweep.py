@@ -5,11 +5,13 @@ turns.
 
     python3 scripts/block_plan_sweep.py
     python3 scripts/block_plan_sweep.py --parent DIR [--bf16x3]
+    python3 scripts/block_plan_sweep.py --wide-tiles
+    python3 scripts/block_plan_sweep.py --wide-rule
 
 csrc/frontend.cu's plan_block takes the first plan of its ladder (block,
 block_global, gather, gather_global, gather_bands, gather_rows,
 gather_sums: kernels/frontend.py BLOCK_LADDER, PLAN_TRAITS; the cluster
-plan is no rung of it, a launch asks for it) at the first of 4, 2 and 1 groups (frames
+plan and the wide plan are no rungs of it, a launch asks for them) at the first of 4, 2 and 1 groups (frames
 a block transforms at once) whose layout fits the block. This script builds
 the source once for each of `STARTS`, each with plan_block's search started
 at another choice (it then takes the first that fits from there: a start
@@ -38,12 +40,18 @@ kHz b4 x 30 s, 131,072 b2 x 30 s and librosa's 16,384 at 44.1 kHz b64 x
 30 s, the cluster plan's sizes ("gather_bands" or "gather_rows" in the
 parent); kaldi_mfcc with dither at n_fft 1102 b16 x 10 s, the block
 plan's dither and conditioning instantiation; the fused resample at
-mfcc39_48k b64 x 10 s; the parent from before the cluster plan given the
-ladder without it, its entry without the cluster argument), each size the
+mfcc39_48k b64 x 10 s; tens of thousands of filters, the wide plan's cases
+("gather_sums" or "gather_bands" in the parent): classic13_deltas at 60,000
+and 40,000 filters b16 x 10 s, ssc26 at 30,000 filters and n_fft 4,096 b16,
+logmel80 at 33,000 filters b4; a parent from before the cluster plan or the
+wide plan given the ladder without them, its entry without their
+arguments), each size the
 cluster plan takes also at every other cluster size that fits, in turns
 with its default (the size is a launch argument: no rebuild), the feature tail
 at `TAIL_TURNS` (classic13_deltas at 170 cepstra and delta window 8 and at
-200 and window 40, b16 x 10 s, on this checkout's front-end prefix). Each
+200 and window 40, b16 x 10 s, and at 60,000 filters, the base kernel past
+1,024 lanes against the parent's compensated split, on this checkout's
+front-end prefix). Each
 build's output is held to the other's within the kernel-vs-plain gates.
 Prints both means, their ratio, the plans and whether the outputs are
 equal bitwise. Then it
@@ -59,6 +67,21 @@ block plans at each of their layouts (classic13_deltas at n_fft 4,096 b64;
 a 0.1 s hop, 1.1 s frames, 10 ms frames at n_fft 4,096 and n_fft 32,768;
 librosa's 8,192-point framing b16 x 30 s; 2,000 and 40,000 filters).
 --bf16x3 builds the two checkouts' frontend.cu alone and times only those.
+
+With --wide-tiles it times this checkout's wide plan at each tile of
+`WIDE_TILES` that fits and at the launch's own (`frontend.wide_tile`), the
+tile a launch argument (no rebuild), in turns (forward, then backward), at
+the wide plan's cases of `TURNS`, each output bitwise the default launch's.
+
+With --wide-rule it times this checkout's wide plan forced (its layout's
+tile, the launch's `frontend.wide_tile`) against the plan the ladder gives
+without it (`frontend.fft_layout(wide=False)`), in turns (ladder, wide,
+wide, ladder), at `RULE_TURNS`: the many-filter configs around
+`frontend.WIDE_MIN_FILTERS`, where "gather_bands" is first taken at n_fft
+512 (14,172 filters), just below and just above 16,384, kaldi_mfcc at
+33,000 b4, and at n_fft 8,192 (9,815 filters, where it is first taken
+there, and 33,000), each pair's outputs within the kernel-vs-plain gates,
+printing whether their lanes [0, M) are equal bitwise.
 """
 
 from __future__ import annotations
@@ -96,9 +119,12 @@ TURNS = (("classic13_deltas", {}, 64), ("classic13", dict(n_fft=1102), 16), ("cl
          ("classic13_deltas", dict(n_fft=16384), 16), ("classic13_deltas", dict(n_fft=32768), 16),
          ("classic13_deltas", dict(n_fft=13001), 16), ("classic13_deltas", dict(sample_rate=48000, n_fft=65536), 4, 30),
          ("classic13_deltas", dict(n_fft=131072), 2, 30), ("logmel80", LIBROSA_16384, 64, 30),
-         ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16), ("mfcc39_48k", {}, 64))
+         ("kaldi_mfcc", dict(n_fft=1102, dither=1.0), 16), ("mfcc39_48k", {}, 64),
+         ("classic13_deltas", dict(n_mels=60000), 16), ("ssc26", dict(n_mels=30000, n_fft=4096), 16),
+         ("classic13_deltas", dict(n_mels=40000), 16), ("logmel80", dict(n_mels=33000), 4))
 TAIL_TURNS = (("classic13_deltas", dict(n_mels=170, n_ceps=170, delta_window=8), 16),
-              ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16))
+              ("classic13_deltas", dict(n_mels=200, n_ceps=200, delta_window=40), 16),
+              ("classic13_deltas", dict(n_mels=60000), 16))
 # --parent: (config, overrides, rows[, seconds a row: 10]) of the bf16x3
 # form: its staged plan and fused resample, then (where the parent has them)
 # its block plans at each layout
@@ -109,7 +135,15 @@ BF16X3_TURNS = (("classic13", {}, 64), ("mfcc39_48k", {}, 64), ("classic13_delta
                 ("classic13_deltas", dict(n_mels=2000, n_fft=4096), 4),
                 ("classic13_deltas", dict(n_mels=40000), 16))
 FRONTEND_FNS = ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
-                "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info")
+                "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info", "mfcc_frontend_wide_info")
+# --wide-tiles: the wide plan's tiles (frames a block) timed beside the launch's
+WIDE_TILES = (4, 8, 16, 32, 64, 93)
+# --wide-rule: (config, overrides, rows) where the wide plan is timed
+# against the ladder's plan without it
+RULE_TURNS = (("classic13_deltas", dict(n_mels=14172), 16), ("classic13_deltas", dict(n_mels=16383), 16),
+              ("classic13_deltas", dict(n_mels=16385), 16), ("logmel80", dict(n_mels=14172), 4),
+              ("kaldi_mfcc", dict(n_mels=33000), 4), ("classic13_deltas", dict(n_mels=9815, n_fft=8192), 16),
+              ("classic13_deltas", dict(n_mels=33000, n_fft=8192), 16))
 # --parent: the plans forced at one group, and the config they are forced at
 FORCED = (("gather_bands", (4, 1)), ("gather_rows", (5, 1)), ("gather_sums", (6, 1)))
 FORCED_AT = ("classic13_deltas", dict(n_fft=6001), 16)
@@ -151,37 +185,38 @@ def build(cu: pathlib.Path, csrc: pathlib.Path, so: pathlib.Path) -> pathlib.Pat
     return so
 
 
-class NoClusterArgument:
-    """A front-end library from before the cluster plan, called through this
-    checkout's wrapper: its mfcc_frontend_logmel has no `cluster` argument
-    (the one before the stream), which the call drops (the wrapper passes 0
-    there whenever the parent's plan is taken, `in_turns`' parent_plan)."""
+class DroppedArguments:
+    """A front-end library from before some of mfcc_frontend_logmel's last
+    arguments, called through this checkout's wrapper: `drop` names them by
+    their place from the end (2: `wide`, the one before the stream; 3:
+    `cluster`, the one before it), and the call drops them (the wrapper
+    passes 0 there whenever the parent's plan is taken, `in_turns`'
+    layouts)."""
 
-    def __init__(self, lib):
-        self._lib = lib
+    def __init__(self, lib, drop: tuple[int, ...]):
+        self._lib, self._drop = lib, drop
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
         if name != "mfcc_frontend_logmel":
             return fn
-        return lambda *args: fn(*args[:-2], args[-1])
+        return lambda *args: fn(*(a for i, a in enumerate(args) if len(args) - i not in self._drop))
 
 
-def bind(so: pathlib.Path, whole, names, legacy: bool = False):
+def bind(so: pathlib.Path, whole, names, drop: tuple[int, ...] = ()):
     """A build's library with the C signatures of the wrapper's own (an
-    entry the build lacks left out); `legacy`: a front-end from before the
-    cluster plan, its mfcc_frontend_logmel without the `cluster` argument,
-    wrapped (`NoClusterArgument`)."""
+    entry the build lacks left out); `drop`: a front-end from before some of
+    mfcc_frontend_logmel's last arguments (`DroppedArguments`), wrapped."""
     lib = ctypes.CDLL(str(so))
     for name in names:
         if getattr(lib, name, None) is None:
             continue
         types = list(getattr(whole, name).argtypes)
-        if legacy and name == "mfcc_frontend_logmel":
-            del types[-2]
+        if name == "mfcc_frontend_logmel":
+            types = [t for i, t in enumerate(types) if len(types) - i not in drop]
         getattr(lib, name).argtypes = types
         getattr(lib, name).restype = getattr(whole, name).restype
-    return NoClusterArgument(lib) if legacy else lib
+    return DroppedArguments(lib, drop) if drop else lib
 
 
 def rows(pad_batch, cfg, n_rows: int, seed: int = 3, seconds: int = 10):
@@ -240,10 +275,12 @@ def in_turns(torch, chip_smoke, module, libs: dict, fn, substr: str | None,
     return ms, outs
 
 
-def without_cluster(layout):
+def without(layout, no_cluster: bool, no_wide: bool):
     """The layout mirror `layout` (frontend.fft_layout) without the cluster
-    plan: the plan a parent from before it takes."""
-    return lambda cfg, form=None, int16=True, cluster=True: layout(cfg, form, int16, False)
+    plan and the wide plan where the flags say so: the plan a parent from
+    before them takes."""
+    return lambda cfg, form=None, int16=True, cluster=True, wide=True: layout(
+        cfg, form, int16, cluster and not no_cluster, wide and not no_wide)
 
 
 def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
@@ -273,18 +310,20 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
 
     with concurrent.futures.ThreadPoolExecutor(len(cus)) as pool:
         sos = dict(zip(cus, pool.map(build_job, cus)))
-    legacy = "int cluster, void* stream" not in (trees["parent"] / "frontend.cu").read_text()
-    fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS, legacy and key == "parent")
+    parent_entry = (trees["parent"] / "frontend.cu").read_text()
+    no_cluster = "int cluster," not in parent_entry
+    no_wide = "int wide, void* stream" not in parent_entry
+    drop = (3, 2) if no_cluster else (2,) if no_wide else ()
+    fe = {key: bind(sos[key, "frontend"], frontend._lib(), FRONTEND_FNS, drop if key == "parent" else ())
           for key in trees}
-    layouts = {"parent": without_cluster(frontend.fft_layout) if legacy else frontend.fft_layout,
-               "change": frontend.fft_layout}
+    layouts = {"parent": without(frontend.fft_layout, no_cluster, no_wide), "change": frontend.fft_layout}
     print(f"in turns, parent {parent} [{card}]")
 
     def report(what, ms, outs):
         p, c = float(np.mean(ms["parent"])), float(np.mean(ms["change"]))
         print(f"{what}: parent {p:.4f} ms ({ms['parent'][0]:.4f}, {ms['parent'][1]:.4f}), change {c:.4f} ms "
               f"({ms['change'][0]:.4f}, {ms['change'][1]:.4f}), change / parent {c / p:.3f}; bitwise equal: "
-              f"{bool(torch.equal(outs['change'], outs['parent']))}")
+              f"{bitwise(outs['change'], outs['parent'])}")
 
     parent_src = (trees["parent"] / "frontend.cu").read_text()
     block_parent = "kBfLadder" in parent_src
@@ -315,7 +354,7 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
         audio, lengths = rows(pad_batch, cfg, n_rows, seconds=seconds)
         fn = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
         ms, outs = in_turns(torch, chip_smoke, frontend, fe, fn, "logmel_kernel", packing, layouts)
-        errs = testing.prefix_errors(outs["change"], outs["parent"], cfg.n_mels, cfg.log_kind)
+        errs = prefix_gates(testing, outs["change"], outs["parent"], cfg)
         if testing.prefix_failures(errs):
             raise SystemExit(f"{name} {over}: the builds disagree: {errs}")
         layout = frontend.fft_layout(cfg)
@@ -374,6 +413,104 @@ def turns(parent: pathlib.Path, card: str, bf16x3_only: bool = False) -> int:
     return 0
 
 
+def wide_tiles(card: str) -> int:
+    """This checkout's wide plan at each tile of WIDE_TILES that fits its
+    layout, and at the launch's, in turns, at the wide cases of TURNS."""
+    import torch
+
+    import chip_smoke
+    from mfcc_tpu_torch import named_config
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    print(f"the wide plan's tiles [{card}]")
+    own_layout, own_tile = frontend.fft_layout, frontend.wide_tile
+    for name, over, n_rows, *secs in TURNS:
+        cfg = named_config(name).replace(**over)
+        if frontend.fft_plan(cfg) != "wide":
+            continue
+        audio, lengths = rows(pad_batch, cfg, n_rows, seconds=secs[0] if secs else 10)
+        fn = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+        want = fn()
+        form = frontend.dft_form(cfg)
+        groups, tile = frontend.wide_layout(cfg, form)
+        fits = [t for t in WIDE_TILES if frontend.wide_groups(cfg, form, t) == groups]
+        launch = own_tile(tile, n_rows * want.shape[1], frontend._wide_slots(cfg, True, want.device))
+        ms = {t: [] for t in sorted({*fits, launch})}
+        try:
+            frontend.wide_tile = lambda tile, frames, slots: tile
+            for order in (list(ms), list(ms)[::-1]):
+                for t in order:
+                    frontend.fft_layout = lambda *a, t=t, **k: ("wide", t)
+                    check(bitwise(fn(), want), f"{name} {over} at a tile of {t}: bitwise the launch's")
+                    ms[t].append(chip_smoke.device_ms(torch, fn, "logmel_kernel"))
+        finally:
+            frontend.fft_layout, frontend.wide_tile = own_layout, own_tile
+        print(f"{name} {over} b{n_rows}: layout ('wide', {tile}), {groups} groups, launch tile {launch}: " + ", ".join(
+            f"{t} {float(np.mean(v)):.4f} ms ({v[0]:.4f}, {v[1]:.4f})" for t, v in ms.items()))
+        del audio, lengths, want
+    return 0
+
+
+def wide_rule(card: str) -> int:
+    """This checkout's wide plan forced against the ladder's plan without it,
+    in turns, at RULE_TURNS."""
+    import torch
+
+    import chip_smoke
+    from mfcc_tpu_torch import named_config, testing
+    from mfcc_tpu_torch.kernels import frontend
+    from mfcc_tpu_torch.pipeline import pad_batch
+
+    print(f"the wide plan's size rule (WIDE_MIN_FILTERS {frontend.WIDE_MIN_FILTERS}) [{card}]")
+    own = frontend.fft_layout
+    lib = frontend._lib()
+    ladder = lambda cfg, form=None, int16=True, cluster=True, wide=True: own(cfg, form, int16, cluster, False)  # noqa: E731
+    for name, over, n_rows in RULE_TURNS:
+        cfg = named_config(name).replace(**over)
+        parent = ladder(cfg)
+        shape = frontend.wide_layout(cfg)
+        check(parent[0] in ("gather_bands", "gather_rows") and shape is not None,
+              f"{name} {over}: the ladder gives {parent}, the wide plan {shape}")
+        forced = lambda *a, tile=shape[1], **k: ("wide", tile)  # noqa: E731
+        audio, lengths = rows(pad_batch, cfg, n_rows)
+        fn = lambda: frontend.logmel_prefix(audio, lengths, cfg)  # noqa: E731
+        ms, outs = in_turns(torch, chip_smoke, frontend, {"parent": lib, "change": lib}, fn, "logmel_kernel",
+                            None, {"parent": ladder, "change": forced})
+        errs = prefix_gates(testing, outs["change"], outs["parent"], cfg)
+        if testing.prefix_failures(errs):
+            raise SystemExit(f"{name} {over}: the wide plan and {parent} disagree: {errs}")
+        p, c = float(np.mean(ms["parent"])), float(np.mean(ms["change"]))
+        M = cfg.n_mels
+        print(f"{name} {over} b{n_rows} x 10 s, the ladder's {parent} (taken: {own(cfg)}): "
+              f"{parent[0]} {p:.4f} ms ({ms['parent'][0]:.4f}, {ms['parent'][1]:.4f}), wide (tile {shape[1]}, "
+              f"{shape[0]} groups) {c:.4f} ms ({ms['change'][0]:.4f}, {ms['change'][1]:.4f}), wide / "
+              f"{parent[0]} {c / p:.3f}; lanes [0, {M}) bitwise equal: "
+              f"{bitwise(outs['change'][..., :M], outs['parent'][..., :M])}; {frontend.packed_count(cfg):,} "
+              f"weights for {M:,} filters")
+        del audio, lengths, outs
+    return 0
+
+
+def bitwise(a, b) -> bool:
+    """a and b equal bit for bit (NaN-safe: an SSC filter with no weight is
+    0/0 in every build)."""
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def prefix_gates(testing, got, want, cfg) -> dict:
+    """`testing.prefix_errors` of two builds' prefixes, NaN lanes (in the same
+    places, else a failure) left out."""
+    import torch
+
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{cfg.features}: NaN in the same lanes in both builds")
+    return testing.prefix_errors(got.masked_fill(nan, 0.0), want.masked_fill(nan, 0.0), cfg.n_mels, cfg.log_kind,
+                                 cfg.features)
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"block_plan_sweep: {what}")
@@ -383,6 +520,8 @@ def main() -> int:
     args = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     args.add_argument("--parent", type=pathlib.Path, help="root of another checkout: time both in turns")
     args.add_argument("--bf16x3", action="store_true", help="with --parent: the bf16x3 form's turns alone")
+    args.add_argument("--wide-tiles", action="store_true", help="the wide plan's tiles in turns")
+    args.add_argument("--wide-rule", action="store_true", help="the wide plan against the ladder without it")
     args = args.parse_args()
     import torch
 
@@ -399,6 +538,10 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     if args.parent is not None:
         return turns(args.parent, card, args.bf16x3)
+    if args.wide_tiles:
+        return wide_tiles(card)
+    if args.wide_rule:
+        return wide_rule(card)
     src = (_build.CSRC / "frontend.cu").read_text()
     out = _build.BUILD_DIR / "block_plan_sweep"
     out.mkdir(parents=True, exist_ok=True)

@@ -35,6 +35,13 @@ the cluster plan's loads of its ranks' samples) and P2 after the powers
 source compiled whole) gives the parent's breakdown. The cuts build with
 this checkout's kernels/_build.py (in parts where the source has them).
 
+With --wide it times the wide plan's cases (`WIDE`: classic13_deltas at
+60,000 and 40,000 filters b16 x 10 s, ssc26 at 30,000 filters and n_fft
+4,096 b16 x 10 s) the same way: P1 cuts its FFT stage after each frame's
+staging (step 2g) and P2 before its projection (stage 2), both leaving
+stage 2 out, so P1 is the staging, P2 - P1 the FFT stage's DFT and powers,
+P0 - P2 the projection filter by filter with its stores.
+
 With --bf16 it times the bf16x3 form's block plans (`BF16_CASES`:
 classic13_deltas at n_fft 4,096 b64 x 10 s, librosa's
 melspectrogram(n_fft=8192) framing b16 x 30 s, classic13_deltas with
@@ -89,12 +96,38 @@ CUT_PROJECTION = """#if CUT == 2
 #else
 {call}
 #endif"""
-# the gather plans' staging of a frame (step 2g), and the cluster plan's:
-# P1 cuts after it (a few samples written, the frame's loop going on)
-GATHER_STAGED = """              team.sync();
+# the gather plans' staging of a frame (step 2g, csrc/frontend.cu
+# group_frame, which the block plans' group loop and the wide plan's stage 1
+# call), and the cluster plan's: P1 cuts after it (group_frame returns the
+# staged frame as pw; the block plans' loop writes a few samples of it and
+# goes on to the next frame, GATHER_FRAME)
+GATHER_STAGED = """    team.sync();
+    fr = g;
+  }"""
+CUT_GATHER_STAGED = """    team.sync();
+    fr = g;
+#if CUT == 1
+    pw = g;
+    es = 0.f;
+    return;
+#endif
+  }"""
+GATHER_FRAME = """                                      bs, red, pw, es, e_frame);
+"""
+CUT_GATHER_FRAME = GATHER_FRAME + """#if CUT == 1
+          if (gather) {
+            if (rank <= M) out[(static_cast<size_t>(b) * F + f) * (M + 1) + rank] = pw[rank];
+            team.sync();
+            continue;
+          }
+#endif
+"""
+# an older source's (before group_frame): the block plans' loop stages the
+# frame itself
+OLD_GATHER_STAGED = """              team.sync();
               fr = g;
             }"""
-CUT_GATHER_STAGED = """              team.sync();
+CUT_OLD_GATHER_STAGED = """              team.sync();
               fr = g;
 #if CUT == 1
               if (rank <= M) out[(static_cast<size_t>(b) * F + f) * (M + 1) + rank] = g[rank];
@@ -102,6 +135,8 @@ CUT_GATHER_STAGED = """              team.sync();
               continue;
 #endif
             }"""
+GATHER_CUTS = (((GATHER_STAGED, CUT_GATHER_STAGED), (GATHER_FRAME, CUT_GATHER_FRAME)),
+               ((OLD_GATHER_STAGED, CUT_OLD_GATHER_STAGED),))
 CLUSTER_STAGED = """      float* pw;
       if (p.form == kBluestein) {"""
 CUT_CLUSTER_STAGED = """#if CUT == 1
@@ -127,6 +162,23 @@ CUT_CLUSTER_POWERS = CLUSTER_POWERS + """
     cl.sync();
     continue;
 #endif"""
+# the wide plan's frame after group_frame (under P1 its staged frame), and
+# its projection (stage 2): P1 cuts after the first, P1 and P2 leave out the
+# second
+WIDE_STAGED = """                                  twiddle, bases, red, pw, es, e_frame);
+"""
+CUT_WIDE_STAGED = WIDE_STAGED + """#if CUT == 1
+      if (rank == 0) en[fl] = pw[0];
+      team.sync();
+      continue;
+#endif
+"""
+WIDE_PROJECTION = """  auto project = [&](auto finish) {
+"""
+CUT_WIDE_PROJECTION = WIDE_PROJECTION + """#if CUT != 0
+    if (M > 0) return;
+#endif
+"""
 OCCUPANCY = """
 #if !defined(FRONTEND_PART) || FRONTEND_PART == 1
 #ifdef FRONTEND_PART
@@ -158,11 +210,17 @@ def variants(src: str) -> dict[int, str]:
     assert src.count(STAGED) == 1, "staging anchor not found"
     src, n = PROJECTION.subn(lambda m: CUT_PROJECTION.format(call=m.group(0)), src)
     assert n >= 1, "projection anchor not found"
-    assert src.count(GATHER_STAGED) == 1, "the gather plans' staging anchor not found"
-    src = src.replace(STAGED, CUT_STAGED).replace(GATHER_STAGED, CUT_GATHER_STAGED)
+    src = src.replace(STAGED, CUT_STAGED)
+    pairs = next((pairs for pairs in GATHER_CUTS if all(src.count(a) == 1 for a, _ in pairs)), None)
+    assert pairs is not None, "the gather plans' staging anchors not found"
+    for anchor, cut in pairs:
+        src = src.replace(anchor, cut)
     if "logmel_kernel_cluster" in src:
         assert src.count(CLUSTER_STAGED) == 1 and src.count(CLUSTER_POWERS) == 1, "cluster anchors not found"
         src = src.replace(CLUSTER_STAGED, CUT_CLUSTER_STAGED).replace(CLUSTER_POWERS, CUT_CLUSTER_POWERS)
+    if "logmel_kernel_wide" in src:
+        assert src.count(WIDE_STAGED) == 1 and src.count(WIDE_PROJECTION) == 1, "wide plan anchors not found"
+        src = src.replace(WIDE_STAGED, CUT_WIDE_STAGED).replace(WIDE_PROJECTION, CUT_WIDE_PROJECTION)
     return {cut: f"#define CUT {cut}\n" + src + OCCUPANCY for cut in (0, 1, 2)}
 
 
@@ -274,8 +332,8 @@ def bind_cuts(built: dict, whole) -> dict:
     libs = {}
     for cut, (path, _) in built.items():
         lib = ctypes.CDLL(str(path))
-        for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample",
-                     "mfcc_frontend_error_string", "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info"):
+        for name in ("mfcc_frontend_logmel", "mfcc_frontend_logmel_resample", "mfcc_frontend_error_string",
+                     "mfcc_frontend_kernel_info", "mfcc_frontend_cluster_info", "mfcc_frontend_wide_info"):
             if getattr(whole, name, None) is None:
                 continue  # an older checkout's entry that it has not
             getattr(lib, name).argtypes = getattr(whole, name).argtypes
@@ -312,6 +370,10 @@ LIBROSA_16384 = dict(sample_rate=44100, n_fft=16384, win_len_s=16384 / 44100, ho
                      mel_variant="librosa_hz", mel_scale="slaney", mel_norm="slaney", mel_low_hz=0.0,
                      mel_high_hz=22050.0)
 LARGE = (("logmel80", 64, 30, "radix4", LIBROSA_16384), ("classic13_deltas", 16, 10, "radix4", {"n_fft": 32768}))
+# --wide: the wide plan's cases (chip_smoke.py MANY_FILTERS)
+WIDE = (("classic13_deltas", 16, 10, "radix4", {"n_mels": 60000}),
+        ("ssc26", 16, 10, "radix4", {"n_mels": 30000, "n_fft": 4096}),
+        ("classic13_deltas", 16, 10, "radix4", {"n_mels": 40000}))
 
 
 # --bf16: the bf16x3 block plans' cases (chip_smoke.py BF16X3_PLANS and
@@ -470,6 +532,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(pathlib.Path(__file__).resolve().parents[1]))
     ap.add_argument("--large", action="store_true", help="phase 29's two cases (LARGE) alone")
+    ap.add_argument("--wide", action="store_true", help="the wide plan's cases (WIDE) alone")
     ap.add_argument("--bf16", action="store_true", help="the bf16x3 block plans' cuts (BF16_CASES) alone")
     args = ap.parse_args()
     root = pathlib.Path(args.root).resolve()
@@ -500,11 +563,11 @@ def main() -> int:
         libs = bind_cuts(built, frontend._lib())
         print(f"{root}: registers (int16 plain instantiation) P0 {built[0][1]}, P1 {built[1][1]}, "
               f"P2 {built[2][1]} [{card}]")
-        if not args.large:
+        if not (args.large or args.wide):
             print(f"  SASS of P0's int16 plain instantiation: {sass_counts(built[0][0], _build.nvcc())}")
             print(f"  SASS of P0's int16 bf16x3 instantiation: "
                   f"{sass_counts(built[0][0], _build.nvcc(), BF16X3)}")
-        for name, B, secs, passes, over in LARGE if args.large else PATHS:
+        for name, B, secs, passes, over in WIDE if args.wide else LARGE if args.large else PATHS:
             cfg = named_config(name).replace(**over)
             n = (cfg.input_sample_rate or cfg.sample_rate) * secs
             step = 1713 if cfg.input_sample_rate else 571  # chip_smoke.py's rows

@@ -278,9 +278,9 @@ def test_unsupported_reason_takes_every_resampled_row():
     device memory too), refused before, are taken with or without
     resampling, and at 7001 with 48 kHz input the CPU chain ≡ the JAX jnp
     chain; 60,000 filters, refused before (over the packed mel table's
-    filter field), are taken with or without resampling too (the
-    projection's sums in device memory, "gather_sums"): nothing is refused
-    on the default route."""
+    filter field), are taken with or without resampling too (the wide
+    plan; without it the projection's sums in device memory, "gather_sums"):
+    nothing is refused on the default route."""
     for name in sorted(T_CONFIGS):
         for rate in RESAMPLED_RATES:
             for tail in ("center", "center_reflect"):
@@ -299,7 +299,8 @@ def test_unsupported_reason_takes_every_resampled_row():
     for rate in (None, 48000):
         cfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=rate, n_mels=60000)
         assert tchain.unsupported_reason(cfg) is None, rate
-        assert frontend.fft_plan(frontend.feature_rate_config(cfg)) == "gather_sums", rate
+        assert frontend.fft_plan(frontend.feature_rate_config(cfg)) == "wide", rate
+        assert frontend.fft_layout(frontend.feature_rate_config(cfg), wide=False)[0] == "gather_sums", rate
     tcfg = T_CONFIGS["classic13_deltas"].replace(input_sample_rate=48000, n_fft=7001)
     jcfg = J_CONFIGS["classic13_deltas"].replace(input_sample_rate=48000, n_fft=7001)
     g = np.random.default_rng(7001)

@@ -488,12 +488,12 @@ def test_the_build_compiles_each_part_and_links_them(tmp_path, monkeypatch):
     src = _build.CSRC / "frontend.cu"
     _build.compile_source(src, tmp_path / "frontend.so", _build.PARTS["frontend"])
     *compiles, link = calls
-    assert len(compiles) == _build.PARTS["frontend"] == 15
-    assert sorted(a[a.index("-c") + 1] for a in compiles) == sorted(f"-DFRONTEND_PART={k}" for k in range(15))
+    assert len(compiles) == _build.PARTS["frontend"] == 17
+    assert sorted(a[a.index("-c") + 1] for a in compiles) == sorted(f"-DFRONTEND_PART={k}" for k in range(17))
     assert all("-shared" not in a for a in compiles) and "-shared" in link
-    assert [a for a in link if a.endswith(".o")] == [str(tmp_path / f"frontend.part{k}.o") for k in range(15)]
+    assert [a for a in link if a.endswith(".o")] == [str(tmp_path / f"frontend.part{k}.o") for k in range(17)]
     text = src.read_text()
     parts = re.findall(r"#(?:el)?if FRONTEND_PART == (\d+)\nFRONTEND_DEFINE\(", text)
-    assert [int(k) for k in parts] == list(range(1, 15))
+    assert [int(k) for k in parts] == list(range(1, 17))
     assert "#if !defined(FRONTEND_PART) || FRONTEND_PART == 0" in text  # the C entries
     assert _build._NVCC_SLOTS._initial_value == (os.cpu_count() or 1)

@@ -170,7 +170,7 @@ def test_wrapper_raises_off_cpu_and_cuda():
 def test_wrapper_refuses_configs_outside_the_slice():
     """Nothing is refused for its layout now: 60,000 filters, refused
     before (over the packed table's filter field) on both routes, take
-    "gather_sums" and bf16x3's "gather_out", and the wrapper's plain
+    the wide plan (without it "gather_sums") and bf16x3's "gather_out", and the wrapper's plain
     version here ≡ the JAX package's jnp stages within the prefix gates (the
     bf16x3 opt-in takes n_fft 4096 in a block plan; what its card
     wrapper still refuses is a matrix over the card's memory); n_fft 7,001, which it refused before
@@ -189,7 +189,8 @@ def test_wrapper_refuses_configs_outside_the_slice():
     audio = torch.zeros((1, 1000))
     lengths = torch.tensor([1000], dtype=torch.int32)
     c60k, j60k = T_CONFIGS["classic13"].replace(n_mels=60000), J_CONFIGS["classic13"].replace(n_mels=60000)
-    assert frontend.layout_reason(c60k) is None and frontend.fft_plan(c60k) == "gather_sums"
+    assert frontend.layout_reason(c60k) is None and frontend.fft_plan(c60k) == "wide"
+    assert frontend.fft_layout(c60k, wide=False)[0] == "gather_sums"
     assert frontend.layout_reason(c60k, "bf16x3") is None and frontend.bf16_layout(c60k)[0] == "gather_out"
     x = np.round(np.random.default_rng(60000).standard_normal((2, 4000)) * 3000).astype(np.float32)
     lens = np.array([4000, 2500], np.int32)
@@ -346,7 +347,7 @@ def test_every_n_fft_from_16_to_2100_fits_a_form(case):
         earlier = frontend.FFT_LAYOUTS[: frontend.FFT_LAYOUTS.index(layout)]
         assert all(frontend._fft_smem(c, form, pl, True, g) > budget for pl, g in earlier), (n, layout)
     assert forms == {"stockham", "bluestein"}
-    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "cluster", "gather_bands",
+    assert {pl for pl, _ in layouts} == set(frontend.FFT_PLANS) - {"gather", "cluster", "wide", "gather_bands",
                                                                    "gather_rows", "gather_sums"}
     over = T_CONFIGS["classic13"].replace(n_fft=TOP_N_FFT + 1)
     assert frontend.layout_reason(over) is None and frontend.fft_plan(over) == "gather_bands"

@@ -1112,6 +1112,35 @@ def test_a_tail_layout_over_the_block_raises_on_the_card():
         assert bool(torch.isfinite(feat).all()) and bool((feat[mask == 0] == 0).all())
 
 
+@pytest.mark.parametrize("M", [1100, 16385, 40000])
+def test_tail_base_kernel_matches_reference(M):
+    """The split's base past 1,024 filters (where the split takes the shape,
+    from ~1,100 filters at 13 cepstra; tail_base_kernel: 64-frame
+    tiles, each warp a compensated sum over its stretches, the warps' sums
+    added in float64) on a front-end prefix: against the plain version at
+    the tail's gate, pad rows 0, two runs bitwise, its launch counted; a
+    prefix tensor that starts off the 16-byte boundary (a view one float
+    in) gives the same features."""
+    dev = _card()
+    cfg = NAMED_CONFIGS["classic13_deltas"].replace(n_mels=M)
+    assert tail.split_base(cfg) == "stretches"
+    g = np.random.default_rng(M)
+    audio = torch.as_tensor(np.round(g.standard_normal((3, 48000)) * 3000).astype(np.int16), device=dev)
+    lengths = torch.tensor([48000, 20011, 0], dtype=torch.int32, device=dev)
+    prefix, nv, mask = frontend.logmel_prefix_counts(audio, lengths, cfg)
+    tail.tail_launches = tail.tail_split_launches = tail.tail_base_launches = 0
+    got = tail.feature_tail(prefix, nv, cfg)
+    torch.cuda.synchronize()
+    assert (tail.tail_launches, tail.tail_split_launches, tail.tail_base_launches) == (1, 1 + cfg.deltas, 1)
+    errs = testing.tail_errors(got, tail.feature_tail_reference(prefix, nv, cfg))
+    assert not testing.tail_failures(errs), errs
+    assert bool((got[mask == 0] == 0).all())
+    assert torch.equal(_bits(got), _bits(tail.feature_tail(prefix, nv, cfg)))
+    shifted = torch.empty(prefix.numel() + 1, device=dev)[1:].view(prefix.shape)
+    shifted.copy_(prefix)
+    assert torch.equal(_bits(got), _bits(tail.feature_tail(shifted, nv, cfg)))
+
+
 GATHER_CASES = [
     ("classic13_deltas", {"hop_s": 0.2}),
     ("classic13_deltas", {"win_len_s": 3.0}),
@@ -1253,7 +1282,8 @@ def test_any_n_fft_matches_reference(name, overrides, plan, monkeypatch):
     assert torch.equal(got, frontend.logmel_prefix(audio, lengths, cfg))
 
 
-# tens of thousands of filters: (config, overrides, plan of the default route)
+# tens of thousands of filters: (config, overrides, plan of the default
+# route without the wide plan, which takes each)
 MANY_FILTER_CASES = [
     ("classic13_deltas", {"n_mels": 40000}, "gather_bands"),
     ("classic13", {"n_mels": 60000}, "gather_sums"),
@@ -1272,32 +1302,64 @@ def _bits(t):
 def test_many_filters_match_reference(name, overrides, plan, monkeypatch):
     """Tens of thousands of filters (refused before: over the packed table's
     filter field; from 57,849, 28,797 for SSC, the projection's sums over
-    the block, now in device memory, "gather_sums"): the kernel against the
-    float64 plain version on the CPU at the prefix gates (filters of at most
-    two weights at the per-bin gate; NaN, an SSC filter with no weight, in
-    the plain version's places), int16 ≡ float32, a NaN-filled workspace and
-    a persistent grid of 3 blocks, bitwise; counted by plan; the bf16x3
-    opt-in at the same config in "gather_out" against its plain version at
-    its gates."""
+    the block, "gather_sums"), in the wide plan (the projection filter by
+    filter over a tile of frames): the kernel against the float64 plain
+    version on the CPU at the prefix gates (filters of at most two weights
+    at the per-bin gate; NaN, an SSC filter with no weight, in the plain
+    version's places), int16 ≡ float32, a NaN-filled workspace and a
+    persistent grid of 3 blocks (which it does not use), bitwise; counted by
+    plan; the plan it replaced, forced, within the same gates, int16 ≡
+    float32, a NaN-filled workspace and a persistent grid of 3 blocks
+    bitwise ("gather_sums" keeps its SSC melf sums in that workspace), and
+    where every filter has one weight and its FFT stage runs the same
+    groups, bitwise the wide plan's; the bf16x3 opt-in at the same config in
+    "gather_out" against its plain version at its gates."""
     dev = _card()
     cfg = NAMED_CONFIGS[name].replace(**overrides)
-    assert frontend.fft_plan(cfg) == plan and chain.unsupported_reason(cfg) is None
+    assert frontend.fft_plan(cfg) == "wide" and chain.unsupported_reason(cfg) is None
+    assert frontend.fft_layout(cfg, wide=False)[0] == plan
     g = np.random.default_rng(cfg.n_mels)
     n = cfg.sample_rate
     lens = [n, n - 2345, 3 * cfg.frame_length // 2, 1]
     b = pad_batch([np.round(g.standard_normal(m) * 3000) for m in lens], cfg, bucket_len=n, dtype="int16")
     audio, lengths = torch.as_tensor(b.audio, device=dev), torch.as_tensor(b.lengths, device=dev)
-    frontend.gather_bands_launches = frontend.gather_sums_launches = 0
+    frontend.gather_bands_launches = frontend.gather_sums_launches = frontend.wide_launches = 0
     got = frontend.logmel_prefix(audio, lengths, cfg)
     torch.cuda.synchronize()
-    assert (frontend.gather_bands_launches, frontend.gather_sums_launches) == (
-        int(plan == "gather_bands"), int(plan == "gather_sums"))
+    assert (frontend.gather_bands_launches, frontend.gather_sums_launches, frontend.wide_launches) == (0, 0, 1)
     narrow = None  # the fp32 route's filters of at most two weights: the per-bin gate
     if cfg.features != "ssc":
         narrow = testing.narrow_lanes(chain.device_constants(cfg, torch.device("cpu"), torch.float32)["mel"])
+    want64 = frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64"))
+    own = frontend.fft_layout
+    with monkeypatch.context() as mp:
+        # the plan the wide plan replaced, forced: at the gates, int16 ≡
+        # float32, and a NaN-filled workspace and a persistent grid of 3
+        # blocks ("gather_sums" reads its workspace), bitwise
+        mp.setattr(frontend, "fft_layout", lambda cfg, form=None, int16=True, cluster=True, wide=True:
+                   own(cfg, form, int16, cluster, False))
+        parent = frontend.logmel_prefix(audio, lengths, cfg)
+        torch.cuda.synchronize()
+        assert (frontend.gather_bands_launches, frontend.gather_sums_launches) == (
+            int(plan == "gather_bands"), int(plan == "gather_sums"))
+        same_groups = frontend.wide_layout(cfg)[0] == own(cfg, wide=False)[1]
+        nan = torch.isnan(want64)
+        parent_c = parent.cpu()
+        assert torch.equal(torch.isnan(parent_c), nan)
+        errs = testing.prefix_errors(parent_c.masked_fill(nan, 0.0), want64.masked_fill(nan, 0.0), cfg.n_mels,
+                                     cfg.log_kind, cfg.features, narrow)
+        assert not testing.prefix_failures(errs), (plan, errs)
+        assert torch.equal(_bits(parent), _bits(frontend.logmel_prefix(audio.float(), lengths, cfg)))
+        _nan_workspace(mp)
+        assert torch.equal(_bits(parent), _bits(frontend.logmel_prefix(audio, lengths, cfg)))
+        mp.setattr(frontend, "_resident_blocks", lambda *args: 3)
+        assert torch.equal(_bits(parent), _bits(frontend.logmel_prefix(audio, lengths, cfg)))
+    if frontend.packed_count(cfg) == cfg.n_mels and same_groups:
+        assert torch.equal(_bits(got), _bits(parent))
+    else:
+        assert torch.equal(_bits(got[..., :-1]), _bits(parent[..., :-1]))  # the energy lane's group sums differ
     for passes, want, loud in (
-            ("radix4", frontend.logmel_prefix_reference(audio.cpu(), lengths.cpu(), cfg.replace(dtype="float64")),
-             None),
+            ("radix4", want64, None),
             ("bf16x3", None, testing.BF16X3_LOUD_ATOL)):
         if passes == "bf16x3":
             frontend.bf16_gather_out_launches = 0

@@ -252,8 +252,9 @@ def test_default_device_is_the_card(monkeypatch):
 def test_unsupported_config_raises_on_the_card(monkeypatch):
     """What the card still refuses, a float64 config, raises
     NotImplementedError before any launch; 60,000 filters, refused before
-    (over the packed mel table's filter field), are taken (the projection's
-    sums in device memory); n_fft 16384 with 0.9 s frames, refused before,
+    (over the packed mel table's filter field), are taken (the wide plan:
+    the projection filter by filter over a tile of frames; without it the
+    projection's sums in device memory); n_fft 16384 with 0.9 s frames, refused before,
     is taken (the cluster plan, each frame's FFT rows over a thread-block
     cluster; without it the packed bands read from device memory), and its
     stream on the CPU ≡ the offline chain."""
@@ -262,7 +263,8 @@ def test_unsupported_config_raises_on_the_card(monkeypatch):
     with pytest.raises(NotImplementedError, match="float32, not float64"):
         StreamingExtractor(T_CONFIGS["classic13"].replace(dtype="float64"))
     many = T_CONFIGS["classic13"].replace(n_mels=60000)
-    assert chain.unsupported_reason(many) is None and frontend.fft_plan(many) == "gather_sums"
+    assert chain.unsupported_reason(many) is None and frontend.fft_plan(many) == "wide"
+    assert frontend.fft_layout(many, wide=False)[0] == "gather_sums"
     cfg = T_CONFIGS["classic13"].replace(n_fft=16384, win_len_s=0.9)
     assert chain.unsupported_reason(cfg) is None and frontend.fft_plan(cfg) == "cluster"
     assert frontend.fft_layout(cfg, cluster=False)[0] == "gather_bands"
